@@ -7,23 +7,38 @@ Phases, each of which fails the script (non-zero exit, no result line):
 
 1. environment: torch/CUDA versions, the card's name and power limit; the
    CUDA kernels build from ``src/repro_torch/csrc`` with nvcc for sm_90a;
-2. every kernel of the main path against its plain PyTorch version on the
-   card, at the main path's shapes: ``ring_poll`` bit-exact over a ring
-   mixing every status, ``ifunc_vm`` on fixed programs (2e-5) and seeded
-   random programs using every opcode (5e-4 on finite entries);
-3. the example's shape end to end (8 shards x 2 slots x 2 tiles, shift 1)
-   through ``Dispatcher`` -> ``DeviceMeshFabric``, held against
-   relu(x @ W) of the neighbour's payload;
-4. full width: 8 shards x 64 slots x 2 tiles of 128x128 f32 (512
-   ``uvm_affine`` frames of 128 KiB, a 64 MiB mailbox) for 3 generations,
-   then one corrupt frame (REJECTED) and one put whose generation lands
-   before its trailer (IN_PROGRESS, then OK);
-5. timings: each kernel by CUDA events beside its plain version, its
+2. every kernel of both paths against its plain PyTorch version on the
+   card, at the paths' shapes: ``ring_poll`` bit-exact over a ring mixing
+   every status, ``agg_ring_poll`` bit-exact over aggregate rings mixing
+   every container and sub status (K = 4 and 64, a high-bit bound hash
+   and bound 0), ``ifunc_vm`` on fixed programs (2e-5) and seeded random
+   programs using every opcode (5e-4 on finite entries);
+3. the singleton lane at the example's shape (8 shards x 2 slots x 2
+   tiles, shift 1) through ``Dispatcher`` -> ``DeviceMeshFabric``, held
+   against relu(x @ W) of the neighbour's payload;
+4. the singleton lane at full width: 8 shards x 64 slots x 2 tiles of
+   128x128 f32 (512 ``uvm_affine`` frames of 128 KiB, a 64 MiB mailbox)
+   for 3 generations, then one corrupt frame (REJECTED) and one put whose
+   generation lands before its trailer (IN_PROGRESS, then OK);
+5. singleton timings: each kernel's own device time (torch.profiler)
+   beside the CUDA-event time of its wrapper, its plain version, its
    bound and, where one exists, a PyTorch library call; the path's
-   frames/s.
-6. where a generation's time goes: host timers around the channel's put
-   and the mailbox's publish and sweep in one more generation, and the
-   card's busy time under torch.profiler in another.
+   frames/s;
+6. where a singleton generation's time goes: host timers around the
+   channel's put and the mailbox's publish and sweep in one more
+   generation, and the card's busy time under torch.profiler in another;
+7. the aggregate lane's five behaviours (8 shards, shift 1, K = 4): a
+   batch executes; a NACKed sub-record is rebuilt alone; a poisoned one
+   errors with its siblings unharmed; a corrupt container is rejected
+   whole and the lane reused; a singleton on the agg-bound lane runs;
+8. the aggregate lane at full width: 8 shards x 4 slots, K = 64 sub-records
+   of one 128x128 tile each (2,048 coalesced ``uvm_affine`` records, 32
+   containers, 4 deposits and one sweep per generation, a 134 MB mailbox)
+   for 3 generations, every result held against relu(x @ W);
+9. aggregate timings: ``agg_ring_poll`` and ``ifunc_vm`` at the sweep's
+   shapes as in phase 5, the lane's sub-records/s split into send and
+   drain, host timers over one more generation as in phase 6, and the
+   SMs' idle share over another.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's ``nvidia-smi`` name and power limit; before that the ``kernels``
@@ -41,6 +56,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 
 T, NT, SHARDS = 128, 2, 8          # tile, tiles per frame, shards
 SLOTS_FULL, GENERATIONS = 64, 3    # full width: 8 x 64 slots, 3 generations
+AGG_K, AGG_SLOTS = 64, 4           # aggregate lane: K subs x 4 slots a shard
+AGG_SUB_BYTES = 128 << 10          # max_sub_bytes: a 64 KiB tile coalesces
 TOL_FIXED, TOL_RANDOM = 2e-5, 5e-4
 TOL_PATH = dict(rtol=1e-4, atol=1e-5)
 
@@ -94,6 +111,36 @@ def cuda_ms(torch, fn, iters, repeats=5):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / iters)
     return statistics.median(times)
+
+
+def device_ms(torch, fn, kernel, iters=50):
+    """The kernel's own device time per launch (ms) under torch.profiler,
+    over ``iters`` calls of ``fn`` after a warm-up call; None when the
+    profiler records no device time for a kernel whose name holds
+    ``kernel``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if kernel in e.key and e.count:
+            return e.device_time_total / e.count / 1e3
+    return None
+
+
+def kernel_times(torch, fn, kernel, iters):
+    """(device ms, wrapper ms): the kernel's own time where the profiler
+    sees it, else the CUDA-event time of the wrapper, and the latter."""
+    wrapper = cuda_ms(torch, fn, iters)
+    dev = device_ms(torch, fn, kernel, iters)
+    if dev is None:
+        log(f"{kernel}: device time not measured (torch.profiler recorded "
+            f"none); ms is the wrapper's")
+    return (wrapper if dev is None else dev), wrapper
 
 
 def card_peaks(name):
@@ -342,17 +389,21 @@ def check_results(torch, got, want, what):
 
 
 def reset_counts():
+    from repro_torch.kernels.agg_poll import agg_ring_poll
     from repro_torch.kernels.ifunc_vm import ifunc_vm
     from repro_torch.kernels.ring_poll import ring_poll
 
-    ring_poll.launches = ifunc_vm.launches = 0
+    ring_poll.launches = agg_ring_poll.launches = ifunc_vm.launches = 0
 
 
 def read_counts():
+    from repro_torch.kernels.agg_poll import agg_ring_poll
     from repro_torch.kernels.ifunc_vm import ifunc_vm
     from repro_torch.kernels.ring_poll import ring_poll
 
-    return {"ring_poll": ring_poll.launches, "ifunc_vm": ifunc_vm.launches}
+    return {"ring_poll": ring_poll.launches,
+            "agg_ring_poll": agg_ring_poll.launches,
+            "ifunc_vm": ifunc_vm.launches}
 
 
 def phase_example(np, torch, dev):
@@ -361,7 +412,9 @@ def phase_example(np, torch, dev):
     reset_counts()
     send_generation(d, h, pays)
     counts = read_counts()
-    check(min(counts.values()) > 0, f"example: kernels not launched {counts}")
+    check(counts["ring_poll"] > 0 and counts["ifunc_vm"] > 0
+          and counts["agg_ring_poll"] == 0,
+          f"example: kernels not launched as the lane needs {counts}")
     got = d.peers["gpu-mesh"].target_args["results"]
     check_results(torch, got, expected(torch, pays, Ws, 1, dev), "example")
     log(f"example shape {SHARDS} shards x 2 slots x {NT} tiles: {SHARDS} "
@@ -391,8 +444,9 @@ def phase_full(np, torch, dev):
             f"ifunc_msg_create {create_s:.4f} s), drain {drain_s:.4f} s, "
             f"{n / (send_s + drain_s):.1f} frames/s")
     counts = read_counts()
-    check(min(counts.values()) > 0, f"main path: kernels not launched "
-                                    f"{counts}")
+    check(counts["ring_poll"] > 0 and counts["ifunc_vm"] > 0
+          and counts["agg_ring_poll"] == 0,
+          f"main path: kernels not launched as the lane needs {counts}")
     check(peer.credits == n, f"credits {peer.credits} after drain, want {n}")
     check(int(mb._mb.abs().sum().item()) == 0, "mailbox not cleared")
 
@@ -449,7 +503,8 @@ def phase_timings(np, torch, dev, d, counts, rates, errs):
         for _ in range(n_slots)]).reshape(SHARDS, SLOTS_FULL, W)
     ring = mailbox_from_numpy(words, dev)
     flat = ring.reshape(n_slots, W)
-    rp_ms = cuda_ms(torch, lambda: ring_poll(flat), 200)
+    rp_ms, rp_wrap = kernel_times(torch, lambda: ring_poll(flat),
+                                  "ring_poll_kernel", 200)
     rp_plain = cuda_ms(torch, lambda: ring_poll_plain(flat), 50)
     rp_bytes = n_slots * (HDR_WORDS + 1) * 4 + n_slots * 4
     rp_bound = rp_bytes / bw * 1e3
@@ -461,7 +516,8 @@ def phase_timings(np, torch, dev, d, counts, rates, errs):
     vm_err = (out - ref).abs().max().item()
     check(torch.allclose(out, ref, rtol=TOL_FIXED, atol=TOL_FIXED),
           f"ifunc_vm uvm_affine max |err| {vm_err:.3g}")
-    vm_ms = cuda_ms(torch, lambda: ifunc_vm(prog, pay, ext), 20)
+    vm_ms, vm_wrap = kernel_times(torch, lambda: ifunc_vm(prog, pay, ext),
+                                  "ifunc_vm_kernel", 20)
     vm_plain = cuda_ms(torch, lambda: ifunc_vm_plain(prog, pay, ext), 10)
     x4 = pay.view(SHARDS, n_tiles // SHARDS, T, T)
     w4 = ext[:, 0][:, None]
@@ -488,21 +544,25 @@ def phase_timings(np, torch, dev, d, counts, rates, errs):
          "source": "src/repro_torch/csrc/ring_poll.cu",
          "replaces": "src/repro/kernels/ring_poll.py:54",
          "launches": counts["ring_poll"], "max_abs_err": errs["ring_poll"],
-         "ms": rp_ms, "plain_ms": rp_plain, "bound_ms": rp_bound,
+         "ms": rp_ms, "wrapper_ms": rp_wrap, "plain_ms": rp_plain,
+         "bound_ms": rp_bound,
          "bound_by": "bytes", "library_ms": None},
         {"name": "ifunc_vm", "route": "cuda",
          "source": "src/repro_torch/csrc/ifunc_vm.cu",
          "replaces": "src/repro/kernels/ifunc_vm.py:94",
          "launches": counts["ifunc_vm"],
          "max_abs_err": max(vm_err, errs["ifunc_vm"]),
-         "ms": vm_ms, "plain_ms": vm_plain, "bound_ms": vm_bound,
+         "ms": vm_ms, "wrapper_ms": vm_wrap, "plain_ms": vm_plain,
+         "bound_ms": vm_bound,
          "bound_by": ("operations" if vm_bound_ops >= vm_bound_bytes
                       else "bytes"),
          "library_ms": vm_lib},
     ]
-    log(f"ring_poll {n_slots} slots: {rp_ms:.4f} ms (plain {rp_plain:.4f}, "
-        f"bound {rp_bound:.3g} ms by {rp_bytes} B)")
-    log(f"ifunc_vm uvm_affine {n_tiles} tiles: {vm_ms:.4f} ms (plain "
+    log(f"ring_poll {n_slots} slots: {rp_ms:.4f} ms on the card (wrapper "
+        f"{rp_wrap:.4f}, plain {rp_plain:.4f}, bound {rp_bound:.3g} ms by "
+        f"{rp_bytes} B)")
+    log(f"ifunc_vm uvm_affine {n_tiles} tiles: {vm_ms:.4f} ms on the card "
+        f"(wrapper {vm_wrap:.4f}, plain "
         f"{vm_plain:.4f}, torch.relu(torch.matmul) {vm_lib:.4f}, bound "
         f"{vm_bound:.4f} ms: {vm_flops / 1e9:.3f} GFLOP -> "
         f"{vm_bound_ops:.4f} ms, {vm_bytes / 2 ** 20:.0f} MiB -> "
@@ -537,15 +597,9 @@ def send_generation(d, h, pays):
     return t1 - t0, time.perf_counter() - t1, create
 
 
-def phase_breakdown(np, torch, d, h, rates):
-    """Where a generation's time goes, from two more generations of the
-    main path: one with host timers around the channel's put and the
-    mailbox's publish and sweep (a traced run, apart from the untraced
-    ones phase 4 reports), one under torch.profiler for the card's busy
-    time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def traced_lane(d, run):
+    """``run()`` with host timers around the lane's channel put and its
+    mailbox's publish and sweep; returns (seconds in each, its result)."""
     peer = d.peers["gpu-mesh"]
     lanes = {"put": peer.rings[0].channel, "publish": peer.rings[0].mailbox,
              "sweep": peer.rings[0].mailbox}
@@ -560,16 +614,28 @@ def phase_breakdown(np, torch, d, h, rates):
                 spent[key] += time.perf_counter() - t0
         return wrapper
 
-    rng = np.random.default_rng(11)
-    n = SHARDS * SLOTS_FULL
     for key, obj in lanes.items():
         setattr(obj, key, timed(key, getattr(obj, key)))
     try:
-        send_s, drain_s, create = send_generation(
-            d, h, rng.standard_normal((n, NT, T, T)).astype(np.float32))
+        out = run()
     finally:
         for key, obj in lanes.items():
             delattr(obj, key)               # back to the class's method
+    return spent, out
+
+
+def phase_breakdown(np, torch, d, h, rates):
+    """Where a generation's time goes, from two more generations of the
+    main path: one with host timers around the channel's put and the
+    mailbox's publish and sweep (a traced run, apart from the untraced
+    ones phase 4 reports), one under torch.profiler for the card's busy
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(11)
+    n = SHARDS * SLOTS_FULL
+    spent, (send_s, drain_s, create) = traced_lane(d, lambda: send_generation(
+        d, h, rng.standard_normal((n, NT, T, T)).astype(np.float32)))
     total = send_s + drain_s
     wall = statistics.median(a + b for a, b, _ in rates)
     log(f"host breakdown of one traced generation: ifunc_msg_create "
@@ -583,16 +649,25 @@ def phase_breakdown(np, torch, d, h, rates):
                              ProfilerActivity.CUDA]) as prof:
         send_generation(
             d, h, rng.standard_normal((n, NT, T, T)).astype(np.float32))
-    # device-side records only: the CPU-side op that launched a copy or a
-    # kernel carries the same device time again; "Activity Buffer
-    # Request" is the profiler's own
+    log_card_busy(prof, wall, "card per generation")
+
+
+def log_card_busy(prof, wall, what):
+    """Log the card's busy time in a torch.profiler trace of one
+    generation against the untraced ``wall`` seconds of one; returns the
+    SMs' idle share, None when the trace holds no device time.  Device-side
+    records only: the CPU-side op that launched a copy or a kernel carries
+    the same device time again; "Activity Buffer Request" is the
+    profiler's own."""
+    from torch.autograd import DeviceType
+
     events = [e for e in prof.events()
               if e.device_type == DeviceType.CUDA
               and not e.name.startswith("Activity Buffer")]
     if not events:
-        log("card busy time: not measured (torch.profiler recorded no "
-            "device time)")
-        return
+        log(f"{what}: card busy time not measured (torch.profiler recorded "
+            f"no device time)")
+        return None
     copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
     copy_s = sum(e.device_time_total for e in copies) / 1e6
     kern_s = sum(e.device_time_total for e in events) / 1e6 - copy_s
@@ -602,11 +677,418 @@ def phase_breakdown(np, torch, d, h, rates):
             by_name[e.name[:48]] = (by_name.get(e.name[:48], 0.0)
                                     + e.device_time_total / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    log(f"card per generation (torch.profiler, {len(events)} device "
-        f"records): kernels {kern_s:.4f} s, so the SMs sit idle "
-        f"{1 - kern_s / wall:.4f} of the untraced {wall:.4f} s; copies "
-        f"{copy_s:.4f} s ({len(copies)}); most kernel time: "
-        + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
+    idle = 1 - kern_s / wall
+    log(f"{what} (torch.profiler, {len(events)} device records): kernels "
+        f"{kern_s:.4f} s, so the SMs sit idle {idle:.4f} of the untraced "
+        f"{wall:.4f} s; copies {copy_s:.4f} s ({len(copies)}); most kernel "
+        f"time: " + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
+    return idle
+
+
+def make_agg_ring(np, rng, n, k, body_words, bound):
+    """A uint32 ring of ``n`` aggregate slots cycling through every
+    container and sub state, and the container status each must get:
+    empty (zeros, and garbage behind magic 0); READY with every sub READY,
+    with mixed hashes (NACKs, high-bit hashes), with a poisoned sub, with
+    garbage in its unoccupied descriptors; a corrupt container, a withheld
+    trailer, n_subs = 0xFFFFFFFF and K + 1 (negative and one past K), and
+    a bad magic (BAD or INFLIGHT)."""
+    from repro_torch.core.device_mailbox import pack_agg_word_frame
+    from repro_torch.kernels.agg_poll import AGG_MAGIC
+    from repro_torch.kernels.ring_poll import (BAD, EMPTY, HDR_WORDS,
+                                               INFLIGHT, READY)
+
+    W = HDR_WORDS + 2 * k + k * body_words + 1
+    pay = [rng.standard_normal(body_words).astype(np.float32)
+           for _ in range(k)]
+    b = bound or 0xC0FFEE01              # the hash a matching sub carries
+    other = 0x9000ABCD if bound == 0x8000ABCD else 0x8000ABCD
+
+    def pack(m, hashes=None, **kw):
+        return pack_agg_word_frame(pay[:m], hashes or [b] * m, k, body_words,
+                                   W, **kw)
+
+    ring = np.zeros((n, W), np.uint32)
+    want = np.zeros(n, np.int32)
+    for i in range(n):
+        kind = i % 12
+        m = 1 + int(rng.integers(0, k))                # occupied subs
+        if kind == 0:
+            want[i] = EMPTY
+        elif kind == 1:                                # magic 0, garbage
+            ring[i] = rng.integers(0, 2 ** 32, W, dtype=np.uint32)
+            ring[i, 0] = 0
+            want[i] = EMPTY
+        elif kind in (2, 11):
+            ring[i] = pack(k if kind == 11 else m)
+            want[i] = READY
+        elif kind == 3:                                # NACKs, high bits
+            ring[i] = pack(m, [int(h) for h in rng.choice(
+                [b, other, 0xFFFFFFFF], m)])
+            want[i] = READY
+        elif kind == 4:
+            ring[i] = pack(m, corrupt_sub=int(rng.integers(0, m)))
+            want[i] = READY
+        elif kind == 5:
+            ring[i] = pack(m, corrupt=True)
+            want[i] = BAD
+        elif kind == 6:
+            ring[i] = pack(m, no_trailer=True)
+            want[i] = INFLIGHT
+        elif kind in (7, 8):                           # n_subs out of bounds
+            n_subs = 0xFFFFFFFF if kind == 7 else k + 1
+            ring[i] = pack(m)
+            ring[i, 1] = n_subs
+            ring[i, 4] = AGG_MAGIC ^ n_subs ^ 3
+            want[i] = BAD
+        elif kind == 9:
+            ring[i] = pack(m)
+            ring[i, 0] ^= 0x100                        # bad magic
+            want[i] = BAD
+        else:                                          # kind 10
+            ring[i] = pack(m)
+            ring[i, HDR_WORDS + 2 * m:HDR_WORDS + 2 * k] = rng.integers(
+                0, 2 ** 32, 2 * (k - m), dtype=np.uint32)
+            want[i] = READY
+    return ring, want
+
+
+def phase_agg_kernel(np, torch, dev):
+    """``agg_ring_poll`` against its plain version, bit-exact, on mixed
+    rings of the aggregate path's 32 slots at K = 4 and K = 64, with a
+    high-bit bound hash and with bound 0; returns the largest |diff|."""
+    from repro_torch.convert import mailbox_from_numpy
+    from repro_torch.kernels.agg_poll import agg_ring_poll, agg_ring_poll_plain
+    from repro_torch.kernels.ring_poll import HDR_WORDS
+
+    rng = np.random.default_rng(4)
+    n = SHARDS * AGG_SLOTS
+    worst = 0
+    for k in (4, AGG_K):
+        for bound in (0x8000ABCD, 0):
+            ring_np, want = make_agg_ring(np, rng, n, k, T * T, bound)
+            mb = mailbox_from_numpy(ring_np, dev)
+            hdr, tr = mb[:, :HDR_WORDS + 2 * k], mb[:, -1:]
+            st, sub = agg_ring_poll(hdr, tr, bound)
+            st_p, sub_p = agg_ring_poll_plain(hdr, tr, bound)
+            torch.cuda.synchronize()
+            worst = max(worst, int((st - st_p).abs().max().item()),
+                        int((sub - sub_p).abs().max().item()))
+            check(torch.equal(st, st_p) and torch.equal(sub, sub_p),
+                  f"agg_ring_poll K={k} bound={bound:#x}: kernel != plain")
+            check(np.array_equal(st.cpu().numpy(), want),
+                  f"agg_ring_poll K={k}: statuses != the ring's")
+            subs = np.bincount(sub.cpu().numpy().reshape(-1), minlength=5)
+            log(f"agg_ring_poll K={k} bound={bound:#x}: {n} slots x "
+                f"{mb.shape[1]} words bit-exact vs plain (containers "
+                f"{np.bincount(want, minlength=4).tolist()}, subs "
+                f"EMPTY/READY/BAD/NACK {subs[[0, 1, 3, 4]].tolist()})")
+    return worst
+
+
+def build_agg_path(np, torch, dev, n_slots, agg_k, seed,
+                   flush_threshold=8):
+    """A coalescing Dispatcher with one agg-bound lane on
+    DeviceMeshFabric(8, shift=1) running uvm_affine, W[s] on shard s; a
+    reply router filing (value, is_err) by corr id."""
+    from repro_torch.core import Context, register_ifunc
+    from repro_torch.core.codegen import deserialize_uvm
+    from repro_torch.transport import (DeviceMeshFabric, Dispatcher,
+                                       ProgressEngine)
+
+    src = Context("host-source")
+    handle = register_ifunc(src, "uvm_affine")
+    rng = np.random.default_rng(seed)
+    Ws = (rng.standard_normal((SHARDS, T, T)) * 0.05).astype(np.float32)
+    d = Dispatcher(src, ProgressEngine(flush_threshold=flush_threshold,
+                                       inflight_window="trailer"))
+    d.set_coalescing(True, max_subs=agg_k, max_sub_bytes=AGG_SUB_BYTES)
+    d.add_peer("gpu-mesh", DeviceMeshFabric(SHARDS, shift=1, device=dev),
+               None, n_slots=n_slots,
+               slot_size=agg_k * (T * T * 4 + 128) + 4096,
+               prog=deserialize_uvm(handle.lib.code), n_tiles=1,
+               externals=Ws[:, None], agg_k=agg_k,
+               prog_name=handle.lib.name)
+    replies = {}
+    d.reply_router = lambda corr, name, value, is_err, decoded: \
+        replies.__setitem__(corr, (value, is_err))
+    return d, handle, torch.from_numpy(Ws).to(dev), rng, replies
+
+
+def agg_want(torch, dev, pays, Ws, first_tail, agg_k):
+    """relu(x @ W) for records sent in containers of ``agg_k`` from
+    produce index ``first_tail`` on: a container staged at shard s lands
+    on shard s + 1."""
+    x = torch.from_numpy(pays).to(dev)                    # [n, 1, T, T]
+    tails = first_tail + torch.arange(len(pays), device=dev) // agg_k
+    landed = (tails % SHARDS + 1) % SHARDS
+    return torch.relu(torch.matmul(x[:, 0], Ws[landed]))[:, None]
+
+
+def phase_agg_example(np, torch, dev):
+    """The reference's five device-aggregate behaviours on the card."""
+    from repro_torch.core import ifunc_msg_create
+    from repro_torch.kernels.agg_poll import SUB_SALT
+    from repro_torch.kernels.ring_poll import HDR_WORDS
+
+    k = 4
+    reset_counts()
+
+    def fresh(seed):
+        d, h, Ws, rng, replies = build_agg_path(np, torch, dev, 2, k, seed)
+        xs = rng.standard_normal((3, 1, T, T)).astype(np.float32)
+        return d, h, Ws, replies, d.peers["gpu-mesh"], xs
+
+    def close(got, want, what):
+        check(got.shape == want.shape and bool(torch.isfinite(got).all())
+              and torch.allclose(got, want, **TOL_PATH),
+              f"agg example, {what}: max |err| "
+              f"{(got - want).abs().max().item():.3g}")
+
+    # 1. K coalesced sends: ONE container, ONE sweep, every result right
+    d, h, Ws, _, peer, xs = fresh(1)
+    check(d.send_ifunc_many("gpu-mesh", h, list(xs)) == 3, "batch refused")
+    check((peer.stats["agg_sent"], peer.stats["agg_subs"]) == (1, 3),
+          f"batch: not one container of 3 {peer.stats}")
+    check(d.drain() == 3, "batch: not 3 delivered")
+    res = peer.target_args["results"]
+    check(len(res) == 3, f"batch: {len(res)} results")
+    close(torch.stack(res), agg_want(torch, dev, xs, Ws, 0, k), "batch")
+
+    # 2. a hash-mismatched sub NACKs alone: only it is rebuilt FULL
+    d, h, Ws, replies, peer, xs = fresh(2)
+    mb = peer.rings[0].mailbox
+    check(d.send_ifunc_many("gpu-mesh", h, list(xs), corr_ids=[1, 2, 3])
+          == 3, "nack: refused")
+    mb._staged[0, 0, HDR_WORDS + 2] = 0x1234
+    mb._staged[0, 0, HDR_WORDS + 3] = 0x1234 ^ SUB_SALT
+    check(d.drain() == 3, "nack: not 3 delivered")
+    check((peer.stats["nacks"], peer.stats["resent"]) == (1, 1),
+          f"nack: {peer.stats}")
+    check(len(peer.target_args["results"]) == 3 and sorted(replies) ==
+          [1, 2, 3] and not any(e for _, e in replies.values()),
+          "nack: siblings replayed or a result lost")
+    close(replies[1][0], agg_want(torch, dev, xs[:1], Ws, 0, k)[0], "nack 1")
+    close(replies[2][0], agg_want(torch, dev, xs[1:2], Ws, 1, k)[0],
+          "nack rebuilt")
+    close(replies[3][0], agg_want(torch, dev, xs[2:], Ws, 0, k)[0], "nack 3")
+
+    # 3. a poisoned sub errors, its siblings unharmed
+    d, h, Ws, replies, peer, xs = fresh(3)
+    mb = peer.rings[0].mailbox
+    check(d.send_ifunc_many("gpu-mesh", h, list(xs),
+                            corr_ids=[11, 12, 13]) == 3, "poison: refused")
+    mb._staged[0, 0, HDR_WORDS + 3] ^= 1
+    d.drain()
+    check(sorted(replies) == [11, 12, 13] and replies[12][1]
+          and "poisoned" in str(replies[12][0]),
+          f"poison: replies {sorted(replies)}")
+    check(not replies[11][1] and not replies[13][1], "poison: sibling hurt")
+    want = agg_want(torch, dev, xs, Ws, 0, k)
+    close(replies[11][0], want[0], "poison sibling 11")
+    close(replies[13][0], want[2], "poison sibling 13")
+    check(peer.stats["rejected"] == 1
+          and len(peer.target_args["results"]) == 2, "poison: counts")
+
+    # 4. a corrupt container is rejected whole; the lane then runs again
+    d, h, Ws, replies, peer, xs = fresh(4)
+    mb = peer.rings[0].mailbox
+    check(d.send_ifunc_many("gpu-mesh", h, list(xs),
+                            corr_ids=[21, 22, 23]) == 3, "corrupt: refused")
+    mb._staged[0, 0, 4] ^= 1
+    d.drain()
+    check(peer.stats["rejected"] == 1 and not peer.target_args.get(
+        "results") and sorted(replies) == [21, 22, 23]
+          and all(e for _, e in replies.values()),
+          f"corrupt: not rejected whole {peer.stats}")
+    check(int(mb._mb.abs().sum().item()) == 0, "corrupt: slot not cleared")
+    check(d.send_ifunc_many("gpu-mesh", h, list(xs[:2])) == 2 and
+          d.drain() == 2, "corrupt: lane not reusable")
+    close(torch.stack(peer.target_args["results"]),
+          agg_want(torch, dev, xs[:2], Ws, 1, k), "after corrupt")
+
+    # 5. a singleton on the agg-bound lane: a 1-sub container
+    d, h, Ws, replies, peer, xs = fresh(5)
+    check(d.send("gpu-mesh", ifunc_msg_create(h, xs[0], corr_id=77)),
+          "singleton refused")
+    check(d.drain() == 1 and list(replies) == [77] and not replies[77][1],
+          "singleton: not delivered")
+    close(replies[77][0], agg_want(torch, dev, xs[:1], Ws, 0, k)[0],
+          "singleton")
+    counts = read_counts()
+    check(counts["ring_poll"] == 0 and counts["agg_ring_poll"] > 0
+          and counts["ifunc_vm"] > 0, f"agg example launches {counts}")
+    log(f"agg example (8 shards, shift 1, K={k}): batch, NACK rebuilt "
+        f"alone, poisoned sub, corrupt container then reuse, singleton — "
+        f"all hold; launches {counts}")
+
+
+def send_agg_generation(d, h, pays, corr_ids):
+    """Send one generation through ``send_ifunc_many`` and drain it,
+    ending in a synchronize; returns the host seconds of (send, drain)."""
+    import torch
+
+    t0 = time.perf_counter()
+    got = d.send_ifunc_many("gpu-mesh", h, list(pays), corr_ids=corr_ids)
+    t1 = time.perf_counter()
+    check(got == len(pays), f"accepted {got} of {len(pays)} records")
+    done = d.drain()
+    torch.cuda.synchronize()
+    check(done == len(pays), f"drained {done} of {len(pays)} records")
+    return t1 - t0, time.perf_counter() - t1
+
+
+def phase_agg_full(np, torch, dev):
+    """The aggregate lane at full width; returns (launch counts, per
+    generation (send, drain) seconds, the dispatcher)."""
+    d, h, Ws, rng, replies = build_agg_path(np, torch, dev, AGG_SLOTS, AGG_K,
+                                            seed=6)
+    peer = d.peers["gpu-mesh"]
+    mb = peer.rings[0].mailbox
+    n_cont = SHARDS * AGG_SLOTS
+    n = n_cont * AGG_K
+    gens = [rng.standard_normal((n, 1, T, T)).astype(np.float32)
+            for _ in range(GENERATIONS)]
+    torch.cuda.synchronize()
+    reset_counts()
+    rates = []
+    for g, pays in enumerate(gens):
+        before = read_counts()
+        corr = list(range(g * n + 1, (g + 1) * n + 1))
+        send_s, drain_s = send_agg_generation(d, h, pays, corr)
+        now = read_counts()
+        delta = {key: now[key] - before[key] for key in now}
+        check(delta["agg_ring_poll"] >= 1 and delta["ifunc_vm"] >= 1
+              and delta["ring_poll"] == 0,
+              f"generation {g}: launches {delta}")
+        got = [replies.pop(c) for c in corr]
+        check(not any(e for _, e in got), f"generation {g}: error replies")
+        vals = torch.stack([v for v, _ in got])
+        want = agg_want(torch, dev, pays, Ws, g * n_cont, AGG_K)
+        check(vals.shape == want.shape and bool(torch.isfinite(vals).all())
+              and torch.allclose(vals, want, **TOL_PATH),
+              f"generation {g}: max |err| "
+              f"{(vals - want).abs().max().item():.3g}")
+        rates.append((send_s, drain_s))
+        log(f"agg generation {g}: {n} records in {n_cont} containers, "
+            f"send {send_s:.4f} s, drain {drain_s:.4f} s, "
+            f"{n / (send_s + drain_s):.1f} sub-records/s; launches {delta}")
+    counts = read_counts()
+    st = peer.stats
+    check(len(peer.target_args["results"]) == GENERATIONS * n,
+          "results lost")
+    check((st["agg_sent"], st["agg_subs"], st["nacks"], st["rejected"])
+          == (GENERATIONS * n_cont, GENERATIONS * n, 0, 0),
+          f"agg full width stats {st}")
+    check(peer.credits == n_cont and int(mb._mb.abs().sum().item()) == 0,
+          "agg full width: credits not back or mailbox not cleared")
+    log(f"agg full width: {GENERATIONS} generations x {n} records, every "
+        f"result within rtol {TOL_PATH['rtol']}, atol {TOL_PATH['atol']}; "
+        f"mailbox {SHARDS} x {AGG_SLOTS} x {mb.slot_words} int32 "
+        f"({mb._mb.numel() * 4 / 1e6:.1f} MB); launches {counts}")
+    return counts, rates, d
+
+
+def phase_agg_timings(np, torch, dev, d, counts, rates, err):
+    """``agg_ring_poll`` and ``ifunc_vm`` at the aggregate sweep's shapes,
+    the lane's rates and the card's idle share; returns the
+    ``agg_ring_poll`` kernels-line entry and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.convert import mailbox_from_numpy
+    from repro_torch.core.device_mailbox import (make_agg_sweep,
+                                                 pack_agg_word_frame)
+    from repro_torch.kernels.agg_poll import agg_ring_poll, agg_ring_poll_plain
+    from repro_torch.kernels.ifunc_vm import ifunc_vm, ifunc_vm_plain
+    from repro_torch.kernels.ring_poll import HDR_WORDS
+
+    bw, fp32 = card_peaks(torch.cuda.get_device_name(0))
+    peer = d.peers["gpu-mesh"]
+    mb = peer.rings[0].mailbox
+    prog, ext, bound = mb.prog, mb.externals, mb.bound_hash
+    k, body, W = AGG_K, T * T, mb.slot_words
+    n_slots = SHARDS * AGG_SLOTS
+    n_tiles = n_slots * k
+    hw = HDR_WORDS + 2 * k
+    rng = np.random.default_rng(12)
+    n = n_tiles                             # records per generation
+
+    # one traced generation with host timers, one under torch.profiler,
+    # right after the untraced ones and before the timings' allocations
+    h = d.src_ctx.handles["uvm_affine"]
+    wall = statistics.median(s + dr for s, dr in rates)
+    corr = iter(range(10 ** 6, 10 ** 7))
+    spent, (send_s, drain_s) = traced_lane(d, lambda: send_agg_generation(
+        d, h, rng.standard_normal((n, 1, T, T)).astype(np.float32),
+        [next(corr) for _ in range(n)]))
+    total = send_s + drain_s
+    log(f"host breakdown of one traced agg generation: put (parse + "
+        f"transcode + stage) {spent['put']:.4f} s, publish (H2D + deposit) "
+        f"{spent['publish']:.4f} s, sweep {spent['sweep']:.4f} s, the rest "
+        f"(payload packing in send_ifunc_many, dispatcher, engine, "
+        f"completion) {total - sum(spent.values()):.4f} s; total "
+        f"{total:.4f} s (untraced median {wall:.4f} s)")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        send_agg_generation(
+            d, h, rng.standard_normal((n, 1, T, T)).astype(np.float32),
+            [next(corr) for _ in range(n)])
+    idle = log_card_busy(prof, wall, "card per agg generation")
+
+    # a ring of full READY containers, as the path's sweep sees it
+    words = np.stack([pack_agg_word_frame(
+        list(rng.standard_normal((k, body)).astype(np.float32)), [bound] * k,
+        k, body, W) for _ in range(n_slots)])
+    ring = mailbox_from_numpy(words, dev).reshape(SHARDS, AGG_SLOTS, W)
+    flat = ring.reshape(n_slots, W)
+    hdr, tr = flat[:, :hw], flat[:, -1:]
+    ap_ms, ap_wrap = kernel_times(
+        torch, lambda: agg_ring_poll(hdr, tr, bound), "agg_poll_kernel", 200)
+    ap_plain = cuda_ms(torch, lambda: agg_ring_poll_plain(hdr, tr, bound), 50)
+    ap_bytes = n_slots * ((hw + 1) * 4 + (1 + k) * 4)
+    ap_bound = ap_bytes / bw * 1e3
+
+    tiles = flat[:, hw:hw + k * body].contiguous().view(torch.float32) \
+        .reshape(n_tiles, T, T)
+    out, ref = ifunc_vm(prog, tiles, ext), ifunc_vm_plain(prog, tiles, ext)
+    vm_err = (out - ref).abs().max().item()
+    check(torch.allclose(out, ref, rtol=TOL_FIXED, atol=TOL_FIXED),
+          f"ifunc_vm {n_tiles} tiles max |err| {vm_err:.3g}")
+    vm_ms, vm_wrap = kernel_times(torch, lambda: ifunc_vm(prog, tiles, ext),
+                                  "ifunc_vm_kernel", 10)
+    vm_plain = cuda_ms(torch, lambda: ifunc_vm_plain(prog, tiles, ext), 5)
+    x4 = tiles.view(SHARDS, n_tiles // SHARDS, T, T)
+    w4 = ext[:, 0][:, None]
+    vm_lib = cuda_ms(torch, lambda: torch.relu(torch.matmul(x4, w4)), 10)
+    vm_flops = uvm_flops(prog, n_tiles)
+    vm_bound = max(vm_flops / fp32,
+                   (tiles.numel() + out.numel() + ext.numel()) * 4 / bw) * 1e3
+    del out, ref
+    sweep = make_agg_sweep(prog, k, 1, bound_hash=bound)
+    sw_ms = cuda_ms(torch, lambda: sweep(ring, ext), 10)
+
+    send = sum(s for s, _ in rates)
+    drain = sum(dr for _, dr in rates)
+    log(f"agg_ring_poll {n_slots} slots x K={k}: {ap_ms:.5f} ms on the card "
+        f"(wrapper {ap_wrap:.4f}, plain {ap_plain:.4f}, bound "
+        f"{ap_bound:.3g} ms by {ap_bytes} B)")
+    log(f"ifunc_vm uvm_affine {n_tiles} tiles: {vm_ms:.4f} ms on the card "
+        f"(wrapper {vm_wrap:.4f}, plain {vm_plain:.4f}, "
+        f"torch.relu(torch.matmul) {vm_lib:.4f}, bound {vm_bound:.4f} ms); "
+        f"agg sweep (agg_ring_poll + body copy + ifunc_vm + mask + clear) "
+        f"{sw_ms:.4f} ms")
+    log(f"agg path: {n * len(rates)} sub-records in {send + drain:.3f} s = "
+        f"{n * len(rates) / (send + drain):.1f} sub-records/s (send "
+        f"{send:.3f} s = {n * len(rates) / send:.1f}/s, drain {drain:.3f} s "
+        f"= {n * len(rates) / drain:.1f}/s)")
+
+    entry = {"name": "agg_ring_poll", "route": "cuda",
+             "source": "src/repro_torch/csrc/agg_poll.cu",
+             "replaces": "src/repro/kernels/agg_poll.py:92",
+             "launches": counts["agg_ring_poll"], "max_abs_err": err,
+             "ms": ap_ms, "wrapper_ms": ap_wrap, "plain_ms": ap_plain,
+             "bound_ms": ap_bound, "bound_by": "bytes", "library_ms": None}
+    return entry, max(vm_err, 0.0), idle
 
 
 def main():
@@ -630,10 +1112,20 @@ def main():
     t0 = time.perf_counter()
     phase_build(torch, smi)
     errs = phase_kernels(np, torch, dev)
+    agg_err = phase_agg_kernel(np, torch, dev)
     phase_example(np, torch, dev)
     counts, rates, d = phase_full(np, torch, dev)
     kernels = phase_timings(np, torch, dev, d, counts, rates, errs)
     phase_breakdown(np, torch, d, d.src_ctx.handles["uvm_affine"], rates)
+    del d
+    phase_agg_example(np, torch, dev)
+    agg_counts, agg_rates, d = phase_agg_full(np, torch, dev)
+    agg_entry, vm_err, _ = phase_agg_timings(np, torch, dev, d, agg_counts,
+                                             agg_rates, agg_err)
+    vm = kernels[1]                         # ifunc_vm runs on both paths
+    vm["launches"] += agg_counts["ifunc_vm"]
+    vm["max_abs_err"] = max(vm["max_abs_err"], vm_err)
+    kernels.append(agg_entry)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

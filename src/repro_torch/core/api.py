@@ -68,6 +68,20 @@ class IfuncMsg:
         return memoryview(self.frame)[hdr.payload_offset:hdr.cont_offset]
 
 
+@dataclass(slots=True)
+class AggSubResult:
+    """Outcome of one sub-record of an aggregate container: its own Status
+    (OK / NACK_UNCACHED / REJECTED), plus the value it produced or the
+    error that rejected it."""
+
+    status: Status
+    name: str
+    digest: bytes
+    corr_id: int
+    value: object = None
+    error: BaseException | None = None
+
+
 def register_ifunc(ctx: Context, name: str,
                    search_dir: pathlib.Path | None = None) -> IfuncHandle:
     lib = IfuncLibrary.load(name, search_dir or ctx.lib_dir)
@@ -110,3 +124,4 @@ def ifunc_msg_create(handle: IfuncHandle, source_args,
         except BufferError:          # payload_init leaked a view: copy out
             frame = bytearray(memoryview(frame)[:frame_len])
     return IfuncMsg(handle, frame, slim=slim, corr_id=corr_id, cont=cont)
+

@@ -9,6 +9,9 @@ patterns).  Word-frame layout (matches ``kernels/ring_poll.py``):
     w0 magic | w1 frame_words | w2 code_kind | w3 name_hash | w4 hdr_check
     w5..5+frame_words-1 body (f32 payload bit-cast) | then trailer word
 
+An aggregate slot (``make_agg_sweep``) holds K sub-record bodies behind
+one container header instead; its layout is in ``kernels/agg_poll.py``.
+
 The μVM program is bound when the sweep is built (the device-side link
 cache): one sweep handles any number of arriving frames of that ifunc.
 """
@@ -20,6 +23,8 @@ import torch
 
 from repro_torch.core.codegen import UvmProgram
 from repro_torch.device import resolve_device
+from repro_torch.kernels.agg_poll import (AGG_MAGIC, SUB_READY, SUB_SALT,
+                                          agg_ring_poll)
 from repro_torch.kernels.ifunc_vm import ifunc_vm
 from repro_torch.kernels.ring_poll import (BAD, HDR_WORDS, MAGIC, READY,
                                            TRAILER, ring_poll)
@@ -40,6 +45,42 @@ def pack_word_frame(payload_f32: np.ndarray, slot_words: int, kind: int = 3,
     s[HDR_WORDS:HDR_WORDS + fw] = body
     if not no_trailer:
         s[HDR_WORDS + fw] = TRAILER
+    return s
+
+
+def pack_agg_word_frame(payloads, hashes, agg_k: int, body_words: int,
+                        slot_words: int, kind: int = 3, *,
+                        corrupt: bool = False, corrupt_sub: int | None = None,
+                        no_trailer: bool = False) -> np.ndarray:
+    """Host-side framing of one aggregate container (a batch of up to K
+    sub-records) into a slot's uint32 words.  ``corrupt`` poisons the
+    container's check word (the whole container is rejected);
+    ``corrupt_sub`` poisons one descriptor's check word (that sub-record
+    alone reads SUB_BAD, its siblings unharmed)."""
+    n = len(payloads)
+    if n != len(hashes) or n > agg_k:
+        raise ValueError(f"{n} payloads with {len(hashes)} hashes for a "
+                         f"container of agg_k={agg_k}")
+    if slot_words < HDR_WORDS + 2 * agg_k + agg_k * body_words + 1:
+        raise ValueError(f"{slot_words}-word slot too small for agg_k="
+                         f"{agg_k} bodies of {body_words} words")
+    s = np.zeros(slot_words, np.uint32)
+    s[0], s[1], s[2], s[3] = AGG_MAGIC, n, kind, 0
+    s[4] = (int(s[0]) ^ int(s[1]) ^ int(s[2]) ^ int(s[3])) ^ (1 if corrupt else 0)
+    for i, (p, h) in enumerate(zip(payloads, hashes)):
+        body = np.asarray(p, np.float32).reshape(-1).view(np.uint32)
+        if len(body) != body_words:
+            raise ValueError(f"sub body of {len(body)} words != bound "
+                             f"{body_words}")
+        d = HDR_WORDS + 2 * i
+        s[d] = h & 0xFFFFFFFF
+        s[d + 1] = (int(s[d]) ^ SUB_SALT) & 0xFFFFFFFF
+        if corrupt_sub == i:
+            s[d + 1] ^= 1
+        off = HDR_WORDS + 2 * agg_k + i * body_words
+        s[off:off + body_words] = body
+    if not no_trailer:
+        s[slot_words - 1] = TRAILER
     return s
 
 
@@ -94,5 +135,42 @@ def make_sweep(prog: UvmProgram, n_tiles: int, tile: int = 128):
         done = ready | (status == BAD)
         cleared = torch.where(done[:, :, None], 0, mailbox)
         return status, out, cleared
+
+    return sweep
+
+
+def make_agg_sweep(prog: UvmProgram, agg_k: int, n_tiles: int,
+                   tile: int = 128, *, bound_hash: int = 0):
+    """Build ``sweep(mailbox, externals)`` for aggregate-container slots
+    -> (status, sub_status, results, cleared_mb).
+
+    One ``agg_ring_poll`` validates every container header and all K
+    descriptors per slot, reading the mailbox in place through strided
+    views; ONE ``ifunc_vm`` launch runs every sub-record body of every
+    slot (``[n_shards * n_slots * K * n_tiles, T, T]``, tile ``t`` of
+    shard ``s`` reading ``externals[s]``), so the fixed cost of a sweep
+    is paid once per ring visit, not once per sub-record.  Outputs of
+    sub-records that are not SUB_READY are zeroed; READY and BAD
+    containers are cleared.  ``results`` is
+    ``[n_shards, n_slots, K, n_tiles, T, T]``."""
+    body_words = n_tiles * tile * tile
+    hdr_words = HDR_WORDS + 2 * agg_k
+
+    def sweep(mailbox: torch.Tensor, ext: torch.Tensor):
+        S, N, W = mailbox.shape
+        flat = mailbox.reshape(S * N, W)
+        status, sub = agg_ring_poll(flat[:, :hdr_words], flat[:, -1:],
+                                    bound_hash)
+        status, sub = status.reshape(S, N), sub.reshape(S, N, agg_k)
+        # word 5 + 2K is not 16-byte aligned: copy the bodies out
+        body = mailbox[:, :, hdr_words:hdr_words + agg_k * body_words]
+        tiles = body.contiguous().view(torch.float32)
+        tiles = tiles.reshape(S * N * agg_k * n_tiles, tile, tile)
+        out = ifunc_vm(prog, tiles, ext)
+        out = out.reshape(S, N, agg_k, n_tiles, tile, tile)
+        out = torch.where((sub == SUB_READY)[..., None, None, None], out, 0.0)
+        done = (status == READY) | (status == BAD)
+        cleared = torch.where(done[:, :, None], 0, mailbox)
+        return status, sub, out, cleared
 
     return sweep

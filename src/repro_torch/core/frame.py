@@ -25,11 +25,13 @@ Byte-for-byte the layout of ``repro.core.frame`` (little-endian):
 The header signal authenticates header integrity (ill-formed frames are
 rejected); the trailer is the delivery barrier the target spins on.
 
-This module carries singleton frames only: FULL and SLIM packing, header
-validation, the trailer check and section views.  Aggregate containers,
-streams and replies are parsed by later layers; the flag bits and the
-header checks that keep them well-formed are already here, so a frame
-that this module accepts is one the reference accepts too.
+This module carries singleton frames (FULL and SLIM packing, header
+validation, the trailer check and section views) and the request
+direction of aggregate containers (``FLAG_AGG``: ``seal_agg_frame``,
+``parse_agg``), byte for byte the reference's.  Reply containers, streams
+and replies are parsed by later layers; the flag bits and the header
+checks that keep them well-formed are already here, so a frame that this
+module accepts is one the reference accepts too.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ import struct
 from dataclasses import dataclass
 from enum import IntEnum
 from operator import mul as _mul
+
+import numpy as np
 
 
 MAGIC = 0x1F5C0DE8
@@ -62,6 +66,23 @@ STREAM_DESC_LEN = 28        # a stream frame's payload holds at least this
 CORR_GEN_SHIFT = 48
 CORR_SEQ_MASK = (1 << CORR_GEN_SHIFT) - 1
 CORR_GEN_MAX = (1 << 16) - 1
+
+
+def make_corr(seq: int, gen: int = 0) -> int:
+    """Stamp ``gen`` (fleet generation, wraps at 16 bits) into the top word
+    of a correlation id.  ``seq`` must be nonzero for replyable frames."""
+    return ((gen & CORR_GEN_MAX) << CORR_GEN_SHIFT) | (seq & CORR_SEQ_MASK)
+
+
+def corr_gen(corr: int) -> int:
+    """The fleet generation a corr_id was allocated under."""
+    return (corr >> CORR_GEN_SHIFT) & CORR_GEN_MAX
+
+
+def corr_seq(corr: int) -> int:
+    """The per-runtime monotone sequence half of a corr_id."""
+    return corr & CORR_SEQ_MASK
+
 
 _HEADER_FMT = "<IQIQI32sI16sQQ"  # magic, frame_len, code_off, payload_off,
                                  # kind, name, flags, digest, corr_id,
@@ -100,15 +121,25 @@ class FrameError(Exception):
 
 def fletcher32(data) -> int:
     """fletcher32 over 16-bit little-endian words, an odd trailing byte
-    counting as a word with a zero high byte.  The port checksums only
-    short inputs with it (ifunc names, for the word frame's name hash)."""
-    a = b = 0xFFFF
-    for i in range(0, len(data) - 1, 2):
-        a = (a + (data[i] | (data[i + 1] << 8))) % 0xFFFF
-        b = (b + a) % 0xFFFF
-    if len(data) % 2:
-        a = (a + data[-1]) % 0xFFFF
-        b = (b + a) % 0xFFFF
+    counting as a word with a zero high byte.  Short inputs (ifunc names,
+    for the word frame's name hash) take the byte loop; longer ones (an
+    aggregate's structural bytes) the closed form of
+    :func:`_header_fletcher`, with the word sums in numpy."""
+    n = len(data)
+    if n < 128:
+        a = b = 0xFFFF
+        for i in range(0, n - 1, 2):
+            a = (a + (data[i] | (data[i + 1] << 8))) % 0xFFFF
+            b = (b + a) % 0xFFFF
+        if n % 2:
+            a = (a + data[-1]) % 0xFFFF
+            b = (b + a) % 0xFFFF
+        return (b << 16) | a
+    w = np.frombuffer(data, "<u2", count=n // 2).astype(np.int64)
+    if n % 2:
+        w = np.append(w, data[-1])
+    a = (0xFFFF + int(w.sum())) % 0xFFFF
+    b = (0xFFFF * (len(w) + 1) + int(np.cumsum(w).sum())) % 0xFFFF
     return (b << 16) | a
 
 
@@ -302,3 +333,266 @@ def clear_frame(buf, hdr: FrameHeader) -> None:
     """Zero a consumed frame slot so the next poll sees 'empty'."""
     mv = buf if isinstance(buf, memoryview) else memoryview(buf)
     mv[:hdr.frame_len] = bytes(hdr.frame_len)
+
+
+# ---------------------------------------------------------------------------
+# Aggregate container payload (FLAG_AGG), request direction — columnar.
+#
+#     u16 n_subs | u16 n_names
+#     n_names x (u8 len | name bytes)            -- interned name table
+#     payload region: every sub-record's payload bytes, then its cont
+#                     bytes, concatenated in record order
+#     n_subs x (u16 name_idx | u8 kind | u8 sub_flags | 16s digest |
+#               u64 corr_id | u32 payload_len | u32 cont_len)
+#                                                -- contiguous sub-record TABLE
+#     u32 fletcher32 over the STRUCTURAL bytes   -- ONE signal for K records
+#
+# The name table interns each distinct ifunc name once per container; a
+# sub-record references it by index.  The fixed headers sit in ONE table
+# at the payload's tail, so a pack streams payload bytes into place before
+# the record count is known and a parse reads every record with one numpy
+# structured read.  The signal covers the counts, the name table and the
+# table — not the payload bytes, which ride on the ordered put and the
+# trailer barrier as a singleton's do — so a decode never trusts corrupt
+# framing.
+
+_AGG_COUNT = struct.Struct("<HH")
+_AGG_SUB = struct.Struct("<HBB16sQII")
+AGG_SUB_OVERHEAD = _AGG_SUB.size            # fixed bytes per sub-record
+AGG_SUBFLAG_ERR = 0x1                       # reply sub-record carries an error
+AGG_SUBFLAG_CONT = 0x2                      # sub-record has a cont section
+
+# one row of the sub-record table; field for field the _AGG_SUB struct
+_AGG_DTYPE = np.dtype([("name_idx", "<u2"), ("kind", "u1"),
+                       ("flags", "u1"), ("digest", "V16"),
+                       ("corr", "<u8"), ("plen", "<u4"), ("clen", "<u4")])
+assert _AGG_DTYPE.itemsize == _AGG_SUB.size
+_CODE_KIND_LUT = np.zeros(256, dtype=bool)  # kind validity, one fancy index
+_CODE_KIND_LUT[list(_CODE_KIND)] = True
+
+
+@dataclass(slots=True)
+class AggSub:
+    """One packed invocation inside a FLAG_AGG container."""
+
+    name: str
+    kind: CodeKind
+    digest: bytes
+    corr_id: int
+    payload: object                         # bytes-like
+    cont: bytes | None = None
+    err: bool = False
+
+
+def _agg_names(subs) -> tuple[list[str], dict]:
+    names: list[str] = []
+    idx: dict[str, int] = {}
+    for s in subs:
+        if s.name not in idx:
+            idx[s.name] = len(names)
+            names.append(s.name)
+    return names, idx
+
+
+def agg_payload_len(subs) -> int:
+    """Exact byte length the aggregate payload for ``subs`` will occupy."""
+    names, _ = _agg_names(subs)
+    n = _AGG_COUNT.size + sum(1 + len(nm.encode()) for nm in names)
+    for s in subs:
+        n += (_AGG_SUB.size + len(s.payload)
+              + (0 if s.cont is None else len(s.cont)))
+    return n + 4                            # the aggregate fletcher signal
+
+
+def agg_frame_len(subs) -> int:
+    """Full frame length of the aggregate container carrying ``subs``."""
+    return HEADER_LEN + agg_payload_len(subs) + TRAILER_LEN
+
+
+def begin_agg(view, names: list[str]) -> int:
+    """Write a streaming aggregate's prologue into ``view``: a zero
+    sub-count (patched by :func:`finish_agg`) and the interned name table.
+    Returns the offset where the first sub-record's payload bytes go."""
+    _AGG_COUNT.pack_into(view, 0, 0, len(names))
+    off = _AGG_COUNT.size
+    for nm in names:
+        nb = nm.encode()
+        if not 0 < len(nb) < 256:
+            raise FrameError(f"aggregate ifunc name length {len(nb)}")
+        view[off] = len(nb)
+        view[off + 1:off + 1 + len(nb)] = nb
+        off += 1 + len(nb)
+    return off
+
+
+def agg_sub_hdr(name_idx: int, kind: CodeKind, digest: bytes, corr_id: int,
+                payload_len: int, *, cont_len: int = 0,
+                err: bool = False) -> tuple:
+    """One sub-record's fixed-header row for :func:`finish_agg`."""
+    flags = ((AGG_SUBFLAG_ERR if err else 0)
+             | (AGG_SUBFLAG_CONT if cont_len else 0))
+    return (name_idx, int(kind), flags, digest, corr_id, payload_len,
+            cont_len)
+
+
+def _finish_agg_table(view, prologue_end: int, payload_end: int,
+                      hdrs) -> int:
+    """Write the contiguous sub-record table at ``payload_end``, patch the
+    sub count, and sign prologue + table; returns the aggregate payload
+    length.  ``hdrs`` rows are ``_AGG_SUB`` field tuples."""
+    n_subs = len(hdrs)
+    struct.pack_into("<H", view, 0, n_subs)
+    end = payload_end + _AGG_SUB.size * n_subs
+    view[payload_end:end] = np.array(hdrs, dtype=_AGG_DTYPE).tobytes()
+    _U32.pack_into(view, end, fletcher32(
+        b"".join((view[0:prologue_end], view[payload_end:end]))))
+    return end + 4
+
+
+def finish_agg(view, prologue_end: int, payload_end: int, hdrs) -> int:
+    """Write the sub-record table (rows from :func:`agg_sub_hdr`) after
+    the streamed payload bytes, patch the sub count, sign prologue +
+    table, and return the aggregate payload length."""
+    return _finish_agg_table(view, prologue_end, payload_end, hdrs)
+
+
+def pack_agg_into(view, subs) -> int:
+    """Pack ``subs`` as a columnar aggregate payload into ``view`` (the
+    payload region of a slab cell); returns bytes used.  The caller seals
+    the surrounding FLAG_AGG frame."""
+    if not subs:
+        raise FrameError("empty aggregate")
+    if len(subs) > 0xFFFF:
+        raise FrameError(f"aggregate of {len(subs)} sub-records (max 65535)")
+    names, idx = _agg_names(subs)
+    off = prologue_end = begin_agg(view, names)
+    cap = len(view)
+    tail = _AGG_SUB.size * len(subs) + 4    # table + aggregate signal
+    hdrs = []
+    for s in subs:
+        pl = len(s.payload)
+        cl = 0 if s.cont is None else len(s.cont)
+        if off + pl + cl + tail > cap:
+            raise FrameError(f"aggregate overflows {cap}B buffer")
+        if len(s.digest) != DIGEST_LEN:
+            raise FrameError(f"sub-record digest length {len(s.digest)}")
+        view[off:off + pl] = s.payload
+        off += pl
+        if cl:
+            view[off:off + cl] = s.cont
+            off += cl
+        hdrs.append((idx[s.name], int(s.kind),
+                     (AGG_SUBFLAG_ERR if s.err else 0)
+                     | (AGG_SUBFLAG_CONT if s.cont is not None else 0),
+                     s.digest, s.corr_id, pl, cl))
+    return _finish_agg_table(view, prologue_end, off, hdrs)
+
+
+class AggBatch:
+    """Column view of a decoded aggregate container: the sub-record table
+    as plain lists.  ``payload(i)`` is a zero-copy view into the frame,
+    valid until the slot is reused."""
+
+    __slots__ = ("mv", "n", "names", "name_idx", "kinds", "flags", "corrs",
+                 "digests", "starts", "plens", "clens")
+
+    def payload(self, i: int) -> memoryview:
+        s = self.starts[i]
+        return self.mv[s:s + self.plens[i]]
+
+    def cont(self, i: int) -> bytes | None:
+        if not self.flags[i] & AGG_SUBFLAG_CONT:
+            return None
+        s = self.starts[i] + self.plens[i]
+        return bytes(self.mv[s:s + self.clens[i]])
+
+    def digest(self, i: int) -> bytes:
+        return self.digests[DIGEST_LEN * i:DIGEST_LEN * (i + 1)]
+
+    def kind(self, i: int) -> CodeKind:
+        return _CODE_KIND[self.kinds[i]]
+
+    def name(self, i: int) -> str:
+        return self.names[self.name_idx[i]]
+
+    def subs(self) -> list[AggSub]:
+        """Per-record ``AggSub`` objects (payloads are views)."""
+        return [AggSub(self.name(i), self.kind(i), self.digest(i),
+                       self.corrs[i], self.payload(i), self.cont(i),
+                       bool(self.flags[i] & AGG_SUBFLAG_ERR))
+                for i in range(self.n)]
+
+
+def parse_agg(payload) -> AggBatch:
+    """Decode an aggregate payload: one structured read of the sub-record
+    table, one bounds check (the payload region must end exactly where the
+    table begins), one signal verify over the structural bytes.  A
+    mismatch anywhere rejects the WHOLE container."""
+    mv = payload if isinstance(payload, memoryview) else memoryview(payload)
+    n = len(mv)
+    if n < _AGG_COUNT.size + 4:
+        raise FrameError("aggregate payload too short")
+    try:
+        n_subs, n_names = _AGG_COUNT.unpack_from(mv, 0)
+        off = _AGG_COUNT.size
+        names = []
+        for _ in range(n_names):
+            ln = mv[off]
+            names.append(bytes(mv[off + 1:off + 1 + ln]).decode())
+            off += 1 + ln
+    except (IndexError, ValueError, UnicodeDecodeError, struct.error) as e:
+        raise FrameError(f"ill-formed aggregate payload: {e}") from e
+    prologue_end = off
+    limit = n - 4
+    tbl_off = limit - _AGG_SUB.size * n_subs
+    if tbl_off < prologue_end:
+        raise FrameError("aggregate sub-record exceeds payload")
+    # the signal verifies BEFORE any table field is trusted
+    (sig,) = _U32.unpack_from(mv, limit)
+    if sig != fletcher32(b"".join((mv[0:prologue_end], mv[tbl_off:limit]))):
+        raise FrameError("aggregate signal mismatch (corrupt sub-records)")
+    tbl = np.frombuffer(mv, _AGG_DTYPE, count=n_subs, offset=tbl_off)
+    plens = tbl["plen"].astype(np.int64)
+    sizes = plens + tbl["clen"]
+    ends = prologue_end + np.cumsum(sizes)
+    if (int(ends[-1]) if n_subs else prologue_end) != tbl_off:
+        raise FrameError("aggregate payload trailing bytes")
+    kinds = tbl["kind"]
+    if n_subs:
+        known = _CODE_KIND_LUT[kinds]
+        if not known.all():
+            raise FrameError("unknown sub-record code kind "
+                             f"{int(kinds[~known][0])}")
+        if int(tbl["name_idx"].max()) >= n_names:
+            raise FrameError("ill-formed aggregate payload: "
+                             "sub-record name index out of range")
+    b = AggBatch()
+    b.mv, b.n, b.names = mv, n_subs, names
+    b.name_idx = tbl["name_idx"].tolist()
+    b.kinds = kinds.tolist()
+    b.flags = tbl["flags"].tolist()
+    b.corrs = tbl["corr"].tolist()
+    b.digests = tbl["digest"].tobytes()
+    b.starts = (ends - sizes).tolist()
+    b.plens = plens.tolist()
+    b.clens = tbl["clen"].tolist()
+    return b
+
+
+def unpack_agg(payload) -> list[AggSub]:
+    """Decode an aggregate payload into per-record ``AggSub`` objects
+    (:func:`parse_agg` plus the per-record projection)."""
+    return parse_agg(payload).subs()
+
+
+def seal_agg_frame(buf, subs, *, kind: CodeKind = CodeKind.PYBC) -> int:
+    """Pack ``subs`` and seal the FLAG_AGG request container around them,
+    in place in ``buf`` (a slab cell); returns the frame length.  (Reply
+    containers come with the reply ring: device lanes route results
+    straight to the reply router.)"""
+    cap = len(buf) - HEADER_LEN - TRAILER_LEN
+    if cap <= 0:
+        raise FrameError(f"buffer {len(buf)}B cannot hold an aggregate")
+    used = pack_agg_into(frame_payload_view(buf, 0, cap), subs)
+    return seal_frame(buf, AGG_NAME, b"", kind, used, digest=NO_DIGEST,
+                      flags=FLAG_AGG)

@@ -39,6 +39,10 @@ class Mailbox:
         #: coordinates of each status the most recent :meth:`sweep`
         #: returned, in order (see :meth:`slot_coords`)
         self.last_coords: list = []
+        #: per-sub-record outcomes of each aggregate container a sweep
+        #: consumed, keyed by its coordinate; popped by the dispatcher's
+        #: aggregate completion, bounded by the mailbox that fills it
+        self.last_agg: dict = {}
 
     def slot_coords(self, i: int):
         """Stable coordinate a produce index maps to (what ``last_coords``

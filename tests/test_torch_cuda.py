@@ -13,6 +13,9 @@ import torch
 
 from repro_torch.core import Context, ifunc_msg_create, register_ifunc
 from repro_torch.core.codegen import assemble, deserialize_uvm
+from repro_torch.core.device_mailbox import pack_agg_word_frame
+from repro_torch.kernels.agg_poll import (AGG_MAGIC, agg_ring_poll,
+                                          agg_ring_poll_plain)
 from repro_torch.kernels.ifunc_vm import ifunc_vm, ifunc_vm_plain
 from repro_torch.kernels.ring_poll import (HDR_WORDS, MAGIC, TRAILER,
                                            ring_poll, ring_poll_plain)
@@ -75,6 +78,47 @@ def _ring(n: int, W: int) -> np.ndarray:
     return ring
 
 
+def mixed_agg_ring(k, body_words, bound, seed=3):
+    """A uint32 ring of 12 aggregate slots mixing every container and sub
+    state: empty, a full READY container, a hash-mismatched sub, a
+    poisoned sub, a corrupt container, a withheld trailer, and the
+    unsigned traps: n_subs = 0xFFFFFFFF and K + 1, hashes with the high
+    bit set, garbage behind magic 0, a bad magic, and a READY container
+    whose unoccupied descriptors hold garbage.  Its statuses are
+    [EMPTY, READY, READY, READY, BAD, INFLIGHT, BAD, BAD, READY, EMPTY,
+    BAD, READY]."""
+    slot_words = HDR_WORDS + 2 * k + k * body_words + 1
+    rng = np.random.default_rng(seed)
+    pay = [rng.standard_normal(body_words).astype(np.float32)
+           for _ in range(k)]
+    other = 0x8000ABCD if bound != 0x8000ABCD else 0x9000ABCD
+    b = bound or 0xC0FFEE01             # the hash a "matching" sub carries
+
+    def pack(n, hashes=None, **kw):
+        return pack_agg_word_frame(pay[:n], hashes or [b] * n, k, body_words,
+                                   slot_words, **kw)
+
+    slots = np.zeros((12, slot_words), np.uint32)
+    slots[1] = pack(k)
+    slots[2] = pack(2, [b, 0x1234])
+    slots[3] = pack(3, corrupt_sub=1)
+    slots[4] = pack(1, corrupt=True)
+    slots[5] = pack(2, no_trailer=True)
+    for i, n in ((6, 0xFFFFFFFF), (7, k + 1)):
+        slots[i] = pack(1)
+        slots[i, 1] = n
+        slots[i, 4] = AGG_MAGIC ^ n ^ 3
+    slots[8] = pack(3, [other, b, 0xFFFFFFFF])
+    slots[9] = rng.integers(0, 2 ** 32, slot_words, dtype=np.uint32)
+    slots[9, 0] = 0
+    slots[10] = pack(1)
+    slots[10, 0] ^= 0x100
+    slots[11] = pack(1)
+    slots[11, HDR_WORDS + 2:HDR_WORDS + 2 * k] = rng.integers(
+        0, 2 ** 32, 2 * k - 2, dtype=np.uint32)
+    return slots
+
+
 @pytest.mark.cuda
 def test_ring_poll_kernel_matches_plain(cuda):
     ring = torch.from_numpy(_ring(512, 4 * T + 6).view(np.int32)).to(cuda)
@@ -133,3 +177,70 @@ def test_device_lane_on_the_card_matches_the_cpu(cuda):
     assert runs["cuda"][0] == runs["cpu"][0]
     for g, w in zip(runs["cuda"][1], runs["cpu"][1]):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 64])
+@pytest.mark.parametrize("bound", [0x8000ABCD, 0])
+def test_agg_ring_poll_kernel_matches_plain(cuda, k, bound):
+    """Bit-exact on the mixed ring, read through strided views of the
+    mailbox as the sweep passes them."""
+    mb = torch.from_numpy(mixed_agg_ring(k, 8, bound).view(np.int32)).to(cuda)
+    hdr, tr = mb[:, :HDR_WORDS + 2 * k], mb[:, -1:]
+    before = agg_ring_poll.launches
+    st, sub = agg_ring_poll(hdr, tr, bound)
+    torch.cuda.synchronize()
+    assert agg_ring_poll.launches == before + 1
+    want_st, want_sub = agg_ring_poll_plain(hdr, tr, bound)
+    assert torch.equal(st, want_st) and torch.equal(sub, want_sub)
+    assert st.tolist() == [0, 1, 1, 1, 3, 2, 3, 3, 1, 0, 3, 1]
+
+
+@pytest.mark.cuda
+def test_agg_lane_on_the_card_matches_the_cpu(cuda):
+    """Coalesced sends through an agg-bound DeviceMeshFabric(8 shards,
+    shift 1) on the card and on the CPU, one sub-record NACKed and one
+    poisoned: equal stats and replies, results within 1e-5."""
+    from repro_torch.kernels.agg_poll import SUB_SALT
+
+    handle = register_ifunc(Context("src"), "uvm_affine")
+    rng = np.random.default_rng(2)
+    W = (rng.standard_normal((8, 1, T, T)) * 0.05).astype(np.float32)
+    pays = list(rng.standard_normal((24, 1, T, T)).astype(np.float32))
+    k = 4
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        d = Dispatcher(handle.ctx, ProgressEngine(inflight_window="trailer"))
+        d.set_coalescing(True, max_subs=k, max_sub_bytes=128 << 10)
+        d.add_peer("mesh", DeviceMeshFabric(8, shift=1, device=dev), None,
+                   n_slots=1, slot_size=8 << 20,
+                   prog=deserialize_uvm(handle.lib.code), externals=W,
+                   agg_k=k, prog_name=handle.lib.name)
+        replies = []
+        d.reply_router = lambda c, n, v, e, dec: replies.append((c, v, e))
+        mb = d.peers["mesh"].rings[0].mailbox
+        before = (ring_poll.launches, agg_ring_poll.launches,
+                  ifunc_vm.launches)
+        assert d.send_ifunc_many("mesh", handle, pays,
+                                 corr_ids=list(range(1, 25))) == 24
+        mb._staged[2, 0, HDR_WORDS + 2] = 0x1234             # a NACK
+        mb._staged[2, 0, HDR_WORDS + 3] = 0x1234 ^ SUB_SALT
+        mb._staged[3, 0, HDR_WORDS + 1] ^= 1                 # a poisoned sub
+        assert d.drain() == 24              # 22 + 1 poisoned + 1 rebuilt
+        after = (ring_poll.launches, agg_ring_poll.launches,
+                 ifunc_vm.launches)
+        if dev.type == "cuda":
+            assert after[0] == before[0]
+            assert after[1] > before[1] and after[2] > before[2]
+        runs[dev.type] = (d.per_peer_stats()["mesh"],
+                          d.peers["mesh"].target_args["results"],
+                          sorted(replies, key=lambda r: r[0]))
+    assert runs["cuda"][0] == runs["cpu"][0]
+    assert runs["cuda"][0]["nacks"] == 1 and runs["cuda"][0]["rejected"] == 1
+    for g, w in zip(runs["cuda"][1], runs["cpu"][1]):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
+    assert len(runs["cuda"][2]) == len(runs["cpu"][2]) == 24
+    for (cg, vg, eg), (cw, vw, ew) in zip(runs["cuda"][2], runs["cpu"][2]):
+        assert (cg, eg) == (cw, ew)
+        if not eg:
+            torch.testing.assert_close(vg.cpu(), vw, rtol=1e-5, atol=1e-5)

@@ -216,8 +216,8 @@ def test_backpressure_when_credits_run_out(handle):
 
 def test_device_lane_refusals(handle):
     fab = DeviceMeshFabric(2, device="cpu")
-    with pytest.raises(TransportError, match="aggregate"):
-        fab.open_mailbox(None, 2, 1 << 20, prog=_prog(handle), agg_k=4)
+    with pytest.raises(TransportError, match="agg_k"):
+        fab.open_mailbox(None, 2, 1 << 20, prog=_prog(handle), agg_k=-1)
     with pytest.raises(TransportError):
         fab.open_mailbox(None, 2, 1 << 20)               # no program bound
     with pytest.raises(TransportError):                  # slot too small
@@ -230,6 +230,12 @@ def test_device_lane_refusals(handle):
     with pytest.raises(TransportError, match="words"):
         d.send("mesh", ifunc_msg_create(handle, np.zeros((1, T, T // 2),
                                                          np.float32)))
+    sub = F.AggSub(handle.lib.name, F.CodeKind.UVM, handle.lib.code_digest,
+                   0, np.zeros(T, np.float32).tobytes())
+    agg = bytearray(1 << 12)
+    n = F.seal_agg_frame(agg, [sub, sub], kind=F.CodeKind.UVM)
+    with pytest.raises(TransportError, match="aggregate"):   # no agg_k bound
+        d.send("mesh", agg[:n])
 
 
 def test_device_fabric_without_cuda_raises(monkeypatch):
