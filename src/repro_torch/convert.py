@@ -2,7 +2,9 @@
 
 These functions take and give numpy arrays, never objects of the JAX
 package, so this module imports nothing of it: a caller holding a
-reference program, external table or mailbox hands over its arrays.
+reference program, external table, mailbox, parameter dict or cache hands
+over its arrays.  bfloat16 arrays (numpy's ``ml_dtypes`` type, which
+``torch.from_numpy`` does not read) cross as their 16-bit patterns.
 """
 
 from __future__ import annotations
@@ -47,3 +49,52 @@ def mailbox_to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype != torch.int32:
         raise TypeError(f"mailbox tensor must be int32, got {t.dtype}")
     return t.detach().cpu().contiguous().numpy().view(np.uint32).copy()
+
+
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
+    """One array as a tensor of the same type (bfloat16 included) on
+    ``device``."""
+    a = np.ascontiguousarray(np.asarray(a))
+    dev = resolve_device(device)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).view(np.int16).copy()) \
+            .view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a.copy()).to(dev)
+
+
+def params_from_numpy(cfg, flat: dict, device="cuda") -> dict:
+    """The reference's flat parameter dict (``s{slot}_{name}`` keys, numpy
+    arrays) as the port's tensors on ``device``, each in its own type.  The
+    names and shapes must be those of ``param_specs(cfg)``."""
+    from repro_torch.models.transformer import param_specs
+
+    specs = param_specs(cfg)
+    if set(flat) != set(specs):
+        raise KeyError(f"parameter names differ from param_specs: missing "
+                       f"{sorted(set(specs) - set(flat))}, extra "
+                       f"{sorted(set(flat) - set(specs))}")
+    out = {}
+    for name, (shape, _) in specs.items():
+        t = tensor_from_numpy(flat[name], device)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"parameter {name}: shape {tuple(t.shape)}, "
+                             f"want {tuple(shape)}")
+        out[name] = t
+    return out
+
+
+def cache_from_numpy(cache: dict, device="cuda") -> dict:
+    """A cache dict of numpy arrays as tensors on ``device``."""
+    return {k: tensor_from_numpy(v, device) for k, v in cache.items()}
+
+
+def cache_to_numpy(cache: dict) -> dict:
+    """A cache dict of tensors as numpy arrays (bfloat16 widened to
+    float32, which holds every bfloat16 value exactly)."""
+    out = {}
+    for k, t in cache.items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[k] = t.numpy().copy()
+    return out

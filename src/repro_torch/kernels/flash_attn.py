@@ -1,0 +1,148 @@
+"""Causal flash attention, forward: O and the row log-sum-exp.
+
+q, k, v are ``[BH, S, hd]`` (grouped-query KV heads repeated to the full
+head count by the caller); position i attends to positions j <= i, and
+with ``window > 0`` only to i - j < window.  Scores are scaled by
+``scale`` and masked with NEG = -1e30; O comes back in the input type,
+LSE (``m + log l`` of the row's softmax) in f32.
+
+:func:`flash_fwd` launches the CUDA kernel (``csrc/flash_attn.cu``) on
+CUDA tensors and runs :func:`flash_fwd_plain` on CPU tensors.
+:func:`flash_attention` is the model's entry point and keeps the
+reference's signature: ``bq`` and ``bk`` are the reference's block sizes,
+and the sequence must divide by both, as there; the kernel tiles as it
+likes.  The backward kernels belong to training and are not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+DEFAULT_BQ = 256
+DEFAULT_BK = 256
+NEG = -1e30
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+        if t.dim() != 3:
+            raise ValueError(f"{name} must be [BH, S, hd], got {tuple(t.shape)}")
+    if not (q.shape == k.shape == v.shape):
+        raise ValueError(f"q, k, v shapes differ: {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v types differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on different devices: {q.device}, "
+                         f"{k.device}, {v.device}")
+
+
+def check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> None:
+    """What the CUDA kernel takes, checked before any launch: f32 or bf16
+    operands with a head_dim of 64 or 128."""
+    _check(q, k, v)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the flash kernel takes float32 or bfloat16, got {q.dtype}")
+    hd = q.shape[-1]
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the flash kernel takes head_dim 64 or 128, not {hd}")
+
+
+def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, window: int = 0
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: the whole ``[BH, S, S]`` f32 score tensor,
+    masked with NEG, softmax by its row max.  -> (O in q's type, LSE f32)."""
+    _check(q, k, v)
+    S = q.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    pos = torch.arange(S, device=q.device)
+    m = pos[:, None] >= pos[None, :]
+    if window:
+        m &= pos[:, None] - pos[None, :] < window
+    s = torch.where(m[None], s, NEG)
+    mx = torch.amax(s, dim=-1)
+    p = torch.exp(s - mx[..., None])
+    l = torch.clamp(torch.sum(p, dim=-1), min=1e-30)
+    o = torch.einsum("bqk,bkd->bqd", p, v.float()) / l[..., None]
+    return o.to(q.dtype), mx + torch.log(l)
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              scale: float, window: int = 0
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (O [BH,S,hd] in q's type, LSE [BH,S] f32).  Launches the CUDA
+    kernel for CUDA tensors; CPU tensors take the plain version."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, scale=scale, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd runs on cuda or cpu, not {q.device}")
+    check_kernel_operands(q, k, v)
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    BH, S, hd = q.shape
+    if BH > 65535:
+        raise ValueError(f"the flash kernel takes at most 65535 batch-heads "
+                         f"(its grid's y), got {BH}")
+    o = torch.empty_like(q)
+    lse = torch.empty(BH, S, dtype=torch.float32, device=q.device)
+    fn = _build.load("flash_attn").flash_fwd_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), BH, S, hd, float(scale), int(window),
+             int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
+    if err:
+        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
+    flash_fwd.launches += 1
+    return o, lse
+
+
+flash_fwd.launches = 0     # kernel launches since the count was last reset
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, window: int = 0, bq: int = DEFAULT_BQ,
+                    bk: int = DEFAULT_BK) -> torch.Tensor:
+    """q, k, v: [BH, S, hd] (KV pre-repeated to full heads), causal; -> O.
+    S must divide by ``bq`` and ``bk``, the reference's block sizes."""
+    _check(q, k, v)
+    S = q.shape[1]
+    if bq <= 0 or bk <= 0 or S % bq or S % bk:
+        raise ValueError(f"flash_attention: sequence length {S} must be a "
+                         f"multiple of the block sizes bq={bq} and bk={bk}")
+    o, _ = flash_fwd(q, k, v, scale=scale, window=window)
+    return o
+
+
+def flash_hbm_bytes(B, H, S, hd, dtype_bytes=2, *, train: bool,
+                    bq: int = 1024, bk: int = 512) -> float:
+    """The reference's analytic per-call HBM traffic of its TPU kernel
+    (K/V re-read once per q-block), kept for comparison: Q + KV·nq + O +
+    LSE forward, plus the backward's streams when ``train``.  The least
+    traffic any kernel needs (each operand read once, each output written
+    once) is ``4·B·H·S·hd·dtype_bytes + 4·B·H·S`` forward."""
+    nq = max(S // min(bq, S), 1)
+    nk = max(S // min(bk, S), 1)
+    t = B * H * S * hd * dtype_bytes
+    row = B * H * S * 4
+    fwd = t + 2 * nq * t + t + row                    # Q + KV*nq + O + lse
+    if not train:
+        return fwd
+    bwd_dq = t + 2 * nq * t + 2 * t + 2 * row + t
+    bwd_dkv = 2 * t + (2 * t) * nk + 2 * row + 2 * t
+    delta = 2 * t + row                               # rowsum(do*o)
+    return fwd + bwd_dq + bwd_dkv + delta

@@ -14,6 +14,7 @@ from repro_torch.core.codegen import UVM_TILE, UvmProgram
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ifunc_vm import ifunc_vm
 from repro_torch.kernels.ring_poll import ring_poll
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 
 def uvm_execute(prog: UvmProgram, payload_tiles, externals, *,
@@ -40,3 +41,11 @@ def mailbox_poll(slots, *, device="cuda") -> torch.Tensor:
         slots = torch.from_numpy(
             np.ascontiguousarray(slots, np.uint32).view(np.int32))
     return ring_poll(slots.to(dev).contiguous())
+
+
+def ssd_scan_op(x, la, Bm, Cm, *, device="cuda") -> torch.Tensor:
+    """[BH,nc,Q,hd] chunked SSD (the kernel path of ``models/ssm.py``) on
+    f32 copies of host arrays or tensors."""
+    dev = resolve_device(device)
+    return ssd_scan(*(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                      for a in (x, la, Bm, Cm)))

@@ -16,9 +16,14 @@ from repro_torch.core.codegen import assemble, deserialize_uvm
 from repro_torch.core.device_mailbox import pack_agg_word_frame
 from repro_torch.kernels.agg_poll import (AGG_MAGIC, agg_ring_poll,
                                           agg_ring_poll_plain)
+from repro_torch.kernels.flash_attn import flash_fwd, flash_fwd_plain
 from repro_torch.kernels.ifunc_vm import ifunc_vm, ifunc_vm_plain
 from repro_torch.kernels.ring_poll import (HDR_WORDS, MAGIC, TRAILER,
                                            ring_poll, ring_poll_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.models import transformer as MT
+from repro_torch.models.config import ModelConfig
+from repro_torch.train.serve import pad_cache_to
 from repro_torch.transport import DeviceMeshFabric, Dispatcher, ProgressEngine
 
 T = 128
@@ -51,6 +56,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -244,3 +250,119 @@ def test_agg_lane_on_the_card_matches_the_cpu(cuda):
         assert (cg, eg) == (cw, ew)
         if not eg:
             torch.testing.assert_close(vg.cpu(), vw, rtol=1e-5, atol=1e-5)
+
+
+# f32: the kernel and the plain version differ only in summation order.
+# bf16: the kernel rounds O to bf16 (2^-8 relative), the plain version is
+# taken in f32 on the same bf16 inputs; LSE stays f32 in both.
+FLASH_TOL_F32 = dict(rtol=1e-4, atol=1e-4)
+FLASH_TOL_BF16_O = dict(rtol=8e-3, atol=8e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 200, 64, 0), (2, 512, 128, 256),
+                                   (15, 512, 64, 0), (2, 130, 64, 17),
+                                   (1, 1, 64, 0), (2, 64, 128, 64)])
+def test_flash_kernel_matches_plain(cuda, dtype, shape):
+    """O and LSE of the kernel against the plain version: ragged tiles
+    (S = 200, 130, 1), windows narrower and wider than a tile."""
+    BH, S, hd, window = shape
+    rng = np.random.default_rng(S + hd + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal((BH, S, hd))
+                                .astype(np.float32)).to(cuda, dtype)
+               for _ in range(3))
+    scale = 1.0 / np.sqrt(hd)
+    before = flash_fwd.launches
+    o, lse = flash_fwd(q, k, v, scale=scale, window=window)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == before + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    o_p, lse_p = flash_fwd_plain(q.float(), k.float(), v.float(), scale=scale,
+                                 window=window)
+    tol = FLASH_TOL_F32 if dtype == torch.float32 else FLASH_TOL_BF16_O
+    torch.testing.assert_close(o.float(), o_p, **tol)
+    torch.testing.assert_close(lse, lse_p, **FLASH_TOL_F32)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_other_head_dims(cuda):
+    x = torch.zeros(2, 64, 96, device=cuda)
+    before = flash_fwd.launches
+    with pytest.raises(ValueError, match="not 96"):
+        flash_fwd(x, x, x, scale=1.0)
+    assert flash_fwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1, 200, 64, 128), (3, 4, 256, 64, 128),
+                                   (2, 3, 8, 16, 16), (1, 2, 37, 32, 100)])
+def test_ssd_scan_kernel_matches_plain(cuda, shape):
+    """Within the reference's 3e-4: Q = 200, the path's (256, 64, 128), the
+    tests' Q = 8, and a ragged Q = 37 with ds = 100."""
+    BH, nc, Q, hd, ds = shape
+    rng = np.random.default_rng(Q + ds)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(cuda)
+
+    x = t(rng.standard_normal((BH, nc, Q, hd)))
+    la = t(-np.abs(rng.standard_normal((BH, nc, Q))) * 0.2)
+    Bm = t(rng.standard_normal((BH, nc, Q, ds)) * 0.2)
+    Cm = t(rng.standard_normal((BH, nc, Q, ds)) * 0.2)
+    before = ssd_scan.launches
+    y = ssd_scan(x, la, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    torch.testing.assert_close(y, ssd_scan_plain(x, la, Bm, Cm), rtol=3e-4,
+                               atol=3e-4)
+
+
+SMALL = {
+    "attn": ModelConfig(name="small-attn", family="dense", num_layers=2,
+                        d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
+                        vocab_size=512, head_dim=64, q_chunk=64,
+                        attn_impl="flash", dtype="float32",
+                        param_dtype="float32"),
+    "ssd": ModelConfig(name="small-ssd", family="ssm", num_layers=2,
+                       d_model=64, num_heads=1, num_kv_heads=1, d_ff=0,
+                       vocab_size=512, block_pattern=("ssd",), ssm_state=16,
+                       ssm_head_dim=16, ssm_chunk=8, tie_embeddings=True,
+                       ssd_impl="kernel", dtype="float32",
+                       param_dtype="float32"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(SMALL))
+def test_small_model_prefill_decode_on_the_card_matches_the_cpu(cuda, kind):
+    """A two-layer model through the kernels on the card and through the
+    plain versions on the CPU, the same parameters: prefill logits and
+    cache, then 4 decode steps, within 1e-4; the kernel runs once per
+    layer in prefill and never in decode."""
+    cfg = SMALL[kind]
+    params = MT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 512, (2, 36)).astype(np.int64))
+    counter = flash_fwd if kind == "attn" else ssd_scan
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = {k: v.to(dev) for k, v in params.items()}
+        before = counter.launches
+        logits, cache, _ = MT.forward(p, {"tokens": toks[:, :32].to(dev)},
+                                      cfg, mode="prefill")
+        outs = [logits, *cache.values()]
+        cache = pad_cache_to(cache, MT.cache_shapes(cfg, 2, 40))
+        if dev.type == "cuda":
+            assert counter.launches == before + cfg.num_layers
+        mid = counter.launches
+        for t in range(32, 36):
+            logits, cache, _ = MT.forward(p, {"tokens": toks[:, t:t + 1].to(dev)},
+                                          cfg, mode="decode", cache=cache,
+                                          pos=t)
+            outs.append(logits)
+        assert counter.launches == mid
+        runs[dev.type] = outs + list(cache.values())
+    for g, w in zip(runs["cuda"], runs["cpu"]):
+        assert g.shape == w.shape and bool(torch.isfinite(g.float()).all())
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)

@@ -1,5 +1,7 @@
-"""The port stands alone: importing every module of ``repro_torch`` and
-registering its ifunc library loads neither jax nor the JAX package.  The
+"""The port stands alone: importing every module of ``repro_torch`` (the
+model stack's ``models/``, ``configs/``, ``train/`` and ``serving/``
+included) and registering its ifunc library loads neither jax nor the JAX
+package.  The
 check runs in a subprocess because this test process has jax loaded
 already (``tests/conftest.py``)."""
 
@@ -30,6 +32,11 @@ bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(
                  ("jax.", "jaxlib.", "repro.")))
 print("MODULES", len(mods))
+print("STACK", all(m in mods for m in (
+    "repro_torch.models.transformer", "repro_torch.models.ssm",
+    "repro_torch.configs.smollm_360m", "repro_torch.configs.mamba2_780m",
+    "repro_torch.train.serve", "repro_torch.serving.batcher",
+    "repro_torch.kernels.flash_attn", "repro_torch.kernels.ssd_scan")))
 print("FORBIDDEN", bad)
 """
 
@@ -42,7 +49,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert r.returncode == 0, r.stderr
     assert "FORBIDDEN []" in r.stdout, r.stdout
     n = int(re.search(r"MODULES (\d+)", r.stdout).group(1))
-    assert n >= 16, r.stdout
+    assert n >= 40, r.stdout
+    assert "STACK True" in r.stdout, r.stdout
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?![\w])",
