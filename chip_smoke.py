@@ -40,8 +40,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
    drain, host timers over one more generation as in phase 6, and the
    SMs' idle share over another.
 10. the model stack's kernels against their plain versions at the shapes
-    the serving path launches: ``flash_fwd`` on [15, S, 64] for S in
-    {200, 512, 4096} and [4, 512, 128] with window 256, f32 and bf16;
+    the serving and training paths launch: ``flash_fwd`` on [15, S, 64]
+    for S in {200, 512, 4096}, [4, 512, 128] with window 256, and the
+    training shapes [30, 2,048, 64] (phase 17's microbatch) and
+    [30, 1,024, 64] (phase 16's batch), f32 and bf16;
     ``ssd_scan`` on [48, nc, Q, 64], ds 128, for (nc, Q) in {(1, 200),
     (16, 256)};
 11. model kernel timings at the path's largest shapes as in phase 5, with
@@ -56,7 +58,29 @@ Phases, each of which fails the script (non-zero exit, no result line):
     1,024, 512, 256 and 200 tokens, 32 new tokens each), the model's
     kernel launched once per layer in each prefill and never in decode;
     decode tokens/s, the SMs' idle share over the phase, prefill tokens/s
-    at batch 1 and 4,096 tokens.
+    at batch 1 and 4,096 tokens;
+14. the flash backward kernels (``flash_bwd_dq``, ``flash_bwd_dkv``)
+    against ``flash_bwd_plain`` on the card at the forward's shapes of
+    phase 10, the training shapes included, f32 and bf16;
+15. backward timings at [15, 4,096, 64] bf16 as in phase 11, with the
+    backward of ``scaled_dot_product_attention`` as the library yardstick
+    of both kernels together;
+16. training parity in f32 at the full width of SmolLM-360M: one
+    ``make_train_step``'s loss and gradients (batch 2 x 1,024 tokens)
+    through the flash kernels against the naive path's, every parameter
+    with a finite non-zero gradient; Mamba-2 780M with ``ssd_impl=
+    "kernel"`` refuses a gradient;
+17. training in bf16 at full width, the training path: SmolLM-360M with
+    ``attn_impl="flash"``, ``remat="block"``, AdamW with f32 state, batch
+    4 x 2,048 tokens in 2 microbatches from ``data.Loader``; 2 warm-up and
+    8 timed steps (step time, tokens/s, peak memory, the launches per
+    step asserted), the SMs' idle share in a traced step, then 10 steps
+    on one batch whose loss must fall.
+
+The phases run in the order 1-11, 14-17, 12-13: every profiler session
+of the timings and the traced step comes before the serving phase's long
+traces, after which the profiler recorded no device time in a run on the
+H100.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's ``nvidia-smi`` name and power limit; before that the ``kernels``
@@ -109,6 +133,23 @@ TOL_SSD = dict(rtol=3e-4, atol=3e-4)          # the reference's own
 # 0.05
 TOL_MODEL = dict(rtol=1e-3, atol=1e-3)
 TOL_TEACHER = 0.05
+# the backward kernels: f32 within the reference's gradient tolerance
+# (tests/test_kernels.py); bf16 rounds dQ, dK, dV to bf16 (2^-9
+# relative), held against f32 on the same inputs as the forward is
+TOL_FLASH_BWD = dict(rtol=2e-4, atol=2e-4)
+TOL_FLASH_BWD_BF16 = dict(rtol=8e-3, atol=8e-3)
+# the SDPA backward against the kernels in bf16: two bf16 forwards (O
+# and LSE of each) feed two backwards; relative L2 of dQ, dK, dV
+TOL_SDPA_BWD = 1e-2
+# training: f32 parity at full width (2 x 1,024 tokens, one microbatch),
+# flash against naive: the loss to 1e-5 relative, each gradient leaf to
+# 1e-3 relative L2 (summation order over 32 layers); bf16 training at
+# 4 x 2,048 tokens in 2 microbatches, 2 warm-up + 8 timed steps, then 10
+# steps on one batch
+TRAIN_PARITY = (2, 1024)
+TOL_TRAIN_LOSS, TOL_TRAIN_GRAD = 1e-5, 1e-3
+TRAIN_B, TRAIN_S, TRAIN_MB = 4, 2048, 2
+TRAIN_WARM, TRAIN_TIMED, TRAIN_FIT = 2, 8, 10
 
 FIXED_PROGRAMS = {
     "affine_relu": (
@@ -443,14 +484,16 @@ def check_results(torch, got, want, what):
 
 def _counted():
     from repro_torch.kernels.agg_poll import agg_ring_poll
-    from repro_torch.kernels.flash_attn import flash_fwd
+    from repro_torch.kernels.flash_attn import (flash_bwd_dkv, flash_bwd_dq,
+                                                flash_fwd)
     from repro_torch.kernels.ifunc_vm import ifunc_vm
     from repro_torch.kernels.ring_poll import ring_poll
     from repro_torch.kernels.ssd_scan import ssd_scan
 
     return {"ring_poll": ring_poll, "agg_ring_poll": agg_ring_poll,
             "ifunc_vm": ifunc_vm, "flash_fwd": flash_fwd,
-            "ssd_scan": ssd_scan}
+            "ssd_scan": ssd_scan, "flash_bwd_dq": flash_bwd_dq,
+            "flash_bwd_dkv": flash_bwd_dkv}
 
 
 def reset_counts():
@@ -1172,10 +1215,19 @@ def ssd_inputs(np, torch, dev, rng, BH, nc, Q, hd, ds):
             t(rng.standard_normal((BH, nc, Q, ds)) * 0.2))
 
 
+def train_flash_shapes():
+    """flash's [BH, S, hd, window] on the training path: SmolLM-360M's
+    heads over one microbatch of phase 17 and over phase 16's batch."""
+    cfg = model_config("smollm_360m", MODELS["smollm_360m"][0])
+    h, hd = cfg.num_heads, cfg.head_dim
+    return ((TRAIN_B // TRAIN_MB * h, TRAIN_S, hd, 0),
+            (TRAIN_PARITY[0] * h, TRAIN_PARITY[1], hd, 0))
+
+
 def phase_model_kernels(np, torch, dev):
     """``flash_fwd`` and ``ssd_scan`` against their plain versions at the
-    shapes the serving path gives them; returns the largest |diff| of
-    each."""
+    shapes the serving and training paths give them; returns the largest
+    |diff| of each."""
     from repro_torch.kernels.flash_attn import flash_fwd, flash_fwd_plain
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
@@ -1187,7 +1239,7 @@ def phase_model_kernels(np, torch, dev):
         f"{torch.backends.cudnn.allow_tf32}")
     rng = np.random.default_rng(20)
     errs = {"flash_fwd": 0.0, "ssd_scan": 0.0}
-    for BH, S, hd, window in FLASH_SHAPES:
+    for BH, S, hd, window in FLASH_SHAPES + train_flash_shapes():
         scale = 1.0 / float(np.sqrt(hd))
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(np, torch, dev, rng, BH, S, hd, dtype)
@@ -1496,6 +1548,317 @@ def phase_model_timings(np, torch, dev, errs):
     ]
 
 
+# ------------------------------------------------------------- training
+
+
+def flash_bwd_inputs(np, torch, dev, rng, BH, S, hd, window, dtype):
+    """q, k, v, dO in ``dtype`` and the kernel forward's O and LSE."""
+    from repro_torch.kernels.flash_attn import flash_fwd
+
+    q, k, v, do = [torch.from_numpy(rng.standard_normal((BH, S, hd))
+                                    .astype(np.float32)).to(dev, dtype)
+                   for _ in range(4)]
+    o, lse = flash_fwd(q, k, v, scale=1.0 / float(np.sqrt(hd)), window=window)
+    return q, k, v, do, o, lse
+
+
+def phase_bwd_kernels(np, torch, dev):
+    """``flash_bwd_dq`` and ``flash_bwd_dkv`` against ``flash_bwd_plain``
+    at the forward's shapes, the training path's included; returns the
+    largest |diff| of each."""
+    from repro_torch.kernels.flash_attn import (flash_bwd_dkv, flash_bwd_dq,
+                                                flash_bwd_plain, flash_delta)
+
+    rng = np.random.default_rng(70)
+    errs = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for BH, S, hd, window in FLASH_SHAPES + train_flash_shapes():
+        scale = 1.0 / float(np.sqrt(hd))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, o, lse = flash_bwd_inputs(np, torch, dev, rng, BH, S,
+                                                   hd, window, dtype)
+            delta = flash_delta(o, do)
+            dq = flash_bwd_dq(q, k, v, do, lse, delta, scale=scale,
+                              window=window)
+            dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale,
+                                   window=window)
+            want = flash_bwd_plain(q.float(), k.float(), v.float(), o.float(),
+                                   lse, do.float(), scale=scale, window=window)
+            torch.cuda.synchronize()
+            tol = TOL_FLASH_BWD if dtype == torch.float32 else TOL_FLASH_BWD_BF16
+            got = {"dQ": dq, "dK": dk, "dV": dv}
+            e = {n: (g.float() - w).abs().max().item()
+                 for (n, g), w in zip(got.items(), want)}
+            check(all(g.dtype == dtype and bool(torch.isfinite(g).all())
+                      and torch.allclose(g.float(), w, **tol)
+                      for g, w in zip(got.values(), want)),
+                  f"flash backward [{BH}, {S}, {hd}] window {window} {dtype}: "
+                  f"max |err| {e} over {tol}")
+            errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], e["dQ"])
+            errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"], e["dK"],
+                                        e["dV"])
+            log(f"flash_bwd_dq / flash_bwd_dkv [{BH}, {S}, {hd}] window "
+                f"{window} {str(dtype)[6:]}: max |err| vs plain (f32) "
+                + ", ".join(f"{n} {x:.3g}" for n, x in e.items())
+                + f" (tolerance {tol['atol']})")
+            del q, k, v, do, o, lse, delta, dq, dk, dv, want, got
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_bwd_timings(np, torch, dev, errs):
+    """Both backward kernels at [15, 4,096, 64] bf16: device time, wrapper
+    time, plain version, bound, and the SDPA backward; returns their
+    kernels-line entries, whose ``launches`` the training phase fills."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels.flash_attn import (flash_bwd, flash_bwd_dkv,
+                                                flash_bwd_dkv_plain,
+                                                flash_bwd_dq,
+                                                flash_bwd_dq_plain,
+                                                flash_delta)
+
+    bw, _, bf16 = card_peaks(torch.cuda.get_device_name(0))
+    rng = np.random.default_rng(80)
+    BH, S, hd, _ = FLASH_SHAPES[2]
+    scale = 1.0 / float(np.sqrt(hd))
+    q, k, v, do, o, lse = flash_bwd_inputs(np, torch, dev, rng, BH, S, hd, 0,
+                                           torch.bfloat16)
+    delta = flash_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    dq_ms, dq_wrap = kernel_times(
+        torch, lambda: flash_bwd_dq(*args, scale=scale), "flash_bwd_dq_kernel",
+        10)
+    dkv_ms, dkv_wrap = kernel_times(
+        torch, lambda: flash_bwd_dkv(*args, scale=scale),
+        "flash_bwd_dkv_kernel", 10)
+    dq_plain = cuda_ms(torch, lambda: flash_bwd_dq_plain(*args, scale=scale),
+                       2, repeats=3)
+    dkv_plain = cuda_ms(torch, lambda: flash_bwd_dkv_plain(*args, scale=scale),
+                        2, repeats=3)
+    whole = cuda_ms(torch, lambda: flash_bwd(q, k, v, o, lse, do, scale=scale),
+                    10)
+    # the library: [1, BH, S, hd], the layout of PyTorch's fused backends;
+    # its own forward, then the backward alone, timed as one call
+    q4, k4, v4 = (t[None].detach().requires_grad_(True) for t in (q, k, v))
+    out = sdpa(q4, k4, v4, is_causal=True, scale=scale)
+    do4 = do[None]
+    lib = torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)
+    ours = flash_bwd(q, k, v, o, lse, do, scale=scale)
+    rel = [rel_l2(torch, a, b[0]) for a, b in zip(ours, lib)]
+    check(max(rel) < TOL_SDPA_BWD, f"the SDPA backward disagrees with the "
+                                   f"kernels: relative L2 {rel}")
+    lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (q4, k4, v4), do4, retain_graph=True), 10)
+    del q4, k4, v4, out, lib, ours
+
+    pairs = BH * S * (S + 1) / 2                   # causal (q, k) pairs
+    t_bytes = BH * S * hd * 2
+    row_bytes = BH * S * 4
+    dq_flops, dkv_flops = 3 * 2 * hd * pairs, 4 * 2 * hd * pairs
+    dq_bytes = 4 * t_bytes + 2 * row_bytes + t_bytes      # q,k,v,dO,lse,delta->dQ
+    dkv_bytes = 4 * t_bytes + 2 * row_bytes + 2 * t_bytes  # ... -> dK, dV
+    entries = []
+    for name, ms, wrap, plain, flops, nbytes in (
+            ("flash_bwd_dq", dq_ms, dq_wrap, dq_plain, dq_flops, dq_bytes),
+            ("flash_bwd_dkv", dkv_ms, dkv_wrap, dkv_plain, dkv_flops,
+             dkv_bytes)):
+        b_ops, b_bytes = flops / bf16 * 1e3, nbytes / bw * 1e3
+        log(f"{name} [{BH}, {S}, {hd}] bf16: {ms:.4f} ms on the card "
+            f"(wrapper {wrap:.4f}, plain {plain:.4f}, bound "
+            f"{max(b_ops, b_bytes):.4f} ms: {flops:.3g} FLOP at bf16 -> "
+            f"{b_ops:.4f} ms, {nbytes / 1e6:.1f} MB -> {b_bytes:.4f} ms); "
+            f"{flops / ms / 1e9:.2f} TFLOP/s")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
+            "replaces": ("src/repro/kernels/flash_attn.py:183"
+                         if name == "flash_bwd_dq"
+                         else "src/repro/kernels/flash_attn.py:200"),
+            "launches": None, "max_abs_err": errs[name], "ms": ms,
+            "wrapper_ms": wrap, "plain_ms": plain,
+            "bound_ms": max(b_ops, b_bytes),
+            "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+            "library_ms": lib_ms})
+    log(f"flash backward [{BH}, {S}, {hd}] bf16, both kernels and delta "
+        f"through flash_bwd: {whole:.4f} ms; scaled_dot_product_attention's "
+        f"backward {lib_ms:.4f} ms (relative L2 against the kernels: dQ "
+        f"{rel[0]:.3g}, dK {rel[1]:.3g}, dV {rel[2]:.3g})")
+    del q, k, v, do, o, lse, delta, args
+    torch.cuda.empty_cache()
+    return entries
+
+
+def rel_l2(torch, a, b):
+    return float(torch.linalg.vector_norm(a.float() - b.float())
+                 / torch.clamp(torch.linalg.vector_norm(b.float()), min=1e-30))
+
+
+def phase_train_parity(np, torch, dev):
+    """SmolLM-360M at full width in f32: one train step's loss and
+    gradients through the flash kernels against the naive path's; then
+    Mamba-2 780M's kernel path refuses a gradient."""
+    from repro_torch.kernels.ssd_scan import SsdScanGradError
+    from repro_torch.models import transformer as MT
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import make_train_step
+
+    cfg = model_config("smollm_360m", {"attn_impl": "flash"},
+                       dtype="float32", param_dtype="float32", remat="none")
+    params = MT.init_params(cfg, torch.Generator(device=dev).manual_seed(300),
+                            dev)
+    rng = np.random.default_rng(60)
+    B, S = TRAIN_PARITY
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                                 .astype(np.int32)).to(dev)
+             for k in ("tokens", "labels")}
+    step = make_train_step(cfg, OptConfig())
+    reset_counts()
+    loss_f, _, g_f = step.grads(params, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n = cfg.num_layers
+    check(counts["flash_fwd"] == n and counts["flash_bwd_dq"] == n
+          and counts["flash_bwd_dkv"] == n,
+          f"f32 flash train step: launches {counts}, want {n} of each flash "
+          f"kernel")
+    loss_n, _, g_n = make_train_step(
+        cfg.with_(attn_impl="naive"), OptConfig()).grads(params, batch)
+    check(set(g_f) == set(g_n) == set(params),
+          f"gradient leaves {sorted(g_f)} vs {sorted(params)}")
+    dl = abs(float(loss_f) - float(loss_n)) / abs(float(loss_n))
+    check(dl < TOL_TRAIN_LOSS, f"f32 loss flash {float(loss_f)} vs naive "
+                               f"{float(loss_n)}: {dl:.3g} relative")
+    errs = {}
+    for key, g in g_f.items():
+        fin = bool(torch.isfinite(g).all())
+        nz = float(g.abs().max()) > 0
+        errs[key] = rel_l2(torch, g, g_n[key])
+        check(fin and nz and errs[key] < TOL_TRAIN_GRAD,
+              f"f32 gradient {key}: finite {fin}, non-zero {nz}, relative "
+              f"L2 vs naive {errs[key]:.3g} (tolerance {TOL_TRAIN_GRAD})")
+    named = {k: errs[k] for k in errs if k.endswith(("_wq", "_wk", "_wv"))}
+    check(len(named) == 3, f"no wq/wk/wv among {sorted(errs)}")
+    state, m = step({"params": params, "opt": step.init_opt(params),
+                     "step": 0}, batch)
+    check(abs(float(m["loss"]) - float(loss_f)) <= 1e-6 * abs(float(loss_f))
+          and all(bool(torch.isfinite(t).all())
+                  for t in state["params"].values()),
+          f"f32 AdamW step: loss {float(m['loss'])} vs {float(loss_f)}")
+    log(f"smollm_360m f32 full width, train step on {B} x {S} tokens "
+        f"(remat none): loss flash {float(loss_f):.6f} vs naive "
+        f"{float(loss_n):.6f} ({dl:.3g} relative, tolerance "
+        f"{TOL_TRAIN_LOSS}); gradients relative L2 vs naive, max "
+        f"{max(errs.values()):.3g} over {len(errs)} leaves (tolerance "
+        f"{TOL_TRAIN_GRAD}): " + ", ".join(f"{k} {v:.3g}"
+                                           for k, v in named.items())
+        + f"; every leaf finite and non-zero; launches {counts}; grad norm "
+        f"{float(m['grad_norm']):.4f}")
+    del params, g_f, g_n, state, batch
+    torch.cuda.empty_cache()
+
+    cfg = model_config("mamba2_780m", {"ssd_impl": "kernel"})
+    params = MT.init_params(cfg, torch.Generator(device=dev).manual_seed(301),
+                            dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256))
+                            .astype(np.int32)).to(dev)
+    step = make_train_step(cfg, OptConfig())
+    reset_counts()
+    try:
+        step.grads(params, {"tokens": toks, "labels": toks})
+    except SsdScanGradError as e:
+        log(f"mamba2_780m ssd_impl='kernel' with a gradient refuses: {e}; "
+            f"launches {read_counts()}")
+    else:
+        raise SmokeError("ssd_scan took a gradient")
+    check(read_counts()["ssd_scan"] == 0, "ssd_scan launched in the refusal")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_training(np, torch, dev):
+    """SmolLM-360M bf16 training at full width through the flash kernels —
+    the training path; returns {kernel: launches in the 8 timed steps}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import Loader, TokenDataset
+    from repro_torch.models import transformer as MT
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import make_train_step
+
+    cfg = model_config("smollm_360m", {"attn_impl": "flash"}, remat="block")
+    opt = OptConfig(lr=1e-3, schedule="constant", warmup_steps=1,
+                    state_dtype="float32")
+    step = make_train_step(cfg, opt, microbatches=TRAIN_MB)
+    params = MT.init_params(cfg, torch.Generator(device=dev).manual_seed(400),
+                            dev)
+    state = {"params": params, "opt": step.init_opt(params), "step": 0}
+    del params
+    loader = Loader(TokenDataset(cfg.vocab_size, seed=7), shard_id=0,
+                    n_shards=1, batch_per_shard=TRAIN_B, seq_len=TRAIN_S)
+    n = cfg.num_layers
+    per_step = {"flash_fwd": n * 2 * TRAIN_MB, "flash_bwd_dq": n * TRAIN_MB,
+                "flash_bwd_dkv": n * TRAIN_MB}
+
+    def batch_on_card():
+        _, b = next(loader)
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    def one_step(state, batch):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        now = read_counts()
+        delta = {k: now[k] - before[k] for k in now}
+        want = {k: per_step.get(k, 0) for k in now}
+        check(delta == want, f"train step launches {delta}, want {want}")
+        check(np.isfinite(float(m["loss"])), f"loss {float(m['loss'])}")
+        return state, m, dt
+
+    try:
+        for _ in range(TRAIN_WARM):
+            state, m, _ = one_step(state, batch_on_card())
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        times, losses = [], []
+        for _ in range(TRAIN_TIMED):
+            state, m, dt = one_step(state, batch_on_card())
+            times.append(dt)
+            losses.append(float(m["loss"]))
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        med = statistics.median(times)
+        tokens = TRAIN_B * TRAIN_S
+        log(f"smollm_360m bf16 training, batch {TRAIN_B} x {TRAIN_S} in "
+            f"{TRAIN_MB} microbatches, remat block, AdamW f32 state: "
+            f"{TRAIN_TIMED} steps of " + ", ".join(f"{t:.4f}" for t in times)
+            + f" s, median {med:.4f} s = {tokens / med:.1f} tokens/s; peak "
+            f"memory {peak / 2**30:.2f} GiB; losses "
+            + ", ".join(f"{x:.4f}" for x in losses)
+            + f"; launches per step {per_step}, in the timed steps "
+            f"{launches}")
+        batch = batch_on_card()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, m, dt = one_step(state, batch)
+        log_card_busy(prof, med, "smollm_360m card over a traced train step")
+        log(f"traced step {dt:.4f} s (untraced median {med:.4f} s)")
+        fit = []
+        for _ in range(TRAIN_FIT):
+            state, m, _ = one_step(state, batch)
+            fit.append(float(m["loss"]))
+        check(fit[-1] < fit[0], f"loss on one batch did not fall: {fit}")
+        log(f"{TRAIN_FIT} steps on one batch: loss "
+            + ", ".join(f"{x:.4f}" for x in fit))
+    finally:
+        loader.close()
+    del state, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         raise SmokeError("src/repro_torch not found beside chip_smoke.py: "
@@ -1533,14 +1896,21 @@ def main():
     kernels.append(agg_entry)
     del d
     model_errs = phase_model_kernels(np, torch, dev)
-    # timed before the serving phase's long traces, after which the
-    # profiler recorded no device time in a run on the H100
+    bwd_errs = phase_bwd_kernels(np, torch, dev)
+    # timed, and a train step traced, before the serving phase's long
+    # traces, after which the profiler recorded no device time in a run on
+    # the H100
     model_entries = phase_model_timings(np, torch, dev, model_errs)
+    bwd_entries = phase_bwd_timings(np, torch, dev, bwd_errs)
+    phase_train_parity(np, torch, dev)
+    train_launches = phase_training(np, torch, dev)
+    for entry in bwd_entries:
+        entry["launches"] = train_launches[entry["name"]]
     phase_model_parity(np, torch, dev)
     launches = phase_serving(np, torch, dev)
     for entry in model_entries:
         entry["launches"] = launches[entry["name"]]
-    kernels += model_entries
+    kernels += model_entries + bwd_entries
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,4 +1,5 @@
-"""Causal flash attention, forward: O and the row log-sum-exp.
+"""Causal flash attention: the forward (O and the row log-sum-exp) and the
+backward (dQ; dK and dV), tied together by a ``torch.autograd.Function``.
 
 q, k, v are ``[BH, S, hd]`` (grouped-query KV heads repeated to the full
 head count by the caller); position i attends to positions j <= i, and
@@ -7,11 +8,15 @@ with ``window > 0`` only to i - j < window.  Scores are scaled by
 LSE (``m + log l`` of the row's softmax) in f32.
 
 :func:`flash_fwd` launches the CUDA kernel (``csrc/flash_attn.cu``) on
-CUDA tensors and runs :func:`flash_fwd_plain` on CPU tensors.
-:func:`flash_attention` is the model's entry point and keeps the
-reference's signature: ``bq`` and ``bk`` are the reference's block sizes,
-and the sequence must divide by both, as there; the kernel tiles as it
-likes.  The backward kernels belong to training and are not ported yet.
+CUDA tensors and runs :func:`flash_fwd_plain` on CPU tensors;
+:func:`flash_bwd` likewise launches the two backward kernels
+(``csrc/flash_attn_bwd.cu``: :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`)
+or runs :func:`flash_bwd_plain`.  :func:`flash_attention` is the model's
+entry point and keeps the reference's signature: ``bq`` and ``bk`` are
+the reference's block sizes, and the sequence must divide by both, as
+there; the kernels tile as they like.  Its gradient is the reference's
+``custom_vjp``: the forward saves q, k, v, O and LSE, the backward
+recomputes the probabilities from LSE.
 """
 
 from __future__ import annotations
@@ -114,18 +119,197 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_fwd.launches = 0     # kernel launches since the count was last reset
 
 
+def _check_bwd(q, k, v, do, o=None, **rows) -> None:
+    """q, k, v as :func:`_check`; ``do`` (and ``o``, where given) alike
+    them; each of ``rows`` (lse, delta) f32 ``[BH, S]`` on their device."""
+    _check(q, k, v)
+    for name, t in (("do", do), ("o", o)):
+        if t is None and name == "o":
+            continue
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q ({tuple(q.shape)}, "
+                             f"{q.dtype}, {q.device}); got {tuple(t.shape)}, "
+                             f"{t.dtype}, {t.device}")
+    for name, t in rows.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+        if tuple(t.shape) != tuple(q.shape[:2]) or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be float32 {list(q.shape[:2])} on "
+                             f"{q.device}; got {t.dtype} {list(t.shape)} on "
+                             f"{t.device}")
+
+
+def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``rowsum(dO · O)`` in f32, ``[BH, S]``: the backward's correction
+    term, a plain torch op as in the reference (outside any kernel)."""
+    return torch.sum(do.float() * o.float(), dim=-1)
+
+
+def _bwd_plain(q, k, v, do, lse, delta, scale, window):
+    """(p, ds) in f32, ``[BH, S, S]``: the probabilities recomputed from
+    LSE under the mask, and ``p · (dP - delta) · scale``."""
+    S = q.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    pos = torch.arange(S, device=q.device)
+    m = pos[:, None] >= pos[None, :]
+    if window:
+        m &= pos[:, None] - pos[None, :] < window
+    p = torch.where(m[None], torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                    scale: float, window: int = 0
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward, the reference kernels'
+    formulas on whole ``[BH, S, S]`` f32 tensors: ``p = exp(s - lse)``
+    masked, ``delta = rowsum(dO·O)``, ``ds = p·(dP - delta)·scale``;
+    -> (dQ, dK, dV) in the inputs' type."""
+    _check_bwd(q, k, v, do, o, lse=lse)
+    delta = flash_delta(o, do)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, scale=scale,
+                            window=window)
+    return (dq, *flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale=scale,
+                                     window=window))
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, scale: float,
+                      window: int = 0) -> torch.Tensor:
+    """Plain version of :func:`flash_bwd_dq`: ``ds · k`` in f32."""
+    _check_bwd(q, k, v, do, lse=lse, delta=delta)
+    _, ds = _bwd_plain(q, k, v, do, lse, delta, scale, window)
+    return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
+                        window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`flash_bwd_dkv`: ``dsᵀ · q`` and ``pᵀ · dO``
+    in f32."""
+    _check_bwd(q, k, v, do, lse=lse, delta=delta)
+    p, ds = _bwd_plain(q, k, v, do, lse, delta, scale, window)
+    return (torch.einsum("bqk,bqd->bkd", ds, q.float()).to(k.dtype),
+            torch.einsum("bqk,bqd->bkd", p, do.float()).to(v.dtype))
+
+
+def _launch_bwd(symbol, n_out, q, k, v, do, lse, delta, scale, window):
+    """Launches ``<symbol>_launch`` of ``csrc/flash_attn_bwd.cu`` on CUDA
+    operands; -> its ``n_out`` outputs, each shaped and typed as q."""
+    check_kernel_operands(q, k, v)
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if q.shape[0] > 65535:
+        raise ValueError(f"the flash kernels take at most 65535 batch-heads "
+                         f"(their grid's y), got {q.shape[0]}")
+    ins = [t.contiguous() for t in (q, k, v, do, lse, delta)]
+    outs = [torch.empty_like(ins[0]) for _ in range(n_out)]
+    BH, S, hd = ins[0].shape
+    fn = getattr(_build.load("flash_attn_bwd"), f"{symbol}_launch")
+    fn.argtypes = [ctypes.c_void_p] * (6 + n_out) + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*(t.data_ptr() for t in ins + outs), BH, S, hd, float(scale),
+             int(window), int(q.dtype == torch.bfloat16),
+             _build.stream_ptr(q.device))
+    if err:
+        raise RuntimeError(f"{symbol} kernel launch failed: cudaError {err}")
+    return outs
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+                 scale: float, window: int = 0) -> torch.Tensor:
+    """dQ [BH,S,hd] in q's type from q, k, v, dO and the f32 LSE and delta
+    rows.  Launches ``flash_bwd_dq_kernel`` for CUDA tensors; CPU tensors
+    take :func:`flash_bwd_dq_plain`."""
+    _check_bwd(q, k, v, do, lse=lse, delta=delta)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale=scale,
+                                  window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_dq runs on cuda or cpu, not {q.device}")
+    (dq,) = _launch_bwd("flash_bwd_dq", 1, q, k, v, do, lse, delta, scale,
+                        window)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0  # kernel launches since the count was last reset
+
+
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+                  scale: float, window: int = 0
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) [BH,S,hd] in the inputs' type, from the operands of
+    :func:`flash_bwd_dq`.  Launches ``flash_bwd_dkv_kernel`` for CUDA
+    tensors; CPU tensors take :func:`flash_bwd_dkv_plain`."""
+    _check_bwd(q, k, v, do, lse=lse, delta=delta)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale=scale,
+                                   window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_dkv runs on cuda or cpu, not {q.device}")
+    dk, dv = _launch_bwd("flash_bwd_dkv", 2, q, k, v, do, lse, delta, scale,
+                         window)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0  # kernel launches since the count was last reset
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+              scale: float, window: int = 0
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (dQ, dK, dV) in the inputs' type.  On CUDA tensors: delta, then
+    the two backward kernels; CPU tensors take :func:`flash_bwd_plain`."""
+    _check_bwd(q, k, v, do, o, lse=lse)
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, o, lse, do, scale=scale, window=window)
+    delta = flash_delta(o, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale=scale, window=window)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale, window=window)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp``: :func:`flash_fwd` forward, saving q,
+    k, v, O and LSE; :func:`flash_bwd` backward on ``dO.contiguous()``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, window: int):
+        o, lse = flash_fwd(q, k, v, scale=scale, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.window = scale, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(),
+                               scale=ctx.scale, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, window: int = 0, bq: int = DEFAULT_BQ,
                     bk: int = DEFAULT_BK) -> torch.Tensor:
-    """q, k, v: [BH, S, hd] (KV pre-repeated to full heads), causal; -> O.
-    S must divide by ``bq`` and ``bk``, the reference's block sizes."""
+    """q, k, v: [BH, S, hd] (KV pre-repeated to full heads), causal; -> O,
+    differentiable through :class:`FlashAttention` on either device.  S
+    must divide by ``bq`` and ``bk``, the reference's block sizes."""
     _check(q, k, v)
     S = q.shape[1]
     if bq <= 0 or bk <= 0 or S % bq or S % bk:
         raise ValueError(f"flash_attention: sequence length {S} must be a "
                          f"multiple of the block sizes bq={bq} and bk={bk}")
-    o, _ = flash_fwd(q, k, v, scale=scale, window=window)
-    return o
+    return FlashAttention.apply(q, k, v, float(scale), int(window))
 
 
 def flash_hbm_bytes(B, H, S, hd, dtype_bytes=2, *, train: bool,

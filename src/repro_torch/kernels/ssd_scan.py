@@ -14,7 +14,10 @@ Per chunk, with ``cum = cumsum(la)`` and ``L = tril(exp(cum_i - cum_j))``:
 ``state = state·exp(cum[-1]) + (exp(cum[-1] - cum) ∘ x)ᵀ B``.
 
 :func:`ssd_scan` launches the CUDA kernel (``csrc/ssd_scan.cu``) on CUDA
-tensors and runs :func:`ssd_scan_plain` on CPU tensors.
+tensors and runs :func:`ssd_scan_plain` on CPU tensors.  It has no
+gradient, as the reference's Pallas kernel has no VJP: called where
+autograd would record it, it raises :class:`SsdScanGradError` on either
+device.  SSD training takes ``ssd_impl="xla"``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,10 @@ from repro_torch.kernels import _build
 
 KERNEL_MAX_HD, KERNEL_MAX_DS = 64, 128
 KERNEL_MAX_Q = 16384          # cum of one chunk in shared memory
+
+
+class SsdScanGradError(RuntimeError):
+    """``ssd_scan`` was asked for a gradient, which it does not have."""
 
 
 def _check(x, la, Bm, Cm) -> None:
@@ -79,8 +86,14 @@ def ssd_scan(x: torch.Tensor, la: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor) -> torch.Tensor:
     """x [BH,nc,Q,hd], la [BH,nc,Q], Bm/Cm [BH,nc,Q,ds] -> y [BH,nc,Q,hd].
     Launches the CUDA kernel for CUDA tensors (f32, hd <= 64, ds <= 128);
-    CPU tensors take the plain version."""
+    CPU tensors take the plain version.  Refuses, on both devices, inputs
+    that require a gradient while grad mode is on."""
     _check(x, la, Bm, Cm)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, la, Bm, Cm)):
+        raise SsdScanGradError(
+            "ssd_scan has no gradient (the reference's SSD kernel has no "
+            "VJP): train SSD blocks with ssd_impl='xla', or call ssd_scan "
+            "under torch.no_grad() / torch.inference_mode()")
     if x.device.type == "cpu":
         return ssd_scan_plain(x, la, Bm, Cm)
     if x.device.type != "cuda":

@@ -4,8 +4,10 @@ The fields, defaults and derived numbers are the reference's
 (``repro.models.config``); ``act_dtype`` and ``w_dtype`` give torch dtypes.
 ``q_chunk``, ``attn_impl`` and ``ssd_impl`` keep their meaning: ``attn_impl
 ="flash"`` runs the hand-written flash-attention kernel on a CUDA tensor
-and ``ssd_impl="kernel"`` the SSD scan kernel.  ``remat``, ``scan_layers``
-and the MoE sharding switches are read by no code of this slice.
+and ``ssd_impl="kernel"`` the SSD scan kernel.  ``remat`` selects the
+activation checkpointing of a train-mode forward
+(``models.transformer``); ``scan_layers`` and the MoE sharding switches
+are read by no code of this slice.
 """
 
 from __future__ import annotations

@@ -13,17 +13,26 @@ Three modes share the block implementations:
 * ``prefill`` — full sequence, emits a serving cache.
 * ``decode``  — one token against the cache, which it updates in place.
 
+In ``train`` mode with grad enabled, each super-block runs under
+``cfg.remat``, as the reference's ``_maybe_remat``: ``"none"`` keeps every
+activation, ``"block"`` is ``torch.utils.checkpoint`` (non-reentrant),
+saving only the block's input and recomputing the rest in the backward,
+and ``"dots"`` a selective checkpoint that saves the outputs of the plain
+matrix products (``aten.mm``; batched products and everything else are
+recomputed), as ``checkpoint_dots_with_no_batch_dims`` does.
+
 This slice carries the dense-attention and SSD blocks (``attn``,
 ``attn_local``, ``ssd``).  ``attn_moe`` and ``rglru`` blocks raise
-``NotImplementedError``.  ``cfg.remat`` means nothing without a backward
-pass and is not read.
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
+from torch.utils import checkpoint as C
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -86,6 +95,15 @@ def param_specs(cfg: ModelConfig) -> dict[str, L.Spec]:
     if not cfg.tie_embeddings:
         out["lm_head"] = ((D, V), ("embed", "vocab"))
     return out
+
+
+def param_shapes(cfg: ModelConfig) -> dict[str, TensorSpec]:
+    return {k: TensorSpec(tuple(shape), cfg.w_dtype)
+            for k, (shape, _) in param_specs(cfg).items()}
+
+
+def param_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    return {k: axes for k, (_, axes) in param_specs(cfg).items()}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -208,6 +226,28 @@ def _embed_inputs(params, inputs, cfg: ModelConfig):
     return x
 
 
+REMAT_MODES = ("none", "block", "dots")
+_DOTS = (torch.ops.aten.mm.default,)       # products with no batch dims
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return C.CheckpointPolicy.MUST_SAVE
+    return C.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    if cfg.remat not in REMAT_MODES:
+        raise ValueError(f"unknown remat {cfg.remat!r} (none | block | dots)")
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            C.create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(C.checkpoint, fn, use_reentrant=False, **kw)
+
+
 def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train",
             cache: dict | None = None, pos=None):
     """Run the stack.  Returns (logits f32, new_cache, aux_loss).
@@ -225,20 +265,39 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train"
     x = _embed_inputs(params, inputs, cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict = {}
+    pattern = cfg.block_pattern
 
-    stacked = {f"s{slot}": _sub(params, f"s{slot}_") for slot in range(len(cfg.block_pattern))}
-    cache_stacked = ({f"s{slot}": _sub(cache, f"s{slot}_")
-                      for slot in range(len(cfg.block_pattern))}
+    def super_fwd(x, slot_params, slot_caches):
+        aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        outs = {}
+        for slot, kind in enumerate(pattern):
+            c = slot_caches[slot] if slot_caches is not None else None
+            x, nc, aux = block_fwd(kind, cfg, slot_params[slot], x, mode=mode,
+                                   pos=pos, cache=c)
+            if nc is not None:
+                outs[slot] = nc
+            aux_sum = aux_sum + aux
+        return x, outs, aux_sum
+
+    body = super_fwd
+    if mode == "train" and torch.is_grad_enabled():
+        body = _maybe_remat(super_fwd, cfg)
+    # one unbind per stacked leaf: its backward stacks the layers' gradients
+    # once, where indexing each layer would scatter into a zero tensor of
+    # the whole stack per layer
+    stacked = [{k: v.unbind(0) for k, v in _sub(params, f"s{slot}_").items()}
+               for slot in range(len(pattern))]
+    cache_stacked = ([_sub(cache, f"s{slot}_") for slot in range(len(pattern))]
                      if mode == "decode" else None)
     layer_caches: dict[str, list] = {}
     for i in range(cfg.n_super):
-        for slot, kind in enumerate(cfg.block_pattern):
-            sp = {k: v[i] for k, v in stacked[f"s{slot}"].items()}
-            c = ({k: v[i] for k, v in cache_stacked[f"s{slot}"].items()}
-                 if cache_stacked is not None else None)
-            x, nc, aux = block_fwd(kind, cfg, sp, x, mode=mode, pos=pos, cache=c)
-            aux_total = aux_total + aux
-            if nc is not None and mode == "prefill":
+        sp = [{k: v[i] for k, v in st.items()} for st in stacked]
+        c = ([{k: v[i] for k, v in cs.items()} for cs in cache_stacked]
+             if cache_stacked is not None else None)
+        x, outs, aux = body(x, sp, c)
+        aux_total = aux_total + aux
+        if mode == "prefill":
+            for slot, nc in outs.items():
                 for k, v in nc.items():
                     layer_caches.setdefault(f"s{slot}_{k}", []).append(v)
     if mode == "prefill":

@@ -5,8 +5,9 @@ The cache uses the per-slot layout (``models.transformer.init_cache(...,
 per_slot=True)``): ``attention_decode`` takes a ``[B]`` position vector,
 each row writes its own ring slot and masks against its own validity row,
 and sequences join and leave mid-wave — admission is a row write, never a
-barrier.  The reference's ``Obs`` counters and tracer come with the
-serving slice.
+barrier.  Admission and ticks run under ``torch.inference_mode()``, so
+parameters that require a gradient build no graph.  The reference's
+``Obs`` counters and tracer come with the serving slice.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ class ContinuousBatcher:
     def free_slots(self) -> list[int]:
         return [s for s in range(self.B) if s not in self.active]
 
+    @torch.inference_mode()
     def install(self, slot: int, cache1: dict, pos0: int, first_token: int,
                 req: Request) -> None:
         """Splice one prefilled sequence (a single-sequence cache at seq
@@ -92,6 +94,7 @@ class ContinuousBatcher:
         self.active[slot] = req
         req.out.append(int(first_token))
 
+    @torch.inference_mode()
     def tick(self) -> tuple[int, list[Request]]:
         """One decode step for all active slots.  Returns (#tokens emitted,
         finished requests) — completion surfaces here, never at

@@ -1,4 +1,9 @@
-"""Serving steps: prefill (full sequence -> cache) and decode (one token)."""
+"""Serving steps: prefill (full sequence -> cache) and decode (one token).
+
+Both run under ``torch.inference_mode()``: parameters that come out of
+training may still require a gradient, and a serving step must build no
+autograd graph.  The cache and logits they return are inference tensors,
+which later steps may read and update in place inside inference mode."""
 
 from __future__ import annotations
 
@@ -11,6 +16,7 @@ from repro_torch.models.config import ModelConfig
 
 
 def make_prefill_step(cfg: ModelConfig):
+    @torch.inference_mode()
     def prefill_step(params, inputs):
         logits, cache, _ = T.forward(params, inputs, cfg, mode="prefill")
         return cache, logits[:, -1:]
@@ -18,6 +24,7 @@ def make_prefill_step(cfg: ModelConfig):
 
 
 def make_decode_step(cfg: ModelConfig):
+    @torch.inference_mode()
     def decode_step(params, cache, tokens, pos):
         """tokens [B,1]; pos a scalar (wave batching) or [B] (continuous
         batching over a per-slot cache) -> (cache, logits [B,1,V]).  The

@@ -16,14 +16,21 @@ from repro_torch.core.codegen import assemble, deserialize_uvm
 from repro_torch.core.device_mailbox import pack_agg_word_frame
 from repro_torch.kernels.agg_poll import (AGG_MAGIC, agg_ring_poll,
                                           agg_ring_poll_plain)
-from repro_torch.kernels.flash_attn import flash_fwd, flash_fwd_plain
+from repro_torch.kernels import flash_attn as FA
+from repro_torch.kernels.flash_attn import (flash_attention, flash_bwd,
+                                            flash_bwd_dkv, flash_bwd_dq,
+                                            flash_bwd_plain, flash_fwd,
+                                            flash_fwd_plain)
 from repro_torch.kernels.ifunc_vm import ifunc_vm, ifunc_vm_plain
 from repro_torch.kernels.ring_poll import (HDR_WORDS, MAGIC, TRAILER,
                                            ring_poll, ring_poll_plain)
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import (SsdScanGradError, ssd_scan,
+                                          ssd_scan_plain)
 from repro_torch.models import transformer as MT
 from repro_torch.models.config import ModelConfig
+from repro_torch.train.optim import OptConfig
 from repro_torch.train.serve import pad_cache_to
+from repro_torch.train.step import make_train_step
 from repro_torch.transport import DeviceMeshFabric, Dispatcher, ProgressEngine
 
 T = 128
@@ -366,3 +373,130 @@ def test_small_model_prefill_decode_on_the_card_matches_the_cpu(cuda, kind):
     for g, w in zip(runs["cuda"], runs["cpu"]):
         assert g.shape == w.shape and bool(torch.isfinite(g.float()).all())
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+# The backward kernels against flash_bwd_plain on the same inputs (the
+# kernel's own forward O and LSE).  f32: summation order only, within the
+# reference's gradient tolerance (tests/test_kernels.py).  bf16: the
+# kernels round dQ, dK, dV to bf16 (2^-9 relative), the plain version is
+# taken in f32 on the same bf16 inputs.
+FLASH_BWD_TOL_F32 = dict(rtol=2e-4, atol=2e-4)
+FLASH_BWD_TOL_BF16 = dict(rtol=8e-3, atol=8e-3)
+
+
+def _flash_operands(cuda, dtype, BH, S, hd, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((BH, S, hd))
+                             .astype(np.float32)).to(cuda, dtype)
+            for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 200, 64, 0), (2, 512, 128, 256),
+                                   (15, 512, 64, 0), (2, 130, 64, 17),
+                                   (1, 1, 64, 0), (2, 64, 128, 64),
+                                   (2, 300, 128, 0)])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, shape):
+    """dQ, dK, dV of the two backward kernels against the plain version:
+    ragged tiles (S = 200, 130, 1, 300), windows narrower and wider than a
+    tile, head_dim 64 and 128; each kernel launched once."""
+    BH, S, hd, window = shape
+    q, k, v, do = _flash_operands(cuda, dtype, BH, S, hd, S + hd + window)
+    scale = 1.0 / np.sqrt(hd)
+    o, lse = flash_fwd(q, k, v, scale=scale, window=window)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    got = flash_bwd(q, k, v, o, lse, do, scale=scale, window=window)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = flash_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                           do.float(), scale=scale, window=window)
+    tol = FLASH_BWD_TOL_F32 if dtype == torch.float32 else FLASH_BWD_TOL_BF16
+    for name, g, w in zip(("dQ", "dK", "dV"), got, want):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all()), name
+        torch.testing.assert_close(g.float(), w, **tol, msg=name)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_on_the_card_runs_only_the_kernels(
+        cuda, monkeypatch):
+    """The autograd.Function's backward on CUDA tensors launches both
+    kernels and never the plain formulas, and its gradients match the
+    CPU's (the plain version) within 2e-4."""
+    def refuse(*a, **k):
+        raise AssertionError("the plain backward ran on a CUDA tensor")
+
+    q, k, v, _ = _flash_operands(torch.device("cpu"), torch.float32, 4, 256,
+                                 64, 7)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        if dev.type == "cuda":
+            monkeypatch.setattr(FA, "_bwd_plain", refuse)
+            monkeypatch.setattr(FA, "flash_bwd_plain", refuse)
+            before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+        o = flash_attention(*leaves, 0.125, 32, 128, 128)
+        (o.float() ** 2).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == \
+                (before[0] + 1, before[1] + 1)
+            monkeypatch.undo()
+        grads[dev.type] = [t.grad for t in leaves]
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(g.cpu(), w, **FLASH_BWD_TOL_F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "block", "dots"])
+def test_flash_train_step_on_the_card_matches_the_cpu(cuda, remat):
+    """A train step of the small flash model (2 microbatches) on the card
+    and on the CPU from the same parameters: the loss within 1e-5 relative
+    and every gradient within 1e-4 relative L2; the kernels ran (the
+    forward once a layer a microbatch, twice under a checkpoint, each
+    backward kernel once), and one AdamW step leaves finite parameters."""
+    cfg = SMALL["attn"].with_(remat=remat)
+    params = MT.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    rng = np.random.default_rng(5)
+    batch = {"tokens": rng.integers(0, 512, (4, 64)).astype(np.int32),
+             "labels": rng.integers(0, 512, (4, 64)).astype(np.int32)}
+    step = make_train_step(cfg, OptConfig(), microbatches=2)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = {k: v.to(dev) for k, v in params.items()}
+        before = (flash_fwd.launches, flash_bwd_dq.launches,
+                  flash_bwd_dkv.launches)
+        out[dev.type] = step.grads(p, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            n = cfg.num_layers * 2
+            fwd = n if remat == "none" else 2 * n
+            assert (flash_fwd.launches - before[0],
+                    flash_bwd_dq.launches - before[1],
+                    flash_bwd_dkv.launches - before[2]) == (fwd, n, n)
+            state, m = step({"params": p, "opt": step.init_opt(p), "step": 0},
+                            batch)
+            assert all(bool(torch.isfinite(t).all())
+                       for t in state["params"].values())
+    (lc, _, gc), (lp, _, gp) = out["cuda"], out["cpu"]
+    assert abs(float(lc) - float(lp)) <= 1e-5 * abs(float(lp))
+    assert set(gc) == set(gp)
+    for key in gp:
+        err = float(torch.linalg.vector_norm(gc[key].cpu() - gp[key])
+                    / torch.linalg.vector_norm(gp[key]))
+        assert err < 1e-4, (key, err)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_gradients_on_the_card(cuda):
+    x = torch.zeros(2, 1, 8, 16, device=cuda, requires_grad=True)
+    la = torch.zeros(2, 1, 8, device=cuda)
+    Bm = torch.zeros(2, 1, 8, 16, device=cuda)
+    before = ssd_scan.launches
+    with pytest.raises(SsdScanGradError):
+        ssd_scan(x, la, Bm, Bm)
+    assert ssd_scan.launches == before
+    with torch.no_grad():
+        ssd_scan(x, la, Bm, Bm)
+    assert ssd_scan.launches == before + 1

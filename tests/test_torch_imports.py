@@ -1,9 +1,9 @@
 """The port stands alone: importing every module of ``repro_torch`` (the
-model stack's ``models/``, ``configs/``, ``train/`` and ``serving/``
-included) and registering its ifunc library loads neither jax nor the JAX
-package.  The
-check runs in a subprocess because this test process has jax loaded
-already (``tests/conftest.py``)."""
+model stack's ``models/``, ``configs/``, ``train/`` with the training step
+and optimizers, ``data/`` and ``serving/`` included) and registering its
+ifunc library loads neither jax nor the JAX package.  The check runs in a
+subprocess because this test process has jax loaded already
+(``tests/conftest.py``)."""
 
 import os
 import pathlib
@@ -36,7 +36,9 @@ print("STACK", all(m in mods for m in (
     "repro_torch.models.transformer", "repro_torch.models.ssm",
     "repro_torch.configs.smollm_360m", "repro_torch.configs.mamba2_780m",
     "repro_torch.train.serve", "repro_torch.serving.batcher",
-    "repro_torch.kernels.flash_attn", "repro_torch.kernels.ssd_scan")))
+    "repro_torch.kernels.flash_attn", "repro_torch.kernels.ssd_scan",
+    "repro_torch.train.step", "repro_torch.train.optim",
+    "repro_torch.data.pipeline")))
 print("FORBIDDEN", bad)
 """
 

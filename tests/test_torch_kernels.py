@@ -240,8 +240,8 @@ def test_build_compiles_every_source_once(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "_nvcc", lambda: _fake_nvcc(tmp_path))
     out, _ = _build.build_all()
     stems = sorted(s.stem for s in _build.sources())
-    assert stems == ["agg_poll", "flash_attn", "ifunc_vm", "ring_poll",
-                     "ssd_scan"]
+    assert stems == ["agg_poll", "flash_attn", "flash_attn_bwd", "ifunc_vm",
+                     "ring_poll", "ssd_scan"]
     for stem in stems:
         assert (out / f"lib{stem}.so").exists()
         assert "registers" in (out / f"{stem}.log").read_text()
