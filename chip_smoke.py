@@ -6,7 +6,9 @@
 Phases, each of which fails the script (non-zero exit, no result line):
 
 1. environment: torch/CUDA versions, the card's name and power limit; the
-   CUDA kernels build from ``src/repro_torch/csrc`` with nvcc for sm_90a;
+   CUDA kernels build from ``src/repro_torch/csrc`` with nvcc for sm_90a,
+   each kernel's ptxas registers and spills logged (the tensor-core
+   ``*_wgmma_kernel``s must not spill);
 2. every kernel of both paths against its plain PyTorch version on the
    card, at the paths' shapes: ``ring_poll`` bit-exact over a ring mixing
    every status, ``agg_ring_poll`` bit-exact over aggregate rings mixing
@@ -43,11 +45,13 @@ Phases, each of which fails the script (non-zero exit, no result line):
     the serving and training paths launch: ``flash_fwd`` on [15, S, 64]
     for S in {200, 512, 4096}, [4, 512, 128] with window 256, and the
     training shapes [30, 2,048, 64] (phase 17's microbatch) and
-    [30, 1,024, 64] (phase 16's batch), f32 and bf16;
-    ``ssd_scan`` on [48, nc, Q, 64], ds 128, for (nc, Q) in {(1, 200),
-    (16, 256)};
+    [30, 1,024, 64] (phase 16's batch), f32 (the FMA kernel) and bf16
+    (the wgmma kernel); ``ssd_scan`` on [48, nc, Q, 64], ds 128, for
+    (nc, Q) in {(1, 200), (16, 256)};
 11. model kernel timings at the path's largest shapes as in phase 5, with
-    ``scaled_dot_product_attention`` as flash's library yardstick;
+    ``scaled_dot_product_attention`` as flash's library yardstick: the bf16
+    forward timed by its own profiler name (``flash_fwd_wgmma_kernel``),
+    its TFLOP/s, share of the bound and ratio to SDPA's forward;
 12. model parity in f32 at the full published width of SmolLM-360M and
     Mamba-2 780M: the kernel path's prefill logits and cache against the
     plain path's on 4 prompts of 256 tokens, and teacher forcing (prefill
@@ -61,10 +65,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
     at batch 1 and 4,096 tokens;
 14. the flash backward kernels (``flash_bwd_dq``, ``flash_bwd_dkv``)
     against ``flash_bwd_plain`` on the card at the forward's shapes of
-    phase 10, the training shapes included, f32 and bf16;
-15. backward timings at [15, 4,096, 64] bf16 as in phase 11, with the
+    phase 10, the training shapes included, f32 and bf16 (dK and dV in
+    bf16 through ``flash_bwd_dkv_wgmma_kernel``);
+15. backward timings at [15, 4,096, 64] bf16 as in phase 11
+    (``flash_bwd_dq_kernel``, ``flash_bwd_dkv_wgmma_kernel``), with the
     backward of ``scaled_dot_product_attention`` as the library yardstick
-    of both kernels together;
+    of both kernels together, each kernel's ratio to it logged;
 16. training parity in f32 at the full width of SmolLM-360M: one
     ``make_train_step``'s loss and gradients (batch 2 x 1,024 tokens)
     through the flash kernels against the naive path's, every parameter
@@ -89,6 +95,7 @@ JSON line.
 
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -225,11 +232,14 @@ def device_ms(torch, fn, kernel, iters=50):
     return None
 
 
-def kernel_times(torch, fn, kernel, iters):
+def kernel_times(torch, fn, kernel, iters, require=False):
     """(device ms, wrapper ms): the kernel's own time where the profiler
-    sees it, else the CUDA-event time of the wrapper, and the latter."""
+    sees it, else the CUDA-event time of the wrapper, and the latter.
+    ``require``: fail unless the profiler sees a kernel named ``kernel``."""
     wrapper = cuda_ms(torch, fn, iters)
     dev = device_ms(torch, fn, kernel, iters)
+    check(dev is not None or not require,
+          f"torch.profiler recorded no device time for {kernel}")
     if dev is None:
         log(f"{kernel}: device time not measured (torch.profiler recorded "
             f"none); ms is the wrapper's")
@@ -312,9 +322,20 @@ def phase_build(torch, smi):
     log(f"built {len(_build.sources())} CUDA sources in {secs:.1f} s "
         f"into {out.relative_to(ROOT)}")
     for src in _build.sources():
+        kernel = ""
         for line in (out / f"{src.stem}.log").read_text().splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?_Z\w*?([a-z][a-z_]*_kernel)(?:I(\w*?)EE)?",
+                          line)
+            if m:                        # the kernel and its template args
+                kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             if "registers" in line or "spill" in line:
-                log(f"  ptxas {src.stem}: {line.strip()}")
+                log(f"  ptxas {src.stem} {kernel}: {line.strip()}")
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            check(not (spill and "wgmma" in kernel and spill.group(1, 2)
+                       != ("0", "0")),
+                  f"{kernel} spills registers: {line.strip()}")
 
 
 def make_ring(np, rng, n, W):
@@ -1480,8 +1501,8 @@ def phase_model_timings(np, torch, dev, errs):
     scale = 1.0 / float(np.sqrt(hd))
     q, k, v = flash_inputs(np, torch, dev, rng, BH, S, hd, torch.bfloat16)
     fl_ms, fl_wrap = kernel_times(
-        torch, lambda: flash_fwd(q, k, v, scale=scale), "flash_fwd_kernel",
-        20)
+        torch, lambda: flash_fwd(q, k, v, scale=scale),
+        "flash_fwd_wgmma_kernel", 20, require=True)
     fl_plain = cuda_ms(torch, lambda: flash_fwd_plain(q, k, v, scale=scale),
                        3, repeats=3)
     o = flash_fwd(q, k, v, scale=scale)[0]
@@ -1518,7 +1539,9 @@ def phase_model_timings(np, torch, dev, errs):
         f"scaled_dot_product_attention {fl_lib:.4f}, bound "
         f"{max(fl_b_ops, fl_b_bytes):.4f} ms: {fl_flops:.3g} FLOP at bf16 "
         f"-> {fl_b_ops:.4f} ms, {fl_bytes / 1e6:.1f} MB -> "
-        f"{fl_b_bytes:.4f} ms); {fl_flops / fl_ms / 1e9:.2f} TFLOP/s; "
+        f"{fl_b_bytes:.4f} ms); {fl_flops / fl_ms / 1e9:.2f} TFLOP/s, "
+        f"{max(fl_b_ops, fl_b_bytes) / fl_ms:.3f} of the bound, "
+        f"{fl_ms / fl_lib:.2f}x scaled_dot_product_attention's forward; "
         f"{per_prefill['flash_fwd']} launches per SmolLM prefill")
     log(f"ssd_scan [{BHs}, {nc}, {Q}, {hd_s}] ds {ds} f32: {ss_ms:.4f} ms on "
         f"the card (wrapper {ss_wrap:.4f}, plain {ss_plain:.4f}, bound "
@@ -1630,7 +1653,7 @@ def phase_bwd_timings(np, torch, dev, errs):
         10)
     dkv_ms, dkv_wrap = kernel_times(
         torch, lambda: flash_bwd_dkv(*args, scale=scale),
-        "flash_bwd_dkv_kernel", 10)
+        "flash_bwd_dkv_wgmma_kernel", 10, require=True)
     dq_plain = cuda_ms(torch, lambda: flash_bwd_dq_plain(*args, scale=scale),
                        2, repeats=3)
     dkv_plain = cuda_ms(torch, lambda: flash_bwd_dkv_plain(*args, scale=scale),
@@ -1667,7 +1690,9 @@ def phase_bwd_timings(np, torch, dev, errs):
             f"(wrapper {wrap:.4f}, plain {plain:.4f}, bound "
             f"{max(b_ops, b_bytes):.4f} ms: {flops:.3g} FLOP at bf16 -> "
             f"{b_ops:.4f} ms, {nbytes / 1e6:.1f} MB -> {b_bytes:.4f} ms); "
-            f"{flops / ms / 1e9:.2f} TFLOP/s")
+            f"{flops / ms / 1e9:.2f} TFLOP/s, "
+            f"{max(b_ops, b_bytes) / ms:.3f} of the bound, {ms / lib_ms:.2f}x "
+            f"scaled_dot_product_attention's whole backward")
         entries.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attn_bwd.cu",

@@ -1,10 +1,10 @@
 // flash_attn_bwd: causal flash attention, backward.  Two kernels, one for
 // each pallas_call of the reference's backward:
 //
-//   flash_bwd_dq_kernel  replaces src/repro/kernels/flash_attn.py::_flash_bwd
-//                        (_bwd_dq_kernel): dQ, k blocks innermost;
-//   flash_bwd_dkv_kernel replaces the same function's second call
-//                        (_bwd_dkv_kernel): dK and dV, q blocks innermost.
+//   flash_bwd_dq_kernel   replaces src/repro/kernels/flash_attn.py::_flash_bwd
+//                         (_bwd_dq_kernel): dQ, k blocks innermost;
+//   flash_bwd_dkv_*       replaces the same function's second call
+//                         (_bwd_dkv_kernel): dK and dV, q blocks innermost.
 //
 // The reference's grids ran the innermost block axis in order on one core
 // and carried dQ (or dK, dV) in VMEM scratch from one grid step to the
@@ -12,7 +12,8 @@
 // outputs and a loop over the other axis takes the place of the
 // sequential grid axis.  The split into two kernels is kept because it
 // lets every output element be written by exactly one block: no atomics,
-// and the sums are taken in the same order on every run.
+// and the sums are taken in the same order on every run, so two launches
+// on the same inputs give the same bits.
 //
 // Both recompute the probabilities from the forward's row log-sum-exp:
 //   s = scale * q k^T,  p = exp(s - lse) where i >= j (and i - j < window),
@@ -26,27 +27,52 @@
 // products, 4.8e10 FLOP, and dK/dV four, 6.4e10: 0.049 and 0.065 ms at the
 // tensor cores' 989 TFLOP/s, against 40 and 48 MB of traffic (each operand
 // read once, each output written once: 0.012 and 0.014 ms at 3.35 TB/s).
-// This first version computes in FP32 FMAs on the CUDA cores, as the
-// forward kernel does, so it cannot come near that bound; wgmma on bf16
-// tiles is the next step.  What the design keeps is the point of flash
-// attention: no [S, S] matrix ever leaves the chip.
 //
-// Design, shared by both: 256 threads per block, tiles of 64 rows held in
-// shared memory as f32 with rows padded by one word (column reads hit
-// distinct banks).  Thread (r, c) = (tid / 16, tid % 16) computes rows
-// 4r..4r+3 and columns c + 16j of each 64 x 64 product tile, and columns
-// c + 16d of its output rows, which it keeps in registers until the end.
-// Tiles wholly above the diagonal or wholly outside the window are never
-// visited; within a visited tile the mask is by position, so any S >= 1
-// works (the ragged last tile reads zeros and writes nothing past S).
+// dK/dV in bf16 (flash_bwd_dkv_wgmma_kernel) is built on wgmma, the only
+// way to the tensor cores: one block of two warpgroups per (bh, tile of
+// 128 keys), each warpgroup owning 64 key rows; the first keys, which the
+// most query rows see, come first.  K and V stay in shared memory; Q, dO,
+// LSE and delta tiles of BQ queries (64 at head_dim 64, 32 at 128, so that
+// the four accumulators fit the registers without spilling) stream
+// through a ring of two stages filled by cp.async while the previous tile
+// is computed, in the 128-byte swizzled layout that wgmma reads
+// (hopper.cuh).  Per query tile and warpgroup, four products:
+//   S^T  = K Q^T            wgmma SS, both K-major;
+//   dP^T = V dO^T           wgmma SS, both K-major, in the same batch;
+//   P^T  = exp2(S^T scale log2 e - lse log2 e), masked, in registers;
+//   dV  += P^T dO           P^T as bf16 register A, dO MN-major;
+//   dS^T = P^T (dP^T - delta) scale, in registers;
+//   dK  += dS^T Q           dS^T as bf16 register A, Q MN-major.
+// The MN-major B operands (dO, Q read down their rows) go through the
+// descriptor's transpose bit, which wgmma offers for 16-bit types only.
+// dK and dV stay in f32 registers to the end and are written in bf16.
+//
+// dQ in both types and dK/dV in f32 compute in FP32 FMAs on the CUDA cores:
+// 256 threads per block, tiles of 64 rows held in shared memory as f32
+// with rows padded by one word (column reads hit distinct banks).  Thread
+// (r, c) = (tid / 16, tid % 16) computes rows 4r..4r+3 and columns
+// c + 16j of each 64 x 64 product tile, and columns c + 16d of its output
+// rows, which it keeps in registers until the end.  wgmma's f32 route is
+// TF32 (a 10-bit mantissa), which would break the f32 path's agreement
+// with the plain version, so f32 keeps this design; dQ's redesign is
+// still to come.
+//
+// In all, tiles wholly above the diagonal or wholly outside the window are
+// never visited; within a visited tile the mask is by position, so any
+// S >= 1 works (the ragged last tile reads zeros and writes nothing past
+// S), and a masked entry contributes exactly 0.
 //
 // Inputs q, k, v, dO [BH, S, hd] contiguous, f32 or bf16, all one type;
 // lse and delta [BH, S] f32.  Outputs dQ, dK, dV [BH, S, hd] in the
-// input type.  hd is 64 or 128.
+// input type.  hd is 64 or 128; the bf16 dK/dV kernel is a template on hd
+// (see flash_attn.cu for what 96 and 256 need).
 
+#include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -359,6 +385,213 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------ dK/dV bf16: wgmma
+
+using bf16 = __nv_bfloat16;
+
+template <int HD>
+struct Dkv {
+  static constexpr int BK = 128;             // keys a block
+  static constexpr int BQ = HD == 64 ? 64 : 32;   // queries a tile
+  static constexpr int THREADS = 256;        // two warpgroups
+  static constexpr int KV_BYTES = BK * HD * 2;    // K or V
+  static constexpr int T_BYTES = BQ * HD * 2;     // Q or dO, one stage
+  // Q, dO, then LSE and delta in 1 KiB, so that every stage is aligned
+  static constexpr int STAGE = 2 * T_BYTES + 1024;
+  static_assert(2 * BQ * 4 <= 1024, "LSE and delta fit their KiB");
+  // K, V, then the ring's two stages; 1 KiB to align the base
+  static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + 2 * STAGE;
+};
+
+// Q, dO, LSE and delta of queries q0 .. q0 + BQ - 1 into one stage of the
+// ring; rows past S read as zeros
+template <int HD>
+__device__ __forceinline__ void load_q_stage(
+    uint32_t st, const bf16* q, const bf16* dout, const float* lse,
+    const float* delta, int q0, int S, int tid) {
+  using C = Dkv<HD>;
+  using namespace hopper;
+  hopper::load_tile<C::BQ, HD, C::THREADS>(st, q, q0, S, tid);
+  hopper::load_tile<C::BQ, HD, C::THREADS>(st + C::T_BYTES, dout, q0, S, tid);
+  if (tid < 2 * C::BQ) {
+    const int i = tid % C::BQ, qi = q0 + i;
+    const float* src = tid < C::BQ ? lse : delta;
+    cp_async4(st + 2 * C::T_BYTES + (tid / C::BQ) * C::BQ * 4 + i * 4,
+              src + (qi < S ? qi : 0), qi < S);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Dkv<HD>::THREADS, 1)
+    flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
+                               const bf16* __restrict__ k,
+                               const bf16* __restrict__ v,
+                               const bf16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv,
+                               int S, float scale, int window) {
+  using C = Dkv<HD>;
+  using namespace hopper;
+  constexpr int BK = C::BK, BQ = C::BQ, NT = C::THREADS;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t Ks = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t Vs = Ks + C::KV_BYTES;
+  const uint32_t Q0 = Vs + C::KV_BYTES;      // stage s at Q0 + s * STAGE
+  const uint8_t* ring = smem_raw + (Q0 - smem_u32(smem_raw));  // Q0, generic
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int64_t bh = blockIdx.x;
+  const int64_t base = bh * S * HD;
+  const int k0 = static_cast<int>(blockIdx.y) * BK;
+  const int k_last = min(k0 + BK - 1, S - 1);
+  const int q_end = (window > 0 && k_last + window - 1 < S - 1)
+                        ? k_last + window - 1 : S - 1;
+  const int qt_begin = k0 / BQ, qt_end = q_end / BQ;
+
+  hopper::load_tile<BK, HD, NT>(Ks, k + base, k0, S, tid);
+  hopper::load_tile<BK, HD, NT>(Vs, v + base, k0, S, tid);
+  load_q_stage<HD>(Q0, q + base, dout + base, lse + bh * S, delta + bh * S,
+                   qt_begin * BQ, S, tid);
+  cp_async_commit();
+
+  const int wk0 = k0 + 64 * wg;              // this warpgroup's first key
+  const int key = wk0 + 16 * warp + lane / 4;   // keys key and key + 8
+  const int col = 2 * (lane % 4);            // queries 8j + col, + 1
+  const float scale_log2 = scale * kLog2e;
+  float acc_dk[HD / 2], acc_dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+
+  for (int qt = qt_begin; qt <= qt_end; ++qt) {
+    const int stage = (qt - qt_begin) & 1;
+    const uint32_t Qs = Q0 + stage * C::STAGE, dOs = Qs + C::T_BYTES;
+    if (qt < qt_end) {                       // the next tile, other stage
+      load_q_stage<HD>(Q0 + (stage ^ 1) * C::STAGE, q + base, dout + base,
+                       lse + bh * S, delta + bh * S, (qt + 1) * BQ, S, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();                         // this tile is in for all
+
+    const int q0 = qt * BQ;
+    // does the tile hold a query that sees a key of this warpgroup?
+    if (wk0 < S && q0 + BQ - 1 >= wk0 &&
+        (window == 0 || q0 - (wk0 + 63) < window)) {
+      const float* lse_s = reinterpret_cast<const float*>(
+          ring + stage * C::STAGE + 2 * C::T_BYTES);
+      const float* delta_s = lse_s + BQ;
+      float st[BQ / 2], dpt[BQ / 2];
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.f;
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {   // S^T = K Q^T
+        const uint32_t panel = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss<BQ, 0>(
+            st, desc_sw128(Ks + panel * BK * 128 + wg * 64 * 128 + off, 16,
+                           1024),
+            desc_sw128(Qs + panel * BQ * 128 + off, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {   // dP^T = V dO^T
+        const uint32_t panel = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss<BQ, 0>(
+            dpt, desc_sw128(Vs + panel * BK * 128 + wg * 64 * 128 + off, 16,
+                            1024),
+            desc_sw128(dOs + panel * BQ * 128 + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // every (key, query) of the tile allowed for this warpgroup?
+      const bool whole = q0 >= wk0 + 63 && q0 + BQ <= S &&
+                         (window == 0 || q0 + BQ - 1 - wk0 < window);
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int kj = key + ((i & 2) ? 8 : 0);
+        const int ql = 8 * (i / 4) + col + (i & 1);
+        const int qi = q0 + ql;
+        float p = ex2(st[i] * scale_log2 - lse_s[ql] * kLog2e);
+        if (!whole && !(qi < S && kj <= qi && (window == 0 || qi - kj < window)))
+          p = 0.f;                           // contributes exactly 0
+        st[i] = p;
+        dpt[i] = p * (dpt[i] - delta_s[ql]) * scale;
+      }
+      uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];   // bf16 register A
+      acc_to_a<BQ>(st, pa);
+      acc_to_a<BQ>(dpt, dsa);
+      fence_regs(pa);
+      fence_regs(dsa);
+      fence_regs(acc_dv);
+      fence_regs(acc_dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)     // dV += P^T dO, dO MN-major
+        wgmma_rs<HD, 1>(acc_dv, pa[kk],
+                        desc_sw128(dOs + kk * 16 * 128, BQ * 128, 1024), 1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)     // dK += dS^T Q, Q MN-major
+        wgmma_rs<HD, 1>(acc_dk, dsa[kk],
+                        desc_sw128(Qs + kk * 16 * 128, BQ * 128, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_dv);
+      fence_regs(acc_dk);
+    }
+    __syncthreads();                         // the stage is free again
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kj = key + 8 * h;
+    if (kj >= S) continue;
+    const int64_t at = base + static_cast<int64_t>(kj) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j + col) =
+          __floats2bfloat162_rn(acc_dk[4 * j + 2 * h],
+                                acc_dk[4 * j + 2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j + col) =
+          __floats2bfloat162_rn(acc_dv[4 * j + 2 * h],
+                                acc_dv[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+template <int HD>
+int launch_dkv_bf16(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dk, void* dv, int64_t BH, int64_t S, float scale,
+                    int64_t window, cudaStream_t stream) {
+  using C = Dkv<HD>;
+  const int64_t n_kt = (S + C::BK - 1) / C::BK;
+  if (n_kt > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // grid.x over heads, so that the heaviest key tiles of every head
+  // (grid.y = 0: the first keys) are dispatched first
+  const dim3 grid(static_cast<unsigned>(BH), static_cast<unsigned>(n_kt));
+  flash_bwd_dkv_wgmma_kernel<HD><<<grid, C::THREADS, C::SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<int>(S),
+      scale, static_cast<int>(window >= S ? 0 : window));  // >= S: no mask
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
@@ -398,12 +631,13 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
   if (BH > 65535 || window < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
+    if (S > (int64_t{1} << 30)) return static_cast<int>(cudaErrorInvalidValue);
     if (hd == 64)
-      return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv,
-                                           BH, S, scale, window, st);
+      return launch_dkv_bf16<64>(q, k, v, dout, lse, delta, dk, dv, BH, S,
+                                 scale, window, st);
     if (hd == 128)
-      return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv,
-                                            BH, S, scale, window, st);
+      return launch_dkv_bf16<128>(q, k, v, dout, lse, delta, dk, dv, BH, S,
+                                  scale, window, st);
   } else {
     if (hd == 64)
       return launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, BH, S,

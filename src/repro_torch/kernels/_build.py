@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
-``ctypes``.  All sources build together — one ``nvcc`` process each,
-started at once — on the first :func:`load` call, into
-``build/repro_torch/<hash>/`` at the repository root, where ``<hash>``
-covers the sources and the flags, so an edited source rebuilds and an
-unchanged one loads at once.  Nothing here runs at import time.
+``ctypes``; ``csrc/*.cuh`` are headers the sources share.  All sources
+build together — one ``nvcc`` process each, started at once — on the
+first :func:`load` call, into ``build/repro_torch/<hash>/`` at the
+repository root, where ``<hash>`` covers the sources, the headers and
+the flags, so an edited file rebuilds and an unchanged tree loads at
+once.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def sources() -> list[pathlib.Path]:
 
 def build_dir() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

@@ -11,10 +11,14 @@ LSE (``m + log l`` of the row's softmax) in f32.
 CUDA tensors and runs :func:`flash_fwd_plain` on CPU tensors;
 :func:`flash_bwd` likewise launches the two backward kernels
 (``csrc/flash_attn_bwd.cu``: :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`)
-or runs :func:`flash_bwd_plain`.  :func:`flash_attention` is the model's
-entry point and keeps the reference's signature: ``bq`` and ``bk`` are
-the reference's block sizes, and the sequence must divide by both, as
-there; the kernels tile as they like.  Its gradient is the reference's
+or runs :func:`flash_bwd_plain`.  The operands' type picks the kernel:
+bf16 runs the forward and dK/dV on the tensor cores (``wgmma``, P and dS
+rounded to bf16 as product operands, sums in f32), f32 runs FP32 FMAs on
+the CUDA cores (``wgmma`` would round f32 operands to TF32); dQ runs the
+FMA kernel in both.  :func:`flash_attention` is the model's entry point
+and keeps the reference's signature: ``bq`` and ``bk`` are the
+reference's block sizes, and the sequence must divide by both, as there;
+the kernels tile as they like.  Its gradient is the reference's
 ``custom_vjp``: the forward saves q, k, v, O and LSE, the backward
 recomputes the probabilities from LSE.
 """
@@ -51,8 +55,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> None:
-    """What the CUDA kernel takes, checked before any launch: f32 or bf16
-    operands with a head_dim of 64 or 128."""
+    """What the CUDA kernels take, checked before any launch: f32 or bf16
+    operands with a head_dim of 64 or 128.  bf16 runs the tensor-core
+    kernels of the forward and of dK/dV (``flash_fwd_wgmma_kernel``,
+    ``flash_bwd_dkv_wgmma_kernel``), f32 the FP32-FMA ones; dQ runs
+    ``flash_bwd_dq_kernel`` in both."""
     _check(q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the flash kernel takes float32 or bfloat16, got {q.dtype}")
@@ -85,7 +92,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: float, window: int = 0
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (O [BH,S,hd] in q's type, LSE [BH,S] f32).  Launches the CUDA
-    kernel for CUDA tensors; CPU tensors take the plain version."""
+    kernel for CUDA tensors (``flash_fwd_wgmma_kernel`` for bf16,
+    ``flash_fwd_kernel`` for f32); CPU tensors take the plain version."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale=scale, window=window)
@@ -247,8 +255,9 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float, window: int = 0
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [BH,S,hd] in the inputs' type, from the operands of
-    :func:`flash_bwd_dq`.  Launches ``flash_bwd_dkv_kernel`` for CUDA
-    tensors; CPU tensors take :func:`flash_bwd_dkv_plain`."""
+    :func:`flash_bwd_dq`.  Launches ``flash_bwd_dkv_wgmma_kernel`` (bf16)
+    or ``flash_bwd_dkv_kernel`` (f32) for CUDA tensors; CPU tensors take
+    :func:`flash_bwd_dkv_plain`."""
     _check_bwd(q, k, v, do, lse=lse, delta=delta)
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale=scale,

@@ -259,6 +259,13 @@ def test_agg_lane_on_the_card_matches_the_cpu(cuda):
             torch.testing.assert_close(vg.cpu(), vw, rtol=1e-5, atol=1e-5)
 
 
+# Shapes that cross the edges of the bf16 kernels' tiles (64 keys and 128
+# query rows forward; 128 keys and 64 or 32 queries in dK/dV) at both head
+# dims, a window of one position, and a single position.
+EDGE_SHAPES = [(2, 127, 64, 0), (2, 127, 128, 0), (2, 129, 64, 0),
+               (2, 129, 128, 0), (2, 257, 64, 0), (2, 257, 128, 0),
+               (2, 257, 64, 1), (2, 129, 128, 1), (1, 1, 128, 0)]
+
 # f32: the kernel and the plain version differ only in summation order.
 # bf16: the kernel rounds O to bf16 (2^-8 relative), the plain version is
 # taken in f32 on the same bf16 inputs; LSE stays f32 in both.
@@ -270,10 +277,12 @@ FLASH_TOL_BF16_O = dict(rtol=8e-3, atol=8e-3)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 200, 64, 0), (2, 512, 128, 256),
                                    (15, 512, 64, 0), (2, 130, 64, 17),
-                                   (1, 1, 64, 0), (2, 64, 128, 64)])
+                                   (1, 1, 64, 0), (2, 64, 128, 64)]
+                         + EDGE_SHAPES)
 def test_flash_kernel_matches_plain(cuda, dtype, shape):
     """O and LSE of the kernel against the plain version: ragged tiles
-    (S = 200, 130, 1), windows narrower and wider than a tile."""
+    (S = 200, 130, 1), windows narrower and wider than a tile, and the
+    edges of the bf16 kernel's tiles of 64 keys and 128 query rows."""
     BH, S, hd, window = shape
     rng = np.random.default_rng(S + hd + window)
     q, k, v = (torch.from_numpy(rng.standard_normal((BH, S, hd))
@@ -396,11 +405,12 @@ def _flash_operands(cuda, dtype, BH, S, hd, seed):
 @pytest.mark.parametrize("shape", [(3, 200, 64, 0), (2, 512, 128, 256),
                                    (15, 512, 64, 0), (2, 130, 64, 17),
                                    (1, 1, 64, 0), (2, 64, 128, 64),
-                                   (2, 300, 128, 0)])
+                                   (2, 300, 128, 0)] + EDGE_SHAPES)
 def test_flash_bwd_kernels_match_plain(cuda, dtype, shape):
     """dQ, dK, dV of the two backward kernels against the plain version:
     ragged tiles (S = 200, 130, 1, 300), windows narrower and wider than a
-    tile, head_dim 64 and 128; each kernel launched once."""
+    tile, head_dim 64 and 128, the bf16 kernels' tile edges; each kernel
+    launched once."""
     BH, S, hd, window = shape
     q, k, v, do = _flash_operands(cuda, dtype, BH, S, hd, S + hd + window)
     scale = 1.0 / np.sqrt(hd)
@@ -416,6 +426,26 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, shape):
     for name, g, w in zip(("dQ", "dK", "dV"), got, want):
         assert g.dtype == dtype and bool(torch.isfinite(g).all()), name
         torch.testing.assert_close(g.float(), w, **tol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(15, 512, 64, 0), (2, 257, 128, 0),
+                                   (2, 130, 64, 17)])
+def test_flash_bwd_dkv_bf16_launches_are_bit_identical(cuda, shape):
+    """Two launches of the bf16 dK/dV kernel on the same inputs give the
+    same bits: each output has one writer and a fixed order of sums."""
+    BH, S, hd, window = shape
+    q, k, v, do = _flash_operands(cuda, torch.bfloat16, BH, S, hd, 11 + S)
+    scale = 1.0 / np.sqrt(hd)
+    o, lse = flash_fwd(q, k, v, scale=scale, window=window)
+    delta = FA.flash_delta(o, do)
+    before = flash_bwd_dkv.launches
+    first = flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale, window=window)
+    second = flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale, window=window)
+    torch.cuda.synchronize()
+    assert flash_bwd_dkv.launches == before + 2
+    for a, b in zip(first, second):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
 
 
 @pytest.mark.cuda

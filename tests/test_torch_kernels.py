@@ -248,6 +248,18 @@ def test_build_compiles_every_source_once(tmp_path, monkeypatch):
     assert _build.build_all() == (out, 0.0)        # nothing left to build
 
 
+def test_build_dir_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edit to a csrc/*.cuh header, which no source's own bytes show,
+    moves the build to a new directory, so the kernels rebuild."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = _build.build_dir()
+    assert _build.build_dir() == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.build_dir() != first
+
+
 def test_build_failure_raises_with_the_compiler_output(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
     monkeypatch.setattr(_build, "_nvcc",
