@@ -14,7 +14,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
    every status, ``agg_ring_poll`` bit-exact over aggregate rings mixing
    every container and sub status (K = 4 and 64, a high-bit bound hash
    and bound 0), ``ifunc_vm`` on fixed programs (2e-5) and seeded random
-   programs using every opcode (5e-4 on finite entries);
+   programs using every opcode (5e-4 on finite entries), each logged with
+   the variant its plan takes; both variants (``ifunc_vm_smem_kernel``,
+   ``ifunc_vm_global_kernel``) must have run;
 3. the singleton lane at the example's shape (8 shards x 2 slots x 2
    tiles, shift 1) through ``Dispatcher`` -> ``DeviceMeshFabric``, held
    against relu(x @ W) of the neighbour's payload;
@@ -22,10 +24,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
    128x128 f32 (512 ``uvm_affine`` frames of 128 KiB, a 64 MiB mailbox)
    for 3 generations, then one corrupt frame (REJECTED) and one put whose
    generation lands before its trailer (IN_PROGRESS, then OK);
-5. singleton timings: each kernel's own device time (torch.profiler)
-   beside the CUDA-event time of its wrapper, its plain version, its
-   bound and, where one exists, a PyTorch library call; the path's
-   frames/s;
+5. singleton timings: each kernel's own device time (torch.profiler;
+   ``ifunc_vm`` by the name of the variant ``uvm_affine`` takes, reading
+   the ring's bodies in place as the sweep does) beside the CUDA-event
+   time of its wrapper, its plain version, its bound and, where one
+   exists, a PyTorch library call; the sweep's ms; the path's frames/s;
 6. where a singleton generation's time goes: host timers around the
    channel's put and the mailbox's publish and sweep in one more
    generation, and the card's busy time under torch.profiler in another;
@@ -38,9 +41,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
    containers, 4 deposits and one sweep per generation, a 134 MB mailbox)
    for 3 generations, every result held against relu(x @ W);
 9. aggregate timings: ``agg_ring_poll`` and ``ifunc_vm`` at the sweep's
-   shapes as in phase 5, the lane's sub-records/s split into send and
-   drain, host timers over one more generation as in phase 6, and the
-   SMs' idle share over another.
+   shapes as in phase 5 (the bodies read in place), the sweep's ms, the
+   lane's sub-records/s split into send and drain, host timers over one
+   more generation as in phase 6, and the SMs' idle share over another.
 10. the model stack's kernels against their plain versions at the shapes
     the serving and training paths launch: ``flash_fwd`` on [15, S, 64]
     for S in {200, 512, 4096}, [4, 512, 128] with window 256, and the
@@ -65,10 +68,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
     at batch 1 and 4,096 tokens;
 14. the flash backward kernels (``flash_bwd_dq``, ``flash_bwd_dkv``)
     against ``flash_bwd_plain`` on the card at the forward's shapes of
-    phase 10, the training shapes included, f32 and bf16 (dK and dV in
-    bf16 through ``flash_bwd_dkv_wgmma_kernel``);
-15. backward timings at [15, 4,096, 64] bf16 as in phase 11
-    (``flash_bwd_dq_kernel``, ``flash_bwd_dkv_wgmma_kernel``), with the
+    phase 10, the training shapes included, f32 and bf16 (bf16 through
+    ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel``);
+15. backward timings at [15, 4,096, 64] bf16 as in phase 11, each kernel
+    by its profiler name (``flash_bwd_dq_wgmma_kernel``,
+    ``flash_bwd_dkv_wgmma_kernel``), with the
     backward of ``scaled_dot_product_attention`` as the library yardstick
     of both kernels together, each kernel's ratio to it logged;
 16. training parity in f32 at the full width of SmolLM-360M: one
@@ -80,8 +84,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
     ``attn_impl="flash"``, ``remat="block"``, AdamW with f32 state, batch
     4 x 2,048 tokens in 2 microbatches from ``data.Loader``; 2 warm-up and
     8 timed steps (step time, tokens/s, peak memory, the launches per
-    step asserted), the SMs' idle share in a traced step, then 10 steps
-    on one batch whose loss must fall.
+    step asserted), the SMs' idle share in a traced step with each flash
+    kernel's time a launch, then 10 steps on one batch whose loss must
+    fall.
 
 The phases run in the order 1-11, 14-17, 12-13: every profiler session
 of the timings and the traced step comes before the serving phase's long
@@ -171,6 +176,13 @@ FIXED_PROGRAMS = {
     "fma_chain": (
         [("loadp", 0), ("copy", 1, 0), ("fma", 1, 0, 0), ("tanh", 1, 1),
          ("addi", 1, 1, 0, 0.5), ("store", 0, 1)], ()),
+    # five tiles live at once (r1-r4 and r6, read before any write): the
+    # global-scratch variant, with r6 zeroed
+    "wide_fma_zeroed": (
+        [("loadp", 0), ("tanh", 1, 0), ("muli", 2, 0, 0, 0.5), ("relu", 3, 0),
+         ("gelu", 4, 0), ("fma", 6, 3, 4), ("add", 5, 1, 2),
+         ("mul", 7, 5, 6), ("loade", 1, 0), ("matmul", 7, 7, 1),
+         ("store", 0, 7)], ("W",)),
 }
 
 
@@ -384,7 +396,7 @@ def phase_kernels(np, torch, dev):
     """Each kernel against its plain version at the main path's shapes."""
     from repro_torch.convert import mailbox_from_numpy
     from repro_torch.core.codegen import OPS, assemble
-    from repro_torch.kernels.ifunc_vm import ifunc_vm, ifunc_vm_plain
+    from repro_torch.kernels.ifunc_vm import ifunc_vm, ifunc_vm_plain, vm_plan
     from repro_torch.kernels.ring_poll import (HDR_WORDS, ring_poll,
                                                ring_poll_plain)
 
@@ -409,9 +421,11 @@ def phase_kernels(np, torch, dev):
     n_tiles = SHARDS * SLOTS_FULL * NT
     pay = torch.from_numpy(rng.standard_normal((n_tiles, T, T))
                            .astype(np.float32)).to(dev)
-    errs = {}
+    errs, variants = {}, {}
     for name, (instrs, symbols) in sorted(FIXED_PROGRAMS.items()):
         prog = assemble(instrs, symbols=symbols)
+        plan = vm_plan(prog)
+        variants.setdefault(plan.kernel, []).append(name)
         ext = torch.from_numpy(
             (rng.standard_normal((SHARDS, max(len(symbols), 1), T, T)) * 0.1)
             .astype(np.float32)).to(dev)
@@ -442,6 +456,9 @@ def phase_kernels(np, torch, dev):
                 break
             rejected += 1
         seen.update(int(o) for o in prog.opcode)
+        plan = vm_plan(prog)
+        variants.setdefault(plan.kernel, []).append(f"random {seed} "
+                                                    f"({plan.n_tiles} tiles)")
         out = ifunc_vm(prog, half, ext8)
         ref = ifunc_vm_plain(prog, half, ext8)
         torch.cuda.synchronize()
@@ -458,6 +475,10 @@ def phase_kernels(np, torch, dev):
     log(f"ifunc_vm {n_prog} random programs (every opcode among them, each "
         f"ending in a matmul with dst == a; {rejected} ill-conditioned "
         f"candidates skipped), max |err| on finite entries {worst:.3g}")
+    for kernel, progs in sorted(variants.items()):
+        log(f"  {kernel}: {', '.join(progs)}")
+    check(set(variants) == {"ifunc_vm_smem_kernel", "ifunc_vm_global_kernel"},
+          f"ifunc_vm: not both variants launched: {variants}")
     return {"ring_poll": rp_err, "ifunc_vm": max(max(errs.values()), worst)}
 
 
@@ -603,7 +624,8 @@ def phase_timings(np, torch, dev, d, counts, rates, errs):
     from repro_torch.convert import mailbox_from_numpy
     from repro_torch.core.device_mailbox import (make_deposit, make_sweep,
                                                  pack_word_frame)
-    from repro_torch.kernels.ifunc_vm import ifunc_vm, ifunc_vm_plain
+    from repro_torch.kernels.ifunc_vm import (ifunc_vm_plain, ifunc_vm_slots,
+                                              slot_tiles, vm_plan)
     from repro_torch.kernels.ring_poll import (HDR_WORDS, ring_poll,
                                                ring_poll_plain)
 
@@ -629,15 +651,18 @@ def phase_timings(np, torch, dev, d, counts, rates, errs):
     rp_bytes = n_slots * (HDR_WORDS + 1) * 4 + n_slots * 4
     rp_bound = rp_bytes / bw * 1e3
 
-    pay = ring[:, :, HDR_WORDS:HDR_WORDS + NT * T * T].contiguous() \
-        .view(torch.float32).reshape(n_tiles, T, T)
+    # ifunc_vm as the sweep calls it: the tiles read in place in the ring
+    pay = slot_tiles(flat, HDR_WORDS, NT)
     ext = mb.externals
-    out, ref = ifunc_vm(prog, pay, ext), ifunc_vm_plain(prog, pay, ext)
+    vm = vm_plan(prog).kernel
+    out = ifunc_vm_slots(prog, flat, HDR_WORDS, NT, ext)
+    ref = ifunc_vm_plain(prog, pay, ext)
     vm_err = (out - ref).abs().max().item()
     check(torch.allclose(out, ref, rtol=TOL_FIXED, atol=TOL_FIXED),
           f"ifunc_vm uvm_affine max |err| {vm_err:.3g}")
-    vm_ms, vm_wrap = kernel_times(torch, lambda: ifunc_vm(prog, pay, ext),
-                                  "ifunc_vm_kernel", 20)
+    vm_ms, vm_wrap = kernel_times(
+        torch, lambda: ifunc_vm_slots(prog, flat, HDR_WORDS, NT, ext), vm, 20,
+        require=True)
     vm_plain = cuda_ms(torch, lambda: ifunc_vm_plain(prog, pay, ext), 10)
     x4 = pay.view(SHARDS, n_tiles // SHARDS, T, T)
     w4 = ext[:, 0][:, None]
@@ -681,13 +706,15 @@ def phase_timings(np, torch, dev, d, counts, rates, errs):
     log(f"ring_poll {n_slots} slots: {rp_ms:.4f} ms on the card (wrapper "
         f"{rp_wrap:.4f}, plain {rp_plain:.4f}, bound {rp_bound:.3g} ms by "
         f"{rp_bytes} B)")
-    log(f"ifunc_vm uvm_affine {n_tiles} tiles: {vm_ms:.4f} ms on the card "
-        f"(wrapper {vm_wrap:.4f}, plain "
+    log(f"ifunc_vm uvm_affine {n_tiles} tiles in place ({vm}): {vm_ms:.4f} "
+        f"ms on the card (wrapper {vm_wrap:.4f}, plain "
         f"{vm_plain:.4f}, torch.relu(torch.matmul) {vm_lib:.4f}, bound "
         f"{vm_bound:.4f} ms: {vm_flops / 1e9:.3f} GFLOP -> "
         f"{vm_bound_ops:.4f} ms, {vm_bytes / 2 ** 20:.0f} MiB -> "
-        f"{vm_bound_bytes:.4f} ms); {vm_flops / vm_ms / 1e9:.2f} TFLOP/s")
-    log(f"sweep (ring_poll + body copy + ifunc_vm + mask + clear) "
+        f"{vm_bound_bytes:.4f} ms); {vm_flops / vm_ms / 1e9:.2f} TFLOP/s, "
+        f"{vm_bound / vm_ms:.3f} of the bound, {vm_ms / vm_lib:.2f}x "
+        f"torch.relu(torch.matmul)")
+    log(f"sweep (ring_poll + ifunc_vm in place + mask + clear) "
         f"{sw_ms:.4f} ms; deposit {dp_ms:.4f} ms; staged generation H2D "
         f"{h2d_ms:.4f} ms ({words.nbytes / 2 ** 20:.0f} MiB)")
     tot = sum(s + dr for s, dr, _ in rates)
@@ -772,13 +799,14 @@ def phase_breakdown(np, torch, d, h, rates):
     log_card_busy(prof, wall, "card per generation")
 
 
-def log_card_busy(prof, wall, what):
+def log_card_busy(prof, wall, what, kernels=()):
     """Log the card's busy time in a torch.profiler trace of one
-    generation against the untraced ``wall`` seconds of one; returns the
-    SMs' idle share, None when the trace holds no device time.  Device-side
-    records only: the CPU-side op that launched a copy or a kernel carries
-    the same device time again; "Activity Buffer Request" is the
-    profiler's own."""
+    generation against the untraced ``wall`` seconds of one, and the time
+    and launches of each kernel whose name holds one of ``kernels``;
+    returns the SMs' idle share, None when the trace holds no device time.
+    Device-side records only: the CPU-side op that launched a copy or a
+    kernel carries the same device time again; "Activity Buffer Request"
+    is the profiler's own."""
     from torch.autograd import DeviceType
 
     events = [e for e in prof.events()
@@ -802,6 +830,11 @@ def log_card_busy(prof, wall, what):
         f"{kern_s:.4f} s, so the SMs sit idle {idle:.4f} of the untraced "
         f"{wall:.4f} s; copies {copy_s:.4f} s ({len(copies)}); most kernel "
         f"time: " + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
+    for kernel in kernels:
+        mine = [e.device_time_total / 1e3 for e in events if kernel in e.name]
+        if mine:
+            log(f"  {kernel}: {sum(mine):.2f} ms in {len(mine)} launches, "
+                f"{sum(mine) / len(mine):.4f} ms each")
     return idle
 
 
@@ -1119,7 +1152,8 @@ def phase_agg_timings(np, torch, dev, d, counts, rates, err):
     from repro_torch.core.device_mailbox import (make_agg_sweep,
                                                  pack_agg_word_frame)
     from repro_torch.kernels.agg_poll import agg_ring_poll, agg_ring_poll_plain
-    from repro_torch.kernels.ifunc_vm import ifunc_vm, ifunc_vm_plain
+    from repro_torch.kernels.ifunc_vm import (ifunc_vm_plain, ifunc_vm_slots,
+                                              slot_tiles, vm_plan)
     from repro_torch.kernels.ring_poll import HDR_WORDS
 
     bw, fp32, _ = card_peaks(torch.cuda.get_device_name(0))
@@ -1168,14 +1202,16 @@ def phase_agg_timings(np, torch, dev, d, counts, rates, err):
     ap_bytes = n_slots * ((hw + 1) * 4 + (1 + k) * 4)
     ap_bound = ap_bytes / bw * 1e3
 
-    tiles = flat[:, hw:hw + k * body].contiguous().view(torch.float32) \
-        .reshape(n_tiles, T, T)
-    out, ref = ifunc_vm(prog, tiles, ext), ifunc_vm_plain(prog, tiles, ext)
+    tiles = slot_tiles(flat, hw, k)
+    vm = vm_plan(prog).kernel
+    out = ifunc_vm_slots(prog, flat, hw, k, ext)
+    ref = ifunc_vm_plain(prog, tiles, ext)
     vm_err = (out - ref).abs().max().item()
     check(torch.allclose(out, ref, rtol=TOL_FIXED, atol=TOL_FIXED),
           f"ifunc_vm {n_tiles} tiles max |err| {vm_err:.3g}")
-    vm_ms, vm_wrap = kernel_times(torch, lambda: ifunc_vm(prog, tiles, ext),
-                                  "ifunc_vm_kernel", 10)
+    vm_ms, vm_wrap = kernel_times(
+        torch, lambda: ifunc_vm_slots(prog, flat, hw, k, ext), vm, 10,
+        require=True)
     vm_plain = cuda_ms(torch, lambda: ifunc_vm_plain(prog, tiles, ext), 5)
     x4 = tiles.view(SHARDS, n_tiles // SHARDS, T, T)
     w4 = ext[:, 0][:, None]
@@ -1192,11 +1228,12 @@ def phase_agg_timings(np, torch, dev, d, counts, rates, err):
     log(f"agg_ring_poll {n_slots} slots x K={k}: {ap_ms:.5f} ms on the card "
         f"(wrapper {ap_wrap:.4f}, plain {ap_plain:.4f}, bound "
         f"{ap_bound:.3g} ms by {ap_bytes} B)")
-    log(f"ifunc_vm uvm_affine {n_tiles} tiles: {vm_ms:.4f} ms on the card "
-        f"(wrapper {vm_wrap:.4f}, plain {vm_plain:.4f}, "
-        f"torch.relu(torch.matmul) {vm_lib:.4f}, bound {vm_bound:.4f} ms); "
-        f"agg sweep (agg_ring_poll + body copy + ifunc_vm + mask + clear) "
-        f"{sw_ms:.4f} ms")
+    log(f"ifunc_vm uvm_affine {n_tiles} tiles in place ({vm}): {vm_ms:.4f} "
+        f"ms on the card (wrapper {vm_wrap:.4f}, plain {vm_plain:.4f}, "
+        f"torch.relu(torch.matmul) {vm_lib:.4f}, bound {vm_bound:.4f} ms; "
+        f"{vm_flops / vm_ms / 1e9:.2f} TFLOP/s, {vm_bound / vm_ms:.3f} of the "
+        f"bound, {vm_ms / vm_lib:.2f}x torch.relu(torch.matmul)); agg sweep "
+        f"(agg_ring_poll + ifunc_vm in place + mask + clear) {sw_ms:.4f} ms")
     log(f"agg path: {n * len(rates)} sub-records in {send + drain:.3f} s = "
         f"{n * len(rates) / (send + drain):.1f} sub-records/s (send "
         f"{send:.3f} s = {n * len(rates) / send:.1f}/s, drain {drain:.3f} s "
@@ -1649,8 +1686,8 @@ def phase_bwd_timings(np, torch, dev, errs):
     delta = flash_delta(o, do)
     args = (q, k, v, do, lse, delta)
     dq_ms, dq_wrap = kernel_times(
-        torch, lambda: flash_bwd_dq(*args, scale=scale), "flash_bwd_dq_kernel",
-        10)
+        torch, lambda: flash_bwd_dq(*args, scale=scale),
+        "flash_bwd_dq_wgmma_kernel", 10, require=True)
     dkv_ms, dkv_wrap = kernel_times(
         torch, lambda: flash_bwd_dkv(*args, scale=scale),
         "flash_bwd_dkv_wgmma_kernel", 10, require=True)
@@ -1868,7 +1905,9 @@ def phase_training(np, torch, dev):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             state, m, dt = one_step(state, batch)
-        log_card_busy(prof, med, "smollm_360m card over a traced train step")
+        log_card_busy(prof, med, "smollm_360m card over a traced train step",
+                      ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                       "flash_bwd_dkv_wgmma_kernel"))
         log(f"traced step {dt:.4f} s (untraced median {med:.4f} s)")
         fit = []
         for _ in range(TRAIN_FIT):

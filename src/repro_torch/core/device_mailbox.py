@@ -25,7 +25,7 @@ from repro_torch.core.codegen import UvmProgram
 from repro_torch.device import resolve_device
 from repro_torch.kernels.agg_poll import (AGG_MAGIC, SUB_READY, SUB_SALT,
                                           agg_ring_poll)
-from repro_torch.kernels.ifunc_vm import ifunc_vm
+from repro_torch.kernels.ifunc_vm import ifunc_vm_slots
 from repro_torch.kernels.ring_poll import (BAD, HDR_WORDS, MAGIC, READY,
                                            TRAILER, ring_poll)
 
@@ -115,21 +115,19 @@ def make_deposit(n_shards: int):
 def make_sweep(prog: UvmProgram, n_tiles: int, tile: int = 128):
     """Build ``sweep(mailbox, externals)`` -> (status, results, cleared_mb).
 
-    Validates every slot with ``ring_poll``, bit-casts the frame bodies back
-    to f32 payload tiles, runs the bound μVM program over all of them in
-    one ``ifunc_vm`` launch (tile ``t`` of shard ``s`` reading
-    ``externals[s]``), keeps the outputs of READY slots only, and clears
-    consumed slots: READY ones, and BAD ones so a corrupt frame is
-    reported once.  ``externals`` is ``[n_shards, n_ext, T, T]``."""
-    body_words = n_tiles * tile * tile
+    Validates every slot with ``ring_poll``, runs the bound μVM program
+    over every slot's frame body in one ``ifunc_vm`` launch that reads the
+    f32 payload tiles where they lie in the mailbox (tile ``t`` of shard
+    ``s`` reading ``externals[s]``), keeps the outputs of READY slots
+    only, and clears consumed slots: READY ones, and BAD ones so a corrupt
+    frame is reported once.  ``externals`` is ``[n_shards, n_ext, T, T]``."""
 
     def sweep(mailbox: torch.Tensor, ext: torch.Tensor):
         S, N, W = mailbox.shape
-        status = ring_poll(mailbox.reshape(S * N, W)).reshape(S, N)
-        body = mailbox[:, :, HDR_WORDS:HDR_WORDS + body_words]
-        tiles = body.contiguous().view(torch.float32)
-        tiles = tiles.reshape(S * N * n_tiles, tile, tile)
-        out = ifunc_vm(prog, tiles, ext).reshape(S, N, n_tiles, tile, tile)
+        flat = mailbox.reshape(S * N, W)
+        status = ring_poll(flat).reshape(S, N)
+        out = ifunc_vm_slots(prog, flat, HDR_WORDS, n_tiles, ext)
+        out = out.reshape(S, N, n_tiles, tile, tile)
         ready = status == READY
         out = torch.where(ready[:, :, None, None, None], out, 0.0)
         done = ready | (status == BAD)
@@ -147,13 +145,12 @@ def make_agg_sweep(prog: UvmProgram, agg_k: int, n_tiles: int,
     One ``agg_ring_poll`` validates every container header and all K
     descriptors per slot, reading the mailbox in place through strided
     views; ONE ``ifunc_vm`` launch runs every sub-record body of every
-    slot (``[n_shards * n_slots * K * n_tiles, T, T]``, tile ``t`` of
-    shard ``s`` reading ``externals[s]``), so the fixed cost of a sweep
-    is paid once per ring visit, not once per sub-record.  Outputs of
-    sub-records that are not SUB_READY are zeroed; READY and BAD
-    containers are cleared.  ``results`` is
+    slot where it lies in the mailbox (``n_shards * n_slots * K *
+    n_tiles`` tiles, tile ``t`` of shard ``s`` reading ``externals[s]``),
+    so the fixed cost of a sweep is paid once per ring visit, not once
+    per sub-record.  Outputs of sub-records that are not SUB_READY are
+    zeroed; READY and BAD containers are cleared.  ``results`` is
     ``[n_shards, n_slots, K, n_tiles, T, T]``."""
-    body_words = n_tiles * tile * tile
     hdr_words = HDR_WORDS + 2 * agg_k
 
     def sweep(mailbox: torch.Tensor, ext: torch.Tensor):
@@ -162,11 +159,7 @@ def make_agg_sweep(prog: UvmProgram, agg_k: int, n_tiles: int,
         status, sub = agg_ring_poll(flat[:, :hdr_words], flat[:, -1:],
                                     bound_hash)
         status, sub = status.reshape(S, N), sub.reshape(S, N, agg_k)
-        # word 5 + 2K is not 16-byte aligned: copy the bodies out
-        body = mailbox[:, :, hdr_words:hdr_words + agg_k * body_words]
-        tiles = body.contiguous().view(torch.float32)
-        tiles = tiles.reshape(S * N * agg_k * n_tiles, tile, tile)
-        out = ifunc_vm(prog, tiles, ext)
+        out = ifunc_vm_slots(prog, flat, hdr_words, agg_k * n_tiles, ext)
         out = out.reshape(S, N, agg_k, n_tiles, tile, tile)
         out = torch.where((sub == SUB_READY)[..., None, None, None], out, 0.0)
         done = (status == READY) | (status == BAD)

@@ -12,35 +12,57 @@
 // cores would miss the reference's 2e-5 tolerance, so the product runs as
 // FP32 FMAs.  Programs without a matmul are bound by bytes.
 //
-// Design, kept simple in this first version:
-// * One thread block (256 threads) per payload tile, one launch for every
-//   tile of every shard.  Tile t reads the external table (the device GOT)
-//   of shard t / tiles_per_shard.
-// * The register file (8 x 64 KiB per tile) does not fit in the 227 KB of
-//   shared memory a block may use, so it lives in a global scratch
-//   [n_tiles, 8, 128, 128] the wrapper allocates; the block zeroes its
-//   slice first, as _vm_kernel zeroes its VMEM scratch.  The output tile is
-//   zero-filled too: a program that never stores yields zeros, as the
-//   reference oracle does.
-// * The block walks the instruction stream.  Elementwise ops stride over
-//   the 16,384 elements (coalesced); a barrier follows every instruction,
-//   since the next one may be a matmul that reads every element.
-// * matmul is written out here: k-chunks of 32 of A and B staged in shared
-//   memory (A padded against bank conflicts), an 8x8 accumulator block per
-//   thread in registers, FP32 FMAs in ascending k.  The result is written
-//   only after the last chunk's barrier, so dst == a or dst == b is safe.
+// The register file of the reference (8 x 64 KiB a tile) does not fit in
+// the 227 KB of shared memory a block may use.  So the kernel does not run
+// the program as written but a plan of it, made once per program on the
+// host (kernels/ifunc_vm.py, vm_plan):
+// * registers are renamed onto as few physical tiles as the program's
+//   live values need (a dead result takes none; an operand that dies at an
+//   instruction leaves its tile to that instruction's result);
+// * a value loaded by loadp or loade is never copied: every read of it is
+//   served in place from the payload or from the shard's external table
+//   (which all the shard's tiles share, so it stays in L2);
+// * only registers read before any write are zeroed;
+// * only the last store is kept, and a program that never stores writes
+//   zeros.
+// Operands are locations: 0..7 a physical tile, 8 the payload tile, 16 + j
+// external j (clamped to the table as loade clamps it).
 //
-// Known costs, left to the next version: the register file at 1,024 tiles
-// (512 MiB) does not stay in the 50 MB L2; the FP32 product uses no tensor
-// core and no double buffering; and the caller copies the mailbox bodies
-// (which start at word 5, so they are not 16-byte aligned) into a
-// contiguous payload before the launch.
+// Two variants of one interpreter, chosen from the plan:
+// * ifunc_vm_smem_kernel: plans of at most three tiles keep them in shared
+//   memory (3 x 64 KiB plus the product's staging, 208 KiB).  uvm_affine
+//   needs one: its matmul reads the payload and W in place, and relu and
+//   store work on the one tile, so a tile costs one read of its payload
+//   and one write of its output in device memory;
+// * ifunc_vm_global_kernel: larger plans keep their tiles in a global
+//   scratch [n_tiles, n_phys, T, T] the wrapper allocates, zeroing only
+//   what the plan marks.
+// One block of 256 threads per payload tile, one launch for every tile of
+// every shard.  Elementwise ops stride over the 16,384 elements with the
+// same thread for the same element in every op, so they need no barrier
+// between them; the product is fenced by barriers on both sides.
+//
+// The product: k-chunks of 16 of A (transposed, rows padded to keep
+// 16-byte alignment) and B are staged in shared memory, the next chunk
+// fetched into registers while the current one is computed; each thread
+// keeps an 8 x 8 block of the result (rows 4ty.., 64 + 4ty.., columns
+// 4tx.., 64 + 4tx..) in registers and reads its operands as float4s, FP32
+// FMAs in ascending k.  The result is written only after the last read of
+// A and B, so dst == a or dst == b is safe.
+//
+// Payload layout: tile t is tile t % tiles_per_slot of slot
+// t / tiles_per_slot, which starts body_off words into a slot of
+// slot_stride words.  A contiguous payload is one tile a slot at stride
+// T*T; the mailbox sweeps pass the mailbox itself, whose bodies start at
+// word 5 (or 5 + 2K) and are read with 4-byte loads where they lie.  Tile t
+// reads the external table of shard t / tiles_per_shard.
 //
 // Semantics (the reference oracle, src/repro/kernels/ref.py): halt is a
 // no-op, not a stop; gelu is the tanh approximation; loade reads
 // ext[min(a, n_ext - 1)]; store copies va to the output and leaves the
 // registers alone (the last store wins); rsqrt is rsqrt(|x| + 1e-12);
-// max and relu propagate NaN as numpy's maximum does.
+// max and relu propagate NaN as numpy's maximum does; registers read
+// before any write read as zeros.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -49,9 +71,12 @@ namespace {
 
 constexpr int T = 128;
 constexpr int TT = T * T;
-constexpr int R = 8;
 constexpr int kThreads = 256;
-constexpr int KC = 32;  // k-chunk of the matmul
+constexpr int KC = 16;                       // k-chunk of the product
+constexpr int LDA = T + 4;                   // A's staged rows, padded
+constexpr int kStage = KC * LDA + KC * T;    // staging floats
+constexpr int kSmemTiles = 3;                // tiles the smem variant holds
+constexpr int PAYLOAD = 8, EXT0 = 16;        // operand locations
 
 enum Op : int32_t {
   HALT = 0, LOADP = 1, LOADE = 2, STORE = 3, ADD = 4, SUB = 5, MUL = 6,
@@ -68,118 +93,209 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.0f + tanhf(k * (x + 0.044715f * x * x * x)));
 }
 
-// D = A @ B for 128x128 tiles; A or B may alias D.
-__device__ __forceinline__ void tile_matmul(const float* A, const float* B, float* D,
-                            float (*As)[KC + 1], float (*Bs)[T]) {
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+struct Tile {
+  float* tiles;           // the plan's physical tiles (shared or global)
+  const float* pt;        // this tile's payload
+  const float* et;        // its shard's external table
+  int n_ext;
+
+  __device__ __forceinline__ const float* at(int loc) const {
+    if (loc < PAYLOAD) return tiles + loc * TT;
+    if (loc == PAYLOAD) return pt;
+    return et + static_cast<int64_t>(min(loc - EXT0, n_ext - 1)) * TT;
+  }
+};
+
+// D = A @ B for 128x128 tiles anywhere in memory; D may alias A or B.
+__device__ __forceinline__ void tile_matmul(const float* A, const float* B,
+                                            float* D, float* stage) {
+  float* As = stage;                         // [KC][LDA]: A's chunk, k-major
+  float* Bs = stage + KC * LDA;               // [KC][T]
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  constexpr int PER = KC * T / kThreads;     // staged elements a thread
+  float pa[PER], pb[PER];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = tid + kThreads * i;
+      pa[i] = A[(e / KC) * T + k0 + e % KC];   // row e / KC, k e % KC
+      pb[i] = B[(k0 + e / T) * T + e % T];     // k e / T, column e % T
+    }
+  };
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  __syncthreads();                           // A and B are written
+  fetch(0);
   for (int k0 = 0; k0 < T; k0 += KC) {
-    for (int e = tid; e < T * KC; e += kThreads) {
-      const int r = e / KC, c = e % KC;
-      As[r][c] = A[r * T + k0 + c];
-      const int kr = e / T, kc = e % T;
-      Bs[kr][kc] = B[(k0 + kr) * T + kc];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = tid + kThreads * i;
+      As[(e % KC) * LDA + e / KC] = pa[i];
+      Bs[e] = pb[i];
     }
     __syncthreads();
-#pragma unroll 4
+    if (k0 + KC < T) fetch(k0 + KC);
+#pragma unroll
     for (int k = 0; k < KC; ++k) {
-      float a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[ty + 16 * i][k];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[k][tx + 16 * j];
+      const float4 a0 = *reinterpret_cast<const float4*>(As + k * LDA + 4 * ty);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(As + k * LDA + 64 + 4 * ty);
+      const float4 b0 = *reinterpret_cast<const float4*>(Bs + k * T + 4 * tx);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(Bs + k * T + 64 + 4 * tx);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    __syncthreads();  // every read of A and B is done past this point
+    __syncthreads();   // the chunk is read; past the last, every read of A, B
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) D[(ty + 16 * i) * T + tx + 16 * j] = acc[i][j];
+  for (int i = 0; i < 8; ++i) {
+    const int r = (i < 4 ? 4 * ty : 60 + 4 * ty) + i;
+    *reinterpret_cast<float4*>(D + r * T + 4 * tx) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(D + r * T + 64 + 4 * tx) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+  __syncthreads();                           // D is whole for every thread
 }
 
 #define EW(expr)                                               \
   for (int e = threadIdx.x; e < TT; e += kThreads) { expr; }  \
   break
 
-__global__ void __launch_bounds__(kThreads)
-ifunc_vm_kernel(const int32_t* __restrict__ code,  // [4, P]: op, dst, a, b
-                const float* __restrict__ imm,     // [P]
-                int n_instr,
-                const float* __restrict__ payload,  // [n_tiles, T, T]
-                const float* __restrict__ ext,      // [n_shards, n_ext, T, T]
-                int n_ext, int64_t tiles_per_shard,
-                float* regs,                        // [n_tiles, R, T, T]
-                float* __restrict__ out) {          // [n_tiles, T, T]
-  __shared__ float As[T][KC + 1];
-  __shared__ float Bs[KC][T];
-  const int64_t t = blockIdx.x;
-  float* rf = regs + t * R * TT;
-  float* o = out + t * TT;
-  const float* pt = payload + t * TT;
-  const float* et = ext + (t / tiles_per_shard) * static_cast<int64_t>(n_ext) * TT;
-  for (int e = threadIdx.x; e < R * TT; e += kThreads) rf[e] = 0.0f;
-  for (int e = threadIdx.x; e < TT; e += kThreads) o[e] = 0.0f;
-  __syncthreads();
+// The plan's instructions over one payload tile.  code is [5, n_instr]:
+// opcode, dst (a tile), a, b, c (locations; c is fma's addend).
+__device__ __forceinline__ void run(const int32_t* __restrict__ code,
+                                    const float* __restrict__ imm,
+                                    int n_instr, unsigned zero_mask,
+                                    const Tile& v, float* __restrict__ o,
+                                    float* stage) {
+  for (int p = 0; p < 8; ++p)
+    if (zero_mask >> p & 1u)
+      for (int e = threadIdx.x; e < TT; e += kThreads) v.tiles[p * TT + e] = 0.f;
+  bool stored = false;
   for (int pc = 0; pc < n_instr; ++pc) {
     const int op = code[pc];
-    const int d = code[n_instr + pc];
-    const int a = code[2 * n_instr + pc];
-    const int b = code[3 * n_instr + pc];
+    float* vd = v.tiles + code[n_instr + pc] * TT;
+    const float* va = v.at(code[2 * n_instr + pc]);
+    const float* vb = v.at(code[3 * n_instr + pc]);
+    const float* vc = v.at(code[4 * n_instr + pc]);
     const float im = imm[pc];
-    float* vd = rf + d * TT;
-    const float* va = rf + a * TT;
-    const float* vb = rf + b * TT;
     switch (op) {
-      case LOADP: EW(vd[e] = pt[e]);
-      case LOADE: {
-        const float* ev = et + static_cast<int64_t>(min(a, n_ext - 1)) * TT;
-        EW(vd[e] = ev[e]);
-      }
-      case STORE: EW(o[e] = va[e]);
+      case STORE: stored = true; EW(o[e] = va[e]);
       case ADD: EW(vd[e] = va[e] + vb[e]);
       case SUB: EW(vd[e] = va[e] - vb[e]);
       case MUL: EW(vd[e] = va[e] * vb[e]);
-      case FMA: EW(vd[e] = vd[e] + va[e] * vb[e]);
+      case FMA: EW(vd[e] = vc[e] + va[e] * vb[e]);
       case RELU: EW(vd[e] = nan_max(va[e], 0.0f));
       case GELU: EW(vd[e] = gelu_tanh(va[e]));
       case EXP: EW(vd[e] = expf(va[e]));
       case SCALE:
       case MULI: EW(vd[e] = va[e] * im);
-      case MATMUL: tile_matmul(va, vb, vd, As, Bs); break;
+      case MATMUL: tile_matmul(va, vb, vd, stage); break;
       case MAX: EW(vd[e] = nan_max(va[e], vb[e]));
       case COPY: EW(vd[e] = va[e]);
       case ZERO: EW(vd[e] = 0.0f);
       case TANH: EW(vd[e] = tanhf(va[e]));
       case RSQRT: EW(vd[e] = rsqrtf(fabsf(va[e]) + 1e-12f));
       case ADDI: EW(vd[e] = va[e] + im);
-      default: break;  // HALT: a no-op
+      default: break;  // the plan serves loads in place and drops halts
     }
-    __syncthreads();
   }
+  if (!stored) {
+    for (int e = threadIdx.x; e < TT; e += kThreads) o[e] = 0.0f;
+  }
+}
+
+__device__ __forceinline__ Tile tile_of(float* tiles, const float* payload,
+                                        int64_t slot_stride, int64_t body_off,
+                                        int64_t tiles_per_slot,
+                                        const float* ext, int n_ext,
+                                        int64_t tiles_per_shard) {
+  const int64_t t = blockIdx.x;
+  return Tile{tiles,
+              payload + (t / tiles_per_slot) * slot_stride + body_off +
+                  (t % tiles_per_slot) * TT,
+              ext + (t / tiles_per_shard) * static_cast<int64_t>(n_ext) * TT,
+              n_ext};
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+ifunc_vm_smem_kernel(const int32_t* __restrict__ code,
+                     const float* __restrict__ imm, int n_instr,
+                     unsigned zero_mask, const float* __restrict__ payload,
+                     int64_t slot_stride, int64_t body_off,
+                     int64_t tiles_per_slot, const float* __restrict__ ext,
+                     int n_ext, int64_t tiles_per_shard,
+                     float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);
+  const Tile v = tile_of(stage + kStage, payload, slot_stride, body_off,
+                         tiles_per_slot, ext, n_ext, tiles_per_shard);
+  run(code, imm, n_instr, zero_mask, v, out + int64_t{blockIdx.x} * TT,
+      stage);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+ifunc_vm_global_kernel(const int32_t* __restrict__ code,
+                       const float* __restrict__ imm, int n_instr,
+                       unsigned zero_mask, const float* __restrict__ payload,
+                       int64_t slot_stride, int64_t body_off,
+                       int64_t tiles_per_slot, const float* __restrict__ ext,
+                       int n_ext, int64_t tiles_per_shard, float* scratch,
+                       int n_phys, float* __restrict__ out) {
+  __shared__ __align__(16) float stage[kStage];
+  const Tile v = tile_of(scratch + int64_t{blockIdx.x} * n_phys * TT,
+                         payload, slot_stride, body_off, tiles_per_slot, ext,
+                         n_ext, tiles_per_shard);
+  run(code, imm, n_instr, zero_mask, v, out + int64_t{blockIdx.x} * TT,
+      stage);
 }
 
 }  // namespace
 
+// in_smem: the plan's n_phys tiles in shared memory (n_phys <= 3), else in
+// scratch [n_tiles, n_phys, T, T].  Returns a cudaError_t.
 extern "C" int ifunc_vm_launch(const void* code, const void* imm, int n_instr,
+                               int n_phys, unsigned zero_mask, int in_smem,
                                const void* payload, int64_t n_tiles,
-                               const void* ext, int n_ext,
-                               int64_t tiles_per_shard, void* regs, void* out,
-                               void* stream) {
+                               int64_t slot_stride, int64_t body_off,
+                               int64_t tiles_per_slot, const void* ext,
+                               int n_ext, int64_t tiles_per_shard,
+                               void* scratch, void* out, void* stream) {
   if (n_tiles <= 0) return 0;
-  ifunc_vm_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(code), static_cast<const float*>(imm),
-      n_instr, static_cast<const float*>(payload),
-      static_cast<const float*>(ext), n_ext, tiles_per_shard,
-      static_cast<float*>(regs), static_cast<float*>(out));
+  if (n_tiles > 0x7FFFFFFF || n_phys < 0 || n_phys > 8 || n_ext < 1 ||
+      tiles_per_slot < 1 || tiles_per_shard < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto c = static_cast<const int32_t*>(code);
+  const auto i = static_cast<const float*>(imm);
+  const auto p = static_cast<const float*>(payload);
+  const auto e = static_cast<const float*>(ext);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(n_tiles);
+  if (in_smem) {
+    if (n_phys > kSmemTiles) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaFuncSetAttribute(
+        ifunc_vm_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>((kStage + kSmemTiles * TT) * sizeof(float)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t smem = (kStage + n_phys * TT) * sizeof(float);
+    ifunc_vm_smem_kernel<<<grid, kThreads, smem, st>>>(
+        c, i, n_instr, zero_mask, p, slot_stride, body_off, tiles_per_slot, e,
+        n_ext, tiles_per_shard, static_cast<float*>(out));
+  } else {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    ifunc_vm_global_kernel<<<grid, kThreads, 0, st>>>(
+        c, i, n_instr, zero_mask, p, slot_stride, body_off, tiles_per_slot, e,
+        n_ext, tiles_per_shard, static_cast<float*>(scratch), n_phys,
+        static_cast<float*>(out));
+  }
   return static_cast<int>(cudaGetLastError());
 }

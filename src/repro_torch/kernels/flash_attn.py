@@ -12,10 +12,10 @@ CUDA tensors and runs :func:`flash_fwd_plain` on CPU tensors;
 :func:`flash_bwd` likewise launches the two backward kernels
 (``csrc/flash_attn_bwd.cu``: :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`)
 or runs :func:`flash_bwd_plain`.  The operands' type picks the kernel:
-bf16 runs the forward and dK/dV on the tensor cores (``wgmma``, P and dS
+bf16 runs all three kernels on the tensor cores (``wgmma``, P and dS
 rounded to bf16 as product operands, sums in f32), f32 runs FP32 FMAs on
-the CUDA cores (``wgmma`` would round f32 operands to TF32); dQ runs the
-FMA kernel in both.  :func:`flash_attention` is the model's entry point
+the CUDA cores (``wgmma`` would round f32 operands to TF32).
+:func:`flash_attention` is the model's entry point
 and keeps the reference's signature: ``bq`` and ``bk`` are the
 reference's block sizes, and the sequence must divide by both, as there;
 the kernels tile as they like.  Its gradient is the reference's
@@ -57,9 +57,8 @@ def check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> None:
     """What the CUDA kernels take, checked before any launch: f32 or bf16
     operands with a head_dim of 64 or 128.  bf16 runs the tensor-core
-    kernels of the forward and of dK/dV (``flash_fwd_wgmma_kernel``,
-    ``flash_bwd_dkv_wgmma_kernel``), f32 the FP32-FMA ones; dQ runs
-    ``flash_bwd_dq_kernel`` in both."""
+    kernels (``flash_fwd_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``,
+    ``flash_bwd_dkv_wgmma_kernel``), f32 the FP32-FMA ones."""
     _check(q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the flash kernel takes float32 or bfloat16, got {q.dtype}")
@@ -233,8 +232,9 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
                  scale: float, window: int = 0) -> torch.Tensor:
     """dQ [BH,S,hd] in q's type from q, k, v, dO and the f32 LSE and delta
-    rows.  Launches ``flash_bwd_dq_kernel`` for CUDA tensors; CPU tensors
-    take :func:`flash_bwd_dq_plain`."""
+    rows.  Launches ``flash_bwd_dq_wgmma_kernel`` (bf16) or
+    ``flash_bwd_dq_kernel`` (f32) for CUDA tensors; CPU tensors take
+    :func:`flash_bwd_dq_plain`."""
     _check_bwd(q, k, v, do, lse=lse, delta=delta)
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale=scale,

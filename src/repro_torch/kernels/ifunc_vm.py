@@ -6,7 +6,14 @@ tile runs the whole program (data-parallel μcode); ``loade`` reads the
 external table, the device GOT of model-resident tensors bound at launch.
 
 :func:`ifunc_vm` launches the CUDA kernel (``csrc/ifunc_vm.cu``) on CUDA
-tensors and runs :func:`ifunc_vm_plain` on CPU tensors.
+tensors and runs :func:`ifunc_vm_plain` on CPU tensors;
+:func:`ifunc_vm_slots` does the same for tiles that lie in the slots of a
+mailbox, which the kernel reads where they are.  The kernel runs a plan of
+the program (:func:`vm_plan`, made once per program): its registers
+renamed onto as few physical tiles as its live values need, its loads
+served in place, and the variant that holds those tiles
+(``ifunc_vm_smem_kernel`` for at most three, else
+``ifunc_vm_global_kernel``).
 
 External tables come per shard, ``[n_shards, n_ext, T, T]``: tile ``t``
 reads the table of shard ``t // (n_tiles // n_shards)``, the layout the
@@ -17,6 +24,8 @@ tile; an empty one reads as one zero tile.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -27,6 +36,12 @@ from repro_torch.kernels import _build
 
 T = UVM_TILE
 R = UVM_REGS
+SMEM_TILES = 3             # physical tiles the shared-memory variant holds
+PAYLOAD, EXT0 = 8, 16      # plan locations: 0..7 a tile, 8 the payload,
+                           # 16 + j external j
+_NAMES = {v: k for k, v in OPS.items()}
+_BINARY = ("add", "sub", "mul", "matmul", "max")
+_NO_READS = ("halt", "loadp", "loade", "zero")
 
 
 def _check_program(prog: UvmProgram) -> None:
@@ -53,9 +68,14 @@ def _tables(payload: torch.Tensor, externals: torch.Tensor,
     if payload.dim() != 3 or tuple(payload.shape[1:]) != (T, T):
         raise ValueError(f"payload must be [n_tiles, {T}, {T}], got "
                          f"{tuple(payload.shape)}")
-    if externals.device != payload.device:
+    return _ext_tables(payload.shape[0], payload.device, externals)
+
+
+def _ext_tables(n_tiles: int, device, externals: torch.Tensor
+                ) -> torch.Tensor:
+    if externals.device != device:
         raise ValueError(f"externals on {externals.device}, payload on "
-                         f"{payload.device}")
+                         f"{device}")
     ext = externals
     if ext.dim() == 3:
         ext = ext[None]
@@ -65,10 +85,48 @@ def _tables(payload: torch.Tensor, externals: torch.Tensor,
                          f"{tuple(externals.shape)}")
     if ext.shape[1] == 0:
         ext = ext.new_zeros(ext.shape[0], 1, T, T)
-    if ext.shape[0] == 0 or payload.shape[0] % ext.shape[0]:
-        raise ValueError(f"{payload.shape[0]} tiles do not split evenly over "
+    if ext.shape[0] == 0 or n_tiles % ext.shape[0]:
+        raise ValueError(f"{n_tiles} tiles do not split evenly over "
                          f"{ext.shape[0]} shard tables")
     return ext
+
+
+def _apply(op: str, va, vb, vd, imm: float) -> torch.Tensor:
+    """The tile-valued result of one arithmetic opcode (every op but halt,
+    store and the loads), over a batch of tiles."""
+    if op == "add":
+        return va + vb
+    if op == "sub":
+        return va - vb
+    if op == "mul":
+        return va * vb
+    if op == "fma":
+        return vd + va * vb
+    if op == "relu":
+        return torch.clamp_min(va, 0.0)
+    if op == "gelu":
+        return TF.gelu(va, approximate="tanh")
+    if op == "exp":
+        return torch.exp(va)
+    if op in ("scale", "muli"):
+        return va * imm
+    if op == "matmul":
+        return torch.matmul(va, vb)
+    if op == "max":
+        return torch.maximum(va, vb)
+    if op == "copy":
+        return va.clone()
+    if op == "zero":
+        return torch.zeros_like(va)
+    if op == "tanh":
+        return torch.tanh(va)
+    if op == "rsqrt":
+        return torch.rsqrt(va.abs() + 1e-12)
+    return va + imm                                    # addi
+
+
+def _shards(n: int, ext: torch.Tensor, device) -> torch.Tensor:
+    return torch.arange(n, device=device) // max(n // ext.shape[0], 1)
 
 
 def ifunc_vm_plain(prog: UvmProgram, payload: torch.Tensor,
@@ -80,66 +138,231 @@ def ifunc_vm_plain(prog: UvmProgram, payload: torch.Tensor,
     _check_program(prog)
     ext = _tables(payload, externals, (torch.float32, torch.float64))
     n = payload.shape[0]
-    per_shard = max(n // ext.shape[0], 1)
-    shard = torch.arange(n, device=payload.device) // per_shard
-    n_ext = ext.shape[1]
+    shard = _shards(n, ext, payload.device)
     regs = payload.new_zeros(n, R, T, T)
     out = torch.zeros_like(payload)
-    inv = {v: k for k, v in OPS.items()}
     for pc in range(len(prog.opcode)):
-        op = inv[int(prog.opcode[pc])]
+        op = _NAMES[int(prog.opcode[pc])]
         d, a, b = int(prog.dst[pc]), int(prog.a[pc]), int(prog.b[pc])
-        imm = float(prog.imm[pc])
-        va, vb, vd = regs[:, a], regs[:, b], regs[:, d]
         if op == "halt":
             continue
-        elif op == "store":
-            out.copy_(va)
+        if op == "store":
+            out.copy_(regs[:, a])
             continue
-        elif op == "loadp":
+        if op == "loadp":
             res = payload
         elif op == "loade":
-            res = ext[shard, min(a, n_ext - 1)]
-        elif op == "add":
-            res = va + vb
-        elif op == "sub":
-            res = va - vb
-        elif op == "mul":
-            res = va * vb
-        elif op == "fma":
-            res = vd + va * vb
-        elif op == "relu":
-            res = torch.clamp_min(va, 0.0)
-        elif op == "gelu":
-            res = TF.gelu(va, approximate="tanh")
-        elif op == "exp":
-            res = torch.exp(va)
-        elif op in ("scale", "muli"):
-            res = va * imm
-        elif op == "matmul":
-            res = torch.matmul(va, vb)
-        elif op == "max":
-            res = torch.maximum(va, vb)
-        elif op == "copy":
-            res = va.clone()
-        elif op == "zero":
-            res = torch.zeros_like(va)
-        elif op == "tanh":
-            res = torch.tanh(va)
-        elif op == "rsqrt":
-            res = torch.rsqrt(va.abs() + 1e-12)
-        else:  # addi
-            res = va + imm
+            res = ext[shard, min(a, ext.shape[1] - 1)]
+        else:
+            res = _apply(op, regs[:, a], regs[:, b], regs[:, d],
+                         float(prog.imm[pc]))
         regs[:, d] = res
     return out
 
 
-def _program_tensors(prog: UvmProgram, device) -> tuple[torch.Tensor,
-                                                         torch.Tensor]:
-    code = np.stack([prog.opcode, prog.dst, prog.a, prog.b]).astype(np.int32)
-    imm = np.asarray(prog.imm, np.float32)
-    return (torch.from_numpy(code).to(device),
-            torch.from_numpy(imm.copy()).to(device))
+@dataclass(frozen=True, eq=False)
+class VmPlan:
+    """What the kernel runs for one program (see :func:`vm_plan`).
+
+    ``code`` is ``[5, n]`` int32: opcode, dst (a physical tile), a, b, c
+    (locations: 0..7 a tile, ``PAYLOAD``, ``EXT0 + j``; c is fma's
+    addend, the old value of its dst); ``imm`` ``[n]`` f32."""
+    code: np.ndarray
+    imm: np.ndarray
+    n_tiles: int                          # physical tiles
+    zeroed: tuple[int, ...]               # tiles zeroed before the first op
+    served: tuple[tuple[int, int, str], ...]   # (pc, register, "payload"
+                                               # or "ext j") read in place
+
+    @property
+    def variant(self) -> str:
+        return "smem" if self.n_tiles <= SMEM_TILES else "global"
+
+    @property
+    def kernel(self) -> str:
+        """The CUDA kernel that runs this plan."""
+        return f"ifunc_vm_{self.variant}_kernel"
+
+
+def _reads(op: str) -> tuple[str, ...]:
+    """The operands an opcode reads ("d": fma's old destination)."""
+    if op in _NO_READS:
+        return ()
+    if op == "fma":
+        return ("a", "b", "d")
+    return ("a", "b") if op in _BINARY else ("a",)
+
+
+def vm_plan(prog: UvmProgram) -> VmPlan:
+    """The plan of ``prog`` (cached per program): its values are tracked
+    from definition to last read; only the last store and what it needs
+    are kept; a value loaded by loadp or loade is served in place from the
+    payload or the external table; every other value takes the lowest
+    free physical tile (a tile freed by an operand that dies at an
+    instruction may take that instruction's result: elementwise ops read
+    and write each element in one thread, and the product writes after
+    its last read); and registers read before any write get tiles zeroed
+    at the start."""
+    _check_program(prog)
+    arrays = [np.ascontiguousarray(x, dt) for x, dt in (
+        (prog.opcode, np.int32), (prog.dst, np.int32), (prog.a, np.int32),
+        (prog.b, np.int32), (prog.imm, np.float32))]
+    return _plan(b"".join(x.tobytes() for x in arrays))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(key: bytes) -> VmPlan:
+    n = len(key) // 20
+    op, dst, a, b = (np.frombuffer(key, np.int32, n, 4 * n * i)
+                     for i in range(4))
+    imm = np.frombuffer(key, np.float32, n, 16 * n)
+    names = [_NAMES[int(o)] for o in op]
+    operand = {"a": a, "b": b, "d": dst}
+    # values: ("init", r) before any write to r, else the pc defining it
+    cur = {r: ("init", r) for r in range(R)}
+    srcs = []
+    for pc, name in enumerate(names):
+        srcs.append({role: cur[int(operand[role][pc])]
+                     for role in _reads(name)})
+        if name not in ("halt", "store"):
+            cur[int(dst[pc])] = pc
+    stores = [pc for pc, name in enumerate(names) if name == "store"]
+    live, needed = [], set()
+    if stores:
+        live.append(stores[-1])
+        needed.add(srcs[stores[-1]]["a"])
+        for pc in range(stores[-1] - 1, -1, -1):
+            if pc in needed:
+                live.append(pc)
+                needed.update(srcs[pc].values())
+    live.reverse()
+    last_read = {}
+    for pc in live:
+        for v in srcs[pc].values():
+            last_read[v] = pc
+
+    loc, free, peak = {}, list(range(R)), 0
+
+    def take() -> int:
+        nonlocal peak
+        p = free.pop(0)
+        peak = max(peak, p + 1)
+        return p
+
+    zeroed = tuple(loc.setdefault(("init", r), take()) for r in range(R)
+                   if ("init", r) in needed)
+    served = []
+    for pc in live:
+        if names[pc] in ("loadp", "loade"):
+            loc[pc] = PAYLOAD if names[pc] == "loadp" else EXT0 + int(a[pc])
+            served.append((pc, int(dst[pc]), "payload" if names[pc] == "loadp"
+                           else f"ext {int(a[pc])}"))
+    rows = []
+    for pc in live:
+        name, s = names[pc], srcs[pc]
+        for v in set(s.values()):             # operands that die here
+            if last_read[v] == pc and loc[v] < PAYLOAD:
+                free.append(loc[v])
+                free.sort()
+        if name in ("loadp", "loade"):
+            continue
+        d = 0 if name == "store" else loc.setdefault(pc, take())
+        rows.append((OPS[name], d, *(loc[s[r]] if r in s else 0
+                                     for r in ("a", "b", "d")),
+                     float(imm[pc])))
+    code = np.array([r[:5] for r in rows], np.int32).reshape(-1, 5).T
+    return VmPlan(np.ascontiguousarray(code),
+                  np.array([r[5] for r in rows], np.float32), peak, zeroed,
+                  tuple(served))
+
+
+def ifunc_vm_planned_plain(plan: VmPlan, payload: torch.Tensor,
+                           externals: torch.Tensor) -> torch.Tensor:
+    """The plan's instructions run in plain PyTorch, as the kernel runs
+    them: its physical tiles, its locations, its one store.  Tiles not
+    zeroed by the plan start as NaN, so a plan that reads a tile before
+    writing it shows."""
+    ext = _tables(payload, externals, (torch.float32, torch.float64))
+    n = payload.shape[0]
+    shard = _shards(n, ext, payload.device)
+    tiles = payload.new_full((n, plan.n_tiles, T, T), float("nan"))
+    tiles[:, list(plan.zeroed)] = 0
+    out = torch.zeros_like(payload)
+
+    def at(where: int) -> torch.Tensor:
+        if where < PAYLOAD:
+            return tiles[:, where]
+        if where == PAYLOAD:
+            return payload
+        return ext[shard, min(where - EXT0, ext.shape[1] - 1)]
+
+    for (op, d, a, b, c), imm in zip(plan.code.T.tolist(), plan.imm.tolist()):
+        if _NAMES[op] == "store":
+            out.copy_(at(a))
+        else:
+            tiles[:, d] = _apply(_NAMES[op], at(a), at(b), at(c), imm)
+    return out
+
+
+def slot_tiles(slots: torch.Tensor, body_offset: int,
+               tiles_per_slot: int) -> torch.Tensor:
+    """The f32 tiles ``[n_slots * tiles_per_slot, T, T]`` that lie
+    ``body_offset`` words into each row of ``slots`` (``[n_slots, W]``,
+    int32 or float32 words), copied out: what :func:`ifunc_vm_slots`
+    reads in place."""
+    body = slots[:, body_offset:body_offset + tiles_per_slot * T * T]
+    return body.contiguous().view(torch.float32).reshape(-1, T, T)
+
+
+def _launch(prog: UvmProgram, base: torch.Tensor, n_tiles: int,
+            slot_stride: int, body_offset: int, tiles_per_slot: int,
+            ext: torch.Tensor) -> torch.Tensor:
+    """Runs the plan of ``prog`` over the tiles at ``base`` (see
+    csrc/ifunc_vm.cu for the layout) with the tables ``ext`` from
+    :func:`_ext_tables` -> ``[n_tiles, T, T]`` f32."""
+    if ext.dtype != torch.float32 or not ext.is_contiguous():
+        raise ValueError("ifunc_vm needs contiguous float32 externals")
+    plan = vm_plan(prog)
+    code, imm = _device_code(plan, base.device)
+    out = torch.empty(n_tiles, T, T, dtype=torch.float32, device=base.device)
+    scratch = None
+    if plan.variant == "global":
+        scratch = torch.empty(n_tiles, plan.n_tiles, T, T,
+                              dtype=torch.float32, device=base.device)
+    fn = _build.load("ifunc_vm").ifunc_vm_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(code.data_ptr(), imm.data_ptr(), code.shape[1], plan.n_tiles,
+             sum(1 << p for p in plan.zeroed), int(plan.variant == "smem"),
+             base.data_ptr(), n_tiles, slot_stride, body_offset,
+             tiles_per_slot, ext.data_ptr(), ext.shape[1],
+             max(n_tiles // ext.shape[0], 1),
+             0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
+             _build.stream_ptr(base.device))
+    if err:
+        raise RuntimeError(f"{plan.kernel} launch failed: cudaError {err}")
+    ifunc_vm.launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _device_code(plan: VmPlan, device: torch.device
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.from_numpy(plan.code).to(device),
+            torch.from_numpy(plan.imm.copy()).to(device))
+
+
+def _on_cuda(t: torch.Tensor, what: str) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
+    return True
 
 
 def ifunc_vm(prog: UvmProgram, payload: torch.Tensor,
@@ -148,32 +371,37 @@ def ifunc_vm(prog: UvmProgram, payload: torch.Tensor,
     external table(s) ``externals``; returns ``[n_tiles, T, T]`` f32.
     Launches the CUDA kernel for CUDA tensors; CPU tensors take the plain
     version."""
-    if payload.device.type == "cpu":
+    if not _on_cuda(payload, "ifunc_vm"):
         return ifunc_vm_plain(prog, payload, externals)
-    if payload.device.type != "cuda":
-        raise ValueError(f"ifunc_vm runs on cuda or cpu, not {payload.device}")
-    _check_program(prog)
     ext = _tables(payload, externals)
-    if not (payload.is_contiguous() and ext.is_contiguous()):
-        raise ValueError("ifunc_vm needs a contiguous payload and externals")
-    n = payload.shape[0]
-    code, imm = _program_tensors(prog, payload.device)
-    regs = torch.empty(n, R, T, T, dtype=torch.float32, device=payload.device)
-    out = torch.empty_like(payload)
-    fn = _build.load("ifunc_vm").ifunc_vm_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(code.data_ptr(), imm.data_ptr(), code.shape[1],
-             payload.data_ptr(), n, ext.data_ptr(), ext.shape[1],
-             max(n // ext.shape[0], 1), regs.data_ptr(), out.data_ptr(),
-             _build.stream_ptr(payload.device))
-    if err:
-        raise RuntimeError(f"ifunc_vm kernel launch failed: cudaError {err}")
-    ifunc_vm.launches += 1
-    return out
+    if not payload.is_contiguous():
+        raise ValueError("ifunc_vm needs a contiguous payload")
+    return _launch(prog, payload, payload.shape[0], T * T, 0, 1, ext)
 
 
 ifunc_vm.launches = 0      # kernel launches since the count was last reset
+
+
+def ifunc_vm_slots(prog: UvmProgram, slots: torch.Tensor, body_offset: int,
+                   tiles_per_slot: int, externals: torch.Tensor
+                   ) -> torch.Tensor:
+    """:func:`ifunc_vm` over the tiles :func:`slot_tiles` gives, read by
+    the kernel where they lie in ``slots`` (``[n_slots, W]`` int32 or
+    float32 words, each row one slot, rows at any stride); returns
+    ``[n_slots * tiles_per_slot, T, T]`` f32.  CPU tensors take the plain
+    version on the copied tiles.  Launches count on ``ifunc_vm``."""
+    if slots.dim() != 2 or slots.dtype not in (torch.int32, torch.float32):
+        raise TypeError(f"slots must be [n_slots, W] int32 or float32, got "
+                        f"{tuple(slots.shape)} {slots.dtype}")
+    if tiles_per_slot < 1 or body_offset < 0 or \
+            body_offset + tiles_per_slot * T * T > slots.shape[1]:
+        raise ValueError(f"{tiles_per_slot} tiles at word {body_offset} do "
+                         f"not fit a {slots.shape[1]}-word slot")
+    if not _on_cuda(slots, "ifunc_vm_slots"):
+        return ifunc_vm_plain(prog, slot_tiles(slots, body_offset,
+                                               tiles_per_slot), externals)
+    if slots.stride(1) != 1:
+        raise ValueError("ifunc_vm_slots needs each slot's words contiguous")
+    n = slots.shape[0] * tiles_per_slot
+    return _launch(prog, slots, n, slots.stride(0), body_offset,
+                   tiles_per_slot, _ext_tables(n, slots.device, externals))

@@ -21,7 +21,8 @@ from repro_torch.kernels.flash_attn import (flash_attention, flash_bwd,
                                             flash_bwd_dkv, flash_bwd_dq,
                                             flash_bwd_plain, flash_fwd,
                                             flash_fwd_plain)
-from repro_torch.kernels.ifunc_vm import ifunc_vm, ifunc_vm_plain
+from repro_torch.kernels.ifunc_vm import (ifunc_vm, ifunc_vm_plain,
+                                          ifunc_vm_slots, slot_tiles, vm_plan)
 from repro_torch.kernels.ring_poll import (HDR_WORDS, MAGIC, TRAILER,
                                            ring_poll, ring_poll_plain)
 from repro_torch.kernels.ssd_scan import (SsdScanGradError, ssd_scan,
@@ -55,6 +56,12 @@ PROGRAMS = {
         [("loadp", 0), ("halt",), ("rsqrt", 1, 0), ("max", 2, 0, 1),
          ("exp", 3, 0), ("muli", 3, 3, 0, 0.5), ("zero", 4),
          ("mul", 5, 2, 3), ("matmul", 5, 5, 0), ("store", 0, 5)], ()),
+    # five tiles live at once, r6 read before any write
+    "wide_fma_zeroed": (
+        [("loadp", 0), ("tanh", 1, 0), ("muli", 2, 0, 0, 0.5), ("relu", 3, 0),
+         ("gelu", 4, 0), ("fma", 6, 3, 4), ("add", 5, 1, 2),
+         ("mul", 7, 5, 6), ("loade", 1, 0), ("matmul", 7, 7, 1),
+         ("store", 0, 7)], ("W",)),
 }
 
 
@@ -161,6 +168,54 @@ def test_ifunc_vm_kernel_matches_plain(cuda, name):
     assert ifunc_vm.launches == before + 1
     torch.testing.assert_close(out, ifunc_vm_plain(prog, pay, ext),
                                rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,name", [("smem", "affine_relu"),
+                                          ("global", "wide_fma_zeroed")])
+def test_ifunc_vm_variant_matches_plain(cuda, variant, name):
+    """Each variant of the kernel, as its plan picks it, against the plain
+    version at the lanes' 8 shard tables; one launch each."""
+    instrs, symbols = PROGRAMS[name]
+    prog = assemble(instrs, symbols)
+    assert vm_plan(prog).variant == variant
+    rng = np.random.default_rng(4)
+    pay = torch.from_numpy(rng.standard_normal((64, T, T)).astype(
+        np.float32)).to(cuda)
+    ext = torch.from_numpy((rng.standard_normal(
+        (8, max(len(symbols), 1), T, T)) * 0.1).astype(np.float32)).to(cuda)
+    before = ifunc_vm.launches
+    out = ifunc_vm(prog, pay, ext)
+    torch.cuda.synchronize()
+    assert ifunc_vm.launches == before + 1
+    torch.testing.assert_close(out, ifunc_vm_plain(prog, pay, ext),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,per_slot", [(HDR_WORDS, 2),
+                                             (HDR_WORDS + 2 * 4, 4)])
+def test_ifunc_vm_reads_ring_slots_in_place(cuda, offset, per_slot):
+    """Tiles at word 5 (a singleton ring) and 5 + 2K (an aggregate one,
+    K = 4) of every slot, not 16-byte aligned, read where they lie: equal
+    to the plain version on the copied tiles, for both variants."""
+    rng = np.random.default_rng(offset)
+    W = offset + per_slot * T * T + 3
+    ring = torch.from_numpy(rng.standard_normal((16, W)).astype(
+        np.float32).view(np.int32)).to(cuda)
+    ext = torch.from_numpy((rng.standard_normal((8, 1, T, T)) * 0.1)
+                           .astype(np.float32)).to(cuda)
+    tiles = slot_tiles(ring, offset, per_slot)
+    assert tiles.shape == (16 * per_slot, T, T)
+    for name in ("affine_relu", "wide_fma_zeroed"):
+        instrs, symbols = PROGRAMS[name]
+        prog = assemble(instrs, symbols)
+        before = ifunc_vm.launches
+        out = ifunc_vm_slots(prog, ring, offset, per_slot, ext)
+        torch.cuda.synchronize()
+        assert ifunc_vm.launches == before + 1
+        torch.testing.assert_close(out, ifunc_vm_plain(prog, tiles, ext),
+                                   rtol=2e-5, atol=2e-5, msg=name)
 
 
 @pytest.mark.cuda
@@ -446,6 +501,44 @@ def test_flash_bwd_dkv_bf16_launches_are_bit_identical(cuda, shape):
     assert flash_bwd_dkv.launches == before + 2
     for a, b in zip(first, second):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(15, 512, 64, 0), (2, 257, 128, 0),
+                                   (2, 130, 64, 17)])
+def test_flash_bwd_dq_bf16_launches_are_bit_identical(cuda, shape):
+    """Two launches of the bf16 dQ kernel on the same inputs give the same
+    bits: each output has one writer and a fixed order of sums."""
+    BH, S, hd, window = shape
+    q, k, v, do = _flash_operands(cuda, torch.bfloat16, BH, S, hd, 13 + S)
+    scale = 1.0 / np.sqrt(hd)
+    o, lse = flash_fwd(q, k, v, scale=scale, window=window)
+    delta = FA.flash_delta(o, do)
+    before = flash_bwd_dq.launches
+    first = flash_bwd_dq(q, k, v, do, lse, delta, scale=scale, window=window)
+    second = flash_bwd_dq(q, k, v, do, lse, delta, scale=scale, window=window)
+    torch.cuda.synchronize()
+    assert flash_bwd_dq.launches == before + 2
+    assert first.dtype == torch.bfloat16 and torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S", [1, 63, 65, 127, 129])
+def test_flash_bwd_dq_bf16_tile_edges(cuda, S, hd):
+    """The bf16 dQ kernel at the edges of its query tiles of 128 (two
+    warpgroups of 64) and key tiles of 64, with a window of 17, against
+    the plain version within 8e-3."""
+    q, k, v, do = _flash_operands(cuda, torch.bfloat16, 2, S, hd, 29 + S)
+    scale = 1.0 / np.sqrt(hd)
+    o, lse = flash_fwd(q, k, v, scale=scale, window=17)
+    delta = FA.flash_delta(o, do)
+    got = flash_bwd_dq(q, k, v, do, lse, delta, scale=scale, window=17)
+    want = FA.flash_bwd_dq_plain(q.float(), k.float(), v.float(), do.float(),
+                                 lse, delta, scale=scale, window=17)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want, **FLASH_BWD_TOL_BF16)
 
 
 @pytest.mark.cuda

@@ -2,15 +2,16 @@
 the JAX reference's f32 math.
 
 On the card, bf16 operands take the tensor-core kernels
-(``flash_fwd_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel``): every
-product sums in f32, but P and dS enter the second product of each pair as
-bf16, and O, dK and dV are written in bf16.  The emulation below repeats
+(``flash_fwd_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``,
+``flash_bwd_dkv_wgmma_kernel``): every product sums in f32, but P and dS
+enter the second product of each pair as bf16, and O, dQ, dK and dV are
+written in bf16.  The emulation below repeats
 those steps in the kernels' order (key tiles of 64, the online softmax on
 the f32 scores, P rounded at the running max), in PyTorch on the CPU, and
 is held against ``repro.kernels.flash_attn._flash_fwd`` / ``_flash_bwd``
 (interpret mode) fed the same bf16 values, within the card tests' own
-tolerances (``tests/test_torch_cuda.py``): O, dK and dV to 8e-3, LSE to
-1e-4.  A kernel that agrees with the emulation bit for bit cannot be
+tolerances (``tests/test_torch_cuda.py``): O, dQ, dK and dV to 8e-3, LSE
+to 1e-4.  A kernel that agrees with the emulation bit for bit cannot be
 told from it by those tests; this file shows the rounding design itself
 fits them at small versions of the card's shapes.
 """
@@ -74,16 +75,29 @@ def emulate_fwd(q, k, v, scale, window):
     return _bf16(acc / lc[..., None]), m * math.log(2) + torch.log(lc)
 
 
-def emulate_dkv(q, k, v, do, lse, delta, scale, window):
-    """The bf16 dK/dV kernel's arithmetic: P recomputed from LSE and dP in
-    f32, dS = P (dP - delta) scale in f32, P and dS rounded to bf16 before
-    the products with dO and q, dK and dV rounded to bf16."""
+def _dp_and_ds(q, k, v, do, lse, delta, scale, window):
+    """(P, dS) in f32: P recomputed from LSE, dP = dO v^T, dS = P (dP -
+    delta) scale, as both backward kernels compute them."""
     S = q.shape[1]
     s = torch.einsum("bqd,bkd->bqk", q, k) * scale
     p = torch.where(_allowed(S, window)[None], torch.exp(s - lse[..., None]),
                     0.0)
     dp = torch.einsum("bqd,bkd->bqk", do, v)
-    ds = p * (dp - delta[..., None]) * scale
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def emulate_dq(q, k, v, do, lse, delta, scale, window):
+    """The bf16 dQ kernel's arithmetic: P and dP in f32, dS in f32, dS
+    rounded to bf16 before the product with k, dQ rounded to bf16."""
+    _, ds = _dp_and_ds(q, k, v, do, lse, delta, scale, window)
+    return _bf16(torch.einsum("bqk,bkd->bqd", _bf16(ds), k))
+
+
+def emulate_dkv(q, k, v, do, lse, delta, scale, window):
+    """The bf16 dK/dV kernel's arithmetic: P recomputed from LSE and dP in
+    f32, dS = P (dP - delta) scale in f32, P and dS rounded to bf16 before
+    the products with dO and q, dK and dV rounded to bf16."""
+    p, ds = _dp_and_ds(q, k, v, do, lse, delta, scale, window)
     return (_bf16(torch.einsum("bqk,bqd->bkd", _bf16(ds), q)),
             _bf16(torch.einsum("bqk,bqd->bkd", _bf16(p), do)))
 
@@ -101,11 +115,12 @@ def _case(shape):
     jq, jk, jv, jdo = (jnp.asarray(t.numpy()) for t in (q, k, v, do))
     o_r, lse_r = ref_flash_fwd(jq, jk, jv, scale=scale, window=window,
                                bq=blk, bk=blk, interpret=True)
-    _, dk_r, dv_r = ref_flash_bwd(jq, jk, jv, o_r, lse_r, jdo, scale=scale,
+    dq_r, dk_r, dv_r = ref_flash_bwd(jq, jk, jv, o_r, lse_r, jdo, scale=scale,
                                   window=window, bq=blk, bk=blk,
                                   interpret=True)
     ref = {n: torch.from_numpy(np.array(a, np.float32)) for n, a in
-           (("o", o_r), ("lse", lse_r), ("dk", dk_r), ("dv", dv_r))}
+           (("o", o_r), ("lse", lse_r), ("dq", dq_r), ("dk", dk_r),
+            ("dv", dv_r))}
     o, lse = emulate_fwd(q, k, v, scale, window)
     return (q, k, v, do), scale, window, ref, (o, lse)
 
@@ -132,6 +147,18 @@ def test_bf16_dkv_rounding_fits_the_reference(shape):
     for name, got in (("dk", dk), ("dv", dv)):
         assert bool(torch.isfinite(got).all()), name
         torch.testing.assert_close(got, ref[name], **TOL_BF16, msg=name)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_dq_rounding_fits_the_reference(shape):
+    """dQ of the path as the card runs it in bf16 (the emulated forward's
+    bf16 O and LSE, delta = rowsum(dO O), dS as a bf16 operand, a bf16
+    output) against the reference's f32 dQ within 8e-3."""
+    (q, k, v, do), scale, window, ref, (o, lse) = _case(shape)
+    delta = torch.sum(do * o, dim=-1)
+    dq = emulate_dq(q, k, v, do, lse, delta, scale, window)
+    assert bool(torch.isfinite(dq).all())
+    torch.testing.assert_close(dq, ref["dq"], **TOL_BF16)
 
 
 def test_emulation_rounds_where_the_kernels_do():
