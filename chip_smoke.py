@@ -50,11 +50,16 @@ Phases, each of which fails the script (non-zero exit, no result line):
     training shapes [30, 2,048, 64] (phase 17's microbatch) and
     [30, 1,024, 64] (phase 16's batch), f32 (the FMA kernel) and bf16
     (the wgmma kernel); ``ssd_scan`` on [48, nc, Q, 64], ds 128, for
-    (nc, Q) in {(1, 200), (16, 256)};
+    (nc, Q) in {(1, 200), (16, 256)}, B and C per row (G = 48) and shared
+    by the 48 heads (G = 1, the model's layout at batch 1), the grouped
+    call equal bit for bit to the same B and C broadcast to every row;
 11. model kernel timings at the path's largest shapes as in phase 5, with
     ``scaled_dot_product_attention`` as flash's library yardstick: the bf16
     forward timed by its own profiler name (``flash_fwd_wgmma_kernel``),
     its TFLOP/s, share of the bound and ratio to SDPA's forward;
+    ``ssd_scan`` at [48, 16, 256, 64], ds 128, in both layouts of phase
+    10, its four ``ssd_`` kernels' device times summed per call, each
+    layout beside its own bound (C B^T counted once per group);
 12. model parity in f32 at the full published width of SmolLM-360M and
     Mamba-2 780M: the kernel path's prefill logits and cache against the
     plain path's on 4 prompts of 256 tokens, and teacher forcing (prefill
@@ -65,7 +70,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
     1,024, 512, 256 and 200 tokens, 32 new tokens each), the model's
     kernel launched once per layer in each prefill and never in decode;
     decode tokens/s, the SMs' idle share over the phase, prefill tokens/s
-    at batch 1 and 4,096 tokens;
+    at batch 1 and 4,096 tokens, and that prefill's five longest device
+    kernels under torch.profiler;
 14. the flash backward kernels (``flash_bwd_dq``, ``flash_bwd_dkv``)
     against ``flash_bwd_plain`` on the card at the forward's shapes of
     phase 10, the training shapes included, f32 and bf16 (bf16 through
@@ -218,10 +224,10 @@ def cuda_ms(torch, fn, iters, repeats=5):
 
 
 def device_ms(torch, fn, kernel, iters=50):
-    """The kernel's own device time per launch (ms) under torch.profiler,
-    over ``iters`` calls of ``fn`` after a warm-up call; None when the
-    profiler records no device time for a kernel whose name holds
-    ``kernel``."""
+    """The device time per call (ms) under torch.profiler of every kernel
+    whose name holds ``kernel``, summed, over ``iters`` calls of ``fn``
+    after a warm-up call; None when the profiler records no device time
+    for such a kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -230,24 +236,26 @@ def device_ms(torch, fn, kernel, iters=50):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    for e in prof.key_averages():
-        if kernel in e.key and e.count:
-            return e.device_time_total / e.count / 1e3
+    mine = [e.device_time_total for e in prof.key_averages()
+            if kernel in e.key and e.count]
+    if mine:
+        return sum(mine) / iters / 1e3
     from torch.autograd import DeviceType
 
     recs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     mine = [e.device_time_total for e in recs if kernel in e.name]
     if mine:
-        return sum(mine) / len(mine) / 1e3
+        return sum(mine) / iters / 1e3
     log(f"profiler trace of {kernel}: {len(recs)} device records, names "
         f"{sorted({e.name[:60] for e in recs})[:5]}")
     return None
 
 
 def kernel_times(torch, fn, kernel, iters, require=False):
-    """(device ms, wrapper ms): the kernel's own time where the profiler
-    sees it, else the CUDA-event time of the wrapper, and the latter.
-    ``require``: fail unless the profiler sees a kernel named ``kernel``."""
+    """(device ms, wrapper ms) per call: the time of the kernels whose
+    names hold ``kernel`` where the profiler sees them, else the CUDA-event
+    time of the wrapper, and the latter.  ``require``: fail unless the
+    profiler sees such a kernel."""
     wrapper = cuda_ms(torch, fn, iters)
     dev = device_ms(torch, fn, kernel, iters)
     check(dev is not None or not require,
@@ -1273,6 +1281,26 @@ def ssd_inputs(np, torch, dev, rng, BH, nc, Q, hd, ds):
             t(rng.standard_normal((BH, nc, Q, ds)) * 0.2))
 
 
+def ssd_layouts(Bm, Cm):
+    """``ssd_scan``'s two layouts of B and C [BH, nc, Q, ds]: per row
+    (G = BH) and the model's at batch 1 (G = 1, the first row's shared by
+    all); each as (G, B and C of G groups, B and C broadcast to BH rows)."""
+    BH = Bm.shape[0]
+    b1, c1 = Bm[:1].contiguous(), Cm[:1].contiguous()
+    return ((BH, Bm, Cm, Bm, Cm),
+            (1, b1, c1, b1.expand_as(Bm).contiguous(),
+             c1.expand_as(Cm).contiguous()))
+
+
+def ssd_work(BH, G, nc, Q, hd, ds):
+    """(FLOP, bytes) ``ssd_scan`` must do: C B^T's lower triangle once per
+    group, the score-x product's lower triangle and the two state products
+    per row; x, la, B and C read once and y written once, f32."""
+    P = Q * (Q + 1) // 2                           # lower-triangle pairs
+    flops = nc * G * 2 * P * ds + BH * nc * (2 * P * hd + 4 * Q * hd * ds)
+    return flops, (2 * BH * nc * Q * hd + BH * nc * Q + 2 * G * nc * Q * ds) * 4
+
+
 def train_flash_shapes():
     """flash's [BH, S, hd, window] on the training path: SmolLM-360M's
     heads over one microbatch of phase 17 and over phase 16's batch."""
@@ -1322,16 +1350,22 @@ def phase_model_kernels(np, torch, dev):
             del q, k, v, o, lse, o_p, lse_p
     for BH, nc, Q, hd, ds in SSD_SHAPES:
         x, la, Bm, Cm = ssd_inputs(np, torch, dev, rng, BH, nc, Q, hd, ds)
-        y, y_p = ssd_scan(x, la, Bm, Cm), ssd_scan_plain(x, la, Bm, Cm)
-        torch.cuda.synchronize()
-        err = (y - y_p).abs().max().item()
-        check(bool(torch.isfinite(y).all())
-              and torch.allclose(y, y_p, **TOL_SSD),
-              f"ssd_scan [{BH}, {nc}, {Q}, {hd}] ds {ds}: max |err| "
-              f"{err:.3g}")
-        errs["ssd_scan"] = max(errs["ssd_scan"], err)
-        log(f"ssd_scan [{BH}, {nc}, {Q}, {hd}] ds {ds} f32: max |err| vs "
-            f"plain {err:.3g} (tolerance {TOL_SSD['atol']})")
+        for G, Bg, Cg, Bb, Cb in ssd_layouts(Bm, Cm):
+            y, y_p = ssd_scan(x, la, Bg, Cg), ssd_scan_plain(x, la, Bb, Cb)
+            same = torch.equal(y, ssd_scan(x, la, Bb, Cb))
+            torch.cuda.synchronize()
+            err = (y - y_p).abs().max().item()
+            what = f"ssd_scan [{BH}, {nc}, {Q}, {hd}] ds {ds} G {G} f32"
+            check(bool(torch.isfinite(y).all())
+                  and torch.allclose(y, y_p, **TOL_SSD),
+                  f"{what}: max |err| {err:.3g}")
+            check(same, f"{what}: B and C in groups differ from the same "
+                        f"broadcast to every row")
+            errs["ssd_scan"] = max(errs["ssd_scan"], err)
+            log(f"{what}: max |err| vs plain {err:.3g} (tolerance "
+                f"{TOL_SSD['atol']}); equal bit for bit to B and C "
+                f"broadcast to {BH} rows")
+            del y, y_p, Bb, Cb
     torch.cuda.empty_cache()
     return errs
 
@@ -1518,7 +1552,14 @@ def phase_serving(np, torch, dev):
         log(f"{arch} bf16 prefill at batch 1, {PREFILL_S} tokens: "
             f"{', '.join(f'{t:.4f}' for t in times)} s, median {med:.4f} s "
             f"= {PREFILL_S / med:.1f} tokens/s")
-        del params, toks
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            cache, last = prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+        log_card_busy(prof, med, f"{arch} prefill of {PREFILL_S} tokens, "
+                                 f"its longest device kernels",
+                      ("flash_fwd" if kernel == "flash_fwd" else "ssd_",))
+        del params, toks, cache, last
         torch.cuda.empty_cache()
     return launches
 
@@ -1557,14 +1598,14 @@ def phase_model_timings(np, torch, dev, errs):
 
     BHs, nc, Q, hd_s, ds = SSD_SHAPES[1]
     x, la, Bm, Cm = ssd_inputs(np, torch, dev, rng, BHs, nc, Q, hd_s, ds)
-    ss_ms, ss_wrap = kernel_times(torch, lambda: ssd_scan(x, la, Bm, Cm),
-                                  "ssd_scan_kernel", 10)
-    ss_plain = cuda_ms(torch, lambda: ssd_scan_plain(x, la, Bm, Cm), 3,
-                       repeats=3)
-    P = Q * (Q + 1) // 2                            # lower-triangle pairs
-    ss_flops = BHs * nc * (2 * P * ds + 2 * P * hd_s + 4 * Q * hd_s * ds)
-    ss_bytes = (2 * x.numel() + la.numel() + Bm.numel() + Cm.numel()) * 4
-    ss_b_ops, ss_b_bytes = ss_flops / fp32 * 1e3, ss_bytes / bw * 1e3
+    ss = {}                         # G -> (ms, wrapper, plain, FLOP, bytes)
+    for G, Bg, Cg, Bb, Cb in ssd_layouts(Bm, Cm):
+        ms, wrap = kernel_times(torch, lambda: ssd_scan(x, la, Bg, Cg),
+                                "ssd_", 10, require=True)
+        plain = cuda_ms(torch, lambda: ssd_scan_plain(x, la, Bg, Cg), 3,
+                        repeats=3)
+        ss[G] = (ms, wrap, plain, *ssd_work(BHs, G, nc, Q, hd_s, ds))
+        del Bg, Cg, Bb, Cb
     del x, la, Bm, Cm
     torch.cuda.empty_cache()
 
@@ -1580,14 +1621,25 @@ def phase_model_timings(np, torch, dev, errs):
         f"{max(fl_b_ops, fl_b_bytes) / fl_ms:.3f} of the bound, "
         f"{fl_ms / fl_lib:.2f}x scaled_dot_product_attention's forward; "
         f"{per_prefill['flash_fwd']} launches per SmolLM prefill")
-    log(f"ssd_scan [{BHs}, {nc}, {Q}, {hd_s}] ds {ds} f32: {ss_ms:.4f} ms on "
-        f"the card (wrapper {ss_wrap:.4f}, plain {ss_plain:.4f}, bound "
-        f"{max(ss_b_ops, ss_b_bytes):.4f} ms: {ss_flops:.3g} FLOP at FP32 "
-        f"-> {ss_b_ops:.4f} ms, {ss_bytes / 1e6:.1f} MB -> "
-        f"{ss_b_bytes:.4f} ms); {ss_flops / ss_ms / 1e9:.2f} TFLOP/s; "
-        f"{per_prefill['ssd_scan']} launches per Mamba-2 prefill; a grid "
-        f"of {BHs} blocks at batch 1 on the card's "
-        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for G, (ms, wrap, plain, flops, nbytes) in ss.items():
+        b_ops, b_bytes = flops / fp32 * 1e3, nbytes / bw * 1e3
+        scratch = G * nc * Q * Q * 4 + BHs * nc * (ds * hd_s + Q) * 4
+        log(f"ssd_scan [{BHs}, {nc}, {Q}, {hd_s}] ds {ds} f32, B and C in "
+            f"{G} group(s) ({'per row' if G == BHs else 'the model layout'}"
+            f"): {ms:.4f} ms on the card, its four ssd_ kernels summed "
+            f"(wrapper {wrap:.4f}, plain {plain:.4f}, bound "
+            f"{max(b_ops, b_bytes):.4f} ms: {flops:.3g} FLOP at FP32 -> "
+            f"{b_ops:.4f} ms, {nbytes / 1e6:.1f} MB -> {b_bytes:.4f} ms; "
+            f"scratch of C B^T, states and cum {scratch / 1e6:.1f} MB "
+            f"written and read besides); {flops / ms / 1e9:.2f} TFLOP/s, "
+            f"{max(b_ops, b_bytes) / ms:.3f} of the bound, "
+            f"{plain / ms:.2f}x faster than plain; grids of {BHs * nc} "
+            f"chunk blocks on the card's {sms} SMs")
+    log(f"ssd_scan: {per_prefill['ssd_scan']} calls per Mamba-2 prefill, "
+        f"four launches each")
+    (ss_ms, ss_wrap, ss_plain, f1, n1), row = ss[1], ss[BHs]
+    ss_b_ops, ss_b_bytes = f1 / fp32 * 1e3, n1 / bw * 1e3
     return [
         {"name": "flash_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attn.cu",
@@ -1604,7 +1656,10 @@ def phase_model_timings(np, torch, dev, errs):
          "ms": ss_ms, "wrapper_ms": ss_wrap, "plain_ms": ss_plain,
          "bound_ms": max(ss_b_ops, ss_b_bytes),
          "bound_by": "operations" if ss_b_ops >= ss_b_bytes else "bytes",
-         "library_ms": None},
+         "library_ms": None, "groups": 1,
+         "per_row_ms": row[0], "per_row_wrapper_ms": row[1],
+         "per_row_plain_ms": row[2],
+         "per_row_bound_ms": max(row[3] / fp32, row[4] / bw) * 1e3},
     ]
 
 

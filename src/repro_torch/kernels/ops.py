@@ -45,7 +45,8 @@ def mailbox_poll(slots, *, device="cuda") -> torch.Tensor:
 
 def ssd_scan_op(x, la, Bm, Cm, *, device="cuda") -> torch.Tensor:
     """[BH,nc,Q,hd] chunked SSD (the kernel path of ``models/ssm.py``) on
-    f32 copies of host arrays or tensors."""
+    f32 copies of host arrays or tensors; ``Bm`` and ``Cm`` are
+    [G,nc,Q,ds] with G dividing BH (G = BH, or one group per batch row)."""
     dev = resolve_device(device)
     return ssd_scan(*(torch.as_tensor(a, dtype=torch.float32, device=dev)
                       for a in (x, la, Bm, Cm)))

@@ -103,9 +103,10 @@ def ssd_seq_cached(p, x, cfg, *, want_cache: bool = False):
     """Full-sequence SSD mixer.  x: [B,S,D] -> ([B,S,D], cache|None).
 
     ``ssd_impl="kernel"`` hands the chunked, Δt-weighted operands to
-    :func:`ssd_scan` in the ``[B*nh, nc, Q, ·]`` layout, B and C broadcast
-    to every head, all f32 (the kernel on a CUDA tensor, its plain version
-    on a CPU one), and recomputes the final state in closed form for the
+    :func:`ssd_scan` in the ``[B*nh, nc, Q, ·]`` layout, B and C as one
+    group per batch row (``[B, nc, Q, ds]``, shared by its nh heads), all
+    f32 (the kernels on a CUDA tensor, the plain version on a CPU one),
+    and recomputes the final state in closed form for the
     cache.  ``xla`` runs the dual form in tensor ops.  S must divide by
     ``Q = min(ssm_chunk, S)``."""
     B, S, D = x.shape
@@ -150,9 +151,7 @@ def ssd_seq_cached(p, x, cfg, *, want_cache: bool = False):
         xk = (xc * dtc[..., None].to(xc.dtype)) \
             .permute(0, 3, 1, 2, 4).reshape(B * nh, nc, Q, hd)
         lak = lac.permute(0, 3, 1, 2).reshape(B * nh, nc, Q)
-        bk = bc[:, None].expand(B, nh, nc, Q, ds).reshape(B * nh, nc, Q, ds)
-        ck = cc[:, None].expand(B, nh, nc, Q, ds).reshape(B * nh, nc, Q, ds)
-        yk = ssd_scan(xk.float(), lak.contiguous(), bk.float(), ck.float())
+        yk = ssd_scan(xk.float(), lak, bc.float(), cc.float())  # B groups
         y = yk.reshape(B, nh, nc, Q, hd).permute(0, 2, 3, 1, 4).to(x.dtype)
         y = y.reshape(B, S, nh, hd)
         h_fin = _final_state(bc, lac, dtc, xc) if want_cache else None

@@ -365,28 +365,89 @@ def test_flash_kernel_refuses_other_head_dims(cuda):
     assert flash_fwd.launches == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 1, 200, 64, 128), (3, 4, 256, 64, 128),
-                                   (2, 3, 8, 16, 16), (1, 2, 37, 32, 100)])
-def test_ssd_scan_kernel_matches_plain(cuda, shape):
-    """Within the reference's 3e-4: Q = 200, the path's (256, 64, 128), the
-    tests' Q = 8, and a ragged Q = 37 with ds = 100."""
-    BH, nc, Q, hd, ds = shape
-    rng = np.random.default_rng(Q + ds)
+def _ssd_groups(BH):
+    """The group counts each shape runs: G = BH, G = 1 and G = 2 where
+    BH is even."""
+    return sorted({BH, 1} | ({2} if BH % 2 == 0 else set()))
+
+
+def _ssd_inputs(cuda, BH, G, nc, Q, hd, ds, seed):
+    """x, la, B and C of G groups, and B and C broadcast to BH rows."""
+    rng = np.random.default_rng(seed)
 
     def t(a):
         return torch.from_numpy(a.astype(np.float32)).to(cuda)
 
     x = t(rng.standard_normal((BH, nc, Q, hd)))
     la = t(-np.abs(rng.standard_normal((BH, nc, Q))) * 0.2)
-    Bm = t(rng.standard_normal((BH, nc, Q, ds)) * 0.2)
-    Cm = t(rng.standard_normal((BH, nc, Q, ds)) * 0.2)
-    before = ssd_scan.launches
-    y = ssd_scan(x, la, Bm, Cm)
+    Bg = t(rng.standard_normal((G, nc, Q, ds)) * 0.2)
+    Cg = t(rng.standard_normal((G, nc, Q, ds)) * 0.2)
+    Bb, Cb = (a.repeat_interleave(BH // G, dim=0) for a in (Bg, Cg))
+    return x, la, Bg, Cg, Bb, Cb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1, 200, 64, 128), (3, 4, 256, 64, 128),
+                                   (2, 3, 8, 16, 16), (1, 2, 37, 32, 100),
+                                   (48, 16, 256, 64, 128)])
+def test_ssd_scan_kernel_matches_plain(cuda, shape):
+    """Within the reference's 3e-4: Q = 200, the path's (256, 64, 128), the
+    tests' Q = 8, a ragged Q = 37 with ds = 100, and the Mamba-2 prefill's
+    [48, 16, 256, 64, 128]; each with B and C per row (G = BH), shared by
+    all rows (G = 1) and, where BH is even, in two groups.  One launch
+    count a call."""
+    BH, nc, Q, hd, ds = shape
+    for G in _ssd_groups(BH):
+        x, la, Bg, Cg, Bb, Cb = _ssd_inputs(cuda, BH, G, nc, Q, hd, ds,
+                                            Q + ds + G)
+        before = ssd_scan.launches
+        y = ssd_scan(x, la, Bg, Cg)
+        torch.cuda.synchronize()
+        assert ssd_scan.launches == before + 1
+        torch.testing.assert_close(y, ssd_scan_plain(x, la, Bb, Cb),
+                                   rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1, 200, 64, 128), (4, 2, 37, 32, 100),
+                                   (48, 16, 256, 64, 128)])
+def test_ssd_scan_groups_equal_broadcast_bit_for_bit(cuda, shape):
+    """B and C in G groups give what the same tensors broadcast to every
+    row give, bit for bit: every G runs the same C B^T code."""
+    BH, nc, Q, hd, ds = shape
+    for G in _ssd_groups(BH):
+        x, la, Bg, Cg, Bb, Cb = _ssd_inputs(cuda, BH, G, nc, Q, hd, ds, G)
+        assert torch.equal(ssd_scan(x, la, Bg, Cg), ssd_scan(x, la, Bb, Cb))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_launches_its_four_kernels(cuda):
+    """torch.profiler sees the four ssd_ kernels of one call, each once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, la, Bg, Cg, _, _ = _ssd_inputs(cuda, 4, 1, 2, 256, 64, 128, 0)
+    ssd_scan(x, la, Bg, Cg)
     torch.cuda.synchronize()
-    assert ssd_scan.launches == before + 1
-    torch.testing.assert_close(y, ssd_scan_plain(x, la, Bm, Cm), rtol=3e-4,
-                               atol=3e-4)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ssd_scan(x, la, Bg, Cg)
+        torch.cuda.synchronize()
+    seen = {name: 0 for name in ("ssd_chunk_state_kernel",
+                                 "ssd_state_pass_kernel", "ssd_bmm_kernel",
+                                 "ssd_chunk_scan_kernel")}
+    for e in prof.key_averages():
+        for name in seen:
+            if name in e.key:
+                seen[name] += e.count
+    assert seen == dict.fromkeys(seen, 1)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_refuses_groups_that_do_not_divide(cuda):
+    x, la, Bg, Cg, _, _ = _ssd_inputs(cuda, 4, 3, 1, 8, 16, 16, 0)
+    before = ssd_scan.launches
+    with pytest.raises(ValueError, match="do not divide"):
+        ssd_scan(x, la, Bg, Cg)
+    assert ssd_scan.launches == before
 
 
 SMALL = {

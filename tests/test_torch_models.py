@@ -177,6 +177,9 @@ def test_ssd_scan_refusals():
     with pytest.raises(ValueError, match="Bm, Cm must be"):
         ssd_scan(x, torch.zeros(2, 1, 8), torch.zeros(2, 1, 8, 4),
                  torch.zeros(2, 1, 8, 5))
+    with pytest.raises(ValueError, match="Bm, Cm must be"):  # groups differ
+        ssd_scan(x, torch.zeros(2, 1, 8), torch.zeros(1, 1, 8, 4),
+                 torch.zeros(2, 1, 8, 4))
 
 
 # ---------------------------------------------------------------- layers
