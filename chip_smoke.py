@@ -16,19 +16,31 @@ Phases, each of which fails the script (non-zero exit, no result line):
    and bound 0), ``ifunc_vm`` on fixed programs (2e-5) and seeded random
    programs using every opcode (5e-4 on finite entries), each logged with
    the variant its plan takes; both variants (``ifunc_vm_smem_kernel``,
-   ``ifunc_vm_global_kernel``) must have run;
+   ``ifunc_vm_global_kernel``) must have run; the fused sweeps
+   (``ring_sweep_*_kernel`` over a singleton ring of every status at 512
+   slots x 2 tiles, both plan variants; ``agg_sweep_*_kernel`` over the
+   aggregate rings above) against their plain versions: statuses, sub
+   statuses and the cleared ring bit for bit, the outputs that ran bit
+   for bit equal to ``ifunc_vm_slots`` and within 2e-5 of the plain
+   version, +0.0 elsewhere, INFLIGHT and EMPTY slots untouched;
 3. the singleton lane at the example's shape (8 shards x 2 slots x 2
    tiles, shift 1) through ``Dispatcher`` -> ``DeviceMeshFabric``, held
-   against relu(x @ W) of the neighbour's payload;
+   against relu(x @ W) of the neighbour's payload; the lane launches the
+   fused ``ring_sweep`` and no standalone poll or ``ifunc_vm`` kernel;
 4. the singleton lane at full width: 8 shards x 64 slots x 2 tiles of
    128x128 f32 (512 ``uvm_affine`` frames of 128 KiB, a 64 MiB mailbox)
-   for 3 generations, then one corrupt frame (REJECTED) and one put whose
-   generation lands before its trailer (IN_PROGRESS, then OK);
-5. singleton timings: each kernel's own device time (torch.profiler;
-   ``ifunc_vm`` by the name of the variant ``uvm_affine`` takes, reading
-   the ring's bodies in place as the sweep does) beside the CUDA-event
-   time of its wrapper, its plain version, its bound and, where one
-   exists, a PyTorch library call; the sweep's ms; the path's frames/s;
+   for 3 generations, each logging its sweeps and the READY slots of each,
+   then one corrupt frame (REJECTED) and one put whose generation lands
+   before its trailer (IN_PROGRESS, then OK);
+5. singleton timings: the fused sweep over a full ring of READY frames
+   and at the path's occupancy (8 READY slots of 512, one a shard), the
+   ring restored before each call outside the timed window, its device
+   time by its name under torch.profiler (exactly one kernel a sweep),
+   its CUDA-event time, the plain sweep's and its bound; the standalone
+   ``ring_poll`` and ``ifunc_vm`` (by the name of the variant
+   ``uvm_affine`` takes, reading the ring's bodies in place) beside their
+   wrappers, plain versions, bounds and, where one exists, a PyTorch
+   library call; the path's frames/s;
 6. where a singleton generation's time goes: host timers around the
    channel's put and the mailbox's publish and sweep in one more
    generation, and the card's busy time under torch.profiler in another;
@@ -36,14 +48,18 @@ Phases, each of which fails the script (non-zero exit, no result line):
    batch executes; a NACKed sub-record is rebuilt alone; a poisoned one
    errors with its siblings unharmed; a corrupt container is rejected
    whole and the lane reused; a singleton on the agg-bound lane runs;
+   the lane launches the fused ``agg_sweep`` alone;
 8. the aggregate lane at full width: 8 shards x 4 slots, K = 64 sub-records
    of one 128x128 tile each (2,048 coalesced ``uvm_affine`` records, 32
-   containers, 4 deposits and one sweep per generation, a 134 MB mailbox)
-   for 3 generations, every result held against relu(x @ W);
-9. aggregate timings: ``agg_ring_poll`` and ``ifunc_vm`` at the sweep's
-   shapes as in phase 5 (the bodies read in place), the sweep's ms, the
-   lane's sub-records/s split into send and drain, host timers over one
-   more generation as in phase 6, and the SMs' idle share over another.
+   containers, 4 deposits per generation, a 134 MB mailbox) for 3
+   generations, every result held against relu(x @ W), the sweeps of each
+   generation and their READY containers logged;
+9. aggregate timings as in phase 5: the fused sweep over full READY
+   containers and at the path's occupancy (8 READY containers of 32),
+   the standalone ``agg_ring_poll`` and ``ifunc_vm`` at the sweep's
+   shapes, the lane's sub-records/s split into send and drain, host
+   timers over one more generation as in phase 6, and the SMs' idle
+   share over another.
 10. the model stack's kernels against their plain versions at the shapes
     the serving and training paths launch: ``flash_fwd`` on [15, S, 64]
     for S in {200, 512, 4096}, [4, 512, 128] with window 256, and the
@@ -101,7 +117,10 @@ H100.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's ``nvidia-smi`` name and power limit; before that the ``kernels``
-JSON line.
+JSON line, one entry per TPU kernel.  The ``ring_poll`` and
+``agg_ring_poll`` entries describe the fused sweeps that now poll on the
+lanes (their ``standalone_*`` keys the poll kernels alone); ``ifunc_vm``
+counts the sweeps it runs inside.
 """
 
 import json
@@ -266,6 +285,81 @@ def kernel_times(torch, fn, kernel, iters, require=False):
     return (wrapper if dev is None else dev), wrapper
 
 
+def restored_ms(torch, fn, ring, pristine, iters):
+    """Median CUDA-event time (ms) of one ``fn()`` with ``ring`` restored
+    from ``pristine`` before each call, outside the timed window: a sweep
+    clears the ring in place, so a sweep timed twice on one ring would
+    find it empty."""
+    ring.copy_(pristine)
+    fn()
+    pairs = []
+    for _ in range(iters):
+        ring.copy_(pristine)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def sweep_times(torch, sweep, ring, pristine, ext, kernel, iters):
+    """(device ms, event ms) of one ``sweep(ring, ext)``, the ring restored
+    before each call: the device time of the kernel named ``kernel`` under
+    torch.profiler, and the median CUDA-event time.  Fails unless every
+    sweep launched exactly one kernel by the launch counters (the fused
+    sweep's, and no other counted kernel) and the profiler sees exactly
+    one kernel a sweep, that one (the restore is a device-to-device copy,
+    not a kernel).  torch.profiler can lose a kernel's record on a busy
+    host: a trace that holds fewer records than sweeps and nothing but
+    the fused kernel is logged and taken again, at most three times; a
+    kernel of any other name fails at once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ev = restored_ms(torch, lambda: sweep(ring, ext), ring, pristine, iters)
+    counters = _counted()
+    lane = "agg_sweep" if kernel.startswith("agg") else "ring_sweep"
+    for attempt in range(1, 4):
+        before = {k: f.launches for k, f in counters.items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                ring.copy_(pristine)
+                sweep(ring, ext)
+            torch.cuda.synchronize()
+        moved = {k: f.launches - before[k] for k, f in counters.items()
+                 if f.launches != before[k]}
+        check(moved == {lane: iters},
+              f"{iters} sweeps launched {moved}, not {iters} of {lane}")
+        recs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not e.name.startswith(("Memcpy", "Memset", "Activity"))]
+        mine = [e.device_time_total for e in recs if kernel in e.name]
+        what = (f"{len(recs)} kernels in {iters} sweeps, {len(mine)} of them "
+                f"{kernel}: {sorted({e.name[:60] for e in recs})[:5]}")
+        check(len(mine) == len(recs) <= iters, what)
+        if len(recs) == iters:
+            return sum(mine) / iters / 1e3, ev
+        log(f"torch.profiler trace {attempt} of {iters} sweeps lost "
+            f"{iters - len(recs)} kernel records ({what}); tracing again")
+    raise SmokeError(f"{what}, in three traces")
+
+
+def sweep_bound(n_slots, hdr_words, ready_tiles, n_tiles, cleared_words,
+                ext, flops, bw, fp32):
+    """(bound ms, by, bytes, FLOP) of a fused sweep: the header and
+    trailer words of every slot read and its statuses written, the READY
+    payloads read, every output tile written, the consumed slots' words
+    written and the external tables read, at ``bw``; the program's FLOP
+    on the READY tiles at ``fp32``."""
+    nbytes = (n_slots * hdr_words * 4 + ready_tiles * T * T * 4
+              + n_tiles * T * T * 4 + cleared_words * 4 + ext.numel() * 4)
+    by_bytes, by_ops = nbytes / bw * 1e3, flops / fp32 * 1e3
+    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops
+            else "operations", nbytes, flops)
+
+
 def card_peaks(name):
     """(bytes/s, FP32 FLOP/s, bf16 FLOP/s) of the card."""
     for key, *peaks in PEAKS:
@@ -400,6 +494,75 @@ def make_ring(np, rng, n, W):
     return ring, want
 
 
+def make_sweep_ring(np, rng, n, W, nt):
+    """A uint32 singleton ring of ``n`` slots of ``nt`` body tiles with
+    finite bodies, cycling through EMPTY (zeros, garbage behind magic 0),
+    READY, a short READY frame (its trailer inside the first body tile),
+    INFLIGHT and BAD (check word, fw = 0xFFFFFFF0, bad magic)."""
+    from repro_torch.core.device_mailbox import pack_word_frame
+
+    ring = np.zeros((n, W), np.uint32)
+    for i in range(n):
+        kind = i % 8
+        pay = rng.standard_normal(nt * T * T).astype(np.float32)
+        if kind == 1:
+            ring[i] = rng.integers(0, 2 ** 32, W, dtype=np.uint32)
+            ring[i, 0] = 0
+        elif kind == 3:
+            ring[i] = pack_word_frame(pay[:T * T // 2 + 3], W)
+        elif kind >= 2:
+            ring[i] = pack_word_frame(pay, W, corrupt=kind == 5,
+                                      no_trailer=kind == 4)
+        if kind == 6:
+            ring[i, 1] = 0xFFFFFFF0
+            ring[i, 4] = ring[i, 0] ^ ring[i, 1] ^ ring[i, 2] ^ ring[i, 3]
+        if kind == 7:
+            ring[i, 0] ^= 0x100
+    return ring
+
+
+def check_fused_sweep(torch, prog, pristine, ext, what, agg_k=0, bound=0,
+                      per_sub=NT):
+    """The fused sweep against its plain version on two copies of
+    ``pristine`` and against ``ifunc_vm_slots`` on a third: statuses (and
+    sub statuses) and the cleared ring bit for bit, the outputs of the
+    tiles that ran bit for bit equal to ifunc_vm_slots and within
+    TOL_FIXED of the plain version, +0.0 elsewhere, INFLIGHT and EMPTY
+    slots untouched.  Returns (max |err| against plain, statuses)."""
+    from repro_torch.kernels.ifunc_vm import (ifunc_vm_agg_sweep,
+                                              ifunc_vm_slots, ifunc_vm_sweep,
+                                              ifunc_vm_sweep_plain)
+    from repro_torch.kernels.ring_poll import HDR_WORDS
+
+    a, b = pristine.clone(), pristine.clone()
+    off = HDR_WORDS + 2 * agg_k
+    per_slot = max(agg_k, 1) * per_sub
+    if agg_k:
+        got = ifunc_vm_agg_sweep(prog, a, agg_k, off, per_slot, ext, bound)
+    else:
+        got = ifunc_vm_sweep(prog, a, off, per_slot, ext)
+    want = ifunc_vm_sweep_plain(prog, b, off, per_slot, ext, agg_k=agg_k,
+                                bound_hash=bound)
+    slots = ifunc_vm_slots(prog, pristine, off, per_slot, ext)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:-1], want[:-1]):
+        check(torch.equal(g, w), f"{what}: statuses != plain")
+    check(torch.equal(a, b), f"{what}: cleared ring != plain")
+    run = (got[-2] == 1).reshape(-1).repeat_interleave(per_sub)
+    out, ref = got[-1], want[-1]
+    check(torch.equal(out[run].view(torch.int32),
+                      slots[run].view(torch.int32)),
+          f"{what}: outputs != ifunc_vm_slots bit for bit")
+    err = (out[run] - ref[run]).abs().max().item() if run.any() else 0.0
+    check(torch.allclose(out[run], ref[run], rtol=TOL_FIXED, atol=TOL_FIXED),
+          f"{what}: max |err| {err:.3g} vs plain over {TOL_FIXED}")
+    check(not out[~run].view(torch.int32).any(), f"{what}: masked != +0.0")
+    kept = (got[0] == 0) | (got[0] == 2)
+    check(torch.equal(a[kept], pristine[kept]) and not a[~kept].any(),
+          f"{what}: INFLIGHT/EMPTY touched or a consumed slot left dirty")
+    return err, got[0]
+
+
 def phase_kernels(np, torch, dev):
     """Each kernel against its plain version at the main path's shapes."""
     from repro_torch.convert import mailbox_from_numpy
@@ -425,6 +588,29 @@ def phase_kernels(np, torch, dev):
           "ring_poll kernel != the statuses the ring was built with")
     log(f"ring_poll: {n_slots} slots x {W} words bit-exact vs plain "
         f"(statuses {np.bincount(want, minlength=4).tolist()})")
+
+    # the fused singleton sweep at the lane's shape, both plan variants
+    from repro_torch.ifunc_libs.uvm_affine import UVM_PROGRAM
+    from repro_torch.kernels.ifunc_vm import sweep_kernel
+
+    sw_ring = mailbox_from_numpy(make_sweep_ring(np, rng, n_slots, W, NT), dev)
+    sw_err, sw_seen = 0.0, set()
+    for prog, n_ext in ((UVM_PROGRAM, 1),
+                        (assemble(*FIXED_PROGRAMS["wide_fma_zeroed"]), 1)):
+        ext = torch.from_numpy((rng.standard_normal((SHARDS, n_ext, T, T))
+                                * 0.1).astype(np.float32)).to(dev)
+        e, st = check_fused_sweep(torch, prog, sw_ring, ext,
+                                  sweep_kernel(prog))
+        sw_err = max(sw_err, e)
+        sw_seen.add(sweep_kernel(prog))
+    check(sw_seen == {"ring_sweep_smem_kernel", "ring_sweep_global_kernel"},
+          f"fused singleton sweep: not both variants {sw_seen}")
+    log(f"ring_sweep: {n_slots} slots x {NT} tiles (statuses "
+        f"{torch.bincount(st, minlength=4).tolist()}) equal to the plain "
+        f"sweep bit for bit (statuses, cleared ring), outputs equal to "
+        f"ifunc_vm_slots bit for bit, max |err| vs plain {sw_err:.3g}, "
+        f"masked +0.0; variants {sorted(sw_seen)}")
+    del sw_ring
 
     n_tiles = SHARDS * SLOTS_FULL * NT
     pay = torch.from_numpy(rng.standard_normal((n_tiles, T, T))
@@ -487,7 +673,8 @@ def phase_kernels(np, torch, dev):
         log(f"  {kernel}: {', '.join(progs)}")
     check(set(variants) == {"ifunc_vm_smem_kernel", "ifunc_vm_global_kernel"},
           f"ifunc_vm: not both variants launched: {variants}")
-    return {"ring_poll": rp_err, "ifunc_vm": max(max(errs.values()), worst)}
+    return {"ring_poll": rp_err, "ring_sweep": sw_err,
+            "ifunc_vm": max(max(errs.values()), worst)}
 
 
 def build_path(np, torch, dev, n_slots, flush_threshold=8):
@@ -536,14 +723,47 @@ def _counted():
     from repro_torch.kernels.agg_poll import agg_ring_poll
     from repro_torch.kernels.flash_attn import (flash_bwd_dkv, flash_bwd_dq,
                                                 flash_fwd)
-    from repro_torch.kernels.ifunc_vm import ifunc_vm
+    from repro_torch.kernels.ifunc_vm import (ifunc_vm, ifunc_vm_agg_sweep,
+                                              ifunc_vm_sweep)
     from repro_torch.kernels.ring_poll import ring_poll
     from repro_torch.kernels.ssd_scan import ssd_scan
 
     return {"ring_poll": ring_poll, "agg_ring_poll": agg_ring_poll,
-            "ifunc_vm": ifunc_vm, "flash_fwd": flash_fwd,
+            "ifunc_vm": ifunc_vm, "ring_sweep": ifunc_vm_sweep,
+            "agg_sweep": ifunc_vm_agg_sweep, "flash_fwd": flash_fwd,
             "ssd_scan": ssd_scan, "flash_bwd_dq": flash_bwd_dq,
             "flash_bwd_dkv": flash_bwd_dkv}
+
+
+def lane_launches_ok(counts, lane):
+    """Whether a lane's run launched its fused sweep and none of the
+    standalone poll or ifunc_vm kernels, nor the other lane's sweep."""
+    other = "agg_sweep" if lane == "ring_sweep" else "ring_sweep"
+    return (counts[lane] > 0 and counts[other] == 0 and counts["ring_poll"]
+            == counts["agg_ring_poll"] == counts["ifunc_vm"] == 0)
+
+
+def sweep_log(mb, run):
+    """``run()`` with the mailbox's sweeps watched: returns (the READY
+    slots of each sweep that launched, run's result)."""
+    from repro_torch.core.api import Status
+
+    counter = _counted()["agg_sweep" if mb.agg_k else "ring_sweep"]
+    ready = []
+
+    def sweep(*a, **k):
+        before = counter.launches
+        statuses = type(mb).sweep(mb, *a, **k)
+        if counter.launches > before:
+            ready.append(sum(1 for st in statuses if st == Status.OK))
+        return statuses
+
+    mb.sweep = sweep
+    try:
+        out = run()
+    finally:
+        del mb.sweep
+    return ready, out
 
 
 def reset_counts():
@@ -561,8 +781,7 @@ def phase_example(np, torch, dev):
     reset_counts()
     send_generation(d, h, pays)
     counts = read_counts()
-    check(counts["ring_poll"] > 0 and counts["ifunc_vm"] > 0
-          and counts["agg_ring_poll"] == 0,
+    check(lane_launches_ok(counts, "ring_sweep"),
           f"example: kernels not launched as the lane needs {counts}")
     got = d.peers["gpu-mesh"].target_args["results"]
     check_results(torch, got, expected(torch, pays, Ws, 1, dev), "example")
@@ -584,17 +803,18 @@ def phase_full(np, torch, dev):
     reset_counts()
     rates = []
     for g, pays in enumerate(gens):
-        send_s, drain_s, create_s = send_generation(d, h, pays)
+        ready, (send_s, drain_s, create_s) = sweep_log(
+            mb, lambda: send_generation(d, h, pays))
         rates.append((send_s, drain_s, create_s))
         res = peer.target_args["results"][g * n:(g + 1) * n]
         check_results(torch, res, expected(torch, pays, Ws, SLOTS_FULL, dev),
                       f"generation {g}")
         log(f"generation {g}: {n} frames, send {send_s:.4f} s (of which "
             f"ifunc_msg_create {create_s:.4f} s), drain {drain_s:.4f} s, "
-            f"{n / (send_s + drain_s):.1f} frames/s")
+            f"{n / (send_s + drain_s):.1f} frames/s; {len(ready)} sweeps "
+            f"of {n} slots, READY in each: {ready}")
     counts = read_counts()
-    check(counts["ring_poll"] > 0 and counts["ifunc_vm"] > 0
-          and counts["agg_ring_poll"] == 0,
+    check(lane_launches_ok(counts, "ring_sweep"),
           f"main path: kernels not launched as the lane needs {counts}")
     check(peer.credits == n, f"credits {peer.credits} after drain, want {n}")
     check(int(mb._mb.abs().sum().item()) == 0, "mailbox not cleared")
@@ -631,10 +851,11 @@ def phase_full(np, torch, dev):
 def phase_timings(np, torch, dev, d, counts, rates, errs):
     from repro_torch.convert import mailbox_from_numpy
     from repro_torch.core.device_mailbox import (make_deposit, make_sweep,
-                                                 pack_word_frame)
+                                                 pack_word_frame, sweep_plain)
     from repro_torch.kernels.ifunc_vm import (ifunc_vm_plain, ifunc_vm_slots,
-                                              slot_tiles, vm_plan)
-    from repro_torch.kernels.ring_poll import (HDR_WORDS, ring_poll,
+                                              slot_tiles, sweep_kernel,
+                                              vm_plan)
+    from repro_torch.kernels.ring_poll import (HDR_WORDS, READY, ring_poll,
                                                ring_poll_plain)
 
     name = torch.cuda.get_device_name(0)
@@ -684,26 +905,59 @@ def phase_timings(np, torch, dev, d, counts, rates, errs):
     vm_bound_bytes = vm_bytes / bw * 1e3
     vm_bound = max(vm_bound_ops, vm_bound_bytes)
 
-    # the sweep and the deposit around the kernels, same ring
+    # the fused sweep: a full ring of READY frames, and the path's
+    # occupancy (one deposit of 8 frames, one a shard, into 512 slots)
     sweep = make_sweep(prog, NT)
-    sw_ms = cuda_ms(torch, lambda: sweep(ring, ext), 20)
+    kernel = sweep_kernel(prog)
+    full = ring.clone()
+    sw = {}
+    for case, n_ready in (("full", n_slots), ("path", SHARDS)):
+        pristine = full if case == "full" else torch.zeros_like(ring)
+        pristine[:, 0] = full[:, 0]
+        ring.copy_(pristine)
+        st, _, _ = sweep(ring, ext)
+        check(int((st == READY).sum()) == n_ready and not ring.any(),
+              f"sweep {case}: {int((st == READY).sum())} READY of "
+              f"{n_ready}, or the ring not cleared")
+        ms, ev = sweep_times(torch, sweep, ring, pristine, ext, kernel, 20)
+        plain = restored_ms(torch, lambda: sweep_plain(prog, ring, ext, NT),
+                            ring, pristine, 5)
+        # status words: 5 header words and the trailer, 1 status
+        bound, by, nb, fl = sweep_bound(
+            n_slots, HDR_WORDS + 2, n_ready * NT, n_tiles, n_ready * W, ext,
+            uvm_flops(prog, n_ready * NT), bw, fp32)
+        sw[case] = (ms, ev, plain, bound, by)
+        log(f"sweep ({kernel}, one launch) {case} ring, {n_ready} READY of "
+            f"{n_slots} slots: {ms:.4f} ms on the card (events {ev:.4f}, "
+            f"plain sweep {plain:.4f}); bound {bound:.4f} ms by {by} "
+            f"({nb / 2 ** 20:.1f} MiB, {fl / 1e9:.3f} GFLOP), "
+            f"{bound / ms:.3f} of it")
+    ring.copy_(full)
     deposit = make_deposit(SHARDS)
     dp_ms = cuda_ms(torch, lambda: deposit(ring, ring, 1), 20)
     h2d_ms = cuda_ms(torch, lambda: torch.from_numpy(
         words.view(np.int32)).to(dev), 5)
 
+    sw_ms, sw_ev, sw_plain, sw_bound, sw_by = sw["full"]
     kernels = [
         {"name": "ring_poll", "route": "cuda",
-         "source": "src/repro_torch/csrc/ring_poll.cu",
+         "source": "src/repro_torch/csrc/ifunc_vm.cu",
+         "kernel": kernel, "poll": "src/repro_torch/csrc/mailbox_poll.cuh",
          "replaces": "src/repro/kernels/ring_poll.py:54",
-         "launches": counts["ring_poll"], "max_abs_err": errs["ring_poll"],
-         "ms": rp_ms, "wrapper_ms": rp_wrap, "plain_ms": rp_plain,
-         "bound_ms": rp_bound,
-         "bound_by": "bytes", "library_ms": None},
+         "launches": counts["ring_sweep"], "launches_a_sweep": 1,
+         "max_abs_err": max(errs["ring_poll"], errs["ring_sweep"]),
+         "ms": sw_ms, "wrapper_ms": sw_ev, "path_ms": sw["path"][0],
+         "path_bound_ms": sw["path"][3], "plain_ms": sw_plain,
+         "bound_ms": sw_bound, "bound_by": sw_by, "library_ms": None,
+         "standalone_ms": rp_ms, "standalone_wrapper_ms": rp_wrap,
+         "standalone_plain_ms": rp_plain, "standalone_bound_ms": rp_bound},
         {"name": "ifunc_vm", "route": "cuda",
          "source": "src/repro_torch/csrc/ifunc_vm.cu",
          "replaces": "src/repro/kernels/ifunc_vm.py:94",
-         "launches": counts["ifunc_vm"],
+         "launches": counts["ring_sweep"],
+         "runs_inside": "ring_sweep_*_kernel and agg_sweep_*_kernel: the "
+                        "lanes launch no ifunc_vm_*_kernel of their own",
+         "standalone_launches": counts["ifunc_vm"],
          "max_abs_err": max(vm_err, errs["ifunc_vm"]),
          "ms": vm_ms, "wrapper_ms": vm_wrap, "plain_ms": vm_plain,
          "bound_ms": vm_bound,
@@ -722,8 +976,8 @@ def phase_timings(np, torch, dev, d, counts, rates, errs):
         f"{vm_bound_bytes:.4f} ms); {vm_flops / vm_ms / 1e9:.2f} TFLOP/s, "
         f"{vm_bound / vm_ms:.3f} of the bound, {vm_ms / vm_lib:.2f}x "
         f"torch.relu(torch.matmul)")
-    log(f"sweep (ring_poll + ifunc_vm in place + mask + clear) "
-        f"{sw_ms:.4f} ms; deposit {dp_ms:.4f} ms; staged generation H2D "
+    log(f"standalone ring_poll_kernel {rp_ms:.4f} ms beside the sweep's "
+        f"{sw_ms:.4f}; deposit {dp_ms:.4f} ms; staged generation H2D "
         f"{h2d_ms:.4f} ms ({words.nbytes / 2 ** 20:.0f} MiB)")
     tot = sum(s + dr for s, dr, _ in rates)
     log(f"path: {n_slots * len(rates)} frames in {tot:.3f} s = "
@@ -917,14 +1171,18 @@ def make_agg_ring(np, rng, n, k, body_words, bound):
 def phase_agg_kernel(np, torch, dev):
     """``agg_ring_poll`` against its plain version, bit-exact, on mixed
     rings of the aggregate path's 32 slots at K = 4 and K = 64, with a
-    high-bit bound hash and with bound 0; returns the largest |diff|."""
+    high-bit bound hash and with bound 0, and the fused aggregate sweep
+    against its plain version on the same rings; returns the largest
+    |diff| of the poll and the sweep's largest |err| against plain."""
     from repro_torch.convert import mailbox_from_numpy
     from repro_torch.kernels.agg_poll import agg_ring_poll, agg_ring_poll_plain
     from repro_torch.kernels.ring_poll import HDR_WORDS
 
+    from repro_torch.ifunc_libs.uvm_affine import UVM_PROGRAM
+
     rng = np.random.default_rng(4)
     n = SHARDS * AGG_SLOTS
-    worst = 0
+    worst, sweep_err = 0, 0.0
     for k in (4, AGG_K):
         for bound in (0x8000ABCD, 0):
             ring_np, want = make_agg_ring(np, rng, n, k, T * T, bound)
@@ -944,7 +1202,16 @@ def phase_agg_kernel(np, torch, dev):
                 f"{mb.shape[1]} words bit-exact vs plain (containers "
                 f"{np.bincount(want, minlength=4).tolist()}, subs "
                 f"EMPTY/READY/BAD/NACK {subs[[0, 1, 3, 4]].tolist()})")
-    return worst
+            ext = torch.from_numpy((rng.standard_normal((SHARDS, 1, T, T))
+                                    * 0.1).astype(np.float32)).to(dev)
+            e, _ = check_fused_sweep(torch, UVM_PROGRAM, mb, ext,
+                                     f"agg_sweep K={k} bound={bound:#x}",
+                                     agg_k=k, bound=bound, per_sub=1)
+            sweep_err = max(sweep_err, e)
+            log(f"agg_sweep K={k} bound={bound:#x}: equal to the plain sweep "
+                f"bit for bit (statuses, subs, cleared ring), outputs equal "
+                f"to ifunc_vm_slots bit for bit, max |err| vs plain {e:.3g}")
+    return worst, sweep_err
 
 
 def build_agg_path(np, torch, dev, n_slots, agg_k, seed,
@@ -1077,8 +1344,8 @@ def phase_agg_example(np, torch, dev):
     close(replies[77][0], agg_want(torch, dev, xs[:1], Ws, 0, k)[0],
           "singleton")
     counts = read_counts()
-    check(counts["ring_poll"] == 0 and counts["agg_ring_poll"] > 0
-          and counts["ifunc_vm"] > 0, f"agg example launches {counts}")
+    check(lane_launches_ok(counts, "agg_sweep"),
+          f"agg example launches {counts}")
     log(f"agg example (8 shards, shift 1, K={k}): batch, NACK rebuilt "
         f"alone, poisoned sub, corrupt container then reuse, singleton — "
         f"all hold; launches {counts}")
@@ -1116,11 +1383,11 @@ def phase_agg_full(np, torch, dev):
     for g, pays in enumerate(gens):
         before = read_counts()
         corr = list(range(g * n + 1, (g + 1) * n + 1))
-        send_s, drain_s = send_agg_generation(d, h, pays, corr)
+        ready, (send_s, drain_s) = sweep_log(
+            mb, lambda: send_agg_generation(d, h, pays, corr))
         now = read_counts()
         delta = {key: now[key] - before[key] for key in now}
-        check(delta["agg_ring_poll"] >= 1 and delta["ifunc_vm"] >= 1
-              and delta["ring_poll"] == 0,
+        check(lane_launches_ok(delta, "agg_sweep"),
               f"generation {g}: launches {delta}")
         got = [replies.pop(c) for c in corr]
         check(not any(e for _, e in got), f"generation {g}: error replies")
@@ -1133,7 +1400,9 @@ def phase_agg_full(np, torch, dev):
         rates.append((send_s, drain_s))
         log(f"agg generation {g}: {n} records in {n_cont} containers, "
             f"send {send_s:.4f} s, drain {drain_s:.4f} s, "
-            f"{n / (send_s + drain_s):.1f} sub-records/s; launches {delta}")
+            f"{n / (send_s + drain_s):.1f} sub-records/s; {len(ready)} "
+            f"sweeps of {n_cont} slots, READY containers in each: {ready}; "
+            f"launches {delta}")
     counts = read_counts()
     st = peer.stats
     check(len(peer.target_args["results"]) == GENERATIONS * n,
@@ -1151,18 +1420,23 @@ def phase_agg_full(np, torch, dev):
 
 
 def phase_agg_timings(np, torch, dev, d, counts, rates, err):
-    """``agg_ring_poll`` and ``ifunc_vm`` at the aggregate sweep's shapes,
-    the lane's rates and the card's idle share; returns the
-    ``agg_ring_poll`` kernels-line entry and the idle share."""
+    """The fused aggregate sweep, ``agg_ring_poll`` and ``ifunc_vm`` at the
+    aggregate sweep's shapes, the lane's rates and the card's idle share;
+    ``err`` is (the poll's, the sweep's) largest |err| of phase 2.
+    Returns the ``agg_ring_poll`` kernels-line entry, ifunc_vm's largest
+    |err| and the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.convert import mailbox_from_numpy
-    from repro_torch.core.device_mailbox import (make_agg_sweep,
+    from repro_torch.core.device_mailbox import (agg_sweep_plain,
+                                                 make_agg_sweep,
                                                  pack_agg_word_frame)
-    from repro_torch.kernels.agg_poll import agg_ring_poll, agg_ring_poll_plain
+    from repro_torch.kernels.agg_poll import (SUB_READY, agg_ring_poll,
+                                              agg_ring_poll_plain)
     from repro_torch.kernels.ifunc_vm import (ifunc_vm_plain, ifunc_vm_slots,
-                                              slot_tiles, vm_plan)
-    from repro_torch.kernels.ring_poll import HDR_WORDS
+                                              slot_tiles, sweep_kernel,
+                                              vm_plan)
+    from repro_torch.kernels.ring_poll import HDR_WORDS, READY
 
     bw, fp32, _ = card_peaks(torch.cuda.get_device_name(0))
     peer = d.peers["gpu-mesh"]
@@ -1228,8 +1502,40 @@ def phase_agg_timings(np, torch, dev, d, counts, rates, err):
     vm_bound = max(vm_flops / fp32,
                    (tiles.numel() + out.numel() + ext.numel()) * 4 / bw) * 1e3
     del out, ref
+
+    # the fused sweep: a ring of full READY containers, and the path's
+    # occupancy (one deposit of 8 containers, one a shard, into 32 slots)
     sweep = make_agg_sweep(prog, k, 1, bound_hash=bound)
-    sw_ms = cuda_ms(torch, lambda: sweep(ring, ext), 10)
+    kernel = sweep_kernel(prog, k)
+    full = ring.clone()
+    sw = {}
+    for case, n_ready in (("full", n_slots), ("path", SHARDS)):
+        pristine = full if case == "full" else torch.zeros_like(ring)
+        pristine[:, 0] = full[:, 0]
+        ring.copy_(pristine)
+        st, sub, _, _ = sweep(ring, ext)
+        check(int((st == READY).sum()) == n_ready
+              and int((sub == SUB_READY).sum()) == n_ready * k
+              and not ring.any(),
+              f"agg sweep {case}: {int((st == READY).sum())} READY of "
+              f"{n_ready}, or the ring not cleared")
+        del st, sub
+        ms, ev = sweep_times(torch, sweep, ring, pristine, ext, kernel, 10)
+        plain = restored_ms(
+            torch, lambda: agg_sweep_plain(prog, ring, ext, k, 1,
+                                           bound_hash=bound),
+            ring, pristine, 3)
+        # status words: the header block and the trailer, 1 + K statuses
+        bound_ms, by, nb, fl = sweep_bound(
+            n_slots, hw + 2 + k, n_ready * k, n_tiles, n_ready * W, ext,
+            uvm_flops(prog, n_ready * k), bw, fp32)
+        sw[case] = (ms, ev, plain, bound_ms, by)
+        log(f"agg sweep ({kernel}, one launch) {case} ring, {n_ready} READY "
+            f"containers of {n_slots} x K={k}: {ms:.4f} ms on the card "
+            f"(events {ev:.4f}, plain sweep {plain:.4f}); bound "
+            f"{bound_ms:.4f} ms by {by} ({nb / 2 ** 20:.1f} MiB, "
+            f"{fl / 1e9:.3f} GFLOP), {bound_ms / ms:.3f} of it")
+    sw_ms, sw_ev, sw_plain, sw_bound, sw_by = sw["full"]
 
     send = sum(s for s, _ in rates)
     drain = sum(dr for _, dr in rates)
@@ -1240,19 +1546,26 @@ def phase_agg_timings(np, torch, dev, d, counts, rates, err):
         f"ms on the card (wrapper {vm_wrap:.4f}, plain {vm_plain:.4f}, "
         f"torch.relu(torch.matmul) {vm_lib:.4f}, bound {vm_bound:.4f} ms; "
         f"{vm_flops / vm_ms / 1e9:.2f} TFLOP/s, {vm_bound / vm_ms:.3f} of the "
-        f"bound, {vm_ms / vm_lib:.2f}x torch.relu(torch.matmul)); agg sweep "
-        f"(agg_ring_poll + ifunc_vm in place + mask + clear) {sw_ms:.4f} ms")
+        f"bound, {vm_ms / vm_lib:.2f}x torch.relu(torch.matmul)); "
+        f"standalone agg_poll_kernel {ap_ms:.5f} ms beside the sweep's "
+        f"{sw_ms:.4f}")
     log(f"agg path: {n * len(rates)} sub-records in {send + drain:.3f} s = "
         f"{n * len(rates) / (send + drain):.1f} sub-records/s (send "
         f"{send:.3f} s = {n * len(rates) / send:.1f}/s, drain {drain:.3f} s "
         f"= {n * len(rates) / drain:.1f}/s)")
 
     entry = {"name": "agg_ring_poll", "route": "cuda",
-             "source": "src/repro_torch/csrc/agg_poll.cu",
+             "source": "src/repro_torch/csrc/ifunc_vm.cu",
+             "kernel": kernel, "poll": "src/repro_torch/csrc/mailbox_poll.cuh",
              "replaces": "src/repro/kernels/agg_poll.py:92",
-             "launches": counts["agg_ring_poll"], "max_abs_err": err,
-             "ms": ap_ms, "wrapper_ms": ap_wrap, "plain_ms": ap_plain,
-             "bound_ms": ap_bound, "bound_by": "bytes", "library_ms": None}
+             "launches": counts["agg_sweep"], "launches_a_sweep": 1,
+             "max_abs_err": max(err), "ms": sw_ms, "wrapper_ms": sw_ev,
+             "path_ms": sw["path"][0], "path_bound_ms": sw["path"][3],
+             "plain_ms": sw_plain, "bound_ms": sw_bound, "bound_by": sw_by,
+             "library_ms": None, "standalone_ms": ap_ms,
+             "standalone_wrapper_ms": ap_wrap,
+             "standalone_plain_ms": ap_plain,
+             "standalone_bound_ms": ap_bound}
     return entry, max(vm_err, 0.0), idle
 
 # ------------------------------------------------------------ model stack
@@ -1999,7 +2312,7 @@ def main():
     t0 = time.perf_counter()
     phase_build(torch, smi)
     errs = phase_kernels(np, torch, dev)
-    agg_err = phase_agg_kernel(np, torch, dev)
+    agg_err = phase_agg_kernel(np, torch, dev)       # (poll, sweep)
     phase_example(np, torch, dev)
     counts, rates, d = phase_full(np, torch, dev)
     kernels = phase_timings(np, torch, dev, d, counts, rates, errs)
@@ -2009,8 +2322,9 @@ def main():
     agg_counts, agg_rates, d = phase_agg_full(np, torch, dev)
     agg_entry, vm_err, _ = phase_agg_timings(np, torch, dev, d, agg_counts,
                                              agg_rates, agg_err)
-    vm = kernels[1]                         # ifunc_vm runs on both paths
-    vm["launches"] += agg_counts["ifunc_vm"]
+    vm = kernels[1]           # ifunc_vm runs inside both lanes' sweeps
+    vm["launches"] += agg_counts["agg_sweep"]
+    vm["standalone_launches"] += agg_counts["ifunc_vm"]
     vm["max_abs_err"] = max(vm["max_abs_err"], vm_err)
     kernels.append(agg_entry)
     del d
@@ -2030,6 +2344,9 @@ def main():
     for entry in model_entries:
         entry["launches"] = launches[entry["name"]]
     kernels += model_entries + bwd_entries
+    check(all(e["launches"] > 0 for e in kernels),
+          f"kernels not launched on their paths: "
+          f"{[e['name'] for e in kernels if not e['launches']]}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

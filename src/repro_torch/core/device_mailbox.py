@@ -1,6 +1,6 @@
 """On-device ifunc mailbox: ring buffers in device memory, deposited by a
-one-sided put and validated by the ``ring_poll`` kernel — paper Fig. 2
-inside one device program.
+one-sided put, then polled, executed and cleared by one sweep kernel a
+ring visit — paper Fig. 2 inside one device program.
 
 On one card the mesh's shard axis is the leading dimension of the mailbox
 tensor, ``[n_shards, n_slots, slot_words]`` int32 (the words' uint32 bit
@@ -23,11 +23,10 @@ import torch
 
 from repro_torch.core.codegen import UvmProgram
 from repro_torch.device import resolve_device
-from repro_torch.kernels.agg_poll import (AGG_MAGIC, SUB_READY, SUB_SALT,
-                                          agg_ring_poll)
-from repro_torch.kernels.ifunc_vm import ifunc_vm_slots
-from repro_torch.kernels.ring_poll import (BAD, HDR_WORDS, MAGIC, READY,
-                                           TRAILER, ring_poll)
+from repro_torch.kernels.agg_poll import AGG_MAGIC, SUB_SALT
+from repro_torch.kernels.ifunc_vm import (ifunc_vm_agg_sweep, ifunc_vm_sweep,
+                                          ifunc_vm_sweep_plain)
+from repro_torch.kernels.ring_poll import HDR_WORDS, MAGIC, TRAILER
 
 
 def pack_word_frame(payload_f32: np.ndarray, slot_words: int, kind: int = 3,
@@ -112,27 +111,60 @@ def make_deposit(n_shards: int):
     return deposit
 
 
+def sweep_plain(prog: UvmProgram, mailbox: torch.Tensor, ext: torch.Tensor,
+                n_tiles: int, tile: int = 128):
+    """The plain version of a singleton sweep (what ``make_sweep`` runs on a
+    CPU mailbox): ``ring_poll_plain``, ``ifunc_vm_plain`` over every slot's
+    body tiles copied out, outputs of slots that are not READY set to
+    +0.0, READY and BAD slots cleared in place.  Returns (status, results,
+    cleared) with ``cleared`` the ``mailbox`` passed in."""
+    S, N, W = mailbox.shape
+    status, out = ifunc_vm_sweep_plain(prog, mailbox.view(S * N, W),
+                                       HDR_WORDS, n_tiles, ext)
+    return (status.view(S, N), out.view(S, N, n_tiles, tile, tile), mailbox)
+
+
+def agg_sweep_plain(prog: UvmProgram, mailbox: torch.Tensor,
+                    ext: torch.Tensor, agg_k: int, n_tiles: int,
+                    tile: int = 128, *, bound_hash: int = 0):
+    """The plain version of an aggregate sweep (what ``make_agg_sweep``
+    runs on a CPU mailbox): ``agg_ring_poll_plain``, ``ifunc_vm_plain``
+    over every sub-record's body tiles copied out, outputs of sub-records
+    that are not SUB_READY set to +0.0, READY and BAD containers cleared
+    in place.  Returns (status, sub_status, results, cleared) with
+    ``cleared`` the ``mailbox`` passed in."""
+    S, N, W = mailbox.shape
+    status, sub, out = ifunc_vm_sweep_plain(
+        prog, mailbox.view(S * N, W), HDR_WORDS + 2 * agg_k, agg_k * n_tiles,
+        ext, agg_k=agg_k, bound_hash=bound_hash)
+    return (status.view(S, N), sub.view(S, N, agg_k),
+            out.view(S, N, agg_k, n_tiles, tile, tile), mailbox)
+
+
 def make_sweep(prog: UvmProgram, n_tiles: int, tile: int = 128):
     """Build ``sweep(mailbox, externals)`` -> (status, results, cleared_mb).
 
-    Validates every slot with ``ring_poll``, runs the bound μVM program
-    over every slot's frame body in one ``ifunc_vm`` launch that reads the
-    f32 payload tiles where they lie in the mailbox (tile ``t`` of shard
-    ``s`` reading ``externals[s]``), keeps the outputs of READY slots
-    only, and clears consumed slots: READY ones, and BAD ones so a corrupt
-    frame is reported once.  ``externals`` is ``[n_shards, n_ext, T, T]``."""
+    On a CUDA mailbox one launch of ``ring_sweep_smem_kernel`` (or
+    ``ring_sweep_global_kernel`` for a program whose plan needs more than
+    three tiles) does the whole sweep: it polls every slot as ``ring_poll``
+    does, runs the bound μVM program over the frame bodies of READY slots
+    where they lie in the mailbox (tile ``t`` of shard ``s`` reading
+    ``externals[s]``), writes +0.0 over the outputs of every other slot,
+    and clears consumed slots: READY ones, and BAD ones so a corrupt
+    frame is reported once.  The clear is **in place**: ``cleared_mb`` is
+    the ``mailbox`` passed in, with INFLIGHT and EMPTY slots untouched.  A
+    CPU mailbox takes :func:`sweep_plain`, with the same contract.
+    ``externals`` is ``[n_shards, n_ext, T, T]``; results are
+    ``[n_shards, n_slots, n_tiles, T, T]``."""
 
     def sweep(mailbox: torch.Tensor, ext: torch.Tensor):
+        if mailbox.device.type == "cpu":
+            return sweep_plain(prog, mailbox, ext, n_tiles, tile)
         S, N, W = mailbox.shape
-        flat = mailbox.reshape(S * N, W)
-        status = ring_poll(flat).reshape(S, N)
-        out = ifunc_vm_slots(prog, flat, HDR_WORDS, n_tiles, ext)
-        out = out.reshape(S, N, n_tiles, tile, tile)
-        ready = status == READY
-        out = torch.where(ready[:, :, None, None, None], out, 0.0)
-        done = ready | (status == BAD)
-        cleared = torch.where(done[:, :, None], 0, mailbox)
-        return status, out, cleared
+        status, out = ifunc_vm_sweep(prog, mailbox.view(S * N, W), HDR_WORDS,
+                                     n_tiles, ext)
+        return (status.view(S, N), out.view(S, N, n_tiles, tile, tile),
+                mailbox)
 
     return sweep
 
@@ -142,28 +174,28 @@ def make_agg_sweep(prog: UvmProgram, agg_k: int, n_tiles: int,
     """Build ``sweep(mailbox, externals)`` for aggregate-container slots
     -> (status, sub_status, results, cleared_mb).
 
-    One ``agg_ring_poll`` validates every container header and all K
-    descriptors per slot, reading the mailbox in place through strided
-    views; ONE ``ifunc_vm`` launch runs every sub-record body of every
-    slot where it lies in the mailbox (``n_shards * n_slots * K *
-    n_tiles`` tiles, tile ``t`` of shard ``s`` reading ``externals[s]``),
-    so the fixed cost of a sweep is paid once per ring visit, not once
-    per sub-record.  Outputs of sub-records that are not SUB_READY are
-    zeroed; READY and BAD containers are cleared.  ``results`` is
-    ``[n_shards, n_slots, K, n_tiles, T, T]``."""
-    hdr_words = HDR_WORDS + 2 * agg_k
+    On a CUDA mailbox one launch of ``agg_sweep_smem_kernel`` (or
+    ``agg_sweep_global_kernel``) does the whole sweep over every
+    sub-record of every slot (``n_shards * n_slots * K * n_tiles`` tiles,
+    tile ``t`` of shard ``s`` reading ``externals[s]``): it polls each
+    container header and each sub-record's descriptor as
+    ``agg_ring_poll`` does, runs the program over SUB_READY bodies where
+    they lie, writes +0.0 over every other output, and clears READY and
+    BAD containers **in place**: ``cleared_mb`` is the ``mailbox`` passed
+    in, with INFLIGHT and EMPTY slots untouched.  The fixed cost of a
+    sweep is one launch a ring visit, whatever K.  A CPU mailbox takes
+    :func:`agg_sweep_plain`.  ``results`` is ``[n_shards, n_slots, K,
+    n_tiles, T, T]``."""
 
     def sweep(mailbox: torch.Tensor, ext: torch.Tensor):
+        if mailbox.device.type == "cpu":
+            return agg_sweep_plain(prog, mailbox, ext, agg_k, n_tiles, tile,
+                                   bound_hash=bound_hash)
         S, N, W = mailbox.shape
-        flat = mailbox.reshape(S * N, W)
-        status, sub = agg_ring_poll(flat[:, :hdr_words], flat[:, -1:],
-                                    bound_hash)
-        status, sub = status.reshape(S, N), sub.reshape(S, N, agg_k)
-        out = ifunc_vm_slots(prog, flat, hdr_words, agg_k * n_tiles, ext)
-        out = out.reshape(S, N, agg_k, n_tiles, tile, tile)
-        out = torch.where((sub == SUB_READY)[..., None, None, None], out, 0.0)
-        done = (status == READY) | (status == BAD)
-        cleared = torch.where(done[:, :, None], 0, mailbox)
-        return status, sub, out, cleared
+        status, sub, out = ifunc_vm_agg_sweep(
+            prog, mailbox.view(S * N, W), agg_k, HDR_WORDS + 2 * agg_k,
+            agg_k * n_tiles, ext, bound_hash)
+        return (status.view(S, N), sub.view(S, N, agg_k),
+                out.view(S, N, agg_k, n_tiles, tile, tile), mailbox)
 
     return sweep

@@ -57,6 +57,16 @@
 // word 5 (or 5 + 2K) and are read with 4-byte loads where they lie.  Tile t
 // reads the external table of shard t / tiles_per_shard.
 //
+// The mailbox sweeps (ring_sweep_*_kernel, agg_sweep_*_kernel) are the
+// same two variants behind a gate (SweepGate below): one launch a sweep
+// polls each tile's slot with the logic of mailbox_poll.cuh, runs the
+// plan on READY bodies, writes +0.0 over every other output tile and
+// clears consumed slots in place.  They replace, on the lanes, the
+// standalone ring_poll / agg_ring_poll launch, this kernel's launch and
+// PyTorch's mask and clear passes over the whole output and mailbox: a
+// poll moves a few bytes a slot and cost a launch of its own, and the two
+// whole-ring passes were half a sweep.
+//
 // Semantics (the reference oracle, src/repro/kernels/ref.py): halt is a
 // no-op, not a stop; gelu is the tanh approximation; loade reads
 // ext[min(a, n_ext - 1)]; store copies va to the output and leaves the
@@ -66,6 +76,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "mailbox_poll.cuh"
 
 namespace {
 
@@ -227,6 +239,140 @@ __device__ __forceinline__ Tile tile_of(float* tiles, const float* payload,
               n_ext};
 }
 
+// The gate policy of a launch: what a block does around the interpreter.
+// NoGate runs every tile (ifunc_vm).  A sweep's gate polls the tile's
+// slot first, runs the plan only on a READY slot (sub-record) and writes
+// +0.0 over the output tile otherwise, then clears a READY or BAD slot in
+// place.  Every thread of a block derives the same status from the same
+// words, so the branch is uniform and run()'s barriers stay legal.
+struct NoGate {
+  __device__ __forceinline__ bool open() { return true; }
+  __device__ __forceinline__ void close() {}
+};
+
+// A mailbox sweep (kAgg: aggregate containers of agg_k sub-records, each
+// tiles_per_slot / agg_k tiles; else singleton frames).  One block per
+// tile; tile t is tile t % tiles_per_slot of slot t / tiles_per_slot.
+//
+// The clear, for READY and BAD slots: each block zeroes its own body tile
+// after its last read of it, except the word the poll reads as the
+// trailer (a short frame's trailer may lie inside a body tile that another
+// block polls).  The slot's last block to finish, found by an atomicAdd
+// on the slot's counter after a __threadfence, zeroes every word outside
+// the body tiles and that trailer word, then resets the counter: by then
+// every block of the slot has read its header, descriptors and trailer.
+// INFLIGHT and EMPTY slots are not written.
+template <bool kAgg>
+struct SweepGate {
+  uint32_t* slots;          // the mailbox [n_slots, slot_words], in place
+  int64_t slot_words, body_off, tiles_per_slot, agg_k;
+  uint32_t bound;           // aggregate: the bound program hash (0: any)
+  int32_t* status;          // [n_slots]
+  int32_t* sub;             // aggregate: [n_slots, agg_k]
+  int32_t* counters;        // [n_slots], zero between sweeps
+  // set by open()
+  int64_t slot, j, keep;    // keep: the trailer word the last block clears
+  int32_t st;
+
+  __device__ __forceinline__ uint32_t* base() const {
+    return slots + slot * slot_words;
+  }
+
+  __device__ __forceinline__ bool open() {
+    const int64_t t = blockIdx.x;
+    slot = t / tiles_per_slot;
+    j = t % tiles_per_slot;
+    const uint32_t* s = base();
+    if (!kAgg) {
+      st = mailbox::frame_status(s, slot_words);
+      keep = mailbox::trailer_index(s[1], slot_words);
+      if (j == 0 && threadIdx.x == 0) status[slot] = st;
+      return st == mailbox::kReady;
+    }
+    const int64_t per_sub = tiles_per_slot / agg_k, i = j / per_sub;
+    keep = slot_words - 1;
+    st = mailbox::container_status(s, s[keep], agg_k);
+    const int32_t ss = mailbox::sub_status(
+        st, s[1], i, s[mailbox::kHdrWords + 2 * i],
+        s[mailbox::kHdrWords + 2 * i + 1], bound);
+    if (threadIdx.x == 0) {
+      if (j == 0) status[slot] = st;
+      if (j % per_sub == 0) sub[slot * agg_k + i] = ss;
+    }
+    return ss == mailbox::kSubReady;
+  }
+
+  __device__ __forceinline__ void close() {
+    if (st != mailbox::kReady && st != mailbox::kBad) return;
+    uint32_t* s = base();
+    const int64_t lo = body_off + j * TT;
+    __syncthreads();                 // every read of the body tile is done
+    for (int e = threadIdx.x; e < TT; e += kThreads)
+      if (lo + e != keep) s[lo + e] = 0u;
+    __threadfence();
+    __syncthreads();
+    const bool last = __syncthreads_or(
+        threadIdx.x == 0 &&
+        atomicAdd(counters + slot, 1) == static_cast<int>(tiles_per_slot) - 1);
+    if (!last) return;
+    __threadfence();                 // the other blocks' reads came first
+    for (int64_t w = threadIdx.x; w < body_off; w += kThreads) s[w] = 0u;
+    for (int64_t w = body_off + tiles_per_slot * TT + threadIdx.x;
+         w < slot_words; w += kThreads)
+      s[w] = 0u;
+    if (threadIdx.x == 0) {
+      s[keep] = 0u;
+      counters[slot] = 0;
+    }
+  }
+};
+
+__device__ __forceinline__ void zero_tile(float* o) {
+  float4* o4 = reinterpret_cast<float4*>(o);
+  for (int e = threadIdx.x; e < TT / 4; e += kThreads)
+    o4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// One block: the gate, then the plan over its tile or a +0.0 tile.
+template <class Gate>
+__device__ __forceinline__ void gated(Gate& g, const int32_t* code,
+                                      const float* imm, int n_instr,
+                                      unsigned zero_mask, const Tile& v,
+                                      float* out, float* stage) {
+  float* o = out + int64_t{blockIdx.x} * TT;
+  if (g.open())
+    run(code, imm, n_instr, zero_mask, v, o, stage);
+  else
+    zero_tile(o);
+  g.close();
+}
+
+template <class Gate>
+__device__ __forceinline__ void smem_body(
+    Gate& g, const int32_t* code, const float* imm, int n_instr,
+    unsigned zero_mask, const float* payload, int64_t slot_stride,
+    int64_t body_off, int64_t tiles_per_slot, const float* ext, int n_ext,
+    int64_t tiles_per_shard, float* out) {
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);
+  const Tile v = tile_of(stage + kStage, payload, slot_stride, body_off,
+                         tiles_per_slot, ext, n_ext, tiles_per_shard);
+  gated(g, code, imm, n_instr, zero_mask, v, out, stage);
+}
+
+template <class Gate>
+__device__ __forceinline__ void global_body(
+    Gate& g, const int32_t* code, const float* imm, int n_instr,
+    unsigned zero_mask, const float* payload, int64_t slot_stride,
+    int64_t body_off, int64_t tiles_per_slot, const float* ext, int n_ext,
+    int64_t tiles_per_shard, float* scratch, int n_phys, float* out) {
+  __shared__ __align__(16) float stage[kStage];
+  const Tile v = tile_of(scratch + int64_t{blockIdx.x} * n_phys * TT,
+                         payload, slot_stride, body_off, tiles_per_slot, ext,
+                         n_ext, tiles_per_shard);
+  gated(g, code, imm, n_instr, zero_mask, v, out, stage);
+}
+
 __global__ void __launch_bounds__(kThreads, 2)
 ifunc_vm_smem_kernel(const int32_t* __restrict__ code,
                      const float* __restrict__ imm, int n_instr,
@@ -235,12 +381,9 @@ ifunc_vm_smem_kernel(const int32_t* __restrict__ code,
                      int64_t tiles_per_slot, const float* __restrict__ ext,
                      int n_ext, int64_t tiles_per_shard,
                      float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float* stage = reinterpret_cast<float*>(smem4);
-  const Tile v = tile_of(stage + kStage, payload, slot_stride, body_off,
-                         tiles_per_slot, ext, n_ext, tiles_per_shard);
-  run(code, imm, n_instr, zero_mask, v, out + int64_t{blockIdx.x} * TT,
-      stage);
+  NoGate g;
+  smem_body(g, code, imm, n_instr, zero_mask, payload, slot_stride, body_off,
+            tiles_per_slot, ext, n_ext, tiles_per_shard, out);
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -251,13 +394,39 @@ ifunc_vm_global_kernel(const int32_t* __restrict__ code,
                        int64_t tiles_per_slot, const float* __restrict__ ext,
                        int n_ext, int64_t tiles_per_shard, float* scratch,
                        int n_phys, float* __restrict__ out) {
-  __shared__ __align__(16) float stage[kStage];
-  const Tile v = tile_of(scratch + int64_t{blockIdx.x} * n_phys * TT,
-                         payload, slot_stride, body_off, tiles_per_slot, ext,
-                         n_ext, tiles_per_shard);
-  run(code, imm, n_instr, zero_mask, v, out + int64_t{blockIdx.x} * TT,
-      stage);
+  NoGate g;
+  global_body(g, code, imm, n_instr, zero_mask, payload, slot_stride,
+              body_off, tiles_per_slot, ext, n_ext, tiles_per_shard, scratch,
+              n_phys, out);
 }
+
+// The sweeps: the mailbox is read and cleared through one pointer, so it
+// is not __restrict__.
+#define SWEEP_KERNELS(NAME, AGG)                                              \
+  __global__ void __launch_bounds__(kThreads, 2) NAME##_smem_kernel(         \
+      const int32_t* __restrict__ code, const float* __restrict__ imm,       \
+      int n_instr, unsigned zero_mask, SweepGate<AGG> g,                     \
+      const float* __restrict__ ext, int n_ext, int64_t tiles_per_shard,     \
+      float* __restrict__ out) {                                             \
+    smem_body(g, code, imm, n_instr, zero_mask,                              \
+              reinterpret_cast<const float*>(g.slots), g.slot_words,         \
+              g.body_off, g.tiles_per_slot, ext, n_ext, tiles_per_shard,     \
+              out);                                                          \
+  }                                                                          \
+  __global__ void __launch_bounds__(kThreads, 2) NAME##_global_kernel(       \
+      const int32_t* __restrict__ code, const float* __restrict__ imm,       \
+      int n_instr, unsigned zero_mask, SweepGate<AGG> g,                     \
+      const float* __restrict__ ext, int n_ext, int64_t tiles_per_shard,     \
+      float* scratch, int n_phys, float* __restrict__ out) {                 \
+    global_body(g, code, imm, n_instr, zero_mask,                            \
+                reinterpret_cast<const float*>(g.slots), g.slot_words,       \
+                g.body_off, g.tiles_per_slot, ext, n_ext, tiles_per_shard,   \
+                scratch, n_phys, out);                                       \
+  }
+
+SWEEP_KERNELS(ring_sweep, false)
+SWEEP_KERNELS(agg_sweep, true)
+#undef SWEEP_KERNELS
 
 }  // namespace
 
@@ -298,4 +467,65 @@ extern "C" int ifunc_vm_launch(const void* code, const void* imm, int n_instr,
         static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One launch a mailbox sweep: poll, execute or mask, and clear in place.
+// slots is the mailbox [n_slots, slot_words]; each slot holds
+// tiles_per_slot body tiles from word body_off on.  agg_k = 0: singleton
+// frames; else containers of agg_k sub-records of tiles_per_slot / agg_k
+// tiles each, against the bound hash (sub is then [n_slots, agg_k]).
+// counters [n_slots] must be zero and are zero again after the launch.
+// Returns a cudaError_t.
+extern "C" int ifunc_vm_sweep_launch(
+    const void* code, const void* imm, int n_instr, int n_phys,
+    unsigned zero_mask, int in_smem, void* slots, int64_t n_slots,
+    int64_t slot_words, int64_t body_off, int64_t tiles_per_slot,
+    int64_t agg_k, uint32_t bound, const void* ext, int n_ext,
+    int64_t tiles_per_shard, void* scratch, void* status, void* sub,
+    void* counters, void* out, void* stream) {
+  if (n_slots <= 0) return 0;
+  const int64_t hdr = mailbox::kHdrWords + 2 * agg_k;
+  if (tiles_per_slot < 1 || tiles_per_slot > 0x7FFFFFFF ||
+      n_slots > 0x7FFFFFFF / tiles_per_slot || n_phys < 0 || n_phys > 8 ||
+      n_ext < 1 || tiles_per_shard < 1 || agg_k < 0 ||
+      (agg_k > 0 && (tiles_per_slot % agg_k || sub == nullptr)) ||
+      body_off < hdr || body_off + tiles_per_slot * TT > slot_words ||
+      counters == nullptr || (!in_smem && scratch == nullptr) ||
+      (in_smem && n_phys > kSmemTiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto c = static_cast<const int32_t*>(code);
+  const auto i = static_cast<const float*>(imm);
+  const auto e = static_cast<const float*>(ext);
+  const auto o = static_cast<float*>(out);
+  const auto sc = static_cast<float*>(scratch);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(n_slots * tiles_per_slot);
+  const size_t smem = (kStage + n_phys * TT) * sizeof(float);
+  const int smem_max = static_cast<int>((kStage + kSmemTiles * TT) * sizeof(float));
+  auto go = [&](auto gate, auto smem_kernel, auto global_kernel) -> int {
+    if (in_smem) {
+      cudaError_t err = cudaFuncSetAttribute(
+          smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      smem_kernel<<<grid, kThreads, smem, st>>>(c, i, n_instr, zero_mask, gate,
+                                                e, n_ext, tiles_per_shard, o);
+    } else {
+      global_kernel<<<grid, kThreads, 0, st>>>(c, i, n_instr, zero_mask, gate,
+                                               e, n_ext, tiles_per_shard, sc,
+                                               n_phys, o);
+    }
+    return static_cast<int>(cudaGetLastError());
+  };
+  const auto s = static_cast<uint32_t*>(slots);
+  const auto stt = static_cast<int32_t*>(status);
+  const auto sb = static_cast<int32_t*>(sub);
+  const auto cnt = static_cast<int32_t*>(counters);
+  if (agg_k > 0) {
+    SweepGate<true> g{s, slot_words, body_off, tiles_per_slot, agg_k, bound,
+                      stt, sb, cnt, 0, 0, 0, 0};
+    return go(g, agg_sweep_smem_kernel, agg_sweep_global_kernel);
+  }
+  SweepGate<false> g{s, slot_words, body_off, tiles_per_slot, 1, 0u,
+                     stt, sb, cnt, 0, 0, 0, 0};
+  return go(g, ring_sweep_smem_kernel, ring_sweep_global_kernel);
 }

@@ -6,53 +6,32 @@
 //
 // Bound on this card: neither bytes nor operations.  A sweep reads five
 // header words and one trailer word per slot (24 B), so the 512 slots of
-// the main path move 12 KiB — a few nanoseconds at 3.35 TB/s.  The launch
-// itself (a few microseconds) is the cost.  The design therefore does the
-// least work per launch: one thread per slot, the five header words read
-// directly, the one trailer word gathered at min(5 + fw, W - 1) instead
-// of scanning the slot, and no shared memory or synchronisation.
+// the singleton lane move 12 KiB — a few nanoseconds at 3.35 TB/s.  The
+// launch itself (a few microseconds) is the cost.  The design therefore
+// does the least work per launch: one thread per slot, the five header
+// words read directly, the one trailer word gathered at min(5 + fw, W - 1)
+// instead of scanning the slot, and no shared memory or synchronisation.
 //
-// Slot layout (uint32 words, kept as int32 by PyTorch and compared here as
-// unsigned bit patterns):
-//   w0 magic 0x1F5C0DE5 | w1 frame_words | w2 code_kind | w3 name_hash |
-//   w4 hdr_check = magic ^ fw ^ kind ^ name_hash | body | w[5+fw] trailer
-// Status: 0 EMPTY (magic 0, whatever follows), 1 READY, 2 INFLIGHT (header
-// good, trailer absent), 3 BAD (magic, check word, or fw > W - 6, compared
-// unsigned so fw = 0xFFFFFFF0 is out of bounds).
+// The lanes no longer launch this kernel: their sweep polls each slot
+// inside the one launch that also executes, masks and clears it
+// (ifunc_vm.cu, ring_sweep_*_kernel), with the same per-slot logic from
+// mailbox_poll.cuh.  It stays as ring_poll(), the reference's API.
+//
+// Slot layout and statuses: mailbox_poll.cuh.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "mailbox_poll.cuh"
 
-constexpr uint32_t kMagic = 0x1F5C0DE5u;
-constexpr uint32_t kTrailer = 0xD0E1F2A3u;
-constexpr int64_t kHdrWords = 5;
-constexpr int32_t kEmpty = 0, kReady = 1, kInflight = 2, kBad = 3;
+namespace {
 
 __global__ void ring_poll_kernel(const uint32_t* __restrict__ slots,
                                  int64_t n_slots, int64_t slot_words,
                                  int32_t* __restrict__ status) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n_slots) return;
-  const uint32_t* s = slots + i * slot_words;
-  const uint32_t magic = s[0], fw = s[1], kind = s[2], nh = s[3], chk = s[4];
-  int32_t st;
-  if (magic == 0u) {
-    st = kEmpty;
-  } else {
-    const bool hdr_ok = magic == kMagic && chk == (magic ^ fw ^ kind ^ nh);
-    const bool bounds_ok =
-        static_cast<uint64_t>(fw) <= static_cast<uint64_t>(slot_words - kHdrWords - 1);
-    if (!(hdr_ok && bounds_ok)) {
-      st = kBad;
-    } else {
-      int64_t idx = kHdrWords + static_cast<int64_t>(fw);
-      if (idx > slot_words - 1) idx = slot_words - 1;
-      st = s[idx] == kTrailer ? kReady : kInflight;
-    }
-  }
-  status[i] = st;
+  status[i] = mailbox::frame_status(slots + i * slot_words, slot_words);
 }
 
 }  // namespace

@@ -34,7 +34,9 @@ Words are uint32 on the wire and int32 in PyTorch; both versions compare
 them as unsigned bit patterns, so ``n_subs = 0xFFFFFFFF`` is out of
 bounds and a hash with the high bit set matches its bound.
 :func:`agg_ring_poll` launches the CUDA kernel (``csrc/agg_poll.cu``) on
-CUDA tensors and runs :func:`agg_ring_poll_plain` on CPU tensors.
+CUDA tensors and runs :func:`agg_ring_poll_plain` on CPU tensors.  The
+aggregate lane does not call it: its sweep polls inside one fused launch
+(``kernels/ifunc_vm.py`` :func:`ifunc_vm_agg_sweep`) with the same logic.
 """
 
 from __future__ import annotations

@@ -15,6 +15,12 @@ served in place, and the variant that holds those tiles
 (``ifunc_vm_smem_kernel`` for at most three, else
 ``ifunc_vm_global_kernel``).
 
+:func:`ifunc_vm_sweep` and :func:`ifunc_vm_agg_sweep` are the mailbox
+sweeps: the same interpreter behind a poll of the tile's slot, one launch
+that polls every slot, runs the READY ones, masks the rest and clears
+what was consumed in place (``ring_sweep_*_kernel``,
+``agg_sweep_*_kernel``).
+
 External tables come per shard, ``[n_shards, n_ext, T, T]``: tile ``t``
 reads the table of shard ``t // (n_tiles // n_shards)``, the layout the
 mailbox sweep launches with.  A single ``[n_ext, T, T]`` table serves every
@@ -33,6 +39,9 @@ import torch.nn.functional as TF
 
 from repro_torch.core.codegen import N_OPS, OPS, UVM_REGS, UVM_TILE, UvmProgram
 from repro_torch.kernels import _build
+from repro_torch.kernels.agg_poll import SUB_READY, agg_ring_poll_plain
+from repro_torch.kernels.ring_poll import (BAD, HDR_WORDS, READY,
+                                           ring_poll_plain)
 
 T = UVM_TILE
 R = UVM_REGS
@@ -314,21 +323,28 @@ def slot_tiles(slots: torch.Tensor, body_offset: int,
     return body.contiguous().view(torch.float32).reshape(-1, T, T)
 
 
+def _prepare(prog: UvmProgram, device, n_tiles: int, ext: torch.Tensor):
+    """The plan of ``prog`` with its code and immediates on ``device`` and,
+    for the global variant, a scratch for ``n_tiles`` tiles."""
+    if ext.dtype != torch.float32 or not ext.is_contiguous():
+        raise ValueError("ifunc_vm needs contiguous float32 externals")
+    plan = vm_plan(prog)
+    code, imm = _device_code(plan, device)
+    scratch = None
+    if plan.variant == "global":
+        scratch = torch.empty(n_tiles, plan.n_tiles, T, T,
+                              dtype=torch.float32, device=device)
+    return plan, code, imm, scratch
+
+
 def _launch(prog: UvmProgram, base: torch.Tensor, n_tiles: int,
             slot_stride: int, body_offset: int, tiles_per_slot: int,
             ext: torch.Tensor) -> torch.Tensor:
     """Runs the plan of ``prog`` over the tiles at ``base`` (see
     csrc/ifunc_vm.cu for the layout) with the tables ``ext`` from
     :func:`_ext_tables` -> ``[n_tiles, T, T]`` f32."""
-    if ext.dtype != torch.float32 or not ext.is_contiguous():
-        raise ValueError("ifunc_vm needs contiguous float32 externals")
-    plan = vm_plan(prog)
-    code, imm = _device_code(plan, base.device)
+    plan, code, imm, scratch = _prepare(prog, base.device, n_tiles, ext)
     out = torch.empty(n_tiles, T, T, dtype=torch.float32, device=base.device)
-    scratch = None
-    if plan.variant == "global":
-        scratch = torch.empty(n_tiles, plan.n_tiles, T, T,
-                              dtype=torch.float32, device=base.device)
     fn = _build.load("ifunc_vm").ifunc_vm_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_uint, ctypes.c_int,
@@ -405,3 +421,163 @@ def ifunc_vm_slots(prog: UvmProgram, slots: torch.Tensor, body_offset: int,
     n = slots.shape[0] * tiles_per_slot
     return _launch(prog, slots, n, slots.stride(0), body_offset,
                    tiles_per_slot, _ext_tables(n, slots.device, externals))
+
+
+# -- the fused mailbox sweeps ------------------------------------------------
+
+def _check_sweep(slots: torch.Tensor, body_offset: int, tiles_per_slot: int,
+                 agg_k: int) -> None:
+    if not isinstance(slots, torch.Tensor) or slots.dtype != torch.int32 \
+            or slots.dim() != 2:
+        raise TypeError("slots must be an int32 [n_slots, W] tensor, got "
+                        f"{getattr(slots, 'dtype', type(slots).__name__)} "
+                        f"{tuple(getattr(slots, 'shape', ()))}")
+    if agg_k < 0 or tiles_per_slot < 1 or (agg_k and tiles_per_slot % agg_k):
+        raise ValueError(f"{tiles_per_slot} tiles a slot do not split over "
+                         f"agg_k={agg_k} sub-records")
+    hdr = HDR_WORDS + 2 * agg_k
+    if body_offset < hdr or \
+            body_offset + tiles_per_slot * T * T > slots.shape[1]:
+        raise ValueError(f"{tiles_per_slot} tiles at word {body_offset} do "
+                         f"not fit a {slots.shape[1]}-word slot behind its "
+                         f"{hdr} header words")
+
+
+def ifunc_vm_sweep_plain(prog: UvmProgram, slots: torch.Tensor,
+                         body_offset: int, tiles_per_slot: int,
+                         externals: torch.Tensor, *, agg_k: int = 0,
+                         bound_hash: int = 0):
+    """Plain version of one mailbox sweep over ``slots`` (``[n_slots, W]``
+    int32, each row a slot): the poll (``ring_poll_plain``, or
+    ``agg_ring_poll_plain`` for containers of ``agg_k`` sub-records), the
+    program over every body tile copied out (``ifunc_vm_plain`` on
+    :func:`slot_tiles`), outputs of slots (sub-records) that are not READY
+    set to +0.0, and READY and BAD slots cleared **in place** in
+    ``slots``.  Returns ``(status, out)``, or ``(status, sub, out)`` for
+    containers, with ``out`` ``[n_slots * tiles_per_slot, T, T]``."""
+    _check_sweep(slots, body_offset, tiles_per_slot, agg_k)
+    if agg_k:
+        status, sub = agg_ring_poll_plain(
+            slots[:, :HDR_WORDS + 2 * agg_k], slots[:, -1:], bound_hash)
+        keep = (sub == SUB_READY).reshape(-1)
+    else:
+        status = ring_poll_plain(slots)
+        keep = status == READY
+    keep = keep.repeat_interleave(tiles_per_slot // max(agg_k, 1))
+    out = ifunc_vm_plain(prog, slot_tiles(slots, body_offset, tiles_per_slot),
+                         externals)
+    out = torch.where(keep[:, None, None], out, 0.0)
+    slots.masked_fill_(((status == READY) | (status == BAD))[:, None], 0)
+    return (status, sub, out) if agg_k else (status, out)
+
+
+# per device, the per-slot counters by which a sweep's blocks elect the
+# slot's last one; zero between sweeps (the last block resets its slot's).
+# Sweeps on one device share them, so they run on one stream.
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
+
+
+def _sweep_launch(prog: UvmProgram, slots: torch.Tensor, body_offset: int,
+                  tiles_per_slot: int, externals: torch.Tensor, agg_k: int,
+                  bound_hash: int):
+    """One launch of ``ring_sweep_*_kernel`` (agg_k = 0) or
+    ``agg_sweep_*_kernel`` over the CUDA mailbox ``slots``."""
+    if slots.stride(1) != 1 or slots.stride(0) != slots.shape[1]:
+        raise ValueError("a sweep needs a contiguous [n_slots, W] mailbox")
+    n, dev = slots.shape[0], slots.device
+    n_tiles = n * tiles_per_slot
+    ext = _ext_tables(n_tiles, dev, externals)
+    plan, code, imm, scratch = _prepare(prog, dev, n_tiles, ext)
+    status = torch.empty(n, dtype=torch.int32, device=dev)
+    sub = torch.empty(n, agg_k, dtype=torch.int32, device=dev) if agg_k \
+        else None
+    out = torch.empty(n_tiles, T, T, dtype=torch.float32, device=dev)
+    fn = _build.load("ifunc_vm").ifunc_vm_sweep_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(code.data_ptr(), imm.data_ptr(), code.shape[1], plan.n_tiles,
+             sum(1 << p for p in plan.zeroed), int(plan.variant == "smem"),
+             slots.data_ptr(), n, slots.shape[1], body_offset,
+             tiles_per_slot, agg_k, int(bound_hash) & 0xFFFFFFFF,
+             ext.data_ptr(), ext.shape[1], max(n_tiles // ext.shape[0], 1),
+             0 if scratch is None else scratch.data_ptr(), status.data_ptr(),
+             0 if sub is None else sub.data_ptr(),
+             _counters(dev, n).data_ptr(), out.data_ptr(),
+             _build.stream_ptr(dev))
+    if err:
+        raise RuntimeError(f"{sweep_kernel(prog, agg_k)} launch failed: "
+                           f"cudaError {err}")
+    return (status, sub, out) if agg_k else (status, out)
+
+
+def sweep_kernel(prog: UvmProgram, agg_k: int = 0) -> str:
+    """The CUDA kernel one sweep of ``prog`` launches."""
+    return (f"{'agg' if agg_k else 'ring'}_sweep_{vm_plan(prog).variant}"
+            f"_kernel")
+
+
+def ifunc_vm_sweep(prog: UvmProgram, slots: torch.Tensor, body_offset: int,
+                   tiles_per_slot: int, externals: torch.Tensor):
+    """One sweep of a singleton mailbox ``slots`` (``[n_slots, W]`` int32,
+    a contiguous view of the mailbox) -> ``(status [n_slots], out
+    [n_slots * tiles_per_slot, T, T])``: every slot polled as
+    ``ring_poll`` polls it, the plan of ``prog`` run on the body tiles of
+    READY slots where they lie (as :func:`ifunc_vm_slots` runs it), +0.0
+    written over every other output tile, and READY and BAD slots cleared
+    **in place** in ``slots``; INFLIGHT and EMPTY slots are not written.
+    On CUDA tensors one launch (``ring_sweep_smem_kernel`` or
+    ``ring_sweep_global_kernel``) does all of it; CPU tensors take
+    :func:`ifunc_vm_sweep_plain`."""
+    _check_sweep(slots, body_offset, tiles_per_slot, 0)
+    if not _on_cuda(slots, "ifunc_vm_sweep"):
+        return ifunc_vm_sweep_plain(prog, slots, body_offset, tiles_per_slot,
+                                    externals)
+    res = _sweep_launch(prog, slots, body_offset, tiles_per_slot, externals,
+                        0, 0)
+    ifunc_vm_sweep.launches += 1
+    return res
+
+
+ifunc_vm_sweep.launches = 0  # kernel launches since the count was last reset
+
+
+def ifunc_vm_agg_sweep(prog: UvmProgram, slots: torch.Tensor, agg_k: int,
+                       body_offset: int, tiles_per_slot: int,
+                       externals: torch.Tensor, bound_hash: int = 0):
+    """:func:`ifunc_vm_sweep` for aggregate containers of ``agg_k``
+    sub-records, ``tiles_per_slot // agg_k`` tiles each, against the
+    bound program hash (0: any) -> ``(status [n_slots], sub [n_slots,
+    agg_k], out [n_slots * tiles_per_slot, T, T])``, polled as
+    ``agg_ring_poll`` polls them; a sub-record runs when it is SUB_READY.
+    On CUDA tensors one launch (``agg_sweep_smem_kernel`` or
+    ``agg_sweep_global_kernel``); CPU tensors take
+    :func:`ifunc_vm_sweep_plain`."""
+    if agg_k < 1:
+        raise ValueError(f"agg_k must be at least 1, got {agg_k}")
+    _check_sweep(slots, body_offset, tiles_per_slot, agg_k)
+    if not _on_cuda(slots, "ifunc_vm_agg_sweep"):
+        return ifunc_vm_sweep_plain(prog, slots, body_offset, tiles_per_slot,
+                                    externals, agg_k=agg_k,
+                                    bound_hash=bound_hash)
+    res = _sweep_launch(prog, slots, body_offset, tiles_per_slot, externals,
+                        agg_k, bound_hash)
+    ifunc_vm_agg_sweep.launches += 1
+    return res
+
+
+ifunc_vm_agg_sweep.launches = 0  # kernel launches since the count was reset

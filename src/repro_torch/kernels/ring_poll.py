@@ -17,7 +17,9 @@ For every slot the poll emits a status: 0=EMPTY, 1=READY, 2=INFLIGHT
 Words are uint32 on the wire and int32 in PyTorch (its uint32 support on
 CUDA is thin); both versions here compare them as unsigned bit patterns.
 :func:`ring_poll` launches the CUDA kernel (``csrc/ring_poll.cu``) on a CUDA
-tensor and runs :func:`ring_poll_plain` on a CPU tensor.
+tensor and runs :func:`ring_poll_plain` on a CPU tensor.  The singleton
+lane does not call it: its sweep polls inside one fused launch
+(``kernels/ifunc_vm.py`` :func:`ifunc_vm_sweep`) with the same logic.
 """
 
 from __future__ import annotations

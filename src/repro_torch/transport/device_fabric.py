@@ -8,8 +8,8 @@ byte frame (header + μVM code + f32 payload + trailer) into the device word
 frame layout — the NIC-offload moment — and stages it on the host; flush
 deposits the staged generation one-sidedly into the ring ``shift`` shards
 along; the sweep validates all slots and runs the μVM program bound at
-mailbox-open time (the device-side link cache) in one ``ring_poll`` + one
-``ifunc_vm`` launch.
+mailbox-open time (the device-side link cache) in one launch that polls,
+executes, masks and clears in place (``ring_sweep_*_kernel``).
 
 Visibility is generation-batched: frames become consumable only after the
 depositing flush, which is exactly the in-flight window the ProgressEngine
@@ -21,8 +21,9 @@ the flush writes the trailer word in place.
 
 A mailbox opened with ``agg_k=K`` holds aggregate containers: a put of a
 ``FLAG_AGG`` byte container transcodes into one K-sub word frame, and the
-sweep is one ``agg_ring_poll`` + one ``ifunc_vm`` over every sub-record
-of every slot; per-sub outcomes land in ``last_agg`` for the dispatcher.
+sweep is one launch over every sub-record of every slot
+(``agg_sweep_*_kernel``); per-sub outcomes land in ``last_agg`` for the
+dispatcher.
 
 Sweep results stay on the device: one ``[n_tiles, T, T]`` tensor per READY
 slot or sub-record.  Only the statuses come to the host.
@@ -196,8 +197,7 @@ class DeviceMeshMailbox(Mailbox):
         return statuses
 
     def _sweep_agg(self, target_args) -> list:
-        """Aggregate sweep: one ``agg_ring_poll`` and one ``ifunc_vm`` over
-        every container.  Per-sub outcomes of each READY container (a list
+        """Aggregate sweep: one fused launch over every container.  Per-sub outcomes of each READY container (a list
         of :class:`AggSubResult`, up to the first SUB_EMPTY) land in
         ``last_agg`` under its sender's coordinates for the dispatcher to
         complete; the values of SUB_READY records extend
@@ -381,8 +381,8 @@ class DeviceMeshFabric(Fabric):
         UvmProgram) is required: the device links at mailbox-open time.
         ``externals`` is ``[n_shards, n_ext, T, T]`` (array or tensor),
         zeros when omitted.  ``agg_k > 0`` binds the aggregate container
-        layout (K sub-record bodies per slot, one ``agg_ring_poll`` +
-        ``ifunc_vm`` sweep) and makes the lane coalesce-eligible;
+        layout (K sub-record bodies per slot, one fused ``agg_sweep``
+        launch a sweep) and makes the lane coalesce-eligible;
         ``prog_name`` bounds sub-record name hashes (a mismatch NACKs that
         sub-record; None accepts any name)."""
         if agg_k < 0:

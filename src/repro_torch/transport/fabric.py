@@ -4,7 +4,7 @@ on.
 Three roles, mirroring a thin UCX:
 
 * :class:`Mailbox`  — a target-owned ring of fixed-size frame slots.  The
-  device fabric exposes word-frame slots swept by the ``ring_poll`` kernel.
+  device fabric exposes word-frame slots swept by one fused sweep kernel.
 * :class:`Channel`  — a source-side one-sided path into one mailbox.  A
   ``put`` is non-blocking: bytes may be partially visible until
   ``flush`` (the in-flight window the frame trailer exists for).

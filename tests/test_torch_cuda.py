@@ -13,7 +13,9 @@ import torch
 
 from repro_torch.core import Context, ifunc_msg_create, register_ifunc
 from repro_torch.core.codegen import assemble, deserialize_uvm
-from repro_torch.core.device_mailbox import pack_agg_word_frame
+from repro_torch.core.device_mailbox import (make_agg_sweep, make_sweep,
+                                             pack_agg_word_frame,
+                                             pack_word_frame)
 from repro_torch.kernels.agg_poll import (AGG_MAGIC, agg_ring_poll,
                                           agg_ring_poll_plain)
 from repro_torch.kernels import flash_attn as FA
@@ -21,8 +23,11 @@ from repro_torch.kernels.flash_attn import (flash_attention, flash_bwd,
                                             flash_bwd_dkv, flash_bwd_dq,
                                             flash_bwd_plain, flash_fwd,
                                             flash_fwd_plain)
-from repro_torch.kernels.ifunc_vm import (ifunc_vm, ifunc_vm_plain,
-                                          ifunc_vm_slots, slot_tiles, vm_plan)
+from repro_torch.kernels.ifunc_vm import (ifunc_vm, ifunc_vm_agg_sweep,
+                                          ifunc_vm_plain, ifunc_vm_slots,
+                                          ifunc_vm_sweep,
+                                          ifunc_vm_sweep_plain, slot_tiles,
+                                          sweep_kernel, vm_plan)
 from repro_torch.kernels.ring_poll import (HDR_WORDS, MAGIC, TRAILER,
                                            ring_poll, ring_poll_plain)
 from repro_torch.kernels.ssd_scan import (SsdScanGradError, ssd_scan,
@@ -139,6 +144,36 @@ def mixed_agg_ring(k, body_words, bound, seed=3):
     return slots
 
 
+def mixed_sweep_ring(n, n_tiles, seed=5):
+    """A uint32 singleton ring of ``n`` slots of ``n_tiles`` body tiles
+    whose bodies are finite floats, cycling through EMPTY (zeros, and
+    garbage behind magic 0), READY, READY with a short frame (its trailer
+    inside the first body tile), INFLIGHT and each kind of BAD (check
+    word, fw = 0xFFFFFFF0, bad magic).  Its statuses cycle through
+    [0, 0, 1, 1, 2, 3, 3, 3]."""
+    body = n_tiles * T * T
+    W = HDR_WORDS + body + 1
+    rng = np.random.default_rng(seed)
+    ring = np.zeros((n, W), np.uint32)
+    for i in range(n):
+        kind = i % 8
+        pay = rng.standard_normal(body).astype(np.float32)
+        if kind == 1:
+            ring[i] = rng.integers(0, 2 ** 32, W, dtype=np.uint32)
+            ring[i, 0] = 0
+        elif kind == 3:
+            ring[i] = pack_word_frame(pay[:T * T // 2 + 3], W)
+        elif kind >= 2:
+            ring[i] = pack_word_frame(pay, W, corrupt=kind == 5,
+                                      no_trailer=kind == 4)
+        if kind == 6:
+            ring[i, 1] = 0xFFFFFFF0
+            ring[i, 4] = ring[i, 0] ^ ring[i, 1] ^ ring[i, 2] ^ ring[i, 3]
+        if kind == 7:
+            ring[i, 0] ^= 0x100
+    return ring
+
+
 @pytest.mark.cuda
 def test_ring_poll_kernel_matches_plain(cuda):
     ring = torch.from_numpy(_ring(512, 4 * T + 6).view(np.int32)).to(cuda)
@@ -221,7 +256,8 @@ def test_ifunc_vm_reads_ring_slots_in_place(cuda, offset, per_slot):
 @pytest.mark.cuda
 def test_device_lane_on_the_card_matches_the_cpu(cuda):
     """Dispatcher -> DeviceMeshFabric(8 shards, shift 1) on the card and on
-    the CPU, the same frames: equal statuses, results within 1e-5."""
+    the CPU, the same frames: equal statuses, results within 1e-5; on the
+    card the sweeps run the fused kernel alone."""
     handle = register_ifunc(Context("src"), "uvm_affine")
     rng = np.random.default_rng(1)
     W = (rng.standard_normal((8, 1, T, T)) * 0.05).astype(np.float32)
@@ -233,13 +269,14 @@ def test_device_lane_on_the_card_matches_the_cpu(cuda):
                    n_slots=2, slot_size=(2 * T * T + 6) * 4,
                    prog=deserialize_uvm(handle.lib.code), n_tiles=2,
                    externals=W)
-        before = (ring_poll.launches, ifunc_vm.launches)
+        before = (ring_poll.launches, ifunc_vm.launches,
+                  ifunc_vm_sweep.launches)
         for p in pays:
             assert d.send("mesh", ifunc_msg_create(handle, p))
         assert d.drain() == len(pays)
-        if dev.type == "cuda":
-            assert ring_poll.launches > before[0]
-            assert ifunc_vm.launches > before[1]
+        if dev.type == "cuda":                 # one fused launch a sweep
+            assert (ring_poll.launches, ifunc_vm.launches) == before[:2]
+            assert ifunc_vm_sweep.launches > before[2]
         runs[dev.type] = (d.per_peer_stats()["mesh"],
                           d.peers["mesh"].target_args["results"])
     assert runs["cuda"][0] == runs["cpu"][0]
@@ -268,7 +305,8 @@ def test_agg_ring_poll_kernel_matches_plain(cuda, k, bound):
 def test_agg_lane_on_the_card_matches_the_cpu(cuda):
     """Coalesced sends through an agg-bound DeviceMeshFabric(8 shards,
     shift 1) on the card and on the CPU, one sub-record NACKed and one
-    poisoned: equal stats and replies, results within 1e-5."""
+    poisoned: equal stats and replies, results within 1e-5; on the card
+    the sweeps run the fused kernel alone."""
     from repro_torch.kernels.agg_poll import SUB_SALT
 
     handle = register_ifunc(Context("src"), "uvm_affine")
@@ -288,7 +326,7 @@ def test_agg_lane_on_the_card_matches_the_cpu(cuda):
         d.reply_router = lambda c, n, v, e, dec: replies.append((c, v, e))
         mb = d.peers["mesh"].rings[0].mailbox
         before = (ring_poll.launches, agg_ring_poll.launches,
-                  ifunc_vm.launches)
+                  ifunc_vm.launches, ifunc_vm_agg_sweep.launches)
         assert d.send_ifunc_many("mesh", handle, pays,
                                  corr_ids=list(range(1, 25))) == 24
         mb._staged[2, 0, HDR_WORDS + 2] = 0x1234             # a NACK
@@ -296,10 +334,9 @@ def test_agg_lane_on_the_card_matches_the_cpu(cuda):
         mb._staged[3, 0, HDR_WORDS + 1] ^= 1                 # a poisoned sub
         assert d.drain() == 24              # 22 + 1 poisoned + 1 rebuilt
         after = (ring_poll.launches, agg_ring_poll.launches,
-                 ifunc_vm.launches)
-        if dev.type == "cuda":
-            assert after[0] == before[0]
-            assert after[1] > before[1] and after[2] > before[2]
+                 ifunc_vm.launches, ifunc_vm_agg_sweep.launches)
+        if dev.type == "cuda":                 # one fused launch a sweep
+            assert after[:3] == before[:3] and after[3] > before[3]
         runs[dev.type] = (d.per_peer_stats()["mesh"],
                           d.peers["mesh"].target_args["results"],
                           sorted(replies, key=lambda r: r[0]))
@@ -312,6 +349,208 @@ def test_agg_lane_on_the_card_matches_the_cpu(cuda):
         assert (cg, eg) == (cw, ew)
         if not eg:
             torch.testing.assert_close(vg.cpu(), vw, rtol=1e-5, atol=1e-5)
+
+
+# -- the fused sweeps: one launch polls, executes, masks and clears ---------
+
+SWEEP_PROGRAMS = ("affine_relu", "wide_fma_zeroed")   # smem, global
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _sweep_both(cuda, prog, ring_np, ext, *, agg_k=0, bound=0, per_sub=1):
+    """The fused sweep and its plain version on two copies of one ring,
+    and ifunc_vm_slots on a third; returns (fused (status, [sub,] out),
+    plain likewise, the two cleared rings, the slots' output, the
+    pristine ring)."""
+    pristine = torch.from_numpy(ring_np.view(np.int32)).to(cuda)
+    a, b = pristine.clone(), pristine.clone()
+    if agg_k:
+        args = (agg_k, HDR_WORDS + 2 * agg_k, agg_k * per_sub, ext, bound)
+        before = ifunc_vm_agg_sweep.launches
+        got = ifunc_vm_agg_sweep(prog, a, *args)
+        assert ifunc_vm_agg_sweep.launches == before + 1
+        want = ifunc_vm_sweep_plain(prog, b, *args[1:4], agg_k=agg_k,
+                                    bound_hash=bound)
+        slots = ifunc_vm_slots(prog, pristine, args[1], args[2], ext)
+    else:
+        before = ifunc_vm_sweep.launches
+        got = ifunc_vm_sweep(prog, a, HDR_WORDS, per_sub, ext)
+        assert ifunc_vm_sweep.launches == before + 1
+        want = ifunc_vm_sweep_plain(prog, b, HDR_WORDS, per_sub, ext)
+        slots = ifunc_vm_slots(prog, pristine, HDR_WORDS, per_sub, ext)
+    torch.cuda.synchronize()
+    return got, want, a, b, slots, pristine
+
+
+def _hold_sweep(got, want, cleared, plain_cleared, slots, pristine, run):
+    """Statuses and the cleared ring bit for bit against the plain
+    version; outputs of the tiles that ran (``run``) bit for bit equal to
+    ifunc_vm_slots and within 2e-5 of the plain version, every other
+    output +0.0; INFLIGHT and EMPTY slots untouched."""
+    for g, w in zip(got[:-1], want[:-1]):
+        assert torch.equal(g, w)
+    assert torch.equal(cleared, plain_cleared)
+    out, ref = got[-1], want[-1]
+    assert torch.equal(_bits(out[run]), _bits(slots[run]))
+    torch.testing.assert_close(out[run], ref[run], rtol=2e-5, atol=2e-5)
+    assert not _bits(out[~run]).any()                 # +0.0, never -0.0
+    status = got[0]
+    kept = (status == 0) | (status == 2)
+    assert torch.equal(cleared[kept], pristine[kept])
+    assert not cleared[~kept].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SWEEP_PROGRAMS)
+@pytest.mark.parametrize("per_slot", [1, 2, 4])
+def test_ring_sweep_kernel_matches_plain(cuda, name, per_slot):
+    """ring_sweep_*_kernel against ifunc_vm_sweep_plain on a ring mixing
+    every status (a short READY frame among them), both plan variants."""
+    instrs, symbols = PROGRAMS[name]
+    prog = assemble(instrs, symbols)
+    rng = np.random.default_rng(per_slot)
+    ext = torch.from_numpy((rng.standard_normal(
+        (4, len(symbols), T, T)) * 0.1).astype(np.float32)).to(cuda)
+    got, want, a, b, slots, pristine = _sweep_both(
+        cuda, prog, mixed_sweep_ring(16, per_slot), ext, per_sub=per_slot)
+    assert got[0].tolist() == [0, 0, 1, 1, 2, 3, 3, 3] * 2
+    run = (got[0] == 1).repeat_interleave(per_slot)
+    _hold_sweep(got, want, a, b, slots, pristine, run)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SWEEP_PROGRAMS)
+@pytest.mark.parametrize("k,per_sub,bound", [(4, 1, 0x8000ABCD), (4, 2, 0),
+                                             (64, 1, 0x8000ABCD), (64, 1, 0)])
+def test_agg_sweep_kernel_matches_plain(cuda, name, k, per_sub, bound):
+    """agg_sweep_*_kernel against the plain version on the mixed aggregate
+    ring: container and sub statuses, the cleared ring, the outputs of
+    SUB_READY records and +0.0 elsewhere."""
+    instrs, symbols = PROGRAMS[name]
+    prog = assemble(instrs, symbols)
+    rng = np.random.default_rng(k + per_sub)
+    ext = torch.from_numpy((rng.standard_normal(
+        (4, len(symbols), T, T)) * 0.1).astype(np.float32)).to(cuda)
+    got, want, a, b, slots, pristine = _sweep_both(
+        cuda, prog, mixed_agg_ring(k, per_sub * T * T, bound), ext, agg_k=k,
+        bound=bound, per_sub=per_sub)
+    assert got[0].tolist() == [0, 1, 1, 1, 3, 2, 3, 3, 1, 0, 3, 1]
+    run = (got[1] == 1).reshape(-1).repeat_interleave(per_sub)
+    _hold_sweep(got, want, a, b, slots, pristine, run)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", [False, True])
+@pytest.mark.parametrize("per_slot", [1, 2, 4])
+def test_sweep_clear_has_no_race(cuda, agg, per_slot):
+    """A ring of 64 slots, nearly all READY, one BAD and one INFLIGHT in
+    every eight, swept 50 times from fresh copies: every sweep gives the
+    first one's statuses, outputs and cleared ring bit for bit (a block
+    clearing a header or trailer another block of its slot has yet to
+    read would show as a wrong status or a slot left dirty)."""
+    prog = assemble(*PROGRAMS["affine_relu"])
+    rng = np.random.default_rng(per_slot)
+    ext = torch.from_numpy((rng.standard_normal((8, 2, T, T)) * 0.1)
+                           .astype(np.float32)).to(cuda)
+    kinds = np.arange(64) % 8             # 6: BAD, 7: INFLIGHT, else READY
+    if agg:                                # containers of per_slot records
+        W = HDR_WORDS + per_slot * (2 + T * T) + 1
+        ring = np.stack([pack_agg_word_frame(
+            list(rng.standard_normal((per_slot, T * T)).astype(np.float32)),
+            [7] * per_slot, per_slot, T * T, W, corrupt=kind == 6,
+            no_trailer=kind == 7) for kind in kinds])
+        args = (per_slot, HDR_WORDS + 2 * per_slot, per_slot, ext)
+        fn = ifunc_vm_agg_sweep
+    else:
+        W = HDR_WORDS + per_slot * T * T + 1
+        ring = np.stack([pack_word_frame(
+            rng.standard_normal(per_slot * T * T).astype(np.float32), W,
+            corrupt=kind == 6, no_trailer=kind == 7) for kind in kinds])
+        args = (HDR_WORDS, per_slot, ext)
+        fn = ifunc_vm_sweep
+    pristine = torch.from_numpy(ring.view(np.int32)).to(cuda)
+    mb = pristine.clone()
+    first = fn(prog, mb, *args)
+    first_mb = mb.clone()
+    torch.cuda.synchronize()
+    assert first[0].tolist() == [1] * 6 + [3, 2] + first[0].tolist()[8:]
+    assert int((first[0] == 1).sum()) == 48
+    for _ in range(50):
+        mb.copy_(pristine)
+        again = fn(prog, mb, *args)
+        torch.cuda.synchronize()
+        for g, w in zip(again, first):
+            assert torch.equal(_bits(g), _bits(w))
+        assert torch.equal(mb, first_mb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["empty", "one", "full"])
+def test_sweep_empty_one_and_full_rings(cuda, fill):
+    """make_sweep on a card mailbox of 8 shards x 4 slots x 2 tiles:
+    empty (nothing written, outputs +0.0), one READY slot, every slot
+    READY; the cleared ring is the mailbox itself; a second sweep of it
+    finds nothing READY."""
+    rng = np.random.default_rng(3)
+    W = HDR_WORDS + 2 * T * T + 1
+    ring = np.zeros((8, 4, W), np.uint32)
+    n = {"empty": 0, "one": 1, "full": 32}[fill]
+    for i in range(n):
+        ring[i % 8, i // 8] = pack_word_frame(
+            rng.standard_normal(2 * T * T).astype(np.float32), W)
+    mb = torch.from_numpy(ring.view(np.int32)).to(cuda)
+    ext = torch.from_numpy((rng.standard_normal((8, 1, T, T)) * 0.1)
+                           .astype(np.float32)).to(cuda)
+    prog = deserialize_uvm(register_ifunc(Context("s"), "uvm_affine")
+                           .lib.code)
+    x = torch.from_numpy(ring[..., HDR_WORDS:HDR_WORDS + 2 * T * T].view(
+        np.float32).reshape(8, 4, 2, T, T)).to(cuda)
+    want = torch.relu(x @ ext[:, None, None, 0])
+    sweep = make_sweep(prog, 2)
+    status, out, cleared = sweep(mb, ext)
+    assert cleared is mb
+    assert int((status == 1).sum()) == n and not mb.any()
+    want[status != 1] = 0
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-5)
+    again, out2, _ = sweep(mb, ext)
+    assert not again.any() and not _bits(out2).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", [False, True])
+def test_sweep_is_one_kernel_launch(cuda, agg):
+    """Under torch.profiler a sweep is exactly one kernel, the fused one,
+    by name: no poll kernel, no elementwise mask or clear."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prog = deserialize_uvm(register_ifunc(Context("s"), "uvm_affine")
+                           .lib.code)
+    rng = np.random.default_rng(6)
+    ext = torch.from_numpy((rng.standard_normal((4, 1, T, T)) * 0.1)
+                           .astype(np.float32)).to(cuda)
+    if agg:
+        ring = mixed_agg_ring(4, T * T, 0)[None].repeat(4, 0)[:, :8]
+        sweep = make_agg_sweep(prog, 4, 1)
+    else:
+        ring = mixed_sweep_ring(32, 2).reshape(4, 8, -1)
+        sweep = make_sweep(prog, 2)
+    pristine = torch.from_numpy(ring.view(np.int32)).to(cuda)
+    mb = pristine.clone()
+    sweep(mb, ext)                                      # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            mb.copy_(pristine)
+            sweep(mb, ext)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset", "Activity"))]
+    assert len(kernels) == 3, kernels
+    assert all(sweep_kernel(prog, 4 if agg else 0) in k for k in kernels)
 
 
 # Shapes that cross the edges of the bf16 kernels' tiles (64 keys and 128
