@@ -26,7 +26,8 @@ The header signal authenticates header integrity (ill-formed frames are
 rejected); the trailer is the delivery barrier the target spins on.
 
 This module carries singleton frames (FULL and SLIM packing, header
-validation, the trailer check and section views) and the request
+validation, the trailer check, section views and the slot clear and
+scrub a host poll ends with) and the request
 direction of aggregate containers (``FLAG_AGG``: ``seal_agg_frame``,
 ``parse_agg``), byte for byte the reference's.  Reply containers, streams
 and replies are parsed by later layers; the flag bits and the header
@@ -329,10 +330,34 @@ def frame_sections(buf, hdr: FrameHeader) -> tuple[memoryview, memoryview]:
             mv[hdr.payload_offset:hdr.cont_offset])
 
 
+def frame_cont(buf, hdr: FrameHeader) -> memoryview | None:
+    """Zero-copy view of the continuation descriptor section, or None when
+    the frame carries no continuation (same lifetime as
+    :func:`frame_sections`)."""
+    if not hdr.has_cont:
+        return None
+    mv = buf if isinstance(buf, memoryview) else memoryview(buf)
+    return mv[hdr.cont_offset:hdr.frame_len - TRAILER_LEN]
+
+
 def clear_frame(buf, hdr: FrameHeader) -> None:
     """Zero a consumed frame slot so the next poll sees 'empty'."""
     mv = buf if isinstance(buf, memoryview) else memoryview(buf)
     mv[:hdr.frame_len] = bytes(hdr.frame_len)
+
+
+def scrub_slot(buf) -> None:
+    """Best-effort clear of a slot in an unknown state (poisoned execution,
+    corrupt header): clear the whole frame when the header still parses,
+    else zero the header region so the next poll sees 'empty'."""
+    try:
+        hdr = peek_header(buf)
+        if hdr is not None:
+            clear_frame(buf, hdr)
+            return
+    except FrameError:
+        pass
+    buf[:HEADER_LEN] = bytes(HEADER_LEN)
 
 
 # ---------------------------------------------------------------------------

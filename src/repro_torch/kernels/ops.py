@@ -20,14 +20,18 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 def uvm_execute(prog: UvmProgram, payload_tiles, externals, *,
                 device="cuda") -> torch.Tensor:
     """Run ``prog`` over ``payload_tiles`` [n, T, T] with ``externals``, one
-    [T, T] array per program symbol; returns [n, T, T] f32 on ``device``."""
+    [T, T] array per program symbol; returns [n, T, T] f32 on ``device``.
+    A contiguous f32 tensor already on ``device`` (a resident weight) is
+    used where it lies: a single external is viewed as the table, never
+    copied."""
     dev = resolve_device(device)
     if len(externals) != len(prog.symbols):
         raise ValueError(f"program needs {len(prog.symbols)} externals "
                          f"({prog.symbols}), got {len(externals)}")
-    ext = (torch.stack([torch.as_tensor(e, dtype=torch.float32, device=dev)
-                        for e in externals]) if len(externals)
-           else torch.zeros(0, UVM_TILE, UVM_TILE, device=dev))
+    ext = [torch.as_tensor(e, dtype=torch.float32, device=dev).contiguous()
+           for e in externals]
+    ext = (ext[0].unsqueeze(0) if len(ext) == 1 else torch.stack(ext)
+           if ext else torch.zeros(0, UVM_TILE, UVM_TILE, device=dev))
     payload = torch.as_tensor(payload_tiles, dtype=torch.float32, device=dev)
     return ifunc_vm(prog, payload.contiguous(), ext)
 

@@ -923,3 +923,63 @@ def test_ssd_scan_refuses_gradients_on_the_card(cuda):
     with torch.no_grad():
         ssd_scan(x, la, Bm, Bm)
     assert ssd_scan.launches == before + 1
+
+
+# ------------------------------------------------------- the host target
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles", [1, 2, 128])
+def test_uvm_frame_on_a_card_target_runs_ifunc_vm(cuda, n_tiles):
+    """A μVM frame polled on a ``device="cuda"`` host target: one
+    ``ifunc_vm`` launch, its result bit for bit the kernel's on the same
+    tiles and within 2e-5 of the plain version, the slot cleared; the
+    resident W is used where it lies."""
+    from repro_torch.core import Status, ifunc_msg_send_nbix, poll_ifunc
+
+    src, dst = Context("src"), Context("dst", device="cuda")
+    h = register_ifunc(src, "uvm_affine")
+    region = dst.nic.mem_map((n_tiles * T * T * 4 + 4096 + 0xFFF) & ~0xFFF)
+    ep = src.nic.connect(dst.nic)
+    rng = np.random.default_rng(n_tiles)
+    x = rng.standard_normal((n_tiles, T, T)).astype(np.float32)
+    W = torch.from_numpy((rng.standard_normal((T, T)) * 0.05)
+                         .astype(np.float32)).to(cuda)
+    ifunc_msg_send_nbix(ep, ifunc_msg_create(h, x), region.base, region.rkey)
+    targs = {"externals": {"W": W}}
+    before = ifunc_vm.launches
+    assert poll_ifunc(dst, region.view(), None, targs) == Status.OK
+    assert ifunc_vm.launches == before + 1
+    got = targs["result"]
+    assert got.device.type == "cuda" and not any(region.buf)
+    prog = deserialize_uvm(h.lib.code)
+    tiles = torch.from_numpy(x).to(cuda)
+    assert torch.equal(got, ifunc_vm(prog, tiles, W[None]))
+    torch.testing.assert_close(got, ifunc_vm_plain(prog, tiles, W[None]),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_hlo_frame_on_a_card_target_matches_the_cpu(cuda):
+    """An HLO frame (a ``torch.export`` program traced on CPU tensors)
+    polled on a ``device="cuda"`` host target runs there, and its result
+    equals the CPU target's on the same payload."""
+    from repro_torch.core import CodeKind, Status, poll_ifunc
+    from repro_torch.core import codegen as CG
+    from repro_torch.core import frame as F
+
+    code = CG.serialize_hlo(lambda x: (x.to(torch.float32) * 3 - 7).sum(),
+                            (torch.zeros(16, dtype=torch.uint8),))
+    frame = F.pack_frame("hlo_affine_sum", code, bytes(range(16)),
+                         CodeKind.HLO)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        dst = Context("dst", device=dev)
+        region = dst.nic.mem_map(1 << 16)
+        region.buf[:len(frame)] = frame
+        targs = {}
+        assert poll_ifunc(dst, region.view(), None, targs) == Status.OK
+        assert dst.stats["links"] == 1 and not any(region.buf)
+        out[dev] = targs["result"]
+    assert out["cuda"].device.type == "cuda"
+    assert torch.equal(out["cuda"].cpu(), out["cpu"])
