@@ -128,23 +128,47 @@ Phases, each of which fails the script (non-zero exit, no result line):
     frames/s, host timers over the poll, ``run_uvm`` and ``clear_frame``
     in one more generation, the SMs' idle share and
     ``ifunc_vm_smem_kernel``'s device time a frame in another, and the
-    128-tile frame's H2D and kernel times.
+    128-tile frame's H2D and kernel times;
+19. the Dispatcher's host lanes beside the device lane, the port's
+    ``examples/multi_peer.py`` at the lanes' width: one source
+    ``Dispatcher`` (``Obs(trace=True)``, coalescing up to 64 records)
+    over ``rdma_a`` and ``rdma_b`` (``RdmaFabric``) and ``csd``
+    (``LoopbackFabric``), each 512 slots of phase 18's size on a
+    ``device="cuda"`` target with W resident, and ``gpu`` (phase 4's
+    mailbox, shift 0); 3 generations of 512 two-tile ``uvm_affine``
+    payloads to each peer (the first to each host peer FULL, the rest
+    SLIM; ``rdma_b``'s link cache invalidated halfway through generation
+    1, its 256 NACKs resent FULL in ring order), every result within
+    rtol 1e-4, atol 1e-5 of relu(x @ W); 4,096 ``counter_bump`` records
+    to each host peer in containers of 64; the example's MULTI_PEER_OK,
+    AGG_OK and OBS_OK gates; ``ifunc_vm_smem_kernel`` launched once a
+    host μVM frame and ``ring_sweep_smem_kernel`` once a device sweep,
+    nothing else counted, every plain version refusing to run; the
+    ``examples/offload_compress.py`` hot swap.  Then, outside the
+    counted run: frames/s per generation, per peer kind (one host peer
+    in turns with the bare API of phase 18) and in total; one host
+    generation under ``Obs`` with tracing, counters only and off, in
+    turns; ``deliver_us``, ``sweep_us`` and ``exec_us`` at p50 and p99;
+    the SMs' idle share over one traced generation.
 
-The phases run in the order 1-9, 18, 10-11, 14-17, 12-13: every profiler
-session of the timings and the traced step comes before the serving
-phase's long traces, after which the profiler recorded no device time in
-a run on the H100.  A trace that comes back without the records of the
+The phases run in the order 1-9, 18, 19, 10-11, 14-17, 12-13: every
+profiler session of the timings and the traced step comes before the
+serving phase's long traces, after which the profiler recorded no device
+time in a run on the H100.  A trace that comes back without the records of the
 kernel it times is logged and taken again, three traces at most.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's ``nvidia-smi`` name and power limit; before that the ``kernels``
 JSON line, one entry per TPU kernel.  The ``ring_poll`` and
 ``agg_ring_poll`` entries describe the fused sweeps that now poll on the
-lanes (their ``standalone_*`` keys the poll kernels alone); ``ifunc_vm``
-counts the sweeps it runs inside, and ``host_launches`` its launches on
-the host target of phase 18 (``host_ms`` the device time of one there).
+lanes (their ``standalone_*`` keys the poll kernels alone; ``ring_poll``
+counts phase 19's device sweeps too); ``ifunc_vm`` counts the sweeps it
+runs inside, ``host_launches`` its launches on the host target of phase
+18 (``host_ms`` the device time of one there) and
+``dispatcher_launches`` its launches on phase 19's host peers.
 """
 
+import contextlib
 import json
 import pathlib
 import re
@@ -166,6 +190,14 @@ TOL_PATH = dict(rtol=1e-4, atol=1e-5)
 # and the AM baseline's rendezvous size
 HOST_SLOTS, HOST_GENS, HOST_BIG, HOST_AGG_K = 512, 3, 128, 64
 HOST_AM_RNDV = 100_000
+# the Dispatcher's host lanes (phase 19): rdma_a and rdma_b (RDMA) and csd
+# (loopback) of 512 phase-18 slots each beside the device peer at phase
+# 4's width; 3 generations of 512 two-tile payloads to each peer, rdma_b's
+# link cache invalidated halfway through generation 1; then 4,096
+# counter_bump records to each host peer in containers of up to 64
+MP_HOSTS = (("rdma_a", "rdma"), ("rdma_b", "rdma"), ("csd", "loopback"))
+MP_SLOTS, MP_GENS, MP_EVICT_GEN, MP_BURST, MP_AGG = 512, 3, 1, 4096, 64
+MP_TURNS = 5                       # timed generations of each arm, in turns
 
 # Published peaks (NVIDIA data sheets; dense, no sparsity): device-memory
 # bytes/s, FP32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s.
@@ -236,6 +268,11 @@ FIXED_PROGRAMS = {
          ("mul", 7, 5, 6), ("loade", 1, 0), ("matmul", 7, 7, 1),
          ("store", 0, 7)], ("W",)),
 }
+
+
+#: every kernel the repository's CUDA sources define, by name, as the
+#: build's ptxas reports list them (filled by phase 1)
+KERNEL_NAMES: set = set()
 
 
 class SmokeError(Exception):
@@ -481,6 +518,7 @@ def phase_build(torch, smi):
                           line)
             if m:                        # the kernel and its template args
                 kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                KERNEL_NAMES.add(m.group(1))
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {src.stem} {kernel}: {line.strip()}")
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -1937,7 +1975,528 @@ def phase_host_target(np, torch, dev):
         + ("not measured" if frame_ms is None else f"{frame_ms:.4f} ms")
         + (f"; SMs idle {idle:.4f} of a generation" if idle is not None
            else ""))
-    return {"launches": polled, "ms": frame_ms, "err": err}
+    return {"launches": polled, "ms": frame_ms, "err": err,
+            "rate": HOST_SLOTS / wall}
+
+
+# ------------------------------------------------ the Dispatcher's host lanes
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+class no_plain:
+    """Within the block, every plain version of a kernel raises: a lane
+    that fell back to one on the card fails the phase instead of passing
+    slowly."""
+
+    def __enter__(self):
+        import importlib
+
+        self.saved = []
+        for name in ("kernels.ifunc_vm", "kernels.ring_poll",
+                     "kernels.agg_poll", "core.device_mailbox"):
+            mod = importlib.import_module(f"repro_torch.{name}")
+            for attr in dir(mod):
+                if attr.endswith("_plain") and callable(getattr(mod, attr)):
+                    self.saved.append((mod, attr, getattr(mod, attr)))
+                    setattr(mod, attr, self._refuse(f"{name}.{attr}"))
+        return self
+
+    @staticmethod
+    def _refuse(what):
+        def plain(*a, **k):
+            raise SmokeError(f"{what} ran on the card's path")
+        return plain
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def multi_peer_dispatcher(np, torch, dev, obs, *, shards, dev_slots,
+                          host_slots, seed):
+    """Phase 19's topology, the port's ``examples/multi_peer.py``: one
+    source ``Dispatcher`` (flush threshold 8, trailers withheld until
+    flush, coalescing on with up to ``MP_AGG`` records a container) over
+    ``rdma_a`` and ``rdma_b`` (``RdmaFabric``) and ``csd``
+    (``LoopbackFabric``), each a ``device=dev`` target of ``host_slots``
+    slots of phase 18's size with W resident on ``dev``, and ``gpu``, a
+    ``DeviceMeshFabric(shards, shift=0)`` of ``dev_slots`` slots a shard
+    of two tiles, W broadcast on ``dev``.  Returns (dispatcher,
+    ``uvm_affine`` handle, W, rng)."""
+    from repro_torch.core import Context, ifunc_msg_create, register_ifunc
+    from repro_torch.core.codegen import deserialize_uvm
+    from repro_torch.transport import (DeviceMeshFabric, Dispatcher,
+                                       LoopbackFabric, ProgressEngine,
+                                       RdmaFabric)
+
+    source = Context("source")
+    h = register_ifunc(source, "uvm_affine")
+    rng = np.random.default_rng(seed)
+    W = torch.from_numpy((rng.standard_normal((T, T)) * 0.05)
+                         .astype(np.float32)).to(dev)
+    d = Dispatcher(source, ProgressEngine(flush_threshold=8,
+                                          inflight_window="trailer"),
+                   obs=obs)
+    d.set_coalescing(True, max_subs=MP_AGG)
+    frame_len = ifunc_msg_create(h, np.zeros((NT, T, T), np.float32)).nbytes
+    slot = (frame_len + 4095) & ~4095
+    for name, kind in MP_HOSTS:
+        fabric = RdmaFabric() if kind == "rdma" else LoopbackFabric()
+        d.add_peer(name, fabric, Context(name, link_mode="remote",
+                                         device=dev),
+                   n_slots=host_slots, slot_size=slot,
+                   target_args={"externals": {"W": W}, "results": []})
+    d.add_peer("gpu", DeviceMeshFabric(shards, shift=0, device=dev), None,
+               n_slots=dev_slots, slot_size=(NT * T * T + 64) * 4,
+               prog=deserialize_uvm(h.lib.code), n_tiles=NT,
+               externals=W.expand(shards, 1, T, T))
+    return d, h, W, rng
+
+
+def mp_generation(torch, dev, d, h, peers, pays, evict=None):
+    """Send one payload after another to each of ``peers`` through
+    ``send_ifunc``, retrying on backpressure through ``drain`` as
+    ``examples/multi_peer.py`` does, then drain; ends in a synchronize.
+    ``evict`` = (peer, i): before payload i, drain and invalidate
+    ``uvm_affine`` in that peer's link cache.  Returns (send s, drain s,
+    backpressure retries)."""
+    retries = 0
+    t0 = time.perf_counter()
+    for i, p in enumerate(pays):
+        if evict is not None and i == evict[1]:
+            d.drain()
+            d.peers[evict[0]].target_ctx.link_cache.invalidate("uvm_affine")
+        for peer in peers:
+            while not d.send_ifunc(peer, h, p):
+                retries += 1
+                d.drain()
+    t1 = time.perf_counter()
+    d.drain()
+    sync(torch, dev)
+    return t1 - t0, time.perf_counter() - t1, retries
+
+
+def match_results(torch, got, want, what):
+    """Hold results that may come back in another order (device shards
+    sweep shard by shard) against ``want``: pair each with the nearest
+    expected one by its row sums, require a permutation, then each pair
+    within TOL_PATH."""
+    check(len(got) == len(want), f"{what}: {len(got)} results, want "
+                                 f"{len(want)}")
+    g = torch.stack(got)
+    check(g.shape == want.shape and bool(torch.isfinite(g).all()),
+          f"{what}: results {tuple(g.shape)} or not finite")
+    perm = torch.cdist(g.sum(-1).flatten(1), want.sum(-1).flatten(1)).argmin(1)
+    check(torch.unique(perm).numel() == len(got),
+          f"{what}: results do not pair one to one with the payloads")
+    check(torch.allclose(g, want[perm], **TOL_PATH),
+          f"{what}: max |err| {(g - want[perm]).abs().max().item():.3g}")
+
+
+def mp_check(torch, d, peers, pays, W, what):
+    """The results of one generation at each of ``peers`` against
+    relu(x @ W): host peers in send order (their rings keep it, resends
+    included), the device peer matched as the example matches.  Clears
+    the results."""
+    want = torch.relu(torch.from_numpy(pays).to(W.device) @ W)
+    for name in peers:
+        peer = d.peers[name]
+        got = peer.target_args["results"]
+        if peer.fabric.kind == "device":
+            match_results(torch, got, want, f"{what} {name}")
+            peer.rings[0].mailbox.results.clear()
+        else:
+            check_host_results(torch, got, pays, W, f"{what} {name}")
+        got.clear()
+
+
+def mp_burst(d, hosts, burst):
+    """Act two: a ``counter_bump`` warm-up (FULL, PYBC, run on the host)
+    to each host peer, then ``burst`` records to each through
+    ``send_ifunc_many``; returns the records a container carried."""
+    from repro_torch.core import register_ifunc
+
+    h = register_ifunc(d.src_ctx, "counter_bump")
+    for name in hosts:
+        check(d.send_ifunc(name, h, b"warm"), f"{name}: warm-up refused")
+    d.drain()
+    before = {n: dict(d.peers[n].stats) for n in hosts}
+    pays = [bytes([i & 0x7F]) * 8 for i in range(burst)]
+    for name in hosts:
+        sent = d.send_ifunc_many(name, h, pays)
+        check(sent == burst, f"{name}: {sent} of {burst} burst records "
+                             f"accepted")
+    d.drain()
+    frames = subs = 0
+    for name in hosts:
+        s, b = d.peers[name].stats, before[name]
+        count = d.peers[name].target_args.get("count", 0)
+        check(count == burst + 1, f"{name}: count {count}, want "
+                                  f"{burst + 1}")
+        frames += s["agg_sent"] - b["agg_sent"]
+        subs += s["agg_subs"] - b["agg_subs"]
+    return subs / max(frames, 1), frames, subs
+
+
+def multi_peer_gates(d, obs, trace_path):
+    """The example's gates (``examples/multi_peer.py:153-211``): no
+    rejects, unrecovered NACKs, undrained resends, unflushed puts or
+    coalesced records left; real aggregation; spans recorded with none
+    left open; the registry's ``peer.*.sent`` equal to the peer stats; a
+    non-empty ``deliver_us`` and flight recorder.  Prints MULTI_PEER_OK,
+    AGG_OK and OBS_OK, or fails the phase with every failure named."""
+    failures = []
+    agg_frames = agg_subs = 0
+    for name, peer in d.peers.items():
+        s = peer.stats
+        if s["rejected"]:
+            failures.append(f"{name}: {s['rejected']} rejected frames")
+        if s["nack_lost"]:
+            failures.append(f"{name}: {s['nack_lost']} unrecoverable NACKs")
+        if s["nacks"] > s["resent"]:
+            failures.append(f"{name}: {s['nacks']} NACKs but only "
+                            f"{s['resent']} FULL retransmits")
+        if peer.resend:
+            failures.append(f"{name}: {len(peer.resend)} retransmits "
+                            f"undrained")
+        leftover = sum(len(q.subs) for q in peer.coalesce.values())
+        if leftover:
+            failures.append(f"{name}: {leftover} coalesced records undrained")
+        agg_frames += s["agg_sent"]
+        agg_subs += s["agg_subs"]
+    if d.engine.outstanding():
+        failures.append(f"{d.engine.outstanding()} puts never flushed")
+    if agg_frames == 0 or agg_subs / agg_frames < 2.0:
+        failures.append(f"no real aggregation: {agg_subs} records in "
+                        f"{agg_frames} containers")
+    snap = obs.snapshot()
+    doc = obs.tracer.export_chrome(trace_path)
+    spans = obs.tracer.spans()
+    if not spans:
+        failures.append("obs: no spans recorded with tracing on")
+    if obs.tracer.open_count():
+        failures.append(f"obs: {obs.tracer.open_count()} orphan spans: "
+                        f"{[s.name for s in obs.tracer.open_spans()][:8]}")
+    sent_metric = sum(v for k, v in snap["counters"].items()
+                      if k.startswith("peer.") and k.endswith(".sent"))
+    sent_stats = sum(p.stats["sent"] for p in d.peers.values())
+    if sent_metric != sent_stats:
+        failures.append(f"obs: registry sees {sent_metric} sends, peer "
+                        f"stats say {sent_stats}")
+    if obs.rtt_hist.count == 0:
+        failures.append("obs: deliver_us histogram empty after a fan-out")
+    if len(obs.recorder) == 0:
+        failures.append("obs: flight recorder empty after transport traffic")
+    check(not failures, "MULTI_PEER_FAILED:" + "; ".join(failures))
+    log(f"aggregate occupancy: {agg_subs} records / {agg_frames} containers "
+        f"= {agg_subs / agg_frames:.1f} per frame; trace: "
+        f"{len(doc['traceEvents'])} events ({len(spans)} spans, "
+        f"{len(obs.tracer.spans(cat='wire'))} wire), metrics: "
+        f"{len(snap['counters'])} counters")
+    for line in ("MULTI_PEER_OK", "AGG_OK", "OBS_OK"):
+        log(line)
+
+
+def hist_quantiles(obs, before):
+    """p50 and p99 (the upper bounds of their power-of-two buckets, in
+    µs) and count of each latency histogram since the snapshot
+    ``before``."""
+    from repro_torch.obs import Histogram, delta
+
+    out = {}
+    for name, snap in delta(obs.snapshot(), before)["histograms"].items():
+        h = Histogram.from_snapshot(name, snap)
+        if h.count:
+            out[name] = (h.quantile(0.5), h.quantile(0.99), h.count)
+    return out
+
+
+def multi_peer_path(np, torch, dev, trace_dir, *, shards=SHARDS,
+                    dev_slots=SLOTS_FULL, host_slots=MP_SLOTS,
+                    gens=MP_GENS, burst=MP_BURST, seed=19):
+    """Phase 19's counted run: act one (``gens`` generations of
+    ``shards * dev_slots`` two-tile payloads to each of the four peers,
+    the first frame to each host peer FULL and the rest SLIM, ``rdma_b``'s
+    link cache invalidated halfway through generation ``MP_EVICT_GEN``),
+    act two (``mp_burst``) and the gates, with every launch counted (on
+    the card, where every plain version refuses to run).  Returns
+    (dispatcher, handle, W, rng, a dict of what the run showed)."""
+    from repro_torch.core.codegen import deserialize_uvm
+    from repro_torch.kernels.ifunc_vm import sweep_kernel, vm_plan
+    from repro_torch.obs import Obs
+
+    obs = Obs("multi_peer", trace=True)
+    d, h, W, rng = multi_peer_dispatcher(
+        np, torch, dev, obs, shards=shards, dev_slots=dev_slots,
+        host_slots=host_slots, seed=seed)
+    prog = deserialize_uvm(h.lib.code)
+    n = shards * dev_slots
+    hosts = [name for name, _ in MP_HOSTS]
+    peers = hosts + ["gpu"]
+    mb = d.peers["gpu"].rings[0].mailbox
+    sweeps = []                       # launches moved by each device sweep
+
+    def counted_sweep(*a, **k):
+        before = _counted()["ring_sweep"].launches
+        ran = mb._deposited > 0
+        out = type(mb).sweep(mb, *a, **k)
+        if ran:
+            sweeps.append(_counted()["ring_sweep"].launches - before)
+        return out
+
+    mb.sweep = counted_sweep
+    sync(torch, dev)
+    reset_counts()
+    gen_s = []
+    try:
+        with no_plain() if dev.type == "cuda" else contextlib.nullcontext():
+            snap0 = obs.snapshot()
+            for g in range(gens):
+                pays = rng.standard_normal((n, NT, T, T)).astype(np.float32)
+                if g == 0:
+                    # the first frame to each host peer ships FULL; its
+                    # confirmed delivery turns the rest SLIM
+                    a = mp_generation(torch, dev, d, h, peers, pays[:1])
+                    b = mp_generation(torch, dev, d, h, peers, pays[1:])
+                    send_s, drain_s, retries = (a[0] + b[0], a[1] + b[1],
+                                                a[2] + b[2])
+                else:
+                    evict = ("rdma_b", n // 2) if g == MP_EVICT_GEN else None
+                    send_s, drain_s, retries = mp_generation(
+                        torch, dev, d, h, peers, pays, evict=evict)
+                mp_check(torch, d, peers, pays, W, f"generation {g}")
+                gen_s.append(send_s + drain_s)
+                log(f"multi-peer generation {g}: {len(peers)} x {n} frames, "
+                    f"send {send_s:.4f} s, drain {drain_s:.4f} s, "
+                    f"{len(peers) * n / (send_s + drain_s):.1f} frames/s, "
+                    f"{retries} backpressure retries")
+            act_one = hist_quantiles(obs, snap0)
+            snap1 = obs.snapshot()
+            occupancy, containers, records = mp_burst(d, hosts, burst)
+            act_two = hist_quantiles(obs, snap1)
+            counts = read_counts()
+    finally:
+        del mb.sweep
+    for name in hosts:
+        s = d.peers[name].stats
+        nacks = n // 2 if name == "rdma_b" else 0
+        check((s["nacks"], s["resent"], s["nack_lost"]) == (nacks, nacks, 0),
+              f"{name}: nacks {s['nacks']}, resent {s['resent']}, "
+              f"nack_lost {s['nack_lost']}; want {nacks}, {nacks}, 0")
+        # act one: gens x n uvm_affine frames, one FULL; act two: the
+        # FULL warm-up and burst // MP_AGG containers, all SLIM
+        check(s["slim_sent"] == gens * n - 1 + burst // MP_AGG
+              and s["sent"] == gens * n + nacks + 1 + burst // MP_AGG,
+              f"{name}: sent {s['sent']}, slim {s['slim_sent']}")
+    s = d.peers["gpu"].stats
+    check(s["slim_sent"] == s["sent"] == s["delivered"] == gens * n,
+          f"gpu: {s}")
+    host_frames = gens * n * len(hosts)
+    res = {"counts": counts, "sweeps": len(sweeps), "host_frames":
+           host_frames, "gen_s": gen_s, "act_one": act_one,
+           "act_two": act_two, "occupancy": occupancy}
+    log(f"act two: {burst} counter_bump records to each of {len(hosts)} "
+        f"host peers in {containers} containers ({occupancy:.1f} records "
+        f"a container); rdma_b: {n // 2} NACKs after the eviction, "
+        f"{n // 2} FULL resends in ring order, nack_lost 0")
+    if dev.type == "cuda":
+        check(vm_plan(prog).kernel == "ifunc_vm_smem_kernel"
+              and sweep_kernel(prog) == "ring_sweep_smem_kernel",
+              f"uvm_affine takes {vm_plan(prog).kernel} and "
+              f"{sweep_kernel(prog)}")
+        check(counts["ifunc_vm"] == host_frames,
+              f"{counts['ifunc_vm']} ifunc_vm launches for {host_frames} "
+              f"host μVM frames polled")
+        check(sweeps and set(sweeps) == {1}
+              and counts["ring_sweep"] == len(sweeps),
+              f"{counts['ring_sweep']} ring_sweep launches in "
+              f"{len(sweeps)} device sweeps ({sorted(set(sweeps))} each)")
+        check(all(v == 0 for k, v in counts.items()
+                  if k not in ("ifunc_vm", "ring_sweep")),
+              f"phase 19 launched {counts}, want ifunc_vm and ring_sweep "
+              f"alone")
+        log(f"multi-peer launches {counts}: ifunc_vm_smem_kernel once for "
+            f"each of {host_frames} host μVM frames (resends included), "
+            f"ring_sweep_smem_kernel once in each of {len(sweeps)} device "
+            f"sweeps; no plain version ran")
+    d.print_stats()
+    multi_peer_gates(d, obs, pathlib.Path(trace_dir) / "multi_peer.json")
+    return d, h, W, rng, res
+
+
+def offload_compress(tmp):
+    """The port's ``examples/offload_compress.py``: ``rle_insert`` (the
+    port's own library, copied to ``tmp``) through a ``Dispatcher`` over
+    ``RdmaFabric`` into one storage context; then the copy is edited (a v2
+    codec under the same name) and a fresh ingest node sends the rest —
+    linked anew at the storage context, which never restarts."""
+    import shutil
+
+    import repro_torch
+    from repro_torch.core import Context, ifunc_msg_create, register_ifunc
+    from repro_torch.transport import Dispatcher, ProgressEngine, RdmaFabric
+
+    stage = pathlib.Path(tmp)
+    shutil.copy(pathlib.Path(repro_torch.__file__).parent / "ifunc_libs"
+                / "rle_insert.py", stage / "rle_insert.py")
+    storage = Context("storage", lib_dir=stage, link_mode="remote")
+    db = {"db": []}
+    records = [bytes([i % 7]) * 400 for i in range(64)]
+
+    def ingest(name, recs):
+        d = Dispatcher(Context(name, lib_dir=stage),
+                       ProgressEngine(flush_threshold=4))
+        d.add_peer("storage", RdmaFabric(), storage, n_slots=8,
+                   slot_size=8 << 10, target_args=db)
+        h = register_ifunc(d.src_ctx, "rle_insert")
+        for r in recs:
+            while not d.send("storage", ifunc_msg_create(h, r)):
+                d.drain()
+        d.drain()
+        return d
+
+    t0 = time.perf_counter()
+    ingest("ingest", records[:32])
+    v1_links = storage.stats["links"]
+    v2 = (stage / "rle_insert.py").read_text().replace(
+        'target_args["db"].append(record)',
+        'target_args["db"].append(record)\n    target_args["v2_count"] = '
+        'target_args.get("v2_count", 0) + 1')
+    check(v2 != (stage / "rle_insert.py").read_text(), "v2 edit missed")
+    (stage / "rle_insert.py").write_text(v2)
+    s = ingest("ingest2", records[32:]).per_peer_stats()["storage"]
+    check(db["db"] == records and db.get("v2_count") == 32
+          and (v1_links, storage.stats["links"]) == (1, 2),
+          f"hot swap: {len(db['db'])} records, v2_count "
+          f"{db.get('v2_count')}, links {v1_links} -> "
+          f"{storage.stats['links']}")
+    log(f"offload_compress: v2 codec hot-swapped under the same name: "
+        f"{db['v2_count']} records via v2, 1 new link event, "
+        f"{time.perf_counter() - t0:.3f} s, storage never restarted "
+        f"(v2 ring: sent={s['sent']} backpressure={s['backpressure']})")
+    return db
+
+
+def phase_multi_peer(np, torch, dev, host_rate):
+    """Phase 19: the Dispatcher's host lanes beside the device lane
+    (``multi_peer_path`` at full width and ``offload_compress``), then,
+    outside the counted run: frames/s per generation, per peer kind and
+    in total beside phase 18's bare-API rate; one host generation under
+    each obs mode; deliver_us, sweep_us and exec_us at p50 and p99; the
+    SMs' idle share over one traced generation.  Returns the phase's
+    ``ifunc_vm`` launches and device sweeps."""
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import Context, RingBuffer, register_ifunc
+
+    name = torch.cuda.get_device_name(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        d, h, W, rng, res = multi_peer_path(np, torch, dev, tmp)
+        offload_compress(tmp)
+    obs = d.obs
+    n = SHARDS * SLOTS_FULL
+    hosts = [p for p, _ in MP_HOSTS]
+    total = len(d.peers) * n * len(res["gen_s"]) / sum(res["gen_s"])
+    log(f"multi-peer on {name}: {total:.1f} frames/s over the counted "
+        f"generations (4 peers x {n} frames each), generations "
+        f"{[round(s, 4) for s in res['gen_s']]} s; phase 18's bare API "
+        f"{host_rate:.1f} frames/s on one host target")
+    for act, q in (("act one", res["act_one"]), ("act two", res["act_two"])):
+        log(f"latency, {act} (µs, p50/p99 as power-of-two bucket bounds, "
+            f"count): " + "; ".join(f"{k} {v[0]}/{v[1]} ({v[2]})"
+                                   for k, v in sorted(q.items())))
+
+    # frames/s per peer kind through the Dispatcher, each alone, in turns
+    # with phase 18's bare API on a ring of the same slots: the
+    # difference is the Dispatcher's own cost
+    def gen(peers):
+        pays = rng.standard_normal((n, NT, T, T)).astype(np.float32)
+        send_s, drain_s, _ = mp_generation(torch, dev, d, h, peers, pays)
+        mp_check(torch, d, peers, pays, W, f"timed {'+'.join(peers)}")
+        return send_s + drain_s
+
+    src, tgt = Context("bare-source"), Context("bare-target", device=dev)
+    hb = register_ifunc(src, "uvm_affine")
+    slot = d.peers["rdma_a"].rings[0].mailbox.slot_size
+    ring = RingBuffer(tgt.nic.mem_map(n * slot), slot)
+    ep = src.nic.connect(tgt.nic)
+    targs = {"externals": {"W": W}}
+
+    def bare():
+        pays = rng.standard_normal((n, NT, T, T)).astype(np.float32)
+        send_s, drain_s, got = host_generation(torch, ep, ring, hb, tgt,
+                                               targs, pays)
+        check_host_results(torch, got, pays, W, "bare API generation")
+        return send_s + drain_s
+
+    runs = {"bare": bare, "rdma": lambda: gen(["rdma_a"]),
+            "loopback": lambda: gen(["csd"])}
+    spent = {k: [] for k in runs}
+    order = list(runs)
+    for r in range(MP_TURNS):
+        for k in order[r % 3:] + order[:r % 3]:
+            spent[k].append(runs[k]())
+    per = {k: statistics.median(v) / n * 1e6 for k, v in spent.items()}
+    log(f"one host peer, {MP_TURNS} generations of {n} frames each in "
+        f"turns (median): " + "; ".join(
+            f"{k} {1e6 / us:.1f} frames/s ({us:.1f} µs a frame)"
+            for k, us in per.items())
+        + f"; the Dispatcher adds {per['rdma'] - per['bare']:.1f} µs a "
+          f"frame on RDMA, {per['loopback'] - per['bare']:.1f} on loopback")
+    wall = None
+    for label, peers in (("device", ["gpu"]), ("hosts", hosts),
+                         ("all", hosts + ["gpu"])):
+        wall = gen(peers)
+        log(f"  {label}: {len(peers)} x {n} frames in {wall:.4f} s, "
+            f"{len(peers) * n / wall:.1f} frames/s")
+
+    # the cost of obs: one host generation in each mode, in turns
+    modes = {"trace": (True, True), "counters": (True, False),
+             "off": (False, False)}
+    spent = {m: [] for m in modes}
+    order = list(modes)
+    for r in range(MP_TURNS):
+        for m in order[r % 3:] + order[:r % 3]:
+            obs.enabled = modes[m][0]
+            obs.set_tracing(modes[m][1])
+            spent[m].append(gen(hosts))
+    obs.enabled = True
+    obs.set_tracing(True)
+    off = statistics.median(spent["off"])
+    log(f"obs cost over one host generation ({len(hosts)} x {n} frames, "
+        f"median of {MP_TURNS}): "
+        + "; ".join(f"{m} {statistics.median(v):.4f} s "
+                    f"({statistics.median(v) / off:.3f}x off; "
+                    f"{min(v):.4f}-{max(v):.4f})"
+                    for m, v in spent.items()))
+
+    # the SMs' idle share over one traced generation to all four peers,
+    # against the untraced one above
+    pays = rng.standard_normal((n, NT, T, T)).astype(np.float32)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mp_generation(torch, dev, d, h, hosts + ["gpu"], pays)
+    mp_check(torch, d, hosts + ["gpu"], pays, W, "traced generation")
+    log_card_busy(prof, wall, "card per multi-peer generation",
+                  ("ifunc_vm_smem_kernel", "ring_sweep_smem_kernel"))
+    names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+    ours = {m.group(1) for nm in names
+            for m in re.finditer(r"(\w+_kernel)\b", nm)
+            if m.group(1) in KERNEL_NAMES}
+    # a subset: torch.profiler may lose a record, or a trace's all
+    check(ours <= {"ifunc_vm_smem_kernel", "ring_sweep_smem_kernel"},
+          f"the traced generation ran the repository's kernels {ours}")
+    theirs = {nm[:40] for nm in names if not any(k in nm for k in ours)}
+    log(f"kernels in the traced generation: the repository's {sorted(ours)}; "
+        f"PyTorch's (the deposit's roll and where, copies): {sorted(theirs)}")
+    return {"launches": res["counts"]["ifunc_vm"], "sweeps": res["sweeps"]}
 
 
 # ------------------------------------------------------------ model stack
@@ -2704,6 +3263,10 @@ def main():
     vm["host_launches"] = host["launches"]
     vm["host_ms"] = host["ms"]
     vm["max_abs_err"] = max(vm["max_abs_err"], host["err"])
+    mp = phase_multi_peer(np, torch, dev, host["rate"])
+    vm["dispatcher_launches"] = mp["launches"]
+    vm["launches"] += mp["sweeps"]        # it runs inside those sweeps
+    kernels[0]["launches"] += mp["sweeps"]
     model_errs = phase_model_kernels(np, torch, dev)
     bwd_errs = phase_bwd_kernels(np, torch, dev)
     # timed, and a train step traced, before the serving phase's long

@@ -80,6 +80,9 @@ class Context:
     last_agg_results: list | None = None     # per-sub outcomes of the most
     #                     recent FLAG_AGG frame this ctx consumed (set by
     #                     poll_ifunc, harvested by Mailbox.sweep)
+    obs: object = None                       # repro_torch.obs.Obs bundle
+    #                     (installed by the dispatcher's add_peer so the
+    #                     target's exec spans land in the source's trace)
     _agg_policy_ok: set = field(default_factory=set)   # memoized (name, kind)
     #                     pairs the policy already cleared (pure check)
     stats: dict = field(default_factory=lambda: {
@@ -470,7 +473,20 @@ def poll_ifunc(ctx: Context, buffer, buffer_size: int | None, target_args,
             # coalesced dispatch: ONE container frame carries K cached
             # invocations; per-record outcomes land in ctx.last_agg_results
             batch = F.parse_agg(payload)         # FrameError -> REJECTED
-            ctx.last_agg_results = _run_agg(ctx, batch, target_args)
+            o = ctx.obs
+            if o is not None and o.enabled:
+                t0 = time.perf_counter()
+                sp = (o.tracer.begin(f"exec:agg@{ctx.name}", cat="exec",
+                                     actor=ctx.name, subs=batch.n)
+                      if o.tracer.enabled else None)
+                try:
+                    results = _run_agg(ctx, batch, target_args)
+                finally:
+                    o.exec_hist.observe((time.perf_counter() - t0) * 1e6)
+                    o.tracer.end(sp)
+            else:
+                results = _run_agg(ctx, batch, target_args)
+            ctx.last_agg_results = results
             ctx.stats["bytes_in"] += hdr.frame_len
             if clear:
                 F.clear_frame(buf, hdr)
@@ -505,7 +521,23 @@ def poll_ifunc(ctx: Context, buffer, buffer_size: int | None, target_args,
         if clear:
             F.scrub_slot(buf)     # best-effort clear of the bad slot
         return Status.REJECTED
-    fn(payload, len(payload), target_args)
+    o = ctx.obs
+    if o is not None and o.enabled:
+        # exec_us is host time around the ifunc: for a μVM frame on the
+        # card, the payload's copy to the card and the kernel's launch,
+        # not the kernel's run (no synchronize is added for telemetry)
+        t0 = time.perf_counter()
+        sp = (o.tracer.begin(f"exec:{hdr.name}@{ctx.name}", cat="exec",
+                             actor=ctx.name, corr=hdr.corr_id or None)
+              if o.tracer.enabled else None)
+        try:
+            fn(payload, len(payload), target_args)
+        finally:
+            # the span closes even when the ifunc raises (poisoned slot)
+            o.exec_hist.observe((time.perf_counter() - t0) * 1e6)
+            o.tracer.end(sp)
+    else:
+        fn(payload, len(payload), target_args)
     ctx.stats["executed"] += 1
     ctx.stats["bytes_in"] += hdr.frame_len
     if clear:

@@ -2,7 +2,8 @@
 control, per-peer backpressure, and a fairness-aware poll loop.
 
 A :class:`Dispatcher` owns any number of :class:`Peer` s — each a
-(fabric, channel(s), mailbox(s), target context) bundle — and
+(fabric, channel(s), mailbox(s), target context) bundle on any backend
+(RDMA host, loopback, device mesh) — and
 
 * ``send`` consumes a credit (one free ring slot) or reports backpressure
   instead of silently overwriting unconsumed frames;
@@ -13,37 +14,49 @@ A :class:`Dispatcher` owns any number of :class:`Peer` s — each a
 * all sends go through a shared :class:`ProgressEngine`, so batching,
   in-flight windows, and completions are uniform across fabrics.
 
-Every frame is packed straight into the engine's slab cell for its ring
-slot.  Device-mesh lanes are always SLIM-eligible: the μVM program is
-bound at mailbox-open time, so code words never travel — ``send`` elides
-the code section while staging.
+The cached-invocation fast path (paper §3.4):
+
+* every frame is packed straight into the engine's slab cell for its ring
+  slot — the send path allocates no per-message buffers;
+* a host peer's first delivery of an ifunc ships a FULL frame; once the
+  delivery is confirmed (the target's link cache provably holds the code
+  digest) later sends of the same handle ship SLIM — header + payload,
+  code elided;
+* a SLIM frame that misses the target's cache (eviction, restart) comes
+  back ``NACK_UNCACHED``: the dispatcher rebuilds the FULL frame from the
+  handle's library and the slab-resident payload and resends it ahead of
+  newer traffic, once the peer's rings are quiescent, so the resends
+  replay ring order;
+* device-mesh lanes are always SLIM-eligible: the μVM program is bound at
+  mailbox-open time, so code words never travel.
 
 *Coalesced dispatch* (``FLAG_AGG``): with :meth:`set_coalescing` on, a
-``send_ifunc`` / ``send_ifunc_many`` to a peer whose mailboxes are
-agg-bound (``agg_k=``) does not claim a ring slot per invocation — the
-records pack into ONE aggregate container (one put, one slot, one credit
-for up to K invocations), flushed when the slot budget or the sub-record
-cap fills, on an explicit ``flush``/``drain``, or when the oldest record
-has waited ``max_age``.  A record above ``max_sub_bytes`` ships as a plain
-SLIM singleton after the queue ahead of it, so per-peer FIFO holds.  The
-target's sweep reports per-sub-record outcomes (``Mailbox.last_agg``):
-
-* a SUB_READY record's result goes to ``target_args["results"]`` and, for
-  a corr id, to ``reply_router``;
-* a SUB_NACK record (its name is not the lane's bound program) is rebuilt
-  alone as a FULL singleton on the resend queue, which posts ahead of new
-  traffic once the peer's rings are quiescent; its siblings are not
-  replayed;
-* a SUB_BAD (poisoned) record gets an error reply, its siblings unharmed;
-* a corrupt container is REJECTED whole: every corr id in it gets the
-  error.
+cache-warm ``send_ifunc`` / ``send_ifunc_many`` to a host peer, or to a
+device peer whose mailboxes are agg-bound (``agg_k=``), does not claim a
+ring slot per invocation — the records pack into ONE aggregate container
+(one put, one slot, one credit), flushed when the slot budget or the
+sub-record cap fills, on an explicit ``flush``/``drain``, or when the
+oldest record has waited ``max_age``.  A record above ``max_sub_bytes``
+ships as a plain SLIM singleton after the queue ahead of it, so per-peer
+FIFO holds.  The target reports per-sub-record outcomes
+(``Mailbox.last_agg``): a NACKed record alone is rebuilt as a FULL
+singleton on the resend queue (its siblings are never replayed), a
+rejected one counts, and a corr-carrying record's result goes to
+``reply_router`` on a device lane.  A host peer has no reply ring here,
+so its corr-carrying results count as ``reply_dropped``.
 
 Device lanes have no reverse ring: sweep results *are* the replies,
 correlated to corr ids by the coordinates each send staged into.
 
-This package carries the device lanes only.  Host lanes (with their
-digest confirmation and SLIM-miss retransmits), streams, the reply ring,
-striping and liveness failure come with the modules they need.
+Every peer's stats dict, the dispatcher's and the engine's are aliased
+into one :class:`~repro_torch.obs.Obs` registry; puts, NACKs, resends,
+rejects and backpressure land in its flight recorder, and with tracing on
+each host frame's life is a ``wire`` span from put to poll outcome (a
+resend its own ``resend`` span, a container its ``agg`` span).
+
+Streams, wire codecs and striping; reply rings, futures and liveness
+failure; fault injection, side-band pollers and peer removal raise
+:class:`TransportError` naming the ROADMAP.md item they come with.
 """
 
 from __future__ import annotations
@@ -53,25 +66,37 @@ from collections import deque
 from dataclasses import dataclass, field
 
 from repro_torch.core import frame as F
-from repro_torch.core.api import IfuncMsg, Status
+from repro_torch.core.api import (_AGG_PLAIN_OK, IfuncMsg, Status,
+                                  ifunc_msg_to_full)
+from repro_torch.obs import Obs
 from repro_torch.transport.fabric import Fabric, TransportError
 from repro_torch.transport.progress import ProgressEngine
 
 DEFAULT_SLOT_SIZE = 64 << 10
 DEFAULT_N_SLOTS = 8
 
-#: the per-peer stats schema, seeded at construction so
+#: the per-peer stats schema (the reference's, paths not ported yet
+#: included), seeded at construction and by ``Peer.reset_stats`` so
 #: ``per_peer_stats()`` always returns the same keys
-_PEER_STAT_KEYS = ("sent", "bytes", "delivered", "rejected", "backpressure",
-                   "inflight_polls", "slim_sent", "nacks", "resent",
-                   "replies", "coalesced", "agg_sent", "agg_subs",
-                   "agg_harvest_lost")
+_PEER_STAT_KEYS = (
+    "sent", "bytes", "delivered", "rejected", "backpressure",
+    "inflight_polls", "slim_sent", "nacks", "resent", "replies", "errors",
+    "coalesced", "agg_sent", "agg_subs", "agg_replies", "agg_harvest_lost",
+    "nack_lost", "reply_rejects", "streams", "stream_chunks", "timed_out",
+    "fenced_orphans", "dropped_puts")
+
+
+def _later(what: str, item: str) -> TransportError:
+    return TransportError(f"{what}: not ported yet (ROADMAP.md Queue 1 "
+                          f"item {item})")
 
 
 @dataclass
 class _TxRec:
-    """Source-side record of one in-flight frame.  ``subs`` non-None marks
-    an aggregate container: the :class:`_PendingSub` records it carries."""
+    """Source-side record of one in-flight frame (digest confirmation,
+    NACK rebuild, reply correlation, liveness age).  ``subs`` non-None
+    marks an aggregate container: the :class:`_PendingSub` records it
+    carries."""
 
     name: str
     digest: bytes
@@ -80,6 +105,8 @@ class _TxRec:
     corr_id: int = 0
     sent_at: float = field(default_factory=time.monotonic)
     subs: list | None = None
+    span: object = None     # open obs wire span (tracing runs only): put ->
+    #                         delivery confirmation / NACK / reject
 
 
 @dataclass(slots=True)
@@ -95,7 +122,7 @@ class _PendingSub:
     digest: bytes
     payload: object         # bytes, or a view into the slab cell it rides in
     corr_id: int
-    cont: bytes | None      # always None: device lanes carry no continuation
+    cont: bytes | None      # always None: no flow hook is ported
     enq_at: float
     err: bool = False       # request records never carry the reply-err bit
 
@@ -134,11 +161,14 @@ class RingState:
     mailbox: object
     channel: object
     tail: int = 0            # source-side produce index
-    corr_by_coords: dict = field(default_factory=dict)  # slot_coords ->
-    #                                    corr_id of a singleton awaiting
-    #                                    its sweep result
-    agg_by_coords: dict = field(default_factory=dict)   # slot_coords ->
-    #                                    _TxRec of a staged aggregate
+    inflight: dict = field(default_factory=dict)   # host lanes: abs slot ->
+    #                                    _TxRec awaiting its poll outcome
+    corr_by_coords: dict = field(default_factory=dict)  # device lanes:
+    #                                    slot_coords -> (corr_id, sent_at)
+    #                                    of a singleton awaiting its result
+    agg_by_coords: dict = field(default_factory=dict)   # device lanes:
+    #                                    slot_coords -> _TxRec of a staged
+    #                                    aggregate
 
     @property
     def credits(self) -> int:
@@ -152,14 +182,40 @@ class Peer:
     target_ctx: object
     target_args: dict
     rings: list[RingState] = field(default_factory=list)
+    cached: set = field(default_factory=set)       # digests confirmed cached
     resend: deque = field(default_factory=deque)   # FULL msgs queued post-NACK
     coalesce: dict = field(default_factory=dict)   # ring key -> _CoalesceQ
     stats: dict = field(
         default_factory=lambda: dict.fromkeys(_PEER_STAT_KEYS, 0))
 
+    def reset_stats(self) -> None:
+        """Zero every counter in place (the dict is aliased into the obs
+        registry and shared with callers — never replace it)."""
+        for k in _PEER_STAT_KEYS:
+            self.stats[k] = 0
+
     @property
     def credits(self) -> int:
         return sum(r.credits for r in self.rings)
+
+    def oldest_inflight_age(self, now: float | None = None) -> float:
+        """Age (seconds) of the oldest tracked frame still awaiting its
+        target's sweep; 0.0 when nothing is in flight."""
+        now = time.monotonic() if now is None else now
+        oldest = None
+        for r in self.rings:
+            for slot, rec in r.inflight.items():
+                if slot < r.mailbox.consumed:
+                    continue            # consumed by an external sweeper
+                if oldest is None or rec.sent_at < oldest:
+                    oldest = rec.sent_at
+            for _, sent_at in r.corr_by_coords.values():
+                if oldest is None or sent_at < oldest:
+                    oldest = sent_at
+            for rec in r.agg_by_coords.values():
+                if oldest is None or rec.sent_at < oldest:
+                    oldest = rec.sent_at
+        return 0.0 if oldest is None else max(0.0, now - oldest)
 
     def summary(self) -> str:
         s = self.stats
@@ -170,6 +226,7 @@ class Peer:
                 f"delivered={s['delivered']:<4d} "
                 f"rejected={s['rejected']:<3d} nacks={s['nacks']:<3d} "
                 f"backpressure={s['backpressure']:<3d} "
+                f"replies={s['replies']:<4d} "
                 f"credits={self.credits}{agg}")
 
 
@@ -183,33 +240,47 @@ def _args_size(source_args, source_args_size):
 
 
 class Dispatcher:
-    """One source fanning ifunc frames out to device-mesh targets."""
+    """One source fanning ifunc frames out to host and device targets."""
 
-    def __init__(self, src_ctx=None, engine: ProgressEngine | None = None):
+    def __init__(self, src_ctx=None, engine: ProgressEngine | None = None, *,
+                 coalesce: bool = False, obs: Obs | None = None):
         self.src_ctx = src_ctx
         self.engine = engine if engine is not None else ProgressEngine()
         self.peers: dict[str, Peer] = {}
         self._rr = 0             # fairness cursor over (peer, ring) lanes
         self.stats = {"sent": 0, "polled": 0, "poll_rounds": 0, "nacks": 0,
-                      "replies": 0, "reply_dropped": 0, "agg_sent": 0}
+                      "replies": 0, "reply_dropped": 0, "agg_sent": 0,
+                      "streams": 0, "timed_out": 0}
+        # one bundle shared by the dispatcher, its engine and every peer's
+        # target context, so the source's puts and the targets' exec spans
+        # land in one trace; counters-only unless the caller opted in
+        self.obs = obs if obs is not None else Obs("dispatcher")
+        self.obs.metrics.register_dict("dispatcher", self.stats)
+        if getattr(self.engine, "obs", None) is None:
+            self.engine.obs = self.obs
+            self.obs.metrics.register_dict("engine", self.engine.stats)
         # the router receives (corr_id, name, value, is_err, decoded) for
-        # every corr-carrying send once its result (or error) is known
+        # every corr-carrying device send once its result (or error) is
+        # known
         self.reply_router = None
         self._coalesce = False
         self._agg_max_subs = 16
         self._agg_max_age = 5e-4
         self._agg_max_sub_bytes = 16 << 10
+        if coalesce:
+            self.set_coalescing(True)
 
     def set_coalescing(self, enabled: bool = True, *, max_subs: int = 16,
                        max_age: float = 5e-4,
                        max_sub_bytes: int = 16 << 10) -> None:
         """Turn coalesced dispatch on/off.  ``max_subs`` caps sub-records
-        per aggregate (also capped by each lane's ``agg_k``); ``max_age``
-        (seconds) bounds how long the oldest queued record may wait before
-        a poll flushes its queue; a record above ``max_sub_bytes`` bypasses
-        the queue as a plain SLIM singleton.  A device lane's payloads are
-        whole tiles (64 KiB each), so to coalesce them ``max_sub_bytes``
-        must be raised past the default."""
+        per aggregate (also capped by a device lane's ``agg_k``; reaching
+        it flushes at once, so a steady burst ships in full containers);
+        ``max_age`` (seconds) bounds how long the oldest queued record may
+        wait before a poll flushes its queue; a record above
+        ``max_sub_bytes`` bypasses the queue as a plain SLIM singleton.  A
+        device lane's payloads are whole tiles (64 KiB each), so to
+        coalesce them ``max_sub_bytes`` must be raised past the default."""
         if max_subs < 1:
             raise TransportError(f"max_subs must be >= 1, got {max_subs}")
         self._coalesce = enabled
@@ -217,21 +288,64 @@ class Dispatcher:
         self._agg_max_age = max_age
         self._agg_max_sub_bytes = max_sub_bytes
 
+    # -- paths that come with later modules ---------------------------------
+
+    def set_streaming(self, *a, **kw) -> None:
+        raise _later("streams", "3(b)")
+
+    def send_stream(self, *a, **kw) -> bool:
+        raise _later("streams", "3(b)")
+
+    def attach_reply_ring(self, *a, **kw) -> None:
+        raise _later("reply rings", "3(a)")
+
+    def poll_replies(self) -> int:
+        raise _later("reply rings", "3(a)")
+
+    def fail_inflight(self, *a, **kw) -> int:
+        raise _later("fail_inflight", "3(a)")
+
+    def remove_peer(self, name: str) -> None:
+        raise _later("peer removal", "5")
+
+    @property
+    def faults(self):
+        return None
+
+    @faults.setter
+    def faults(self, injector) -> None:
+        if injector is not None:
+            raise _later("fault injection", "5")
+
+    @property
+    def pollers(self) -> tuple:
+        return ()
+
+    @pollers.setter
+    def pollers(self, callables) -> None:
+        if callables:
+            raise _later("side-band pollers", "5")
+
     # -- topology -----------------------------------------------------------
 
     def add_peer(self, name: str, fabric: Fabric, target_ctx, *,
                  n_slots: int = DEFAULT_N_SLOTS,
                  slot_size: int = DEFAULT_SLOT_SIZE,
-                 rings: int = 1, target_args: dict | None = None,
-                 **mailbox_kw) -> Peer:
+                 rings: int = 1, stripe: bool = False,
+                 target_args: dict | None = None,
+                 codec=None, **mailbox_kw) -> Peer:
         """``mailbox_kw`` passes backend-specific binds through to
         ``fabric.open_mailbox`` (``prog=``/``externals=``/``n_tiles=``/
-        ``agg_k=``/``prog_name=`` on the device-mesh fabric)."""
+        ``agg_k=``/``prog_name=`` on the device-mesh fabric).  The peer's
+        stats dict is aliased into the obs registry as ``peer.<name>``,
+        and a target context without an ``obs`` bundle gets this
+        dispatcher's."""
+        if stripe and rings > 1:
+            raise _later("striping (stripe=True)", "3(b)")
+        if codec is not None:
+            raise _later("wire codecs (codec=)", "3(b)")
         if name in self.peers:
             raise TransportError(f"peer {name!r} already attached")
-        if fabric.kind != "device":
-            raise TransportError(
-                f"{fabric.kind!r} lanes are not ported yet (device only)")
         peer = Peer(name, fabric, target_ctx,
                     target_args if target_args is not None else {})
         for _ in range(rings):
@@ -240,20 +354,43 @@ class Dispatcher:
             ch = fabric.connect(self.src_ctx, mb)
             peer.rings.append(RingState(mb, ch))
         self.peers[name] = peer
+        self.obs.metrics.register_dict(f"peer.{name}", peer.stats)
+        if (target_ctx is not None
+                and getattr(target_ctx, "obs", None) is None
+                and hasattr(target_ctx, "obs")):
+            target_ctx.obs = self.obs
         return peer
 
     # -- source side --------------------------------------------------------
 
     @staticmethod
     def _slim_ok(peer: Peer, lib) -> bool:
-        """SLIM-eligible: device lanes link at mailbox-open time, so code
-        never travels."""
-        return peer.fabric.kind == "device"
+        """SLIM-eligible: device lanes link at mailbox-open time (code never
+        travels); host lanes need a confirmed FULL delivery of this
+        digest."""
+        if peer.fabric.kind == "device":
+            return True
+        return lib.code_digest in peer.cached
+
+    @staticmethod
+    def _check_full_fits(lane: RingState, lib, payload_len: int,
+                         cont_len: int = 0) -> None:
+        """A SLIM frame must stay FULL-retransmittable: if the target evicts
+        the digest, the NACK fallback rebuilds code + payload into this same
+        ring — refuse at send time rather than wedge a later drain."""
+        need = (F.HEADER_LEN + len(lib.code) + payload_len + cont_len
+                + F.TRAILER_LEN)
+        if need > lane.mailbox.slot_size:
+            raise TransportError(
+                f"SLIM frame's FULL fallback ({need}B) exceeds slot "
+                f"{lane.mailbox.slot_size}B — NACK retransmit impossible")
 
     @staticmethod
     def _agg_eligible(peer: Peer) -> bool:
-        """Aggregate-eligible: every mailbox of the peer was opened
-        agg-bound (``agg_k=``)."""
+        """Aggregate-eligible: host lanes always; device lanes when every
+        mailbox of the peer was opened agg-bound (``agg_k=``)."""
+        if peer.fabric.kind != "device":
+            return True
         return all(r.mailbox.supports_agg for r in peer.rings)
 
     @staticmethod
@@ -262,22 +399,49 @@ class Dispatcher:
         lane = max(lanes, key=lambda r: r.credits)
         return lane if lane.credits > 0 else None
 
-    @staticmethod
-    def _bp(peer: Peer) -> None:
+    def _bp(self, peer: Peer) -> None:
+        """Count (and flight-record) one backpressure event."""
         peer.stats["backpressure"] += 1
+        if self.obs.enabled:
+            self.obs.recorder.add("backpressure", peer.name,
+                                  f"credits={peer.credits}")
 
     def _post_view(self, peer: Peer, lane: RingState, view, rec,
                    on_complete) -> None:
+        o = self.obs
+        device = peer.fabric.kind == "device"
+        if o.enabled and rec is not None:
+            o.recorder.add("put", peer.name,
+                           f"{rec.name} corr={rec.corr_id} {len(view)}B"
+                           f"{' slim' if rec.slim else ''}")
+            if o.tracer.enabled and rec.span is None and not device:
+                # the wire span: post -> delivery confirmation (poll OK),
+                # NACK, or reject — ended where the inflight record pops
+                rec.span = o.tracer.begin(
+                    f"put:{rec.name}@{peer.name}", cat="wire",
+                    actor=getattr(self.src_ctx, "name", "source"),
+                    corr=rec.corr_id or None, bytes=len(view))
         self.engine.post(lane.channel, view, lane.tail, peer=peer.name,
                          on_complete=on_complete)
         if rec is not None:
-            # device results come back by the coordinates this send
-            # stages into (the Mailbox.slot_coords contract)
-            coords = lane.mailbox.slot_coords(lane.tail)
-            if rec.subs is not None:
-                lane.agg_by_coords[coords] = rec
+            if not device:
+                lane.inflight[lane.tail] = rec
+                if len(lane.inflight) > 2 * lane.mailbox.n_slots:
+                    # the target swept outside this poll loop: drop
+                    # records of slots consumed elsewhere
+                    low = lane.mailbox.consumed
+                    for s in [s for s in lane.inflight if s < low]:
+                        del lane.inflight[s]
+            elif rec.subs is not None:
+                # device aggregates complete by the coordinates this send
+                # stages into: the sweep leaves per-sub outcomes in
+                # Mailbox.last_agg keyed the same way
+                lane.agg_by_coords[lane.mailbox.slot_coords(lane.tail)] = rec
             elif rec.corr_id:
-                lane.corr_by_coords[coords] = rec.corr_id
+                # device replies come back as sweep results at the
+                # coordinates this send stages into
+                lane.corr_by_coords[lane.mailbox.slot_coords(lane.tail)] = (
+                    rec.corr_id, rec.sent_at)
         lane.tail += 1
         peer.stats["sent"] += 1
         peer.stats["bytes"] += len(view)
@@ -297,39 +461,64 @@ class Dispatcher:
         self._post_view(peer, lane, slab[:n], rec, on_complete)
 
     def _flush_resends(self, peer: Peer) -> bool:
-        """Post queued FULL rebuilds (a NACKed sub-record's fallback) ahead
-        of any new traffic; False while the queue cannot drain.  They wait
-        until the peer's rings are quiescent (every frame in flight
-        resolved), so the resend queue replays ring order."""
+        """Post queued FULL rebuilds (the NACK fallback) ahead of any new
+        traffic; False while the queue cannot drain.
+
+        They wait until the peer's rings are quiescent (every frame in
+        flight resolved): an eviction NACKs every in-flight SLIM frame of
+        the digest, but the NACKs surface one sweep at a time — posting
+        the first rebuild before the rest have reported would reorder
+        execution at the target.  Waiting makes the resend queue a replay
+        of ring order."""
         if not peer.resend:
             return True
         if any(r.tail != r.mailbox.consumed for r in peer.rings):
-            return False
+            return False                       # storm not fully observed yet
+        o = self.obs
         while peer.resend:
             lane = self._pick_lane(peer, None)
             if lane is None:
                 return False
             msg = peer.resend.popleft()
             lib = msg.handle.lib
-            self._slab_post(peer, lane, msg.frame,
-                            _TxRec(lib.name, lib.code_digest, msg.handle,
-                                   slim=False, corr_id=msg.corr_id))
+            rec = _TxRec(lib.name, lib.code_digest, msg.handle, slim=False,
+                         corr_id=msg.corr_id)
+            if o.enabled:
+                o.recorder.add("resend", peer.name,
+                               f"{rec.name} corr={rec.corr_id} FULL")
+                if o.tracer.enabled and peer.fabric.kind != "device":
+                    # the resend is its own interval under "resend", tied
+                    # to the NACKed wire span by corr
+                    rec.span = o.tracer.begin(
+                        f"resend:{rec.name}@{peer.name}", cat="resend",
+                        actor=getattr(self.src_ctx, "name", "source"),
+                        corr=rec.corr_id or None)
+            self._slab_post(peer, lane, msg.frame, rec)
             peer.stats["resent"] += 1
         return True
 
+    def _queued_ahead(self, peer: Peer) -> bool:
+        """Post what is queued for the peer (resends, then coalesced
+        records); True — counting a backpressure event — when something
+        could not post, so a new frame must not overtake it."""
+        if self._flush_resends(peer) and self._flush_coalesce_peer(peer):
+            return False
+        self._bp(peer)
+        return True
+
     def send(self, peer_name: str, msg, *, ring: int | None = None,
-             on_complete=None) -> bool:
+             on_complete=None, future=None) -> bool:
         """Post one ifunc message to a peer.  Returns False (and counts a
         backpressure event) when every eligible ring is out of credits, or
         resends or coalesced records queued ahead of it cannot post yet.
 
         The frame is staged into the engine's slab cell for the chosen ring
-        slot, with the code section elided on the fly when the peer links
-        at open time (SLIM framing)."""
+        slot; if the peer is known to hold this handle's digest (or links
+        at open time), the code section is elided on the fly (SLIM)."""
+        if future is not None:
+            raise _later("futures", "3(a)")
         peer = self.peers[peer_name]
-        if not (self._flush_resends(peer)
-                and self._flush_coalesce_peer(peer)):
-            self._bp(peer)               # FIFO: what is queued goes first
+        if self._queued_ahead(peer):
             return False
         lane = self._pick_lane(peer, ring)
         if lane is None:
@@ -342,7 +531,9 @@ class Dispatcher:
             return True
         lib = handle.lib
         corr_id = getattr(msg, "corr_id", 0)
-        if getattr(msg, "cont", None) is not None:
+        cont = getattr(msg, "cont", None)
+        device = peer.fabric.kind == "device"
+        if cont is not None and device:
             raise TransportError(
                 "continuation frames are host-tier only (the device sweep "
                 "has no forwarding hook)")
@@ -350,13 +541,16 @@ class Dispatcher:
         want_slim = self._slim_ok(peer, lib)
         rec = _TxRec(lib.name, lib.code_digest, handle,
                      already_slim or want_slim, corr_id=corr_id)
+        if rec.slim and not device:
+            self._check_full_fits(lane, lib, len(msg.payload_view),
+                                  0 if cont is None else len(cont))
         if want_slim and not already_slim:
             # elide the code section while staging — the slab cell is the
             # only buffer the SLIM frame ever occupies
             slab = self.engine.slab_slot(lane.channel, lane.tail)
             n = F.pack_frame_into(slab, lib.name, b"", msg.payload_view,
                                   lib.kind, digest=lib.code_digest, slim=True,
-                                  corr_id=corr_id)
+                                  corr_id=corr_id, cont=cont)
             self._post_view(peer, lane, slab[:n], rec, on_complete)
         else:
             self._slab_post(peer, lane, frame, rec, on_complete)
@@ -365,29 +559,32 @@ class Dispatcher:
     def send_ifunc(self, peer_name: str, handle, source_args,
                    source_args_size: int | None = None, *,
                    ring: int | None = None, on_complete=None,
-                   corr_id: int = 0) -> bool:
+                   corr_id: int = 0, future=None) -> bool:
         """Zero-copy send: the payload codec writes straight into the
-        peer's slab cell and the header is sealed around it in place.  With
-        coalescing on and an agg-bound peer, the record queues for an
-        aggregate instead.  ``corr_id`` nonzero routes the result to
+        peer's slab cell and the header is sealed around it in place.  SLIM
+        once the peer's cache is known warm.  With coalescing on and an
+        aggregate-eligible peer, a cache-warm record queues for an
+        aggregate instead.  ``corr_id`` nonzero routes a device result to
         ``reply_router``."""
+        if future is not None:
+            raise _later("futures", "3(a)")
         peer = self.peers[peer_name]
+        lib = handle.lib
         if (self._coalesce and on_complete is None
-                and self._agg_eligible(peer)):
+                and self._agg_eligible(peer) and self._slim_ok(peer, lib)):
             return self._enqueue_sub(peer, handle, source_args,
                                      source_args_size, ring, corr_id)
-        if not (self._flush_resends(peer)
-                and self._flush_coalesce_peer(peer)):
-            self._bp(peer)               # FIFO: what is queued goes first
+        if self._queued_ahead(peer):
             return False
         lane = self._pick_lane(peer, ring)
         if lane is None:
             self._bp(peer)
             return False
-        lib = handle.lib
         source_args_size = _args_size(source_args, source_args_size)
         max_size = int(lib.payload_get_max_size(source_args, source_args_size))
         slim = self._slim_ok(peer, lib)
+        if slim and peer.fabric.kind != "device":
+            self._check_full_fits(lane, lib, max_size)
         code = b"" if slim else lib.code
         slab = self.engine.slab_slot(lane.channel, lane.tail)
         if (F.HEADER_LEN + len(code) + max_size
@@ -439,6 +636,10 @@ class Dispatcher:
                 return False
         payload = self._materialize_payload(lib, source_args,
                                             source_args_size)
+        if peer.fabric.kind != "device":
+            # the NACK fallback rebuilds this record as a FULL singleton
+            # into the same ring (device lanes never ship code)
+            self._check_full_fits(lane0, lib, len(payload))
         sub = _PendingSub(handle, lib.name, lib.kind, lib.code_digest,
                           payload, corr_id, None, time.monotonic())
         if len(payload) > self._agg_max_sub_bytes:
@@ -470,15 +671,21 @@ class Dispatcher:
         return True
 
     def send_ifunc_many(self, peer_name: str, handle, payloads, *,
-                        ring: int | None = None, corr_ids=None) -> int:
+                        ring: int | None = None, corr_ids=None,
+                        futures=None) -> int:
         """Bulk coalescing send: K invocations of one handle in one call.
-        ``corr_ids`` (a parallel list) routes results to ``reply_router``.
-        Returns the number of records accepted, stopping early at one it
-        cannot accept (backpressure).  Falls back to per-record
-        :meth:`send_ifunc` when coalescing is off or the peer is not
-        aggregate-eligible."""
+        ``corr_ids`` (a parallel list) routes device results to
+        ``reply_router``.  Returns the number of records accepted, stopping
+        early at one it cannot accept (backpressure, or a record whose
+        FULL fallback would not fit a ring slot).  Falls back to per-record
+        :meth:`send_ifunc` when coalescing is off, the peer is not
+        aggregate-eligible or its cache is not known warm."""
+        if futures is not None:
+            raise _later("futures", "3(a)")
         peer = self.peers[peer_name]
-        if not (self._coalesce and self._agg_eligible(peer)):
+        lib = handle.lib
+        if not (self._coalesce and self._agg_eligible(peer)
+                and self._slim_ok(peer, lib)):
             n = 0
             for i, args in enumerate(payloads):
                 if not self.send_ifunc(peer_name, handle, args, ring=ring,
@@ -487,12 +694,16 @@ class Dispatcher:
                     break
                 n += 1
             return n
-        lib = handle.lib
+        is_device = peer.fabric.kind == "device"
         lane0 = peer.rings[ring if ring is not None else 0]
+        cap = lane0.mailbox.slot_size
+        agg_k = getattr(lane0.mailbox, "agg_k", 0)
+        full_base = F.HEADER_LEN + len(lib.code) + F.TRAILER_LEN
         gms, init = lib.payload_get_max_size, lib.payload_init
         name, kind, digest = lib.name, lib.kind, lib.code_digest
         kind_int = int(kind)
-        max_subs = min(self._agg_max_subs, lane0.mailbox.agg_k)
+        max_subs = (min(self._agg_max_subs, agg_k) if agg_k
+                    else self._agg_max_subs)
         max_sub_bytes = self._agg_max_sub_bytes
         now = time.monotonic()
         payloads = (payloads if isinstance(payloads, (list, tuple))
@@ -511,6 +722,9 @@ class Dispatcher:
                 args = payloads[i]
                 sz = _args_size(args, None)
                 mx = int(gms(args, sz))
+                if not is_device and full_base + mx > cap:
+                    break                # FULL fallback cannot fit a ring
+                    #                      slot: the queue path refuses it
                 lane = self._pick_lane(peer, ring)
                 if lane is None:
                     break                # no credits: queue the remainder
@@ -535,10 +749,14 @@ class Dispatcher:
                 budget = len(view) - 4
                 hdrs: list[tuple] = []
                 subs: list[_PendingSub] = []
+                stop = False
                 while i < N and len(subs) < max_subs:
                     args = payloads[i]
                     sz = _args_size(args, None)
                     mx = int(gms(args, sz))
+                    if not is_device and full_base + mx > cap:
+                        stop = True      # FULL fallback cannot fit a ring
+                        break            # slot: the queue path refuses it
                     if mx > max_sub_bytes:
                         break            # seal first; the outer loop
                         #                  ships this record alone
@@ -570,12 +788,19 @@ class Dispatcher:
                 peer.stats["coalesced"] += len(subs)
                 self.stats["agg_sent"] += 1
                 n += len(subs)
+                if stop:
+                    break
 
         # -- the queue path: records behind an existing queue, and the
         # -- leftovers of backpressure — ONE implementation of the policy
         while i < N:
-            if not self._enqueue_sub(peer, handle, payloads[i], None, ring,
-                                     corr_ids[i] if corr_ids else 0):
+            try:
+                ok = self._enqueue_sub(peer, handle, payloads[i], None, ring,
+                                       corr_ids[i] if corr_ids else 0)
+            except TransportError:
+                break   # un-retransmittable record: a send_ifunc of it
+                #         raises the error with this record's identity
+            if not ok:
                 break
             i += 1
             n += 1
@@ -599,9 +824,17 @@ class Dispatcher:
         # the container header carries the records' code kind: the device
         # put rejects non-UVM frames at the header
         n = F.seal_agg_frame(slab, subs, kind=subs[0].kind)
-        self._post_view(peer, lane, slab[:n],
-                        _TxRec(F.AGG_NAME, F.NO_DIGEST, None, slim=True,
-                               subs=list(subs)), None)
+        rec = _TxRec(F.AGG_NAME, F.NO_DIGEST, None, slim=True,
+                     subs=list(subs))
+        o = self.obs
+        if o.tracer.enabled and peer.fabric.kind != "device":
+            # the flush of queued records is its own span (a directly
+            # packed container rides a plain wire span)
+            rec.span = o.tracer.begin(
+                f"agg:{len(subs)}@{peer.name}", cat="agg",
+                actor=getattr(self.src_ctx, "name", "source"),
+                subs=len(subs), bytes=n)
+        self._post_view(peer, lane, slab[:n], rec, None)
         peer.stats["agg_sent"] += 1
         peer.stats["agg_subs"] += len(subs)
         self.stats["agg_sent"] += 1
@@ -645,7 +878,9 @@ class Dispatcher:
                 continue
             subs = q.subs
             mb0 = peer.rings[key if key is not None else 0].mailbox
-            max_subs = min(self._agg_max_subs, mb0.agg_k)
+            agg_k = getattr(mb0, "agg_k", 0)
+            max_subs = (min(self._agg_max_subs, agg_k) if agg_k
+                        else self._agg_max_subs)
             posted = 0
             while posted < len(subs):
                 lane = self._pick_lane(peer, key)
@@ -666,14 +901,15 @@ class Dispatcher:
                 peer.coalesce[key] = nq
         return ok
 
-    def flush_coalesced(self, peer_name: str | None = None) -> bool:
+    def flush_coalesced(self, peer_name: str | None = None,
+                        ring: int | None | str = "all") -> bool:
         """Explicit coalescing-queue flush (all peers by default); False
         when a queue could not fully drain."""
         if peer_name is not None:
-            return self._flush_coalesce_peer(self.peers[peer_name])
+            return self._flush_coalesce_peer(self.peers[peer_name], ring)
         ok = True
         for p in self.peers.values():
-            ok = self._flush_coalesce_peer(p) and ok
+            ok = self._flush_coalesce_peer(p, ring) and ok
         return ok
 
     def _age_flush(self) -> None:
@@ -699,6 +935,13 @@ class Dispatcher:
     def _lanes(self) -> list[tuple[Peer, RingState]]:
         return [(p, r) for p in self.peers.values() for r in p.rings]
 
+    def _rebuild_full(self, lane: RingState, abs_slot: int, rec: _TxRec):
+        """NACK fallback: the SLIM frame still sits in the source slab cell
+        for its slot (the credit only just returned, nothing has overwritten
+        it); ``ifunc_msg_to_full`` restores the code section."""
+        view = self.engine.slab_slot(lane.channel, abs_slot)
+        return ifunc_msg_to_full(IfuncMsg(rec.handle, view, slim=True))
+
     def _route_reply(self, corr: int, name: str, value, is_err: bool,
                      decoded: bool) -> None:
         if self.reply_router is None:
@@ -706,71 +949,128 @@ class Dispatcher:
             return
         self.reply_router(corr, name, value, is_err, decoded)
 
+    def _end_span(self, rec: _TxRec | None, **args) -> None:
+        if rec is not None and rec.span is not None:
+            self.obs.tracer.end(rec.span, **args)
+            rec.span = None
+
     def _complete_agg(self, peer: Peer, lane: RingState, rec: _TxRec,
                       coords) -> int:
         """Source-side completion of one delivered aggregate: walk the
         per-sub outcomes the sweep left in ``Mailbox.last_agg`` under
-        ``coords``, queue a FULL-singleton rebuild for each NACKed record
-        (its executed siblings are never replayed), and route each
-        corr-carrying record's value or error to ``reply_router``.
-        Returns the consumed (OK or rejected) sub-records: the container's
-        share of the poll budget."""
+        ``coords``, confirm cached digests, queue a FULL-singleton rebuild
+        for each NACKed record (its executed siblings are never replayed),
+        and hand each corr-carrying record's value or error to
+        ``reply_router`` (device lanes) or count it ``reply_dropped`` (a
+        host lane has no reply ring here).  Returns the consumed (OK or
+        rejected) sub-records: the container's share of the poll
+        budget."""
+        o = self.obs
+        if o.enabled:
+            o.rtt_hist.observe((time.monotonic() - rec.sent_at) * 1e6)
+            self._end_span(rec, subs=len(rec.subs))
         results = lane.mailbox.last_agg.pop(coords, None)
-        if results is not None and len(results) != len(rec.subs):
+        subs = rec.subs
+        if results is not None and len(results) != len(subs):
             # a harvest that does not match the container sent: per-index
             # outcomes would be misattributed — delivered, without detail
             peer.stats["agg_harvest_lost"] += 1
             results = None
-        consumed = n_ok = n_rej = n_nack = 0
+        device = peer.fabric.kind == "device"
+        if results is not None and all(r is _AGG_PLAIN_OK for r in results):
+            # the dominant outcome: every record executed clean,
+            # fire-and-forget — the target handed back the shared OK
+            # marker for all of them, so skip the per-record walk
+            for sub in subs:
+                peer.cached.add(sub.digest)
+            peer.stats["delivered"] += len(subs)
+            self.stats["reply_dropped"] += sum(1 for s in subs if s.corr_id)
+            return len(subs)
+        consumed = n_ok = n_rej = n_nack = n_err = 0
         replies = []
-        for i, sub in enumerate(rec.subs):
+        for i, sub in enumerate(subs):
             res = results[i] if results is not None else None
             st = Status.OK if res is None else res.status
             if st == Status.NACK_UNCACHED:
                 n_nack += 1
-                lib = sub.handle.lib
-                frame = F.pack_frame(lib.name, lib.code, sub.payload,
-                                     lib.kind, digest=lib.code_digest,
-                                     corr_id=sub.corr_id)
-                peer.resend.append(IfuncMsg(sub.handle, frame, slim=False,
-                                            corr_id=sub.corr_id))
+                if o.enabled:
+                    o.recorder.add("nack", peer.name,
+                                   f"agg sub {sub.name} corr={sub.corr_id}")
+                peer.cached.discard(sub.digest)
+                if sub.handle is not None:
+                    lib = sub.handle.lib
+                    frame = F.pack_frame(lib.name, lib.code, sub.payload,
+                                         lib.kind, digest=lib.code_digest,
+                                         corr_id=sub.corr_id)
+                    peer.resend.append(IfuncMsg(sub.handle, frame, slim=False,
+                                                corr_id=sub.corr_id))
+                else:
+                    peer.stats["nack_lost"] += 1
                 continue
             consumed += 1
             if st == Status.REJECTED:
                 n_rej += 1
                 if sub.corr_id:
-                    replies.append((sub.corr_id, res.error, True))
+                    err = (res.error if res is not None
+                           and res.error is not None
+                           else TransportError("sub-record rejected"))
+                    replies.append((sub.corr_id, err, True))
                 continue
             n_ok += 1
+            peer.cached.add(sub.digest)
             if sub.corr_id:
-                replies.append((sub.corr_id,
-                                None if res is None else res.value, False))
+                if res is not None and res.error is not None:
+                    n_err += 1
+                    replies.append((sub.corr_id, res.error, True))
+                else:
+                    replies.append((sub.corr_id,
+                                    None if res is None else res.value,
+                                    False))
         s = peer.stats
         s["delivered"] += n_ok
         s["rejected"] += n_rej
+        s["errors"] += n_err
         s["nacks"] += n_nack
         self.stats["nacks"] += n_nack
-        for corr, value, is_err in replies:
-            self._route_reply(corr, peer.name, value, is_err, decoded=True)
-        s["replies"] += len(replies)
-        self.stats["replies"] += len(replies)
+        if replies and device:
+            # no reply ring on a mesh lane: the sweep's values ARE the
+            # results — route them directly, decoded
+            for corr, value, is_err in replies:
+                self._route_reply(corr, peer.name, value, is_err,
+                                  decoded=True)
+            s["replies"] += len(replies)
+            self.stats["replies"] += len(replies)
+        elif replies:
+            self.stats["reply_dropped"] += len(replies)
         return consumed
 
     def poll(self, budget: int | None = None) -> int:
         """Drain up to ``budget`` messages total across all peers' rings,
-        round-robin, starting one lane past last round's first server.  A
-        device-mesh lane sweeps whole-ring (its sweep is one pass over every
-        slot) and an aggregate container yields all its sub-records at
-        once, so a poll can overshoot ``budget`` by one sweep.  Results of
-        corr-carrying sends go to ``reply_router``; they do not count
-        against ``budget``.  Returns the messages delivered or rejected."""
+        round-robin.  A *budgeted* poll consumes at most one message per
+        lane per round, starting one lane past last round's first server;
+        an *unbudgeted* poll (the drain path) sweeps a whole ring's worth
+        of ready slots per host-lane visit.  A device-mesh lane always
+        sweeps whole-ring (one launch) and an aggregate container yields
+        all its sub-records at once, so a poll can overshoot ``budget`` by
+        one sweep.
+
+        OK deliveries confirm the target's code cache for the frame's
+        digest (enabling SLIM framing); NACK_UNCACHED consumes the slot,
+        un-confirms the digest and queues a FULL rebuild — for an
+        aggregate, per sub-record.  Device results of corr-carrying sends
+        go to ``reply_router``; they do not count against ``budget``.  An
+        ifunc that raised behind frames this sweep consumed re-raises
+        after those frames' statuses are processed.  Returns the messages
+        delivered or rejected."""
         if self._coalesce:
             self._age_flush()            # no record waits past max_age
         lanes = self._lanes()
         if not lanes:
             return 0
+        o = self.obs
         done = 0
         self.stats["poll_rounds"] += 1
+        take = 1 if budget is not None else None    # None -> whole ring
         progressed = True
         while progressed and (budget is None or done < budget):
             progressed = False
@@ -780,31 +1080,58 @@ class Dispatcher:
                 if budget is not None and done >= budget:
                     break
                 mb = lane.mailbox
-                res_before = len(mb.results)
-                sts = mb.sweep(peer.target_ctx, peer.target_args, budget=1)
-                # one results entry per consumed OK container or frame: a
-                # cursor over them keeps later statuses aligned
-                res_new = iter(mb.results[res_before:])
-                for st, coord in zip(sts, mb.last_coords):
+                track = peer.fabric.kind != "device"
+                slot = mb.head
+                if track:
+                    sts = mb.sweep(peer.target_ctx, peer.target_args,
+                                   budget=take)
+                    coords = res_new = None
+                else:
+                    res_before = len(mb.results)
+                    sts = mb.sweep(peer.target_ctx, peer.target_args,
+                                   budget=1)
+                    coords = mb.last_coords
+                    # one results entry per consumed OK container or
+                    # frame: a cursor over them keeps statuses aligned
+                    res_new = iter(mb.results[res_before:])
+                for i, st in enumerate(sts):
+                    rec = None
+                    coord = coords[i] if coords is not None else None
+                    if st in (Status.OK, Status.REJECTED,
+                              Status.NACK_UNCACHED):
+                        rec = (lane.inflight.pop(slot, None) if track
+                               else lane.agg_by_coords.pop(coord, None))
+                        slot += 1
                     if st == Status.OK:
                         progressed = True
-                        val = next(res_new, None)
-                        rec = lane.agg_by_coords.pop(coord, None)
-                        if rec is not None:
-                            done += self._complete_agg(peer, lane, rec, coord)
+                        val = None if track else next(res_new, None)
+                        if rec is not None and rec.subs is not None:
+                            done += self._complete_agg(
+                                peer, lane, rec,
+                                mb.slot_coords(slot - 1) if track else coord)
                             continue
                         peer.stats["delivered"] += 1
                         done += 1
-                        corr = lane.corr_by_coords.pop(coord, 0)
-                        if corr:         # device reply: the result IS it
-                            self._route_reply(corr, peer.name, val, False,
-                                              decoded=True)
+                        if rec is not None:
+                            peer.cached.add(rec.digest)
+                            if o.enabled:
+                                o.rtt_hist.observe(
+                                    (time.monotonic() - rec.sent_at) * 1e6)
+                                self._end_span(rec, status="ok")
+                        if not track:
+                            ent = lane.corr_by_coords.pop(coord, None)
+                            if ent:          # device reply: the result IS it
+                                self._route_reply(ent[0], peer.name, val,
+                                                  False, decoded=True)
                     elif st == Status.REJECTED:
                         peer.stats["rejected"] += 1
                         done += 1
                         progressed = True
-                        rec = lane.agg_by_coords.pop(coord, None)
-                        if rec is not None:
+                        if rec is not None and o.enabled:
+                            o.recorder.add("reject", peer.name,
+                                           f"{rec.name} corr={rec.corr_id}")
+                            self._end_span(rec, status="rejected")
+                        if rec is not None and rec.subs is not None:
                             # whole container rejected: every corr-carrying
                             # record resolves with the error, none ran
                             for sub in rec.subs:
@@ -814,23 +1141,50 @@ class Dispatcher:
                                         TransportError(
                                             "aggregate container rejected"),
                                         True, decoded=True)
-                        corr = lane.corr_by_coords.pop(coord, 0)
-                        if corr:
-                            self._route_reply(
-                                corr, peer.name,
-                                "frame rejected on device sweep", True,
-                                decoded=True)
+                        if not track:
+                            ent = lane.corr_by_coords.pop(coord, None)
+                            if ent:
+                                self._route_reply(
+                                    ent[0], peer.name,
+                                    "frame rejected on device sweep", True,
+                                    decoded=True)
+                    elif st == Status.NACK_UNCACHED:
+                        peer.stats["nacks"] += 1
+                        self.stats["nacks"] += 1
+                        progressed = True
+                        if rec is not None and o.enabled:
+                            o.recorder.add("nack", peer.name,
+                                           f"{rec.name} corr={rec.corr_id} "
+                                           f"slim miss")
+                            self._end_span(rec, status="nack")
+                        if rec is not None and rec.handle is not None:
+                            peer.cached.discard(rec.digest)
+                            peer.resend.append(
+                                self._rebuild_full(lane, slot - 1, rec))
+                        else:
+                            # a SLIM frame with no record or handle (a raw
+                            # send): nothing to rebuild — surface the loss
+                            peer.stats["nack_lost"] += 1
                     elif st == Status.IN_PROGRESS:
                         peer.stats["inflight_polls"] += 1
+                err = mb.pending_raise
+                if err is not None:
+                    # an ifunc raised behind frames this sweep consumed:
+                    # their completions are processed above — now the
+                    # exception surfaces
+                    mb.pending_raise = None
+                    raise err
             self._rr += 1
         self.stats["polled"] += done
         return done
 
-    def drain(self, max_rounds: int = 64) -> int:
+    def drain(self, max_rounds: int = 64, deadline: float | None = None) -> int:
         """flush + poll until quiescent: no outstanding puts, no consumable
         frames, no queued resends or coalesced records (or ``max_rounds``).
-        Returns total messages delivered/rejected (a NACKed sub-record
-        counts once, when its FULL rebuild lands)."""
+        Returns total messages delivered/rejected (a NACKed frame counts
+        once, when its FULL rebuild lands)."""
+        if deadline is not None:
+            raise _later("drain(deadline=)", "3(a)")
         total = 0
         for _ in range(max_rounds):
             for p in self.peers.values():
@@ -840,15 +1194,19 @@ class Dispatcher:
             n = self.poll()
             total += n
             if (n == 0 and self.engine.outstanding() == 0
-                    and not any(p.resend or p.coalesce
-                                for p in self.peers.values())):
+                    and not any(p.resend or any(
+                        q.subs for q in p.coalesce.values())
+                        for p in self.peers.values())):
                 break
         return total
 
     # -- reporting ----------------------------------------------------------
 
     def per_peer_stats(self) -> dict[str, dict]:
-        return {name: dict(p.stats, credits=p.credits)
+        now = time.monotonic()
+        return {name: dict(p.stats, credits=p.credits,
+                           oldest_inflight_s=round(
+                               p.oldest_inflight_age(now), 6))
                 for name, p in self.peers.items()}
 
     def print_stats(self) -> None:

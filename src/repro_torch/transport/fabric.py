@@ -11,13 +11,17 @@ Three roles, mirroring a thin UCX:
   ``flush`` (the in-flight window the frame trailer exists for).
 * :class:`Fabric`   — the factory tying the two together for one backend.
 
-Backends: :class:`RdmaFabric` (wraps ``core/rdma.py``) here and
-``DeviceMeshFabric`` in ``device_fabric.py``.  The loopback backend
-follows.  Nothing outside ``repro_torch.transport`` calls
-``Endpoint.put_nbi``: higher layers speak Channel/Mailbox only.
+Backends: :class:`RdmaFabric` (wraps ``core/rdma.py``) and
+:class:`LoopbackFabric` (zero-copy in-process, the stand-in for
+bus-attached targets) here, ``DeviceMeshFabric`` in ``device_fabric.py``.
+Nothing outside ``repro_torch.transport`` calls ``Endpoint.put_nbi``:
+higher layers speak Channel/Mailbox only.
 """
 
 from __future__ import annotations
+
+import time
+from dataclasses import dataclass
 
 from repro_torch.core import frame as F
 from repro_torch.core import rdma as R
@@ -100,6 +104,10 @@ class Mailbox:
         out = []
         self.last_coords = []
         budget = self.n_slots if budget is None else budget
+        obs = getattr(ctx, "obs", None)
+        t0 = (time.perf_counter() if obs is not None and obs.enabled
+              else None)
+        consumed0 = self.consumed
         for _ in range(budget):
             try:
                 st = A.poll_ifunc(ctx, self.slot_view(self.head), None,
@@ -125,6 +133,10 @@ class Mailbox:
                 self.consumed += 1
             else:
                 break
+        if t0 is not None and self.consumed != consumed0:
+            # only sweeps that consumed something observe: idle polls would
+            # flood the distribution with empty-peek latencies
+            obs.sweep_hist.observe((time.perf_counter() - t0) * 1e6)
         return out
 
 
@@ -286,6 +298,115 @@ class RdmaFabric(Fabric):
         return ch
 
 
+# ---------------------------------------------------------------------------
+# Loopback fabric (zero-copy in-process; the bus-attached target backend)
+
+
+@dataclass
+class _PendingLoopPut:
+    buf: bytearray
+    off: int            # where the withheld tail lands at flush
+    tail: bytes
+
+
+class LoopbackMailbox(Mailbox):
+    def __init__(self, fabric: "LoopbackFabric", n_slots: int,
+                 slot_size: int):
+        super().__init__()
+        self.fabric = fabric
+        self.n_slots, self.slot_size = n_slots, slot_size
+        self.buf = bytearray(n_slots * slot_size)
+
+    def slot_view(self, i: int) -> memoryview:
+        off = (i % self.n_slots) * self.slot_size
+        return memoryview(self.buf)[off:off + self.slot_size]
+
+
+class LoopbackChannel(Channel):
+    """Writes straight into the mailbox's buffer; a withheld tail waits in
+    ``_pending`` until :meth:`flush`."""
+
+    def __init__(self, mailbox: LoopbackMailbox):
+        super().__init__()
+        self.mailbox = mailbox
+        self._pending: list[_PendingLoopPut] = []
+
+    def _write(self, mv, at: int, n: int) -> None:
+        """Land the first ``n`` bytes of ``mv`` at buffer offset ``at`` and
+        withhold the rest until flush."""
+        buf = self.mailbox.buf
+        if n:
+            buf[at:at + n] = mv[:n]
+        if n < len(mv):
+            self._pending.append(_PendingLoopPut(buf, at + n, bytes(mv[n:])))
+            self.stats["partial"] += 1
+
+    def put(self, data, slot: int, *, deliver_bytes: int | None = None) -> None:
+        mb = self.mailbox
+        nd = len(data)
+        if nd > mb.slot_size:
+            raise TransportError(
+                f"frame {nd}B exceeds slot {mb.slot_size}B")
+        mv = data if isinstance(data, memoryview) else memoryview(data)
+        self._write(mv, (slot % mb.n_slots) * mb.slot_size,
+                    nd if deliver_bytes is None else min(deliver_bytes, nd))
+        self.stats["puts"] += 1
+        self.stats["bytes"] += nd
+
+    def put_at(self, data, slot: int, offset: int, *,
+               deliver_bytes: int | None = None) -> None:
+        mb = self.mailbox
+        nd = len(data)
+        if offset + nd > mb.slot_size:
+            raise TransportError(
+                f"put_at [{offset}, {offset + nd}) exceeds slot "
+                f"{mb.slot_size}B")
+        mv = data if isinstance(data, memoryview) else memoryview(data)
+        self._write(mv, (slot % mb.n_slots) * mb.slot_size + offset,
+                    nd if deliver_bytes is None else min(deliver_bytes, nd))
+        self.stats["puts"] += 1
+        self.stats["bytes"] += nd
+
+    def putv_at(self, segs, slot: int, *, withhold_tail: int = 0) -> None:
+        mb = self.mailbox
+        base = (slot % mb.n_slots) * mb.slot_size
+        last = len(segs) - 1
+        nbytes = 0
+        for i, (off, d) in enumerate(segs):
+            mv = d if isinstance(d, memoryview) else memoryview(d)
+            nd = len(mv)
+            nbytes += nd
+            if off + nd > mb.slot_size:
+                raise TransportError(
+                    f"putv [{off}, {off + nd}) exceeds slot {mb.slot_size}B")
+            self._write(mv, base + off,
+                        max(nd - withhold_tail, 0)
+                        if withhold_tail and i == last else nd)
+        self.stats["puts"] += 1
+        self.stats["bytes"] += nbytes
+
+    def flush(self) -> None:
+        for p in self._pending:
+            p.buf[p.off:p.off + len(p.tail)] = p.tail
+        self._pending.clear()
+        self.stats["flushes"] += 1
+
+
+class LoopbackFabric(Fabric):
+    """In-process zero-copy backend: no NIC, no rkeys — the floor every
+    latency number compares against, and the stand-in for bus-attached
+    targets (CSDs) whose 'network' is a memory bus."""
+
+    kind = "loopback"
+
+    def open_mailbox(self, target_ctx, n_slots: int,
+                     slot_size: int) -> LoopbackMailbox:
+        return LoopbackMailbox(self, n_slots, slot_size)
+
+    def connect(self, src_ctx, mailbox: LoopbackMailbox) -> LoopbackChannel:
+        return LoopbackChannel(mailbox)
+
+
 class LegacyRingMailbox(Mailbox):
     """Adapter: an ``rdma.RingBuffer`` viewed as a transport Mailbox, so
     ``poll_ring`` drains through the same sweep path as everything else.
@@ -335,6 +456,7 @@ def frame_fits(frame, mailbox: Mailbox) -> bool:
     return len(frame) <= mailbox.slot_size
 
 
-__all__ = ["Channel", "Fabric", "LegacyRingMailbox", "Mailbox", "RdmaChannel",
+__all__ = ["Channel", "Fabric", "LegacyRingMailbox", "LoopbackChannel",
+           "LoopbackFabric", "LoopbackMailbox", "Mailbox", "RdmaChannel",
            "RdmaFabric", "RdmaMailbox", "TransportError", "endpoint_channel",
            "frame_fits", "ring_mailbox"]

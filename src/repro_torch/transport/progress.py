@@ -72,6 +72,9 @@ class ProgressEngine:
         self._seq = 0
         self.stats = {"posted": 0, "completed": 0, "flushes": 0,
                       "auto_flushes": 0, "callbacks": 0, "slab_bytes": 0}
+        #: repro_torch.obs.Obs bundle — installed by the owning Dispatcher
+        #: so flush spans land in the same trace as its put/poll spans
+        self.obs = None
 
     # -- send slabs ---------------------------------------------------------
 
@@ -125,6 +128,13 @@ class ProgressEngine:
         entries.  Returns the number of completions."""
         keys = [id(channel)] if channel is not None else list(self._outstanding)
         n = 0
+        o = self.obs
+        sp = None
+        if (o is not None and o.enabled and o.tracer.enabled
+                and any(self._outstanding.get(k) for k in keys)):
+            sp = o.tracer.begin("flush", cat="engine", actor="engine",
+                                channels=sum(1 for k in keys
+                                             if self._outstanding.get(k)))
         for key in keys:
             handles = self._outstanding.pop(key, [])
             if not handles:
@@ -141,6 +151,8 @@ class ProgressEngine:
                 n += 1
         self.stats["completed"] += n
         self.stats["flushes"] += 1
+        if sp is not None:
+            o.tracer.end(sp, completions=n)
         return n
 
     def progress(self) -> int:

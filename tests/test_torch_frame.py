@@ -99,10 +99,16 @@ def test_pack_word_frame_too_long_raises():
         pack_word_frame(np.zeros(10, np.float32), 15)
 
 
-@pytest.mark.parametrize("n", [0, 1, 95, 96, 127, 128, 129, 4097])
-def test_fletcher32_equal(n):
+@pytest.mark.parametrize("wrap", [bytes, memoryview, bytearray])
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 95, 96, 127, 128, 129, 255, 256,
+                               1000, 4097, 8448])
+def test_fletcher32_equal(n, wrap):
+    """Equal to the reference's closed form and to its byte loop
+    (``tests/test_frame_v2.py::test_fletcher32_deterministic_equivalence``)
+    on bytes, memoryviews and bytearrays, odd lengths included."""
     data = np.random.default_rng(n).integers(0, 256, n, np.uint8).tobytes()
-    assert F.fletcher32(data) == RF.fletcher32(data)
+    assert F.fletcher32(wrap(data)) == RF.fletcher32(data)
+    assert F.fletcher32(wrap(data)) == RF.fletcher32_py(data)
 
 
 def test_peek_header_and_sections_round_trip(handles):

@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of ``repro_torch`` (the
 model stack's ``models/``, ``configs/``, ``train/`` with the training step
-and optimizers, ``data/`` and ``serving/`` included) and registering its
-ifunc library loads neither jax nor the JAX package.  The check runs in a
+and optimizers, ``data/``, ``serving/`` and ``obs/`` included) and
+registering its ifunc library loads neither jax nor the JAX package; nor
+does driving the Dispatcher's host lanes from ``repro_torch.obs`` and
+``repro_torch.transport`` alone.  The check runs in a
 subprocess because this test process has jax loaded already
 (``tests/conftest.py``)."""
 
@@ -38,7 +40,8 @@ print("STACK", all(m in mods for m in (
     "repro_torch.train.serve", "repro_torch.serving.batcher",
     "repro_torch.kernels.flash_attn", "repro_torch.kernels.ssd_scan",
     "repro_torch.train.step", "repro_torch.train.optim",
-    "repro_torch.data.pipeline")))
+    "repro_torch.data.pipeline", "repro_torch.obs.metrics",
+    "repro_torch.obs.trace", "repro_torch.obs.recorder")))
 print("FORBIDDEN", bad)
 """
 
@@ -53,6 +56,41 @@ def test_port_imports_no_jax_and_no_reference_package():
     n = int(re.search(r"MODULES (\d+)", r.stdout).group(1))
     assert n >= 40, r.stdout
     assert "STACK True" in r.stdout, r.stdout
+
+
+_PROBE_TRANSPORT = r"""
+import sys
+import repro_torch.obs, repro_torch.transport
+from repro_torch.core import Context, register_ifunc
+from repro_torch.obs import Obs
+from repro_torch.transport import (Dispatcher, LoopbackFabric,
+                                   ProgressEngine, RdmaFabric)
+d = Dispatcher(Context("src"), ProgressEngine(), obs=Obs("probe", trace=True))
+d.set_coalescing(True)
+for name, fab in (("rdma", RdmaFabric()), ("loop", LoopbackFabric())):
+    d.add_peer(name, fab, Context(name), target_args={"db": []})
+h = register_ifunc(d.src_ctx, "rle_insert")
+for name in d.peers:
+    assert d.send_ifunc(name, h, b"probe")
+d.drain()
+assert [p.target_args["db"] for p in d.peers.values()] == [[b"probe"]] * 2
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro") or m.startswith(
+                 ("jax.", "jaxlib.", "repro.")))
+print("FORBIDDEN", bad, d.obs.snapshot()["counters"]["dispatcher.sent"])
+"""
+
+
+def test_obs_and_transport_import_alone():
+    """``repro_torch.obs`` and ``repro_torch.transport`` on their own, a
+    host-lane Dispatcher with tracing driven through them: neither jax nor
+    the JAX package is loaded."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env.pop("REPRO_TORCH_IFUNC_LIB_DIR", None)
+    r = subprocess.run([sys.executable, "-c", _PROBE_TRANSPORT], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "FORBIDDEN [] 2" in r.stdout, r.stdout
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?![\w])",
