@@ -150,8 +150,32 @@ Phases, each of which fails the script (non-zero exit, no result line):
     generation under ``Obs`` with tracing, counters only and off, in
     turns; ``deliver_us``, ``sweep_us`` and ``exec_us`` at p50 and p99;
     the SMs' idle share over one traced generation.
+20. result futures over the reply path: a ``TaskRuntime``
+    (``ProgressEngine(8, "trailer")``, ``Obs(trace=True)``, coalescing up
+    to 64 records) over ``rdma`` (``RdmaFabric``) and ``csd``
+    (``LoopbackFabric``), each phase 18's 512 slots on a ``device="cuda"``
+    target with W resident and a reply ring of the same geometry, and
+    ``gpu`` (phase 4's mailbox, shift 0, no reply ring); 3 generations of
+    512 two-tile ``uvm_affine`` futures to each through
+    ``TaskRuntime.submit``, every ``Future.result()`` within rtol 1e-4,
+    atol 1e-5 of relu(x @ W), none pending, no orphan reply; 4,096
+    ``task_sum`` records to each host peer through ``submit_many`` in
+    FLAG_AGG containers answered by FLAG_AGG|FLAG_REPLY ones, every 64th
+    poisoned and raising ``RemoteExecutionError`` alone; one generation of
+    2,048 futures on the aggregate device lane at phase 8's shape; launches
+    counted across those three: ``ifunc_vm_smem_kernel`` once a host μVM
+    future, ``ring_sweep_smem_kernel`` and ``agg_sweep_smem_kernel`` once a
+    device sweep, nothing else, every plain version refusing; then a
+    wedged ``csd``: ``fail_inflight`` fails every outstanding future with
+    ``TransportError`` and its recorder dump names their corr ids, and
+    ``drain(deadline=0.5)`` fails the futures older than the deadline and
+    spares younger ones; no span left open.  Then futures/s per generation
+    and of each peer alone beside phase 19's frames/s of the same kind,
+    ``task.reply_us``, ``exec_us`` and ``sweep_us`` at p50 and p99, host
+    timers over the reply's D2H and pack and over the reply drain and
+    decode, and the SMs' idle share over a traced generation.
 
-The phases run in the order 1-9, 18, 19, 10-11, 14-17, 12-13: every
+The phases run in the order 1-9, 18, 19, 20, 10-11, 14-17, 12-13: every
 profiler session of the timings and the traced step comes before the
 serving phase's long traces, after which the profiler recorded no device
 time in a run on the H100.  A trace that comes back without the records of the
@@ -164,8 +188,10 @@ JSON line, one entry per TPU kernel.  The ``ring_poll`` and
 lanes (their ``standalone_*`` keys the poll kernels alone; ``ring_poll``
 counts phase 19's device sweeps too); ``ifunc_vm`` counts the sweeps it
 runs inside, ``host_launches`` its launches on the host target of phase
-18 (``host_ms`` the device time of one there) and
-``dispatcher_launches`` its launches on phase 19's host peers.
+18 (``host_ms`` the device time of one there),
+``dispatcher_launches`` its launches on phase 19's host peers and
+``future_launches`` those on phase 20's; ``ring_poll`` and
+``agg_ring_poll`` count phase 20's device sweeps too.
 """
 
 import contextlib
@@ -198,6 +224,14 @@ HOST_AM_RNDV = 100_000
 MP_HOSTS = (("rdma_a", "rdma"), ("rdma_b", "rdma"), ("csd", "loopback"))
 MP_SLOTS, MP_GENS, MP_EVICT_GEN, MP_BURST, MP_AGG = 512, 3, 1, 4096, 64
 MP_TURNS = 5                       # timed generations of each arm, in turns
+# the reply path (phase 20): rdma (RDMA) and csd (loopback) of 512
+# phase-18 slots each with a reply ring of the same geometry, beside the
+# device peer at phase 4's width; 3 generations of 512 two-tile μVM futures
+# to each; 4,096 task_sum records to each host peer in containers of up to
+# 64, every 64th poisoned; one generation of the aggregate device lane's
+# futures at phase 8's shape; drain(deadline=0.5) on a wedged csd
+FT_HOSTS = (("rdma", "rdma"), ("csd", "loopback"))
+FT_GENS, FT_BURST, FT_POISON, FT_TURNS, FT_DEADLINE = 3, 4096, 64, 3, 0.5
 
 # Published peaks (NVIDIA data sheets; dense, no sparsity): device-memory
 # bytes/s, FP32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s.
@@ -2388,7 +2422,8 @@ def phase_multi_peer(np, torch, dev, host_rate):
     in total beside phase 18's bare-API rate; one host generation under
     each obs mode; deliver_us, sweep_us and exec_us at p50 and p99; the
     SMs' idle share over one traced generation.  Returns the phase's
-    ``ifunc_vm`` launches and device sweeps."""
+    ``ifunc_vm`` launches, device sweeps and each peer kind's frames/s
+    alone."""
     import tempfile
 
     from torch.autograd import DeviceType
@@ -2451,9 +2486,12 @@ def phase_multi_peer(np, torch, dev, host_rate):
         + f"; the Dispatcher adds {per['rdma'] - per['bare']:.1f} µs a "
           f"frame on RDMA, {per['loopback'] - per['bare']:.1f} on loopback")
     wall = None
+    alone = {k: 1e6 / per[k] for k in ("rdma", "loopback")}
     for label, peers in (("device", ["gpu"]), ("hosts", hosts),
                          ("all", hosts + ["gpu"])):
         wall = gen(peers)
+        if label == "device":
+            alone["device"] = n / wall
         log(f"  {label}: {len(peers)} x {n} frames in {wall:.4f} s, "
             f"{len(peers) * n / wall:.1f} frames/s")
 
@@ -2496,7 +2534,488 @@ def phase_multi_peer(np, torch, dev, host_rate):
     theirs = {nm[:40] for nm in names if not any(k in nm for k in ours)}
     log(f"kernels in the traced generation: the repository's {sorted(ours)}; "
         f"PyTorch's (the deposit's roll and where, copies): {sorted(theirs)}")
-    return {"launches": res["counts"]["ifunc_vm"], "sweeps": res["sweeps"]}
+    return {"launches": res["counts"]["ifunc_vm"], "sweeps": res["sweeps"],
+            "rates": alone}
+
+
+def futures_runtime(np, torch, dev, obs, *, shards, dev_slots, host_slots,
+                    seed):
+    """Phase 20's topology: a ``TaskRuntime`` over one ``Dispatcher``
+    (``ProgressEngine(8, "trailer")``, ``obs``, coalescing up to
+    ``MP_AGG`` records) with ``rdma`` (``RdmaFabric``) and ``csd``
+    (``LoopbackFabric``), each a ``device=dev`` target of ``host_slots``
+    slots of phase 18's size with W resident on ``dev`` and a reply ring
+    of the same geometry, and ``gpu``, ``DeviceMeshFabric(shards,
+    shift=0)`` of ``dev_slots`` two-tile slots a shard with no reply ring.
+    Returns (runtime, ``uvm_affine`` handle, W, rng)."""
+    from repro_torch.core import Context, ifunc_msg_create, register_ifunc
+    from repro_torch.core import frame as F
+    from repro_torch.core.codegen import deserialize_uvm
+    from repro_torch.tasks import TaskRuntime, wire
+    from repro_torch.transport import (DeviceMeshFabric, Dispatcher,
+                                       LoopbackFabric, ProgressEngine,
+                                       RdmaFabric)
+
+    source = Context("source")
+    h = register_ifunc(source, "uvm_affine")
+    rng = np.random.default_rng(seed)
+    W = torch.from_numpy((rng.standard_normal((T, T)) * 0.05)
+                         .astype(np.float32)).to(dev)
+    d = Dispatcher(source, ProgressEngine(flush_threshold=8,
+                                          inflight_window="trailer"),
+                   obs=obs)
+    rt = TaskRuntime(source, d, coalesce=True, agg_max_subs=MP_AGG,
+                     default_timeout=120.0)
+    zeros = np.zeros((NT, T, T), np.float32)
+    slot = (ifunc_msg_create(h, zeros).nbytes + 4095) & ~4095
+    reply = F.HEADER_LEN + len(wire.encode(zeros)) + F.TRAILER_LEN
+    check(reply <= slot, f"a {NT}-tile reply ({reply} B) exceeds a reply "
+                         f"slot of {slot} B")
+    for name, kind in FT_HOSTS:
+        fabric = RdmaFabric() if kind == "rdma" else LoopbackFabric()
+        rt.add_peer(name, fabric, Context(name, link_mode="remote",
+                                          device=dev),
+                    n_slots=host_slots, slot_size=slot,
+                    target_args={"externals": {"W": W}, "results": []})
+    rt.add_peer("gpu", DeviceMeshFabric(shards, shift=0, device=dev), None,
+                n_slots=dev_slots, slot_size=(NT * T * T + 64) * 4,
+                prog=deserialize_uvm(h.lib.code), n_tiles=NT,
+                externals=W.expand(shards, 1, T, T))
+    return rt, h, W, rng
+
+
+def ft_generation(torch, dev, rt, h, peers, pays):
+    """Submit one payload after another to each of ``peers`` through
+    ``TaskRuntime.submit`` (which waits for credits by driving progress),
+    then drain; ends in a synchronize.  Returns (submit s, drain s,
+    {peer: futures})."""
+    futs = {p: [] for p in peers}
+    t0 = time.perf_counter()
+    for x in pays:
+        for peer in peers:
+            futs[peer].append(rt.submit(peer, h, x))
+    t1 = time.perf_counter()
+    rt.drain()
+    sync(torch, dev)
+    return t1 - t0, time.perf_counter() - t1, futs
+
+
+def ft_check(np, torch, rt, futs, pays, W, what):
+    """Every future of one generation resolved, its value within TOL_PATH
+    of relu(x @ W): numpy arrays decoded from reply frames on host peers,
+    the sweep's tensors on the card on the device peer.  Clears the
+    targets' results."""
+    want = torch.relu(torch.from_numpy(pays).to(W.device) @ W)
+    for name, fs in futs.items():
+        peer = rt.dispatcher.peers[name]
+        undone = [f for f in fs if not f.done()]
+        check(not undone, f"{what} {name}: {len(undone)} futures unresolved")
+        errs = [f.exception(0) for f in fs if f.exception(0) is not None]
+        check(not errs, f"{what} {name}: {len(errs)} futures failed: "
+                        f"{errs[:2]}")
+        vals = [f.result(0) for f in fs]
+        got = (torch.stack(vals) if peer.fabric.kind == "device"
+               else torch.from_numpy(np.stack(vals)).to(W.device))
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{what} {name}: results {tuple(got.shape)} or not finite")
+        check(torch.allclose(got, want, **TOL_PATH),
+              f"{what} {name}: max |err| "
+              f"{(got - want).abs().max().item():.3g}")
+        peer.target_args.get("results", []).clear()
+        if peer.fabric.kind == "device":
+            peer.rings[0].mailbox.results.clear()
+
+
+def ft_burst(rt, hosts, burst, poison):
+    """``task_sum`` (PYBC, run on the host) to each host peer: a FULL
+    warm-up future, then ``burst`` records through ``submit_many``, every
+    ``poison``-th poisoned.  Requests ride FLAG_AGG containers and the
+    replies FLAG_AGG|FLAG_REPLY ones: each good future holds its payload's
+    sum, each poisoned one raises ``RemoteExecutionError`` naming the
+    poison, its siblings unharmed.  Returns (request containers, reply
+    containers, poisoned futures)."""
+    from repro_torch.core import register_ifunc
+    from repro_torch.tasks import RemoteExecutionError
+
+    h = register_ifunc(rt.ctx, "task_sum")
+    for name in hosts:
+        check(rt.submit(name, h, b"warm").result(60) == sum(b"warm"),
+              f"{name}: task_sum warm-up")
+    pays = [bytes([255, i & 0x7F]) if i % poison == poison - 1
+            else bytes((i * 7 + j) % 200 + 1 for j in range(8))
+            for i in range(burst)]
+    before = {n: dict(rt.dispatcher.peers[n].stats) for n in hosts}
+    futs = {name: rt.submit_many(name, h, pays) for name in hosts}
+    rt.drain()
+    sent = replies = poisoned = 0
+    for name in hosts:
+        for i, f in enumerate(futs[name]):
+            check(f.done(), f"{name}: burst future {i} unresolved")
+            exc = f.exception(0)
+            if i % poison == poison - 1:
+                check(isinstance(exc, RemoteExecutionError)
+                      and "poisoned" in str(exc),
+                      f"{name}: poisoned record {i} gave {exc!r}")
+                poisoned += 1
+            else:
+                check(exc is None and f.result(0) == sum(pays[i]),
+                      f"{name}: record {i} gave {exc or f.result(0)!r}, "
+                      f"want {sum(pays[i])}")
+        s, b = rt.dispatcher.peers[name].stats, before[name]
+        sent += s["agg_sent"] - b["agg_sent"]
+        replies += s["agg_replies"] - b["agg_replies"]
+        check(s["agg_replies"] > b["agg_replies"]
+              and s["replies"] - b["replies"] == burst,
+              f"{name}: {s['replies'] - b['replies']} replies in "
+              f"{s['agg_replies'] - b['agg_replies']} reply containers for "
+              f"{burst} records")
+    return sent, replies, poisoned
+
+
+def ft_agg_device(np, torch, dev, W, *, shards, slots, k, seed):
+    """The aggregate device lane at phase 8's shape under a ``TaskRuntime``
+    of its own (tiles coalesce only under a raised ``max_sub_bytes``):
+    ``DeviceMeshFabric(shards, shift=0)``, ``slots`` containers a shard of
+    ``k`` one-tile records; one generation of ``shards * slots * k``
+    futures through ``submit_many``, each within TOL_PATH of relu(x @ W)."""
+    from repro_torch.core import Context, register_ifunc
+    from repro_torch.core.codegen import deserialize_uvm
+    from repro_torch.tasks import TaskRuntime
+    from repro_torch.transport import (DeviceMeshFabric, Dispatcher,
+                                       ProgressEngine)
+
+    source = Context("agg-source")
+    h = register_ifunc(source, "uvm_affine")
+    d = Dispatcher(source, ProgressEngine(flush_threshold=8,
+                                          inflight_window="trailer"))
+    rt = TaskRuntime(source, d, default_timeout=120.0)
+    d.set_coalescing(True, max_subs=k, max_sub_bytes=AGG_SUB_BYTES)
+    rt.add_peer("gpu-agg", DeviceMeshFabric(shards, shift=0, device=dev),
+                None, n_slots=slots, slot_size=k * (T * T * 4 + 128) + 4096,
+                prog=deserialize_uvm(h.lib.code), n_tiles=1,
+                externals=W.expand(shards, 1, T, T), agg_k=k,
+                prog_name=h.lib.name)
+    mb = d.peers["gpu-agg"].rings[0].mailbox
+    n = shards * slots * k
+    pays = np.random.default_rng(seed).standard_normal(
+        (n, 1, T, T)).astype(np.float32)
+    t0 = time.perf_counter()
+    ready, futs = sweep_log(mb, lambda: (
+        rt.submit_many("gpu-agg", h, list(pays)), rt.drain())[0])
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    check(all(f.done() and f.exception(0) is None for f in futs),
+          f"agg device futures: {sum(not f.done() for f in futs)} "
+          f"unresolved, {sum(f.exception(0) is not None for f in futs)} "
+          f"failed")
+    got = torch.stack([f.result(0) for f in futs])
+    want = torch.relu(torch.from_numpy(pays).to(dev) @ W)
+    check(got.shape == want.shape and bool(torch.isfinite(got).all())
+          and torch.allclose(got, want, **TOL_PATH),
+          f"agg device futures: max |err| "
+          f"{(got - want).abs().max().item():.3g}")
+    st = d.peers["gpu-agg"].stats
+    check((st["agg_sent"], st["agg_subs"], rt.pending())
+          == (shards * slots, n, 0), f"agg device futures: {st}")
+    log(f"aggregate device lane: {n} futures in {shards * slots} containers "
+        f"of {k}, {secs:.4f} s ({n / secs:.1f} futures/s); {len(ready)} "
+        f"sweeps, READY containers in each: {ready}")
+
+
+def ft_liveness(torch, rt, h, pays, W):
+    """A wedged ``csd`` (its ``Mailbox.sweep`` a no-op): ``fail_inflight``
+    resolves every outstanding future with ``TransportError`` and the
+    flight recorder's dump names each dead corr id; then
+    ``drain(deadline=FT_DEADLINE)`` fails the futures in flight for the
+    whole deadline and leaves alone those submitted halfway through it.
+    Unwedged, the young futures resolve within TOL_PATH of relu(x @ W)
+    and the dead requests' late replies count as orphans.  Returns the
+    futures failed."""
+    import io
+
+    from repro_torch.tasks import TaskState
+    from repro_torch.transport import TransportError
+
+    d = rt.dispatcher
+    mb = d.peers["csd"].rings[0].mailbox
+    orphans0 = rt.stats["orphan_replies"]
+    mb.sweep = lambda *a, **k: []                     # csd stops consuming
+    young, t_start = [], [None]
+
+    def wedged_but_submitting(*a, **k):
+        # halfway through the drain, submit futures the deadline must spare
+        if (not young and t_start[0] is not None
+                and time.monotonic() - t_start[0] >= FT_DEADLINE / 2):
+            young.extend(rt.submit("csd", h, x)
+                         for x in pays[:max(1, len(pays) // 2)])
+        return []
+
+    try:
+        dead = [rt.submit("csd", h, x) for x in pays]
+        rt.flush()
+        dump = io.StringIO()
+        with contextlib.redirect_stderr(dump):
+            failed = d.fail_inflight("csd wedged", peers={"csd"})
+        check(failed == len(dead) and all(
+            f.state is TaskState.ERROR
+            and isinstance(f.exception(0), TransportError) for f in dead),
+            f"fail_inflight: {failed} failed of {len(dead)}")
+        text = dump.getvalue()
+        missing = [f.corr_id for f in dead if f"corr={f.corr_id}" not in text]
+        check("flight recorder dump (fail_inflight: csd wedged)" in text
+              and not missing, f"the recorder dump misses corr ids {missing}")
+        old = [rt.submit("csd", h, x) for x in pays]
+        mb.sweep = wedged_but_submitting
+        t0 = time.monotonic()
+        t_start[0] = t0
+        timed_out = d.stats["timed_out"]
+        with contextlib.redirect_stderr(io.StringIO()):
+            rt.drain(deadline=FT_DEADLINE)
+        waited = time.monotonic() - t0
+        check(d.stats["timed_out"] - timed_out == len(old) and all(
+            isinstance(f.exception(0), TransportError)
+            and "drain deadline" in str(f.exception(0)) for f in old),
+            f"drain(deadline={FT_DEADLINE}): old futures "
+            f"{[f.state.name for f in old]}")
+        check(young and not any(f.done() for f in young),
+              f"drain(deadline={FT_DEADLINE}) touched the young futures: "
+              f"{[f.state.name for f in young]}")
+    finally:
+        del mb.sweep
+    rt.drain()                                        # csd consumes again
+    for f, x in zip(young, pays):
+        check(f.done() and f.exception(0) is None and torch.allclose(
+            torch.from_numpy(f.result(0)).to(W.device),
+            torch.relu(torch.from_numpy(x).to(W.device) @ W), **TOL_PATH),
+            f"young future after the wedge: {f!r}")
+    orphans = rt.stats["orphan_replies"] - orphans0
+    check(orphans == 2 * len(pays),
+          f"{orphans} orphan replies, want {2 * len(pays)} (the dead "
+          f"requests' late replies)")
+    log(f"liveness: csd wedged; fail_inflight failed {failed} futures with "
+        f"TransportError, the recorder dump naming each corr id; "
+        f"drain(deadline={FT_DEADLINE}) returned after {waited:.3f} s, "
+        f"failing {len(old)} old futures and sparing {len(young)} younger; "
+        f"unwedged, those resolved and {orphans} late replies were dropped "
+        f"as orphans")
+    return failed + len(old)
+
+
+def futures_path(np, torch, dev, *, shards=SHARDS, dev_slots=SLOTS_FULL,
+                 host_slots=MP_SLOTS, gens=FT_GENS, burst=FT_BURST,
+                 agg_slots=AGG_SLOTS, agg_k=AGG_K, live=8, seed=20):
+    """Phase 20's counted run: ``gens`` generations of ``shards *
+    dev_slots`` two-tile μVM futures to each of ``rdma``, ``csd`` and
+    ``gpu`` through ``TaskRuntime.submit`` (the first to each host peer
+    FULL, alone), the coalesced ``task_sum`` burst, one generation of
+    aggregate device-lane futures, with every launch counted (on the card,
+    where every plain version refuses to run); then the liveness checks
+    with ``live`` futures a batch.
+    Returns (runtime, handle, W, rng, a dict of what the run showed)."""
+    from repro_torch.obs import Obs
+
+    obs = Obs("futures", trace=True)
+    rt, h, W, rng = futures_runtime(np, torch, dev, obs, shards=shards,
+                                    dev_slots=dev_slots,
+                                    host_slots=host_slots, seed=seed)
+    d = rt.dispatcher
+    n = shards * dev_slots
+    hosts = [name for name, _ in FT_HOSTS]
+    peers = hosts + ["gpu"]
+    mb = d.peers["gpu"].rings[0].mailbox
+    sweeps = []
+
+    def counted_sweep(*a, **k):
+        before = _counted()["ring_sweep"].launches
+        ran = mb._deposited > 0
+        out = type(mb).sweep(mb, *a, **k)
+        if ran:
+            sweeps.append(_counted()["ring_sweep"].launches - before)
+        return out
+
+    mb.sweep = counted_sweep
+    sync(torch, dev)
+    reset_counts()
+    gen_s = []
+    try:
+        snap0 = obs.snapshot()
+        for g in range(gens):
+            pays = rng.standard_normal((n, NT, T, T)).astype(np.float32)
+            if g == 0:
+                # the first frame to each host peer ships FULL; its
+                # confirmed delivery turns the rest SLIM
+                a = ft_generation(torch, dev, rt, h, peers, pays[:1])
+                b = ft_generation(torch, dev, rt, h, peers, pays[1:])
+                futs = {p: a[2][p] + b[2][p] for p in peers}
+                submit_s, drain_s = a[0] + b[0], a[1] + b[1]
+            else:
+                submit_s, drain_s, futs = ft_generation(torch, dev, rt, h,
+                                                        peers, pays)
+            ft_check(np, torch, rt, futs, pays, W, f"generation {g}")
+            gen_s.append(submit_s + drain_s)
+            log(f"futures generation {g}: {len(peers)} x {n} μVM futures, "
+                f"submit {submit_s:.4f} s, drain {drain_s:.4f} s, "
+                f"{len(peers) * n / (submit_s + drain_s):.1f} futures/s")
+        check(rt.pending() == 0 and rt.stats["orphan_replies"] == 0,
+              f"after the μVM futures: {rt.pending()} pending, "
+              f"{rt.stats['orphan_replies']} orphan replies")
+        lat = hist_quantiles(obs, snap0)
+        after_uvm = read_counts()
+        containers, reply_containers, poisoned = ft_burst(
+            rt, hosts, burst, FT_POISON)
+        after_burst = read_counts()
+        ft_agg_device(np, torch, dev, W, shards=shards, slots=agg_slots,
+                      k=agg_k, seed=seed + 1)
+        counts = read_counts()
+    finally:
+        del mb.sweep
+    agg_sweeps = counts["agg_sweep"]
+    host_futures = gens * n * len(hosts)
+    log(f"coalesced replies: {burst} task_sum records to each of "
+        f"{len(hosts)} host peers in {containers} request containers, "
+        f"answered by {reply_containers} FLAG_AGG|FLAG_REPLY containers; "
+        f"{poisoned} poisoned records raised RemoteExecutionError, their "
+        f"siblings unharmed")
+    check(after_burst == after_uvm,
+          f"the PYBC burst launched kernels: {after_uvm} -> {after_burst}")
+    failed = ft_liveness(torch, rt, h, rng.standard_normal(
+        (live, NT, T, T)).astype(np.float32), W)
+    check(obs.tracer.open_count() == 0,
+          f"obs: {obs.tracer.open_count()} spans left open: "
+          f"{[s.name for s in obs.tracer.open_spans()][:8]}")
+    res = {"counts": counts, "sweeps": len(sweeps), "agg_sweeps": agg_sweeps,
+           "host_futures": host_futures, "gen_s": gen_s, "lat": lat,
+           "failed": failed}
+    if dev.type == "cuda":
+        check(counts["ifunc_vm"] == host_futures,
+              f"{counts['ifunc_vm']} ifunc_vm launches for {host_futures} "
+              f"host μVM futures")
+        check(sweeps and set(sweeps) == {1}
+              and counts["ring_sweep"] == len(sweeps),
+              f"{counts['ring_sweep']} ring_sweep launches in "
+              f"{len(sweeps)} device sweeps ({sorted(set(sweeps))} each)")
+        check(agg_sweeps > 0 and all(
+            v == 0 for k, v in counts.items()
+            if k not in ("ifunc_vm", "ring_sweep", "agg_sweep")),
+            f"phase 20 launched {counts}, want ifunc_vm, ring_sweep and "
+            f"agg_sweep alone")
+        log(f"futures launches {counts}: ifunc_vm_smem_kernel once for "
+            f"each of {host_futures} host μVM futures, "
+            f"ring_sweep_smem_kernel once in each of {len(sweeps)} device "
+            f"sweeps, agg_sweep_smem_kernel in {agg_sweeps}; no plain "
+            f"version ran")
+    d.print_stats()
+    return rt, h, W, rng, res
+
+
+def phase_futures(np, torch, dev, mp_rates, smi):
+    """Phase 20: result futures over the reply path (``futures_path`` at
+    full width, with every plain version refusing), then: futures/s of
+    each peer alone beside phase 19's frames/s of the same kind,
+    ``task.reply_us``, ``exec_us`` and ``sweep_us`` at p50 and p99, host
+    timers over the reply's encode (D2H and pack) and drain (and decode)
+    in one more generation, and the SMs' idle share over a traced one.
+    Every rate is logged with ``smi``, the card's name and power limit.
+    Returns the phase's ``ifunc_vm`` launches and device sweeps of both
+    lanes."""
+    import repro_torch.tasks.wire as wire
+    from torch.profiler import ProfilerActivity, profile
+
+    with no_plain():
+        rt, h, W, rng, res = futures_path(np, torch, dev)
+        d = rt.dispatcher
+        n = SHARDS * SLOTS_FULL
+        hosts = [p for p, _ in FT_HOSTS]
+        total = 3 * n * len(res["gen_s"]) / sum(res["gen_s"])
+        log(f"futures on {smi}: {total:.1f} futures/s over the counted "
+            f"generations (3 peers x {n} each), generations "
+            f"{[round(s, 4) for s in res['gen_s']]} s")
+        log(f"latency, the μVM futures on {smi} (µs, p50/p99 as "
+            "power-of-two bucket bounds, count): " + "; ".join(
+                f"{k} {v[0]}/{v[1]} ({v[2]})"
+                for k, v in sorted(res["lat"].items())))
+
+        def gen(peers):
+            pays = rng.standard_normal((n, NT, T, T)).astype(np.float32)
+            submit_s, drain_s, futs = ft_generation(torch, dev, rt, h,
+                                                    peers, pays)
+            ft_check(np, torch, rt, futs, pays, W,
+                     f"timed {'+'.join(peers)}")
+            return submit_s + drain_s
+
+        # each peer alone, in turns: futures/s beside phase 19's frames/s
+        # of the same kind (the reply path's cost a frame)
+        kinds = {"rdma": "rdma", "csd": "loopback", "gpu": "device"}
+        spent = {p: [] for p in kinds}
+        order = list(kinds)
+        for r in range(FT_TURNS):
+            for p in order[r % 3:] + order[:r % 3]:
+                spent[p].append(gen([p]))
+        for p, kind in kinds.items():
+            us = statistics.median(spent[p]) / n * 1e6
+            log(f"  {p} alone ({kind}), median of {FT_TURNS}: "
+                f"{1e6 / us:.1f} futures/s ({us:.1f} µs a future), "
+                f"{1e6 / us / mp_rates[kind]:.3f}x phase 19's "
+                f"{mp_rates[kind]:.1f} frames/s, "
+                f"{us - 1e6 / mp_rates[kind]:+.1f} µs a frame ({smi})")
+        wall = gen(hosts + ["gpu"])
+        log(f"  all three: {3 * n} futures in {wall:.4f} s, "
+            f"{3 * n / wall:.1f} futures/s ({smi})")
+
+        # host timers over one more generation to the host peers: the
+        # submit, the reply's encode (the result's D2H, then the NPY pack)
+        # and post (pack_reply_into and the put, the encode inside it), and
+        # the source's drain of its reply rings with the decode inside it
+        spent = {"submit": [], "d2h": [], "encode": [], "post": [],
+                 "drain": [], "decode": []}
+
+        def timed(key, fn):
+            def wrapped(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    spent[key].append(time.perf_counter() - t)
+            return wrapped
+
+        saved = (wire._tensor_to_numpy, wire.encode, wire.decode)
+        wire._tensor_to_numpy = timed("d2h", saved[0])
+        wire.encode = timed("encode", saved[1])
+        wire.decode = timed("decode", saved[2])
+        d._drain_replies = timed("drain", d._drain_replies)
+        d._post_reply = timed("post", d._post_reply)
+        rt.submit = timed("submit", rt.submit)
+        try:
+            host_wall = gen(hosts)
+        finally:
+            wire._tensor_to_numpy, wire.encode, wire.decode = saved
+            del d._drain_replies, d._post_reply, rt.submit
+        replies = len(spent["encode"])
+        check(replies == len(hosts) * n and len(spent["decode"]) == replies,
+              f"timed generation: {replies} encodes, "
+              f"{len(spent['decode'])} decodes for {len(hosts) * n} futures")
+        per = {k: sum(v) / replies * 1e6 for k, v in spent.items()}
+        log(f"reply path on the host, one generation of {len(hosts)} x {n} "
+            f"μVM futures ({host_wall:.4f} s, "
+            f"{host_wall / replies * 1e6:.1f} µs a future), per future: "
+            f"submit {per['submit']:.1f} µs; D2H {per['d2h']:.1f} µs, NPY "
+            f"pack {per['encode'] - per['d2h']:.1f} µs, reply frame and put "
+            f"{per['post'] - per['encode']:.1f} µs; drain "
+            f"{per['drain'] - per['decode']:.1f} µs and decode "
+            f"{per['decode']:.1f} µs ({len(spent['drain'])} drains; {smi})")
+
+        # the SMs' idle share over one traced generation to all three
+        pays = rng.standard_normal((n, NT, T, T)).astype(np.float32)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, futs = ft_generation(torch, dev, rt, h, hosts + ["gpu"],
+                                       pays)
+        ft_check(np, torch, rt, futs, pays, W, "traced generation")
+        log_card_busy(prof, wall, f"{smi} per futures generation",
+                      ("ifunc_vm_smem_kernel", "ring_sweep_smem_kernel"))
+    check(rt.pending() == 0, f"{rt.pending()} futures left pending")
+    return {"launches": res["counts"]["ifunc_vm"], "sweeps": res["sweeps"],
+            "agg_sweeps": res["agg_sweeps"]}
 
 
 # ------------------------------------------------------------ model stack
@@ -3267,6 +3786,11 @@ def main():
     vm["dispatcher_launches"] = mp["launches"]
     vm["launches"] += mp["sweeps"]        # it runs inside those sweeps
     kernels[0]["launches"] += mp["sweeps"]
+    ft = phase_futures(np, torch, dev, mp["rates"], smi)
+    vm["future_launches"] = ft["launches"]
+    vm["launches"] += ft["sweeps"] + ft["agg_sweeps"]
+    kernels[0]["launches"] += ft["sweeps"]
+    kernels[2]["launches"] += ft["agg_sweeps"]
     model_errs = phase_model_kernels(np, torch, dev)
     bwd_errs = phase_bwd_kernels(np, torch, dev)
     # timed, and a train step traced, before the serving phase's long

@@ -7,7 +7,8 @@ from repro_torch.core.api import (AggSubResult, Context, IfuncHandle,
                                   IfuncMsg, Status, deregister_ifunc,
                                   ifunc_msg_create, ifunc_msg_free,
                                   ifunc_msg_send_nbix, ifunc_msg_to_full,
-                                  poll_ifunc, poll_ring, register_ifunc)
+                                  poll_ifunc, poll_ring, register_ifunc,
+                                  submit)
 from repro_torch.core.codegen import LinkError, SymbolSpace, assemble
 from repro_torch.core.frame import CodeKind, FrameError
 from repro_torch.core.rdma import Access, AccessDenied, Nic, RingBuffer
@@ -20,4 +21,4 @@ __all__ = ["Access", "AccessDenied", "AggSubResult", "AmContext",
            "RingBuffer", "SecurityPolicy", "Status", "SymbolSpace",
            "assemble", "deregister_ifunc", "ifunc_msg_create",
            "ifunc_msg_free", "ifunc_msg_send_nbix", "ifunc_msg_to_full",
-           "poll_ifunc", "poll_ring", "register_ifunc"]
+           "poll_ifunc", "poll_ring", "register_ifunc", "submit"]

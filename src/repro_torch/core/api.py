@@ -6,6 +6,7 @@
     ifunc_msg_free(msg)                  ~ ucp_ifunc_msg_free
     ifunc_msg_send_nbix(ep, msg, addr, rkey) ~ ucp_ifunc_msg_send_nbix
     poll_ifunc(ctx, buf, size, target_args)  ~ ucp_poll_ifunc
+    submit(runtime, peer, handle, args)  -> tasks.Future (result-returning)
 
 Registration happens at the *source*; the frame carries the code; the
 target auto-links first-seen names (hash-table cached) and rejects
@@ -205,6 +206,17 @@ def ifunc_msg_to_full(msg: IfuncMsg) -> IfuncMsg:
 
 def ifunc_msg_free(msg: IfuncMsg) -> None:
     msg.frame = bytearray()
+
+
+def submit(runtime, peer: str, handle: IfuncHandle, source_args,
+           source_args_size: int | None = None, **kw):
+    """Dispatch a *result-returning* task: ship ``handle``'s ifunc to
+    ``peer`` with a fresh correlation id and get a ``tasks.Future`` back —
+    the ucp-style surface over ``repro_torch.tasks.TaskRuntime.submit``.
+    The future resolves when the target's reply frame (or device sweep
+    result) comes back through the dispatcher's reply demux; if the ifunc
+    raised, ``Future.result()`` re-raises a ``RemoteExecutionError``."""
+    return runtime.submit(peer, handle, source_args, source_args_size, **kw)
 
 
 def ifunc_msg_send_nbix(ep, msg: IfuncMsg, remote_addr: int | None = None,

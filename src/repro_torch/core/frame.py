@@ -264,6 +264,22 @@ def pack_frame(name: str, code: bytes, payload, kind: CodeKind, *,
     return buf
 
 
+def pack_reply(name: str, payload, kind: CodeKind, corr_id: int, *,
+               err: bool = False) -> bytearray:
+    """A result-return frame: no code section, no continuation, FLAG_REPLY
+    set, the request's corr_id echoed; ``err=True`` marks the payload as
+    an encoded exception rather than a value."""
+    return pack_frame(name, b"", payload, kind, corr_id=corr_id,
+                      flags=FLAG_REPLY | (FLAG_ERR if err else 0))
+
+
+def pack_reply_into(buf, name: str, payload, kind: CodeKind, corr_id: int, *,
+                    err: bool = False) -> int:
+    """:func:`pack_reply` into a preallocated buffer (a slab cell)."""
+    return pack_frame_into(buf, name, b"", payload, kind, corr_id=corr_id,
+                           flags=FLAG_REPLY | (FLAG_ERR if err else 0))
+
+
 def peek_header(buf, max_frame: int | None = None) -> FrameHeader | None:
     """Validate + parse the header at buf[0:].  Returns None if no message
     has arrived (zeroed magic); raises FrameError on corruption/bounds."""
@@ -547,6 +563,18 @@ class AggBatch:
                        bool(self.flags[i] & AGG_SUBFLAG_ERR))
                 for i in range(self.n)]
 
+    def reply_tuples(self) -> list[tuple]:
+        """``(corr_id, name, payload bytes, err)`` per record, the reply
+        demux's projection (payloads copied: the reply frame is cleared
+        right after the demux)."""
+        mv, names, name_idx = self.mv, self.names, self.name_idx
+        starts, plens = self.starts, self.plens
+        corrs, flags = self.corrs, self.flags
+        return [(corrs[i], names[name_idx[i]],
+                 bytes(mv[starts[i]:starts[i] + plens[i]]),
+                 bool(flags[i] & AGG_SUBFLAG_ERR))
+                for i in range(self.n)]
+
 
 def parse_agg(payload) -> AggBatch:
     """Decode an aggregate payload: one structured read of the sub-record
@@ -610,14 +638,14 @@ def unpack_agg(payload) -> list[AggSub]:
     return parse_agg(payload).subs()
 
 
-def seal_agg_frame(buf, subs, *, kind: CodeKind = CodeKind.PYBC) -> int:
-    """Pack ``subs`` and seal the FLAG_AGG request container around them,
-    in place in ``buf`` (a slab cell); returns the frame length.  (Reply
-    containers come with the reply ring: device lanes route results
-    straight to the reply router.)"""
+def seal_agg_frame(buf, subs, *, reply: bool = False,
+                   kind: CodeKind = CodeKind.PYBC) -> int:
+    """Pack ``subs`` and seal the FLAG_AGG container around them, in place
+    in ``buf`` (a slab cell); returns the frame length.  ``reply=True``
+    seals a coalesced reply (``FLAG_AGG|FLAG_REPLY``)."""
     cap = len(buf) - HEADER_LEN - TRAILER_LEN
     if cap <= 0:
         raise FrameError(f"buffer {len(buf)}B cannot hold an aggregate")
     used = pack_agg_into(frame_payload_view(buf, 0, cap), subs)
     return seal_frame(buf, AGG_NAME, b"", kind, used, digest=NO_DIGEST,
-                      flags=FLAG_AGG)
+                      flags=FLAG_AGG | (FLAG_REPLY if reply else 0))

@@ -41,12 +41,24 @@ ships as a plain SLIM singleton after the queue ahead of it, so per-peer
 FIFO holds.  The target reports per-sub-record outcomes
 (``Mailbox.last_agg``): a NACKed record alone is rebuilt as a FULL
 singleton on the resend queue (its siblings are never replayed), a
-rejected one counts, and a corr-carrying record's result goes to
-``reply_router`` on a device lane.  A host peer has no reply ring here,
-so its corr-carrying results count as ``reply_dropped``.
+rejected one counts, and the corr-carrying records' results come back
+coalesced too: ONE ``FLAG_AGG|FLAG_REPLY`` frame on the reply ring.
 
-Device lanes have no reverse ring: sweep results *are* the replies,
-correlated to corr ids by the coordinates each send staged into.
+The result-return path (the task runtime's wire, see ``repro_torch.tasks``):
+
+* a request carrying a nonzero ``corr_id`` asks for the ifunc's output
+  back; a host peer gets a *reply ring* (a source-owned mailbox the target
+  writes ``FLAG_REPLY`` frames into) through :meth:`attach_reply_ring`;
+* the poll loop, executing a corr-carrying request at such a peer,
+  captures ``target_args["result"]`` (or the exception the ifunc raised:
+  the slot is consumed, not wedged) and posts it, encoded by the pluggable
+  ``reply_codec``, as a reply frame with the same corr id;
+  :meth:`poll_replies` drains the reply rings into ``reply_router``;
+* device lanes have no reverse ring: sweep results *are* the replies,
+  correlated to corr ids by the coordinates each send staged into;
+* every tracked frame is timestamped, and ``drain(deadline=)`` fails the
+  futures of frames stuck at a wedged peer (:meth:`fail_inflight`)
+  instead of letting them hang.
 
 Every peer's stats dict, the dispatcher's and the engine's are aliased
 into one :class:`~repro_torch.obs.Obs` registry; puts, NACKs, resends,
@@ -54,9 +66,9 @@ rejects and backpressure land in its flight recorder, and with tracing on
 each host frame's life is a ``wire`` span from put to poll outcome (a
 resend its own ``resend`` span, a container its ``agg`` span).
 
-Streams, wire codecs and striping; reply rings, futures and liveness
-failure; fault injection, side-band pollers and peer removal raise
-:class:`TransportError` naming the ROADMAP.md item they come with.
+Streams, wire codecs and striping; fault injection, side-band pollers and
+peer removal raise :class:`TransportError` naming the ROADMAP.md item they
+come with.
 """
 
 from __future__ import annotations
@@ -123,6 +135,7 @@ class _PendingSub:
     payload: object         # bytes, or a view into the slab cell it rides in
     corr_id: int
     cont: bytes | None      # always None: no flow hook is ported
+    future: object          # the task runtime's Future, or None
     enq_at: float
     err: bool = False       # request records never carry the reply-err bit
 
@@ -185,6 +198,13 @@ class Peer:
     cached: set = field(default_factory=set)       # digests confirmed cached
     resend: deque = field(default_factory=deque)   # FULL msgs queued post-NACK
     coalesce: dict = field(default_factory=dict)   # ring key -> _CoalesceQ
+    reply_mailbox: object = None   # source-owned ring the target replies into
+    reply_channel: object = None   # target->source path into it
+    reply_tail: int = 0            # target-side produce index for replies
+    fence: int = 0                 # generation fence: a reply whose corr was
+    #                                allocated under an earlier generation
+    #                                (corr_gen < fence) is dropped and counted
+    #                                as fenced_orphans; 0 = never fenced
     stats: dict = field(
         default_factory=lambda: dict.fromkeys(_PEER_STAT_KEYS, 0))
 
@@ -197,6 +217,13 @@ class Peer:
     @property
     def credits(self) -> int:
         return sum(r.credits for r in self.rings)
+
+    @property
+    def reply_credits(self) -> int:
+        if self.reply_mailbox is None:
+            return 0
+        return self.reply_mailbox.n_slots - (self.reply_tail
+                                             - self.reply_mailbox.consumed)
 
     def oldest_inflight_age(self, now: float | None = None) -> float:
         """Age (seconds) of the oldest tracked frame still awaiting its
@@ -259,10 +286,14 @@ class Dispatcher:
         if getattr(self.engine, "obs", None) is None:
             self.engine.obs = self.obs
             self.obs.metrics.register_dict("engine", self.engine.stats)
-        # the router receives (corr_id, name, value, is_err, decoded) for
-        # every corr-carrying device send once its result (or error) is
-        # known
+        # task-runtime hooks (see repro_torch.tasks): the router receives
+        # (corr_id, name, value, is_err, decoded); the codec provides
+        # encode(value) -> bytes / encode_error(exc) -> bytes for replies
         self.reply_router = None
+        self.reply_codec = None
+        self._sweep_raise = None   # deferred mid-batch ifunc exception (a
+        #       corr-less poisoned slot behind already-swept frames): poll
+        #       re-raises it after processing those frames' statuses
         self._coalesce = False
         self._agg_max_subs = 16
         self._agg_max_age = 5e-4
@@ -295,15 +326,6 @@ class Dispatcher:
 
     def send_stream(self, *a, **kw) -> bool:
         raise _later("streams", "3(b)")
-
-    def attach_reply_ring(self, *a, **kw) -> None:
-        raise _later("reply rings", "3(a)")
-
-    def poll_replies(self) -> int:
-        raise _later("reply rings", "3(a)")
-
-    def fail_inflight(self, *a, **kw) -> int:
-        raise _later("fail_inflight", "3(a)")
 
     def remove_peer(self, name: str) -> None:
         raise _later("peer removal", "5")
@@ -361,6 +383,20 @@ class Dispatcher:
             target_ctx.obs = self.obs
         return peer
 
+    def attach_reply_ring(self, name: str, mailbox, channel) -> None:
+        """Give a host peer a result-return path: ``mailbox`` is a
+        source-owned ring (opened on the source context), ``channel`` the
+        target->source path into it.  Corr-carrying requests executed at
+        this peer post their outputs there as FLAG_REPLY frames; device
+        peers need none (sweep results are correlated directly)."""
+        peer = self.peers[name]
+        if peer.fabric.kind == "device":
+            raise TransportError(
+                "device-mesh peers reply through the sweep, not a ring")
+        peer.reply_mailbox = mailbox
+        peer.reply_channel = channel
+        peer.reply_tail = 0
+
     # -- source side --------------------------------------------------------
 
     @staticmethod
@@ -407,7 +443,7 @@ class Dispatcher:
                                   f"credits={peer.credits}")
 
     def _post_view(self, peer: Peer, lane: RingState, view, rec,
-                   on_complete) -> None:
+                   on_complete, future=None) -> None:
         o = self.obs
         device = peer.fabric.kind == "device"
         if o.enabled and rec is not None:
@@ -422,7 +458,7 @@ class Dispatcher:
                     actor=getattr(self.src_ctx, "name", "source"),
                     corr=rec.corr_id or None, bytes=len(view))
         self.engine.post(lane.channel, view, lane.tail, peer=peer.name,
-                         on_complete=on_complete)
+                         on_complete=on_complete, future=future)
         if rec is not None:
             if not device:
                 lane.inflight[lane.tail] = rec
@@ -450,7 +486,7 @@ class Dispatcher:
         self.stats["sent"] += 1
 
     def _slab_post(self, peer: Peer, lane: RingState, frame, rec,
-                   on_complete=None) -> None:
+                   on_complete=None, future=None) -> None:
         """Stage a ready frame into the lane's slab cell and post it."""
         slab = self.engine.slab_slot(lane.channel, lane.tail)
         n = len(frame)
@@ -458,7 +494,7 @@ class Dispatcher:
             raise TransportError(
                 f"frame {n}B exceeds slot {lane.mailbox.slot_size}B")
         slab[:n] = frame
-        self._post_view(peer, lane, slab[:n], rec, on_complete)
+        self._post_view(peer, lane, slab[:n], rec, on_complete, future)
 
     def _flush_resends(self, peer: Peer) -> bool:
         """Post queued FULL rebuilds (the NACK fallback) ahead of any new
@@ -514,9 +550,8 @@ class Dispatcher:
 
         The frame is staged into the engine's slab cell for the chosen ring
         slot; if the peer is known to hold this handle's digest (or links
-        at open time), the code section is elided on the fly (SLIM)."""
-        if future is not None:
-            raise _later("futures", "3(a)")
+        at open time), the code section is elided on the fly (SLIM).
+        ``future`` is marked SENT by the flush that publishes the frame."""
         peer = self.peers[peer_name]
         if self._queued_ahead(peer):
             return False
@@ -527,7 +562,7 @@ class Dispatcher:
         frame = msg.frame if hasattr(msg, "frame") else msg
         handle = getattr(msg, "handle", None)
         if handle is None:                       # raw frame: no slim protocol
-            self._slab_post(peer, lane, frame, None, on_complete)
+            self._slab_post(peer, lane, frame, None, on_complete, future)
             return True
         lib = handle.lib
         corr_id = getattr(msg, "corr_id", 0)
@@ -551,9 +586,9 @@ class Dispatcher:
             n = F.pack_frame_into(slab, lib.name, b"", msg.payload_view,
                                   lib.kind, digest=lib.code_digest, slim=True,
                                   corr_id=corr_id, cont=cont)
-            self._post_view(peer, lane, slab[:n], rec, on_complete)
+            self._post_view(peer, lane, slab[:n], rec, on_complete, future)
         else:
-            self._slab_post(peer, lane, frame, rec, on_complete)
+            self._slab_post(peer, lane, frame, rec, on_complete, future)
         return True
 
     def send_ifunc(self, peer_name: str, handle, source_args,
@@ -564,16 +599,15 @@ class Dispatcher:
         peer's slab cell and the header is sealed around it in place.  SLIM
         once the peer's cache is known warm.  With coalescing on and an
         aggregate-eligible peer, a cache-warm record queues for an
-        aggregate instead.  ``corr_id`` nonzero routes a device result to
-        ``reply_router``."""
-        if future is not None:
-            raise _later("futures", "3(a)")
+        aggregate instead.  ``corr_id`` nonzero asks for the result back
+        (a reply frame, or a device sweep result, to ``reply_router``);
+        ``future`` is marked SENT by the flush that publishes the frame."""
         peer = self.peers[peer_name]
         lib = handle.lib
         if (self._coalesce and on_complete is None
                 and self._agg_eligible(peer) and self._slim_ok(peer, lib)):
             return self._enqueue_sub(peer, handle, source_args,
-                                     source_args_size, ring, corr_id)
+                                     source_args_size, ring, corr_id, future)
         if self._queued_ahead(peer):
             return False
         lane = self._pick_lane(peer, ring)
@@ -598,7 +632,7 @@ class Dispatcher:
                          digest=lib.code_digest, slim=slim, corr_id=corr_id)
         self._post_view(peer, lane, slab[:n],
                         _TxRec(lib.name, lib.code_digest, handle, slim,
-                               corr_id=corr_id), on_complete)
+                               corr_id=corr_id), on_complete, future)
         return True
 
     # -- coalesced dispatch -------------------------------------------------
@@ -617,7 +651,7 @@ class Dispatcher:
         return bytes(memoryview(buf)[:used])
 
     def _enqueue_sub(self, peer: Peer, handle, source_args, source_args_size,
-                     ring, corr_id) -> bool:
+                     ring, corr_id, future=None) -> bool:
         """Queue one invocation for aggregate packing (no ring credit is
         claimed until flush); flushes the queue first when this record
         would overflow the slot byte budget, and after adding when the
@@ -641,7 +675,7 @@ class Dispatcher:
             # into the same ring (device lanes never ship code)
             self._check_full_fits(lane0, lib, len(payload))
         sub = _PendingSub(handle, lib.name, lib.kind, lib.code_digest,
-                          payload, corr_id, None, time.monotonic())
+                          payload, corr_id, None, future, time.monotonic())
         if len(payload) > self._agg_max_sub_bytes:
             # bandwidth-bound record: ship it as a plain SLIM singleton,
             # after anything queued before it
@@ -674,14 +708,12 @@ class Dispatcher:
                         ring: int | None = None, corr_ids=None,
                         futures=None) -> int:
         """Bulk coalescing send: K invocations of one handle in one call.
-        ``corr_ids`` (a parallel list) routes device results to
-        ``reply_router``.  Returns the number of records accepted, stopping
-        early at one it cannot accept (backpressure, or a record whose
-        FULL fallback would not fit a ring slot).  Falls back to per-record
+        ``corr_ids`` / ``futures`` (parallel lists) tie records to the task
+        runtime's reply path.  Returns the number of records accepted,
+        stopping early at one it cannot accept (backpressure, or a record
+        whose FULL fallback would not fit a ring slot).  Falls back to per-record
         :meth:`send_ifunc` when coalescing is off, the peer is not
         aggregate-eligible or its cache is not known warm."""
-        if futures is not None:
-            raise _later("futures", "3(a)")
         peer = self.peers[peer_name]
         lib = handle.lib
         if not (self._coalesce and self._agg_eligible(peer)
@@ -690,7 +722,9 @@ class Dispatcher:
             for i, args in enumerate(payloads):
                 if not self.send_ifunc(peer_name, handle, args, ring=ring,
                                        corr_id=corr_ids[i] if corr_ids
-                                       else 0):
+                                       else 0,
+                                       future=futures[i] if futures
+                                       else None):
                     break
                 n += 1
             return n
@@ -741,7 +775,8 @@ class Dispatcher:
                                       digest=digest, slim=True, corr_id=cid)
                     self._post_view(peer, lane, slab[:fl],
                                     _TxRec(name, digest, handle, slim=True,
-                                           corr_id=cid), None)
+                                           corr_id=cid), None,
+                                    futures[i] if futures else None)
                     n += 1
                     i += 1
                     continue
@@ -771,7 +806,7 @@ class Dispatcher:
                     subs.append(_PendingSub(
                         handle, name, kind, digest,
                         pv if used == mx else view[off:off + used],
-                        cid, None, now))
+                        cid, None, futures[i] if futures else None, now))
                     off += used
                     i += 1
                 if not subs:
@@ -780,9 +815,11 @@ class Dispatcher:
                 plen = F.finish_agg(view, prologue_end, off, hdrs)
                 fl = F.seal_frame(slab, F.AGG_NAME, b"", kind, plen,
                                   digest=F.NO_DIGEST, flags=F.FLAG_AGG)
+                futs = [s.future for s in subs if s.future is not None]
                 self._post_view(peer, lane, slab[:fl],
                                 _TxRec(F.AGG_NAME, F.NO_DIGEST, None,
-                                       slim=True, subs=subs), None)
+                                       slim=True, subs=subs), None,
+                                futs or None)
                 peer.stats["agg_sent"] += 1
                 peer.stats["agg_subs"] += len(subs)
                 peer.stats["coalesced"] += len(subs)
@@ -796,7 +833,8 @@ class Dispatcher:
         while i < N:
             try:
                 ok = self._enqueue_sub(peer, handle, payloads[i], None, ring,
-                                       corr_ids[i] if corr_ids else 0)
+                                       corr_ids[i] if corr_ids else 0,
+                                       futures[i] if futures else None)
             except TransportError:
                 break   # un-retransmittable record: a send_ifunc of it
                 #         raises the error with this record's identity
@@ -819,11 +857,13 @@ class Dispatcher:
                                   corr_id=sub.corr_id)
             self._post_view(peer, lane, slab[:n],
                             _TxRec(sub.name, sub.digest, sub.handle,
-                                   slim=True, corr_id=sub.corr_id), None)
+                                   slim=True, corr_id=sub.corr_id), None,
+                            sub.future)
             return
         # the container header carries the records' code kind: the device
         # put rejects non-UVM frames at the header
         n = F.seal_agg_frame(slab, subs, kind=subs[0].kind)
+        futs = [s.future for s in subs if s.future is not None]
         rec = _TxRec(F.AGG_NAME, F.NO_DIGEST, None, slim=True,
                      subs=list(subs))
         o = self.obs
@@ -834,7 +874,7 @@ class Dispatcher:
                 f"agg:{len(subs)}@{peer.name}", cat="agg",
                 actor=getattr(self.src_ctx, "name", "source"),
                 subs=len(subs), bytes=n)
-        self._post_view(peer, lane, slab[:n], rec, None)
+        self._post_view(peer, lane, slab[:n], rec, None, futs or None)
         peer.stats["agg_sent"] += 1
         peer.stats["agg_subs"] += len(subs)
         self.stats["agg_sent"] += 1
@@ -942,12 +982,201 @@ class Dispatcher:
         view = self.engine.slab_slot(lane.channel, abs_slot)
         return ifunc_msg_to_full(IfuncMsg(rec.handle, view, slim=True))
 
+    def _sweep_task(self, peer: Peer, lane: RingState,
+                    max_slots: int = 1) -> list:
+        """Sweep up to ``max_slots`` ready slots of a reply-enabled host
+        lane: per slot, read the request's corr id before execution clears
+        the frame, take the ifunc's output (``target_args["result"]``) or
+        the exception it raised after, and post the encoded reply.  An
+        ifunc exception consumes the slot instead of wedging the ring; the
+        error travels back as a FLAG_ERR reply.  A corr-less frame has no
+        reply to carry the error, so after consuming the slot the
+        exception re-raises to the poll caller; mid-batch the raise is
+        deferred (``_sweep_raise``) until ``poll`` has processed the
+        statuses of the slots already swept, so a delivered aggregate
+        ahead of a poisoned slot still confirms digests and resolves its
+        futures.  Aggregate containers pass through here (header corr 0);
+        their replies coalesce in :meth:`_complete_agg`."""
+        mb = lane.mailbox
+        out: list = []
+        for _ in range(max_slots):
+            buf = mb.slot_view(mb.head)
+            hdr = mb.peek()
+            corr = 0 if hdr is None else hdr.corr_id
+            name = "" if hdr is None else hdr.name
+            kind = F.CodeKind.PYBC if hdr is None else hdr.code_kind
+            targs = peer.target_args
+            if isinstance(targs, dict):
+                targs.pop("result", None)
+            err = None
+            try:
+                sts = mb.sweep(peer.target_ctx, targs, budget=1)
+            except Exception as e:           # raised *inside* the ifunc
+                err = e
+                F.scrub_slot(buf)
+                mb.head += 1                 # consume the poisoned slot
+                mb.consumed += 1
+                peer.stats["errors"] += 1
+                if not corr:
+                    if not out:
+                        raise                # no future to carry the error
+                    self._sweep_raise = e    # raise after the batch's
+                    break                    # statuses are processed
+                sts = [Status.OK]            # delivered: it just raised
+            if corr and sts and sts[0] in (Status.OK, Status.REJECTED):
+                if err is not None:
+                    value, is_err = err, True
+                elif sts[0] == Status.REJECTED:
+                    value, is_err = TransportError(
+                        str(peer.target_ctx.stats.get(
+                            "last_reject", "frame rejected"))), True
+                else:
+                    value = (targs.get("result")
+                             if isinstance(targs, dict) else None)
+                    is_err = False
+                self._post_reply(peer, name, kind, corr, value, is_err)
+            out.extend(sts)
+            if not sts or sts[-1] not in (Status.OK, Status.REJECTED,
+                                          Status.NACK_UNCACHED):
+                break                        # empty / in progress: stop here
+        return out
+
+    def _post_agg_reply(self, peer: Peer, reply_subs: list[tuple]) -> None:
+        """Coalesce the results of one aggregate's corr-carrying records
+        into ONE ``FLAG_AGG|FLAG_REPLY`` frame on the peer's reply ring;
+        singleton replies when there is one result or the encoded batch
+        outgrows a reply slot."""
+        if peer.reply_channel is None or self.reply_codec is None:
+            self.stats["reply_dropped"] += len(reply_subs)
+            return
+        codec = self.reply_codec
+        wire = []
+        for sub, value, is_err in reply_subs:
+            try:
+                payload = (codec.encode_error(value) if is_err
+                           else codec.encode(value))
+            except Exception as e:           # unencodable result: the error
+                payload, is_err = codec.encode_error(e), True   # IS the reply
+            wire.append(F.AggSub(sub.name, sub.kind, F.NO_DIGEST,
+                                 sub.corr_id, payload, err=is_err))
+        if (len(wire) > 1
+                and F.agg_frame_len(wire) <= peer.reply_mailbox.slot_size):
+            if peer.reply_credits <= 0:
+                self._drain_replies(peer)
+            slab = self.engine.slab_slot(peer.reply_channel, peer.reply_tail)
+            n = F.seal_agg_frame(slab, wire, reply=True)
+            self.engine.post(peer.reply_channel, slab[:n], peer.reply_tail,
+                             peer=peer.name)
+            peer.reply_tail += 1
+            peer.stats["replies"] += len(wire)
+            peer.stats["agg_replies"] += 1
+            self.stats["replies"] += len(wire)
+            return
+        for sub, value, is_err in reply_subs:
+            self._post_reply(peer, sub.name, sub.kind, sub.corr_id, value,
+                             is_err)
+
+    def _post_reply(self, peer: Peer, name: str, kind, corr: int, value,
+                    is_err: bool) -> None:
+        """Pack a result into a FLAG_REPLY frame and post it target ->
+        source.  The source can always drain its own inbox, so a full reply
+        ring is drained inline rather than dropping the result."""
+        if peer.reply_channel is None or self.reply_codec is None:
+            self.stats["reply_dropped"] += 1
+            return
+        if peer.reply_credits <= 0:
+            self._drain_replies(peer)
+        codec = self.reply_codec
+        try:
+            payload = (codec.encode_error(value) if is_err
+                       else codec.encode(value))
+        except Exception as e:               # unencodable result: the error
+            payload, is_err = codec.encode_error(e), True   # IS the reply
+        slab = self.engine.slab_slot(peer.reply_channel, peer.reply_tail)
+        try:
+            n = F.pack_reply_into(slab, name, payload, kind, corr, err=is_err)
+        except F.FrameError as e:            # oversized value: error reply
+            n = F.pack_reply_into(slab, name, codec.encode_error(e), kind,
+                                  corr, err=True)
+        self.engine.post(peer.reply_channel, slab[:n], peer.reply_tail,
+                         peer=peer.name)
+        peer.reply_tail += 1
+        peer.stats["replies"] += 1
+        self.stats["replies"] += 1
+
     def _route_reply(self, corr: int, name: str, value, is_err: bool,
                      decoded: bool) -> None:
         if self.reply_router is None:
             self.stats["reply_dropped"] += 1
             return
         self.reply_router(corr, name, value, is_err, decoded)
+
+    def _drain_replies(self, peer: Peer, budget: int | None = None) -> int:
+        """Source side of the reply path: flush the target's pending reply
+        puts, then consume FLAG_REPLY frames from the peer's reply ring
+        into the router.  Corrupt reply slots are cleared and counted,
+        never wedged; a record stamped under a generation older than the
+        peer's fence is dropped as a fenced orphan."""
+        if peer.reply_mailbox is None:
+            return 0
+        self.engine.flush(peer.reply_channel)
+        mb = peer.reply_mailbox
+        n = 0
+        while budget is None or n < budget:
+            buf = mb.slot_view(mb.head)
+            try:
+                hdr = F.peek_header(buf)
+            except F.FrameError:
+                F.scrub_slot(buf)
+                mb.head += 1
+                mb.consumed += 1
+                peer.stats["reply_rejects"] += 1
+                continue
+            if hdr is None or not F.trailer_arrived(buf, hdr):
+                break
+            if hdr.is_agg:
+                # coalesced reply: one container, many corr ids
+                try:
+                    routed = F.parse_agg(
+                        F.frame_sections(buf, hdr)[1]).reply_tuples()
+                except F.FrameError:
+                    F.scrub_slot(buf)
+                    mb.head += 1
+                    mb.consumed += 1
+                    peer.stats["reply_rejects"] += 1
+                    continue
+                F.clear_frame(buf, hdr)
+                mb.head += 1
+                mb.consumed += 1
+                for corr, name, payload, is_err in routed:
+                    if peer.fence and F.corr_gen(corr) < peer.fence:
+                        peer.stats["fenced_orphans"] += 1
+                        continue
+                    self._route_reply(corr, name, payload, is_err,
+                                      decoded=False)
+                n += len(routed)
+                continue
+            payload = bytes(F.frame_sections(buf, hdr)[1])
+            corr, name, is_err = hdr.corr_id, hdr.name, hdr.is_err
+            F.clear_frame(buf, hdr)
+            mb.head += 1
+            mb.consumed += 1
+            if peer.fence and F.corr_gen(corr) < peer.fence:
+                peer.stats["fenced_orphans"] += 1
+                if self.obs.enabled:
+                    self.obs.recorder.add(
+                        "fenced_orphan", peer.name,
+                        f"corr={corr} gen={F.corr_gen(corr)} "
+                        f"fence={peer.fence}")
+                n += 1
+                continue
+            self._route_reply(corr, name, payload, is_err, decoded=False)
+            n += 1
+        return n
+
+    def poll_replies(self) -> int:
+        """Drain every peer's reply ring; returns replies routed."""
+        return sum(self._drain_replies(p) for p in self.peers.values())
 
     def _end_span(self, rec: _TxRec | None, **args) -> None:
         if rec is not None and rec.span is not None:
@@ -960,9 +1189,9 @@ class Dispatcher:
         per-sub outcomes the sweep left in ``Mailbox.last_agg`` under
         ``coords``, confirm cached digests, queue a FULL-singleton rebuild
         for each NACKed record (its executed siblings are never replayed),
-        and hand each corr-carrying record's value or error to
-        ``reply_router`` (device lanes) or count it ``reply_dropped`` (a
-        host lane has no reply ring here).  Returns the consumed (OK or
+        and coalesce the corr-carrying records' results into one reply
+        frame (a device lane, with no reply ring, routes each straight to
+        ``reply_router``).  Returns the consumed (OK or
         rejected) sub-records: the container's share of the poll
         budget."""
         o = self.obs
@@ -984,10 +1213,12 @@ class Dispatcher:
             for sub in subs:
                 peer.cached.add(sub.digest)
             peer.stats["delivered"] += len(subs)
-            self.stats["reply_dropped"] += sum(1 for s in subs if s.corr_id)
+            reply_subs = [(sub, None, False) for sub in subs if sub.corr_id]
+            if reply_subs:
+                self._post_agg_reply(peer, reply_subs)
             return len(subs)
         consumed = n_ok = n_rej = n_nack = n_err = 0
-        replies = []
+        reply_subs = []
         for i, sub in enumerate(subs):
             res = results[i] if results is not None else None
             st = Status.OK if res is None else res.status
@@ -1014,34 +1245,33 @@ class Dispatcher:
                     err = (res.error if res is not None
                            and res.error is not None
                            else TransportError("sub-record rejected"))
-                    replies.append((sub.corr_id, err, True))
+                    reply_subs.append((sub, err, True))
                 continue
             n_ok += 1
             peer.cached.add(sub.digest)
             if sub.corr_id:
                 if res is not None and res.error is not None:
                     n_err += 1
-                    replies.append((sub.corr_id, res.error, True))
+                    reply_subs.append((sub, res.error, True))
                 else:
-                    replies.append((sub.corr_id,
-                                    None if res is None else res.value,
-                                    False))
+                    reply_subs.append(
+                        (sub, None if res is None else res.value, False))
         s = peer.stats
         s["delivered"] += n_ok
         s["rejected"] += n_rej
         s["errors"] += n_err
         s["nacks"] += n_nack
         self.stats["nacks"] += n_nack
-        if replies and device:
+        if reply_subs and device:
             # no reply ring on a mesh lane: the sweep's values ARE the
             # results — route them directly, decoded
-            for corr, value, is_err in replies:
-                self._route_reply(corr, peer.name, value, is_err,
+            for sub, value, is_err in reply_subs:
+                self._route_reply(sub.corr_id, peer.name, value, is_err,
                                   decoded=True)
-            s["replies"] += len(replies)
-            self.stats["replies"] += len(replies)
-        elif replies:
-            self.stats["reply_dropped"] += len(replies)
+            s["replies"] += len(reply_subs)
+            self.stats["replies"] += len(reply_subs)
+        elif reply_subs:
+            self._post_agg_reply(peer, reply_subs)
         return consumed
 
     def poll(self, budget: int | None = None) -> int:
@@ -1058,7 +1288,8 @@ class Dispatcher:
         digest (enabling SLIM framing); NACK_UNCACHED consumes the slot,
         un-confirms the digest and queues a FULL rebuild — for an
         aggregate, per sub-record.  Device results of corr-carrying sends
-        go to ``reply_router``; they do not count against ``budget``.  An
+        and reply frames go to ``reply_router`` (the reply rings drain at
+        the end of every poll); they do not count against ``budget``.  An
         ifunc that raised behind frames this sweep consumed re-raises
         after those frames' statuses are processed.  Returns the messages
         delivered or rejected."""
@@ -1082,7 +1313,11 @@ class Dispatcher:
                 mb = lane.mailbox
                 track = peer.fabric.kind != "device"
                 slot = mb.head
-                if track:
+                if track and peer.reply_channel is not None:
+                    sts = self._sweep_task(
+                        peer, lane, take if take is not None else mb.n_slots)
+                    coords = res_new = None
+                elif track:
                     sts = mb.sweep(peer.target_ctx, peer.target_args,
                                    budget=take)
                     coords = res_new = None
@@ -1167,37 +1402,170 @@ class Dispatcher:
                             peer.stats["nack_lost"] += 1
                     elif st == Status.IN_PROGRESS:
                         peer.stats["inflight_polls"] += 1
-                err = mb.pending_raise
+                err = self._sweep_raise or mb.pending_raise
                 if err is not None:
-                    # an ifunc raised behind frames this sweep consumed:
+                    # an ifunc raised behind frames this sweep consumed
+                    # (the reply lane's _sweep_task or a plain sweep):
                     # their completions are processed above — now the
                     # exception surfaces
+                    self._sweep_raise = None
                     mb.pending_raise = None
                     raise err
             self._rr += 1
+        self.poll_replies()
         self.stats["polled"] += done
         return done
+
+    def _pending_inflight(self) -> int:
+        """Tracked frames still awaiting their target's sweep (host-lane
+        records, pruning those consumed elsewhere; device corr ids and
+        aggregates), plus queued resends and coalesced records."""
+        n = 0
+        for peer in self.peers.values():
+            for lane in peer.rings:
+                low = lane.mailbox.consumed
+                for s in [s for s in lane.inflight if s < low]:
+                    del lane.inflight[s]
+                n += (len(lane.inflight) + len(lane.corr_by_coords)
+                      + len(lane.agg_by_coords))
+            n += len(peer.resend)
+            n += sum(len(q.subs) for q in peer.coalesce.values())
+        return n
+
+    def _fail(self, corr: int, peer: Peer, msg: str) -> int:
+        """Resolve one corr id with a TransportError; 1 if it carried one."""
+        if not corr:
+            return 0
+        self._route_reply(corr, peer.name, TransportError(msg), True,
+                          decoded=True)
+        return 1
+
+    def fail_inflight(self, reason: str = "liveness deadline exceeded",
+                      min_age: float = 0.0,
+                      peers: set | None = None) -> int:
+        """Give up on tracked in-flight frames at least ``min_age`` seconds
+        old: corr-carrying records resolve their futures with a
+        TransportError through the reply router instead of hanging on a
+        wedged peer, and the records and that peer's queued resends and
+        coalesced records are dropped.  ``min_age`` makes this a per-frame
+        floor: a healthy peer consuming its backlog only has young records
+        and keeps them.  ``peers`` scopes the pass to named peers.  Returns
+        the futures failed."""
+        now = time.monotonic()
+        o = self.obs
+        failed = 0
+        targets = (list(self.peers.values()) if peers is None
+                   else [p for n, p in self.peers.items() if n in peers])
+        for peer in targets:
+            timed_out = 0
+            for lane in peer.rings:
+                low = lane.mailbox.consumed
+                for slot in sorted(lane.inflight):
+                    rec = lane.inflight[slot]
+                    if slot >= low and now - rec.sent_at < min_age:
+                        continue         # young: the peer may still be alive
+                    del lane.inflight[slot]
+                    self._end_span(rec, status="failed")
+                    if slot < low:
+                        continue
+                    if o.enabled:
+                        o.recorder.add(
+                            "fail_inflight", peer.name,
+                            f"{rec.name} corr={rec.corr_id} "
+                            f"age={now - rec.sent_at:.3f}s")
+                    if rec.subs is not None:
+                        for sub in rec.subs:   # aggregate: fail per record
+                            timed_out += self._fail(
+                                sub.corr_id, peer,
+                                f"{sub.name} (coalesced) to {peer.name!r}: "
+                                f"{reason}")
+                        continue
+                    timed_out += self._fail(
+                        rec.corr_id, peer,
+                        f"{rec.name} to {peer.name!r}: {reason} "
+                        f"(in flight {now - rec.sent_at:.3f}s)")
+                for coords, (corr, sent_at) in list(
+                        lane.corr_by_coords.items()):
+                    if now - sent_at < min_age:
+                        continue
+                    del lane.corr_by_coords[coords]
+                    timed_out += self._fail(
+                        corr, peer, f"device lane {peer.name!r}: {reason}")
+                for coords, rec in list(lane.agg_by_coords.items()):
+                    if now - rec.sent_at < min_age:
+                        continue         # device aggregate: fail per record
+                    del lane.agg_by_coords[coords]
+                    for sub in rec.subs or ():
+                        timed_out += self._fail(
+                            sub.corr_id, peer,
+                            f"{sub.name} (device agg) to {peer.name!r}: "
+                            f"{reason}")
+            if timed_out:
+                while peer.resend:       # resends to a dead peer: drop
+                    msg = peer.resend.popleft()
+                    timed_out += self._fail(
+                        getattr(msg, "corr_id", 0), peer,
+                        f"queued retransmit to {peer.name!r}: {reason}")
+                for key in list(peer.coalesce):  # queued coalesced records
+                    q = peer.coalesce.pop(key)   # to a dead peer: drop too
+                    for sub in q.subs:
+                        timed_out += self._fail(
+                            sub.corr_id, peer,
+                            f"queued coalesced {sub.name} to "
+                            f"{peer.name!r}: {reason}")
+                peer.stats["timed_out"] += timed_out
+                failed += timed_out
+        self.stats["timed_out"] += failed
+        if failed and o.enabled:
+            o.recorder.add("fail_inflight", "",
+                           f"{failed} futures failed: {reason}")
+            if o.dump_on_fail:
+                o.dump(f"fail_inflight: {reason}")
+        return failed
 
     def drain(self, max_rounds: int = 64, deadline: float | None = None) -> int:
         """flush + poll until quiescent: no outstanding puts, no consumable
         frames, no queued resends or coalesced records (or ``max_rounds``).
         Returns total messages delivered/rejected (a NACKed frame counts
-        once, when its FULL rebuild lands)."""
-        if deadline is not None:
-            raise _later("drain(deadline=)", "3(a)")
+        once, when its FULL rebuild lands).
+
+        ``deadline`` (seconds) is the liveness floor: the drain cranks
+        while tracked frames are in flight (``max_rounds`` does not apply;
+        the bound is wall time), and once the deadline passes it fails,
+        through :meth:`fail_inflight`, the futures of frames in flight for
+        at least the whole deadline."""
+        t0 = time.monotonic()
         total = 0
-        for _ in range(max_rounds):
+        rounds = 0
+        while True:
+            rounds += 1
             for p in self.peers.values():
                 self._flush_resends(p)
                 self._flush_coalesce_peer(p)   # drain = explicit flush
             self.engine.progress()
             n = self.poll()
             total += n
-            if (n == 0 and self.engine.outstanding() == 0
+            idle = (n == 0 and self.engine.outstanding() == 0
                     and not any(p.resend or any(
                         q.subs for q in p.coalesce.values())
-                        for p in self.peers.values())):
+                        for p in self.peers.values()))
+            if deadline is None:
+                if idle or rounds >= max_rounds:
+                    break
+                continue
+            if idle and self._pending_inflight() == 0:
                 break
+            if time.monotonic() - t0 >= deadline:
+                self.obs.record(
+                    "drain_deadline", "",
+                    f"{deadline:.3g}s exceeded, "
+                    f"{self._pending_inflight()} frames inflight")
+                self.fail_inflight(
+                    f"drain deadline ({deadline:.3g}s) exceeded",
+                    min_age=deadline)
+                break
+            if idle:
+                time.sleep(0)        # wedged-peer spin: yield the CPU
         return total
 
     # -- reporting ----------------------------------------------------------

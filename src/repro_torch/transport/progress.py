@@ -29,7 +29,9 @@ from repro_torch.transport.fabric import Channel
 
 @dataclass
 class TxHandle:
-    """One posted put: completes (callback + CQ entry) at flush time."""
+    """One posted put: completes (callback + CQ entry) at flush time.
+    ``future`` ties it to a task Future, or for an aggregate container to a
+    list of them: the flush that publishes the frame marks each SENT."""
 
     seq: int
     channel: Channel
@@ -38,6 +40,7 @@ class TxHandle:
     peer: str | None = None
     done: bool = False
     on_complete: object = None
+    future: object = None
 
 
 @dataclass
@@ -71,7 +74,8 @@ class ProgressEngine:
         self._slabs: dict[int, tuple[bytearray, int, int]] = {}
         self._seq = 0
         self.stats = {"posted": 0, "completed": 0, "flushes": 0,
-                      "auto_flushes": 0, "callbacks": 0, "slab_bytes": 0}
+                      "auto_flushes": 0, "callbacks": 0, "slab_bytes": 0,
+                      "futures_sent": 0}
         #: repro_torch.obs.Obs bundle — installed by the owning Dispatcher
         #: so flush spans land in the same trace as its put/poll spans
         self.obs = None
@@ -105,13 +109,15 @@ class ProgressEngine:
         return max(nbytes - int(w), 0)
 
     def post(self, channel: Channel, frame, slot: int, *,
-             peer: str | None = None, on_complete=None) -> TxHandle:
+             peer: str | None = None, on_complete=None,
+             future=None) -> TxHandle:
         """Non-blocking send of one frame into ``slot`` of the channel's
         mailbox.  The frame is not guaranteed visible at the target until
-        the returned handle completes."""
+        the returned handle completes; ``future`` (a task Future, or a list
+        of them) is marked SENT by the flush that publishes it."""
         self._seq += 1
         h = TxHandle(self._seq, channel, len(frame), slot, peer=peer,
-                     on_complete=on_complete)
+                     on_complete=on_complete, future=future)
         channel.put(frame, slot, deliver_bytes=self._window(len(frame)))
         key = id(channel)
         self._channels[key] = channel
@@ -145,6 +151,12 @@ class ProgressEngine:
                 h.done = True
                 self.completion_queue.append(
                     Completion(h.seq, h.peer, h.nbytes, h.slot))
+                if h.future is not None:
+                    futs = (h.future if isinstance(h.future, (list, tuple))
+                            else (h.future,))
+                    for f in futs:
+                        f._mark_sent(h.seq)
+                    self.stats["futures_sent"] += len(futs)
                 if h.on_complete is not None:
                     h.on_complete(h)
                     self.stats["callbacks"] += 1

@@ -983,3 +983,66 @@ def test_hlo_frame_on_a_card_target_matches_the_cpu(cuda):
         out[dev] = targs["result"]
     assert out["cuda"].device.type == "cuda"
     assert torch.equal(out["cuda"].cpu(), out["cpu"])
+
+
+@pytest.mark.cuda
+def test_uvm_future_over_a_reply_ring_on_a_card_target(cuda):
+    """A μVM task through ``TaskRuntime`` to an RDMA peer on a
+    ``device="cuda"`` target with a reply ring: one ``ifunc_vm`` launch,
+    the result on the card copied to the host once by the wire codec,
+    the future's numpy value within rtol 1e-4, atol 1e-5 of relu(x @ W)."""
+    from repro_torch.tasks import TaskRuntime
+    from repro_torch.transport import RdmaFabric
+
+    src = Context("src", device="cuda")
+    rt = TaskRuntime(src, engine=ProgressEngine(inflight_window="trailer"))
+    h = register_ifunc(src, "uvm_affine")
+    rng = np.random.default_rng(23)
+    W = torch.from_numpy((rng.standard_normal((T, T)) * 0.05)
+                         .astype(np.float32)).to(cuda)
+    rt.add_peer("rdma", RdmaFabric(), Context("rdma", link_mode="remote",
+                                              device="cuda"),
+                n_slots=4, slot_size=132 << 10,
+                target_args={"externals": {"W": W}})
+    assert rt.dispatcher.peers["rdma"].reply_mailbox is not None
+    x = rng.standard_normal((2, T, T)).astype(np.float32)
+    before = ifunc_vm.launches
+    fut = rt.submit("rdma", h, x)
+    got = fut.result(60)
+    assert ifunc_vm.launches == before + 1
+    assert isinstance(got, np.ndarray) and got.shape == (2, T, T)
+    want = torch.relu(torch.from_numpy(x).to(cuda) @ W).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    assert rt.pending() == 0 and rt.dispatcher.peers["rdma"].stats[
+        "replies"] == 1
+
+
+@pytest.mark.cuda
+def test_device_lane_future_on_the_card(cuda):
+    """A μVM task through ``TaskRuntime`` to a ``DeviceMeshFabric`` peer
+    on the card: no reply ring; the sweep's result tensor, on the card,
+    resolves the future within rtol 1e-4, atol 1e-5 of relu(x @ W)."""
+    from repro_torch.tasks import TaskRuntime
+
+    src = Context("src")
+    rt = TaskRuntime(src, engine=ProgressEngine(inflight_window="trailer"))
+    h = register_ifunc(src, "uvm_affine")
+    rng = np.random.default_rng(29)
+    W = torch.from_numpy((rng.standard_normal((T, T)) * 0.05)
+                         .astype(np.float32)).to(cuda)
+    rt.add_peer("gpu", DeviceMeshFabric(2, shift=0, device="cuda"), None,
+                n_slots=2, slot_size=(2 * T * T + 64) * 4,
+                prog=deserialize_uvm(h.lib.code), n_tiles=2,
+                externals=W.expand(2, 1, T, T))
+    assert rt.dispatcher.peers["gpu"].reply_mailbox is None
+    xs = [rng.standard_normal((2, T, T)).astype(np.float32) for _ in range(3)]
+    before = ifunc_vm_sweep.launches
+    futs = [rt.submit("gpu", h, x) for x in xs]
+    for x, fut in zip(xs, futs):
+        got = fut.result(60)
+        assert got.device.type == "cuda" and got.shape == (2, T, T)
+        torch.testing.assert_close(
+            got, torch.relu(torch.from_numpy(x).to(cuda) @ W),
+            rtol=1e-4, atol=1e-5)
+    assert ifunc_vm_sweep.launches > before
+    assert rt.pending() == 0 and rt.stats["resolved"] == 3

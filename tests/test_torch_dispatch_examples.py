@@ -13,7 +13,8 @@ port, at the examples' own sizes on the CPU.
   and OBS_OK gates (``chip_smoke.multi_peer_gates``).
 * The codec hot swap runs through both packages from one library file,
   and through the port's own ``rle_insert`` as ``chip_smoke.py`` phase 19
-  runs it; phase 19's counted path runs here at a small size.
+  runs it; the counted paths of phase 19 and of phase 20 (result
+  futures over the reply path) run here at a small size.
 """
 
 import shutil
@@ -186,7 +187,7 @@ def test_offload_compress_matches_reference(lib_dir, tmp_path):
     (rdb, rst, rstats), (pdb, pst, pstats) = out
     assert pdb == rdb and pst == rst
     drop = lambda s: {k: v for k, v in s.items()  # noqa: E731
-                      if k not in ("oldest_inflight_s", "futures_sent")}
+                      if k != "oldest_inflight_s"}
     assert [tuple(drop(x) for x in s) for s in pstats] == \
         [tuple(drop(x) for x in s) for s in rstats]
 
@@ -211,3 +212,26 @@ def test_chip_smoke_phase19_path_on_cpu(tmp_path):
     for q in (res["act_one"], res["act_two"]):
         assert {"transport.deliver_us", "target.sweep_us",
                 "target.exec_us"} <= set(q)
+
+
+def test_chip_smoke_phase20_path_on_cpu():
+    """``chip_smoke.py`` phase 20's counted path at a small size on the CPU:
+    μVM futures to the two host peers (through their reply rings) and the
+    device peer over three generations, the coalesced task_sum burst with
+    its poisoned records, the aggregate device lane's futures, and the
+    liveness checks on a wedged csd."""
+    rt, _, _, _, res = chip_smoke.futures_path(
+        np, torch, torch.device("cpu"), shards=2, dev_slots=2, host_slots=8,
+        gens=3, burst=128, agg_slots=2, agg_k=4, live=2)
+    d = rt.dispatcher
+    assert res["host_futures"] == 3 * 4 * 2 and res["failed"] == 4
+    assert len(res["gen_s"]) == 3 and rt.pending() == 0
+    assert {"task.reply_us", "transport.deliver_us", "target.sweep_us",
+            "target.exec_us"} <= set(res["lat"])
+    assert res["lat"]["task.reply_us"][2] == 3 * 4 * 3   # one a μVM future
+    for name in ("rdma", "csd"):
+        s = d.peers[name].stats
+        assert s["agg_replies"] >= 2 and s["nacks"] == s["rejected"] == 0
+    assert d.stats["reply_dropped"] == 0
+    assert rt.stats["orphan_replies"] == 4               # the dead's replies
+    assert d.obs.tracer.open_count() == 0

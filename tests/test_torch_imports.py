@@ -3,7 +3,8 @@ model stack's ``models/``, ``configs/``, ``train/`` with the training step
 and optimizers, ``data/``, ``serving/`` and ``obs/`` included) and
 registering its ifunc library loads neither jax nor the JAX package; nor
 does driving the Dispatcher's host lanes from ``repro_torch.obs`` and
-``repro_torch.transport`` alone.  The check runs in a
+``repro_torch.transport`` alone, nor a task future from
+``repro_torch.tasks`` alone.  The check runs in a
 subprocess because this test process has jax loaded already
 (``tests/conftest.py``)."""
 
@@ -41,7 +42,9 @@ print("STACK", all(m in mods for m in (
     "repro_torch.kernels.flash_attn", "repro_torch.kernels.ssd_scan",
     "repro_torch.train.step", "repro_torch.train.optim",
     "repro_torch.data.pipeline", "repro_torch.obs.metrics",
-    "repro_torch.obs.trace", "repro_torch.obs.recorder")))
+    "repro_torch.obs.trace", "repro_torch.obs.recorder",
+    "repro_torch.tasks.runtime", "repro_torch.tasks.future",
+    "repro_torch.tasks.wire")))
 print("FORBIDDEN", bad)
 """
 
@@ -91,6 +94,40 @@ def test_obs_and_transport_import_alone():
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "FORBIDDEN [] 2" in r.stdout, r.stdout
+
+
+_PROBE_TASKS = r"""
+import sys
+import repro_torch.tasks
+from repro_torch.core import Context, register_ifunc, submit
+from repro_torch.tasks import TaskRuntime
+from repro_torch.transport import ProgressEngine, RdmaFabric
+rt = TaskRuntime(Context("src"), engine=ProgressEngine(
+    inflight_window="trailer"), coalesce=True)
+rt.add_peer("rdma", RdmaFabric(), Context("rdma"), target_args={})
+h = register_ifunc(rt.ctx, "task_sum")
+assert submit(rt, "rdma", h, b"\x01\x02").result() == 3
+futs = rt.submit_many("rdma", h, [bytes([i]) for i in range(1, 9)])
+assert [f.result() for f in futs] == list(range(1, 9))
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro") or m.startswith(
+                 ("jax.", "jaxlib.", "repro.")))
+print("FORBIDDEN", bad, rt.stats["resolved"],
+      rt.dispatcher.peers["rdma"].stats["agg_replies"] > 0)
+"""
+
+
+def test_tasks_import_alone():
+    """``repro_torch.tasks`` on its own: a future through ``core.submit``
+    and a coalesced batch through ``submit_many`` resolve over the RDMA
+    fabric's reply ring with the port's own ``task_sum``, and neither jax
+    nor the JAX package is loaded."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env.pop("REPRO_TORCH_IFUNC_LIB_DIR", None)
+    r = subprocess.run([sys.executable, "-c", _PROBE_TASKS], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "FORBIDDEN [] 9 True" in r.stdout, r.stdout
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?![\w])",

@@ -4,10 +4,6 @@ aliasing, span lifecycles across SLIM -> NACK -> FULL, the flight
 recorder, the counters-only and disabled modes — each run through both
 packages on the same inputs, the two agreeing on every number the case
 reads (spans and histograms by name and count, not by time).
-
-The two ``fail_inflight`` cases of that file (the recorder's automatic
-dump, and that dump switched off) move with ``Dispatcher.fail_inflight``
-to ROADMAP.md Queue 1 item 3(a).
 """
 
 import io
@@ -310,6 +306,52 @@ def _toggle(pkg, lib_dir):
 
 def test_set_tracing_toggles_midrun(lib_dir):
     same_run(*both(_toggle, lib_dir))
+
+
+def _fail_dump(pkg, lib_dir, capsys, dump_on_fail):
+    obs = pkg.obs.Obs("t", dump_on_fail=dump_on_fail)      # counters-only
+    d, _, h = _mk(pkg, lib_dir, obs)
+    for r in d.peers["p"].rings:                     # peer stops consuming
+        r.mailbox.sweep = lambda *a, **k: []
+    errs = []
+    d.reply_router = lambda corr, name, value, is_err, decoded: \
+        errs.append((corr, is_err, type(value).__name__))
+    corr = 404 if dump_on_fail else 7
+    assert d.send_ifunc("p", h, b"doomed", corr_id=corr)
+    assert d.fail_inflight("wedged peer") >= 1
+    assert errs == [(corr, True, "TransportError")]
+    err = capsys.readouterr().err
+    if dump_on_fail:
+        assert "flight recorder dump (fail_inflight: wedged peer)" in err
+        assert "corr=404" in err                           # the dead frame
+        assert "put" in err                                # ...and its put
+    else:
+        assert "flight recorder dump" not in err
+    # the events stay in the ring for a manual obs.dump()
+    kinds = [k for _, k, _, _ in obs.recorder.events()]
+    assert "fail_inflight" in kinds
+    # the dump's lines naming a frame, without their clock and age
+    return d, [" ".join(line.split()[2:]).split("age=")[0]
+               for line in err.splitlines() if "corr=" in line]
+
+
+def _fail_both(lib_dir, capsys, dump_on_fail):
+    (rd, rlines), (pd, plines) = both(_fail_dump, lib_dir, capsys=capsys,
+                                      dump_on_fail=dump_on_fail)
+    assert plines == rlines
+    assert pd.stats["timed_out"] == rd.stats["timed_out"] == 1
+    same_run(rd, pd)
+
+
+def test_fail_inflight_dumps_recorder(lib_dir, capsys):
+    """A wedged peer's fail_inflight resolves its futures with a
+    TransportError and auto-dumps the flight recorder: the postmortem names
+    the frames that died and the reason, on stderr, unprompted."""
+    _fail_both(lib_dir, capsys, True)
+
+
+def test_fail_inflight_dump_can_be_disabled(lib_dir, capsys):
+    _fail_both(lib_dir, capsys, False)
 
 
 def test_device_lane_nack_leaves_no_open_span():

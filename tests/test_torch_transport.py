@@ -30,11 +30,6 @@ PORT = types.SimpleNamespace(name="port", core=PC, transport=PT, obs=PO,
                              kw={"device": "cpu"})
 PKGS = (REF, PORT)
 
-#: stats the reference keeps for paths the port does not carry yet: the
-#: engine's futures count (reply futures, ROADMAP.md Queue 1 item 3(a))
-_REF_ONLY = {"futures_sent"}
-
-
 def ctx(pkg, name, lib_dir, **kw):
     return pkg.core.Context(name, lib_dir=lib_dir, **pkg.kw, **kw)
 
@@ -75,11 +70,11 @@ def _span_names(obs):
 def same_run(ref_d, port_d, *, spans=True):
     """The two dispatchers ended in the same observable state."""
     drop = lambda st: {k: v for k, v in st.items()  # noqa: E731
-                       if k not in _REF_ONLY and k != "oldest_inflight_s"}
+                       if k != "oldest_inflight_s"}
     assert {n: drop(s) for n, s in port_d.per_peer_stats().items()} == \
         {n: drop(s) for n, s in ref_d.per_peer_stats().items()}
     assert port_d.stats == ref_d.stats
-    assert port_d.engine.stats == drop(ref_d.engine.stats)
+    assert port_d.engine.stats == ref_d.engine.stats
     assert port_d.engine.outstanding() == ref_d.engine.outstanding()
     assert [bytes(s[0]) for s in port_d.engine._slabs.values()] == \
         [bytes(s[0]) for s in ref_d.engine._slabs.values()]
@@ -97,8 +92,7 @@ def same_run(ref_d, port_d, *, spans=True):
                 assert (pr.tail, pr.mailbox.head, pr.mailbox.consumed) == \
                     (rr.tail, rr.mailbox.head, rr.mailbox.consumed), name
     rs, ps = ref_d.obs.snapshot(), port_d.obs.snapshot()
-    assert ps["counters"] == {k: v for k, v in rs["counters"].items()
-                              if k.rsplit(".", 1)[-1] not in _REF_ONLY}
+    assert ps["counters"] == rs["counters"]
     assert {k: h["count"] for k, h in ps["histograms"].items()} == \
         {k: h["count"] for k, h in rs["histograms"].items()}
     assert [e[1] for e in port_d.obs.recorder.events()] == \
@@ -377,9 +371,9 @@ def test_legacy_api_routes_through_transport(lib_dir):
 
 
 def test_refused_paths_name_their_roadmap_item(lib_dir):
-    """Streams, codecs and striping (item 3(b)); reply rings, futures and
-    liveness failure (3(a)); faults, pollers and peer removal (5): each
-    raises a TransportError naming its ROADMAP.md item."""
+    """Streams, codecs and striping (item 3(b)); faults, pollers and peer
+    removal (5): each raises a TransportError naming its ROADMAP.md
+    item."""
     T = PT
     d = mk_dispatcher(PORT, lib_dir, [("p", "rdma")])
     h = _handle(PORT, d, lib_dir)
@@ -391,14 +385,6 @@ def test_refused_paths_name_their_roadmap_item(lib_dir):
                                     ctx(PORT, "q", lib_dir), codec="zlib")),
         ("3(b)", lambda: d.set_streaming(True)),
         ("3(b)", lambda: d.send_stream("p", h, b"x" * 64)),
-        ("3(a)", lambda: d.attach_reply_ring("p", None, None)),
-        ("3(a)", d.poll_replies),
-        ("3(a)", lambda: d.fail_inflight("wedged")),
-        ("3(a)", lambda: d.drain(deadline=1.0)),
-        ("3(a)", lambda: d.send_ifunc("p", h, b"x", future=object())),
-        ("3(a)", lambda: d.send("p", _msg(PORT, h, b"x"), future=object())),
-        ("3(a)", lambda: d.send_ifunc_many("p", h, [b"x"],
-                                           futures=[object()])),
         ("5", lambda: d.remove_peer("p")),
         ("5", lambda: setattr(d, "faults", object())),
         ("5", lambda: setattr(d, "pollers", [lambda: None])),
