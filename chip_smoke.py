@@ -175,7 +175,35 @@ Phases, each of which fails the script (non-zero exit, no result line):
     timers over the reply's D2H and pack and over the reply drain and
     decode, and the SMs' idle share over a traced generation.
 
-The phases run in the order 1-9, 18, 19, 20, 10-11, 14-17, 12-13: every
+21. placement and the graph workload, the port's
+    ``examples/graph_analysis.py`` without ``--kill-peer``: (a) single-
+    source shortest paths over a 128-vertex graph (seed 7, 2,927 edges) in
+    4 CSR shards on ``rdma_a`` and ``rdma_b`` (``RdmaFabric``) and ``csd``
+    (``LoopbackFabric``, shard 3 replicated at the source), each 8 slots
+    of 64 KiB on a ``device="cuda"`` target, under a ``TaskRuntime`` over
+    ``ProgressEngine(8, "trailer")``, with ``DataDirectory`` and
+    ``PlacementEngine(steal_depth=3)`` deciding migrate, fetch or local
+    for each shard's relax every round; each round first sends the
+    frontier indicator tile as ``graph_degree`` μVM futures to the 8
+    shards of ``gpu`` (phase 4's mailbox of 8 x 64 slots, 128 KiB each,
+    shift 0, the adjacency column-sharded into its externals); at round
+    2, six ``counter_bump`` frames congest shard 0's owner and
+    ``rebalance`` moves the shard.  Three whole runs, each from a fresh
+    runtime and directory, pass the example's gates (``graph_gates``:
+    ``dist`` within rtol 1e-5, atol 1e-5 of Bellman-Ford, all three
+    decisions taken, the shard moved, no orphan or pending future, every
+    device future's counts exactly ``f_ind @ A_dev[d, 0]``) and print
+    GRAPH_OK; each logs rounds/s, degree futures/s, the decisions, moves
+    and the SMs' idle share (traced with device activity only); launches
+    ``ring_sweep_smem_kernel`` once a device sweep and nothing else.
+    (b) ``fig_graph`` at ``bench_ifunc.py``'s settings: µs a relax task
+    migrated, fetched and local at 1,024, 8,192 and 65,536-edge shards,
+    the median of 3, migrate under fetch at the largest.  (c) one
+    ``graph_degree`` future to a host target on the card: one
+    ``ifunc_vm_smem_kernel`` launch, its result equal to the device
+    lane's for the same frontier and shard.
+
+The phases run in the order 1-9, 18, 19, 20, 21, 10-11, 14-17, 12-13: every
 profiler session of the timings and the traced step comes before the
 serving phase's long traces, after which the profiler recorded no device
 time in a run on the H100.  A trace that comes back without the records of the
@@ -190,8 +218,10 @@ counts phase 19's device sweeps too); ``ifunc_vm`` counts the sweeps it
 runs inside, ``host_launches`` its launches on the host target of phase
 18 (``host_ms`` the device time of one there),
 ``dispatcher_launches`` its launches on phase 19's host peers and
-``future_launches`` those on phase 20's; ``ring_poll`` and
-``agg_ring_poll`` count phase 20's device sweeps too.
+``future_launches`` those on phase 20's, ``graph_host_launches`` phase
+21's host ``graph_degree`` future; ``ring_poll`` and ``agg_ring_poll``
+count phase 20's device sweeps too, and ``ring_poll`` and ``ifunc_vm``
+phase 21's.
 """
 
 import contextlib
@@ -232,6 +262,24 @@ MP_TURNS = 5                       # timed generations of each arm, in turns
 # futures at phase 8's shape; drain(deadline=0.5) on a wedged csd
 FT_HOSTS = (("rdma", "rdma"), ("csd", "loopback"))
 FT_GENS, FT_BURST, FT_POISON, FT_TURNS, FT_DEADLINE = 3, 4096, 64, 3, 0.5
+# placement and the graph workload (phase 21), examples/graph_analysis.py:
+# 128 vertices (one μVM tile holds the device-tier adjacency), seed 7, 4
+# CSR shards owned by rdma_a, rdma_b, csd, csd (shard 3 replicated at the
+# source), host peers of 8 slots x 64 KiB, ProgressEngine(8, "trailer"),
+# steal_depth 3, 6 counter_bump frames at the owner of shard 0 in round 2;
+# the device lane at phase 4's width (8 shards x 64 slots of 128 KiB), one
+# frontier tile to each shard a round; three whole runs
+GRAPH_V, GRAPH_SHARDS, GRAPH_SEED, GRAPH_SRC = 128, 4, 7, 0
+GRAPH_HOSTS = (("rdma_a", "rdma"), ("rdma_b", "rdma"), ("csd", "loopback"))
+GRAPH_OWNERS = {0: "rdma_a", 1: "rdma_b", 2: "csd", 3: "csd"}
+GRAPH_SLOTS, GRAPH_SLOT, GRAPH_DEV_SLOT = 8, 64 << 10, 128 << 10
+GRAPH_CONGEST, GRAPH_BURST, GRAPH_RUNS, GRAPH_MAX_ROUNDS = 2, 6, 3, 64
+TOL_GRAPH = dict(rtol=1e-5, atol=1e-5)        # the example's, vs Bellman-Ford
+# benchmarks/bench_ifunc.py::bench_graph_placement ("fig_graph"): CSR
+# shards of constant out-degree 16, a 16-vertex frontier, seed 3, 60
+# tasks a way, the median of 3 repeats
+FIG_EDGES, FIG_DEG, FIG_SEED, FIG_ITERS, FIG_REPEATS = \
+    (1024, 8192, 65536), 16, 3, 60, 3
 
 # Published peaks (NVIDIA data sheets; dense, no sparsity): device-memory
 # bytes/s, FP32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s.
@@ -874,6 +922,28 @@ def sweep_log(mb, run):
     finally:
         del mb.sweep
     return ready, out
+
+
+@contextlib.contextmanager
+def counted_sweeps(mb):
+    """Within the block, a list (yielded) of the ``ring_sweep`` launches
+    each of the singleton mailbox ``mb``'s sweeps made, for every sweep
+    that found a deposit."""
+    sweeps = []
+
+    def sweep(*a, **k):
+        before = _counted()["ring_sweep"].launches
+        ran = mb._deposited > 0
+        out = type(mb).sweep(mb, *a, **k)
+        if ran:
+            sweeps.append(_counted()["ring_sweep"].launches - before)
+        return out
+
+    mb.sweep = sweep
+    try:
+        yield sweeps
+    finally:
+        del mb.sweep
 
 
 def reset_counts():
@@ -2272,21 +2342,10 @@ def multi_peer_path(np, torch, dev, trace_dir, *, shards=SHARDS,
     hosts = [name for name, _ in MP_HOSTS]
     peers = hosts + ["gpu"]
     mb = d.peers["gpu"].rings[0].mailbox
-    sweeps = []                       # launches moved by each device sweep
-
-    def counted_sweep(*a, **k):
-        before = _counted()["ring_sweep"].launches
-        ran = mb._deposited > 0
-        out = type(mb).sweep(mb, *a, **k)
-        if ran:
-            sweeps.append(_counted()["ring_sweep"].launches - before)
-        return out
-
-    mb.sweep = counted_sweep
     sync(torch, dev)
     reset_counts()
     gen_s = []
-    try:
+    with counted_sweeps(mb) as sweeps:
         with no_plain() if dev.type == "cuda" else contextlib.nullcontext():
             snap0 = obs.snapshot()
             for g in range(gens):
@@ -2313,8 +2372,6 @@ def multi_peer_path(np, torch, dev, trace_dir, *, shards=SHARDS,
             occupancy, containers, records = mp_burst(d, hosts, burst)
             act_two = hist_quantiles(obs, snap1)
             counts = read_counts()
-    finally:
-        del mb.sweep
     for name in hosts:
         s = d.peers[name].stats
         nacks = n // 2 if name == "rdma_b" else 0
@@ -2823,21 +2880,10 @@ def futures_path(np, torch, dev, *, shards=SHARDS, dev_slots=SLOTS_FULL,
     hosts = [name for name, _ in FT_HOSTS]
     peers = hosts + ["gpu"]
     mb = d.peers["gpu"].rings[0].mailbox
-    sweeps = []
-
-    def counted_sweep(*a, **k):
-        before = _counted()["ring_sweep"].launches
-        ran = mb._deposited > 0
-        out = type(mb).sweep(mb, *a, **k)
-        if ran:
-            sweeps.append(_counted()["ring_sweep"].launches - before)
-        return out
-
-    mb.sweep = counted_sweep
     sync(torch, dev)
     reset_counts()
     gen_s = []
-    try:
+    with counted_sweeps(mb) as sweeps:
         snap0 = obs.snapshot()
         for g in range(gens):
             pays = rng.standard_normal((n, NT, T, T)).astype(np.float32)
@@ -2867,8 +2913,6 @@ def futures_path(np, torch, dev, *, shards=SHARDS, dev_slots=SLOTS_FULL,
         ft_agg_device(np, torch, dev, W, shards=shards, slots=agg_slots,
                       k=agg_k, seed=seed + 1)
         counts = read_counts()
-    finally:
-        del mb.sweep
     agg_sweeps = counts["agg_sweep"]
     host_futures = gens * n * len(hosts)
     log(f"coalesced replies: {burst} task_sum records to each of "
@@ -3016,6 +3060,426 @@ def phase_futures(np, torch, dev, mp_rates, smi):
     check(rt.pending() == 0, f"{rt.pending()} futures left pending")
     return {"launches": res["counts"]["ifunc_vm"], "sweeps": res["sweeps"],
             "agg_sweeps": res["agg_sweeps"]}
+
+
+# ------------------------------------------------------------ placement
+
+
+def graph_edges(np):
+    """``examples/graph_analysis.py``'s weighted digraph, (u, v, w) in its
+    order: a random arborescence (every vertex reachable from vertex 0),
+    2,500 edges whose sources lie in shard 0's range (the dense hot
+    region) and 300 with sources elsewhere."""
+    V, span = GRAPH_V, GRAPH_V // GRAPH_SHARDS
+    rng = np.random.default_rng(GRAPH_SEED)
+    edges = []
+    for v in range(1, V):
+        u = int(rng.integers(0, v))
+        edges.append((u, v, float(rng.uniform(0.1, 1.0))))
+    for lo, hi, n in ((0, span, 2500), (span, V, 300)):
+        for _ in range(n):
+            u = int(rng.integers(lo, hi))
+            v = int(rng.integers(0, V))
+            edges.append((u, v, float(rng.uniform(0.1, 1.0))))
+    return edges
+
+
+def bellman_ford(np, edges):
+    """The example's reference distances from ``GRAPH_SRC``, in f32."""
+    ref = np.full(GRAPH_V, np.inf, np.float32)
+    ref[GRAPH_SRC] = 0.0
+    for _ in range(GRAPH_V):
+        changed = False
+        for u, v, w in edges:
+            if ref[u] + w < ref[v]:
+                ref[v] = ref[u] + w
+                changed = True
+        if not changed:
+            break
+    return ref
+
+
+def graph_workload(np, torch, dev, *, shards=SHARDS, dev_slots=SLOTS_FULL,
+                   lib_dir=None):
+    """The port's ``examples/graph_analysis.py`` without ``--kill-peer``:
+    single-source shortest paths from ``GRAPH_SRC`` by relax rounds over
+    the example's 4 CSR shards on ``rdma_a``, ``rdma_b`` (``RdmaFabric``)
+    and ``csd`` (``LoopbackFabric``), shard 3 replicated at the source.
+    Each round sends the frontier indicator tile to each of the ``shards``
+    shards of ``gpu`` (``DeviceMeshFabric(shards, shift=0)``, ``dev_slots``
+    slots a shard, the adjacency column-sharded into its externals) as
+    ``graph_degree`` μVM futures, keyed by the shard ``slot_coords`` gives
+    the next send; at round ``GRAPH_CONGEST``, ``GRAPH_BURST``
+    ``counter_bump`` frames congest the owner of shard 0 and
+    ``PlacementEngine.rebalance`` moves a shard; then each shard's relax
+    goes where ``decide`` says (``graph_relax`` migrated to the owner,
+    ``graph_fetch`` then a local relax, or a local relax on a replica) and
+    the updates are min-merged.  ``shards=0`` runs it with no device peer.
+    The PYBC verbs load from ``lib_dir`` (the port's library by default).
+    Every launch is counted over the rounds, the counts zeroed just
+    before them.  Returns a dict of what the run showed."""
+    from repro_torch.core import Context, register_ifunc
+    from repro_torch.core.codegen import deserialize_uvm
+    from repro_torch.tasks import (DataDirectory, Decision, LOCAL_SITE,
+                                   PlacementEngine, TaskRuntime)
+    from repro_torch.tasks.graph import (decode_updates, local_relax,
+                                         pack_csr_shard)
+    from repro_torch.transport import (DeviceMeshFabric, Dispatcher,
+                                       LoopbackFabric, ProgressEngine,
+                                       RdmaFabric)
+
+    V, span = GRAPH_V, GRAPH_V // GRAPH_SHARDS
+    edges = graph_edges(np)
+    by_src = {s: [] for s in range(GRAPH_SHARDS)}
+    for u, v, w in edges:
+        by_src[u // span].append((u, v, w))
+    shard_bytes = {s: pack_csr_shard(s * span, span, es)
+                   for s, es in by_src.items()}
+    A = np.zeros((V, V), np.float32)           # adjacency indicator
+    for u, v, _ in edges:
+        A[u, v] = 1.0
+
+    source = Context("source", device=dev)
+    d = Dispatcher(source, ProgressEngine(flush_threshold=8,
+                                          inflight_window="trailer"))
+    rt = TaskRuntime(source, d, default_timeout=120.0)
+    relax_h = register_ifunc(source, "graph_relax", lib_dir)
+    fetch_h = register_ifunc(source, "graph_fetch", lib_dir)
+    degree_h = register_ifunc(source, "graph_degree")
+    bump_h = register_ifunc(source, "counter_bump", lib_dir)
+    hosts = [name for name, _ in GRAPH_HOSTS]
+    stores = {}
+    for name, kind in GRAPH_HOSTS:
+        stores[name] = {"shards": {}}
+        fabric = RdmaFabric() if kind == "rdma" else LoopbackFabric()
+        rt.add_peer(name, fabric, Context(name, link_mode="remote",
+                                          device=dev),
+                    n_slots=GRAPH_SLOTS, slot_size=GRAPH_SLOT,
+                    target_args=stores[name])
+    A_dev = np.zeros((shards, 1, T, T), np.float32)
+    for s in range(shards):                    # shard s owns these columns
+        cols = slice(s * (V // shards), (s + 1) * (V // shards))
+        A_dev[s, 0, :, cols] = A[:, cols]
+    if shards:
+        rt.add_peer("gpu", DeviceMeshFabric(shards, shift=0, device=dev),
+                    None, n_slots=dev_slots, slot_size=GRAPH_DEV_SLOT,
+                    prog=deserialize_uvm(degree_h.lib.code), n_tiles=1,
+                    externals=torch.from_numpy(A_dev).to(dev))
+    directory = DataDirectory()
+    for s, owner in GRAPH_OWNERS.items():
+        directory.register(s, owner, len(shard_bytes[s]))
+        stores[owner]["shards"][s] = shard_bytes[s]
+    directory.add_replica(3, LOCAL_SITE)
+    local_shards = {3: shard_bytes[3]}
+    engine = PlacementEngine(directory, d, steal_depth=3)
+
+    if shards:
+        lane = d.peers["gpu"].rings[0]
+        mb = lane.mailbox
+    dist = np.full(V, np.inf, np.float32)
+    dist[GRAPH_SRC] = 0.0
+    frontier = {GRAPH_SRC: 0.0}
+    decisions = {"migrate": 0, "fetch": 0, "local": 0}
+    placements, degrees, hot_log, moves, congestion = [], [], [], [], None
+    rounds = 0
+    sync(torch, dev)
+    reset_counts()
+    with (counted_sweeps(mb) if shards
+          else contextlib.nullcontext([])) as sweeps:
+        t0 = time.perf_counter()
+        while frontier and rounds < GRAPH_MAX_ROUNDS:
+            rounds += 1
+            # 1) device tier: frontier-expansion counts of each column shard
+            f_ind = np.zeros(V, np.float32)
+            for v in frontier:
+                f_ind[v] = 1.0
+            hot = {}
+            if shards:
+                tile = np.broadcast_to(f_ind, (T, T)).reshape(1, T, T).copy()
+                futs = []
+                for _ in range(shards):
+                    futs.append((mb.slot_coords(lane.tail)[0],
+                                 rt.submit("gpu", degree_h, tile)))
+                got = [(s, f.result().cpu().numpy()) for s, f in futs]
+                expansion = sum(c[0, 0] for _, c in got)
+                hot = {s: float(expansion[s * span:(s + 1) * span].sum())
+                       for s in range(GRAPH_SHARDS)}
+                degrees.append((f_ind, got))
+            hot_log.append(hot)
+            # 2) congestion: unconsumed background frames pile up at the
+            #    dense shard's owner, and its queue depth diverges
+            if rounds == GRAPH_CONGEST:
+                owner = directory.owner(0)
+                for _ in range(GRAPH_BURST):
+                    d.send_ifunc(owner, bump_h, b"bg")
+                depth = engine.queue_depth(owner)
+                moved = engine.rebalance(eligible=hosts)
+                for sid, frm, to in moved:
+                    shipped = rt.submit(frm, fetch_h, {"sid": sid}).result()
+                    stores[to]["shards"][sid] = bytes(shipped)
+                    moves.append((sid, frm, to))
+                congestion = (rounds, owner, depth, moved)
+            # 3) placement of each shard's relax: migrate / fetch / local
+            by_shard = {s: [] for s in range(GRAPH_SHARDS)}
+            for v, dv in frontier.items():
+                by_shard[v // span].append((v, float(dv)))
+            futs, placed = [], []
+            for sid, fr in by_shard.items():
+                if not fr:
+                    continue
+                p = engine.decide(sid, relax_h, arg_bytes=8 + 8 * len(fr))
+                decisions[p.decision.value] += 1
+                placed.append((p.decision.value, sid, p.peer, dict(p.costs),
+                               p.stolen))
+                if p.decision is Decision.MIGRATE:
+                    futs.append(rt.submit(p.peer, relax_h,
+                                          {"sid": sid, "frontier": fr}))
+                    continue
+                if p.decision is Decision.FETCH:
+                    shipped = rt.submit(p.peer, fetch_h, {"sid": sid})
+                    local_shards[sid] = bytes(shipped.result())
+                    directory.add_replica(sid, LOCAL_SITE)
+                futs.append(rt.run_local(local_relax, local_shards[sid], fr))
+            placements.append(placed)
+            # 4) min-merge the updates into the next frontier
+            new_frontier = {}
+            for fut in futs:
+                upd = fut.result()
+                if isinstance(upd, (bytes, bytearray)):
+                    upd = decode_updates(upd)
+                for v, dv in upd.items():
+                    if dv < dist[v] - 1e-7:
+                        dist[v] = dv
+                        new_frontier[v] = dv
+            frontier = new_frontier
+            directory.decay()
+        rt.drain()                             # absorb the background burst
+        sync(torch, dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    return {"rt": rt, "engine": engine, "directory": directory,
+            "edges": edges, "shard_bytes": shard_bytes, "A_dev": A_dev,
+            "dist": dist, "rounds": rounds, "wall": wall,
+            "decisions": decisions, "placements": placements,
+            "moves": moves, "congestion": congestion,
+            "engine_stats": dict(engine.stats),
+            "peer_stats": d.per_peer_stats(), "degrees": degrees,
+            "hot": hot_log, "orphan_replies": rt.stats["orphan_replies"],
+            "pending": rt.pending(), "counts": counts, "sweeps": sweeps}
+
+
+def graph_gates(np, res):
+    """The example's checks (``examples/graph_analysis.py:331-351``) on a
+    ``graph_workload`` run: ``dist`` finite and within TOL_GRAPH of
+    Bellman-Ford; migrate, fetch and local each decided; the round-2
+    congestion moved a shard; no orphan reply and nothing pending; and
+    each round's device futures, one on each shard, holding
+    ``f_ind @ A_dev[d, 0]`` exactly in every row (counts of 0/1
+    products, at most 128: exact in f32).  Prints GRAPH_OK, or fails with
+    every failure named."""
+    failures = []
+    dist, ref = res["dist"], bellman_ford(np, res["edges"])
+    if not np.isfinite(dist).all():
+        failures.append(f"graph not fully relaxed: "
+                        f"{int((~np.isfinite(dist)).sum())} vertices at inf")
+    elif not np.allclose(dist, ref, **TOL_GRAPH):
+        failures.append(f"dist off Bellman-Ford by "
+                        f"{float(np.abs(dist - ref).max()):.3g}")
+    if not all(res["decisions"].values()):
+        failures.append(f"placement mix degenerate: {res['decisions']}")
+    if not res["moves"] or res["congestion"][0] != GRAPH_CONGEST:
+        failures.append(f"congestion never triggered an ownership "
+                        f"rebalance: {res['congestion']}")
+    if res["orphan_replies"] or res["pending"]:
+        failures.append(f"{res['orphan_replies']} orphan replies, "
+                        f"{res['pending']} futures pending")
+    A_dev = res["A_dev"]
+    for r, (f_ind, got) in enumerate(res["degrees"]):
+        if sorted(s for s, _ in got) != list(range(len(A_dev))):
+            failures.append(f"round {r + 1}: device futures on shards "
+                            f"{[s for s, _ in got]}")
+        for s, counts in got:
+            want = f_ind @ A_dev[s, 0]
+            if counts.shape != (1, T, T) or not (counts == want).all():
+                failures.append(f"round {r + 1} shard {s}: degree counts "
+                                f"off f_ind @ A by "
+                                f"{float(np.abs(counts - want).max()):.3g}")
+    check(not failures, "GRAPH_FAILED: " + "; ".join(failures))
+    log("GRAPH_OK")
+
+
+def fig_graph(np, torch, dev, *, sizes=FIG_EDGES, iters=FIG_ITERS,
+              repeats=FIG_REPEATS, lib_dir=None):
+    """``benchmarks/bench_ifunc.py::bench_graph_placement`` on the port:
+    for each shard of ``sizes`` edges (constant out-degree ``FIG_DEG``),
+    one relax task on a 16-vertex frontier three ways through a loopback
+    owner on a ``dev`` target with the bench's slot size: ``migrate``
+    (``graph_relax`` to the owner, SLIM after the warm-up), ``fetch``
+    (``graph_fetch`` pulls the whole shard back, the relax runs at the
+    source) and ``local`` (the relax on the fetched replica).  The
+    warm-ups are held against ``local_relax`` and the packed bytes.
+    Returns {packed bytes: {way: median µs a task over ``repeats`` runs
+    of ``iters`` tasks, the three ways in turns}}."""
+    from repro_torch.core import Context, register_ifunc
+    from repro_torch.tasks import TaskRuntime
+    from repro_torch.tasks.graph import (decode_updates, local_relax,
+                                         pack_csr_shard)
+    from repro_torch.transport import LoopbackFabric, ProgressEngine
+
+    rng = np.random.default_rng(FIG_SEED)
+    frontier = [(int(i), 0.5) for i in range(16)]
+    rows = {}
+    for ne in sizes:
+        nv = ne // FIG_DEG
+        edges = [(u, int(rng.integers(0, 1 << 20)),
+                  float(rng.uniform(0.1, 1)))
+                 for u in range(nv) for _ in range(FIG_DEG)]
+        packed = pack_csr_shard(0, nv, edges)
+        src = Context("src", device=dev)
+        rt = TaskRuntime(src, engine=ProgressEngine(flush_threshold=8),
+                         default_timeout=60.0)
+        rt.add_peer("owner", LoopbackFabric(),
+                    Context("owner", link_mode="remote", device=dev),
+                    n_slots=8, slot_size=max(64 << 10, len(packed) + 4096),
+                    target_args={"shards": {0: packed}})
+        h_relax = register_ifunc(src, "graph_relax", lib_dir)
+        h_fetch = register_ifunc(src, "graph_fetch", lib_dir)
+        task = {"sid": 0, "frontier": frontier}
+        got = decode_updates(rt.submit("owner", h_relax, task).result())
+        want = {v: float(np.float32(x))
+                for v, x in local_relax(packed, frontier).items()}
+        check(got == want, f"fig_graph {ne} edges: the migrated relax "
+                           f"differs from local_relax")
+        blob = rt.submit("owner", h_fetch, {"sid": 0}).result()
+        check(bytes(blob) == packed, f"fig_graph {ne} edges: the fetched "
+                                     f"shard differs from the packed one")
+
+        def migrate():
+            rt.submit("owner", h_relax, task).result()
+
+        def fetch():
+            local_relax(rt.submit("owner", h_fetch, {"sid": 0}).result(),
+                        frontier)
+
+        ways = {"migrate": migrate, "fetch": fetch,
+                "local": lambda: local_relax(blob, frontier)}
+        spent = {w: [] for w in ways}
+        for _ in range(repeats):
+            for w, fn in ways.items():
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn()
+                spent[w].append((time.perf_counter() - t0) / iters * 1e6)
+        check(rt.pending() == 0, f"fig_graph {ne} edges: futures pending")
+        rows[len(packed)] = {w: statistics.median(v)
+                             for w, v in spent.items()}
+    return rows
+
+
+def host_degree(np, torch, dev, A_tile, tile):
+    """One ``graph_degree`` μVM future to a host target on ``dev`` (a
+    loopback peer with the adjacency tile resident as external "A" and a
+    reply ring): the frame links at the target and runs through one
+    ``ifunc_vm`` launch.  Returns (the result as numpy, the launches
+    counted around the future)."""
+    from repro_torch.core import Context, register_ifunc
+    from repro_torch.tasks import TaskRuntime
+    from repro_torch.transport import (Dispatcher, LoopbackFabric,
+                                       ProgressEngine)
+
+    source = Context("degree-source", device=dev)
+    rt = TaskRuntime(source, Dispatcher(source, ProgressEngine(
+        inflight_window="trailer")), default_timeout=60.0)
+    h = register_ifunc(source, "graph_degree")
+    rt.add_peer("host", LoopbackFabric(),
+                Context("host", link_mode="remote", device=dev),
+                n_slots=2, slot_size=GRAPH_DEV_SLOT,
+                target_args={"externals": {
+                    "A": torch.from_numpy(A_tile).to(dev)}})
+    sync(torch, dev)
+    reset_counts()
+    out = rt.submit("host", h, tile).result()
+    sync(torch, dev)
+    counts = read_counts()
+    check(rt.pending() == 0, "host graph_degree: future pending")
+    return np.asarray(out), counts
+
+
+def phase_graph(np, torch, dev, smi):
+    """Phase 21: placement and the graph workload.  (a) ``graph_workload``
+    at full width, ``GRAPH_RUNS`` whole runs each from a fresh runtime and
+    directory, each passing ``graph_gates`` and traced by torch.profiler
+    (device activity only) for the SMs' idle share; its launches must be
+    ``ring_sweep_smem_kernel`` once a device sweep and nothing else.  (b)
+    ``fig_graph`` at the bench's settings, migrate under fetch at the
+    largest shard.  (c) ``host_degree`` on the card, one
+    ``ifunc_vm_smem_kernel`` launch, equal to the device lane's result for
+    the same frontier and shard.  All under ``no_plain``.  Returns the
+    device sweeps and the host ``ifunc_vm`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n_sweeps = 0
+    with no_plain():
+        for run in range(GRAPH_RUNS):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                res = graph_workload(np, torch, dev)
+            graph_gates(np, res)
+            counts, sweeps = res["counts"], res["sweeps"]
+            check(sweeps and set(sweeps) == {1}
+                  and counts["ring_sweep"] == len(sweeps) and all(
+                      v == 0 for k, v in counts.items()
+                      if k != "ring_sweep"),
+                  f"graph run {run}: launches {counts} in {len(sweeps)} "
+                  f"device sweeps ({sorted(set(sweeps))} each), want "
+                  f"ring_sweep once a sweep and nothing else")
+            n_sweeps += len(sweeps)
+            n_deg = sum(len(got) for _, got in res["degrees"])
+            wall, rounds = res["wall"], res["rounds"]
+            log(f"graph run {run} on {smi}: {rounds} rounds in {wall:.4f} s "
+                f"({rounds / wall:.2f} rounds/s), {n_deg} degree futures "
+                f"({n_deg / wall:.1f} futures/s), relax tasks "
+                f"{res['decisions']}, engine {res['engine_stats']}, moves "
+                f"{res['moves']} (round {res['congestion'][0]}: "
+                f"{res['congestion'][1]} at depth {res['congestion'][2]}), "
+                f"{len(sweeps)} device sweeps, launches {counts}")
+            for r, placed in enumerate(res["placements"]):
+                log(f"  round {r + 1}: " + ", ".join(
+                    f"s{sid} {how}@{peer}{' (stolen)' if stolen else ''}"
+                    for how, sid, peer, _, stolen in placed)
+                    + "; hot " + ", ".join(
+                        f"s{s}:{v:.0f}" for s, v in res["hot"][r].items()))
+            log_card_busy(prof, wall, f"graph run {run} on {smi} (traced, "
+                          f"device activity only)",
+                          ("ring_sweep_smem_kernel",))
+            res["rt"].dispatcher.print_stats()
+
+        rows = fig_graph(np, torch, dev)
+        for nb, us in rows.items():
+            log(f"fig_graph {nb} B on {smi}, µs a task, median of "
+                f"{FIG_REPEATS} x {FIG_ITERS}: migrate {us['migrate']:.2f}, "
+                f"fetch {us['fetch']:.2f}, local {us['local']:.2f} "
+                f"(fetch / migrate {us['fetch'] / us['migrate']:.2f}x)")
+        big = rows[max(rows)]
+        check(big["migrate"] < big["fetch"],
+              f"fig_graph: migrate {big['migrate']:.2f} µs not under fetch "
+              f"{big['fetch']:.2f} µs at the largest shard ({max(rows)} B)")
+
+        f_ind, got = res["degrees"][1]           # round 2: the widest
+        s = max(range(len(got)), key=lambda i: got[i][1].sum())
+        shard, lane_out = got[s]
+        out, counts = host_degree(np, torch, dev, res["A_dev"][shard, 0],
+                                  np.broadcast_to(f_ind, (T, T))
+                                  .reshape(1, T, T).copy())
+        check(out.shape == lane_out.shape and (out == lane_out).all(),
+              f"host graph_degree differs from the device lane's shard "
+              f"{shard} by {float(np.abs(out - lane_out).max()):.3g}")
+        check(counts["ifunc_vm"] == 1 and all(
+            v == 0 for k, v in counts.items() if k != "ifunc_vm"),
+            f"host graph_degree launched {counts}, want ifunc_vm once")
+        log(f"host graph_degree on {smi}: one ifunc_vm launch, equal to the "
+            f"device lane's shard {shard} ({int(lane_out[0, 0].sum())} "
+            f"frontier edges)")
+    return {"sweeps": n_sweeps, "host_launches": counts["ifunc_vm"]}
 
 
 # ------------------------------------------------------------ model stack
@@ -3791,6 +4255,10 @@ def main():
     vm["launches"] += ft["sweeps"] + ft["agg_sweeps"]
     kernels[0]["launches"] += ft["sweeps"]
     kernels[2]["launches"] += ft["agg_sweeps"]
+    gr = phase_graph(np, torch, dev, smi)
+    vm["graph_host_launches"] = gr["host_launches"]
+    vm["launches"] += gr["sweeps"]        # graph_degree inside the sweeps
+    kernels[0]["launches"] += gr["sweeps"]
     model_errs = phase_model_kernels(np, torch, dev)
     bwd_errs = phase_bwd_kernels(np, torch, dev)
     # timed, and a train step traced, before the serving phase's long

@@ -12,16 +12,16 @@ One runtime wraps one :class:`~repro_torch.transport.Dispatcher`:
   where the corr-id resolves the matching future (a duplicate or expired
   corr-id is counted and dropped);
 * ``run_local`` executes a callable inline and wraps it in an
-  already-resolved future, so a local run and a remote one produce the
-  same object for the caller to wait on;
+  already-resolved future, so placement decisions (migrate vs fetch vs
+  local) all produce the same object for the caller to wait on;
 * with ``coalesce=True`` the underlying dispatcher aggregates cache-warm
   submits into FLAG_AGG containers (``submit_many`` batches a whole list
   and flushes once), and the targets' results come back coalesced too —
   one ``FLAG_AGG|FLAG_REPLY`` frame resolving many futures — so both
   directions of a small-task storm amortize their per-frame cost.
 
-The placement engine and the graph workload (ROADMAP.md Queue 1 item 4)
-sit on this layer.
+The runtime is the layer the placement engine (``tasks.placement``) and
+the graph workload (``chip_smoke.graph_workload``) sit on.
 """
 
 from __future__ import annotations
@@ -205,7 +205,7 @@ class TaskRuntime:
 
     def run_local(self, fn, *args, **kw) -> Future:
         """Execute inline, wrapped in an already-resolved Future — the
-        uniform result object for a task run locally."""
+        uniform result object for LOCAL placement decisions."""
         self._corr += 1
         fut = Future(self, F.make_corr(self._corr, self.generation),
                      "local", getattr(fn, "__name__", "fn"))

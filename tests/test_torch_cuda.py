@@ -1046,3 +1046,44 @@ def test_device_lane_future_on_the_card(cuda):
             rtol=1e-4, atol=1e-5)
     assert ifunc_vm_sweep.launches > before
     assert rt.pending() == 0 and rt.stats["resolved"] == 3
+
+
+@pytest.mark.cuda
+def test_graph_degree_sweep_on_the_card(cuda):
+    """``graph_degree`` (loadp, loade, matmul, store: no relu) as futures on
+    ``DeviceMeshFabric(2)`` on the card, the adjacency column-sharded into
+    the externals: one frontier tile to each shard, ONE
+    ``ring_sweep_smem_kernel`` launch for both, and each shard's counts
+    equal to ``ifunc_vm_plain`` on the card and to numpy's ``f_ind @
+    A_dev[d, 0]`` exactly (sums of 0/1 products, at most 128)."""
+    from repro_torch.tasks import TaskRuntime
+
+    src = Context("src")
+    rt = TaskRuntime(src, engine=ProgressEngine(inflight_window="trailer"))
+    h = register_ifunc(src, "graph_degree")
+    prog = deserialize_uvm(h.lib.code)
+    assert vm_plan(prog).n_tiles <= 3               # the smem variant
+    rng = np.random.default_rng(31)
+    A = (rng.random((T, T)) < 0.2).astype(np.float32)
+    A_dev = np.zeros((2, 1, T, T), np.float32)
+    for s in range(2):
+        A_dev[s, 0, :, s * 64:(s + 1) * 64] = A[:, s * 64:(s + 1) * 64]
+    ext = torch.from_numpy(A_dev).to(cuda)
+    rt.add_peer("gpu", DeviceMeshFabric(2, shift=0, device="cuda"), None,
+                n_slots=4, slot_size=128 << 10, prog=prog, n_tiles=1,
+                externals=ext)
+    lane = rt.dispatcher.peers["gpu"].rings[0]
+    f_ind = (rng.random(T) < 0.4).astype(np.float32)
+    tile = np.broadcast_to(f_ind, (T, T)).reshape(1, T, T).copy()
+    sweeps, launches = ifunc_vm_sweep.launches, ifunc_vm.launches
+    futs = [(lane.mailbox.slot_coords(lane.tail)[0], rt.submit("gpu", h, tile))
+            for _ in range(2)]
+    got = {s: f.result(60) for s, f in futs}
+    assert ifunc_vm_sweep.launches == sweeps + 1
+    assert ifunc_vm.launches == launches
+    x = torch.from_numpy(tile).to(cuda)
+    for s, out in got.items():
+        assert out.device.type == "cuda" and out.shape == (1, T, T)
+        assert torch.equal(out, ifunc_vm_plain(prog, x, ext[s]))
+        assert (out.cpu().numpy() == f_ind @ A_dev[s, 0]).all()
+    assert sorted(got) == [0, 1] and rt.pending() == 0

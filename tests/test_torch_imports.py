@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``repro_torch`` (the
 model stack's ``models/``, ``configs/``, ``train/`` with the training step
 and optimizers, ``data/``, ``serving/`` and ``obs/`` included) and
-registering its ifunc library loads neither jax nor the JAX package; nor
+registering its ifunc library (the four ``graph_*`` verbs included) loads
+neither jax nor the JAX package; nor
 does driving the Dispatcher's host lanes from ``repro_torch.obs`` and
 ``repro_torch.transport`` alone, nor a task future from
 ``repro_torch.tasks`` alone.  The check runs in a
@@ -31,6 +32,13 @@ ifunc_msg_create(h, np.zeros((1, 128, 128), np.float32))
 args = {"externals": {"W": np.eye(128, dtype=np.float32)}, "device": "cpu"}
 h.lib.main(np.ones((1, 128, 128), np.float32).tobytes(), 0, args)
 assert float(args["result"].sum()) == 128 * 128
+from repro_torch.tasks.placement import DataDirectory, PlacementEngine
+verbs = {n: register_ifunc(Context("probe"), n) for n in (
+    "graph_relax", "graph_fetch", "graph_count", "graph_degree")}
+args = {"externals": {"A": np.eye(128, dtype=np.float32)}, "device": "cpu"}
+verbs["graph_degree"].lib.main(np.ones((1, 128, 128), np.float32).tobytes(),
+                               0, args)
+assert float(args["result"].sum()) == 128 * 128
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(
                  ("jax.", "jaxlib.", "repro.")))
@@ -44,7 +52,8 @@ print("STACK", all(m in mods for m in (
     "repro_torch.data.pipeline", "repro_torch.obs.metrics",
     "repro_torch.obs.trace", "repro_torch.obs.recorder",
     "repro_torch.tasks.runtime", "repro_torch.tasks.future",
-    "repro_torch.tasks.wire")))
+    "repro_torch.tasks.wire", "repro_torch.tasks.placement",
+    "repro_torch.tasks.graph")))
 print("FORBIDDEN", bad)
 """
 
