@@ -203,7 +203,31 @@ Phases, each of which fails the script (non-zero exit, no result line):
     ``ifunc_vm_smem_kernel`` launch, its result equal to the device
     lane's for the same frontier and shard.
 
-The phases run in the order 1-9, 18, 19, 20, 21, 10-11, 14-17, 12-13: every
+22. streamed large payloads (frame v2.5): (a) ``uvm_affine`` streams of
+    128 and 1,024 tiles (8 MiB and 64 MiB, the target's
+    ``max_stream_bytes``) by ``send_stream`` at ``set_streaming``'s
+    defaults (256 KiB chunks, window 4) to an ``RdmaFabric`` peer on a
+    ``device="cuda"`` target with W resident, raw and under ``quant8``:
+    each one stream of ``ceil(bytes / chunk)`` chunks and one
+    ``ifunc_vm`` launch, nothing else launched; raw results bit for bit
+    ``uvm_execute``'s on the same tiles, quant8 results within rtol 1e-4,
+    atol 1e-5 of ``ifunc_vm_plain`` over the assembled tiles, the
+    assembly within the codec's bound of the payload (chunk 0 exact); no
+    receive state left; seconds, GB/s and host timers a stream, the
+    kernel's device time at each size and the SMs' idle share over one
+    traced stream.  (b) ``examples/storage_pipeline.py`` Act 4 without the
+    flow engine: 8 MiB of runs through ``send_ifunc``'s auto-route in 128
+    chunks of 64 KiB under ``rle``, reduced by ``host_aggregate`` on
+    arrival; the example's gates and STREAM_OK.  (c) a striped peer (2
+    rings of phase 19's 512 slots x 132 KiB) taking 2 x 512 two-tile
+    frames with one ``counter_bump`` NACK and resend: results in send
+    order, one ``ifunc_vm`` launch a frame, frames/s beside phase 19's one
+    RDMA peer.  (d) ``fig_stream`` as ``bench_ifunc.py`` defines it (the
+    ``stream``, ``sf``, ``sf_full`` and ``am`` cells at 64 KiB to 16 MiB,
+    µs a message, min of chunks), logged with the reference's orderings,
+    not gated.  (a) to (c) run under ``no_plain``.
+
+The phases run in the order 1-9, 18, 19, 20, 21, 22, 10-11, 14-17, 12-13: every
 profiler session of the timings and the traced step comes before the
 serving phase's long traces, after which the profiler recorded no device
 time in a run on the H100.  A trace that comes back without the records of the
@@ -219,7 +243,8 @@ runs inside, ``host_launches`` its launches on the host target of phase
 18 (``host_ms`` the device time of one there),
 ``dispatcher_launches`` its launches on phase 19's host peers and
 ``future_launches`` those on phase 20's, ``graph_host_launches`` phase
-21's host ``graph_degree`` future; ``ring_poll`` and ``agg_ring_poll``
+21's host ``graph_degree`` future, ``stream_launches`` phase 22's (one a
+μVM stream, one a striped frame); ``ring_poll`` and ``agg_ring_poll``
 count phase 20's device sweeps too, and ``ring_poll`` and ``ifunc_vm``
 phase 21's.
 """
@@ -280,6 +305,20 @@ TOL_GRAPH = dict(rtol=1e-5, atol=1e-5)        # the example's, vs Bellman-Ford
 # tasks a way, the median of 3 repeats
 FIG_EDGES, FIG_DEG, FIG_SEED, FIG_ITERS, FIG_REPEATS = \
     (1024, 8192, 65536), 16, 3, 60, 3
+# streamed large payloads (phase 22): uvm_affine streams of 128 and 1,024
+# tiles (8 MiB, and 64 MiB: Context.max_stream_bytes) at set_streaming's
+# defaults (256 KiB chunks, window 4), raw and under quant8; the bulk
+# ingest of examples/storage_pipeline.py Act 4 (4,096 seeded u32 values x
+# 512, 64 KiB chunks, window 4, rle, 8 slots of 256 KiB); a striped peer
+# of 2 rings x phase 19's 512 slots of 132 KiB taking 2 x 512 two-tile
+# frames; fig_stream at bench_ifunc.py's sizes, 32 messages a cell
+STREAM_TILES, STREAM_CODECS = (128, 1024), ("raw", "quant8")
+STREAM_CHUNK, STREAM_WINDOW = 256 << 10, 4
+BULK_VALUES, BULK_REPEAT, BULK_CHUNK = 4096, 512, 64 << 10
+BULK_SLOTS, BULK_SLOT = 8, 256 << 10
+STRIPE_SLOTS, STRIPE_SLOT = 512, 132 << 10
+FIG_STREAM_SIZES = (64 << 10, 256 << 10, 1 << 20, 4 << 20, 16 << 20)
+FIG_STREAM_ITERS = 32
 
 # Published peaks (NVIDIA data sheets; dense, no sparsity): device-memory
 # bytes/s, FP32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s.
@@ -3482,6 +3521,571 @@ def phase_graph(np, torch, dev, smi):
     return {"sweeps": n_sweeps, "host_launches": counts["ifunc_vm"]}
 
 
+# ------------------------------------------------ streamed large payloads
+
+
+def stream_slot(lib, chunk, window):
+    """A slot that holds a stream frame of ``window`` cells of ``chunk``
+    bytes with its FULL fallback (the code section restored), rounded up
+    to 4 KiB."""
+    from repro_torch.core import frame as F
+
+    n = (F.HEADER_LEN + len(lib.code) + F.TRAILER_LEN
+         + F.stream_payload_len(window, chunk + F.CHUNK_OVERHEAD))
+    return (n + 4095) & ~4095
+
+
+def stream_peer(pkg, W, *, codec, chunk, window, lib_dir=None, obs=None):
+    """Phase 22 (a)'s topology through ``pkg`` (``core``, ``transport`` and
+    the context keywords ``kw``; the port's on the card, either package on
+    the CPU in the tests): a source ``Dispatcher`` with streaming on at
+    ``chunk`` and ``window`` and one ``RdmaFabric`` peer ``rdma`` of two
+    slots that each hold a stream frame of that geometry, its wire codec
+    ``codec``, on a target with ``W`` resident, its link cache warmed by
+    one FULL single-tile frame (so the streams that follow open SLIM).
+    Returns (dispatcher, ``uvm_affine`` handle)."""
+    import numpy as np
+
+    core, X = pkg.core, pkg.transport
+    src = core.Context("stream-source", lib_dir=lib_dir, **pkg.kw)
+    d = X.Dispatcher(src, X.ProgressEngine(flush_threshold=64), obs=obs)
+    h = core.register_ifunc(src, "uvm_affine", lib_dir)
+    d.set_streaming(True, chunk_bytes=chunk, window=window)
+    d.add_peer("rdma", X.RdmaFabric(),
+               core.Context("stream-target", lib_dir=lib_dir,
+                            link_mode="remote", **pkg.kw),
+               n_slots=2, slot_size=stream_slot(h.lib, chunk, window),
+               codec=codec, target_args={"externals": {"W": W}})
+    one = core.ifunc_msg_create(h, np.zeros((1, T, T), np.float32))
+    check(d.send("rdma", one), "warm-up send refused")
+    d.drain()
+    check(d.peers["rdma"].stats["delivered"] == 1, "warm-up not delivered")
+    return d, h
+
+
+def capture_runs(ctx):
+    """Every fn ``ctx`` has linked records the payload each of its runs
+    gets, in the list returned: for a stream, a view of the assembly
+    buffer its one run reads (no copy; the buffer lives on in the view)."""
+    seen = []
+    entries = ctx.link_cache.entries
+    for key, fn in list(entries.items()):
+        def run(payload, size, targs, _fn=fn):
+            seen.append(payload)
+            return _fn(payload, size, targs)
+        entries[key] = run
+    return seen
+
+
+def stream_one(d, h, x, peer="rdma"):
+    """Stream the tiles ``x`` (numpy, sent as a view: no copy at the
+    source) to ``peer`` with ``send_stream`` and drain; fails unless it
+    took one stream of ``ceil(bytes / chunk)`` chunks, delivered once, and
+    left no receive or pump state.  Returns the result."""
+    p = d.peers[peer]
+    before = dict(p.stats)
+    chunk = d._stream_chunk
+    check(d.send_stream(peer, h, x), f"send_stream to {peer} refused")
+    d.drain()
+    n_chunks = -(-x.nbytes // chunk)
+    got = {k: p.stats[k] - before[k] for k in ("streams", "stream_chunks",
+                                               "delivered", "rejected",
+                                               "nacks")}
+    check(got == {"streams": 1, "stream_chunks": n_chunks, "delivered": 1,
+                  "rejected": 0, "nacks": 0},
+          f"stream of {x.nbytes} B to {peer}: {got}, want one stream of "
+          f"{n_chunks} chunks delivered")
+    check(not any(r.mailbox.streams for r in p.rings)
+          and not d._active_streams and not any(r.inflight for r in p.rings),
+          f"stream to {peer} left receive or pump state")
+    return p.target_args["result"]
+
+
+def assembly_err(np, x, assembled, codec, chunk):
+    """Hold the payload a stream's run got against the tiles sent: bit for
+    bit when raw; under quant8 chunk 0 bit for bit and every other chunk
+    within half a quantization step (``max|chunk| / 254``, the codec's
+    rounding bound) plus ``max|chunk| * 2^-20`` (the scale's and the
+    product's f32 rounding) of the raw values.  Returns the largest
+    |difference| past chunk 0."""
+    got = np.frombuffer(assembled, np.float32)
+    raw = x.reshape(-1)
+    check(got.size == raw.size, f"assembled {got.size} floats, sent "
+                                f"{raw.size}")
+    if codec == "raw":
+        check(np.array_equal(got, raw), "raw stream: assembly differs from "
+                                        "the payload")
+        return 0.0
+    per = chunk // 4
+    check(np.array_equal(got[:per], raw[:per]),
+          f"{codec}: chunk 0 not bit for bit")
+    worst = 0.0
+    for s in range(per, raw.size, per):
+        g, r = got[s:s + per], raw[s:s + per]
+        err = float(np.abs(g - r).max())
+        bound = float(np.abs(r).max()) * (1 / 254 + 2 ** -20)
+        check(err <= bound, f"{codec}: chunk {s // per} off by {err:.3g}, "
+                            f"bound {bound:.3g}")
+        worst = max(worst, err)
+    return worst
+
+
+def bulk_ingest(pkg, np, *, values=BULK_VALUES, repeat=BULK_REPEAT,
+                chunk=BULK_CHUNK, window=STREAM_WINDOW, n_slots=BULK_SLOTS,
+                slot=BULK_SLOT, seed=22, lib_dir=None, obs=None):
+    """``examples/storage_pipeline.py`` Act 4 without the flow engine,
+    through ``pkg``: ``np.repeat`` of ``values`` seeded u32 values x
+    ``repeat`` streamed by ``send_ifunc``'s auto-route (threshold and
+    chunk ``chunk``, window ``window``) to ``agg``, an ``RdmaFabric`` peer
+    of ``n_slots`` x ``slot`` under the ``rle`` wire codec, where
+    ``host_aggregate`` reduces each chunk as it lands.  The example's
+    gates: the result equals numpy's count, sum, min and max, one stream
+    of ``ceil(bytes / chunk)`` chunks, fewer than half the payload's bytes
+    on the wire, no receive state left; STREAM_OK.  Returns what it
+    measured."""
+    core, X = pkg.core, pkg.transport
+    src = core.Context("bulk-source", lib_dir=lib_dir, **pkg.kw)
+    d = X.Dispatcher(src, X.ProgressEngine(flush_threshold=64), obs=obs)
+    d.add_peer("agg", X.RdmaFabric(),
+               core.Context("agg", lib_dir=lib_dir, link_mode="remote",
+                            **pkg.kw),
+               n_slots=n_slots, slot_size=slot, codec="rle", target_args={})
+    d.set_streaming(True, chunk_bytes=chunk, window=window, threshold=chunk)
+    h = core.register_ifunc(src, "host_aggregate", lib_dir)
+    check(h.lib.streaming, "host_aggregate is not streaming-aware")
+    rng = np.random.default_rng(seed)
+    records = np.repeat(rng.integers(0, 1 << 32, size=values,
+                                     dtype=np.uint32), repeat)
+    payload = records.tobytes()
+    bulk = d.peers["agg"]
+    wire0 = sum(r.channel.ep.stats["bytes"] for r in bulk.rings)
+    t0 = time.perf_counter()
+    check(d.send_ifunc("agg", h, payload), "bulk send refused")
+    d.drain()
+    secs = time.perf_counter() - t0
+    got = bulk.target_args["result"]
+    want = {"count": int(records.size), "sum": int(records.sum()),
+            "min": int(records.min()), "max": int(records.max())}
+    check(got == want, f"bulk ingest: {got}, want {want}")
+    n_chunks = -(-len(payload) // chunk)
+    check(bulk.stats["streams"] == 1 and bulk.stats["stream_chunks"]
+          == n_chunks, f"bulk ingest: {bulk.stats}, want 1 stream of "
+                       f"{n_chunks} chunks")
+    wire = sum(r.channel.ep.stats["bytes"] for r in bulk.rings) - wire0
+    check(wire < len(payload) // 2,
+          f"RLE wire codec never engaged: {wire} B on the wire for "
+          f"{len(payload)} B of runs")
+    check(not any(r.mailbox.streams for r in bulk.rings),
+          "bulk ingest left receive state")
+    log(f"  bulk ingest: {len(payload)} B streamed in {n_chunks} chunks, "
+        f"{wire} B on the wire ({len(payload) / wire:.1f}x rle), reduced "
+        f"on arrival at agg in {secs:.4f} s")
+    log("STREAM_OK")
+    return {"d": d, "secs": secs, "wire": wire, "bytes": len(payload),
+            "chunks": n_chunks, "result": got}
+
+
+def striped_fifo(pkg, np, W, xs, *, n_slots=STRIPE_SLOTS, slot=STRIPE_SLOT,
+                 evict_at=None, lib_dir=None, obs=None):
+    """Phase 22 (c) through ``pkg``, the shape of
+    ``tests/test_device_agg.py::test_striping_fifo_under_resends``: a
+    ``Dispatcher`` coalescing up to 4 records, one ``RdmaFabric`` peer
+    ``striped`` of 2 rings x ``n_slots`` x ``slot`` with ``stripe=True`` on
+    a target with ``W`` resident; ``uvm_affine`` and ``counter_bump`` each
+    delivered FULL once; ``counter_bump``'s digest evicted; then the
+    two-tile frames ``xs`` in order, one ``counter_bump`` frame (which
+    NACKs) sent before frame ``evict_at``, each send retried after a
+    drain while backpressured.  Gates: nacks == 1, resent == 1, the
+    counter bumped once more, and one result a frame (``results`` in
+    ``target_args``, in execution order).  Returns what it measured."""
+    core, X = pkg.core, pkg.transport
+    src = core.Context("stripe-source", lib_dir=lib_dir, **pkg.kw)
+    d = X.Dispatcher(src, X.ProgressEngine(flush_threshold=64), obs=obs)
+    d.set_coalescing(True, max_subs=4)
+    d.add_peer("striped", X.RdmaFabric(),
+               core.Context("striped", lib_dir=lib_dir, link_mode="remote",
+                            **pkg.kw),
+               n_slots=n_slots, slot_size=slot, rings=2, stripe=True,
+               target_args={"externals": {"W": W}, "count": 0})
+    peer = d.peers["striped"]
+    h = core.register_ifunc(src, "uvm_affine", lib_dir)
+    h_cnt = core.register_ifunc(src, "counter_bump", lib_dir)
+    for hh, arg in ((h, xs[0]), (h_cnt, b"\x01")):   # warm: FULL once each
+        check(d.send_ifunc("striped", hh, arg), "warm-up send refused")
+        d.drain()
+    peer.target_args["results"] = []
+    base = peer.target_args["count"]
+    check(peer.target_ctx.link_cache.evict("counter_bump", h_cnt.digest),
+          "counter_bump not cached")
+    evict_at = len(xs) // 2 if evict_at is None else evict_at
+    retries = 0
+    t0 = time.perf_counter()
+    for i, x in enumerate(xs):
+        if i == evict_at:
+            while not d.send_ifunc("striped", h_cnt, b"x"):
+                retries += 1
+                d.drain()
+        while not d.send_ifunc("striped", h, x):
+            retries += 1
+            d.drain()
+    rounds = 200
+    while (peer.resend or any(q.subs for q in peer.coalesce.values())
+           or peer.target_args["count"] < base + 1) and rounds:
+        d.flush_coalesced("striped")
+        d.drain()
+        rounds -= 1
+    d.drain()
+    secs = time.perf_counter() - t0
+    got = peer.target_args["results"]
+    check(len(got) == len(xs), f"striped: {len(got)} results for "
+                               f"{len(xs)} frames")
+    check(peer.target_args["count"] == base + 1,
+          f"striped: counter bumped {peer.target_args['count'] - base} "
+          f"times, want once")
+    check(peer.stats["nacks"] == 1 and peer.stats["resent"] == 1,
+          f"striped: nacks {peer.stats['nacks']}, resent "
+          f"{peer.stats['resent']}, want one each")
+    check(peer.stripe_rx >= peer.stats["sent"] - len(peer.resend) - 2,
+          f"striped: consume rotation at {peer.stripe_rx} for "
+          f"{peer.stats['sent']} sent")
+    return {"d": d, "secs": secs, "retries": retries, "results": got}
+
+
+def fig_stream_cells(pkg, size, *, lib_dir=None):
+    """``benchmarks/bench_ifunc.py::bench_stream``'s four cells at one
+    payload size through ``pkg``, at the bare API: ``stream`` (a warm SLIM
+    FLAG_STREAM frame posted as one gathered put from a pre-sealed template,
+    the payload's chunks views of it, ``stream_sink`` run per chunk on
+    arrival), ``sf`` and ``sf_full`` (the payload copied into one SLIM or
+    FULL frame, one put) and ``am`` (the AM baseline).  Returns (the cells'
+    functions, each timing ``n`` messages, and a check of what they
+    delivered)."""
+    core = pkg.core
+    F = core.frame
+    payload = b"x" * size
+    pol = core.SecurityPolicy(max_frame_len=1 << 26)
+    kw = dict(lib_dir=lib_dir, **pkg.kw)
+
+    src = core.Context("src_stream", **kw)
+    dst2 = core.Context("dst_stream", link_mode="remote", policy=pol, **kw)
+    h = core.register_ifunc(src, "stream_sink", lib_dir)
+    lib = h.lib
+    chunk = min(size, 256 << 10)
+    n_chunks = -(-size // chunk)
+    cell = chunk + F.CHUNK_OVERHEAD
+    plen = F.stream_payload_len(n_chunks, cell)
+    slot_size = 1 << (F.HEADER_LEN + len(lib.code) + plen
+                      + F.TRAILER_LEN).bit_length()
+    fab = pkg.transport.RdmaFabric()
+    mb = fab.open_mailbox(dst2, 2, slot_size)
+    sep = fab.connect(src, mb).ep
+    raddr, rkey = mb.slot_addr(0), mb.region.rkey
+    key0, view0 = mb.slot_coords(0), mb.slot_view(0)
+    targs_stream: dict = {}
+    pv = memoryview(payload)
+
+    def build(slim):
+        sflags = F.SFLAG_EXEC_ON_ARRIVAL if lib.streaming else 0
+        desc = F.StreamDesc(size, n_chunks, chunk, n_chunks, 0, sflags, cell,
+                            1)
+        code = b"" if slim else lib.code
+        slab = bytearray(slot_size)
+        flen = F.seal_frame(slab, lib.name, code, lib.kind, plen,
+                            digest=lib.code_digest, slim=slim,
+                            flags=F.FLAG_STREAM)
+        F.pack_stream_desc(slab, F.HEADER_LEN + len(code), desc)
+        prefix = F.HEADER_LEN + len(code) + F.STREAM_DESC_LEN
+        segs, run_s = [], 0
+        for seq in range(n_chunks):
+            coff = prefix + desc.cell_off(seq)
+            data = pv[seq * chunk:(seq + 1) * chunk]
+            run_e = coff + F.CHUNK_HDR_LEN
+            F.pack_chunk_into(slab, coff, run_e + len(data), seq, len(data),
+                              len(data), 0, nonce=desc.nonce)
+            segs.append((run_s, memoryview(slab)[run_s:run_e]))
+            segs.append((run_e, data))
+            run_s = run_e + len(data)
+        segs.append((run_s, memoryview(slab)[run_s:flen]))
+        return slab, segs
+
+    _, full_segs = build(False)               # FULL: link and confirm
+    sep.putv_nbi(full_segs, raddr, rkey, withhold_tail=F.TRAILER_LEN)
+    sep.flush()
+    check(core.poll_ifunc(dst2, view0, None, targs_stream, streams=mb.streams,
+                          stream_key=key0) == core.Status.OK
+          and targs_stream["result"] == size, "fig_stream: FULL stream")
+    slab, segs = build(True)                  # the warm SLIM template
+    wr = sep.prepare_putv(segs, raddr, rkey, withhold_tail=F.TRAILER_LEN)
+
+    def stream(n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            wr.post()
+            sep.flush()
+            while core.poll_ifunc(dst2, view0, None, targs_stream,
+                                  streams=mb.streams,
+                                  stream_key=key0) != core.Status.OK:
+                pass
+        return time.perf_counter() - t0
+
+    s2 = core.Context("src", **kw)
+    dst = core.Context("dst", link_mode="remote", policy=pol, **kw)
+    ep = s2.nic.connect(dst.nic)
+    h2 = core.register_ifunc(s2, "stream_sink", lib_dir)
+    region = dst.nic.mem_map(1 << (size + 8192).bit_length())
+    targs_sf: dict = {}
+    core.ifunc_msg_send_nbix(ep, core.ifunc_msg_create(h2, payload),
+                             region.base, region.rkey)
+    check(core.poll_ifunc(dst, region.view(), None, targs_sf)
+          == core.Status.OK and targs_sf["result"] == size, "fig_stream: sf")
+
+    def sf(n, slim):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            msg = core.ifunc_msg_create(h2, payload, slim=slim)
+            core.ifunc_msg_send_nbix(ep, msg, region.base, region.rkey)
+            while core.poll_ifunc(dst, region.view(), None,
+                                  targs_sf) != core.Status.OK:
+                pass
+        return time.perf_counter() - t0
+
+    a, b = core.AmContext("a"), core.AmContext("b")
+    got = []
+    b.register(1, lambda p, n, t: got.append(n))
+    ab = core.AmEndpoint(a, b)
+
+    def am(n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ab.send(1, payload)
+            while b.progress() == 0:
+                pass
+        return time.perf_counter() - t0
+
+    def delivered(n_stream):
+        check(dst2.stats["rejected"] == 0 and dst2.stats["nacks"] == 0
+              and dst2.stats["streams"] == 1 + n_stream
+              and targs_stream["result"] == size
+              and targs_sf["result"] == size and got and got[-1] == size,
+              f"fig_stream {size} B: {dst2.stats}")
+
+    cells = {"stream": stream, "sf": lambda n: sf(n, True),
+             "sf_full": lambda n: sf(n, False), "am": am}
+    return cells, delivered, (dst2, mb, targs_stream)
+
+
+def fig_stream(sizes=FIG_STREAM_SIZES, n_iters=FIG_STREAM_ITERS):
+    """``bench_stream`` on the port: per size, the four cells timed in
+    interleaved chunks of ``max(2, min(16, 2 MiB / size))`` messages, the
+    garbage collector parked, µs a message the min over chunks.  Returns
+    {size: {cell: µs}}."""
+    import gc
+    import types
+
+    from repro_torch import core, transport
+
+    pkg = types.SimpleNamespace(core=core, transport=transport, kw={})
+    rows = {}
+    for size in sizes:
+        cells, delivered, _ = fig_stream_cells(pkg, size)
+        per = max(2, min(16, (2 << 20) // size))
+        for fn in cells.values():
+            fn(per)                                # warm-up round
+        times = {k: [] for k in cells}
+        rounds = max(n_iters // per, 8)
+        gc.collect()
+        gc.disable()
+        try:
+            for _ in range(rounds):
+                for k, fn in cells.items():
+                    times[k].append(fn(per))
+        finally:
+            gc.enable()
+        delivered(per * (1 + rounds))
+        rows[size] = {k: min(v) / per * 1e6 for k, v in times.items()}
+    return rows
+
+
+def phase_streams(np, torch, dev, smi, mp_rates):
+    """Phase 22: streamed large payloads on the port.  (a) ``uvm_affine``
+    streams of ``STREAM_TILES`` tiles sent with ``send_stream`` at
+    ``set_streaming``'s defaults to a ``device="cuda"`` target, raw and
+    under ``quant8``: each one stream of ``ceil(bytes / chunk)`` chunks,
+    one ``ifunc_vm`` launch and nothing else; the raw result bit for bit
+    ``uvm_execute``'s on the same tiles, the quant8 result within rtol
+    1e-4, atol 1e-5 of ``ifunc_vm_plain`` over the assembled tiles, the
+    assembly within the codec's bound (``assembly_err``); host timers
+    around the chunk posts (and quant8's encode), the target's sweep,
+    ``run_uvm``'s copy and H2D and the launch; ``ifunc_vm``'s device time
+    at each size; the SMs' idle share over one traced stream a size.  (b)
+    ``bulk_ingest`` at the example's size.  (c) ``striped_fifo`` at
+    phase 19's host geometry, 2 x 512 frames: the results in send order,
+    one ``ifunc_vm`` launch a frame, frames/s beside phase 19's one RDMA
+    peer.  (d) ``fig_stream``: µs a message of each cell (host timings,
+    logged, not gated).  (a) to (c) run under ``no_plain``.  Returns the
+    ``ifunc_vm`` launches of (a) and (c)."""
+    import types
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import core, transport
+    from repro_torch.core import api as A
+    from repro_torch.core.codegen import deserialize_uvm
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels.ifunc_vm import ifunc_vm, ifunc_vm_plain, vm_plan
+
+    pkg = types.SimpleNamespace(core=core, transport=transport,
+                                kw={"device": dev})
+    rng = np.random.default_rng(22)
+    W = torch.from_numpy((rng.standard_normal((T, T)) * 0.05)
+                         .astype(np.float32)).to(dev)
+    spent: dict = {}
+
+    def timed(what, fn):
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[what] = spent.get(what, 0.0) + time.perf_counter() - t
+        return wrapper
+
+    launches = 0
+    runs = []
+    saved = (A._host_copy, A._to_device, K.uvm_execute)
+    with no_plain():
+        A._host_copy = timed("host copy", A._host_copy)
+        A._to_device = timed("H2D", A._to_device)
+        K.uvm_execute = timed("launch", K.uvm_execute)
+        try:
+            for codec in STREAM_CODECS:
+                d, h = stream_peer(pkg, W, codec=codec, chunk=STREAM_CHUNK,
+                                   window=STREAM_WINDOW)
+                peer = d.peers["rdma"]
+                seen = capture_runs(peer.target_ctx)
+                d.engine.post_chunk = timed("chunk posts",
+                                            d.engine.post_chunk)
+                d._encode_chunk = timed("encode", d._encode_chunk)
+                mb = peer.rings[0].mailbox
+                mb.sweep = timed("sweep", mb.sweep)
+                for n in STREAM_TILES:
+                    x = rng.standard_normal((n, T, T)).astype(np.float32)
+                    sync(torch, dev)
+                    spent.clear()
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    out = stream_one(d, h, x)
+                    sync(torch, dev)
+                    secs = time.perf_counter() - t0
+                    counts = read_counts()
+                    check(counts["ifunc_vm"] == 1 and all(
+                        v == 0 for k, v in counts.items() if k != "ifunc_vm"),
+                        f"{codec} stream of {n} tiles launched {counts}, "
+                        f"want ifunc_vm once")
+                    launches += 1
+                    runs.append((codec, n, x, out, seen.pop(), secs,
+                                 dict(spent), h))
+                    check(not seen, "a stream ran its fn more than once")
+                del mb.sweep
+        finally:
+            A._host_copy, A._to_device, K.uvm_execute = saved
+
+    prog = deserialize_uvm(runs[0][7].lib.code)
+    kernel = vm_plan(prog).kernel
+    for codec, n, x, out, assembled, secs, parts, _ in runs:
+        err = assembly_err(np, x, assembled, codec, STREAM_CHUNK)
+        tiles = torch.from_numpy(np.frombuffer(assembled, np.float32)
+                                 .reshape(n, T, T).copy()).to(dev)
+        check(out.shape == (n, T, T) and bool(torch.isfinite(out).all()),
+              f"{codec} stream of {n} tiles: result {tuple(out.shape)} or "
+              f"not finite")
+        if codec == "raw":
+            want = K.uvm_execute(prog, torch.from_numpy(x).to(dev), [W],
+                                 device=dev)
+            check(torch.equal(out, want), f"raw stream of {n} tiles differs "
+                                          f"from uvm_execute")
+            vs = "bit for bit uvm_execute's"
+        else:
+            plain = ifunc_vm_plain(prog, tiles, W[None])
+            check(torch.allclose(out, plain, **TOL_PATH),
+                  f"{codec} stream of {n} tiles vs ifunc_vm_plain: "
+                  f"{(out - plain).abs().max().item():.3g}")
+            vs = (f"max |err| {(out - plain).abs().max().item():.3g} against "
+                  f"ifunc_vm_plain over the assembly (assembly off the "
+                  f"payload by at most {err:.3g})")
+        post = parts.get("chunk posts", 0.0)
+        sweep = parts.get("sweep", 0.0)
+        run_s = parts.get("host copy", 0.0) + parts.get("H2D", 0.0) + \
+            parts.get("launch", 0.0)
+        log(f"{codec} stream of {n} tiles ({x.nbytes / 2 ** 20:.0f} MiB) on "
+            f"{smi}: {secs:.4f} s, {x.nbytes / secs / 1e9:.3f} GB/s, "
+            f"{-(-x.nbytes // STREAM_CHUNK)} chunks, one {kernel} launch; "
+            f"{vs}; host timers: chunk posts {post:.4f} s, chunk encode "
+            f"{parts.get('encode', 0.0):.4f} s, target sweeps "
+            f"{sweep:.4f} s = assembly and polls {sweep - run_s:.4f} + "
+            f"run_uvm (host copy {parts.get('host copy', 0.0):.4f}, H2D "
+            f"{parts.get('H2D', 0.0):.4f}, launch "
+            f"{parts.get('launch', 0.0):.4f})")
+
+    # ifunc_vm alone at each size, and one traced raw stream a size
+    d, h = stream_peer(pkg, W, codec="raw", chunk=STREAM_CHUNK,
+                       window=STREAM_WINDOW)
+    for n in STREAM_TILES:
+        x = rng.standard_normal((n, T, T)).astype(np.float32)
+        tiles = torch.from_numpy(x).to(dev)
+        ms = device_ms(torch, lambda: ifunc_vm(prog, tiles, W[None]), kernel,
+                       10)
+        wall = [r[5] for r in runs if r[0] == "raw" and r[1] == n][0]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            stream_one(d, h, x)
+            sync(torch, dev)
+        log(f"{kernel} over {n} tiles on {smi}: "
+            + ("device time not measured" if ms is None
+               else f"{ms:.4f} ms device time")
+            + f", of a {wall:.4f} s stream")
+        log_card_busy(prof, wall, f"card over one raw stream of {n} tiles",
+                      (kernel,))
+
+    # (b) and (c)
+    bulk_ingest(pkg, np)
+    xs = rng.standard_normal((2 * STRIPE_SLOTS, NT, T, T)).astype(np.float32)
+    sync(torch, dev)
+    with no_plain():
+        reset_counts()
+        st = striped_fifo(pkg, np, W, xs)
+        sync(torch, dev)
+        counts = read_counts()
+    check(counts["ifunc_vm"] == len(xs) + 1 and all(
+        v == 0 for k, v in counts.items() if k != "ifunc_vm"),
+        f"striped run launched {counts}, want {len(xs) + 1} ifunc_vm (one "
+        f"a frame, the FULL warm-up's included)")
+    launches += counts["ifunc_vm"]
+    got = torch.stack([r for r in st["results"]])
+    want = torch.relu(torch.from_numpy(xs).to(dev) @ W)
+    check(torch.allclose(got, want, **TOL_PATH),
+          f"striped results out of order or off: max |err| "
+          f"{(got - want).abs().max().item():.3g}")
+    p = st["d"].peers["striped"]
+    log(f"striped peer (2 rings x {STRIPE_SLOTS} slots of "
+        f"{STRIPE_SLOT >> 10} KiB) on {smi}: {len(xs)} frames in send order "
+        f"in {st['secs']:.4f} s = {len(xs) / st['secs']:.1f} frames/s "
+        f"(phase 19's one RDMA peer alone {mp_rates['rdma']:.1f} frames/s), "
+        f"{st['retries']} backpressured sends, nacks {p.stats['nacks']}, "
+        f"resent {p.stats['resent']}, {counts['ifunc_vm']} {kernel} "
+        f"launches")
+
+    # (d) fig_stream: host timings, logged
+    for size, us in fig_stream().items():
+        log(f"fig_stream {size} B on {smi}, µs a message (min of chunks): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in us.items())
+            + f"; stream <= sf_full {us['stream'] <= us['sf_full']}, "
+              f"<= am {us['stream'] <= us['am']}"
+            + (f", <= sf {us['stream'] <= us['sf']}" if size >= 256 << 10
+               else ""))
+    return {"launches": launches}
+
+
 # ------------------------------------------------------------ model stack
 
 
@@ -4259,6 +4863,8 @@ def main():
     vm["graph_host_launches"] = gr["host_launches"]
     vm["launches"] += gr["sweeps"]        # graph_degree inside the sweeps
     kernels[0]["launches"] += gr["sweeps"]
+    sm = phase_streams(np, torch, dev, smi, mp["rates"])
+    vm["stream_launches"] = sm["launches"]
     model_errs = phase_model_kernels(np, torch, dev)
     bwd_errs = phase_bwd_kernels(np, torch, dev)
     # timed, and a train step traced, before the serving phase's long

@@ -20,9 +20,13 @@ HLO (``torch.export``) program and a μVM program on ``Context.device`` —
 the card unless the context says ``device="cpu"``.  A μVM frame launches
 the ``ifunc_vm`` kernel once.
 
-``poll_ifunc`` is the reference's (``repro.core.api``) without its
-stream branch: a ``FLAG_STREAM`` frame is REJECTED.  The device mesh
-links its μVM program at mailbox-open time and reports per-slot
+``poll_ifunc`` is the reference's (``repro.core.api``).  A
+``FLAG_STREAM`` frame is consumed chunk by chunk over many polls of its
+slot, with the receive state the mailbox carries (``streams``): a
+streaming-aware ifunc runs once per arrived chunk, any other gets the
+payload assembled and runs once, so a μVM stream to a ``device="cuda"``
+target is one ``ifunc_vm`` launch over the whole payload.  The device
+mesh links its μVM program at mailbox-open time and reports per-slot
 :class:`Status` values through its own sweep.
 """
 
@@ -78,6 +82,9 @@ class Context:
     handles: dict[str, "IfuncHandle"] = field(default_factory=dict)
     wait_mem = staticmethod(_default_wait_mem)
     max_trailer_spins: int = 1_000_000
+    max_stream_bytes: int = 64 << 20         # bound on a buffered stream's
+    #                     assembly allocation (a descriptor promising more
+    #                     is rejected before any memory is committed)
     last_agg_results: list | None = None     # per-sub outcomes of the most
     #                     recent FLAG_AGG frame this ctx consumed (set by
     #                     poll_ifunc, harvested by Mailbox.sweep)
@@ -453,13 +460,232 @@ def _link(ctx: Context, hdr: F.FrameHeader, code: bytes):
     raise PolicyViolation(f"unsupported code kind {hdr.code_kind}")
 
 
+class _StreamRx:
+    """Target-side state of one FLAG_STREAM frame in progress: the parsed
+    descriptor, the resolved fn, the consume cursor and (buffered mode) the
+    assembly buffer.  Lives in ``Mailbox.streams`` keyed by the slot's
+    coordinate: the stream holds its ring slot for its whole life, so the
+    state survives many sweeps of that slot."""
+
+    __slots__ = ("hdr", "desc", "fn", "next_seq", "assembly")
+
+    def __init__(self, hdr, desc, fn, assembly):
+        self.hdr = hdr
+        self.desc = desc
+        self.fn = fn
+        self.next_seq = 0
+        self.assembly = assembly       # None = exec-on-arrival
+
+
+_CODEC_MOD = None    # repro_torch.transport.codec, imported lazily (core
+#                      must not depend on transport at import time) and
+#                      memoized off the per-chunk path
+
+
+def _codec_mod():
+    global _CODEC_MOD
+    if _CODEC_MOD is None:
+        from repro_torch.transport import codec
+        _CODEC_MOD = codec
+    return _CODEC_MOD
+
+
+#: stream-open prediction: the header and descriptor memos hand back the
+#: SAME (frozen) objects for byte-equal bytes, so an identity match, with
+#: unchanged link-cache counters and stream bound, proves the open's
+#: re-validation (geometry bound, codec, digest lookup) redundant.  A
+#: predicted open still counts as a link-cache hit.
+_OPEN_MEMO: list = [None, None, None, None, None]  # [ctx, hdr, desc, gen, fn]
+
+
+def _stream_open(ctx: Context, buf, hdr: F.FrameHeader,
+                 target_args) -> "_StreamRx | Status":
+    """Descriptor arrival: parse and validate the stream geometry, resolve
+    the ifunc as for a singleton (cache hit, SLIM NACK, FULL link), and
+    choose exec-on-arrival or buffered.  Returns the new rx state, or
+    NACK_UNCACHED (frame consumed) for a SLIM digest miss."""
+    C = _codec_mod()
+
+    code, payload = F.frame_sections(buf, hdr)
+    desc = F.parse_stream_desc(payload, 0, len(payload))
+    cache = ctx.link_cache
+    memo = _OPEN_MEMO
+    if (desc is memo[2] and hdr is memo[1] and ctx is memo[0]
+            and (cache.link_events, cache.evictions,
+                 ctx.max_stream_bytes) == memo[3]):
+        cache.hits += 1                # predicted, but still a cache hit
+        buffered = not (desc.exec_on_arrival
+                        and isinstance(target_args, dict))
+        return _StreamRx(hdr, desc, memo[4],
+                         bytearray(desc.total_len) if buffered else None)
+    if desc.total_len > ctx.max_stream_bytes:
+        raise F.FrameError(f"stream of {desc.total_len}B exceeds the "
+                           f"target's {ctx.max_stream_bytes}B bound")
+    C.get_codec(desc.codec)           # unknown negotiated codec -> reject
+    fn = cache.lookup(hdr.name, hdr.digest)
+    if fn is None:
+        if hdr.is_slim:
+            ctx.stats["nacks"] += 1
+            ctx.stats["last_nack"] = (hdr.name, hdr.digest)
+            return Status.NACK_UNCACHED
+        code_b = bytes(code)
+        if F.compute_digest(code_b) != hdr.digest:
+            raise F.FrameError("code digest mismatch (corrupt code "
+                               "section or forged header)")
+        fn = _link(ctx, hdr, code_b)
+        cache.insert(hdr.name, hdr.digest, fn)
+        ctx.stats["links"] += 1
+    memo[0], memo[1], memo[2], memo[3], memo[4] = \
+        ctx, hdr, desc, (cache.link_events, cache.evictions,
+                         ctx.max_stream_bytes), fn
+    buffered = not (desc.exec_on_arrival and isinstance(target_args, dict))
+    return _StreamRx(hdr, desc, fn,
+                     bytearray(desc.total_len) if buffered else None)
+
+
+def _poll_stream(ctx: Context, buf, hdr: F.FrameHeader, target_args,
+                 streams: dict, key, clear: bool) -> Status:
+    """Progress one FLAG_STREAM frame: open on first sight, then consume
+    every chunk whose seal has landed — per chunk for a streaming-aware
+    ifunc (exec-on-arrival), into the assembly buffer otherwise.  Returns
+    IN_PROGRESS until the last chunk is consumed (the stream owns its ring
+    slot until then), then runs the buffered fn (if any) and completes
+    with OK.  Corruption anywhere — descriptor, chunk header, codec
+    payload — rejects ONLY this stream: the slot is scrubbed and later
+    traffic flows.  An exception raised inside the ifunc propagates (the
+    poisoned-slot semantics); the rx cursor stays on the raising chunk."""
+    C = _codec_mod()
+
+    rx = streams.get(key)
+    try:
+        if rx is None:
+            if streams is _NO_STREAMS:
+                raise F.FrameError("stream frame polled without mailbox "
+                                   "stream state")
+            opened = _stream_open(ctx, buf, hdr, target_args)
+            if opened is Status.NACK_UNCACHED:
+                if clear:
+                    F.clear_frame(buf, hdr)
+                return opened
+            rx = streams[key] = opened
+            o = ctx.obs
+            if o is not None and o.enabled and o.tracer.enabled:
+                o.tracer.instant(
+                    f"stream_open:{hdr.name}@{ctx.name}", cat="stream",
+                    actor=ctx.name, corr=hdr.corr_id or None,
+                    chunks=opened.desc.n_chunks,
+                    bytes=opened.desc.total_len,
+                    mode="buffer" if opened.assembly is not None else "exec")
+        desc = rx.desc
+        mv = buf if isinstance(buf, memoryview) else memoryview(buf)
+        cells = hdr.payload_offset + F.STREAM_DESC_LEN
+        is_dict = isinstance(target_args, dict)
+        consumed0 = rx.next_seq
+        stats = ctx.stats
+        o = ctx.obs
+        tr = (o.tracer if o is not None and o.enabled and o.tracer.enabled
+              else None)               # per-chunk spans: tracing runs only
+        try:
+            while rx.next_seq < desc.n_chunks:
+                seq = rx.next_seq
+                off = cells + desc.cell_off(seq)
+                got = F.peek_chunk(mv[off:off + desc.cell], seq,
+                                   desc.chunk_bytes, nonce=desc.nonce)
+                if got is None:
+                    break              # chunk pending / seal in flight
+                comp_len, raw_len, codec_used = got
+                chunk_off = seq * desc.chunk_bytes
+                if raw_len != min(desc.chunk_bytes,
+                                  desc.total_len - chunk_off):
+                    raise F.FrameError(
+                        f"chunk {seq} raw length {raw_len} off-geometry")
+                data = mv[off + F.CHUNK_HDR_LEN:
+                          off + F.CHUNK_HDR_LEN + comp_len]
+                if codec_used != C.RAW:
+                    data = C.get_codec(codec_used).decode(data, raw_len)
+                elif comp_len != raw_len:
+                    raise F.FrameError(f"raw chunk {seq} length mismatch "
+                                       f"({comp_len} != {raw_len})")
+                sp = (tr.begin(f"chunk:{hdr.name}[{seq}]@{ctx.name}",
+                               cat="stream", actor=ctx.name,
+                               corr=hdr.corr_id or None, bytes=raw_len)
+                      if tr is not None else None)
+                if rx.assembly is None:
+                    if is_dict:
+                        target_args["stream"] = {
+                            "key": key, "seq": seq, "n_chunks": desc.n_chunks,
+                            "offset": chunk_off, "total_len": desc.total_len,
+                            "raw_len": raw_len,
+                            "last": seq == desc.n_chunks - 1}
+                    try:
+                        rx.fn(data, raw_len, target_args)  # raise: propagate
+                    finally:
+                        if sp is not None:
+                            tr.end(sp, mode="exec")
+                else:
+                    rx.assembly[chunk_off:chunk_off + raw_len] = data
+                    if sp is not None:
+                        tr.end(sp, mode="buffer")
+                rx.next_seq += 1
+        finally:
+            if rx.next_seq != consumed0:
+                stats["stream_chunks"] += rx.next_seq - consumed0
+        if rx.next_seq < desc.n_chunks:
+            return Status.IN_PROGRESS
+        if rx.assembly is not None:
+            # one run over the assembled payload: a μVM stream is one
+            # ifunc_vm launch, its H2D copy taken from the assembly buffer
+            if o is not None and o.enabled:
+                t0 = time.perf_counter()
+                sp = (tr.begin(f"exec:{hdr.name}@{ctx.name}", cat="exec",
+                               actor=ctx.name, corr=hdr.corr_id or None,
+                               bytes=desc.total_len)
+                      if tr is not None else None)
+                try:
+                    rx.fn(memoryview(rx.assembly), desc.total_len,
+                          target_args)
+                finally:
+                    o.exec_hist.observe((time.perf_counter() - t0) * 1e6)
+                    if tr is not None:
+                        tr.end(sp)
+            else:
+                rx.fn(memoryview(rx.assembly), desc.total_len, target_args)
+        elif is_dict:
+            target_args.pop("stream", None)
+        stats["executed"] += 1
+        stats["bytes_in"] += hdr.frame_len + desc.total_len
+        stats["streams"] += 1
+        streams.pop(key, None)
+        if clear:
+            F.clear_frame(buf, hdr)
+        return Status.OK
+    except (F.FrameError, PolicyViolation, C.CodecError, CG.LinkError,
+            CG.CodeVerifyError, RegistryError) as e:
+        ctx.stats["rejected"] += 1
+        ctx.stats["last_reject"] = f"{type(e).__name__}: {e}"
+        streams.pop(key, None)
+        if clear:
+            F.scrub_slot(buf)
+        return Status.REJECTED
+
+
+#: sentinel for direct poll_ifunc callers that pass no mailbox stream
+#: state: a stream frame landing there is rejected, never half-consumed
+_NO_STREAMS: dict = {}
+
+
 def poll_ifunc(ctx: Context, buffer, buffer_size: int | None, target_args,
-               *, clear: bool = True) -> Status:
+               *, clear: bool = True, streams: dict | None = None,
+               stream_key=None) -> Status:
     """Poll one frame slot (paper §3.1).  Executes at most one message.
 
-    An exception raised inside the ifunc propagates and leaves the slot
-    as it is (the poisoned-slot semantics).  So does a μVM or HLO frame
-    on a ``device="cuda"`` context without a card: ``RuntimeError``."""
+    ``streams``/``stream_key`` carry the mailbox's FLAG_STREAM receive
+    state (see ``Mailbox.sweep``); a caller polling raw buffers directly
+    can omit them, and a stream frame is then rejected rather than
+    consumed half-blind.  An exception raised inside the ifunc propagates
+    and leaves the slot as it is (the poisoned-slot semantics).  So does a
+    μVM or HLO frame on a ``device="cuda"`` context without a card:
+    ``RuntimeError``."""
     buf = buffer if buffer_size is None else memoryview(buffer)[:buffer_size]
     try:
         hdr = F.peek_header(buf, ctx.policy.max_frame_len)
@@ -478,8 +704,9 @@ def poll_ifunc(ctx: Context, buffer, buffer_size: int | None, target_args,
                 return Status.IN_PROGRESS
             ctx.wait_mem(spins)
         if hdr.is_stream:
-            raise F.FrameError("stream frame: FLAG_STREAM streams are not "
-                               "ported yet")
+            return _poll_stream(ctx, buf, hdr, target_args,
+                                _NO_STREAMS if streams is None else streams,
+                                stream_key, clear)
         code, payload = F.frame_sections(buf, hdr)
         if hdr.is_agg:
             # coalesced dispatch: ONE container frame carries K cached

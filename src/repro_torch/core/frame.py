@@ -27,12 +27,21 @@ rejected); the trailer is the delivery barrier the target spins on.
 
 This module carries singleton frames (FULL and SLIM packing, header
 validation, the trailer check, section views and the slot clear and
-scrub a host poll ends with) and the request
-direction of aggregate containers (``FLAG_AGG``: ``seal_agg_frame``,
-``parse_agg``), byte for byte the reference's.  Reply containers, streams
-and replies are parsed by later layers; the flag bits and the header
-checks that keep them well-formed are already here, so a frame that this
-module accepts is one the reference accepts too.
+scrub a host poll ends with), the request direction of aggregate
+containers (``FLAG_AGG``: ``seal_agg_frame``, ``parse_agg``) and the
+v2.5 stream format (``FLAG_STREAM``: the stream descriptor and the chunk
+cells), byte for byte the reference's.
+
+A stream frame's payload section holds a 28-byte descriptor (total
+length, chunk geometry, in-flight window, negotiated codec,
+exec-on-arrival flag, per-stream nonce) and ``window`` chunk cells.  The
+frame goes first and is small; the payload follows as pipelined chunk
+puts into the cells (chunk ``i`` into cell ``i % window``), each sealed
+by its own barrier, so the target consumes while later chunks are in
+flight.  A cell holds a 20-byte chunk header (a tag unique per stream
+and sequence number, the coded and raw lengths, the codec used, and a
+fletcher32 over the header), the data, and a 4-byte seal echoing that
+fletcher: the seal's arrival means the chunk is delivered.
 """
 
 from __future__ import annotations
@@ -120,27 +129,49 @@ class FrameError(Exception):
     """Ill-formed frame — the target rejects it."""
 
 
+def fletcher32_py(data) -> int:
+    """fletcher32 by the byte loop: the oracle and the short-input path."""
+    a = b = 0xFFFF
+    for i in range(0, len(data) - 1, 2):
+        a = (a + (data[i] | (data[i + 1] << 8))) % 0xFFFF
+        b = (b + a) % 0xFFFF
+    if len(data) % 2:
+        a = (a + data[-1]) % 0xFFFF
+        b = (b + a) % 0xFFFF
+    return (b << 16) | a
+
+
+_VEC_MIN = 128          # below this the byte loop beats numpy's overhead
+_VEC_BLOCK = 1 << 19    # words a block: bounds the cumsum at ~4 MiB
+
+
 def fletcher32(data) -> int:
     """fletcher32 over 16-bit little-endian words, an odd trailing byte
-    counting as a word with a zero high byte.  Short inputs (ifunc names,
-    for the word frame's name hash) take the byte loop; longer ones (an
-    aggregate's structural bytes) the closed form of
-    :func:`_header_fletcher`, with the word sums in numpy."""
+    counting as a word with a zero high byte.  Inputs of ``_VEC_MIN`` bytes
+    and more take the closed form of :func:`_header_fletcher`, with the
+    word sums in numpy, block by block: for a block of m_k words with sum
+    S_k and cumsum total T_k, the cumsum total of the whole input grows by
+    ``m_k * s_prev + T_k``, and both carries reduce mod 0xFFFF at block
+    boundaries, so no int64 accumulator overflows at any input size."""
     n = len(data)
-    if n < 128:
-        a = b = 0xFFFF
-        for i in range(0, n - 1, 2):
-            a = (a + (data[i] | (data[i + 1] << 8))) % 0xFFFF
-            b = (b + a) % 0xFFFF
-        if n % 2:
-            a = (a + data[-1]) % 0xFFFF
-            b = (b + a) % 0xFFFF
-        return (b << 16) | a
-    w = np.frombuffer(data, "<u2", count=n // 2).astype(np.int64)
+    if n < _VEC_MIN:
+        return fletcher32_py(data)
+    w = np.frombuffer(data, "<u2", count=n // 2)
+    m = n // 2
+    s = t = 0
+    for off in range(0, m, _VEC_BLOCK):
+        blk = w[off:off + _VEC_BLOCK]
+        s_blk = int(blk.sum(dtype=np.int64))
+        t_blk = int(np.cumsum(blk, dtype=np.int64).sum(dtype=np.int64))
+        t = (t + len(blk) * s + t_blk) % 0xFFFF
+        s = (s + s_blk) % 0xFFFF
     if n % 2:
-        w = np.append(w, data[-1])
-    a = (0xFFFF + int(w.sum())) % 0xFFFF
-    b = (0xFFFF * (len(w) + 1) + int(np.cumsum(w).sum())) % 0xFFFF
+        last = data[-1]
+        t = (t + s + last) % 0xFFFF
+        s = (s + last) % 0xFFFF
+        m += 1
+    a = (0xFFFF + s) % 0xFFFF
+    b = (0xFFFF * (m + 1) + t) % 0xFFFF
     return (b << 16) | a
 
 
@@ -280,6 +311,15 @@ def pack_reply_into(buf, name: str, payload, kind: CodeKind, corr_id: int, *,
                            flags=FLAG_REPLY | (FLAG_ERR if err else 0))
 
 
+#: receive-side header prediction: steady traffic repeats the same 100
+#: header bytes frame after frame, and byte-equal headers parse to the same
+#: (immutable) FrameHeader, so one compare against the last accepted header
+#: skips the checksum, the decode and the checks.  Keyed on the signed
+#: header with its signal: a corrupt header hits only by being byte-equal
+#: to one already validated.
+_PEEK_MEMO: list = [None, None, None]    # [header_bytes, max_frame, hdr]
+
+
 def peek_header(buf, max_frame: int | None = None) -> FrameHeader | None:
     """Validate + parse the header at buf[0:].  Returns None if no message
     has arrived (zeroed magic); raises FrameError on corruption/bounds."""
@@ -290,6 +330,10 @@ def peek_header(buf, max_frame: int | None = None) -> FrameHeader | None:
         return None
     if magic != MAGIC:
         raise FrameError(f"bad magic {magic:#x}")
+    hb = bytes(buf[:HEADER_LEN])
+    memo = _PEEK_MEMO
+    if hb == memo[0] and max_frame == memo[1]:
+        return memo[2]
     (sig,) = _U32.unpack_from(buf, SIGNAL_OFF)
     if sig != _header_fletcher(buf):
         raise FrameError("header signal mismatch (corrupt header)")
@@ -326,8 +370,10 @@ def peek_header(buf, max_frame: int | None = None) -> FrameHeader | None:
         nm = name.rstrip(b"\0").decode(errors="strict")
     except UnicodeDecodeError as e:
         raise FrameError(f"ifunc name is not ascii: {e}") from e
-    return FrameHeader(frame_len, code_off, payload_off, ck, nm, flags,
-                       bytes(digest), corr_id, cont_off)
+    hdr = FrameHeader(frame_len, code_off, payload_off, ck, nm, flags,
+                      bytes(digest), corr_id, cont_off)
+    memo[0], memo[1], memo[2] = hb, max_frame, hdr
+    return hdr
 
 
 def trailer_arrived(buf, hdr: FrameHeader) -> bool:
@@ -374,6 +420,183 @@ def scrub_slot(buf) -> None:
     except FrameError:
         pass
     buf[:HEADER_LEN] = bytes(HEADER_LEN)
+
+
+# ---------------------------------------------------------------------------
+# Streamed large payloads (FLAG_STREAM, frame v2.5).
+#
+# Layout of a stream frame's payload section:
+#
+#     28B stream descriptor  (total_len u64 | n_chunks u32 | chunk_bytes u32 |
+#                             window u16 | codec u8 | sflags u8 | cell u32 |
+#                             nonce u32)
+#     window x cell chunk cells, each:
+#         20B chunk header   (tag u32 | comp_len u32 | raw_len u32 |
+#                             codec_used u32 | chk u32)
+#         comp_len data bytes
+#         4B seal            (chk echoed: the chunk's delivery barrier)
+#
+# The tag is STREAM_CHUNK_MAGIC ^ seq ^ hash(nonce), covered by ``chk``, a
+# fletcher32 over the first 16 header bytes: a stale seal from the previous
+# window cycle never matches the new chunk's header (cells are never
+# cleared between cycles), and chunks a dead stream left in a cleared slot
+# are never mistaken for a later stream's (the nonce differs).  The frame's
+# own trailer arrives with the descriptor put; per-chunk delivery rides
+# the seals.
+
+_STREAM_DESC = struct.Struct("<QIIHBBII")  # total_len, n_chunks, chunk_bytes,
+#                                            window, codec, sflags, cell,
+#                                            nonce
+assert _STREAM_DESC.size == STREAM_DESC_LEN
+_CHUNK_HDR = struct.Struct("<IIIII")       # tag, comp_len, raw_len,
+#                                            codec_used, chk
+_CHUNK_HDR16 = struct.Struct("<IIII")      # the chk-covered prefix
+CHUNK_HDR_LEN = _CHUNK_HDR.size
+CHUNK_SEAL_LEN = 4
+CHUNK_OVERHEAD = CHUNK_HDR_LEN + CHUNK_SEAL_LEN
+STREAM_CHUNK_MAGIC = 0x5EA1C0DE
+SFLAG_EXEC_ON_ARRIVAL = 0x1    # streaming-aware ifunc: run per chunk
+
+
+@dataclass(frozen=True)
+class StreamDesc:
+    """Parsed stream descriptor: the chunk geometry the source committed to
+    at open time.  ``cell`` is the stride of one chunk cell (chunk_bytes +
+    CHUNK_OVERHEAD, as the source sized it)."""
+
+    total_len: int
+    n_chunks: int
+    chunk_bytes: int
+    window: int
+    codec: int
+    sflags: int
+    cell: int
+    nonce: int = 0
+
+    @property
+    def exec_on_arrival(self) -> bool:
+        return bool(self.sflags & SFLAG_EXEC_ON_ARRIVAL)
+
+    def cell_off(self, seq: int) -> int:
+        """Offset of chunk ``seq``'s cell relative to the descriptor end."""
+        return (seq % self.window) * self.cell
+
+
+def stream_payload_len(window: int, cell: int) -> int:
+    """Byte length of a stream frame's payload section (descriptor+cells)."""
+    return STREAM_DESC_LEN + window * cell
+
+
+def pack_stream_desc(buf, off: int, desc: StreamDesc) -> None:
+    _STREAM_DESC.pack_into(buf, off, desc.total_len, desc.n_chunks,
+                           desc.chunk_bytes, desc.window, desc.codec,
+                           desc.sflags, desc.cell, desc.nonce)
+
+
+#: descriptor prediction, as the header's: byte-equal descriptor bytes
+#: under the same promised payload length skip the re-validation
+_DESC_MEMO: list = [None, None, None]    # [desc_bytes, avail, desc]
+
+
+def parse_stream_desc(buf, off: int, avail: int) -> StreamDesc:
+    """Parse and validate the descriptor at ``buf[off:]``; ``avail`` is the
+    payload-section length the header promised (descriptor + cells)."""
+    db = bytes(buf[off:off + STREAM_DESC_LEN])
+    memo = _DESC_MEMO
+    if db == memo[0] and avail == memo[1]:
+        return memo[2]
+    (total_len, n_chunks, chunk_bytes, window,
+     codec, sflags, cell, nonce) = _STREAM_DESC.unpack_from(db, 0)
+    if not (1 <= window and chunk_bytes >= 1
+            and cell >= chunk_bytes + CHUNK_OVERHEAD):
+        raise FrameError(f"inconsistent stream geometry (window={window}, "
+                         f"chunk={chunk_bytes}, cell={cell})")
+    if STREAM_DESC_LEN + window * cell > avail:
+        raise FrameError("stream cells exceed the frame's payload section")
+    if n_chunks != (total_len + chunk_bytes - 1) // chunk_bytes or not n_chunks:
+        raise FrameError(f"stream chunk count {n_chunks} inconsistent with "
+                         f"total_len {total_len} / chunk {chunk_bytes}")
+    desc = StreamDesc(total_len, n_chunks, chunk_bytes, window, codec,
+                      sflags, cell, nonce)
+    memo[0], memo[1], memo[2] = db, avail, desc
+    return desc
+
+
+def chunk_tag(seq: int, nonce: int = 0) -> int:
+    # Knuth-hash the nonce so consecutive stream nonces flip high tag bits
+    return (STREAM_CHUNK_MAGIC ^ seq ^ (nonce * 0x9E3779B1)) & 0xFFFFFFFF
+
+
+def pack_chunk_hdr(seq: int, comp_len: int, raw_len: int, codec_used: int,
+                   nonce: int = 0) -> tuple[bytes, bytes]:
+    """One chunk's (20B header, 4B seal).  The seal echoes ``chk``, the
+    fletcher32 over the 16 covered header bytes, so its value is unique
+    per (stream, seq)."""
+    h16 = _CHUNK_HDR16.pack(chunk_tag(seq, nonce), comp_len, raw_len,
+                            codec_used)
+    chk = fletcher32_py(h16)
+    return h16 + _U32.pack(chk), _U32.pack(chk)
+
+
+def pack_chunk_into(buf, off: int, seal_off: int, seq: int, comp_len: int,
+                    raw_len: int, codec_used: int, nonce: int = 0) -> None:
+    """Stage one chunk's 20B header at ``buf[off:]`` and its 4B seal at
+    ``buf[seal_off:]``: :func:`pack_chunk_hdr` into a send slab, for the
+    eager single-put stream open."""
+    h16 = _CHUNK_HDR16.pack(chunk_tag(seq, nonce), comp_len, raw_len,
+                            codec_used)
+    chk = fletcher32_py(h16)
+    buf[off:off + 16] = h16
+    _U32.pack_into(buf, off + 16, chk)
+    _U32.pack_into(buf, seal_off, chk)
+
+
+#: chunk-header prediction: a pipelined stream re-validates near-identical
+#: 20-byte chunk headers back to back
+_CHUNK_MEMO: list = [None, None, None]   # [hdr20, (seq,max,nonce,len), res]
+
+
+def peek_chunk(cell, seq: int, max_raw: int | None = None, *,
+               nonce: int = 0) -> tuple[int, int, int] | None:
+    """Inspect a chunk cell for sequence number ``seq``.
+
+    ``None`` while the chunk is pending (stale or absent tag) or its seal
+    is withheld (data puts in flight); ``(comp_len, raw_len, codec_used)``
+    once delivered; :class:`FrameError` on a corrupt header.  The bounds
+    check comes before the seal read (a corrupt length must not index out
+    of the cell), the seal before the fletcher (a chunk in flight is
+    pending, not corrupt)."""
+    if len(cell) < CHUNK_OVERHEAD:
+        raise FrameError("chunk cell smaller than the chunk overhead")
+    h20 = bytes(cell[:CHUNK_HDR_LEN])
+    memo = _CHUNK_MEMO
+    if h20 == memo[0] and (seq, max_raw, nonce, len(cell)) == memo[1]:
+        # byte-equal to the last fully validated header under the same
+        # (seq, geometry, nonce): skip the tag, bounds and fletcher checks.
+        # The seal is the arrival barrier and is read every time.
+        comp_len, raw_len, codec_used, chk = memo[2]
+        (seal,) = _U32.unpack_from(cell, CHUNK_HDR_LEN + comp_len)
+        if seal != chk:
+            return None      # delivered header, seal still in flight
+        return comp_len, raw_len, codec_used
+    tag, comp_len, raw_len, codec_used, chk = _CHUNK_HDR.unpack_from(h20, 0)
+    if tag != chunk_tag(seq, nonce):
+        return None
+    if CHUNK_OVERHEAD + comp_len > len(cell):
+        raise FrameError(f"chunk data {comp_len}B exceeds its "
+                         f"{len(cell)}B cell")
+    if max_raw is not None and raw_len > max_raw:
+        raise FrameError(f"chunk raw length {raw_len} exceeds the "
+                         f"descriptor's {max_raw}B chunk size")
+    (seal,) = _U32.unpack_from(cell, CHUNK_HDR_LEN + comp_len)
+    if seal != chk:
+        return None          # delivered header, seal still in flight
+    if chk != fletcher32_py(h20[:16]):
+        raise FrameError("chunk header fletcher mismatch (corrupt chunk)")
+    memo[0], memo[1], memo[2] = \
+        h20, (seq, max_raw, nonce, len(cell)), (comp_len, raw_len,
+                                                codec_used, chk)
+    return comp_len, raw_len, codec_used
 
 
 # ---------------------------------------------------------------------------

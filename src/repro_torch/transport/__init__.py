@@ -1,5 +1,6 @@
 """The transport layer: fabric contract, the RDMA, loopback and device-mesh
-fabrics, progress engine and dispatcher."""
+fabrics, progress engine, dispatcher and the streams' wire codecs
+(``repro_torch.transport.codec``)."""
 
 from repro_torch.transport.device_fabric import DeviceMeshFabric
 from repro_torch.transport.dispatcher import (DEFAULT_N_SLOTS,

@@ -66,21 +66,46 @@ rejects and backpressure land in its flight recorder, and with tracing on
 each host frame's life is a ``wire`` span from put to poll outcome (a
 resend its own ``resend`` span, a container its ``agg`` span).
 
-Streams, wire codecs and striping; fault injection, side-band pollers and
-peer removal raise :class:`TransportError` naming the ROADMAP.md item they
-come with.
+*Streamed large payloads* (frame v2.5 ``FLAG_STREAM``):
+
+* :meth:`send_stream` ships one payload larger than a ring slot in ONE
+  slot: a small FLAG_STREAM frame (header, descriptor, ``window`` empty
+  chunk cells), then the payload as pipelined chunk puts, each sealed by
+  its own barrier, at most ``window`` chunks past the target's consume
+  cursor (``Mailbox.stream_consumed``); the chunk pump runs in
+  :meth:`poll`, :meth:`drain` and :meth:`flush`.  When every chunk fits
+  the window the whole frame goes as one gathered put (eager open);
+* with :meth:`set_streaming` on, ``send_ifunc`` and coalesced sends route a
+  payload above the stream threshold into the stream path (host peers
+  that are not striped);
+* a per-peer wire codec (``add_peer(codec=)``, :meth:`set_peer_codec`)
+  encodes chunk bytes; a chunk that does not shrink ships raw, and chunk
+  0 ships bit-exact under a lossy codec;
+* a SLIM stream NACKs at its descriptor like a singleton and re-opens
+  FULL from chunk 0 under a fresh nonce; ``fail_inflight`` resolves a
+  half-arrived stream's future like any tracked frame and stops its pump.
+
+*Striping* (``add_peer(rings=M, stripe=True)``): sends rotate strictly
+across the peer's rings (waiting on the rotation ring's credits rather
+than skipping ahead) and the poll consumes in the same rotation, so
+per-peer FIFO holds across M rings under one demux.  A striped peer takes
+``ring=None`` sends only and never streams.
+
+Fault injection, side-band pollers and peer removal raise
+:class:`TransportError` naming the ROADMAP.md item they come with.
 """
 
 from __future__ import annotations
 
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 from repro_torch.core import frame as F
 from repro_torch.core.api import (_AGG_PLAIN_OK, IfuncMsg, Status,
                                   ifunc_msg_to_full)
 from repro_torch.obs import Obs
+from repro_torch.transport import codec as WC
 from repro_torch.transport.fabric import Fabric, TransportError
 from repro_torch.transport.progress import ProgressEngine
 
@@ -117,8 +142,46 @@ class _TxRec:
     corr_id: int = 0
     sent_at: float = field(default_factory=time.monotonic)
     subs: list | None = None
+    stream: object = None   # _StreamTx when this slot holds a FLAG_STREAM
+    #                         frame (the pump's source-side state)
     span: object = None     # open obs wire span (tracing runs only): put ->
     #                         delivery confirmation / NACK / reject
+
+
+@dataclass(slots=True)
+class _StreamTx:
+    """Source-side state of one streamed payload: the payload view (the
+    caller must not mutate it until the stream resolves: chunks post as
+    views of it), the committed chunk geometry and the pump cursor.  Lives
+    in ``Dispatcher._active_streams`` while chunks remain to post; the
+    slot's :class:`_TxRec` points back here so the poll outcome (OK,
+    REJECTED, NACK) stops or restarts the pump."""
+
+    handle: object
+    payload: memoryview
+    desc: F.StreamDesc
+    codec: object            # negotiated wire codec (None -> raw)
+    peer: "Peer"
+    lane: "RingState"
+    abs_slot: int
+    cells_base: int          # slot offset of cell 0 (header + code + desc)
+    corr_id: int = 0
+    future: object = None
+    next_send: int = 0       # chunks posted so far (the pump cursor)
+    dead: bool = False       # NACKed/rejected/failed: the pump must not
+    #                          touch the slot again (a re-open revives it)
+
+
+class _StreamResend:
+    """Queued FULL re-open of a NACKed SLIM stream, riding ``peer.resend``
+    beside FULL frame rebuilds; ``corr_id`` mirrors the stream's so the
+    failure path resolves its future like any queued resend."""
+
+    __slots__ = ("tx", "corr_id")
+
+    def __init__(self, tx: _StreamTx):
+        self.tx = tx
+        self.corr_id = tx.corr_id
 
 
 @dataclass(slots=True)
@@ -198,6 +261,13 @@ class Peer:
     cached: set = field(default_factory=set)       # digests confirmed cached
     resend: deque = field(default_factory=deque)   # FULL msgs queued post-NACK
     coalesce: dict = field(default_factory=dict)   # ring key -> _CoalesceQ
+    stripe: bool = False           # posts rotate across the rings instead
+    #                                of taking the one with most credits
+    stripe_tx: int = 0             # next ring to post into (mod len(rings))
+    stripe_rx: int = 0             # next ring to consume from: the strict
+    #                                TX == RX rotation keeps per-peer FIFO
+    codec: object = None           # negotiated wire codec for streamed
+    #                                sends (None -> raw chunks)
     reply_mailbox: object = None   # source-owned ring the target replies into
     reply_channel: object = None   # target->source path into it
     reply_tail: int = 0            # target-side produce index for replies
@@ -298,6 +368,12 @@ class Dispatcher:
         self._agg_max_subs = 16
         self._agg_max_age = 5e-4
         self._agg_max_sub_bytes = 16 << 10
+        self._streaming = False
+        self._stream_chunk = 256 << 10
+        self._stream_window = 4
+        self._stream_threshold = None    # None -> _agg_max_sub_bytes
+        self._stream_nonce = 0           # monotone: unique per stream open
+        self._active_streams: list[_StreamTx] = []
         if coalesce:
             self.set_coalescing(True)
 
@@ -319,13 +395,31 @@ class Dispatcher:
         self._agg_max_age = max_age
         self._agg_max_sub_bytes = max_sub_bytes
 
+    def set_streaming(self, enabled: bool = True, *,
+                      chunk_bytes: int = 256 << 10, window: int = 4,
+                      threshold: int | None = None) -> None:
+        """Turn streamed large-payload dispatch on/off.  ``chunk_bytes`` is
+        the per-chunk put size (clamped per lane so ``window`` cells and
+        the FULL-fallback prefix fit one ring slot), ``window`` the
+        pipelining depth (chunks in flight past the target's consume
+        cursor), ``threshold`` the payload size above which ``send_ifunc``
+        and coalesced sends route into the stream path (None: the
+        coalescing bypass bound ``max_sub_bytes``)."""
+        if chunk_bytes < 1:
+            raise TransportError(f"chunk_bytes must be >= 1, got {chunk_bytes}")
+        if window < 1:
+            raise TransportError(f"window must be >= 1, got {window}")
+        self._streaming = enabled
+        self._stream_chunk = chunk_bytes
+        self._stream_window = window
+        self._stream_threshold = threshold
+
+    @property
+    def _stream_thr(self) -> int:
+        t = self._stream_threshold
+        return self._agg_max_sub_bytes if t is None else t
+
     # -- paths that come with later modules ---------------------------------
-
-    def set_streaming(self, *a, **kw) -> None:
-        raise _later("streams", "3(b)")
-
-    def send_stream(self, *a, **kw) -> bool:
-        raise _later("streams", "3(b)")
 
     def remove_peer(self, name: str) -> None:
         raise _later("peer removal", "5")
@@ -361,20 +455,23 @@ class Dispatcher:
         ``agg_k=``/``prog_name=`` on the device-mesh fabric).  The peer's
         stats dict is aliased into the obs registry as ``peer.<name>``,
         and a target context without an ``obs`` bundle gets this
-        dispatcher's."""
-        if stripe and rings > 1:
-            raise _later("striping (stripe=True)", "3(b)")
-        if codec is not None:
-            raise _later("wire codecs (codec=)", "3(b)")
+        dispatcher's.  ``stripe=True`` (with ``rings > 1``) stripes the
+        peer's traffic across its rings in strict rotation (see the module
+        docstring); ``codec`` (id, name or ``Codec``) negotiates the wire
+        codec of streamed sends to this peer."""
         if name in self.peers:
             raise TransportError(f"peer {name!r} already attached")
         peer = Peer(name, fabric, target_ctx,
                     target_args if target_args is not None else {})
+        if codec is not None:
+            c = WC.get_codec(codec)
+            peer.codec = None if c.id == WC.RAW else c
         for _ in range(rings):
             mb = fabric.open_mailbox(target_ctx, n_slots, slot_size,
                                      **mailbox_kw)
             ch = fabric.connect(self.src_ctx, mb)
             peer.rings.append(RingState(mb, ch))
+        peer.stripe = stripe and rings > 1
         self.peers[name] = peer
         self.obs.metrics.register_dict(f"peer.{name}", peer.stats)
         if (target_ctx is not None
@@ -382,6 +479,14 @@ class Dispatcher:
                 and hasattr(target_ctx, "obs")):
             target_ctx.obs = self.obs
         return peer
+
+    def set_peer_codec(self, name: str, codec) -> None:
+        """(Re-)negotiate the wire codec of streamed sends to ``name``.  A
+        stream in flight keeps the codec it opened with (``_StreamTx``
+        holds it), so one payload never splits across codecs."""
+        peer = self.peers[name]
+        c = WC.get_codec(codec)
+        peer.codec = None if c.id == WC.RAW else c
 
     def attach_reply_ring(self, name: str, mailbox, channel) -> None:
         """Give a host peer a result-return path: ``mailbox`` is a
@@ -431,6 +536,11 @@ class Dispatcher:
 
     @staticmethod
     def _pick_lane(peer: Peer, ring: int | None) -> RingState | None:
+        if peer.stripe and ring is None:
+            # strict rotation: wait on the rotation ring's credits rather
+            # than skip ahead, which would reorder the peer's frames
+            lane = peer.rings[peer.stripe_tx % len(peer.rings)]
+            return lane if lane.credits > 0 else None
         lanes = peer.rings if ring is None else [peer.rings[ring]]
         lane = max(lanes, key=lambda r: r.credits)
         return lane if lane.credits > 0 else None
@@ -441,6 +551,13 @@ class Dispatcher:
         if self.obs.enabled:
             self.obs.recorder.add("backpressure", peer.name,
                                   f"credits={peer.credits}")
+
+    @staticmethod
+    def _check_ring_kw(peer: Peer, ring: int | None) -> None:
+        if ring is not None and peer.stripe:
+            raise TransportError(
+                f"striped peer {peer.name!r} accepts ring=None sends only "
+                "(an explicit ring would punch a hole in the rotation)")
 
     def _post_view(self, peer: Peer, lane: RingState, view, rec,
                    on_complete, future=None) -> None:
@@ -479,6 +596,11 @@ class Dispatcher:
                 lane.corr_by_coords[lane.mailbox.slot_coords(lane.tail)] = (
                     rec.corr_id, rec.sent_at)
         lane.tail += 1
+        if peer.stripe and lane is peer.rings[
+                peer.stripe_tx % len(peer.rings)]:
+            peer.stripe_tx += 1          # the rotation advances at the ONE
+            #                              post point: singletons,
+            #                              aggregates and resends rotate
         peer.stats["sent"] += 1
         peer.stats["bytes"] += len(view)
         if rec is not None and rec.slim:
@@ -516,6 +638,20 @@ class Dispatcher:
             if lane is None:
                 return False
             msg = peer.resend.popleft()
+            if isinstance(msg, _StreamResend):
+                # NACKed SLIM stream: re-open FULL from chunk 0 under a
+                # fresh nonce (the miss surfaced at the descriptor, before
+                # any chunk ran; the nonce tells the dead open's chunk
+                # puts, still racing, from the new ones)
+                tx = msg.tx
+                tx.desc = replace(tx.desc, nonce=self._next_nonce())
+                if o.enabled:
+                    o.recorder.add("resend", peer.name,
+                                   f"stream {tx.handle.lib.name} "
+                                   f"corr={tx.corr_id} FULL re-open")
+                self._open_stream(peer, lane, tx, slim=False)
+                peer.stats["resent"] += 1
+                continue
             lib = msg.handle.lib
             rec = _TxRec(lib.name, lib.code_digest, msg.handle, slim=False,
                          corr_id=msg.corr_id)
@@ -532,6 +668,237 @@ class Dispatcher:
             self._slab_post(peer, lane, msg.frame, rec)
             peer.stats["resent"] += 1
         return True
+
+    # -- streamed large payloads (frame v2.5) -------------------------------
+
+    def _next_nonce(self) -> int:
+        self._stream_nonce += 1
+        return self._stream_nonce & 0xFFFFFFFF
+
+    def _stream_geometry(self, peer: Peer, lane: RingState, lib,
+                         total: int, chunk: int, window: int) -> F.StreamDesc:
+        """Commit a stream's chunk geometry, clamped so the frame, sized for
+        its FULL fallback (header + code + descriptor + cells + trailer),
+        fits one ring slot even after a NACK rebuild restores the code."""
+        avail = (lane.mailbox.slot_size - F.HEADER_LEN - len(lib.code)
+                 - F.STREAM_DESC_LEN - F.TRAILER_LEN)
+        max_chunk = avail - F.CHUNK_OVERHEAD
+        if max_chunk < 1:
+            raise TransportError(
+                f"slot {lane.mailbox.slot_size}B too small for even one "
+                f"stream chunk cell past the {len(lib.code)}B code section")
+        chunk = max(1, min(chunk, total, max_chunk))
+        n_chunks = -(-total // chunk)
+        window = max(1, min(window, n_chunks))
+        while window > 1 and window * (chunk + F.CHUNK_OVERHEAD) > avail:
+            window -= 1
+        sflags = F.SFLAG_EXEC_ON_ARRIVAL if lib.streaming else 0
+        codec_id = WC.RAW if peer.codec is None else peer.codec.id
+        return F.StreamDesc(total, n_chunks, chunk, window, codec_id,
+                            sflags, chunk + F.CHUNK_OVERHEAD,
+                            self._next_nonce())
+
+    @staticmethod
+    def _encode_chunk(tx: _StreamTx, seq: int):
+        """Chunk ``seq`` on the wire: (hdr, data, seal), ``data`` the codec's
+        output, or a view of the payload when there is no codec or it does
+        not shrink this chunk."""
+        desc = tx.desc
+        off = seq * desc.chunk_bytes
+        raw = tx.payload[off:off + desc.chunk_bytes]
+        # chunk 0 ships bit-exact under a lossy codec: the payload's prefix
+        # carries the fields an exec-on-arrival ifunc peeks at
+        skip = tx.codec is None or (seq == 0 and tx.codec.lossy)
+        coded = None if skip else tx.codec.encode(raw)
+        if coded is None:
+            data, used = raw, WC.RAW
+        else:
+            data, used = coded, tx.codec.id
+        hdr, seal = F.pack_chunk_hdr(seq, len(data), len(raw), used,
+                                     nonce=desc.nonce)
+        return hdr, data, seal
+
+    def _open_stream(self, peer: Peer, lane: RingState, tx: _StreamTx, *,
+                     slim: bool) -> None:
+        """Post a stream's open.  When every chunk fits the frame's cell
+        window (``n_chunks <= window``) the whole frame — prefix, cells,
+        trailer — goes as ONE gathered put (the eager open; data segments
+        are views of the payload) and the stream never enters the pump.
+        Otherwise header + code + descriptor go as one prefix put with the
+        frame trailer withheld (the descriptor barrier), and the pump
+        pipelines the chunks.  Either way the slot's :class:`_TxRec`
+        carries the completion."""
+        lib = tx.handle.lib
+        code = b"" if slim else lib.code
+        desc = tx.desc
+        plen = F.stream_payload_len(desc.window, desc.cell)
+        slab = self.engine.slab_slot(lane.channel, lane.tail)
+        flen = F.seal_frame(slab, lib.name, code, lib.kind, plen,
+                            digest=lib.code_digest, slim=slim,
+                            corr_id=tx.corr_id, flags=F.FLAG_STREAM)
+        F.pack_stream_desc(slab, F.HEADER_LEN + len(code), desc)
+        prefix = F.HEADER_LEN + len(code) + F.STREAM_DESC_LEN
+        tx.peer = peer
+        tx.lane = lane
+        tx.abs_slot = lane.tail
+        tx.cells_base = prefix
+        tx.next_send = 0
+        tx.dead = False
+        eager = desc.n_chunks <= desc.window
+        if eager:
+            # chunk headers and seals stage INTO the slab at their frame
+            # offsets, so each byte-contiguous run of glue (prefix|hdr,
+            # seal|next hdr, ...) is one slab segment: a raw stream is
+            # [glue][data][glue][data]...[glue], 2n+1 segments.  A chunk
+            # the codec shrank leaves a gap, and the run breaks there.
+            segs = []
+            run_s, run_e = 0, prefix
+            wire = prefix
+            codec, nonce, chunk = tx.codec, desc.nonce, desc.chunk_bytes
+            for seq in range(desc.n_chunks):
+                cell = prefix + desc.cell_off(seq)
+                raw = tx.payload[seq * chunk:(seq + 1) * chunk]
+                skip = codec is None or (seq == 0 and codec.lossy)
+                coded = None if skip else codec.encode(raw)
+                if coded is None:
+                    data, used = raw, WC.RAW
+                else:
+                    data, used = coded, codec.id
+                nd = len(data)
+                if cell != run_e:            # codec gap: the run breaks
+                    segs.append((run_s, slab[run_s:run_e]))
+                    run_s = cell
+                run_e = cell + F.CHUNK_HDR_LEN
+                F.pack_chunk_into(slab, cell, run_e + nd, seq, nd,
+                                  len(raw), used, nonce=nonce)
+                segs.append((run_s, slab[run_s:run_e]))
+                segs.append((run_e, data))
+                run_s = run_e + nd
+                run_e = run_s + F.CHUNK_SEAL_LEN
+                wire += F.CHUNK_OVERHEAD + nd
+            segs.append((run_s, slab[run_s:run_e]))
+            self.engine.post_stream_frame(lane.channel, lane.tail, segs,
+                                          flen, peer=peer.name,
+                                          future=tx.future)
+            tx.next_send = desc.n_chunks
+            peer.stats["bytes"] += wire + F.TRAILER_LEN
+            peer.stats["stream_chunks"] += desc.n_chunks
+        else:
+            self.engine.post_stream_open(lane.channel, slab[:prefix], flen,
+                                         lane.tail, peer=peer.name,
+                                         future=tx.future)
+            peer.stats["bytes"] += prefix + F.TRAILER_LEN
+        rec = _TxRec(lib.name, lib.code_digest, tx.handle, slim,
+                     corr_id=tx.corr_id, stream=tx)
+        o = self.obs
+        if o.enabled:
+            o.recorder.add("stream_open", peer.name,
+                           f"{lib.name} corr={tx.corr_id} "
+                           f"{desc.total_len}B/{desc.n_chunks}ch"
+                           f"{' eager' if eager else ''}"
+                           f"{' slim' if slim else ''}")
+            if o.tracer.enabled:
+                rec.span = o.tracer.begin(
+                    f"stream:{lib.name}@{peer.name}", cat="stream",
+                    actor=getattr(self.src_ctx, "name", "source"),
+                    corr=tx.corr_id or None, bytes=desc.total_len,
+                    chunks=desc.n_chunks)
+        lane.inflight[lane.tail] = rec
+        lane.tail += 1
+        peer.stats["sent"] += 1
+        if slim:
+            peer.stats["slim_sent"] += 1
+        self.stats["sent"] += 1
+        if eager:
+            self.engine.flush(lane.channel)
+        elif tx not in self._active_streams:
+            self._active_streams.append(tx)
+
+    def send_stream(self, peer_name: str, handle, payload, *,
+                    ring: int | None = None, corr_id: int = 0, future=None,
+                    chunk_bytes: int | None = None,
+                    window: int | None = None) -> bool:
+        """Stream one large payload (bytes, a buffer or a numpy array) to a
+        host peer: ONE ring slot, ONE credit, the payload delivered as
+        pipelined chunk puts instead of one frame bounded by the slot
+        size.  The payload must not change until the stream resolves:
+        chunks post as views of it.  SLIM framing, the NACK FULL rebuild,
+        corr_id replies and ``fail_inflight`` work as for singletons.
+        Returns False on backpressure like any send."""
+        peer = self.peers[peer_name]
+        if peer.fabric.kind == "device":
+            raise TransportError(
+                "streams are host-tier only (the device mesh has no "
+                "sub-slot addressing)")
+        if peer.stripe:
+            raise TransportError(
+                f"striped peer {peer.name!r} cannot stream: a slot held "
+                "across sweeps would wedge the strict consume rotation")
+        pv = payload if isinstance(payload, memoryview) \
+            else memoryview(payload)
+        if pv.ndim != 1 or pv.itemsize != 1:
+            pv = pv.cast("B")
+        total = len(pv)
+        if total == 0:
+            raise TransportError("cannot stream an empty payload")
+        if self._queued_ahead(peer):
+            return False                      # FIFO: queued frames go first
+        lane = self._pick_lane(peer, ring)
+        if lane is None:
+            self._bp(peer)
+            return False
+        lib = handle.lib
+        desc = self._stream_geometry(
+            peer, lane, lib, total,
+            self._stream_chunk if chunk_bytes is None else chunk_bytes,
+            self._stream_window if window is None else window)
+        tx = _StreamTx(handle, pv, desc, peer.codec, peer, lane, lane.tail,
+                       0, corr_id=corr_id, future=future)
+        self._open_stream(peer, lane, tx, slim=self._slim_ok(peer, lib))
+        peer.stats["streams"] += 1
+        self.stats["streams"] += 1
+        self._pump_streams()
+        return True
+
+    def _pump_streams(self) -> int:
+        """Advance every active stream: post chunks while the window is open
+        (at most ``window`` chunks past the target's consume cursor), then
+        flush the touched channels so the seals publish.  A stream whose
+        chunks are all posted leaves the pump; its slot's _TxRec carries
+        the completion."""
+        if not self._active_streams:
+            return 0
+        posted = 0
+        flushes: dict[int, object] = {}
+        still: list[_StreamTx] = []
+        for tx in self._active_streams:
+            if tx.dead:
+                continue
+            desc = tx.desc
+            mb = tx.lane.mailbox
+            coords = mb.slot_coords(tx.abs_slot)
+            peer, channel = tx.peer, tx.lane.channel
+            before = tx.next_send
+            while tx.next_send < desc.n_chunks:
+                if tx.next_send - mb.stream_consumed(coords) >= desc.window:
+                    break                # window closed: cell still in use
+                seq = tx.next_send
+                hdr, data, seal = self._encode_chunk(tx, seq)
+                self.engine.post_chunk(
+                    channel, tx.abs_slot, tx.cells_base + desc.cell_off(seq),
+                    hdr, data, seal, peer=peer.name)
+                tx.next_send += 1
+                posted += 1
+                peer.stats["bytes"] += len(hdr) + len(data) + len(seal)
+                peer.stats["stream_chunks"] += 1
+            if tx.next_send > before:
+                flushes[id(channel)] = channel
+            if tx.next_send < desc.n_chunks:
+                still.append(tx)
+        self._active_streams = still
+        for ch in flushes.values():
+            self.engine.flush(ch)
+        return posted
 
     def _queued_ahead(self, peer: Peer) -> bool:
         """Post what is queued for the peer (resends, then coalesced
@@ -553,6 +920,7 @@ class Dispatcher:
         at open time), the code section is elided on the fly (SLIM).
         ``future`` is marked SENT by the flush that publishes the frame."""
         peer = self.peers[peer_name]
+        self._check_ring_kw(peer, ring)
         if self._queued_ahead(peer):
             return False
         lane = self._pick_lane(peer, ring)
@@ -601,9 +969,24 @@ class Dispatcher:
         aggregate-eligible peer, a cache-warm record queues for an
         aggregate instead.  ``corr_id`` nonzero asks for the result back
         (a reply frame, or a device sweep result, to ``reply_router``);
-        ``future`` is marked SENT by the flush that publishes the frame."""
+        ``future`` is marked SENT by the flush that publishes the frame.
+        With streaming on, a payload above the stream threshold to a host
+        peer that is not striped goes through :meth:`send_stream`."""
         peer = self.peers[peer_name]
+        self._check_ring_kw(peer, ring)
         lib = handle.lib
+        if (self._streaming and on_complete is None
+                and peer.fabric.kind != "device" and not peer.stripe):
+            source_args_size = _args_size(source_args, source_args_size)
+            if int(lib.payload_get_max_size(
+                    source_args, source_args_size)) > self._stream_thr:
+                # oversized payload: materialize it once and stream it
+                # rather than ship a slot-bounded singleton
+                payload = self._materialize_payload(lib, source_args,
+                                                    source_args_size)
+                return self.send_stream(peer_name, handle, payload,
+                                        ring=ring, corr_id=corr_id,
+                                        future=future)
         if (self._coalesce and on_complete is None
                 and self._agg_eligible(peer) and self._slim_ok(peer, lib)):
             return self._enqueue_sub(peer, handle, source_args,
@@ -676,6 +1059,13 @@ class Dispatcher:
             self._check_full_fits(lane0, lib, len(payload))
         sub = _PendingSub(handle, lib.name, lib.kind, lib.code_digest,
                           payload, corr_id, None, future, time.monotonic())
+        if (self._streaming and len(payload) > self._stream_thr
+                and peer.fabric.kind != "device" and not peer.stripe):
+            # oversized record with streaming on: stream it rather than
+            # ship a slot-bounded singleton (send_stream posts the queued
+            # records first, so FIFO holds)
+            return self.send_stream(peer.name, handle, payload, ring=ring,
+                                    corr_id=corr_id, future=future)
         if len(payload) > self._agg_max_sub_bytes:
             # bandwidth-bound record: ship it as a plain SLIM singleton,
             # after anything queued before it
@@ -715,6 +1105,7 @@ class Dispatcher:
         :meth:`send_ifunc` when coalescing is off, the peer is not
         aggregate-eligible or its cache is not known warm."""
         peer = self.peers[peer_name]
+        self._check_ring_kw(peer, ring)
         lib = handle.lib
         if not (self._coalesce and self._agg_eligible(peer)
                 and self._slim_ok(peer, lib)):
@@ -756,6 +1147,10 @@ class Dispatcher:
                 args = payloads[i]
                 sz = _args_size(args, None)
                 mx = int(gms(args, sz))
+                if (self._streaming and not is_device and not peer.stripe
+                        and mx > self._stream_thr):
+                    break                # oversized head: the queue path
+                    #                      routes it into the stream path
                 if not is_device and full_base + mx > cap:
                     break                # FULL fallback cannot fit a ring
                     #                      slot: the queue path refuses it
@@ -965,9 +1360,12 @@ class Dispatcher:
 
     def flush(self) -> int:
         """Publish all in-flight puts (completes trailers -> frames become
-        consumable at the targets).  Coalescing queues flush first."""
+        consumable at the targets).  Coalescing queues flush first, and the
+        stream pump posts the chunks whose windows are open."""
         for p in self.peers.values():
             self._flush_coalesce_peer(p)
+        if self._active_streams:
+            self._pump_streams()
         return self.engine.flush()
 
     # -- target side: fairness-aware poll loop ------------------------------
@@ -1014,6 +1412,8 @@ class Dispatcher:
             except Exception as e:           # raised *inside* the ifunc
                 err = e
                 F.scrub_slot(buf)
+                mb.streams.pop(mb.slot_coords(mb.head), None)   # a raising
+                #              exec-on-arrival stream dies with its slot
                 mb.head += 1                 # consume the poisoned slot
                 mb.consumed += 1
                 peer.stats["errors"] += 1
@@ -1305,21 +1705,30 @@ class Dispatcher:
         progressed = True
         while progressed and (budget is None or done < budget):
             progressed = False
+            if self._active_streams and self._pump_streams():
+                progressed = True        # chunks posted: windows the sweeps
+                #                          below just opened refill in-poll
             start = self._rr % len(lanes)
             for k in range(len(lanes)):
                 peer, lane = lanes[(start + k) % len(lanes)]
                 if budget is not None and done >= budget:
                     break
+                if peer.stripe and lane is not peer.rings[
+                        peer.stripe_rx % len(peer.rings)]:
+                    continue         # striped peer: consume in the rotation
+                    #                  the posts followed, one frame a visit
+                take_eff = 1 if peer.stripe else take
                 mb = lane.mailbox
                 track = peer.fabric.kind != "device"
                 slot = mb.head
                 if track and peer.reply_channel is not None:
                     sts = self._sweep_task(
-                        peer, lane, take if take is not None else mb.n_slots)
+                        peer, lane,
+                        take_eff if take_eff is not None else mb.n_slots)
                     coords = res_new = None
                 elif track:
                     sts = mb.sweep(peer.target_ctx, peer.target_args,
-                                   budget=take)
+                                   budget=take_eff)
                     coords = res_new = None
                 else:
                     res_before = len(mb.results)
@@ -1349,6 +1758,8 @@ class Dispatcher:
                         done += 1
                         if rec is not None:
                             peer.cached.add(rec.digest)
+                            if rec.stream is not None:
+                                rec.stream.dead = True   # complete: pump off
                             if o.enabled:
                                 o.rtt_hist.observe(
                                     (time.monotonic() - rec.sent_at) * 1e6)
@@ -1366,6 +1777,10 @@ class Dispatcher:
                             o.recorder.add("reject", peer.name,
                                            f"{rec.name} corr={rec.corr_id}")
                             self._end_span(rec, status="rejected")
+                        if rec is not None and rec.stream is not None:
+                            # corrupt stream: ONLY this stream dies (its
+                            # pump stops); the scrubbed slot flows on
+                            rec.stream.dead = True
                         if rec is not None and rec.subs is not None:
                             # whole container rejected: every corr-carrying
                             # record resolves with the error, none ran
@@ -1392,7 +1807,14 @@ class Dispatcher:
                                            f"{rec.name} corr={rec.corr_id} "
                                            f"slim miss")
                             self._end_span(rec, status="nack")
-                        if rec is not None and rec.handle is not None:
+                        if rec is not None and rec.stream is not None:
+                            # SLIM stream missed the cache at its
+                            # descriptor: stop the pump and queue a FULL
+                            # re-open from chunk 0 (nothing ran)
+                            rec.stream.dead = True
+                            peer.cached.discard(rec.digest)
+                            peer.resend.append(_StreamResend(rec.stream))
+                        elif rec is not None and rec.handle is not None:
                             peer.cached.discard(rec.digest)
                             peer.resend.append(
                                 self._rebuild_full(lane, slot - 1, rec))
@@ -1402,6 +1824,13 @@ class Dispatcher:
                             peer.stats["nack_lost"] += 1
                     elif st == Status.IN_PROGRESS:
                         peer.stats["inflight_polls"] += 1
+                if peer.stripe:
+                    # the rotation advances one step a consumed slot, so
+                    # the next visit reads the ring the next post landed in
+                    peer.stripe_rx += sum(
+                        1 for st in sts
+                        if st in (Status.OK, Status.REJECTED,
+                                  Status.NACK_UNCACHED))
                 err = self._sweep_raise or mb.pending_raise
                 if err is not None:
                     # an ifunc raised behind frames this sweep consumed
@@ -1466,6 +1895,11 @@ class Dispatcher:
                         continue         # young: the peer may still be alive
                     del lane.inflight[slot]
                     self._end_span(rec, status="failed")
+                    if rec.stream is not None:
+                        rec.stream.dead = True   # half-arrived stream: the
+                        #          pump must never touch the slot again
+                        if rec.stream in self._active_streams:
+                            self._active_streams.remove(rec.stream)
                     if slot < low:
                         continue
                     if o.enabled:
@@ -1546,6 +1980,7 @@ class Dispatcher:
             n = self.poll()
             total += n
             idle = (n == 0 and self.engine.outstanding() == 0
+                    and not self._active_streams
                     and not any(p.resend or any(
                         q.subs for q in p.coalesce.values())
                         for p in self.peers.values()))

@@ -74,11 +74,26 @@ class Mailbox:
         #: are returned, and the caller re-raises this after processing
         #: them.  The poisoned slot itself is NOT consumed.
         self.pending_raise: BaseException | None = None
+        #: FLAG_STREAM receive state in progress, keyed by the coordinate
+        #: of the slot the stream frame occupies: coordinate ->
+        #: ``api._StreamRx``.  ``poll_ifunc`` creates it when the
+        #: descriptor arrives and pops it at completion or rejection; the
+        #: mailbox carries it because a stream spans many sweeps of one
+        #: slot, and holds ``head`` on that slot until it completes.
+        self.streams: dict = {}
 
     def slot_coords(self, i: int):
         """Stable coordinate a produce index maps to (what ``last_coords``
         entries are keyed by).  Identity for in-order rings."""
         return i
+
+    def stream_consumed(self, coords) -> int:
+        """Chunks the stream at ``coords`` has consumed: the credit-return
+        counter the source's chunk pump reads before it overwrites a
+        window cell (a cell is free once the chunk ``window`` positions
+        behind it is consumed).  0 until the descriptor has been polled."""
+        rx = self.streams.get(coords)
+        return 0 if rx is None else rx.next_seq
 
     def slot_view(self, i: int) -> memoryview:
         raise NotImplementedError
@@ -111,7 +126,8 @@ class Mailbox:
         for _ in range(budget):
             try:
                 st = A.poll_ifunc(ctx, self.slot_view(self.head), None,
-                                  target_args)
+                                  target_args, streams=self.streams,
+                                  stream_key=self.slot_coords(self.head))
             except Exception as e:       # raised *inside* an ifunc
                 if not out:
                     raise                # first slot: surfaces at once

@@ -15,7 +15,8 @@ a first-class state:
 The engine also owns the *send slabs*: one preallocated staging buffer per
 channel, one slot-sized cell per ring slot.  The dispatcher packs frames
 straight into slab cells and posts the resulting memoryview.  A cell is
-stable exactly as long as its ring slot's credit is outstanding.
+stable exactly as long as its ring slot's credit is outstanding.  Stream
+chunks are the exception: they post as views of the caller's payload.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from dataclasses import dataclass
 
 from repro_torch.core import frame as F
 from repro_torch.transport.fabric import Channel
+
+_TRAILER_BYTES = F.TRAILER.to_bytes(F.TRAILER_LEN, "little")
 
 
 @dataclass
@@ -119,6 +122,10 @@ class ProgressEngine:
         h = TxHandle(self._seq, channel, len(frame), slot, peer=peer,
                      on_complete=on_complete, future=future)
         channel.put(frame, slot, deliver_bytes=self._window(len(frame)))
+        self._register(channel, h)
+        return h
+
+    def _register(self, channel: Channel, h: TxHandle) -> None:
         key = id(channel)
         self._channels[key] = channel
         self._outstanding.setdefault(key, []).append(h)
@@ -126,6 +133,68 @@ class ProgressEngine:
         if len(self._outstanding[key]) >= self.flush_threshold:
             self.stats["auto_flushes"] += 1
             self.flush(channel)
+
+    # -- streamed large payloads (frame v2.5) -------------------------------
+
+    def post_stream_open(self, channel: Channel, prefix, frame_len: int,
+                         slot: int, *, peer: str | None = None,
+                         on_complete=None, future=None) -> TxHandle:
+        """Open a FLAG_STREAM frame: put the small prefix (header + code +
+        descriptor) and the frame trailer, the trailer withheld until flush
+        (the descriptor barrier).  The ``window x cell`` gap between them
+        is never written: ring slots arrive zeroed (the previous frame's
+        clear) and chunk tags tell the cells' chunks apart."""
+        self._seq += 1
+        h = TxHandle(self._seq, channel, len(prefix) + F.TRAILER_LEN, slot,
+                     peer=peer, on_complete=on_complete, future=future)
+        channel.putv_at(
+            [(0, prefix), (frame_len - F.TRAILER_LEN, _TRAILER_BYTES)],
+            slot,
+            withhold_tail=0 if self.inflight_window is None
+            else F.TRAILER_LEN)
+        self._register(channel, h)
+        return h
+
+    def post_stream_frame(self, channel: Channel, slot: int, segs,
+                          frame_len: int, *, peer: str | None = None,
+                          on_complete=None, future=None) -> TxHandle:
+        """Eager stream open: when every chunk fits the frame's cell window,
+        the whole frame — prefix, each cell's header|data|seal, and the
+        frame trailer — posts as ONE scatter-gather put instead of
+        ``2 + 3 x n_chunks``.  The data segments are views of the caller's
+        payload, and the trailer rides last with its tail withheld until
+        flush, so the descriptor barrier is unchanged."""
+        self._seq += 1
+        segs = list(segs)
+        segs.append((frame_len - F.TRAILER_LEN, _TRAILER_BYTES))
+        nbytes = 0
+        for _, d in segs:
+            nbytes += len(d)
+        h = TxHandle(self._seq, channel, nbytes, slot, peer=peer,
+                     on_complete=on_complete, future=future)
+        channel.putv_at(segs, slot,
+                        withhold_tail=0 if self.inflight_window is None
+                        else F.TRAILER_LEN)
+        self._register(channel, h)
+        return h
+
+    def post_chunk(self, channel: Channel, slot: int, cell_off: int,
+                   hdr, data, seal, *, peer: str | None = None,
+                   on_complete=None, future=None) -> TxHandle:
+        """Post one stream chunk: header, data and the 4-byte seal as ONE
+        scatter-gather put, the seal withheld until flush, so the flush
+        that publishes the seal is the chunk's delivery barrier.  ``data``
+        may be a view of the caller's payload: the engine never stages
+        chunk bytes."""
+        self._seq += 1
+        h = TxHandle(self._seq, channel, len(hdr) + len(data) + len(seal),
+                     slot, peer=peer, on_complete=on_complete, future=future)
+        channel.putv_at(
+            [(cell_off, hdr), (cell_off + len(hdr), data),
+             (cell_off + len(hdr) + len(data), seal)],
+            slot,
+            withhold_tail=0 if self.inflight_window is None else len(seal))
+        self._register(channel, h)
         return h
 
     def flush(self, channel: Channel | None = None) -> int:

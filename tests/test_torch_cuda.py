@@ -1087,3 +1087,41 @@ def test_graph_degree_sweep_on_the_card(cuda):
         assert torch.equal(out, ifunc_vm_plain(prog, x, ext[s]))
         assert (out.cpu().numpy() == f_ind @ A_dev[s, 0]).all()
     assert sorted(got) == [0, 1] and rt.pending() == 0
+
+
+@pytest.mark.cuda
+def test_uvm_stream_on_a_card_target_runs_ifunc_vm_once(cuda):
+    """A 128-tile (8 MiB) ``uvm_affine`` stream by ``send_stream``, at
+    ``set_streaming``'s defaults (256 KiB chunks, window 4), to an RDMA
+    peer on a ``device="cuda"`` target: 32 chunks assembled, ONE
+    ``ifunc_vm`` launch, the result bit for bit ``uvm_execute``'s on the
+    same tiles, no receive state left."""
+    from repro_torch.core import frame as F
+    from repro_torch.kernels.ops import uvm_execute
+    from repro_torch.transport import RdmaFabric
+
+    src = Context("src")
+    d = Dispatcher(src, ProgressEngine(flush_threshold=64))
+    d.set_streaming(True)
+    h = register_ifunc(src, "uvm_affine")
+    slot = (F.HEADER_LEN + len(h.lib.code) + F.TRAILER_LEN
+            + F.stream_payload_len(4, (256 << 10) + F.CHUNK_OVERHEAD))
+    rng = np.random.default_rng(31)
+    W = torch.from_numpy((rng.standard_normal((T, T)) * 0.05)
+                         .astype(np.float32)).to(cuda)
+    d.add_peer("rdma", RdmaFabric(), Context("dst", link_mode="remote",
+                                             device="cuda"),
+               n_slots=2, slot_size=slot, target_args={"externals": {"W": W}})
+    x = rng.standard_normal((128, T, T)).astype(np.float32)
+    before = ifunc_vm.launches
+    assert d.send_stream("rdma", h, x)
+    d.drain()
+    assert ifunc_vm.launches == before + 1
+    peer = d.peers["rdma"]
+    assert peer.stats["streams"] == 1 and peer.stats["stream_chunks"] == 32
+    assert not peer.rings[0].mailbox.streams and not d._active_streams
+    got = peer.target_args["result"]
+    assert got.device.type == "cuda" and got.shape == (128, T, T)
+    prog = deserialize_uvm(h.lib.code)
+    assert torch.equal(got, uvm_execute(prog, torch.from_numpy(x).to(cuda),
+                                        [W], device=cuda))

@@ -456,9 +456,10 @@ def test_ring_sweep_pending_raise_and_agg_harvest(lib_dir):
 
 
 def test_stream_frame_rejected(lib_dir):
-    """Streams are not ported: a FLAG_STREAM frame is REJECTED and scrubbed,
-    directly and through a mailbox sweep, as the reference does when
-    polled without stream state."""
+    """A FLAG_STREAM frame whose descriptor is all zeros is REJECTED and
+    scrubbed, polled directly (no stream state: the reference's refusal)
+    and through a mailbox sweep (the descriptor's geometry fails to
+    parse), with the slot bytes and stats the reference ends with."""
     seen = []
     for core, X, F in ((RC, RX, RF), (PC, PX, PF)):
         src, dst, ep, ring, mb = _ring_side(core, X, lib_dir)
@@ -478,7 +479,7 @@ def test_stream_frame_rejected(lib_dir):
                      bytes(ring.region.buf)))
     assert seen[0] == seen[1]
     assert seen[1][0] == ["REJECTED", "OK", "REJECTED"]
-    assert "not ported" in dst.stats["last_reject"]
+    assert "inconsistent stream geometry" in dst.stats["last_reject"]
 
 
 def test_active_messages_match_reference():

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``repro_torch`` (the
 model stack's ``models/``, ``configs/``, ``train/`` with the training step
 and optimizers, ``data/``, ``serving/`` and ``obs/`` included) and
-registering its ifunc library (the four ``graph_*`` verbs included) loads
+registering its ifunc library (the four ``graph_*`` verbs and the
+streaming-aware ``stream_sink`` and ``host_aggregate`` included) loads
 neither jax nor the JAX package; nor
 does driving the Dispatcher's host lanes from ``repro_torch.obs`` and
 ``repro_torch.transport`` alone, nor a task future from
@@ -34,7 +35,10 @@ h.lib.main(np.ones((1, 128, 128), np.float32).tobytes(), 0, args)
 assert float(args["result"].sum()) == 128 * 128
 from repro_torch.tasks.placement import DataDirectory, PlacementEngine
 verbs = {n: register_ifunc(Context("probe"), n) for n in (
-    "graph_relax", "graph_fetch", "graph_count", "graph_degree")}
+    "graph_relax", "graph_fetch", "graph_count", "graph_degree",
+    "stream_sink", "host_aggregate")}
+assert verbs["stream_sink"].lib.streaming
+assert verbs["host_aggregate"].lib.streaming
 args = {"externals": {"A": np.eye(128, dtype=np.float32)}, "device": "cpu"}
 verbs["graph_degree"].lib.main(np.ones((1, 128, 128), np.float32).tobytes(),
                                0, args)
@@ -53,7 +57,7 @@ print("STACK", all(m in mods for m in (
     "repro_torch.obs.trace", "repro_torch.obs.recorder",
     "repro_torch.tasks.runtime", "repro_torch.tasks.future",
     "repro_torch.tasks.wire", "repro_torch.tasks.placement",
-    "repro_torch.tasks.graph")))
+    "repro_torch.tasks.graph", "repro_torch.transport.codec")))
 print("FORBIDDEN", bad)
 """
 

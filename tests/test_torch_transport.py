@@ -371,20 +371,11 @@ def test_legacy_api_routes_through_transport(lib_dir):
 
 
 def test_refused_paths_name_their_roadmap_item(lib_dir):
-    """Streams, codecs and striping (item 3(b)); faults, pollers and peer
-    removal (5): each raises a TransportError naming its ROADMAP.md
-    item."""
+    """Faults, pollers and peer removal (item 5) each raise a
+    TransportError naming their ROADMAP.md item."""
     T = PT
     d = mk_dispatcher(PORT, lib_dir, [("p", "rdma")])
-    h = _handle(PORT, d, lib_dir)
     cases = [
-        ("3(b)", lambda: d.add_peer("q", T.RdmaFabric(),
-                                    ctx(PORT, "q", lib_dir), rings=2,
-                                    stripe=True)),
-        ("3(b)", lambda: d.add_peer("q", T.RdmaFabric(),
-                                    ctx(PORT, "q", lib_dir), codec="zlib")),
-        ("3(b)", lambda: d.set_streaming(True)),
-        ("3(b)", lambda: d.send_stream("p", h, b"x" * 64)),
         ("5", lambda: d.remove_peer("p")),
         ("5", lambda: setattr(d, "faults", object())),
         ("5", lambda: setattr(d, "pollers", [lambda: None])),
@@ -393,7 +384,7 @@ def test_refused_paths_name_their_roadmap_item(lib_dir):
         with pytest.raises(T.TransportError,
                            match=rf"ROADMAP\.md Queue 1 item {re_item(item)}"):
             call()
-    assert "q" not in d.peers and d.faults is None and d.pollers == ()
+    assert d.faults is None and d.pollers == ()
     assert d.peers["p"].stats["sent"] == 0      # nothing was posted
 
 
