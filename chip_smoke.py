@@ -227,7 +227,35 @@ Phases, each of which fails the script (non-zero exit, no result line):
     µs a message, min of chunks), logged with the reference's orderings,
     not gated.  (a) to (c) run under ``no_plain``.
 
-The phases run in the order 1-9, 18, 19, 20, 21, 22, 10-11, 14-17, 12-13: every
+23. the flow layer (``repro_torch.flow``), every node's context on the
+    card: (a) ``examples/storage_pipeline.py`` Acts 1-3 at the example's
+    settings (seed 11; ``csd`` on ``LoopbackFabric``, ``dpu_a``,
+    ``dpu_b`` and ``agg`` on ``RdmaFabric``, slots of 256 KiB): 6 ETL
+    chains ``csd_decompress`` -> ``dpu_filter`` at the cheaper DPU ->
+    ``host_aggregate``, ``dpu_a`` congested at batch 3, each result
+    against numpy, both DPUs picked, SLIM forwards; the scatter/gather
+    edge count against the direct count; the short-circuit naming
+    ``graph_count@dpu_a`` with ``agg`` never run; nothing pending or
+    orphaned (FLOW_OK).  (b) Act 4 through the engine's origin
+    dispatcher (STREAM_OK), then OBS_OK: a ``flow`` span for each stage
+    run on that peer's actor, one ``chain`` span a flow, none open, a
+    ``chunk:`` span a chunk, the Chrome export to a temporary directory.
+    (c) the ETL at full size: 32 batches of 49,152 records (about 55,000
+    expanded), slots of 512 KiB, ``dpu_a`` congested at batch 16: chains/s,
+    records/s, host timers by step and the SMs' idle share; (a) to (c)
+    launch no kernel.  (d) 512 two-hop ``uvm_affine`` chains (the cheaper
+    DPU, then ``agg``), one 2-tile payload each, each node's seeded W on
+    the card, ``dpu_a`` congested halfway: ``ifunc_vm_smem_kernel``
+    launched twice a chain and nothing else, both DPUs used, each result
+    within rtol 1e-4, atol 1e-5 of ``ifunc_vm_plain`` stage by stage;
+    chains/s, µs a chain, host timers, then 64 chains timed and 64 traced
+    for the kernel's device time a hop and the SMs' idle share.  (a) to (d) run
+    under ``no_plain``.  (e) ``fig_flow`` as ``bench_ifunc.py`` defines it
+    (3 and 5 ``flow_xform`` stages, 32 KiB, 40 iterations, RDMA and
+    loopback alternating) through ``FlowEngine`` and ``TaskRuntime``: the
+    chain under the round-trips at both stage counts.
+
+The phases run in the order 1-9, 18-23, 10-11, 14-17, 12-13: every
 profiler session of the timings and the traced step comes before the
 serving phase's long traces, after which the profiler recorded no device
 time in a run on the H100.  A trace that comes back without the records of the
@@ -244,7 +272,8 @@ runs inside, ``host_launches`` its launches on the host target of phase
 ``dispatcher_launches`` its launches on phase 19's host peers and
 ``future_launches`` those on phase 20's, ``graph_host_launches`` phase
 21's host ``graph_degree`` future, ``stream_launches`` phase 22's (one a
-μVM stream, one a striped frame); ``ring_poll`` and ``agg_ring_poll``
+μVM stream, one a striped frame), ``flow_launches`` phase 23's (two a μVM
+chain); ``ring_poll`` and ``agg_ring_poll``
 count phase 20's device sweeps too, and ``ring_poll`` and ``ifunc_vm``
 phase 21's.
 """
@@ -254,6 +283,7 @@ import json
 import pathlib
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -319,6 +349,25 @@ BULK_SLOTS, BULK_SLOT = 8, 256 << 10
 STRIPE_SLOTS, STRIPE_SLOT = 512, 132 << 10
 FIG_STREAM_SIZES = (64 << 10, 256 << 10, 1 << 20, 4 << 20, 16 << 20)
 FIG_STREAM_ITERS = 32
+# the flow layer (phase 23), examples/storage_pipeline.py at its own
+# settings: csd (loopback), dpu_a, dpu_b and agg (RDMA), slots of 256 KiB,
+# rng seed 11; Act 1 six batches of 2,048 records (runs of 1-8) kept at
+# >= 3e9, dpu_a congested at batch 3 by 6 counter_bump frames; Act 2
+# 4,000 edges over 96 vertices in 3 CSR shards, w >= 0.75; Act 4 the bulk
+# ingest above through the origin's dispatcher.  The full-size ETL: 32
+# batches of 49,152 records, 512 KiB slots, dpu_a congested at batch 16.
+# The μVM chain: 512 two-tile chains dpu_a|dpu_b -> agg, 256 KiB slots,
+# dpu_a congested halfway.  fig_flow at bench_ifunc.py's settings
+FLOW_NODES = (("csd", "loopback"), ("dpu_a", "rdma"), ("dpu_b", "rdma"),
+              ("agg", "rdma"))
+FLOW_SEED, FLOW_THRESHOLD, FLOW_SLOT = 11, 3_000_000_000, 256 << 10
+FLOW_BATCHES, FLOW_CONGEST, FLOW_RECORDS, FLOW_BURST = 6, 3, 2048, 6
+FLOW_V, FLOW_SHARDS, FLOW_EDGES, FLOW_WMIN = 96, 3, 4000, 0.75
+ETL_BATCHES, ETL_CONGEST, ETL_RECORDS, ETL_SLOT = 32, 16, 49_152, 512 << 10
+CHAIN_NODES, CHAIN_N, CHAIN_SLOT, CHAIN_TRACED = \
+    ("dpu_a", "dpu_b", "agg"), 512, 256 << 10, 64
+FIG_FLOW_STAGES, FIG_FLOW_BYTES, FIG_FLOW_ITERS, FIG_FLOW_SLOT = \
+    (3, 5), 32 << 10, 40, 128 << 10
 
 # Published peaks (NVIDIA data sheets; dense, no sparsity): device-memory
 # bytes/s, FP32 FLOP/s outside the tensor cores, bf16 tensor-core FLOP/s.
@@ -3663,25 +3712,35 @@ def bulk_ingest(pkg, np, *, values=BULK_VALUES, repeat=BULK_REPEAT,
     check(d.send_ifunc("agg", h, payload), "bulk send refused")
     d.drain()
     secs = time.perf_counter() - t0
+    return {"d": d, **bulk_gates(bulk, records, wire0, secs, chunk)}
+
+
+def bulk_gates(bulk, records, wire0, secs, chunk):
+    """``storage_pipeline.py`` Act 4's gates on the peer ``bulk`` after
+    the u32 ``records`` streamed to it (``wire0`` its channels' bytes
+    before): the result equals numpy's count, sum, min and max, one
+    stream of ``ceil(bytes / chunk)`` chunks, fewer than half the
+    payload's bytes on the wire, no receive state left; STREAM_OK."""
+    nbytes = records.nbytes
     got = bulk.target_args["result"]
     want = {"count": int(records.size), "sum": int(records.sum()),
             "min": int(records.min()), "max": int(records.max())}
     check(got == want, f"bulk ingest: {got}, want {want}")
-    n_chunks = -(-len(payload) // chunk)
+    n_chunks = -(-nbytes // chunk)
     check(bulk.stats["streams"] == 1 and bulk.stats["stream_chunks"]
           == n_chunks, f"bulk ingest: {bulk.stats}, want 1 stream of "
                        f"{n_chunks} chunks")
     wire = sum(r.channel.ep.stats["bytes"] for r in bulk.rings) - wire0
-    check(wire < len(payload) // 2,
+    check(wire < nbytes // 2,
           f"RLE wire codec never engaged: {wire} B on the wire for "
-          f"{len(payload)} B of runs")
+          f"{nbytes} B of runs")
     check(not any(r.mailbox.streams for r in bulk.rings),
           "bulk ingest left receive state")
-    log(f"  bulk ingest: {len(payload)} B streamed in {n_chunks} chunks, "
-        f"{wire} B on the wire ({len(payload) / wire:.1f}x rle), reduced "
+    log(f"  bulk ingest: {nbytes} B streamed in {n_chunks} chunks, "
+        f"{wire} B on the wire ({nbytes / wire:.1f}x rle), reduced "
         f"on arrival at agg in {secs:.4f} s")
     log("STREAM_OK")
-    return {"d": d, "secs": secs, "wire": wire, "bytes": len(payload),
+    return {"secs": secs, "wire": wire, "bytes": nbytes,
             "chunks": n_chunks, "result": got}
 
 
@@ -4083,6 +4142,538 @@ def phase_streams(np, torch, dev, smi, mp_rates):
               f"<= am {us['stream'] <= us['am']}"
             + (f", <= sf {us['stream'] <= us['sf']}" if size >= 256 << 10
                else ""))
+    return {"launches": launches}
+
+
+# ------------------------------------------------------------ the flow layer
+
+
+def flow_engine(pkg, *, nodes=FLOW_NODES, slot=FLOW_SLOT, obs=None,
+                lib_dir=None):
+    """A ``FlowEngine`` through ``pkg`` (its ``core``, ``transport``,
+    ``flow`` and the context keywords ``kw``) over an origin context
+    ``host`` and one node a (name, fabric kind) of ``nodes``, each with
+    slots of ``slot`` bytes; ``add_node`` builds each node's context on the
+    origin's device."""
+    core, X = pkg.core, pkg.transport
+    eng = pkg.flow.FlowEngine(core.Context("host", lib_dir=lib_dir,
+                                           **pkg.kw),
+                              default_timeout=60.0, obs=obs)
+    for name, kind in nodes:
+        eng.add_node(name, X.RdmaFabric() if kind == "rdma"
+                     else X.LoopbackFabric(), slot_size=slot)
+    return eng
+
+
+def make_blob(np, rng, nrecords):
+    """``storage_pipeline.py``'s ``make_blob``: RLE-compressed u32 records
+    (``nrecords // 4`` runs of 1 to 8) and the expanded records, from the
+    same draws of ``rng`` and with the same bytes."""
+    vals = rng.integers(0, 1 << 32, size=nrecords // 4, dtype=np.uint32)
+    counts = rng.integers(1, 9, size=vals.size, dtype=np.uint32)
+    runs = np.stack([vals, counts], axis=1).astype("<u4")
+    return (struct.pack("<I", vals.size) + runs.tobytes(),
+            np.repeat(vals, counts))
+
+
+def etl_flow(pkg):
+    """Act 1's chain: decompress at the CSD, filter at the cheaper DPU,
+    aggregate at ``agg``."""
+    return (pkg.flow.Flow("etl")
+            .stage("csd_decompress", at="csd")
+            .then("dpu_filter", at=["dpu_a", "dpu_b"],
+                  bind={"mode": "kw", "key": "data",
+                        "static": {"threshold": FLOW_THRESHOLD}},
+                  est_bytes=64 << 10)
+            .then("host_aggregate", at="agg"))
+
+
+def affine_flow(pkg):
+    """Phase 23 (d)'s chain: ``uvm_affine`` at the cheaper DPU, then
+    ``uvm_affine`` at ``agg``, each with its node's resident W."""
+    return (pkg.flow.Flow("affine")
+            .stage("uvm_affine", at=["dpu_a", "dpu_b"])
+            .then("uvm_affine", at="agg"))
+
+
+def congest(pkg, node, peer, n=FLOW_BURST):
+    """``n`` unconsumed ``counter_bump`` frames from ``node``'s dispatcher
+    to ``peer`` (trailers withheld until a flush), so the hop pricer's
+    queue term steers the next pick around ``peer``; returns the queue
+    depth the pricer sees."""
+    bump = pkg.core.register_ifunc(node.ctx, "counter_bump")
+    for _ in range(n):
+        check(node.dispatcher.send_ifunc(peer, bump, b"bg"),
+              f"congestion frame to {peer} refused")
+    return node.pricer.queue_depth(peer)
+
+
+def etl_batches(pkg, np, eng, rng, *, batches=FLOW_BATCHES,
+                congest_at=FLOW_CONGEST, records=FLOW_RECORDS):
+    """Act 1: one ``etl_flow`` chain a batch of ``make_blob(records)``,
+    ``dpu_a`` congested from ``csd`` before batch ``congest_at``; each
+    result must equal numpy's count, sum, min and max of the kept records,
+    both DPUs picked, SLIM forwards after the warm-up.  Returns [(the DPU
+    picked, the result, the records expanded)] a batch."""
+    rows = []
+    for batch in range(batches):
+        if batch == congest_at:
+            depth = congest(pkg, eng.nodes["csd"], "dpu_a")
+            log(f"  batch {batch}: congested dpu_a (queue depth {depth})")
+        blob, recs = make_blob(np, rng, records)
+        fut = eng.submit(etl_flow(pkg), blob)
+        pick = eng._chains[fut.corr_id]["entries"][1].peer
+        got = fut.result()
+        kept = recs[recs >= FLOW_THRESHOLD]
+        want = {"count": int(kept.size), "sum": int(kept.sum()),
+                "min": int(kept.min()) if kept.size else 0,
+                "max": int(kept.max()) if kept.size else 0}
+        check(got == want, f"etl batch {batch}: {got}, want {want}")
+        rows.append((pick, got, int(recs.size)))
+    eng.drain()
+    picks = {p for p, _, _ in rows}
+    check(picks == {"dpu_a", "dpu_b"},
+          f"hop pricing never steered around congestion: picks {picks}")
+    slim = sum(p.stats["slim_sent"] for node in eng.nodes.values()
+               for p in node.dispatcher.peers.values())
+    check(slim > 0, "no SLIM forwards: the cached fast path never engaged")
+    return rows
+
+
+def scatter_count(pkg, np, eng, rng):
+    """Act 2: ``FLOW_EDGES`` seeded edges over ``FLOW_V`` vertices in
+    ``FLOW_SHARDS`` CSR shards at csd, dpu_a and dpu_b; ``graph_count``
+    scattered to the owners, ``flow_reduce`` gathering at ``agg``.  The
+    total must equal the direct count, with the branches buffered and
+    reduced at ``agg``.  Returns the total."""
+    V, R = FLOW_V, FLOW_V // FLOW_SHARDS
+    edges = [(int(rng.integers(0, V)), int(rng.integers(0, V)),
+              float(rng.uniform(0.0, 1.0))) for _ in range(FLOW_EDGES)]
+    owners = [name for name, _ in FLOW_NODES[:FLOW_SHARDS]]
+    for s, owner in enumerate(owners):
+        shard = [(u, v, w) for u, v, w in edges if u // R == s]
+        eng.nodes[owner].target_args.setdefault("shards", {})[s] = \
+            pkg.graph.pack_csr_shard(s * R, R, shard)
+    query = (pkg.flow.Flow("edge-count")
+             .scatter("graph_count", at=owners,
+                      binds=[{"mode": "static",
+                              "static": {"sid": s, "wmin": FLOW_WMIN}}
+                             for s in range(FLOW_SHARDS)])
+             .gather("flow_reduce", at="agg"))
+    total = eng.submit(query, None).result()
+    want = sum(1 for _, _, w in edges if w >= FLOW_WMIN)
+    check(total == want, f"edge count {total}, want {want}")
+    agg = eng.nodes["agg"].stats
+    check(agg["gather_reduced"] >= 1
+          and agg["gather_buffered"] >= FLOW_SHARDS,
+          f"gather at agg: {agg}")
+    log(f"  analytics: {total} edges with w >= {FLOW_WMIN} across "
+        f"{FLOW_SHARDS} shards (reduced at agg: {agg['gather_buffered']} "
+        f"branch arrivals, {agg['gather_reduced']} reductions)")
+    return total
+
+
+def short_circuit(pkg, np, eng, rng):
+    """Act 3: a chain probing a shard that does not exist dies at its
+    second hop; the error names ``graph_count@dpu_a`` and ``agg`` never
+    runs.  Returns the ``RemoteExecutionError``."""
+    bad = (pkg.flow.Flow("bad-probe")
+           .stage("csd_decompress", at="csd")
+           .then("graph_count", at="dpu_a",
+                 bind={"mode": "static", "static": {"sid": 99, "wmin": 0.0}})
+           .then("host_aggregate", at="agg"))
+    execd = eng.nodes["agg"].ctx.stats["executed"]
+    fut = eng.submit(bad, make_blob(np, rng, 64)[0])
+    try:
+        fut.result()
+    except pkg.tasks.RemoteExecutionError as e:
+        err = e
+    else:
+        raise SmokeError("the bad chain did not fail")
+    check(err.hop == "graph_count@dpu_a", f"short-circuit hop {err.hop}")
+    check(eng.nodes["agg"].ctx.stats["executed"] == execd,
+          "the aggregate stage ran after the short-circuit")
+    log(f"  short-circuit: chain died at {err.hop} ({err.remote_type}); "
+        f"aggregate stage never ran")
+    return err
+
+
+def flow_bulk(pkg, np, eng, rng):
+    """Act 4: the bulk ingest through the origin's own dispatcher, a new
+    lane to ``agg`` under ``rle`` with streaming on; ``bulk_gates``.
+    Returns what it measured and the lane."""
+    host, agg = eng.origin, eng.nodes["agg"]
+    bulk = host.dispatcher.add_peer(
+        "agg", agg.fabric, agg.ctx, n_slots=agg.n_slots,
+        slot_size=agg.slot_size, target_args=agg.target_args, codec="rle")
+    host.dispatcher.set_streaming(True, chunk_bytes=BULK_CHUNK,
+                                  window=STREAM_WINDOW, threshold=BULK_CHUNK)
+    h = pkg.core.register_ifunc(host.ctx, "host_aggregate")
+    check(h.lib.streaming, "host_aggregate is not streaming-aware")
+    records = np.repeat(rng.integers(0, 1 << 32, size=BULK_VALUES,
+                                     dtype=np.uint32), BULK_REPEAT)
+    wire0 = sum(r.channel.ep.stats["bytes"] for r in bulk.rings)
+    t0 = time.perf_counter()
+    check(host.dispatcher.send_ifunc("agg", h, records.tobytes()),
+          "bulk send refused")
+    host.dispatcher.drain()
+    eng.drain()
+    secs = time.perf_counter() - t0
+    return {"peer": bulk, **bulk_gates(bulk, records, wire0, secs,
+                                       BULK_CHUNK)}
+
+
+def storage_pipeline(pkg, np, trace_dir, *, lib_dir=None):
+    """``examples/storage_pipeline.py`` through ``pkg``: its topology
+    (``flow_engine`` under ``Obs(trace=True)``), one ``rng`` of seed 11
+    drawn in its order, Acts 1-4 and its gates.  FLOW_OK: nothing pending,
+    no orphan reply.  OBS_OK: a ``flow`` span ``ifunc@peer`` for each
+    stage run (3 a batch, a branch a shard, the reduce, Act 3's two), each
+    on that peer's actor; one ``chain`` span a submitted flow; none open;
+    a ``chunk:`` span a chunk of Act 4; the Chrome export (to
+    ``trace_dir``) valid JSON.  Returns what it measured."""
+    obs = pkg.obs.Obs("storage_pipeline", trace=True)
+    eng = flow_engine(pkg, obs=obs, lib_dir=lib_dir)
+    rng = np.random.default_rng(FLOW_SEED)
+    t0 = time.perf_counter()
+    rows = etl_batches(pkg, np, eng, rng)
+    etl_s = time.perf_counter() - t0
+    for b, (pick, got, n) in enumerate(rows):
+        log(f"  batch {b}: {n} records -> {got['count']} kept (filter @ "
+            f"{pick}), sum verified")
+    total = scatter_count(pkg, np, eng, rng)
+    err = short_circuit(pkg, np, eng, rng)
+    bulk = flow_bulk(pkg, np, eng, rng)
+    eng.drain()
+    check(eng.pending() == 0 and eng.stats["orphan_replies"] == 0,
+          f"flows left pending or orphaned: {eng.stats}")
+    host = eng.origin.dispatcher.stats
+    log(f"  host sent {host['sent']} frames for {eng.stats['submitted']} "
+        f"flows ({eng.stats['completed']} completed, {eng.stats['errors']} "
+        f"failed)")
+    for node in eng.nodes.values():
+        log("   ", node.summary())
+    log("FLOW_OK")
+
+    doc = obs.tracer.export_chrome(trace_dir / "storage_trace.json")
+    with open(trace_dir / "storage_trace.json") as f:
+        check(json.load(f)["traceEvents"] == doc["traceEvents"]
+              and doc["traceEvents"], "empty or unreadable trace export")
+    flow_spans = obs.tracer.spans(cat="flow")
+    chain_spans = obs.tracer.spans(cat="chain")
+    names = {s.name for s in flow_spans}
+    want_spans = 3 * FLOW_BATCHES + FLOW_SHARDS + 1 + 2
+    check(len(flow_spans) == want_spans,
+          f"{len(flow_spans)} flow stage spans, want {want_spans}")
+    for want in ("csd_decompress@csd", "host_aggregate@agg",
+                 "flow_reduce@agg", "dpu_filter@dpu_a", "dpu_filter@dpu_b",
+                 "graph_count@dpu_a"):
+        check(want in names, f"no {want} span: {sorted(names)}")
+    check(all(s.actor == s.name.split("@", 1)[1] for s in flow_spans),
+          "a stage span is not on the lane of the peer that ran it")
+    check(len(chain_spans) == eng.stats["submitted"],
+          f"{len(chain_spans)} chain spans for {eng.stats['submitted']} "
+          f"flows")
+    check(obs.tracer.open_count() == 0,
+          f"open spans: {[s.name for s in obs.tracer.open_spans()][:8]}")
+    chunks = [s for s in obs.tracer.spans(cat="stream")
+              if s.name.startswith("chunk:")]
+    check(len(chunks) >= bulk["chunks"],
+          f"{len(chunks)} chunk spans for {bulk['chunks']} chunks")
+    log(f"  trace: {len(doc['traceEvents'])} events, {len(flow_spans)} flow "
+        f"stage spans, {len(chain_spans)} chains, {len(chunks)} stream "
+        f"chunks")
+    log("OBS_OK")
+    return {"eng": eng, "obs": obs, "rows": rows, "total": total,
+            "err": err, "bulk": bulk, "etl_s": etl_s}
+
+
+def flow_timers(eng, spent):
+    """Wrap the host steps of ``eng``'s chains in timers that add their
+    seconds to ``spent``: ``submit``, each node's forward sends
+    (``send@node``) and polls (``poll@node``, holding the stage fns and
+    forwards it runs), each stage's fn as it links (``fn name@node``),
+    and the reply's ``encode`` and ``decode``.  Returns an undo."""
+    from repro_torch.tasks import wire
+
+    def timed(what, fn):
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[what] = spent.get(what, 0.0) + time.perf_counter() - t
+        return wrapper
+
+    saved = (wire.encode, wire.decode)
+    wire.encode = timed("encode", wire.encode)
+    wire.decode = timed("decode", wire.decode)
+    eng.submit = timed("submit", eng.submit)
+    shadowed = [(eng, "submit")]        # instance attributes over methods
+    for name, node in eng.nodes.items():
+        d, cache = node.dispatcher, node.ctx.link_cache
+        d.send_ifunc = timed(f"send@{name}", d.send_ifunc)
+        d.poll = timed(f"poll@{name}", d.poll)
+        insert = cache.insert
+
+        def linked(lname, digest, fn, _node=name, _insert=insert):
+            return _insert(lname, digest, timed(f"fn {lname}@{_node}", fn))
+        cache.insert = linked
+        for key, fn in list(cache.entries.items()):
+            cache.entries[key] = timed(f"fn {key[0]}@{name}", fn)
+        shadowed += [(d, "send_ifunc"), (d, "poll"), (cache, "insert")]
+
+    def restore():
+        wire.encode, wire.decode = saved
+        for obj, attr in shadowed:
+            delattr(obj, attr)
+    return restore
+
+
+def timer_line(spent):
+    return ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+        spent.items(), key=lambda kv: -kv[1]))
+
+
+def chain_engine(pkg, Ws, *, slot=CHAIN_SLOT, lib_dir=None):
+    """Phase 23 (d)'s topology through ``pkg``: ``flow_engine`` over the
+    RDMA nodes ``CHAIN_NODES`` with slots of ``slot`` bytes, each node's W
+    (``Ws[name]``) resident in its ``target_args["externals"]``."""
+    eng = flow_engine(pkg, nodes=tuple((n, "rdma") for n in CHAIN_NODES),
+                      slot=slot, lib_dir=lib_dir)
+    for name in CHAIN_NODES:
+        eng.nodes[name].target_args["externals"] = {"W": Ws[name]}
+    return eng
+
+
+def uvm_chains(pkg, eng, xs, *, congest_at=None):
+    """``affine_flow`` chains on ``chain_engine``'s ``eng``: each payload
+    of ``xs`` submitted and its result taken in turn, ``dpu_a`` congested
+    from the origin before chain ``congest_at``.  Returns (the DPU picked
+    a chain, the results)."""
+    flow = affine_flow(pkg)
+    picks, outs = [], []
+    for i, x in enumerate(xs):
+        if i == congest_at:
+            congest(pkg, eng.origin, "dpu_a")
+        fut = eng.submit(flow, x)
+        picks.append(eng._chains[fut.corr_id]["entries"][0].peer)
+        outs.append(fut.result())
+    eng.drain()
+    return picks, outs
+
+
+def fig_flow(pkg, *, stages=FIG_FLOW_STAGES, nbytes=FIG_FLOW_BYTES,
+             iters=FIG_FLOW_ITERS, lib_dir=None):
+    """``bench_flow_chain`` ("fig_flow") through ``pkg``: an N-stage
+    ``flow_xform`` chain of ``FlowEngine`` against the same N stages as
+    ``TaskRuntime`` round-trips, at the same peers (RDMA and loopback
+    alternating, slots of ``FIG_FLOW_SLOT``), each arm warmed by one run
+    and then timed over ``iters``, every result checked.  Returns {N:
+    {"chain": µs, "roundtrip": µs}}."""
+    core, X = pkg.core, pkg.transport
+    blob = bytes(range(256)) * (nbytes // 256)
+    rows = {}
+    for n in stages:
+        peers = [f"hop{i}" for i in range(n)]
+        fabrics = [X.RdmaFabric() if i % 2 == 0 else X.LoopbackFabric()
+                   for i in range(n)]
+        expect = blob if n % 2 == 0 else blob[::-1]
+        eng = pkg.flow.FlowEngine(core.Context("host", lib_dir=lib_dir,
+                                               **pkg.kw),
+                                  default_timeout=60.0)
+        for p, fab in zip(peers, fabrics):
+            eng.add_node(p, fab, slot_size=FIG_FLOW_SLOT)
+        flow = pkg.flow.Flow(f"chain{n}")
+        for p in peers:
+            flow.stage("flow_xform", at=p)
+        check(eng.submit(flow, blob).result() == expect, "chain warm-up")
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            check(eng.submit(flow, blob).result() == expect, "chain result")
+        chain = (time.perf_counter() - t0) / iters * 1e6
+        rt = pkg.tasks.TaskRuntime(
+            core.Context("host-rt", lib_dir=lib_dir, **pkg.kw),
+            engine=X.ProgressEngine(flush_threshold=8,
+                                    inflight_window="trailer"),
+            default_timeout=60.0)
+        for p, fab in zip(peers, fabrics):
+            rt.add_peer(p, fab, core.Context(p, lib_dir=lib_dir, **pkg.kw),
+                        n_slots=8, slot_size=FIG_FLOW_SLOT, target_args={})
+        h = core.register_ifunc(rt.ctx, "flow_xform")
+
+        def roundtrip(data):
+            for p in peers:
+                data = rt.submit(p, h, data).result()
+            return data
+
+        check(roundtrip(blob) == expect, "round-trip warm-up")
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            check(roundtrip(blob) == expect, "round-trip result")
+        rows[n] = {"chain": chain,
+                   "roundtrip": (time.perf_counter() - t0) / iters * 1e6}
+    return rows
+
+
+def phase_flow(np, torch, dev, smi):
+    """Phase 23: the flow layer on card contexts (every node's context on
+    ``dev``).  (a), (b) ``storage_pipeline``: Acts 1-4 with their gates,
+    FLOW_OK, STREAM_OK and OBS_OK.  (c) the full-size ETL: ``etl_batches``
+    of ``ETL_BATCHES`` x ``make_blob(ETL_RECORDS)`` at slots of
+    ``ETL_SLOT``, ``dpu_a`` congested at batch ``ETL_CONGEST``, traced by
+    torch.profiler (device activity only): chains/s, records/s, the host
+    timers of ``flow_timers`` and the SMs' idle share.  (a) to (c) run
+    PYBC verbs on the host: no kernel may launch.  (d) ``CHAIN_N``
+    two-hop ``uvm_affine`` chains of one 2-tile payload each
+    (``chain_engine``, each node's seeded W on the card), ``dpu_a``
+    congested halfway: exactly 2 ``ifunc_vm`` launches a chain and no
+    other kernel, both DPUs used, each result within ``TOL_PATH`` of
+    ``ifunc_vm_plain`` run stage by stage (the picked DPU's W, then
+    agg's); chains/s, µs a chain, the host timers; then
+    ``CHAIN_TRACED`` more chains timed, and as many again traced, for
+    ``ifunc_vm``'s device time a hop and the SMs' idle share.  (a) to
+    (d) run under ``no_plain``.  (e) ``fig_flow`` at the bench's
+    settings, the chain under the round-trips at every stage count.
+    Returns the ``ifunc_vm`` launches of (d)."""
+    import tempfile
+    import types
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import core, flow, obs, tasks, transport
+    from repro_torch.core.codegen import deserialize_uvm
+    from repro_torch.kernels.ifunc_vm import ifunc_vm_plain, vm_plan
+    from repro_torch.tasks import graph
+
+    pkg = types.SimpleNamespace(core=core, transport=transport, flow=flow,
+                                obs=obs, tasks=tasks, graph=graph,
+                                kw={"device": dev})
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(23)
+    Ws = {n: torch.from_numpy((rng.standard_normal((T, T)) * 0.05)
+                              .astype(np.float32)).to(dev)
+          for n in CHAIN_NODES}
+    xs = rng.standard_normal((CHAIN_N, NT, T, T)).astype(np.float32)
+    with no_plain():
+        # (a), (b) the example
+        reset_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            sp = storage_pipeline(pkg, np, pathlib.Path(tmp))
+        counts = read_counts()
+        check(not any(counts.values()),
+              f"the storage pipeline launched {counts}, want no kernel")
+        log(f"storage_pipeline on {smi}: {FLOW_BATCHES} ETL chains in "
+            f"{sp['etl_s']:.4f} s, edge count {sp['total']}, short-circuit "
+            f"at {sp['err'].hop}, bulk ingest {sp['bulk']['secs']:.4f} s")
+
+        # (c) the full-size ETL
+        eng = flow_engine(pkg, slot=ETL_SLOT)
+        spent: dict = {}
+        restore = flow_timers(eng, spent)
+        reset_counts()
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                rows = etl_batches(pkg, np, eng,
+                                   np.random.default_rng(FLOW_SEED),
+                                   batches=ETL_BATCHES,
+                                   congest_at=ETL_CONGEST,
+                                   records=ETL_RECORDS)
+                wall = time.perf_counter() - t0
+        finally:
+            restore()
+        counts = read_counts()
+        check(not any(counts.values()),
+              f"the full-size ETL launched {counts}, want no kernel")
+        n_rec = sum(n for _, _, n in rows)
+        picks = [p for p, _, _ in rows]
+        log(f"full-size ETL on {smi} (traced, device activity only): "
+            f"{ETL_BATCHES} chains of {ETL_RECORDS // 4} runs "
+            f"({n_rec} records, the largest batch "
+            f"{max(n for _, _, n in rows) * 4} B expanded) in {wall:.4f} s "
+            f"= {ETL_BATCHES / wall:.2f} chains/s, {n_rec / wall:.0f} "
+            f"records/s; dpu_a {picks.count('dpu_a')}, "
+            f"dpu_b {picks.count('dpu_b')}; host timers (s; a poll holds "
+            f"the stage fns and forwards it runs): {timer_line(spent)}")
+        if log_card_busy(prof, wall, f"card over the full-size ETL on "
+                         f"{smi}") is None:
+            log("  no kernel counted either: the SMs sit idle 1.0000 of "
+                "the ETL")
+
+        # (d) the two-hop μVM chain
+        eng = chain_engine(pkg, Ws)
+        spent.clear()
+        restore = flow_timers(eng, spent)
+        sync(torch, dev)
+        reset_counts()
+        try:
+            t0 = time.perf_counter()
+            picks, outs = uvm_chains(pkg, eng, xs, congest_at=CHAIN_N // 2)
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        counts = read_counts()
+        check(counts["ifunc_vm"] == 2 * CHAIN_N and not any(
+            v for k, v in counts.items() if k != "ifunc_vm"),
+            f"{CHAIN_N} μVM chains launched {counts}, want ifunc_vm twice "
+            f"a chain and nothing else")
+        check(set(picks) == {"dpu_a", "dpu_b"},
+              f"μVM chains picked {set(picks)}, want both DPUs")
+        check(eng.pending() == 0 and eng.stats["orphan_replies"] == 0
+              and eng.stats["completed"] == CHAIN_N,
+              f"μVM chains: {eng.stats}")
+        launches = counts["ifunc_vm"]
+        log(f"μVM chains on {smi}: {CHAIN_N} two-hop chains of {NT} tiles "
+            f"in {wall:.4f} s = {CHAIN_N / wall:.1f} chains/s, "
+            f"{wall / CHAIN_N * 1e6:.1f} µs a chain; dpu_a "
+            f"{picks.count('dpu_a')}, dpu_b {picks.count('dpu_b')}; "
+            f"{launches} ifunc_vm launches; host timers (s): "
+            f"{timer_line(spent)}")
+
+    prog = deserialize_uvm(eng.origin.ctx.handles["uvm_affine"].lib.code)
+    kernel = vm_plan(prog).kernel
+    x_dev = torch.from_numpy(xs).to(dev)
+    got = torch.from_numpy(np.stack(outs)).to(dev)
+    worst = 0.0
+    for dpu in ("dpu_a", "dpu_b"):
+        sel = torch.tensor([i for i, p in enumerate(picks) if p == dpu],
+                           device=dev)
+        hop1 = ifunc_vm_plain(prog, x_dev[sel].reshape(-1, T, T),
+                              Ws[dpu][None])
+        want = ifunc_vm_plain(prog, hop1, Ws["agg"][None]).reshape(
+            len(sel), NT, T, T)
+        err = (got[sel] - want).abs().max().item()
+        check(torch.allclose(got[sel], want, **TOL_PATH),
+              f"μVM chains through {dpu} vs ifunc_vm_plain stage by stage: "
+              f"max |err| {err:.3g}")
+        worst = max(worst, err)
+    log(f"  every chain's result within rtol 1e-4, atol 1e-5 of "
+        f"ifunc_vm_plain stage by stage (max |err| {worst:.3g})")
+    with no_plain():
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        uvm_chains(pkg, eng, xs[:CHAIN_TRACED])
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            uvm_chains(pkg, eng, xs[:CHAIN_TRACED])
+            sync(torch, dev)
+    log_card_busy(prof, wall, f"card over {CHAIN_TRACED} μVM chains on {smi} "
+                  f"(timed untraced, then traced)", (kernel,))
+
+    # (e) fig_flow
+    rows = fig_flow(pkg)
+    for n, us in rows.items():
+        log(f"fig_flow {n} stages, {FIG_FLOW_BYTES >> 10} KiB on {smi}, µs a "
+            f"message over {FIG_FLOW_ITERS}: chain {us['chain']:.2f}, "
+            f"round-trip {us['roundtrip']:.2f} "
+            f"({us['roundtrip'] / us['chain']:.2f}x)")
+        check(us["chain"] < us["roundtrip"],
+              f"fig_flow: the {n}-stage chain ({us['chain']:.2f} µs) is not "
+              f"under its round-trips ({us['roundtrip']:.2f} µs)")
+    log(f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches}
 
 
@@ -4865,6 +5456,8 @@ def main():
     kernels[0]["launches"] += gr["sweeps"]
     sm = phase_streams(np, torch, dev, smi, mp["rates"])
     vm["stream_launches"] = sm["launches"]
+    fl = phase_flow(np, torch, dev, smi)
+    vm["flow_launches"] = fl["launches"]
     model_errs = phase_model_kernels(np, torch, dev)
     bwd_errs = phase_bwd_kernels(np, torch, dev)
     # timed, and a train step traced, before the serving phase's long

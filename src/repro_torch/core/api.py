@@ -75,8 +75,9 @@ class Context:
     lib_dir: pathlib.Path | None = None      # target-side library search dir
     link_mode: str = "remote"                # "remote" (GOT reconstruction) |
     #                                          "local" (lib on the target fs)
-    flow: object = None                      # continuation hook; not read
-    #                       yet: FLAG_CONT frames are REJECTED on any target
+    flow: object = None                      # continuation hook
+    #                       (repro_torch.flow.FlowNode): handles FLAG_CONT
+    #                       frames; a target without one REJECTS them
     symbol_space: CG.SymbolSpace = field(default_factory=CG.SymbolSpace)
     link_cache: LinkCache = field(default_factory=LinkCache)
     handles: dict[str, "IfuncHandle"] = field(default_factory=dict)
@@ -265,6 +266,17 @@ class AggSubResult:
     error: BaseException | None = None
 
 
+class _AggSubHdr:
+    """Minimal header stand-in handed to the flow hook for a continuation
+    sub-record (the hook reads only ``.name`` for its labels)."""
+
+    __slots__ = ("name", "code_kind")
+
+    def __init__(self, name: str, code_kind: F.CodeKind):
+        self.name = name
+        self.code_kind = code_kind
+
+
 #: shared outcome of a fire-and-forget record that executed cleanly: the
 #: completion reads only ``.status``/``.value``/``.error``, so one
 #: immutable instance serves them all
@@ -365,10 +377,14 @@ def _run_agg(ctx: Context, batch, target_args) -> list[AggSubResult]:
             pl = plens[i]
             payload = mv[s:s + pl]
             if flags[i] & F.AGG_SUBFLAG_CONT:
-                # no flow hook is ported: every target is flow-less
-                raise F.FrameError(
-                    "continuation sub-record on a flow-less target")
-            if corrs[i] and is_dict:
+                if ctx.flow is None:
+                    raise F.FrameError(
+                        "continuation sub-record on a flow-less target")
+                cont = bytes(mv[s + pl:s + pl + batch.clens[i]])
+                ctx.flow.on_flow_frame(
+                    ctx, _AggSubHdr(names[name_idx[i]], batch.kind(i)),
+                    fn, payload, cont, target_args)
+            elif corrs[i] and is_dict:
                 target_args.pop("result", None)
                 fn(payload, pl, target_args)
                 executed += 1
@@ -730,9 +746,10 @@ def poll_ifunc(ctx: Context, buffer, buffer_size: int | None, target_args,
             if clear:
                 F.clear_frame(buf, hdr)
             return Status.OK
-        if F.frame_cont(buf, hdr) is not None:
-            # a continuation frame needs a forwarding hook installed; none
-            # is ported, so every target is flow-less
+        cont = F.frame_cont(buf, hdr)
+        if cont is not None and ctx.flow is None:
+            # a continuation frame needs a forwarding hook installed: one
+            # landing on a plain target is a flow-topology routing bug
             raise F.FrameError("continuation frame on a flow-less target")
         # cached dispatch (§3.4): the header digest IS the cache key — a
         # hit costs one dict lookup, no sha256, no code-section read
@@ -760,24 +777,40 @@ def poll_ifunc(ctx: Context, buffer, buffer_size: int | None, target_args,
         if clear:
             F.scrub_slot(buf)     # best-effort clear of the bad slot
         return Status.REJECTED
-    o = ctx.obs
-    if o is not None and o.enabled:
-        # exec_us is host time around the ifunc: for a μVM frame on the
-        # card, the payload's copy to the card and the kernel's launch,
-        # not the kernel's run (no synchronize is added for telemetry)
-        t0 = time.perf_counter()
-        sp = (o.tracer.begin(f"exec:{hdr.name}@{ctx.name}", cat="exec",
-                             actor=ctx.name, corr=hdr.corr_id or None)
-              if o.tracer.enabled else None)
+    if cont is not None:
+        # flow frame: the hook owns execution — it runs (or buffers, for a
+        # gather rendezvous) the linked fn, turns the stage's exception
+        # into an ERR short-circuit to the flow's origin, and forwards the
+        # result to the descriptor's next hop.  A FrameError out of the
+        # hook means the descriptor itself is ill-formed: REJECTED
         try:
-            fn(payload, len(payload), target_args)
-        finally:
-            # the span closes even when the ifunc raises (poisoned slot)
-            o.exec_hist.observe((time.perf_counter() - t0) * 1e6)
-            o.tracer.end(sp)
+            ctx.flow.on_flow_frame(ctx, hdr, fn, payload, cont, target_args)
+        except F.FrameError as e:
+            ctx.stats["rejected"] += 1
+            ctx.stats["last_reject"] = f"{type(e).__name__}: {e}"
+            if clear:
+                F.scrub_slot(buf)
+            return Status.REJECTED
     else:
-        fn(payload, len(payload), target_args)
-    ctx.stats["executed"] += 1
+        o = ctx.obs
+        if o is not None and o.enabled:
+            # exec_us is host time around the ifunc: for a μVM frame on the
+            # card, the payload's copy to the card and the kernel's launch,
+            # not the kernel's run (no synchronize is added for telemetry)
+            t0 = time.perf_counter()
+            sp = (o.tracer.begin(f"exec:{hdr.name}@{ctx.name}", cat="exec",
+                                 actor=ctx.name, corr=hdr.corr_id or None)
+                  if o.tracer.enabled else None)
+            try:
+                fn(payload, len(payload), target_args)
+            finally:
+                # the span closes even when the ifunc raises (poisoned
+                # slot)
+                o.exec_hist.observe((time.perf_counter() - t0) * 1e6)
+                o.tracer.end(sp)
+        else:
+            fn(payload, len(payload), target_args)
+        ctx.stats["executed"] += 1
     ctx.stats["bytes_in"] += hdr.frame_len
     if clear:
         F.clear_frame(buf, hdr)

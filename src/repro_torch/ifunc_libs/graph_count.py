@@ -6,9 +6,7 @@ Scatter form: every shard owner gets this verb with a per-branch static
 bind (``{"mode": "static", "static": {"sid": k, "wmin": w}}``); each
 branch's count then rendezvouses at the gather peer, where
 ``flow_reduce`` sums the partials — partial aggregation at the gather
-peer, not the host.  (The flow layer that scatters it is ROADMAP.md
-Queue 1 item 4(b); until then the verb runs as a plain host-target
-ifunc.)
+peer, not the host.
 
 Payload: ``sid(u32) | wmin(f32)``
 Result:  the edge count (int, ``target_args["result"]``).

@@ -7,6 +7,7 @@ device GOT).
 """
 
 import numpy as np
+import torch
 
 from repro_torch.core.codegen import assemble
 
@@ -35,12 +36,26 @@ def uvm_affine_main(payload, payload_size, target_args):
     return out
 
 
+def _host_f32(source_args) -> np.ndarray:
+    """The tiles as a contiguous f32 numpy array.  A tensor (on any
+    device: a μVM stage's result on the card, forwarded by the flow
+    layer) is copied to the host once; the bytes are those
+    ``np.asarray(value, np.float32)`` gives."""
+    if isinstance(source_args, torch.Tensor):
+        return source_args.detach().to("cpu", torch.float32).contiguous() \
+            .numpy()
+    return np.ascontiguousarray(np.asarray(source_args, np.float32))
+
+
 def uvm_affine_payload_get_max_size(source_args, source_args_size):
+    if isinstance(source_args, torch.Tensor):
+        return source_args.numel() * 4          # no copy to size it
     return np.asarray(source_args, np.float32).nbytes
 
 
 def uvm_affine_payload_init(payload, payload_size, source_args,
                             source_args_size):
-    raw = np.ascontiguousarray(np.asarray(source_args, np.float32)).tobytes()
-    payload[:len(raw)] = raw
-    return len(raw)
+    raw = _host_f32(source_args)
+    n = raw.nbytes
+    payload[:n] = memoryview(raw).cast("B")
+    return n

@@ -91,6 +91,12 @@ than skipping ahead) and the poll consumes in the same rotation, so
 per-peer FIFO holds across M rings under one demux.  A striped peer takes
 ``ring=None`` sends only and never streams.
 
+*Continuations* (the flow layer, ``repro_torch.flow``): ``send`` and
+``send_ifunc(cont=)`` append a packed continuation descriptor (frame
+v2.2 ``FLAG_CONT``) to a host peer's frame, a coalesced record's too
+(``AGG_SUBFLAG_CONT``); a NACK's FULL rebuild keeps it, and a
+continuation frame never streams.
+
 Fault injection, side-band pollers and peer removal raise
 :class:`TransportError` naming the ROADMAP.md item they come with.
 """
@@ -197,7 +203,7 @@ class _PendingSub:
     digest: bytes
     payload: object         # bytes, or a view into the slab cell it rides in
     corr_id: int
-    cont: bytes | None      # always None: no flow hook is ported
+    cont: bytes | None      # packed continuation descriptor (flow)
     future: object          # the task runtime's Future, or None
     enq_at: float
     err: bool = False       # request records never carry the reply-err bit
@@ -218,7 +224,8 @@ class _CoalesceQ:
         self.bytes = self.BASE
 
     def would_take(self, sub: _PendingSub) -> int:
-        extra = F.AGG_SUB_OVERHEAD + len(sub.payload)
+        extra = (F.AGG_SUB_OVERHEAD + len(sub.payload)
+                 + (0 if sub.cont is None else len(sub.cont)))
         if sub.name not in self.names:
             # ifunc names are ASCII: len == byte length
             extra += 1 + len(sub.name)
@@ -517,8 +524,9 @@ class Dispatcher:
     def _check_full_fits(lane: RingState, lib, payload_len: int,
                          cont_len: int = 0) -> None:
         """A SLIM frame must stay FULL-retransmittable: if the target evicts
-        the digest, the NACK fallback rebuilds code + payload into this same
-        ring — refuse at send time rather than wedge a later drain."""
+        the digest, the NACK fallback rebuilds code + payload (+ any
+        continuation descriptor) into this same ring — refuse at send time
+        rather than wedge a later drain."""
         need = (F.HEADER_LEN + len(lib.code) + payload_len + cont_len
                 + F.TRAILER_LEN)
         if need > lane.mailbox.slot_size:
@@ -962,7 +970,8 @@ class Dispatcher:
     def send_ifunc(self, peer_name: str, handle, source_args,
                    source_args_size: int | None = None, *,
                    ring: int | None = None, on_complete=None,
-                   corr_id: int = 0, future=None) -> bool:
+                   corr_id: int = 0, future=None,
+                   cont: bytes | None = None) -> bool:
         """Zero-copy send: the payload codec writes straight into the
         peer's slab cell and the header is sealed around it in place.  SLIM
         once the peer's cache is known warm.  With coalescing on and an
@@ -970,12 +979,19 @@ class Dispatcher:
         aggregate instead.  ``corr_id`` nonzero asks for the result back
         (a reply frame, or a device sweep result, to ``reply_router``);
         ``future`` is marked SENT by the flush that publishes the frame.
-        With streaming on, a payload above the stream threshold to a host
-        peer that is not striped goes through :meth:`send_stream`."""
+        ``cont`` appends a packed continuation descriptor (the flow layer's
+        peer-to-peer forward; host fabrics only).  With streaming on, a
+        payload above the stream threshold to a host peer that is not
+        striped goes through :meth:`send_stream`, unless it carries
+        ``cont``."""
         peer = self.peers[peer_name]
         self._check_ring_kw(peer, ring)
+        if cont is not None and peer.fabric.kind == "device":
+            raise TransportError(
+                "continuation frames are host-tier only (the device sweep "
+                "has no forwarding hook)")
         lib = handle.lib
-        if (self._streaming and on_complete is None
+        if (self._streaming and cont is None and on_complete is None
                 and peer.fabric.kind != "device" and not peer.stripe):
             source_args_size = _args_size(source_args, source_args_size)
             if int(lib.payload_get_max_size(
@@ -990,7 +1006,8 @@ class Dispatcher:
         if (self._coalesce and on_complete is None
                 and self._agg_eligible(peer) and self._slim_ok(peer, lib)):
             return self._enqueue_sub(peer, handle, source_args,
-                                     source_args_size, ring, corr_id, future)
+                                     source_args_size, ring, corr_id, future,
+                                     cont)
         if self._queued_ahead(peer):
             return False
         lane = self._pick_lane(peer, ring)
@@ -999,12 +1016,13 @@ class Dispatcher:
             return False
         source_args_size = _args_size(source_args, source_args_size)
         max_size = int(lib.payload_get_max_size(source_args, source_args_size))
+        cont_len = 0 if cont is None else len(cont)
         slim = self._slim_ok(peer, lib)
         if slim and peer.fabric.kind != "device":
-            self._check_full_fits(lane, lib, max_size)
+            self._check_full_fits(lane, lib, max_size, cont_len)
         code = b"" if slim else lib.code
         slab = self.engine.slab_slot(lane.channel, lane.tail)
-        if (F.HEADER_LEN + len(code) + max_size
+        if (F.HEADER_LEN + len(code) + max_size + cont_len
                 + F.TRAILER_LEN) > len(slab):
             raise TransportError(
                 f"frame would exceed slot {lane.mailbox.slot_size}B")
@@ -1012,7 +1030,8 @@ class Dispatcher:
         used = lib.payload_init(pv, max_size, source_args, source_args_size)
         used = max_size if used in (None, 0) else int(used)
         n = F.seal_frame(slab, lib.name, code, lib.kind, used,
-                         digest=lib.code_digest, slim=slim, corr_id=corr_id)
+                         digest=lib.code_digest, slim=slim, corr_id=corr_id,
+                         cont=cont)
         self._post_view(peer, lane, slab[:n],
                         _TxRec(lib.name, lib.code_digest, handle, slim,
                                corr_id=corr_id), on_complete, future)
@@ -1034,7 +1053,7 @@ class Dispatcher:
         return bytes(memoryview(buf)[:used])
 
     def _enqueue_sub(self, peer: Peer, handle, source_args, source_args_size,
-                     ring, corr_id, future=None) -> bool:
+                     ring, corr_id, future=None, cont=None) -> bool:
         """Queue one invocation for aggregate packing (no ring credit is
         claimed until flush); flushes the queue first when this record
         would overflow the slot byte budget, and after adding when the
@@ -1056,11 +1075,13 @@ class Dispatcher:
         if peer.fabric.kind != "device":
             # the NACK fallback rebuilds this record as a FULL singleton
             # into the same ring (device lanes never ship code)
-            self._check_full_fits(lane0, lib, len(payload))
+            self._check_full_fits(lane0, lib, len(payload),
+                                  0 if cont is None else len(cont))
         sub = _PendingSub(handle, lib.name, lib.kind, lib.code_digest,
-                          payload, corr_id, None, future, time.monotonic())
+                          payload, corr_id, cont, future, time.monotonic())
         if (self._streaming and len(payload) > self._stream_thr
-                and peer.fabric.kind != "device" and not peer.stripe):
+                and cont is None and peer.fabric.kind != "device"
+                and not peer.stripe):
             # oversized record with streaming on: stream it rather than
             # ship a slot-bounded singleton (send_stream posts the queued
             # records first, so FIFO holds)
@@ -1249,7 +1270,7 @@ class Dispatcher:
             sub = subs[0]
             n = F.pack_frame_into(slab, sub.name, b"", sub.payload,
                                   sub.kind, digest=sub.digest, slim=True,
-                                  corr_id=sub.corr_id)
+                                  corr_id=sub.corr_id, cont=sub.cont)
             self._post_view(peer, lane, slab[:n],
                             _TxRec(sub.name, sub.digest, sub.handle,
                                    slim=True, corr_id=sub.corr_id), None,
@@ -1284,7 +1305,8 @@ class Dispatcher:
         total = _CoalesceQ.BASE
         n = 0
         for s in subs:
-            extra = F.AGG_SUB_OVERHEAD + len(s.payload)
+            extra = (F.AGG_SUB_OVERHEAD + len(s.payload)
+                     + (0 if s.cont is None else len(s.cont)))
             if s.name not in names:
                 extra += 1 + len(s.name)
             if n and (total + extra > cap or n >= max_subs):
@@ -1632,9 +1654,10 @@ class Dispatcher:
                     lib = sub.handle.lib
                     frame = F.pack_frame(lib.name, lib.code, sub.payload,
                                          lib.kind, digest=lib.code_digest,
-                                         corr_id=sub.corr_id)
+                                         corr_id=sub.corr_id, cont=sub.cont)
                     peer.resend.append(IfuncMsg(sub.handle, frame, slim=False,
-                                                corr_id=sub.corr_id))
+                                                corr_id=sub.corr_id,
+                                                cont=sub.cont))
                 else:
                     peer.stats["nack_lost"] += 1
                 continue

@@ -101,6 +101,12 @@ class ProgressEngine:
         off = (slot % n_slots) * cell
         return memoryview(slab)[off:off + cell]
 
+    def release_slab(self, channel: Channel) -> None:
+        """Drop a removed peer's staging slab."""
+        ent = self._slabs.pop(id(channel), None)
+        if ent is not None:
+            self.stats["slab_bytes"] -= len(ent[0])
+
     # -- source side --------------------------------------------------------
 
     def _window(self, nbytes: int) -> int | None:

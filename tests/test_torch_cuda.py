@@ -1125,3 +1125,37 @@ def test_uvm_stream_on_a_card_target_runs_ifunc_vm_once(cuda):
     prog = deserialize_uvm(h.lib.code)
     assert torch.equal(got, uvm_execute(prog, torch.from_numpy(x).to(cuda),
                                         [W], device=cuda))
+
+
+@pytest.mark.cuda
+def test_uvm_chain_on_card_targets_runs_ifunc_vm_per_hop(cuda):
+    """A two-hop ``uvm_affine`` chain through ``repro_torch.flow`` on card
+    contexts (the engine's default device): the first hop's result, a
+    tensor on the card, is the second hop's payload, so the chain
+    launches ``ifunc_vm`` twice and returns relu(relu(x @ W_a) @ W_agg)
+    within rtol 1e-4, atol 1e-5 of ``ifunc_vm_plain`` stage by stage."""
+    from repro_torch.flow import Flow, FlowEngine
+    from repro_torch.transport import RdmaFabric
+
+    eng = FlowEngine(Context("host"), default_timeout=60.0)
+    rng = np.random.default_rng(26)
+    Ws = {}
+    for name in ("dpu_a", "agg"):
+        node = eng.add_node(name, RdmaFabric(), slot_size=256 << 10)
+        assert torch.device(node.ctx.device).type == "cuda"
+        Ws[name] = torch.from_numpy((rng.standard_normal((T, T)) * 0.05)
+                                    .astype(np.float32)).to(cuda)
+        node.target_args["externals"] = {"W": Ws[name]}
+    flow = Flow("affine").stage("uvm_affine", at="dpu_a") \
+        .then("uvm_affine", at="agg")
+    x = rng.standard_normal((2, T, T)).astype(np.float32)
+    before = ifunc_vm.launches
+    got = eng.submit(flow, x).result(60)
+    assert ifunc_vm.launches == before + 2
+    assert isinstance(got, np.ndarray) and got.shape == (2, T, T)
+    prog = deserialize_uvm(eng.ctx.handles["uvm_affine"].lib.code)
+    hop1 = ifunc_vm_plain(prog, torch.from_numpy(x).to(cuda),
+                          Ws["dpu_a"][None])
+    want = ifunc_vm_plain(prog, hop1, Ws["agg"][None]).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    assert eng.pending() == 0 and eng.stats["completed"] == 1

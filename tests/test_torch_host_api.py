@@ -139,6 +139,43 @@ def test_continuation_frame_on_flowless_target(sides):
     assert "flow-less" in port.dst.stats["last_reject"]
 
 
+class _Hook:
+    """A recording flow hook (what ``ctx.flow`` holds on a flow node): it
+    notes each continuation it is handed and runs the linked fn, or, with
+    ``fail``, raises ``FrameError`` as an ill-formed descriptor does."""
+
+    def __init__(self, frame_mod, fail=False):
+        self.F, self.fail, self.seen = frame_mod, fail, []
+
+    def on_flow_frame(self, ctx, hdr, fn, payload, cont, target_args):
+        self.seen.append((hdr.name, bytes(payload), bytes(cont)))
+        if self.fail:
+            raise self.F.FrameError("ill-formed continuation descriptor")
+        fn(payload, len(payload), target_args)
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_continuation_frame_on_a_hooked_target(sides, fail):
+    """With a hook installed the continuation frame goes to
+    ``on_flow_frame`` (which owns execution: ``executed`` stays 0); a
+    ``FrameError`` out of the hook REJECTS the frame and scrubs the slot,
+    in both packages alike."""
+    ref, port = sides()
+    ref.dst.flow, port.dst.flow = _Hook(RF, fail), _Hook(PF, fail)
+    cont = bytes(range(24))
+    rt, pt = {}, {}
+    _agree(ref, port, "REJECTED" if fail else "OK", rt, pt,
+           (ref.msg("counter_bump", b"x", cont=cont).frame,
+            port.msg("counter_bump", b"x", cont=cont).frame))
+    assert port.dst.flow.seen == ref.dst.flow.seen == [
+        ("counter_bump", b"x", cont)]
+    assert port.dst.stats["executed"] == 0
+    if fail:
+        assert "ill-formed" in port.dst.stats["last_reject"]
+    else:
+        assert pt["count"] == 1
+
+
 def test_oversize_frame(sides):
     ref, port = sides(target_policy={"max_frame_len": 512})
     _agree(ref, port, "REJECTED", {}, {},
@@ -191,7 +228,7 @@ def _agg_subs(F, digests, bad_digests):
     """A mixed container: cached fire-and-forget and corr-carrying records,
     records of two uncached digests (NACKed, two groups), a record whose
     name the policy refuses, corr-carrying records that raise and a
-    continuation record (REJECTED: the target is flow-less)."""
+    continuation record (REJECTED on a flow-less target)."""
     cb, rle = digests
     P = F.CodeKind.PYBC
     return [F.AggSub("counter_bump", P, cb, 0, b"a"),
@@ -238,6 +275,43 @@ def test_host_agg_container_mixed(sides):
     assert port.dst.stats["last_nack"] == ("counter_bump", bad[0])
     assert port.dst.stats["agg_errors"] == 2
     assert pt["count"] == 5
+
+
+def test_host_agg_container_mixed_on_a_hooked_target(sides):
+    """``test_host_agg_container_mixed``'s container on a target with a
+    flow hook: the continuation record goes to ``on_flow_frame`` (its
+    name, payload and descriptor) instead of being rejected; every other
+    record's outcome is unchanged, in both packages alike."""
+    ref, port = sides()
+    rt, pt = {"db": []}, {"db": []}
+    for name, payload in (("counter_bump", b"x"), ("rle_insert", b"qq")):
+        _agree(ref, port, "OK", rt, pt, _both(ref, port, name, payload))
+    del rt["db"], pt["db"]
+    ref.dst.flow, port.dst.flow = _Hook(RF), _Hook(PF)
+    handles = (port.handle("counter_bump").digest,
+               port.handle("rle_insert").digest)
+    bad = (b"\xee" * 16, b"\x01" * 16)
+    frames = []
+    for F in (RF, PF):
+        buf = bytearray(4096)
+        n = F.seal_agg_frame(buf, _agg_subs(F, handles, bad))
+        frames.append(buf[:n])
+    _agree(ref, port, "OK", rt, pt, frames)
+
+    def outcome(results):
+        return [(r.status.name, r.name, r.digest, r.corr_id, r.value,
+                 None if r.error is None else type(r.error).__name__)
+                for r in results]
+    got = outcome(port.dst.last_agg_results)
+    assert got == outcome(ref.dst.last_agg_results)
+    assert [g[0] for g in got] == ["OK"] * 2 + ["NACK_UNCACHED", "OK",
+                                                "REJECTED", "OK",
+                                                "NACK_UNCACHED"] + ["OK"] * 3
+    assert got[9][5] is None
+    assert port.dst.flow.seen == ref.dst.flow.seen == [
+        ("counter_bump", b"h", bytes(8))]
+    assert port.dst.stats["agg_errors"] == 2
+    assert pt["count"] == 6
 
 
 # ---------------------------------------------------------------- HLO

@@ -6,7 +6,8 @@ streaming-aware ``stream_sink`` and ``host_aggregate`` included) loads
 neither jax nor the JAX package; nor
 does driving the Dispatcher's host lanes from ``repro_torch.obs`` and
 ``repro_torch.transport`` alone, nor a task future from
-``repro_torch.tasks`` alone.  The check runs in a
+``repro_torch.tasks`` alone, nor a flow chain from ``repro_torch.flow``
+alone.  The check runs in a
 subprocess because this test process has jax loaded already
 (``tests/conftest.py``)."""
 
@@ -57,7 +58,9 @@ print("STACK", all(m in mods for m in (
     "repro_torch.obs.trace", "repro_torch.obs.recorder",
     "repro_torch.tasks.runtime", "repro_torch.tasks.future",
     "repro_torch.tasks.wire", "repro_torch.tasks.placement",
-    "repro_torch.tasks.graph", "repro_torch.transport.codec")))
+    "repro_torch.tasks.graph", "repro_torch.transport.codec",
+    "repro_torch.flow.descriptor", "repro_torch.flow.node",
+    "repro_torch.flow.engine")))
 print("FORBIDDEN", bad)
 """
 
@@ -141,6 +144,49 @@ def test_tasks_import_alone():
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "FORBIDDEN [] 9 True" in r.stdout, r.stdout
+
+
+_PROBE_FLOW = r"""
+import struct, sys
+import numpy as np
+import repro_torch.flow
+from repro_torch.core import Context, register_ifunc
+from repro_torch.flow import Flow, FlowEngine
+from repro_torch.transport import LoopbackFabric, RdmaFabric
+verbs = {n: register_ifunc(Context("probe"), n) for n in (
+    "csd_decompress", "dpu_filter", "flow_reduce", "flow_xform")}
+eng = FlowEngine(Context("host", device="cpu"), default_timeout=20.0)
+eng.add_node("csd", LoopbackFabric())
+eng.add_node("dpu", RdmaFabric())
+eng.add_node("agg", RdmaFabric())
+blob = struct.pack("<I", 1) + struct.pack("<II", 90, 3)
+out = eng.submit(Flow("etl").stage("csd_decompress", at="csd")
+                 .then("dpu_filter", at="dpu",
+                       bind={"mode": "kw", "key": "data",
+                             "static": {"threshold": 50}})
+                 .then("host_aggregate", at="agg"), blob).result()
+assert out == {"count": 3, "sum": 270, "min": 90, "max": 90}, out
+assert eng.submit(Flow("x").stage("flow_xform", at="csd"),
+                  b"abc").result() == b"cba"
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro") or m.startswith(
+                 ("jax.", "jaxlib.", "repro.")))
+print("FORBIDDEN", bad, sorted(verbs))
+"""
+
+
+def test_flow_imports_alone():
+    """``repro_torch.flow`` on its own, with the port's four flow verbs
+    (``csd_decompress``, ``dpu_filter``, ``flow_reduce``, ``flow_xform``):
+    a three-stage chain and a one-stage chain resolve at ``device="cpu"``
+    and neither jax nor the JAX package is loaded."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env.pop("REPRO_TORCH_IFUNC_LIB_DIR", None)
+    r = subprocess.run([sys.executable, "-c", _PROBE_FLOW], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "FORBIDDEN [] ['csd_decompress', 'dpu_filter', 'flow_reduce', " \
+        "'flow_xform']" in r.stdout, r.stdout
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?![\w])",
