@@ -255,7 +255,35 @@ Phases, each of which fails the script (non-zero exit, no result line):
     loopback alternating) through ``FlowEngine`` and ``TaskRuntime``: the
     chain under the round-trips at both stage counts.
 
-The phases run in the order 1-9, 18-23, 10-11, 14-17, 12-13: every
+24. the runtime (``repro_torch.runtime``): (a) the port's
+    ``examples/train_driver.py`` at phase 17's full width (SmolLM-360M,
+    bf16, AdamW with f32 state, 4 x 2,048 tokens in 2 microbatches, the
+    same seeded weights): 12 steps with a ``WorkerAgent`` polled between
+    them and a ``PodController`` (both on card contexts) injecting
+    ``ctl_set_lr`` (0.5) after step 6 and ``ctl_checkpoint`` after steps
+    6 and 12, saved asynchronously by ``CheckpointManager(keep=1)`` under
+    ``build/`` (the disk's free space checked first, the directory
+    removed after); each step's flash launches equal phase 17's,
+    ``lr_scale`` 0.5, only step 12 kept, its restore (sha256 verified)
+    from a meta template equal to the live state bit for bit, and one
+    more step from the restored and from the live state equal bit for bit
+    (loss and every leaf); logged: the state's bytes by ``param_specs``,
+    each save's host copy, write and GB/s, the restore and verify times,
+    the step times alone and beside a write, and the SMs' idle share over
+    the traced loop.  (b) ``examples/graph_analysis.py --kill-peer``
+    (``graph_workload(kill=True)``): an ``ElasticController`` riding
+    ``Dispatcher.pollers`` heartbeats the host peers under a 0.2 s
+    deadline; ``rdma_b`` dies with a relax in flight once its cache is
+    warm, the deadline inside ``poll`` fires the recovery, a round later
+    it is re-admitted with the warm manifest; ELASTIC_OK, ``dist`` against
+    Bellman-Ford, the device futures exact, ``ring_sweep`` once a device
+    sweep and nothing else; the time from the kill to the recovery.  (c)
+    ``fig_elastic`` at ``bench_ifunc.py``'s settings on card contexts:
+    recovery within [0.8, 3.0] of the 20, 50 and 100 ms deadlines (best of
+    3) and ``hb_overhead`` over 1,024 messages at most 0.02
+    (``check_bench.py``'s bounds).
+
+The phases run in the order 1-9, 18-24, 10-11, 14-17, 12-13: every
 profiler session of the timings and the traced step comes before the
 serving phase's long traces, after which the profiler recorded no device
 time in a run on the H100.  A trace that comes back without the records of the
@@ -275,13 +303,17 @@ runs inside, ``host_launches`` its launches on the host target of phase
 μVM stream, one a striped frame), ``flow_launches`` phase 23's (two a μVM
 chain); ``ring_poll`` and ``agg_ring_poll``
 count phase 20's device sweeps too, and ``ring_poll`` and ``ifunc_vm``
-phase 21's.
+phase 21's and phase 24 (b)'s (``elastic_launches``, also in
+``launches``); the three flash entries' ``driver_launches`` are their
+launches in phase 24 (a)'s 12 steps.
 """
 
 import contextlib
 import json
+import math
 import pathlib
 import re
+import shutil
 import statistics
 import struct
 import subprocess
@@ -329,6 +361,12 @@ GRAPH_HOSTS = (("rdma_a", "rdma"), ("rdma_b", "rdma"), ("csd", "loopback"))
 GRAPH_OWNERS = {0: "rdma_a", 1: "rdma_b", 2: "csd", 3: "csd"}
 GRAPH_SLOTS, GRAPH_SLOT, GRAPH_DEV_SLOT = 8, 64 << 10, 128 << 10
 GRAPH_CONGEST, GRAPH_BURST, GRAPH_RUNS, GRAPH_MAX_ROUNDS = 2, 6, 3, 64
+# ``--kill-peer``: shard 1's owner dies mid-run under a 0.2 s deadline
+GRAPH_KILL, GRAPH_DEADLINE = "rdma_b", 0.2
+# phase 24: the train driver's steps and checkpoint interval (steps 6 and
+# 12 checkpointed, keep=1); fig_elastic's deadlines (bench_ifunc.py's)
+DRIVER_STEPS, DRIVER_CKPT = 12, 6
+FIG_ELASTIC_DEADLINES = (20, 50, 100)
 TOL_GRAPH = dict(rtol=1e-5, atol=1e-5)        # the example's, vs Bellman-Ford
 # benchmarks/bench_ifunc.py::bench_graph_placement ("fig_graph"): CSR
 # shards of constant out-degree 16, a 16-vertex frontier, seed 3, 60
@@ -1329,9 +1367,9 @@ def phase_breakdown(np, torch, d, h, rates):
     log_card_busy(prof, wall, "card per generation")
 
 
-def log_card_busy(prof, wall, what, kernels=()):
+def log_card_busy(prof, wall, what, kernels=(), wall_is="untraced"):
     """Log the card's busy time in a torch.profiler trace of one
-    generation against the untraced ``wall`` seconds of one, and the time
+    generation against the ``wall_is`` ``wall`` seconds of one, and the time
     and launches of each kernel whose name holds one of ``kernels``;
     returns the SMs' idle share, None when the trace holds no device time.
     Device-side records only: the CPU-side op that launched a copy or a
@@ -1357,7 +1395,7 @@ def log_card_busy(prof, wall, what, kernels=()):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     idle = 1 - kern_s / wall
     log(f"{what} (torch.profiler, {len(events)} device records): kernels "
-        f"{kern_s:.4f} s, so the SMs sit idle {idle:.4f} of the untraced "
+        f"{kern_s:.4f} s, so the SMs sit idle {idle:.4f} of the {wall_is} "
         f"{wall:.4f} s; copies {copy_s:.4f} s ({len(copies)}); most kernel "
         f"time: " + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
     for kernel in kernels:
@@ -3188,9 +3226,8 @@ def bellman_ford(np, edges):
 
 
 def graph_workload(np, torch, dev, *, shards=SHARDS, dev_slots=SLOTS_FULL,
-                   lib_dir=None):
-    """The port's ``examples/graph_analysis.py`` without ``--kill-peer``:
-    single-source shortest paths from ``GRAPH_SRC`` by relax rounds over
+                   lib_dir=None, kill=False):
+    """The port's ``examples/graph_analysis.py``: single-source shortest paths from ``GRAPH_SRC`` by relax rounds over
     the example's 4 CSR shards on ``rdma_a``, ``rdma_b`` (``RdmaFabric``)
     and ``csd`` (``LoopbackFabric``), shard 3 replicated at the source.
     Each round sends the frontier indicator tile to each of the ``shards``
@@ -3204,17 +3241,32 @@ def graph_workload(np, torch, dev, *, shards=SHARDS, dev_slots=SLOTS_FULL,
     ``graph_fetch`` then a local relax, or a local relax on a replica) and
     the updates are min-merged.  ``shards=0`` runs it with no device peer.
     The PYBC verbs load from ``lib_dir`` (the port's library by default).
-    Every launch is counted over the rounds, the counts zeroed just
-    before them.  Returns a dict of what the run showed."""
+
+    ``kill=True`` is the example's ``--kill-peer``: an
+    ``ElasticController`` (riding ``Dispatcher.pollers``) heartbeats the
+    host peers under a ``GRAPH_DEADLINE`` deadline with a
+    ``FaultInjector``; once ``GRAPH_KILL``'s cache is warm and it holds a
+    relax of the round, one more relax goes to it and it dies; after
+    the deadline one ``progress`` fires the recovery inside the poll
+    (failed relaxes re-run locally, shards reassigned and reseeded by an
+    ``on_death`` callback); a round later it is re-admitted with the warm
+    manifest and takes shard 1 back; after the rounds a relax to it
+    carries the re-admission generation.  Every launch is counted over
+    the rounds, the counts zeroed just before them.  Returns a dict of
+    what the run showed."""
     from repro_torch.core import Context, register_ifunc
+    from repro_torch.core import frame as FR
     from repro_torch.core.codegen import deserialize_uvm
+    from repro_torch.runtime import ElasticController, FleetState
     from repro_torch.tasks import (DataDirectory, Decision, LOCAL_SITE,
                                    PlacementEngine, TaskRuntime)
+    from repro_torch.tasks.future import TaskTimeout
     from repro_torch.tasks.graph import (decode_updates, local_relax,
                                          pack_csr_shard)
     from repro_torch.transport import (DeviceMeshFabric, Dispatcher,
-                                       LoopbackFabric, ProgressEngine,
-                                       RdmaFabric)
+                                       FaultInjector, LoopbackFabric,
+                                       ProgressEngine, RdmaFabric,
+                                       TransportError)
 
     V, span = GRAPH_V, GRAPH_V // GRAPH_SHARDS
     edges = graph_edges(np)
@@ -3236,12 +3288,12 @@ def graph_workload(np, torch, dev, *, shards=SHARDS, dev_slots=SLOTS_FULL,
     degree_h = register_ifunc(source, "graph_degree")
     bump_h = register_ifunc(source, "counter_bump", lib_dir)
     hosts = [name for name, _ in GRAPH_HOSTS]
-    stores = {}
+    stores, fabrics, ctxs = {}, {}, {}
     for name, kind in GRAPH_HOSTS:
         stores[name] = {"shards": {}}
-        fabric = RdmaFabric() if kind == "rdma" else LoopbackFabric()
-        rt.add_peer(name, fabric, Context(name, link_mode="remote",
-                                          device=dev),
+        fabrics[name] = RdmaFabric() if kind == "rdma" else LoopbackFabric()
+        ctxs[name] = Context(name, link_mode="remote", device=dev)
+        rt.add_peer(name, fabrics[name], ctxs[name],
                     n_slots=GRAPH_SLOTS, slot_size=GRAPH_SLOT,
                     target_args=stores[name])
     A_dev = np.zeros((shards, 1, T, T), np.float32)
@@ -3260,6 +3312,30 @@ def graph_workload(np, torch, dev, *, shards=SHARDS, dev_slots=SLOTS_FULL,
     directory.add_replica(3, LOCAL_SITE)
     local_shards = {3: shard_bytes[3]}
     engine = PlacementEngine(directory, d, steal_depth=3)
+    el = None
+    if kill:
+        # hb_beat ifuncs on a control ring per host peer, stepped from
+        # inside every Dispatcher.poll: the rounds never call the
+        # controller directly
+        fleet = FleetState(hosts, heartbeat_deadline=GRAPH_DEADLINE)
+        injector = FaultInjector()
+        ec = ElasticController(rt, fleet, placement=engine,
+                               injector=injector, lib_dir=lib_dir)
+        for name in hosts:
+            ec.watch(name, fabrics[name], ctxs[name])
+        el = {"ec": ec, "killed": None, "readmitted": None, "recovered": 0,
+              "recovered_at": []}
+
+        def reseed_shards(dead):
+            # ownership already moved (deterministic round-robin); the
+            # source re-ships its canonical shard bytes to each new owner
+            for sid in directory.shards:
+                owner = directory.owner(sid)
+                if owner in stores and sid not in stores[owner]["shards"]:
+                    stores[owner]["shards"][sid] = shard_bytes[sid]
+        ec.on_death.append(reseed_shards)
+        ec.on_death.append(
+            lambda dead: el["recovered_at"].append(time.perf_counter()))
 
     if shards:
         lane = d.peers["gpu"].rings[0]
@@ -3277,6 +3353,27 @@ def graph_workload(np, torch, dev, *, shards=SHARDS, dev_slots=SLOTS_FULL,
         t0 = time.perf_counter()
         while frontier and rounds < GRAPH_MAX_ROUNDS:
             rounds += 1
+            if kill and el["killed"] and not el["readmitted"]:
+                # a round after the death the restarted peer rejoins with
+                # a fresh context, a generation fence and the one-frame
+                # warm manifest, and takes shard 1 back
+                fabrics[GRAPH_KILL] = RdmaFabric()
+                ctxs[GRAPH_KILL] = Context(GRAPH_KILL, link_mode="remote",
+                                           device=dev)
+                stores[GRAPH_KILL] = {"shards": {}}
+                re_peer = ec.readmit(GRAPH_KILL, fabrics[GRAPH_KILL],
+                                     ctxs[GRAPH_KILL],
+                                     target_args=stores[GRAPH_KILL],
+                                     n_slots=GRAPH_SLOTS,
+                                     slot_size=GRAPH_SLOT)
+                el["fence_gen"] = re_peer.fence
+                check(re_peer.fence == fleet.generation > 0,
+                      f"re-admission fence {re_peer.fence}, fleet "
+                      f"generation {fleet.generation}")
+                directory.move(1, GRAPH_KILL)
+                stores[GRAPH_KILL]["shards"][1] = shard_bytes[1]
+                el["readmitted"] = rounds
+                el["manifest"] = list(ec.members[GRAPH_KILL].manifest)
             # 1) device tier: frontier-expansion counts of each column shard
             f_ind = np.zeros(V, np.float32)
             for v in frontier:
@@ -3320,19 +3417,59 @@ def graph_workload(np, torch, dev, *, shards=SHARDS, dev_slots=SLOTS_FULL,
                 placed.append((p.decision.value, sid, p.peer, dict(p.costs),
                                p.stolen))
                 if p.decision is Decision.MIGRATE:
-                    futs.append(rt.submit(p.peer, relax_h,
-                                          {"sid": sid, "frontier": fr}))
+                    futs.append((sid, rt.submit(p.peer, relax_h,
+                                                {"sid": sid, "frontier": fr})))
                     continue
                 if p.decision is Decision.FETCH:
                     shipped = rt.submit(p.peer, fetch_h, {"sid": sid})
                     local_shards[sid] = bytes(shipped.result())
                     directory.add_replica(sid, LOCAL_SITE)
-                futs.append(rt.run_local(local_relax, local_shards[sid], fr))
+                futs.append((sid, rt.run_local(local_relax, local_shards[sid],
+                                               fr)))
             placements.append(placed)
+            # 3.5) the failure: once the victim's cache is warm and it holds
+            #      a relax of this round, it dies with one more in flight;
+            #      the deadline inside the poll detects it, not this loop
+            if (kill and not el["killed"] and d.peers[GRAPH_KILL].cached
+                    and any(getattr(f, "peer", None) == GRAPH_KILL
+                            for _, f in futs)):
+                doomed_sid = next(s for s in sorted(directory.shards)
+                                  if directory.owner(s) == GRAPH_KILL)
+                doomed = rt.submit(GRAPH_KILL, relax_h,
+                                   {"sid": doomed_sid,
+                                    "frontier": by_shard[doomed_sid]})
+                futs.append((doomed_sid, doomed))
+                injector.kill_peer(GRAPH_KILL)
+                t_kill = time.perf_counter()
+                rt.flush()
+                time.sleep(fleet.deadline + 0.05)
+                rt.progress()       # poll crank: the deadline fires here
+                el["killed"] = rounds
+                el["kill_to_recovery_s"] = el["recovered_at"][0] - t_kill \
+                    if el["recovered_at"] else None
+                check(GRAPH_KILL not in d.peers
+                      and fleet.alive() == sorted(set(hosts) - {GRAPH_KILL})
+                      and directory.owner(doomed_sid) != GRAPH_KILL
+                      and doomed.done(),
+                      f"{GRAPH_KILL} killed at round {rounds}: still a peer "
+                      f"{GRAPH_KILL in d.peers}, alive {fleet.alive()}, "
+                      f"s{doomed_sid} at {directory.owner(doomed_sid)}, "
+                      f"doomed relax done {doomed.done()}")
+                el["doomed"] = (doomed_sid, directory.owner(doomed_sid),
+                                fleet.generation)
             # 4) min-merge the updates into the next frontier
             new_frontier = {}
-            for fut in futs:
-                upd = fut.result()
+            for sid, fut in futs:
+                try:
+                    upd = fut.result()
+                except (TransportError, TaskTimeout):
+                    if not kill:
+                        raise
+                    # the relax died with its peer: re-run it from the
+                    # source's canonical shard bytes (a min-merge, so a
+                    # duplicate is idempotent)
+                    el["recovered"] += 1
+                    upd = local_relax(shard_bytes[sid], by_shard[sid])
                 if isinstance(upd, (bytes, bytearray)):
                     upd = decode_updates(upd)
                 for v, dv in upd.items():
@@ -3345,6 +3482,18 @@ def graph_workload(np, torch, dev, *, shards=SHARDS, dev_slots=SLOTS_FULL,
         sync(torch, dev)
     wall = time.perf_counter() - t0
     counts = read_counts()
+    if kill and el["readmitted"]:
+        re_peer = d.peers[GRAPH_KILL]
+        el.update(stats=dict(ec.stats), fence=re_peer.fence,
+                  rounds_stats=dict(re_peer.stats),
+                  generation=fleet.generation, alive=fleet.alive(),
+                  injector=dict(injector.stats))
+        post = rt.submit(GRAPH_KILL, relax_h, {"sid": 1, "frontier": []})
+        el["post_gen"] = FR.corr_gen(post.corr_id)  # the new epoch
+        rt.flush()
+        rt.drain()
+        el["post_updates"] = decode_updates(post.result())
+        el["peer_stats"] = dict(re_peer.stats)
     return {"rt": rt, "engine": engine, "directory": directory,
             "edges": edges, "shard_bytes": shard_bytes, "A_dev": A_dev,
             "dist": dist, "rounds": rounds, "wall": wall,
@@ -3353,19 +3502,25 @@ def graph_workload(np, torch, dev, *, shards=SHARDS, dev_slots=SLOTS_FULL,
             "engine_stats": dict(engine.stats),
             "peer_stats": d.per_peer_stats(), "degrees": degrees,
             "hot": hot_log, "orphan_replies": rt.stats["orphan_replies"],
-            "pending": rt.pending(), "counts": counts, "sweeps": sweeps}
+            "pending": rt.pending(), "counts": counts, "sweeps": sweeps,
+            "elastic": el}
 
 
 def graph_gates(np, res):
-    """The example's checks (``examples/graph_analysis.py:331-351``) on a
+    """The example's checks (``examples/graph_analysis.py:331-386``) on a
     ``graph_workload`` run: ``dist`` finite and within TOL_GRAPH of
-    Bellman-Ford; migrate, fetch and local each decided; the round-2
-    congestion moved a shard; no orphan reply and nothing pending; and
-    each round's device futures, one on each shard, holding
-    ``f_ind @ A_dev[d, 0]`` exactly in every row (counts of 0/1
-    products, at most 128: exact in f32).  Prints GRAPH_OK, or fails with
-    every failure named."""
+    Bellman-Ford; no orphan reply and nothing pending; each round's
+    device futures, one on each shard, holding ``f_ind @ A_dev[d, 0]``
+    exactly in every row (counts of 0/1 products, at most 128: exact in
+    f32).  Without a kill: migrate, fetch and local each decided and the
+    round-2 congestion moved a shard (GRAPH_OK).  With one: one death and
+    one re-admission, at least one future failed by the recovery and
+    re-run locally, beats folded, the re-admitted peer fenced at its
+    generation with no NACK and serving replies, and a relax after the
+    rounds carrying that generation with no update (ELASTIC_OK).  Fails
+    with every failure named."""
     failures = []
+    el = res.get("elastic")
     dist, ref = res["dist"], bellman_ford(np, res["edges"])
     if not np.isfinite(dist).all():
         failures.append(f"graph not fully relaxed: "
@@ -3373,11 +3528,14 @@ def graph_gates(np, res):
     elif not np.allclose(dist, ref, **TOL_GRAPH):
         failures.append(f"dist off Bellman-Ford by "
                         f"{float(np.abs(dist - ref).max()):.3g}")
-    if not all(res["decisions"].values()):
+    if el is None and not all(res["decisions"].values()):
         failures.append(f"placement mix degenerate: {res['decisions']}")
-    if not res["moves"] or res["congestion"][0] != GRAPH_CONGEST:
+    if el is None and (not res["moves"]
+                       or res["congestion"][0] != GRAPH_CONGEST):
         failures.append(f"congestion never triggered an ownership "
                         f"rebalance: {res['congestion']}")
+    if el is not None:
+        failures += elastic_failures(el)
     if res["orphan_replies"] or res["pending"]:
         failures.append(f"{res['orphan_replies']} orphan replies, "
                         f"{res['pending']} futures pending")
@@ -3392,8 +3550,41 @@ def graph_gates(np, res):
                 failures.append(f"round {r + 1} shard {s}: degree counts "
                                 f"off f_ind @ A by "
                                 f"{float(np.abs(counts - want).max()):.3g}")
-    check(not failures, "GRAPH_FAILED: " + "; ".join(failures))
-    log("GRAPH_OK")
+    word = "GRAPH" if el is None else "ELASTIC"
+    check(not failures, f"{word}_FAILED: " + "; ".join(failures))
+    log(f"{word}_OK")
+
+
+def elastic_failures(el):
+    """``--kill-peer``'s checks (``examples/graph_analysis.py:365-386``)."""
+    if not (el["killed"] and el["readmitted"]):
+        return [f"killed at round {el['killed']}, re-admitted at round "
+                f"{el['readmitted']}"]
+    st, ps, out = el["stats"], el["peer_stats"], []
+    if st["deaths"] != 1 or st["readmissions"] != 1:
+        out.append(f"deaths {st['deaths']}, readmissions "
+                   f"{st['readmissions']}, want 1 and 1")
+    if st["futures_failed"] < 1 or el["recovered"] < 1:
+        out.append(f"{st['futures_failed']} futures failed, "
+                   f"{el['recovered']} relaxes re-run, want >= 1 each")
+    if st["beats_folded"] <= 0:
+        out.append("no heartbeat folded")
+    if el["fence"] != el["fence_gen"]:
+        out.append(f"fence {el['fence']} != re-admission generation "
+                   f"{el['fence_gen']}")
+    # the example asserts replies >= 1 before its post-readmit relax
+    # (``graph_analysis.py:374``); the placement keeps shard 1 local after
+    # the re-admission, in the reference as here, so the gate is on the
+    # relax it posts next: SLIM on the restored cache, no NACK, a reply
+    if el["rounds_stats"]["nacks"] or ps["nacks"] or ps["replies"] < 1 \
+            or ps["slim_sent"] < 1:
+        out.append(f"re-admitted peer: {ps['nacks']} NACKs (warm manifest "
+                   f"wants 0), {ps['replies']} replies, {ps['slim_sent']} "
+                   f"SLIM frames")
+    if el["post_gen"] != el["fence_gen"] or el["post_updates"] != {}:
+        out.append(f"post-readmit relax: corr generation {el['post_gen']} "
+                   f"(want {el['fence_gen']}), updates {el['post_updates']}")
+    return out
 
 
 def fig_graph(np, torch, dev, *, sizes=FIG_EDGES, iters=FIG_ITERS,
@@ -4677,6 +4868,393 @@ def phase_flow(np, torch, dev, smi):
     return {"launches": launches}
 
 
+# ------------------------------------------------------------ the runtime
+
+
+def state_bytes(cfg):
+    """The bf16 train state's bytes, from ``param_specs``: the parameters
+    in bf16, AdamW's two moments in f32, and the int32 ``count`` and
+    ``step`` scalars the checkpoint writes."""
+    from repro_torch.models.transformer import param_specs
+
+    n = sum(math.prod(shape) for shape, _ in param_specs(cfg).values())
+    return {"params": 2 * n, "moments": 2 * 4 * n, "total": 10 * n + 8}
+
+
+def bit_equal(torch, a, b):
+    """Two leaves equal bit for bit (tensors by their bit patterns)."""
+    if isinstance(a, int) or isinstance(b, int):
+        return type(a) is type(b) and a == b
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    iv = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.view(iv), b.view(iv))
+
+
+def state_leaves(state, path=()):
+    if isinstance(state, dict):
+        for k in sorted(state):
+            yield from state_leaves(state[k], path + (k,))
+    else:
+        yield "/".join(map(str, path)), state
+
+
+def meta_like(torch, state):
+    """A restore template of ``state``: tensor leaves on the meta device."""
+    if isinstance(state, dict):
+        return {k: meta_like(torch, v) for k, v in state.items()}
+    if isinstance(state, torch.Tensor):
+        return torch.empty(state.shape, dtype=state.dtype, device="meta")
+    return state
+
+
+def train_driver(np, torch, dev, smi, ckpt_dir, *, cfg=None,
+                 shape=(TRAIN_B, TRAIN_S, TRAIN_MB)):
+    """Phase 24 (a): the port's ``examples/train_driver.py`` at the full
+    width of SmolLM-360M (phase 17's model, optimizer, batch and seeded
+    weights): ``DRIVER_STEPS`` bf16 train steps, a ``WorkerAgent`` polled
+    between them and a ``PodController`` injecting ``ctl_set_lr`` (0.5)
+    after step ``DRIVER_CKPT`` and ``ctl_checkpoint`` after steps
+    ``DRIVER_CKPT`` and ``DRIVER_STEPS``, the agent's hook saving
+    asynchronously into ``CheckpointManager(ckpt_dir, keep=1)``.  The loop
+    is traced by torch.profiler (device activity only).  Gates: the
+    launches of each step equal phase 17's; ``lr_scale`` 0.5; only the
+    last checkpoint kept; the last restored (sha256 verified) from a meta
+    template equal to the live state bit for bit; one more step from the
+    restored state and from the live one equal bit for bit (loss and
+    every leaf).  ``cfg`` and ``shape`` (batch, sequence, microbatches)
+    shrink it for a CPU run.  Returns the flash launches of the loop."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import Context
+    from repro_torch.data import Loader, TokenDataset
+    from repro_torch.models import transformer as MT
+    from repro_torch.runtime import (CheckpointManager, PodController,
+                                     WorkerAgent)
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import make_train_step
+
+    if cfg is None:
+        cfg = model_config("smollm_360m", {"attn_impl": "flash"},
+                           remat="block")
+    B, S, mb = shape
+    opt = OptConfig(lr=1e-3, schedule="constant", warmup_steps=1,
+                    state_dtype="float32")
+    step = make_train_step(cfg, opt, microbatches=mb)
+    params = MT.init_params(cfg, torch.Generator(device=dev).manual_seed(400),
+                            dev)
+    live = {"state": {"params": params, "opt": step.init_opt(params),
+                      "step": 0}}
+    del params
+    nb = state_bytes(cfg)
+    free = shutil.disk_usage(ckpt_dir).free
+    need = 2 * nb["total"] + (1 << 30)       # step 6 beside step 12's .tmp
+    log(f"train driver state: {nb['total'] / 1e9:.3f} GB ({nb['params'] / 1e9:.3f} "
+        f"GB of bf16 parameters, {nb['moments'] / 1e9:.3f} GB of f32 moments); "
+        f"disk free under {ckpt_dir}: {free / 1e9:.1f} GB (need {need / 1e9:.1f})")
+    check(free >= need, f"checkpoint disk short by {(need - free) / 1e9:.2f} "
+                        f"GB: {free / 1e9:.2f} GB free under {ckpt_dir}, the "
+                        f"driver needs {need / 1e9:.2f}")
+    cm = CheckpointManager(ckpt_dir, keep=1)
+    saves = []
+
+    def checkpoint(s):
+        t0 = time.perf_counter()
+        cm.save(int(s), live["state"], blocking=False)
+        saves.append((int(s), time.perf_counter() - t0))
+
+    agent = WorkerAgent("w0", Context("w0", device=dev))
+    agent.hooks["lr_scale"] = 1.0
+    agent.hooks["checkpoint"] = checkpoint
+    ctl = PodController(Context("ctl", device=dev))
+    ctl.attach(agent)
+    loader = Loader(TokenDataset(cfg.vocab_size, seed=7), shard_id=0,
+                    n_shards=1, batch_per_shard=B, seq_len=S)
+    per_step = train_launches_per_step(cfg, mb)
+    try:
+        times, overlapped, losses = [], [], []
+        sync(torch, dev)
+        reset_counts()
+        card = dev.type == "cuda"
+        with (profile(activities=[ProfilerActivity.CUDA]) if card
+              else contextlib.nullcontext()) as prof:
+            t_loop = time.perf_counter()
+            for i in range(DRIVER_STEPS):
+                _, b = next(loader)
+                batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                writing = cm._thread is not None and cm._thread.is_alive()
+                before = read_counts()
+                t0 = time.perf_counter()
+                live["state"], m = step(live["state"], batch)
+                sync(torch, dev)
+                times.append(time.perf_counter() - t0)
+                overlapped.append(writing or (cm._thread is not None
+                                              and cm._thread.is_alive()))
+                now = read_counts()
+                delta = {k: now[k] - before[k] for k in now}
+                want = {k: per_step.get(k, 0) for k in now}
+                check(delta == want, f"driver step {i + 1} launches {delta}, "
+                                     f"want {want}")
+                losses.append(float(m["loss"]))
+                check(np.isfinite(losses[-1]), f"driver loss {losses[-1]}")
+                if i + 1 == DRIVER_CKPT:      # mid-run LR hot-update
+                    ctl.inject("ctl_set_lr", struct.pack("<d", 0.5))
+                if (i + 1) % DRIVER_CKPT == 0:
+                    ctl.inject("ctl_checkpoint",
+                               int(m["step"]).to_bytes(8, "little"))
+                agent.poll()
+            t_wait = time.perf_counter()
+            cm.wait()
+            wait_s = time.perf_counter() - t_wait
+            loop_s = time.perf_counter() - t_loop
+        launches = read_counts()
+        check(agent.hooks["lr_scale"] == 0.5,
+              f"lr_scale {agent.hooks['lr_scale']} after ctl_set_lr")
+        check([s for s, _ in saves] == [DRIVER_CKPT, DRIVER_STEPS]
+              and cm.steps() == [DRIVER_STEPS],
+              f"checkpoints triggered {saves}, kept {cm.steps()}: want "
+              f"[{DRIVER_STEPS}] kept of {DRIVER_CKPT} and {DRIVER_STEPS}")
+        check(all(h["bytes"] == nb["total"] for h in cm.history),
+              f"checkpoint bytes {[h['bytes'] for h in cm.history]}, "
+              f"param_specs counts {nb['total']}")
+        for h in cm.history:
+            log(f"checkpoint step {h['step']} on {smi}: {h['bytes'] / 1e9:.3f} "
+                f"GB, host copy {h['host_s']:.4f} s (inside save), write "
+                f"{h['write_s']:.4f} s = {h['bytes'] / h['write_s'] / 1e9:.3f} "
+                f"GB/s (files, sha256, rename, retention) on the writer thread")
+        calm = [t for t, o in zip(times, overlapped) if not o]
+        busy = [t for t, o in zip(times, overlapped) if o]
+        log(f"train driver on {smi}: {DRIVER_STEPS} steps of "
+            + ", ".join(f"{t:.4f}{'*' if o else ''}"
+                        for t, o in zip(times, overlapped))
+            + f" s (* overlapped an async write); median "
+            f"{statistics.median(times):.4f} s, "
+            + (f"{statistics.median(calm):.4f} s alone" if calm else "")
+            + (f", {statistics.median(busy):.4f} s beside a write ("
+               f"{len(busy)} steps)" if busy else "")
+            + f"; last wait {wait_s:.4f} s; loop {loop_s:.4f} s; losses "
+            + ", ".join(f"{x:.4f}" for x in losses)
+            + f"; lr_scale {agent.hooks['lr_scale']}; acks "
+            f"{agent.hooks['acks']}; launches {launches}")
+        if card:
+            log_card_busy(prof, loop_s, f"train driver loop on {smi} "
+                          f"(traced, device activity only, the checkpoints' "
+                          f"copies included)",
+                          ("flash_fwd_wgmma_kernel",
+                           "flash_bwd_dq_wgmma_kernel",
+                           "flash_bwd_dkv_wgmma_kernel"), wall_is="traced")
+
+        like = meta_like(torch, live["state"])
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        back = cm.restore(like, step=DRIVER_STEPS, device=dev)
+        sync(torch, dev)
+        restore_s = time.perf_counter() - t0
+        del back
+        t0 = time.perf_counter()
+        back = cm.restore(like, step=DRIVER_STEPS, device=dev, verify=True)
+        sync(torch, dev)
+        verified_s = time.perf_counter() - t0
+        lv, bk = dict(state_leaves(live["state"])), dict(state_leaves(back))
+        check(list(lv) == list(bk), f"restored leaves {sorted(bk)}")
+        bad = [k for k in lv if not bit_equal(torch, lv[k], bk[k])]
+        check(not bad, f"restored state differs from the live one in {bad}")
+        log(f"restore of step {DRIVER_STEPS} on {smi} from a meta template: "
+            f"{restore_s:.4f} s, with sha256 verify {verified_s:.4f} s "
+            f"(verify {verified_s - restore_s:.4f} s); {len(lv)} leaves "
+            f"equal to the live state bit for bit")
+
+        _, b = next(loader)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        resumed, mr = step(back, batch)
+        del back
+        cont, mc = step(live["state"], batch)
+        sync(torch, dev)
+        rv, cv = dict(state_leaves(resumed)), dict(state_leaves(cont))
+        bad = [k for k in cv if not bit_equal(torch, cv[k], rv[k])]
+        check(float(mr["loss"]) == float(mc["loss"]) and not bad,
+              f"resume != continue: loss {float(mr['loss'])} vs "
+              f"{float(mc['loss'])}, leaves differing {bad}")
+        log(f"resume equals continue: one step from the restored state and "
+            f"from the live one, loss {float(mc['loss']):.6f} both, "
+            f"{len(cv)} leaves equal bit for bit")
+    finally:
+        loader.close()
+        cm.wait()
+    del live, resumed, cont
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in per_step}
+
+
+def elastic_graph(np, torch, dev, smi):
+    """Phase 24 (b): ``graph_workload(kill=True)``, the port's
+    ``examples/graph_analysis.py --kill-peer``, under ``no_plain``: the
+    ELASTIC_OK gates, ``dist`` against Bellman-Ford, the device futures
+    exact, ``ring_sweep`` once a device sweep and nothing else launched.
+    Returns the device sweeps."""
+    with no_plain():
+        res = graph_workload(np, torch, dev, kill=True)
+    graph_gates(np, res)
+    counts, sweeps, el = res["counts"], res["sweeps"], res["elastic"]
+    check(sweeps and set(sweeps) == {1}
+          and counts["ring_sweep"] == len(sweeps) and all(
+              v == 0 for k, v in counts.items() if k != "ring_sweep"),
+          f"elastic graph: launches {counts} in {len(sweeps)} device sweeps, "
+          f"want ring_sweep once a sweep and nothing else")
+    st = el["stats"]
+    log(f"elastic graph on {smi}: {res['rounds']} rounds in "
+        f"{res['wall']:.4f} s; {GRAPH_KILL} killed at round {el['killed']} "
+        f"with s{el['doomed'][0]} in flight, recovered "
+        f"{el['kill_to_recovery_s']:.4f} s after the kill (deadline "
+        f"{GRAPH_DEADLINE} s: {el['kill_to_recovery_s'] / GRAPH_DEADLINE:.3f}x"
+        f"), s{el['doomed'][0]} -> {el['doomed'][1]}, generation "
+        f"{el['doomed'][2]}; re-admitted at round {el['readmitted']} with "
+        f"{len(el['manifest'])} manifest entries, fence "
+        f"{el['fence']}; {el['recovered']} relaxes re-run locally; "
+        f"controller {st}; post-readmit relax corr generation "
+        f"{el['post_gen']}, {el['peer_stats']['slim_sent']} SLIM, "
+        f"{el['peer_stats']['nacks']} NACKs; {len(sweeps)} device sweeps, "
+        f"launches {counts}")
+    return len(sweeps)
+
+
+def fig_elastic(torch, dev, *, deadlines_ms=FIG_ELASTIC_DEADLINES,
+                repeats=3, n_msgs=1024):
+    """``bench_ifunc.py``'s ``fig_elastic`` on the port, every context on
+    ``dev``: recovery time against the heartbeat deadline (a two-peer
+    fleet, ``pa`` killed with a ``task_sum`` in flight, timed from the
+    kill to its retirement by the poll loop, best of ``repeats``) and
+    ``hb_overhead`` (``n_msgs`` warm tasks under a 0.5 s deadline:
+    nominal beats/s over task messages/s).  Returns the bench's rows."""
+    import gc
+
+    from repro_torch.core import Context, register_ifunc
+    from repro_torch.runtime import ElasticController, FleetState
+    from repro_torch.tasks import TaskRuntime
+    from repro_torch.transport import (FaultInjector, LoopbackFabric,
+                                       ProgressEngine, RdmaFabric,
+                                       TransportError)
+
+    names = ("pa", "pb")
+
+    def mk(deadline_s):
+        src = Context("src", device=dev)
+        rt = TaskRuntime(src, engine=ProgressEngine(
+            flush_threshold=64, inflight_window="trailer"),
+            default_timeout=30.0)
+        fabs, ctxs = {}, {}
+        for i, name in enumerate(names):
+            fabs[name] = RdmaFabric() if i % 2 == 0 else LoopbackFabric()
+            ctxs[name] = Context(name, link_mode="remote", device=dev)
+            rt.add_peer(name, fabs[name], ctxs[name], n_slots=8,
+                        slot_size=16 << 10, target_args={})
+        fleet = FleetState(list(names), heartbeat_deadline=deadline_s)
+        inj = FaultInjector()
+        ec = ElasticController(rt, fleet, injector=inj)   # rides progress()
+        for name in names:
+            ec.watch(name, fabs[name], ctxs[name])
+        return rt, ec, inj, register_ifunc(src, "task_sum")
+
+    def settle(rt, fut):
+        rt.flush()
+        while not fut.done():
+            rt.progress()
+
+    def run_recover(deadline_s):
+        rt, ec, inj, h = mk(deadline_s)
+        f = rt.submit("pa", h, b"\x01" * 8)   # warm rings, fold a beat
+        settle(rt, f)
+        f.result()
+        rt.progress()                          # freshest last heartbeat
+        inj.kill_peer("pa")
+        doomed = rt.submit("pa", h, b"\x02" * 8)
+        rt.flush()
+        t0 = time.perf_counter()
+        while "pa" in rt.dispatcher.peers:     # the poll loop detects it
+            rt.progress()
+        dt = time.perf_counter() - t0
+        check(doomed.done() and ec.stats["deaths"] == 1 and rt.generation > 0,
+              f"fig_elastic recover: doomed done {doomed.done()}, controller "
+              f"{ec.stats}, generation {rt.generation}")
+        try:
+            doomed.result()
+        except TransportError:
+            pass
+        else:
+            raise SmokeError("fig_elastic: the future on the dead peer "
+                             "resolved")
+        return dt
+
+    def run_overhead(deadline_s=0.5):
+        rt, _ec, _inj, h = mk(deadline_s)
+        payload = b"\x05" * 64
+        for name in names:                     # warm the SLIM cache
+            settle(rt, rt.submit(name, h, payload))
+        t0 = time.perf_counter()
+        i = 0
+        while i < n_msgs:
+            burst = [rt.submit(names[i % len(names)], h, payload)
+                     for _ in range(min(8, n_msgs - i))]
+            i += len(burst)
+            rt.flush()
+            while not all(f.done() for f in burst):
+                rt.progress()
+        msgs_per_s = n_msgs / (time.perf_counter() - t0)
+        beats_per_s = len(names) * 3.0 / deadline_s   # interval deadline/3
+        return msgs_per_s, beats_per_s / msgs_per_s
+
+    rows = []
+    run_recover(deadlines_ms[0] / 1e3)         # warm (link cache, slabs)
+    gc.collect()
+    gc.disable()
+    try:
+        for dms in deadlines_ms:
+            dt = min(run_recover(dms / 1e3) for _ in range(repeats))
+            rows.append({"cell": f"recover/{dms}ms", "us": dt * 1e6,
+                         "ratio": dt / (dms / 1e3)})
+        msgs_per_s, ratio = run_overhead()
+        rows.append({"cell": "hb_overhead", "us": 1e6 / msgs_per_s,
+                     "msgs_per_s": msgs_per_s, "ratio": ratio})
+    finally:
+        gc.enable()
+    return rows
+
+
+def phase_runtime(np, torch, dev, smi):
+    """Phase 24: the runtime on the card.  (a) ``train_driver`` at full
+    width, its checkpoints under ``build/``, removed after; (b)
+    ``elastic_graph``; (c) ``fig_elastic`` gated by ``check_bench.py``'s
+    bounds: recovery within [0.8, 3.0] of each deadline, ``hb_overhead``
+    at most 0.02.  Returns the driver's flash launches and the elastic
+    run's device sweeps."""
+    t_phase = time.perf_counter()
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    try:
+        driver = train_driver(np, torch, dev, smi, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    sweeps = elastic_graph(np, torch, dev, smi)
+    rows = fig_elastic(torch, dev)
+    for r in rows:
+        if r["cell"] == "hb_overhead":
+            log(f"fig_elastic hb_overhead on {smi}: {r['msgs_per_s']:.1f} "
+                f"task msgs/s, nominal beats / msgs {r['ratio']:.5f} "
+                f"(bound 0.02)")
+            check(r["ratio"] <= 0.02, f"heartbeat overhead {r['ratio']:.4f} "
+                                      f"over the 2% budget")
+        else:
+            log(f"fig_elastic {r['cell']} on {smi}: recover "
+                f"{r['us']:.1f} µs = {r['ratio']:.3f}x the deadline (bound "
+                f"[0.8, 3.0])")
+            check(0.8 <= r["ratio"] <= 3.0,
+                  f"fig_elastic {r['cell']}: recovery {r['ratio']:.3f}x the "
+                  f"deadline, outside [0.8, 3.0]")
+    log(f"phase 24 took {time.perf_counter() - t_phase:.1f} s")
+    return {"driver": driver, "sweeps": sweeps}
+
+
 # ------------------------------------------------------------ model stack
 
 
@@ -5314,6 +5892,15 @@ def phase_train_parity(np, torch, dev):
     torch.cuda.empty_cache()
 
 
+def train_launches_per_step(cfg, mb=TRAIN_MB):
+    """The flash launches of one bf16 train step in ``mb`` microbatches
+    with block remat: each layer's forward twice (the recomputation), each
+    backward kernel once, per microbatch."""
+    n = cfg.num_layers
+    return {"flash_fwd": n * 2 * mb, "flash_bwd_dq": n * mb,
+            "flash_bwd_dkv": n * mb}
+
+
 def phase_training(np, torch, dev):
     """SmolLM-360M bf16 training at full width through the flash kernels —
     the training path; returns {kernel: launches in the 8 timed steps}."""
@@ -5334,9 +5921,7 @@ def phase_training(np, torch, dev):
     del params
     loader = Loader(TokenDataset(cfg.vocab_size, seed=7), shard_id=0,
                     n_shards=1, batch_per_shard=TRAIN_B, seq_len=TRAIN_S)
-    n = cfg.num_layers
-    per_step = {"flash_fwd": n * 2 * TRAIN_MB, "flash_bwd_dq": n * TRAIN_MB,
-                "flash_bwd_dkv": n * TRAIN_MB}
+    per_step = train_launches_per_step(cfg)
 
     def batch_on_card():
         _, b = next(loader)
@@ -5458,6 +6043,11 @@ def main():
     vm["stream_launches"] = sm["launches"]
     fl = phase_flow(np, torch, dev, smi)
     vm["flow_launches"] = fl["launches"]
+    ru = phase_runtime(np, torch, dev, smi)
+    vm["elastic_launches"] = ru["sweeps"]     # graph_degree in the sweeps
+    kernels[0]["elastic_launches"] = ru["sweeps"]
+    vm["launches"] += ru["sweeps"]
+    kernels[0]["launches"] += ru["sweeps"]
     model_errs = phase_model_kernels(np, torch, dev)
     bwd_errs = phase_bwd_kernels(np, torch, dev)
     # timed, and a train step traced, before the serving phase's long
@@ -5474,6 +6064,9 @@ def main():
     for entry in model_entries:
         entry["launches"] = launches[entry["name"]]
     kernels += model_entries + bwd_entries
+    for entry in kernels:
+        if entry["name"] in ru["driver"]:
+            entry["driver_launches"] = ru["driver"][entry["name"]]
     check(all(e["launches"] > 0 for e in kernels),
           f"kernels not launched on their paths: "
           f"{[e['name'] for e in kernels if not e['launches']]}")

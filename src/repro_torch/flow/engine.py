@@ -38,9 +38,8 @@ over a ``device="cpu"`` origin stays on the CPU and one over the default
 runs each μVM stage as one ``ifunc_vm`` launch on the card, its result a
 tensor there that the next hop's payload codec reads.
 
-Elastic recovery (``on_peer_death``) is the reference's; until the
-dispatcher's peer removal is ported it stops at ``remove_peer``'s
-``TransportError`` (ROADMAP.md Queue 1 item 5).
+Elastic recovery (``on_peer_death``, driven by
+``repro_torch.runtime.ElasticController``) is the reference's.
 """
 
 from __future__ import annotations

@@ -1,0 +1,233 @@
+"""Sharded, fault-tolerant checkpointing of a state of torch tensors.
+
+Design points for 1000-node fleets:
+
+* **per-leaf files + manifest**: every leaf is one ``.npy`` under
+  ``step_N/``, with a JSON manifest holding shape/dtype/sha256 — a partial
+  or torn write can never masquerade as a complete checkpoint because the
+  manifest is written *last* (atomic rename).
+* **async save**: the host copy happens inside ``save``; serialization
+  runs on a background thread while the train loop keeps stepping
+  (``save(..., blocking=False)``).
+* **restore**: ``restore`` rebuilds a state shaped like a template whose
+  leaves may live on any device (``meta`` included); leaves absent from
+  the checkpoint fall back to an initializer callback (new parameters).
+* **retention**: keep the newest ``keep`` complete checkpoints.
+
+The files are those of the JAX package's ``CheckpointManager``, byte for
+byte, so either package restores the other's checkpoints:
+
+* leaves are taken in the order jax flattens a pytree (dict keys sorted,
+  lists and tuples by index) and keyed by their path joined with ``/``;
+* each ``.npy`` holds the leaf's raw bytes as a 1-D uint8 array; a bf16
+  tensor writes its 16-bit patterns under dtype ``"bfloat16"`` (what an
+  ``ml_dtypes`` array writes), and a Python ``int`` leaf (the port's step
+  counters) writes as the reference's ``jnp.int32`` scalars do: shape
+  ``[]``, dtype ``"int32"``.
+
+A failed background write raises out of the next ``wait`` (or ``save``).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import pathlib
+import shutil
+import threading
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _leaves(tree, path=()):
+    """(path, leaf) pairs in jax's flattening order; None is an empty
+    subtree, as in jax."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def _key(path) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def _rebuild(tree, values, path=()):
+    """``tree``'s structure with each leaf replaced by ``values[path]``."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, values, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, values, path + (i,))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return values[path]
+
+
+def _host(leaf) -> tuple[np.ndarray, str]:
+    """One leaf copied to the host as a contiguous array of its bytes, and
+    the dtype string the manifest records."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().to("cpu", memory_format=torch.contiguous_format,
+                             copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy(), "bfloat16"
+        a = t.numpy()
+        return a, str(a.dtype)
+    if isinstance(leaf, int) and not isinstance(leaf, bool):
+        a = np.asarray(leaf, np.int32)
+    else:
+        a = np.array(leaf)
+    return a, str(a.dtype)
+
+
+def _flatten(state) -> dict[str, tuple[np.ndarray, str]]:
+    return {_key(path): _host(leaf) for path, leaf in _leaves(state)}
+
+
+def _tensor(raw: np.ndarray, dtype: str, shape) -> torch.Tensor:
+    """A leaf's bytes (``raw``, uint8) as a CPU tensor of its type."""
+    if dtype == "bfloat16":
+        t = torch.from_numpy(raw.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(raw.view(np.dtype(dtype)))
+    return t.reshape(shape)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str | pathlib.Path, keep: int = 3):
+        self.dir = pathlib.Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        self._error: Exception | None = None
+        #: one entry per finished write: step, bytes, host_s (the copy
+        #: inside ``save``), write_s (files, hashes, rename, retention)
+        self.history: list[dict] = []
+
+    # ------------------------------------------------------------------ save
+    def save(self, step: int, state, *, blocking: bool = True) -> None:
+        t0 = time.perf_counter()
+        flat = _flatten(state)  # host copies happen here, before returning
+        host_s = time.perf_counter() - t0
+        if blocking:
+            self._write(step, flat, host_s)
+            return
+        self.wait()
+        self._thread = threading.Thread(target=self._write_bg,
+                                        args=(step, flat, host_s),
+                                        daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+    def _write_bg(self, step: int, flat: dict, host_s: float) -> None:
+        try:
+            self._write(step, flat, host_s)
+        except Exception as e:   # noqa: BLE001 — re-raised by wait()
+            self._error = e
+
+    def _write(self, step: int, flat: dict, host_s: float = 0.0) -> None:
+        t0 = time.perf_counter()
+        tmp = self.dir / f".tmp_step_{step}"
+        final = self.dir / f"step_{step}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        manifest = {}
+        nbytes = 0
+        for key, (arr, dtype) in flat.items():
+            fname = key.replace("/", "__") + ".npy"
+            # raw bytes: exotic dtypes (bfloat16 etc.) don't survive a
+            # plain np.save/np.load round trip without pickling
+            raw = arr.reshape(-1).view(np.uint8)
+            np.save(tmp / fname, raw)
+            manifest[key] = {
+                "file": fname, "shape": list(arr.shape), "dtype": dtype,
+                "sha256": hashlib.sha256(raw).hexdigest(),
+            }
+            nbytes += raw.nbytes
+        (tmp / "manifest.json").write_text(
+            json.dumps({"step": step, "leaves": manifest}))
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)          # manifest-last + atomic rename
+        self._gc()
+        self.history.append({"step": step, "bytes": nbytes, "host_s": host_s,
+                             "write_s": time.perf_counter() - t0})
+
+    def _gc(self) -> None:
+        steps = sorted(self.steps())
+        for s in steps[:-self.keep] if self.keep else []:
+            shutil.rmtree(self.dir / f"step_{s}", ignore_errors=True)
+
+    # --------------------------------------------------------------- restore
+    def steps(self) -> list[int]:
+        out = []
+        for d in self.dir.glob("step_*"):
+            if (d / "manifest.json").exists():
+                out.append(int(d.name.split("_")[1]))
+        return sorted(out)
+
+    def latest_step(self) -> int | None:
+        s = self.steps()
+        return s[-1] if s else None
+
+    def restore(self, like, *, step: int | None = None, device="cuda",
+                init_missing=None, verify: bool = False):
+        """Rebuild a state shaped like ``like``.  A tensor leaf (on any
+        device, ``meta`` included) comes back on ``device`` in its own
+        dtype; an ``int`` leaf comes back as an ``int``.  ``verify``
+        checks each file's sha256.  Missing leaves use
+        ``init_missing(key, leaf)`` or raise ``KeyError``."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        dev = resolve_device(device)
+        d = self.dir / f"step_{step}"
+        manifest = json.loads((d / "manifest.json").read_text())["leaves"]
+
+        values = {}
+        for path, leaf in _leaves(like):
+            key = _key(path)
+            if key in manifest:
+                m = manifest[key]
+                raw = np.load(d / m["file"])
+                if verify:
+                    h = hashlib.sha256(raw).hexdigest()
+                    if h != m["sha256"]:
+                        raise IOError(f"checkpoint corruption in {key}")
+                t = _tensor(raw, m["dtype"], m["shape"])
+                if isinstance(leaf, int) and not isinstance(leaf, bool):
+                    values[path] = int(t)
+                    continue
+                dtype = (leaf.dtype if isinstance(leaf, torch.Tensor)
+                         else t.dtype)
+                values[path] = t.to(dev, dtype)
+            elif init_missing is not None:
+                v = init_missing(key, leaf)
+                if isinstance(v, torch.Tensor):
+                    v = v.to(dev)
+                elif not isinstance(v, int):
+                    a = np.asarray(v)
+                    v = _tensor(np.ascontiguousarray(a).reshape(-1)
+                                .view(np.uint8), str(a.dtype), a.shape).to(dev)
+                values[path] = v
+            else:
+                raise KeyError(
+                    f"leaf {key} missing from checkpoint step {step}")
+        return _rebuild(like, values)

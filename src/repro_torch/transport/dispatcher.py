@@ -96,9 +96,6 @@ per-peer FIFO holds across M rings under one demux.  A striped peer takes
 v2.2 ``FLAG_CONT``) to a host peer's frame, a coalesced record's too
 (``AGG_SUBFLAG_CONT``); a NACK's FULL rebuild keeps it, and a
 continuation frame never streams.
-
-Fault injection, side-band pollers and peer removal raise
-:class:`TransportError` naming the ROADMAP.md item they come with.
 """
 
 from __future__ import annotations
@@ -127,11 +124,6 @@ _PEER_STAT_KEYS = (
     "coalesced", "agg_sent", "agg_subs", "agg_replies", "agg_harvest_lost",
     "nack_lost", "reply_rejects", "streams", "stream_chunks", "timed_out",
     "fenced_orphans", "dropped_puts")
-
-
-def _later(what: str, item: str) -> TransportError:
-    return TransportError(f"{what}: not ported yet (ROADMAP.md Queue 1 "
-                          f"item {item})")
 
 
 @dataclass
@@ -371,6 +363,12 @@ class Dispatcher:
         self._sweep_raise = None   # deferred mid-batch ifunc exception (a
         #       corr-less poisoned slot behind already-swept frames): poll
         #       re-raises it after processing those frames' statuses
+        self.faults = None       # FaultInjector: consulted (when set) at the
+        #       poll loop (down peers stop being swept), the post point
+        #       (k-th-put drops), and the ElasticController's beat pump
+        self.pollers: list = []  # side-band callables invoked at every
+        #       poll() entry — the ElasticController rides here so
+        #       heartbeats pump/sweep on the same cadence as data traffic
         self._coalesce = False
         self._agg_max_subs = 16
         self._agg_max_age = 5e-4
@@ -425,29 +423,6 @@ class Dispatcher:
     def _stream_thr(self) -> int:
         t = self._stream_threshold
         return self._agg_max_sub_bytes if t is None else t
-
-    # -- paths that come with later modules ---------------------------------
-
-    def remove_peer(self, name: str) -> None:
-        raise _later("peer removal", "5")
-
-    @property
-    def faults(self):
-        return None
-
-    @faults.setter
-    def faults(self, injector) -> None:
-        if injector is not None:
-            raise _later("fault injection", "5")
-
-    @property
-    def pollers(self) -> tuple:
-        return ()
-
-    @pollers.setter
-    def pollers(self, callables) -> None:
-        if callables:
-            raise _later("side-band pollers", "5")
 
     # -- topology -----------------------------------------------------------
 
@@ -508,6 +483,36 @@ class Dispatcher:
         peer.reply_mailbox = mailbox
         peer.reply_channel = channel
         peer.reply_tail = 0
+
+    def remove_peer(self, name: str) -> None:
+        """Cleanly retire a peer: release its slab-backed channels, drop
+        queued coalesced sub-records and NACK retransmits, clear stripe
+        rotation and in-flight tracking, and unregister its obs alias (so a
+        re-admitted peer's stats dict reclaims ``peer.<name>`` instead of
+        landing under a uniquified suffix).  Idempotent — recovery paths
+        (controller deadline, explicit teardown, tests) may race to call it.
+        Does NOT resolve in-flight futures; call :meth:`fail_inflight`
+        (scoped via ``peers={name}``) *before* removal if the peer died
+        with work outstanding."""
+        peer = self.peers.pop(name, None)
+        if peer is None:
+            return
+        for r in peer.rings:
+            self.engine.release_slab(r.channel)
+            r.inflight.clear()
+            r.corr_by_coords.clear()
+            r.agg_by_coords.clear()
+        if peer.reply_channel is not None:
+            self.engine.release_slab(peer.reply_channel)
+        peer.resend.clear()
+        for q in peer.coalesce.values():
+            q.subs.clear()
+        peer.coalesce.clear()
+        peer.stripe_tx = peer.stripe_rx = 0
+        self._active_streams = [tx for tx in self._active_streams
+                                if tx.peer is not peer]
+        self.obs.metrics.unregister_dict(f"peer.{name}", peer.stats)
+        self._rr = 0             # lane list shrank: restart the fair cursor
 
     # -- source side --------------------------------------------------------
 
@@ -582,8 +587,20 @@ class Dispatcher:
                     f"put:{rec.name}@{peer.name}", cat="wire",
                     actor=getattr(self.src_ctx, "name", "source"),
                     corr=rec.corr_id or None, bytes=len(view))
-        self.engine.post(lane.channel, view, lane.tail, peer=peer.name,
-                         on_complete=on_complete, future=future)
+        if (self.faults is not None
+                and self.faults.should_drop_put(peer.name)):
+            # injected wire loss: the source's bookkeeping proceeds as if
+            # the put landed (tx record, tail advance, stripe rotation,
+            # stats) but the bytes never reach the target — the frame is
+            # recovered only when the liveness deadline fires
+            # fail_inflight, as a genuinely lost put would be
+            peer.stats["dropped_puts"] += 1
+            if o.enabled:
+                o.recorder.add("drop_put", peer.name,
+                               f"{rec.name if rec else '?'} slot={lane.tail}")
+        else:
+            self.engine.post(lane.channel, view, lane.tail, peer=peer.name,
+                             on_complete=on_complete, future=future)
         if rec is not None:
             if not device:
                 lane.inflight[lane.tail] = rec
@@ -1716,6 +1733,11 @@ class Dispatcher:
         ifunc that raised behind frames this sweep consumed re-raises
         after those frames' statuses are processed.  Returns the messages
         delivered or rejected."""
+        for cb in tuple(self.pollers):
+            # side-band pollers (the ElasticController's heartbeat pump
+            # and sweep) run BEFORE the lane snapshot: one may retire a
+            # dead peer, and the data sweep below must not visit its rings
+            cb()
         if self._coalesce:
             self._age_flush()            # no record waits past max_age
         lanes = self._lanes()
@@ -1736,6 +1758,13 @@ class Dispatcher:
                 peer, lane = lanes[(start + k) % len(lanes)]
                 if budget is not None and done >= budget:
                     break
+                if (self.faults is not None
+                        and self.faults.is_down(
+                            peer.name,
+                            delivered=peer.stats["delivered"])):
+                    continue     # injected death: the peer's progress side
+                    #              is gone — posted frames sit undelivered
+                    #              until the heartbeat deadline recovers them
                 if peer.stripe and lane is not peer.rings[
                         peer.stripe_rx % len(peer.rings)]:
                     continue         # striped peer: consume in the rotation

@@ -1159,3 +1159,46 @@ def test_uvm_chain_on_card_targets_runs_ifunc_vm_per_hop(cuda):
     want = ifunc_vm_plain(prog, hop1, Ws["agg"][None]).cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     assert eng.pending() == 0 and eng.stats["completed"] == 1
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_card_tensors(cuda, tmp_path):
+    """A train-state-shaped dict of bf16 and f32 tensors on the card and
+    int counters saves asynchronously (the host copy taken inside
+    ``save``, so a later in-place update does not reach the files) and
+    restores from a meta template onto the card bit for bit, ints as
+    ints, with sha256 verified."""
+    from repro_torch.runtime import CheckpointManager
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    state = {"params": {"w": torch.randn(64, 32, generator=g, device=cuda)
+                        .to(torch.bfloat16),
+                        "b": torch.randn(32, generator=g, device=cuda)},
+             "opt": {"m": {"w": torch.randn(64, 32, generator=g,
+                                            device=cuda)},
+                     "count": 9},
+             "step": 9}
+    want = {"w": state["params"]["w"].clone(), "b": state["params"]["b"]
+            .clone(), "m": state["opt"]["m"]["w"].clone()}
+    cm = CheckpointManager(tmp_path, keep=1)
+    cm.save(9, state, blocking=False)
+    state["params"]["w"].add_(1)               # after the host copy
+    cm.wait()
+    meta = {"params": {"w": torch.empty(64, 32, dtype=torch.bfloat16,
+                                        device="meta"),
+                       "b": torch.empty(32, device="meta")},
+            "opt": {"m": {"w": torch.empty(64, 32, device="meta")},
+                    "count": 0},
+            "step": 0}
+    back = cm.restore(meta, verify=True)
+    assert back["step"] == 9 and back["opt"]["count"] == 9
+    for got, ref in ((back["params"]["w"], want["w"]),
+                     (back["params"]["b"], want["b"]),
+                     (back["opt"]["m"]["w"], want["m"])):
+        assert got.device.type == "cuda" and got.dtype == ref.dtype
+        assert torch.equal(got.view(torch.int16) if got.dtype ==
+                           torch.bfloat16 else got,
+                           ref.view(torch.int16) if ref.dtype ==
+                           torch.bfloat16 else ref)
+    assert cm.steps() == [9] and cm.history[0]["bytes"] == \
+        64 * 32 * 2 + 32 * 4 + 64 * 32 * 4 + 4 + 4

@@ -19,8 +19,9 @@ reference's ``repro.flow``.
   aggregate container (the ``AGG_SUBFLAG_CONT`` branch of ``_run_agg``);
   the two-hop ``uvm_affine`` chain of ``chip_smoke.py`` phase 23 (d),
   the reference's μVM through that interpreter, results within the
-  host-target μVM tolerance (2e-5); ``on_peer_death`` stopping at the
-  dispatcher's item-5 refusal; and ``examples/storage_pipeline.py`` run
+  host-target μVM tolerance (2e-5); ``on_peer_death`` retiring a node
+  through the dispatchers' ``remove_peer`` and failing a pinned chain;
+  and ``examples/storage_pipeline.py`` run
   whole against ``chip_smoke.storage_pipeline`` at the same seed.
 """
 
@@ -761,14 +762,30 @@ def test_coalesced_scatter_shares_an_aggregate_container(lib_dir):
     held(_coalesced_scatter, lib_dir)
 
 
-def test_on_peer_death_stops_at_the_item5_refusal(lib_dir):
-    """Elastic recovery is the reference's, but the port's dispatcher
-    refuses peer removal until ROADMAP.md Queue 1 item 5."""
-    eng = _mk_engine(PPKG, lib_dir)
-    assert eng.submit(_etl()(PFL), _blob([(70, 2)])).result()["count"] == 2
-    with pytest.raises(PPKG.transport.TransportError,
-                       match=r"peer removal: not ported yet .*item 5"):
-        eng.on_peer_death("dpu")
+def _peer_death_replays(pkg, lib_dir):
+    """A dead node is retired from every dispatcher of the mesh and the
+    chains in flight are replayed or failed: a finished chain is left
+    alone, one in flight through the dead (pinned) stage fails with the
+    reference's TransportError, and the survivors serve again."""
+    eng = _mk_engine(pkg, lib_dir)
+    done = eng.submit(_etl()(pkg.flow), _blob([(70, 2)]))
+    assert done.result()["count"] == 2
+    doomed = eng.submit(_etl()(pkg.flow), _blob([(90, 1)]))
+    assert eng.on_peer_death("dpu") == 0       # pinned: nothing to replay
+    assert "dpu" not in eng.nodes
+    assert all("dpu" not in nd.dispatcher.peers for nd in eng.nodes.values())
+    with pytest.raises(pkg.transport.TransportError,
+                       match="cannot be rebuilt"):
+        doomed.result()
+    after = eng.submit(pkg.flow.Flow("x").stage("flow_xform", at="csd"),
+                       b"abc")
+    assert after.result() == b"cba"
+    assert eng.stats["replay_failed"] == 1 and eng.pending() == 0
+    return eng, [flow_outcome(f) for f in (done, doomed, after)]
+
+
+def test_on_peer_death_replays_past_remove_peer(lib_dir):
+    held(_peer_death_replays, lib_dir)
 
 
 def test_uvm_chain_matches_reference(lib_dir, monkeypatch):

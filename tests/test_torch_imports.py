@@ -7,7 +7,9 @@ neither jax nor the JAX package; nor
 does driving the Dispatcher's host lanes from ``repro_torch.obs`` and
 ``repro_torch.transport`` alone, nor a task future from
 ``repro_torch.tasks`` alone, nor a flow chain from ``repro_torch.flow``
-alone.  The check runs in a
+alone, nor the runtime (``repro_torch.runtime``: a heartbeat death and
+re-admission, a control verb, a checkpoint round trip) alone.  The check
+runs in a
 subprocess because this test process has jax loaded already
 (``tests/conftest.py``)."""
 
@@ -187,6 +189,73 @@ def test_flow_imports_alone():
     assert r.returncode == 0, r.stderr
     assert "FORBIDDEN [] ['csd_decompress', 'dpu_filter', 'flow_reduce', " \
         "'flow_xform']" in r.stdout, r.stdout
+
+
+_PROBE_RUNTIME = r"""
+import struct, sys, tempfile
+import torch
+import repro_torch.runtime as R
+from repro_torch.core import Context, register_ifunc
+from repro_torch.tasks import TaskRuntime
+from repro_torch.transport import FaultInjector, RdmaFabric
+
+rt = TaskRuntime(Context("src", device="cpu"))
+ctxs = {n: Context(n, link_mode="remote", device="cpu") for n in "ab"}
+fabs = {n: RdmaFabric() for n in "ab"}
+for n in "ab":
+    rt.add_peer(n, fabs[n], ctxs[n], n_slots=4, slot_size=16 << 10,
+                target_args={})
+inj = FaultInjector()
+ec = R.ElasticController(rt, R.FleetState(["a", "b"], heartbeat_deadline=0.3),
+                         injector=inj, auto_poll=False)
+for n in "ab":
+    ec.watch(n, fabs[n], ctxs[n], now=0.0)
+h = register_ifunc(rt.ctx, "task_sum")
+f = rt.submit("a", h, b"\x01\x02")
+rt.flush()
+while not f.done():
+    rt.progress()
+inj.kill_peer("a")
+t, dead = 0.0, []
+while not dead:
+    t += 0.1
+    dead = ec.step(now=t)
+peer = ec.readmit("a", RdmaFabric(), Context("a", link_mode="remote",
+                                              device="cpu"),
+                  target_args={}, now=t, n_slots=4, slot_size=16 << 10)
+agent = R.WorkerAgent("w0", Context("w0", device="cpu"))
+ctl = R.PodController(Context("ctl", device="cpu"))
+ctl.attach(agent)
+ctl.inject("ctl_set_lr", struct.pack("<d", 0.5))
+agent.poll()
+with tempfile.TemporaryDirectory() as d:
+    cm = R.CheckpointManager(d)
+    cm.save(3, {"w": torch.ones(2, dtype=torch.bfloat16), "step": 3})
+    back = cm.restore({"w": torch.empty(2, dtype=torch.bfloat16,
+                                        device="meta"), "step": 0},
+                      device="cpu", verify=True)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro") or m.startswith(
+                 ("jax.", "jaxlib.", "repro.")))
+print("RUNTIME", dead, ec.stats["deaths"], ec.stats["readmissions"],
+      peer.fence > 0, agent.hooks["lr_scale"], back["step"],
+      bool(back["w"].eq(1).all()))
+print("FORBIDDEN", bad)
+"""
+
+
+def test_runtime_imports_alone():
+    """``repro_torch.runtime`` on its own, with the port's ``hb_beat`` and
+    ``ctl_set_lr``: a heartbeat death and re-admission, a hot LR update
+    and a bf16 checkpoint round trip at ``device="cpu"``, and neither jax
+    nor the JAX package is loaded."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env.pop("REPRO_TORCH_IFUNC_LIB_DIR", None)
+    r = subprocess.run([sys.executable, "-c", _PROBE_RUNTIME], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "RUNTIME ['a'] 1 1 True 0.5 3 True" in r.stdout, r.stdout
+    assert "FORBIDDEN []" in r.stdout, r.stdout
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?![\w])",

@@ -10,8 +10,8 @@ agree on statuses, ``per_peer_stats()``, the dispatcher's, engine's and
 targets' stats, the target_args, the mailbox and slab bytes and the obs
 counters (``same_run``).  The two device-fabric tests of that file are
 covered by ``tests/test_torch_device_fabric.py``, and
-``test_controller_inject_flushes_despite_refusal`` waits for the runtime
-(ROADMAP.md Queue 1 item 5).
+``test_controller_inject_flushes_despite_refusal`` by
+``tests/test_torch_runtime.py``.
 """
 
 import types
@@ -364,29 +364,3 @@ def _legacy(pkg, lib_dir):
 def test_legacy_api_routes_through_transport(lib_dir):
     ref, port = both(_legacy, lib_dir)
     assert port == ref
-
-
-# ---------------------------------------------------------------------------
-# what the port does not carry yet, and says so
-
-
-def test_refused_paths_name_their_roadmap_item(lib_dir):
-    """Faults, pollers and peer removal (item 5) each raise a
-    TransportError naming their ROADMAP.md item."""
-    T = PT
-    d = mk_dispatcher(PORT, lib_dir, [("p", "rdma")])
-    cases = [
-        ("5", lambda: d.remove_peer("p")),
-        ("5", lambda: setattr(d, "faults", object())),
-        ("5", lambda: setattr(d, "pollers", [lambda: None])),
-    ]
-    for item, call in cases:
-        with pytest.raises(T.TransportError,
-                           match=rf"ROADMAP\.md Queue 1 item {re_item(item)}"):
-            call()
-    assert d.faults is None and d.pollers == ()
-    assert d.peers["p"].stats["sent"] == 0      # nothing was posted
-
-
-def re_item(item: str) -> str:
-    return item.replace("(", r"\(").replace(")", r"\)")
