@@ -283,7 +283,28 @@ Phases, each of which fails the script (non-zero exit, no result line):
     3) and ``hb_overhead`` over 1,024 messages at most 0.02
     (``check_bench.py``'s bounds).
 
-The phases run in the order 1-9, 18-24, 10-11, 14-17, 12-13: every
+25. the disaggregated serving fleet (``repro_torch.serving``),
+    ``examples/serving_fabric.py`` at SmolLM-360M's width (bf16, flash,
+    seeded weights): (a) the single ``Server`` and a 2 prefill + 2 decode
+    ``ServingFabric`` (built by ``streamed_fabric``: 1 MiB KV chunks, 4 in
+    flight), 4 slots and cache 2,048 each, on 8 requests of distinct
+    prompt lengths (1,024 to 64) and budgets 8 / 16 / 32: the fleet's
+    tokens equal the host's token for token, 8 streams landed, no
+    buffered install, a decode batch at unequal positions, ``flash_fwd``
+    launched 32 times a host prefill and a fleet prefill group and nothing
+    else; logged: requests/s and decode tokens/s of both, each slab's
+    bytes, chunks, open-to-landed s and GB/s, each request's enqueue to
+    install, the prefill D2H, rounds, and the SMs' idle share over the
+    fleet again under torch.profiler.  (b) 4 prompts of 512 through one
+    prefill peer as one [4, 512] forward: each row's slab entries and
+    first-token logits within relative L2 1e-2 of its own [1, 512]
+    prefill; tokens equal to the host's logged.  (c) decode peers
+    advertising quant8: every request completes, quant8 negotiated, no
+    buffered install; wire bytes against (a)'s.  (d) ``python -m
+    repro_torch.launch.serve`` on the card in both modes, exit 0 and
+    neither jax nor the JAX package loaded in the child.
+
+The phases run in the order 1-9, 18-25, 10-11, 14-17, 12-13: every
 profiler session of the timings and the traced step comes before the
 serving phase's long traces, after which the profiler recorded no device
 time in a run on the H100.  A trace that comes back without the records of the
@@ -305,12 +326,14 @@ chain); ``ring_poll`` and ``agg_ring_poll``
 count phase 20's device sweeps too, and ``ring_poll`` and ``ifunc_vm``
 phase 21's and phase 24 (b)'s (``elastic_launches``, also in
 ``launches``); the three flash entries' ``driver_launches`` are their
-launches in phase 24 (a)'s 12 steps.
+launches in phase 24 (a)'s 12 steps, and ``flash_fwd``'s
+``fabric_launches`` its launches in phase 25 (a)'s fleet run.
 """
 
 import contextlib
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -454,6 +477,23 @@ TRAIN_PARITY = (2, 1024)
 TOL_TRAIN_LOSS, TOL_TRAIN_GRAD = 1e-5, 1e-3
 TRAIN_B, TRAIN_S, TRAIN_MB = 4, 2048, 2
 TRAIN_WARM, TRAIN_TIMED, TRAIN_FIT = 2, 8, 10
+# the disaggregated serving fleet (phase 25): examples/serving_fabric.py's
+# 2 prefill + 2 decode peers at SmolLM-360M's published width (bf16, flash,
+# seeded weights); 8 prompts of distinct lengths, so every prefill group is
+# one sequence, the host's [1, S] (384 is not a multiple of the flash
+# block of 256, so 240 stands in), budgets 8 / 16 / 32 in turn; 4 slots and
+# cache 2,048 on the host and on each decode peer; KV slabs (80 KiB a
+# token) streamed in 1 MiB chunks, 4 in flight; (b) 4 prompts of 512, one
+# [4, 512] forward, 8 tokens each
+FLEET_PROMPTS = (1024, 768, 512, 256, 240, 200, 128, 64)
+FLEET_NEW = (8, 16, 32)
+FLEET_SLOTS, FLEET_CACHE = 4, 2048
+FLEET_CHUNK, FLEET_WINDOW = 1 << 20, 4
+FLEET_GROUP = (4, 512, 8)
+# (b): each row of the [4, 512] bf16 prefill against its own [1, 512]
+# prefill, every slab entry and the first-token logits by relative L2, at
+# the port's bound for two bf16 forwards of one function (TOL_SDPA_BWD)
+TOL_FLEET_GROUP = TOL_SDPA_BWD
 
 FIXED_PROGRAMS = {
     "affine_relu": (
@@ -5255,6 +5295,453 @@ def phase_runtime(np, torch, dev, smi):
     return {"driver": driver, "sweeps": sweeps}
 
 
+# ------------------------------------------------- the disaggregated fleet
+
+
+def streamed_fabric(torch, dev):
+    """The port's ``ServingFabric`` with its prefill peers' KV streams sized
+    for SmolLM-360M's slabs: ``chunk_bytes`` chunks, ``window`` in
+    flight, in ring slots that hold the window and the frame's prefix.
+    The reference's defaults (8 KiB chunks in 48 KiB slots) would take
+    about 10,000 chunks for one 1,024-token slab.  Only ``__init__``
+    differs from the port's class.  Every decode peer's arrivals and
+    every prefill peer's stream opens are stamped (``stamps``)."""
+    from repro_torch.core import Context, register_ifunc
+    from repro_torch.core import frame as F
+    from repro_torch.obs import Obs
+    from repro_torch.serving import (DecodeWorker, PrefillWorker, Router,
+                                     ServingFabric, kv)
+
+    class StreamedFabric(ServingFabric):
+        def __init__(self, cfg, params, *, n_prefill=2, n_decode=2,
+                     batch_slots=8, cache_len=64,
+                     decode_codecs=("rle", "raw"), prefill_max_batch=8,
+                     obs=None, device="cuda", chunk_bytes=FLEET_CHUNK,
+                     window=FLEET_WINDOW):
+            self.cfg, self.params = cfg, params
+            self.obs = obs if obs is not None else Obs("serving")
+            self.router = Router(cfg, obs=self.obs)
+            self.decode_workers = [
+                DecodeWorker(f"decode{i}", cfg, params, batch_slots,
+                             cache_len, codecs=decode_codecs, obs=self.obs,
+                             device=device)
+                for i in range(n_decode)]
+            self.stamps = {"open": {}, "landed": {}, "installed": {},
+                           "bytes": {}, "progress_s": 0.0}
+            for dw in self.decode_workers:
+                dw.connect_router(self.router.ctx, self.router.inbox)
+                stamp_decode(self.stamps, dw)
+            code = register_ifunc(Context("probe", device=device),
+                                  "kv_install").lib.code
+            self.slot_size = (F.HEADER_LEN + len(code) + F.TRAILER_LEN
+                              + F.stream_payload_len(
+                                  window, chunk_bytes + F.CHUNK_OVERHEAD))
+            self.chunk_bytes = chunk_bytes
+            self.prefill_workers = [
+                PrefillWorker(
+                    f"prefill{i}", cfg, params,
+                    {dw.name: (dw.ctx, dw.kv_ingress())
+                     for dw in self.decode_workers},
+                    obs=self.obs, max_batch=prefill_max_batch,
+                    slot_size=self.slot_size, chunk_bytes=chunk_bytes,
+                    window=window, device=device)
+                for i in range(n_prefill)]
+            self.router.attach(self.prefill_workers, self.decode_workers)
+            for pw in self.prefill_workers:
+                stamp_prefill(self.stamps, pw, kv)
+
+    return StreamedFabric
+
+
+def stamp_decode(stamps, dw):
+    """Stamp each slab's landing (its last chunk's ``kv_install`` appends
+    the slot to the shared arrivals list) and each install, by rid."""
+
+    class Stamped(list):
+        def append(self, slot):
+            rid = struct.unpack_from("<I", dw.slabs[slot], 4)[0]
+            stamps["landed"][rid] = time.perf_counter()
+            super().append(slot)
+
+    dw.arrivals = Stamped()
+    dw.ingress["kv_arrivals"] = dw.arrivals
+    install = dw.batcher.install
+
+    def timed_install(slot, cache1, pos0, first, req):
+        install(slot, cache1, pos0, first, req)
+        stamps["installed"][req.rid] = time.perf_counter()
+
+    dw.batcher.install = timed_install
+
+
+def stamp_prefill(stamps, pw, kv):
+    """Stamp each KV stream's open (``kv_install`` submitted) by rid, with
+    its slab's bytes, and sum the host s of the peer's progress calls
+    (where the chunks move)."""
+    submit, progress = pw.rt.submit, pw.rt.progress
+
+    def stamped(peer, handle, args, *a, **k):
+        if handle.name == "kv_install":
+            rid = kv.peek_kv(args)[0]
+            stamps["open"][rid] = time.perf_counter()
+            stamps["bytes"][rid] = len(args)
+        return submit(peer, handle, args, *a, **k)
+
+    def timed_progress():
+        t0 = time.perf_counter()
+        out = progress()
+        stamps["progress_s"] += time.perf_counter() - t0
+        return out
+
+    pw.rt.submit = stamped
+    pw.rt.progress = timed_progress
+
+
+def fleet_requests(np, cfg, prompts, news, seed):
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    news[i % len(news)]) for i, n in enumerate(prompts)]
+
+
+def host_serve(torch, dev, cfg, params, reqs, slots, cache):
+    """The single host: admit in order while slots are free, tick until
+    all are done (the example's loop).  Returns ({rid: tokens}, wall s,
+    ticks)."""
+    from repro_torch.serving import Server
+
+    srv = Server(cfg, params, slots, cache, device=dev)
+    out, pending, ticks = {}, list(reqs), 0
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    while pending or srv.active:
+        while pending and srv.admit(pending[0]):
+            pending.pop(0)
+        _, fin = srv.tick()
+        ticks += 1
+        for r in fin:
+            out[r.rid] = list(r.out)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    del srv
+    return out, wall, ticks
+
+
+def fleet_serve(torch, dev, cfg, params, reqs, slots, cache, *,
+                n_prefill=2, codecs=("rle", "raw"), chunk=FLEET_CHUNK,
+                prof=None):
+    """One run of the 2+2 fleet (``n_prefill`` prefill peers): returns the
+    fabric (dropped by the caller), {rid: tokens}, wall s, rounds and
+    whether a decode batch ran live slots at unequal positions (the
+    example's ``watch``)."""
+    fab = streamed_fabric(torch, dev)(
+        cfg, params, n_prefill=n_prefill, n_decode=2, batch_slots=slots,
+        cache_len=cache, decode_codecs=codecs, device=dev, chunk_bytes=chunk)
+    seen = {"mixed": False, "rounds": 0}
+
+    def watch(f):
+        seen["rounds"] += 1
+        for dw in f.decode_workers:
+            live = [int(dw.batcher.pos[s]) for s in dw.batcher.active]
+            if len(live) >= 2 and len(set(live)) >= 2:
+                seen["mixed"] = True
+
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    fab.t0 = t0
+    with (prof if prof is not None else contextlib.nullcontext()):
+        done = fab.run(reqs, tick_cb=watch)
+        fab.drain()
+        sync(torch, dev)
+    wall = time.perf_counter() - t0
+    out = {rid: list(r.out) for rid, r in done.items()}
+    return fab, out, wall, seen["rounds"], seen["mixed"]
+
+
+def first_divergence(got, want):
+    for rid in sorted(want):
+        g, w = got.get(rid, []), want[rid]
+        for step, (a, b) in enumerate(zip(g, w)):
+            if a != b:
+                return f"rid {rid} step {step}: {a} against the host's {b}"
+        if len(g) != len(w):
+            return f"rid {rid}: {len(g)} tokens against the host's {len(w)}"
+    return None
+
+
+def wire_bytes(fab):
+    return sum(p.stats["bytes"] for pw in fab.prefill_workers
+               for p in pw.rt.dispatcher.peers.values())
+
+
+def agree(got, want):
+    n = sum(a == b for rid in want for a, b in zip(got[rid], want[rid]))
+    return n, sum(len(w) for w in want.values())
+
+
+def slab_of(fab, rid):
+    """The decode-side landing slab that holds ``rid``'s KV cache."""
+    from repro_torch.serving import kv
+
+    for dw in fab.decode_workers:
+        for slab in dw.slabs.values():
+            if any(slab[:4]) and kv.peek_kv(slab)[0] == rid:
+                return kv.unpack_kv(slab)
+    raise SmokeError(f"no landed slab holds rid {rid}")
+
+
+def fleet_streams_log(fab, reqs, smi, what):
+    """Log each slab's bytes, chunks, open-to-landed s and GB/s, and each
+    request's enqueue-to-install s; check the chunks against the decode
+    peers' counts."""
+    st = fab.stamps
+    chunks = {rid: -(-n // fab.chunk_bytes) for rid, n in st["bytes"].items()}
+    landed = sum(dw.ctx.stats.get("stream_chunks", 0)
+                 for dw in fab.decode_workers)
+    check(sum(chunks.values()) == landed,
+          f"{what}: the slabs need {sum(chunks.values())} chunks of "
+          f"{fab.chunk_bytes} B, the decode peers took {landed}")
+    for r in reqs:
+        rid = r.rid
+        s = st["landed"][rid] - st["open"][rid]
+        log(f"  {what} rid {rid} prompt {len(r.prompt)}: slab "
+            f"{st['bytes'][rid]} B ({st['bytes'][rid] / 2**20:.2f} MiB) in "
+            f"{chunks[rid]} chunks, open to landed {s:.4f} s = "
+            f"{st['bytes'][rid] / s / 1e9:.3f} GB/s; enqueue to install "
+            f"{st['installed'][rid] - fab.t0:.4f} s")
+    total = sum(st["bytes"].values())
+    d2h = sum(pw.d2h_s for pw in fab.prefill_workers)
+    prog = st["progress_s"]
+    log(f"{what} on {smi}: {len(reqs)} slabs {total} B in {landed} chunks of "
+        f"{fab.chunk_bytes} B (window {FLEET_WINDOW}, slots of "
+        f"{fab.slot_size} B); the prefill peers' progress calls, where the "
+        f"chunks move, {prog:.4f} s = {total / max(prog, 1e-9) / 1e9:.3f} "
+        f"GB/s; prefill D2H {d2h:.4f} s = "
+        f"{total / max(d2h, 1e-9) / 1e9:.3f} GB/s over the slabs' bytes")
+
+
+def fleet_group(np, torch, dev, cfg, params, smi):
+    """Phase 25 (b): 4 prompts of one length through a fleet of one
+    prefill and two decode peers, so one forward is [4, S]: each row's
+    slab entries and first-token logits against a [1, S] prefill of the
+    same prompt (relative L2 within TOL_FLEET_GROUP); decoded tokens
+    against the host's, logged."""
+    from repro_torch.train import serve as SRV
+
+    n, S, new = FLEET_GROUP
+    reqs = lambda: fleet_requests(np, cfg, (S,) * n, (new,), 252)  # noqa: E731
+    want, _, _ = host_serve(torch, dev, cfg, params, reqs(), FLEET_SLOTS,
+                            FLEET_CACHE)
+    groups = []
+    fab = streamed_fabric(torch, dev)(
+        cfg, params, n_prefill=1, n_decode=2, batch_slots=FLEET_SLOTS,
+        cache_len=FLEET_CACHE, device=dev)
+    pw = fab.prefill_workers[0]
+    inner = pw._prefill
+
+    def captured(p, inputs):
+        cache, last = inner(p, inputs)
+        groups.append((tuple(inputs["tokens"].shape),
+                       last[:, -1].float().cpu().numpy()))
+        return cache, last
+
+    pw._prefill = captured
+    rq = reqs()
+    done = fab.run(rq)
+    fab.drain()
+    got = {rid: list(r.out) for rid, r in done.items()}
+    check([g[0] for g in groups] == [(n, S)],
+          f"(b): prefill groups {[g[0] for g in groups]}, want one ({n}, {S})")
+    prefill = SRV.jit_prefill_step(cfg)
+    worst, worst_abs, firsts = 0.0, 0.0, 0
+    for row, r in enumerate(rq):
+        cache1, last = prefill(params, {"tokens": torch.from_numpy(
+            r.prompt[None]).to(dev)})
+        ref_logits = last[0, -1].float().cpu().numpy()
+        pairs = [("logits", groups[0][1][row], ref_logits)]
+        slab = slab_of(fab, r.rid)
+        check(slab["first_token"] == int(np.argmax(groups[0][1][row])),
+              f"(b) rid {r.rid}: slab first token {slab['first_token']}")
+        firsts += slab["first_token"] == int(np.argmax(ref_logits))
+        for k, v in slab["entries"].items():
+            pairs.append((k, v, cache1[k].float().cpu().numpy()))
+        for k, a, b in pairs:
+            rel = float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+            worst = max(worst, rel)
+            worst_abs = max(worst_abs, float(np.max(np.abs(a - b))))
+            check(rel <= TOL_FLEET_GROUP,
+                  f"(b) rid {r.rid} {k}: relative L2 {rel:.3g} against the "
+                  f"[1, {S}] prefill (tolerance {TOL_FLEET_GROUP})")
+        del cache1, last
+    ok, total = agree(got, want)
+    log(f"phase 25 (b) on {smi}: one [{n}, {S}] prefill group; each row's "
+        f"slab entries and first-token logits against its own [1, {S}] "
+        f"prefill: worst relative L2 {worst:.3g} (tolerance "
+        f"{TOL_FLEET_GROUP}, the port's two-bf16-forward bound), max |err| "
+        f"{worst_abs:.3g}; first tokens equal {firsts}/{n}; decoded tokens "
+        f"equal to the host's {ok}/{total}")
+    check(fab.buffered_installs() == 0 and fab.streams_landed() == n,
+          f"(b): buffered {fab.buffered_installs()}, streams "
+          f"{fab.streams_landed()}")
+    del fab
+
+
+def fleet_cli(dev):
+    """Phase 25 (d): ``python -m repro_torch.launch.serve`` at its defaults
+    in both modes on ``dev``, two child processes at once, neither of
+    which may load jax or the JAX package; returns each mode's wall s."""
+    probe = ("import runpy, sys\n"
+             "sys.argv = ['serve'] + sys.argv[1:]\n"
+             "runpy.run_module('repro_torch.launch.serve', "
+             "run_name='__main__')\n"
+             "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
+             "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
+             "print('FORBIDDEN', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {mode: subprocess.Popen(
+        [sys.executable, "-c", probe, "--mode", mode, "--device", dev.type],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for mode in ("host", "disagg")}
+    walls = {}
+    try:
+        for mode, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            walls[mode] = time.perf_counter() - t0
+            check(proc.returncode == 0, f"launch.serve --mode {mode}: rc "
+                                        f"{proc.returncode}: {err[-2000:]}")
+            check("FORBIDDEN []" in out,
+                  f"launch.serve --mode {mode} loaded jax or the JAX "
+                  f"package: {out[-500:]}")
+            lines = [ln for ln in out.splitlines() if ln.startswith(
+                ("served", "metrics", "router"))]
+            log(f"  launch.serve --mode {mode} (done {walls[mode]:.1f} s "
+                f"after both started): " + " | ".join(lines))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return walls
+
+
+def phase_fabric(np, torch, dev, smi, *, cfg=None, prompts=FLEET_PROMPTS,
+                 news=FLEET_NEW, group=True):
+    """Phase 25: the disaggregated serving fleet at SmolLM-360M's width.
+    (a) the single host and the 2+2 fleet on the same 8 requests:
+    tokens equal, every slab streamed, mixed positions, ``flash_fwd``
+    launched 32 times a host prefill and a fleet prefill group, and then
+    the fleet again under torch.profiler for the SMs' idle share; (b)
+    ``fleet_group``; (c) decode peers advertising quant8: every request
+    completes, quant8 negotiated, wire bytes against (a)'s; (d)
+    ``fleet_cli``.  ``cfg``, ``prompts``, ``news`` and ``group`` shrink it
+    for a CPU run.  Returns the fleet's ``flash_fwd`` launches in (a)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as MT
+    from repro_torch.train import serve as SRV
+
+    t_phase = time.perf_counter()
+    card = dev.type == "cuda"
+    if cfg is None:
+        cfg = model_config("smollm_360m", {"attn_impl": "flash"})
+    params = MT.init_params(cfg, torch.Generator(device=dev).manual_seed(250),
+                            dev)
+    reqs = lambda: fleet_requests(np, cfg, prompts, news, 25)  # noqa: E731
+    SRV.jit_prefill_step(cfg)(params, {"tokens": torch.from_numpy(
+        reqs()[0].prompt[None]).to(dev)})                      # warm-up
+    sync(torch, dev)
+    n = len(prompts)
+
+    # (a) the single host, then the fleet, each counted
+    reset_counts()
+    want, host_wall, ticks = host_serve(torch, dev, cfg, params, reqs(),
+                                        FLEET_SLOTS, FLEET_CACHE)
+    host_counts = read_counts()
+    reset_counts()
+    fab, got, wall, rounds, mixed = fleet_serve(torch, dev, cfg, params,
+                                                reqs(), FLEET_SLOTS,
+                                                FLEET_CACHE)
+    counts = read_counts()
+    snap = fab.obs.snapshot()["counters"]
+    groups = sum(v for k, v in snap.items() if k.endswith("prefill_batches"))
+    if card:
+        for what, c, k in (("host", host_counts, n), ("fleet", counts,
+                                                      groups)):
+            want_c = {key: (cfg.num_layers * k if key == "flash_fwd" else 0)
+                      for key in c}
+            check(c == want_c, f"(a) {what}: launches {c}, want {want_c}")
+    check(groups == n, f"(a): {groups} prefill groups for {n} distinct "
+                       f"prompt lengths")
+    bad = first_divergence(got, want)
+    check(bad is None, f"(a): the fleet's tokens differ from the single "
+                       f"host's at {bad}")
+    check(fab.buffered_installs() == 0 and fab.streams_landed() == n,
+          f"(a): buffered installs {fab.buffered_installs()}, streams "
+          f"landed {fab.streams_landed()} of {n}")
+    check(mixed, "(a): no decode batch ran live slots at unequal positions")
+    dec = sum(len(t) - 1 for t in want.values())
+    log(f"phase 25 (a) {cfg.name} bf16 on {smi}: {n} requests (prompts "
+        f"{list(prompts)}, budgets {list(news)} in turn), {FLEET_SLOTS} slots, "
+        f"cache {FLEET_CACHE}; single host {host_wall:.4f} s ({ticks} ticks) "
+        f"= {n / host_wall:.3f} requests/s, {dec / host_wall:.1f} decode "
+        f"tokens/s; 2+2 fleet {wall:.4f} s ({rounds} rounds) = "
+        f"{n / wall:.3f} requests/s, {dec / wall:.1f} decode tokens/s; "
+        f"tokens equal the host's token for token; {fab.streams_landed()} "
+        f"streams landed, 0 buffered installs, mixed positions seen; "
+        f"flash_fwd {counts['flash_fwd']} launches in the fleet "
+        f"({groups} groups), {host_counts['flash_fwd']} on the host")
+    fleet_streams_log(fab, reqs(), smi, "(a)")
+    raw_wire = wire_bytes(fab)
+    codec = sorted({c for pw in fab.prefill_workers
+                    for c in pw._negotiated.values()})
+    del fab
+    if card:
+        torch.cuda.empty_cache()
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        fab, got2, wall2, *_ = fleet_serve(
+            torch, dev, cfg, params, reqs(), FLEET_SLOTS, FLEET_CACHE,
+            prof=prof)
+        check(got2 == want, "(a): the traced fleet's tokens differ")
+        log_card_busy(prof, wall2, "(a) the traced fleet run",
+                      ("flash_fwd",), wall_is="traced")
+        del fab
+        torch.cuda.empty_cache()
+
+    if group:
+        fleet_group(np, torch, dev, cfg, params, smi)
+        sync(torch, dev)
+        if card:
+            torch.cuda.empty_cache()
+
+    # (c) quant8 negotiated
+    fab, got3, wall3, rounds3, _ = fleet_serve(
+        torch, dev, cfg, params, reqs(), FLEET_SLOTS, FLEET_CACHE,
+        codecs=("quant8", "raw"))
+    neg = sorted({c for pw in fab.prefill_workers
+                  for c in pw._negotiated.values()})
+    check(len(got3) == n and all(len(got3[r.rid]) == r.max_new
+                                 for r in reqs()),
+          f"(c): {len(got3)} of {n} requests completed")
+    check(fab.buffered_installs() == 0, "(c): a KV slab arrived unstreamed")
+    check(neg == ["quant8"], f"(c): negotiated {neg}, want quant8")
+    ok, total = agree(got3, want)
+    q8_wire = wire_bytes(fab)
+    log(f"phase 25 (c) on {smi}: decode peers advertise (quant8, raw): "
+        f"negotiated {neg}; {n} requests in {wall3:.4f} s ({rounds3} rounds); "
+        f"prefill wire bytes {q8_wire} against (a)'s {raw_wire} ({codec}) = "
+        f"{q8_wire / raw_wire:.4f}x; tokens equal to the host's "
+        f"{ok}/{total}")
+    del fab, params
+    if card:
+        torch.cuda.empty_cache()
+
+    fleet_cli(dev)
+    log(f"phase 25 took {time.perf_counter() - t_phase:.1f} s")
+    return counts["flash_fwd"]
+
+
 # ------------------------------------------------------------ model stack
 
 
@@ -6048,6 +6535,7 @@ def main():
     kernels[0]["elastic_launches"] = ru["sweeps"]
     vm["launches"] += ru["sweeps"]
     kernels[0]["launches"] += ru["sweeps"]
+    fabric_launches = phase_fabric(np, torch, dev, smi)
     model_errs = phase_model_kernels(np, torch, dev)
     bwd_errs = phase_bwd_kernels(np, torch, dev)
     # timed, and a train step traced, before the serving phase's long
@@ -6063,6 +6551,8 @@ def main():
     launches = phase_serving(np, torch, dev)
     for entry in model_entries:
         entry["launches"] = launches[entry["name"]]
+        if entry["name"] == "flash_fwd":
+            entry["fabric_launches"] = fabric_launches
     kernels += model_entries + bwd_entries
     for entry in kernels:
         if entry["name"] in ru["driver"]:

@@ -6,12 +6,15 @@ per_slot=True)``): ``attention_decode`` takes a ``[B]`` position vector,
 each row writes its own ring slot and masks against its own validity row,
 and sequences join and leave mid-wave — admission is a row write, never a
 barrier.  Admission and ticks run under ``torch.inference_mode()``, so
-parameters that require a gradient build no graph.  The reference's
-``Obs`` counters and tracer come with the serving slice.
+parameters that require a gradient build no graph.  ``install`` takes
+tensors (the host server's prefill) or numpy arrays (the f32 views of a
+KV slab that landed on a decode peer) and moves each entry to the device
+at prompt width before padding it to the cache width.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -20,6 +23,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import Obs
 from repro_torch.train import serve as SRV
 
 
@@ -44,7 +48,8 @@ class ContinuousBatcher:
     admitted and retired independently per tick."""
 
     def __init__(self, cfg: ModelConfig, params, batch_slots: int,
-                 cache_len: int, *, device="cuda", name: str = "decode"):
+                 cache_len: int, *, obs: Obs | None = None,
+                 name: str = "decode", device="cuda"):
         self.cfg, self.params = cfg, params
         self.B, self.W = batch_slots, cache_len
         self.name = name
@@ -57,6 +62,12 @@ class ContinuousBatcher:
         self._decode = SRV.jit_decode_step(cfg, donate=True)
         self._one = T.cache_shapes(cfg, 1, cache_len, per_slot=True)
         self._full = T.cache_shapes(cfg, batch_slots, cache_len, per_slot=True)
+        self.obs = obs if obs is not None else Obs(name)
+        m = self.obs.metrics
+        self._installed = m.counter(f"serve.{name}.installed")
+        self._decoded = m.counter(f"serve.{name}.decoded")
+        self._finished = m.counter(f"serve.{name}.finished")
+        self.install_hist = m.histogram(f"serve.{name}.install_us")
 
     def free_slots(self) -> list[int]:
         return [s for s in range(self.B) if s not in self.active]
@@ -65,14 +76,19 @@ class ContinuousBatcher:
     def install(self, slot: int, cache1: dict, pos0: int, first_token: int,
                 req: Request) -> None:
         """Splice one prefilled sequence (a single-sequence cache at seq
-        width <= W, with or without ``slot_pos`` entries) into decode slot
+        width <= W, tensors or numpy arrays, with or without ``slot_pos``
+        entries — a KV slab arrives without them) into decode slot
         ``slot`` and activate it.  A row write: every other slot keeps
         decoding undisturbed."""
         if slot in self.active:
             raise ValueError(f"slot {slot} already active")
         if not (0 < pos0 <= self.W):
             raise ValueError(f"pos0 {pos0} outside cache width {self.W}")
-        src = dict(cache1)
+        t0 = time.perf_counter()
+        # each entry crosses to the device at its prompt width; the padding
+        # to the cache width happens there
+        src = {k: torch.as_tensor(v, device=self.device)
+               for k, v in cache1.items()}
         for k, tgt in self._one.items():
             if k not in src and k.endswith("slot_pos"):
                 base = synth_slot_pos(pos0, tgt.shape[-1])
@@ -80,19 +96,26 @@ class ContinuousBatcher:
                     np.ascontiguousarray(np.broadcast_to(base, tgt.shape))
                 ).to(self.device)
         src = SRV.pad_cache_to(src, self._one)
+        tr = self.obs.tracer
+        sp = tr.begin(f"kv_install:{self.name}", cat="serve",
+                      actor=self.name) if tr.enabled else None
         for k in self.cache:
             bdim = next((i for i, (a, b) in enumerate(
                 zip(self._full[k].shape, self._one[k].shape)) if a != b), None)
-            row = src[k].to(self.device, self.cache[k].dtype)
+            row = src[k].to(self.cache[k].dtype)
             if bdim is None:            # batch-free entry: shared write
-                self.cache[k] = row
+                self.cache[k].copy_(row)
             else:
                 idx = tuple([slice(None)] * bdim + [slice(slot, slot + 1)])
                 self.cache[k][idx] = row
+        if sp is not None:
+            tr.end(sp)
         self.tokens[slot, 0] = int(first_token)
         self.pos[slot] = pos0
         self.active[slot] = req
         req.out.append(int(first_token))
+        self._installed.inc()
+        self.install_hist.observe((time.perf_counter() - t0) * 1e6)
 
     @torch.inference_mode()
     def tick(self) -> tuple[int, list[Request]]:
@@ -118,6 +141,8 @@ class ContinuousBatcher:
                 self.pos[slot] = 0
                 self.tokens[slot, 0] = 0
                 finished.append(req)
+        self._decoded.inc(emitted)
+        self._finished.inc(len(finished))
         return emitted, finished
 
 

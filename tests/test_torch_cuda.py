@@ -1202,3 +1202,44 @@ def test_checkpoint_round_trip_of_card_tensors(cuda, tmp_path):
                            torch.bfloat16 else ref)
     assert cm.steps() == [9] and cm.history[0]["bytes"] == \
         64 * 32 * 2 + 32 * 4 + 64 * 32 * 4 + 4 + 4
+
+
+@pytest.mark.cuda
+def test_serving_fleet_on_the_card_matches_the_host(cuda):
+    """The disaggregated 2+2 fleet on the card at a ``TINY``-like width
+    with head_dim 64 and ``attn_impl="flash"``: prompts of distinct
+    lengths (so every prefill group is one sequence, the host's shape)
+    and the host's slot count on each decode peer give the single host's
+    tokens, token for token; every KV slab streamed, and ``flash_fwd``
+    launched once a layer in each prefill on both sides."""
+    from repro_torch.serving import Request, Server, ServingFabric
+
+    cfg = ModelConfig(name="serve-tiny-hd64", family="dense", num_layers=4,
+                      d_model=256, num_heads=4, num_kv_heads=2, d_ff=512,
+                      vocab_size=512, q_chunk=128, attn_impl="flash")
+    params = MT.init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    lens, news = (128, 100, 64, 33, 16, 9, 7, 4), (8, 16, 32)
+
+    def reqs():
+        r = np.random.default_rng(25)
+        return [Request(i, r.integers(0, cfg.vocab_size, n).astype(np.int32),
+                        news[i % 3]) for i, n in enumerate(lens)]
+
+    host = Server(cfg, params, 4, 256, device=cuda)
+    before = flash_fwd.launches
+    want, pending = {}, reqs()
+    while pending or host.active:
+        while pending and host.admit(pending[0]):
+            pending.pop(0)
+        for r in host.tick()[1]:
+            want[r.rid] = list(r.out)
+    assert flash_fwd.launches - before == cfg.num_layers * len(lens)
+    fab = ServingFabric(cfg, params, n_prefill=2, n_decode=2, batch_slots=4,
+                        cache_len=256, device=cuda)
+    before = flash_fwd.launches
+    done = fab.run(reqs())
+    fab.drain()
+    assert {k: list(r.out) for k, r in done.items()} == want
+    assert flash_fwd.launches - before == cfg.num_layers * len(lens)
+    assert fab.streams_landed() == len(lens) and fab.buffered_installs() == 0
+    assert all(len(want[i]) == news[i % 3] for i in range(len(lens)))

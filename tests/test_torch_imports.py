@@ -1,8 +1,10 @@
 """The port stands alone: importing every module of ``repro_torch`` (the
 model stack's ``models/``, ``configs/``, ``train/`` with the training step
-and optimizers, ``data/``, ``serving/`` and ``obs/`` included) and
-registering its ifunc library (the four ``graph_*`` verbs and the
-streaming-aware ``stream_sink`` and ``host_aggregate`` included) loads
+and optimizers, ``data/``, ``serving/`` with the KV slab format, the host
+server, the workers and the fabric, ``launch/serve`` and ``obs/``
+included) and registering its ifunc library (the four ``graph_*`` verbs,
+the five serving verbs and the streaming-aware ``stream_sink``,
+``host_aggregate`` and ``kv_install`` included) loads
 neither jax nor the JAX package; nor
 does driving the Dispatcher's host lanes from ``repro_torch.obs`` and
 ``repro_torch.transport`` alone, nor a task future from
@@ -39,9 +41,11 @@ assert float(args["result"].sum()) == 128 * 128
 from repro_torch.tasks.placement import DataDirectory, PlacementEngine
 verbs = {n: register_ifunc(Context("probe"), n) for n in (
     "graph_relax", "graph_fetch", "graph_count", "graph_degree",
-    "stream_sink", "host_aggregate")}
+    "stream_sink", "host_aggregate", "srv_enqueue", "srv_admit",
+    "srv_prefill", "srv_complete", "kv_install")}
 assert verbs["stream_sink"].lib.streaming
 assert verbs["host_aggregate"].lib.streaming
+assert verbs["kv_install"].lib.streaming
 args = {"externals": {"A": np.eye(128, dtype=np.float32)}, "device": "cpu"}
 verbs["graph_degree"].lib.main(np.ones((1, 128, 128), np.float32).tobytes(),
                                0, args)
@@ -62,7 +66,9 @@ print("STACK", all(m in mods for m in (
     "repro_torch.tasks.wire", "repro_torch.tasks.placement",
     "repro_torch.tasks.graph", "repro_torch.transport.codec",
     "repro_torch.flow.descriptor", "repro_torch.flow.node",
-    "repro_torch.flow.engine")))
+    "repro_torch.flow.engine", "repro_torch.serving.kv",
+    "repro_torch.serving.host", "repro_torch.serving.workers",
+    "repro_torch.serving.fabric", "repro_torch.launch.serve")))
 print("FORBIDDEN", bad)
 """
 
