@@ -286,16 +286,17 @@ Phases, each of which fails the script (non-zero exit, no result line):
 25. the disaggregated serving fleet (``repro_torch.serving``),
     ``examples/serving_fabric.py`` at SmolLM-360M's width (bf16, flash,
     seeded weights): (a) the single ``Server`` and a 2 prefill + 2 decode
-    ``ServingFabric`` (built by ``streamed_fabric``: 1 MiB KV chunks, 4 in
+    ``ServingFabric`` (``streamed_fabric``: 1 MiB KV chunks, 4 in
     flight), 4 slots and cache 2,048 each, on 8 requests of distinct
     prompt lengths (1,024 to 64) and budgets 8 / 16 / 32: the fleet's
     tokens equal the host's token for token, 8 streams landed, no
     buffered install, a decode batch at unequal positions, ``flash_fwd``
     launched 32 times a host prefill and a fleet prefill group and nothing
-    else; logged: requests/s and decode tokens/s of both, each slab's
-    bytes, chunks, open-to-landed s and GB/s, each request's enqueue to
-    install, the prefill D2H, rounds, and the SMs' idle share over the
-    fleet again under torch.profiler.  (b) 4 prompts of 512 through one
+    else; logged, from both runs' obs traces: requests/s, decoded tokens/s
+    over the run and over the decode ticks' time, each slab's bytes,
+    chunks, open-to-acked s and GB/s, each request's enqueue to install,
+    the prefill D2H, rounds; and the SMs' idle share over the fleet again
+    under torch.profiler.  (b) 4 prompts of 512 through one
     prefill peer as one [4, 512] forward: each row's slab entries and
     first-token logits within relative L2 1e-2 of its own [1, 512]
     prefill; tokens equal to the host's logged.  (c) decode peers
@@ -5298,103 +5299,17 @@ def phase_runtime(np, torch, dev, smi):
 # ------------------------------------------------- the disaggregated fleet
 
 
-def streamed_fabric(torch, dev):
-    """The port's ``ServingFabric`` with its prefill peers' KV streams sized
-    for SmolLM-360M's slabs: ``chunk_bytes`` chunks, ``window`` in
-    flight, in ring slots that hold the window and the frame's prefix.
-    The reference's defaults (8 KiB chunks in 48 KiB slots) would take
-    about 10,000 chunks for one 1,024-token slab.  Only ``__init__``
-    differs from the port's class.  Every decode peer's arrivals and
-    every prefill peer's stream opens are stamped (``stamps``)."""
-    from repro_torch.core import Context, register_ifunc
-    from repro_torch.core import frame as F
-    from repro_torch.obs import Obs
-    from repro_torch.serving import (DecodeWorker, PrefillWorker, Router,
-                                     ServingFabric, kv)
+def streamed_fabric():
+    """The port's ``ServingFabric`` with KV streams sized for SmolLM-360M's
+    slabs: ``FLEET_CHUNK`` chunks, ``FLEET_WINDOW`` in flight (each
+    prefill peer grows its ring slots to hold them).  At the class's 8 KiB
+    chunks one 1,024-token slab would take about 10,000 chunks."""
+    from repro_torch.serving import ServingFabric
 
     class StreamedFabric(ServingFabric):
-        def __init__(self, cfg, params, *, n_prefill=2, n_decode=2,
-                     batch_slots=8, cache_len=64,
-                     decode_codecs=("rle", "raw"), prefill_max_batch=8,
-                     obs=None, device="cuda", chunk_bytes=FLEET_CHUNK,
-                     window=FLEET_WINDOW):
-            self.cfg, self.params = cfg, params
-            self.obs = obs if obs is not None else Obs("serving")
-            self.router = Router(cfg, obs=self.obs)
-            self.decode_workers = [
-                DecodeWorker(f"decode{i}", cfg, params, batch_slots,
-                             cache_len, codecs=decode_codecs, obs=self.obs,
-                             device=device)
-                for i in range(n_decode)]
-            self.stamps = {"open": {}, "landed": {}, "installed": {},
-                           "bytes": {}, "progress_s": 0.0}
-            for dw in self.decode_workers:
-                dw.connect_router(self.router.ctx, self.router.inbox)
-                stamp_decode(self.stamps, dw)
-            code = register_ifunc(Context("probe", device=device),
-                                  "kv_install").lib.code
-            self.slot_size = (F.HEADER_LEN + len(code) + F.TRAILER_LEN
-                              + F.stream_payload_len(
-                                  window, chunk_bytes + F.CHUNK_OVERHEAD))
-            self.chunk_bytes = chunk_bytes
-            self.prefill_workers = [
-                PrefillWorker(
-                    f"prefill{i}", cfg, params,
-                    {dw.name: (dw.ctx, dw.kv_ingress())
-                     for dw in self.decode_workers},
-                    obs=self.obs, max_batch=prefill_max_batch,
-                    slot_size=self.slot_size, chunk_bytes=chunk_bytes,
-                    window=window, device=device)
-                for i in range(n_prefill)]
-            self.router.attach(self.prefill_workers, self.decode_workers)
-            for pw in self.prefill_workers:
-                stamp_prefill(self.stamps, pw, kv)
+        kv_chunk_bytes, kv_window = FLEET_CHUNK, FLEET_WINDOW
 
     return StreamedFabric
-
-
-def stamp_decode(stamps, dw):
-    """Stamp each slab's landing (its last chunk's ``kv_install`` appends
-    the slot to the shared arrivals list) and each install, by rid."""
-
-    class Stamped(list):
-        def append(self, slot):
-            rid = struct.unpack_from("<I", dw.slabs[slot], 4)[0]
-            stamps["landed"][rid] = time.perf_counter()
-            super().append(slot)
-
-    dw.arrivals = Stamped()
-    dw.ingress["kv_arrivals"] = dw.arrivals
-    install = dw.batcher.install
-
-    def timed_install(slot, cache1, pos0, first, req):
-        install(slot, cache1, pos0, first, req)
-        stamps["installed"][req.rid] = time.perf_counter()
-
-    dw.batcher.install = timed_install
-
-
-def stamp_prefill(stamps, pw, kv):
-    """Stamp each KV stream's open (``kv_install`` submitted) by rid, with
-    its slab's bytes, and sum the host s of the peer's progress calls
-    (where the chunks move)."""
-    submit, progress = pw.rt.submit, pw.rt.progress
-
-    def stamped(peer, handle, args, *a, **k):
-        if handle.name == "kv_install":
-            rid = kv.peek_kv(args)[0]
-            stamps["open"][rid] = time.perf_counter()
-            stamps["bytes"][rid] = len(args)
-        return submit(peer, handle, args, *a, **k)
-
-    def timed_progress():
-        t0 = time.perf_counter()
-        out = progress()
-        stamps["progress_s"] += time.perf_counter() - t0
-        return out
-
-    pw.rt.submit = stamped
-    pw.rt.progress = timed_progress
 
 
 def fleet_requests(np, cfg, prompts, news, seed):
@@ -5405,58 +5320,73 @@ def fleet_requests(np, cfg, prompts, news, seed):
                     news[i % len(news)]) for i, n in enumerate(prompts)]
 
 
-def host_serve(torch, dev, cfg, params, reqs, slots, cache):
-    """The single host: admit in order while slots are free, tick until
-    all are done (the example's loop).  Returns ({rid: tokens}, wall s,
-    ticks)."""
+def tick_spans(obs):
+    """(decode ticks, their host s, the tokens they emitted) from the
+    batchers' ``decode_tick`` spans in ``obs``'s trace."""
+    ticks = [sp for sp in obs.tracer.spans(cat="serve")
+             if sp.name.startswith("decode_tick:")]
+    return (len(ticks), sum(sp.dur for sp in ticks) / 1e6,
+            sum(sp.args["tokens"] for sp in ticks))
+
+
+def host_serve(torch, dev, cfg, params, reqs):
+    """The single host (``FLEET_SLOTS`` slots, cache ``FLEET_CACHE``,
+    traced): admit in order while slots are free, tick until all are done
+    (the example's loop).  Returns ({rid: tokens}, wall s, ``tick_spans``)."""
+    from repro_torch.obs import Obs
     from repro_torch.serving import Server
 
-    srv = Server(cfg, params, slots, cache, device=dev)
-    out, pending, ticks = {}, list(reqs), 0
+    srv = Server(cfg, params, FLEET_SLOTS, FLEET_CACHE,
+                 obs=Obs("server", trace=True), device=dev)
+    out, pending = {}, list(reqs)
     sync(torch, dev)
     t0 = time.perf_counter()
     while pending or srv.active:
         while pending and srv.admit(pending[0]):
             pending.pop(0)
         _, fin = srv.tick()
-        ticks += 1
         for r in fin:
             out[r.rid] = list(r.out)
     sync(torch, dev)
     wall = time.perf_counter() - t0
+    ticks = tick_spans(srv.obs)
     del srv
     return out, wall, ticks
 
 
-def fleet_serve(torch, dev, cfg, params, reqs, slots, cache, *,
-                n_prefill=2, codecs=("rle", "raw"), chunk=FLEET_CHUNK,
+def fleet_serve(torch, dev, cfg, params, reqs, *, codecs=("rle", "raw"),
                 prof=None):
-    """One run of the 2+2 fleet (``n_prefill`` prefill peers): returns the
-    fabric (dropped by the caller), {rid: tokens}, wall s, rounds and
-    whether a decode batch ran live slots at unequal positions (the
-    example's ``watch``)."""
-    fab = streamed_fabric(torch, dev)(
-        cfg, params, n_prefill=n_prefill, n_decode=2, batch_slots=slots,
-        cache_len=cache, decode_codecs=codecs, device=dev, chunk_bytes=chunk)
-    seen = {"mixed": False, "rounds": 0}
+    """One run of the 2+2 fleet (``streamed_fabric``, ``FLEET_SLOTS`` slots
+    and cache ``FLEET_CACHE`` a decode peer, traced), under ``prof`` when
+    given.  Returns the fabric (dropped by the caller) and the run: its
+    {rid: tokens}, wall s, rounds, whether a decode batch ran live slots
+    at unequal positions (the example's ``watch``), and its start on the
+    trace's clock (µs)."""
+    from repro_torch.obs import Obs
+
+    fab = streamed_fabric()(
+        cfg, params, n_prefill=2, n_decode=2, batch_slots=FLEET_SLOTS,
+        cache_len=FLEET_CACHE, decode_codecs=codecs,
+        obs=Obs("serving", trace=True), device=dev)
+    run = {"mixed": False, "rounds": 0}
 
     def watch(f):
-        seen["rounds"] += 1
+        run["rounds"] += 1
         for dw in f.decode_workers:
             live = [int(dw.batcher.pos[s]) for s in dw.batcher.active]
             if len(live) >= 2 and len(set(live)) >= 2:
-                seen["mixed"] = True
+                run["mixed"] = True
 
     sync(torch, dev)
     t0 = time.perf_counter()
-    fab.t0 = t0
+    run["t0_us"] = fab.obs.tracer.now_us()
     with (prof if prof is not None else contextlib.nullcontext()):
         done = fab.run(reqs, tick_cb=watch)
         fab.drain()
         sync(torch, dev)
-    wall = time.perf_counter() - t0
-    out = {rid: list(r.out) for rid, r in done.items()}
-    return fab, out, wall, seen["rounds"], seen["mixed"]
+    run["wall"] = time.perf_counter() - t0
+    run["out"] = {rid: list(r.out) for rid, r in done.items()}
+    return fab, run
 
 
 def first_divergence(got, want):
@@ -5491,34 +5421,40 @@ def slab_of(fab, rid):
     raise SmokeError(f"no landed slab holds rid {rid}")
 
 
-def fleet_streams_log(fab, reqs, smi, what):
-    """Log each slab's bytes, chunks, open-to-landed s and GB/s, and each
-    request's enqueue-to-install s; check the chunks against the decode
-    peers' counts."""
-    st = fab.stamps
-    chunks = {rid: -(-n // fab.chunk_bytes) for rid, n in st["bytes"].items()}
+def fleet_streams_log(fab, run, reqs, smi, what):
+    """Log each KV stream's bytes, chunks, open-to-acked s and GB/s (the
+    dispatcher's ``stream`` spans; prompt lengths are distinct, so the
+    slabs' sizes rank as the prompts') and each request's enqueue to
+    install (the batchers' ``kv_install`` spans, by rid), and the prefill
+    D2H; check the chunks against the decode peers' counts."""
+    spans = fab.obs.tracer.spans()
+    streams = sorted((sp for sp in spans if sp.cat == "stream"
+                      and sp.name.startswith("stream:kv_install@")),
+                     key=lambda sp: sp.args["bytes"])
+    installs = {sp.corr: sp for sp in spans
+                if sp.name.startswith("kv_install:")}
+    check(len(streams) == len(reqs) and len(installs) == len(reqs),
+          f"{what}: {len(streams)} KV stream spans and {len(installs)} "
+          f"install spans for {len(reqs)} requests")
     landed = sum(dw.ctx.stats.get("stream_chunks", 0)
                  for dw in fab.decode_workers)
-    check(sum(chunks.values()) == landed,
-          f"{what}: the slabs need {sum(chunks.values())} chunks of "
-          f"{fab.chunk_bytes} B, the decode peers took {landed}")
-    for r in reqs:
-        rid = r.rid
-        s = st["landed"][rid] - st["open"][rid]
-        log(f"  {what} rid {rid} prompt {len(r.prompt)}: slab "
-            f"{st['bytes'][rid]} B ({st['bytes'][rid] / 2**20:.2f} MiB) in "
-            f"{chunks[rid]} chunks, open to landed {s:.4f} s = "
-            f"{st['bytes'][rid] / s / 1e9:.3f} GB/s; enqueue to install "
-            f"{st['installed'][rid] - fab.t0:.4f} s")
-    total = sum(st["bytes"].values())
+    sent = sum(sp.args["chunks"] for sp in streams)
+    check(sent == landed, f"{what}: the streams sent {sent} chunks, the "
+                          f"decode peers took {landed}")
+    by_len = sorted(reqs, key=lambda r: len(r.prompt))
+    for r, sp in zip(by_len, streams):
+        n, s = sp.args["bytes"], sp.dur / 1e6
+        done = installs[r.rid]
+        log(f"  {what} rid {r.rid} prompt {len(r.prompt)}: slab {n} B "
+            f"({n / 2**20:.2f} MiB) in {sp.args['chunks']} chunks, open to "
+            f"acked {s:.4f} s = {n / s / 1e9:.3f} GB/s; enqueue to install "
+            f"{(done.ts + done.dur - run['t0_us']) / 1e6:.4f} s")
+    total = sum(sp.args["bytes"] for sp in streams)
     d2h = sum(pw.d2h_s for pw in fab.prefill_workers)
-    prog = st["progress_s"]
-    log(f"{what} on {smi}: {len(reqs)} slabs {total} B in {landed} chunks of "
-        f"{fab.chunk_bytes} B (window {FLEET_WINDOW}, slots of "
-        f"{fab.slot_size} B); the prefill peers' progress calls, where the "
-        f"chunks move, {prog:.4f} s = {total / max(prog, 1e-9) / 1e9:.3f} "
-        f"GB/s; prefill D2H {d2h:.4f} s = "
-        f"{total / max(d2h, 1e-9) / 1e9:.3f} GB/s over the slabs' bytes")
+    log(f"{what} on {smi}: {len(streams)} slabs {total} B in {landed} "
+        f"chunks of {fab.kv_chunk_bytes} B (window {fab.kv_window}, slots "
+        f"of {fab.prefill_workers[0].slot_size} B); prefill D2H {d2h:.4f} s "
+        f"= {total / max(d2h, 1e-9) / 1e9:.3f} GB/s over the slabs' bytes")
 
 
 def fleet_group(np, torch, dev, cfg, params, smi):
@@ -5531,10 +5467,9 @@ def fleet_group(np, torch, dev, cfg, params, smi):
 
     n, S, new = FLEET_GROUP
     reqs = lambda: fleet_requests(np, cfg, (S,) * n, (new,), 252)  # noqa: E731
-    want, _, _ = host_serve(torch, dev, cfg, params, reqs(), FLEET_SLOTS,
-                            FLEET_CACHE)
+    want, _, _ = host_serve(torch, dev, cfg, params, reqs())
     groups = []
-    fab = streamed_fabric(torch, dev)(
+    fab = streamed_fabric()(
         cfg, params, n_prefill=1, n_decode=2, batch_slots=FLEET_SLOTS,
         cache_len=FLEET_CACHE, device=dev)
     pw = fab.prefill_workers[0]
@@ -5626,8 +5561,7 @@ def fleet_cli(dev):
     return walls
 
 
-def phase_fabric(np, torch, dev, smi, *, cfg=None, prompts=FLEET_PROMPTS,
-                 news=FLEET_NEW, group=True):
+def phase_fabric(np, torch, dev, smi):
     """Phase 25: the disaggregated serving fleet at SmolLM-360M's width.
     (a) the single host and the 2+2 fleet on the same 8 requests:
     tokens equal, every slab streamed, mixed positions, ``flash_fwd``
@@ -5635,43 +5569,39 @@ def phase_fabric(np, torch, dev, smi, *, cfg=None, prompts=FLEET_PROMPTS,
     the fleet again under torch.profiler for the SMs' idle share; (b)
     ``fleet_group``; (c) decode peers advertising quant8: every request
     completes, quant8 negotiated, wire bytes against (a)'s; (d)
-    ``fleet_cli``.  ``cfg``, ``prompts``, ``news`` and ``group`` shrink it
-    for a CPU run.  Returns the fleet's ``flash_fwd`` launches in (a)."""
+    ``fleet_cli``.  Returns the fleet's ``flash_fwd`` launches in (a)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as MT
     from repro_torch.train import serve as SRV
 
     t_phase = time.perf_counter()
-    card = dev.type == "cuda"
-    if cfg is None:
-        cfg = model_config("smollm_360m", {"attn_impl": "flash"})
+    cfg = model_config("smollm_360m", {"attn_impl": "flash"})
     params = MT.init_params(cfg, torch.Generator(device=dev).manual_seed(250),
                             dev)
-    reqs = lambda: fleet_requests(np, cfg, prompts, news, 25)  # noqa: E731
+
+    def reqs():
+        return fleet_requests(np, cfg, FLEET_PROMPTS, FLEET_NEW, 25)
+
     SRV.jit_prefill_step(cfg)(params, {"tokens": torch.from_numpy(
         reqs()[0].prompt[None]).to(dev)})                      # warm-up
     sync(torch, dev)
-    n = len(prompts)
+    n = len(FLEET_PROMPTS)
 
     # (a) the single host, then the fleet, each counted
     reset_counts()
-    want, host_wall, ticks = host_serve(torch, dev, cfg, params, reqs(),
-                                        FLEET_SLOTS, FLEET_CACHE)
+    want, host_wall, host_ticks = host_serve(torch, dev, cfg, params, reqs())
     host_counts = read_counts()
     reset_counts()
-    fab, got, wall, rounds, mixed = fleet_serve(torch, dev, cfg, params,
-                                                reqs(), FLEET_SLOTS,
-                                                FLEET_CACHE)
+    fab, run = fleet_serve(torch, dev, cfg, params, reqs())
     counts = read_counts()
+    got, wall = run["out"], run["wall"]
     snap = fab.obs.snapshot()["counters"]
     groups = sum(v for k, v in snap.items() if k.endswith("prefill_batches"))
-    if card:
-        for what, c, k in (("host", host_counts, n), ("fleet", counts,
-                                                      groups)):
-            want_c = {key: (cfg.num_layers * k if key == "flash_fwd" else 0)
-                      for key in c}
-            check(c == want_c, f"(a) {what}: launches {c}, want {want_c}")
+    for what, c, k in (("host", host_counts, n), ("fleet", counts, groups)):
+        want_c = {key: (cfg.num_layers * k if key == "flash_fwd" else 0)
+                  for key in c}
+        check(c == want_c, f"(a) {what}: launches {c}, want {want_c}")
     check(groups == n, f"(a): {groups} prefill groups for {n} distinct "
                        f"prompt lengths")
     bad = first_divergence(got, want)
@@ -5680,45 +5610,50 @@ def phase_fabric(np, torch, dev, smi, *, cfg=None, prompts=FLEET_PROMPTS,
     check(fab.buffered_installs() == 0 and fab.streams_landed() == n,
           f"(a): buffered installs {fab.buffered_installs()}, streams "
           f"landed {fab.streams_landed()} of {n}")
-    check(mixed, "(a): no decode batch ran live slots at unequal positions")
+    check(run["mixed"], "(a): no decode batch ran live slots at unequal "
+                        "positions")
     dec = sum(len(t) - 1 for t in want.values())
+    fleet_ticks = tick_spans(fab.obs)
+    for what, (k, s, toks) in (("host", host_ticks), ("fleet", fleet_ticks)):
+        check(toks == dec, f"(a) {what}: its {k} decode ticks emitted "
+                           f"{toks} tokens, the requests {dec}")
     log(f"phase 25 (a) {cfg.name} bf16 on {smi}: {n} requests (prompts "
-        f"{list(prompts)}, budgets {list(news)} in turn), {FLEET_SLOTS} slots, "
-        f"cache {FLEET_CACHE}; single host {host_wall:.4f} s ({ticks} ticks) "
-        f"= {n / host_wall:.3f} requests/s, {dec / host_wall:.1f} decode "
-        f"tokens/s; 2+2 fleet {wall:.4f} s ({rounds} rounds) = "
-        f"{n / wall:.3f} requests/s, {dec / wall:.1f} decode tokens/s; "
+        f"{list(FLEET_PROMPTS)}, budgets {list(FLEET_NEW)} in turn), "
+        f"{FLEET_SLOTS} slots, cache {FLEET_CACHE}, {dec} decoded tokens; "
+        f"single host {host_wall:.4f} s = {n / host_wall:.3f} requests/s, "
+        f"{dec / host_wall:.1f} decoded tokens/s over the run, "
+        f"{host_ticks[0]} decode ticks in {host_ticks[1]:.4f} s = "
+        f"{dec / host_ticks[1]:.1f} tokens/s over tick time; 2+2 fleet "
+        f"{wall:.4f} s ({run['rounds']} rounds) = {n / wall:.3f} "
+        f"requests/s, {dec / wall:.1f} decoded tokens/s over the run, "
+        f"{fleet_ticks[0]} decode ticks in {fleet_ticks[1]:.4f} s = "
+        f"{dec / fleet_ticks[1]:.1f} tokens/s over tick time (both traced); "
         f"tokens equal the host's token for token; {fab.streams_landed()} "
         f"streams landed, 0 buffered installs, mixed positions seen; "
         f"flash_fwd {counts['flash_fwd']} launches in the fleet "
         f"({groups} groups), {host_counts['flash_fwd']} on the host")
-    fleet_streams_log(fab, reqs(), smi, "(a)")
+    fleet_streams_log(fab, run, reqs(), smi, "(a)")
     raw_wire = wire_bytes(fab)
     codec = sorted({c for pw in fab.prefill_workers
                     for c in pw._negotiated.values()})
     del fab
-    if card:
-        torch.cuda.empty_cache()
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        fab, got2, wall2, *_ = fleet_serve(
-            torch, dev, cfg, params, reqs(), FLEET_SLOTS, FLEET_CACHE,
-            prof=prof)
-        check(got2 == want, "(a): the traced fleet's tokens differ")
-        log_card_busy(prof, wall2, "(a) the traced fleet run",
-                      ("flash_fwd",), wall_is="traced")
-        del fab
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    fab, run2 = fleet_serve(torch, dev, cfg, params, reqs(), prof=prof)
+    check(run2["out"] == want, "(a): the traced fleet's tokens differ")
+    log_card_busy(prof, run2["wall"], "(a) the traced fleet run",
+                  ("flash_fwd",), wall_is="traced")
+    del fab
+    torch.cuda.empty_cache()
 
-    if group:
-        fleet_group(np, torch, dev, cfg, params, smi)
-        sync(torch, dev)
-        if card:
-            torch.cuda.empty_cache()
+    fleet_group(np, torch, dev, cfg, params, smi)
+    sync(torch, dev)
+    torch.cuda.empty_cache()
 
     # (c) quant8 negotiated
-    fab, got3, wall3, rounds3, _ = fleet_serve(
-        torch, dev, cfg, params, reqs(), FLEET_SLOTS, FLEET_CACHE,
-        codecs=("quant8", "raw"))
+    fab, run3 = fleet_serve(torch, dev, cfg, params, reqs(),
+                            codecs=("quant8", "raw"))
+    got3 = run3["out"]
     neg = sorted({c for pw in fab.prefill_workers
                   for c in pw._negotiated.values()})
     check(len(got3) == n and all(len(got3[r.rid]) == r.max_new
@@ -5729,13 +5664,12 @@ def phase_fabric(np, torch, dev, smi, *, cfg=None, prompts=FLEET_PROMPTS,
     ok, total = agree(got3, want)
     q8_wire = wire_bytes(fab)
     log(f"phase 25 (c) on {smi}: decode peers advertise (quant8, raw): "
-        f"negotiated {neg}; {n} requests in {wall3:.4f} s ({rounds3} rounds); "
-        f"prefill wire bytes {q8_wire} against (a)'s {raw_wire} ({codec}) = "
-        f"{q8_wire / raw_wire:.4f}x; tokens equal to the host's "
-        f"{ok}/{total}")
+        f"negotiated {neg}; {n} requests in {run3['wall']:.4f} s "
+        f"({run3['rounds']} rounds); prefill wire bytes {q8_wire} against "
+        f"(a)'s {raw_wire} ({codec}) = {q8_wire / raw_wire:.4f}x; tokens "
+        f"equal to the host's {ok}/{total}")
     del fab, params
-    if card:
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
 
     fleet_cli(dev)
     log(f"phase 25 took {time.perf_counter() - t_phase:.1f} s")

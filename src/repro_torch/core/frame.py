@@ -487,6 +487,16 @@ def stream_payload_len(window: int, cell: int) -> int:
     return STREAM_DESC_LEN + window * cell
 
 
+def stream_slot_len(code_len: int, chunk_bytes: int, window: int) -> int:
+    """The least ring slot that holds a stream frame of ``window`` cells of
+    ``chunk_bytes`` behind a ``code_len``-byte code section (header, code,
+    payload, trailer): the dispatcher clamps a stream's chunks and window
+    to fit its lane's slot, and on a slot this size it clamps neither."""
+    return (HEADER_LEN + code_len
+            + stream_payload_len(window, chunk_bytes + CHUNK_OVERHEAD)
+            + TRAILER_LEN)
+
+
 def pack_stream_desc(buf, off: int, desc: StreamDesc) -> None:
     _STREAM_DESC.pack_into(buf, off, desc.total_len, desc.n_chunks,
                            desc.chunk_bytes, desc.window, desc.codec,

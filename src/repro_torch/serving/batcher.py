@@ -98,7 +98,7 @@ class ContinuousBatcher:
         src = SRV.pad_cache_to(src, self._one)
         tr = self.obs.tracer
         sp = tr.begin(f"kv_install:{self.name}", cat="serve",
-                      actor=self.name) if tr.enabled else None
+                      actor=self.name, corr=req.rid) if tr.enabled else None
         for k in self.cache:
             bdim = next((i for i, (a, b) in enumerate(
                 zip(self._full[k].shape, self._one[k].shape)) if a != b), None)
@@ -121,9 +121,12 @@ class ContinuousBatcher:
     def tick(self) -> tuple[int, list[Request]]:
         """One decode step for all active slots.  Returns (#tokens emitted,
         finished requests) — completion surfaces here, never at
-        admission."""
+        admission.  A ``decode_tick`` span covers it when tracing is on."""
         if not self.active:
             return 0, []
+        tr = self.obs.tracer
+        sp = tr.begin(f"decode_tick:{self.name}", cat="serve",
+                      actor=self.name) if tr.enabled else None
         self.cache, logits = self._decode(
             self.params, self.cache,
             torch.from_numpy(self.tokens).to(self.device),
@@ -143,6 +146,8 @@ class ContinuousBatcher:
                 finished.append(req)
         self._decoded.inc(emitted)
         self._finished.inc(len(finished))
+        if sp is not None:
+            tr.end(sp, tokens=emitted)
         return emitted, finished
 
 

@@ -188,7 +188,12 @@ class Router:
 class ServingFabric:
     """N prefill + M decode peers + router, emulated in one process: the
     run loop interleaves every tier's pump, which is what a real
-    deployment's per-process event loops do concurrently."""
+    deployment's per-process event loops do concurrently.  Each KV cache
+    streams in chunks of ``kv_chunk_bytes``, ``kv_window`` in flight; a
+    subclass sets them to the slabs it serves."""
+
+    kv_chunk_bytes = 8 << 10
+    kv_window = 4
 
     def __init__(self, cfg, params, *, n_prefill: int = 2, n_decode: int = 2,
                  batch_slots: int = 8, cache_len: int = 64,
@@ -210,7 +215,9 @@ class ServingFabric:
                 f"prefill{i}", cfg, params,
                 {dw.name: (dw.ctx, dw.kv_ingress())
                  for dw in self.decode_workers},
-                obs=self.obs, max_batch=prefill_max_batch, device=device)
+                obs=self.obs, max_batch=prefill_max_batch,
+                chunk_bytes=self.kv_chunk_bytes, window=self.kv_window,
+                device=device)
             for i in range(n_prefill)]
         self.router.attach(self.prefill_workers, self.decode_workers)
 

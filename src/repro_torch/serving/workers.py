@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import Context, register_ifunc
+from repro_torch.core import frame as F
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -50,7 +51,10 @@ SUPPORTED_CODECS = ("raw", "rle", "quant8")
 
 
 class PrefillWorker:
-    """Prompt-prefill peer: batched prefill -> KV slab -> stream out."""
+    """Prompt-prefill peer: batched prefill -> KV slab -> stream out.
+    ``chunk_bytes`` and ``window`` shape each KV stream; the rings into
+    the decode peers get slots of at least ``slot_size``, grown to hold a
+    stream frame of ``window`` such chunks (``F.stream_slot_len``)."""
 
     def __init__(self, name: str, cfg: ModelConfig, params, decode_targets,
                  *, obs: Obs | None = None, max_batch: int = 8,
@@ -69,10 +73,12 @@ class PrefillWorker:
         # every cache migration crosses the wire as chunked pipelined puts
         self.rt.dispatcher.set_streaming(True, chunk_bytes=chunk_bytes,
                                          window=window, threshold=2 << 10)
+        self._kv = register_ifunc(self.ctx, "kv_install")
+        self.slot_size = max(slot_size, F.stream_slot_len(
+            len(self._kv.lib.code), chunk_bytes, window))
         for dname, (dctx, dargs) in decode_targets.items():
             self.rt.add_peer(dname, RdmaFabric(), dctx, n_slots=n_slots,
-                             slot_size=slot_size, target_args=dargs)
-        self._kv = register_ifunc(self.ctx, "kv_install")
+                             slot_size=self.slot_size, target_args=dargs)
         self._prefill = SRV.jit_prefill_step(cfg)   # shared across the fleet
         self.d2h_s = 0.0      # host s in the groups' device-to-host copies
         self.max_batch = max_batch

@@ -42,6 +42,8 @@ from repro.serving import kv as RKV
 from repro.train import serve as RSRV
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import Context, register_ifunc
+from repro_torch.core import frame as F
+from repro_torch.obs import Obs
 from repro_torch.models import transformer as PT
 from repro_torch.serving import (TINY, ContinuousBatcher, IfuncFrontend,
                                  Request, Server, ServingFabric)
@@ -375,6 +377,22 @@ def test_enqueue_backpressure_no_leak():
 # single-host server
 
 
+def test_batcher_traces_installs_and_ticks(params):
+    """With tracing on, each install is a ``kv_install`` span keyed by its
+    rid and each decode tick a ``decode_tick`` span holding the tokens it
+    emitted: the ticks' tokens are the ``decoded`` counter's."""
+    srv = Server(TINY, params, batch_slots=4, cache_len=32,
+                 obs=Obs("server", trace=True), **CPU)
+    out = _host_tokens(srv, _reqs(6, max_new=4))
+    spans = srv.obs.tracer.spans(cat="serve")
+    installs = [sp for sp in spans if sp.name == "kv_install:host"]
+    ticks = [sp for sp in spans if sp.name == "decode_tick:host"]
+    assert sorted(sp.corr for sp in installs) == sorted(out) == list(range(6))
+    decoded = srv.obs.snapshot()["counters"]["serve.host.decoded"]
+    assert sum(sp.args["tokens"] for sp in ticks) == decoded == 6 * 3
+    assert all(sp.dur > 0 for sp in ticks)
+
+
 def test_host_server_completion_off_decode_path(params):
     """admit() means *running*; a request is done only when tick() returns
     it — and then its token count matches its budget exactly."""
@@ -453,6 +471,57 @@ def test_fabric_quant8_negotiation_completes(params):
     assert fab.buffered_installs() == 0
     pw = fab.prefill_workers[0]
     assert set(pw._negotiated.values()) == {"quant8"}
+
+
+@pytest.mark.parametrize("chunk,window", [(8 << 10, 4), (32 << 10, 2)])
+def test_prefill_slot_holds_the_stream_window(chunk, window):
+    """A prefill peer's rings into the decode peers hold ``window`` chunks
+    of ``chunk_bytes`` unclamped: at the defaults the slot is the
+    reference's 48 KiB; larger chunks grow it to the stream frame's
+    size."""
+    dw = PS.DecodeWorker("d0", TINY, None, 1, 32, **CPU)
+    pw = PS.PrefillWorker("p0", TINY, None, {"d0": (dw.ctx, dw.kv_ingress())},
+                          chunk_bytes=chunk, window=window, **CPU)
+    need = F.stream_slot_len(len(pw._kv.lib.code), chunk, window)
+    assert pw.slot_size == max(48 << 10, need)
+    ring = pw.rt.dispatcher.peers["d0"].rings[0]
+    assert ring.mailbox.slot_size == pw.slot_size
+    if chunk == 8 << 10:
+        rdw = RS.DecodeWorker("d0", RS.TINY, None, 1, 32)
+        rpw = RS.PrefillWorker("p0", RS.TINY, None,
+                               {"d0": (rdw.ctx, rdw.kv_ingress())})
+        rring = rpw.rt.dispatcher.peers["d0"].rings[0]
+        assert rring.mailbox.slot_size == pw.slot_size == 48 << 10
+    else:
+        assert pw.slot_size == need > 48 << 10
+
+
+def test_fabric_streams_at_its_kv_chunk_size(params):
+    """A ``ServingFabric`` subclass that sets ``kv_chunk_bytes`` and
+    ``kv_window`` streams each slab in chunks of that size (one chunk a
+    ``TINY`` slab here, two or three at the class's 8 KiB) and serves the same
+    tokens as the host."""
+    class Wide(ServingFabric):
+        kv_chunk_bytes, kv_window = 32 << 10, 2
+
+    host = Server(TINY, params, batch_slots=8, cache_len=32, **CPU)
+    ref = _host_tokens(host, _reqs(6))
+    chunks = {}
+    for cls in (ServingFabric, Wide):
+        fab = cls(TINY, params, n_prefill=2, n_decode=2, batch_slots=8,
+                  cache_len=32, obs=Obs("serving", trace=True), **CPU)
+        done = fab.run(_reqs(6))
+        fab.drain()
+        assert {rid: list(r.out) for rid, r in done.items()} == ref
+        assert fab.buffered_installs() == 0 and fab.streams_landed() == 6
+        streams = [sp for sp in fab.obs.tracer.spans(cat="stream")
+                   if sp.name.startswith("stream:kv_install@")]
+        assert [sp.args["chunks"] for sp in streams] == [
+            -(-sp.args["bytes"] // cls.kv_chunk_bytes) for sp in streams]
+        chunks[cls] = sum(dw.ctx.stats["stream_chunks"]
+                          for dw in fab.decode_workers)
+        assert chunks[cls] == sum(sp.args["chunks"] for sp in streams)
+    assert chunks[Wide] == 6 and chunks[ServingFabric] == 14
 
 
 def _slabs_close(ref_fab, port_fab):
