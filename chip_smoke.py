@@ -62,29 +62,40 @@ Phases, each of which fails the script (non-zero exit, no result line):
    share over another.
 10. the model stack's kernels against their plain versions at the shapes
     the serving and training paths launch: ``flash_fwd`` on [15, S, 64]
-    for S in {200, 512, 4096}, [4, 512, 128] with window 256, and the
+    for S in {200, 512, 4096}, [4, 512, 128] with window 256, the
     training shapes [30, 2,048, 64] (phase 17's microbatch) and
-    [30, 1,024, 64] (phase 16's batch), f32 (the FMA kernel) and bf16
-    (the wgmma kernel); ``ssd_scan`` on [48, nc, Q, 64], ds 128, for
+    [30, 1,024, 64] (phase 16's batch), RecurrentGemma's [10, S, 256]
+    with window 2,048 for S in {200, 512, 1,024, 4,096} and
+    Phi-3-Vision's [32, S, 96] for S in {512, 4,096}, f32 (the FMA
+    kernel) and bf16 (the wgmma kernel); ``ssd_scan`` on [48, nc, Q, 64], ds 128, for
     (nc, Q) in {(1, 200), (16, 256)}, B and C per row (G = 48) and shared
     by the 48 heads (G = 1, the model's layout at batch 1), the grouped
     call equal bit for bit to the same B and C broadcast to every row;
 11. model kernel timings at the path's largest shapes as in phase 5, with
     ``scaled_dot_product_attention`` as flash's library yardstick: the bf16
     forward timed by its own profiler name (``flash_fwd_wgmma_kernel``),
-    its TFLOP/s, share of the bound and ratio to SDPA's forward;
+    its TFLOP/s, share of the bound and ratio to SDPA's forward, at
+    [15, 4,096, 64] and at the new head dims' largest shapes, [10, 4,096,
+    256] with window 2,048 (beside SDPA causal without the window and
+    SDPA with the window as a boolean mask) and [32, 4,096, 96];
     ``ssd_scan`` at [48, 16, 256, 64], ds 128, in both layouts of phase
     10, its four ``ssd_`` kernels' device times summed per call, each
     layout beside its own bound (C B^T counted once per group);
-12. model parity in f32 at the full published width of SmolLM-360M and
-    Mamba-2 780M: the kernel path's prefill logits and cache against the
-    plain path's on 4 prompts of 256 tokens, and teacher forcing (prefill
-    240 tokens through the kernels, decode 16, each step against the
-    plain path's train logits);
-13. serving in bf16, each model at full width: a ``ContinuousBatcher``
+12. model parity in f32 at the full published width of SmolLM-360M,
+    Mamba-2 780M, RecurrentGemma-2B and Phi-3-Vision (tokens only) and of
+    Qwen3-30B-A3B at 4 of its 48 layers: the kernel path's prefill logits
+    and cache against the plain path's on 4 prompts of 256 tokens, and
+    teacher forcing (prefill 240 tokens through the kernels, decode 16,
+    each step against the plain path's train logits; for the MoE at a
+    capacity factor of E / k, where no token copy is dropped in any mode,
+    and at the published 1.25 the kernel path's prefill and decode logits
+    against the plain path's, which drops the same copies);
+13. serving in bf16, SmolLM-360M, Mamba-2 780M and RecurrentGemma-2B at
+    full width, Qwen3-30B-A3B at 4 layers: a ``ContinuousBatcher``
     with 4 slots and cache_len 2,048 answers 4 requests (prompts of
     1,024, 512, 256 and 200 tokens, 32 new tokens each), the model's
-    kernel launched once per layer in each prefill and never in decode;
+    kernel launched once per attention (or SSD) layer in each prefill
+    (8 of RecurrentGemma's 26) and never in decode;
     decode tokens/s, the SMs' idle share over the phase, prefill tokens/s
     at batch 1 and 4,096 tokens, and that prefill's five longest device
     kernels under torch.profiler;
@@ -329,6 +340,11 @@ phase 21's and phase 24 (b)'s (``elastic_launches``, also in
 ``launches``); the three flash entries' ``driver_launches`` are their
 launches in phase 24 (a)'s 12 steps, and ``flash_fwd``'s
 ``fabric_launches`` its launches in phase 25 (a)'s fleet run.
+``flash_fwd``'s ``launches`` sum phase 13's four models (SmolLM-360M 32 a
+prefill, RecurrentGemma-2B 8, Qwen3-30B-A3B 4; 176 in all) and its
+``head_dims`` hold phase 11's times at head_dim 256 and 96, each with its
+bound and SDPA's (``library_window_mask_ms``: SDPA given the window as a
+boolean mask).
 """
 
 import contextlib
@@ -436,10 +452,20 @@ FIG_FLOW_STAGES, FIG_FLOW_BYTES, FIG_FLOW_ITERS, FIG_FLOW_SLOT = \
 PEAKS = [("H200", 4.8e12, 67e12, 989e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
          ("H100 PCIe", 2.0e12, 51e12, 756e12), ("H100", 3.35e12, 67e12, 989e12)]
 
-# the model stack: each model's published config with its kernel selected,
-# and the plain path it is held against
-MODELS = {"smollm_360m": ({"attn_impl": "flash"}, {"attn_impl": "naive"}),
-          "mamba2_780m": ({"ssd_impl": "kernel"}, {"ssd_impl": "xla"})}
+# the model stack: each model's published config with its kernel selected
+# (and, for Qwen3-30B-A3B, its depth cut to 4 of 48 layers: the port's
+# init draws every leaf in f32, and the stacked experts alone are 38.6 GB
+# of f32 at full depth), and the plain path it is held against
+FLASH, NAIVE = {"attn_impl": "flash"}, {"attn_impl": "naive"}
+MODELS = {"smollm_360m": (FLASH, NAIVE),
+          "mamba2_780m": ({"ssd_impl": "kernel"}, {"ssd_impl": "xla"}),
+          "recurrentgemma_2b": (FLASH, NAIVE),
+          "qwen3_moe_30b_a3b": ({**FLASH, "num_layers": 4}, NAIVE),
+          "phi3_vision_4_2b": (FLASH, NAIVE)}
+# the models phase 13 serves (Phi-3-Vision's path is its image frontend's,
+# a stub here: phase 12 holds its token path)
+SERVE_MODELS = ("smollm_360m", "mamba2_780m", "recurrentgemma_2b",
+                "qwen3_moe_30b_a3b")
 SERVE_PROMPTS, SERVE_NEW, SERVE_SLOTS, SERVE_CACHE = (1024, 512, 256, 200), \
     32, 4, 2048
 PARITY_B, PARITY_S, PARITY_PREFILL = 4, 256, 240
@@ -450,6 +476,14 @@ PREFILL_S = 4096
 # [BH, nc, Q, hd, ds] (48 Mamba-2 heads at a 200-token prompt and at 4,096)
 FLASH_SHAPES = ((15, 200, 64, 0), (15, 512, 64, 0), (15, 4096, 64, 0),
                 (4, 512, 128, 256))
+# the forward alone besides (the backward kernels take head_dim 64 and 128
+# only; phase 10 adds every shape of phase 13's prefills, flash_fwd_shapes):
+# Phi-3-Vision's 32 heads at head_dim 96, whose token path phase 12 holds
+# in f32; phase 11 times head_dim 256 (RecurrentGemma's 10 heads, MQA
+# repeated, with its window of 2,048) and 96 at the 4,096-token prefill
+RG_FLASH_SHAPE = (10, PREFILL_S, 256, 2048)
+PHI3_FLASH_SHAPE = (32, PREFILL_S, 96, 0)
+PHI3_FLASH_SHAPES = ((32, 512, 96, 0), PHI3_FLASH_SHAPE)
 SSD_SHAPES = ((48, 1, 200, 64, 128), (48, 16, 256, 64, 128))
 # f32 kernel vs plain: summation order only.  bf16 flash: O rounded to
 # bf16 by the kernel (2^-8 relative), against f32 on the same inputs.
@@ -5685,6 +5719,56 @@ def model_config(arch, impl, **kw):
     return get_config(arch).with_(**impl, **kw)
 
 
+def model_kernel(impl):
+    """The kernel a model's selection in ``MODELS`` runs."""
+    return "flash_fwd" if "attn_impl" in impl else "ssd_scan"
+
+
+def kernel_layers(cfg, kernel):
+    """The layers of ``cfg`` that launch ``kernel`` once a prefill: the
+    attention blocks for ``flash_fwd``, the SSD blocks for ``ssd_scan``
+    (RecurrentGemma-2B: 8 of 26)."""
+    from repro_torch.models.transformer import ATTN_KINDS
+
+    kinds = ATTN_KINDS if kernel == "flash_fwd" else ("ssd",)
+    return sum(kind in kinds for kind in cfg.layer_kinds)
+
+
+def flash_fwd_shapes():
+    """flash's forward [BH, S, hd, window] for phase 10: ``FLASH_SHAPES``;
+    every shape phase 13's prefills give the kernel, derived from each
+    flash model of ``SERVE_MODELS`` (at batch 1, KV repeated to all
+    heads, each attention kind's window, over ``SERVE_PROMPTS`` and the
+    ``PREFILL_S`` prefill), so that no model served there goes unchecked;
+    and ``PHI3_FLASH_SHAPES``."""
+    from repro_torch.models.transformer import ATTN_KINDS
+
+    shapes = list(FLASH_SHAPES)
+    for arch in SERVE_MODELS:
+        kern = MODELS[arch][0]
+        if model_kernel(kern) != "flash_fwd":
+            continue
+        cfg = model_config(arch, kern)
+        windows = sorted({cfg.attn_window if kind == "attn_local" else 0
+                          for kind in cfg.layer_kinds if kind in ATTN_KINDS})
+        shapes += [(cfg.num_heads, S, cfg.head_dim, w)
+                   for S in (*SERVE_PROMPTS, PREFILL_S) for w in windows]
+    shapes = tuple(dict.fromkeys(shapes + list(PHI3_FLASH_SHAPES)))
+    check(RG_FLASH_SHAPE in shapes, f"phase 11's {RG_FLASH_SHAPE} is not "
+                                    f"on the serving path")
+    return shapes
+
+
+def flash_work(BH, S, hd, window):
+    """(FLOP, bytes) a causal flash forward must do: Q K^T and P V over
+    the (q, k) pairs the mask keeps (with a window W < S: the first W
+    rows' triangle, then W keys a row), q, k, v read and O written once
+    in bf16, LSE written in f32."""
+    W = window if 0 < window < S else S
+    pairs = W * (W + 1) // 2 + (S - W) * W
+    return 4 * BH * hd * pairs, 4 * BH * S * hd * 2 + BH * S * 4
+
+
 def flash_inputs(np, torch, dev, rng, BH, S, hd, dtype):
     return [torch.from_numpy(rng.standard_normal((BH, S, hd))
                              .astype(np.float32)).to(dev, dtype)
@@ -5746,7 +5830,7 @@ def phase_model_kernels(np, torch, dev):
         f"{torch.backends.cudnn.allow_tf32}")
     rng = np.random.default_rng(20)
     errs = {"flash_fwd": 0.0, "ssd_scan": 0.0}
-    for BH, S, hd, window in FLASH_SHAPES + train_flash_shapes():
+    for BH, S, hd, window in flash_fwd_shapes() + train_flash_shapes():
         scale = 1.0 / float(np.sqrt(hd))
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(np, torch, dev, rng, BH, S, hd, dtype)
@@ -5791,11 +5875,51 @@ def phase_model_kernels(np, torch, dev):
     return errs
 
 
-def phase_model_parity(np, torch, dev):
-    """Both models at full width in f32: the kernel path's prefill logits
-    and cache against the plain path's, and teacher forcing."""
+def prefill_decode(torch, params, toks, cfg):
+    """Prefill ``PARITY_PREFILL`` tokens through ``cfg``, then decode the
+    rest one at a time; -> each step's logits [B, V]: the prefill's last,
+    then each decode step's."""
     from repro_torch.models import transformer as MT
     from repro_torch.train import serve as SRV
+
+    cache, last = SRV.make_prefill_step(cfg)(
+        params, {"tokens": toks[:, :PARITY_PREFILL]})
+    steps = [last[:, 0]]
+    cache = SRV.pad_cache_to(cache, MT.cache_shapes(cfg, PARITY_B, PARITY_S))
+    decode = SRV.make_decode_step(cfg)
+    for t in range(PARITY_PREFILL, PARITY_S):
+        cache, lg = decode(params, cache, toks[:, t:t + 1], t)
+        steps.append(lg[:, 0])
+    del cache, last
+    return steps
+
+
+def teacher_forcing(torch, params, toks, cfg, cfg_p):
+    """:func:`prefill_decode` through ``cfg`` (the kernels), each step's
+    logits against ``cfg_p``'s (the plain path's) train logits; -> each
+    step's max |err|."""
+    from repro_torch.models import transformer as MT
+
+    lt, _, _ = MT.forward(params, {"tokens": toks}, cfg_p, mode="train")
+    steps = prefill_decode(torch, params, toks, cfg)
+    tf = [(lg - lt[:, t]).abs().max().item()
+          for t, lg in zip(range(PARITY_PREFILL - 1, PARITY_S), steps)]
+    del lt, steps
+    return tf
+
+
+def phase_model_parity(np, torch, dev):
+    """Each model of ``MODELS`` at full width in f32 (Qwen3-30B-A3B at 4
+    layers): the kernel path's prefill logits and cache against the plain
+    path's, and teacher forcing.  A MoE drops a token copy past an
+    expert's capacity, ``max(4, ceil(t k cf / E))`` for the t tokens of
+    one forward, so the train forward (1,024 tokens), the prefill (960)
+    and a decode step (4) route alike only where none is dropped: its
+    teacher forcing is held at ``cf = E / k`` (capacity t: no copy
+    dropped in any mode); at the published factor the kernel path's
+    prefill and decode logits are held to the plain path's, which drops
+    the same copies."""
+    from repro_torch.models import transformer as MT
 
     for i, (arch, (kern, plain)) in enumerate(MODELS.items()):
         cfg = model_config(arch, kern, dtype="float32", param_dtype="float32")
@@ -5821,30 +5945,47 @@ def phase_model_parity(np, torch, dev):
         check(ok, f"{arch} f32 prefill, kernel path vs plain path: max "
                   f"|err| {errs} over {TOL_MODEL}")
         del lk, ck, lp, cp
-        lt, _, _ = MT.forward(params, {"tokens": toks}, cfg_p, mode="train")
-        cache, last = SRV.make_prefill_step(cfg)(
-            params, {"tokens": toks[:, :PARITY_PREFILL]})
-        tf = [(last[:, 0] - lt[:, PARITY_PREFILL - 1]).abs().max().item()]
-        cache = SRV.pad_cache_to(cache, MT.cache_shapes(cfg, PARITY_B,
-                                                        PARITY_S))
-        decode = SRV.make_decode_step(cfg)
-        for t in range(PARITY_PREFILL, PARITY_S):
-            cache, lg = decode(params, cache, toks[:, t:t + 1], t)
-            tf.append((lg[:, 0] - lt[:, t]).abs().max().item())
+        torch.cuda.empty_cache()
+        tcfg = cfg
+        if cfg.num_experts:
+            tcfg = cfg.with_(
+                capacity_factor=cfg.num_experts / cfg.experts_per_token)
+        tf = teacher_forcing(torch, params, toks, tcfg, tcfg.with_(**plain))
         check(max(tf) < TOL_TEACHER,
               f"{arch} teacher forcing: max |err| {max(tf):.3g} over "
               f"{TOL_TEACHER}")
+        note = ""
+        if cfg.num_experts:
+            pairs = zip(prefill_decode(torch, params, toks, cfg),
+                        prefill_decode(torch, params, toks, cfg_p))
+            ok, e_pub = True, 0.0
+            for a, b in pairs:
+                ok = ok and torch.allclose(a, b, **TOL_MODEL)
+                e_pub = max(e_pub, (a - b).abs().max().item())
+            check(ok, f"{arch} prefill and decode at capacity factor "
+                      f"{cfg.capacity_factor:g}, kernel path vs plain path: "
+                      f"max |err| {e_pub:.3g} over {TOL_MODEL}")
+            note = (f" at capacity factor {tcfg.capacity_factor:g} (E / k: "
+                    f"no copy dropped); at the published "
+                    f"{cfg.capacity_factor:g}, prefill {PARITY_PREFILL} and "
+                    f"decode {PARITY_S - PARITY_PREFILL} through the kernels "
+                    f"vs the plain path (the same copies dropped): max |err| "
+                    f"{e_pub:.3g} (tolerance {TOL_MODEL['atol']})")
+            del pairs
+        errs_s = ", ".join(f"{k} {v:.3g}" for k, v in list(errs.items())[:8])
+        if len(errs) > 8:
+            errs_s += (f", ... ({len(errs)} entries, largest "
+                       f"{max(errs.values()):.3g})")
         n_par = sum(v.numel() for v in params.values())
         log(f"{arch} f32 full width ({n_par / 1e6:.1f} M params, "
             f"{cfg.num_layers} layers): prefill of {PARITY_B} x {PARITY_S} "
             f"tokens through the kernels vs the plain path ("
-            f"{ {**plain} }): max |err| "
-            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-            + f" (tolerance {TOL_MODEL['atol']}); teacher forcing, prefill "
+            f"{ {**plain} }): max |err| {errs_s} (tolerance "
+            f"{TOL_MODEL['atol']}); teacher forcing, prefill "
             f"{PARITY_PREFILL} then decode {PARITY_S - PARITY_PREFILL} vs "
             f"train logits: max |err| {max(tf):.3g} (tolerance "
-            f"{TOL_TEACHER})")
-        del params, lt, cache, last
+            f"{TOL_TEACHER}){note}")
+        del params
         torch.cuda.empty_cache()
 
 
@@ -5854,7 +5995,8 @@ def serve_requests(torch, cfg, params, prompts, dev, kernel):
     finished.  Checks that ``kernel`` launched once per layer in each
     prefill, no counted kernel launched otherwise, and that every logit
     was finite.  Returns (requests, prefill s, decode s, tokens emitted by
-    the ticks, ticks, wall s)."""
+    the ticks, ticks, wall s).  ``kernel`` launches once per layer that
+    runs it (:func:`kernel_layers`)."""
     from repro_torch.serving import ContinuousBatcher, Request
     from repro_torch.train import serve as SRV
 
@@ -5869,6 +6011,7 @@ def serve_requests(torch, cfg, params, prompts, dev, kernel):
 
     b._decode = decode
     prefill = SRV.jit_prefill_step(cfg)
+    per_prefill = kernel_layers(cfg, kernel)
     reqs = [Request(i, p, SERVE_NEW) for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5885,7 +6028,7 @@ def serve_requests(torch, cfg, params, prompts, dev, kernel):
         prefill_s += time.perf_counter() - c0
         now = read_counts()
         delta = {key: now[key] - before[key] for key in now}
-        want = {key: (cfg.num_layers if key == kernel else 0) for key in now}
+        want = {key: (per_prefill if key == kernel else 0) for key in now}
         check(delta == want, f"{cfg.name} prefill of {len(req.prompt)}: "
                              f"launches {delta}, want {want}")
         del cache1, last
@@ -5908,19 +6051,22 @@ def serve_requests(torch, cfg, params, prompts, dev, kernel):
 
 
 def phase_serving(np, torch, dev):
-    """Each model in bf16 at full width serves 4 requests through a
-    ContinuousBatcher — the main path; then the same under torch.profiler
-    for the SMs' idle share, and prefill tokens/s at batch 1 and 4,096
-    tokens.  Returns {kernel: launches on the main path}."""
+    """Each model of ``SERVE_MODELS`` in bf16 at full width (Qwen3-30B-A3B
+    at 4 layers) serves 4 requests through a ContinuousBatcher — the main
+    path; then the same under torch.profiler for the SMs' idle share, and
+    prefill tokens/s at batch 1 and 4,096 tokens.  Returns {kernel:
+    launches on the main path, summed over the models}."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as MT
     from repro_torch.train import serve as SRV
 
     launches = {}
-    for i, (arch, (kern, _)) in enumerate(MODELS.items()):
+    for i, arch in enumerate(SERVE_MODELS):
+        kern = MODELS[arch][0]
         cfg = model_config(arch, kern)
-        kernel = "flash_fwd" if "attn_impl" in kern else "ssd_scan"
+        kernel = model_kernel(kern)
+        per_prefill = kernel_layers(cfg, kernel)
         params = MT.init_params(
             cfg, torch.Generator(device=dev).manual_seed(200 + i), dev)
         rng = np.random.default_rng(40 + i)
@@ -5934,16 +6080,17 @@ def phase_serving(np, torch, dev):
         reqs, prefill_s, decode_s, emitted, ticks, wall = serve_requests(
             torch, cfg, params, prompts, dev, kernel)
         counts = read_counts()
-        launches[kernel] = counts[kernel]
-        check(counts[kernel] == cfg.num_layers * len(prompts),
+        launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+        check(counts[kernel] == per_prefill * len(prompts),
               f"{arch}: {kernel} launched {counts[kernel]} times in the "
-              f"serving run, want {cfg.num_layers} x {len(prompts)}")
+              f"serving run, want {per_prefill} x {len(prompts)}")
         log(f"{arch} bf16 serving, {SERVE_SLOTS} slots, cache_len "
             f"{SERVE_CACHE}: {len(reqs)} requests (prompts {SERVE_PROMPTS}) "
             f"x {SERVE_NEW} tokens in {wall:.3f} s; prefills {prefill_s:.3f} "
             f"s, {ticks} decode ticks {decode_s:.3f} s = "
             f"{emitted / decode_s:.1f} decode tokens/s; {kernel} "
-            f"{cfg.num_layers} launches per prefill, none in decode; "
+            f"{per_prefill} launches per prefill ({cfg.num_layers} layers), "
+            f"none in decode; "
             f"launches {counts}; first tokens "
             f"{[r.out[:4] for r in reqs]}")
 
@@ -5985,37 +6132,78 @@ def phase_serving(np, torch, dev):
     return launches
 
 
-def phase_model_timings(np, torch, dev, errs):
-    """``flash_fwd`` and ``ssd_scan`` at the path's largest shapes: device
-    time, wrapper time, plain version, bound, library; returns their
-    kernels-line entries, whose ``launches`` the serving phase fills."""
+def flash_times(np, torch, dev, rng, shape):
+    """``flash_fwd`` in bf16 at ``shape`` [BH, S, hd, window]: device and
+    wrapper ms, the plain version, the bound, and SDPA causal on the same
+    inputs ([1, BH, S, hd]: the 4-D layout PyTorch's fused attention
+    backends take); with a window also SDPA given the window as a boolean
+    mask (the kernel's function; SDPA has no window argument), the causal
+    call then computing more than the kernel."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from repro_torch.kernels.flash_attn import flash_fwd, flash_fwd_plain
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
-    bw, fp32, bf16 = card_peaks(torch.cuda.get_device_name(0))
-    rng = np.random.default_rng(50)
-    BH, S, hd, _ = FLASH_SHAPES[2]
+    bw, _, bf16 = card_peaks(torch.cuda.get_device_name(0))
+    BH, S, hd, window = shape
     scale = 1.0 / float(np.sqrt(hd))
     q, k, v = flash_inputs(np, torch, dev, rng, BH, S, hd, torch.bfloat16)
-    fl_ms, fl_wrap = kernel_times(
-        torch, lambda: flash_fwd(q, k, v, scale=scale),
+    ms, wrap = kernel_times(
+        torch, lambda: flash_fwd(q, k, v, scale=scale, window=window),
         "flash_fwd_wgmma_kernel", 20, require=True)
-    fl_plain = cuda_ms(torch, lambda: flash_fwd_plain(q, k, v, scale=scale),
-                       3, repeats=3)
-    o = flash_fwd(q, k, v, scale=scale)[0]
-    # [1, BH, S, hd]: the 4-D layout PyTorch's fused attention backends take
+    plain = cuda_ms(torch, lambda: flash_fwd_plain(q, k, v, scale=scale,
+                                                   window=window),
+                    3, repeats=3)
+    o = flash_fwd(q, k, v, scale=scale, window=window)[0]
     q4, k4, v4 = q[None], k[None], v[None]
-    lib = sdpa(q4, k4, v4, is_causal=True, scale=scale)[0]
-    check(torch.allclose(o.float(), lib.float(), **TOL_FLASH_BF16),
-          "scaled_dot_product_attention disagrees with the kernel")
-    fl_lib = cuda_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True,
-                                         scale=scale), 20)
-    fl_flops = 4 * BH * hd * S * (S + 1) / 2        # QK^T and PV, causal
-    fl_bytes = 4 * BH * S * hd * 2 + BH * S * 4     # q, k, v, O; LSE
-    fl_b_ops, fl_b_bytes = fl_flops / bf16 * 1e3, fl_bytes / bw * 1e3
-    del q, k, v, o, lib, q4, k4, v4
+    lib = {"library_ms": cuda_ms(torch, lambda: sdpa(
+        q4, k4, v4, is_causal=True, scale=scale), 20)}
+    want = sdpa(q4, k4, v4, is_causal=True, scale=scale)[0]
+    if window:
+        pos = torch.arange(S, device=dev)
+        band = (pos[:, None] >= pos[None, :]) \
+            & (pos[:, None] - pos[None, :] < window)
+        want = sdpa(q4, k4, v4, attn_mask=band, scale=scale)[0]
+        lib["library_window_mask_ms"] = cuda_ms(torch, lambda: sdpa(
+            q4, k4, v4, attn_mask=band, scale=scale), 20)
+        del band
+    check(torch.allclose(o.float(), want.float(), **TOL_FLASH_BF16),
+          f"scaled_dot_product_attention disagrees with the kernel at "
+          f"{list(shape)}")
+    flops, nbytes = flash_work(BH, S, hd, window)
+    b_ops, b_bytes = flops / bf16 * 1e3, nbytes / bw * 1e3
+    bound = max(b_ops, b_bytes)
+    sdpa_s = f"scaled_dot_product_attention causal {lib['library_ms']:.4f}"
+    if window:
+        sdpa_s += (f" (no window: all {S * (S + 1) // 2} causal pairs), with "
+                   f"the window as a boolean mask "
+                   f"{lib['library_window_mask_ms']:.4f}")
+    log(f"flash_fwd [{BH}, {S}, {hd}] window {window} bf16: {ms:.4f} ms on "
+        f"the card (wrapper {wrap:.4f}, plain {plain:.4f}, {sdpa_s}; bound "
+        f"{bound:.4f} ms: {flops:.3g} FLOP at bf16 -> {b_ops:.4f} ms, "
+        f"{nbytes / 1e6:.1f} MB -> {b_bytes:.4f} ms); "
+        f"{flops / ms / 1e9:.2f} TFLOP/s, {bound / ms:.3f} of the bound, "
+        f"{ms / lib['library_ms']:.2f}x SDPA causal")
+    del q, k, v, o, want, q4, k4, v4
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "ms": ms, "wrapper_ms": wrap,
+            "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+            "tflops": flops / ms / 1e9, **lib}
+
+
+def phase_model_timings(np, torch, dev, errs):
+    """``flash_fwd`` and ``ssd_scan`` at the path's largest shapes: device
+    time, wrapper time, plain version, bound, library; ``flash_fwd`` also
+    at head_dim 256 and 96 (:func:`flash_times`, under the entry's
+    ``head_dims``); returns their kernels-line entries, whose
+    ``launches`` the serving phase fills."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    bw, fp32, _ = card_peaks(torch.cuda.get_device_name(0))
+    rng = np.random.default_rng(50)
+    # [15, 4,096, 64], then head_dim 256 and 96 at their largest shapes
+    fl = [flash_times(np, torch, dev, rng, shape) for shape in
+          (FLASH_SHAPES[2], RG_FLASH_SHAPE, PHI3_FLASH_SHAPE)]
 
     BHs, nc, Q, hd_s, ds = SSD_SHAPES[1]
     x, la, Bm, Cm = ssd_inputs(np, torch, dev, rng, BHs, nc, Q, hd_s, ds)
@@ -6030,18 +6218,11 @@ def phase_model_timings(np, torch, dev, errs):
     del x, la, Bm, Cm
     torch.cuda.empty_cache()
 
-    per_prefill = {("flash_fwd" if "attn_impl" in kern else "ssd_scan"):
-                   model_config(arch, kern).num_layers
-                   for arch, (kern, _) in MODELS.items()}
-    log(f"flash_fwd [{BH}, {S}, {hd}] bf16: {fl_ms:.4f} ms on the card "
-        f"(wrapper {fl_wrap:.4f}, plain {fl_plain:.4f}, "
-        f"scaled_dot_product_attention {fl_lib:.4f}, bound "
-        f"{max(fl_b_ops, fl_b_bytes):.4f} ms: {fl_flops:.3g} FLOP at bf16 "
-        f"-> {fl_b_ops:.4f} ms, {fl_bytes / 1e6:.1f} MB -> "
-        f"{fl_b_bytes:.4f} ms); {fl_flops / fl_ms / 1e9:.2f} TFLOP/s, "
-        f"{max(fl_b_ops, fl_b_bytes) / fl_ms:.3f} of the bound, "
-        f"{fl_ms / fl_lib:.2f}x scaled_dot_product_attention's forward; "
-        f"{per_prefill['flash_fwd']} launches per SmolLM prefill")
+    per_prefill = {kernel: kernel_layers(
+        model_config(arch, MODELS[arch][0]), kernel) for arch, kernel in
+        (("smollm_360m", "flash_fwd"), ("mamba2_780m", "ssd_scan"))}
+    log(f"flash_fwd: {per_prefill['flash_fwd']} launches per SmolLM "
+        f"prefill")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for G, (ms, wrap, plain, flops, nbytes) in ss.items():
         b_ops, b_bytes = flops / fp32 * 1e3, nbytes / bw * 1e3
@@ -6066,10 +6247,10 @@ def phase_model_timings(np, torch, dev, errs):
          "source": "src/repro_torch/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn.py:81",
          "launches": None, "max_abs_err": errs["flash_fwd"],
-         "ms": fl_ms, "wrapper_ms": fl_wrap, "plain_ms": fl_plain,
-         "bound_ms": max(fl_b_ops, fl_b_bytes),
-         "bound_by": "operations" if fl_b_ops >= fl_b_bytes else "bytes",
-         "library_ms": fl_lib},
+         **{key: fl[0][key] for key in ("ms", "wrapper_ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+         "head_dims": {str(f["shape"][2]): f for f in fl[1:]}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:81",

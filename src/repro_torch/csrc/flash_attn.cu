@@ -44,9 +44,16 @@
 // tile reads zeros and writes nothing past S).
 //
 // Inputs q, k, v [BH, S, hd] contiguous, f32 or bf16; O [BH, S, hd] in the
-// same type; LSE [BH, S] f32.  hd is 64 or 128.  The bf16 kernel is a
-// template on hd: 256 needs only wgmma's n256 form added to hopper.cuh,
-// 96 a last column panel padded to 64.
+// same type; LSE [BH, S] f32.  hd is 64, 96, 128 or 256; both kernels are
+// templates on it.  In the bf16 one, head_dim 256 runs O += P V as one
+// m64n256k16 a k-step: O alone is then 128 f32 registers a thread, so a
+// block of two warpgroups runs one to an SM with up to 255 registers each
+// (phase 1 of chip_smoke.py fails a build that spills).  Head_dim 96 holds
+// Q, K and V as two column panels, the second half used: S = Q K^T reads
+// only its 6 k-steps, and O += P V runs n128 over V's last panel, whose
+// columns 96-127 are zeroed once in both stages (cp.async never writes
+// them), so the accumulator's last 32 columns stay 0 and are never
+// stored.  Register- and shared-memory-wise 96 is 128.
 
 #include <cmath>
 #include <cstdint>
@@ -205,8 +212,14 @@ __global__ void __launch_bounds__(kThreads)
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* lse, int64_t BH, int64_t S, int64_t hd, float scale,
                int64_t window, cudaStream_t stream) {
-  auto kernel = hd == 64 ? flash_fwd_kernel<64> : flash_fwd_kernel<128>;
-  const size_t smem = hd == 64 ? smem_bytes<64>() : smem_bytes<128>();
+  auto kernel = hd == 64    ? flash_fwd_kernel<64>
+                : hd == 96  ? flash_fwd_kernel<96>
+                : hd == 128 ? flash_fwd_kernel<128>
+                            : flash_fwd_kernel<256>;
+  const size_t smem = hd == 64    ? smem_bytes<64>()
+                      : hd == 96  ? smem_bytes<96>()
+                      : hd == 128 ? smem_bytes<128>()
+                                  : smem_bytes<256>();   // 213,760 B
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -226,12 +239,14 @@ using bf16 = __nv_bfloat16;
 
 template <int HD>
 struct Fwd {
+  static constexpr int HDP = (HD + 63) / 64 * 64;   // whole column panels
   static constexpr int BQ = 128;             // query rows a block
   static constexpr int BK = 64;              // keys a tile
   static constexpr int THREADS = 256;        // two warpgroups
-  static constexpr int Q_BYTES = BQ * HD * 2;
-  static constexpr int KV_BYTES = BK * HD * 2;   // K or V, one stage
+  static constexpr int Q_BYTES = BQ * HDP * 2;
+  static constexpr int KV_BYTES = BK * HDP * 2;  // K or V, one stage
   // the ring's two stages of K and V after Q; 1 KiB to align the base
+  // (head_dim 256: 1 + 64 + 128 KiB)
   static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * 2 * KV_BYTES;
   // two blocks an SM where the registers allow
   static constexpr int MIN_BLOCKS = HD == 64 ? 2 : 1;
@@ -261,6 +276,15 @@ __global__ void __launch_bounds__(Fwd<HD>::THREADS, Fwd<HD>::MIN_BLOCKS)
                            ? (q0 - window + 1) / BK : 0;
   const int kt_end = q_last / BK;
 
+  if constexpr (HD != C::HDP) {             // V's padded columns, both stages
+    constexpr int FIRST = HD % 64 / 8, PAD = (C::HDP - HD) / 8;
+    for (int e = tid; e < 2 * BK * PAD; e += NT) {
+      const int st = e / (BK * PAD), r = e / PAD % BK, ch = FIRST + e % PAD;
+      st_shared_zero16(KV0 + st * 2 * C::KV_BYTES + C::KV_BYTES +
+                       (C::HDP / 64 - 1) * BK * 128 + r * 128 +
+                       ((ch ^ (r & 7)) << 4));
+    }
+  }
   load_tile<BQ, HD, NT>(Qs, q + base, q0, S, tid);
   load_tile<BK, HD, NT>(KV0, k + base, kt_begin * BK, S, tid);
   load_tile<BK, HD, NT>(KV0 + C::KV_BYTES, v + base, kt_begin * BK, S, tid);
@@ -270,9 +294,9 @@ __global__ void __launch_bounds__(Fwd<HD>::THREADS, Fwd<HD>::MIN_BLOCKS)
   const int row = wq0 + 16 * warp + lane / 4;   // rows row and row + 8
   const int col = 2 * (lane % 4);            // columns 8j + col, + 1
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-  float acc[HD / 2];
+  float acc[C::HDP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < C::HDP / 2; ++i) acc[i] = 0.f;
 
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
     const uint32_t Ks = KV0 + ((kt - kt_begin) & 1) * 2 * C::KV_BYTES;
@@ -348,7 +372,7 @@ __global__ void __launch_bounds__(Fwd<HD>::THREADS, Fwd<HD>::MIN_BLOCKS)
         l[h] = l[h] * corr[h] + ps[h];
       }
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) acc[i] *= corr[(i & 2) >> 1];
+      for (int i = 0; i < C::HDP / 2; ++i) acc[i] *= corr[(i & 2) >> 1];
 
       uint32_t pa[BK / 16][4];               // P in bf16, register A
       acc_to_a<BK>(s, pa);
@@ -357,7 +381,7 @@ __global__ void __launch_bounds__(Fwd<HD>::THREADS, Fwd<HD>::MIN_BLOCKS)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)     // O += P V, V MN-major
-        wgmma_rs<HD, 1>(acc, pa[kk],
+        wgmma_rs<C::HDP, 1>(acc, pa[kk],
                         desc_sw128(Vs + kk * 16 * 128, BK * 128, 1024), 1);
       wgmma_commit();
       wgmma_wait<0>();
@@ -415,12 +439,19 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 int is_bf16, void* stream) {
   if (BH <= 0 || S <= 0) return 0;
   if (BH > 65535 || S > (int64_t{1} << 30) || window < 0 ||
-      (hd != 64 && hd != 128))
+      (hd != 64 && hd != 96 && hd != 128 && hd != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
     return launch_f32(q, k, v, o, lse, BH, S, hd, scale, window, st);
-  return hd == 64 ? launch_bf16<64>(q, k, v, o, lse, BH, S, scale, window, st)
-                  : launch_bf16<128>(q, k, v, o, lse, BH, S, scale, window,
-                                     st);
+  switch (hd) {
+    case 64:
+      return launch_bf16<64>(q, k, v, o, lse, BH, S, scale, window, st);
+    case 96:
+      return launch_bf16<96>(q, k, v, o, lse, BH, S, scale, window, st);
+    case 128:
+      return launch_bf16<128>(q, k, v, o, lse, BH, S, scale, window, st);
+    default:
+      return launch_bf16<256>(q, k, v, o, lse, BH, S, scale, window, st);
+  }
 }

@@ -4,8 +4,9 @@
 // wgmma.mma_async m64nNk16 bf16 -> f32 in its two forms (both operands
 // from shared memory, "SS"; A from registers, "RS").
 //
-// Tile layout.  A [rows][HD] bf16 tile (HD a multiple of 64) is held as
-// HD / 64 column panels, each [rows][64]: one 128-byte line a row, its
+// Tile layout.  A [rows][HD] bf16 tile (HD a multiple of 32) is held as
+// ceil(HD / 64) column panels, each [rows][64] (a last panel of 32
+// columns fills half of each line, the rest unwritten): one 128-byte line a row, its
 // eight 16-byte chunks permuted by chunk ^ (row % 8) (the 128B swizzle).
 // Every panel starts on a 1024-byte boundary, so the swizzle, which the
 // hardware computes from address bits, sees row % 8 in bits 7-9.  The same
@@ -63,6 +64,14 @@ __device__ __forceinline__ void cp_async_wait() {
 // included) before later async-proxy reads (wgmma's operands)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 16 zero bytes into shared memory (a generic-proxy write: fence it with
+// fence_proxy_async before wgmma reads it)
+__device__ __forceinline__ void st_shared_zero16(uint32_t dst) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(dst),
+               "r"(0)
+               : "memory");
 }
 
 // Rows row0 .. row0 + ROWS - 1 of a [S, HD] bf16 matrix into the swizzled
@@ -159,7 +168,8 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[N / 2],
 // wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16; TB is the transpose
 // bit of B (0: K-major, 1: MN-major); scale_d = 0 overwrites d, 1 adds.
 // The N the kernels use: SS for the score tiles (32, 64), RS for the
-// products into head_dim (64, 128).
+// products into head_dim (64, 128, 256; head_dim 96 runs n128 over a
+// zero-padded last panel).
 template <int TB>
 __device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t da,
                                            uint64_t db, int scale_d) {
@@ -252,6 +262,56 @@ __device__ __forceinline__ void wgmma_rs128(float (&d)[64],
         "n"(TB));
 }
 
+template <int TB>
+__device__ __forceinline__ void wgmma_rs256(float (&d)[128],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
 
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
@@ -265,9 +325,11 @@ template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "the kernels' head dims");
+  static_assert(N == 64 || N == 128 || N == 256,
+                "the kernels' head dims, padded to whole column panels");
   if constexpr (N == 64) wgmma_rs64<TB>(d, a, db, scale_d);
-  else wgmma_rs128<TB>(d, a, db, scale_d);
+  else if constexpr (N == 128) wgmma_rs128<TB>(d, a, db, scale_d);
+  else wgmma_rs256<TB>(d, a, db, scale_d);
 }
 
 }  // namespace hopper

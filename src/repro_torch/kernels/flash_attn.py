@@ -34,7 +34,8 @@ from repro_torch.kernels import _build
 DEFAULT_BQ = 256
 DEFAULT_BK = 256
 NEG = -1e30
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)     # the forward kernels
+BWD_HEAD_DIMS = (64, 128)                  # the backward kernels
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -54,17 +55,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor) -> None:
+                          v: torch.Tensor, *, backward: bool = False) -> None:
     """What the CUDA kernels take, checked before any launch: f32 or bf16
-    operands with a head_dim of 64 or 128.  bf16 runs the tensor-core
-    kernels (``flash_fwd_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``,
+    operands with a head_dim the kernels are built for, 64, 96, 128 or 256
+    forward (``KERNEL_HEAD_DIMS``) and 64 or 128 backward
+    (``BWD_HEAD_DIMS``).  bf16 runs the tensor-core kernels
+    (``flash_fwd_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``,
     ``flash_bwd_dkv_wgmma_kernel``), f32 the FP32-FMA ones."""
     _check(q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the flash kernel takes float32 or bfloat16, got {q.dtype}")
     hd = q.shape[-1]
+    if backward and hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"the flash backward kernels take head_dim 64 or "
+                         f"128, not {hd} (the forward takes 96 and 256; "
+                         f"training at those head dims waits for backward "
+                         f"kernels built for them)")
     if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes head_dim 64 or 128, not {hd}")
+        raise ValueError(f"the flash kernel takes head_dim 64, 96, 128 or "
+                         f"256, not {hd}")
 
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -206,7 +215,7 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
 def _launch_bwd(symbol, n_out, q, k, v, do, lse, delta, scale, window):
     """Launches ``<symbol>_launch`` of ``csrc/flash_attn_bwd.cu`` on CUDA
     operands; -> its ``n_out`` outputs, each shaped and typed as q."""
-    check_kernel_operands(q, k, v)
+    check_kernel_operands(q, k, v, backward=True)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if q.shape[0] > 65535:
@@ -290,7 +299,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """The reference's ``custom_vjp``: :func:`flash_fwd` forward, saving q,
-    k, v, O and LSE; :func:`flash_bwd` backward on ``dO.contiguous()``."""
+    k, v, O and LSE; :func:`flash_bwd` backward on ``dO.contiguous()``
+    (on CUDA tensors at head_dim 96 or 256 it raises ``ValueError``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, window: int):

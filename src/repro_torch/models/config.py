@@ -6,8 +6,10 @@ The fields, defaults and derived numbers are the reference's
 ="flash"`` runs the hand-written flash-attention kernel on a CUDA tensor
 and ``ssd_impl="kernel"`` the SSD scan kernel.  ``remat`` selects the
 activation checkpointing of a train-mode forward
-(``models.transformer``); ``scan_layers`` and the MoE sharding switches
-are read by no code of this slice.
+(``models.transformer``).  ``scan_layers`` and the MoE sharding switches
+(``moe_seq_shard``, ``moe_expert_resident``) change nothing at world
+size 1, as in the reference without a mesh, and no code of the port
+reads them.
 """
 
 from __future__ import annotations
@@ -108,6 +110,11 @@ class ModelConfig:
         return self.block_pattern[:r]
 
     @property
+    def layer_kinds(self) -> tuple[str, ...]:
+        """Each layer's block kind, first to last."""
+        return tuple(self.block_pattern) * self.n_super + tuple(self.trailing)
+
+    @property
     def group_size(self) -> int:
         return self.num_heads // self.num_kv_heads
 
@@ -170,7 +177,7 @@ class ModelConfig:
             "ssd": ssd_params(),
             "rglru": rglru_params() + mlp_params(F),
         }
-        layers = list(self.block_pattern) * self.n_super + list(self.trailing)
+        layers = self.layer_kinds
         total_blocks = sum(kind_cost[k] for k in layers)
         embed = V * D * (1 if self.tie_embeddings else 2)
         total = total_blocks + embed + D  # final norm

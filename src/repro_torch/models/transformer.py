@@ -21,9 +21,13 @@ and ``"dots"`` a selective checkpoint that saves the outputs of the plain
 matrix products (``aten.mm``; batched products and everything else are
 recomputed), as ``checkpoint_dots_with_no_batch_dims`` does.
 
-This slice carries the dense-attention and SSD blocks (``attn``,
-``attn_local``, ``ssd``).  ``attn_moe`` and ``rglru`` blocks raise
-``NotImplementedError``.
+The block kinds are the reference's: ``attn`` and ``attn_local``
+(attention, a sliding window for the latter, then an MLP), ``attn_moe``
+(attention, then the MoE FFN of :mod:`models.moe`, whose aux loss is
+summed into the forward's), ``ssd`` (the Mamba-2 mixer of
+:mod:`models.ssm`) and ``rglru`` (the RG-LRU recurrence of
+:mod:`models.rglru`, then an MLP).  An unknown kind raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -36,26 +40,18 @@ from torch.utils import checkpoint as C
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 ATTN_KINDS = ("attn", "attn_moe", "attn_local")
-_LATER = {"attn_moe": "the MoE block (models/moe.py) is ported with a later "
-                      "slice of the model stack",
-          "rglru": "the RG-LRU block (models/rglru.py) is ported with a later "
-                   "slice of the model stack"}
 
 
 class TensorSpec(NamedTuple):
     """Shape and type of a cache entry (the reference's ShapeDtypeStruct)."""
     shape: tuple[int, ...]
     dtype: torch.dtype
-
-
-def _not_ported(kind: str):
-    if kind in _LATER:
-        raise NotImplementedError(f"block kind {kind!r}: {_LATER[kind]}")
-    raise ValueError(f"unknown block kind {kind}")
 
 
 # ---------------------------------------------------------------------------
@@ -65,16 +61,24 @@ def _not_ported(kind: str):
 def _block_specs(cfg: ModelConfig, kind: str) -> dict[str, L.Spec]:
     D = cfg.d_model
     s: dict[str, L.Spec] = {}
-    if kind in ("attn", "attn_local"):
+    if kind in ATTN_KINDS:
         s.update(L.norm_specs("ln1", D))
         s.update(L.attn_specs(cfg))
         s.update(L.norm_specs("ln2", D))
-        s.update(L.mlp_specs(cfg))
+        if kind == "attn_moe":
+            s.update(M.moe_specs(cfg))
+        else:
+            s.update(L.mlp_specs(cfg))
     elif kind == "ssd":
         s.update(L.norm_specs("ln1", D))
         s.update(S.ssd_specs(cfg))
+    elif kind == "rglru":
+        s.update(L.norm_specs("ln1", D))
+        s.update(R.rglru_specs(cfg))
+        s.update(L.norm_specs("ln2", D))
+        s.update(L.mlp_specs(cfg))
     else:
-        _not_ported(kind)
+        raise ValueError(f"unknown block kind {kind}")
     return s
 
 
@@ -117,12 +121,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def _cache_entry_specs(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                        per_slot: bool = False):
-    if kind in ("attn", "attn_local"):
+    if kind in ATTN_KINDS:
         W = min(cache_len, cfg.attn_window) if (kind == "attn_local" and cfg.attn_window) else cache_len
         return L.attn_cache_specs(cfg, batch, W, per_slot=per_slot)
     if kind == "ssd":
         return S.ssd_cache_specs(cfg, batch)
-    _not_ported(kind)
+    if kind == "rglru":
+        return R.rglru_cache_specs(cfg, batch)
+    raise ValueError(f"unknown block kind {kind}")
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int, *,
@@ -191,7 +197,7 @@ def block_fwd(kind: str, cfg: ModelConfig, p: dict, x, *, mode: str, pos=None,
               cache=None):
     """Returns (x, new_cache, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if kind in ("attn", "attn_local"):
+    if kind in ATTN_KINDS:
         window = cfg.attn_window if kind == "attn_local" else 0
         h = L.rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
         if mode == "decode":
@@ -200,8 +206,11 @@ def block_fwd(kind: str, cfg: ModelConfig, p: dict, x, *, mode: str, pos=None,
             a, new_cache = _attn_seq_with_cache(p, h, cfg, kind, mode == "prefill")
         x = x + a
         h = L.rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
-        x = x + L.mlp(p, h, cfg)
-        return x, new_cache, aux
+        if kind == "attn_moe":
+            y, aux = M.moe_ffn(p, h, cfg)
+        else:
+            y = L.mlp(p, h, cfg)
+        return x + y, new_cache, aux
     if kind == "ssd":
         h = L.rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
         if mode == "decode":
@@ -209,7 +218,17 @@ def block_fwd(kind: str, cfg: ModelConfig, p: dict, x, *, mode: str, pos=None,
         else:
             y, new_cache = S.ssd_seq_cached(p, h, cfg, want_cache=mode == "prefill")
         return x + y, new_cache, aux
-    _not_ported(kind)
+    if kind == "rglru":
+        h = L.rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
+        if mode == "decode":
+            y, new_cache = R.rglru_decode(p, h, cfg, cache)
+        else:
+            y, new_cache = R.rglru_seq_cached(p, h, cfg,
+                                              want_cache=mode == "prefill")
+        x = x + y
+        h = L.rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
+        return x + L.mlp(p, h, cfg), new_cache, aux
+    raise ValueError(f"unknown block kind {kind}")
 
 
 # ---------------------------------------------------------------------------

@@ -560,6 +560,14 @@ EDGE_SHAPES = [(2, 127, 64, 0), (2, 127, 128, 0), (2, 129, 64, 0),
                (2, 129, 128, 0), (2, 257, 64, 0), (2, 257, 128, 0),
                (2, 257, 64, 1), (2, 129, 128, 1), (1, 1, 128, 0)]
 
+# The forward's head dims beyond the backward's: 96 (Phi-3-Vision; V's
+# last column panel half padded) and 256 (RecurrentGemma; O by n256), at
+# ragged tiles, with windows narrower than a tile and than S (2,048, the
+# model's, at S = 2,100), and a single position.
+FWD_ONLY_SHAPES = [(3, 200, 96, 0), (2, 257, 96, 64), (2, 129, 96, 1),
+                   (3, 200, 256, 0), (2, 257, 256, 64), (1, 1, 256, 0),
+                   (2, 2100, 256, 2048), (2, 2100, 96, 2048)]
+
 # f32: the kernel and the plain version differ only in summation order.
 # bf16: the kernel rounds O to bf16 (2^-8 relative), the plain version is
 # taken in f32 on the same bf16 inputs; LSE stays f32 in both.
@@ -572,11 +580,12 @@ FLASH_TOL_BF16_O = dict(rtol=8e-3, atol=8e-3)
 @pytest.mark.parametrize("shape", [(3, 200, 64, 0), (2, 512, 128, 256),
                                    (15, 512, 64, 0), (2, 130, 64, 17),
                                    (1, 1, 64, 0), (2, 64, 128, 64)]
-                         + EDGE_SHAPES)
+                         + EDGE_SHAPES + FWD_ONLY_SHAPES)
 def test_flash_kernel_matches_plain(cuda, dtype, shape):
     """O and LSE of the kernel against the plain version: ragged tiles
-    (S = 200, 130, 1), windows narrower and wider than a tile, and the
-    edges of the bf16 kernel's tiles of 64 keys and 128 query rows."""
+    (S = 200, 130, 1), windows narrower and wider than a tile, the
+    edges of the bf16 kernel's tiles of 64 keys and 128 query rows, and
+    head_dim 96 and 256."""
     BH, S, hd, window = shape
     rng = np.random.default_rng(S + hd + window)
     q, k, v = (torch.from_numpy(rng.standard_normal((BH, S, hd))
@@ -597,11 +606,26 @@ def test_flash_kernel_matches_plain(cuda, dtype, shape):
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_other_head_dims(cuda):
-    x = torch.zeros(2, 64, 96, device=cuda)
+    """The forward refuses a head_dim it is not built for, the backward
+    (both ``flash_bwd`` and the autograd backward) 96 and 256, each with
+    a ValueError naming it and before any launch."""
+    x = torch.zeros(2, 64, 48, device=cuda)
     before = flash_fwd.launches
-    with pytest.raises(ValueError, match="not 96"):
+    with pytest.raises(ValueError, match="not 48"):
         flash_fwd(x, x, x, scale=1.0)
     assert flash_fwd.launches == before
+    bwd = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    for hd in (96, 256):
+        x = torch.zeros(2, 64, hd, device=cuda)
+        lse = torch.zeros(2, 64, device=cuda)
+        with pytest.raises(ValueError, match=f"not {hd}"):
+            flash_bwd(x, x, x, x, lse, x, scale=1.0)
+        leaves = [torch.randn(2, 64, hd, device=cuda, requires_grad=True)
+                  for _ in range(3)]
+        o = flash_attention(*leaves, hd ** -0.5, 0, 64, 64)
+        with pytest.raises(ValueError, match=f"not {hd}"):
+            o.sum().backward()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == bwd
 
 
 def _ssd_groups(BH):
@@ -701,21 +725,39 @@ SMALL = {
                        ssm_head_dim=16, ssm_chunk=8, tie_embeddings=True,
                        ssd_impl="kernel", dtype="float32",
                        param_dtype="float32"),
+    # RecurrentGemma's blocks at head_dim 256 (rglru, rglru, attn_local
+    # with a window of 16, one trailing rglru) and Qwen3-MoE's at head_dim
+    # 128 (8 experts, top 2)
+    "rglru": ModelConfig(name="small-rglru", family="hybrid", num_layers=4,
+                         d_model=128, num_heads=2, num_kv_heads=1, d_ff=256,
+                         vocab_size=512, head_dim=256,
+                         block_pattern=("rglru", "rglru", "attn_local"),
+                         attn_window=16, lru_width=128, tie_embeddings=True,
+                         q_chunk=64, attn_impl="flash", dtype="float32",
+                         param_dtype="float32"),
+    "moe": ModelConfig(name="small-moe", family="moe", num_layers=2,
+                       d_model=128, num_heads=4, num_kv_heads=2, d_ff=64,
+                       vocab_size=512, head_dim=128,
+                       block_pattern=("attn_moe",), num_experts=8,
+                       experts_per_token=2, moe_d_ff=64, q_chunk=64,
+                       attn_impl="flash", dtype="float32",
+                       param_dtype="float32"),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", sorted(SMALL))
 def test_small_model_prefill_decode_on_the_card_matches_the_cpu(cuda, kind):
-    """A two-layer model through the kernels on the card and through the
+    """A small model through the kernels on the card and through the
     plain versions on the CPU, the same parameters: prefill logits and
     cache, then 4 decode steps, within 1e-4; the kernel runs once per
-    layer in prefill and never in decode."""
+    attention (or SSD) layer in prefill and never in decode."""
     cfg = SMALL[kind]
     params = MT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.from_numpy(np.random.default_rng(4).integers(
         0, 512, (2, 36)).astype(np.int64))
-    counter = flash_fwd if kind == "attn" else ssd_scan
+    counter = ssd_scan if kind == "ssd" else flash_fwd
+    per_prefill = sum(k in ("ssd", *MT.ATTN_KINDS) for k in cfg.layer_kinds)
     runs = {}
     for dev in (cuda, torch.device("cpu")):
         p = {k: v.to(dev) for k, v in params.items()}
@@ -725,7 +767,7 @@ def test_small_model_prefill_decode_on_the_card_matches_the_cpu(cuda, kind):
         outs = [logits, *cache.values()]
         cache = pad_cache_to(cache, MT.cache_shapes(cfg, 2, 40))
         if dev.type == "cuda":
-            assert counter.launches == before + cfg.num_layers
+            assert counter.launches == before + per_prefill
         mid = counter.launches
         for t in range(32, 36):
             logits, cache, _ = MT.forward(p, {"tokens": toks[:, t:t + 1].to(dev)},

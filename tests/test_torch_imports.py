@@ -1,5 +1,5 @@
 """The port stands alone: importing every module of ``repro_torch`` (the
-model stack's ``models/``, ``configs/``, ``train/`` with the training step
+model stack's ``models/`` with the MoE and RG-LRU blocks, ``configs/``, ``train/`` with the training step
 and optimizers, ``data/``, ``serving/`` with the KV slab format, the host
 server, the workers and the fabric, ``launch/serve`` and ``obs/``
 included) and registering its ifunc library (the four ``graph_*`` verbs,
@@ -56,6 +56,7 @@ bad = sorted(m for m in sys.modules
 print("MODULES", len(mods))
 print("STACK", all(m in mods for m in (
     "repro_torch.models.transformer", "repro_torch.models.ssm",
+    "repro_torch.models.moe", "repro_torch.models.rglru",
     "repro_torch.configs.smollm_360m", "repro_torch.configs.mamba2_780m",
     "repro_torch.train.serve", "repro_torch.serving.batcher",
     "repro_torch.kernels.flash_attn", "repro_torch.kernels.ssd_scan",

@@ -133,17 +133,25 @@ def test_flash_refusals():
 @pytest.mark.parametrize("hd", [16, 32, 96, 256])
 def test_flash_kernel_refuses_other_head_dims_before_launch(hd):
     """The CUDA route's operand check, run before any launch: a head_dim
-    outside {64, 128} raises ValueError naming it."""
+    the kernels are not built for raises ValueError naming it.  The
+    forward takes 64, 96, 128 and 256, the backward only 64 and 128."""
     x = torch.zeros(2, 64, hd)
     with pytest.raises(ValueError, match=f"not {hd}"):
+        check_kernel_operands(x, x, x, backward=True)
+    if hd in (96, 256):
         check_kernel_operands(x, x, x)
+    else:
+        with pytest.raises(ValueError, match=f"not {hd}"):
+            check_kernel_operands(x, x, x)
 
 
 def test_flash_kernel_operand_check_takes_64_128_f32_bf16():
-    for hd in (64, 128):
+    for hd in (64, 96, 128, 256):
         for dt in (torch.float32, torch.bfloat16):
             x = torch.zeros(1, 8, hd, dtype=dt)
             check_kernel_operands(x, x, x)
+            if hd in (64, 128):
+                check_kernel_operands(x, x, x, backward=True)
     x = torch.zeros(1, 8, 64, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         check_kernel_operands(x, x, x)
@@ -360,21 +368,33 @@ def test_ssd_decode_vs_reference():
 STACKS = [("smollm_360m", {"attn_impl": "naive"}),
           ("smollm_360m", {"attn_impl": "flash"}),
           ("mamba2_780m", {"ssd_impl": "xla"}),
-          ("mamba2_780m", {"ssd_impl": "kernel"})]
+          ("mamba2_780m", {"ssd_impl": "kernel"}),
+          ("qwen3_moe_30b_a3b", {"attn_impl": "flash"}),
+          ("llama4_maverick_400b_a17b", {"attn_impl": "naive"}),
+          ("recurrentgemma_2b", {"attn_impl": "naive"}),
+          ("recurrentgemma_2b", {"attn_impl": "flash"})]
 
 
 @pytest.mark.parametrize("arch,kw", STACKS)
 def test_forward_train_prefill_decode_vs_reference(arch, kw):
     """transformer.forward == repro.models.transformer.forward in train,
-    prefill and decode modes: logits and every cache entry within 2e-4;
-    decode runs 3 steps from a padded prefill cache (shared layout)."""
+    prefill and decode modes: logits, the aux loss (the MoE's; 0 for any
+    other stack) and every cache entry within 2e-4; decode runs 3 steps
+    from a padded prefill cache (shared layout).  RecurrentGemma's
+    attention ring (window 8) is full after the 16-token prefill."""
     cfg_r, cfg_p = _cfgs(arch, **kw)
     pr, pp = _params(cfg_r, cfg_p)
     toks = np.random.default_rng(13).integers(0, 512, (2, 19)).astype(np.int32)
-    l_r, _, _ = RT.forward(pr, {"tokens": jnp.asarray(toks[:, :16])}, cfg_r)
+    l_r, _, aux_r = RT.forward(pr, {"tokens": jnp.asarray(toks[:, :16])},
+                               cfg_r)
     l_p, c_none, aux = PT.forward(pp, {"tokens": _t(toks[:, :16])}, cfg_p)
     _close(l_p, l_r, 2e-4, "train logits")
-    assert c_none is None and l_p.dtype == torch.float32 and float(aux) == 0
+    assert c_none is None and l_p.dtype == torch.float32
+    if cfg_p.num_experts:
+        assert float(aux) > 0
+        _close(aux, aux_r, 2e-4, "aux")
+    else:
+        assert float(aux) == float(aux_r) == 0
     l_r, c_r, _ = RT.forward(pr, {"tokens": jnp.asarray(toks[:, :16])}, cfg_r,
                              mode="prefill")
     l_p, c_p, _ = PT.forward(pp, {"tokens": _t(toks[:, :16])}, cfg_p,
@@ -446,7 +466,8 @@ def test_per_slot_decode_vs_reference():
 
 
 def test_cache_specs_and_init_cache_match_reference():
-    for arch in ("smollm_360m", "mamba2_780m"):
+    for arch in ("smollm_360m", "mamba2_780m", "qwen3_moe_30b_a3b",
+                 "recurrentgemma_2b"):
         cfg_r, cfg_p = _cfgs(arch)
         for per_slot in (False, True):
             sr = RT.cache_shapes(cfg_r, 3, 20, per_slot=per_slot)
@@ -500,7 +521,8 @@ def test_params_from_numpy_keeps_bf16_bits():
 
 
 @pytest.mark.parametrize("per_slot", [False, True])
-@pytest.mark.parametrize("arch", ["smollm_360m", "mamba2_780m"])
+@pytest.mark.parametrize("arch", ["smollm_360m", "mamba2_780m",
+                                  "recurrentgemma_2b"])
 def test_pad_cache_to_bit_equal_to_reference(arch, per_slot):
     cfg_r, cfg_p = _cfgs(arch)
     pr, _ = _params(cfg_r, cfg_p)
@@ -617,15 +639,23 @@ def test_cuda_without_a_card_raises():
                         np.zeros((1, 1, 2, 2)), np.zeros((1, 1, 2, 2)))
 
 
-@pytest.mark.parametrize("arch,kind", [("qwen3_moe_30b_a3b", "attn_moe"),
-                                       ("llama4_maverick_400b_a17b", "attn_moe"),
-                                       ("recurrentgemma_2b", "rglru")])
-def test_moe_and_rglru_blocks_are_not_ported_yet(arch, kind):
-    cfg = reduced(PC.get_config(arch))
-    with pytest.raises(NotImplementedError, match=kind):
-        PT.init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PT.block_fwd(kind, cfg, {}, torch.zeros(1, 4, 64), mode="train")
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b",
+                                  "llama4_maverick_400b_a17b",
+                                  "recurrentgemma_2b"])
+def test_moe_and_rglru_stacks_build_and_unknown_kinds_raise(arch):
+    """The three configs with ``attn_moe`` or ``rglru`` blocks build by
+    the reference's specs (names and shapes) and their own init; a block
+    kind no config has raises ValueError."""
+    cfg_r, cfg_p = _cfgs(arch)
+    assert PT.param_specs(cfg_p) == RT.param_specs(cfg_r)
+    p = PT.init_params(cfg_p, torch.Generator().manual_seed(0), "cpu")
+    assert {k: tuple(v.shape) for k, v in p.items()} == \
+        {k: tuple(s) for k, (s, _) in RT.param_specs(cfg_r).items()}
+    with pytest.raises(ValueError, match="unknown block kind"):
+        PT.init_params(cfg_p.with_(block_pattern=("mlstm",)),
+                       torch.Generator(), device="cpu")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        PT.block_fwd("mlstm", cfg_p, {}, torch.zeros(1, 4, 64), mode="train")
 
 
 def test_unknown_impls_and_modes_raise():
