@@ -62,9 +62,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
    share over another.
 10. the model stack's kernels against their plain versions at the shapes
     the serving and training paths launch: ``flash_fwd`` on [15, S, 64]
-    for S in {200, 512, 4096}, [4, 512, 128] with window 256, the
-    training shapes [30, 2,048, 64] (phase 17's microbatch) and
-    [30, 1,024, 64] (phase 16's batch), RecurrentGemma's [10, S, 256]
+    for S in {200, 512, 4096}, [4, 512, 128] with window 256, every
+    training shape of phases 16 and 17 (``train_flash_shapes``: each
+    model's microbatch and parity batch, e.g. [64, 2,048, 96] and
+    [64, 2,048, 128]), RecurrentGemma's [10, S, 256]
     with window 2,048 for S in {200, 512, 1,024, 4,096} and
     Phi-3-Vision's [32, S, 96] for S in {512, 4,096}, f32 (the FMA
     kernel) and bf16 (the wgmma kernel); ``ssd_scan`` on [48, nc, Q, 64], ds 128, for
@@ -100,26 +101,39 @@ Phases, each of which fails the script (non-zero exit, no result line):
     at batch 1 and 4,096 tokens, and that prefill's five longest device
     kernels under torch.profiler;
 14. the flash backward kernels (``flash_bwd_dq``, ``flash_bwd_dkv``)
-    against ``flash_bwd_plain`` on the card at the forward's shapes of
-    phase 10, the training shapes included, f32 and bf16 (bf16 through
-    ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel``);
-15. backward timings at [15, 4,096, 64] bf16 as in phase 11, each kernel
-    by its profiler name (``flash_bwd_dq_wgmma_kernel``,
-    ``flash_bwd_dkv_wgmma_kernel``), with the
-    backward of ``scaled_dot_product_attention`` as the library yardstick
-    of both kernels together, each kernel's ratio to it logged;
-16. training parity in f32 at the full width of SmolLM-360M: one
-    ``make_train_step``'s loss and gradients (batch 2 x 1,024 tokens)
-    through the flash kernels against the naive path's, every parameter
-    with a finite non-zero gradient; Mamba-2 780M with ``ssd_impl=
-    "kernel"`` refuses a gradient;
-17. training in bf16 at full width, the training path: SmolLM-360M with
-    ``attn_impl="flash"``, ``remat="block"``, AdamW with f32 state, batch
-    4 x 2,048 tokens in 2 microbatches from ``data.Loader``; 2 warm-up and
-    8 timed steps (step time, tokens/s, peak memory, the launches per
-    step asserted), the SMs' idle share in a traced step with each flash
-    kernel's time a launch, then 10 steps on one batch whose loss must
-    fall;
+    against ``flash_bwd_plain`` on the card, f32 and bf16 (bf16 through
+    ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel``), at
+    the forward's shapes of phase 10, every training shape (head_dim 64,
+    96, 128 and 256: RecurrentGemma's microbatch [10, 4,096, 256] with
+    window 2,048, Phi-3-Vision's [64, 2,048, 96], Qwen3's [64, 2,048,
+    128]) and ragged and one-position shapes at 96 and 256;
+15. backward timings in bf16 as in phase 11, each kernel by its profiler
+    name, at [15, 4,096, 64] and at phase 11's [10, 4,096, 256] with
+    window 2,048 and [32, 4,096, 96], with the backward of
+    ``scaled_dot_product_attention`` (causal; at 256 also with the
+    window as a boolean mask) as the library yardstick of both kernels
+    together, each kernel's ratio to it logged;
+16. training parity in f32 at full width, ``PARITY_MODELS``: one
+    ``make_train_step``'s loss and gradients through the flash kernels
+    against the naive path's, every parameter with a finite non-zero
+    gradient, for SmolLM-360M (2 x 1,024), RecurrentGemma-2B at two
+    super-blocks (1 x 4,096, so that the window masks), Phi-3-Vision at
+    4 layers (1 x 2,048 with its 577 image positions) and Qwen3-30B-A3B
+    at 4 layers (2 x 1,024, capacity factor E / k), the peak memory of
+    each logged; Mamba-2 780M with ``ssd_impl="kernel"`` refuses a
+    gradient;
+17. training in bf16 at full width, the training path, ``TRAIN_MODELS``:
+    ``attn_impl="flash"``, ``remat="block"``, AdamW with f32 state
+    donated to the step, batches from ``data.Loader`` in 2 microbatches:
+    SmolLM-360M (4 x 2,048; 2 warm-up, 8 timed, 10 one-batch steps),
+    RecurrentGemma-2B at its published width and depth (26 layers, 2 x
+    4,096), Qwen3-30B-A3B at 4 layers and Phi-3-Vision at 8 layers (4 x
+    2,048 each; 1 warm-up, 3 timed, 5 one-batch steps); for each, step
+    time, tokens/s, peak memory, the flash launches of every step
+    asserted (each attention layer's forward twice under block remat and
+    each backward kernel once, a microbatch), the SMs' idle share in a
+    traced step with each flash kernel's time a launch, and a loss that
+    falls on one batch;
 18. the bare ifunc API on a host target over the emulated RDMA fabric:
     the paper's quickstart (``rle_insert``, PYBC, linked and run on the
     host: the record decoded, links=1 executed=1) and the AM baseline's
@@ -316,11 +330,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
     repro_torch.launch.serve`` on the card in both modes, exit 0 and
     neither jax nor the JAX package loaded in the child.
 
-The phases run in the order 1-9, 18-25, 10-11, 14-17, 12-13: every
-profiler session of the timings and the traced step comes before the
-serving phase's long traces, after which the profiler recorded no device
-time in a run on the H100.  A trace that comes back without the records of the
-kernel it times is logged and taken again, three traces at most.
+The phases run in the order 1-9, 10, 14, 11, 15-17, 12-13, 18-25: every
+profiler session that must find a kernel by name (phases 5, 9, 11, 15)
+comes before the long traces of phases 13, 24 and 25 (up to 180,000
+device records each), after which torch.profiler lost whole traces on
+the H100.  A trace that comes back without the records of the kernel it
+times is logged and taken again, five traces at most.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's ``nvidia-smi`` name and power limit; before that the ``kernels``
@@ -476,11 +491,11 @@ PREFILL_S = 4096
 # [BH, nc, Q, hd, ds] (48 Mamba-2 heads at a 200-token prompt and at 4,096)
 FLASH_SHAPES = ((15, 200, 64, 0), (15, 512, 64, 0), (15, 4096, 64, 0),
                 (4, 512, 128, 256))
-# the forward alone besides (the backward kernels take head_dim 64 and 128
-# only; phase 10 adds every shape of phase 13's prefills, flash_fwd_shapes):
+# the forward alone besides (phase 10 adds every shape of phase 13's
+# prefills, flash_fwd_shapes, and of the training path, train_flash_shapes):
 # Phi-3-Vision's 32 heads at head_dim 96, whose token path phase 12 holds
-# in f32; phase 11 times head_dim 256 (RecurrentGemma's 10 heads, MQA
-# repeated, with its window of 2,048) and 96 at the 4,096-token prefill
+# in f32; phases 11 and 15 time head_dim 256 (RecurrentGemma's 10 heads,
+# MQA repeated, with its window of 2,048) and 96 at the 4,096-token prefill
 RG_FLASH_SHAPE = (10, PREFILL_S, 256, 2048)
 PHI3_FLASH_SHAPE = (32, PREFILL_S, 96, 0)
 PHI3_FLASH_SHAPES = ((32, 512, 96, 0), PHI3_FLASH_SHAPE)
@@ -503,15 +518,43 @@ TOL_FLASH_BWD_BF16 = dict(rtol=8e-3, atol=8e-3)
 # the SDPA backward against the kernels in bf16: two bf16 forwards (O
 # and LSE of each) feed two backwards; relative L2 of dQ, dK, dV
 TOL_SDPA_BWD = 1e-2
-# training: f32 parity at full width (2 x 1,024 tokens, one microbatch),
-# flash against naive: the loss to 1e-5 relative, each gradient leaf to
-# 1e-3 relative L2 (summation order over 32 layers); bf16 training at
-# 4 x 2,048 tokens in 2 microbatches, 2 warm-up + 8 timed steps, then 10
-# steps on one batch
-TRAIN_PARITY = (2, 1024)
+# training.  Phase 16 holds each model of PARITY_MODELS in f32 at full
+# width, one microbatch, flash against naive: the loss to 1e-5 relative,
+# each gradient leaf to 1e-3 relative L2 (summation order over up to 32
+# layers).  arch -> (config overrides, batch, positions a row):
+# RecurrentGemma-2B at two super-blocks (4 RG-LRU, 2 attn_local) over
+# 4,096 positions, so that its window of 2,048 masks; Phi-3-Vision at 4
+# layers with its 577 image positions inside 2,048; Qwen3-30B-A3B at 4 of
+# 48 layers, at capacity factor E / k (no_drop), where flash and naive
+# route and drop alike.
+PARITY_MODELS = {
+    "smollm_360m": ({}, 2, 1024),
+    "recurrentgemma_2b": ({"num_layers": 6}, 1, 4096),
+    "phi3_vision_4_2b": ({"num_layers": 4}, 1, 2048),
+    "qwen3_moe_30b_a3b": ({"num_layers": 4}, 2, 1024),
+}
 TOL_TRAIN_LOSS, TOL_TRAIN_GRAD = 1e-5, 1e-3
-TRAIN_B, TRAIN_S, TRAIN_MB = 4, 2048, 2
-TRAIN_WARM, TRAIN_TIMED, TRAIN_FIT = 2, 8, 10
+# Phase 17 trains each model of TRAIN_MODELS in bf16 at full width
+# (remat block, AdamW with f32 state, the state donated to the step):
+# arch -> (config overrides, batch, positions a row, microbatches,
+# (warm-up, timed, one-batch) steps).  RecurrentGemma-2B at its published
+# width and depth (26 layers, 2.89 B parameters) is the slice's path;
+# Qwen3-30B-A3B at 4 of its 48 layers, as served; Phi-3-Vision at 8 of its
+# 32 layers (the kernels' shapes do not depend on depth), its 577 image
+# positions inside each row of 2,048.
+TRAIN_MODELS = {
+    "smollm_360m": ({}, 4, 2048, 2, (2, 8, 10)),
+    "recurrentgemma_2b": ({}, 2, 4096, 2, (1, 3, 5)),
+    "qwen3_moe_30b_a3b": ({"num_layers": 4}, 4, 2048, 2, (1, 3, 5)),
+    "phi3_vision_4_2b": ({"num_layers": 8}, 4, 2048, 2, (1, 3, 5)),
+}
+TRAIN_B, TRAIN_S, TRAIN_MB = TRAIN_MODELS["smollm_360m"][1:4]
+# the backward's ragged and one-position shapes at head_dim 96 and 256 (the
+# training shapes are whole tiles): S = 200 and 130 with a window narrower
+# than a tile, S = 2,100 with RecurrentGemma's 2,048, S = 1
+BWD_EDGE_SHAPES = ((3, 200, 96, 0), (2, 130, 96, 17), (1, 1, 96, 0),
+                   (3, 200, 256, 0), (2, 130, 256, 17), (2, 2100, 256, 2048),
+                   (1, 1, 256, 0))
 # the disaggregated serving fleet (phase 25): examples/serving_fabric.py's
 # 2 prefill + 2 decode peers at SmolLM-360M's published width (bf16, flash,
 # seeded weights); 8 prompts of distinct lengths, so every prefill group is
@@ -589,7 +632,7 @@ def cuda_ms(torch, fn, iters, repeats=5):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, kernel, iters=50, traces=3):
+def device_ms(torch, fn, kernel, iters=50, traces=5):
     """The device time per call (ms) under torch.profiler of the kernels
     whose names hold ``kernel`` over ``iters`` calls of ``fn`` after a
     warm-up call: for each such name, its mean record times its launches
@@ -635,7 +678,7 @@ def kernel_times(torch, fn, kernel, iters, require=False):
     wrapper = cuda_ms(torch, fn, iters)
     dev = device_ms(torch, fn, kernel, iters)
     check(dev is not None or not require,
-          f"torch.profiler recorded no device time for {kernel} in three "
+          f"torch.profiler recorded no device time for {kernel} in five "
           f"traces")
     if dev is None:
         log(f"{kernel}: device time not measured (torch.profiler recorded "
@@ -5759,14 +5802,19 @@ def flash_fwd_shapes():
     return shapes
 
 
+def causal_pairs(S, window):
+    """The (q, k) pairs a causal mask keeps in one row of heads: with a
+    window W < S, the first W rows' triangle, then W keys a row."""
+    W = window if 0 < window < S else S
+    return W * (W + 1) // 2 + (S - W) * W
+
+
 def flash_work(BH, S, hd, window):
     """(FLOP, bytes) a causal flash forward must do: Q K^T and P V over
-    the (q, k) pairs the mask keeps (with a window W < S: the first W
-    rows' triangle, then W keys a row), q, k, v read and O written once
-    in bf16, LSE written in f32."""
-    W = window if 0 < window < S else S
-    pairs = W * (W + 1) // 2 + (S - W) * W
-    return 4 * BH * hd * pairs, 4 * BH * S * hd * 2 + BH * S * 4
+    the pairs the mask keeps, q, k, v read and O written once in bf16,
+    LSE written in f32."""
+    return (4 * BH * hd * causal_pairs(S, window),
+            4 * BH * S * hd * 2 + BH * S * 4)
 
 
 def flash_inputs(np, torch, dev, rng, BH, S, hd, dtype):
@@ -5806,13 +5854,33 @@ def ssd_work(BH, G, nc, Q, hd, ds):
     return flops, (2 * BH * nc * Q * hd + BH * nc * Q + 2 * G * nc * Q * ds) * 4
 
 
+def attn_windows(cfg):
+    """The windows ``cfg``'s attention layers give flash: 0 for ``attn``,
+    ``attn_window`` for ``attn_local``."""
+    from repro_torch.models.transformer import ATTN_KINDS
+
+    return sorted({cfg.attn_window if kind == "attn_local" else 0
+                   for kind in cfg.layer_kinds if kind in ATTN_KINDS})
+
+
 def train_flash_shapes():
-    """flash's [BH, S, hd, window] on the training path: SmolLM-360M's
-    heads over one microbatch of phase 17 and over phase 16's batch."""
-    cfg = model_config("smollm_360m", MODELS["smollm_360m"][0])
-    h, hd = cfg.num_heads, cfg.head_dim
-    return ((TRAIN_B // TRAIN_MB * h, TRAIN_S, hd, 0),
-            (TRAIN_PARITY[0] * h, TRAIN_PARITY[1], hd, 0))
+    """flash's [BH, S, hd, window] on the training path: each model of
+    ``TRAIN_MODELS`` over one microbatch of phase 17 and of
+    ``PARITY_MODELS`` over phase 16's batch (KV repeated to all heads,
+    each attention kind's window)."""
+    shapes = []
+    for arch, (over, B, S, mb, _) in TRAIN_MODELS.items():
+        cfg = model_config(arch, FLASH, **over)
+        shapes += [(B // mb * cfg.num_heads, S, cfg.head_dim, w)
+                   for w in attn_windows(cfg)]
+    for arch, (over, B, S) in PARITY_MODELS.items():
+        cfg = model_config(arch, FLASH, **over)
+        shapes += [(B * cfg.num_heads, S, cfg.head_dim, w)
+                   for w in attn_windows(cfg)]
+    shapes = tuple(dict.fromkeys(shapes))
+    check(RG_FLASH_SHAPE in shapes, f"{RG_FLASH_SHAPE} is not on the "
+                                    f"training path")
+    return shapes
 
 
 def phase_model_kernels(np, torch, dev):
@@ -6281,14 +6349,18 @@ def flash_bwd_inputs(np, torch, dev, rng, BH, S, hd, window, dtype):
 
 def phase_bwd_kernels(np, torch, dev):
     """``flash_bwd_dq`` and ``flash_bwd_dkv`` against ``flash_bwd_plain``
-    at the forward's shapes, the training path's included; returns the
-    largest |diff| of each."""
+    at the forward's shapes, every shape of the training path (head_dim
+    64, 96, 128 and 256) and the ragged and one-position shapes at 96 and
+    256; returns the largest |diff| of each."""
     from repro_torch.kernels.flash_attn import (flash_bwd_dkv, flash_bwd_dq,
                                                 flash_bwd_plain, flash_delta)
 
+    t0 = time.perf_counter()
     rng = np.random.default_rng(70)
     errs = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    for BH, S, hd, window in FLASH_SHAPES + train_flash_shapes():
+    shapes = dict.fromkeys(FLASH_SHAPES + train_flash_shapes()
+                           + BWD_EDGE_SHAPES)
+    for BH, S, hd, window in shapes:
         scale = 1.0 / float(np.sqrt(hd))
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do, o, lse = flash_bwd_inputs(np, torch, dev, rng, BH, S,
@@ -6319,13 +6391,29 @@ def phase_bwd_kernels(np, torch, dev):
                 + f" (tolerance {tol['atol']})")
             del q, k, v, do, o, lse, delta, dq, dk, dv, want, got
     torch.cuda.empty_cache()
+    log(f"phase 14 took {time.perf_counter() - t0:.1f} s over "
+        f"{len(shapes)} shapes")
     return errs
 
 
-def phase_bwd_timings(np, torch, dev, errs):
-    """Both backward kernels at [15, 4,096, 64] bf16: device time, wrapper
-    time, plain version, bound, and the SDPA backward; returns their
-    kernels-line entries, whose ``launches`` the training phase fills."""
+def bwd_work(BH, S, hd, window):
+    """(FLOP, bytes) of dQ and of dK/dV: three and four products of
+    ``2 hd`` FLOP over the pairs the mask keeps; q, k, v, dO read and
+    each output written once in bf16, LSE and delta read in f32."""
+    pairs = BH * causal_pairs(S, window)
+    t_bytes, row_bytes = BH * S * hd * 2, BH * S * 4
+    ins = 4 * t_bytes + 2 * row_bytes
+    return ((3 * 2 * hd * pairs, ins + t_bytes),
+            (4 * 2 * hd * pairs, ins + 2 * t_bytes))
+
+
+def bwd_times(np, torch, dev, rng, shape):
+    """Both backward kernels in bf16 at ``shape`` [BH, S, hd, window]:
+    {kernel: device and wrapper ms, plain ms, bound}, and the library:
+    ``scaled_dot_product_attention``'s backward (its own forward, then
+    the backward alone, timed as one call) causal and, with a window, also
+    given the window as a boolean mask; the kernels' gradients held to
+    SDPA's of the same function within ``TOL_SDPA_BWD``."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from repro_torch.kernels.flash_attn import (flash_bwd, flash_bwd_dkv,
@@ -6335,76 +6423,100 @@ def phase_bwd_timings(np, torch, dev, errs):
                                                 flash_delta)
 
     bw, _, bf16 = card_peaks(torch.cuda.get_device_name(0))
-    rng = np.random.default_rng(80)
-    BH, S, hd, _ = FLASH_SHAPES[2]
+    BH, S, hd, window = shape
     scale = 1.0 / float(np.sqrt(hd))
-    q, k, v, do, o, lse = flash_bwd_inputs(np, torch, dev, rng, BH, S, hd, 0,
-                                           torch.bfloat16)
+    q, k, v, do, o, lse = flash_bwd_inputs(np, torch, dev, rng, BH, S, hd,
+                                           window, torch.bfloat16)
     delta = flash_delta(o, do)
     args = (q, k, v, do, lse, delta)
-    dq_ms, dq_wrap = kernel_times(
-        torch, lambda: flash_bwd_dq(*args, scale=scale),
-        "flash_bwd_dq_wgmma_kernel", 10, require=True)
-    dkv_ms, dkv_wrap = kernel_times(
-        torch, lambda: flash_bwd_dkv(*args, scale=scale),
-        "flash_bwd_dkv_wgmma_kernel", 10, require=True)
-    dq_plain = cuda_ms(torch, lambda: flash_bwd_dq_plain(*args, scale=scale),
-                       2, repeats=3)
-    dkv_plain = cuda_ms(torch, lambda: flash_bwd_dkv_plain(*args, scale=scale),
-                        2, repeats=3)
-    whole = cuda_ms(torch, lambda: flash_bwd(q, k, v, o, lse, do, scale=scale),
-                    10)
-    # the library: [1, BH, S, hd], the layout of PyTorch's fused backends;
-    # its own forward, then the backward alone, timed as one call
-    q4, k4, v4 = (t[None].detach().requires_grad_(True) for t in (q, k, v))
-    out = sdpa(q4, k4, v4, is_causal=True, scale=scale)
-    do4 = do[None]
-    lib = torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)
-    ours = flash_bwd(q, k, v, o, lse, do, scale=scale)
-    rel = [rel_l2(torch, a, b[0]) for a, b in zip(ours, lib)]
-    check(max(rel) < TOL_SDPA_BWD, f"the SDPA backward disagrees with the "
-                                   f"kernels: relative L2 {rel}")
-    lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-        out, (q4, k4, v4), do4, retain_graph=True), 10)
-    del q4, k4, v4, out, lib, ours
-
-    pairs = BH * S * (S + 1) / 2                   # causal (q, k) pairs
-    t_bytes = BH * S * hd * 2
-    row_bytes = BH * S * 4
-    dq_flops, dkv_flops = 3 * 2 * hd * pairs, 4 * 2 * hd * pairs
-    dq_bytes = 4 * t_bytes + 2 * row_bytes + t_bytes      # q,k,v,dO,lse,delta->dQ
-    dkv_bytes = 4 * t_bytes + 2 * row_bytes + 2 * t_bytes  # ... -> dK, dV
-    entries = []
-    for name, ms, wrap, plain, flops, nbytes in (
-            ("flash_bwd_dq", dq_ms, dq_wrap, dq_plain, dq_flops, dq_bytes),
-            ("flash_bwd_dkv", dkv_ms, dkv_wrap, dkv_plain, dkv_flops,
-             dkv_bytes)):
+    kw = {"scale": scale, "window": window}
+    out = {}
+    for name, fn, plain, (flops, nbytes) in zip(
+            ("flash_bwd_dq", "flash_bwd_dkv"), (flash_bwd_dq, flash_bwd_dkv),
+            (flash_bwd_dq_plain, flash_bwd_dkv_plain),
+            bwd_work(BH, S, hd, window)):
+        ms, wrap = kernel_times(torch, lambda: fn(*args, **kw),
+                                f"{name}_wgmma_kernel", 10, require=True)
         b_ops, b_bytes = flops / bf16 * 1e3, nbytes / bw * 1e3
-        log(f"{name} [{BH}, {S}, {hd}] bf16: {ms:.4f} ms on the card "
-            f"(wrapper {wrap:.4f}, plain {plain:.4f}, bound "
-            f"{max(b_ops, b_bytes):.4f} ms: {flops:.3g} FLOP at bf16 -> "
-            f"{b_ops:.4f} ms, {nbytes / 1e6:.1f} MB -> {b_bytes:.4f} ms); "
-            f"{flops / ms / 1e9:.2f} TFLOP/s, "
-            f"{max(b_ops, b_bytes) / ms:.3f} of the bound, {ms / lib_ms:.2f}x "
-            f"scaled_dot_product_attention's whole backward")
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
-            "replaces": ("src/repro/kernels/flash_attn.py:183"
-                         if name == "flash_bwd_dq"
-                         else "src/repro/kernels/flash_attn.py:200"),
-            "launches": None, "max_abs_err": errs[name], "ms": ms,
-            "wrapper_ms": wrap, "plain_ms": plain,
+        out[name] = {
+            "shape": list(shape), "ms": ms, "wrapper_ms": wrap,
+            "plain_ms": cuda_ms(torch, lambda: plain(*args, **kw), 2,
+                                repeats=3),
             "bound_ms": max(b_ops, b_bytes),
             "bound_by": "operations" if b_ops >= b_bytes else "bytes",
-            "library_ms": lib_ms})
-    log(f"flash backward [{BH}, {S}, {hd}] bf16, both kernels and delta "
-        f"through flash_bwd: {whole:.4f} ms; scaled_dot_product_attention's "
-        f"backward {lib_ms:.4f} ms (relative L2 against the kernels: dQ "
-        f"{rel[0]:.3g}, dK {rel[1]:.3g}, dV {rel[2]:.3g})")
-    del q, k, v, do, o, lse, delta, args
+            "flops": flops, "bytes": nbytes, "bound_ops_ms": b_ops,
+            "bound_bytes_ms": b_bytes, "tflops": flops / ms / 1e9}
+    whole = cuda_ms(torch, lambda: flash_bwd(q, k, v, o, lse, do, **kw), 10)
+    ours = flash_bwd(q, k, v, o, lse, do, **kw)
+    # the library: [1, BH, S, hd], the layout of PyTorch's fused backends
+    q4, k4, v4 = (t[None].detach().requires_grad_(True) for t in (q, k, v))
+    do4 = do[None]
+    lib, rel = {}, None
+    variants = [("library_ms", {"is_causal": True})]
+    if window:
+        pos = torch.arange(S, device=dev)
+        band = (pos[:, None] >= pos[None, :]) \
+            & (pos[:, None] - pos[None, :] < window)
+        variants.append(("library_window_mask_ms", {"attn_mask": band}))
+    for key, mask_kw in variants:
+        o4 = sdpa(q4, k4, v4, scale=scale, **mask_kw)
+        g = torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+        if key == variants[-1][0]:          # the kernels' own function
+            rel = [rel_l2(torch, a, b[0]) for a, b in zip(ours, g)]
+        lib[key] = cuda_ms(torch, lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), do4, retain_graph=True), 10)
+        del o4, g
+    check(max(rel) < TOL_SDPA_BWD, f"the SDPA backward disagrees with the "
+                                   f"kernels at {list(shape)}: relative L2 "
+                                   f"{rel}")
+    sdpa_s = f"scaled_dot_product_attention's backward causal " \
+             f"{lib['library_ms']:.4f} ms"
+    if window:
+        sdpa_s += (f" (no window: all {S * (S + 1) // 2} causal pairs), with "
+                   f"the window as a boolean mask "
+                   f"{lib['library_window_mask_ms']:.4f} ms")
+    for name, e in out.items():
+        e.update(lib)
+        log(f"{name} {list(shape)} bf16: {e['ms']:.4f} ms on the card "
+            f"(wrapper {e['wrapper_ms']:.4f}, plain {e['plain_ms']:.4f}, "
+            f"bound {e['bound_ms']:.4f} ms: {e['flops']:.3g} FLOP at bf16 "
+            f"-> {e['bound_ops_ms']:.4f} ms, {e['bytes'] / 1e6:.1f} MB -> "
+            f"{e['bound_bytes_ms']:.4f} ms); {e['tflops']:.2f} TFLOP/s, "
+            f"{e['bound_ms'] / e['ms']:.3f} of the bound, "
+            f"{e['ms'] / lib['library_ms']:.2f}x SDPA's whole causal "
+            f"backward")
+    log(f"flash backward {list(shape)} bf16, both kernels and delta "
+        f"through flash_bwd: {whole:.4f} ms; {sdpa_s} (relative L2 against "
+        f"the kernels: dQ {rel[0]:.3g}, dK {rel[1]:.3g}, dV {rel[2]:.3g})")
+    del q, k, v, do, o, lse, delta, args, ours, q4, k4, v4, do4
     torch.cuda.empty_cache()
-    return entries
+    return out
+
+
+def phase_bwd_timings(np, torch, dev, errs):
+    """Both backward kernels in bf16 at [15, 4,096, 64] and, under each
+    entry's ``head_dims``, at [10, 4,096, 256] with window 2,048 and
+    [32, 4,096, 96] (phase 11's shapes): device time, wrapper time, plain
+    version, bound, and the SDPA backward (:func:`bwd_times`); returns
+    their kernels-line entries, whose ``launches`` the training phase
+    fills."""
+    rng = np.random.default_rng(80)
+    t0 = time.perf_counter()
+    runs = [bwd_times(np, torch, dev, rng, shape) for shape in
+            (FLASH_SHAPES[2], RG_FLASH_SHAPE, PHI3_FLASH_SHAPE)]
+    log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return [{"name": name, "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
+             "replaces": ("src/repro/kernels/flash_attn.py:183"
+                          if name == "flash_bwd_dq"
+                          else "src/repro/kernels/flash_attn.py:200"),
+             "launches": None, "max_abs_err": errs[name],
+             **{key: runs[0][name][key] for key in keys},
+             "head_dims": {str(r[name]["shape"][2]): r[name]
+                           for r in runs[1:]}}
+            for name in ("flash_bwd_dq", "flash_bwd_dkv")]
 
 
 def rel_l2(torch, a, b):
@@ -6412,68 +6524,149 @@ def rel_l2(torch, a, b):
                  / torch.clamp(torch.linalg.vector_norm(b.float()), min=1e-30))
 
 
+def no_drop(cfg):
+    """A MoE at capacity factor E / k (capacity t: no token copy dropped,
+    so two paths whose router logits differ in the last bits route alike
+    wherever no tie is that close); other models as they are."""
+    if not cfg.num_experts:
+        return cfg
+    return cfg.with_(capacity_factor=cfg.num_experts / cfg.experts_per_token)
+
+
+def train_batch(torch, dev, cfg, tokens, labels, gen):
+    """A train batch of ``cfg`` on ``dev`` from tokens and labels
+    [B, S - L]: a model with L = ``ext_embed_len`` image positions (the
+    frontend's stub) gets ``ext_embed`` [B, L, D] drawn from N(0, 1) by
+    ``gen`` in the activation type, before the tokens, and labels
+    ``IGNORE`` there, so that labels are [B, S]."""
+    from repro_torch.train.step import IGNORE
+
+    batch = {"tokens": torch.as_tensor(tokens).to(dev),
+             "labels": torch.as_tensor(labels).to(dev)}
+    L = cfg.ext_embed_len
+    if L:
+        B = batch["tokens"].shape[0]
+        batch["ext_embed"] = torch.randn(
+            B, L, cfg.d_model, generator=gen, device=dev).to(cfg.act_dtype)
+        batch["labels"] = torch.cat(
+            [torch.full((B, L), IGNORE, dtype=batch["labels"].dtype,
+                        device=dev), batch["labels"]], dim=1)
+    return batch
+
+
+def grad_parity(np, torch, dev, arch, over, B, S, seed):
+    """One f32 ``make_train_step`` of ``arch`` (``over`` applied, a MoE at
+    :func:`no_drop`) on a seeded B x S batch, through the flash kernels
+    and through the naive path, from the same parameters: the loss within
+    ``TOL_TRAIN_LOSS`` relative, every gradient leaf finite, non-zero and
+    within ``TOL_TRAIN_GRAD`` relative L2, the flash launches one of each
+    kernel an attention layer.  The kernel path's gradients wait on the
+    host while the naive path runs.  Returns a dict: the config, params
+    and batch, both losses and their relative difference, {leaf: relative
+    L2}, the launches and the peak of allocated bytes."""
+    from repro_torch.models import transformer as MT
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import make_train_step
+
+    cfg = no_drop(model_config(arch, FLASH, dtype="float32",
+                               param_dtype="float32", remat="none", **over))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = MT.init_params(cfg, gen, dev)
+    rng = np.random.default_rng(seed)
+    L = cfg.ext_embed_len
+    tl = [rng.integers(0, cfg.vocab_size, (B, S - L)).astype(np.int32)
+          for _ in range(2)]
+    batch = train_batch(torch, dev, cfg, *tl, gen)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    loss_f, _, g_f = make_train_step(cfg, OptConfig()).grads(params, batch)
+    sync(torch, dev)
+    counts = read_counts()
+    n = kernel_layers(cfg, "flash_fwd")
+    want = {k: n if k.startswith("flash_") and dev.type == "cuda" else 0
+            for k in counts}
+    check(counts == want, f"{arch} f32 flash train step: launches {counts}, "
+                          f"want {want}")
+    g_f = {k: g.cpu() for k, g in g_f.items()}
+    loss_n, _, g_n = make_train_step(
+        cfg.with_(attn_impl="naive"), OptConfig()).grads(params, batch)
+    sync(torch, dev)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    check(set(g_f) == set(g_n) == set(params),
+          f"{arch} gradient leaves {sorted(g_f)} vs {sorted(params)}")
+    dl = abs(float(loss_f) - float(loss_n)) / abs(float(loss_n))
+    check(dl < TOL_TRAIN_LOSS, f"{arch} f32 loss flash {float(loss_f)} vs "
+                               f"naive {float(loss_n)}: {dl:.3g} relative")
+    errs = {}
+    for key in list(g_n):
+        g, ref = g_f.pop(key).to(dev), g_n.pop(key)
+        fin = bool(torch.isfinite(g).all())
+        nz = float(g.abs().max()) > 0
+        errs[key] = rel_l2(torch, g, ref)
+        check(fin and nz and errs[key] < TOL_TRAIN_GRAD,
+              f"{arch} f32 gradient {key}: finite {fin}, non-zero {nz}, "
+              f"relative L2 vs naive {errs[key]:.3g} (tolerance "
+              f"{TOL_TRAIN_GRAD})")
+        del g, ref
+    check(sum(k.endswith(("_wq", "_wk", "_wv")) for k in errs) == 3,
+          f"{arch}: no wq/wk/wv among {sorted(errs)}")
+    return {"cfg": cfg, "params": params, "batch": batch,
+            "loss": float(loss_f), "loss_naive": float(loss_n), "rel": dl,
+            "errs": errs, "counts": counts, "peak": peak}
+
+
 def phase_train_parity(np, torch, dev):
-    """SmolLM-360M at full width in f32: one train step's loss and
-    gradients through the flash kernels against the naive path's; then
+    """Each model of ``PARITY_MODELS`` at full width in f32: one train
+    step's loss and gradients through the flash kernels against the naive
+    path's (:func:`grad_parity`), and SmolLM-360M's AdamW step; then
     Mamba-2 780M's kernel path refuses a gradient."""
     from repro_torch.kernels.ssd_scan import SsdScanGradError
     from repro_torch.models import transformer as MT
     from repro_torch.train.optim import OptConfig
     from repro_torch.train.step import make_train_step
 
-    cfg = model_config("smollm_360m", {"attn_impl": "flash"},
-                       dtype="float32", param_dtype="float32", remat="none")
-    params = MT.init_params(cfg, torch.Generator(device=dev).manual_seed(300),
-                            dev)
+    t_phase = time.perf_counter()
+    for i, (arch, (over, B, S)) in enumerate(PARITY_MODELS.items()):
+        t0 = time.perf_counter()
+        r = grad_parity(np, torch, dev, arch, over, B, S, 300 + i)
+        cfg, params, errs, loss = r["cfg"], r["params"], r["errs"], r["loss"]
+        named = {k: errs[k] for k in errs
+                 if k.endswith(("_wq", "_wk", "_wv"))}
+        note = ""
+        if arch == "smollm_360m":
+            step = make_train_step(cfg, OptConfig())
+            state, m = step({"params": params, "opt": step.init_opt(params),
+                             "step": 0}, r["batch"])
+            check(abs(float(m["loss"]) - loss) <= 1e-6 * abs(loss)
+                  and all(bool(torch.isfinite(t).all())
+                          for t in state["params"].values()),
+                  f"f32 AdamW step: loss {float(m['loss'])} vs {loss}")
+            note = f"; AdamW step grad norm {float(m['grad_norm']):.4f}"
+            del state
+        extra = ""
+        if cfg.ext_embed_len:
+            extra += f", {cfg.ext_embed_len} of them image positions"
+        if cfg.num_experts:
+            extra += f", capacity factor {cfg.capacity_factor:g} (E / k)"
+        n_par = sum(v.numel() for v in params.values())
+        log(f"{arch} f32 full width ({n_par / 1e6:.1f} M params, "
+            f"{cfg.num_layers} layers, {kernel_layers(cfg, 'flash_fwd')} "
+            f"attention), train step on {B} x {S} positions{extra} (remat "
+            f"none): loss flash {loss:.6f} vs naive {r['loss_naive']:.6f} "
+            f"({r['rel']:.3g} relative, tolerance {TOL_TRAIN_LOSS}); "
+            f"gradients relative L2 "
+            f"vs naive, max {max(errs.values()):.3g} over {len(errs)} leaves "
+            f"(tolerance {TOL_TRAIN_GRAD}): "
+            + ", ".join(f"{k} {v:.3g}" for k, v in named.items())
+            + f"; every leaf finite and non-zero; launches "
+            f"{ {k: v for k, v in r['counts'].items() if v} }; peak memory "
+            f"{r['peak'] / 2**30:.2f} GiB{note}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        del r, params
+        torch.cuda.empty_cache()
+
     rng = np.random.default_rng(60)
-    B, S = TRAIN_PARITY
-    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
-                                 .astype(np.int32)).to(dev)
-             for k in ("tokens", "labels")}
-    step = make_train_step(cfg, OptConfig())
-    reset_counts()
-    loss_f, _, g_f = step.grads(params, batch)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    n = cfg.num_layers
-    check(counts["flash_fwd"] == n and counts["flash_bwd_dq"] == n
-          and counts["flash_bwd_dkv"] == n,
-          f"f32 flash train step: launches {counts}, want {n} of each flash "
-          f"kernel")
-    loss_n, _, g_n = make_train_step(
-        cfg.with_(attn_impl="naive"), OptConfig()).grads(params, batch)
-    check(set(g_f) == set(g_n) == set(params),
-          f"gradient leaves {sorted(g_f)} vs {sorted(params)}")
-    dl = abs(float(loss_f) - float(loss_n)) / abs(float(loss_n))
-    check(dl < TOL_TRAIN_LOSS, f"f32 loss flash {float(loss_f)} vs naive "
-                               f"{float(loss_n)}: {dl:.3g} relative")
-    errs = {}
-    for key, g in g_f.items():
-        fin = bool(torch.isfinite(g).all())
-        nz = float(g.abs().max()) > 0
-        errs[key] = rel_l2(torch, g, g_n[key])
-        check(fin and nz and errs[key] < TOL_TRAIN_GRAD,
-              f"f32 gradient {key}: finite {fin}, non-zero {nz}, relative "
-              f"L2 vs naive {errs[key]:.3g} (tolerance {TOL_TRAIN_GRAD})")
-    named = {k: errs[k] for k in errs if k.endswith(("_wq", "_wk", "_wv"))}
-    check(len(named) == 3, f"no wq/wk/wv among {sorted(errs)}")
-    state, m = step({"params": params, "opt": step.init_opt(params),
-                     "step": 0}, batch)
-    check(abs(float(m["loss"]) - float(loss_f)) <= 1e-6 * abs(float(loss_f))
-          and all(bool(torch.isfinite(t).all())
-                  for t in state["params"].values()),
-          f"f32 AdamW step: loss {float(m['loss'])} vs {float(loss_f)}")
-    log(f"smollm_360m f32 full width, train step on {B} x {S} tokens "
-        f"(remat none): loss flash {float(loss_f):.6f} vs naive "
-        f"{float(loss_n):.6f} ({dl:.3g} relative, tolerance "
-        f"{TOL_TRAIN_LOSS}); gradients relative L2 vs naive, max "
-        f"{max(errs.values()):.3g} over {len(errs)} leaves (tolerance "
-        f"{TOL_TRAIN_GRAD}): " + ", ".join(f"{k} {v:.3g}"
-                                           for k, v in named.items())
-        + f"; every leaf finite and non-zero; launches {counts}; grad norm "
-        f"{float(m['grad_norm']):.4f}")
-    del params, g_f, g_n, state, batch
-    torch.cuda.empty_cache()
 
     cfg = model_config("mamba2_780m", {"ssd_impl": "kernel"})
     params = MT.init_params(cfg, torch.Generator(device=dev).manual_seed(301),
@@ -6492,20 +6685,30 @@ def phase_train_parity(np, torch, dev):
     check(read_counts()["ssd_scan"] == 0, "ssd_scan launched in the refusal")
     del params
     torch.cuda.empty_cache()
+    log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def train_launches_per_step(cfg, mb=TRAIN_MB):
     """The flash launches of one bf16 train step in ``mb`` microbatches
-    with block remat: each layer's forward twice (the recomputation), each
-    backward kernel once, per microbatch."""
-    n = cfg.num_layers
+    with block remat: each attention layer's forward twice (the
+    recomputation), each backward kernel once, per microbatch
+    (RecurrentGemma-2B: 8 of its 26 layers)."""
+    n = kernel_layers(cfg, "flash_fwd")
     return {"flash_fwd": n * 2 * mb, "flash_bwd_dq": n * mb,
             "flash_bwd_dkv": n * mb}
 
 
-def phase_training(np, torch, dev):
-    """SmolLM-360M bf16 training at full width through the flash kernels —
-    the training path; returns {kernel: launches in the 8 timed steps}."""
+def train_model(np, torch, dev, arch, over, B, S, mb, steps, seed):
+    """``arch`` (``over`` applied) trained in bf16 through the flash kernels
+    — ``remat="block"``, AdamW with f32 state, the state donated to the
+    step, B x S batches in ``mb`` microbatches from ``data.Loader`` (a
+    model with image positions gets its ``ext_embed`` stub,
+    :func:`train_batch`): ``steps`` = (warm-up, timed, one-batch) steps,
+    each step's launches equal to :func:`train_launches_per_step` and its
+    loss finite; the timed steps' time, tokens/s and peak memory, a
+    traced step's idle share and flash kernel times; then the one-batch
+    steps, whose loss must fall.  Returns {kernel: launches in the timed
+    steps}."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import Loader, TokenDataset
@@ -6513,78 +6716,109 @@ def phase_training(np, torch, dev):
     from repro_torch.train.optim import OptConfig
     from repro_torch.train.step import make_train_step
 
-    cfg = model_config("smollm_360m", {"attn_impl": "flash"}, remat="block")
+    t_model = time.perf_counter()
+    warm, timed, fit_steps = steps
+    cfg = model_config(arch, FLASH, remat="block", **over)
     opt = OptConfig(lr=1e-3, schedule="constant", warmup_steps=1,
                     state_dtype="float32")
-    step = make_train_step(cfg, opt, microbatches=TRAIN_MB)
-    params = MT.init_params(cfg, torch.Generator(device=dev).manual_seed(400),
-                            dev)
+    step = make_train_step(cfg, opt, microbatches=mb, donate=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = MT.init_params(cfg, gen, dev)
+    n_par = sum(v.numel() for v in params.values())
     state = {"params": params, "opt": step.init_opt(params), "step": 0}
     del params
+    L = cfg.ext_embed_len
     loader = Loader(TokenDataset(cfg.vocab_size, seed=7), shard_id=0,
-                    n_shards=1, batch_per_shard=TRAIN_B, seq_len=TRAIN_S)
-    per_step = train_launches_per_step(cfg)
+                    n_shards=1, batch_per_shard=B, seq_len=S - L)
+    per_step = train_launches_per_step(cfg, mb)
 
     def batch_on_card():
         _, b = next(loader)
-        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        return train_batch(torch, dev, cfg, b["tokens"], b["labels"], gen)
 
     def one_step(state, batch):
         before = read_counts()
-        torch.cuda.synchronize()
+        sync(torch, dev)
         t0 = time.perf_counter()
         state, m = step(state, batch)
-        torch.cuda.synchronize()
+        sync(torch, dev)
         dt = time.perf_counter() - t0
         now = read_counts()
         delta = {k: now[k] - before[k] for k in now}
-        want = {k: per_step.get(k, 0) for k in now}
-        check(delta == want, f"train step launches {delta}, want {want}")
-        check(np.isfinite(float(m["loss"])), f"loss {float(m['loss'])}")
+        want = {k: per_step.get(k, 0) if dev.type == "cuda" else 0
+                for k in now}
+        check(delta == want, f"{arch} train step launches {delta}, want "
+                             f"{want}")
+        check(np.isfinite(float(m["loss"])), f"{arch} loss "
+                                             f"{float(m['loss'])}")
         return state, m, dt
 
     try:
-        for _ in range(TRAIN_WARM):
+        for _ in range(warm):
             state, m, _ = one_step(state, batch_on_card())
-        torch.cuda.reset_peak_memory_stats(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
         times, losses = [], []
-        for _ in range(TRAIN_TIMED):
+        for _ in range(timed):
             state, m, dt = one_step(state, batch_on_card())
             times.append(dt)
             losses.append(float(m["loss"]))
         launches = read_counts()
-        peak = torch.cuda.max_memory_allocated(dev)
+        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else 0)
         med = statistics.median(times)
-        tokens = TRAIN_B * TRAIN_S
-        log(f"smollm_360m bf16 training, batch {TRAIN_B} x {TRAIN_S} in "
-            f"{TRAIN_MB} microbatches, remat block, AdamW f32 state: "
-            f"{TRAIN_TIMED} steps of " + ", ".join(f"{t:.4f}" for t in times)
+        tokens = B * S
+        image = f" ({L} image positions a row)" if L else ""
+        log(f"{arch} bf16 training, {cfg.num_layers} layers "
+            f"({kernel_layers(cfg, 'flash_fwd')} attention), "
+            f"{n_par / 1e9:.3f} B params, batch {B} x {S}{image} in {mb} "
+            f"microbatches, remat block, AdamW f32 state: {timed} steps of "
+            + ", ".join(f"{t:.4f}" for t in times)
             + f" s, median {med:.4f} s = {tokens / med:.1f} tokens/s; peak "
             f"memory {peak / 2**30:.2f} GiB; losses "
             + ", ".join(f"{x:.4f}" for x in losses)
             + f"; launches per step {per_step}, in the timed steps "
-            f"{launches}")
+            f"{ {k: v for k, v in launches.items() if v} }")
         batch = batch_on_card()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            state, m, dt = one_step(state, batch)
-        log_card_busy(prof, med, "smollm_360m card over a traced train step",
-                      ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-                       "flash_bwd_dkv_wgmma_kernel"))
-        log(f"traced step {dt:.4f} s (untraced median {med:.4f} s)")
+        if dev.type == "cuda":
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, m, dt = one_step(state, batch)
+            log_card_busy(prof, med, f"{arch} card over a traced train step",
+                          ("flash_fwd_wgmma_kernel",
+                           "flash_bwd_dq_wgmma_kernel",
+                           "flash_bwd_dkv_wgmma_kernel"))
+            log(f"{arch} traced step {dt:.4f} s (untraced median "
+                f"{med:.4f} s)")
         fit = []
-        for _ in range(TRAIN_FIT):
+        for _ in range(fit_steps):
             state, m, _ = one_step(state, batch)
             fit.append(float(m["loss"]))
-        check(fit[-1] < fit[0], f"loss on one batch did not fall: {fit}")
-        log(f"{TRAIN_FIT} steps on one batch: loss "
-            + ", ".join(f"{x:.4f}" for x in fit))
+        check(fit[-1] < fit[0], f"{arch}: loss on one batch did not fall: "
+                                f"{fit}")
+        log(f"{arch}: {fit_steps} steps on one batch: loss "
+            + ", ".join(f"{x:.4f}" for x in fit)
+            + f"; {time.perf_counter() - t_model:.1f} s for the model")
     finally:
         loader.close()
     del state, batch
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_training(np, torch, dev):
+    """bf16 training at full width through the flash kernels, the
+    training path: each model of ``TRAIN_MODELS`` (:func:`train_model`),
+    RecurrentGemma-2B at its published width and depth among them;
+    returns {arch: {kernel: launches in its timed steps}}."""
+    t0 = time.perf_counter()
+    out = {arch: train_model(np, torch, dev, arch, over, B, S, mb, steps,
+                             400 + i)
+           for i, (arch, (over, B, S, mb, steps))
+           in enumerate(TRAIN_MODELS.items())}
+    log(f"phase 17 took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main():
@@ -6624,6 +6858,25 @@ def main():
     vm["max_abs_err"] = max(vm["max_abs_err"], vm_err)
     kernels.append(agg_entry)
     del d
+    # the model stack (phases 10-17, 12, 13) before the host phases: after
+    # their long traces (phases 24-25 hold 170,000-180,000 device records
+    # each), torch.profiler lost whole traces of the timed kernels on the
+    # H100, three in a row once
+    model_errs = phase_model_kernels(np, torch, dev)
+    bwd_errs = phase_bwd_kernels(np, torch, dev)
+    model_entries = phase_model_timings(np, torch, dev, model_errs)
+    bwd_entries = phase_bwd_timings(np, torch, dev, bwd_errs)
+    phase_train_parity(np, torch, dev)
+    train_launches = phase_training(np, torch, dev)
+    for entry in model_entries[:1] + bwd_entries:
+        entry["train_launches"] = {arch: n[entry["name"]]
+                                   for arch, n in train_launches.items()}
+    for entry in bwd_entries:
+        entry["launches"] = sum(entry["train_launches"].values())
+    phase_model_parity(np, torch, dev)
+    launches = phase_serving(np, torch, dev)
+    for entry in model_entries:
+        entry["launches"] = launches[entry["name"]]
     host = phase_host_target(np, torch, dev)
     vm["host_launches"] = host["launches"]
     vm["host_ms"] = host["ms"]
@@ -6650,24 +6903,7 @@ def main():
     kernels[0]["elastic_launches"] = ru["sweeps"]
     vm["launches"] += ru["sweeps"]
     kernels[0]["launches"] += ru["sweeps"]
-    fabric_launches = phase_fabric(np, torch, dev, smi)
-    model_errs = phase_model_kernels(np, torch, dev)
-    bwd_errs = phase_bwd_kernels(np, torch, dev)
-    # timed, and a train step traced, before the serving phase's long
-    # traces, after which the profiler recorded no device time in a run on
-    # the H100
-    model_entries = phase_model_timings(np, torch, dev, model_errs)
-    bwd_entries = phase_bwd_timings(np, torch, dev, bwd_errs)
-    phase_train_parity(np, torch, dev)
-    train_launches = phase_training(np, torch, dev)
-    for entry in bwd_entries:
-        entry["launches"] = train_launches[entry["name"]]
-    phase_model_parity(np, torch, dev)
-    launches = phase_serving(np, torch, dev)
-    for entry in model_entries:
-        entry["launches"] = launches[entry["name"]]
-        if entry["name"] == "flash_fwd":
-            entry["fabric_launches"] = fabric_launches
+    model_entries[0]["fabric_launches"] = phase_fabric(np, torch, dev, smi)
     kernels += model_entries + bwd_entries
     for entry in kernels:
         if entry["name"] in ru["driver"]:

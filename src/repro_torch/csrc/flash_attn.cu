@@ -276,15 +276,9 @@ __global__ void __launch_bounds__(Fwd<HD>::THREADS, Fwd<HD>::MIN_BLOCKS)
                            ? (q0 - window + 1) / BK : 0;
   const int kt_end = q_last / BK;
 
-  if constexpr (HD != C::HDP) {             // V's padded columns, both stages
-    constexpr int FIRST = HD % 64 / 8, PAD = (C::HDP - HD) / 8;
-    for (int e = tid; e < 2 * BK * PAD; e += NT) {
-      const int st = e / (BK * PAD), r = e / PAD % BK, ch = FIRST + e % PAD;
-      st_shared_zero16(KV0 + st * 2 * C::KV_BYTES + C::KV_BYTES +
-                       (C::HDP / 64 - 1) * BK * 128 + r * 128 +
-                       ((ch ^ (r & 7)) << 4));
-    }
-  }
+  // V's padded columns (B of O += P V), both stages
+  zero_pad<HD, C::HDP, BK, NT>(KV0 + C::KV_BYTES, tid);
+  zero_pad<HD, C::HDP, BK, NT>(KV0 + 2 * C::KV_BYTES + C::KV_BYTES, tid);
   load_tile<BQ, HD, NT>(Qs, q + base, q0, S, tid);
   load_tile<BK, HD, NT>(KV0, k + base, kt_begin * BK, S, tid);
   load_tile<BK, HD, NT>(KV0 + C::KV_BYTES, v + base, kt_begin * BK, S, tid);

@@ -27,6 +27,8 @@
 // products, 4.8e10 FLOP, and dK/dV four, 6.4e10: 0.049 and 0.065 ms at the
 // tensor cores' 989 TFLOP/s, against 40 and 48 MB of traffic (each operand
 // read once, each output written once: 0.012 and 0.014 ms at 3.35 TB/s).
+// At RecurrentGemma's [10, 4,096, 256] with its window of 2,048 (6.29e7
+// pairs): 9.67e10 and 1.29e11 FLOP, 0.098 and 0.130 ms.
 //
 // In bf16 both kernels are built on wgmma, the only way to the tensor
 // cores, from the pieces in hopper.cuh: two warpgroups a block, operand
@@ -51,7 +53,7 @@
 // dK/dV (flash_bwd_dkv_wgmma_kernel): the same with the roles of queries
 // and keys swapped: one block per (bh, tile of 128 keys), the first keys,
 // which the most query rows see, first.  K and V stay in shared memory;
-// Q, dO, LSE and delta tiles of BQ queries (64 at head_dim 64, 32 at 128,
+// Q, dO, LSE and delta tiles of BQ queries (64 at head_dim 64, 32 above,
 // so that the four accumulators fit the registers without spilling)
 // stream through the ring.  Per query tile and warpgroup, four products:
 //   S^T  = K Q^T            wgmma SS, both K-major;
@@ -64,14 +66,33 @@
 // descriptor's transpose bit, which wgmma offers for 16-bit types only.
 // dQ, dK and dV stay in f32 registers to the end and are written in bf16.
 //
+// The other head dims, as the forward (flash_attn.cu) takes them:
+// head_dim 96 loads every tile as two 64-column panels (wgmma's B panel
+// is one 128-byte swizzle row), the second half used: S and dP read only
+// their 6 k-steps, and the products into head_dim (dQ += dS K, dV += P^T
+// dO, dK += dS^T Q) run n128 over their B operand's last panel, whose
+// columns 96-127 are zeroed once in both ring stages (cp.async never
+// writes them), and columns 96-127 of the accumulators are never stored;
+// registers and shared memory are head_dim 128's.  Head_dim 256: dQ takes
+// key tiles of 32 (S and dP at m64n32), since Q and dO (128 KiB) and two
+// stages of 64-key K and V tiles (128 KiB) would pass the 227 KiB a block
+// may hold; its accumulator is 128 f32 registers a thread.  dK/dV cannot
+// hold both accumulators (2 x 128 registers, over the 255 a thread may
+// have), so both warpgroups take the same 64 keys, warpgroup 0
+// accumulating dV and 1 dK, each computing S^T itself: 5 products a tile
+// instead of 4, no hand-over of P through shared memory, and every output
+// still written by one thread of one block.
+//
 // In f32 both compute in FP32 FMAs on the CUDA cores (flash_bwd_dq_kernel,
-// flash_bwd_dkv_kernel): 256 threads per block, tiles of 64 rows held in
+// flash_bwd_dkv_kernel): 256 threads per block, tiles of B = 64 rows (32
+// at head_dim 256, where four [64][257] tiles would pass 227 KiB) held in
 // shared memory as f32 with rows padded by one word (column reads hit
 // distinct banks).  Thread (r, c) = (tid / 16, tid % 16) computes rows
-// 4r..4r+3 and columns c + 16j of each 64 x 64 product tile, and columns
-// c + 16d of its output rows, which it keeps in registers until the end.
-// wgmma's f32 route is TF32 (a 10-bit mantissa), which would break the f32
-// path's agreement with the plain version, so f32 keeps this design.
+// R r .. R r + R - 1 (R = B / 16) and columns c + 16j of each B x B
+// product tile, and columns c + 16d of its output rows, which it keeps in
+// registers until the end.  wgmma's f32 route is TF32 (a 10-bit
+// mantissa), which would break the f32 path's agreement with the plain
+// version, so f32 keeps this design.
 //
 // In all, tiles wholly above the diagonal or wholly outside the window are
 // never visited; within a visited tile the mask is by position, so any
@@ -80,11 +101,12 @@
 //
 // Inputs q, k, v, dO [BH, S, hd] contiguous, f32 or bf16, all one type;
 // lse and delta [BH, S] f32.  Outputs dQ, dK, dV [BH, S, hd] in the
-// input type.  hd is 64 or 128; the bf16 kernels are templates on hd
-// (see flash_attn.cu for what 96 and 256 need).
+// input type.  hd is 64, 96, 128 or 256; all four kernels are templates
+// on it.
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -92,50 +114,60 @@
 
 namespace {
 
-constexpr int kB = 64, kThreads = 256;   // tile rows; threads a block
+constexpr int kThreads = 256;            // threads a block
 
-// rows row0 .. row0+63 of a [S, HD] f32 matrix into dst[64][HD + 1],
+// rows of the f32 kernels' tiles (queries or keys): 64, or 32 at head_dim
+// 256, where four [64][257] f32 tiles (263 KB) would not fit a block's
+// 227 KB of shared memory
+template <int HD>
+struct F32 {
+  static constexpr int B = HD == 256 ? 32 : 64;
+  static constexpr int R = B / 16;       // rows and columns a thread
+};
+
+// rows row0 .. row0+B-1 of a [S, HD] f32 matrix into dst[B][HD + 1],
 // zeros past S
 template <int HD>
 __device__ __forceinline__ void load_tile(float* dst,
                                           const float* __restrict__ src,
                                           int64_t row0, int64_t S, int tid) {
-  constexpr int LD = HD + 1;
-  for (int e = tid; e < kB * HD; e += kThreads) {
+  constexpr int LD = HD + 1, B = F32<HD>::B;
+  for (int e = tid; e < B * HD; e += kThreads) {
     const int i = e / HD, d = e % HD;
     const int64_t row = row0 + i;
     dst[i * LD + d] = row < S ? src[row * HD + d] : 0.f;
   }
 }
 
-// x = A1 B1^T and y = A2 B2^T on this thread's 4 x 4 entries, where every
-// operand is a [64][HD + 1] tile: rows 4r + ii of A, rows c + 16 jj of B
+// x = A1 B1^T and y = A2 B2^T on this thread's R x R entries, where every
+// operand is a [B][HD + 1] tile: rows R r + ii of A, rows c + 16 jj of B
 template <int HD>
 __device__ __forceinline__ void two_products(
     const float* A1, const float* B1, const float* A2, const float* B2,
-    int r, int c, float (&x)[4][4], float (&y)[4][4]) {
-  constexpr int LD = HD + 1;
+    int r, int c, float (&x)[F32<HD>::R][F32<HD>::R],
+    float (&y)[F32<HD>::R][F32<HD>::R]) {
+  constexpr int LD = HD + 1, R = F32<HD>::R;
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
+  for (int ii = 0; ii < R; ++ii)
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) x[ii][jj] = y[ii][jj] = 0.f;
+    for (int jj = 0; jj < R; ++jj) x[ii][jj] = y[ii][jj] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < HD; ++d) {
-    float a1[4], a2[4], b1[4], b2[4];
+    float a1[R], a2[R], b1[R], b2[R];
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      a1[ii] = A1[(4 * r + ii) * LD + d];
-      a2[ii] = A2[(4 * r + ii) * LD + d];
+    for (int ii = 0; ii < R; ++ii) {
+      a1[ii] = A1[(R * r + ii) * LD + d];
+      a2[ii] = A2[(R * r + ii) * LD + d];
     }
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int jj = 0; jj < R; ++jj) {
       b1[jj] = B1[(c + 16 * jj) * LD + d];
       b2[jj] = B2[(c + 16 * jj) * LD + d];
     }
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
+    for (int ii = 0; ii < R; ++ii)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < R; ++jj) {
         x[ii][jj] = fmaf(a1[ii], b1[jj], x[ii][jj]);
         y[ii][jj] = fmaf(a2[ii], b2[jj], y[ii][jj]);
       }
@@ -149,15 +181,17 @@ __device__ __forceinline__ bool allowed(int64_t qi, int64_t kj, int64_t S,
 
 template <int HD>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (4 * kB * (HD + 1) + kB * (kB + 1));
+  constexpr int B = F32<HD>::B;
+  return sizeof(float) * (4 * B * (HD + 1) + B * (B + 1));
 }
 
 template <int HD>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (4 * kB * (HD + 1) + 2 * kB * (kB + 1) + 2 * kB);
+  constexpr int B = F32<HD>::B;
+  return sizeof(float) * (4 * B * (HD + 1) + 2 * B * (B + 1) + 2 * B);
 }
 
-// One block per (tile of 64 query rows, bh); the heaviest tiles (the last
+// One block per (tile of B query rows, bh); the heaviest tiles (the last
 // rows, which see the most keys) are handed out first.
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -168,81 +202,82 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, float* __restrict__ dq,
                         int64_t S, float scale, int64_t window) {
-  constexpr int LD = HD + 1, LP = kB + 1, ND = HD / 16;
+  constexpr int B = F32<HD>::B, R = F32<HD>::R;
+  constexpr int LD = HD + 1, LP = B + 1, ND = HD / 16;
   extern __shared__ float smem[];
-  float* Qs = smem;                // [kB][LD]
-  float* dOs = Qs + kB * LD;       // [kB][LD]
-  float* Ks = dOs + kB * LD;       // [kB][LD]
-  float* Vs = Ks + kB * LD;        // [kB][LD]
-  float* dSs = Vs + kB * LD;       // [kB][LP]
+  float* Qs = smem;                // [B][LD]
+  float* dOs = Qs + B * LD;        // [B][LD]
+  float* Ks = dOs + B * LD;        // [B][LD]
+  float* Vs = Ks + B * LD;         // [B][LD]
+  float* dSs = Vs + B * LD;        // [B][LP]
 
   const int tid = threadIdx.x;
   const int r = tid >> 4, c = tid & 15;
-  const int64_t n_tiles = (S + kB - 1) / kB;
-  const int64_t q0 = (n_tiles - 1 - blockIdx.x) * kB;
+  const int64_t n_tiles = (S + B - 1) / B;
+  const int64_t q0 = (n_tiles - 1 - blockIdx.x) * B;
   const int64_t bh = blockIdx.y;
   const int64_t base = bh * S * HD;
 
   load_tile<HD>(Qs, q + base, q0, S, tid);
   load_tile<HD>(dOs, dout + base, q0, S, tid);
-  float lse_r[4], delta_r[4];
+  float lse_r[R], delta_r[R];
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int64_t qi = q0 + 4 * r + ii;
+  for (int ii = 0; ii < R; ++ii) {
+    const int64_t qi = q0 + R * r + ii;
     lse_r[ii] = qi < S ? lse[bh * S + qi] : 0.f;
     delta_r[ii] = qi < S ? delta[bh * S + qi] : 0.f;
   }
-  float acc[4][ND];
+  float acc[R][ND];
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
+  for (int ii = 0; ii < R; ++ii)
 #pragma unroll
     for (int dd = 0; dd < ND; ++dd) acc[ii][dd] = 0.f;
 
-  const int64_t q_last = (q0 + kB - 1 < S - 1) ? q0 + kB - 1 : S - 1;
+  const int64_t q_last = (q0 + B - 1 < S - 1) ? q0 + B - 1 : S - 1;
   int64_t kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / kB;
-  const int64_t kt_end = q_last / kB;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / B;
+  const int64_t kt_end = q_last / B;
 
   for (int64_t kt = kt_begin; kt <= kt_end; ++kt) {
-    const int64_t k0 = kt * kB;
+    const int64_t k0 = kt * B;
     __syncthreads();               // the last tile's reads are done
     load_tile<HD>(Ks, k + base, k0, S, tid);
     load_tile<HD>(Vs, v + base, k0, S, tid);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[R][R], dp[R][R];
     two_products<HD>(Qs, Ks, dOs, Vs, r, c, s, dp);
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const int64_t qi = q0 + 4 * r + ii;
+    for (int ii = 0; ii < R; ++ii) {
+      const int64_t qi = q0 + R * r + ii;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < R; ++jj) {
         const int64_t kj = k0 + c + 16 * jj;
         const float p = allowed(qi, kj, S, window)
                             ? expf(s[ii][jj] * scale - lse_r[ii]) : 0.f;
-        dSs[(4 * r + ii) * LP + c + 16 * jj] =
+        dSs[(R * r + ii) * LP + c + 16 * jj] =
             p * (dp[ii][jj] - delta_r[ii]) * scale;
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int j = 0; j < kB; ++j) {
-      float ds[4];
+    for (int j = 0; j < B; ++j) {
+      float ds[R];
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii) ds[ii] = dSs[(4 * r + ii) * LP + j];
+      for (int ii = 0; ii < R; ++ii) ds[ii] = dSs[(R * r + ii) * LP + j];
 #pragma unroll
       for (int dd = 0; dd < ND; ++dd) {
         const float kv = Ks[j * LD + c + 16 * dd];
 #pragma unroll
-        for (int ii = 0; ii < 4; ++ii) acc[ii][dd] = fmaf(ds[ii], kv, acc[ii][dd]);
+        for (int ii = 0; ii < R; ++ii) acc[ii][dd] = fmaf(ds[ii], kv, acc[ii][dd]);
       }
     }
   }
 
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int64_t qi = q0 + 4 * r + ii;
+  for (int ii = 0; ii < R; ++ii) {
+    const int64_t qi = q0 + R * r + ii;
     if (qi >= S) continue;
 #pragma unroll
     for (int dd = 0; dd < ND; ++dd)
@@ -250,7 +285,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block per (tile of 64 keys, bh); the first keys, which the most
+// One block per (tile of B keys, bh); the first keys, which the most
 // query rows see, come first.  Rows of this block's product tiles are
 // keys, columns queries.
 template <int HD>
@@ -264,78 +299,79 @@ __global__ void __launch_bounds__(kThreads)
                          float* __restrict__ dk, float* __restrict__ dv,
                          int64_t S, float scale,
                          int64_t window) {
-  constexpr int LD = HD + 1, LP = kB + 1, ND = HD / 16;
+  constexpr int B = F32<HD>::B, R = F32<HD>::R;
+  constexpr int LD = HD + 1, LP = B + 1, ND = HD / 16;
   extern __shared__ float smem[];
-  float* Ks = smem;                // [kB][LD]
-  float* Vs = Ks + kB * LD;        // [kB][LD]
-  float* Qs = Vs + kB * LD;        // [kB][LD]
-  float* dOs = Qs + kB * LD;       // [kB][LD]
-  float* Ps = dOs + kB * LD;       // [kB keys][LP queries]
-  float* dSs = Ps + kB * LP;       // [kB keys][LP queries]
-  float* lse_s = dSs + kB * LP;    // [kB]
-  float* delta_s = lse_s + kB;     // [kB]
+  float* Ks = smem;                // [B][LD]
+  float* Vs = Ks + B * LD;         // [B][LD]
+  float* Qs = Vs + B * LD;         // [B][LD]
+  float* dOs = Qs + B * LD;        // [B][LD]
+  float* Ps = dOs + B * LD;        // [B keys][LP queries]
+  float* dSs = Ps + B * LP;        // [B keys][LP queries]
+  float* lse_s = dSs + B * LP;     // [B]
+  float* delta_s = lse_s + B;      // [B]
 
   const int tid = threadIdx.x;
   const int r = tid >> 4, c = tid & 15;
-  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * kB;
+  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * B;
   const int64_t bh = blockIdx.y;
   const int64_t base = bh * S * HD;
 
   load_tile<HD>(Ks, k + base, k0, S, tid);
   load_tile<HD>(Vs, v + base, k0, S, tid);
-  float acc_k[4][ND], acc_v[4][ND];
+  float acc_k[R][ND], acc_v[R][ND];
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
+  for (int ii = 0; ii < R; ++ii)
 #pragma unroll
     for (int dd = 0; dd < ND; ++dd) acc_k[ii][dd] = acc_v[ii][dd] = 0.f;
 
-  const int64_t k_last = (k0 + kB - 1 < S - 1) ? k0 + kB - 1 : S - 1;
+  const int64_t k_last = (k0 + B - 1 < S - 1) ? k0 + B - 1 : S - 1;
   int64_t q_end = S - 1;
   if (window > 0 && k_last + window - 1 < q_end) q_end = k_last + window - 1;
-  const int64_t qt_begin = k0 / kB, qt_end = q_end / kB;
+  const int64_t qt_begin = k0 / B, qt_end = q_end / B;
 
   for (int64_t qt = qt_begin; qt <= qt_end; ++qt) {
-    const int64_t q0 = qt * kB;
+    const int64_t q0 = qt * B;
     __syncthreads();               // the last tile's reads are done
     load_tile<HD>(Qs, q + base, q0, S, tid);
     load_tile<HD>(dOs, dout + base, q0, S, tid);
-    for (int e = tid; e < kB; e += kThreads) {
+    for (int e = tid; e < B; e += kThreads) {
       const int64_t qi = q0 + e;
       lse_s[e] = qi < S ? lse[bh * S + qi] : 0.f;
       delta_s[e] = qi < S ? delta[bh * S + qi] : 0.f;
     }
     __syncthreads();
 
-    float s[4][4], dp[4][4];       // [key 4r + ii][query c + 16 jj]
+    float s[R][R], dp[R][R];       // [key R r + ii][query c + 16 jj]
     two_products<HD>(Ks, Qs, Vs, dOs, r, c, s, dp);
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const int64_t kj = k0 + 4 * r + ii;
+    for (int ii = 0; ii < R; ++ii) {
+      const int64_t kj = k0 + R * r + ii;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < R; ++jj) {
         const int ql = c + 16 * jj;
         const float p = allowed(q0 + ql, kj, S, window)
                             ? expf(s[ii][jj] * scale - lse_s[ql]) : 0.f;
-        Ps[(4 * r + ii) * LP + ql] = p;
-        dSs[(4 * r + ii) * LP + ql] = p * (dp[ii][jj] - delta_s[ql]) * scale;
+        Ps[(R * r + ii) * LP + ql] = p;
+        dSs[(R * r + ii) * LP + ql] = p * (dp[ii][jj] - delta_s[ql]) * scale;
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int j = 0; j < kB; ++j) {
-      float pv[4], ds[4];
+    for (int j = 0; j < B; ++j) {
+      float pv[R], ds[R];
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        pv[ii] = Ps[(4 * r + ii) * LP + j];
-        ds[ii] = dSs[(4 * r + ii) * LP + j];
+      for (int ii = 0; ii < R; ++ii) {
+        pv[ii] = Ps[(R * r + ii) * LP + j];
+        ds[ii] = dSs[(R * r + ii) * LP + j];
       }
 #pragma unroll
       for (int dd = 0; dd < ND; ++dd) {
         const float dov = dOs[j * LD + c + 16 * dd];
         const float qv = Qs[j * LD + c + 16 * dd];
 #pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
+        for (int ii = 0; ii < R; ++ii) {
           acc_v[ii][dd] = fmaf(pv[ii], dov, acc_v[ii][dd]);
           acc_k[ii][dd] = fmaf(ds[ii], qv, acc_k[ii][dd]);
         }
@@ -344,8 +380,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int64_t kj = k0 + 4 * r + ii;
+  for (int ii = 0; ii < R; ++ii) {
+    const int64_t kj = k0 + R * r + ii;
     if (kj >= S) continue;
 #pragma unroll
     for (int dd = 0; dd < ND; ++dd) {
@@ -360,11 +396,12 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int64_t BH,
               int64_t S, float scale, int64_t window, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<HD>();
+  constexpr int B = F32<HD>::B;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((S + kB - 1) / kB),
+  const dim3 grid(static_cast<unsigned>((S + B - 1) / B),
                   static_cast<unsigned>(BH));
   flash_bwd_dq_kernel<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -380,11 +417,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                int64_t BH, int64_t S, float scale, int64_t window,
                cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<HD>();
+  constexpr int B = F32<HD>::B;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((S + kB - 1) / kB),
+  const dim3 grid(static_cast<unsigned>((S + B - 1) / B),
                   static_cast<unsigned>(BH));
   flash_bwd_dkv_kernel<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -400,15 +438,23 @@ using bf16 = __nv_bfloat16;
 
 template <int HD>
 struct Dkv {
-  static constexpr int BK = 128;             // keys a block
-  static constexpr int BQ = HD == 64 ? 64 : 32;   // queries a tile
+  static constexpr int HDP = (HD + 63) / 64 * 64;   // whole column panels
+  // head_dim 256: dK and dV of one warpgroup's 64 keys would be 2 x 128 f32
+  // registers a thread, over the 255 a thread may hold.  So both
+  // warpgroups take the same 64 keys, one accumulating dV and the other
+  // dK, each computing S^T itself (5 products a tile instead of 4, and no
+  // hand-over of P between the warpgroups)
+  static constexpr bool SPLIT = HD == 256;
+  static constexpr int BK = SPLIT ? 64 : 128;       // keys a block
+  static constexpr int BQ = HD == 64 ? 64 : 32;     // queries a tile
   static constexpr int THREADS = 256;        // two warpgroups
-  static constexpr int KV_BYTES = BK * HD * 2;    // K or V
-  static constexpr int T_BYTES = BQ * HD * 2;     // Q or dO, one stage
+  static constexpr int KV_BYTES = BK * HDP * 2;    // K or V
+  static constexpr int T_BYTES = BQ * HDP * 2;     // Q or dO, one stage
   // Q, dO, then LSE and delta in 1 KiB, so that every stage is aligned
   static constexpr int STAGE = 2 * T_BYTES + 1024;
   static_assert(2 * BQ * 4 <= 1024, "LSE and delta fit their KiB");
   // K, V, then the ring's two stages; 1 KiB to align the base
+  // (head_dim 96: 1 + 64 + 34 KiB; 256: 1 + 64 + 66 KiB)
   static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + 2 * STAGE;
 };
 
@@ -442,7 +488,9 @@ __global__ void __launch_bounds__(Dkv<HD>::THREADS, 1)
                                int S, float scale, int window) {
   using C = Dkv<HD>;
   using namespace hopper;
-  constexpr int BK = C::BK, BQ = C::BQ, NT = C::THREADS;
+  constexpr int BK = C::BK, BQ = C::BQ, NT = C::THREADS, HDP = C::HDP;
+  // accumulators a thread: dV then dK, or (SPLIT) its warpgroup's one
+  constexpr int NACC = C::SPLIT ? 1 : 2;
   constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t Ks = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -452,6 +500,8 @@ __global__ void __launch_bounds__(Dkv<HD>::THREADS, 1)
 
   const int tid = threadIdx.x;
   const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  // SPLIT: warpgroup 0 accumulates dV, 1 dK
+  const bool do_dv = !C::SPLIT || wg == 0, do_dk = !C::SPLIT || wg == 1;
   const int64_t bh = blockIdx.x;
   const int64_t base = bh * S * HD;
   const int k0 = static_cast<int>(blockIdx.y) * BK;
@@ -460,19 +510,28 @@ __global__ void __launch_bounds__(Dkv<HD>::THREADS, 1)
                         ? k_last + window - 1 : S - 1;
   const int qt_begin = k0 / BQ, qt_end = q_end / BQ;
 
+  // Q's and dO's padded columns (B of dK += dS^T Q, dV += P^T dO), both
+  // stages
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    zero_pad<HD, HDP, BQ, NT>(Q0 + (t / 2) * C::STAGE + (t % 2) * C::T_BYTES,
+                              tid);
   hopper::load_tile<BK, HD, NT>(Ks, k + base, k0, S, tid);
   hopper::load_tile<BK, HD, NT>(Vs, v + base, k0, S, tid);
   load_q_stage<HD>(Q0, q + base, dout + base, lse + bh * S, delta + bh * S,
                    qt_begin * BQ, S, tid);
   cp_async_commit();
 
-  const int wk0 = k0 + 64 * wg;              // this warpgroup's first key
+  const int kw = C::SPLIT ? 0 : wg;          // this warpgroup's 64 keys
+  const int wk0 = k0 + 64 * kw;              // this warpgroup's first key
   const int key = wk0 + 16 * warp + lane / 4;   // keys key and key + 8
   const int col = 2 * (lane % 4);            // queries 8j + col, + 1
   const float scale_log2 = scale * kLog2e;
-  float acc_dk[HD / 2], acc_dv[HD / 2];
+  float acc[NACC][HDP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  for (int a = 0; a < NACC; ++a)
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) acc[a][i] = 0.f;
 
   for (int qt = qt_begin; qt <= qt_end; ++qt) {
     const int stage = (qt - qt_begin) & 1;
@@ -505,17 +564,19 @@ __global__ void __launch_bounds__(Dkv<HD>::THREADS, 1)
       for (int kk = 0; kk < HD / 16; ++kk) {   // S^T = K Q^T
         const uint32_t panel = kk / 4, off = (kk % 4) * 32;
         wgmma_ss<BQ, 0>(
-            st, desc_sw128(Ks + panel * BK * 128 + wg * 64 * 128 + off, 16,
+            st, desc_sw128(Ks + panel * BK * 128 + kw * 64 * 128 + off, 16,
                            1024),
             desc_sw128(Qs + panel * BQ * 128 + off, 16, 1024), kk > 0);
       }
+      if (do_dk) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {   // dP^T = V dO^T
-        const uint32_t panel = kk / 4, off = (kk % 4) * 32;
-        wgmma_ss<BQ, 0>(
-            dpt, desc_sw128(Vs + panel * BK * 128 + wg * 64 * 128 + off, 16,
-                            1024),
-            desc_sw128(dOs + panel * BQ * 128 + off, 16, 1024), kk > 0);
+        for (int kk = 0; kk < HD / 16; ++kk) {   // dP^T = V dO^T
+          const uint32_t panel = kk / 4, off = (kk % 4) * 32;
+          wgmma_ss<BQ, 0>(
+              dpt, desc_sw128(Vs + panel * BK * 128 + kw * 64 * 128 + off,
+                              16, 1024),
+              desc_sw128(dOs + panel * BQ * 128 + off, 16, 1024), kk > 0);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -541,25 +602,31 @@ __global__ void __launch_bounds__(Dkv<HD>::THREADS, 1)
       acc_to_a<BQ>(dpt, dsa);
       fence_regs(pa);
       fence_regs(dsa);
-      fence_regs(acc_dv);
-      fence_regs(acc_dk);
+#pragma unroll
+      for (int a = 0; a < NACC; ++a) fence_regs(acc[a]);
       wgmma_fence();
+      if (do_dv) {
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)     // dV += P^T dO, dO MN-major
-        wgmma_rs<HD, 1>(acc_dv, pa[kk],
-                        desc_sw128(dOs + kk * 16 * 128, BQ * 128, 1024), 1);
+        for (int kk = 0; kk < BQ / 16; ++kk)   // dV += P^T dO, dO MN-major
+          wgmma_rs<HDP, 1>(acc[0], pa[kk],
+                           desc_sw128(dOs + kk * 16 * 128, BQ * 128, 1024), 1);
+      }
+      if (do_dk) {
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)     // dK += dS^T Q, Q MN-major
-        wgmma_rs<HD, 1>(acc_dk, dsa[kk],
-                        desc_sw128(Qs + kk * 16 * 128, BQ * 128, 1024), 1);
+        for (int kk = 0; kk < BQ / 16; ++kk)   // dK += dS^T Q, Q MN-major
+          wgmma_rs<HDP, 1>(acc[NACC - 1], dsa[kk],
+                           desc_sw128(Qs + kk * 16 * 128, BQ * 128, 1024), 1);
+      }
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(acc_dv);
-      fence_regs(acc_dk);
+#pragma unroll
+      for (int a = 0; a < NACC; ++a) fence_regs(acc[a]);
     }
     __syncthreads();                         // the stage is free again
   }
 
+  // acc[0] is dV (SPLIT: warpgroup 1's is dK), acc[NACC - 1] dK
+  bf16* out0 = (C::SPLIT && wg == 1) ? dk : dv;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int kj = key + 8 * h;
@@ -567,12 +634,13 @@ __global__ void __launch_bounds__(Dkv<HD>::THREADS, 1)
     const int64_t at = base + static_cast<int64_t>(kj) * HD;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j + col) =
-          __floats2bfloat162_rn(acc_dk[4 * j + 2 * h],
-                                acc_dk[4 * j + 2 * h + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j + col) =
-          __floats2bfloat162_rn(acc_dv[4 * j + 2 * h],
-                                acc_dv[4 * j + 2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(out0 + at + 8 * j + col) =
+          __floats2bfloat162_rn(acc[0][4 * j + 2 * h],
+                                acc[0][4 * j + 2 * h + 1]);
+      if constexpr (NACC == 2)
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j + col) =
+            __floats2bfloat162_rn(acc[1][4 * j + 2 * h],
+                                  acc[1][4 * j + 2 * h + 1]);
     }
   }
 }
@@ -605,13 +673,17 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
 
 template <int HD>
 struct Dq {
+  static constexpr int HDP = (HD + 63) / 64 * 64;   // whole column panels
   static constexpr int BQ = 128;             // queries a block
-  static constexpr int BK = 64;              // keys a tile
+  // keys a tile: 32 at head_dim 256, so that Q and dO (128 KiB) and the
+  // ring's two stages of K and V (64 KiB) fit a block's 227 KiB
+  static constexpr int BK = HD == 256 ? 32 : 64;
   static constexpr int THREADS = 256;        // two warpgroups
-  static constexpr int Q_BYTES = BQ * HD * 2;     // Q or dO
-  static constexpr int KV_BYTES = BK * HD * 2;    // K or V, one stage
+  static constexpr int Q_BYTES = BQ * HDP * 2;    // Q or dO
+  static constexpr int KV_BYTES = BK * HDP * 2;   // K or V, one stage
   static constexpr int STAGE = 2 * KV_BYTES;
   // Q, dO, then the ring's two stages; 1 KiB to align the base
+  // (head_dim 96: 1 + 64 + 64 KiB; 256: 1 + 128 + 64 KiB)
   static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + 2 * STAGE;
 };
 
@@ -638,7 +710,7 @@ __global__ void __launch_bounds__(Dq<HD>::THREADS, 1)
                               int window) {
   using C = Dq<HD>;
   using namespace hopper;
-  constexpr int BQ = C::BQ, BK = C::BK, NT = C::THREADS;
+  constexpr int BQ = C::BQ, BK = C::BK, NT = C::THREADS, HDP = C::HDP;
   constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t Qs = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -656,6 +728,9 @@ __global__ void __launch_bounds__(Dq<HD>::THREADS, 1)
       (window > 0 && q0 - window + 1 > 0) ? (q0 - window + 1) / BK : 0;
   const int kt_end = q_last / BK;
 
+  // K's padded columns (B of dQ += dS K), both stages
+  zero_pad<HD, HDP, BK, NT>(K0, tid);
+  zero_pad<HD, HDP, BK, NT>(K0 + C::STAGE, tid);
   hopper::load_tile<BQ, HD, NT>(Qs, q + base, q0, S, tid);
   hopper::load_tile<BQ, HD, NT>(dOs, dout + base, q0, S, tid);
   load_kv_stage<HD>(K0, k + base, v + base, kt_begin * BK, S, tid);
@@ -672,9 +747,9 @@ __global__ void __launch_bounds__(Dq<HD>::THREADS, 1)
     lse2[h] = qi < S ? lse[bh * S + qi] * kLog2e : 0.f;
     dlt[h] = qi < S ? delta[bh * S + qi] : 0.f;
   }
-  float acc[HD / 2];
+  float acc[HDP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
 
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
     const int stage = (kt - kt_begin) & 1;
@@ -741,8 +816,8 @@ __global__ void __launch_bounds__(Dq<HD>::THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)     // dQ += dS K, K MN-major
-        wgmma_rs<HD, 1>(acc, dsa[kk],
-                        desc_sw128(Ks + kk * 16 * 128, BK * 128, 1024), 1);
+        wgmma_rs<HDP, 1>(acc, dsa[kk],
+                         desc_sw128(Ks + kk * 16 * 128, BK * 128, 1024), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -786,6 +861,18 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the launchers' dispatch on head_dim: f(std::integral_constant<int, hd>)
+template <typename F>
+int by_head_dim(int64_t hd, F&& f) {
+  switch (hd) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
@@ -796,24 +883,16 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    int is_bf16, void* stream) {
   if (BH <= 0 || S <= 0) return 0;
   if (BH > 65535 || window < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16 && S > (int64_t{1} << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (S > (int64_t{1} << 30)) return static_cast<int>(cudaErrorInvalidValue);
-    if (hd == 64)
-      return launch_dq_bf16<64>(q, k, v, dout, lse, delta, dq, BH, S, scale,
-                                window, st);
-    if (hd == 128)
-      return launch_dq_bf16<128>(q, k, v, dout, lse, delta, dq, BH, S, scale,
-                                 window, st);
-  } else {
-    if (hd == 64)
-      return launch_dq<64>(q, k, v, dout, lse, delta, dq, BH, S, scale,
-                           window, st);
-    if (hd == 128)
-      return launch_dq<128>(q, k, v, dout, lse, delta, dq, BH, S, scale,
-                            window, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_head_dim(hd, [&](auto h) {
+    constexpr int HD = decltype(h)::value;
+    return is_bf16 ? launch_dq_bf16<HD>(q, k, v, dout, lse, delta, dq, BH, S,
+                                        scale, window, st)
+                   : launch_dq<HD>(q, k, v, dout, lse, delta, dq, BH, S,
+                                   scale, window, st);
+  });
 }
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
@@ -824,22 +903,14 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     int is_bf16, void* stream) {
   if (BH <= 0 || S <= 0) return 0;
   if (BH > 65535 || window < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16 && S > (int64_t{1} << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (S > (int64_t{1} << 30)) return static_cast<int>(cudaErrorInvalidValue);
-    if (hd == 64)
-      return launch_dkv_bf16<64>(q, k, v, dout, lse, delta, dk, dv, BH, S,
-                                 scale, window, st);
-    if (hd == 128)
-      return launch_dkv_bf16<128>(q, k, v, dout, lse, delta, dk, dv, BH, S,
-                                  scale, window, st);
-  } else {
-    if (hd == 64)
-      return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, BH, S,
-                            scale, window, st);
-    if (hd == 128)
-      return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, BH, S,
-                             scale, window, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_head_dim(hd, [&](auto h) {
+    constexpr int HD = decltype(h)::value;
+    return is_bf16 ? launch_dkv_bf16<HD>(q, k, v, dout, lse, delta, dk, dv,
+                                         BH, S, scale, window, st)
+                   : launch_dkv<HD>(q, k, v, dout, lse, delta, dk, dv, BH, S,
+                                    scale, window, st);
+  });
 }

@@ -76,16 +76,18 @@ __device__ __forceinline__ void st_shared_zero16(uint32_t dst) {
 
 // Rows row0 .. row0 + ROWS - 1 of a [S, HD] bf16 matrix into the swizzled
 // tile at dst (see the layout above); rows past S read as zeros.  Called
-// by all NT threads of the block; commits nothing.
+// by all NT threads of the block (the last pass partly, where the tile's
+// chunks are not a multiple of NT); commits nothing.
 template <int ROWS, int HD, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
                                           int row0, int S, int tid) {
   constexpr int CHUNKS = HD / 8;               // 16-byte chunks a row
-  static_assert(ROWS * CHUNKS % NT == 0, "whole passes only");
+  constexpr int TOTAL = ROWS * CHUNKS;
 #pragma unroll
-  for (int i = 0; i < ROWS * CHUNKS / NT; ++i) {
+  for (int i = 0; i < (TOTAL + NT - 1) / NT; ++i) {
     const int e = tid + i * NT;
+    if (TOTAL % NT != 0 && e >= TOTAL) break;
     const int r = e / CHUNKS, ch = e % CHUNKS;
     const int row = row0 + r;
     const bool valid = row < S;
@@ -94,6 +96,22 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
     cp_async16(dst + off,
                src + static_cast<int64_t>(valid ? row : 0) * HD + ch * 8,
                valid);
+  }
+}
+
+// Columns HD .. HDP - 1 of the last column panel of a ROWS-row tile at
+// `tile` set to zero (head_dim 96 read as n128 B panels: cp.async never
+// writes these columns, so once per buffer is enough).  Called by all NT
+// threads; fence with fence_proxy_async before wgmma reads the tile.
+template <int HD, int HDP, int ROWS, int NT>
+__device__ __forceinline__ void zero_pad(uint32_t tile, int tid) {
+  if constexpr (HD != HDP) {
+    constexpr int FIRST = HD % 64 / 8, PAD = (HDP - HD) / 8;
+    for (int e = tid; e < ROWS * PAD; e += NT) {
+      const int r = e / PAD, ch = FIRST + e % PAD;
+      st_shared_zero16(tile + (HDP / 64 - 1) * ROWS * 128 + r * 128 +
+                       ((ch ^ (r & 7)) << 4));
+    }
   }
 }
 

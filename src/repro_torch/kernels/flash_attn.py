@@ -34,8 +34,7 @@ from repro_torch.kernels import _build
 DEFAULT_BQ = 256
 DEFAULT_BK = 256
 NEG = -1e30
-KERNEL_HEAD_DIMS = (64, 96, 128, 256)     # the forward kernels
-BWD_HEAD_DIMS = (64, 128)                  # the backward kernels
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)     # the head dims the kernels take
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -58,22 +57,18 @@ def check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, backward: bool = False) -> None:
     """What the CUDA kernels take, checked before any launch: f32 or bf16
     operands with a head_dim the kernels are built for, 64, 96, 128 or 256
-    forward (``KERNEL_HEAD_DIMS``) and 64 or 128 backward
-    (``BWD_HEAD_DIMS``).  bf16 runs the tensor-core kernels
-    (``flash_fwd_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``,
-    ``flash_bwd_dkv_wgmma_kernel``), f32 the FP32-FMA ones."""
+    (``KERNEL_HEAD_DIMS``), forward and backward alike.  bf16 runs the
+    tensor-core kernels (``flash_fwd_wgmma_kernel``,
+    ``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel``), f32 the
+    FP32-FMA ones."""
     _check(q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the flash kernel takes float32 or bfloat16, got {q.dtype}")
     hd = q.shape[-1]
-    if backward and hd not in BWD_HEAD_DIMS:
-        raise ValueError(f"the flash backward kernels take head_dim 64 or "
-                         f"128, not {hd} (the forward takes 96 and 256; "
-                         f"training at those head dims waits for backward "
-                         f"kernels built for them)")
     if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes head_dim 64, 96, 128 or "
-                         f"256, not {hd}")
+        what = "backward kernels take" if backward else "kernel takes"
+        raise ValueError(f"the flash {what} head_dim 64, 96, 128 or 256, "
+                         f"not {hd}")
 
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -299,8 +294,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """The reference's ``custom_vjp``: :func:`flash_fwd` forward, saving q,
-    k, v, O and LSE; :func:`flash_bwd` backward on ``dO.contiguous()``
-    (on CUDA tensors at head_dim 96 or 256 it raises ``ValueError``)."""
+    k, v, O and LSE; :func:`flash_bwd` backward on ``dO.contiguous()``."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, window: int):

@@ -6,7 +6,12 @@ State is a dict of tensors that mirrors the params dict (plus a step
 ``count``).  The updates are functional, as in the reference: they return
 new params and a new state and leave their inputs untouched.  Call them
 under ``torch.no_grad()`` (the train step does) so that nothing records
-the arithmetic.
+the arithmetic.  With ``donate=True`` the caller hands its params,
+gradients and state over, as the reference's launcher donates the train
+state to its jitted step (``donate_argnums=0``): each leaf's old tensors
+leave their dicts as soon as the leaf is updated, so that the update
+holds one leaf twice instead of the whole state; the numbers are the
+same.
 """
 
 from __future__ import annotations
@@ -66,6 +71,16 @@ def adamw_init(params: dict, cfg: OptConfig) -> dict:
             "count": 0}
 
 
+def _leaves(params: dict, grads: dict, state: tuple, donate: bool):
+    """(key, param, grad, *state leaves) for each leaf of ``params``, each
+    ``state`` a dict keyed alike; ``donate`` pops every leaf out of its
+    dict as it is handed out, so that nothing else holds it."""
+    for k in list(params):
+        take = dict.pop if donate else dict.__getitem__
+        yield (k, take(params, k), take(grads, k),
+               *(take(d, k) for d in state))
+
+
 def _global_norm(grads: dict) -> torch.Tensor:
     """sqrt of the sum of every gradient's squares, in f32 (a 0-d tensor,
     left on the device)."""
@@ -73,10 +88,12 @@ def _global_norm(grads: dict) -> torch.Tensor:
                           for g in grads.values()))
 
 
-def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig):
+def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig,
+                 *, donate: bool = False):
     """Returns (new_params, new_state, metrics).  The global-norm clip
     scales every gradient by ``min(1, clip / norm)``; weight decay is
-    decoupled (added to the normalised step, times the LR)."""
+    decoupled (added to the normalised step, times the LR).  ``donate``:
+    see the module's docstring."""
     count = state["count"] + 1
     gnorm = _global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -86,14 +103,16 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig):
     c2 = 1.0 - cfg.b2 ** count
     sdt = torch_dtype(cfg.state_dtype)
     new_p, new_m, new_v = {}, {}, {}
-    for k, p in params.items():
-        g = grads[k].float() * scale
-        m32 = cfg.b1 * state["m"][k].float() + (1 - cfg.b1) * g
-        v32 = cfg.b2 * state["v"][k].float() + (1 - cfg.b2) * torch.square(g)
+    for k, p, g, m, v in _leaves(params, grads, (state["m"], state["v"]),
+                                 donate):
+        g = g.float() * scale
+        m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
+        v32 = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(g)
         step_ = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)
         p32 = p.float()
         new_p[k] = (p32 - lr * (step_ + cfg.weight_decay * p32)).to(p.dtype)
         new_m[k], new_v[k] = m32.to(sdt), v32.to(sdt)
+        del p, g, m, v, m32, v32, step_, p32
     return (new_p, {"m": new_m, "v": new_v, "count": count},
             {"grad_norm": gnorm, "lr": lr})
 
@@ -113,17 +132,18 @@ def adafactor_init(params: dict, cfg: OptConfig) -> dict:
     return {"f": {k: fac(p) for k, p in params.items()}, "count": 0}
 
 
-def adafactor_update(params: dict, grads: dict, state: dict, cfg: OptConfig):
+def adafactor_update(params: dict, grads: dict, state: dict, cfg: OptConfig,
+                     *, donate: bool = False):
     """Returns (new_params, new_state, metrics): the factored second moment
     (row and column means of g²) on every matrix, a full one on vectors,
-    and the update clipped to RMS 1."""
+    and the update clipped to RMS 1.  ``donate``: see the module's
+    docstring."""
     count = state["count"] + 1
     lr = lr_at(cfg, count)
     d = 1.0 - cfg.b2 ** count
     new_p, new_f = {}, {}
-    for k, p in params.items():
-        g = grads[k].float()
-        f = state["f"][k]
+    for k, p, g, f in _leaves(params, grads, (state["f"],), donate):
+        g = g.float()
         if p.dim() >= 2:
             vr = cfg.b2 * f["vr"] + (1 - cfg.b2) * torch.mean(torch.square(g), dim=-1)
             vc = cfg.b2 * f["vc"] + (1 - cfg.b2) * torch.mean(torch.square(g), dim=-2)
@@ -142,4 +162,5 @@ def adafactor_update(params: dict, grads: dict, state: dict, cfg: OptConfig):
         step_ = step_ / torch.clamp(rms, min=1.0)
         p32 = p.float()
         new_p[k] = (p32 - lr * (step_ + cfg.weight_decay * p32)).to(p.dtype)
+        del p, g, f, step_, p32
     return new_p, {"f": new_f, "count": count}, {"lr": lr}

@@ -57,7 +57,7 @@ def _split(x, n: int) -> list:
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
-                    microbatches: int = 1):
+                    microbatches: int = 1, *, donate: bool = False):
     """Build ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` holds ``tokens`` and ``labels`` ([B,S]; tensors or numpy
@@ -66,6 +66,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
     once per slice of the batch and accumulates f32 gradients, each
     divided by the count; loss and extras are averaged.  Live activation
     memory drops by the microbatch factor.
+
+    ``donate=True`` hands the state over to the step, as the reference's
+    launcher donates it to the jitted step (``donate_argnums=0``): the
+    optimizer frees each leaf's old params and moments as it updates the
+    leaf, so that the update holds one leaf twice instead of the whole
+    state, and the caller must not use the old state again.  The numbers
+    are the same either way.
 
     The step carries two helpers: ``init_opt(params)``, the optimizer
     state, and ``grads(params, batch) -> (loss, extras, grads)``, the
@@ -117,7 +124,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
         loss, extras, grads = accumulate(params, batch)
         with torch.no_grad():
             new_params, new_opt, om = upd_fn(params, grads, state["opt"],
-                                             opt_cfg)
+                                             opt_cfg, donate=donate)
         step = state["step"] + 1
         metrics = {"loss": loss, **extras, **om, "step": step}
         return {"params": new_params, "opt": new_opt, "step": step}, metrics

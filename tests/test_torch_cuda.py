@@ -606,26 +606,29 @@ def test_flash_kernel_matches_plain(cuda, dtype, shape):
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_other_head_dims(cuda):
-    """The forward refuses a head_dim it is not built for, the backward
-    (both ``flash_bwd`` and the autograd backward) 96 and 256, each with
-    a ValueError naming it and before any launch."""
-    x = torch.zeros(2, 64, 48, device=cuda)
-    before = flash_fwd.launches
-    with pytest.raises(ValueError, match="not 48"):
-        flash_fwd(x, x, x, scale=1.0)
-    assert flash_fwd.launches == before
-    bwd = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
-    for hd in (96, 256):
+    """Forward and backward (``flash_bwd``, each backward kernel's wrapper
+    and ``flash_attention``) refuse a head_dim the kernels are not built
+    for, 48 and 160, each with a ValueError naming it and before any
+    launch."""
+    def counts():
+        return (flash_fwd.launches, flash_bwd_dq.launches,
+                flash_bwd_dkv.launches)
+
+    before = counts()
+    for hd in (48, 160):
         x = torch.zeros(2, 64, hd, device=cuda)
-        lse = torch.zeros(2, 64, device=cuda)
+        row = torch.zeros(2, 64, device=cuda)
         with pytest.raises(ValueError, match=f"not {hd}"):
-            flash_bwd(x, x, x, x, lse, x, scale=1.0)
-        leaves = [torch.randn(2, 64, hd, device=cuda, requires_grad=True)
-                  for _ in range(3)]
-        o = flash_attention(*leaves, hd ** -0.5, 0, 64, 64)
+            flash_fwd(x, x, x, scale=1.0)
         with pytest.raises(ValueError, match=f"not {hd}"):
-            o.sum().backward()
-    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == bwd
+            flash_attention(x, x, x, hd ** -0.5, 0, 64, 64)
+        with pytest.raises(ValueError, match=f"not {hd}"):
+            flash_bwd(x, x, x, x, row, x, scale=1.0)
+        with pytest.raises(ValueError, match=f"not {hd}"):
+            flash_bwd_dq(x, x, x, x, row, row, scale=1.0)
+        with pytest.raises(ValueError, match=f"not {hd}"):
+            flash_bwd_dkv(x, x, x, x, row, row, scale=1.0)
+    assert counts() == before
 
 
 def _ssd_groups(BH):
@@ -797,17 +800,28 @@ def _flash_operands(cuda, dtype, BH, S, hd, seed):
             for _ in range(4)]
 
 
+# head_dim 96 (Phi-3-Vision: the padded last column panel) and 256
+# (RecurrentGemma: dK and dV in separate warpgroups, key tiles of 32 in
+# bf16 dQ, rows of 32 in f32): ragged S, a single position, windows
+# narrower and wider than a tile, and the model's 2,048 at S = 2,100
+BWD_WIDE_SHAPES = [(3, 200, 96, 0), (2, 130, 96, 17), (2, 300, 96, 200),
+                   (1, 1, 96, 0), (2, 2100, 96, 2048), (3, 200, 256, 0),
+                   (2, 130, 256, 17), (2, 300, 256, 200), (1, 1, 256, 0),
+                   (2, 2100, 256, 2048)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 200, 64, 0), (2, 512, 128, 256),
                                    (15, 512, 64, 0), (2, 130, 64, 17),
                                    (1, 1, 64, 0), (2, 64, 128, 64),
-                                   (2, 300, 128, 0)] + EDGE_SHAPES)
+                                   (2, 300, 128, 0)] + EDGE_SHAPES
+                         + BWD_WIDE_SHAPES)
 def test_flash_bwd_kernels_match_plain(cuda, dtype, shape):
     """dQ, dK, dV of the two backward kernels against the plain version:
     ragged tiles (S = 200, 130, 1, 300), windows narrower and wider than a
-    tile, head_dim 64 and 128, the bf16 kernels' tile edges; each kernel
-    launched once."""
+    tile, head_dim 64, 96, 128 and 256, the bf16 kernels' tile edges; each
+    kernel launched once."""
     BH, S, hd, window = shape
     q, k, v, do = _flash_operands(cuda, dtype, BH, S, hd, S + hd + window)
     scale = 1.0 / np.sqrt(hd)
@@ -827,7 +841,8 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(15, 512, 64, 0), (2, 257, 128, 0),
-                                   (2, 130, 64, 17)])
+                                   (2, 130, 64, 17), (2, 257, 96, 0),
+                                   (3, 200, 256, 17), (2, 2100, 256, 2048)])
 def test_flash_bwd_dkv_bf16_launches_are_bit_identical(cuda, shape):
     """Two launches of the bf16 dK/dV kernel on the same inputs give the
     same bits: each output has one writer and a fixed order of sums."""
@@ -847,7 +862,8 @@ def test_flash_bwd_dkv_bf16_launches_are_bit_identical(cuda, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(15, 512, 64, 0), (2, 257, 128, 0),
-                                   (2, 130, 64, 17)])
+                                   (2, 130, 64, 17), (2, 257, 96, 0),
+                                   (3, 200, 256, 17), (2, 2100, 256, 2048)])
 def test_flash_bwd_dq_bf16_launches_are_bit_identical(cuda, shape):
     """Two launches of the bf16 dQ kernel on the same inputs give the same
     bits: each output has one writer and a fixed order of sums."""
@@ -914,14 +930,20 @@ def test_flash_attention_backward_on_the_card_runs_only_the_kernels(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("remat", ["none", "block", "dots"])
-def test_flash_train_step_on_the_card_matches_the_cpu(cuda, remat):
-    """A train step of the small flash model (2 microbatches) on the card
+@pytest.mark.parametrize("kind,remat", [("attn", "none"), ("attn", "block"),
+                                        ("attn", "dots"), ("hd96", "block"),
+                                        ("rglru", "block")])
+def test_flash_train_step_on_the_card_matches_the_cpu(cuda, kind, remat):
+    """A train step of a small flash model (2 microbatches) on the card
     and on the CPU from the same parameters: the loss within 1e-5 relative
     and every gradient within 1e-4 relative L2; the kernels ran (the
-    forward once a layer a microbatch, twice under a checkpoint, each
-    backward kernel once), and one AdamW step leaves finite parameters."""
-    cfg = SMALL["attn"].with_(remat=remat)
+    forward once an attention layer a microbatch, twice under a
+    checkpoint, each backward kernel once), and one AdamW step leaves
+    finite parameters.  Head_dim 64, 96 (the attention model at
+    Phi-3-Vision's head_dim) and 256 (the RG-LRU model, window 16)."""
+    small = {**SMALL, "hd96": SMALL["attn"].with_(name="small-attn-96",
+                                                  head_dim=96)}
+    cfg = small[kind].with_(remat=remat)
     params = MT.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     rng = np.random.default_rng(5)
     batch = {"tokens": rng.integers(0, 512, (4, 64)).astype(np.int32),
@@ -935,7 +957,7 @@ def test_flash_train_step_on_the_card_matches_the_cpu(cuda, remat):
         out[dev.type] = step.grads(p, batch)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            n = cfg.num_layers * 2
+            n = sum(k in MT.ATTN_KINDS for k in cfg.layer_kinds) * 2
             fwd = n if remat == "none" else 2 * n
             assert (flash_fwd.launches - before[0],
                     flash_bwd_dq.launches - before[1],

@@ -133,16 +133,16 @@ def test_flash_refusals():
 @pytest.mark.parametrize("hd", [16, 32, 96, 256])
 def test_flash_kernel_refuses_other_head_dims_before_launch(hd):
     """The CUDA route's operand check, run before any launch: a head_dim
-    the kernels are not built for raises ValueError naming it.  The
-    forward takes 64, 96, 128 and 256, the backward only 64 and 128."""
+    the kernels are not built for raises ValueError naming it.  Forward
+    and backward alike take 64, 96, 128 and 256."""
     x = torch.zeros(2, 64, hd)
-    with pytest.raises(ValueError, match=f"not {hd}"):
-        check_kernel_operands(x, x, x, backward=True)
     if hd in (96, 256):
         check_kernel_operands(x, x, x)
+        check_kernel_operands(x, x, x, backward=True)
     else:
-        with pytest.raises(ValueError, match=f"not {hd}"):
-            check_kernel_operands(x, x, x)
+        for backward in (False, True):
+            with pytest.raises(ValueError, match=f"not {hd}"):
+                check_kernel_operands(x, x, x, backward=backward)
 
 
 def test_flash_kernel_operand_check_takes_64_128_f32_bf16():
@@ -150,8 +150,7 @@ def test_flash_kernel_operand_check_takes_64_128_f32_bf16():
         for dt in (torch.float32, torch.bfloat16):
             x = torch.zeros(1, 8, hd, dtype=dt)
             check_kernel_operands(x, x, x)
-            if hd in (64, 128):
-                check_kernel_operands(x, x, x, backward=True)
+            check_kernel_operands(x, x, x, backward=True)
     x = torch.zeros(1, 8, 64, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         check_kernel_operands(x, x, x)

@@ -50,9 +50,11 @@ TINY_KW = dict(name="tiny", family="dense", num_layers=2, d_model=32,
                q_chunk=64, **F32)
 TINY_R = RModelConfig(**TINY_KW)
 TINY_P = PModelConfig(**TINY_KW)
-# the shapes of tests/test_kernels.py's flash test: BH, S, hd, window, bq, bk
+# the shapes of tests/test_kernels.py's flash test: BH, S, hd, window, bq, bk;
+# then Phi-3-Vision's head_dim 96 and RecurrentGemma's 256 with a window
 FLASH_SHAPES = [(2, 256, 64, 0, 128, 128), (1, 512, 128, 256, 256, 128),
-                (2, 256, 64, 64, 128, 64)]
+                (2, 256, 64, 64, 128, 64), (2, 256, 96, 0, 128, 128),
+                (2, 256, 256, 64, 128, 64)]
 TOL = 2e-4          # the reference's gradient tolerance (tests/test_kernels.py)
 
 
@@ -527,12 +529,57 @@ def test_remat_checkpoints_only_with_grad_in_train_mode(monkeypatch):
     assert calls == []
 
 
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_donated_train_step_equals_the_functional_one(name):
+    """``make_train_step(..., donate=True)`` (the reference launcher's
+    ``donate_argnums=0``): two steps give the functional step's loss,
+    params and optimizer state bit for bit, and each step empties the
+    donated state's params and moment dicts."""
+    _, cfg_p = _cfgs("smollm_360m")
+    opt = PO.OptConfig(name=name, lr=1e-3, warmup_steps=1, total_steps=10)
+    params = PT.init_params(cfg_p, torch.Generator().manual_seed(6), "cpu")
+    rng = np.random.default_rng(16)
+    batches = [_tbatch(_batch(rng, 2, 16, cfg_p.vocab_size))
+               for _ in range(2)]
+    out = {}
+    for donate in (False, True):
+        step = PS.make_train_step(cfg_p, opt, 2, donate=donate)
+        p = {k: v.clone() for k, v in params.items()}
+        state = {"params": p, "opt": step.init_opt(p), "step": 0}
+        losses = []
+        for b in batches:
+            old = state
+            state, m = step(state, b)
+            losses.append(m["loss"])
+            moments = (old["opt"]["f"],) if name == "adafactor" else (
+                old["opt"]["m"], old["opt"]["v"])
+            assert all(not d for d in (old["params"], *moments)) == donate
+        out[donate] = (losses, state)
+    (l0, s0), (l1, s1) = out[False], out[True]
+    assert all(torch.equal(a, b) for a, b in zip(l0, l1))
+    for k in s0["params"]:
+        assert torch.equal(s0["params"][k], s1["params"][k]), k
+    flat = (lambda st: st["opt"]["m"] | {f"v{k}": t for k, t in
+                                         st["opt"]["v"].items()}
+            ) if name == "adamw" else (lambda st: {
+                f"{k}{j}": t for k, d in st["opt"]["f"].items()
+                for j, t in d.items()})
+    a, b = flat(s0), flat(s1)
+    assert set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
 # ------------------------------------------------------- the train path
 
 
+# the flash path also at the head dims of RecurrentGemma (256, its window
+# of 8 on the reduced config) and Phi-3-Vision (96, with its image
+# positions), and through Qwen3's MoE blocks
 TRAIN_ARCHS = [("smollm_360m", {"attn_impl": "naive"}),
                ("smollm_360m", {"attn_impl": "flash"}),
-               ("mamba2_780m", {"ssd_impl": "xla"})]
+               ("mamba2_780m", {"ssd_impl": "xla"}),
+               ("recurrentgemma_2b", {"attn_impl": "flash", "head_dim": 256}),
+               ("phi3_vision_4_2b", {"attn_impl": "flash", "head_dim": 96}),
+               ("qwen3_moe_30b_a3b", {"attn_impl": "flash"})]
 
 
 @pytest.mark.parametrize("arch,kw", TRAIN_ARCHS)
@@ -550,8 +597,14 @@ def test_arch_train_step_vs_reference(arch, kw):
     rng = np.random.default_rng(12)
     B, S = 2, 32
     batch = _batch(rng, B, S, cfg_r.vocab_size)
-    logits, cache, _ = PT.forward(st_p["params"], {"tokens": _t(batch["tokens"])},
-                                  cfg_p, mode="train")
+    n_ext = cfg_r.ext_embed_len
+    if n_ext:                  # image positions first, then S - n_ext tokens
+        batch["tokens"] = batch["tokens"][:, n_ext:]
+        batch["ext_embed"] = rng.standard_normal(
+            (B, n_ext, cfg_r.d_model)).astype(np.float32)
+    logits, cache, _ = PT.forward(
+        st_p["params"], {k: _t(v) for k, v in batch.items() if k != "labels"},
+        cfg_p, mode="train")
     assert logits.shape == (B, S, cfg_p.vocab_size) and cache is None
     assert bool(torch.isfinite(logits).all())
     st_r, mr = jax.jit(step_r)(st_r, _jbatch(batch))
