@@ -378,7 +378,11 @@ def test_plain_lane_poisoned_slot_behind_aggregate(lib_dir):
 
 
 def _bounded(pkg, lib_dir):
-    d = _mk(pkg, lib_dir, n_slots=2, slot_size=8 << 10, max_subs=4)
+    # The age bound is set far past the run's length: an age flush would
+    # count one more ``backpressure`` whenever the clock let it fire, and
+    # nothing here relies on one (``drain`` flushes the queues itself).
+    d = _mk(pkg, lib_dir, n_slots=2, slot_size=8 << 10, max_subs=4,
+            max_age=3600.0)
     h = _warm(pkg, d, "rle_insert", lib_dir)
     peer = d.peers["p"]
     assert d.send("p", _msg(pkg, h, b"h1"))     # occupy every ring slot
