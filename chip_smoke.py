@@ -330,7 +330,24 @@ Phases, each of which fails the script (non-zero exit, no result line):
     repro_torch.launch.serve`` on the card in both modes, exit 0 and
     neither jax nor the JAX package loaded in the child.
 
-The phases run in the order 1-9, 10, 14, 11, 15-17, 12-13, 18-25: every
+26. sharded training through ``repro_torch.launch.train`` on a one-rank
+    NCCL group and its (1, 1) ("data", "model") mesh (set up and torn
+    down by the phase): (a) SmolLM-360M at phase 17's settings (bf16,
+    flash, block remat, AdamW with f32 state, 4 x 2,048 in 2
+    microbatches), 8 steps with checkpoints after 4 and 8 (under
+    ``build/``, removed after), then a second launcher resumed from step
+    4 (``restore(placements=)``) for 4 more: every state leaf a DTensor
+    with the rules' placements, the first run's losses and final state
+    bit for bit those of ``make_train_step`` applied directly to the same
+    seeded state and batches, the resumed losses and state bit for bit
+    the first run's, phase 17's flash launches a step; the step time,
+    tokens/s and peak memory logged beside phase 17's, and the SMs' idle
+    share over one more traced sharded step.  (b) Qwen3-30B-A3B at 4 of
+    48 layers (phase 17's width), one forward and backward under the mesh
+    (the MoE's ``a2a`` path: ``all_to_all`` over the one-rank group) and
+    one without: loss and every gradient equal in value.
+
+The phases run in the order 1-9, 10, 14, 11, 15-17, 26, 12-13, 18-25: every
 profiler session that must find a kernel by name (phases 5, 9, 11, 15)
 comes before the long traces of phases 13, 24 and 25 (up to 180,000
 device records each), after which torch.profiler lost whole traces on
@@ -353,7 +370,8 @@ chain); ``ring_poll`` and ``agg_ring_poll``
 count phase 20's device sweeps too, and ``ring_poll`` and ``ifunc_vm``
 phase 21's and phase 24 (b)'s (``elastic_launches``, also in
 ``launches``); the three flash entries' ``driver_launches`` are their
-launches in phase 24 (a)'s 12 steps, and ``flash_fwd``'s
+launches in phase 24 (a)'s 12 steps, their ``launcher_launches`` those
+in phase 26 (a)'s first 8 launcher steps, and ``flash_fwd``'s
 ``fabric_launches`` its launches in phase 25 (a)'s fleet run.
 ``flash_fwd``'s ``launches`` sum phase 13's four models (SmolLM-360M 32 a
 prefill, RecurrentGemma-2B 8, Qwen3-30B-A3B 4; 176 in all) and its
@@ -549,6 +567,7 @@ TRAIN_MODELS = {
     "phi3_vision_4_2b": ({"num_layers": 8}, 4, 2048, 2, (1, 3, 5)),
 }
 TRAIN_B, TRAIN_S, TRAIN_MB = TRAIN_MODELS["smollm_360m"][1:4]
+TRAIN_STATS = {}   # arch -> phase 17's (median step s, idle share)
 # the backward's ragged and one-position shapes at head_dim 96 and 256 (the
 # training shapes are whole tiles): S = 200 and 130 with a window narrower
 # than a tile, S = 2,100 with RecurrentGemma's 2,048, S = 1
@@ -6785,10 +6804,12 @@ def train_model(np, torch, dev, arch, over, B, S, mb, steps, seed):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 state, m, dt = one_step(state, batch)
-            log_card_busy(prof, med, f"{arch} card over a traced train step",
-                          ("flash_fwd_wgmma_kernel",
-                           "flash_bwd_dq_wgmma_kernel",
-                           "flash_bwd_dkv_wgmma_kernel"))
+            idle = log_card_busy(prof, med,
+                                 f"{arch} card over a traced train step",
+                                 ("flash_fwd_wgmma_kernel",
+                                  "flash_bwd_dq_wgmma_kernel",
+                                  "flash_bwd_dkv_wgmma_kernel"))
+            TRAIN_STATS[arch] = (med, idle)
             log(f"{arch} traced step {dt:.4f} s (untraced median "
                 f"{med:.4f} s)")
         fit = []
@@ -6819,6 +6840,305 @@ def phase_training(np, torch, dev):
            in enumerate(TRAIN_MODELS.items())}
     log(f"phase 17 took {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# ------------------------------------------ sharded training (phase 26)
+
+# (a) SmolLM-360M through ``repro_torch.launch.train`` on a one-rank NCCL
+# (1, 1) mesh at phase 17's batch, length and microbatches: LAUNCH_STEPS
+# steps with a checkpoint every LAUNCH_RESUME_AT, then a second launcher
+# resumed from that step.  (b) the MoE's expert-parallel branch: Qwen3 at
+# phase 17's 4 of 48 layers, one forward and backward under the mesh.
+LAUNCH_ARCH, LAUNCH_STEPS, LAUNCH_RESUME_AT = "smollm_360m", 8, 4
+LAUNCH_TURNS = 4      # (sharded, direct) step pairs timed in turns
+LAUNCH_MOE = ("qwen3_moe_30b_a3b", {"num_layers": 4}, 4, 2048, 2)
+
+
+def launcher_argv(arch, ckpt, steps, every, shape, reduced, dev):
+    B, S, mb = shape
+    return (["--arch", arch, "--mesh", "host", "--steps", str(steps),
+             "--batch", str(B), "--seq", str(S), "--microbatches", str(mb),
+             "--ckpt", str(ckpt), "--ckpt-every", str(every), "--device",
+             dev.type] + (["--reduced"] if reduced else []))
+
+
+def dtensor_placed(torch, state, shardings):
+    """Whether every tensor leaf of ``state`` is a DTensor with its
+    sharding's placements (ints stay ints)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(state, dict):
+        return all(dtensor_placed(torch, v, shardings[k])
+                   for k, v in state.items())
+    if isinstance(state, torch.Tensor):
+        return (isinstance(state, DTensor)
+                and tuple(state.placements) == tuple(shardings.placements))
+    return isinstance(state, int)
+
+
+def local_leaves(state):
+    """{path: leaf} of a state, DTensors by their local tensors (the whole
+    tensor at world size 1)."""
+    return {k: (v.to_local() if hasattr(v, "to_local") else v)
+            for k, v in state_leaves(state)}
+
+
+def launcher_run(np, torch, dev, smi, ckpt_dir, *, arch=LAUNCH_ARCH,
+                 reduced=False, shape=(TRAIN_B, TRAIN_S, TRAIN_MB),
+                 steps=LAUNCH_STEPS, resume_at=LAUNCH_RESUME_AT):
+    """Phase 26 (a): ``launch.train.main`` at ``arch``'s full width in bf16
+    (flash attention, block remat, AdamW with f32 state, the state
+    donated) over the one-rank group's (1, 1) mesh, ``steps`` steps with
+    a checkpoint every ``resume_at``; then a second launcher resumed from
+    step ``resume_at`` (``restore(placements=)``) for the rest.  Gates:
+    every state leaf a DTensor with the rules' placements; the first
+    run's losses and final state equal, bit for bit, ``make_train_step``
+    applied directly to the same seeded state and batches (at world size
+    1 the sharded step changes no number); the resumed run's losses and
+    final state equal the first run's bit for bit; the flash launches of
+    each step phase 17's.  Then ``LAUNCH_TURNS`` pairs of one sharded
+    step (``make_sharded_step``) and one direct step, in turns from the
+    two runs' equal states on the same batches, each ended by its loss
+    read back, their losses equal bit for bit: the sharded step's cost
+    at world size 1.  One more sharded step is traced for the SMs' idle
+    share of the untraced median step, as phase 17's.  ``reduced`` and
+    ``shape`` shrink it for a CPU run.  Returns the first run's flash
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import Loader, TokenDataset
+    from repro_torch.launch import train as LT
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train.step import make_train_step, train_state_specs
+
+    B, S, mb = shape
+    cfg = LT.train_config(arch, reduced, dev)
+    opt = LT.opt_config(steps)
+    per_step = train_launches_per_step(cfg, mb)
+    want = {k: steps * per_step.get(k, 0) if dev.type == "cuda" else 0
+            for k in read_counts()}
+    nb = state_bytes(cfg)
+    free = shutil.disk_usage(ckpt_dir).free
+    need = 3 * nb["total"] + (1 << 30)    # steps 4 and 8, the resumed 8
+    check(free >= need, f"launcher checkpoints need {need / 1e9:.2f} GB, "
+                        f"{free / 1e9:.2f} GB free under {ckpt_dir}")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    first = LT.main(launcher_argv(arch, ckpt_dir / "run", steps, resume_at,
+                                  shape, reduced, dev))
+    wall1 = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    check(counts == want, f"launcher launches {counts}, want {want} "
+                          f"({steps} steps of {per_step})")
+    shapes, axes = train_state_specs(cfg, opt)
+    state_sh = SH.tree_shardings(axes, shapes, first["mesh"])
+    check(dtensor_placed(torch, first["state"], state_sh),
+          "a launcher state leaf is not a DTensor with the rules' placements")
+
+    step = make_train_step(cfg, opt, microbatches=mb, donate=True)
+    state = LT.init_state(cfg, step, dev)
+    loader = Loader(TokenDataset(cfg.vocab_size, seed=0), shard_id=0,
+                    n_shards=1, batch_per_shard=B, seq_len=S)
+    direct, direct_times = [], []
+    try:
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            _, b = next(loader)
+            state, m = step(state, b)
+            direct.append(float(m["loss"]))      # waits for the step
+            direct_times.append(time.perf_counter() - t1)
+    finally:
+        loader.close()
+    times = first["times"]
+    got = local_leaves(first["state"])
+    same = all(bit_equal(torch, got[k], v)
+               for k, v in state_leaves(state))
+    check(first["losses"] == direct and same,
+          f"launcher losses {first['losses']} vs the direct step's {direct}; "
+          f"final state bit for bit {same}")
+
+    resume = ckpt_dir / "resume"
+    shutil.copytree(ckpt_dir / "run" / f"step_{resume_at}",
+                    resume / f"step_{resume_at}")
+    shutil.rmtree(ckpt_dir / "run")
+    second = LT.main(launcher_argv(arch, resume, steps - resume_at, steps,
+                                   shape, reduced, dev))
+    again = local_leaves(second["state"])
+    same = all(bit_equal(torch, again[k], v) for k, v in got.items())
+    check(second["losses"] == first["losses"][resume_at:] and same,
+          f"resumed losses {second['losses']} vs "
+          f"{first['losses'][resume_at:]}; final state bit for bit {same}")
+    shutil.rmtree(resume)
+    del got, again
+
+    # the sharded step and the direct one in turns, on the same batches
+    jstep = LT.make_sharded_step(step, second["mesh"], state_sh)
+    placed = second["state"]
+    del first, second
+    ds = TokenDataset(cfg.vocab_size, seed=0)
+
+    def timed(fn, st, b):
+        sync(torch, dev)
+        t1 = time.perf_counter()
+        st, m = fn(st, b)
+        return st, float(m["loss"]), time.perf_counter() - t1
+
+    turns = {"sharded": [], "direct": []}
+    for i in range(steps, steps + LAUNCH_TURNS):
+        b = ds.batch(i, 0, 1, B, S)
+        placed, loss_s, t_s = timed(jstep, placed, b)
+        state, loss_d, t_d = timed(step, state, b)
+        check(loss_s == loss_d, f"in turns, step {i + 1}: sharded loss "
+                                f"{loss_s} vs direct {loss_d}")
+        turns["sharded"].append(t_s)
+        turns["direct"].append(t_d)
+    del state
+
+    # one more sharded step, traced: launches and the SMs' idle share
+    b = ds.batch(steps + LAUNCH_TURNS, 0, 1, B, S)
+    state = placed
+    med = statistics.median(times[1:])
+    med_direct = statistics.median(direct_times[1:])
+    reset_counts()
+    idle = None
+    if dev.type == "cuda":
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, m = jstep(state, b)
+            float(m["loss"])
+        idle = log_card_busy(prof, med, f"{arch} card over a traced "
+                             f"launcher step", ("flash_fwd_wgmma_kernel",
+                                                "flash_bwd_dq_wgmma_kernel",
+                                                "flash_bwd_dkv_wgmma_kernel"))
+    else:
+        state, m = jstep(state, b)
+    one = read_counts()
+    check(one == {k: per_step.get(k, 0) if dev.type == "cuda" else 0
+                  for k in one}, f"a traced launcher step launched {one}")
+    del state
+    med17, idle17 = TRAIN_STATS.get(arch, (float("nan"), None))
+    idle17 = "not measured" if idle17 is None else f"{idle17:.4f}"
+    log(f"{arch} through launch.train on the one-rank (1, 1) mesh on {smi}: "
+        f"{steps} steps of {B} x {S} in {mb} microbatches, steps of "
+        + ", ".join(f"{t:.4f}" for t in times)
+        + f" s, median after the first {med:.4f} s = {B * S / med:.1f} "
+        f"tokens/s; the direct step's here "
+        + ", ".join(f"{t:.4f}" for t in direct_times)
+        + f" s, median after the first {med_direct:.4f} s (phase 17's: "
+        f"{med17:.4f} s, idle {idle17}); peak memory "
+        f"{peak / 2**30:.2f} GiB; the run {wall1:.1f} s with checkpoints "
+        f"after steps {resume_at} and {steps}; losses "
+        + ", ".join(f"{x:.4f}" for x in direct)
+        + f" equal to the direct step's bit for bit, the resumed run's too; "
+        f"launches { {k: v for k, v in counts.items() if v} }; "
+        f"{LAUNCH_TURNS} pairs in turns, sharded "
+        + ", ".join(f"{t:.4f}" for t in turns["sharded"])
+        + f" s (median {statistics.median(turns['sharded']):.4f}), direct "
+        + ", ".join(f"{t:.4f}" for t in turns["direct"])
+        + f" s (median {statistics.median(turns['direct']):.4f}), losses "
+        f"equal bit for bit")
+    return {"launches": counts, "losses": direct, "med": med,
+            "med_direct": med_direct, "peak": peak, "idle": idle,
+            "turns": turns}
+
+
+def moe_mesh_branch(np, torch, dev, cfg, B, S, mb, seed):
+    """Phase 26 (b): one forward and backward of ``cfg`` (a MoE) on a
+    seeded B x S batch in ``mb`` microbatches, under
+    ``sharding_context(make_host_mesh())`` — the expert-parallel ``a2a``
+    path, its two ``all_to_all`` a layer over the one-rank group in the
+    forward, the backward and the remat recompute — and
+    without a mesh (the dense fallback), from the same parameters: loss
+    and every gradient equal in value (``torch.equal``).  Returns the
+    ``all_to_all`` calls, the mesh run's wall seconds, and the mesh run's
+    loss."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as MT
+    from repro_torch.parallel.sharding import sharding_context
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = MT.init_params(cfg, gen, dev)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1))
+                            .astype(np.int64)).to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(cfg, OptConfig(), mb)
+    loss_d, _, g_d = step.grads(params, batch)
+    calls = []
+    real = dist.all_to_all_single
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return real(*a, **k)
+
+    dist.all_to_all_single = counted
+    try:
+        mesh = make_host_mesh(dev)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        with sharding_context(mesh):
+            loss_a, _, g_a = step.grads(params, batch)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+    finally:
+        dist.all_to_all_single = real
+    # two a MoE layer and microbatch in the forward, in the backward, and
+    # in the remat recompute (run under the forward's mesh)
+    n_moe = sum(k == "attn_moe" for k in cfg.layer_kinds)
+    want = (4 if cfg.remat == "none" else 6) * n_moe * mb
+    check(len(calls) == want,
+          f"the mesh run made {len(calls)} all_to_all calls, want {want} "
+          f"(two a MoE layer and microbatch forward, two backward, two in "
+          f"the remat recompute)")
+    diff = {k: float((g.float() - g_d[k].float()).abs().max())
+            for k, g in g_a.items()}
+    check(torch.equal(loss_a, loss_d) and all(
+        torch.equal(g, g_d[k]) for k, g in g_a.items()),
+        f"MoE a2a branch vs dense: loss {float(loss_a)} vs {float(loss_d)}; "
+        f"gradients max |diff| {max(diff.values()):.3g} "
+        f"({sorted(diff.items(), key=lambda kv: -kv[1])[:3]})")
+    return {"calls": len(calls), "wall": wall, "loss": float(loss_a),
+            "leaves": len(g_a)}
+
+
+def phase_launcher(np, torch, dev, smi):
+    """Phase 26: sharded training through the launcher on a one-rank NCCL
+    group (set up here, torn down after): (a) :func:`launcher_run` at
+    SmolLM-360M's full width, checkpoints under ``build/`` removed after;
+    (b) :func:`moe_mesh_branch` for Qwen3-30B-A3B at 4 of 48 layers.
+    Returns (a)'s flash launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_one_rank_group
+
+    t_phase = time.perf_counter()
+    ckpt_dir = ROOT / "build" / "chip_smoke_launch"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    init_one_rank_group(dev)
+    try:
+        run = launcher_run(np, torch, dev, smi, ckpt_dir)
+        torch.cuda.empty_cache()
+        arch, over, B, S, mb = LAUNCH_MOE
+        cfg = model_config(arch, FLASH, remat="block", **over)
+        moe = moe_mesh_branch(np, torch, dev, cfg, B, S, mb, 426)
+        log(f"{arch} at {cfg.num_layers} layers, {B} x {S} in {mb} "
+            f"microbatches, one forward and backward under the (1, 1) mesh: "
+            f"{moe['calls']} all_to_all calls over the one-rank NCCL group; "
+            f"loss {moe['loss']:.6f} and all {moe['leaves']} gradient leaves "
+            f"equal to the dense fallback's; {moe['wall']:.4f} s")
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return run["launches"]
 
 
 def main():
@@ -6868,9 +7188,11 @@ def main():
     bwd_entries = phase_bwd_timings(np, torch, dev, bwd_errs)
     phase_train_parity(np, torch, dev)
     train_launches = phase_training(np, torch, dev)
+    launcher_launches = phase_launcher(np, torch, dev, smi)
     for entry in model_entries[:1] + bwd_entries:
         entry["train_launches"] = {arch: n[entry["name"]]
                                    for arch, n in train_launches.items()}
+        entry["launcher_launches"] = launcher_launches[entry["name"]]
     for entry in bwd_entries:
         entry["launches"] = sum(entry["train_launches"].values())
     phase_model_parity(np, torch, dev)

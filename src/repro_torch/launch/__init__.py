@@ -1,2 +1,2 @@
-"""Launchers: ``serve`` (the serving CLI).  ``train`` and ``mesh`` wait
-on the parallelism layer."""
+"""Launchers: ``serve`` (the serving CLI), ``train`` (sharded training
+with auto-resume) and ``mesh`` (the host and production meshes)."""

@@ -6,10 +6,10 @@ The fields, defaults and derived numbers are the reference's
 ="flash"`` runs the hand-written flash-attention kernel on a CUDA tensor
 and ``ssd_impl="kernel"`` the SSD scan kernel.  ``remat`` selects the
 activation checkpointing of a train-mode forward
-(``models.transformer``).  ``scan_layers`` and the MoE sharding switches
-(``moe_seq_shard``, ``moe_expert_resident``) change nothing at world
-size 1, as in the reference without a mesh, and no code of the port
-reads them.
+(``models.transformer``).  ``scan_layers`` changes
+nothing and no code of the port reads it.  The MoE sharding switches
+(``moe_seq_shard``, ``moe_expert_resident``) act only under a mesh with a
+``model`` axis (``models/moe.py``), as in the reference.
 """
 
 from __future__ import annotations

@@ -9,8 +9,11 @@ initializer consumes those specs.  Attention weights stay 3-D
 Where the reference asks an einsum for an f32 result of bf16 operands
 (``preferred_element_type=jnp.float32``), the operands are upcast first,
 so the products are exact as there; elsewhere the product stays in the
-working type, as the reference's does.  The port runs at world size 1, so
-the reference's ``shard_act`` constraints have no counterpart.
+working type, as the reference's does.  The reference's ``shard_act``
+constraints have no counterpart at the call sites: the port's launcher
+runs each rank's forward on plain local tensors (its batch shard, the
+weights gathered), where such a constraint changes no number
+(``parallel/sharding.py``).
 """
 
 from __future__ import annotations

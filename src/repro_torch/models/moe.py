@@ -1,16 +1,45 @@
-"""Mixture-of-experts FFN — the reference's ``repro.models.moe`` in PyTorch,
-at world size 1.
+"""Mixture-of-experts FFN — the reference's ``repro.models.moe`` in PyTorch.
 
-With no mesh, the reference's ``moe_ffn`` takes ``_moe_dense_fallback``
-(``src/repro/models/moe.py:240-261``), and so does the port, always: a
+With no mesh (or a mesh without a ``model`` axis), ``moe_ffn`` takes
+``_moe_dense_fallback`` (``src/repro/models/moe.py:240-261``): a
 GShard-style router (f32 logits, softmax, top-k renormalised), tokens
 binned into per-expert capacity buffers of ``max(4, ceil(t·k·cf/E))``
 slots, one grouped product over all experts, the outputs gathered back
 and weighted, plus Llama-4's shared expert through ``layers.mlp``.
-``cfg.moe_seq_shard`` and ``cfg.moe_expert_resident`` have no effect, as
-in the reference without a mesh.  The expert-parallel paths (``a2a``
-over the model axis, ``psum`` for decode) come with the port of
-``parallel/``.
+
+Under a ``sharding_context`` whose ``DeviceMesh`` has a ``model`` axis it
+takes the reference's expert-parallel paths (``:115-237``), with
+``torch.distributed`` collectives over the mesh's sub-groups in place of
+``shard_map``.  ``x`` is the rank's own shard of the batch over the
+rules' batch axes (the launcher feeds each rank its shard), so where the
+reference's ``shard_map`` slices the batch by its ``in_specs``, the port
+is handed the slice:
+
+* ``a2a`` (train / prefill): each model rank takes its slice of the
+  sequence (``moe_seq_shard`` takes the same slice, the reference's
+  in-spec; the numbers are the same), routes it, bins the copies for all
+  E experts, exchanges the bins with one ``all_to_all`` over ``model``,
+  runs its ``E/ep`` local experts, sends the outputs back with the
+  reverse ``all_to_all``, combines, and ``all_gather``s the sequence.
+  Under ``dp_over_model`` (the rules' batch over ``model`` too) every
+  rank owns distinct tokens: no slice, no gather.
+* ``psum`` (decode: fewer tokens a rank than ``ep``): every rank applies
+  its own experts to all its tokens and an ``all_reduce`` over ``model``
+  sums the contributions.
+* ``moe_expert_resident``: each rank keeps an F-shard of its experts
+  (``E/ep`` over ``model``, ``F/dp`` over ``data``); the tokens are
+  ``all_gather``ed over ``data`` to visit them and the partial
+  down-projections reduce-scattered back.
+* ``aux`` is averaged over ``model`` and each batch axis (``pmean``).
+
+**Gradients.**  The collectives are differentiable, each backward its
+forward's adjoint (``all_gather`` <-> sum-and-slice, ``all_reduce`` sum
+<-> itself, ``all_to_all`` <-> the reverse ``all_to_all``, a slice <->
+zero padding).  So rank r's gradient is the derivative of the sum of
+every rank's loss with respect to r's copy of the parameters, and the
+mean of the ranks' gradients (the launcher's all-reduce) is the gradient
+of the mean over the batch shards' losses: ``tests/test_torch_parallel.py``
+holds it to world size 1's.
 
 Drops and ties are the reference's exactly: top-k breaks a tie in
 probability toward the lower expert id (``jax.lax.top_k``'s order; a
@@ -24,9 +53,12 @@ products are plain batched matrix products, as in the reference.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.layers import Spec, mlp
+from repro_torch.parallel.sharding import (AbstractMesh, current_mesh,
+                                           current_rules, mesh_shape)
 
 
 def moe_specs(cfg, prefix: str = "") -> dict[str, Spec]:
@@ -103,9 +135,212 @@ def _expert_ffn(recv, wg, wu, wd):
     return torch.bmm(F.silu(g) * u, wd.to(recv.dtype))
 
 
+def _expert_ffn_src(recv, wg, wu, wd):
+    """recv: [src, E_loc, N, D] -> [src, E_loc, N, D]: each local expert's
+    rows from every source rank in one product."""
+    n_src, e, n, d = recv.shape
+    rows = recv.transpose(0, 1).reshape(e, n_src * n, d)
+    out = _expert_ffn(rows, wg, wu, wd)
+    return out.reshape(e, n_src, n, d).transpose(0, 1)
+
+
+def _combine(out_buf, slot, comb_w, t: int, k: int):
+    """Gather expert outputs back per token-slot and weight-combine.
+    Dropped slots carry weight 0; their (clamped) gather reads are
+    ignored."""
+    D = out_buf.shape[-1]
+    flat = out_buf.reshape(-1, D)
+    safe = torch.clamp(slot, max=flat.shape[0] - 1)
+    return (flat[safe].reshape(t, k, D)
+            * comb_w.reshape(t, k, 1).to(flat.dtype)).sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives over a process group (each backward is its
+# forward's adjoint over all ranks)
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's ``x`` concatenated along ``dim``; backward: the sum of
+    every rank's cotangent, this rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        n = dist.get_world_size(group)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        ctx.group, ctx.dim, ctx.width = group, dim, x.shape[dim]
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.width, ctx.width), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The sum over ranks of ``x``, this rank's slice along ``dim``;
+    backward: the cotangents concatenated (``_AllGather``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        n = dist.get_world_size(group)
+        s = x.contiguous().clone()
+        dist.all_reduce(s, group=group)
+        w = x.shape[dim] // n
+        ctx.group, ctx.dim = group, dim
+        return s.narrow(dim, dist.get_rank(group) * w, w).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        parts = [torch.empty_like(g) for _ in range(n)]
+        dist.all_gather(parts, g.contiguous(), group=ctx.group)
+        return torch.cat(parts, dim=ctx.dim), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum (``mean=True``: the mean) over ranks; backward: the same
+    reduction of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group, mean):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        ctx.group, ctx.mean = group, mean
+        return y / dist.get_world_size(group) if mean else y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        if ctx.mean:
+            g = g / dist.get_world_size(ctx.group)
+        return g, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``x`` [n, ...]: block j goes to rank j, and block j of the result
+    came from rank j; backward: the same exchange of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
+        return out, None
+
+
+# ---------------------------------------------------------------------------
+
+
 def moe_ffn(p, x, cfg, prefix: str = ""):
-    """x: [B,S,D] -> (y [B,S,D], aux_loss f32 scalar): the reference's
-    ``_moe_dense_fallback``."""
+    """x: [B,S,D] -> (y [B,S,D], aux_loss f32 scalar).  Under a mesh with a
+    ``model`` axis, ``x`` is this rank's batch shard and the
+    expert-parallel paths run (see the module's docstring); otherwise the
+    reference's ``_moe_dense_fallback``.  An :class:`AbstractMesh` has no
+    process group and takes the dense path."""
+    mesh = current_mesh()
+    if (mesh is None or isinstance(mesh, AbstractMesh)
+            or "model" not in mesh_shape(mesh)):
+        return _moe_dense_fallback(p, x, cfg, prefix)
+    sizes = mesh_shape(mesh)
+    B, S, D = x.shape
+    ep = sizes["model"]
+    batch_rule = current_rules().get("batch")
+    dp_over_model = "model" in batch_rule
+    if dp_over_model:
+        batch_axes = tuple(a for a in batch_rule if a in sizes)
+    else:
+        batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    E, k = cfg.num_experts, cfg.experts_per_token
+    if E % ep:
+        raise ValueError(f"experts {E} must divide EP size {ep}")
+    e_loc = E // ep
+    use_a2a = dp_over_model or (S % ep == 0 and B * S >= ep)
+    resident = (cfg.moe_expert_resident and "data" in sizes
+                and cfg.moe_hidden % sizes["data"] == 0)
+
+    g_model = mesh.get_group("model")
+    mi = mesh.get_local_rank("model")
+    es = slice(mi * e_loc, (mi + 1) * e_loc)
+    wg = p[f"{prefix}we_gate"][es]
+    wu = p[f"{prefix}we_up"][es]
+    wd = p[f"{prefix}we_down"][es]
+    if resident:
+        g_data = mesh.get_group("data")
+        f_loc = cfg.moe_hidden // sizes["data"]
+        fs = slice(mesh.get_local_rank("data") * f_loc,
+                   (mesh.get_local_rank("data") + 1) * f_loc)
+        wg, wu, wd = wg[:, :, fs], wu[:, :, fs], wd[:, fs]
+
+    if use_a2a and not dp_over_model:
+        x_tok = x[:, mi * (S // ep):(mi + 1) * (S // ep)].reshape(-1, D)
+    else:
+        x_tok = x.reshape(-1, D)
+    t = x_tok.shape[0]
+    top_p, top_e, probs = _router(x_tok, p[f"{prefix}router"], cfg)
+    aux = _aux_loss(probs, top_e, cfg)
+
+    if use_a2a:
+        cap = capacity(t, cfg)
+        buf, comb_w, slot = _bin_tokens(x_tok, top_p, top_e, E, cap)
+        recv = _AllToAll.apply(buf.reshape(ep, e_loc * cap, D), g_model)
+        recv = recv.reshape(ep, e_loc, cap, D)   # [src, e, cap, D]
+        if resident:
+            # tokens visit the resident F-shards: gather over data, partial
+            # down-projection, reduce-scatter back to the owning data rank
+            recv_all = _AllGather.apply(recv, g_data, 2)
+            out = _ReduceScatter.apply(
+                _expert_ffn_src(recv_all, wg, wu, wd), g_data, 2)
+        else:
+            out = _expert_ffn_src(recv, wg, wu, wd)
+        back = _AllToAll.apply(out.reshape(ep, e_loc * cap, D), g_model)
+        y_tok = _combine(back, slot, comb_w, t, k)
+        if dp_over_model:
+            y = y_tok.reshape(B, S, D)      # tokens never left their owner
+        else:
+            y = _AllGather.apply(y_tok.reshape(B, S // ep, D), g_model, 1)
+    else:
+        # psum path: every rank applies its resident experts to all tokens
+        cap = t * k  # no drops
+        owned = (top_e // e_loc) == mi
+        local_e = torch.where(owned, top_e % e_loc, 0)
+        p_masked = torch.where(owned, top_p, 0.0)
+        buf, comb_w, slot = _bin_tokens(x_tok, p_masked, local_e, e_loc, cap)
+        buf = buf.reshape(e_loc, cap, D)
+        if resident:
+            h = _expert_ffn(_AllGather.apply(buf, g_data, 1), wg, wu, wd)
+            out = _ReduceScatter.apply(h, g_data, 1)
+        else:
+            out = _expert_ffn(buf, wg, wu, wd)
+        y_tok = _combine(out, slot, comb_w, t, k)
+        y = _AllReduce.apply(y_tok.reshape(B, S, D), g_model, False)
+    aux = _AllReduce.apply(aux, g_model, True)
+    for a in batch_axes:
+        aux = _AllReduce.apply(aux, mesh.get_group(a), True)
+
+    if cfg.shared_expert:
+        y = y + _shared(p, x, cfg, prefix)
+    return y, aux
+
+
+def _shared(p, x, cfg, prefix):
+    sh = {"w_gate": p[f"{prefix}ws_gate"], "w_up": p[f"{prefix}ws_up"],
+          "w_down": p[f"{prefix}ws_down"]}
+    return mlp(sh, x, cfg)
+
+
+def _moe_dense_fallback(p, x, cfg, prefix: str = ""):
+    """Single-device / no-mesh path: x [B,S,D] -> (y [B,S,D], aux)."""
     B, S, D = x.shape
     E = cfg.num_experts
     x_tok = x.reshape(-1, D)
@@ -120,7 +355,5 @@ def moe_ffn(p, x, cfg, prefix: str = ""):
     y = (out[slot].reshape(t, k, D)
          * comb_w.reshape(t, k, 1).to(out.dtype)).sum(dim=1).reshape(B, S, D)
     if cfg.shared_expert:
-        sh = {"w_gate": p[f"{prefix}ws_gate"], "w_up": p[f"{prefix}ws_up"],
-              "w_down": p[f"{prefix}ws_down"]}
-        y = y + mlp(sh, x, cfg)
+        y = y + _shared(p, x, cfg, prefix)
     return y, aux

@@ -16,8 +16,9 @@ Three modes share the block implementations:
 In ``train`` mode with grad enabled, each super-block runs under
 ``cfg.remat``, as the reference's ``_maybe_remat``: ``"none"`` keeps every
 activation, ``"block"`` is ``torch.utils.checkpoint`` (non-reentrant),
-saving only the block's input and recomputing the rest in the backward,
-and ``"dots"`` a selective checkpoint that saves the outputs of the plain
+saving only the block's input and recomputing the rest in the backward
+(under the forward's sharding context: on the card the backward runs in
+another thread), and ``"dots"`` a selective checkpoint that saves the outputs of the plain
 matrix products (``aten.mm``; batched products and everything else are
 recomputed), as ``checkpoint_dots_with_no_batch_dims`` does.
 
@@ -44,6 +45,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding as SH
 
 ATTN_KINDS = ("attn", "attn_moe", "attn_local")
 
@@ -264,7 +266,22 @@ def _maybe_remat(fn, cfg: ModelConfig):
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(
             C.create_selective_checkpoint_contexts, _dots_policy)
-    return functools.partial(C.checkpoint, fn, use_reentrant=False, **kw)
+
+    def remat(*args):
+        # the backward recomputes ``fn``, on the card in the autograd
+        # engine's device thread, where the forward's thread-local sharding
+        # context is not installed (the MoE would recompute its dense path
+        # there): recompute under the forward's mesh and rules
+        ctx = SH.sharding_context(SH.current_mesh(), SH.current_rules())
+
+        def in_forward_context(*a):
+            with ctx:
+                return fn(*a)
+
+        return C.checkpoint(in_forward_context, *args, use_reentrant=False,
+                            **kw)
+
+    return remat
 
 
 def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train",

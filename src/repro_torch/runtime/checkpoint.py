@@ -13,6 +13,15 @@ Design points for 1000-node fleets:
   leaves may live on any device (``meta`` included); leaves absent from
   the checkpoint fall back to an initializer callback (new parameters).
 * **retention**: keep the newest ``keep`` complete checkpoints.
+* **sharded state**: a DTensor leaf is gathered whole (``full_tensor()``)
+  on every rank, and rank 0 alone copies it to the host and writes, so
+  the files are those of a world-size-1 save of the same state; a
+  blocking save of such a state
+  ends in a barrier, so that every rank returns once the checkpoint
+  exists.  ``restore(placements=)`` gives each leaf back as a DTensor
+  placed by a tree of ``parallel.sharding.NamedSharding`` (the
+  reference's ``shardings=``), each rank's shard cut from the whole array
+  on the host.
 
 The files are those of the JAX package's ``CheckpointManager``, byte for
 byte, so either package restores the other's checkpoints:
@@ -39,6 +48,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
@@ -72,9 +82,19 @@ def _rebuild(tree, values, path=()):
     return values[path]
 
 
+def _is_dtensor(leaf) -> bool:
+    if not isinstance(leaf, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
 def _host(leaf) -> tuple[np.ndarray, str]:
     """One leaf copied to the host as a contiguous array of its bytes, and
-    the dtype string the manifest records."""
+    the dtype string the manifest records (a DTensor gathered whole)."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", memory_format=torch.contiguous_format,
                              copy=True)
@@ -102,6 +122,23 @@ def _tensor(raw: np.ndarray, dtype: str, shape) -> torch.Tensor:
     return t.reshape(shape)
 
 
+def _at(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def _placed(full: torch.Tensor, sharding):
+    """``full`` (on the host) as a DTensor placed by ``sharding``, on its
+    mesh's device."""
+    from repro_torch.parallel.sharding import distribute
+
+    mesh = sharding.mesh
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device("cpu"))
+    return distribute(full, sharding, dev)
+
+
 class CheckpointManager:
     def __init__(self, directory: str | pathlib.Path, keep: int = 3):
         self.dir = pathlib.Path(directory)
@@ -116,10 +153,22 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, step: int, state, *, blocking: bool = True) -> None:
         t0 = time.perf_counter()
+        sharded = any(_is_dtensor(v) for _, v in _leaves(state))
+        if sharded and dist.get_rank() != 0:
+            # every rank joins the gathers, in rank 0's order; rank 0
+            # alone writes, so the others copy nothing to the host
+            for _, leaf in _leaves(state):
+                if _is_dtensor(leaf):
+                    leaf.full_tensor()
+            if blocking:
+                dist.barrier()
+            return
         flat = _flatten(state)  # host copies happen here, before returning
         host_s = time.perf_counter() - t0
         if blocking:
             self._write(step, flat, host_s)
+            if sharded:
+                dist.barrier()
             return
         self.wait()
         self._thread = threading.Thread(target=self._write_bg,
@@ -188,16 +237,19 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, like, *, step: int | None = None, device="cuda",
-                init_missing=None, verify: bool = False):
+                placements=None, init_missing=None, verify: bool = False):
         """Rebuild a state shaped like ``like``.  A tensor leaf (on any
         device, ``meta`` included) comes back on ``device`` in its own
-        dtype; an ``int`` leaf comes back as an ``int``.  ``verify``
-        checks each file's sha256.  Missing leaves use
-        ``init_missing(key, leaf)`` or raise ``KeyError``."""
+        dtype; an ``int`` leaf comes back as an ``int``.  ``placements``
+        (a tree like ``like`` of ``NamedSharding``, from
+        ``parallel.sharding.tree_shardings``) makes each tensor leaf a
+        DTensor on its mesh's device instead: this rank's shard, cut from
+        the whole array.  ``verify`` checks each file's sha256.  Missing
+        leaves use ``init_missing(key, leaf)`` or raise ``KeyError``."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
-        dev = resolve_device(device)
+        dev = resolve_device(device) if placements is None else None
         d = self.dir / f"step_{step}"
         manifest = json.loads((d / "manifest.json").read_text())["leaves"]
 
@@ -217,15 +269,20 @@ class CheckpointManager:
                     continue
                 dtype = (leaf.dtype if isinstance(leaf, torch.Tensor)
                          else t.dtype)
-                values[path] = t.to(dev, dtype)
+                if placements is not None:
+                    values[path] = _placed(t.to(dtype),
+                                           _at(placements, path))
+                else:
+                    values[path] = t.to(dev, dtype)
             elif init_missing is not None:
                 v = init_missing(key, leaf)
-                if isinstance(v, torch.Tensor):
-                    v = v.to(dev)
-                elif not isinstance(v, int):
+                if not isinstance(v, (int, torch.Tensor)):
                     a = np.asarray(v)
                     v = _tensor(np.ascontiguousarray(a).reshape(-1)
-                                .view(np.uint8), str(a.dtype), a.shape).to(dev)
+                                .view(np.uint8), str(a.dtype), a.shape)
+                if isinstance(v, torch.Tensor):
+                    v = (_placed(v.cpu(), _at(placements, path))
+                         if placements is not None else v.to(dev))
                 values[path] = v
             else:
                 raise KeyError(

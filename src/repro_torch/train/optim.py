@@ -83,9 +83,11 @@ def _leaves(params: dict, grads: dict, state: tuple, donate: bool):
 
 def _global_norm(grads: dict) -> torch.Tensor:
     """sqrt of the sum of every gradient's squares, in f32 (a 0-d tensor,
-    left on the device)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in grads.values()))
+    left on the device), summed in key order (jax's leaf order), so that a
+    state restored from a checkpoint, whose dicts may be ordered
+    otherwise, steps as the live one does."""
+    return torch.sqrt(sum(torch.sum(torch.square(grads[k].float()))
+                          for k in sorted(grads)))
 
 
 def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig,

@@ -74,9 +74,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
     state, and the caller must not use the old state again.  The numbers
     are the same either way.
 
-    The step carries two helpers: ``init_opt(params)``, the optimizer
-    state, and ``grads(params, batch) -> (loss, extras, grads)``, the
-    accumulated gradients the step would apply.
+    The step carries three helpers: ``init_opt(params)``, the optimizer
+    state; ``grads(params, batch) -> (loss, extras, grads)``, the
+    accumulated gradients the step would apply; and ``apply(state, loss,
+    extras, grads) -> (state, metrics)``, the step's update from them (the
+    sharded launcher reduces the gradients across ranks in between).
     """
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
@@ -119,18 +121,22 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
         ex = {k: torch.stack([e[k] for e in extras]).mean() for k in extras[0]}
         return loss, ex, acc
 
-    def train_step(state: TrainState, batch: dict):
-        params = state["params"]
-        loss, extras, grads = accumulate(params, batch)
+    def apply(state: TrainState, loss, extras: dict, grads: dict):
         with torch.no_grad():
-            new_params, new_opt, om = upd_fn(params, grads, state["opt"],
-                                             opt_cfg, donate=donate)
+            new_params, new_opt, om = upd_fn(state["params"], grads,
+                                             state["opt"], opt_cfg,
+                                             donate=donate)
         step = state["step"] + 1
         metrics = {"loss": loss, **extras, **om, "step": step}
         return {"params": new_params, "opt": new_opt, "step": step}, metrics
 
+    def train_step(state: TrainState, batch: dict):
+        loss, extras, grads = accumulate(state["params"], batch)
+        return apply(state, loss, extras, grads)
+
     train_step.init_opt = lambda params: upd_init(params, opt_cfg)
     train_step.grads = accumulate
+    train_step.apply = apply
     return train_step
 
 

@@ -247,11 +247,14 @@ def _train_states(seed=3):
 
 
 @pytest.mark.parametrize("direction", ["reference_to_port",
-                                       "port_to_reference"])
+                                       "port_to_reference",
+                                       "reference_to_port_placed"])
 def test_train_state_checkpoint_across_packages(tmp_path, direction):
     """Both packages save the same bf16 train state into equal files; the
     port restores the reference's checkpoint, and the reference the
-    port's, each bit for bit."""
+    port's, each bit for bit; with ``placements=`` (a one-rank gloo mesh)
+    the port's leaves come back as DTensors with the rules' placements,
+    whole bit for bit."""
     ref, port = _train_states()
     RR.CheckpointManager(tmp_path / "ref").save(3, ref)
     cm = PR.CheckpointManager(tmp_path / "port")
@@ -269,6 +272,32 @@ def test_train_state_checkpoint_across_packages(tmp_path, direction):
             _meta(port), device="cpu", verify=True)
         same_bits(back, port)
         assert back["step"] == 3 and back["opt"]["count"] == 3
+    elif direction == "reference_to_port_placed":
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.parallel import sharding as SH
+
+        cfg_p = _port_cfg(reduced(RC.get_config("smollm_360m")))
+        shapes, axes = PS.train_state_specs(cfg_p, PO.OptConfig())
+        try:
+            mesh = make_host_mesh("cpu")
+            sh = SH.tree_shardings(axes, shapes, mesh)
+            back = PR.CheckpointManager(tmp_path / "ref").restore(
+                _meta(port), placements=sh, verify=True)
+            for k, v in back["params"].items():
+                assert isinstance(v, DTensor)
+                assert v.placements == sh["params"][k].placements
+            same_bits({"params": {k: v.full_tensor()
+                                  for k, v in back["params"].items()},
+                       "opt": {g: {k: v.full_tensor()
+                                   for k, v in back["opt"][g].items()}
+                               for g in ("m", "v")}
+                       | {"count": back["opt"]["count"]},
+                       "step": back["step"]}, port)
+        finally:
+            dist.destroy_process_group()
     else:
         back = RR.CheckpointManager(tmp_path / "port").restore(
             _sds(ref), verify=True)
