@@ -347,7 +347,29 @@ Phases, each of which fails the script (non-zero exit, no result line):
     (the MoE's ``a2a`` path: ``all_to_all`` over the one-rank group) and
     one without: loss and every gradient equal in value.
 
-The phases run in the order 1-9, 10, 14, 11, 15-17, 26, 12-13, 18-25: every
+27. the dry run (``repro_torch.launch.dryrun``): (a) all 80 (arch x
+    shape x mesh) cells at ``baseline`` on meta tensors, in 6 worker
+    processes with the card hidden, while (b) runs: no cell an error,
+    ``long_500k`` skipped exactly outside the ``ssm`` and ``hybrid``
+    families (the reference's set), a table of each cell's argument and
+    temp GiB, ``fits``, FLOP and seconds.  (b) ``flash_fwd`` in bf16 on
+    [1, 32,768, hd] for hd 64, 96, 128 and 256 (window 2,048) and
+    ``ssd_scan`` on [48, 128, 256, 64], ds 128, G 1 against their plain
+    versions; then for each arch the first ``prefill_32k`` cell (``pod``:
+    2 x 32,768 a rank; ``multipod``: 1 x 32,768) whose estimate leaves a
+    tenth of the card free, run on the card by ``run_cell(execute=True)``
+    at published width and depth with ``flash`` (``ssdk`` for Mamba-2):
+    InternLM2-1.8B, MiniCPM-2B, MusicGen-large and Qwen1.5-4B must run,
+    every run's cache and logits finite, ``kernel_layers`` launches of its
+    kernel and nothing else, its measured peak within [0.90, 1.10] of the
+    estimate; each run's estimate, peak, ratio, wall time and launches
+    logged, and the estimates of the archs with no fitting cell.  (c)
+    ``fig5_cached``'s scenario: ``bench_hot`` through the port's
+    ``Dispatcher`` to a host peer, one FULL then 64 SLIM invocations:
+    links 1, 64 SLIM, 65 invocations, the 256 KiB code section on the wire
+    once; host µs an invocation, FULL and SLIM.
+
+The phases run in the order 1-9, 10, 14, 11, 15-17, 26, 12-13, 18-25, 27: every
 profiler session that must find a kernel by name (phases 5, 9, 11, 15)
 comes before the long traces of phases 13, 24 and 25 (up to 180,000
 device records each), after which torch.profiler lost whole traces on
@@ -372,7 +394,9 @@ phase 21's and phase 24 (b)'s (``elastic_launches``, also in
 ``launches``); the three flash entries' ``driver_launches`` are their
 launches in phase 24 (a)'s 12 steps, their ``launcher_launches`` those
 in phase 26 (a)'s first 8 launcher steps, and ``flash_fwd``'s
-``fabric_launches`` its launches in phase 25 (a)'s fleet run.
+``fabric_launches`` its launches in phase 25 (a)'s fleet run; the
+``flash_fwd`` and ``ssd_scan`` entries' ``dryrun_launches`` are their
+launches in phase 27 (b)'s card runs, added to ``launches``.
 ``flash_fwd``'s ``launches`` sum phase 13's four models (SmolLM-360M 32 a
 prefill, RecurrentGemma-2B 8, Qwen3-30B-A3B 4; 176 in all) and its
 ``head_dims`` hold phase 11's times at head_dim 256 and 96, each with its
@@ -5821,18 +5845,13 @@ def flash_fwd_shapes():
     return shapes
 
 
-def causal_pairs(S, window):
-    """The (q, k) pairs a causal mask keeps in one row of heads: with a
-    window W < S, the first W rows' triangle, then W keys a row."""
-    W = window if 0 < window < S else S
-    return W * (W + 1) // 2 + (S - W) * W
-
-
 def flash_work(BH, S, hd, window):
     """(FLOP, bytes) a causal flash forward must do: Q K^T and P V over
-    the pairs the mask keeps, q, k, v read and O written once in bf16,
-    LSE written in f32."""
-    return (4 * BH * hd * causal_pairs(S, window),
+    the pairs the mask keeps (``flash_flops``), q, k, v read and O
+    written once in bf16, LSE written in f32."""
+    from repro_torch.kernels.flash_attn import flash_flops
+
+    return (flash_flops(BH, S, hd, window)[0],
             4 * BH * S * hd * 2 + BH * S * 4)
 
 
@@ -5867,10 +5886,12 @@ def ssd_layouts(Bm, Cm):
 def ssd_work(BH, G, nc, Q, hd, ds):
     """(FLOP, bytes) ``ssd_scan`` must do: C B^T's lower triangle once per
     group, the score-x product's lower triangle and the two state products
-    per row; x, la, B and C read once and y written once, f32."""
-    P = Q * (Q + 1) // 2                           # lower-triangle pairs
-    flops = nc * G * 2 * P * ds + BH * nc * (2 * P * hd + 4 * Q * hd * ds)
-    return flops, (2 * BH * nc * Q * hd + BH * nc * Q + 2 * G * nc * Q * ds) * 4
+    per row (``ssd_flops``); x, la, B and C read once and y written once,
+    f32."""
+    from repro_torch.kernels.ssd_scan import ssd_flops
+
+    return (ssd_flops(BH, G, nc, Q, hd, ds),
+            (2 * BH * nc * Q * hd + BH * nc * Q + 2 * G * nc * Q * ds) * 4)
 
 
 def attn_windows(cfg):
@@ -6418,12 +6439,14 @@ def phase_bwd_kernels(np, torch, dev):
 def bwd_work(BH, S, hd, window):
     """(FLOP, bytes) of dQ and of dK/dV: three and four products of
     ``2 hd`` FLOP over the pairs the mask keeps; q, k, v, dO read and
-    each output written once in bf16, LSE and delta read in f32."""
-    pairs = BH * causal_pairs(S, window)
+    each output written once in bf16, LSE and delta read in f32
+    (``flash_flops``)."""
+    from repro_torch.kernels.flash_attn import flash_flops
+
+    _, dq, dkv = flash_flops(BH, S, hd, window)
     t_bytes, row_bytes = BH * S * hd * 2, BH * S * 4
     ins = 4 * t_bytes + 2 * row_bytes
-    return ((3 * 2 * hd * pairs, ins + t_bytes),
-            (4 * 2 * hd * pairs, ins + 2 * t_bytes))
+    return (dq, ins + t_bytes), (dkv, ins + 2 * t_bytes)
 
 
 def bwd_times(np, torch, dev, rng, shape):
@@ -7141,6 +7164,284 @@ def phase_launcher(np, torch, dev, smi):
     return run["launches"]
 
 
+# --------------------------------------------------------------- dry run
+
+DRYRUN_WORKERS = 6      # processes running phase 27 (a)'s cells on meta
+DRYRUN_SHAPE = "prefill_32k"
+DRYRUN_RATIO = (0.90, 1.10)         # (b): measured peak / estimate
+DRYRUN_MUST_RUN = ("internlm2_1_8b", "minicpm_2b", "musicgen_large",
+                   "qwen1_5_4b")
+# (b)'s kernels at the prefill's 32,768 positions against their plain
+# versions: flash_fwd on one batch-head at each head_dim (and window) the
+# cells give it, ssd_scan on one batch row of Mamba-2 (48 heads, 128
+# chunks of 256, B and C shared by the row's heads)
+DRYRUN_FLASH_SHAPES = ((1, 32768, 64, 0), (1, 32768, 96, 0),
+                       (1, 32768, 128, 0), (1, 32768, 256, 2048))
+DRYRUN_SSD_SHAPE = (48, 128, 256, 64, 128)
+CACHED_SLIM = 64        # (c): SLIM invocations after the one FULL frame
+SUBQUADRATIC = ("ssm", "hybrid")    # the families long_500k runs
+
+
+def _dryrun_worker(src):
+    """A worker of phase 27 (a): the card hidden (its cells run on meta
+    tensors; ``fits`` is against an H100 80GB's memory), the port on the
+    path."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    sys.path.insert(0, src)
+
+
+def dryrun_cell(cell):
+    """Phase 27 (a): one (arch, shape, mesh) cell at ``baseline``; an
+    exception comes back as an ``error`` record."""
+    import traceback
+
+    from repro_torch.launch.dryrun import run_cell
+
+    t0 = time.perf_counter()
+    try:
+        rec = run_cell(*cell, save=False)
+    except Exception as e:  # noqa: BLE001 - the phase gates on it
+        rec = {"cell": "__".join(cell), "status": "error",
+               "error": f"{type(e).__name__}: {e}",
+               "trace": traceback.format_exc()[-1500:]}
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def dryrun_gates(recs, cells):
+    """(a)'s gates: a record a cell, none an ``error``, and ``skipped``
+    exactly where the reference skips (``long_500k`` outside the ``ssm``
+    and ``hybrid`` families); logs the table."""
+    from repro_torch import configs as C
+
+    check(len(recs) == len(cells), f"{len(recs)} records for {len(cells)} "
+          f"cells")
+    errors = [r for r in recs if r["status"] == "error"]
+    check(not errors, "dry run cells failed: " + "; ".join(
+        f"{r['cell']}: {r['error']}" for r in errors[:3]))
+    skipped = {r["cell"] for r in recs if r["status"] == "skipped"}
+    want = {f"{a}__{s}__{m}" for a, s, m in cells if s == "long_500k"
+            and C.get_config(a).family not in SUBQUADRATIC}
+    check(skipped == want, f"skipped {sorted(skipped ^ want)} differ from "
+          f"the reference's set")
+    log(f"{'cell':48s} {'arg GiB':>9s} {'temp GiB':>10s} {'fits':>5s} "
+        f"{'FLOP':>10s} {'s':>6s}")
+    for r in recs:
+        if r["status"] != "ok":
+            log(f"{r['cell']:48s} skipped: {r['reason']}")
+            continue
+        m = r["memory"]
+        log(f"{r['cell']:48s} {m['argument_bytes'] / 2**30:9.3f} "
+            f"{m['temp_bytes'] / 2**30:10.3f} {str(r['fits']):>5s} "
+            f"{r['cost_analysis']['flops']:10.4g} {r['seconds']:6.2f}")
+    ok = [r for r in recs if r["status"] == "ok"]
+    return {"ok": len(ok), "skipped": len(skipped),
+            "fits": sum(r["fits"] for r in ok),
+            "cpu_s": sum(r["seconds"] for r in recs)}
+
+
+def dryrun_kernels(np, torch, dev):
+    """(b)'s kernels at the prefill's length against their plain versions
+    (``DRYRUN_FLASH_SHAPES`` in bf16, ``DRYRUN_SSD_SHAPE``); returns the
+    largest |diff| of each."""
+    from repro_torch.kernels.flash_attn import flash_fwd, flash_fwd_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    rng = np.random.default_rng(27)
+    errs = {"flash_fwd": 0.0, "ssd_scan": 0.0}
+    for BH, S, hd, window in DRYRUN_FLASH_SHAPES:
+        q, k, v = flash_inputs(np, torch, dev, rng, BH, S, hd, torch.bfloat16)
+        scale = 1.0 / float(np.sqrt(hd))
+        o, lse = flash_fwd(q, k, v, scale=scale, window=window)
+        o_p, lse_p = flash_fwd_plain(q.float(), k.float(), v.float(),
+                                     scale=scale, window=window)
+        torch.cuda.synchronize()
+        eo = (o.float() - o_p).abs().max().item()
+        el = (lse - lse_p).abs().max().item()
+        check(bool(torch.isfinite(o).all())
+              and torch.allclose(o.float(), o_p, **TOL_FLASH_BF16)
+              and torch.allclose(lse, lse_p, **TOL_FLASH),
+              f"flash_fwd [{BH}, {S}, {hd}] window {window} bf16: max |err| "
+              f"O {eo:.3g}, LSE {el:.3g}")
+        errs["flash_fwd"] = max(errs["flash_fwd"], eo, el)
+        log(f"flash_fwd [{BH}, {S}, {hd}] window {window} bf16: max |err| "
+            f"vs plain (f32) O {eo:.3g}, LSE {el:.3g} (tolerance O "
+            f"{TOL_FLASH_BF16['atol']}, LSE {TOL_FLASH['atol']})")
+        del q, k, v, o, lse, o_p, lse_p
+        torch.cuda.empty_cache()
+    BH, nc, Q, hd, ds = DRYRUN_SSD_SHAPE
+    x, la, Bm, Cm = ssd_inputs(np, torch, dev, rng, BH, nc, Q, hd, ds)
+    b1, c1 = Bm[:1].contiguous(), Cm[:1].contiguous()
+    del Bm, Cm
+    y, y_p = ssd_scan(x, la, b1, c1), ssd_scan_plain(x, la, b1, c1)
+    torch.cuda.synchronize()
+    err = (y - y_p).abs().max().item()
+    what = f"ssd_scan [{BH}, {nc}, {Q}, {hd}] ds {ds} G 1 f32"
+    check(bool(torch.isfinite(y).all()) and torch.allclose(y, y_p, **TOL_SSD),
+          f"{what}: max |err| {err:.3g}")
+    errs["ssd_scan"] = err
+    log(f"{what}: max |err| vs plain {err:.3g} (tolerance {TOL_SSD['atol']})")
+    del x, la, b1, c1, y, y_p
+    torch.cuda.empty_cache()
+    return errs
+
+
+def dryrun_execute(torch, smi):
+    """(b): for each arch, the first ``prefill_32k`` cell (``pod``, then
+    ``multipod``) whose estimate leaves ``EXECUTE_HEADROOM`` of the card
+    free, run there by ``run_cell(execute=True)`` at the config's width
+    and depth with ``flash`` (``ssdk`` for Mamba-2); the launches of each
+    run counted from 0.  Returns {arch: record} of the cells run and the
+    launches of all of them."""
+    from repro_torch import configs as C
+    from repro_torch.launch.dryrun import EXECUTE_HEADROOM, run_cell
+    from repro_torch.models.transformer import ATTN_KINDS
+
+    runs, total = {}, {"flash_fwd": 0, "ssd_scan": 0}
+    for arch in C.ARCH_IDS:
+        cfg = C.get_config(arch)
+        attends = any(k in ATTN_KINDS for k in cfg.layer_kinds)
+        policy, kernel = ("flash", "flash_fwd") if attends else \
+            ("ssdk", "ssd_scan")
+        tried = []
+        for mk in ("pod", "multipod"):
+            torch.cuda.empty_cache()
+            reset_counts()
+            rec = run_cell(arch, DRYRUN_SHAPE, mk, policy, save=False,
+                           execute=True)
+            counts = read_counts()
+            m = rec["memory"]
+            est = m["argument_bytes"] + m["temp_bytes"]
+            ex = rec["execute"]
+            if "peak_bytes" not in ex:
+                tried.append(f"{mk} {est / 2**30:.2f} GiB")
+                continue
+            B = C.SHAPES[DRYRUN_SHAPE].global_batch \
+                // (16 if mk == "pod" else 32)
+            want = kernel_layers(cfg, kernel)
+            check(rec[("attn_impl" if attends else "ssd_impl")] ==
+                  ("flash" if attends else "kernel"),
+                  f"{rec['cell']}: ran {rec['attn_impl']} / {rec['ssd_impl']}")
+            check(ex["finite"] and ex["shapes_ok"],
+                  f"{rec['cell']}: cache or logits not finite or misshapen")
+            check(counts[kernel] == want and ex["launches"][kernel] == want
+                  and sum(counts.values()) == want,
+                  f"{rec['cell']}: launches {counts}, want {kernel} "
+                  f"{want} and nothing else")
+            lo, hi = DRYRUN_RATIO
+            log(f"{rec['cell']} ({policy}, {B} x 32,768 a rank): estimate "
+                f"{est / 2**30:.3f} GiB (argument {m['argument_bytes']} B, "
+                f"temp {m['temp_bytes']} B), measured peak "
+                f"{ex['peak_bytes'] / 2**30:.3f} GiB ({ex['peak_bytes']} B), "
+                f"ratio {ex['ratio']:.4f}; {ex['wall_s']:.3f} s "
+                f"({B * 32768 / ex['wall_s']:.1f} tokens/s, the gather's "
+                f"seeded draws included); {kernel} {want} launches; "
+                f"{rec['cost_analysis']['flops']:.4g} FLOP; {smi}")
+            check(lo <= ex["ratio"] <= hi,
+                  f"{rec['cell']}: measured peak / estimate {ex['ratio']:.4f} "
+                  f"outside [{lo}, {hi}]")
+            runs[arch] = rec
+            total[kernel] += want
+            break
+        if arch not in runs:
+            card = torch.cuda.get_device_properties(0).total_memory
+            log(f"{arch}: no {DRYRUN_SHAPE} cell fits "
+                f"{1 - EXECUTE_HEADROOM:.2f} of the card's "
+                f"{card / 2**30:.2f} GiB: estimates {', '.join(tried)}")
+        torch.cuda.empty_cache()
+    missing = [a for a in DRYRUN_MUST_RUN if a not in runs]
+    check(not missing, f"no {DRYRUN_SHAPE} cell run on the card for {missing}")
+    return runs, total
+
+
+def cached_invocation(pkg, n_slim=CACHED_SLIM, lib_dir=None):
+    """(c), ``fig5_cached``'s scenario (the paper's §3.4) through ``pkg``
+    (``core``, ``transport``, context keywords ``kw``): ``bench_hot``
+    (about 256 KiB of code behind a trivial main) sent by a ``Dispatcher``
+    to one ``RdmaFabric`` host peer, each invocation drained before the
+    next: the first FULL, the ``n_slim`` after it SLIM.  Returns
+    (dispatcher, host seconds of each invocation, the peer's wire bytes
+    after the first)."""
+    core, X = pkg.core, pkg.transport
+    src = core.Context("hot-source", lib_dir=lib_dir, **pkg.kw)
+    d = X.Dispatcher(src, X.ProgressEngine(flush_threshold=64))
+    h = core.register_ifunc(src, "bench_hot", lib_dir)
+    slot = 1 << (len(h.lib.code) + 4096).bit_length()   # a FULL frame
+    d.add_peer("hot", X.RdmaFabric(),
+               core.Context("hot-target", lib_dir=lib_dir,
+                            link_mode="remote", **pkg.kw),
+               n_slots=2, slot_size=slot, target_args={})
+    peer, times, first = d.peers["hot"], [], 0
+    for i in range(1 + n_slim):
+        t0 = time.perf_counter()
+        check(d.send_ifunc("hot", h, b"x" * 16), f"invocation {i} refused")
+        d.drain()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            first = peer.stats["bytes"]
+    return d, times, first
+
+
+def phase_dryrun(np, torch, dev, smi):
+    """Phase 27: (a) every cell's dry run on meta in ``DRYRUN_WORKERS``
+    processes while (b) checks the kernels at 32,768 positions and runs
+    each arch's fitting ``prefill_32k`` cell on the card; (c) the cached
+    invocation.  Returns (b)'s launches and the kernels' largest |diff|."""
+    import multiprocessing
+    import types
+
+    import repro_torch.core as core
+    import repro_torch.transport as transport
+    from repro_torch.launch.dryrun import H100_80GB_BYTES, iter_cells
+
+    t_phase = time.perf_counter()
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    log(f"the card's total_memory {total_mem} B ({total_mem / 2**30:.2f} "
+        f"GiB); (a)'s fits are against an H100 80GB's {H100_80GB_BYTES} B"
+        f"{'' if total_mem == H100_80GB_BYTES else ' (differs)'}")
+    cells = list(iter_cells(["pod", "multipod"]))
+    with multiprocessing.get_context("spawn").Pool(
+            DRYRUN_WORKERS, initializer=_dryrun_worker,
+            initargs=(str(ROOT / "src"),)) as pool:
+        pending = pool.map_async(dryrun_cell, cells, chunksize=1)
+        errs = dryrun_kernels(np, torch, dev)
+        t_b = time.perf_counter()
+        runs, launches = dryrun_execute(torch, smi)
+        t_b = time.perf_counter() - t_b
+        t_wait = time.perf_counter()
+        recs = pending.get(timeout=900)
+        t_wait = time.perf_counter() - t_wait
+    a = dryrun_gates(recs, cells)
+    log(f"(a) {len(cells)} cells: {a['ok']} ok, {a['skipped']} skipped, "
+        f"{a['fits']} fit one card; {a['cpu_s']:.1f} s of cell time in "
+        f"{DRYRUN_WORKERS} processes, {t_wait:.1f} s waited for after (b)")
+    log(f"(b) {len(runs)} of 10 archs ran a {DRYRUN_SHAPE} cell on the card "
+        f"in {t_b:.1f} s: {sorted(runs)}; launches {launches}")
+
+    pkg = types.SimpleNamespace(core=core, transport=transport, kw={})
+    d, times, first = cached_invocation(pkg)
+    peer = d.peers["hot"]
+    tgt = peer.target_ctx
+    code = len(d.src_ctx.handles["bench_hot"].lib.code)
+    check(tgt.stats["links"] == 1 and peer.stats["slim_sent"] == CACHED_SLIM
+          and peer.target_args["count"] == 1 + CACHED_SLIM,
+          f"cached invocation: links {tgt.stats['links']}, SLIM "
+          f"{peer.stats['slim_sent']}, invocations "
+          f"{peer.target_args.get('count')}")
+    check(first > code >= 256 << 10
+          and peer.stats["bytes"] - first < CACHED_SLIM * 1024,
+          f"cached invocation: {first} B with the FULL frame, "
+          f"{peer.stats['bytes'] - first} B after, code {code} B")
+    slim_us = statistics.median(times[1:]) * 1e6
+    log(f"(c) bench_hot: 1 FULL + {CACHED_SLIM} SLIM invocations, links 1, "
+        f"{code} B of code shipped once ({first} B on the wire with the "
+        f"FULL frame, {peer.stats['bytes'] - first} B for the SLIM ones); "
+        f"host µs an invocation: FULL {times[0] * 1e6:.1f}, SLIM median "
+        f"{slim_us:.1f} ({times[0] / statistics.median(times[1:]):.1f}x)")
+    log(f"phase 27 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, errs
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         raise SmokeError("src/repro_torch not found beside chip_smoke.py: "
@@ -7226,6 +7527,12 @@ def main():
     vm["launches"] += ru["sweeps"]
     kernels[0]["launches"] += ru["sweeps"]
     model_entries[0]["fabric_launches"] = phase_fabric(np, torch, dev, smi)
+    dry_launches, dry_errs = phase_dryrun(np, torch, dev, smi)
+    for entry in model_entries:
+        name = entry["name"]
+        entry["dryrun_launches"] = dry_launches[name]
+        entry["launches"] += dry_launches[name]
+        entry["max_abs_err"] = max(entry["max_abs_err"], dry_errs[name])
     kernels += model_entries + bwd_entries
     for entry in kernels:
         if entry["name"] in ru["driver"]:

@@ -1,9 +1,10 @@
 """Architecture registry and assigned input shapes.
 
 Each ``configs/<arch>.py`` exports ``CONFIG`` with the published numbers,
-the same data as the reference's ``repro.configs``.  ``input_specs`` and
-``batch_axes`` (shape stand-ins for the TPU dry run) come with the
-launchers.
+the same data as the reference's ``repro.configs``.  ``input_specs``
+builds the ``TensorSpec`` stand-ins (shape and type, no allocation) of a
+shape's step inputs, and ``batch_axes`` their logical axes, for
+``launch/dryrun.py``.
 """
 
 from __future__ import annotations
@@ -11,7 +12,10 @@ from __future__ import annotations
 import importlib
 from dataclasses import dataclass
 
+import torch
+
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import TensorSpec
 
 ARCH_IDS = (
     "musicgen_large",
@@ -60,3 +64,39 @@ def applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
     if sp.name == "long_500k" and cfg.family not in SUBQUADRATIC:
         return False, "pure full-attention arch: 512k dense KV/attention skipped"
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: str) -> dict:
+    """``TensorSpec`` stand-ins for the step function inputs of ``shape``.
+
+    train/prefill: {"tokens", optional "ext_embed", train adds "labels"}.
+    decode: {"tokens" [B,1], "pos" scalar} (the cache comes from
+    cache_shapes).
+    """
+    sp = SHAPES[shape]
+    B, S = sp.global_batch, sp.seq_len
+    i32 = torch.int32
+    if sp.kind == "decode":
+        return {"tokens": TensorSpec((B, 1), i32),
+                "pos": TensorSpec((), i32)}
+    specs: dict = {}
+    ext = cfg.ext_embed_len
+    specs["tokens"] = TensorSpec((B, S - ext), i32)
+    if ext:
+        specs["ext_embed"] = TensorSpec((B, ext, cfg.d_model), cfg.act_dtype)
+    if sp.kind == "train":
+        specs["labels"] = TensorSpec((B, S), i32)
+    return specs
+
+
+def batch_axes(cfg: ModelConfig, shape: str) -> dict:
+    """Logical axes for the input specs (mirrors input_specs)."""
+    sp = SHAPES[shape]
+    if sp.kind == "decode":
+        return {"tokens": ("cache_batch", None), "pos": ()}
+    ax: dict = {"tokens": ("batch", None)}
+    if cfg.ext_embed_len:
+        ax["ext_embed"] = ("batch", None, None)
+    if sp.kind == "train":
+        ax["labels"] = ("batch", None)
+    return ax

@@ -21,6 +21,12 @@ reference's block sizes, and the sequence must divide by both, as there;
 the kernels tile as they like.  Its gradient is the reference's
 ``custom_vjp``: the forward saves q, k, v, O and LSE, the backward
 recomputes the probabilities from LSE.
+
+On ``meta`` tensors (``launch/dryrun.py``'s dry run) each entry point
+checks and allocates exactly as on CUDA tensors (O and LSE; dQ; dK and
+dV; delta) and, in place of the launch, calls :func:`kernels.meta.launch`
+with the kernel's operations: shapes and bytes, no arithmetic, and the
+launch counts stay as they are.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
+from repro_torch.kernels.meta import causal_pairs
 
 DEFAULT_BQ = 256
 DEFAULT_BK = 256
@@ -96,11 +103,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (O [BH,S,hd] in q's type, LSE [BH,S] f32).  Launches the CUDA
     kernel for CUDA tensors (``flash_fwd_wgmma_kernel`` for bf16,
-    ``flash_fwd_kernel`` for f32); CPU tensors take the plain version."""
+    ``flash_fwd_kernel`` for f32); CPU tensors take the plain version,
+    meta tensors the launch's shapes (:func:`kernels.meta.launch`)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale=scale, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_fwd runs on cuda or cpu, not {q.device}")
     check_kernel_operands(q, k, v)
     if window < 0:
@@ -112,6 +120,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"(its grid's y), got {BH}")
     o = torch.empty_like(q)
     lse = torch.empty(BH, S, dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        meta.launch("flash_fwd", (q, k, v, o, lse),
+                    flash_flops(BH, S, hd, window)[0])
+        return o, lse
     fn = _build.load("flash_attn").flash_fwd_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
@@ -128,6 +140,14 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_fwd.launches = 0     # kernel launches since the count was last reset
+
+
+def flash_flops(BH: int, S: int, hd: int, window: int = 0
+                ) -> tuple[int, int, int]:
+    """Operations of the forward, dQ and dK/dV kernels: two, three and four
+    products of ``2 hd`` FLOP over the (q, k) pairs the mask keeps."""
+    pairs = BH * causal_pairs(S, window)
+    return 4 * hd * pairs, 6 * hd * pairs, 8 * hd * pairs
 
 
 def _check_bwd(q, k, v, do, o=None, **rows) -> None:
@@ -209,7 +229,8 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
 
 def _launch_bwd(symbol, n_out, q, k, v, do, lse, delta, scale, window):
     """Launches ``<symbol>_launch`` of ``csrc/flash_attn_bwd.cu`` on CUDA
-    operands; -> its ``n_out`` outputs, each shaped and typed as q."""
+    operands (meta operands: :func:`kernels.meta.launch`); -> its
+    ``n_out`` outputs, each shaped and typed as q."""
     check_kernel_operands(q, k, v, backward=True)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
@@ -219,6 +240,10 @@ def _launch_bwd(symbol, n_out, q, k, v, do, lse, delta, scale, window):
     ins = [t.contiguous() for t in (q, k, v, do, lse, delta)]
     outs = [torch.empty_like(ins[0]) for _ in range(n_out)]
     BH, S, hd = ins[0].shape
+    if q.device.type == "meta":
+        flops = flash_flops(BH, S, hd, window)[n_out]   # dQ 1, dK/dV 2
+        meta.launch(symbol, ins + outs, flops)
+        return outs
     fn = getattr(_build.load("flash_attn_bwd"), f"{symbol}_launch")
     fn.argtypes = [ctypes.c_void_p] * (6 + n_out) + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
@@ -243,11 +268,12 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale=scale,
                                   window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_bwd_dq runs on cuda or cpu, not {q.device}")
     (dq,) = _launch_bwd("flash_bwd_dq", 1, q, k, v, do, lse, delta, scale,
                         window)
-    flash_bwd_dq.launches += 1
+    if q.device.type == "cuda":
+        flash_bwd_dq.launches += 1
     return dq
 
 
@@ -266,11 +292,12 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale=scale,
                                    window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_bwd_dkv runs on cuda or cpu, not {q.device}")
     dk, dv = _launch_bwd("flash_bwd_dkv", 2, q, k, v, do, lse, delta, scale,
                          window)
-    flash_bwd_dkv.launches += 1
+    if q.device.type == "cuda":
+        flash_bwd_dkv.launches += 1
     return dk, dv
 
 
@@ -281,8 +308,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
               scale: float, window: int = 0
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (dQ, dK, dV) in the inputs' type.  On CUDA tensors: delta, then
-    the two backward kernels; CPU tensors take :func:`flash_bwd_plain`."""
+    """-> (dQ, dK, dV) in the inputs' type.  On CUDA (or meta) tensors:
+    delta, then the two backward kernels; CPU tensors take
+    :func:`flash_bwd_plain`."""
     _check_bwd(q, k, v, do, o, lse=lse)
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, scale=scale, window=window)

@@ -23,7 +23,10 @@ four launches a call) on CUDA tensors and runs :func:`ssd_scan_plain` on
 CPU tensors.  It has no
 gradient, as the reference's Pallas kernel has no VJP: called where
 autograd would record it, it raises :class:`SsdScanGradError` on either
-device.  SSD training takes ``ssd_impl="xla"``.
+device.  SSD training takes ``ssd_impl="xla"``.  On ``meta`` tensors
+(``launch/dryrun.py``'s dry run) it checks and allocates as on CUDA
+tensors (y and the scratch) and calls :func:`kernels.meta.launch` in
+place of the launch.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 
 KERNEL_MAX_HD, KERNEL_MAX_DS = 64, 128
 KERNEL_MAX_Q = 16384          # cum of one chunk in shared memory
@@ -99,8 +102,9 @@ def ssd_scan(x: torch.Tensor, la: torch.Tensor, Bm: torch.Tensor,
     """x [BH,nc,Q,hd], la [BH,nc,Q], Bm/Cm [G,nc,Q,ds] (G divides BH) ->
     y [BH,nc,Q,hd].  Launches the CUDA kernels for CUDA tensors (f32,
     hd <= 64, ds <= 128), a scratch of cum, states and C Bᵀ per group;
-    CPU tensors take the plain version.  Refuses, on both devices, inputs
-    that require a gradient while grad mode is on."""
+    CPU tensors take the plain version, meta tensors the launch's shapes.
+    Refuses, on every device, inputs that require a gradient while grad
+    mode is on."""
     _check(x, la, Bm, Cm)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, la, Bm, Cm)):
         raise SsdScanGradError(
@@ -109,7 +113,7 @@ def ssd_scan(x: torch.Tensor, la: torch.Tensor, Bm: torch.Tensor,
             "under torch.no_grad() / torch.inference_mode()")
     if x.device.type == "cpu":
         return ssd_scan_plain(x, la, Bm, Cm)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
     for name, t in (("x", x), ("la", la), ("Bm", Bm), ("Cm", Cm)):
         if t.dtype != torch.float32:
@@ -127,6 +131,10 @@ def ssd_scan(x: torch.Tensor, la: torch.Tensor, Bm: torch.Tensor,
     cum = torch.empty_like(la)
     states = x.new_empty(BH, nc, ds, hd)       # each chunk's, then h_prev
     cb = x.new_empty(G, nc, Q, Q)              # C Bᵀ, lower tiles written
+    if x.device.type == "meta":
+        meta.launch("ssd_scan", (x, la, Bm, Cm, y, cum, states, cb),
+                    ssd_flops(BH, G, nc, Q, hd, ds))
+        return y
     fn = _build.load("ssd_scan").ssd_scan_launch
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 6 \
         + [ctypes.c_void_p]
@@ -141,6 +149,13 @@ def ssd_scan(x: torch.Tensor, la: torch.Tensor, Bm: torch.Tensor,
 
 
 ssd_scan.launches = 0      # calls that launched the kernels, since reset
+
+
+def ssd_flops(BH: int, G: int, nc: int, Q: int, hd: int, ds: int) -> int:
+    """Operations of one call: C Bᵀ's lower triangle once per group, the
+    score-x product's lower triangle and the two state products per row."""
+    P = Q * (Q + 1) // 2                       # lower-triangle pairs
+    return nc * G * 2 * P * ds + BH * nc * (2 * P * hd + 4 * Q * hd * ds)
 
 
 def ssd_hbm_bytes(B, nh, S, hd, ds, *, train: bool, dtype_bytes=2) -> float:

@@ -146,35 +146,42 @@ def gather(state):
     return state
 
 
-def _mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
+def _mean_over_ranks(x: torch.Tensor, n: int | None = None,
+                     all_reduce=None) -> torch.Tensor:
     """The f32 mean of ``x`` over every rank (``x`` itself, widened, at
-    world size 1)."""
+    world size 1).  ``n`` and ``all_reduce`` default to the process
+    group's size and ``dist.all_reduce``; the dry run passes its mesh's
+    size and a reduction that moves nothing."""
     x = x.float()
-    n = dist.get_world_size()
+    n = dist.get_world_size() if n is None else n
     if n == 1:
         return x
     x = x.clone()
-    dist.all_reduce(x)
+    (all_reduce or dist.all_reduce)(x)
     return x / n
 
 
-def make_sharded_step(step_fn, mesh, state_sh):
+def make_sharded_step(step_fn, mesh, state_sh, *, gather=gather, place=place,
+                      mean=_mean_over_ranks):
     """The sharded counterpart of ``step_fn`` (a ``make_train_step`` step):
     ``(state of DTensors, this rank's batch) -> (state of DTensors,
     metrics)``.  Gradients, the loss and its extras are averaged over
     every rank; ranks that share a batch shard (along ``model``) hold
     equal losses, and their gradients are partial sums (``models/moe.py``),
     so the mean over all ranks is the global batch's gradient.  The step
-    runs under ``mesh`` and the rules current when it was made."""
+    runs under ``mesh`` and the rules current when it was made.
+    ``gather``, ``place`` and ``mean`` are the pieces above; the dry run
+    (``launch/dryrun.py``) runs the same step with its own, on local
+    tensors."""
     rules = SH.current_rules()
 
     def sharded_step(state, batch):
         full = gather(state)
         with SH.sharding_context(mesh, rules):
             loss, extras, grads = step_fn.grads(full["params"], batch)
-        grads = {k: _mean_over_ranks(g) for k, g in grads.items()}
-        loss = _mean_over_ranks(loss)
-        extras = {k: _mean_over_ranks(v) for k, v in extras.items()}
+        grads = {k: mean(g) for k, g in grads.items()}
+        loss = mean(loss)
+        extras = {k: mean(v) for k, v in extras.items()}
         new, metrics = step_fn.apply(full, loss, extras, grads)
         del full, grads
         return place(new, state_sh), metrics

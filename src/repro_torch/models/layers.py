@@ -297,12 +297,15 @@ def attention_decode(p, x, cfg, cache, pos, *, window: int = 0):
         if pos_t.dim() != 0:
             raise ValueError("the shared-slot_pos cache takes a scalar pos, "
                              f"got shape {tuple(pos_t.shape)}")
-        q, k_new, v_new = _qkv(p, x, cfg, torch.full((B, 1), int(pos_t),
+        # a Python int stays one (no read back, and a meta dry run has
+        # no value to read)
+        pos_i = pos if isinstance(pos, int) else int(pos_t)
+        q, k_new, v_new = _qkv(p, x, cfg, torch.full((B, 1), pos_i,
                                                      device=x.device))
-        slot = int(pos_t) % W
+        slot = pos_i % W
         k[:, slot:slot + 1] = k_new.to(k.dtype)
         v[:, slot:slot + 1] = v_new.to(v.dtype)
-        slot_pos[slot] = int(pos_t)
+        slot_pos[slot] = pos_i
         sp = slot_pos.long()
         valid = (sp >= 0) & (sp <= pos_t)
         if window:

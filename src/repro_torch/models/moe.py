@@ -112,8 +112,10 @@ def _bin_tokens(x_tok, top_p, top_e, n_exp: int, cap: int):
     e_flat = top_e.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     e_sorted = e_flat[order]
-    counts = torch.bincount(e_sorted, minlength=n_exp)
-    starts = torch.cumsum(counts, 0) - counts
+    # each expert's first place in the sorted ids (a shape-stable bincount:
+    # it runs on meta tensors too)
+    starts = torch.searchsorted(e_sorted, torch.arange(n_exp,
+                                                       device=e_flat.device))
     rank_sorted = torch.arange(T * k, device=e_flat.device) - starts[e_sorted]
     rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
     keep = rank < cap

@@ -161,6 +161,13 @@ def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int, *,
     return out
 
 
+def cache_axes(cfg: ModelConfig, batch: int, cache_len: int, *,
+               per_slot: bool = False) -> dict[str, tuple]:
+    """The logical axes of each cache entry (the launchers' sharding)."""
+    return {n: axes for n, (_, axes) in
+            cache_specs(cfg, batch, cache_len, per_slot=per_slot).items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                per_slot: bool = False, device="cuda") -> dict:
     dev = resolve_device(device)

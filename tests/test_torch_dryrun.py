@@ -1,0 +1,228 @@
+"""``repro_torch.launch.dryrun`` against the reference's
+``repro.launch.dryrun`` and against itself on real tensors.
+
+* For the cells of ``CELLS`` the port's record has the reference's
+  ``status``, ``devices``, ``argument_bytes``, ``output_bytes``,
+  ``alias_bytes`` and ``param_counts``, exactly.  The reference lowers
+  and compiles each cell for its 256/512-device pod in a subprocess
+  (its module sets ``XLA_FLAGS`` when imported), started before the port
+  runs its side so that the two overlap.
+* The port's meta estimate of a small cell (a reduced config, 64
+  positions, a (2, 2) mesh) equals the same tracker on a real CPU run of
+  the same program with seeded tensors, byte for byte and FLOP for FLOP,
+  for each kind of step.
+* ``FlopCounterMode``'s count of a small dense prefill equals a hand
+  count of its products; the kernels' meta launches count theirs.
+"""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch import configs as PC
+from repro_torch.configs import ShapeSpec
+from repro_torch.kernels import flash_attn as FA
+from repro_torch.kernels import ssd_scan as SS
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.train import reduced
+from repro_torch.parallel.sharding import AbstractMesh
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+CELLS = (("mamba2_780m", "decode_32k", "pod"),
+         ("mamba2_780m", "decode_32k", "multipod"),
+         ("smollm_360m", "train_4k", "pod"),
+         ("qwen1_5_4b", "prefill_32k", "pod"),
+         ("qwen1_5_4b", "prefill_32k", "multipod"),
+         ("qwen3_moe_30b_a3b", "train_4k", "pod"),
+         ("phi3_vision_4_2b", "prefill_32k", "pod"),
+         ("recurrentgemma_2b", "long_500k", "multipod"),
+         ("smollm_360m", "long_500k", "pod"))
+
+_REF_SCRIPT = r"""
+import json, pathlib, sys
+from repro.launch import dryrun as D
+D.OUT_DIR = pathlib.Path(sys.argv[1])
+out = {}
+for cell in json.loads(sys.argv[2]):
+    rec = D.run_cell(*cell, save_hlo=False)
+    out["__".join(cell)] = {k: rec.get(k) for k in (
+        "status", "devices", "memory", "param_counts")}
+print("REF", json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """The reference's records of ``CELLS``, from a subprocess started at
+    once; the port's side runs while it lowers and compiles."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _REF_SCRIPT,
+         str(tmp_path_factory.mktemp("dryrun_ref")), json.dumps(CELLS)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    box = {}
+
+    def get():
+        if "out" not in box:
+            out, err = proc.communicate(timeout=600)
+            assert proc.returncode == 0, err[-3000:]
+            line = [ln for ln in out.splitlines() if ln.startswith("REF ")]
+            box["out"] = json.loads(line[-1][4:])
+        return box["out"]
+
+    yield get
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=["__".join(c) for c in CELLS])
+def test_run_cell_matches_reference(reference, cell):
+    rec = D.run_cell(*cell, save=False)
+    ref = reference()["__".join(cell)]
+    assert rec["status"] == ref["status"]
+    if ref["status"] == "skipped":
+        return
+    assert rec["devices"] == ref["devices"]
+    assert rec["param_counts"] == ref["param_counts"]
+    for k in ("argument_bytes", "output_bytes", "alias_bytes"):
+        assert rec["memory"][k] == ref["memory"][k], k
+    assert rec["memory"]["temp_bytes"] > 0
+    assert rec["cost_analysis"]["flops"] > 0
+    assert rec["cost_analysis"]["bytes_accessed"] is None
+    assert rec["cost_analysis"]["transcendentals"] is None
+    assert rec["fits"] == (rec["memory"]["argument_bytes"]
+                           + rec["memory"]["temp_bytes"] <= D.H100_80GB_BYTES)
+
+
+def test_run_cell_writes_its_record(tmp_path):
+    rec = D.run_cell("smollm_360m", "decode_32k", "multipod", tag="t",
+                     out_dir=tmp_path)
+    assert json.loads((tmp_path / f"{rec['cell']}.json").read_text()) == rec
+    assert rec["cell"] == "smollm_360m__decode_32k__multipod__t"
+    assert rec["devices"] == 512
+
+
+# ------------------------------------------- the estimate on real tensors
+
+TINY = {"tiny_train": ShapeSpec("tiny_train", "train", 64, 8),
+        "tiny_prefill": ShapeSpec("tiny_prefill", "prefill", 64, 8),
+        "tiny_decode": ShapeSpec("tiny_decode", "decode", 64, 8)}
+MESH = AbstractMesh((2, 2), ("data", "model"))
+
+
+@pytest.fixture
+def tiny(monkeypatch):
+    """Reduced configs and the ``TINY`` shapes in ``repro_torch.configs``."""
+    full = PC.get_config
+    monkeypatch.setattr(PC, "get_config", lambda arch: reduced(full(arch)))
+    for name, sp in TINY.items():
+        monkeypatch.setitem(PC.SHAPES, name, sp)
+
+
+def _measure(arch, shape, device, policy="baseline"):
+    ctx, low = D.build_lowerable(arch, shape, MESH, policy)
+    if device == "meta":
+        args, gather = D.meta_args(low), D.meta_gather
+    else:
+        args = D.seeded_args(low, 3, device)
+        gather = D.seeded_gather(3, device, low.cfg.vocab_size)
+    outs, arg_bytes, peak, flops = D.run_program(low, ctx, list(args), gather,
+                                                 device)
+    return low, outs, (arg_bytes, peak, flops)
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("smollm_360m", "tiny_train"), ("smollm_360m", "tiny_prefill"),
+    ("smollm_360m", "tiny_decode"), ("mamba2_780m", "tiny_prefill"),
+    ("mamba2_780m", "tiny_decode"), ("qwen3_moe_30b_a3b", "tiny_train"),
+    ("recurrentgemma_2b", "tiny_prefill"), ("phi3_vision_4_2b", "tiny_train")])
+def test_meta_estimate_equals_a_cpu_run(tiny, arch, shape):
+    low, _, on_meta = _measure(arch, shape, "meta")
+    low_c, outs, on_cpu = _measure(arch, shape, "cpu")
+    assert on_meta == on_cpu
+    assert on_meta[1] > on_meta[0] > 0
+    # the outputs are the rank's blocks of the output leaves
+    def check(leaf, t):
+        if isinstance(t, torch.Tensor) and t.dim():
+            assert tuple(t.shape) == leaf.shard_shape, leaf.name
+            if t.is_floating_point():
+                assert bool(torch.isfinite(t).all()), leaf.name
+
+    for tree, leaves in zip(outs, low_c.outs):
+        D._map(check, leaves, tree)
+
+
+def test_donated_arguments_are_freed(tiny):
+    """The train state is donated: the sharded step empties its dicts as
+    it gathers them.  The prefill weights are not: they stay."""
+    ctx, low = D.build_lowerable("smollm_360m", "tiny_train", MESH)
+    args = list(D.meta_args(low))
+    state = args[0]
+    D.run_program(low, ctx, args, D.meta_gather, "meta")
+    assert state == {} and args == []
+    ctx, low = D.build_lowerable("smollm_360m", "tiny_prefill", MESH)
+    args = list(D.meta_args(low))
+    params = args[0]
+    D.run_program(low, ctx, args, D.meta_gather, "meta")
+    assert params and all(t.device.type == "meta" for t in params.values())
+
+
+def test_flop_count_is_the_hand_count(tiny):
+    """A reduced SmolLM's prefill (naive attention over whole q chunks,
+    gated MLP, tied head), one rank's 4 sequences of 64: every product
+    counted by hand."""
+    low, _, (_, _, flops) = _measure("smollm_360m", "tiny_prefill", "meta")
+    cfg = low.cfg
+    b, S, D_, V = 4, 64, cfg.d_model, cfg.vocab_size
+    H, Kv, hd, F = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    assert cfg.mlp_gated and cfg.attn_impl == "naive"
+    layer = (2 * b * S * D_ * H * hd            # q
+             + 2 * 2 * b * S * D_ * Kv * hd     # k, v
+             + 2 * b * S * H * hd * D_          # o
+             + 2 * 2 * b * H * S * S * hd       # scores, P V (whole chunks)
+             + 3 * 2 * b * S * D_ * F)          # gate, up, down
+    assert flops == cfg.num_layers * layer + 2 * b * S * D_ * V
+
+
+def test_kernel_meta_launches():
+    """On meta tensors the kernels' entry points allocate what their CUDA
+    launches do, count their operations, launch nothing and count no
+    launch; a CPU operand never reaches a meta launch."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import meta
+
+    n = (FA.flash_fwd.launches, FA.flash_bwd_dq.launches,
+         FA.flash_bwd_dkv.launches, SS.ssd_scan.launches)
+    q = torch.empty(6, 512, 96, device="meta", dtype=torch.bfloat16,
+                    requires_grad=True)
+    with FlopCounterMode(display=False) as fc:
+        o = FA.flash_attention(q, q, q, 0.1, 256, 256, 256)
+        fwd = fc.get_total_flops()
+        o.backward(torch.empty_like(o))
+    assert o.shape == q.shape and o.dtype == torch.bfloat16
+    assert q.grad.shape == q.shape and q.grad.device.type == "meta"
+    f, dq, dkv = FA.flash_flops(6, 512, 96, 256)
+    assert fwd == f and fc.get_total_flops() == f + dq + dkv
+    x = torch.empty(96, 4, 256, 64, device="meta")
+    la = torch.empty(96, 4, 256, device="meta")
+    bm = torch.empty(2, 4, 256, 128, device="meta")
+    with FlopCounterMode(display=False) as fc:
+        y = SS.ssd_scan(x, la, bm, bm)
+    assert y.shape == x.shape and y.dtype == torch.float32
+    assert fc.get_total_flops() == SS.ssd_flops(96, 2, 4, 256, 64, 128)
+    assert (FA.flash_fwd.launches, FA.flash_bwd_dq.launches,
+            FA.flash_bwd_dkv.launches, SS.ssd_scan.launches) == n
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_fwd(*(torch.empty(2, 64, 80, device="meta",
+                                   dtype=torch.bfloat16),) * 3, scale=1.0)
+    with pytest.raises(ValueError, match="meta tensors only"):
+        meta.launch("flash_fwd", (torch.empty(1),), 1)

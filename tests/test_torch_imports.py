@@ -281,3 +281,37 @@ def test_no_torch_or_triton_shadow_under_root_or_tests():
     for d in (REPO, REPO / "tests"):
         for name in ("torch", "triton", "torch.py", "triton.py"):
             assert not (d / name).exists(), d / name
+
+
+_PROBE_DRYRUN = r"""
+import os, runpy, sys
+import repro_torch.launch.dryrun
+sys.argv = ["dryrun", "--arch", "smollm_360m", "--shape", "decode_32k",
+            "--mesh", "both", "--out", sys.argv[1]]
+try:
+    runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+except SystemExit as e:
+    print("EXIT", e.code)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro") or m.startswith(
+                 ("jax.", "jaxlib.", "repro.")))
+print("FORBIDDEN", bad, "XLA_FLAGS" in os.environ)
+"""
+
+
+def test_dryrun_imports_and_runs_alone(tmp_path):
+    """``repro_torch.launch.dryrun`` imported, and its command line run on
+    both meshes of one cell, load neither jax nor the JAX package and set
+    no ``XLA_FLAGS`` (the reference's module sets it when imported)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env.pop("XLA_FLAGS", None)
+    r = subprocess.run([sys.executable, "-c", _PROBE_DRYRUN, str(tmp_path)],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "EXIT 0" in r.stdout and "FORBIDDEN [] False" in r.stdout, \
+        r.stdout + r.stderr
+    assert "done: ok=2 skipped=0 failed=0" in r.stdout, r.stdout
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "smollm_360m__decode_32k__multipod.json",
+        "smollm_360m__decode_32k__pod.json"]
