@@ -65,10 +65,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
     for S in {200, 512, 4096}, [4, 512, 128] with window 256, every
     training shape of phases 16 and 17 (``train_flash_shapes``: each
     model's microbatch and parity batch, e.g. [64, 2,048, 96] and
-    [64, 2,048, 128]), RecurrentGemma's [10, S, 256]
-    with window 2,048 for S in {200, 512, 1,024, 4,096} and
-    Phi-3-Vision's [32, S, 96] for S in {512, 4,096}, f32 (the FMA
-    kernel) and bf16 (the wgmma kernel); ``ssd_scan`` on [48, nc, Q, 64], ds 128, for
+    [64, 2,048, 128]), every prefill shape of phase 13
+    (``flash_fwd_shapes``: heads x positions x head_dim of each served
+    model at its prompts and at 4,096, e.g. RecurrentGemma's [10, S, 256]
+    with window 2,048, InternLM2's [16, S, 128], Qwen1.5's [20, S, 128],
+    MiniCPM's [36, S, 64], Phi-3-Vision's [32, 577 + S, 96]) and
+    [32, 512, 96], f32 (the FMA kernel) and bf16 (the wgmma kernel); ``ssd_scan`` on [48, nc, Q, 64], ds 128, for
     (nc, Q) in {(1, 200), (16, 256)}, B and C per row (G = 48) and shared
     by the 48 heads (G = 1, the model's layout at batch 1), the grouped
     call equal bit for bit to the same B and C broadcast to every row;
@@ -76,43 +78,53 @@ Phases, each of which fails the script (non-zero exit, no result line):
     ``scaled_dot_product_attention`` as flash's library yardstick: the bf16
     forward timed by its own profiler name (``flash_fwd_wgmma_kernel``),
     its TFLOP/s, share of the bound and ratio to SDPA's forward, at
-    [15, 4,096, 64] and at the new head dims' largest shapes, [10, 4,096,
-    256] with window 2,048 (beside SDPA causal without the window and
-    SDPA with the window as a boolean mask) and [32, 4,096, 96];
+    [15, 4,096, 64] and at the other head dims' largest shapes, [10,
+    4,096, 256] with window 2,048 (beside SDPA causal without the window
+    and SDPA with the window as a boolean mask), [32, 4,096, 96] and
+    [20, 4,096, 128], and at MiniCPM-2B's [36, 4,096, 64];
     ``ssd_scan`` at [48, 16, 256, 64], ds 128, in both layouts of phase
     10, its four ``ssd_`` kernels' device times summed per call, each
     layout beside its own bound (C B^T counted once per group);
-12. model parity in f32 at the full published width of SmolLM-360M,
-    Mamba-2 780M, RecurrentGemma-2B and Phi-3-Vision (tokens only) and of
-    Qwen3-30B-A3B at 4 of its 48 layers: the kernel path's prefill logits
+12. model parity in f32 at the full published width and depth of
+    SmolLM-360M, Mamba-2 780M, RecurrentGemma-2B, Phi-3-Vision (tokens
+    only), InternLM2-1.8B, Qwen1.5-4B, MiniCPM-2B and MusicGen-large, and
+    of Qwen3-30B-A3B at 4 of its 48 layers (30.5 B parameters in f32 do
+    not fit the card): the kernel path's prefill logits
     and cache against the plain path's on 4 prompts of 256 tokens, and
     teacher forcing (prefill 240 tokens through the kernels, decode 16,
     each step against the plain path's train logits; for the MoE at a
     capacity factor of E / k, where no token copy is dropped in any mode,
     and at the published 1.25 the kernel path's prefill and decode logits
     against the plain path's, which drops the same copies);
-13. serving in bf16, SmolLM-360M, Mamba-2 780M and RecurrentGemma-2B at
-    full width, Qwen3-30B-A3B at 4 layers: a ``ContinuousBatcher``
-    with 4 slots and cache_len 2,048 answers 4 requests (prompts of
-    1,024, 512, 256 and 200 tokens, 32 new tokens each), the model's
-    kernel launched once per attention (or SSD) layer in each prefill
-    (8 of RecurrentGemma's 26) and never in decode;
-    decode tokens/s, the SMs' idle share over the phase, prefill tokens/s
-    at batch 1 and 4,096 tokens, and that prefill's five longest device
-    kernels under torch.profiler;
+13. serving in bf16 at published width and depth, ``SERVE_MODELS``:
+    SmolLM-360M, Mamba-2 780M, RecurrentGemma-2B, Qwen3-30B-A3B (all 48
+    layers), InternLM2-1.8B, Qwen1.5-4B, MiniCPM-2B, MusicGen-large and
+    Phi-3-Vision (its token path after a seeded prefix of 577 image
+    embeddings): a ``ContinuousBatcher`` with 4 slots and cache_len
+    2,048 answers 4 requests (prompts of 1,024, 512, 256 and 200 tokens;
+    Phi-3-Vision's fill 1,792, 1,280, 1,024 and 768 positions with the
+    prefix; 32 new tokens each), the model's kernel launched once per
+    attention (or SSD) layer in each prefill (8 of RecurrentGemma's 26)
+    and never in decode; decode tokens/s, the SMs' idle share over the
+    phase (a traced run whose tokens must equal the untraced run's),
+    prefill positions/s at batch 1 and 4,096 positions, that prefill's
+    five longest device kernels under torch.profiler, and the peak
+    memory after ``init_params`` and over the model's run (each model's
+    parameters freed before the next is drawn);
 14. the flash backward kernels (``flash_bwd_dq``, ``flash_bwd_dkv``)
     against ``flash_bwd_plain`` on the card, f32 and bf16 (bf16 through
     ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel``), at
-    the forward's shapes of phase 10, every training shape (head_dim 64,
-    96, 128 and 256: RecurrentGemma's microbatch [10, 4,096, 256] with
-    window 2,048, Phi-3-Vision's [64, 2,048, 96], Qwen3's [64, 2,048,
-    128]) and ragged and one-position shapes at 96 and 256;
+    ``FLASH_SHAPES``, every training shape (head_dim 64, 96, 128 and
+    256: RecurrentGemma's microbatch [10, 4,096, 256] with window 2,048,
+    Phi-3-Vision's [64, 2,048, 96], Qwen3's [64, 2,048, 128]) and ragged
+    and one-position shapes at 96 and 256 (phase 15 holds its [20, 4,096,
+    128] to SDPA's backward);
 15. backward timings in bf16 as in phase 11, each kernel by its profiler
     name, at [15, 4,096, 64] and at phase 11's [10, 4,096, 256] with
-    window 2,048 and [32, 4,096, 96], with the backward of
-    ``scaled_dot_product_attention`` (causal; at 256 also with the
-    window as a boolean mask) as the library yardstick of both kernels
-    together, each kernel's ratio to it logged;
+    window 2,048, [32, 4,096, 96] and [20, 4,096, 128], with the
+    backward of ``scaled_dot_product_attention`` (causal; at 256 also
+    with the window as a boolean mask) as the library yardstick of both
+    kernels together, each kernel's ratio to it logged;
 16. training parity in f32 at full width, ``PARITY_MODELS``: one
     ``make_train_step``'s loss and gradients through the flash kernels
     against the naive path's, every parameter with a finite non-zero
@@ -397,11 +409,14 @@ in phase 26 (a)'s first 8 launcher steps, and ``flash_fwd``'s
 ``fabric_launches`` its launches in phase 25 (a)'s fleet run; the
 ``flash_fwd`` and ``ssd_scan`` entries' ``dryrun_launches`` are their
 launches in phase 27 (b)'s card runs, added to ``launches``.
-``flash_fwd``'s ``launches`` sum phase 13's four models (SmolLM-360M 32 a
-prefill, RecurrentGemma-2B 8, Qwen3-30B-A3B 4; 176 in all) and its
-``head_dims`` hold phase 11's times at head_dim 256 and 96, each with its
-bound and SDPA's (``library_window_mask_ms``: SDPA given the window as a
-boolean mask).
+``flash_fwd``'s ``launches`` sum phase 13's eight flash models (a layer
+a prefill: SmolLM-360M 32, RecurrentGemma-2B 8, Qwen3-30B-A3B 48,
+InternLM2-1.8B 24, Qwen1.5-4B 40, MiniCPM-2B 40, MusicGen-large 48,
+Phi-3-Vision 32; 1,088 in all) and its ``head_dims`` hold phase 11's
+times at head_dim 256, 96 and 128 (``wide_64``: MiniCPM-2B's [36, 4,096,
+64]), each with its bound and SDPA's (``library_window_mask_ms``: SDPA
+given the window as a boolean mask); the backward entries' ``head_dims``
+hold phase 15's at 256, 96 and 128.
 """
 
 import contextlib
@@ -509,22 +524,36 @@ FIG_FLOW_STAGES, FIG_FLOW_BYTES, FIG_FLOW_ITERS, FIG_FLOW_SLOT = \
 PEAKS = [("H200", 4.8e12, 67e12, 989e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
          ("H100 PCIe", 2.0e12, 51e12, 756e12), ("H100", 3.35e12, 67e12, 989e12)]
 
-# the model stack: each model's published config with its kernel selected
-# (and, for Qwen3-30B-A3B, its depth cut to 4 of 48 layers: the port's
-# init draws every leaf in f32, and the stacked experts alone are 38.6 GB
-# of f32 at full depth), and the plain path it is held against
+# the model stack: each model's published config with its kernel selected,
+# and the plain path it is held against.  Phase 12 holds these in f32:
+# Qwen3-30B-A3B at 4 of its 48 layers there, since its 30.5 B parameters
+# are 114 GiB in f32, more than the card holds
 FLASH, NAIVE = {"attn_impl": "flash"}, {"attn_impl": "naive"}
 MODELS = {"smollm_360m": (FLASH, NAIVE),
           "mamba2_780m": ({"ssd_impl": "kernel"}, {"ssd_impl": "xla"}),
           "recurrentgemma_2b": (FLASH, NAIVE),
           "qwen3_moe_30b_a3b": ({**FLASH, "num_layers": 4}, NAIVE),
-          "phi3_vision_4_2b": (FLASH, NAIVE)}
-# the models phase 13 serves (Phi-3-Vision's path is its image frontend's,
-# a stub here: phase 12 holds its token path)
-SERVE_MODELS = ("smollm_360m", "mamba2_780m", "recurrentgemma_2b",
-                "qwen3_moe_30b_a3b")
+          "phi3_vision_4_2b": (FLASH, NAIVE),
+          "internlm2_1_8b": (FLASH, NAIVE),
+          "qwen1_5_4b": (FLASH, NAIVE),
+          "minicpm_2b": (FLASH, NAIVE),
+          "musicgen_large": (FLASH, NAIVE)}
+# the models phase 13 serves in bf16, each at its published width and
+# depth with its kernel selected: Qwen3-30B-A3B at all 48 layers (56.87 GiB
+# of bf16 parameters), Phi-3-Vision's token path after a seeded prefix of
+# its 577 image embeddings
+SERVE_MODELS = {"smollm_360m": FLASH, "mamba2_780m": {"ssd_impl": "kernel"},
+                "recurrentgemma_2b": FLASH, "qwen3_moe_30b_a3b": FLASH,
+                "internlm2_1_8b": FLASH, "qwen1_5_4b": FLASH,
+                "minicpm_2b": FLASH, "musicgen_large": FLASH,
+                "phi3_vision_4_2b": FLASH}
 SERVE_PROMPTS, SERVE_NEW, SERVE_SLOTS, SERVE_CACHE = (1024, 512, 256, 200), \
     32, 4, 2048
+# a model with a prefix of external embeddings serves prompts that fill
+# these positions with it (Phi-3-Vision: 577 + 1,215 ... 577 + 191): the
+# flash path takes a sequence longer than its block (256) only in whole
+# blocks, as the reference's does
+SERVE_EXT_POSITIONS = (1792, 1280, 1024, 768)
 PARITY_B, PARITY_S, PARITY_PREFILL = 4, 256, 240
 PREFILL_S = 4096
 # the kernels' shapes on the serving path: flash [BH, S, hd, window] (15
@@ -541,6 +570,9 @@ FLASH_SHAPES = ((15, 200, 64, 0), (15, 512, 64, 0), (15, 4096, 64, 0),
 RG_FLASH_SHAPE = (10, PREFILL_S, 256, 2048)
 PHI3_FLASH_SHAPE = (32, PREFILL_S, 96, 0)
 PHI3_FLASH_SHAPES = ((32, 512, 96, 0), PHI3_FLASH_SHAPE)
+# phase 11 also times head_dim 128 at Qwen1.5-4B's 20 heads and 64 at
+# MiniCPM-2B's 36, both at the 4,096-token prefill
+WIDE_FLASH_SHAPES = ((20, PREFILL_S, 128, 0), (36, PREFILL_S, 64, 0))
 SSD_SHAPES = ((48, 1, 200, 64, 128), (48, 16, 256, 64, 128))
 # f32 kernel vs plain: summation order only.  bf16 flash: O rounded to
 # bf16 by the kernel (2^-8 relative), against f32 on the same inputs.
@@ -1535,35 +1567,53 @@ def log_card_busy(prof, wall, what, kernels=(), wall_is="untraced"):
     returns the SMs' idle share, None when the trace holds no device time.
     Device-side records only: the CPU-side op that launched a copy or a
     kernel carries the same device time again; "Activity Buffer Request"
-    is the profiler's own."""
+    is the profiler's own.  The records are read from the profiler's raw
+    results (``prof.profiler.kineto_results``), each record's device time
+    its duration, as ``FunctionEvent.device_time_total`` gives it (0 for
+    an asynchronous one): ``prof.events()`` would first build the event
+    tree of every CPU-side op, 40-110 s for a traced serving run of
+    70,000-230,000 device records on the H100."""
+    import torch
     from torch.autograd import DeviceType
 
-    events = [e for e in prof.events()
-              if e.device_type == DeviceType.CUDA
-              and not e.name.startswith("Activity Buffer")]
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA
+              and not e.name().startswith("Activity Buffer")]
     if not events:
         log(f"{what}: card busy time not measured (torch.profiler recorded "
             f"no device time)")
         return None
-    copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
-    copy_s = sum(e.device_time_total for e in copies) / 1e6
-    kern_s = sum(e.device_time_total for e in events) / 1e6 - copy_s
-    by_name = {}
+    copy_us, kern_us, n_copies, by_name, names = 0.0, 0.0, 0, {}, {}
+    mine = {kernel: [] for kernel in kernels}
     for e in events:
-        if e not in copies:
-            by_name[e.name[:48]] = (by_name.get(e.name[:48], 0.0)
-                                    + e.device_time_total / 1e3)
+        if e.is_async() or e.start_thread_id() != e.end_thread_id():
+            us = 0.0
+        else:
+            us = e.duration_ns() / 1e3
+        raw = e.name()
+        if raw.startswith(("Memcpy", "Memset")):
+            copy_us += us
+            n_copies += 1
+            continue
+        kern_us += us
+        if raw not in names:
+            names[raw] = torch._C._demangle(raw)
+        name = names[raw]
+        by_name[name[:48]] = by_name.get(name[:48], 0.0) + us / 1e3
+        for kernel in kernels:
+            if kernel in name:
+                mine[kernel].append(us / 1e3)
+    copy_s, kern_s = copy_us / 1e6, kern_us / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     idle = 1 - kern_s / wall
     log(f"{what} (torch.profiler, {len(events)} device records): kernels "
         f"{kern_s:.4f} s, so the SMs sit idle {idle:.4f} of the {wall_is} "
-        f"{wall:.4f} s; copies {copy_s:.4f} s ({len(copies)}); most kernel "
+        f"{wall:.4f} s; copies {copy_s:.4f} s ({n_copies}); most kernel "
         f"time: " + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
-    for kernel in kernels:
-        mine = [e.device_time_total / 1e3 for e in events if kernel in e.name]
-        if mine:
-            log(f"  {kernel}: {sum(mine):.2f} ms in {len(mine)} launches, "
-                f"{sum(mine) / len(mine):.4f} ms each")
+    for kernel, ms in mine.items():
+        if ms:
+            log(f"  {kernel}: {sum(ms):.2f} ms in {len(ms)} launches, "
+                f"{sum(ms) / len(ms):.4f} ms each")
     return idle
 
 
@@ -5820,28 +5870,31 @@ def kernel_layers(cfg, kernel):
     return sum(kind in kinds for kind in cfg.layer_kinds)
 
 
+def serve_positions(cfg):
+    """The positions of each prompt phase 13 serves through ``cfg``, its
+    prefix of external embeddings included."""
+    return SERVE_EXT_POSITIONS if cfg.ext_embed_len else SERVE_PROMPTS
+
+
 def flash_fwd_shapes():
     """flash's forward [BH, S, hd, window] for phase 10: ``FLASH_SHAPES``;
     every shape phase 13's prefills give the kernel, derived from each
     flash model of ``SERVE_MODELS`` (at batch 1, KV repeated to all
-    heads, each attention kind's window, over ``SERVE_PROMPTS`` and the
-    ``PREFILL_S`` prefill), so that no model served there goes unchecked;
-    and ``PHI3_FLASH_SHAPES``."""
-    from repro_torch.models.transformer import ATTN_KINDS
-
+    heads, each attention kind's window, over :func:`serve_positions` and
+    the ``PREFILL_S`` prefill), so that no model served there goes
+    unchecked; and ``PHI3_FLASH_SHAPES``."""
     shapes = list(FLASH_SHAPES)
-    for arch in SERVE_MODELS:
-        kern = MODELS[arch][0]
+    for arch, kern in SERVE_MODELS.items():
         if model_kernel(kern) != "flash_fwd":
             continue
         cfg = model_config(arch, kern)
-        windows = sorted({cfg.attn_window if kind == "attn_local" else 0
-                          for kind in cfg.layer_kinds if kind in ATTN_KINDS})
         shapes += [(cfg.num_heads, S, cfg.head_dim, w)
-                   for S in (*SERVE_PROMPTS, PREFILL_S) for w in windows]
+                   for S in (*serve_positions(cfg), PREFILL_S)
+                   for w in attn_windows(cfg)]
     shapes = tuple(dict.fromkeys(shapes + list(PHI3_FLASH_SHAPES)))
-    check(RG_FLASH_SHAPE in shapes, f"phase 11's {RG_FLASH_SHAPE} is not "
-                                    f"on the serving path")
+    for shape in (RG_FLASH_SHAPE, *WIDE_FLASH_SHAPES):
+        check(shape in shapes, f"phase 11's {shape} is not on the serving "
+                               f"path")
     return shapes
 
 
@@ -5936,9 +5989,11 @@ def phase_model_kernels(np, torch, dev):
         f"{torch.backends.cuda.matmul.allow_tf32}, "
         f"torch.backends.cudnn.allow_tf32 = "
         f"{torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
     rng = np.random.default_rng(20)
     errs = {"flash_fwd": 0.0, "ssd_scan": 0.0}
-    for BH, S, hd, window in flash_fwd_shapes() + train_flash_shapes():
+    shapes = flash_fwd_shapes() + train_flash_shapes()
+    for BH, S, hd, window in shapes:
         scale = 1.0 / float(np.sqrt(hd))
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(np, torch, dev, rng, BH, S, hd, dtype)
@@ -5980,6 +6035,8 @@ def phase_model_kernels(np, torch, dev):
                 f"broadcast to {BH} rows")
             del y, y_p, Bb, Cb
     torch.cuda.empty_cache()
+    log(f"phase 10 took {time.perf_counter() - t0:.1f} s over {len(shapes)} "
+        f"flash shapes")
     return errs
 
 
@@ -6029,6 +6086,7 @@ def phase_model_parity(np, torch, dev):
     the same copies."""
     from repro_torch.models import transformer as MT
 
+    t0 = time.perf_counter()
     for i, (arch, (kern, plain)) in enumerate(MODELS.items()):
         cfg = model_config(arch, kern, dtype="float32", param_dtype="float32")
         cfg_p = cfg.with_(**plain)
@@ -6095,12 +6153,15 @@ def phase_model_parity(np, torch, dev):
             f"{TOL_TEACHER}){note}")
         del params
         torch.cuda.empty_cache()
+    log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
 
 
-def serve_requests(torch, cfg, params, prompts, dev, kernel):
+def serve_requests(torch, cfg, params, prompts, dev, kernel, ext=None):
     """Admit every prompt into a free slot of a fresh ContinuousBatcher
-    (prefill, greedy first token, install), then tick until all have
-    finished.  Checks that ``kernel`` launched once per layer in each
+    (prefill, greedy first token, install) and tick until all have
+    finished.  ``ext`` ([1, L, D] on the card, or None) is prepended to
+    every prompt in its prefill, which then installs at position ``L +
+    len(prompt)``.  Checks that ``kernel`` launched once per layer in each
     prefill, no counted kernel launched otherwise, and that every logit
     was finite.  Returns (requests, prefill s, decode s, tokens emitted by
     the ticks, ticks, wall s).  ``kernel`` launches once per layer that
@@ -6120,6 +6181,7 @@ def serve_requests(torch, cfg, params, prompts, dev, kernel):
     b._decode = decode
     prefill = SRV.jit_prefill_step(cfg)
     per_prefill = kernel_layers(cfg, kernel)
+    n_ext = 0 if ext is None else ext.shape[1]
     reqs = [Request(i, p, SERVE_NEW) for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -6127,18 +6189,22 @@ def serve_requests(torch, cfg, params, prompts, dev, kernel):
     for req in reqs:
         before = read_counts()
         c0 = time.perf_counter()
-        cache1, last = prefill(params, {"tokens": torch.from_numpy(
-            req.prompt[None]).to(dev)})
+        inputs = {"tokens": torch.from_numpy(req.prompt[None]).to(dev)}
+        if ext is not None:
+            inputs["ext_embed"] = ext
+        cache1, last = prefill(params, inputs)
         first = int(torch.argmax(last[0, -1]))
         finite.append(bool(torch.isfinite(last).all()))
-        b.install(b.free_slots()[0], cache1, len(req.prompt), first, req)
+        b.install(b.free_slots()[0], cache1, n_ext + len(req.prompt), first,
+                  req)
         torch.cuda.synchronize()
         prefill_s += time.perf_counter() - c0
         now = read_counts()
         delta = {key: now[key] - before[key] for key in now}
         want = {key: (per_prefill if key == kernel else 0) for key in now}
-        check(delta == want, f"{cfg.name} prefill of {len(req.prompt)}: "
-                             f"launches {delta}, want {want}")
+        check(delta == want, f"{cfg.name} prefill of {n_ext} + "
+                             f"{len(req.prompt)}: launches {delta}, want "
+                             f"{want}")
         del cache1, last
     decode_s, emitted, ticks, done = 0.0, 0, 0, []
     while len(done) < len(reqs):
@@ -6158,66 +6224,96 @@ def serve_requests(torch, cfg, params, prompts, dev, kernel):
     return reqs, prefill_s, decode_s, emitted, ticks, wall
 
 
-def phase_serving(np, torch, dev):
-    """Each model of ``SERVE_MODELS`` in bf16 at full width (Qwen3-30B-A3B
-    at 4 layers) serves 4 requests through a ContinuousBatcher — the main
-    path; then the same under torch.profiler for the SMs' idle share, and
-    prefill tokens/s at batch 1 and 4,096 tokens.  Returns {kernel:
-    launches on the main path, summed over the models}."""
+def phase_serving(np, torch, dev, smi):
+    """Each model of ``SERVE_MODELS`` in bf16 at its published width and
+    depth serves 4 requests through a ContinuousBatcher — the main path;
+    Phi-3-Vision's each after the same seeded prefix of its 577 image
+    embeddings.  Then the same under torch.profiler for the SMs' idle
+    share (its tokens must equal the untraced run's), and prefill
+    positions/s at batch 1 and ``PREFILL_S`` positions.  Logs the peak
+    memory after ``init_params`` and over the model's whole run; each
+    model's parameters are freed before the next is drawn.  Returns
+    {kernel: launches on the main path, summed over the models}."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as MT
     from repro_torch.train import serve as SRV
 
+    t0 = time.perf_counter()
     launches = {}
-    for i, arch in enumerate(SERVE_MODELS):
-        kern = MODELS[arch][0]
+    gib = 2 ** 30
+    base = torch.cuda.memory_allocated()
+    for i, (arch, kern) in enumerate(SERVE_MODELS.items()):
         cfg = model_config(arch, kern)
         kernel = model_kernel(kern)
         per_prefill = kernel_layers(cfg, kernel)
+        held = torch.cuda.memory_allocated() - base
+        check(held < gib, f"{arch}: {held / gib:.2f} GiB still held on "
+                          f"the card before its parameters are drawn")
+        torch.cuda.reset_peak_memory_stats()
+        c0 = time.perf_counter()
         params = MT.init_params(
             cfg, torch.Generator(device=dev).manual_seed(200 + i), dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - c0
+        init_peak = torch.cuda.max_memory_allocated()
+        n_par = sum(v.numel() for v in params.values())
+        par_bytes = sum(v.numel() * v.element_size() for v in params.values())
         rng = np.random.default_rng(40 + i)
-        prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_PROMPTS]
+        n_ext = cfg.ext_embed_len
+        prompts = [rng.integers(0, cfg.vocab_size, n - n_ext)
+                   for n in serve_positions(cfg)]
+        ext = None
+        if n_ext:
+            ext = torch.from_numpy(rng.standard_normal(
+                (1, n_ext, cfg.d_model)).astype(np.float32)).to(
+                dev, cfg.act_dtype)
+        prefix = {} if ext is None else {"ext_embed": ext}
         prefill = SRV.jit_prefill_step(cfg)
         prefill(params, {"tokens": torch.from_numpy(prompts[-1][None])
-                         .to(dev)})                            # warm-up
+                         .to(dev), **prefix})                  # warm-up
         torch.cuda.synchronize()
 
         reset_counts()
         reqs, prefill_s, decode_s, emitted, ticks, wall = serve_requests(
-            torch, cfg, params, prompts, dev, kernel)
+            torch, cfg, params, prompts, dev, kernel, ext)
         counts = read_counts()
         launches[kernel] = launches.get(kernel, 0) + counts[kernel]
         check(counts[kernel] == per_prefill * len(prompts),
               f"{arch}: {kernel} launched {counts[kernel]} times in the "
               f"serving run, want {per_prefill} x {len(prompts)}")
-        log(f"{arch} bf16 serving, {SERVE_SLOTS} slots, cache_len "
-            f"{SERVE_CACHE}: {len(reqs)} requests (prompts {SERVE_PROMPTS}) "
-            f"x {SERVE_NEW} tokens in {wall:.3f} s; prefills {prefill_s:.3f} "
-            f"s, {ticks} decode ticks {decode_s:.3f} s = "
-            f"{emitted / decode_s:.1f} decode tokens/s; {kernel} "
-            f"{per_prefill} launches per prefill ({cfg.num_layers} layers), "
-            f"none in decode; "
-            f"launches {counts}; first tokens "
-            f"{[r.out[:4] for r in reqs]}")
+        what = f"prompts {tuple(len(p) for p in prompts)}"
+        if n_ext:
+            what += f" after {n_ext} image positions"
+        log(f"{arch} bf16 serving ({smi}), {SERVE_SLOTS} slots, cache_len "
+            f"{SERVE_CACHE}: {len(reqs)} requests ({what}) x {SERVE_NEW} "
+            f"tokens in {wall:.3f} s; prefills {prefill_s:.3f} s, {ticks} "
+            f"decode ticks {decode_s:.3f} s = {emitted / decode_s:.1f} "
+            f"decode tokens/s; {kernel} {per_prefill} launches per prefill "
+            f"({cfg.num_layers} layers), none in decode; launches {counts}; "
+            f"first tokens {[r.out[:4] for r in reqs]}")
 
+        c0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             reqs2, *_ = serve_requests(torch, cfg, params, prompts, dev,
-                                       kernel)
+                                       kernel, ext)
+        traced_s = time.perf_counter() - c0
         log_card_busy(prof, wall, f"{arch} card over the serving phase")
-        log(f"{arch}: traced serving run's tokens "
-            f"{'equal' if [r.out for r in reqs2] == [r.out for r in reqs] else 'differ from'} "
-            f"the untraced run's")
+        read_s = time.perf_counter() - c0 - traced_s
+        check([r.out for r in reqs2] == [r.out for r in reqs],
+              f"{arch}: the traced serving run's tokens differ from the "
+              f"untraced run's")
+        log(f"{arch}: traced serving run's tokens equal the untraced run's")
 
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                             (1, PREFILL_S))).to(dev)
+                                             (1, PREFILL_S - n_ext))).to(dev)
+        c0 = time.perf_counter()
         times = []
         for rep in range(4):                # one warm-up, 3 timed
             torch.cuda.synchronize()
             c0 = time.perf_counter()
-            cache, last = prefill(params, {"tokens": toks})
+            cache, last = prefill(params, {"tokens": toks, **prefix})
             torch.cuda.synchronize()
             if rep:
                 times.append(time.perf_counter() - c0)
@@ -6225,18 +6321,30 @@ def phase_serving(np, torch, dev):
                   f"{arch}: prefill of {PREFILL_S} not finite")
             del cache, last
         med = statistics.median(times)
-        log(f"{arch} bf16 prefill at batch 1, {PREFILL_S} tokens: "
+        log(f"{arch} bf16 prefill at batch 1, {PREFILL_S} positions"
+            f"{f' ({n_ext} of them image positions)' if n_ext else ''}: "
             f"{', '.join(f'{t:.4f}' for t in times)} s, median {med:.4f} s "
-            f"= {PREFILL_S / med:.1f} tokens/s")
+            f"= {PREFILL_S / med:.1f} positions/s ({smi})")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            cache, last = prefill(params, {"tokens": toks})
+            cache, last = prefill(params, {"tokens": toks, **prefix})
             torch.cuda.synchronize()
-        log_card_busy(prof, med, f"{arch} prefill of {PREFILL_S} tokens, "
+        log_card_busy(prof, med, f"{arch} prefill of {PREFILL_S} positions, "
                                  f"its longest device kernels",
                       ("flash_fwd" if kernel == "flash_fwd" else "ssd_",))
-        del params, toks, cache, last
+        del cache, last
+        log(f"{arch} phase 13 steps: draw {init_s:.1f} s, serving "
+            f"{wall:.1f} s, traced serving {traced_s:.1f} s and reading "
+            f"its trace {read_s:.1f} s, the {PREFILL_S}-position prefills "
+            f"and their trace {time.perf_counter() - c0:.1f} s")
+        log(f"{arch} memory ({smi}): {n_par / 1e9:.3f} B parameters, "
+            f"{par_bytes / gib:.2f} GiB in bf16; peak "
+            f"{init_peak / gib:.2f} GiB after init_params, "
+            f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB over the "
+            f"serving runs and the {PREFILL_S}-position prefill")
+        del params, toks, ext, prefix
         torch.cuda.empty_cache()
+    log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -6302,16 +6410,20 @@ def flash_times(np, torch, dev, rng, shape):
 def phase_model_timings(np, torch, dev, errs):
     """``flash_fwd`` and ``ssd_scan`` at the path's largest shapes: device
     time, wrapper time, plain version, bound, library; ``flash_fwd`` also
-    at head_dim 256 and 96 (:func:`flash_times`, under the entry's
-    ``head_dims``); returns their kernels-line entries, whose
-    ``launches`` the serving phase fills."""
+    at head_dim 256, 96 and 128 (:func:`flash_times`, under the entry's
+    ``head_dims``) and at MiniCPM-2B's [36, 4,096, 64] (``wide_64``);
+    returns their kernels-line entries, whose ``launches`` the serving
+    phase fills."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
+    t0 = time.perf_counter()
     bw, fp32, _ = card_peaks(torch.cuda.get_device_name(0))
     rng = np.random.default_rng(50)
-    # [15, 4,096, 64], then head_dim 256 and 96 at their largest shapes
+    # [15, 4,096, 64], head_dim 256 and 96 at their largest shapes, then
+    # 128 at Qwen1.5-4B's 20 heads and 64 at MiniCPM-2B's 36
     fl = [flash_times(np, torch, dev, rng, shape) for shape in
-          (FLASH_SHAPES[2], RG_FLASH_SHAPE, PHI3_FLASH_SHAPE)]
+          (FLASH_SHAPES[2], RG_FLASH_SHAPE, PHI3_FLASH_SHAPE,
+           *WIDE_FLASH_SHAPES)]
 
     BHs, nc, Q, hd_s, ds = SSD_SHAPES[1]
     x, la, Bm, Cm = ssd_inputs(np, torch, dev, rng, BHs, nc, Q, hd_s, ds)
@@ -6348,6 +6460,7 @@ def phase_model_timings(np, torch, dev, errs):
             f"chunk blocks on the card's {sms} SMs")
     log(f"ssd_scan: {per_prefill['ssd_scan']} calls per Mamba-2 prefill, "
         f"four launches each")
+    log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
     (ss_ms, ss_wrap, ss_plain, f1, n1), row = ss[1], ss[BHs]
     ss_b_ops, ss_b_bytes = f1 / fp32 * 1e3, n1 / bw * 1e3
     return [
@@ -6358,7 +6471,8 @@ def phase_model_timings(np, torch, dev, errs):
          **{key: fl[0][key] for key in ("ms", "wrapper_ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms")},
-         "head_dims": {str(f["shape"][2]): f for f in fl[1:]}},
+         "head_dims": {str(f["shape"][2]): f for f in fl[1:4]},
+         "wide_64": fl[4]},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:81",
@@ -6389,8 +6503,8 @@ def flash_bwd_inputs(np, torch, dev, rng, BH, S, hd, window, dtype):
 
 def phase_bwd_kernels(np, torch, dev):
     """``flash_bwd_dq`` and ``flash_bwd_dkv`` against ``flash_bwd_plain``
-    at the forward's shapes, every shape of the training path (head_dim
-    64, 96, 128 and 256) and the ragged and one-position shapes at 96 and
+    at ``FLASH_SHAPES``, every shape of the training path (head_dim 64,
+    96, 128 and 256) and the ragged and one-position shapes at 96 and
     256; returns the largest |diff| of each."""
     from repro_torch.kernels.flash_attn import (flash_bwd_dkv, flash_bwd_dq,
                                                 flash_bwd_plain, flash_delta)
@@ -6537,15 +6651,16 @@ def bwd_times(np, torch, dev, rng, shape):
 
 def phase_bwd_timings(np, torch, dev, errs):
     """Both backward kernels in bf16 at [15, 4,096, 64] and, under each
-    entry's ``head_dims``, at [10, 4,096, 256] with window 2,048 and
-    [32, 4,096, 96] (phase 11's shapes): device time, wrapper time, plain
-    version, bound, and the SDPA backward (:func:`bwd_times`); returns
-    their kernels-line entries, whose ``launches`` the training phase
-    fills."""
+    entry's ``head_dims``, at [10, 4,096, 256] with window 2,048,
+    [32, 4,096, 96] and [20, 4,096, 128] (phase 11's shapes): device time,
+    wrapper time, plain version, bound, and the SDPA backward
+    (:func:`bwd_times`); returns their kernels-line entries, whose
+    ``launches`` the training phase fills."""
     rng = np.random.default_rng(80)
     t0 = time.perf_counter()
     runs = [bwd_times(np, torch, dev, rng, shape) for shape in
-            (FLASH_SHAPES[2], RG_FLASH_SHAPE, PHI3_FLASH_SHAPE)]
+            (FLASH_SHAPES[2], RG_FLASH_SHAPE, PHI3_FLASH_SHAPE,
+             WIDE_FLASH_SHAPES[0])]
     log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
     keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -7497,7 +7612,7 @@ def main():
     for entry in bwd_entries:
         entry["launches"] = sum(entry["train_launches"].values())
     phase_model_parity(np, torch, dev)
-    launches = phase_serving(np, torch, dev)
+    launches = phase_serving(np, torch, dev, smi)
     for entry in model_entries:
         entry["launches"] = launches[entry["name"]]
     host = phase_host_target(np, torch, dev)

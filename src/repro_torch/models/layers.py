@@ -41,7 +41,14 @@ def init_from_specs(specs: dict[str, Spec], generator: torch.Generator,
     ``min(0.02, 1/sqrt(fan_in))`` drawn in f32 from ``generator`` (on the
     generator's device) and cast to ``dtype``.  The numbers are not
     ``jax.random``'s: tests carry the reference's parameters across with
-    :func:`repro_torch.convert.params_from_numpy` instead."""
+    :func:`repro_torch.convert.params_from_numpy` instead.
+
+    A drawn leaf is allocated once, in ``dtype`` on ``device``, and filled
+    one leading-axis slice at a time, each slice drawn (normal × std) into
+    one f32 buffer of a slice's shape: the draw's extra memory is one
+    slice in f32 (768 MiB for Qwen3-30B-A3B's [48, 128, 2048, 768] expert
+    stacks, which whole in f32 would be 36 GiB).  ``fan_in`` is the whole
+    leaf's ``shape[0]``."""
     params = {}
     for name, (shape, _axes) in sorted(specs.items()):
         if name.endswith("_scale") or name.endswith("norm"):
@@ -50,10 +57,13 @@ def init_from_specs(specs: dict[str, Spec], generator: torch.Generator,
             params[name] = torch.zeros(shape, dtype=dtype, device=device)
         else:
             fan_in = shape[0] if len(shape) >= 2 else max(shape[-1], 1)
-            std = min(0.02, 1.0 / np.sqrt(fan_in))
-            w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                            device=generator.device) * std
-            params[name] = w.to(device=device, dtype=dtype)
+            std = float(min(0.02, 1.0 / np.sqrt(fan_in)))
+            w = torch.empty(shape, dtype=dtype, device=device)
+            part = torch.empty(shape[1:], dtype=torch.float32,
+                               device=generator.device)
+            for row in w:
+                row.copy_(part.normal_(0.0, std, generator=generator))
+            params[name] = w
     return params
 
 

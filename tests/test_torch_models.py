@@ -372,6 +372,14 @@ STACKS = [("smollm_360m", {"attn_impl": "naive"}),
           ("llama4_maverick_400b_a17b", {"attn_impl": "naive"}),
           ("recurrentgemma_2b", {"attn_impl": "naive"}),
           ("recurrentgemma_2b", {"attn_impl": "flash"})]
+# the other attention-only architectures: GQA at 16/8 heads (InternLM2),
+# QKV bias (Qwen1.5), the tied head (MiniCPM), the ungated gelu MLP
+# (MusicGen), the external-embedding prefix (Phi-3-Vision), each through
+# the plain path and the flash route
+STACKS += [(arch, impl) for arch in ("internlm2_1_8b", "qwen1_5_4b",
+                                     "minicpm_2b", "musicgen_large",
+                                     "phi3_vision_4_2b")
+           for impl in ({"attn_impl": "naive"}, {"attn_impl": "flash"})]
 
 
 @pytest.mark.parametrize("arch,kw", STACKS)
@@ -380,13 +388,21 @@ def test_forward_train_prefill_decode_vs_reference(arch, kw):
     prefill and decode modes: logits, the aux loss (the MoE's; 0 for any
     other stack) and every cache entry within 2e-4; decode runs 3 steps
     from a padded prefill cache (shared layout).  RecurrentGemma's
-    attention ring (window 8) is full after the 16-token prefill."""
+    attention ring (window 8) is full after the 16-token prefill.
+    Phi-3-Vision's 16 prefill positions are its 5 external embeddings and
+    11 tokens; its decode steps follow at positions 16-18."""
     cfg_r, cfg_p = _cfgs(arch, **kw)
     pr, pp = _params(cfg_r, cfg_p)
-    toks = np.random.default_rng(13).integers(0, 512, (2, 19)).astype(np.int32)
-    l_r, _, aux_r = RT.forward(pr, {"tokens": jnp.asarray(toks[:, :16])},
-                               cfg_r)
-    l_p, c_none, aux = PT.forward(pp, {"tokens": _t(toks[:, :16])}, cfg_p)
+    rng = np.random.default_rng(13)
+    n_ext = cfg_r.ext_embed_len
+    toks = rng.integers(0, 512, (2, 19 - n_ext)).astype(np.int32)
+    inp = {"tokens": toks[:, :16 - n_ext]}
+    if n_ext:
+        inp["ext_embed"] = rng.standard_normal((2, n_ext, 64)).astype(np.float32)
+    inp_r = {k: jnp.asarray(v) for k, v in inp.items()}
+    inp_p = {k: _t(v) for k, v in inp.items()}
+    l_r, _, aux_r = RT.forward(pr, inp_r, cfg_r)
+    l_p, c_none, aux = PT.forward(pp, inp_p, cfg_p)
     _close(l_p, l_r, 2e-4, "train logits")
     assert c_none is None and l_p.dtype == torch.float32
     if cfg_p.num_experts:
@@ -394,10 +410,9 @@ def test_forward_train_prefill_decode_vs_reference(arch, kw):
         _close(aux, aux_r, 2e-4, "aux")
     else:
         assert float(aux) == float(aux_r) == 0
-    l_r, c_r, _ = RT.forward(pr, {"tokens": jnp.asarray(toks[:, :16])}, cfg_r,
-                             mode="prefill")
-    l_p, c_p, _ = PT.forward(pp, {"tokens": _t(toks[:, :16])}, cfg_p,
-                             mode="prefill")
+    l_r, c_r, _ = RT.forward(pr, inp_r, cfg_r, mode="prefill")
+    l_p, c_p, _ = PT.forward(pp, inp_p, cfg_p, mode="prefill")
+    assert l_p.shape == (2, 16, 512)
     _close(l_p, l_r, 2e-4, "prefill logits")
     assert set(c_p) == set(c_r)
     for k in c_r:
@@ -405,10 +420,10 @@ def test_forward_train_prefill_decode_vs_reference(arch, kw):
     c_r = RSRV.pad_cache_to(c_r, RT.cache_shapes(cfg_r, 2, 24))
     c_p = PSRV.pad_cache_to(c_p, PT.cache_shapes(cfg_p, 2, 24))
     for t in range(16, 19):
-        l_r, c_r, _ = RT.forward(pr, {"tokens": jnp.asarray(toks[:, t:t + 1])},
-                                 cfg_r, mode="decode", cache=c_r,
-                                 pos=jnp.int32(t))
-        l_p, c_p, _ = PT.forward(pp, {"tokens": _t(toks[:, t:t + 1])}, cfg_p,
+        tok = toks[:, t - n_ext:t - n_ext + 1]
+        l_r, c_r, _ = RT.forward(pr, {"tokens": jnp.asarray(tok)}, cfg_r,
+                                 mode="decode", cache=c_r, pos=jnp.int32(t))
+        l_p, c_p, _ = PT.forward(pp, {"tokens": _t(tok)}, cfg_p,
                                  mode="decode", cache=c_p, pos=t)
         _close(l_p, l_r, 2e-4, f"decode logits at {t}")
     for k in c_r:
@@ -498,6 +513,59 @@ def test_init_params_follows_the_reference_rule():
             assert 0.5 < float(p[k].std()) / float(np.asarray(r[k]).std()) < 2
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4096, 32), (6000,), (3, 64, 48)])
+def test_init_draws_slices_at_the_whole_leafs_fan_in(shape, dtype):
+    """A drawn leaf is its leading-axis slices, each an f32 normal draw
+    from the generator in turn with std min(0.02, 1/sqrt(fan_in)),
+    ``fan_in`` the whole leaf's (4096 and 6000 here, where a slice's own
+    would give 0.02), cast; ones and zeros by suffix are unchanged; the
+    same seed gives the same bits twice."""
+    specs = {"w": (shape, (None,) * len(shape)), "x_scale": ((5, 3), (None,)),
+             "ln_norm": ((7,), (None,)), "y_bias": ((4, 2), (None,)),
+             "z_b": ((6,), (None,))}
+    p = PL.init_from_specs(specs, torch.Generator().manual_seed(3), dtype,
+                           "cpu")
+    fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+    std = min(0.02, 1.0 / np.sqrt(fan_in))
+    g = torch.Generator().manual_seed(3)
+    want = torch.stack([torch.empty(shape[1:]).normal_(0.0, float(std),
+                                                       generator=g)
+                        for _ in range(shape[0])]).to(dtype)
+    assert p["w"].dtype == dtype and torch.equal(p["w"], want)
+    assert abs(float(p["w"].float().std()) / std - 1) < 0.05
+    for k in ("x_scale", "ln_norm"):
+        assert p[k].dtype == dtype and bool((p[k] == 1).all())
+    for k in ("y_bias", "z_b"):
+        assert p[k].dtype == dtype and bool((p[k] == 0).all())
+    again = PL.init_from_specs(specs, torch.Generator().manual_seed(3), dtype,
+                               "cpu")
+    for k in p:
+        assert torch.equal(p[k].view(torch.uint8), again[k].view(torch.uint8))
+
+
+def test_init_params_holds_no_temporary_beyond_one_f32_slice():
+    """Qwen3's init (its reduced config at 6 layers: expert stacks [6, 8,
+    64, 32]) under LiveBytes: the peak of live storage is the parameters
+    themselves plus at most one leading-axis slice of a leaf in f32, not a
+    whole leaf's f32 draw."""
+    from repro_torch.launch.dryrun import LiveBytes
+
+    _, cfg_p = _cfgs("qwen3_moe_30b_a3b", num_layers=6)
+    cfg_p = cfg_p.with_(param_dtype="bfloat16")
+    specs = PT.param_specs(cfg_p)
+    assert specs["s0_we_up"][0] == (6, 8, 64, 32)
+    slice_f32 = max(int(np.prod(s[1:])) * 4 for s, _ in specs.values())
+    whole_f32 = max(int(np.prod(s)) * 4 for s, _ in specs.values())
+    assert whole_f32 >= 6 * slice_f32
+    with LiveBytes("cpu") as lb:
+        p = PT.init_params(cfg_p, torch.Generator().manual_seed(0), "cpu")
+    held = sum(v.untyped_storage().nbytes() for v in p.values())
+    assert all(v.dtype == torch.bfloat16 for v in p.values())
+    assert lb.live == held
+    assert held < lb.peak <= held + slice_f32
+
+
 def test_params_from_numpy_keeps_bf16_bits():
     cfg_r = reduced(RC.get_config("smollm_360m"))
     cfg_p = PC.get_config("smollm_360m").with_(
@@ -539,19 +607,24 @@ def test_pad_cache_to_bit_equal_to_reference(arch, per_slot):
 
 
 def _serve(batcher_cls, request_cls, prefill, argmax, cfg, params, prompts,
-           max_new, **kw):
+           max_new, ext=None, **kw):
     """Admit requests into free slots (prefill, greedy first token,
     install) and tick until all have finished, as the reference's
-    ``Server`` does; returns each request's tokens."""
+    ``Server`` does; returns each request's tokens.  ``ext`` gives each
+    request its external embeddings [L, D], prepended in the prefill: the
+    sequence then starts decoding at ``L + len(prompt)``."""
     b = batcher_cls(cfg, params, 2, 32, **kw)
     reqs = [request_cls(i, p, max_new) for i, p in enumerate(prompts)]
     waiting, done = list(reqs), []
     while len(done) < len(reqs):
         while waiting and b.free_slots():
             req = waiting.pop(0)
-            cache1, last = prefill(params, {"tokens": req.prompt[None]})
-            b.install(b.free_slots()[0], cache1, len(req.prompt),
-                      argmax(last), req)
+            inp = {"tokens": req.prompt[None]}
+            if ext is not None:
+                inp["ext_embed"] = ext[req.rid][None]
+            cache1, last = prefill(params, inp)
+            pos0 = len(req.prompt) + (0 if ext is None else len(ext[req.rid]))
+            b.install(b.free_slots()[0], cache1, pos0, argmax(last), req)
         _, fin = b.tick()
         done += fin
     return [r.out for r in reqs]
@@ -561,17 +634,25 @@ def _serve(batcher_cls, request_cls, prefill, argmax, cfg, params, prompts,
 def test_continuous_batcher_tokens_equal_reference(arch, kw):
     """Three requests (prompts of 8, 16 and 5 tokens, max_new 6) through 2
     slots, so the third is admitted mid-wave: the port's ContinuousBatcher
-    gives the reference's token lists."""
+    gives the reference's token lists.  Phi-3-Vision's requests each carry
+    5 external embeddings before the prompt, so its second prompt is 11
+    tokens: a prefill longer than the q chunk (16) must be a multiple of
+    it, in the reference as in the port."""
     cfg_r, cfg_p = _cfgs(arch, **kw)
     pr, pp = _params(cfg_r, cfg_p)
     rng = np.random.default_rng(17)
-    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in (8, 16, 5)]
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (8, 16 - cfg_r.ext_embed_len, 5)]
+    ext = None
+    if cfg_r.ext_embed_len:
+        ext = [rng.standard_normal((cfg_r.ext_embed_len, 64))
+               .astype(np.float32) for _ in prompts]
     want = _serve(RefBatcher, RefRequest, RSRV.jit_prefill_step(cfg_r),
                   lambda last: int(jnp.argmax(last[0, -1])), cfg_r, pr,
-                  prompts, 6)
+                  prompts, 6, ext)
     got = _serve(ContinuousBatcher, Request, PSRV.jit_prefill_step(cfg_p),
                  lambda last: int(torch.argmax(last[0, -1])), cfg_p, pp,
-                 prompts, 6, device="cpu")
+                 prompts, 6, ext, device="cpu")
     assert got == want
     assert all(len(o) == 6 for o in got)
 
