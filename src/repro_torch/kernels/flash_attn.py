@@ -227,6 +227,25 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
             torch.einsum("bqk,bqd->bkd", p, do.float()).to(v.dtype))
 
 
+def flash_bwd_plain_bf16(q, k, v, do, lse, delta, *, scale: float,
+                         window: int = 0
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 twin of the plain backward: the arithmetic of the bf16
+    kernels (``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel``)
+    on whole ``[BH, S, S]`` tensors.  P and dP are f32, dS = P (dP - delta)
+    scale is f32, and P and dS are rounded to bf16 where the kernels round
+    them: before ``dS k``, ``dSᵀ q`` and ``Pᵀ dO``, each of which sums in
+    f32.  -> (dQ, dK, dV) in f32, before the kernels' final rounding to
+    bf16."""
+    _check_bwd(q, k, v, do, lse=lse, delta=delta)
+    p, ds = _bwd_plain(q, k, v, do, lse, delta, scale, window)
+    p = p.to(torch.bfloat16).float()
+    ds = ds.to(torch.bfloat16).float()
+    return (torch.einsum("bqk,bkd->bqd", ds, k.float()),
+            torch.einsum("bqk,bqd->bkd", ds, q.float()),
+            torch.einsum("bqk,bqd->bkd", p, do.float()))
+
+
 def _launch_bwd(symbol, n_out, q, k, v, do, lse, delta, scale, window):
     """Launches ``<symbol>_launch`` of ``csrc/flash_attn_bwd.cu`` on CUDA
     operands (meta operands: :func:`kernels.meta.launch`); -> its

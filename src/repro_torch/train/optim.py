@@ -105,16 +105,27 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig,
     c2 = 1.0 - cfg.b2 ** count
     sdt = torch_dtype(cfg.state_dtype)
     new_p, new_m, new_v = {}, {}, {}
+    f32 = torch.float32
     for k, p, g, m, v in _leaves(params, grads, (state["m"], state["v"]),
                                  donate):
+        # each line is the functional update's arithmetic, op for op; the
+        # results land in place in this leaf's f32 temporaries and, when
+        # donated, in its f32 moments and params, so that the update of
+        # the largest leaf holds about three f32 copies of it at once,
+        # not seven (Qwen1.5-4B's stacked MLP leaves: 2.64 GiB each)
         g = g.float() * scale
-        m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
-        v32 = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(g)
-        step_ = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)
-        p32 = p.float()
-        new_p[k] = (p32 - lr * (step_ + cfg.weight_decay * p32)).to(p.dtype)
+        m32 = m.to(f32, copy=not donate).mul_(cfg.b1)
+        m32.add_((1 - cfg.b1) * g)
+        v32 = v.to(f32, copy=not donate).mul_(cfg.b2)
+        g.square_()
+        v32.add_(g.mul_(1 - cfg.b2))
+        del g, m, v
+        step_ = (m32 / c1).div_((v32 / c2).sqrt_().add_(cfg.eps))
+        p32 = p.to(f32, copy=not donate)
+        step_.add_(cfg.weight_decay * p32).mul_(lr)
+        new_p[k] = p32.sub_(step_).to(p.dtype)
         new_m[k], new_v[k] = m32.to(sdt), v32.to(sdt)
-        del p, g, m, v, m32, v32, step_, p32
+        del p, m32, v32, step_, p32
     return (new_p, {"m": new_m, "v": new_v, "count": count},
             {"grad_norm": gnorm, "lr": lr})
 

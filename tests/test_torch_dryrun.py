@@ -30,6 +30,7 @@ from repro_torch.kernels import flash_attn as FA
 from repro_torch.kernels import ssd_scan as SS
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.train import reduced
+from repro_torch.models import layers as PL
 from repro_torch.parallel.sharding import AbstractMesh
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -128,6 +129,10 @@ def tiny(monkeypatch):
 
 
 def _measure(arch, shape, device, policy="baseline"):
+    # each run starts with no RoPE table cached (``_rope_freqs_on`` keeps
+    # one a device): a table an earlier test left on the CPU would keep
+    # its bytes out of the CPU run but not out of the meta run
+    PL._rope_freqs_on.cache_clear()
     ctx, low = D.build_lowerable(arch, shape, MESH, policy)
     if device == "meta":
         args, gather = D.meta_args(low), D.meta_gather

@@ -7,9 +7,12 @@ On the card, bf16 operands take the tensor-core kernels
 enter the second product of each pair as bf16, and O, dQ, dK and dV are
 written in bf16.  The emulation below repeats
 those steps in the kernels' order (key tiles of 64, the online softmax on
-the f32 scores, P rounded at the running max), in PyTorch on the CPU, and
-is held against ``repro.kernels.flash_attn._flash_fwd`` / ``_flash_bwd``
-(interpret mode) fed the same bf16 values, within the card tests' own
+the f32 scores, P rounded at the running max), in PyTorch on the CPU; the
+backward's is the port's own bf16 twin of the plain version,
+``repro_torch.kernels.flash_attn.flash_bwd_plain_bf16``, which
+``chip_smoke.py`` holds the card's kernels to.  Both are held against
+``repro.kernels.flash_attn._flash_fwd`` / ``_flash_bwd`` (interpret
+mode) fed the same bf16 values, within the card tests' own
 tolerances (``tests/test_torch_cuda.py``): O, dQ, dK and dV to 8e-3, LSE
 to 1e-4.  A kernel that agrees with the emulation bit for bit cannot be
 told from it by those tests; this file shows the rounding design itself
@@ -26,6 +29,7 @@ import torch
 
 from repro.kernels.flash_attn import _flash_bwd as ref_flash_bwd
 from repro.kernels.flash_attn import _flash_fwd as ref_flash_fwd
+from repro_torch.kernels.flash_attn import flash_bwd_plain_bf16
 
 BK = 64                                     # the forward kernel's key tile
 TOL_BF16 = dict(rtol=8e-3, atol=8e-3)
@@ -75,31 +79,23 @@ def emulate_fwd(q, k, v, scale, window):
     return _bf16(acc / lc[..., None]), m * math.log(2) + torch.log(lc)
 
 
-def _dp_and_ds(q, k, v, do, lse, delta, scale, window):
-    """(P, dS) in f32: P recomputed from LSE, dP = dO v^T, dS = P (dP -
-    delta) scale, as both backward kernels compute them."""
-    S = q.shape[1]
-    s = torch.einsum("bqd,bkd->bqk", q, k) * scale
-    p = torch.where(_allowed(S, window)[None], torch.exp(s - lse[..., None]),
-                    0.0)
-    dp = torch.einsum("bqd,bkd->bqk", do, v)
-    return p, p * (dp - delta[..., None]) * scale
-
-
 def emulate_dq(q, k, v, do, lse, delta, scale, window):
-    """The bf16 dQ kernel's arithmetic: P and dP in f32, dS in f32, dS
-    rounded to bf16 before the product with k, dQ rounded to bf16."""
-    _, ds = _dp_and_ds(q, k, v, do, lse, delta, scale, window)
-    return _bf16(torch.einsum("bqk,bkd->bqd", _bf16(ds), k))
+    """The bf16 dQ kernel's arithmetic (the port's
+    ``flash_bwd_plain_bf16``: P and dP in f32, dS in f32, dS rounded to
+    bf16 before the product with k), dQ rounded to bf16."""
+    dq, _, _ = flash_bwd_plain_bf16(q, k, v, do, lse, delta, scale=scale,
+                                    window=window)
+    return _bf16(dq)
 
 
 def emulate_dkv(q, k, v, do, lse, delta, scale, window):
-    """The bf16 dK/dV kernel's arithmetic: P recomputed from LSE and dP in
-    f32, dS = P (dP - delta) scale in f32, P and dS rounded to bf16 before
-    the products with dO and q, dK and dV rounded to bf16."""
-    p, ds = _dp_and_ds(q, k, v, do, lse, delta, scale, window)
-    return (_bf16(torch.einsum("bqk,bqd->bkd", _bf16(ds), q)),
-            _bf16(torch.einsum("bqk,bqd->bkd", _bf16(p), do)))
+    """The bf16 dK/dV kernel's arithmetic (the port's
+    ``flash_bwd_plain_bf16``: P recomputed from LSE and dP in f32, dS =
+    P (dP - delta) scale in f32, P and dS rounded to bf16 before the
+    products with dO and q), dK and dV rounded to bf16."""
+    _, dk, dv = flash_bwd_plain_bf16(q, k, v, do, lse, delta, scale=scale,
+                                     window=window)
+    return _bf16(dk), _bf16(dv)
 
 
 @functools.lru_cache(maxsize=None)

@@ -11,7 +11,10 @@ against the reference's ``repro.launch.train``.
 * Across packages: the reference's ``main`` writes a checkpoint (f32, its
   ``reduced_cfg`` overridden here); both launchers resume from it for two
   steps, and their losses agree (tolerance below).
-* ``chip_smoke.py`` phase 26's parts at a reduced size on the CPU.
+* ``chip_smoke.py`` phase 26's parts at a reduced size on the CPU; phase
+  14's draws (each shape's own seed), phase 17's models, launches and
+  training shapes, and its meta estimate of a step's peak against the
+  live bytes of the same step on CPU tensors.
 
 Run as a script, this file is one rank of such a spawn.
 """
@@ -241,6 +244,133 @@ def test_chip_smoke_phase26_parts_on_cpu(tmp_path, monkeypatch):
     assert not any(run["launches"].values())
     assert not list(tmp_path.iterdir())
     assert moe["calls"] == 6 * 2 * 2 and moe["leaves"] > 0
+
+
+def test_chip_smoke_phase14_draws_are_each_shapes_own(monkeypatch):
+    """Phase 14 draws each shape's q, k, v and dO from the shape's own
+    seed: the same inputs whether the shape runs alone, after others or
+    before them.  On the CPU the f32 wrappers take their plain versions;
+    the bf16 ones are given the bf16 kernels' rounding (the twin's
+    outputs rounded to bf16), which the CPU's plain versions lack."""
+    import chip_smoke
+    from repro_torch.kernels import flash_attn as FA
+
+    real = chip_smoke.flash_bwd_inputs
+    drawn = []
+
+    def spy(np_, torch_, dev, rng, BH, S, hd, window, dtype):
+        out = real(np_, torch_, dev, rng, BH, S, hd, window, dtype)
+        drawn.append(((BH, S, hd, window, dtype),
+                      [t.clone() for t in out[:4]]))
+        return out
+
+    def rounded(real_fn, pick):
+        def fn(q, k, v, do, lse, delta, *, scale, window):
+            if q.dtype == torch.float32:
+                return real_fn(q, k, v, do, lse, delta, scale=scale,
+                               window=window)
+            out = FA.flash_bwd_plain_bf16(q, k, v, do, lse, delta,
+                                          scale=scale, window=window)
+            return pick([t.to(q.dtype) for t in out])
+        return fn
+
+    monkeypatch.setattr(chip_smoke, "flash_bwd_inputs", spy)
+    monkeypatch.setattr(FA, "flash_bwd_dq",
+                        rounded(FA.flash_bwd_dq, lambda o: o[0]))
+    monkeypatch.setattr(FA, "flash_bwd_dkv",
+                        rounded(FA.flash_bwd_dkv, lambda o: tuple(o[1:])))
+    a, b, c = (2, 32, 64, 0), (1, 48, 96, 8), (3, 16, 64, 0)
+    runs = {}
+    for shapes in ((a, b, c), (c,), (b, c, a), (c, a)):
+        drawn.clear()
+        monkeypatch.setattr(chip_smoke, "bwd_shapes", lambda: shapes)
+        chip_smoke.phase_bwd_kernels(np, torch, torch.device("cpu"))
+        assert [key[:4] for key, _ in drawn] == [
+            x for x in shapes for _ in range(2)]
+        for key, ts in drawn:
+            runs.setdefault(key, []).append(ts)
+    assert [len(runs[(*x, torch.float32)]) for x in (a, b, c)] == [3, 2, 4]
+    for key, draws in runs.items():
+        for ts in draws[1:]:
+            assert all(torch.equal(x, y) for x, y in zip(draws[0], ts)), key
+    f32, bf16 = runs[(*c, torch.float32)][0], runs[(*c, torch.bfloat16)][0]
+    assert not torch.equal(f32[0].to(torch.bfloat16), bf16[0])
+    first = runs[(*a, torch.float32)][0][0]
+    assert not torch.equal(first[:1, :16], f32[0][:1])
+
+
+# phase 17's new models: (arch, the flash shape of one microbatch,
+# launches a step of flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+PHASE17_NEW = [("internlm2_1_8b", (32, 2048, 128, 0), (96, 48, 48)),
+               ("qwen1_5_4b", (40, 2048, 128, 0), (160, 80, 80)),
+               ("minicpm_2b", (72, 2048, 64, 0), (160, 80, 80)),
+               ("musicgen_large", (64, 2048, 64, 0), (192, 96, 96)),
+               ("phi3_vision_4_2b", (64, 2048, 96, 0), (128, 64, 64)),
+               ("mamba2_780m", None, (0, 0, 0))]
+
+
+@pytest.mark.parametrize("arch,shape,launches", PHASE17_NEW)
+def test_chip_smoke_phase17_trains_the_model_at_published_depth(
+        arch, shape, launches):
+    """``TRAIN_MODELS`` trains ``arch`` at its published width and depth,
+    4 x 2,048 in 2 microbatches (Mamba-2 through ``ssd_impl="xla"``);
+    each step launches the flash kernels as many times as the table
+    says (none for Mamba-2, whose ``ssd_scan`` has no gradient); its
+    microbatch's flash shape is among ``train_flash_shapes()`` and so
+    among phase 14's (and phase 10's) shapes."""
+    import chip_smoke
+
+    over, B, S, mb, steps = chip_smoke.TRAIN_MODELS[arch]
+    assert "num_layers" not in over and (B, S, mb, steps) == (
+        4, 2048, 2, (1, 3, 5))
+    cfg, _ = chip_smoke.train_setup(arch, over, mb)
+    assert cfg.num_layers == PC.get_config(arch).num_layers
+    assert cfg.remat == "block" and cfg.dtype == "bfloat16"
+    per_step = chip_smoke.train_launches_per_step(cfg, mb)
+    assert tuple(per_step[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")) == launches
+    if shape is None:
+        assert over == {"ssd_impl": "xla"} and cfg.ssd_impl == "xla"
+    else:
+        assert shape in chip_smoke.train_flash_shapes()
+        assert shape in chip_smoke.bwd_shapes()
+
+
+@pytest.mark.parametrize("arch,kw", [("smollm_360m", {"attn_impl": "naive"}),
+                                     ("mamba2_780m", {"ssd_impl": "xla"})])
+def test_chip_smoke_phase17_meta_estimate_is_the_steps_live_bytes(arch, kw):
+    """Phase 17's estimate of a step's peak (``train_meta_peak``: the step
+    on meta tensors under ``LiveBytes``) against the live bytes of the
+    same donated step on CPU tensors, a reduced bf16 config in 2
+    microbatches: the arguments equal, the peaks within 5% (the CPU's
+    embedding backward holds one more temporary than its meta kernel)."""
+    from torch.utils import _pytree as pytree
+
+    import chip_smoke
+    from repro_torch.launch.dryrun import LiveBytes
+    from repro_torch.launch.train import reduced
+    from repro_torch.models import transformer as MT
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import make_train_step
+
+    cfg = reduced(PC.get_config(arch)).with_(remat="block", **kw)
+    opt = OptConfig(lr=1e-3, schedule="constant", warmup_steps=1)
+    step = make_train_step(cfg, opt, microbatches=2, donate=True)
+    B, S = 4, 32
+    est_args, est_peak = chip_smoke.train_meta_peak(torch, cfg, step, B, S)
+    params = MT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    state = {"params": params, "opt": step.init_opt(params), "step": 0}
+    del params
+    g = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    mem = LiveBytes("cpu")
+    args = sum(mem.track(t) for t in pytree.tree_leaves((state, batch)))
+    with mem:
+        state, m = step(state, batch)
+    assert np.isfinite(float(m["loss"])) and state["step"] == 1
+    assert est_args == args
+    assert 0.95 <= est_peak / mem.peak <= 1.05, (est_peak, mem.peak)
 
 
 if __name__ == "__main__":

@@ -24,6 +24,7 @@ from repro.data import pipeline as RD
 from repro.kernels.flash_attn import _flash_bwd as ref_flash_bwd
 from repro.kernels.flash_attn import _flash_fwd as ref_flash_fwd
 from repro.kernels.flash_attn import flash_attention as ref_flash_attention
+from repro.launch.dryrun import opt_for as ref_opt_for
 from repro.models import transformer as RT
 from repro.models.config import ModelConfig as RModelConfig
 from repro.train import optim as RO
@@ -35,6 +36,7 @@ from repro_torch.kernels.flash_attn import (flash_attention, flash_bwd,
                                             flash_bwd_plain, flash_delta,
                                             flash_fwd)
 from repro_torch.kernels.ssd_scan import SsdScanGradError, ssd_scan
+from repro_torch.launch.dryrun import opt_for as port_opt_for
 from repro_torch.models import transformer as PT
 from repro_torch.models.config import ModelConfig as PModelConfig
 from repro_torch.models.config import torch_dtype
@@ -482,7 +484,8 @@ def test_ssd_scan_refuses_gradients():
 
 @pytest.mark.parametrize("arch,kw", [("smollm_360m", {"attn_impl": "naive"}),
                                      ("smollm_360m", {"attn_impl": "flash"}),
-                                     ("mamba2_780m", {"ssd_impl": "xla"})])
+                                     ("mamba2_780m", {"ssd_impl": "xla"}),
+                                     ("internlm2_1_8b", {"attn_impl": "flash"})])
 def test_remat_modes_give_equal_gradients(arch, kw):
     """remat none, block and dots: the same loss and gradients (the
     recompute repeats the same arithmetic), every leaf finite and nonzero."""
@@ -573,26 +576,45 @@ def test_donated_train_step_equals_the_functional_one(name):
 
 # the flash path also at the head dims of RecurrentGemma (256, its window
 # of 8 on the reduced config) and Phi-3-Vision (96, with its image
-# positions), and through Qwen3's MoE blocks
+# positions), through Qwen3's MoE blocks, InternLM2's GQA (KV repeated to
+# the kernel's heads, so dK and dV sum over each group), Qwen1.5's QKV
+# bias, MiniCPM's tied head (the lookup's and the head's gradients into
+# one leaf, under its own wsd schedule), MusicGen's ungated gelu MLP and
+# Llama-4 Maverick's GQA with interleaved MoE and shared expert
 TRAIN_ARCHS = [("smollm_360m", {"attn_impl": "naive"}),
                ("smollm_360m", {"attn_impl": "flash"}),
                ("mamba2_780m", {"ssd_impl": "xla"}),
                ("recurrentgemma_2b", {"attn_impl": "flash", "head_dim": 256}),
                ("phi3_vision_4_2b", {"attn_impl": "flash", "head_dim": 96}),
-               ("qwen3_moe_30b_a3b", {"attn_impl": "flash"})]
+               ("qwen3_moe_30b_a3b", {"attn_impl": "flash"}),
+               ("internlm2_1_8b", {"attn_impl": "flash"}),
+               ("qwen1_5_4b", {"attn_impl": "flash"}),
+               ("minicpm_2b", {"attn_impl": "flash"}),
+               ("musicgen_large", {"attn_impl": "flash"}),
+               ("llama4_maverick_400b_a17b", {"attn_impl": "flash"})]
+# the archs trained under their recipe's own schedule (``launch/dryrun.py``
+# ``opt_for``): MiniCPM-2B's warmup-stable-decay
+OWN_SCHEDULE = ("minicpm_2b",)
 
 
 @pytest.mark.parametrize("arch,kw", TRAIN_ARCHS)
 def test_arch_train_step_vs_reference(arch, kw):
     """The train half of tests/test_models.py::test_arch_smoke_forward_and_train
     on the port (train-mode logits, no cache; one AdamW step that stays
-    finite), and that step against the reference's: loss and every param
-    within 2e-4 (the flash path through the kernels' plain versions here,
-    the reference's Pallas kernels in interpret mode)."""
+    finite), and that step against the reference's: every leaf's gradient,
+    the loss and every updated param within 2e-4 (the flash path through
+    the kernels' plain versions here, the reference's Pallas kernels in
+    interpret mode)."""
     cfg_r, cfg_p = _cfgs(arch, **kw)
     opt = dict(lr=1e-3, warmup_steps=1, total_steps=10)
-    step_r = RS.make_train_step(cfg_r, RO.OptConfig(**opt))
-    step_p = PS.make_train_step(cfg_p, PO.OptConfig(**opt))
+    if arch in OWN_SCHEDULE:
+        opt_r = dataclasses.replace(ref_opt_for(arch), **opt)
+        opt_p = dataclasses.replace(port_opt_for(arch), **opt)
+        assert opt_r.schedule == opt_p.schedule != "cosine"
+    else:
+        opt_r, opt_p = RO.OptConfig(**opt), PO.OptConfig(**opt)
+    step_r = RS.make_train_step(cfg_r, opt_r)
+    step_p = PS.make_train_step(cfg_p, opt_p)
     st_r, st_p = _states(cfg_r, cfg_p, step_r, step_p)
     rng = np.random.default_rng(12)
     B, S = 2, 32
@@ -607,6 +629,16 @@ def test_arch_train_step_vs_reference(arch, kw):
         cfg_p, mode="train")
     assert logits.shape == (B, S, cfg_p.vocab_size) and cache is None
     assert bool(torch.isfinite(logits).all())
+    # every leaf's gradient before the step (the first AdamW update moves
+    # each entry by about lr times the sign of its gradient, so the updated
+    # params alone would not see a gradient that is wrong in size only)
+    (_, _), g_r = jax.jit(jax.value_and_grad(RS.make_loss_fn(cfg_r),
+                                             has_aux=True))(
+        st_r["params"], _jbatch(batch))
+    _, _, g_p = step_p.grads(st_p["params"], _tbatch(batch))
+    assert set(g_p) == set(g_r)
+    for k in g_r:
+        _close(g_p[k], g_r[k], TOL, f"gradient {k}")
     st_r, mr = jax.jit(step_r)(st_r, _jbatch(batch))
     st_p, mp = step_p(st_p, _tbatch(batch))
     assert np.isfinite(float(mp["loss"])) and mp["step"] == 1
