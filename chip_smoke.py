@@ -388,7 +388,17 @@ Phases, each of which fails the script (non-zero exit, no result line):
     every run's cache and logits finite, ``kernel_layers`` launches of its
     kernel and nothing else, its measured peak within [0.90, 1.10] of the
     estimate; each run's estimate, peak, ratio, wall time and launches
-    logged, and the estimates of the archs with no fitting cell.  (c)
+    logged, and the estimates of the archs with no fitting cell.  Then
+    two ``train_4k`` cells of the pod under ``dp_fsdp+flash``, each one
+    rank's step of 1 x 4,096 with its 1/256 of the state, kept sharded
+    (a layer's weights gathered at a time, the gradients reduced to the
+    blocks, AdamW on the blocks): Qwen3-30B-A3B at all 48 layers (the
+    ``AbstractMesh`` has no process group: its MoE takes the dense
+    fallback, the experts gathered whole a layer at a time) and
+    Qwen1.5-4B, each with its measured peak within [0.90, 1.10] of the
+    estimate, ``train_launches_per_step`` launches of each flash kernel
+    (forward twice a layer for the remat, dQ and dK/dV once) and nothing
+    else, a finite loss, and state and metrics of their shards' shapes.  (c)
     ``fig5_cached``'s scenario: ``bench_hot`` through the port's
     ``Dispatcher`` to a host peer, one FULL then 64 SLIM invocations:
     links 1, 64 SLIM, 65 invocations, the 256 KiB code section on the wire
@@ -421,7 +431,9 @@ launches in phase 24 (a)'s 12 steps, their ``launcher_launches`` those
 in phase 26 (a)'s first 8 launcher steps, and ``flash_fwd``'s
 ``fabric_launches`` its launches in phase 25 (a)'s fleet run; the
 ``flash_fwd`` and ``ssd_scan`` entries' ``dryrun_launches`` are their
-launches in phase 27 (b)'s card runs, added to ``launches``.
+launches in phase 27 (b)'s prefill runs, and the three flash entries'
+``dryrun_train_launches`` theirs in (b)'s two train cells, all added to
+``launches``.
 ``flash_fwd``'s ``launches`` sum phase 13's eight flash models (a layer
 a prefill: SmolLM-360M 32, RecurrentGemma-2B 8, Qwen3-30B-A3B 48,
 InternLM2-1.8B 24, Qwen1.5-4B 40, MiniCPM-2B 40, MusicGen-large 48,
@@ -6004,11 +6016,33 @@ def attn_windows(cfg):
                    for kind in cfg.layer_kinds if kind in ATTN_KINDS})
 
 
+def dryrun_train_flash_shapes():
+    """flash's [BH, S, hd, window] in phase 27 (b)'s train cells: each of
+    ``DRYRUN_TRAIN`` on one rank's rows of a microbatch (the global batch
+    over every rank of the pod's mesh, then over the policy's
+    microbatches; KV repeated to all heads, each attention kind's
+    window)."""
+    from repro_torch import configs as C
+    from repro_torch.launch.dryrun import apply_policy
+    from repro_torch.launch.mesh import PRODUCTION_SHAPES
+
+    sp = C.SHAPES[DRYRUN_TRAIN_SHAPE]
+    ranks = math.prod(PRODUCTION_SHAPES[False][0])
+    shapes = []
+    for arch, policy in DRYRUN_TRAIN:
+        cfg, _, mb = apply_policy(C.get_config(arch), DRYRUN_TRAIN_SHAPE,
+                                  policy)
+        shapes += [(sp.global_batch // ranks // mb * cfg.num_heads,
+                    sp.seq_len, cfg.head_dim, w) for w in attn_windows(cfg)]
+    return shapes
+
+
 def train_flash_shapes():
     """flash's [BH, S, hd, window] on the training path: each model of
     ``TRAIN_MODELS`` over one microbatch of phase 17 and of
     ``PARITY_MODELS`` over phase 16's batch (KV repeated to all heads,
-    each attention kind's window)."""
+    each attention kind's window), and phase 27 (b)'s train cells
+    (:func:`dryrun_train_flash_shapes`)."""
     shapes = []
     for arch, (over, B, S, mb, _) in TRAIN_MODELS.items():
         cfg = model_config(arch, FLASH, **over)
@@ -6018,7 +6052,7 @@ def train_flash_shapes():
         cfg = model_config(arch, FLASH, **over)
         shapes += [(B * cfg.num_heads, S, cfg.head_dim, w)
                    for w in attn_windows(cfg)]
-    shapes = tuple(dict.fromkeys(shapes))
+    shapes = tuple(dict.fromkeys(shapes + dryrun_train_flash_shapes()))
     check(RG_FLASH_SHAPE in shapes, f"{RG_FLASH_SHAPE} is not on the "
                                     f"training path")
     return shapes
@@ -7485,6 +7519,15 @@ DRYRUN_MUST_RUN = ("internlm2_1_8b", "minicpm_2b", "musicgen_large",
 DRYRUN_FLASH_SHAPES = ((1, 32768, 64, 0), (1, 32768, 96, 0),
                        (1, 32768, 128, 0), (1, 32768, 256, 2048))
 DRYRUN_SSD_SHAPE = (48, 128, 256, 64, 128)
+# (b)'s train cells: one rank of the pod's train_4k step each, the state
+# kept sharded, at published width and depth
+DRYRUN_TRAIN = (("qwen3_moe_30b_a3b", "dp_fsdp+flash"),
+                ("qwen1_5_4b", "dp_fsdp+flash"))
+DRYRUN_TRAIN_SHAPE = "train_4k"
+# (b)'s train cells: |cross-entropy - random_head_ce| at most this; the
+# labels' logits average over 4,096 draws of sd sigma sqrt(D) (1.01 at
+# most): about 0.016; a head gathered as zeros moves the CE by 0.41-0.51
+DRYRUN_CE_MARGIN = 0.1
 CACHED_SLIM = 64        # (c): SLIM invocations after the one FULL frame
 SUBQUADRATIC = ("ssm", "hybrid")    # the families long_500k runs
 
@@ -7661,6 +7704,100 @@ def dryrun_execute(torch, smi):
     return runs, total
 
 
+def random_head_ce(cfg):
+    """The cross-entropy that seeded random weights give on labels drawn
+    apart from them: the logits are h W with h the final norm's output
+    (scale ones: rms 1, |h|^2 = D) and W's entries normal x sigma, the
+    head's ``init_from_specs`` std, so each logit is normal of variance
+    s^2 = sigma^2 D; E[ln sum_V exp] = ln V + s^2 / 2 (V >> e^(s^2)),
+    and the label's logit averages 0."""
+    D, V = cfg.d_model, cfg.vocab_size
+    fan_in = V if cfg.tie_embeddings else D
+    sigma = min(0.02, 1.0 / math.sqrt(fan_in))
+    return math.log(V) + sigma * sigma * D / 2
+
+
+def dryrun_train(torch, smi):
+    """(b)'s train cells: each of ``DRYRUN_TRAIN`` run on the card by
+    ``run_cell(execute=True)``, one rank's step of the pod from seed 0,
+    its launches counted from 0.  Gates: the cell fits (a tenth of the
+    card left free) and ran; the measured peak within ``DRYRUN_RATIO`` of
+    the estimate; each flash kernel launched as ``train_launches_per_step``
+    says and nothing else, at a shape of :func:`train_flash_shapes`
+    (phases 10 and 14 hold the kernels there); finite metrics; the
+    cross-entropy within ``DRYRUN_CE_MARGIN`` of :func:`random_head_ce`;
+    state and metrics of their shards' shapes.  Returns {arch: record}
+    and the launches of all of them."""
+    from repro_torch import configs as C
+    from repro_torch.launch.dryrun import apply_policy, run_cell
+
+    runs = {}
+    total = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    lo, hi = DRYRUN_RATIO
+    for arch, policy in DRYRUN_TRAIN:
+        torch.cuda.empty_cache()
+        reset_counts()
+        rec = run_cell(arch, DRYRUN_TRAIN_SHAPE, "pod", policy, save=False,
+                       execute=True)
+        counts = read_counts()
+        m, ex = rec["memory"], rec["execute"]
+        est = m["argument_bytes"] + m["temp_bytes"]
+        check("peak_bytes" in ex, f"{rec['cell']} ({policy}) did not run on "
+                                  f"the card: {ex}")
+        cfg, _, mb = apply_policy(C.get_config(arch), DRYRUN_TRAIN_SHAPE,
+                                  policy)
+        want = train_launches_per_step(cfg, mb)
+        check(rec["attn_impl"] == "flash" and all(
+            counts[k] == n == ex["launches"][k] for k, n in want.items())
+            and sum(counts.values()) == sum(want.values()),
+            f"{rec['cell']}: launches {counts}, want {want} and nothing else")
+        check(ex["finite"] and ex["shapes_ok"] and math.isfinite(ex["loss"]),
+              f"{rec['cell']}: loss {ex['loss']}, metrics finite "
+              f"{ex['finite']}, state and metrics of their shards' shapes "
+              f"{ex['shapes_ok']}")
+        B = C.SHAPES[DRYRUN_TRAIN_SHAPE].global_batch // rec["devices"]
+        S = C.SHAPES[DRYRUN_TRAIN_SHAPE].seq_len
+        shapes = [(B // mb * cfg.num_heads, S, cfg.head_dim, w)
+                  for w in attn_windows(cfg)]
+        check(all(sh in train_flash_shapes() for sh in shapes),
+              f"{rec['cell']}: flash at {shapes}, not among phases 10 and "
+              f"14's shapes")
+        n = rec["devices"]
+        loss, ce, aux = (ex[k] * n for k in ("loss", "ce", "aux"))
+        want_ce = random_head_ce(cfg)
+        moe = (" (the AbstractMesh has no process group: the MoE takes its "
+               "dense fallback, the experts gathered whole a layer at a "
+               "time)" if cfg.num_experts else "")
+        log(f"{rec['cell']} ({policy}, {cfg.num_layers} layers, {B} x 4,096 "
+            f"a rank, the state sharded){moe}: estimate {est / 2**30:.3f} "
+            f"GiB (argument {m['argument_bytes']} B, temp {m['temp_bytes']} "
+            f"B), measured peak {ex['peak_bytes'] / 2**30:.3f} GiB "
+            f"({ex['peak_bytes']} B), ratio {ex['ratio']:.4f}; the rank's "
+            f"loss {loss:.4f}: cross-entropy {ce:.4f} (ln V + sigma^2 D / 2 "
+            f"= {want_ce:.4f}, ln V {math.log(cfg.vocab_size):.4f}), "
+            f"router aux {aux:.4f} x weight {cfg.router_aux_weight} = "
+            f"{aux * cfg.router_aux_weight:.4f}, z-loss "
+            f"{loss - ce - aux * cfg.router_aux_weight:.4f} (the step's "
+            f"mean over ranks, whose sum moves nothing, divides each by "
+            f"{n}); "
+            f"{ex['wall_s']:.3f} s "
+            f"({B * 4096 / ex['wall_s']:.1f} tokens/s, the gathers' seeded "
+            f"draws included); launches "
+            f"{ {k: v for k, v in counts.items() if v} }; "
+            f"{rec['cost_analysis']['flops']:.4g} FLOP; {smi}")
+        check(lo <= ex["ratio"] <= hi,
+              f"{rec['cell']}: measured peak / estimate {ex['ratio']:.4f} "
+              f"outside [{lo}, {hi}]")
+        check(abs(ce - want_ce) <= DRYRUN_CE_MARGIN,
+              f"{rec['cell']}: the rank's cross-entropy {ce:.4f}, want "
+              f"{want_ce:.4f} +- {DRYRUN_CE_MARGIN} (ln V + sigma^2 D / 2)")
+        runs[arch] = rec
+        for k in total:
+            total[k] += want[k]
+        torch.cuda.empty_cache()
+    return runs, total
+
+
 def cached_invocation(pkg, n_slim=CACHED_SLIM, lib_dir=None):
     """(c), ``fig5_cached``'s scenario (the paper's §3.4) through ``pkg``
     (``core``, ``transport``, context keywords ``kw``): ``bench_hot``
@@ -7693,7 +7830,8 @@ def phase_dryrun(np, torch, dev, smi):
     """Phase 27: (a) every cell's dry run on meta in ``DRYRUN_WORKERS``
     processes while (b) checks the kernels at 32,768 positions and runs
     each arch's fitting ``prefill_32k`` cell on the card; (c) the cached
-    invocation.  Returns (b)'s launches and the kernels' largest |diff|."""
+    invocation.  Returns (b)'s prefill launches, the kernels' largest
+    |diff| and (b)'s train cells' launches."""
     import multiprocessing
     import types
 
@@ -7715,6 +7853,9 @@ def phase_dryrun(np, torch, dev, smi):
         t_b = time.perf_counter()
         runs, launches = dryrun_execute(torch, smi)
         t_b = time.perf_counter() - t_b
+        t_t = time.perf_counter()
+        trains, train_launches = dryrun_train(torch, smi)
+        t_t = time.perf_counter() - t_t
         t_wait = time.perf_counter()
         recs = pending.get(timeout=900)
         t_wait = time.perf_counter() - t_wait
@@ -7723,7 +7864,9 @@ def phase_dryrun(np, torch, dev, smi):
         f"{a['fits']} fit one card; {a['cpu_s']:.1f} s of cell time in "
         f"{DRYRUN_WORKERS} processes, {t_wait:.1f} s waited for after (b)")
     log(f"(b) {len(runs)} of 10 archs ran a {DRYRUN_SHAPE} cell on the card "
-        f"in {t_b:.1f} s: {sorted(runs)}; launches {launches}")
+        f"in {t_b:.1f} s: {sorted(runs)}; launches {launches}; "
+        f"{len(trains)} {DRYRUN_TRAIN_SHAPE} cells in {t_t:.1f} s: "
+        f"{sorted(trains)}; launches {train_launches}")
 
     pkg = types.SimpleNamespace(core=core, transport=transport, kw={})
     d, times, first = cached_invocation(pkg)
@@ -7746,7 +7889,7 @@ def phase_dryrun(np, torch, dev, smi):
         f"host µs an invocation: FULL {times[0] * 1e6:.1f}, SLIM median "
         f"{slim_us:.1f} ({times[0] / statistics.median(times[1:]):.1f}x)")
     log(f"phase 27 took {time.perf_counter() - t_phase:.1f} s")
-    return launches, errs
+    return launches, errs, train_launches
 
 
 def main():
@@ -7834,12 +7977,15 @@ def main():
     vm["launches"] += ru["sweeps"]
     kernels[0]["launches"] += ru["sweeps"]
     model_entries[0]["fabric_launches"] = phase_fabric(np, torch, dev, smi)
-    dry_launches, dry_errs = phase_dryrun(np, torch, dev, smi)
+    dry_launches, dry_errs, dry_train = phase_dryrun(np, torch, dev, smi)
     for entry in model_entries:
         name = entry["name"]
         entry["dryrun_launches"] = dry_launches[name]
         entry["launches"] += dry_launches[name]
         entry["max_abs_err"] = max(entry["max_abs_err"], dry_errs[name])
+    for entry in model_entries[:1] + bwd_entries:
+        entry["dryrun_train_launches"] = dry_train[entry["name"]]
+        entry["launches"] += dry_train[entry["name"]]
     kernels += model_entries + bwd_entries
     for entry in kernels:
         if entry["name"] in ru["driver"]:

@@ -9,10 +9,16 @@ rank of the port runs, on ``meta`` tensors (shapes and types, no storage):
 * its arguments are the rank's shards of the step's inputs, placed by
   ``parallel.sharding.tree_shardings`` on an ``AbstractMesh`` of
   ``launch/mesh.py``'s production shapes (no process group);
-* every sharded leaf is gathered whole, except along the batch axes
-  (``batch``, ``cache_batch``), where the rank keeps its shard: the train
-  step is ``launch/train.py``'s ``make_sharded_step`` itself; prefill and
-  decode gather the weights (and decode the cache) the same way;
+* the train step is ``launch/train.py``'s ``make_sharded_step`` itself,
+  the state kept sharded: a parameter is gathered one super-block's
+  layer slice at a time where the forward uses it, its gradient reduced
+  to the rank's block, and the optimizer updates the blocks, through
+  :class:`DryOps`, whose collectives move nothing.  On the
+  ``AbstractMesh`` the MoE takes its dense fallback and gathers its
+  experts whole, a layer at a time;
+* prefill and decode gather every sharded leaf whole, except along the
+  batch axes (``batch``, ``cache_batch``), where the rank keeps its shard
+  (and decode the cache the same way);
 * the step (``train/step.py``'s, or ``train/serve.py``'s prefill or
   decode) runs on the rank's batch shard, and each output is cut back to
   the rank's block (a copy; none where nothing splits).
@@ -26,8 +32,8 @@ The record has the reference's keys:
   reference's.
 * ``temp_bytes`` is the peak of the storage bytes alive while the program
   runs (:class:`LiveBytes`), less the arguments'.  It is the port's own
-  program, which holds the gathered weights whole on every rank (no
-  tensor parallelism), not the reference's number.
+  program, whose products are not split over ``model`` (no tensor
+  parallelism), not the reference's number.
 * ``cost_analysis.flops`` is ``FlopCounterMode``'s count, the kernels'
   products included (``kernels/meta.py``); ``bytes_accessed`` and
   ``transcendentals`` are ``None``: there is no XLA cost model.
@@ -35,15 +41,15 @@ The record has the reference's keys:
   when there is one, else an H100 80GB's); ``lower_s`` times the specs,
   shardings and arguments, ``compile_s`` the run on meta tensors.
 
-``run_cell(..., execute=True)`` then runs a prefill cell's program on the
-card at the config's width and depth: each argument is its shard of a
-seeded draw of the leaf, a gather draws the leaf again whole from the
-same seed, and the peak (``max_memory_allocated`` after
-``reset_peak_memory_stats``, less what was allocated before the
-arguments) is held against the estimate.  The ``flash`` and ``ssdk``
-tokens select the kernels there (``attn_impl="flash"``,
-``ssd_impl="kernel"``), and the estimate of such a cell goes through
-their meta launches.
+``run_cell(..., execute=True)`` then runs a prefill or train cell's
+program on the card at the config's width and depth: each argument is its
+shard of a seeded draw of the leaf, a gather draws the leaf (a train
+step's gather, one layer of it) again from the same seed, and the peak
+(``max_memory_allocated`` after ``reset_peak_memory_stats``, less what
+was allocated before the arguments) is held against the estimate.  The
+``flash`` and ``ssdk`` tokens select the kernels there
+(``attn_impl="flash"``, ``ssd_impl="kernel"``), and the estimate of such
+a cell goes through their meta launches.
 
   python -m repro_torch.launch.dryrun --arch internlm2_1_8b --shape train_4k --mesh pod
   python -m repro_torch.launch.dryrun --all --mesh both
@@ -68,7 +74,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import configs as C
-from repro_torch.kernels.flash_attn import flash_fwd
+from repro_torch.kernels.flash_attn import (flash_bwd_dkv, flash_bwd_dq,
+                                            flash_fwd)
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.launch import train as LT
 from repro_torch.launch.mesh import PRODUCTION_SHAPES
@@ -278,7 +285,7 @@ def _map(fn, tree, *others):
 
 def gather_tree(xs, leaves, gather, donate: bool):
     """``gather(leaf, x)`` over a tree; a donated tree's dicts are emptied
-    as they are read, as ``launch/train.py``'s ``gather`` empties them."""
+    as they are read."""
     if isinstance(leaves, dict):
         out = {k: gather_tree(xs[k], leaves[k], gather, donate)
                for k in leaves}
@@ -296,10 +303,44 @@ def place_tree(xs, leaves):
 # the program
 
 
+class DryOps(SH.MeshOps):
+    """The sharded step's collectives on an ``AbstractMesh``, run by the
+    dry run's rank (coordinate 0 on every axis): they move nothing.  A
+    sum over ranks leaves the rank's own values, a gather repeats its
+    block, a reduce-scatter keeps its first block (in a tensor of the
+    block's bytes, as NCCL's gives), and the gather of a parameter is ``gather(leaf, x, index)``,
+    the program's own (``meta_gather``, ``seeded_gather``) on the
+    parameter's :class:`Leaf` (``params``, by key)."""
+
+    def __init__(self, mesh, gather, params: dict):
+        super().__init__(mesh)
+        self._gather, self.params = gather, params
+
+    def coordinate(self) -> dict[str, int]:
+        return {a: 0 for a in self.sizes}
+
+    def all_reduce(self, x, axis) -> None:
+        pass
+
+    def all_gather(self, x, axis, dim):
+        return torch.cat([x] * self.sizes[axis], dim=dim)
+
+    def reduce_scatter(self, x, axis, dim):
+        return x.narrow(dim, 0, x.shape[dim] // self.sizes[axis]).clone()
+
+    def gather(self, leaf, keep):
+        if keep:
+            raise ValueError("the dry run's mesh has no process group: its "
+                             "MoE takes the dense fallback, which keeps "
+                             "nothing split")
+        return self._gather(self.params[leaf.key], leaf.local, leaf.index)
+
+
 @dataclass
 class Lowerable:
     """A rank's program for one cell: ``program(gather, *args)`` with
-    ``gather(leaf, shard) -> local tensor``; ``args`` and ``outs`` are
+    ``gather(leaf, shard, index=None) -> local tensor`` (``index``: one
+    layer of a stacked leaf); ``args`` and ``outs`` are
     trees of :class:`Leaf`, one an argument or output; ``donate`` the
     positions of donated arguments, ``unused`` of those the step never
     reads, which ``jax.jit`` drops from the compiled program
@@ -352,12 +393,13 @@ def build_lowerable(arch: str, shape: str, mesh, policy: str = "baseline",
         # the mean over every rank, its all-reduce moving nothing
         mean = functools.partial(LT._mean_over_ranks, n=devices,
                                  all_reduce=lambda t: None)
+        state_sh = _map(lambda leaf: leaf.sharding, state)
 
         def train_program(gather, st, bt):
             with ctx:
                 step = LT.make_sharded_step(
-                    step_fn, mesh, None,
-                    gather=lambda s: gather_tree(s, state, gather, True),
+                    step_fn, mesh, state_sh,
+                    ops=DryOps(mesh, gather, state["params"]),
                     place=lambda new, _: place_tree(new, state), mean=mean)
                 return step(st, gather_tree(bt, batch, gather, False))
 
@@ -459,10 +501,16 @@ def meta_args(low: Lowerable) -> tuple:
         leaf.shard_shape, dtype=leaf.spec.dtype, device="meta"))
 
 
-def meta_gather(leaf: Leaf, x):
-    if not isinstance(x, torch.Tensor) or leaf.local_shape == x.shape:
+def gathered_shape(leaf: Leaf, index=None) -> tuple[int, ...]:
+    """``leaf``'s local shape, of one layer where ``index`` is given."""
+    return leaf.local_shape[1:] if index is not None else leaf.local_shape
+
+
+def meta_gather(leaf: Leaf, x, index=None):
+    shape = gathered_shape(leaf, index)
+    if not isinstance(x, torch.Tensor) or shape == x.shape:
         return x
-    return torch.empty(leaf.local_shape, dtype=x.dtype, device=x.device)
+    return torch.empty(shape, dtype=x.dtype, device=x.device)
 
 
 def run_program(low: Lowerable, ctx, args, gather, device):
@@ -497,75 +545,130 @@ def _seed(seed: int, name: str) -> int:
     return (seed * 1_000_003 + zlib.crc32(name.encode())) & ((1 << 63) - 1)
 
 
-def seeded_leaf(leaf: Leaf, shape, seed: int, device, vocab: int):
-    """``leaf`` drawn whole (``shape`` = its local shape) from its own
-    seed: the rule of ``layers.init_from_specs`` (``*_scale``/``*norm``
-    ones, ``*_bias``/``*_b`` zeros, else normal x min(0.02,
-    1/sqrt(fan_in))) drawn in the leaf's type; the optimizer's moments
-    zeros, as a fresh state's; tokens uniform below ``vocab``."""
+def _stacked(leaf: Leaf) -> bool:
+    return leaf.axes[:1] == ("stack",)
+
+
+def seeded_leaf(leaf: Leaf, shape, seed: int, device, vocab: int,
+                index=None):
+    """``leaf`` drawn whole (``shape`` = its local shape), or its layer
+    ``index`` (``shape`` = the layer's), from seeds of its own: the rule
+    of ``layers.init_from_specs`` (``*_scale``/``*norm`` ones,
+    ``*_bias``/``*_b`` zeros, else normal x min(0.02, 1/sqrt(fan_in)))
+    drawn in the leaf's type; the optimizer's moments zeros, as a fresh
+    state's; tokens uniform below ``vocab``.  A stacked leaf draws each
+    layer from that layer's seed, so that a layer drawn alone is that
+    layer of the whole draw."""
     dt = leaf.spec.dtype
-    g = torch.Generator(device=device).manual_seed(_seed(seed, leaf.name))
     path = leaf.name.split("/")
     base = path[-1]
+
+    def gen(name):
+        return torch.Generator(device=device).manual_seed(_seed(seed, name))
+
     if not dt.is_floating_point:
-        return torch.randint(0, vocab, shape, generator=g, dtype=dt,
-                             device=device)
+        return torch.randint(0, vocab, shape, generator=gen(leaf.name),
+                             dtype=dt, device=device)
     t = torch.empty(shape, dtype=dt, device=device)
     if base.endswith("_scale") or base.endswith("norm"):
         return t.fill_(1)
     if base.endswith("_bias") or base.endswith("_b") or "opt" in path:
         return t.zero_()
     gs = leaf.spec.shape
-    fan_in = gs[0] if len(gs) >= 2 else max(gs[-1], 1)
-    return t.normal_(0.0, min(0.02, 1.0 / math.sqrt(fan_in)), generator=g)
+    std = min(0.02, 1.0 / math.sqrt(gs[0] if len(gs) >= 2
+                                    else max(gs[-1], 1)))
+    if not _stacked(leaf):
+        return t.normal_(0.0, std, generator=gen(leaf.name))
+    layers = [(index, t)] if index is not None else enumerate(t.unbind(0))
+    for i, layer in layers:
+        layer.normal_(0.0, std, generator=gen(f"{leaf.name}/{i}"))
+    return t
 
 
 def seeded_args(low: Lowerable, seed: int, device) -> tuple:
-    """Each argument the rank's block of its seeded draw (a copy)."""
+    """Each argument the rank's block of its seeded draw (a copy), a
+    stacked leaf's one layer at a time, so that no more than one layer
+    is drawn whole beside the blocks."""
     vocab = low.cfg.vocab_size
-    return make_args(low, lambda leaf: leaf.place(
-        seeded_leaf(leaf, leaf.local_shape, seed, device, vocab)))
+
+    def make(leaf):
+        if not _stacked(leaf):
+            return leaf.place(seeded_leaf(leaf, leaf.local_shape, seed,
+                                          device, vocab))
+        out = torch.empty(leaf.shard_shape, dtype=leaf.spec.dtype,
+                          device=device)
+        block = tuple(slice(0, s) for s in leaf.shard_shape[1:])
+        for i in range(out.shape[0]):
+            out[i] = seeded_leaf(leaf, leaf.local_shape[1:], seed, device,
+                                 vocab, i)[block]
+        return out
+
+    return make_args(low, make)
 
 
 def seeded_gather(seed: int, device, vocab: int):
-    def gather(leaf: Leaf, x):
-        if not isinstance(x, torch.Tensor) or leaf.local_shape == x.shape:
+    def gather(leaf: Leaf, x, index=None):
+        shape = gathered_shape(leaf, index)
+        if not isinstance(x, torch.Tensor) or shape == x.shape:
             return x
-        return seeded_leaf(leaf, leaf.local_shape, seed, device, vocab)
+        return seeded_leaf(leaf, shape, seed, device, vocab, index)
     return gather
 
 
+def _finite(ts) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in ts
+               if isinstance(t, torch.Tensor) and t.is_floating_point())
+
+
+def _shapes_ok(outs, leaves) -> bool:
+    ok = []
+    _map(lambda leaf, t: ok.append(not isinstance(t, torch.Tensor)
+                                   or tuple(t.shape) == leaf.shard_shape),
+         leaves, outs)
+    return all(ok)
+
+
 def execute_cell(low: Lowerable) -> dict:
-    """Runs a prefill cell's program on the card from seed 0; -> its
-    measured peak, wall time, kernel launches and whether every output is
-    finite and of its shard's shape."""
-    if low.kind != "prefill":
-        raise ValueError(f"execute runs prefill cells, not {low.kind}")
+    """Runs a prefill or train cell's program on the card from seed 0;
+    -> its measured peak, wall time, kernel launches and whether every
+    output is finite (a train cell's metrics: its loss among them) and of
+    its shard's shape; a train cell's ``loss``, ``ce`` and ``aux`` (the
+    rank's, divided by the rank count: the mean over ranks moves
+    nothing)."""
+    if low.kind not in ("prefill", "train"):
+        raise ValueError(f"execute runs prefill and train cells, not "
+                         f"{low.kind}")
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
     args = list(seeded_args(low, 0, dev))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    n0 = flash_fwd.launches, ssd_scan.launches
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, ssd_scan)
+    n0 = [k.launches for k in kernels]
     t0 = time.perf_counter()
     outs = low.program(seeded_gather(0, dev, low.cfg.vocab_size),
                        *_pop_all(args))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) - base
-    launches = {"flash_fwd": flash_fwd.launches - n0[0],
-                "ssd_scan": ssd_scan.launches - n0[1]}
-    cache, logits = outs
-    finite = all(bool(torch.isfinite(t).all())
-                 for t in _flat(cache) + [logits] if t.is_floating_point())
-    shapes_ok = (tuple(logits.shape) == low.outs[1].shard_shape and all(
-        tuple(t.shape) == leaf.shard_shape
-        for t, leaf in zip(_flat(cache), _flat(low.outs[0]))))
-    del outs, cache, logits
+    launches = {k.__name__: k.launches - n for k, n in zip(kernels, n0)}
+    if low.kind == "prefill":
+        cache, logits = outs
+        finite = _finite(_flat(cache) + [logits])
+        shapes_ok = (tuple(logits.shape) == low.outs[1].shard_shape
+                     and _shapes_ok(cache, low.outs[0]))
+        extra = {}
+    else:
+        state, mets = outs
+        finite = _finite(_flat(mets))
+        shapes_ok = _shapes_ok(state, low.outs[0]) and _shapes_ok(
+            mets, low.outs[1])
+        extra = {k: float(mets[k]) for k in ("loss", "ce", "aux")}
+    del outs
     return {"peak_bytes": peak, "wall_s": wall, "launches": launches,
             "finite": finite, "shapes_ok": shapes_ok,
-            "device": torch.cuda.get_device_name(dev)}
+            "device": torch.cuda.get_device_name(dev), **extra}
 
 
 # ---------------------------------------------------------------------------
@@ -575,7 +678,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, policy: str = "baseline",
              save: bool = True, tag: str = "", out_dir=None, *,
              execute: bool = False) -> dict:
     """One cell's record (see the module).  ``execute=True`` (a
-    prefill cell, with a card) estimates the cell with the policy's
+    prefill or train cell, with a card) estimates the cell with the policy's
     kernels and, when that estimate leaves ``EXECUTE_HEADROOM`` of the
     card free, runs it there: the record's ``execute`` holds the
     measured peak, its ratio to the estimate, the wall time and the

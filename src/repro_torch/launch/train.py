@@ -6,14 +6,18 @@ rules (``parallel.sharding.tree_shardings``) and takes its own shard of
 the batch (``data.Loader(shard_id=<its place along the batch axes>)``).
 A step is the counterpart of the reference's ``jax.jit(step_fn,
 in_shardings=(state_sh, None), out_shardings=(state_sh, None),
-donate_argnums=0)``: the state is gathered whole (``full_tensor()``), the
-step's gradients are taken on the local batch under the mesh (the MoE runs
-its expert-parallel paths), averaged over every rank, and the optimizer
-updates the whole state, each rank keeping its shard.  The state is
-donated: the step empties the dicts it was given.  At world size 1 this
-is ``make_train_step``'s step, number for number.  Gathering the weights
-instead of splitting the products over ``model`` is a matter of memory and
-speed, not of numbers.
+donate_argnums=0)`` under GSPMD's FSDP placements, and keeps the state
+sharded throughout: the forward gathers each super-block's weights just
+before the block runs and drops them after (``models/transformer.py``;
+the MoE keeps its experts split over ``model``), each gather's backward
+lands the gradient in the rank's block (the sum over ranks divided by
+their count, ``parallel.sharding.MeshOps``), and the optimizer updates
+only the local blocks (``parallel.sharding.StateShards`` for its sums over
+whole leaves).  The loss and its extras are averaged over every rank.
+The state is donated: the step empties the dicts it was given.  At world
+size 1 this is ``make_train_step``'s step, bit for bit.  The products are
+not split over ``model`` (tensor parallelism): each rank runs the whole
+forward and backward of its batch shard with a layer's weights whole.
 
 Auto-resume through ``CheckpointManager.restore(placements=)``, the
 straggler tracker and the reference's checkpoint cadence and log lines.
@@ -134,15 +138,25 @@ def place(state, shardings):
     return state
 
 
-def gather(state):
-    """Every DTensor leaf of ``state`` gathered whole, the dicts emptied as
-    they are read (the state is donated)."""
+def to_local(state):
+    """Every DTensor leaf of ``state`` as its local block (other leaves as
+    they are), the dicts emptied as they are read (the state is
+    donated)."""
     if isinstance(state, dict):
-        out = {k: gather(v) for k, v in state.items()}
+        out = {k: to_local(v) for k, v in state.items()}
         state.clear()
         return out
-    if isinstance(state, torch.Tensor) and hasattr(state, "full_tensor"):
-        return state.full_tensor()
+    if isinstance(state, torch.Tensor) and hasattr(state, "to_local"):
+        return state.to_local()
+    return state
+
+
+def from_local(state, shardings):
+    """``state`` of local blocks as DTensors placed by ``shardings``."""
+    if isinstance(state, dict):
+        return {k: from_local(v, shardings[k]) for k, v in state.items()}
+    if isinstance(state, torch.Tensor):
+        return SH.from_local(state, shardings)
     return state
 
 
@@ -161,29 +175,42 @@ def _mean_over_ranks(x: torch.Tensor, n: int | None = None,
     return x / n
 
 
-def make_sharded_step(step_fn, mesh, state_sh, *, gather=gather, place=place,
-                      mean=_mean_over_ranks):
+def make_sharded_step(step_fn, mesh, state_sh, *, ops=None,
+                      place=from_local, mean=_mean_over_ranks):
     """The sharded counterpart of ``step_fn`` (a ``make_train_step`` step):
     ``(state of DTensors, this rank's batch) -> (state of DTensors,
-    metrics)``.  Gradients, the loss and its extras are averaged over
-    every rank; ranks that share a batch shard (along ``model``) hold
-    equal losses, and their gradients are partial sums (``models/moe.py``),
-    so the mean over all ranks is the global batch's gradient.  The step
-    runs under ``mesh`` and the rules current when it was made.
-    ``gather``, ``place`` and ``mean`` are the pieces above; the dry run
+    metrics)``, the state sharded by ``state_sh`` throughout (see the
+    module).  Each parameter goes to the forward as a
+    ``parallel.sharding.ShardedLeaf`` of its local block; the gathers'
+    backward sums each gradient over the ranks that hold its block and
+    divides it by the rank count, so that ranks sharing a batch shard
+    (along ``model``: equal losses, partial-sum gradients,
+    ``models/moe.py``) and ranks on other shards together give the global
+    batch's gradient, in the block.  The loss and its extras are averaged
+    over every rank.  At one rank nothing is gathered or reduced: the
+    local blocks are the whole leaves.  The step runs under ``mesh`` and
+    the rules current when it was made.  ``ops``
+    (``parallel.sharding.MeshOps`` over ``mesh`` by default), ``place``
+    and ``mean`` are its collectives and pieces; the dry run
     (``launch/dryrun.py``) runs the same step with its own, on local
-    tensors."""
+    tensors (which ``to_local`` passes as they are)."""
     rules = SH.current_rules()
+    ops = SH.MeshOps(mesh) if ops is None else ops
+    shards = SH.StateShards(ops, state_sh) if ops.n > 1 else None
 
     def sharded_step(state, batch):
-        full = gather(state)
+        st = to_local(state)
+        params = st["params"]
+        if shards is not None:
+            params = {k: SH.ShardedLeaf(v, state_sh["params"][k], ops, key=k)
+                      for k, v in params.items()}
         with SH.sharding_context(mesh, rules):
-            loss, extras, grads = step_fn.grads(full["params"], batch)
-        grads = {k: mean(g) for k, g in grads.items()}
+            loss, extras, grads = step_fn.grads(params, batch)
+        del params
         loss = mean(loss)
         extras = {k: mean(v) for k, v in extras.items()}
-        new, metrics = step_fn.apply(full, loss, extras, grads)
-        del full, grads
+        new, metrics = step_fn.apply(st, loss, extras, grads, shards=shards)
+        del st, grads
         return place(new, state_sh), metrics
 
     return sharded_step

@@ -37,9 +37,14 @@ forward's adjoint (``all_gather`` <-> sum-and-slice, ``all_reduce`` sum
 <-> itself, ``all_to_all`` <-> the reverse ``all_to_all``, a slice <->
 zero padding).  So rank r's gradient is the derivative of the sum of
 every rank's loss with respect to r's copy of the parameters, and the
-mean of the ranks' gradients (the launcher's all-reduce) is the gradient
-of the mean over the batch shards' losses: ``tests/test_torch_parallel.py``
-holds it to world size 1's.
+mean of the ranks' gradients is the gradient of the mean over the batch
+shards' losses: ``tests/test_torch_parallel.py`` holds it to world size
+1's.  The sharded launcher hands the experts' weights over as the rank's
+shards (``parallel.sharding.ShardedLeaf``): the expert-parallel paths
+gather them over every axis but ``model`` (and ``data`` where it splits
+F on the resident path), and the gather's backward sums each block's
+gradient over the ranks that hold it, so no rank holds every expert;
+the dense fallback gathers them whole.
 
 Drops and ties are the reference's exactly: top-k breaks a tie in
 probability toward the lower expert id (``jax.lax.top_k``'s order; a
@@ -57,8 +62,14 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.layers import Spec, mlp
-from repro_torch.parallel.sharding import (AbstractMesh, current_mesh,
-                                           current_rules, mesh_shape)
+from repro_torch.parallel.sharding import (AbstractMesh, AllGather,
+                                           ReduceScatter, ShardedLeaf,
+                                           current_mesh, current_rules,
+                                           gathered, mesh_shape)
+
+#: the leaves the MoE gathers itself when they are a rank's shards: the
+#: expert-parallel paths keep the experts split over ``model``
+EXPERT_WEIGHTS = ("we_gate", "we_up", "we_down")
 
 
 def moe_specs(cfg, prefix: str = "") -> dict[str, Spec]:
@@ -159,48 +170,8 @@ def _combine(out_buf, slot, comb_w, t: int, k: int):
 
 # ---------------------------------------------------------------------------
 # differentiable collectives over a process group (each backward is its
-# forward's adjoint over all ranks)
-
-
-class _AllGather(torch.autograd.Function):
-    """Every rank's ``x`` concatenated along ``dim``; backward: the sum of
-    every rank's cotangent, this rank's slice of it."""
-
-    @staticmethod
-    def forward(ctx, x, group, dim):
-        n = dist.get_world_size(group)
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        ctx.group, ctx.dim, ctx.width = group, dim, x.shape[dim]
-        return torch.cat(parts, dim=dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        r = dist.get_rank(ctx.group)
-        return g.narrow(ctx.dim, r * ctx.width, ctx.width), None, None
-
-
-class _ReduceScatter(torch.autograd.Function):
-    """The sum over ranks of ``x``, this rank's slice along ``dim``;
-    backward: the cotangents concatenated (``_AllGather``)."""
-
-    @staticmethod
-    def forward(ctx, x, group, dim):
-        n = dist.get_world_size(group)
-        s = x.contiguous().clone()
-        dist.all_reduce(s, group=group)
-        w = x.shape[dim] // n
-        ctx.group, ctx.dim = group, dim
-        return s.narrow(dim, dist.get_rank(group) * w, w).contiguous()
-
-    @staticmethod
-    def backward(ctx, g):
-        n = dist.get_world_size(ctx.group)
-        parts = [torch.empty_like(g) for _ in range(n)]
-        dist.all_gather(parts, g.contiguous(), group=ctx.group)
-        return torch.cat(parts, dim=ctx.dim), None, None
+# forward's adjoint over all ranks; the gather and the reduce-scatter are
+# ``parallel.sharding``'s)
 
 
 class _AllReduce(torch.autograd.Function):
@@ -274,15 +245,15 @@ def moe_ffn(p, x, cfg, prefix: str = ""):
     g_model = mesh.get_group("model")
     mi = mesh.get_local_rank("model")
     es = slice(mi * e_loc, (mi + 1) * e_loc)
-    wg = p[f"{prefix}we_gate"][es]
-    wu = p[f"{prefix}we_up"][es]
-    wd = p[f"{prefix}we_down"][es]
+    fs = None
     if resident:
         g_data = mesh.get_group("data")
         f_loc = cfg.moe_hidden // sizes["data"]
         fs = slice(mesh.get_local_rank("data") * f_loc,
                    (mesh.get_local_rank("data") + 1) * f_loc)
-        wg, wu, wd = wg[:, :, fs], wu[:, :, fs], wd[:, fs]
+    wg = _local_experts(p[f"{prefix}we_gate"], es, fs, 2)
+    wu = _local_experts(p[f"{prefix}we_up"], es, fs, 2)
+    wd = _local_experts(p[f"{prefix}we_down"], es, fs, 1)
 
     if use_a2a and not dp_over_model:
         x_tok = x[:, mi * (S // ep):(mi + 1) * (S // ep)].reshape(-1, D)
@@ -300,8 +271,8 @@ def moe_ffn(p, x, cfg, prefix: str = ""):
         if resident:
             # tokens visit the resident F-shards: gather over data, partial
             # down-projection, reduce-scatter back to the owning data rank
-            recv_all = _AllGather.apply(recv, g_data, 2)
-            out = _ReduceScatter.apply(
+            recv_all = AllGather.apply(recv, g_data, 2)
+            out = ReduceScatter.apply(
                 _expert_ffn_src(recv_all, wg, wu, wd), g_data, 2)
         else:
             out = _expert_ffn_src(recv, wg, wu, wd)
@@ -310,7 +281,7 @@ def moe_ffn(p, x, cfg, prefix: str = ""):
         if dp_over_model:
             y = y_tok.reshape(B, S, D)      # tokens never left their owner
         else:
-            y = _AllGather.apply(y_tok.reshape(B, S // ep, D), g_model, 1)
+            y = AllGather.apply(y_tok.reshape(B, S // ep, D), g_model, 1)
     else:
         # psum path: every rank applies its resident experts to all tokens
         cap = t * k  # no drops
@@ -320,8 +291,8 @@ def moe_ffn(p, x, cfg, prefix: str = ""):
         buf, comb_w, slot = _bin_tokens(x_tok, p_masked, local_e, e_loc, cap)
         buf = buf.reshape(e_loc, cap, D)
         if resident:
-            h = _expert_ffn(_AllGather.apply(buf, g_data, 1), wg, wu, wd)
-            out = _ReduceScatter.apply(h, g_data, 1)
+            h = _expert_ffn(AllGather.apply(buf, g_data, 1), wg, wu, wd)
+            out = ReduceScatter.apply(h, g_data, 1)
         else:
             out = _expert_ffn(buf, wg, wu, wd)
         y_tok = _combine(out, slot, comb_w, t, k)
@@ -335,6 +306,25 @@ def moe_ffn(p, x, cfg, prefix: str = ""):
     return y, aux
 
 
+def _local_experts(w, es: slice, fs: slice | None, f_dim: int):
+    """The rank's experts of ``w`` (block ``es`` of its leading axis), cut
+    to the F block ``fs`` along ``f_dim`` on the resident path.  A rank's
+    shard (``ShardedLeaf``) is gathered over every other axis but keeps
+    the split of ``model`` over the experts, and of ``data`` over F where
+    its layout has it there: no rank holds every expert."""
+    keep = ()
+    if isinstance(w, ShardedLeaf):
+        keep = ("model",) if w.axes(0) == ("model",) else ()
+        if fs is not None and w.axes(f_dim) == ("data",):
+            keep += ("data",)
+        w = w.gather(keep)
+    if "model" not in keep:
+        w = w[es]
+    if fs is not None and "data" not in keep:
+        w = w.narrow(f_dim, fs.start, fs.stop - fs.start)
+    return w
+
+
 def _shared(p, x, cfg, prefix):
     sh = {"w_gate": p[f"{prefix}ws_gate"], "w_up": p[f"{prefix}ws_up"],
           "w_down": p[f"{prefix}ws_down"]}
@@ -342,7 +332,8 @@ def _shared(p, x, cfg, prefix):
 
 
 def _moe_dense_fallback(p, x, cfg, prefix: str = ""):
-    """Single-device / no-mesh path: x [B,S,D] -> (y [B,S,D], aux)."""
+    """Single-device / no-mesh path: x [B,S,D] -> (y [B,S,D], aux); a
+    rank's shards of the experts' weights are gathered whole."""
     B, S, D = x.shape
     E = cfg.num_experts
     x_tok = x.reshape(-1, D)
@@ -351,8 +342,9 @@ def _moe_dense_fallback(p, x, cfg, prefix: str = ""):
     t, k = top_e.shape
     cap = capacity(t, cfg)
     buf, comb_w, slot = _bin_tokens(x_tok, top_p, top_e, E, cap)
-    out = _expert_ffn(buf.reshape(E, cap, D), p[f"{prefix}we_gate"],
-                      p[f"{prefix}we_up"], p[f"{prefix}we_down"])
+    out = _expert_ffn(buf.reshape(E, cap, D), gathered(p[f"{prefix}we_gate"]),
+                      gathered(p[f"{prefix}we_up"]),
+                      gathered(p[f"{prefix}we_down"]))
     out = torch.cat([out.reshape(E * cap, D), out.new_zeros(1, D)])
     y = (out[slot].reshape(t, k, D)
          * comb_w.reshape(t, k, 1).to(out.dtype)).sum(dim=1).reshape(B, S, D)

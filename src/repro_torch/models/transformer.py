@@ -13,6 +13,13 @@ Three modes share the block implementations:
 * ``prefill`` — full sequence, emits a serving cache.
 * ``decode``  — one token against the cache, which it updates in place.
 
+``params`` holds whole tensors, or a rank's shards of them
+(``parallel.sharding.ShardedLeaf``, the sharded launcher's step): a
+shard is gathered where it is used, a super-block's leaves just before
+the block runs (inside its remat), the embedding, ``final_scale`` and
+the head where they are read, so that outside the running block a rank
+holds only its shards.  Whole tensors run the same code, op for op.
+
 In ``train`` mode with grad enabled, each super-block runs under
 ``cfg.remat``, as the reference's ``_maybe_remat``: ``"none"`` keeps every
 activation, ``"block"`` is ``torch.utils.checkpoint`` (non-reentrant),
@@ -245,7 +252,7 @@ def block_fwd(kind: str, cfg: ModelConfig, p: dict, x, *, mode: str, pos=None,
 
 
 def _embed_inputs(params, inputs, cfg: ModelConfig):
-    emb = params["tok_embed"]
+    emb = SH.gathered(params["tok_embed"])
     tokens = torch.as_tensor(inputs["tokens"], device=emb.device).long()
     x = emb[tokens].to(cfg.act_dtype)
     if cfg.ext_embed_len and "ext_embed" in inputs:  # decode past the prefix: tokens only
@@ -262,6 +269,14 @@ def _dots_policy(ctx, op, *args, **kwargs):
     if op in _DOTS:
         return C.CheckpointPolicy.MUST_SAVE
     return C.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _gather_block(p: dict) -> dict:
+    """A block's leaves gathered whole where they are a rank's shards
+    (``parallel.sharding.ShardedLeaf``), but the experts' weights, which
+    the MoE gathers itself; whole tensors pass unchanged."""
+    return {k: v if k in M.EXPERT_WEIGHTS else SH.gathered(v)
+            for k, v in p.items()}
 
 
 def _maybe_remat(fn, cfg: ModelConfig):
@@ -315,8 +330,8 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train"
         outs = {}
         for slot, kind in enumerate(pattern):
             c = slot_caches[slot] if slot_caches is not None else None
-            x, nc, aux = block_fwd(kind, cfg, slot_params[slot], x, mode=mode,
-                                   pos=pos, cache=c)
+            x, nc, aux = block_fwd(kind, cfg, _gather_block(slot_params[slot]),
+                                   x, mode=mode, pos=pos, cache=c)
             if nc is not None:
                 outs[slot] = nc
             aux_sum = aux_sum + aux
@@ -327,7 +342,9 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train"
         body = _maybe_remat(super_fwd, cfg)
     # one unbind per stacked leaf: its backward stacks the layers' gradients
     # once, where indexing each layer would scatter into a zero tensor of
-    # the whole stack per layer
+    # the whole stack per layer.  A rank's shard unbinds into its layers'
+    # shards, each gathered inside ``body`` (under remat, again in the
+    # recompute) and dropped after its block
     stacked = [{k: v.unbind(0) for k, v in _sub(params, f"s{slot}_").items()}
                for slot in range(len(pattern))]
     cache_stacked = ([_sub(cache, f"s{slot}_") for slot in range(len(pattern))]
@@ -350,14 +367,16 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train"
 
     for ti, kind in enumerate(cfg.trailing):
         c = _sub(cache, f"t{ti}_") if (cache and mode == "decode") else None
-        x, nc, aux = block_fwd(kind, cfg, _sub(params, f"t{ti}_"), x,
-                               mode=mode, pos=pos, cache=c)
+        p = _gather_block(_sub(params, f"t{ti}_"))
+        x, nc, aux = block_fwd(kind, cfg, p, x, mode=mode, pos=pos, cache=c)
+        del p
         aux_total = aux_total + aux
         if nc is not None:
             for k, v in nc.items():
                 new_cache[f"t{ti}_{k}"] = v
 
-    x = L.rmsnorm(x, params["final_scale"], cfg.norm_eps)
-    head = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
+    x = L.rmsnorm(x, SH.gathered(params["final_scale"]), cfg.norm_eps)
+    head = (SH.gathered(params["tok_embed"]).T if cfg.tie_embeddings
+            else SH.gathered(params["lm_head"]))
     logits = x.float() @ head.to(x.dtype).float()
     return logits, (new_cache if new_cache else None), aux_total

@@ -18,16 +18,26 @@ placements, one a mesh dimension.
 **Activations keep no constraint.**  The reference pins activations with
 ``shard_act`` at the model's call sites (``models/layers.py``,
 ``rglru.py``, ``ssm.py``, ``transformer.py``).  The port's launcher gathers
-the weights and runs each rank's forward on plain local tensors (its batch
-shard), so such a constraint would change no number, and the port's model
-code calls none.  :func:`shard_act` exists for callers holding DTensors:
-it redistributes one to the spec's placements and returns a plain tensor
-unchanged.  The ``jax`` version shims (``make_mesh``'s ``axis_types``,
+the weights a layer at a time and runs each rank's forward on plain local
+tensors (its batch shard), so such a constraint would change no number,
+and the port's model code calls none.  :func:`shard_act` exists for
+callers holding DTensors: it redistributes one to the spec's placements
+and returns a plain tensor unchanged.
+
+**The state stays sharded through a step** (the half of GSPMD's program
+that needs no split product).  A :class:`ShardedLeaf` is a rank's block of
+one parameter; the model gathers it where it uses it (:func:`gathered`,
+a super-block's leaves at a time) and the gather's backward sums the
+cotangent over the ranks that hold the block, cuts it to the block and
+divides it by the rank count (:class:`MeshOps`).  :class:`StateShards`
+gives the optimizer the sums over ranks that stand in for its whole-leaf
+reductions.  The ``jax`` version shims (``make_mesh``'s ``axis_types``,
 ``shard_map``) have no counterpart.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 from dataclasses import dataclass, field, replace
 
@@ -335,8 +345,6 @@ def distribute(full: torch.Tensor, sharding: NamedSharding, device=None):
     with no communication.  A split leaf's local tensor is a copy that
     owns only its slice's bytes (a view would keep ``full``'s storage
     alive on every rank); where nothing is split it is ``full`` itself."""
-    from torch.distributed.tensor import DTensor
-
     mesh = sharding.mesh
     local = full[sharding.local_slices(full.shape, mesh.get_coordinate())]
     if device is not None:
@@ -344,7 +352,336 @@ def distribute(full: torch.Tensor, sharding: NamedSharding, device=None):
     local = local.contiguous()
     if local.untyped_storage().nbytes() > local.numel() * local.element_size():
         local = local.clone()
-    return DTensor.from_local(local, mesh, sharding.placements,
-                              run_check=False, shape=full.shape,
-                              stride=torch.empty(full.shape,
-                                                 device="meta").stride())
+    return from_local(local, sharding)
+
+
+def from_local(local: torch.Tensor, sharding: NamedSharding):
+    """``local``, this rank's block under ``sharding``, as a DTensor whose
+    whole shape follows from the block's and the mesh's sizes."""
+    from torch.distributed.tensor import DTensor
+
+    sizes = mesh_shape(sharding.mesh)
+    shape = tuple(d * math.prod(sizes[a] for a in axes) for d, axes in
+                  zip(local.shape, spec_axes(sharding.spec, local.dim())))
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, sharding.mesh, sharding.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+# ---------------------------------------------------------------------------
+# Collectives over a process group, and the differentiable pair built from
+# them (each one's backward is the other): the sharded step's gathers and
+# the MoE's expert-parallel paths both run these
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` (one shape on every rank) concatenated along
+    ``dim`` in the group's rank order."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def native_reduce_scatter(x: torch.Tensor, group) -> bool:
+    """Whether :func:`reduce_scatter` of ``x`` runs the group's own
+    reduce-scatter: a CUDA tensor over NCCL.  Elsewhere (gloo, the CPU's
+    backend) it all-reduces and cuts, which gloo runs in every PyTorch."""
+    import torch.distributed as dist
+
+    return x.device.type == "cuda" and "nccl" in str(dist.get_backend(group))
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum over the group's ranks of ``x``, cut along ``dim`` to this
+    rank's block (the adjoint of :func:`all_gather`), in a tensor that
+    owns only the block's bytes.  Where :func:`native_reduce_scatter`
+    holds, ``reduce_scatter_tensor`` moves each rank's block and no more
+    (``dim`` moved to the front first, a copy unless it is 0); elsewhere
+    an all-reduce of a copy of ``x``, then the block."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    w = x.shape[dim] // n
+    if native_reduce_scatter(x, group):
+        src = x.movedim(dim, 0).contiguous()
+        out = src.new_empty((w,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=group)
+        return out.movedim(0, dim).contiguous()
+    s = x.contiguous().clone()
+    dist.all_reduce(s, group=group)
+    return s.narrow(dim, dist.get_rank(group) * w, w).clone()
+
+
+class AllGather(torch.autograd.Function):
+    """:func:`all_gather`; backward: :func:`reduce_scatter` of the
+    cotangent, the sum of every rank's, this rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class ReduceScatter(torch.autograd.Function):
+    """:func:`reduce_scatter`; backward: :func:`all_gather` of the
+    cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+# ---------------------------------------------------------------------------
+# The state kept sharded through a step: a rank's shard of a leaf, gathered
+# where the model uses it, its cotangent reduced back to the shard; and the
+# reductions an optimizer on the local shards needs
+
+
+def spec_axes(spec: tuple, ndim: int) -> list[tuple[str, ...]]:
+    """The mesh axes that split each of ``ndim`` dimensions under
+    ``spec`` (a trimmed spec's missing entries split nothing)."""
+    out = []
+    for i in range(ndim):
+        part = spec[i] if i < len(spec) else None
+        out.append((part,) if isinstance(part, str) else tuple(part or ()))
+    return out
+
+
+class MeshOps:
+    """The collectives a sharded step runs over ``mesh``'s process groups,
+    one mesh axis at a time, and what it builds from them: the gather of a
+    :class:`ShardedLeaf` and its adjoint, and the optimizer's sums
+    (:class:`StateShards`).  The dry run subclasses it with collectives
+    that move nothing (``launch/dryrun.py``)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.sizes = mesh_shape(mesh)
+        self.n = math.prod(self.sizes.values())
+
+    # the primitives -------------------------------------------------------
+    def coordinate(self) -> dict[str, int]:
+        return dict(zip(self.sizes, self.mesh.get_coordinate()))
+
+    def all_reduce(self, x: torch.Tensor, axis: str) -> None:
+        """Sums ``x`` in place over the ranks along ``axis``."""
+        import torch.distributed as dist
+
+        dist.all_reduce(x, group=self.mesh.get_group(axis))
+
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """The blocks of the ranks along ``axis`` concatenated on ``dim``."""
+        return all_gather(x, self.mesh.get_group(axis), dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str,
+                       dim: int) -> torch.Tensor:
+        """``x`` summed over the ranks along ``axis``, this rank's block of
+        it along ``dim``."""
+        return reduce_scatter(x, self.mesh.get_group(axis), dim)
+
+    # built on them --------------------------------------------------------
+    def sum_over(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """``x`` (a tensor this rank owns) summed in place over the ranks
+        along each of ``axes``, in the mesh's order."""
+        for a in self.sizes:
+            if a in axes and self.sizes[a] > 1:
+                self.all_reduce(x, a)
+        return x
+
+    def block(self, x: torch.Tensor, layout: list[tuple]) -> torch.Tensor:
+        """``x``, whole along each dimension that ``layout`` splits, cut to
+        this rank's block there (a view)."""
+        coord = self.coordinate()
+        for d, axes in enumerate(layout):
+            if axes:
+                n = math.prod(self.sizes[a] for a in axes)
+                idx = 0
+                for a in axes:
+                    idx = idx * self.sizes[a] + coord[a]
+                w = x.shape[d] // n
+                x = x.narrow(d, idx * w, w)
+        return x
+
+    def unsplit(self, x: torch.Tensor, layout: list[tuple]) -> torch.Tensor:
+        """``x``, this rank's block under ``layout``, gathered whole: the
+        innermost axis of a dimension first, as the blocks are laid out."""
+        for d, axes in enumerate(layout):
+            for a in reversed(axes):
+                x = self.all_gather(x, a, d)
+        return x
+
+    def relayout(self, x: torch.Tensor, src: list[tuple],
+                 dst: list[tuple]) -> torch.Tensor:
+        """``x`` in the block layout ``src`` moved to ``dst``: each
+        dimension the two split differently gathered whole and cut to this
+        rank's block under ``dst``.  ``x`` itself where they agree."""
+        if src == dst:
+            return x
+        diff = [s if s != t else () for s, t in zip(src, dst)]
+        whole = self.unsplit(x, diff)
+        return self.block(whole, [t if s != t else () for s, t in
+                                  zip(src, dst)]).contiguous()
+
+    def gather(self, leaf: "ShardedLeaf", keep: tuple) -> torch.Tensor:
+        """``leaf`` gathered over every axis that splits it but ``keep``."""
+        return self.unsplit(leaf.local, leaf.layout(keep))
+
+    def reduce(self, leaf: "ShardedLeaf", keep: tuple,
+               g: torch.Tensor) -> torch.Tensor:
+        """The adjoint of :meth:`gather` averaged over the ranks: ``g``
+        summed over every rank that holds the kept block (each mesh axis
+        not in ``keep``), cut to this rank's block and divided by the rank
+        count, as the launcher's mean of the ranks' gradients.  The axes
+        that split the leaf reduce-scatter, in the reverse of the
+        gather's order, so that each rank receives its block alone; those
+        over which the block has copies then all-reduce the block."""
+        if self.n == 1:
+            return g
+        layout = leaf.layout(keep)
+        split = {a for axes in layout for a in axes}
+        if any(self.sizes[a] > 1 for a in split):
+            for d in reversed(range(len(layout))):
+                for a in layout[d]:
+                    if self.sizes[a] > 1:
+                        g = self.reduce_scatter(g, a, d)
+            g = g.div_(self.n)
+        else:
+            g = g / self.n
+        return self.sum_over(g, [a for a in self.sizes
+                                 if a not in keep and a not in split])
+
+
+class ShardedLeaf:
+    """A rank's shard of one parameter leaf: ``local``, its block under
+    ``sharding``, and ``ops`` (:class:`MeshOps`) to gather it.  The model
+    gathers it where it uses it (:func:`gathered`; the MoE keeps its
+    experts split, :meth:`gather` with ``keep``); the gather's backward
+    reduces the cotangent to the block (:meth:`MeshOps.reduce`).  ``key``
+    names the leaf and ``index`` the layer of a stacked leaf that this is
+    one slice of."""
+
+    __slots__ = ("local", "sharding", "ops", "key", "index")
+
+    def __init__(self, local, sharding: NamedSharding, ops: MeshOps,
+                 key: str = "", index: int | None = None):
+        self.local, self.sharding, self.ops = local, sharding, ops
+        self.key, self.index = key, index
+
+    def with_local(self, local) -> "ShardedLeaf":
+        return ShardedLeaf(local, self.sharding, self.ops, self.key,
+                           self.index)
+
+    def axes(self, dim: int) -> tuple[str, ...]:
+        """The mesh axes that split dimension ``dim``."""
+        return spec_axes(self.sharding.spec, self.local.dim())[dim]
+
+    def layout(self, keep=()) -> list[tuple]:
+        """The axes a gather keeping ``keep`` undoes, a dimension each; a
+        dimension split over kept and gathered axes at once is refused."""
+        out = []
+        for d, axes in enumerate(spec_axes(self.sharding.spec,
+                                           self.local.dim())):
+            kept = [a for a in axes if a in keep]
+            if kept and len(kept) != len(axes):
+                raise ValueError(f"{self.key}: dimension {d} splits over "
+                                 f"{axes}; a gather keeps all or none")
+            out.append(() if kept else axes)
+        return out
+
+    def unbind(self, dim: int = 0) -> list["ShardedLeaf"]:
+        """The layers of a stacked leaf (``dim`` 0, its leading axis, which
+        splits over no mesh axis, as the rules' ``stack`` entry gives)."""
+        if dim != 0 or self.axes(0):
+            raise ValueError(f"{self.key}: the stacked axis splits over "
+                             f"{self.axes(0)}")
+        spec = self.sharding.spec[1:]
+        sh = NamedSharding(self.sharding.mesh, spec,
+                           _placements(spec, self.sharding.mesh))
+        return [ShardedLeaf(t, sh, self.ops, self.key, i)
+                for i, t in enumerate(self.local.unbind(0))]
+
+    def gather(self, keep=()) -> torch.Tensor:
+        """The leaf gathered over every axis that splits it but those in
+        ``keep``, which stay split as they are."""
+        return _Gather.apply(self.local, self, tuple(keep))
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, leaf, keep):
+        ctx.leaf, ctx.keep = leaf, keep
+        return leaf.ops.gather(leaf, keep)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.leaf.ops.reduce(ctx.leaf, ctx.keep, g), None, None
+
+
+def gathered(x):
+    """A :class:`ShardedLeaf` gathered whole; anything else unchanged."""
+    return x.gather() if isinstance(x, ShardedLeaf) else x
+
+
+def local_of(x):
+    """The tensor a rank holds of ``x``: a :class:`ShardedLeaf`'s block,
+    or ``x`` itself."""
+    return x.local if isinstance(x, ShardedLeaf) else x
+
+
+class StateShards:
+    """How each leaf of a train state is split (``shardings``, a tree
+    like the state's of :class:`NamedSharding`), and the sums over ranks
+    that an optimizer on the local shards takes in place of whole-leaf
+    reductions, through ``ops``.  A *layout* lists, a dimension each, the
+    mesh axes that split it."""
+
+    def __init__(self, ops: MeshOps, shardings: dict):
+        self.ops, self.shardings = ops, shardings
+
+    def layout(self, path: tuple, ndim: int) -> list[tuple]:
+        sh = self.shardings
+        for p in path:
+            sh = sh[p]
+        return spec_axes(sh.spec, ndim)
+
+    def leaf_totals(self, keys, sums) -> list[torch.Tensor]:
+        """Each parameter leaf's ``sums`` (0-d, of its local block) summed
+        over its distinct blocks: a rank adds its block's sum only where
+        it sits at coordinate 0 along every axis that does not split the
+        leaf (one replica a block), then one sum over every rank."""
+        coord = self.ops.coordinate()
+        own = []
+        for k, s in zip(keys, sums):
+            spec = self.shardings["params"][k].spec
+            split = {a for axes in spec_axes(spec, len(spec)) for a in axes}
+            first = all(coord[a] == 0 for a in coord if a not in split)
+            own.append(s if first else torch.zeros_like(s))
+        total = self.ops.sum_over(torch.stack(own), list(self.ops.sizes))
+        return list(total.unbind(0))
+
+    def mean(self, x: torch.Tensor, dims, layout: list[tuple],
+             keepdim: bool = False) -> torch.Tensor:
+        """The mean of the whole leaf over ``dims`` (None: all of them)
+        from ``x``, this rank's block under ``layout``: the block's mean,
+        divided by the number of blocks along those dimensions and summed
+        over them (the blocks are equal in size)."""
+        dims = tuple(range(x.dim())) if dims is None else dims
+        m = torch.mean(x, dim=dims, keepdim=keepdim)
+        axes = [a for d in (dims if isinstance(dims, tuple) else (dims,))
+                for a in layout[d % x.dim()]]
+        if not axes:
+            return m
+        m = m / math.prod(self.ops.sizes[a] for a in axes)
+        return self.ops.sum_over(m, axes)

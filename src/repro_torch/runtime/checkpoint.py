@@ -13,10 +13,13 @@ Design points for 1000-node fleets:
   leaves may live on any device (``meta`` included); leaves absent from
   the checkpoint fall back to an initializer callback (new parameters).
 * **retention**: keep the newest ``keep`` complete checkpoints.
-* **sharded state**: a DTensor leaf is gathered whole (``full_tensor()``)
-  on every rank, and rank 0 alone copies it to the host and writes, so
-  the files are those of a world-size-1 save of the same state; a
-  blocking save of such a state
+* **sharded state**: a split DTensor leaf is assembled whole in rank 0's
+  host memory, a piece of every rank's block at a time (``dist.gather``
+  to rank 0; leading-axis rows, or a part of one row where a row of
+  every rank would not fit: at most ``SAVE_GATHER_BYTES`` and less than
+  the leaf on a rank's device at once), so that no rank's device ever
+  holds a whole leaf; rank 0 alone writes, and the files are those of a
+  world-size-1 save of the same state.  A blocking save of such a state
   ends in a barrier, so that every rank returns once the checkpoint
   exists.  ``restore(placements=)`` gives each leaf back as a DTensor
   placed by a tree of ``parallel.sharding.NamedSharding`` (the
@@ -40,7 +43,9 @@ A failed background write raises out of the next ``wait`` (or ``save``).
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
+import math
 import pathlib
 import shutil
 import threading
@@ -90,11 +95,100 @@ def _is_dtensor(leaf) -> bool:
     return isinstance(leaf, DTensor)
 
 
+SAVE_GATHER_BYTES = 1 << 28   # a sharded save's pieces on rank 0's device
+
+
+def _is_split(leaf) -> bool:
+    return _is_dtensor(leaf) and any(p.is_shard() for p in leaf.placements)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """``t``'s values on the host (bf16 as its 16-bit patterns)."""
+    t = t.detach().cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _rank_blocks(leaf) -> dict[int, tuple[slice, ...]]:
+    """For each rank of a DTensor's mesh, the slices of the whole leaf
+    that its local block holds (a dimension split by several mesh
+    dimensions takes the first outermost, as DTensor lays them out)."""
+    ranks = leaf.device_mesh.mesh
+    local = leaf.to_local().shape
+    out = {}
+    for coord in itertools.product(*(range(n) for n in ranks.shape)):
+        sl = []
+        for d, w in enumerate(local):
+            idx = 0
+            for j, p in enumerate(leaf.placements):
+                if p.is_shard(d):
+                    idx = idx * ranks.shape[j] + coord[j]
+            sl.append(slice(idx * w, (idx + 1) * w))
+        out[int(ranks[coord])] = tuple(sl)
+    return out
+
+
+def _pieces(shape: tuple, item: int, world: int) -> list[tuple[slice, ...]]:
+    """The pieces, in order, in which each rank sends a block of ``shape``
+    (``item`` bytes a value) to rank 0: each at most
+    ``SAVE_GATHER_BYTES // (world + 1)`` bytes (rank 0 holds ``world``
+    received and the one it sends) and under half the block where the
+    block has more than one value.  A piece is ``k`` consecutive indices
+    of the first dimension ``d`` of which one index fits, and one index
+    of each dimension before ``d``."""
+    n = math.prod(shape)
+    if n == 0:
+        return []
+    limit = max(item, min(SAVE_GATHER_BYTES // (world + 1), n * item // 2))
+    d = next(i for i in range(len(shape))
+             if math.prod(shape[i + 1:]) * item <= limit)
+    k = max(1, min(shape[d], limit // (math.prod(shape[d + 1:]) * item)))
+    rest = tuple(slice(0, w) for w in shape[d + 1:])
+    return [tuple(slice(i, i + 1) for i in idx)
+            + (slice(j, min(j + k, shape[d])),) + rest
+            for idx in itertools.product(*(range(w) for w in shape[:d]))
+            for j in range(0, shape[d], k)]
+
+
+def _host_sharded(leaf) -> np.ndarray | None:
+    """A split DTensor leaf assembled whole in rank 0's host memory (None
+    on the other ranks): every rank sends its block a piece at a time
+    (:func:`_pieces`) to rank 0 (``dist.gather``), which writes each
+    rank's piece where its block lies.  A rank's device holds at most
+    ``SAVE_GATHER_BYTES`` of pieces at once, and less than the leaf."""
+    local = leaf.to_local().detach()
+    world, rank = dist.get_world_size(), dist.get_rank()
+    pieces = _pieces(tuple(local.shape), local.element_size(), world)
+    host = blocks = bufs = None
+    if rank == 0:
+        host = np.empty(tuple(leaf.shape), _numpy(local[:0]).dtype)
+        blocks = _rank_blocks(leaf)
+        # one buffer a rank, reused by every round, so that what the
+        # collective still references of a round holds no more memory
+        most = local[pieces[0]].numel() if pieces else 0
+        bufs = [local.new_empty(most) for _ in range(world)]
+    for sl in pieces:
+        piece = local[sl].contiguous()
+        parts = ([b[:piece.numel()].view(piece.shape) for b in bufs]
+                 if rank == 0 else None)
+        dist.gather(piece, parts, dst=0)
+        if rank == 0:
+            for r, part in enumerate(parts):
+                at = tuple(slice(b.start + s.start, b.start + s.stop)
+                           for b, s in zip(blocks[r], sl))
+                host[at] = _numpy(part)
+        del piece, parts
+    return host
+
+
 def _host(leaf) -> tuple[np.ndarray, str]:
     """One leaf copied to the host as a contiguous array of its bytes, and
-    the dtype string the manifest records (a DTensor gathered whole)."""
+    the dtype string the manifest records (a split DTensor assembled by
+    :func:`_host_sharded`, a replicated one from its local tensor)."""
+    if _is_split(leaf):
+        a = _host_sharded(leaf)
+        return a, "bfloat16" if leaf.dtype == torch.bfloat16 else str(a.dtype)
     if _is_dtensor(leaf):
-        leaf = leaf.full_tensor()
+        leaf = leaf.to_local()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", memory_format=torch.contiguous_format,
                              copy=True)
@@ -158,8 +252,8 @@ class CheckpointManager:
             # every rank joins the gathers, in rank 0's order; rank 0
             # alone writes, so the others copy nothing to the host
             for _, leaf in _leaves(state):
-                if _is_dtensor(leaf):
-                    leaf.full_tensor()
+                if _is_split(leaf):
+                    _host_sharded(leaf)
             if blocking:
                 dist.barrier()
             return

@@ -12,6 +12,14 @@ state to its jitted step (``donate_argnums=0``): each leaf's old tensors
 leave their dicts as soon as the leaf is updated, so that the update
 holds one leaf twice instead of the whole state; the numbers are the
 same.
+
+With ``shards`` (``parallel.sharding.StateShards``) the params, gradients
+and moments are a rank's blocks of the leaves, as the sharded launcher
+keeps them through its step.  The elementwise arithmetic runs on the
+blocks as it stands; each reduction over a whole leaf (AdamW's global
+norm, Adafactor's row, column and RMS means) is the blocks' partial sums
+added over the ranks that split the leaf, as GSPMD computes it for the
+reference.  Without ``shards`` every leaf is whole.
 """
 
 from __future__ import annotations
@@ -81,23 +89,27 @@ def _leaves(params: dict, grads: dict, state: tuple, donate: bool):
                *(take(d, k) for d in state))
 
 
-def _global_norm(grads: dict) -> torch.Tensor:
+def _global_norm(grads: dict, shards=None) -> torch.Tensor:
     """sqrt of the sum of every gradient's squares, in f32 (a 0-d tensor,
     left on the device), summed in key order (jax's leaf order), so that a
     state restored from a checkpoint, whose dicts may be ordered
-    otherwise, steps as the live one does."""
-    return torch.sqrt(sum(torch.sum(torch.square(grads[k].float()))
-                          for k in sorted(grads)))
+    otherwise, steps as the live one does.  With ``shards`` each leaf's
+    sum over its block is first summed over the leaf's distinct blocks."""
+    keys = sorted(grads)
+    sums = [torch.sum(torch.square(grads[k].float())) for k in keys]
+    if shards is not None:
+        sums = shards.leaf_totals(keys, sums)
+    return torch.sqrt(sum(sums))
 
 
 def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig,
-                 *, donate: bool = False):
+                 *, donate: bool = False, shards=None):
     """Returns (new_params, new_state, metrics).  The global-norm clip
     scales every gradient by ``min(1, clip / norm)``; weight decay is
-    decoupled (added to the normalised step, times the LR).  ``donate``:
-    see the module's docstring."""
+    decoupled (added to the normalised step, times the LR).  ``donate``
+    and ``shards``: see the module's docstring."""
     count = state["count"] + 1
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, shards)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
              if cfg.grad_clip else 1.0)
     lr = lr_at(cfg, count)
@@ -145,25 +157,65 @@ def adafactor_init(params: dict, cfg: OptConfig) -> dict:
     return {"f": {k: fac(p) for k, p in params.items()}, "count": 0}
 
 
+class _Means:
+    """One leaf's means over whole dimensions, and its factored moments'
+    layouts: ``torch.mean`` on a whole leaf; with ``shards``, from this
+    rank's blocks.  A layout lists, a dimension each, the mesh axes that
+    split it: ``p`` the param's, ``r`` / ``c`` the row / column moment's
+    (``vr`` / ``vc``), ``pr`` / ``pc`` the param's with its last / second
+    last dimension taken out (where a row / column mean of g² lands), and
+    ``r1`` / ``pr1`` those of ``vr``'s mean over its rows (kept as a
+    dimension of 1) in ``vr``'s layout and in the param's."""
+
+    def __init__(self, shards, key: str, ndim: int):
+        self.shards = shards
+        if shards is None:
+            return
+        self.p = shards.layout(("params", key), ndim)
+        if ndim >= 2:
+            self.r = shards.layout(("opt", "f", key, "vr"), ndim - 1)
+            self.c = shards.layout(("opt", "f", key, "vc"), ndim - 1)
+            self.pr, self.pc = self.p[:-1], self.p[:-2] + self.p[-1:]
+            self.r1, self.pr1 = self.r[:-1] + [()], self.pr[:-1] + [()]
+
+    def mean(self, x, dim=None, layout="p", keepdim=False):
+        if self.shards is None:
+            return (torch.mean(x) if dim is None
+                    else torch.mean(x, dim=dim, keepdim=keepdim))
+        return self.shards.mean(x, dim, getattr(self, layout), keepdim)
+
+    def move(self, x, src: str, dst: str):
+        """``x`` from layout ``src`` to ``dst`` (names of this object's
+        layouts)."""
+        if self.shards is None:
+            return x
+        return self.shards.ops.relayout(x, getattr(self, src),
+                                        getattr(self, dst))
+
+
 def adafactor_update(params: dict, grads: dict, state: dict, cfg: OptConfig,
-                     *, donate: bool = False):
+                     *, donate: bool = False, shards=None):
     """Returns (new_params, new_state, metrics): the factored second moment
     (row and column means of g²) on every matrix, a full one on vectors,
-    and the update clipped to RMS 1.  ``donate``: see the module's
-    docstring."""
+    and the update clipped to RMS 1.  ``donate`` and ``shards``: see the
+    module's docstring."""
     count = state["count"] + 1
     lr = lr_at(cfg, count)
     d = 1.0 - cfg.b2 ** count
     new_p, new_f = {}, {}
     for k, p, g, f in _leaves(params, grads, (state["f"],), donate):
         g = g.float()
+        m = _Means(shards, k, p.dim())
         if p.dim() >= 2:
-            vr = cfg.b2 * f["vr"] + (1 - cfg.b2) * torch.mean(torch.square(g), dim=-1)
-            vc = cfg.b2 * f["vc"] + (1 - cfg.b2) * torch.mean(torch.square(g), dim=-2)
+            vr = cfg.b2 * f["vr"] + (1 - cfg.b2) * m.move(
+                m.mean(torch.square(g), -1), "pr", "r")
+            vc = cfg.b2 * f["vc"] + (1 - cfg.b2) * m.move(
+                m.mean(torch.square(g), -2), "pc", "c")
+            mean_vr = m.move(m.mean(vr, -1, "r", keepdim=True), "r1", "pr1")
             denom = torch.sqrt(
-                vr[..., None] * vc[..., None, :]
-                / torch.clamp(torch.mean(vr, dim=-1, keepdim=True)[..., None],
-                              min=1e-30) / d)
+                m.move(vr, "r", "pr")[..., None]
+                * m.move(vc, "c", "pc")[..., None, :]
+                / torch.clamp(mean_vr[..., None], min=1e-30) / d)
             step_ = g / torch.clamp(denom, min=1e-30)
             new_f[k] = {"vr": vr, "vc": vc}
         else:
@@ -171,7 +223,7 @@ def adafactor_update(params: dict, grads: dict, state: dict, cfg: OptConfig,
             step_ = g / (torch.sqrt(v / d) + cfg.eps)
             new_f[k] = {"v": v}
         # update clipping (Adafactor's RMS rule)
-        rms = torch.sqrt(torch.mean(torch.square(step_)) + 1e-30)
+        rms = torch.sqrt(m.mean(torch.square(step_)) + 1e-30)
         step_ = step_ / torch.clamp(rms, min=1.0)
         p32 = p.float()
         new_p[k] = (p32 - lr * (step_ + cfg.weight_decay * p32)).to(p.dtype)

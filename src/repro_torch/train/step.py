@@ -17,6 +17,7 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.transformer import TensorSpec
+from repro_torch.parallel import sharding as SH
 from repro_torch.train import optim as O
 
 TrainState = dict[str, Any]  # {"params": …, "opt": …, "step": int}
@@ -56,6 +57,13 @@ def _split(x, n: int) -> list:
     return [x[i * (b // n):(i + 1) * (b // n)] for i in range(n)]
 
 
+def _requiring_grad(v):
+    """A detached copy of a leaf (of a shard's block) that requires grad."""
+    if isinstance(v, SH.ShardedLeaf):
+        return v.with_local(v.local.detach().requires_grad_(True))
+    return v.detach().requires_grad_(True)
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
                     microbatches: int = 1, *, donate: bool = False):
     """Build ``train_step(state, batch) -> (state, metrics)``.
@@ -77,8 +85,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
     The step carries three helpers: ``init_opt(params)``, the optimizer
     state; ``grads(params, batch) -> (loss, extras, grads)``, the
     accumulated gradients the step would apply; and ``apply(state, loss,
-    extras, grads) -> (state, metrics)``, the step's update from them (the
-    sharded launcher reduces the gradients across ranks in between).
+    extras, grads, shards=None) -> (state, metrics)``, the step's update
+    from them.  The sharded launcher hands ``grads`` a rank's shards
+    (``parallel.sharding.ShardedLeaf``) and gets each gradient back as
+    the block of the mean over ranks (the gathers' backward reduces it);
+    ``apply`` then updates the local blocks, ``shards``
+    (``parallel.sharding.StateShards``) summing over ranks where the
+    optimizer reduces over a whole leaf.  Over microbatches, each one's
+    gradient is reduced over the ranks first, then cast to f32, divided
+    by the count and added to the accumulator, in microbatch order.
     """
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
@@ -93,20 +108,23 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
                          "(adamw | adafactor)") from None
 
     def grads_of(params: dict, batch: dict):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        leaves = {k: _requiring_grad(v) for k, v in params.items()}
         with torch.enable_grad():
             loss, extras = loss_fn(leaves, batch)
-            grads = torch.autograd.grad(loss, list(leaves.values()),
-                                        allow_unused=True)
-        grads = {k: (torch.zeros_like(p) if g is None else g)
+            grads = torch.autograd.grad(
+                loss, [SH.local_of(v) for v in leaves.values()],
+                allow_unused=True)
+        grads = {k: (torch.zeros_like(SH.local_of(p)) if g is None else g)
                  for (k, p), g in zip(leaves.items(), grads)}
         return loss.detach(), {k: v.detach() for k, v in extras.items()}, grads
 
     def accumulate(params: dict, batch: dict):
         if microbatches == 1:
             return grads_of(params, batch)
+        local = {k: SH.local_of(v) for k, v in params.items()}
         acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for k, p in params.items()}
+               for k, p in local.items()}
+        del local
         parts = {k: _split(v, microbatches) for k, v in batch.items()}
         losses, extras = [], []
         for i in range(microbatches):
@@ -121,11 +139,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
         ex = {k: torch.stack([e[k] for e in extras]).mean() for k in extras[0]}
         return loss, ex, acc
 
-    def apply(state: TrainState, loss, extras: dict, grads: dict):
+    def apply(state: TrainState, loss, extras: dict, grads: dict,
+              shards=None):
         with torch.no_grad():
             new_params, new_opt, om = upd_fn(state["params"], grads,
                                              state["opt"], opt_cfg,
-                                             donate=donate)
+                                             donate=donate, shards=shards)
         step = state["step"] + 1
         metrics = {"loss": loss, **extras, **om, "step": step}
         return {"params": new_params, "opt": new_opt, "step": step}, metrics

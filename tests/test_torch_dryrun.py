@@ -103,6 +103,24 @@ def test_run_cell_matches_reference(reference, cell):
                            + rec["memory"]["temp_bytes"] <= D.H100_80GB_BYTES)
 
 
+# train_4k pod cells whose state the sharded step keeps sharded: (arch,
+# policy) -> the bound on temp_bytes in GiB (gathering the state whole,
+# the port's step took 487.85 and 58.01 GiB)
+SHARDED_TRAIN = {("qwen3_moe_30b_a3b", "dp_fsdp"): 24.0,
+                 ("qwen1_5_4b", "dp_fsdp"): 15.0}
+
+
+@pytest.mark.parametrize("arch,policy", list(SHARDED_TRAIN))
+def test_sharded_train_cell_fits(arch, policy):
+    """One rank's ``train_4k`` step on the pod under ``dp_fsdp`` holds
+    its 1/256 of the state and one layer's weights gathered at a time:
+    its temp bytes stay under the bound and the cell fits one card."""
+    rec = D.run_cell(arch, "train_4k", "pod", policy, save=False)
+    temp = rec["memory"]["temp_bytes"] / 2**30
+    assert temp < SHARDED_TRAIN[(arch, policy)], temp
+    assert rec["fits"]
+
+
 def test_run_cell_writes_its_record(tmp_path):
     rec = D.run_cell("smollm_360m", "decode_32k", "multipod", tag="t",
                      out_dir=tmp_path)
@@ -144,14 +162,25 @@ def _measure(arch, shape, device, policy="baseline"):
     return low, outs, (arg_bytes, peak, flops)
 
 
-@pytest.mark.parametrize("arch,shape", [
+ESTIMATE_CELLS = [
     ("smollm_360m", "tiny_train"), ("smollm_360m", "tiny_prefill"),
     ("smollm_360m", "tiny_decode"), ("mamba2_780m", "tiny_prefill"),
     ("mamba2_780m", "tiny_decode"), ("qwen3_moe_30b_a3b", "tiny_train"),
-    ("recurrentgemma_2b", "tiny_prefill"), ("phi3_vision_4_2b", "tiny_train")])
-def test_meta_estimate_equals_a_cpu_run(tiny, arch, shape):
-    low, _, on_meta = _measure(arch, shape, "meta")
-    low_c, outs, on_cpu = _measure(arch, shape, "cpu")
+    ("recurrentgemma_2b", "tiny_prefill"), ("phi3_vision_4_2b", "tiny_train"),
+    ("smollm_360m", "tiny_train", "dp_fsdp"),
+    ("qwen3_moe_30b_a3b", "tiny_train", "dp_fsdp")]
+
+
+@pytest.mark.parametrize("cell", ESTIMATE_CELLS,
+                         ids=["-".join(c) for c in ESTIMATE_CELLS])
+def test_meta_estimate_equals_a_cpu_run(tiny, cell):
+    """The train cells run the sharded step (each layer's weights
+    gathered where used, the gradients reduced to the blocks) under
+    ``baseline`` and ``dp_fsdp``, the latter splitting the batch over
+    every axis and the weights by ``embed`` alone."""
+    arch, shape, policy = (*cell, "baseline")[:3]
+    low, _, on_meta = _measure(arch, shape, "meta", policy)
+    low_c, outs, on_cpu = _measure(arch, shape, "cpu", policy)
     assert on_meta == on_cpu
     assert on_meta[1] > on_meta[0] > 0
     # the outputs are the rank's blocks of the output leaves
@@ -163,6 +192,39 @@ def test_meta_estimate_equals_a_cpu_run(tiny, arch, shape):
 
     for tree, leaves in zip(outs, low_c.outs):
         D._map(check, leaves, tree)
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "qwen3_moe_30b_a3b"])
+def test_seeded_train_cell_cross_entropy(tiny, arch):
+    """A seeded ``dp_fsdp`` train cell's cross-entropy (the rank's metric
+    times the rank count, as ``chip_smoke.py``'s phase 27 (b) reads it)
+    is ``random_head_ce`` within that phase's margin, and the loss is it
+    plus the router's aux term and the z-loss."""
+    import chip_smoke
+
+    low, outs, _ = _measure(arch, "tiny_train", "cpu", "dp_fsdp")
+    mets = {k: float(v) * low.devices for k, v in outs[1].items()
+            if k in ("loss", "ce", "aux")}
+    want = chip_smoke.random_head_ce(low.cfg)
+    assert abs(mets["ce"] - want) <= chip_smoke.DRYRUN_CE_MARGIN, (mets, want)
+    z = mets["loss"] - mets["ce"] - low.cfg.router_aux_weight * mets["aux"]
+    assert 0 < z < 1e-4 * (want + 1) ** 2, (mets, z)
+    assert (mets["aux"] > 0) == bool(low.cfg.num_experts)
+
+
+def test_train_cells_flash_shapes_are_held_by_phases_10_and_14():
+    """Phase 27 (b)'s train cells give flash one rank's row of 4,096
+    tokens a microbatch at head_dim 128: Qwen3-30B-A3B's 32 heads and
+    Qwen1.5-4B's 20; both are among phase 10's forward shapes and phase
+    14's backward shapes, where the kernels are held to their plain
+    versions."""
+    import chip_smoke
+
+    got = chip_smoke.dryrun_train_flash_shapes()
+    assert got == [(32, 4096, 128, 0), (20, 4096, 128, 0)]
+    for shape in got:
+        assert shape in chip_smoke.train_flash_shapes()
+        assert shape in chip_smoke.bwd_shapes()
 
 
 def test_donated_arguments_are_freed(tiny):

@@ -34,6 +34,7 @@ SPAWN_TIMEOUT_S = 240          # each spawn's own time limit
 GROUP_TIMEOUT_S = 60           # each process group's collective timeout
 TOL_EP = dict(rtol=2e-4, atol=2e-4)    # tests/test_system.py's MoE tolerance
 TOL_GRAD = 1e-5                        # relative L2 against world size 1
+SAVE_BUDGET = 4096      # a 4-rank save's budget, under a row of every rank
 
 # the reference MoE test's config (tests/test_system.py:77-81)
 MOE_KW = dict(name="m", family="moe", num_layers=2, d_model=32, num_heads=2,
@@ -84,6 +85,19 @@ GRAD_MESHES = {
 }
 GRAD_ARCHS = ("qwen3_moe_30b_a3b", "smollm_360m")
 GRAD_B, GRAD_S = 4, 16
+# the sharded steps' options: name -> (optimizer, microbatches, remat,
+# rules overrides, meshes); "" is the launcher's default.  Every option
+# runs on every mesh; "resident_ffn" also splits the experts' F over
+# ``data`` in the stored state (the dry run's ``resident`` rules), so that
+# the MoE keeps that split and Adafactor's column moment of the gate and
+# up weights lies otherwise than their blocks
+STEP_VARIANTS = {
+    "": ("adamw", 1, "block", {}, None),
+    "adafactor_mb2_none": ("adafactor", 2, "none", {}, None),
+    "resident_ffn": ("adafactor", 1, "block", {"expert_ffn": ("data",)},
+                     ("resident",)),
+}
+MEM_B, MEM_S, MEM_LAYERS = 4, 8, 4     # the per-rank memory check's step
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +125,13 @@ def make_inputs(path):
                      .astype(np.int32),
         "w_y": rng.standard_normal((4, 16, D)).astype(np.float32),
     }
+    # drawn after the others, which stay as they were: an 8-row batch
+    # (two rows a rank at 4 data ranks, for 2 microbatches), the gather
+    # check's leaf and each rank's weights on it
+    inp["tokens8"] = rng.integers(0, 512, (2, 2 * GRAD_B, GRAD_S + 1)) \
+        .astype(np.int32)
+    inp["gw"] = rng.standard_normal((4, 6)).astype(np.float32)
+    inp["gx"] = rng.standard_normal((2, 4, 6)).astype(np.float32)
     inp["router_drop"] = inp["router"].copy()
     inp["router_drop"][:, 0] += 0.4
     # experts 1 and 2 tie for every token; 0 leads, so 1 (the lower id)
@@ -291,8 +312,166 @@ def grad_cfg(arch, **kw):
     return cfg
 
 
-def grad_batch(inp, i):
-    t = torch.from_numpy(inp["tokens"][i]).long()
+def grad_batch(inp, i, key="tokens"):
+    t = torch.from_numpy(inp[key][i]).long()
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def step_cases(world):
+    """(arch, mesh name, variant) of every sharded-step case at ``world``
+    ranks."""
+    return [(arch, m, v) for arch in GRAD_ARCHS for m in GRAD_MESHES[world]
+            for v, (*_, meshes) in STEP_VARIANTS.items()
+            if meshes is None or m in meshes]
+
+
+def step_setup(arch, mesh_name, variant, world):
+    """The case's config, optimizer, microbatches, rules and batch key."""
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train.optim import OptConfig
+
+    name, mb, remat, rules_kw, _ = STEP_VARIANTS[variant]
+    cfg = grad_cfg(arch, remat=remat, **GRAD_MESHES[world][mesh_name][1])
+    opt = OptConfig(name=name, lr=1e-3, warmup_steps=1, total_steps=10)
+    return (cfg, opt, mb, SH.DEFAULT_RULES.override(**rules_kw),
+            "tokens8" if mb > 1 else "tokens")
+
+
+def state_wholes(state, path=""):
+    """{path: whole tensor} of every tensor leaf of ``state`` (a DTensor
+    gathered whole)."""
+    if isinstance(state, dict):
+        return {k2: v2 for k, v in state.items()
+                for k2, v2 in state_wholes(v, f"{path}{k}.").items()}
+    if hasattr(state, "full_tensor"):
+        return {path: state.full_tensor()}
+    return {path: state} if isinstance(state, torch.Tensor) else {}
+
+
+def mem_cfg():
+    """The memory check's config: a reduced f32 SmolLM at MEM_LAYERS
+    layers under block remat, whose state outweighs a step's activations
+    at MEM_B x MEM_S."""
+    return grad_cfg("smollm_360m", num_layers=MEM_LAYERS, remat="block")
+
+
+def _gather_check(rank, inp):
+    """World size 2 on a (2, 1) mesh: a leaf split over ``data`` and a
+    replicated one, each gathered and multiplied by this rank's own
+    weights: the gathered values, and the gradient landed in the block."""
+    from repro_torch.parallel import sharding as SH
+
+    mesh = SH.make_mesh((2, 1), ("data", "model"), device="cpu")
+    ops = SH.MeshOps(mesh)
+    w, x = torch.from_numpy(inp["gw"]), torch.from_numpy(inp["gx"][rank])
+    out = {}
+    for name, axes in (("split", ("embed", None)), ("replicated", (None,))):
+        sh = SH.logical_sharding(axes, mesh)
+        local = w[sh.local_slices(w.shape, mesh.get_coordinate())].clone()
+        local.requires_grad_(True)
+        full = SH.ShardedLeaf(local, sh, ops, key=name).gather()
+        grad, = torch.autograd.grad((full * x).sum(), [local])
+        out[name] = {"full": full.detach(), "grad": grad,
+                     "slices": sh.local_slices(w.shape,
+                                               mesh.get_coordinate()),
+                     "aliased": full.data_ptr() == local.data_ptr()}
+    return out
+
+
+def rs_inputs(world):
+    """Every rank's tensor for the reduce-scatter check, [world, ...]."""
+    rng = np.random.default_rng(7)
+    return torch.from_numpy(rng.standard_normal(
+        (world, 2 * world, 3 * world, world)).astype(np.float32))
+
+
+def _reduce_scatter_check(world, rank):
+    """``parallel.sharding.reduce_scatter`` of this rank's tensor along each
+    dimension over a (world,) mesh, by the all-reduce route and by the
+    group's own ``reduce_scatter_tensor`` (forced on gloo, which runs it
+    here).  Returns {route: {dim: block}}."""
+    from repro_torch.parallel import sharding as SH
+
+    mesh = SH.make_mesh((world,), ("pod",), device="cpu")
+    x = rs_inputs(world)[rank]
+    real = SH.native_reduce_scatter
+    out = {}
+    for route, native in (("all_reduce", False), ("native", True)):
+        SH.native_reduce_scatter = lambda x, group, native=native: native
+        try:
+            out[route] = {d: SH.reduce_scatter(x, mesh.get_group("pod"), d)
+                          for d in range(x.dim())}
+        finally:
+            SH.native_reduce_scatter = real
+    return out
+
+
+def _memory_check(world, rank, inp):
+    """One sharded step of ``mem_cfg`` at ``world`` ranks on a (world, 1)
+    mesh under ``LiveBytes``: the rank's peak live storage bytes (its
+    state shards and batch rows included), and every block's entry at
+    which a gathered layer of another super-block was still alive."""
+    import weakref
+
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.dryrun import LiveBytes
+    from repro_torch.models import transformer as MT
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import make_train_step, train_state_specs
+
+    cfg = mem_cfg()
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, opt, donate=True)
+    mesh = SH.make_mesh((world, 1), ("data", "model"), device="cpu")
+    shapes, axes = train_state_specs(cfg, opt)
+    state_sh = SH.tree_shardings(axes, shapes, mesh)
+    state = LT.place(LT.init_state(cfg, step, "cpu"), state_sh)
+    jstep = LT.make_sharded_step(step, mesh, state_sh)
+    idx, n = LT.batch_shard(mesh)
+    batch = local_rows(mem_batch(inp), idx, n)
+    alive, seen, late = [], [], []
+    real_gather, real_block = SH.ShardedLeaf.gather, MT.block_fwd
+
+    def gather(self, keep=()):
+        out = real_gather(self, keep)
+        st = out.untyped_storage()
+        if st.data_ptr() != self.local.untyped_storage().data_ptr():
+            alive.append((self.index, weakref.ref(st)))
+        return out
+
+    def block_fwd(kind, cfg_, p, x, **kw):
+        live = [(i, r()) for i, r in alive if r() is not None]
+        mine = {id(v.untyped_storage()) for v in p.values()}
+        now = {i for i, st in live if id(st) in mine}
+        seen.append(sorted(now))
+        others = {i for i, st in live if i is not None and i not in now}
+        if others:
+            late.append((sorted(now), sorted(others)))
+        return real_block(kind, cfg_, p, x, **kw)
+
+    SH.ShardedLeaf.gather, MT.block_fwd = gather, block_fwd
+    mem = LiveBytes("cpu")
+    try:
+        args = sum(mem.track(v.to_local()) for v in _dtensors(state)) + sum(
+            mem.track(t) for t in batch.values())
+        with mem:
+            state, m = jstep(state, batch)
+    finally:
+        SH.ShardedLeaf.gather, MT.block_fwd = real_gather, real_block
+    return {"peak": mem.peak, "args": args, "loss": m["loss"],
+            "blocks": seen, "late": late}
+
+
+def _dtensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _dtensors(v)]
+    return [tree] if hasattr(tree, "to_local") else []
+
+
+def mem_batch(inp):
+    """The memory check's global batch: MEM_B rows of MEM_S tokens."""
+    t = torch.from_numpy(inp["tokens"][0][:MEM_B, :MEM_S + 1]).long()
     return {"tokens": t[:, :-1], "labels": t[:, 1:]}
 
 
@@ -316,15 +495,46 @@ def storage_bytes(state, path=""):
     return {}
 
 
+def _traced_save(path, placed):
+    """A blocking ``CheckpointManager`` save of the DTensor state
+    ``placed`` to ``path``; returns (the leaf's bytes, the peak bytes of
+    the tensors this rank made while it took part in assembling it, the
+    bytes of one leading-axis row of its block) for each split leaf."""
+    from repro_torch.launch.dryrun import LiveBytes
+    from repro_torch.runtime import checkpoint as CK
+
+    gathers = []
+    real = CK._host_sharded
+
+    def host_sharded(leaf):
+        mem = LiveBytes("cpu")
+        block = mem.track(leaf.to_local())
+        with mem:
+            out = real(leaf)
+        gathers.append((leaf.numel() * leaf.element_size(),
+                        mem.peak - block,
+                        block // max(leaf.to_local().shape[0], 1)))
+        return out
+
+    CK._host_sharded = host_sharded
+    try:
+        CK.CheckpointManager(path).save(3, placed, blocking=True)
+    finally:
+        CK._host_sharded = real
+    return gathers
+
+
 def _rank_checks(world, rank, out, inp):
     import torch.distributed as dist
 
     from repro_torch.launch import train as LT
+    from repro_torch.launch.dryrun import LiveBytes
     from repro_torch.models import moe as M
     from repro_torch.models.config import ModelConfig
     from repro_torch.parallel import sharding as SH
     from repro_torch.parallel.compress import compressed_psum_mean
     from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.runtime import checkpoint as CK
     from repro_torch.runtime.checkpoint import CheckpointManager
     from repro_torch.train.optim import OptConfig
     from repro_torch.train.step import make_train_step, train_state_specs
@@ -373,7 +583,7 @@ def _rank_checks(world, rank, out, inp):
             "drops": drops_of(xs.reshape(-1, xs.shape[-1]), p["router"], cfg)}
 
     opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-    b0, b1 = grad_batch(inp, 0), grad_batch(inp, 1)
+    b0 = grad_batch(inp, 0)
     for arch in GRAD_ARCHS:
         for mname, (shape, kw) in GRAD_MESHES[world].items():
             cfg = grad_cfg(arch, **kw)
@@ -387,20 +597,38 @@ def _rank_checks(world, rank, out, inp):
             res[key] = {"loss": LT._mean_over_ranks(loss),
                         "grads": {k: LT._mean_over_ranks(v)
                                   for k, v in grads.items()}}
-            donated = make_train_step(cfg, opt, donate=True)
-            shapes, axes = train_state_specs(cfg, opt)
+
+    for arch, mname, variant in step_cases(world):
+        cfg, opt, mb, rules, bkey = step_setup(arch, mname, variant, world)
+        mesh = SH.make_mesh(GRAD_MESHES[world][mname][0], ("data", "model"),
+                            device="cpu")
+        donated = make_train_step(cfg, opt, microbatches=mb, donate=True)
+        shapes, axes = train_state_specs(cfg, opt)
+        with SH.sharding_context(mesh, rules):
+            idx, n = LT.batch_shard(mesh)
             state_sh = SH.tree_shardings(axes, shapes, mesh)
             state = LT.place(LT.init_state(cfg, donated, "cpu"), state_sh)
             jstep = LT.make_sharded_step(donated, mesh, state_sh)
-            losses = []
-            for b in (b0, b1):
-                state, m = jstep(state, local_rows(b, idx, n))
-                losses.append(m["loss"])
-            res[f"steps/{arch}/{mname}"] = {
-                "losses": losses, "step": state["step"],
-                "storage": storage_bytes(state),
-                "params": {k: v.full_tensor()
-                           for k, v in state["params"].items()}}
+        losses = []
+        for i in range(2):
+            state, m = jstep(state, local_rows(grad_batch(inp, i, bkey),
+                                               idx, n))
+            losses.append(m["loss"])
+        res[f"steps/{arch}/{mname}/{variant}"] = {
+            "losses": losses, "step": state["step"],
+            "storage": storage_bytes(state), **state_wholes(state)}
+
+    res["reduce_scatter"] = _reduce_scatter_check(world, rank)
+    if world == 2:
+        res["gather"] = _gather_check(rank, inp)
+        real = SH.native_reduce_scatter
+        SH.native_reduce_scatter = lambda x, group: True
+        try:
+            res["gather/native"] = _gather_check(rank, inp)
+        finally:
+            SH.native_reduce_scatter = real
+    if world == 4:
+        res["memory"] = _memory_check(world, rank, inp)
 
     # the sharded checkpoint: written at world size 2, read at 4
     cfg, opt, _ = _whole_state()
@@ -414,11 +642,21 @@ def _rank_checks(world, rank, out, inp):
         res["placements"] = {k: v.placements
                              for k, v in placed["params"].items()}
         res["placed"] = {"storage": storage_bytes(placed)}
-        CheckpointManager(ckpt / "sharded").save(3, placed, blocking=True)
+        res["save_gathers"] = _traced_save(ckpt / "sharded", placed)
         if rank == 0:
             CheckpointManager(ckpt / "whole").save(3, whole)
         dist.barrier()
     else:
+        # a save within a budget under one leading-axis row of every rank
+        mesh = SH.make_mesh((4, 1), ("data", "model"), device="cpu")
+        placed = LT.place(LT.init_state(cfg, step, "cpu"),
+                          SH.tree_shardings(axes, shapes, mesh))
+        real = CK.SAVE_GATHER_BYTES
+        CK.SAVE_GATHER_BYTES = SAVE_BUDGET
+        try:
+            res["budget_gathers"] = _traced_save(ckpt / "budget", placed)
+        finally:
+            CK.SAVE_GATHER_BYTES = real
         for shape in ((2, 2), (4, 1)):
             mesh = SH.make_mesh(shape, ("data", "model"), device="cpu")
             sh = SH.tree_shardings(axes, shapes, mesh)
@@ -982,34 +1220,140 @@ def test_ep_gradients(runs, n, arch, mesh):
                    if "we_" in k or "router" in k)
 
 
-@pytest.mark.parametrize("n,arch,mesh", [
-    (n, arch, m) for n in (2, 4) for arch in GRAD_ARCHS
-    for m in GRAD_MESHES[n]])
-def test_two_sharded_steps(runs, n, arch, mesh):
-    """Two sharded launcher steps (DTensor state, batch shards, the mean
-    of the ranks' gradients, AdamW on the whole state) from the seeded
-    state equal two world-size-1 steps: losses and parameters within
-    relative L2 1e-5."""
+@pytest.mark.parametrize("n,arch,mesh,variant", [
+    pytest.param(n, arch, m, v, id="-".join(map(str, (n, arch, m)))
+                 + (f"-{v}" if v else ""))
+    for n in (2, 4) for arch, m, v in step_cases(n)])
+def test_two_sharded_steps(runs, n, arch, mesh, variant):
+    """Two sharded launcher steps (DTensor state kept sharded through the
+    step, batch shards, each gradient reduced to the rank's block, the
+    optimizer on the blocks) from the seeded state equal two world-size-1
+    steps: losses, parameters and optimizer moments within relative L2
+    1e-5.  ``STEP_VARIANTS`` run AdamW and Adafactor, 1 and 2
+    microbatches and remat ``none`` and ``block`` on every mesh."""
     from repro_torch.launch import train as LT
-    from repro_torch.train.optim import OptConfig
     from repro_torch.train.step import make_train_step
 
     _, port = runs[n]
-    cfg = grad_cfg(arch, **GRAD_MESHES[n][mesh][1])
-    step = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1,
-                                          total_steps=10))
+    cfg, opt, mb, _, bkey = step_setup(arch, mesh, variant, n)
+    step = make_train_step(cfg, opt, microbatches=mb)
     state = LT.init_state(cfg, step, "cpu")
     losses = []
     for i in range(2):
-        state, m = step(state, grad_batch(runs["inp"], i))
+        state, m = step(state, grad_batch(runs["inp"], i, bkey))
         losses.append(float(m["loss"]))
+    want = state_wholes(state)
+    assert any(k.startswith("opt.") for k in want)
     for r in port:
-        got = r[f"steps/{arch}/{mesh}"]
+        got = r[f"steps/{arch}/{mesh}/{variant}"]
         assert got["step"] == 2
         for a, b in zip(got["losses"], losses):
             assert abs(float(a) - b) <= TOL_GRAD * abs(b)
-        for k, v in state["params"].items():
-            assert rel_l2(got["params"][k], v) < TOL_GRAD, k
+        for k, v in want.items():
+            assert rel_l2(got[k], v) < TOL_GRAD, (k, rel_l2(got[k], v))
+
+
+def test_gather_sums_the_gradient_over_ranks(runs):
+    """At 2 ranks, each multiplying the gathered leaf by weights of its
+    own (as its batch shard would): a leaf split over ``data`` gathers to
+    the whole leaf, and its backward gives each rank the block of the
+    mean over ranks of the weights, summed over the ranks and not this
+    rank's slice alone (what ``full_tensor()``'s default backward gives).
+    A leaf with no split axis gathers nothing (its block's storage comes
+    back) and its gradient is the mean too."""
+    inp = runs["inp"]
+    _, port = runs[2]
+    mean = inp["gx"].mean(axis=0)
+    for rank, r in enumerate(port):
+        split, rep = r["gather"]["split"], r["gather"]["replicated"]
+        sl = split["slices"]
+        assert np.array_equal(split["full"].numpy(), inp["gw"])
+        assert not split["aliased"]
+        np.testing.assert_allclose(split["grad"].numpy(), mean[sl],
+                                   rtol=1e-6, atol=1e-7)
+        for sliced in (inp["gx"][rank][sl], inp["gx"][rank][sl] / 2):
+            assert not np.allclose(split["grad"].numpy(), sliced)
+        assert rep["aliased"]
+        assert np.array_equal(rep["full"].numpy(), inp["gw"])
+        np.testing.assert_allclose(rep["grad"].numpy(), mean, rtol=1e-6,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_reduce_scatter_is_the_sum_of_the_block(runs, n):
+    """At ``n`` ranks, ``reduce_scatter`` along each dimension gives each
+    rank its block of the sum over ranks, owning only the block's bytes,
+    by the all-reduce route (gloo's) and by ``reduce_scatter_tensor``
+    (NCCL's, run here through gloo), which agree."""
+    xs = rs_inputs(n)
+    total = xs.sum(0)
+    _, port = runs[n]
+    for rank, r in enumerate(port):
+        got = r["reduce_scatter"]
+        assert set(got) == {"all_reduce", "native"}
+        for route, blocks in got.items():
+            assert sorted(blocks) == list(range(total.dim()))
+            for d, block in blocks.items():
+                w = total.shape[d] // n
+                want = total.narrow(d, rank * w, w)
+                assert block.shape == want.shape, (route, d)
+                torch.testing.assert_close(block, want, rtol=1e-6,
+                                           atol=1e-6)
+                assert block.is_contiguous()
+                assert block.untyped_storage().nbytes() == \
+                    block.numel() * block.element_size(), (route, d)
+
+
+def test_gather_gradient_by_the_native_reduce_scatter(runs):
+    """:func:`test_gather_sums_the_gradient_over_ranks`'s gathers with the
+    gradient reduced by ``reduce_scatter_tensor`` (the NCCL route, forced
+    on gloo): the same values and gradients as by the all-reduce route."""
+    _, port = runs[2]
+    for r in port:
+        for name in ("split", "replicated"):
+            a, b = r["gather"][name], r["gather/native"][name]
+            assert torch.equal(a["full"], b["full"])
+            torch.testing.assert_close(a["grad"], b["grad"], rtol=1e-6,
+                                       atol=1e-7)
+            assert a["aliased"] == b["aliased"]
+
+
+def test_sharded_step_memory_per_rank(runs):
+    """At 4 ranks on a (4, 1) mesh, each rank's peak live storage bytes
+    over one step of ``mem_cfg`` (its state shards and batch rows
+    included) stay under half of world size 1's over the same step (the
+    whole state and batch); every block, in the forward and in the remat
+    recompute, runs with its own layer's gathered weights and no gathered
+    weight of another super-block alive; the loss is world size 1's."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.dryrun import LiveBytes
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import make_train_step
+
+    _, port = runs[4]
+    cfg = mem_cfg()
+    step = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1,
+                                          total_steps=10), donate=True)
+    state = LT.init_state(cfg, step, "cpu")
+    batch = mem_batch(runs["inp"])
+    mem = LiveBytes("cpu")
+    args = sum(mem.track(t) for t in pytree.tree_leaves((state, batch)))
+    with mem:
+        state, m = step(state, batch)
+    state_bytes = sum(t.nbytes for t in pytree.tree_leaves(state)
+                      if isinstance(t, torch.Tensor))
+    assert args > 2 * (mem.peak - args), "the state must outweigh the step"
+    layers = sorted([i] for i in range(cfg.n_super) for _ in range(2))
+    for r in port:
+        got = r["memory"]
+        assert got["peak"] < mem.peak / 2, (got["peak"], mem.peak)
+        assert got["args"] < state_bytes / 2
+        assert not got["late"], got["late"]
+        assert sorted(got["blocks"]) == layers, got["blocks"]
+        assert abs(float(got["loss"]) - float(m["loss"])) <= \
+            TOL_GRAD * abs(float(m["loss"]))
 
 
 @pytest.mark.parametrize("remat", ["block", "dots"])
@@ -1086,10 +1430,10 @@ def _bits(t):
 
 
 def test_sharded_save_equals_whole_save(runs, tmp_path):
-    """A save of the DTensor state at world size 2 (each leaf gathered,
-    rank 0 writing) is byte for byte a world-size-1 save of the same
-    state, in the ranks' process and in this one; some leaves were
-    split."""
+    """A save of the DTensor state at world size 2 (each split leaf
+    assembled on rank 0's host, rank 0 writing) is byte for byte a
+    world-size-1 save of the same state, in the ranks' process and in
+    this one; some leaves were split."""
     from torch.distributed.tensor import Shard
 
     from repro_torch.runtime.checkpoint import CheckpointManager
@@ -1105,6 +1449,73 @@ def test_sharded_save_equals_whole_save(runs, tmp_path):
         for f in cmp.common_files:
             assert filecmp.cmp(pathlib.Path(cmp.left) / f, other / f,
                                shallow=False), f
+
+
+def test_sharded_save_holds_no_whole_leaf(runs):
+    """The world-size-2 save assembles each split leaf (params and both
+    moments) in rank 0's host memory a few rows of each block at a time:
+    while a rank takes part in one leaf's assembly, the tensors it makes
+    (on its device; the CPU here, where the host buffer is a numpy array
+    and the copies to it are views) stay under that leaf's bytes: no
+    rank holds a whole leaf."""
+    from torch.distributed.tensor import Shard
+
+    _, port = runs[2]
+    split = sum(any(isinstance(x, Shard) for x in p)
+                for p in port[0]["placements"].values())
+    for r in port:
+        assert len(r["save_gathers"]) == 3 * split > 0
+        for whole, peak, _ in r["save_gathers"]:
+            assert peak < whole, (whole, peak)
+
+
+def test_sharded_save_within_a_budget(runs):
+    """At 4 ranks with ``SAVE_GATHER_BYTES`` under one leading-axis row of
+    every rank's block for some leaves, the save sends parts of rows:
+    the tensors a rank makes while it takes part in one leaf's assembly
+    stay within the budget, and the files are byte for byte a
+    world-size-1 save's."""
+    _, port = runs[4]
+    for r in port:
+        rows = [row for _, _, row in r["budget_gathers"]]
+        assert any(4 * row > SAVE_BUDGET for row in rows)
+        assert any(4 * row <= SAVE_BUDGET for row in rows)
+        for whole, peak, _ in r["budget_gathers"]:
+            assert peak <= SAVE_BUDGET and peak < whole, (whole, peak)
+    cmp = filecmp.dircmp(runs["ckpt"] / "budget" / "step_3",
+                         runs["ckpt"] / "whole" / "step_3")
+    assert not cmp.left_only and not cmp.right_only
+    for f in cmp.common_files:
+        assert filecmp.cmp(pathlib.Path(cmp.left) / f,
+                           pathlib.Path(cmp.right) / f, shallow=False), f
+
+
+@pytest.mark.parametrize("shape,item,world,budget", [
+    ((48, 8, 128, 768), 4, 256, 1 << 28),   # Qwen3's f32 expert moment
+    ((48, 8, 128, 768), 4, 2, 1 << 28),
+    ((5, 7, 3), 2, 4, 100),
+    ((1, 7), 4, 4, 1 << 20),
+    ((3,), 4, 4, 1 << 20)])
+def test_save_pieces_cover_the_block_within_the_budget(monkeypatch, shape,
+                                                       item, world, budget):
+    """``_pieces`` covers a block once, in pieces of which ``world`` + 1
+    fit the budget and each is under half the block, rows split where a
+    row of every rank does not fit (Qwen3-30B-A3B's f32 expert moment
+    block at 256 ranks: 3 MiB a row, 768 MiB for 256 of them)."""
+    from repro_torch.runtime import checkpoint as CK
+
+    monkeypatch.setattr(CK, "SAVE_GATHER_BYTES", budget)
+    pieces = CK._pieces(shape, item, world)
+    cover = np.zeros(shape, np.int64)
+    for sl in pieces:
+        assert len(sl) == len(shape)
+        cover[sl] += 1
+    assert (cover == 1).all()
+    size = max(int(cover[sl].size) for sl in pieces) * item
+    assert (world + 1) * size <= budget
+    assert size <= max(item, cover.size * item // 2)
+    if shape[0] > 1 and world * item * cover[0].size > budget:
+        assert all(sl[1].stop - sl[1].start < shape[1] for sl in pieces)
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
