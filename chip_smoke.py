@@ -6016,24 +6016,57 @@ def attn_windows(cfg):
                    for kind in cfg.layer_kinds if kind in ATTN_KINDS})
 
 
+def dryrun_train_split(arch, policy):
+    """How a ``DRYRUN_TRAIN`` cell splits on the pod's mesh: (config,
+    microbatches, a rank's rows, its q heads, the vocabulary's blocks).
+    The rows are the global batch over the rules' batch axes; the heads
+    and the vocabulary split over ``model`` (tensor parallelism) where
+    the rules' batch leaves ``model`` out and the leaf's spec keeps it
+    (``model`` divides the dimension: ``parallel.sharding.tp_group``)."""
+    from repro_torch import configs as C
+    from repro_torch.launch.dryrun import apply_policy, make_abstract_mesh
+    from repro_torch.parallel import sharding as SH
+
+    cfg, rules, mb = apply_policy(C.get_config(arch), DRYRUN_TRAIN_SHAPE,
+                                  policy)
+    sp = C.SHAPES[DRYRUN_TRAIN_SHAPE]
+    mesh = make_abstract_mesh()
+    model = SH.mesh_shape(mesh)["model"]
+
+    def blocks(axes, shape, dim):
+        """The blocks along ``dim`` a rank's ``model`` group splits."""
+        if "model" in rules.get("batch"):
+            return 1
+        spec = SH.logical_sharding(axes, mesh, rules, shape).spec
+        return model if "model" in SH.spec_axes(spec, len(shape))[dim] else 1
+
+    def shard(axes, shape, dim):
+        spec = SH.logical_sharding(axes, mesh, rules, shape).spec
+        return shape[dim] // math.prod(SH.mesh_shape(mesh)[a] for a in
+                                       SH.spec_axes(spec, len(shape))[dim])
+
+    D, V = cfg.d_model, cfg.vocab_size
+    rows = shard(("batch", "seq"), (sp.global_batch, sp.seq_len), 0)
+    heads = cfg.num_heads // blocks(("embed", "heads", None),
+                                    (D, cfg.num_heads, cfg.head_dim), 1)
+    vocab = (blocks(("vocab", "embed"), (V, D), 0) if cfg.tie_embeddings
+             else blocks(("embed", "vocab"), (D, V), 1))
+    return cfg, mb, rows, heads, vocab
+
+
 def dryrun_train_flash_shapes():
     """flash's [BH, S, hd, window] in phase 27 (b)'s train cells: each of
-    ``DRYRUN_TRAIN`` on one rank's rows of a microbatch (the global batch
-    over every rank of the pod's mesh, then over the policy's
-    microbatches; KV repeated to all heads, each attention kind's
-    window)."""
+    ``DRYRUN_TRAIN`` on one rank's rows of a microbatch and its q heads
+    (:func:`dryrun_train_split`; KV repeated to those heads, each
+    attention kind's window)."""
     from repro_torch import configs as C
-    from repro_torch.launch.dryrun import apply_policy
-    from repro_torch.launch.mesh import PRODUCTION_SHAPES
 
-    sp = C.SHAPES[DRYRUN_TRAIN_SHAPE]
-    ranks = math.prod(PRODUCTION_SHAPES[False][0])
+    S = C.SHAPES[DRYRUN_TRAIN_SHAPE].seq_len
     shapes = []
     for arch, policy in DRYRUN_TRAIN:
-        cfg, _, mb = apply_policy(C.get_config(arch), DRYRUN_TRAIN_SHAPE,
-                                  policy)
-        shapes += [(sp.global_batch // ranks // mb * cfg.num_heads,
-                    sp.seq_len, cfg.head_dim, w) for w in attn_windows(cfg)]
+        cfg, mb, rows, heads, _ = dryrun_train_split(arch, policy)
+        shapes += [(rows // mb * heads, S, cfg.head_dim, w)
+                   for w in attn_windows(cfg)]
     return shapes
 
 
@@ -7520,9 +7553,14 @@ DRYRUN_FLASH_SHAPES = ((1, 32768, 64, 0), (1, 32768, 96, 0),
                        (1, 32768, 128, 0), (1, 32768, 256, 2048))
 DRYRUN_SSD_SHAPE = (48, 128, 256, 64, 128)
 # (b)'s train cells: one rank of the pod's train_4k step each, the state
-# kept sharded, at published width and depth
+# kept sharded, at published width and depth; under baseline the rank's
+# model group splits attention's heads, the MLPs and the vocabulary
+# (tensor parallelism): 16 rows a rank, Qwen3's 2 q heads of 32 and
+# InternLM2's 1 of 16, their KV heads cut from the whole leaves
 DRYRUN_TRAIN = (("qwen3_moe_30b_a3b", "dp_fsdp+flash"),
-                ("qwen1_5_4b", "dp_fsdp+flash"))
+                ("qwen1_5_4b", "dp_fsdp+flash"),
+                ("qwen3_moe_30b_a3b", "baseline+flash"),
+                ("internlm2_1_8b", "baseline+flash"))
 DRYRUN_TRAIN_SHAPE = "train_4k"
 # (b)'s train cells: |cross-entropy - random_head_ce| at most this; the
 # labels' logits average over 4,096 draws of sd sigma sqrt(D) (1.01 at
@@ -7704,17 +7742,22 @@ def dryrun_execute(torch, smi):
     return runs, total
 
 
-def random_head_ce(cfg):
+def random_head_ce(cfg, blocks=1):
     """The cross-entropy that seeded random weights give on labels drawn
     apart from them: the logits are h W with h the final norm's output
     (scale ones: rms 1, |h|^2 = D) and W's entries normal x sigma, the
-    head's ``init_from_specs`` std, so each logit is normal of variance
-    s^2 = sigma^2 D; E[ln sum_V exp] = ln V + s^2 / 2 (V >> e^(s^2)),
-    and the label's logit averages 0."""
+    head's ``init_from_specs`` std (of the whole leaf), so each logit is
+    normal of variance s^2 = sigma^2 D; E[ln sum_V exp] = ln V + s^2 / 2
+    (V >> e^(s^2)), and the label's logit averages 0.  Where the rank's
+    ``model`` group splits the vocabulary into ``blocks`` (tensor
+    parallelism) and its sums over the group move nothing (the dry run's
+    ``DryOps``), the rank's log-sum-exp is over its own V / blocks
+    logits: ln(V / blocks) + s^2 / 2; the label's logit is the block's
+    where the label falls in it, else 0, and still averages 0."""
     D, V = cfg.d_model, cfg.vocab_size
     fan_in = V if cfg.tie_embeddings else D
     sigma = min(0.02, 1.0 / math.sqrt(fan_in))
-    return math.log(V) + sigma * sigma * D / 2
+    return math.log(V / blocks) + sigma * sigma * D / 2
 
 
 def dryrun_train(torch, smi):
@@ -7725,11 +7768,12 @@ def dryrun_train(torch, smi):
     the estimate; each flash kernel launched as ``train_launches_per_step``
     says and nothing else, at a shape of :func:`train_flash_shapes`
     (phases 10 and 14 hold the kernels there); finite metrics; the
-    cross-entropy within ``DRYRUN_CE_MARGIN`` of :func:`random_head_ce`;
-    state and metrics of their shards' shapes.  Returns {arch: record}
-    and the launches of all of them."""
+    cross-entropy within ``DRYRUN_CE_MARGIN`` of :func:`random_head_ce`
+    over the rank's block of the vocabulary; state and metrics of their
+    shards' shapes.  Returns {"arch policy": record} and the launches of
+    all of them."""
     from repro_torch import configs as C
-    from repro_torch.launch.dryrun import apply_policy, run_cell
+    from repro_torch.launch.dryrun import run_cell
 
     runs = {}
     total = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -7744,8 +7788,7 @@ def dryrun_train(torch, smi):
         est = m["argument_bytes"] + m["temp_bytes"]
         check("peak_bytes" in ex, f"{rec['cell']} ({policy}) did not run on "
                                   f"the card: {ex}")
-        cfg, _, mb = apply_policy(C.get_config(arch), DRYRUN_TRAIN_SHAPE,
-                                  policy)
+        cfg, mb, B, heads, vocab = dryrun_train_split(arch, policy)
         want = train_launches_per_step(cfg, mb)
         check(rec["attn_impl"] == "flash" and all(
             counts[k] == n == ex["launches"][k] for k, n in want.items())
@@ -7755,26 +7798,30 @@ def dryrun_train(torch, smi):
               f"{rec['cell']}: loss {ex['loss']}, metrics finite "
               f"{ex['finite']}, state and metrics of their shards' shapes "
               f"{ex['shapes_ok']}")
-        B = C.SHAPES[DRYRUN_TRAIN_SHAPE].global_batch // rec["devices"]
         S = C.SHAPES[DRYRUN_TRAIN_SHAPE].seq_len
-        shapes = [(B // mb * cfg.num_heads, S, cfg.head_dim, w)
+        shapes = [(B // mb * heads, S, cfg.head_dim, w)
                   for w in attn_windows(cfg)]
         check(all(sh in train_flash_shapes() for sh in shapes),
               f"{rec['cell']}: flash at {shapes}, not among phases 10 and "
               f"14's shapes")
         n = rec["devices"]
         loss, ce, aux = (ex[k] * n for k in ("loss", "ce", "aux"))
-        want_ce = random_head_ce(cfg)
+        want_ce = random_head_ce(cfg, vocab)
         moe = (" (the AbstractMesh has no process group: the MoE takes its "
                "dense fallback, the experts gathered whole a layer at a "
                "time)" if cfg.num_experts else "")
+        tp = (f", {heads} of {cfg.num_heads} q heads and 1/{vocab} of the "
+              f"vocabulary a rank (tensor parallelism)"
+              if heads < cfg.num_heads or vocab > 1 else "")
         log(f"{rec['cell']} ({policy}, {cfg.num_layers} layers, {B} x 4,096 "
-            f"a rank, the state sharded){moe}: estimate {est / 2**30:.3f} "
+            f"a rank, the state sharded{tp}){moe}: estimate "
+            f"{est / 2**30:.3f} "
             f"GiB (argument {m['argument_bytes']} B, temp {m['temp_bytes']} "
             f"B), measured peak {ex['peak_bytes'] / 2**30:.3f} GiB "
             f"({ex['peak_bytes']} B), ratio {ex['ratio']:.4f}; the rank's "
-            f"loss {loss:.4f}: cross-entropy {ce:.4f} (ln V + sigma^2 D / 2 "
-            f"= {want_ce:.4f}, ln V {math.log(cfg.vocab_size):.4f}), "
+            f"loss {loss:.4f}: cross-entropy {ce:.4f} (ln(V / {vocab}) + "
+            f"sigma^2 D / 2 = {want_ce:.4f}, ln V "
+            f"{math.log(cfg.vocab_size):.4f}), "
             f"router aux {aux:.4f} x weight {cfg.router_aux_weight} = "
             f"{aux * cfg.router_aux_weight:.4f}, z-loss "
             f"{loss - ce - aux * cfg.router_aux_weight:.4f} (the step's "
@@ -7790,8 +7837,9 @@ def dryrun_train(torch, smi):
               f"outside [{lo}, {hi}]")
         check(abs(ce - want_ce) <= DRYRUN_CE_MARGIN,
               f"{rec['cell']}: the rank's cross-entropy {ce:.4f}, want "
-              f"{want_ce:.4f} +- {DRYRUN_CE_MARGIN} (ln V + sigma^2 D / 2)")
-        runs[arch] = rec
+              f"{want_ce:.4f} +- {DRYRUN_CE_MARGIN} (ln(V / {vocab}) + "
+              f"sigma^2 D / 2)")
+        runs[f"{arch} {policy}"] = rec
         for k in total:
             total[k] += want[k]
         torch.cuda.empty_cache()

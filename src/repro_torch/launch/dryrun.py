@@ -13,8 +13,14 @@ rank of the port runs, on ``meta`` tensors (shapes and types, no storage):
   the state kept sharded: a parameter is gathered one super-block's
   layer slice at a time where the forward uses it, its gradient reduced
   to the rank's block, and the optimizer updates the blocks, through
-  :class:`DryOps`, whose collectives move nothing.  On the
-  ``AbstractMesh`` the MoE takes its dense fallback and gathers its
+  :class:`DryOps`, whose collectives move nothing.  Where ``model``
+  splits their products (tensor parallelism, ``baseline``'s ``heads``,
+  ``kv_heads``, ``ffn`` and ``vocab``), attention, the MLPs and the
+  shared expert gather their block keeping ``model`` and the head
+  projects to the rank's block of the vocabulary; their sums over the
+  group move nothing here, so a rank's cross-entropy is over its own
+  block.  The RG-LRU's and the SSD's own leaves are gathered whole.  On
+  the ``AbstractMesh`` the MoE takes its dense fallback and gathers its
   experts whole, a layer at a time;
 * prefill and decode gather every sharded leaf whole, except along the
   batch axes (``batch``, ``cache_batch``), where the rank keeps its shard
@@ -32,8 +38,8 @@ The record has the reference's keys:
   reference's.
 * ``temp_bytes`` is the peak of the storage bytes alive while the program
   runs (:class:`LiveBytes`), less the arguments'.  It is the port's own
-  program, whose products are not split over ``model`` (no tensor
-  parallelism), not the reference's number.
+  program (its train step's products split over ``model`` as above;
+  prefill and decode gather whole), not the reference's number.
 * ``cost_analysis.flops`` is ``FlopCounterMode``'s count, the kernels'
   products included (``kernels/meta.py``); ``bytes_accessed`` and
   ``transcendentals`` are ``None``: there is no XLA cost model.
@@ -44,7 +50,8 @@ The record has the reference's keys:
 ``run_cell(..., execute=True)`` then runs a prefill or train cell's
 program on the card at the config's width and depth: each argument is its
 shard of a seeded draw of the leaf, a gather draws the leaf (a train
-step's gather, one layer of it) again from the same seed, and the peak
+step's gather, one layer of it; a gather keeping ``model``, rank 0's
+block of that draw) again from the same seed, and the peak
 (``max_memory_allocated`` after ``reset_peak_memory_stats``, less what
 was allocated before the arguments) is held against the estimate.  The
 ``flash`` and ``ssdk`` tokens select the kernels there
@@ -70,7 +77,8 @@ from dataclasses import dataclass
 
 import torch
 from torch.utils import _pytree as pytree
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import configs as C
@@ -306,11 +314,12 @@ def place_tree(xs, leaves):
 class DryOps(SH.MeshOps):
     """The sharded step's collectives on an ``AbstractMesh``, run by the
     dry run's rank (coordinate 0 on every axis): they move nothing.  A
-    sum over ranks leaves the rank's own values, a gather repeats its
-    block, a reduce-scatter keeps its first block (in a tensor of the
-    block's bytes, as NCCL's gives), and the gather of a parameter is ``gather(leaf, x, index)``,
-    the program's own (``meta_gather``, ``seeded_gather``) on the
-    parameter's :class:`Leaf` (``params``, by key)."""
+    sum (or max) over ranks leaves the rank's own values, a gather
+    repeats its block, a reduce-scatter keeps its first block (in a
+    tensor of the block's bytes, as NCCL's gives), and the gather of a
+    parameter is ``gather(leaf, x, index, keep)``, the program's own
+    (``meta_gather``, ``seeded_gather``) on the parameter's :class:`Leaf`
+    (``params``, by key)."""
 
     def __init__(self, mesh, gather, params: dict):
         super().__init__(mesh)
@@ -319,7 +328,7 @@ class DryOps(SH.MeshOps):
     def coordinate(self) -> dict[str, int]:
         return {a: 0 for a in self.sizes}
 
-    def all_reduce(self, x, axis) -> None:
+    def all_reduce(self, x, axis, op="sum") -> None:
         pass
 
     def all_gather(self, x, axis, dim):
@@ -329,18 +338,16 @@ class DryOps(SH.MeshOps):
         return x.narrow(dim, 0, x.shape[dim] // self.sizes[axis]).clone()
 
     def gather(self, leaf, keep):
-        if keep:
-            raise ValueError("the dry run's mesh has no process group: its "
-                             "MoE takes the dense fallback, which keeps "
-                             "nothing split")
-        return self._gather(self.params[leaf.key], leaf.local, leaf.index)
+        return self._gather(self.params[leaf.key], leaf.local, leaf.index,
+                            keep)
 
 
 @dataclass
 class Lowerable:
     """A rank's program for one cell: ``program(gather, *args)`` with
-    ``gather(leaf, shard, index=None) -> local tensor`` (``index``: one
-    layer of a stacked leaf); ``args`` and ``outs`` are
+    ``gather(leaf, shard, index=None, keep=()) -> local tensor``
+    (``index``: one layer of a stacked leaf; ``keep``: mesh axes whose
+    split stays, rank 0's block along them); ``args`` and ``outs`` are
     trees of :class:`Leaf`, one an argument or output; ``donate`` the
     positions of donated arguments, ``unused`` of those the step never
     reads, which ``jax.jit`` drops from the compiled program
@@ -501,13 +508,17 @@ def meta_args(low: Lowerable) -> tuple:
         leaf.shard_shape, dtype=leaf.spec.dtype, device="meta"))
 
 
-def gathered_shape(leaf: Leaf, index=None) -> tuple[int, ...]:
-    """``leaf``'s local shape, of one layer where ``index`` is given."""
-    return leaf.local_shape[1:] if index is not None else leaf.local_shape
+def gathered_shape(leaf: Leaf, index=None, keep=()) -> tuple[int, ...]:
+    """``leaf``'s local shape, its shard's along the dimensions that the
+    axes in ``keep`` split, of one layer where ``index`` is given."""
+    split = SH.spec_axes(leaf.sharding.spec, len(leaf.spec.shape))
+    shape = tuple(s if set(axes) & set(keep) else d for d, s, axes in
+                  zip(leaf.local_shape, leaf.shard_shape, split))
+    return shape[1:] if index is not None else shape
 
 
-def meta_gather(leaf: Leaf, x, index=None):
-    shape = gathered_shape(leaf, index)
+def meta_gather(leaf: Leaf, x, index=None, keep=()):
+    shape = gathered_shape(leaf, index, keep)
     if not isinstance(x, torch.Tensor) or shape == x.shape:
         return x
     return torch.empty(shape, dtype=x.dtype, device=x.device)
@@ -607,11 +618,20 @@ def seeded_args(low: Lowerable, seed: int, device) -> tuple:
 
 
 def seeded_gather(seed: int, device, vocab: int):
-    def gather(leaf: Leaf, x, index=None):
-        shape = gathered_shape(leaf, index)
+    """A gather that draws the leaf's layer again from ``seed``; keeping
+    axes, rank 0's block of that draw, which is drawn whole outside the
+    dispatch modes (so that, as in ``meta_gather``, the block is the one
+    tensor the gather makes under :class:`LiveBytes`)."""
+    def gather(leaf: Leaf, x, index=None, keep=()):
+        shape = gathered_shape(leaf, index, keep)
         if not isinstance(x, torch.Tensor) or shape == x.shape:
             return x
-        return seeded_leaf(leaf, shape, seed, device, vocab, index)
+        whole = gathered_shape(leaf, index)
+        if shape == whole:
+            return seeded_leaf(leaf, shape, seed, device, vocab, index)
+        with _disable_current_modes():
+            t = seeded_leaf(leaf, whole, seed, device, vocab, index)
+        return t[tuple(slice(0, n) for n in shape)].clone()
     return gather
 
 

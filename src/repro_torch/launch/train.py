@@ -15,9 +15,16 @@ their count, ``parallel.sharding.MeshOps``), and the optimizer updates
 only the local blocks (``parallel.sharding.StateShards`` for its sums over
 whole leaves).  The loss and its extras are averaged over every rank.
 The state is donated: the step empties the dicts it was given.  At world
-size 1 this is ``make_train_step``'s step, bit for bit.  The products are
-not split over ``model`` (tensor parallelism): each rank runs the whole
-forward and backward of its batch shard with a layer's weights whole.
+size 1 this is ``make_train_step``'s step, bit for bit.  Where a leaf's
+spec splits its product over ``model`` and the rules' batch leaves
+``model`` out (``baseline``'s ``heads``, ``kv_heads``, ``ffn`` and
+``vocab``), the ranks of a ``model`` group split the product (tensor
+parallelism, ``parallel.sharding.tp_group``): each runs its batch shard
+through its block of attention's heads, of the MLPs' hidden units and of
+the vocabulary (its logits and the vocab-parallel cross-entropy), the
+partial outputs summed over the group; everything else (the RG-LRU's and
+the SSD's own leaves, a dimension ``model`` does not divide, rules that
+put the batch over ``model``) runs with a layer's weights whole.
 
 Auto-resume through ``CheckpointManager.restore(placements=)``, the
 straggler tracker and the reference's checkpoint cadence and log lines.
@@ -184,9 +191,10 @@ def make_sharded_step(step_fn, mesh, state_sh, *, ops=None,
     ``parallel.sharding.ShardedLeaf`` of its local block; the gathers'
     backward sums each gradient over the ranks that hold its block and
     divides it by the rank count, so that ranks sharing a batch shard
-    (along ``model``: equal losses, partial-sum gradients,
-    ``models/moe.py``) and ranks on other shards together give the global
-    batch's gradient, in the block.  The loss and its extras are averaged
+    (along ``model``: equal losses; partial-sum gradients of the MoE's
+    experts, ``models/moe.py``, and of the products split over ``model``,
+    each rank's own block's) and ranks on other shards together give the
+    global batch's gradient, in the block.  The loss and its extras are averaged
     over every rank.  At one rank nothing is gathered or reduced: the
     local blocks are the whole leaves.  The step runs under ``mesh`` and
     the rules current when it was made.  ``ops``

@@ -14,6 +14,17 @@ constraints have no counterpart at the call sites: the port's launcher
 runs each rank's forward on plain local tensors (its batch shard, the
 weights gathered), where such a constraint changes no number
 (``parallel/sharding.py``).
+
+**Tensor parallelism.**  Where the sharded step hands attention or an
+MLP a rank's shards whose product ``model`` splits
+(``parallel.sharding.tp_group``), the module gathers them keeping
+``model`` and runs its own block: attention its ``H/tp`` heads (``wq``,
+``wo`` and their biases kept split; ``wk`` and ``wv`` kept split where
+``kv_heads`` splits too, else whole and cut to the KV heads its q heads
+read), the MLP its ``F/tp`` columns of ``w_up`` / ``w_gate`` and rows of
+``w_down``; the row-split product's partial output is summed over the
+group.  :data:`TP_WEIGHTS` are the leaves these modules gather
+themselves.
 """
 
 from __future__ import annotations
@@ -25,8 +36,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attn import flash_attention
+from repro_torch.parallel import sharding as SH
 
 Spec = tuple[tuple[int, ...], tuple[str | None, ...]]
+
+#: attention's and the MLP's leaves, which those modules gather themselves
+#: where tensor parallelism splits them
+MLP_WEIGHTS = ("w_up", "w_gate", "w_down")
+TP_WEIGHTS = ("wq", "wk", "wv", "wo", "wq_b", "wk_b", "wv_b") + MLP_WEIGHTS
 
 NEG = -1e30         # the naive and flash paths mask with this, not -inf
 
@@ -157,6 +174,27 @@ def _qkv(p, x, cfg, positions):
     return q, k, v
 
 
+def _tp_heads(p, cfg, tp: SH.TPGroup):
+    """Attention's weights for this rank's ``H/tp`` q heads under ``tp``:
+    its blocks of ``wq``, ``wo`` and ``wq_b``; of ``wk``, ``wv`` and their
+    biases its blocks where ``kv_heads`` splits too, else the KV heads its
+    q heads read, cut from the whole leaves.  Returns (the weights, the
+    rank's head count, where its q heads start among those KV heads
+    repeated ``group_size`` times)."""
+    h0, hl = tp.block(cfg.num_heads)
+    kv = [k for k in ("wk", "wv", "wk_b", "wv_b") if k in p]
+    w = {k: p[k].gather((SH.TP_AXIS,)) for k in ("wq", "wq_b", "wo")
+         if k in p}
+    if SH.tp_group(p["wk"]) is not None:
+        w.update({k: p[k].gather((SH.TP_AXIS,)) for k in kv})
+        return w, hl, 0
+    G = cfg.group_size
+    lo, hi = h0 // G, (h0 + hl - 1) // G + 1
+    w.update({k: SH.gathered(p[k]).narrow(0 if k.endswith("_b") else 1, lo,
+                                          hi - lo) for k in kv})
+    return w, hl, h0 - lo * G
+
+
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd")`` in ``o``'s type."""
     B, S, H, hd = o.shape
@@ -210,17 +248,28 @@ def attention_seq_kv(p, x, cfg, *, window: int = 0):
     version on a CPU one) and, as the reference's flash branch does,
     applies no ``attn_logit_softcap``.  ``naive`` and ``fused`` process Q
     in ``cfg.q_chunk`` blocks, bounding the live score tensor to
-    ``[B, H, q_chunk, S]``.
+    ``[B, H, q_chunk, S]``.  Under tensor parallelism ``H`` is the rank's
+    ``H/tp`` heads (see the module), whose output is summed over the
+    group, and ``k_kv`` / ``v_kv`` hold the KV heads they read.
     """
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
+    tp, first = SH.tp_group(p["wq"]), 0
+    if tp is not None:
+        p, H, first = _tp_heads(p, cfg, tp)
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _qkv(p, x, cfg, positions)
     k_kv, v_kv = k, v
     if cfg.group_size > 1:
         k = torch.repeat_interleave(k, cfg.group_size, dim=2)
         v = torch.repeat_interleave(v, cfg.group_size, dim=2)
+    if k.shape[2] != H:
+        k, v = k.narrow(2, first, H), v.narrow(2, first, H)
     scale = float(1.0 / np.sqrt(hd))
+
+    def out(o):
+        y = _out_proj(o, p["wo"])
+        return (y if tp is None else tp.sum(y)), (k_kv, v_kv)
 
     if cfg.attn_impl == "flash":
         bq = bk = min(max(128, cfg.q_chunk // 8), 512, S)
@@ -228,8 +277,7 @@ def attention_seq_kv(p, x, cfg, *, window: int = 0):
         kf = k.permute(0, 2, 1, 3).reshape(B * H, S, hd)
         vf = v.permute(0, 2, 1, 3).reshape(B * H, S, hd)
         of = flash_attention(qf, kf, vf, scale, window, bq, bk)
-        o = of.reshape(B, H, S, hd).permute(0, 2, 1, 3)
-        return _out_proj(o, p["wo"]), (k_kv, v_kv)
+        return out(of.reshape(B, H, S, hd).permute(0, 2, 1, 3))
     if cfg.attn_impl not in ("naive", "fused"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r} "
                          "(naive | fused | flash)")
@@ -240,9 +288,9 @@ def attention_seq_kv(p, x, cfg, *, window: int = 0):
         raise ValueError(f"sequence length {S} is not a multiple of the "
                          f"q chunk {C} (cfg.q_chunk)")
     kpos = torch.arange(S, device=x.device)
-    o = torch.cat([block(q[:, s0:s0 + C], k, v, kpos[s0:s0 + C], kpos, scale,
-                         cfg, window) for s0 in range(0, S, C)], dim=1)
-    return _out_proj(o, p["wo"]), (k_kv, v_kv)
+    return out(torch.cat([block(q[:, s0:s0 + C], k, v, kpos[s0:s0 + C], kpos,
+                                scale, cfg, window)
+                          for s0 in range(0, S, C)], dim=1))
 
 
 def attention_seq(p, x, cfg, *, window: int = 0):
@@ -349,11 +397,18 @@ def mlp_specs(cfg, hidden: int | None = None, prefix: str = "") -> dict[str, Spe
 
 def mlp(p, x, cfg, prefix: str = ""):
     """SwiGLU when ``cfg.mlp_gated``, else gelu — the tanh approximation,
-    which is what ``jax.nn.gelu`` computes by default."""
+    which is what ``jax.nn.gelu`` computes by default.  Under tensor
+    parallelism the rank's ``F/tp`` columns, its partial down-projection
+    summed over the group (see the module)."""
+    tp = SH.tp_group(p[f"{prefix}w_up"])
+    if tp is not None:
+        p = {f"{prefix}{k}": p[f"{prefix}{k}"].gather((SH.TP_AXIS,))
+             for k in MLP_WEIGHTS if f"{prefix}{k}" in p}
     up = _mm(x, p[f"{prefix}w_up"])
     if cfg.mlp_gated:
         g = _mm(x, p[f"{prefix}w_gate"])
         h = F.silu(g) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return _mm(h, p[f"{prefix}w_down"])
+    y = _mm(h, p[f"{prefix}w_down"])
+    return y if tp is None else tp.sum(y)

@@ -44,7 +44,8 @@ shards (``parallel.sharding.ShardedLeaf``): the expert-parallel paths
 gather them over every axis but ``model`` (and ``data`` where it splits
 F on the resident path), and the gather's backward sums each block's
 gradient over the ranks that hold it, so no rank holds every expert;
-the dense fallback gathers them whole.
+the dense fallback gathers them whole.  The shared expert is
+``layers.mlp``, split over ``model`` as any MLP (tensor parallelism).
 
 Drops and ties are the reference's exactly: top-k breaks a tie in
 probability toward the lower expert id (``jax.lax.top_k``'s order; a
@@ -63,13 +64,17 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import Spec, mlp
 from repro_torch.parallel.sharding import (AbstractMesh, AllGather,
-                                           ReduceScatter, ShardedLeaf,
-                                           current_mesh, current_rules,
-                                           gathered, mesh_shape)
+                                           AllReduce, MeshOps, ReduceScatter,
+                                           ShardedLeaf, current_mesh,
+                                           current_rules, gathered,
+                                           mesh_shape)
 
 #: the leaves the MoE gathers itself when they are a rank's shards: the
 #: expert-parallel paths keep the experts split over ``model``
 EXPERT_WEIGHTS = ("we_gate", "we_up", "we_down")
+#: the shared expert's, which ``layers.mlp`` splits over ``model`` as an
+#: MLP's (tensor parallelism)
+SHARED_WEIGHTS = ("ws_gate", "ws_up", "ws_down")
 
 
 def moe_specs(cfg, prefix: str = "") -> dict[str, Spec]:
@@ -170,28 +175,8 @@ def _combine(out_buf, slot, comb_w, t: int, k: int):
 
 # ---------------------------------------------------------------------------
 # differentiable collectives over a process group (each backward is its
-# forward's adjoint over all ranks; the gather and the reduce-scatter are
-# ``parallel.sharding``'s)
-
-
-class _AllReduce(torch.autograd.Function):
-    """The sum (``mean=True``: the mean) over ranks; backward: the same
-    reduction of the cotangents."""
-
-    @staticmethod
-    def forward(ctx, x, group, mean):
-        y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
-        ctx.group, ctx.mean = group, mean
-        return y / dist.get_world_size(group) if mean else y
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        if ctx.mean:
-            g = g / dist.get_world_size(ctx.group)
-        return g, None, None
+# forward's adjoint over all ranks; the gather, the reduce-scatter and the
+# all-reduce are ``parallel.sharding``'s)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -242,6 +227,7 @@ def moe_ffn(p, x, cfg, prefix: str = ""):
     resident = (cfg.moe_expert_resident and "data" in sizes
                 and cfg.moe_hidden % sizes["data"] == 0)
 
+    ops = MeshOps(mesh)
     g_model = mesh.get_group("model")
     mi = mesh.get_local_rank("model")
     es = slice(mi * e_loc, (mi + 1) * e_loc)
@@ -296,10 +282,10 @@ def moe_ffn(p, x, cfg, prefix: str = ""):
         else:
             out = _expert_ffn(buf, wg, wu, wd)
         y_tok = _combine(out, slot, comb_w, t, k)
-        y = _AllReduce.apply(y_tok.reshape(B, S, D), g_model, False)
-    aux = _AllReduce.apply(aux, g_model, True)
+        y = AllReduce.apply(y_tok.reshape(B, S, D), ops, "model", False)
+    aux = AllReduce.apply(aux, ops, "model", True)
     for a in batch_axes:
-        aux = _AllReduce.apply(aux, mesh.get_group(a), True)
+        aux = AllReduce.apply(aux, ops, a, True)
 
     if cfg.shared_expert:
         y = y + _shared(p, x, cfg, prefix)

@@ -18,7 +18,15 @@ Three modes share the block implementations:
 shard is gathered where it is used, a super-block's leaves just before
 the block runs (inside its remat), the embedding, ``final_scale`` and
 the head where they are read, so that outside the running block a rank
-holds only its shards.  Whole tensors run the same code, op for op.
+holds only its shards.  Where ``model`` splits a product (tensor
+parallelism, ``parallel.sharding.tp_group``), attention, the MLPs and
+the MoE's shared expert gather their leaves keeping ``model``
+(``layers.py``), and the head projects to the rank's block of the
+vocabulary, f32 logits ``[B, S, V/tp]`` (:func:`head_split`;
+``train/step.py``'s ``cross_entropy`` takes it), so that no rank holds
+f32 logits over the whole vocabulary.  The RG-LRU's and the SSD's own
+leaves, the embedding and the norms are gathered whole.  Whole tensors
+run the same code, op for op.
 
 In ``train`` mode with grad enabled, each super-block runs under
 ``cfg.remat``, as the reference's ``_maybe_remat``: ``"none"`` keeps every
@@ -271,12 +279,26 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return C.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+_TP_WEIGHTS = L.TP_WEIGHTS + M.SHARED_WEIGHTS
+
+
 def _gather_block(p: dict) -> dict:
     """A block's leaves gathered whole where they are a rank's shards
-    (``parallel.sharding.ShardedLeaf``), but the experts' weights, which
-    the MoE gathers itself; whole tensors pass unchanged."""
-    return {k: v if k in M.EXPERT_WEIGHTS else SH.gathered(v)
-            for k, v in p.items()}
+    (``parallel.sharding.ShardedLeaf``), but those a module gathers
+    itself: the experts' weights (the MoE keeps them split over
+    ``model``), and attention's, the MLP's and the shared expert's where
+    ``model`` splits their products; whole tensors pass unchanged."""
+    return {k: v if k in M.EXPERT_WEIGHTS or (
+                k in _TP_WEIGHTS and SH.tp_group(v) is not None)
+            else SH.gathered(v) for k, v in p.items()}
+
+
+def head_split(params: dict, cfg: ModelConfig):
+    """The group (``parallel.sharding.TPGroup``) whose ranks each project
+    to their block of the vocabulary: where ``model`` splits the head
+    (``lm_head``, or the tied ``tok_embed``); else None."""
+    return SH.tp_group(params["tok_embed" if cfg.tie_embeddings
+                              else "lm_head"])
 
 
 def _maybe_remat(fn, cfg: ModelConfig):
@@ -308,7 +330,9 @@ def _maybe_remat(fn, cfg: ModelConfig):
 
 def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train",
             cache: dict | None = None, pos=None):
-    """Run the stack.  Returns (logits f32, new_cache, aux_loss).
+    """Run the stack.  Returns (logits f32, new_cache, aux_loss); the
+    logits over the rank's block of the vocabulary where
+    :func:`head_split` gives a group.
 
     inputs: {"tokens": [B,S] integers, optional "ext_embed": [B,L,D]}.
     decode mode: tokens is [B,1]; ``pos`` is a scalar position, or a
@@ -376,7 +400,7 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train"
                 new_cache[f"t{ti}_{k}"] = v
 
     x = L.rmsnorm(x, SH.gathered(params["final_scale"]), cfg.norm_eps)
-    head = (SH.gathered(params["tok_embed"]).T if cfg.tie_embeddings
-            else SH.gathered(params["lm_head"]))
+    head = (SH.tp_gathered(params["tok_embed"]).T if cfg.tie_embeddings
+            else SH.tp_gathered(params["lm_head"]))
     logits = x.float() @ head.to(x.dtype).float()
     return logits, (new_cache if new_cache else None), aux_total

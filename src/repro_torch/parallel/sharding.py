@@ -33,6 +33,19 @@ divides it by the rank count (:class:`MeshOps`).  :class:`StateShards`
 gives the optimizer the sums over ranks that stand in for its whole-leaf
 reductions.  The ``jax`` version shims (``make_mesh``'s ``axis_types``,
 ``shard_map``) have no counterpart.
+
+**Products split over ``model``** (tensor parallelism, the reference's
+``heads``, ``kv_heads``, ``ffn`` and ``vocab`` rules): where a leaf's
+stored spec splits its product's dimension over a ``model`` axis of more
+than one rank and the rules' batch leaves ``model`` out, the module that
+uses it gathers it keeping ``model`` (:func:`tp_group`,
+:func:`tp_gathered`) and sums its partial products over the group
+(:class:`TPGroup`), through the leaf's :class:`MeshOps`.  Each
+collective's backward is its exact adjoint (:class:`AllReduce`: a sum's
+is the sum), so a rank's gradient is the derivative of the sum of every
+rank's loss, which :meth:`MeshOps.reduce` divides by the rank count:
+ranks of one ``model`` group compute the same loss, so this is the
+global batch's gradient, as for the MoE's expert-parallel paths.
 """
 
 from __future__ import annotations
@@ -370,9 +383,9 @@ def from_local(local: torch.Tensor, sharding: NamedSharding):
 
 
 # ---------------------------------------------------------------------------
-# Collectives over a process group, and the differentiable pair built from
-# them (each one's backward is the other): the sharded step's gathers and
-# the MoE's expert-parallel paths both run these
+# Collectives over a process group, and the differentiable ones built from
+# them (each one's backward its adjoint): the sharded step's gathers and
+# sums and the MoE's expert-parallel paths all run these
 
 
 def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -413,6 +426,28 @@ def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     s = x.contiguous().clone()
     dist.all_reduce(s, group=group)
     return s.narrow(dim, dist.get_rank(group) * w, w).clone()
+
+
+def _summed(x: torch.Tensor, ops: "MeshOps", axis: str,
+            mean: bool) -> torch.Tensor:
+    y = x.contiguous().clone()
+    ops.all_reduce(y, axis)
+    return y / ops.sizes[axis] if mean else y
+
+
+class AllReduce(torch.autograd.Function):
+    """The sum over the ranks along ``axis`` of ``ops``'s mesh (``mean``:
+    divided by their count); backward: the same reduction of the
+    cotangents, its adjoint."""
+
+    @staticmethod
+    def forward(ctx, x, ops, axis, mean):
+        ctx.ops, ctx.axis, ctx.mean = ops, axis, mean
+        return _summed(x, ops, axis, mean)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.ops, ctx.axis, ctx.mean), None, None, None
 
 
 class AllGather(torch.autograd.Function):
@@ -475,11 +510,13 @@ class MeshOps:
     def coordinate(self) -> dict[str, int]:
         return dict(zip(self.sizes, self.mesh.get_coordinate()))
 
-    def all_reduce(self, x: torch.Tensor, axis: str) -> None:
-        """Sums ``x`` in place over the ranks along ``axis``."""
+    def all_reduce(self, x: torch.Tensor, axis: str, op: str = "sum") -> None:
+        """Reduces ``x`` in place over the ranks along ``axis``: their sum,
+        or their elementwise ``"max"``."""
         import torch.distributed as dist
 
-        dist.all_reduce(x, group=self.mesh.get_group(axis))
+        red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+        dist.all_reduce(x, op=red, group=self.mesh.get_group(axis))
 
     def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """The blocks of the ranks along ``axis`` concatenated on ``dim``."""
@@ -632,6 +669,65 @@ class _Gather(torch.autograd.Function):
 def gathered(x):
     """A :class:`ShardedLeaf` gathered whole; anything else unchanged."""
     return x.gather() if isinstance(x, ShardedLeaf) else x
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: products split over ``model``
+
+TP_AXIS = "model"
+
+
+@dataclass(frozen=True)
+class TPGroup:
+    """The ranks along ``model`` that split a product between them, seen
+    from one of them: ``ops`` runs the collectives, over ``size`` ranks,
+    of which this one is ``index``."""
+
+    ops: MeshOps
+    size: int
+    index: int
+
+    def block(self, n: int) -> tuple[int, int]:
+        """(start, width) of this rank's block of a dimension of ``n``."""
+        w = n // self.size
+        return self.index * w, w
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the group (:class:`AllReduce`)."""
+        return AllReduce.apply(x, self.ops, TP_AXIS, False)
+
+    def max_(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (no gradient) replaced in place by its elementwise max
+        over the group."""
+        self.ops.all_reduce(x, TP_AXIS, "max")
+        return x
+
+
+def tp_group(x) -> TPGroup | None:
+    """The group that splits ``x``'s product: where ``x`` is a
+    :class:`ShardedLeaf` whose stored spec splits a dimension over a
+    ``model`` axis of more than one rank and the current rules' batch
+    leaves ``model`` out.  None elsewhere: whole tensors, a one-rank
+    ``model``, a dimension ``model`` does not divide (its spec drops the
+    axis), rules that put the batch over ``model`` (``dp_fsdp``,
+    ``dp_all``, ``attn_dp``)."""
+    if not isinstance(x, ShardedLeaf):
+        return None
+    n = x.ops.sizes.get(TP_AXIS, 1)
+    if n == 1 or TP_AXIS in current_rules().get("batch"):
+        return None
+    if not any(TP_AXIS in axes for axes in spec_axes(x.sharding.spec,
+                                                      x.local.dim())):
+        return None
+    return TPGroup(x.ops, n, x.ops.coordinate()[TP_AXIS])
+
+
+def tp_gathered(x):
+    """``x`` gathered keeping ``model`` where :func:`tp_group` splits its
+    product (the rank's block along that dimension), else whole."""
+    if tp_group(x) is not None:
+        return x.gather((TP_AXIS,))
+    return gathered(x)
 
 
 def local_of(x):

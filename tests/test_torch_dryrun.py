@@ -105,16 +105,23 @@ def test_run_cell_matches_reference(reference, cell):
 
 # train_4k pod cells whose state the sharded step keeps sharded: (arch,
 # policy) -> the bound on temp_bytes in GiB (gathering the state whole,
-# the port's step took 487.85 and 58.01 GiB)
+# the port's step took 487.85 and 58.01 GiB under dp_fsdp; under
+# baseline, with the products whole, Qwen3 took 200.13 and InternLM2
+# 121.18; split over model 32.82 and 13.19)
 SHARDED_TRAIN = {("qwen3_moe_30b_a3b", "dp_fsdp"): 24.0,
-                 ("qwen1_5_4b", "dp_fsdp"): 15.0}
+                 ("qwen1_5_4b", "dp_fsdp"): 15.0,
+                 ("qwen3_moe_30b_a3b", "baseline"): 36.0,
+                 ("internlm2_1_8b", "baseline"): 15.0}
 
 
 @pytest.mark.parametrize("arch,policy", list(SHARDED_TRAIN))
 def test_sharded_train_cell_fits(arch, policy):
-    """One rank's ``train_4k`` step on the pod under ``dp_fsdp`` holds
-    its 1/256 of the state and one layer's weights gathered at a time:
-    its temp bytes stay under the bound and the cell fits one card."""
+    """One rank's ``train_4k`` step on the pod holds its share of the
+    state and one layer's weights gathered at a time (under ``dp_fsdp``
+    its 1/256; under ``baseline`` its ``model`` group splits attention's
+    heads, the MLPs and the vocabulary, so that its f32 logits are over
+    1/16 of the vocabulary): its temp bytes stay under the bound and the
+    cell fits one card."""
     rec = D.run_cell(arch, "train_4k", "pod", policy, save=False)
     temp = rec["memory"]["temp_bytes"] / 2**30
     assert temp < SHARDED_TRAIN[(arch, policy)], temp
@@ -168,7 +175,8 @@ ESTIMATE_CELLS = [
     ("mamba2_780m", "tiny_decode"), ("qwen3_moe_30b_a3b", "tiny_train"),
     ("recurrentgemma_2b", "tiny_prefill"), ("phi3_vision_4_2b", "tiny_train"),
     ("smollm_360m", "tiny_train", "dp_fsdp"),
-    ("qwen3_moe_30b_a3b", "tiny_train", "dp_fsdp")]
+    ("qwen3_moe_30b_a3b", "tiny_train", "dp_fsdp"),
+    ("recurrentgemma_2b", "tiny_train"), ("internlm2_1_8b", "tiny_train")]
 
 
 @pytest.mark.parametrize("cell", ESTIMATE_CELLS,
@@ -177,7 +185,11 @@ def test_meta_estimate_equals_a_cpu_run(tiny, cell):
     """The train cells run the sharded step (each layer's weights
     gathered where used, the gradients reduced to the blocks) under
     ``baseline`` and ``dp_fsdp``, the latter splitting the batch over
-    every axis and the weights by ``embed`` alone."""
+    every axis and the weights by ``embed`` alone; under ``baseline`` the
+    products split over ``model`` (tensor parallelism: the gathers that
+    keep ``model`` return rank 0's block), RecurrentGemma's RG-LRU
+    blocks whole beside its split MLPs and local attention, InternLM2's
+    KV heads split with its q heads."""
     arch, shape, policy = (*cell, "baseline")[:3]
     low, _, on_meta = _measure(arch, shape, "meta", policy)
     low_c, outs, on_cpu = _measure(arch, shape, "cpu", policy)
@@ -200,12 +212,27 @@ def test_seeded_train_cell_cross_entropy(tiny, arch):
     times the rank count, as ``chip_smoke.py``'s phase 27 (b) reads it)
     is ``random_head_ce`` within that phase's margin, and the loss is it
     plus the router's aux term and the z-loss."""
+    _check_cross_entropy(arch, "dp_fsdp")
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "qwen3_moe_30b_a3b"])
+def test_seeded_tp_train_cell_cross_entropy(tiny, arch):
+    """:func:`test_seeded_train_cell_cross_entropy` under ``baseline``:
+    the (2, 2) mesh's ``model`` splits the head's vocabulary in two and
+    the dry run's sums over the group move nothing, so the rank's
+    cross-entropy is over its 256 logits, ln(V / 2) + sigma^2 D / 2 (the
+    head tied for SmolLM, ``lm_head`` for Qwen3)."""
+    _check_cross_entropy(arch, "baseline")
+
+
+def _check_cross_entropy(arch, policy):
     import chip_smoke
 
-    low, outs, _ = _measure(arch, "tiny_train", "cpu", "dp_fsdp")
+    low, outs, _ = _measure(arch, "tiny_train", "cpu", policy)
     mets = {k: float(v) * low.devices for k, v in outs[1].items()
             if k in ("loss", "ce", "aux")}
-    want = chip_smoke.random_head_ce(low.cfg)
+    blocks = MESH.shape["model"] if policy == "baseline" else 1
+    want = chip_smoke.random_head_ce(low.cfg, blocks)
     assert abs(mets["ce"] - want) <= chip_smoke.DRYRUN_CE_MARGIN, (mets, want)
     z = mets["loss"] - mets["ce"] - low.cfg.router_aux_weight * mets["aux"]
     assert 0 < z < 1e-4 * (want + 1) ** 2, (mets, z)
@@ -213,15 +240,21 @@ def test_seeded_train_cell_cross_entropy(tiny, arch):
 
 
 def test_train_cells_flash_shapes_are_held_by_phases_10_and_14():
-    """Phase 27 (b)'s train cells give flash one rank's row of 4,096
-    tokens a microbatch at head_dim 128: Qwen3-30B-A3B's 32 heads and
-    Qwen1.5-4B's 20; both are among phase 10's forward shapes and phase
-    14's backward shapes, where the kernels are held to their plain
-    versions."""
+    """Phase 27 (b)'s train cells give flash one rank's rows of 4,096
+    tokens a microbatch at head_dim 128: under ``dp_fsdp`` one row of
+    Qwen3-30B-A3B's 32 heads and of Qwen1.5-4B's 20; under ``baseline``
+    16 rows of the rank's heads (tensor parallelism over 16 ranks):
+    Qwen3's 2 and InternLM2-1.8B's 1.  All are among phase 10's forward
+    shapes and phase 14's backward shapes, where the kernels are held to
+    their plain versions."""
     import chip_smoke
 
     got = chip_smoke.dryrun_train_flash_shapes()
-    assert got == [(32, 4096, 128, 0), (20, 4096, 128, 0)]
+    assert got == [(32, 4096, 128, 0), (20, 4096, 128, 0),
+                   (32, 4096, 128, 0), (16, 4096, 128, 0)]
+    assert [chip_smoke.dryrun_train_split(*c)[2:] for c in
+            chip_smoke.DRYRUN_TRAIN] == [(1, 32, 1), (1, 20, 1),
+                                         (16, 2, 16), (16, 1, 16)]
     for shape in got:
         assert shape in chip_smoke.train_flash_shapes()
         assert shape in chip_smoke.bwd_shapes()

@@ -1,10 +1,15 @@
 """The sharded step's collectives over NCCL, on four cards of one host:
 ``parallel.sharding.reduce_scatter`` through ``reduce_scatter_tensor``
 (the route a CUDA tensor takes over NCCL; gloo's all-reduce route is
-``tests/test_torch_parallel.py``'s), and two sharded launcher steps of
-every ``test_torch_parallel.step_cases(4)`` case against two world-size-1
-steps on the same card.  Marked ``cuda``; skips with fewer than four
-cards.  The file imports nothing of the JAX package:
+``tests/test_torch_parallel.py``'s), two sharded launcher steps of every
+``test_torch_parallel.step_cases(4)`` case against two world-size-1
+steps on the same card (on the ``model`` and ``resident`` meshes the
+products split over ``model``: tensor parallelism), and one sharded
+step's loss and gradients at published width (``PUBLISHED``:
+InternLM2-1.8B at 4 layers in f32 on a (1, 4) mesh, every product split
+over the four cards) against world size 1 on the first card.  Marked
+``cuda``; skips with fewer than four cards.  The file imports nothing of
+the JAX package:
 
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider \
         -m cuda tests/test_torch_nccl.py
@@ -27,6 +32,12 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 import test_torch_parallel as TP  # noqa: E402
 
 WORLD = 4
+# the published-width case: (arch, layers, mesh, batch, sequence); f32,
+# TF32 off, attention through the flash kernels' f32 route
+PUBLISHED = ("internlm2_1_8b", 4, (1, 4), 2, 2048)
+# relative L2 of the loss and of each gradient against world size 1
+# (measured on four H100s: the loss equal, the worst gradient 8.0e-6)
+TOL_PUBLISHED = 1e-4
 
 
 def _rank_checks(rank, device, out):
@@ -71,6 +82,62 @@ def _rank_checks(rank, device, out):
     torch.save(res, out / f"rank{rank}.pt")
 
 
+def published_setup():
+    """``PUBLISHED``'s config, step and batch (tokens from a seed)."""
+    import numpy as np
+
+    from repro_torch import configs as C
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import make_train_step
+
+    arch, layers, _, B, S = PUBLISHED
+    cfg = C.get_config(arch).with_(num_layers=layers, dtype="float32",
+                                   param_dtype="float32", attn_impl="flash")
+    step = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1,
+                                          total_steps=10))
+    t = torch.from_numpy(np.random.default_rng(36).integers(
+        0, cfg.vocab_size, (B, S + 1))).long()
+    return cfg, step, {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def _published_check(rank, device, out):
+    """``PUBLISHED``'s gradients: each rank's blocks through the sharded
+    step's pieces (its shards as ``ShardedLeaf``, the gathers keeping
+    ``model`` where it splits a product), assembled whole; rank 0 then
+    takes world size 1's on its own card and keeps the loss's and each
+    gradient's relative L2 against it."""
+    from repro_torch.launch import train as LT
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as SH
+
+    cfg, step, batch = published_setup()
+    mesh = SH.make_mesh(PUBLISHED[2], ("data", "model"), device=device.type)
+    params = _to(T.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
+                 device)
+    batch = _to(batch, device)
+    with SH.sharding_context(mesh):
+        idx, n = LT.batch_shard(mesh)
+        shs = SH.tree_shardings(T.param_axes(cfg), T.param_shapes(cfg), mesh)
+        ops = SH.MeshOps(mesh)
+        leaves = {k: SH.ShardedLeaf(SH.distribute(v, shs[k]).to_local(),
+                                    shs[k], ops, key=k)
+                  for k, v in params.items()}
+        split = sorted(k for k, v in leaves.items()
+                       if SH.tp_group(v) is not None)
+        loss, _, grads = step.grads(leaves, TP.local_rows(batch, idx, n))
+    del leaves
+    loss = float(LT._mean_over_ranks(loss))
+    whole = {k: SH.from_local(g, shs[k]).full_tensor() for k, g in
+             grads.items()}
+    del grads
+    res = {"rank": rank, "split": split, "loss": loss}
+    if rank == 0:
+        want_loss, _, want = step.grads(params, batch)
+        res["want_loss"] = float(want_loss)
+        res["rel_l2"] = {k: TP.rel_l2(whole[k], want[k]) for k in want}
+    torch.save(res, out / f"rank{rank}.pt")
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -87,6 +154,7 @@ def _rank_main(argv=None):
         ap.add_argument(a)
     ap.add_argument("--backend", default="nccl")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--published", action="store_true")
     a = ap.parse_args(argv)
     device = torch.device(a.device, a.rank) if a.device == "cuda" \
         else torch.device(a.device)
@@ -99,7 +167,10 @@ def _rank_main(argv=None):
         world_size=a.world,
         timeout=datetime.timedelta(seconds=TP.GROUP_TIMEOUT_S))
     try:
-        _rank_checks(a.rank, device, pathlib.Path(a.out))
+        if a.published:
+            _published_check(a.rank, device, pathlib.Path(a.out))
+        else:
+            _rank_checks(a.rank, device, pathlib.Path(a.out))
     finally:
         dist.destroy_process_group()
 
@@ -152,6 +223,35 @@ def test_two_sharded_steps_over_nccl(ranks, tmp_path, arch, mesh, variant):
         for k, v in want.items():
             assert TP.rel_l2(got[k], v) < TP.TOL_GRAD, (k, TP.rel_l2(got[k],
                                                                      v))
+
+
+@pytest.fixture(scope="module")
+def published(tmp_path_factory):
+    if torch.cuda.device_count() < WORLD:
+        pytest.skip(f"needs {WORLD} CUDA devices")
+    return TP.spawn(WORLD, pathlib.Path(__file__),
+                    tmp_path_factory.mktemp("published"), "--published")
+
+
+@pytest.mark.cuda
+def test_tp_step_at_published_width_over_nccl(published):
+    """InternLM2-1.8B at published width (4 of its 24 layers, f32, TF32
+    off) on a (1, 4) mesh over NCCL: every rank splits attention's 16
+    heads and 8 KV heads, the MLP's 8,192 hidden units and the 92,544
+    words of the head over the four cards, and its loss and every
+    gradient, landed in the blocks and gathered whole, equal world size
+    1's on the first card within ``TOL_PUBLISHED`` relative L2."""
+    r0 = published[0]
+    assert {"s0_wq", "s0_wk", "s0_wo", "s0_w_up", "s0_w_down",
+            "lm_head"} <= set(r0["split"])
+    for r in published:
+        assert r["split"] == r0["split"] and r["loss"] == r0["loss"]
+    assert abs(r0["loss"] - r0["want_loss"]) <= \
+        TOL_PUBLISHED * abs(r0["want_loss"])
+    worst = max(r0["rel_l2"].items(), key=lambda kv: kv[1])
+    print(f"loss {r0['loss']!r} against {r0['want_loss']!r}; worst "
+          f"gradient relative L2 {worst[1]:.3e} ({worst[0]})")
+    assert worst[1] < TOL_PUBLISHED, worst
 
 
 if __name__ == "__main__":

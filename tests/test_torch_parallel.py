@@ -406,11 +406,13 @@ def _reduce_scatter_check(world, rank):
     return out
 
 
-def _memory_check(world, rank, inp):
-    """One sharded step of ``mem_cfg`` at ``world`` ranks on a (world, 1)
-    mesh under ``LiveBytes``: the rank's peak live storage bytes (its
-    state shards and batch rows included), and every block's entry at
-    which a gathered layer of another super-block was still alive."""
+def _memory_check(world, rank, inp, shape=None):
+    """One sharded step of ``mem_cfg`` at ``world`` ranks on a ``shape``
+    mesh ((world, 1) by default) under ``LiveBytes``: the rank's peak live
+    storage bytes (its state shards and batch rows included), and every
+    block's entry at which a gathered layer of another super-block was
+    still alive (the leaves a module gathers itself, split over ``model``,
+    reach the block as shards)."""
     import weakref
 
     from repro_torch.launch import train as LT
@@ -423,7 +425,8 @@ def _memory_check(world, rank, inp):
     cfg = mem_cfg()
     opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     step = make_train_step(cfg, opt, donate=True)
-    mesh = SH.make_mesh((world, 1), ("data", "model"), device="cpu")
+    mesh = SH.make_mesh(shape or (world, 1), ("data", "model"),
+                        device="cpu")
     shapes, axes = train_state_specs(cfg, opt)
     state_sh = SH.tree_shardings(axes, shapes, mesh)
     state = LT.place(LT.init_state(cfg, step, "cpu"), state_sh)
@@ -442,7 +445,8 @@ def _memory_check(world, rank, inp):
 
     def block_fwd(kind, cfg_, p, x, **kw):
         live = [(i, r()) for i, r in alive if r() is not None]
-        mine = {id(v.untyped_storage()) for v in p.values()}
+        mine = {id(v.untyped_storage()) for v in p.values()
+                if isinstance(v, torch.Tensor)}
         now = {i for i, st in live if id(st) in mine}
         seen.append(sorted(now))
         others = {i for i, st in live if i is not None and i not in now}
@@ -629,6 +633,7 @@ def _rank_checks(world, rank, out, inp):
             SH.native_reduce_scatter = real
     if world == 4:
         res["memory"] = _memory_check(world, rank, inp)
+        res["memory/tp"] = _memory_check(world, rank, inp, (1, 4))
 
     # the sharded checkpoint: written at world size 2, read at 4
     cfg, opt, _ = _whole_state()
@@ -1318,13 +1323,9 @@ def test_gather_gradient_by_the_native_reduce_scatter(runs):
             assert a["aliased"] == b["aliased"]
 
 
-def test_sharded_step_memory_per_rank(runs):
-    """At 4 ranks on a (4, 1) mesh, each rank's peak live storage bytes
-    over one step of ``mem_cfg`` (its state shards and batch rows
-    included) stay under half of world size 1's over the same step (the
-    whole state and batch); every block, in the forward and in the remat
-    recompute, runs with its own layer's gathered weights and no gathered
-    weight of another super-block alive; the loss is world size 1's."""
+def _memory_world_1(inp):
+    """``mem_cfg``'s step at world size 1 under ``LiveBytes``: (its peak,
+    the bytes of its arguments, of the state after it, its loss)."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.launch import train as LT
@@ -1332,28 +1333,52 @@ def test_sharded_step_memory_per_rank(runs):
     from repro_torch.train.optim import OptConfig
     from repro_torch.train.step import make_train_step
 
-    _, port = runs[4]
     cfg = mem_cfg()
     step = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1,
                                           total_steps=10), donate=True)
     state = LT.init_state(cfg, step, "cpu")
-    batch = mem_batch(runs["inp"])
+    batch = mem_batch(inp)
     mem = LiveBytes("cpu")
     args = sum(mem.track(t) for t in pytree.tree_leaves((state, batch)))
     with mem:
         state, m = step(state, batch)
     state_bytes = sum(t.nbytes for t in pytree.tree_leaves(state)
                       if isinstance(t, torch.Tensor))
-    assert args > 2 * (mem.peak - args), "the state must outweigh the step"
+    return mem.peak, args, state_bytes, float(m["loss"])
+
+
+def test_sharded_step_memory_per_rank(runs):
+    """At 4 ranks on a (4, 1) mesh, each rank's peak live storage bytes
+    over one step of ``mem_cfg`` (its state shards and batch rows
+    included) stay under half of world size 1's over the same step (the
+    whole state and batch); every block, in the forward and in the remat
+    recompute, runs with its own layer's gathered weights and no gathered
+    weight of another super-block alive; the loss is world size 1's."""
+    _check_memory(runs, "memory")
+
+
+def test_tp_step_memory_per_rank(runs):
+    """:func:`test_sharded_step_memory_per_rank` on a (1, 4) mesh, where
+    ``model`` splits attention's heads, the MLP's hidden units and the
+    vocabulary (tensor parallelism) and every rank runs the whole batch:
+    each rank's peak under half of world size 1's, no gathered weight of
+    another super-block alive at a block's start, world size 1's loss."""
+    _check_memory(runs, "memory/tp")
+
+
+def _check_memory(runs, key):
+    _, port = runs[4]
+    cfg = mem_cfg()
+    peak, args, state_bytes, loss = _memory_world_1(runs["inp"])
+    assert args > 2 * (peak - args), "the state must outweigh the step"
     layers = sorted([i] for i in range(cfg.n_super) for _ in range(2))
     for r in port:
-        got = r["memory"]
-        assert got["peak"] < mem.peak / 2, (got["peak"], mem.peak)
+        got = r[key]
+        assert got["peak"] < peak / 2, (got["peak"], peak)
         assert got["args"] < state_bytes / 2
         assert not got["late"], got["late"]
         assert sorted(got["blocks"]) == layers, got["blocks"]
-        assert abs(float(got["loss"]) - float(m["loss"])) <= \
-            TOL_GRAD * abs(float(m["loss"]))
+        assert abs(float(got["loss"]) - loss) <= TOL_GRAD * abs(loss)
 
 
 @pytest.mark.parametrize("remat", ["block", "dots"])
