@@ -69,8 +69,14 @@ Phases, each of which fails the script (non-zero exit, no result line):
     (``flash_fwd_shapes``: heads x positions x head_dim of each served
     model at its prompts and at 4,096, e.g. RecurrentGemma's [10, S, 256]
     with window 2,048, InternLM2's [16, S, 128], Qwen1.5's [20, S, 128],
-    MiniCPM's [36, S, 64], Phi-3-Vision's [32, 577 + S, 96]) and
-    [32, 512, 96], f32 (the FMA kernel) and bf16 (the wgmma kernel); ``ssd_scan`` on [48, nc, Q, 64], ds 128, for
+    MiniCPM's [36, S, 64], Phi-3-Vision's [32, 577 + S, 96]),
+    [32, 512, 96] and every per-rank shape of phase 27 (b)'s
+    ``prefill_32k`` pod cells (``dryrun_prefill_flash_shapes``: 2 rows
+    of 32,768 positions a rank times its q heads, e.g. Qwen1.5-4B's [40,
+    32,768, 128] with its 20 heads whole, Qwen3-30B-A3B's [4, 32,768,
+    128] with 2 of 32; the plain version a batch-head at a time; in
+    bf16 alone, the type those cells run), f32
+    (the FMA kernel) and bf16 (the wgmma kernel); ``ssd_scan`` on [48, nc, Q, 64], ds 128, for
     (nc, Q) in {(1, 200), (16, 256)}, B and C per row (G = 48) and shared
     by the 48 heads (G = 1, the model's layout at batch 1), the grouped
     call equal bit for bit to the same B and C broadcast to every row;
@@ -380,15 +386,18 @@ Phases, each of which fails the script (non-zero exit, no result line):
     temp GiB, ``fits``, FLOP and seconds.  (b) ``flash_fwd`` in bf16 on
     [1, 32,768, hd] for hd 64, 96, 128 and 256 (window 2,048) and
     ``ssd_scan`` on [48, 128, 256, 64], ds 128, G 1 against their plain
-    versions; then for each arch the first ``prefill_32k`` cell (``pod``:
-    2 x 32,768 a rank; ``multipod``: 1 x 32,768) whose estimate leaves a
-    tenth of the card free, run on the card by ``run_cell(execute=True)``
-    at published width and depth with ``flash`` (``ssdk`` for Mamba-2):
-    InternLM2-1.8B, MiniCPM-2B, MusicGen-large and Qwen1.5-4B must run,
-    every run's cache and logits finite, ``kernel_layers`` launches of its
-    kernel and nothing else, its measured peak within [0.90, 1.10] of the
-    estimate; each run's estimate, peak, ratio, wall time and launches
-    logged, and the estimates of the archs with no fitting cell.  Then
+    versions; then for each arch but Llama-4 Maverick the first
+    ``prefill_32k`` cell (``pod``: 2 x 32,768 a rank; ``multipod``: 1 x
+    32,768) whose estimate leaves a tenth of the card free, run on the
+    card by ``run_cell(execute=True)`` at published width and depth with
+    ``flash`` (``ssdk`` for Mamba-2), the rank's shards of the weights
+    gathered a layer at a time, its ``model`` group splitting the heads,
+    MLPs and vocabulary where ``model`` divides them, its cache cut to
+    its block of the slots: all nine must run, every run's cache and
+    logits finite and of their shards' shapes, ``kernel_layers``
+    launches of its kernel and nothing else, flash at a shape phase 10
+    holds, its measured peak within [0.90, 1.10] of the estimate; each
+    run's estimate, peak, ratio, wall time and launches logged.  Then
     two ``train_4k`` cells of the pod under ``dp_fsdp+flash``, each one
     rank's step of 1 x 4,096 with its 1/256 of the state, kept sharded
     (a layer's weights gathered at a time, the gradients reduced to the
@@ -398,7 +407,14 @@ Phases, each of which fails the script (non-zero exit, no result line):
     Qwen1.5-4B, each with its measured peak within [0.90, 1.10] of the
     estimate, ``train_launches_per_step`` launches of each flash kernel
     (forward twice a layer for the remat, dQ and dK/dV once) and nothing
-    else, a finite loss, and state and metrics of their shards' shapes.  (c)
+    else, a finite loss, and state and metrics of their shards' shapes.
+    Then one rank's ``decode_32k`` pod step of Qwen1.5-4B and of
+    Qwen3-30B-A3B at all 48 layers under ``baseline`` (``DRYRUN_DECODE``):
+    8 rows and its 2,048 of the cache's 32,768 slots a layer
+    (sequence-parallel attention), every slot valid and the token at
+    position 32,767, its cache and logits finite and of their shards'
+    shapes, no kernel launched, its measured peak within [0.90, 1.10] of
+    the estimate.  (c)
     ``fig5_cached``'s scenario: ``bench_hot`` through the port's
     ``Dispatcher`` to a host peer, one FULL then 64 SLIM invocations:
     links 1, 64 SLIM, 65 invocations, the 256 KiB code section on the wire
@@ -433,7 +449,8 @@ in phase 26 (a)'s first 8 launcher steps, and ``flash_fwd``'s
 ``flash_fwd`` and ``ssd_scan`` entries' ``dryrun_launches`` are their
 launches in phase 27 (b)'s prefill runs, and the three flash entries'
 ``dryrun_train_launches`` theirs in (b)'s two train cells, all added to
-``launches``.
+``launches``; ``flash_fwd``'s ``dryrun_shapes`` lists the per-rank
+shapes of (b)'s prefill cells, which phase 10 holds.
 ``flash_fwd``'s ``launches`` sum phase 13's eight flash models (a layer
 a prefill: SmolLM-360M 32, RecurrentGemma-2B 8, Qwen3-30B-A3B 48,
 InternLM2-1.8B 24, Qwen1.5-4B 40, MiniCPM-2B 40, MusicGen-large 48,
@@ -6016,9 +6033,10 @@ def attn_windows(cfg):
                    for kind in cfg.layer_kinds if kind in ATTN_KINDS})
 
 
-def dryrun_train_split(arch, policy):
-    """How a ``DRYRUN_TRAIN`` cell splits on the pod's mesh: (config,
-    microbatches, a rank's rows, its q heads, the vocabulary's blocks).
+def dryrun_train_split(arch, policy, shape=None):
+    """How a ``DRYRUN_TRAIN`` cell (a ``shape`` cell: ``DRYRUN_TRAIN_SHAPE``
+    by default) splits on the pod's mesh: (config, microbatches, a rank's
+    rows, its q heads, the vocabulary's blocks).
     The rows are the global batch over the rules' batch axes; the heads
     and the vocabulary split over ``model`` (tensor parallelism) where
     the rules' batch leaves ``model`` out and the leaf's spec keeps it
@@ -6027,9 +6045,9 @@ def dryrun_train_split(arch, policy):
     from repro_torch.launch.dryrun import apply_policy, make_abstract_mesh
     from repro_torch.parallel import sharding as SH
 
-    cfg, rules, mb = apply_policy(C.get_config(arch), DRYRUN_TRAIN_SHAPE,
-                                  policy)
-    sp = C.SHAPES[DRYRUN_TRAIN_SHAPE]
+    shape = shape or DRYRUN_TRAIN_SHAPE
+    cfg, rules, mb = apply_policy(C.get_config(arch), shape, policy)
+    sp = C.SHAPES[shape]
     mesh = make_abstract_mesh()
     model = SH.mesh_shape(mesh)["model"]
 
@@ -6070,6 +6088,43 @@ def dryrun_train_flash_shapes():
     return shapes
 
 
+def dryrun_prefill_flash_shapes():
+    """flash's [BH, S, hd, window] in phase 27 (b)'s ``prefill_32k`` pod
+    cells (``DRYRUN_MUST_RUN`` that attend): one rank's rows and its q
+    heads (:func:`dryrun_train_split` under ``baseline``: the heads split
+    over ``model`` where it divides them), KV repeated to those heads,
+    each attention kind's window."""
+    from repro_torch import configs as C
+    from repro_torch.models.transformer import ATTN_KINDS
+
+    S = C.SHAPES[DRYRUN_SHAPE].seq_len
+    shapes = []
+    for arch in DRYRUN_MUST_RUN:
+        cfg, _, rows, heads, _ = dryrun_train_split(arch, "flash",
+                                                    DRYRUN_SHAPE)
+        if any(k in ATTN_KINDS for k in cfg.layer_kinds):
+            shapes += [(rows * heads, S, cfg.head_dim, w)
+                       for w in attn_windows(cfg)]
+    return tuple(dict.fromkeys(shapes))
+
+
+def flash_fwd_plain_rows(torch, q, k, v, scale, window, max_elems=1 << 30):
+    """``flash_fwd_plain`` (f32) over chunks of batch-heads whose score
+    tensor holds at most ``max_elems`` elements (one batch-head a call at
+    32,768 positions), concatenated; one call where the whole fits."""
+    from repro_torch.kernels.flash_attn import flash_fwd_plain
+
+    BH, S = q.shape[:2]
+    n = max(1, max_elems // (S * S))
+    parts = [flash_fwd_plain(q[i:i + n].float(), k[i:i + n].float(),
+                             v[i:i + n].float(), scale=scale, window=window)
+             for i in range(0, BH, n)]
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([o for o, _ in parts]),
+            torch.cat([lse for _, lse in parts]))
+
+
 def train_flash_shapes():
     """flash's [BH, S, hd, window] on the training path: each model of
     ``TRAIN_MODELS`` over one microbatch of phase 17 and of
@@ -6095,7 +6150,7 @@ def phase_model_kernels(np, torch, dev):
     """``flash_fwd`` and ``ssd_scan`` against their plain versions at the
     shapes the serving and training paths give them; returns the largest
     |diff| of each."""
-    from repro_torch.kernels.flash_attn import flash_fwd, flash_fwd_plain
+    from repro_torch.kernels.flash_attn import flash_fwd
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6107,14 +6162,18 @@ def phase_model_kernels(np, torch, dev):
     t0 = time.perf_counter()
     rng = np.random.default_rng(20)
     errs = {"flash_fwd": 0.0, "ssd_scan": 0.0}
-    shapes = flash_fwd_shapes() + train_flash_shapes()
+    both = flash_fwd_shapes() + train_flash_shapes()
+    # phase 27 (b)'s prefill cells run bf16: their shapes in bf16 alone
+    # (the plain version a batch-head at a time)
+    shapes = tuple(dict.fromkeys(both + dryrun_prefill_flash_shapes()))
     for BH, S, hd, window in shapes:
         scale = 1.0 / float(np.sqrt(hd))
-        for dtype in (torch.float32, torch.bfloat16):
+        dtypes = (torch.float32, torch.bfloat16) if (BH, S, hd, window) \
+            in both else (torch.bfloat16,)
+        for dtype in dtypes:
             q, k, v = flash_inputs(np, torch, dev, rng, BH, S, hd, dtype)
             o, lse = flash_fwd(q, k, v, scale=scale, window=window)
-            o_p, lse_p = flash_fwd_plain(q.float(), k.float(), v.float(),
-                                         scale=scale, window=window)
+            o_p, lse_p = flash_fwd_plain_rows(torch, q, k, v, scale, window)
             torch.cuda.synchronize()
             tol = TOL_FLASH if dtype == torch.float32 else TOL_FLASH_BF16
             eo = (o.float() - o_p).abs().max().item()
@@ -7543,8 +7602,17 @@ def phase_launcher(np, torch, dev, smi):
 DRYRUN_WORKERS = 6      # processes running phase 27 (a)'s cells on meta
 DRYRUN_SHAPE = "prefill_32k"
 DRYRUN_RATIO = (0.90, 1.10)         # (b): measured peak / estimate
-DRYRUN_MUST_RUN = ("internlm2_1_8b", "minicpm_2b", "musicgen_large",
-                   "qwen1_5_4b")
+# (b) runs a prefill_32k cell of each (pod first): all but Llama-4
+# Maverick, whose rank gathers its 24 MoE layers' 128 experts whole a layer
+# at a time on the AbstractMesh (the MoE's dense fallback): 773 GB of
+# seeded draws, left out of the script's time
+DRYRUN_MUST_RUN = ("smollm_360m", "mamba2_780m", "recurrentgemma_2b",
+                   "qwen3_moe_30b_a3b", "internlm2_1_8b", "qwen1_5_4b",
+                   "minicpm_2b", "musicgen_large", "phi3_vision_4_2b")
+# (b)'s decode cells: one rank of the pod's decode_32k (8 rows, its 2,048
+# of the cache's 32,768 slots a layer), Qwen3-30B-A3B at all 48 layers
+DRYRUN_DECODE = ("qwen1_5_4b", "qwen3_moe_30b_a3b")
+DRYRUN_DECODE_SHAPE = "decode_32k"
 # (b)'s kernels at the prefill's 32,768 positions against their plain
 # versions: flash_fwd on one batch-head at each head_dim (and window) the
 # cells give it, ssd_scan on one batch row of Mamba-2 (48 heads, 128
@@ -7686,7 +7754,8 @@ def dryrun_execute(torch, smi):
     from repro_torch.models.transformer import ATTN_KINDS
 
     runs, total = {}, {"flash_fwd": 0, "ssd_scan": 0}
-    for arch in C.ARCH_IDS:
+    checked = dryrun_prefill_flash_shapes()
+    for arch in DRYRUN_MUST_RUN:
         cfg = C.get_config(arch)
         attends = any(k in ATTN_KINDS for k in cfg.layer_kinds)
         policy, kernel = ("flash", "flash_fwd") if attends else \
@@ -7704,8 +7773,15 @@ def dryrun_execute(torch, smi):
             if "peak_bytes" not in ex:
                 tried.append(f"{mk} {est / 2**30:.2f} GiB")
                 continue
-            B = C.SHAPES[DRYRUN_SHAPE].global_batch \
-                // (16 if mk == "pod" else 32)
+            cfg, _, B, heads, vocab = dryrun_train_split(arch, policy,
+                                                         DRYRUN_SHAPE)
+            if mk != "pod":
+                B = C.SHAPES[DRYRUN_SHAPE].global_batch // 32
+            shapes = [(B * heads, 32768, cfg.head_dim, w)
+                      for w in attn_windows(cfg)] if attends else []
+            check(all(sh in checked for sh in shapes),
+                  f"{rec['cell']}: flash at {shapes}, not among phase 10's "
+                  f"shapes")
             want = kernel_layers(cfg, kernel)
             check(rec[("attn_impl" if attends else "ssd_impl")] ==
                   ("flash" if attends else "kernel"),
@@ -7717,7 +7793,11 @@ def dryrun_execute(torch, smi):
                   f"{rec['cell']}: launches {counts}, want {kernel} "
                   f"{want} and nothing else")
             lo, hi = DRYRUN_RATIO
-            log(f"{rec['cell']} ({policy}, {B} x 32,768 a rank): estimate "
+            tp = (f", {heads} of {cfg.num_heads} q heads and 1/{vocab} of "
+                  f"the vocabulary a rank (tensor parallelism)"
+                  if heads < cfg.num_heads or vocab > 1 else "")
+            log(f"{rec['cell']} ({policy}, {B} x 32,768 a rank{tp}; flash at "
+                f"{shapes}): estimate "
                 f"{est / 2**30:.3f} GiB (argument {m['argument_bytes']} B, "
                 f"temp {m['temp_bytes']} B), measured peak "
                 f"{ex['peak_bytes'] / 2**30:.3f} GiB ({ex['peak_bytes']} B), "
@@ -7740,6 +7820,55 @@ def dryrun_execute(torch, smi):
     missing = [a for a in DRYRUN_MUST_RUN if a not in runs]
     check(not missing, f"no {DRYRUN_SHAPE} cell run on the card for {missing}")
     return runs, total
+
+
+def dryrun_decode(torch, smi):
+    """(b)'s decode cells: each of ``DRYRUN_DECODE`` run on the card by
+    ``run_cell(execute=True)``, one rank's ``decode_32k`` step of the pod
+    from seed 0 at published width and depth: its shards of the weights
+    gathered a layer at a time, the products split over ``model``, its
+    block of the cache's slots (every slot valid, the token at the
+    cache's last position) attended sequence-parallel.  Gates: the cell
+    fits and ran; the measured peak within ``DRYRUN_RATIO`` of the
+    estimate; the cache and logits finite and of their shards' shapes; no
+    kernel launched (decode's attention is PyTorch's).  Returns {arch:
+    record}."""
+    from repro_torch.launch.dryrun import run_cell
+
+    runs = {}
+    lo, hi = DRYRUN_RATIO
+    for arch in DRYRUN_DECODE:
+        torch.cuda.empty_cache()
+        reset_counts()
+        rec = run_cell(arch, DRYRUN_DECODE_SHAPE, "pod", save=False,
+                       execute=True)
+        counts = read_counts()
+        m, ex = rec["memory"], rec["execute"]
+        est = m["argument_bytes"] + m["temp_bytes"]
+        check("peak_bytes" in ex, f"{rec['cell']} did not run on the card: "
+                                  f"{ex}")
+        check(ex["finite"] and ex["shapes_ok"],
+              f"{rec['cell']}: cache or logits not finite or misshapen")
+        check(not any(counts.values()),
+              f"{rec['cell']}: launches {counts}, want none")
+        cfg, _, B, heads, vocab = dryrun_train_split(arch, "baseline",
+                                                     DRYRUN_DECODE_SHAPE)
+        log(f"{rec['cell']} (baseline, {cfg.num_layers} layers, {B} rows a "
+            f"rank, {heads} of {cfg.num_heads} q heads' rows of wo and 1/"
+            f"{vocab} of the vocabulary (tensor parallelism), 2,048 of the "
+            f"cache's 32,768 slots a layer (sequence parallelism), the token "
+            f"at position 32,767): estimate {est / 2**30:.3f} GiB (argument "
+            f"{m['argument_bytes']} B, temp {m['temp_bytes']} B), measured "
+            f"peak {ex['peak_bytes'] / 2**30:.3f} GiB ({ex['peak_bytes']} B), "
+            f"ratio {ex['ratio']:.4f}; {ex['wall_s']:.3f} s (the gathers' "
+            f"seeded draws included); "
+            f"{rec['cost_analysis']['flops']:.4g} FLOP; {smi}")
+        check(lo <= ex["ratio"] <= hi,
+              f"{rec['cell']}: measured peak / estimate {ex['ratio']:.4f} "
+              f"outside [{lo}, {hi}]")
+        runs[arch] = rec
+        torch.cuda.empty_cache()
+    return runs
 
 
 def random_head_ce(cfg, blocks=1):
@@ -7904,6 +8033,9 @@ def phase_dryrun(np, torch, dev, smi):
         t_t = time.perf_counter()
         trains, train_launches = dryrun_train(torch, smi)
         t_t = time.perf_counter() - t_t
+        t_d = time.perf_counter()
+        decodes = dryrun_decode(torch, smi)
+        t_d = time.perf_counter() - t_d
         t_wait = time.perf_counter()
         recs = pending.get(timeout=900)
         t_wait = time.perf_counter() - t_wait
@@ -7914,7 +8046,9 @@ def phase_dryrun(np, torch, dev, smi):
     log(f"(b) {len(runs)} of 10 archs ran a {DRYRUN_SHAPE} cell on the card "
         f"in {t_b:.1f} s: {sorted(runs)}; launches {launches}; "
         f"{len(trains)} {DRYRUN_TRAIN_SHAPE} cells in {t_t:.1f} s: "
-        f"{sorted(trains)}; launches {train_launches}")
+        f"{sorted(trains)}; launches {train_launches}; "
+        f"{len(decodes)} {DRYRUN_DECODE_SHAPE} cells in {t_d:.1f} s: "
+        f"{sorted(decodes)}")
 
     pkg = types.SimpleNamespace(core=core, transport=transport, kw={})
     d, times, first = cached_invocation(pkg)
@@ -8026,6 +8160,7 @@ def main():
     kernels[0]["launches"] += ru["sweeps"]
     model_entries[0]["fabric_launches"] = phase_fabric(np, torch, dev, smi)
     dry_launches, dry_errs, dry_train = phase_dryrun(np, torch, dev, smi)
+    model_entries[0]["dryrun_shapes"] = dryrun_prefill_flash_shapes()
     for entry in model_entries:
         name = entry["name"]
         entry["dryrun_launches"] = dry_launches[name]

@@ -22,12 +22,18 @@ rank of the port runs, on ``meta`` tensors (shapes and types, no storage):
   block.  The RG-LRU's and the SSD's own leaves are gathered whole.  On
   the ``AbstractMesh`` the MoE takes its dense fallback and gathers its
   experts whole, a layer at a time;
-* prefill and decode gather every sharded leaf whole, except along the
-  batch axes (``batch``, ``cache_batch``), where the rank keeps its shard
-  (and decode the cache the same way);
-* the step (``train/step.py``'s, or ``train/serve.py``'s prefill or
-  decode) runs on the rank's batch shard, and each output is cut back to
-  the rank's block (a copy; none where nothing splits).
+* prefill and decode (``train/serve.py``'s steps) take the parameters
+  as the rank's shards too, gathered a layer at a time where the forward
+  uses them, the products split over ``model`` as in the train step.
+  Their KV cache follows ``cache_seq``: a prefill keeps each layer's
+  block of the slots (cut right after the layer), and decode takes the
+  cache's blocks as they are and runs attention sequence-parallel over
+  them (the softmax's max and sums over ``model``, which move nothing
+  here); the RG-LRU's and the SSD's caches are gathered whole but their
+  rows for a layer and cut back.  Nothing is gathered whole before the
+  step;
+* the step runs on the rank's batch shard, and each output is cut back
+  to the rank's block (a copy; none where it is the block already).
 
 The record has the reference's keys:
 
@@ -38,8 +44,8 @@ The record has the reference's keys:
   reference's.
 * ``temp_bytes`` is the peak of the storage bytes alive while the program
   runs (:class:`LiveBytes`), less the arguments'.  It is the port's own
-  program (its train step's products split over ``model`` as above;
-  prefill and decode gather whole), not the reference's number.
+  program (its products split over ``model`` as above), not the
+  reference's number.
 * ``cost_analysis.flops`` is ``FlopCounterMode``'s count, the kernels'
   products included (``kernels/meta.py``); ``bytes_accessed`` and
   ``transcendentals`` are ``None``: there is no XLA cost model.
@@ -47,11 +53,12 @@ The record has the reference's keys:
   when there is one, else an H100 80GB's); ``lower_s`` times the specs,
   shardings and arguments, ``compile_s`` the run on meta tensors.
 
-``run_cell(..., execute=True)`` then runs a prefill or train cell's
-program on the card at the config's width and depth: each argument is its
-shard of a seeded draw of the leaf, a gather draws the leaf (a train
-step's gather, one layer of it; a gather keeping ``model``, rank 0's
-block of that draw) again from the same seed, and the peak
+``run_cell(..., execute=True)`` then runs the cell's program on the card
+at the config's width and depth: each argument is its shard of a seeded
+draw of the leaf (a cache's ``slot_pos`` each slot's own position, and a
+decode cell's ``pos`` the cache's last, so that every slot attends), a
+gather draws the leaf (one layer of it; a gather keeping ``model``, rank
+0's block of that draw) again from the same seed, and the peak
 (``max_memory_allocated`` after ``reset_peak_memory_stats``, less what
 was allocated before the arguments) is held against the estimate.  The
 ``flash`` and ``ssdk`` tokens select the kernels there
@@ -291,15 +298,10 @@ def _map(fn, tree, *others):
     return fn(tree, *others)
 
 
-def gather_tree(xs, leaves, gather, donate: bool):
-    """``gather(leaf, x)`` over a tree; a donated tree's dicts are emptied
-    as they are read."""
+def gather_tree(xs, leaves, gather):
+    """``gather(leaf, x)`` over a tree."""
     if isinstance(leaves, dict):
-        out = {k: gather_tree(xs[k], leaves[k], gather, donate)
-               for k in leaves}
-        if donate:
-            xs.clear()
-        return out
+        return {k: gather_tree(xs[k], leaves[k], gather) for k in leaves}
     return gather(leaves, xs)
 
 
@@ -408,7 +410,7 @@ def build_lowerable(arch: str, shape: str, mesh, policy: str = "baseline",
                     step_fn, mesh, state_sh,
                     ops=DryOps(mesh, gather, state["params"]),
                     place=lambda new, _: place_tree(new, state), mean=mean)
-                return step(st, gather_tree(bt, batch, gather, False))
+                return step(st, gather_tree(bt, batch, gather))
 
         return ctx, Lowerable("train", cfg, train_program, (state, batch),
                               (state, mets), (0,), devices)
@@ -420,15 +422,22 @@ def build_lowerable(arch: str, shape: str, mesh, policy: str = "baseline",
     logits = leaves(TensorSpec((B, 1, cfg.vocab_size), torch.float32),
                     ("batch" if sp.kind == "prefill" else "cache_batch",
                      None, "act_vocab"), "logits")
+
+    def shards(xs, tree, gather):
+        """The rank's blocks as ``ShardedLeaf`` s whose gathers are
+        ``gather`` (:class:`DryOps` over ``tree``, :class:`Leaf` s by
+        key)."""
+        return SH.sharded_leaves(xs, _map(lambda leaf: leaf.sharding, tree),
+                                 DryOps(mesh, gather, tree))
+
     if sp.kind == "prefill":
         batch = leaves(b_specs, b_axes, "batch")
         step = SRV.make_prefill_step(cfg)
 
         def prefill_program(gather, p, bt):
             with ctx:
-                full = gather_tree(p, params, gather, False)
-                c, lg = step(full, gather_tree(bt, batch, gather, False))
-                del full
+                c, lg = step(shards(p, params, gather),
+                             gather_tree(bt, batch, gather))
                 return place_tree(c, cache), logits.place(lg)
 
         return ctx, Lowerable("prefill", cfg, prefill_program, (params, batch),
@@ -439,11 +448,10 @@ def build_lowerable(arch: str, shape: str, mesh, policy: str = "baseline",
 
     def decode_program(gather, p, c, tokens, pos):
         with ctx:
-            full = gather_tree(p, params, gather, False)
-            whole = gather_tree(c, cache, gather, True)
-            new, lg = step(full, whole, gather(toks["tokens"], tokens),
+            new, lg = step(shards(p, params, gather),
+                           shards(c, cache, gather),
+                           gather(toks["tokens"], tokens),
                            gather(toks["pos"], pos))
-            del full, whole
             return place_tree(new, cache), logits.place(lg)
 
     attends = any(k in T.ATTN_KINDS for k in cfg.layer_kinds)
@@ -549,7 +557,7 @@ def card_bytes() -> int:
 
 
 # ---------------------------------------------------------------------------
-# the card run of a prefill cell
+# the card run of a cell
 
 
 def _seed(seed: int, name: str) -> int:
@@ -567,7 +575,8 @@ def seeded_leaf(leaf: Leaf, shape, seed: int, device, vocab: int,
     of ``layers.init_from_specs`` (``*_scale``/``*norm`` ones,
     ``*_bias``/``*_b`` zeros, else normal x min(0.02, 1/sqrt(fan_in)))
     drawn in the leaf's type; the optimizer's moments zeros, as a fresh
-    state's; tokens uniform below ``vocab``.  A stacked leaf draws each
+    state's; tokens uniform below ``vocab``; a cache's ``slot_pos`` each
+    slot's own position (every slot valid).  A stacked leaf draws each
     layer from that layer's seed, so that a layer drawn alone is that
     layer of the whole draw."""
     dt = leaf.spec.dtype
@@ -577,6 +586,9 @@ def seeded_leaf(leaf: Leaf, shape, seed: int, device, vocab: int,
     def gen(name):
         return torch.Generator(device=device).manual_seed(_seed(seed, name))
 
+    if base.endswith("slot_pos"):
+        # in place: one tensor, as a meta gather's
+        return torch.ones(shape, dtype=dt, device=device).cumsum_(-1).sub_(1)
     if not dt.is_floating_point:
         return torch.randint(0, vocab, shape, generator=gen(leaf.name),
                              dtype=dt, device=device)
@@ -648,20 +660,27 @@ def _shapes_ok(outs, leaves) -> bool:
     return all(ok)
 
 
+def decode_pos(low: Lowerable) -> int:
+    """The position a decode cell's card run writes: its cache's length
+    less one, so that every slot of :func:`seeded_leaf`'s cache
+    attends (0 where no layer attends)."""
+    return max((leaf.spec.shape[-1] for leaf in _flat(low.args[1])
+                if leaf.name.endswith("slot_pos")), default=1) - 1
+
+
 def execute_cell(low: Lowerable) -> dict:
-    """Runs a prefill or train cell's program on the card from seed 0;
-    -> its measured peak, wall time, kernel launches and whether every
-    output is finite (a train cell's metrics: its loss among them) and of
-    its shard's shape; a train cell's ``loss``, ``ce`` and ``aux`` (the
-    rank's, divided by the rank count: the mean over ranks moves
-    nothing)."""
-    if low.kind not in ("prefill", "train"):
-        raise ValueError(f"execute runs prefill and train cells, not "
-                         f"{low.kind}")
+    """Runs a cell's program on the card from seed 0 (a decode cell's at
+    :func:`decode_pos`); -> its measured peak, wall time, kernel
+    launches and whether every output is finite (a train cell's metrics:
+    its loss among them) and of its shard's shape; a train cell's
+    ``loss``, ``ce`` and ``aux`` (the rank's, divided by the rank count:
+    the mean over ranks moves nothing)."""
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
     args = list(seeded_args(low, 0, dev))
+    if low.kind == "decode":
+        args[3] = decode_pos(low)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, ssd_scan)
@@ -673,7 +692,7 @@ def execute_cell(low: Lowerable) -> dict:
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) - base
     launches = {k.__name__: k.launches - n for k, n in zip(kernels, n0)}
-    if low.kind == "prefill":
+    if low.kind != "train":
         cache, logits = outs
         finite = _finite(_flat(cache) + [logits])
         shapes_ok = (tuple(logits.shape) == low.outs[1].shard_shape
@@ -697,8 +716,8 @@ def execute_cell(low: Lowerable) -> dict:
 def run_cell(arch: str, shape: str, mesh_kind: str, policy: str = "baseline",
              save: bool = True, tag: str = "", out_dir=None, *,
              execute: bool = False) -> dict:
-    """One cell's record (see the module).  ``execute=True`` (a
-    prefill or train cell, with a card) estimates the cell with the policy's
+    """One cell's record (see the module).  ``execute=True`` (with a
+    card) estimates the cell with the policy's
     kernels and, when that estimate leaves ``EXECUTE_HEADROOM`` of the
     card free, runs it there: the record's ``execute`` holds the
     measured peak, its ratio to the estimate, the wall time and the

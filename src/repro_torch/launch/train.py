@@ -208,10 +208,7 @@ def make_sharded_step(step_fn, mesh, state_sh, *, ops=None,
 
     def sharded_step(state, batch):
         st = to_local(state)
-        params = st["params"]
-        if shards is not None:
-            params = {k: SH.ShardedLeaf(v, state_sh["params"][k], ops, key=k)
-                      for k, v in params.items()}
+        params = SH.sharded_leaves(st["params"], state_sh["params"], ops)
         with SH.sharding_context(mesh, rules):
             loss, extras, grads = step_fn.grads(params, batch)
         del params

@@ -24,7 +24,9 @@ MLP a rank's shards whose product ``model`` splits
 read), the MLP its ``F/tp`` columns of ``w_up`` / ``w_gate`` and rows of
 ``w_down``; the row-split product's partial output is summed over the
 group.  :data:`TP_WEIGHTS` are the leaves these modules gather
-themselves.
+themselves.  Decode (one token) gathers ``wq``, ``wk`` and ``wv`` whole
+and splits only ``wo``'s rows; where the KV cache's slots are split over
+``model`` it runs sequence-parallel (:func:`attention_decode`).
 """
 
 from __future__ import annotations
@@ -163,15 +165,33 @@ def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
     return scores
 
 
-def _qkv(p, x, cfg, positions):
-    q, k, v = _mm(x, p["wq"]), _mm(x, p["wk"]), _mm(x, p["wv"])
+def _kv(p, x, cfg, positions):
+    k, v = _mm(x, p["wk"]), _mm(x, p["wv"])
     if cfg.qkv_bias:
-        q = q + p["wq_b"].to(q.dtype)
         k = k + p["wk_b"].to(k.dtype)
         v = v + p["wv_b"].to(v.dtype)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return apply_rope(k, positions, cfg.rope_theta), v
+
+
+def _qkv(p, x, cfg, positions):
+    q = _mm(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["wq_b"].to(q.dtype)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            *_kv(p, x, cfg, positions))
+
+
+def cache_kv(p, x, cfg, first: int):
+    """K (rope'd) and V of every KV head of ``x`` [B,n,D], the layer's
+    normalised input at positions ``first .. first + n - 1``, from
+    attention's weights gathered whole: a prefill cache's block where
+    tensor parallelism gave the rank only the KV heads its q heads
+    read."""
+    w = {k: SH.gathered(p[k]) for k in ("wk", "wv", "wk_b", "wv_b")
+         if k in p}
+    positions = torch.arange(first, first + x.shape[1],
+                             device=x.device)[None, :]
+    return _kv(w, x, cfg, positions)
 
 
 def _tp_heads(p, cfg, tp: SH.TPGroup):
@@ -314,6 +334,17 @@ def attn_cache_specs(cfg, batch: int, cache_len: int, *,
     }
 
 
+def _split_softmax(s_: torch.Tensor, seq: SH.TPGroup) -> torch.Tensor:
+    """The softmax over the last axis of f32 scores whose slots the ranks
+    of ``seq`` hold a block each: the max over the group, the exp against
+    it, the sum of exp over the group.  A block wholly masked (``NEG``)
+    adds nothing: its exp underflows to 0 against a valid slot's max (the
+    new token's own slot is valid on the rank that wrote it)."""
+    m = seq.max_(torch.amax(s_, dim=-1, keepdim=True))
+    e = torch.exp(s_ - m)
+    return e / seq.sum(torch.sum(e, dim=-1, keepdim=True))
+
+
 def attention_decode(p, x, cfg, cache, pos, *, window: int = 0):
     """Single-token decode against a (possibly ring) KV cache.
 
@@ -330,22 +361,54 @@ def attention_decode(p, x, cfg, cache, pos, *, window: int = 0):
     tensors in place (the reference returns updated copies; the serving
     loop donates its cache, so nothing reads the old values).  Returns
     ([B,1,D], cache).
+
+    **Sequence parallelism.**  Where the cache's entries are a rank's
+    shards whose spec splits the slots over ``model`` (``cache_seq``;
+    ``parallel.sharding.split_group``), the rank holds slots ``[r W/tp,
+    (r+1) W/tp)`` of ``k``, ``v`` and ``slot_pos``: the new token's are
+    written only where its slot falls in that block (per row in the
+    per-slot layout), the scores run over the block for every q head,
+    the softmax's max and sum of exp are taken over the group
+    (:func:`_split_softmax`) and the partial ``p·v`` (f32) is summed
+    over it.  Every rank computes every head's q and the new K and V
+    from ``wq``, ``wk``, ``wv`` gathered whole (one token); where tensor
+    parallelism splits ``wo``, the rank projects its heads' rows and the
+    output is summed over the group.
     """
     B = x.shape[0]
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = cfg.group_size
-    k, v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
+    seq = SH.split_group(cache["k"], 1)
+    k, v, slot_pos = (SH.local_of(cache[n]) for n in ("k", "v", "slot_pos"))
     per_slot = slot_pos.dim() == 2
-    W = k.shape[1]
+    Wl = k.shape[1]
+    W, r0 = (Wl * seq.size, Wl * seq.index) if seq is not None else (Wl, 0)
+    w = {n: SH.gathered(p[n]) for n in ("wq", "wk", "wv", "wq_b", "wk_b",
+                                        "wv_b") if n in p}
     pos_t = torch.as_tensor(pos, device=x.device).long()
     if per_slot:
         pos_v = torch.broadcast_to(pos_t, (B,))
-        q, k_new, v_new = _qkv(p, x, cfg, pos_v[:, None])
+        q, k_new, v_new = _qkv(w, x, cfg, pos_v[:, None])
         slot = pos_v % W
         b_idx = torch.arange(B, device=x.device)
-        k[b_idx, slot] = k_new[:, 0].to(k.dtype)
-        v[b_idx, slot] = v_new[:, 0].to(v.dtype)
-        slot_pos[b_idx, slot] = pos_v.to(slot_pos.dtype)
+        if seq is None:
+            k[b_idx, slot] = k_new[:, 0].to(k.dtype)
+            v[b_idx, slot] = v_new[:, 0].to(v.dtype)
+            slot_pos[b_idx, slot] = pos_v.to(slot_pos.dtype)
+        else:
+            # a row whose slot lies in another rank's block writes its own
+            # block's values back unchanged (one shape on every rank)
+            slot = slot - r0
+            mine = (slot >= 0) & (slot < Wl)
+            slot = slot.clamp(0, Wl - 1)
+            k[b_idx, slot] = torch.where(mine[:, None, None],
+                                         k_new[:, 0].to(k.dtype),
+                                         k[b_idx, slot])
+            v[b_idx, slot] = torch.where(mine[:, None, None],
+                                         v_new[:, 0].to(v.dtype),
+                                         v[b_idx, slot])
+            slot_pos[b_idx, slot] = torch.where(
+                mine, pos_v.to(slot_pos.dtype), slot_pos[b_idx, slot])
         sp = slot_pos.long()
         valid = (sp >= 0) & (sp <= pos_v[:, None])
         if window:
@@ -358,12 +421,13 @@ def attention_decode(p, x, cfg, cache, pos, *, window: int = 0):
         # a Python int stays one (no read back, and a meta dry run has
         # no value to read)
         pos_i = pos if isinstance(pos, int) else int(pos_t)
-        q, k_new, v_new = _qkv(p, x, cfg, torch.full((B, 1), pos_i,
+        q, k_new, v_new = _qkv(w, x, cfg, torch.full((B, 1), pos_i,
                                                      device=x.device))
-        slot = pos_i % W
-        k[:, slot:slot + 1] = k_new.to(k.dtype)
-        v[:, slot:slot + 1] = v_new.to(v.dtype)
-        slot_pos[slot] = pos_i
+        slot = pos_i % W - r0
+        if 0 <= slot < Wl:
+            k[:, slot:slot + 1] = k_new.to(k.dtype)
+            v[:, slot:slot + 1] = v_new.to(v.dtype)
+            slot_pos[slot] = pos_i
         sp = slot_pos.long()
         valid = (sp >= 0) & (sp <= pos_t)
         if window:
@@ -374,10 +438,20 @@ def attention_decode(p, x, cfg, cache, pos, *, window: int = 0):
     s_ = torch.einsum("bkgd,btkd->bkgt", qg.float(), k.float())
     s_ = _softcap(s_ / np.sqrt(hd), cfg.attn_logit_softcap)
     s_ = torch.where(valid, s_, NEG)
-    pr = torch.softmax(s_, dim=-1).to(x.dtype)
-    o = torch.einsum("bkgt,btkd->bkgd", pr, v.to(x.dtype))
+    if seq is None:
+        pr = torch.softmax(s_, dim=-1).to(x.dtype)
+        o = torch.einsum("bkgt,btkd->bkgd", pr, v.to(x.dtype))
+    else:
+        pr = _split_softmax(s_, seq).to(x.dtype)
+        o = seq.sum(torch.einsum("bkgt,btkd->bkgd", pr.float(),
+                                 v.float())).to(x.dtype)
     o = o.reshape(B, 1, H, hd)
-    return _out_proj(o, p["wo"]), cache
+    tp = SH.tp_group(p["wo"])
+    if tp is None:
+        return _out_proj(o, SH.gathered(p["wo"])), cache
+    h0, hl = tp.block(H)
+    return tp.sum(_out_proj(o.narrow(2, h0, hl),
+                            p["wo"].gather((SH.TP_AXIS,)))), cache
 
 
 # ---------------------------------------------------------------------------

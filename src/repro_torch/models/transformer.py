@@ -28,6 +28,16 @@ f32 logits over the whole vocabulary.  The RG-LRU's and the SSD's own
 leaves, the embedding and the norms are gathered whole.  Whole tensors
 run the same code, op for op.
 
+Serving on a rank's shards (``train/serve.py``'s steps) runs the same
+way, and its KV cache follows the reference's ``cache_seq`` rule: where
+it splits a cache's slots over ``model``, a prefill keeps each layer's
+block of K, V and slot positions (cut right after the layer, so no rank
+holds every layer's whole cache), and decode takes the cache as the
+rank's shards and runs attention sequence-parallel over them
+(``layers.attention_decode``).  The RG-LRU's and the SSD's caches, and a
+cache split otherwise, are gathered whole but their rows for the block
+and its block written back; a prefill returns them whole.
+
 In ``train`` mode with grad enabled, each super-block runs under
 ``cfg.remat``, as the reference's ``_maybe_remat``: ``"none"`` keeps every
 activation, ``"block"`` is ``torch.utils.checkpoint`` (non-reentrant),
@@ -203,23 +213,72 @@ def _sub(params: dict, prefix: str) -> dict:
 # block forward
 
 
-def _attn_seq_with_cache(p, x, cfg, kind, want_cache: bool):
+def _attn_seq_with_cache(p, x, cfg, kind, want_cache: bool, ops=None):
+    """Attention over the sequence and, for a prefill, its serving cache:
+    the last ``attn_window`` positions of a local layer, else all of
+    them; of those slots the rank's block where the cache's ``cache_seq``
+    splits them over ``model`` (``parallel.sharding.cache_seq_group`` on
+    ``ops``, the rank's shards'), a copy that owns only the block's
+    bytes.  Where tensor parallelism left the rank only the KV heads its
+    q heads read, the block's K and V of every KV head come from the
+    layer's input over the block's positions (``layers.cache_kv``)."""
     window = cfg.attn_window if kind == "attn_local" else 0
     y, (k, v) = L.attention_seq_kv(p, x, cfg, window=window)
     if not want_cache:
         return y, None
     Sq = x.shape[1]
-    if window and Sq > window:
-        k, v = k[:, -window:], v[:, -window:]
-        slot_pos = torch.arange(Sq - window, Sq, dtype=torch.int32, device=x.device)
+    W = window if window and Sq > window else Sq
+    seq = SH.cache_seq_group(ops, W)
+    lo, n = seq.block(W) if seq is not None else (0, W)
+    first = Sq - W + lo             # the position in the rank's first slot
+    if k.shape[2] != cfg.num_kv_heads:
+        k, v = L.cache_kv(p, x[:, first:first + n], cfg, first)
     else:
-        slot_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
+        k, v = k[:, first:first + n], v[:, first:first + n]
+        if seq is not None:
+            k, v = k.clone(), v.clone()
+    slot_pos = torch.arange(first, first + n, dtype=torch.int32,
+                            device=x.device)
     return y, {"k": k, "v": v, "slot_pos": slot_pos}
 
 
+def _whole_cache(kind: str, cache: dict) -> dict | None:
+    """A decode cache of a rank's shards (``parallel.sharding.ShardedLeaf``)
+    that its block runs whole: gathered over every axis but its rows'
+    (``cache_batch``), or None where the block runs the shards as they
+    are (none is a shard; attention's where its slots split over
+    ``model``: ``layers.attention_decode`` runs sequence-parallel).  The
+    RG-LRU's and the SSD's state are split by ``ffn`` / ``ssm_heads`` and
+    run whole, as their leaves do."""
+    if not any(isinstance(v, SH.ShardedLeaf) for v in cache.values()) or (
+            kind in ATTN_KINDS and SH.split_group(cache["k"], 1) is not None):
+        return None
+    keep = SH.current_rules().get("cache_batch")
+    return {k: v.gather(keep) if isinstance(v, SH.ShardedLeaf) else v
+            for k, v in cache.items()}
+
+
+def _put_back(cache: dict, whole: dict) -> None:
+    """The rank's block of each entry of ``whole`` (:func:`_whole_cache`,
+    updated in place by the block) written back into its shard."""
+    keep = SH.current_rules().get("cache_batch")
+    for k, v in cache.items():
+        if isinstance(v, SH.ShardedLeaf) and whole[k] is not v.local:
+            v.local.copy_(v.ops.block(whole[k], v.layout(keep)))
+
+
 def block_fwd(kind: str, cfg: ModelConfig, p: dict, x, *, mode: str, pos=None,
-              cache=None):
-    """Returns (x, new_cache, aux_loss)."""
+              cache=None, ops=None):
+    """Returns (x, new_cache, aux_loss).  ``ops``: the rank's
+    ``MeshOps`` where ``p`` holds its shards (a prefill cuts its cache to
+    the rank's block of slots)."""
+    if mode == "decode":
+        whole = _whole_cache(kind, cache)
+        if whole is not None:
+            x, _, aux = block_fwd(kind, cfg, p, x, mode=mode, pos=pos,
+                                  cache=whole)
+            _put_back(cache, whole)
+            return x, cache, aux
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in ATTN_KINDS:
         window = cfg.attn_window if kind == "attn_local" else 0
@@ -227,7 +286,8 @@ def block_fwd(kind: str, cfg: ModelConfig, p: dict, x, *, mode: str, pos=None,
         if mode == "decode":
             a, new_cache = L.attention_decode(p, h, cfg, cache, pos, window=window)
         else:
-            a, new_cache = _attn_seq_with_cache(p, h, cfg, kind, mode == "prefill")
+            a, new_cache = _attn_seq_with_cache(p, h, cfg, kind,
+                                                mode == "prefill", ops)
         x = x + a
         h = L.rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
         if kind == "attn_moe":
@@ -345,6 +405,7 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train"
     if mode == "decode" and cache is None:
         raise ValueError("decode mode needs a cache")
     x = _embed_inputs(params, inputs, cfg)
+    ops = SH.leaf_ops(params)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict = {}
     pattern = cfg.block_pattern
@@ -355,7 +416,7 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train"
         for slot, kind in enumerate(pattern):
             c = slot_caches[slot] if slot_caches is not None else None
             x, nc, aux = block_fwd(kind, cfg, _gather_block(slot_params[slot]),
-                                   x, mode=mode, pos=pos, cache=c)
+                                   x, mode=mode, pos=pos, cache=c, ops=ops)
             if nc is not None:
                 outs[slot] = nc
             aux_sum = aux_sum + aux
@@ -371,7 +432,9 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train"
     # recompute) and dropped after its block
     stacked = [{k: v.unbind(0) for k, v in _sub(params, f"s{slot}_").items()}
                for slot in range(len(pattern))]
-    cache_stacked = ([_sub(cache, f"s{slot}_") for slot in range(len(pattern))]
+    cache_stacked = ([{k: v.unbind(0) for k, v in
+                       _sub(cache, f"s{slot}_").items()}
+                      for slot in range(len(pattern))]
                      if mode == "decode" else None)
     layer_caches: dict[str, list] = {}
     for i in range(cfg.n_super):
@@ -387,17 +450,19 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train"
     if mode == "prefill":
         new_cache = {k: torch.stack(v) for k, v in layer_caches.items()}
     elif mode == "decode" and cfg.n_super > 0:
-        new_cache = {k: v for k, v in cache.items() if k.startswith("s")}
+        new_cache = {k: SH.local_of(v) for k, v in cache.items()
+                     if k.startswith("s")}
 
     for ti, kind in enumerate(cfg.trailing):
         c = _sub(cache, f"t{ti}_") if (cache and mode == "decode") else None
         p = _gather_block(_sub(params, f"t{ti}_"))
-        x, nc, aux = block_fwd(kind, cfg, p, x, mode=mode, pos=pos, cache=c)
+        x, nc, aux = block_fwd(kind, cfg, p, x, mode=mode, pos=pos, cache=c,
+                               ops=ops)
         del p
         aux_total = aux_total + aux
         if nc is not None:
             for k, v in nc.items():
-                new_cache[f"t{ti}_{k}"] = v
+                new_cache[f"t{ti}_{k}"] = SH.local_of(v)
 
     x = L.rmsnorm(x, SH.gathered(params["final_scale"]), cfg.norm_eps)
     head = (SH.tp_gathered(params["tok_embed"]).T if cfg.tie_embeddings

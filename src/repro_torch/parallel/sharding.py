@@ -46,6 +46,13 @@ is the sum), so a rank's gradient is the derivative of the sum of every
 rank's loss, which :meth:`MeshOps.reduce` divides by the rank count:
 ranks of one ``model`` group compute the same loss, so this is the
 global batch's gradient, as for the MoE's expert-parallel paths.
+
+**Serving caches split over ``model``** by the rules' ``cache_seq``
+(sequence parallelism in decode): a cache leaf's stored spec decides
+(:func:`split_group`), and a prefill, which has no cache leaf yet,
+asks the rules for a cache of its length (:func:`cache_seq_group`).
+:func:`sharded_leaves` hands a step a rank's blocks as
+:class:`ShardedLeaf` s.
 """
 
 from __future__ import annotations
@@ -719,7 +726,14 @@ def tp_group(x) -> TPGroup | None:
     if not any(TP_AXIS in axes for axes in spec_axes(x.sharding.spec,
                                                       x.local.dim())):
         return None
-    return TPGroup(x.ops, n, x.ops.coordinate()[TP_AXIS])
+    return _model_group(x.ops)
+
+
+def _model_group(ops: MeshOps) -> TPGroup | None:
+    """The ranks along ``model`` of ``ops``'s mesh, where it has more than
+    one."""
+    n = ops.sizes.get(TP_AXIS, 1)
+    return TPGroup(ops, n, ops.coordinate()[TP_AXIS]) if n > 1 else None
 
 
 def tp_gathered(x):
@@ -728,6 +742,44 @@ def tp_gathered(x):
     if tp_group(x) is not None:
         return x.gather((TP_AXIS,))
     return gathered(x)
+
+
+def split_group(x, dim: int) -> TPGroup | None:
+    """The group whose ranks each hold a block of dimension ``dim`` of
+    ``x``: where ``x`` is a :class:`ShardedLeaf` whose stored spec splits
+    that dimension over ``model`` alone, of more than one rank (a serving
+    cache's slots under ``cache_seq``).  None elsewhere."""
+    if not isinstance(x, ShardedLeaf) or x.axes(dim) != (TP_AXIS,):
+        return None
+    return _model_group(x.ops)
+
+
+def cache_seq_group(ops: MeshOps | None, n_slots: int) -> TPGroup | None:
+    """The group that splits a serving cache of ``n_slots`` slots, as the
+    cache leaf's spec would (:func:`split_group`): where the current
+    rules' ``cache_seq`` gives ``model`` alone on ``ops``'s mesh, more
+    than one rank that divides ``n_slots``.  None without ``ops``."""
+    if ops is None or _spec_for(("cache_seq",), ops.mesh, current_rules(),
+                                (n_slots,)) != (TP_AXIS,):
+        return None
+    return _model_group(ops)
+
+
+def sharded_leaves(local: dict, shardings: dict, ops: MeshOps) -> dict:
+    """A rank's blocks (``local``, by key) as :class:`ShardedLeaf` s of
+    their ``shardings``; at one rank the blocks themselves, the whole
+    leaves."""
+    if ops.n == 1:
+        return dict(local)
+    return {k: ShardedLeaf(v, shardings[k], ops, key=k)
+            for k, v in local.items()}
+
+
+def leaf_ops(tree: dict) -> MeshOps | None:
+    """The :class:`MeshOps` of the first :class:`ShardedLeaf` in ``tree``
+    (a rank's shards), or None (whole tensors)."""
+    return next((v.ops for v in tree.values() if isinstance(v, ShardedLeaf)),
+                None)
 
 
 def local_of(x):

@@ -3,7 +3,17 @@
 Both run under ``torch.inference_mode()``: parameters that come out of
 training may still require a gradient, and a serving step must build no
 autograd graph.  The cache and logits they return are inference tensors,
-which later steps may read and update in place inside inference mode."""
+which later steps may read and update in place inside inference mode.
+
+Both run on whole tensors or on a rank's shards: parameters as
+``parallel.sharding.ShardedLeaf`` s (``sharded_leaves``), under the
+mesh's ``sharding_context``, gathered a layer at a time with the products
+split over ``model`` as in the sharded train step
+(``models/transformer.py``).  A prefill's cache then holds the rank's
+block of each layer's slots where the rules' ``cache_seq`` splits them,
+and its logits the rank's block of the vocabulary where the head splits;
+decode takes the cache as ``ShardedLeaf`` s of its blocks and returns
+the blocks, updated in place."""
 
 from __future__ import annotations
 

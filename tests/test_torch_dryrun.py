@@ -128,6 +128,38 @@ def test_sharded_train_cell_fits(arch, policy):
     assert rec["fits"]
 
 
+# prefill_32k and decode_32k cells that did not fit one card while the
+# serving programs gathered every weight and the decode cache whole
+# (baseline; that program's temp GiB in the comments):
+# (arch, shape, mesh) -> the bound on temp_bytes in GiB now that they keep
+# the weights sharded, split the products over model and decode's cache
+# over cache_seq
+SHARDED_SERVE = {("qwen1_5_4b", "decode_32k", "pod"): 2.0,          # 107.36
+                 ("qwen1_5_4b", "prefill_32k", "pod"): 32.0,        # 96.85
+                 ("qwen3_moe_30b_a3b", "prefill_32k", "pod"): 13.0,  # 107.88
+                 ("qwen3_moe_30b_a3b", "prefill_32k", "multipod"): 7.0,  # 82.96
+                 ("qwen3_moe_30b_a3b", "decode_32k", "pod"): 2.0,    # 80.88
+                 ("minicpm_2b", "decode_32k", "pod"): 2.5,           # 95.08
+                 ("minicpm_2b", "prefill_32k", "pod"): 52.0,         # 81.95
+                 ("musicgen_large", "decode_32k", "pod"): 1.0,       # 100.52
+                 ("phi3_vision_4_2b", "decode_32k", "pod"): 1.0,     # 103.12
+                 ("recurrentgemma_2b", "prefill_32k", "pod"): 33.0}  # 88.68
+
+
+@pytest.mark.parametrize("arch,shape,mesh", list(SHARDED_SERVE),
+                         ids=["__".join(c) for c in SHARDED_SERVE])
+def test_sharded_serving_cell_fits(arch, shape, mesh):
+    """One rank's serving program holds its shards of the weights and one
+    layer's gathered at a time, its ``model`` group splitting the
+    products and the head where ``model`` divides them, and a decode its
+    block of the cache's slots: its temp bytes stay under the bound and
+    the cell fits one card."""
+    rec = D.run_cell(arch, shape, mesh, save=False)
+    temp = rec["memory"]["temp_bytes"] / 2**30
+    assert temp < SHARDED_SERVE[(arch, shape, mesh)], temp
+    assert rec["fits"]
+
+
 def test_run_cell_writes_its_record(tmp_path):
     rec = D.run_cell("smollm_360m", "decode_32k", "multipod", tag="t",
                      out_dir=tmp_path)
@@ -176,7 +208,10 @@ ESTIMATE_CELLS = [
     ("recurrentgemma_2b", "tiny_prefill"), ("phi3_vision_4_2b", "tiny_train"),
     ("smollm_360m", "tiny_train", "dp_fsdp"),
     ("qwen3_moe_30b_a3b", "tiny_train", "dp_fsdp"),
-    ("recurrentgemma_2b", "tiny_train"), ("internlm2_1_8b", "tiny_train")]
+    ("recurrentgemma_2b", "tiny_train"), ("internlm2_1_8b", "tiny_train"),
+    ("qwen3_moe_30b_a3b", "tiny_prefill"), ("qwen3_moe_30b_a3b", "tiny_decode"),
+    ("recurrentgemma_2b", "tiny_decode"), ("minicpm_2b", "tiny_decode"),
+    ("smollm_360m", "tiny_decode", "dp_fsdp")]
 
 
 @pytest.mark.parametrize("cell", ESTIMATE_CELLS,
@@ -189,7 +224,14 @@ def test_meta_estimate_equals_a_cpu_run(tiny, cell):
     products split over ``model`` (tensor parallelism: the gathers that
     keep ``model`` return rank 0's block), RecurrentGemma's RG-LRU
     blocks whole beside its split MLPs and local attention, InternLM2's
-    KV heads split with its q heads."""
+    KV heads split with its q heads.  The serving cells run
+    ``train/serve.py``'s steps on the rank's shards: a prefill cuts each
+    layer's cache to the rank's block of the slots (Qwen3's from KV heads
+    cut under tensor parallelism), decode takes the cache's blocks and
+    runs attention sequence-parallel (RecurrentGemma's local ring of 8,
+    MiniCPM's heads and vocabulary whole, ``dp_fsdp``'s products whole),
+    the RG-LRU's and the SSD's caches gathered whole but their rows and
+    cut back."""
     arch, shape, policy = (*cell, "baseline")[:3]
     low, _, on_meta = _measure(arch, shape, "meta", policy)
     low_c, outs, on_cpu = _measure(arch, shape, "cpu", policy)
@@ -260,6 +302,32 @@ def test_train_cells_flash_shapes_are_held_by_phases_10_and_14():
         assert shape in chip_smoke.bwd_shapes()
 
 
+def test_prefill_cells_flash_shapes_are_held_by_phase_10():
+    """Phase 27 (b)'s ``prefill_32k`` pod cells give flash one rank's 2
+    rows of 32,768 positions times its q heads: split over ``model``
+    where it divides them (InternLM2-1.8B 1 of 16, Qwen3-30B-A3B,
+    MusicGen-large and Phi-3-Vision 2 of 32), whole where it does not
+    (SmolLM-360M's 15, RecurrentGemma-2B's 10 with its window,
+    Qwen1.5-4B's 20, MiniCPM-2B's 36).  Phase 10 holds every one, with
+    the plain version a batch-head at a time, which equals one call."""
+    import chip_smoke
+
+    got = chip_smoke.dryrun_prefill_flash_shapes()
+    assert got == ((30, 32768, 64, 0), (20, 32768, 256, 2048),
+                   (4, 32768, 128, 0), (2, 32768, 128, 0),
+                   (40, 32768, 128, 0), (72, 32768, 64, 0),
+                   (4, 32768, 64, 0), (4, 32768, 96, 0))
+    assert len(chip_smoke.DRYRUN_MUST_RUN) == 9
+    assert "llama4_maverick_400b_a17b" not in chip_smoke.DRYRUN_MUST_RUN
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(5, 32, 64, generator=g) for _ in range(3))
+    whole = FA.flash_fwd_plain(q, k, v, scale=0.125, window=8)
+    rows = chip_smoke.flash_fwd_plain_rows(torch, q, k, v, 0.125, 8,
+                                           max_elems=2 * 32 * 32)
+    for a, b in zip(rows, whole):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_donated_arguments_are_freed(tiny):
     """The train state is donated: the sharded step empties its dicts as
     it gathers them.  The prefill weights are not: they stay."""
@@ -277,19 +345,24 @@ def test_donated_arguments_are_freed(tiny):
 
 def test_flop_count_is_the_hand_count(tiny):
     """A reduced SmolLM's prefill (naive attention over whole q chunks,
-    gated MLP, tied head), one rank's 4 sequences of 64: every product
-    counted by hand."""
+    gated MLP, tied head), one rank's 4 sequences of 64 on the (2, 2)
+    mesh: every product counted by hand.  Its ``model`` pair splits the
+    heads, KV heads, hidden units and vocabulary in two (tensor
+    parallelism) and the cache's slots (``cache_seq``), whose K and V of
+    both KV heads the rank projects over its 32 positions."""
     low, _, (_, _, flops) = _measure("smollm_360m", "tiny_prefill", "meta")
     cfg = low.cfg
     b, S, D_, V = 4, 64, cfg.d_model, cfg.vocab_size
     H, Kv, hd, F = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    tp = MESH.shape["model"]
     assert cfg.mlp_gated and cfg.attn_impl == "naive"
-    layer = (2 * b * S * D_ * H * hd            # q
-             + 2 * 2 * b * S * D_ * Kv * hd     # k, v
-             + 2 * b * S * H * hd * D_          # o
-             + 2 * 2 * b * H * S * S * hd       # scores, P V (whole chunks)
-             + 3 * 2 * b * S * D_ * F)          # gate, up, down
-    assert flops == cfg.num_layers * layer + 2 * b * S * D_ * V
+    layer = (2 * b * S * D_ * H // tp * hd            # q
+             + 2 * 2 * b * S * D_ * Kv // tp * hd     # k, v
+             + 2 * b * S * H // tp * hd * D_          # o
+             + 2 * 2 * b * H // tp * S * S * hd       # scores, P V
+             + 3 * 2 * b * S * D_ * F // tp           # gate, up, down
+             + 2 * 2 * b * S // tp * D_ * Kv * hd)    # the cache's k, v
+    assert flops == cfg.num_layers * layer + 2 * b * S * D_ * V // tp
 
 
 def test_kernel_meta_launches():

@@ -7,7 +7,10 @@ steps on the same card (on the ``model`` and ``resident`` meshes the
 products split over ``model``: tensor parallelism), and one sharded
 step's loss and gradients at published width (``PUBLISHED``:
 InternLM2-1.8B at 4 layers in f32 on a (1, 4) mesh, every product split
-over the four cards) against world size 1 on the first card.  Marked
+over the four cards) against world size 1 on the first card, and sharded
+serving on the same mesh (``SERVE``: a reduced Qwen3-30B-A3B and
+InternLM2-1.8B at 4 layers of published width; prefill, then decode on
+the cache's blocks of the slots) against world size 1 there.  Marked
 ``cuda``; skips with fewer than four cards.  The file imports nothing of
 the JAX package:
 
@@ -30,6 +33,7 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 import test_torch_parallel as TP  # noqa: E402
+import test_torch_sharded_serve as SS  # noqa: E402
 
 WORLD = 4
 # the published-width case: (arch, layers, mesh, batch, sequence); f32,
@@ -38,6 +42,11 @@ PUBLISHED = ("internlm2_1_8b", 4, (1, 4), 2, 2048)
 # relative L2 of the loss and of each gradient against world size 1
 # (measured on four H100s: the loss equal, the worst gradient 8.0e-6)
 TOL_PUBLISHED = 1e-4
+# sharded serving on a (1, 4) mesh under baseline (test_torch_sharded_serve's
+# prefill and decodes): name -> (arch, layers (None: the reduced config),
+# relative L2 against world size 1); f32, TF32 off
+SERVE = {"qwen3_reduced": ("qwen3", None, TP.TOL_GRAD),
+         "internlm2_published": ("internlm2_1_8b", 4, TOL_PUBLISHED)}
 
 
 def _rank_checks(rank, device, out):
@@ -138,6 +147,54 @@ def _published_check(rank, device, out):
     torch.save(res, out / f"rank{rank}.pt")
 
 
+def serve_setup(name, device):
+    """``SERVE[name]``'s config, whole parameters on ``device`` (seed 0),
+    prompt, decode tokens and decode start caches (its own prefill's,
+    padded; numpy).  InternLM2-1.8B at published width attends through
+    the flash kernels (their f32 route on the card)."""
+    import numpy as np
+
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    from repro_torch.train import serve as SRV
+
+    arch, layers, _ = SERVE[name]
+    if layers is None:
+        cfg = SS.port_cfg(arch)
+    else:
+        cfg = C.get_config(arch).with_(num_layers=layers, dtype="float32",
+                                       param_dtype="float32",
+                                       attn_impl="flash")
+    params = _to(T.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
+                 device)
+    rng = np.random.default_rng(37)
+    prompt = rng.integers(0, cfg.vocab_size, (SS.B, SS.S)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (SS.B, len(SS.WAVE_POS))).astype(np.int32)
+    with torch.inference_mode():
+        cache, _ = SRV.make_prefill_step(cfg)(
+            params, {"tokens": torch.from_numpy(prompt)})
+    return cfg, params, prompt, toks, SS.decode_caches(cfg, cache)
+
+
+def _serve_check(rank, device, out):
+    """``SERVE``'s sharded prefill and decodes on this rank of a (1, 4)
+    mesh, each result on the host."""
+    from repro_torch.parallel import sharding as SH
+
+    mesh = SH.make_mesh((1, WORLD), ("data", "model"), device=device.type)
+    res = {"rank": rank, "coord": tuple(mesh.get_coordinate())}
+    for name in SERVE:
+        cfg, params, prompt, toks, start = serve_setup(name, device)
+        with torch.inference_mode():
+            got = SS.sharded_serve(cfg, mesh, SH.DEFAULT_RULES, params,
+                                   prompt, toks, start)
+        res[name] = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                     for k, v in got.items()}
+        del params
+    torch.save(res, out / f"rank{rank}.pt")
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -155,6 +212,7 @@ def _rank_main(argv=None):
     ap.add_argument("--backend", default="nccl")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--published", action="store_true")
+    ap.add_argument("--serve", action="store_true")
     a = ap.parse_args(argv)
     device = torch.device(a.device, a.rank) if a.device == "cuda" \
         else torch.device(a.device)
@@ -169,6 +227,8 @@ def _rank_main(argv=None):
     try:
         if a.published:
             _published_check(a.rank, device, pathlib.Path(a.out))
+        elif a.serve:
+            _serve_check(a.rank, device, pathlib.Path(a.out))
         else:
             _rank_checks(a.rank, device, pathlib.Path(a.out))
     finally:
@@ -252,6 +312,52 @@ def test_tp_step_at_published_width_over_nccl(published):
     print(f"loss {r0['loss']!r} against {r0['want_loss']!r}; worst "
           f"gradient relative L2 {worst[1]:.3e} ({worst[0]})")
     assert worst[1] < TOL_PUBLISHED, worst
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    if torch.cuda.device_count() < WORLD:
+        pytest.skip(f"needs {WORLD} CUDA devices")
+    return TP.spawn(WORLD, pathlib.Path(__file__),
+                    tmp_path_factory.mktemp("served"), "--serve")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SERVE))
+def test_sharded_serving_over_nccl(served, name):
+    """``test_torch_sharded_serve``'s sharded prefill and decodes (six wave
+    steps, four per-slot, writing into every rank's block of the slots)
+    on a (1, 4) mesh over NCCL, one card a rank: the reduced Qwen3-30B-A3B
+    (its MoE's expert-parallel paths, KV heads cut) and InternLM2-1.8B at
+    4 layers of published width (16 heads and 8 KV heads, 8,192 hidden
+    units and 92,544 words split over the four cards; flash in the
+    prefill).  The prefill's logits and cache and each step's logits and
+    the final caches, assembled from the ranks' blocks, equal world size
+    1's on the first card within ``SERVE``'s relative L2."""
+    from repro_torch.parallel import sharding as SH
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params, prompt, toks, start = serve_setup(name,
+                                                   torch.device("cuda", 0))
+    with torch.inference_mode():
+        want = SS.serve_direct(cfg, params, prompt, toks, start)
+    del params
+    tol = SERVE[name][2]
+    parts = [(r["coord"], r[name]) for r in served]
+    worst = 0.0
+    for k, w in want.items():
+        w = torch.from_numpy(w)
+        if "/logits/" in k or k.endswith("/logits"):
+            axes = ("batch" if k.startswith("prefill") else "cache_batch",
+                    None, "act_vocab")
+        else:
+            axes = SS.leaf_axes(cfg, k, k.split("/")[0])
+        got = SS.assemble(parts, k, tuple(w.shape), axes, (1, WORLD),
+                          SH.DEFAULT_RULES)
+        err = TP.rel_l2(got, w)
+        worst = max(worst, err)
+        assert err < tol, (k, err)
+    print(f"{name}: worst relative L2 {worst:.3e} against world size 1")
 
 
 if __name__ == "__main__":
