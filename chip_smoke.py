@@ -385,9 +385,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
     families (the reference's set), a table of each cell's argument and
     temp GiB, ``fits``, FLOP and seconds.  (b) ``flash_fwd`` in bf16 on
     [1, 32,768, hd] for hd 64, 96, 128 and 256 (window 2,048) and
-    ``ssd_scan`` on [48, 128, 256, 64], ds 128, G 1 against their plain
-    versions; then for each arch but Llama-4 Maverick the first
-    ``prefill_32k`` cell (``pod``: 2 x 32,768 a rank; ``multipod``: 1 x
+    ``ssd_scan`` on [48, 128, 256, 64], ds 128, G 1 and on the pod rank's
+    [6, 128, 256, 64], G 2 (its 2 rows x 3 of the 48 heads) against their
+    plain versions, the latter also timed; then for each arch but Llama-4
+    Maverick the first ``prefill_32k`` cell (``pod``: 2 x 32,768 a rank; ``multipod``: 1 x
     32,768) whose estimate leaves a tenth of the card free, run on the
     card by ``run_cell(execute=True)`` at published width and depth with
     ``flash`` (``ssdk`` for Mamba-2), the rank's shards of the weights
@@ -407,14 +408,18 @@ Phases, each of which fails the script (non-zero exit, no result line):
     Qwen1.5-4B, each with its measured peak within [0.90, 1.10] of the
     estimate, ``train_launches_per_step`` launches of each flash kernel
     (forward twice a layer for the remat, dQ and dK/dV once) and nothing
-    else, a finite loss, and state and metrics of their shards' shapes.
-    Then one rank's ``decode_32k`` pod step of Qwen1.5-4B and of
-    Qwen3-30B-A3B at all 48 layers under ``baseline`` (``DRYRUN_DECODE``):
-    8 rows and its 2,048 of the cache's 32,768 slots a layer
-    (sequence-parallel attention), every slot valid and the token at
-    position 32,767, its cache and logits finite and of their shards'
-    shapes, no kernel launched, its measured peak within [0.90, 1.10] of
-    the estimate.  (c)
+    else, a finite loss, and state and metrics of their shards' shapes;
+    likewise under ``baseline+flash`` Qwen3, InternLM2-1.8B and
+    RecurrentGemma-2B (26 layers, its RG-LRU blocks split over ``model``:
+    160 of the 2,560 channels a rank).
+    Then one rank's ``decode_32k`` pod step of Qwen1.5-4B, of
+    Qwen3-30B-A3B at all 48 layers, of RecurrentGemma-2B and of Mamba-2
+    780M under ``baseline`` (``DRYRUN_DECODE``): 8 rows and its 2,048 of
+    the cache's 32,768 slots a layer (sequence-parallel attention), the
+    RG-LRU's and SSD's states the rank's block of the channels or heads,
+    every slot valid and the token at position 32,767, its cache and
+    logits finite and of their shards' shapes, no kernel launched, its
+    measured peak within [0.90, 1.10] of the estimate.  (c)
     ``fig5_cached``'s scenario: ``bench_hot`` through the port's
     ``Dispatcher`` to a host peer, one FULL then 64 SLIM invocations:
     links 1, 64 SLIM, 65 invocations, the 256 KiB code section on the wire
@@ -1345,6 +1350,8 @@ def counted_sweeps(mb):
 def reset_counts():
     for fn in _counted().values():
         fn.launches = 0
+        if hasattr(fn, "shapes"):
+            fn.shapes.clear()
 
 
 def read_counts():
@@ -6072,20 +6079,112 @@ def dryrun_train_split(arch, policy, shape=None):
     return cfg, mb, rows, heads, vocab
 
 
-def dryrun_train_flash_shapes():
-    """flash's [BH, S, hd, window] in phase 27 (b)'s train cells: each of
-    ``DRYRUN_TRAIN`` on one rank's rows of a microbatch and its q heads
+def dryrun_train_flash_shapes(cells=None):
+    """flash's [BH, S, hd, window] in phase 27 (b)'s train ``cells``
+    (default ``DRYRUN_TRAIN``): each on one rank's rows of a microbatch
+    and its q heads
     (:func:`dryrun_train_split`; KV repeated to those heads, each
     attention kind's window)."""
     from repro_torch import configs as C
 
     S = C.SHAPES[DRYRUN_TRAIN_SHAPE].seq_len
     shapes = []
-    for arch, policy in DRYRUN_TRAIN:
+    for arch, policy in DRYRUN_TRAIN if cells is None else cells:
         cfg, mb, rows, heads, _ = dryrun_train_split(arch, policy)
         shapes += [(rows // mb * heads, S, cfg.head_dim, w)
                    for w in attn_windows(cfg)]
     return shapes
+
+
+def recurrent_split(arch, policy, shape):
+    """How a pod cell's ``model`` group splits ``arch``'s RG-LRU channels
+    and SSD heads, as the port decides it: ``rglru.tp_split`` /
+    ``ssm.tp_split`` (what ``transformer._gather_block`` asks) of a
+    rank's shards, on meta, of the first such block's leaves (and, in
+    decode, its cache) on the pod's ``AbstractMesh``.  {"rglru": (a
+    rank's channels, all), "ssd": (a rank's heads, all)} for the kinds
+    it has."""
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models import rglru, ssm
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as SH
+
+    cfg, rules, _ = DR.apply_policy(C.get_config(arch), shape, policy)
+    mesh = DR.make_abstract_mesh()
+    sp = C.SHAPES[shape]
+    shapes, axes = T.param_shapes(cfg), T.param_axes(cfg)
+    cache_keys = ()
+    if sp.kind == "decode":
+        B, S = sp.global_batch, sp.seq_len
+        cache_keys = tuple(T.cache_shapes(cfg, B, S))
+        shapes.update(T.cache_shapes(cfg, B, S))
+        axes.update(T.cache_axes(cfg, B, S))
+    ops = DR.DryOps(mesh, DR.meta_gather, {})
+
+    def shard(key, stacked):
+        spec, ax = shapes[key], tuple(axes[key])
+        sh = SH.logical_sharding(ax, mesh, rules, tuple(spec.shape))
+        local = torch.empty(DR.Leaf(key, spec, ax, sh).shard_shape,
+                            device="meta")
+        leaf = SH.ShardedLeaf(local, sh, ops, key=key)
+        return leaf.unbind(0)[0] if stacked else leaf
+
+    slots = [f"s{i}_" for i in range(len(cfg.block_pattern))] + [
+        f"t{i}_" for i in range(len(cfg.trailing))]
+    kinds = list(cfg.block_pattern) + list(cfg.trailing)
+    out = {}
+    with SH.sharding_context(mesh, rules):
+        for kind, mod, whole in (("rglru", rglru, cfg.rnn_width),
+                                 ("ssd", ssm, cfg.ssm_heads)):
+            if kind not in kinds:
+                continue
+            prefix = slots[kinds.index(kind)]
+            stacked = prefix[0] == "s"
+            p = {k: shard(prefix + k, stacked) for k in mod.TP_WEIGHTS}
+            cache = ({k[len(prefix):]: shard(k, stacked) for k in cache_keys
+                      if k.startswith(prefix)} if cache_keys else None)
+            tp = mod.tp_split(p, cache)
+            out[kind] = (whole if tp is None else whole // tp.size, whole)
+    return out
+
+
+def recurrent_phrase(split):
+    """:func:`recurrent_split`'s result as a phrase for the logs."""
+    what = {"rglru": "RG-LRU channels", "ssd": "SSD heads"}
+    return "".join(f", {n:,} of the {whole:,} {what[k]} a rank"
+                   for k, (n, whole) in split.items())
+
+
+def bf16_only_flash_shapes():
+    """The flash shapes phases 10 and 14 hold in bf16 alone: those of the
+    ``DRYRUN_TRAIN_BF16`` cells."""
+    return tuple(dryrun_train_flash_shapes(
+        [c for c in DRYRUN_TRAIN if c[0] in DRYRUN_TRAIN_BF16]))
+
+
+def dryrun_prefill_ssd_shape(arch="mamba2_780m"):
+    """``ssd_scan``'s [BH, nc, Q, hd, ds, G] in ``arch``'s ``prefill_32k``
+    pod cell: one rank's rows times its SSD heads (split over ``model``
+    where it divides them and ``d_inner``: ``ssm.tp_split``), chunks of
+    ``ssm_chunk``, B and C one group a row."""
+    from repro_torch import configs as C
+    from repro_torch.launch.dryrun import apply_policy, make_abstract_mesh
+    from repro_torch.parallel import sharding as SH
+
+    cfg, rules, _ = apply_policy(C.get_config(arch), DRYRUN_SHAPE, "ssdk")
+    sp = C.SHAPES[DRYRUN_SHAPE]
+    mesh = make_abstract_mesh()
+    sizes = SH.mesh_shape(mesh)
+    spec = SH.logical_sharding(("batch", None), mesh, rules,
+                               (sp.global_batch, sp.seq_len)).spec
+    rows = sp.global_batch // math.prod(
+        sizes[a] for a in SH.spec_axes(spec, 2)[0])
+    nh = recurrent_split(arch, "ssdk", DRYRUN_SHAPE)["ssd"][0]
+    Q = min(cfg.ssm_chunk, sp.seq_len)
+    return (rows * nh, sp.seq_len // Q, Q, cfg.ssm_head_dim, cfg.ssm_state,
+            rows)
 
 
 def dryrun_prefill_flash_shapes():
@@ -6162,10 +6261,13 @@ def phase_model_kernels(np, torch, dev):
     t0 = time.perf_counter()
     rng = np.random.default_rng(20)
     errs = {"flash_fwd": 0.0, "ssd_scan": 0.0}
-    both = flash_fwd_shapes() + train_flash_shapes()
-    # phase 27 (b)'s prefill cells run bf16: their shapes in bf16 alone
-    # (the plain version a batch-head at a time)
-    shapes = tuple(dict.fromkeys(both + dryrun_prefill_flash_shapes()))
+    both = tuple(sh for sh in flash_fwd_shapes() + train_flash_shapes()
+                 if sh not in bf16_only_flash_shapes())
+    # phase 27 (b)'s prefill cells and DRYRUN_TRAIN_BF16's train cells run
+    # bf16: their shapes in bf16 alone (the plain version a batch-head at
+    # a time at 32,768 positions)
+    shapes = tuple(dict.fromkeys(both + bf16_only_flash_shapes()
+                                 + dryrun_prefill_flash_shapes()))
     for BH, S, hd, window in shapes:
         scale = 1.0 / float(np.sqrt(hd))
         dtypes = (torch.float32, torch.bfloat16) if (BH, S, hd, window) \
@@ -6692,6 +6794,19 @@ def bwd_shapes():
                                + BWD_EDGE_SHAPES))
 
 
+def plain_rows(torch, fn, args, S, max_elems=1 << 30, **kw):
+    """A plain backward ``fn(*args, **kw)`` over chunks of the batch-heads
+    (every argument's leading dimension) whose ``[n, S, S]`` tensors hold
+    at most ``max_elems`` elements, each output concatenated; one call
+    where the whole fits."""
+    BH = args[0].shape[0]
+    n = max(1, max_elems // (S * S))
+    if n >= BH:
+        return fn(*args, **kw)
+    parts = [fn(*(a[i:i + n] for a in args), **kw) for i in range(0, BH, n)]
+    return tuple(torch.cat(outs) for outs in zip(*parts))
+
+
 def bwd_rel_l2(torch, a, b):
     """Relative L2 of ``a`` against ``b``, the denominator at least the
     norm of a tensor of ``TOL_FLASH_BWD``'s atol in every entry."""
@@ -6703,9 +6818,11 @@ def bwd_rel_l2(torch, a, b):
 def phase_bwd_kernels(np, torch, dev):
     """``flash_bwd_dq`` and ``flash_bwd_dkv`` at each of :func:`bwd_shapes`,
     q, k, v and dO drawn from the shape's own seed (:func:`shape_seed`),
-    first in f32, then in bf16: f32 results against ``flash_bwd_plain``
-    within ``TOL_FLASH_BWD``; bf16 results against the plain version's
-    bf16 twin ``flash_bwd_plain_bf16`` within ``TOL_FLASH_BWD_EMUL`` (and,
+    first in f32, then in bf16 (bf16 alone at
+    :func:`bf16_only_flash_shapes`; the plain versions over chunks of
+    batch-heads, :func:`plain_rows`): f32 results against
+    ``flash_bwd_plain`` within ``TOL_FLASH_BWD``; bf16 results against the
+    plain version's bf16 twin ``flash_bwd_plain_bf16`` within ``TOL_FLASH_BWD_EMUL`` (and,
     rounded to bf16, within ``TOL_FLASH_BWD_EMUL_L2`` relative L2) and
     against ``flash_bwd_plain`` (f32) within ``TOL_SDPA_BWD`` relative L2.
     Returns the largest |diff| of each kernel against its plain version
@@ -6725,16 +6842,20 @@ def phase_bwd_kernels(np, torch, dev):
         scale = 1.0 / float(np.sqrt(hd))
         kw = {"scale": scale, "window": window}
         rng = np.random.default_rng(shape_seed(70, shape))
-        for dtype in (torch.float32, torch.bfloat16):
+        dtypes = (torch.bfloat16,) if shape in bf16_only_flash_shapes() \
+            else (torch.float32, torch.bfloat16)
+        for dtype in dtypes:
             q, k, v, do, o, lse = flash_bwd_inputs(np, torch, dev, rng, BH, S,
                                                    hd, window, dtype)
             delta = flash_delta(o, do)
             dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
             dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-            f32 = flash_bwd_plain(q.float(), k.float(), v.float(), o.float(),
-                                  lse, do.float(), **kw)
+            f32 = plain_rows(torch, flash_bwd_plain,
+                             (q.float(), k.float(), v.float(), o.float(), lse,
+                              do.float()), S, **kw)
             bf16 = dtype == torch.bfloat16
-            want = flash_bwd_plain_bf16(q, k, v, do, lse, delta, **kw) \
+            want = plain_rows(torch, flash_bwd_plain_bf16,
+                              (q, k, v, do, lse, delta), S, **kw) \
                 if bf16 else f32
             sync(torch, dev)
             got = {"dQ": dq, "dK": dk, "dV": dv}
@@ -7610,25 +7731,35 @@ DRYRUN_MUST_RUN = ("smollm_360m", "mamba2_780m", "recurrentgemma_2b",
                    "qwen3_moe_30b_a3b", "internlm2_1_8b", "qwen1_5_4b",
                    "minicpm_2b", "musicgen_large", "phi3_vision_4_2b")
 # (b)'s decode cells: one rank of the pod's decode_32k (8 rows, its 2,048
-# of the cache's 32,768 slots a layer), Qwen3-30B-A3B at all 48 layers
-DRYRUN_DECODE = ("qwen1_5_4b", "qwen3_moe_30b_a3b")
+# of the cache's 32,768 slots a layer), Qwen3-30B-A3B at all 48 layers;
+# RecurrentGemma-2B's RG-LRU and Mamba-2's SSD states split over model
+DRYRUN_DECODE = ("qwen1_5_4b", "qwen3_moe_30b_a3b", "recurrentgemma_2b",
+                 "mamba2_780m")
 DRYRUN_DECODE_SHAPE = "decode_32k"
 # (b)'s kernels at the prefill's 32,768 positions against their plain
 # versions: flash_fwd on one batch-head at each head_dim (and window) the
-# cells give it, ssd_scan on one batch row of Mamba-2 (48 heads, 128
-# chunks of 256, B and C shared by the row's heads)
+# cells give it; ssd_scan [BH, nc, Q, hd, ds, G] on one batch row of
+# Mamba-2 (48 heads, 128 chunks of 256, B and C shared by the row's heads)
+# and at the pod rank's own shape (dryrun_prefill_ssd_shape: 2 rows x 3 of
+# the 48 heads, split over model; B and C one group a row)
 DRYRUN_FLASH_SHAPES = ((1, 32768, 64, 0), (1, 32768, 96, 0),
                        (1, 32768, 128, 0), (1, 32768, 256, 2048))
-DRYRUN_SSD_SHAPE = (48, 128, 256, 64, 128)
+DRYRUN_SSD_SHAPES = ((48, 128, 256, 64, 128, 1), (6, 128, 256, 64, 128, 2))
 # (b)'s train cells: one rank of the pod's train_4k step each, the state
 # kept sharded, at published width and depth; under baseline the rank's
 # model group splits attention's heads, the MLPs and the vocabulary
 # (tensor parallelism): 16 rows a rank, Qwen3's 2 q heads of 32 and
-# InternLM2's 1 of 16, their KV heads cut from the whole leaves
+# InternLM2's 1 of 16, their KV heads cut from the whole leaves;
+# RecurrentGemma-2B's RG-LRU channels and MLP split, its 10 heads whole
 DRYRUN_TRAIN = (("qwen3_moe_30b_a3b", "dp_fsdp+flash"),
                 ("qwen1_5_4b", "dp_fsdp+flash"),
                 ("qwen3_moe_30b_a3b", "baseline+flash"),
-                ("internlm2_1_8b", "baseline+flash"))
+                ("internlm2_1_8b", "baseline+flash"),
+                ("recurrentgemma_2b", "baseline+flash"))
+# the train cells whose flash shapes phases 10 and 14 hold in bf16 alone
+# (the cell runs bf16): RecurrentGemma-2B's [160, 4,096, 256], whose f32
+# plain backward would hold ~43 GiB of [BH, S, S] tensors at once
+DRYRUN_TRAIN_BF16 = ("recurrentgemma_2b",)
 DRYRUN_TRAIN_SHAPE = "train_4k"
 # (b)'s train cells: |cross-entropy - random_head_ce| at most this; the
 # labels' logits average over 4,096 draws of sd sigma sqrt(D) (1.01 at
@@ -7698,8 +7829,9 @@ def dryrun_gates(recs, cells):
 
 def dryrun_kernels(np, torch, dev):
     """(b)'s kernels at the prefill's length against their plain versions
-    (``DRYRUN_FLASH_SHAPES`` in bf16, ``DRYRUN_SSD_SHAPE``); returns the
-    largest |diff| of each."""
+    (``DRYRUN_FLASH_SHAPES`` in bf16, ``DRYRUN_SSD_SHAPES``); returns the
+    largest |diff| of each and, under ``ssd_scan_rank``, the pod rank's
+    ``ssd_scan`` shape timed: device and plain ms, FLOP and bytes."""
     from repro_torch.kernels.flash_attn import flash_fwd, flash_fwd_plain
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
@@ -7725,20 +7857,38 @@ def dryrun_kernels(np, torch, dev):
             f"{TOL_FLASH_BF16['atol']}, LSE {TOL_FLASH['atol']})")
         del q, k, v, o, lse, o_p, lse_p
         torch.cuda.empty_cache()
-    BH, nc, Q, hd, ds = DRYRUN_SSD_SHAPE
-    x, la, Bm, Cm = ssd_inputs(np, torch, dev, rng, BH, nc, Q, hd, ds)
-    b1, c1 = Bm[:1].contiguous(), Cm[:1].contiguous()
-    del Bm, Cm
-    y, y_p = ssd_scan(x, la, b1, c1), ssd_scan_plain(x, la, b1, c1)
-    torch.cuda.synchronize()
-    err = (y - y_p).abs().max().item()
-    what = f"ssd_scan [{BH}, {nc}, {Q}, {hd}] ds {ds} G 1 f32"
-    check(bool(torch.isfinite(y).all()) and torch.allclose(y, y_p, **TOL_SSD),
-          f"{what}: max |err| {err:.3g}")
-    errs["ssd_scan"] = err
-    log(f"{what}: max |err| vs plain {err:.3g} (tolerance {TOL_SSD['atol']})")
-    del x, la, b1, c1, y, y_p
-    torch.cuda.empty_cache()
+    check(DRYRUN_SSD_SHAPES[-1] == dryrun_prefill_ssd_shape(),
+          f"the pod rank's ssd_scan shape {dryrun_prefill_ssd_shape()} is "
+          f"not among {DRYRUN_SSD_SHAPES}")
+    for BH, nc, Q, hd, ds, G in DRYRUN_SSD_SHAPES:
+        x, la, Bm, Cm = ssd_inputs(np, torch, dev, rng, BH, nc, Q, hd, ds)
+        bg, cg = Bm[:G].contiguous(), Cm[:G].contiguous()
+        del Bm, Cm
+        y, y_p = ssd_scan(x, la, bg, cg), ssd_scan_plain(x, la, bg, cg)
+        torch.cuda.synchronize()
+        err = (y - y_p).abs().max().item()
+        what = f"ssd_scan [{BH}, {nc}, {Q}, {hd}] ds {ds} G {G} f32"
+        check(bool(torch.isfinite(y).all())
+              and torch.allclose(y, y_p, **TOL_SSD),
+              f"{what}: max |err| {err:.3g}")
+        errs["ssd_scan"] = max(errs["ssd_scan"], err)
+        log(f"{what}: max |err| vs plain {err:.3g} (tolerance "
+            f"{TOL_SSD['atol']})")
+        del y, y_p
+        if (BH, nc, Q, hd, ds, G) == DRYRUN_SSD_SHAPES[-1]:
+            ms, _ = kernel_times(torch, lambda: ssd_scan(x, la, bg, cg),
+                                 "ssd_", 10, require=True)
+            plain = cuda_ms(torch, lambda: ssd_scan_plain(x, la, bg, cg), 3,
+                            repeats=3)
+            flops, nbytes = ssd_work(BH, G, nc, Q, hd, ds)
+            errs["ssd_scan_rank"] = {"shape": [BH, nc, Q, hd, ds],
+                                     "groups": G, "ms": ms, "plain_ms": plain,
+                                     "flops": flops, "bytes": nbytes}
+            log(f"{what}, the pod rank's: {ms:.4f} ms on the card, its four "
+                f"ssd_ kernels summed (plain {plain:.4f} ms); {flops:.4g} "
+                f"FLOP, {nbytes / 1e6:.1f} MB")
+        del x, la, bg, cg
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -7792,12 +7942,20 @@ def dryrun_execute(torch, smi):
                   and sum(counts.values()) == want,
                   f"{rec['cell']}: launches {counts}, want {kernel} "
                   f"{want} and nothing else")
+            if not attends:
+                from repro_torch.kernels.ssd_scan import ssd_scan
+
+                # [BH, nc, Q, hd, ds, G] as the wrapper launched them
+                shapes = sorted(ssd_scan.shapes)
+                check(bool(shapes) and set(shapes) <= set(DRYRUN_SSD_SHAPES),
+                      f"{rec['cell']}: ssd_scan launched at {shapes}, not "
+                      f"among the held {DRYRUN_SSD_SHAPES}")
             lo, hi = DRYRUN_RATIO
             tp = (f", {heads} of {cfg.num_heads} q heads and 1/{vocab} of "
                   f"the vocabulary a rank (tensor parallelism)"
                   if heads < cfg.num_heads or vocab > 1 else "")
-            log(f"{rec['cell']} ({policy}, {B} x 32,768 a rank{tp}; flash at "
-                f"{shapes}): estimate "
+            log(f"{rec['cell']} ({policy}, {B} x 32,768 a rank{tp}; {kernel} "
+                f"at {shapes}): estimate "
                 f"{est / 2**30:.3f} GiB (argument {m['argument_bytes']} B, "
                 f"temp {m['temp_bytes']} B), measured peak "
                 f"{ex['peak_bytes'] / 2**30:.3f} GiB ({ex['peak_bytes']} B), "
@@ -7834,6 +7992,7 @@ def dryrun_decode(torch, smi):
     kernel launched (decode's attention is PyTorch's).  Returns {arch:
     record}."""
     from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.transformer import ATTN_KINDS
 
     runs = {}
     lo, hi = DRYRUN_RATIO
@@ -7853,10 +8012,15 @@ def dryrun_decode(torch, smi):
               f"{rec['cell']}: launches {counts}, want none")
         cfg, _, B, heads, vocab = dryrun_train_split(arch, "baseline",
                                                      DRYRUN_DECODE_SHAPE)
+        attn = (f"{heads} of {cfg.num_heads} q heads' rows of wo, "
+                if any(k in ATTN_KINDS for k in cfg.layer_kinds) else "")
+        slots = (", 2,048 of the cache's 32,768 slots a layer (sequence "
+                 "parallelism)" if attn else "")
+        rec_split = recurrent_phrase(recurrent_split(
+            arch, "baseline", DRYRUN_DECODE_SHAPE))
         log(f"{rec['cell']} (baseline, {cfg.num_layers} layers, {B} rows a "
-            f"rank, {heads} of {cfg.num_heads} q heads' rows of wo and 1/"
-            f"{vocab} of the vocabulary (tensor parallelism), 2,048 of the "
-            f"cache's 32,768 slots a layer (sequence parallelism), the token "
+            f"rank, {attn}1/{vocab} of the vocabulary{rec_split} (tensor "
+            f"parallelism){slots}, the token "
             f"at position 32,767): estimate {est / 2**30:.3f} GiB (argument "
             f"{m['argument_bytes']} B, temp {m['temp_bytes']} B), measured "
             f"peak {ex['peak_bytes'] / 2**30:.3f} GiB ({ex['peak_bytes']} B), "
@@ -7939,8 +8103,10 @@ def dryrun_train(torch, smi):
         moe = (" (the AbstractMesh has no process group: the MoE takes its "
                "dense fallback, the experts gathered whole a layer at a "
                "time)" if cfg.num_experts else "")
+        rs = recurrent_phrase(recurrent_split(arch, policy,
+                                              DRYRUN_TRAIN_SHAPE))
         tp = (f", {heads} of {cfg.num_heads} q heads and 1/{vocab} of the "
-              f"vocabulary a rank (tensor parallelism)"
+              f"vocabulary a rank{rs} (tensor parallelism)"
               if heads < cfg.num_heads or vocab > 1 else "")
         log(f"{rec['cell']} ({policy}, {cfg.num_layers} layers, {B} x 4,096 "
             f"a rank, the state sharded{tp}){moe}: estimate "
@@ -8003,6 +8169,27 @@ def cached_invocation(pkg, n_slim=CACHED_SLIM, lib_dir=None):
     return d, times, first
 
 
+def card_headroom(torch, dev, when):
+    """Logs the card's free bytes (``torch.cuda.mem_get_info``), this
+    process's allocator's reserved bytes and what neither accounts for
+    (other processes' and this one's CUDA contexts, memory outside the
+    allocator), and fails where that last is more than
+    ``EXECUTE_HEADROOM`` of the card: (b)'s cells are sized against the
+    whole card."""
+    from repro_torch.launch.dryrun import EXECUTE_HEADROOM
+
+    free, total = torch.cuda.mem_get_info(dev)
+    reserved = torch.cuda.memory_reserved(dev)
+    outside = total - free - reserved
+    log(f"{when}: the card's free {free} B ({free / 2**30:.2f} GiB) of "
+        f"{total / 2**30:.2f}, this process's allocator reserves "
+        f"{reserved / 2**30:.2f} GiB, {outside / 2**30:.2f} GiB held "
+        f"outside it")
+    check(outside <= EXECUTE_HEADROOM * total,
+          f"{when}: {outside / 2**30:.2f} GiB of the card held outside this "
+          f"process's allocator (another process on the card?)")
+
+
 def phase_dryrun(np, torch, dev, smi):
     """Phase 27: (a) every cell's dry run on meta in ``DRYRUN_WORKERS``
     processes while (b) checks the kernels at 32,768 positions and runs
@@ -8017,6 +8204,7 @@ def phase_dryrun(np, torch, dev, smi):
     from repro_torch.launch.dryrun import H100_80GB_BYTES, iter_cells
 
     t_phase = time.perf_counter()
+    card_headroom(torch, dev, "phase 27's start")
     total_mem = torch.cuda.get_device_properties(dev).total_memory
     log(f"the card's total_memory {total_mem} B ({total_mem / 2**30:.2f} "
         f"GiB); (a)'s fits are against an H100 80GB's {H100_80GB_BYTES} B"
@@ -8027,6 +8215,7 @@ def phase_dryrun(np, torch, dev, smi):
             initargs=(str(ROOT / "src"),)) as pool:
         pending = pool.map_async(dryrun_cell, cells, chunksize=1)
         errs = dryrun_kernels(np, torch, dev)
+        card_headroom(torch, dev, "(b)'s cells' start, (a)'s workers running")
         t_b = time.perf_counter()
         runs, launches = dryrun_execute(torch, smi)
         t_b = time.perf_counter() - t_b
@@ -8169,6 +8358,20 @@ def main():
     for entry in model_entries[:1] + bwd_entries:
         entry["dryrun_train_launches"] = dry_train[entry["name"]]
         entry["launches"] += dry_train[entry["name"]]
+    bw, fp32, bf16 = card_peaks(torch.cuda.get_device_name(0))
+    rank = dry_errs["ssd_scan_rank"]
+    model_entries[1]["dryrun_rank"] = {**rank, "bound_ms": max(
+        rank["flops"] / fp32, rank["bytes"] / bw) * 1e3}
+    # phase 27 (b)'s bf16 train shapes held in bf16 alone (phases 10, 14):
+    # each flash kernel's bound there
+    for shape in bf16_only_flash_shapes():
+        work = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                        (flash_work(*shape), *bwd_work(*shape))))
+        for entry in model_entries[:1] + bwd_entries:
+            flops, nbytes = work[entry["name"]]
+            entry.setdefault("dryrun_train_bounds", []).append(
+                {"shape": list(shape), "bound_ms": max(
+                    flops / bf16, nbytes / bw) * 1e3})
     kernels += model_entries + bwd_entries
     for entry in kernels:
         if entry["name"] in ru["driver"]:

@@ -145,10 +145,12 @@ def ssd_scan(x: torch.Tensor, la: torch.Tensor, Bm: torch.Tensor,
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
     ssd_scan.launches += 1
+    ssd_scan.shapes.add((BH, nc, Q, hd, ds, G))
     return y
 
 
 ssd_scan.launches = 0      # calls that launched the kernels, since reset
+ssd_scan.shapes = set()    # their [BH, nc, Q, hd, ds, G], since reset
 
 
 def ssd_flops(BH: int, G: int, nc: int, Q: int, hd: int, ds: int) -> int:

@@ -16,12 +16,13 @@ rank of the port runs, on ``meta`` tensors (shapes and types, no storage):
   :class:`DryOps`, whose collectives move nothing.  Where ``model``
   splits their products (tensor parallelism, ``baseline``'s ``heads``,
   ``kv_heads``, ``ffn`` and ``vocab``), attention, the MLPs and the
-  shared expert gather their block keeping ``model`` and the head
-  projects to the rank's block of the vocabulary; their sums over the
-  group move nothing here, so a rank's cross-entropy is over its own
-  block.  The RG-LRU's and the SSD's own leaves are gathered whole.  On
-  the ``AbstractMesh`` the MoE takes its dense fallback and gathers its
-  experts whole, a layer at a time;
+  shared expert gather their block keeping ``model``, so do the RG-LRU
+  and the SSD mixer where ``model`` splits all their own leaves
+  (``ffn``, ``ssm_heads``), and the head projects to the rank's block of
+  the vocabulary; their sums over the group move nothing here and their
+  gathers over it repeat the rank's block, so a rank's cross-entropy is
+  over its own block.  On the ``AbstractMesh`` the MoE takes its dense
+  fallback and gathers its experts whole, a layer at a time;
 * prefill and decode (``train/serve.py``'s steps) take the parameters
   as the rank's shards too, gathered a layer at a time where the forward
   uses them, the products split over ``model`` as in the train step.
@@ -29,9 +30,10 @@ rank of the port runs, on ``meta`` tensors (shapes and types, no storage):
   block of the slots (cut right after the layer), and decode takes the
   cache's blocks as they are and runs attention sequence-parallel over
   them (the softmax's max and sums over ``model``, which move nothing
-  here); the RG-LRU's and the SSD's caches are gathered whole but their
-  rows for a layer and cut back.  Nothing is gathered whole before the
-  step;
+  here); a split RG-LRU's or SSD's cache is the rank's block of its
+  channels or heads, run in place (the SSD's conv window gathered whole
+  but its rows for a layer and cut back).  Nothing is gathered whole
+  before the step;
 * the step runs on the rank's batch shard, and each output is cut back
   to the rank's block (a copy; none where it is the block already).
 

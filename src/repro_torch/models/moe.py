@@ -233,7 +233,6 @@ def moe_ffn(p, x, cfg, prefix: str = ""):
     es = slice(mi * e_loc, (mi + 1) * e_loc)
     fs = None
     if resident:
-        g_data = mesh.get_group("data")
         f_loc = cfg.moe_hidden // sizes["data"]
         fs = slice(mesh.get_local_rank("data") * f_loc,
                    (mesh.get_local_rank("data") + 1) * f_loc)
@@ -257,9 +256,9 @@ def moe_ffn(p, x, cfg, prefix: str = ""):
         if resident:
             # tokens visit the resident F-shards: gather over data, partial
             # down-projection, reduce-scatter back to the owning data rank
-            recv_all = AllGather.apply(recv, g_data, 2)
+            recv_all = AllGather.apply(recv, ops, "data", 2)
             out = ReduceScatter.apply(
-                _expert_ffn_src(recv_all, wg, wu, wd), g_data, 2)
+                _expert_ffn_src(recv_all, wg, wu, wd), ops, "data", 2)
         else:
             out = _expert_ffn_src(recv, wg, wu, wd)
         back = _AllToAll.apply(out.reshape(ep, e_loc * cap, D), g_model)
@@ -267,7 +266,8 @@ def moe_ffn(p, x, cfg, prefix: str = ""):
         if dp_over_model:
             y = y_tok.reshape(B, S, D)      # tokens never left their owner
         else:
-            y = AllGather.apply(y_tok.reshape(B, S // ep, D), g_model, 1)
+            y = AllGather.apply(y_tok.reshape(B, S // ep, D), ops, "model",
+                                1)
     else:
         # psum path: every rank applies its resident experts to all tokens
         cap = t * k  # no drops
@@ -277,8 +277,8 @@ def moe_ffn(p, x, cfg, prefix: str = ""):
         buf, comb_w, slot = _bin_tokens(x_tok, p_masked, local_e, e_loc, cap)
         buf = buf.reshape(e_loc, cap, D)
         if resident:
-            h = _expert_ffn(AllGather.apply(buf, g_data, 1), wg, wu, wd)
-            out = ReduceScatter.apply(h, g_data, 1)
+            h = _expert_ffn(AllGather.apply(buf, ops, "data", 1), wg, wu, wd)
+            out = ReduceScatter.apply(h, ops, "data", 1)
         else:
             out = _expert_ffn(buf, wg, wu, wd)
         y_tok = _combine(out, slot, comb_w, t, k)

@@ -9,6 +9,17 @@ token would be S steps of small launches a layer.  Decode is the O(1)
 update, written into the cache's tensors in place (the reference
 returns updated copies).  ``softplus`` is ``logaddexp(x, 0)`` and
 ``gelu`` the tanh approximation, as ``jax.nn`` computes them.
+
+**Tensor parallelism.**  Where ``model`` splits every leaf of
+:data:`TP_WEIGHTS` (:func:`tp_split`, ``parallel.sharding.block_group``;
+in decode also the cache's ``h`` and ``conv`` along their channels), the
+caller (``transformer._gather_block``) gathers them keeping ``model`` and
+hands the block the group, ``tp``; it runs its ``w/tp`` channels: their
+input projections, conv, gates' columns, scan and output gate; the gates read
+the whole conv branch, gathered over the group (``[B, S, w]`` f32), and
+``w_rg_out``'s row-split partial output is summed over the group.  A
+prefill's cache is the rank's block of the channels, and decode updates
+the cache's blocks in place with nothing gathered but the gates' input.
 """
 
 from __future__ import annotations
@@ -18,8 +29,14 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import Spec, _mm
 from repro_torch.models.ssm import _causal_conv, _softplus
+from repro_torch.parallel import sharding as SH
 
 _C_FACTOR = 8.0  # Griffin's fixed gate exponent scale
+
+#: the block's own leaves, gathered keeping ``model`` where it runs split
+#: (``transformer._gather_block``)
+TP_WEIGHTS = ("wx_in", "wy_in", "conv_w", "wa_gate", "wi_gate", "a_gate_b",
+              "i_gate_b", "lam", "w_rg_out")
 
 
 def rglru_specs(cfg) -> dict[str, Spec]:
@@ -45,12 +62,22 @@ def rglru_cache_specs(cfg, batch: int) -> dict[str, Spec]:
     }
 
 
-def _gates(p, xb):
+def tp_split(p, cache=None) -> SH.TPGroup | None:
+    """The group over which the block runs split (see the module), given
+    its leaves ``p`` and, in decode, its ``cache``; None: it runs
+    whole."""
+    dims = () if cache is None else ((cache["h"], 1), (cache["conv"], 2))
+    return SH.block_group(p, TP_WEIGHTS, dims)
+
+
+def _gates(p, xb, tp=None):
     """xb: [..., w] conv branch -> (log_a [..., w] f32, gated input
-    [..., w] f32)."""
+    [..., w] f32); under ``tp`` the rank's channels of each, from its
+    block of ``xb`` gathered over the group."""
     xf = xb.float()
-    r = torch.sigmoid(xf @ p["wa_gate"].float() + p["a_gate_b"].float())
-    i = torch.sigmoid(xf @ p["wi_gate"].float() + p["i_gate_b"].float())
+    xw = xf if tp is None else tp.gather(xf, -1)
+    r = torch.sigmoid(xw @ p["wa_gate"].float() + p["a_gate_b"].float())
+    i = torch.sigmoid(xw @ p["wi_gate"].float() + p["i_gate_b"].float())
     log_a = -_C_FACTOR * r * _softplus(p["lam"].float())
     a2 = torch.exp(2.0 * log_a)
     u = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * xf)
@@ -70,11 +97,13 @@ def linear_scan(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return u
 
 
-def rglru_seq_cached(p, x, cfg, *, want_cache: bool = False):
+def rglru_seq_cached(p, x, cfg, *, want_cache: bool = False, tp=None):
     """x: [B,S,D] -> ([B,S,D], cache|None) via conv + RG-LRU + output
     gate.  The cache is ``h`` [B, w] f32, the state after the last
     position, and ``conv`` [B, 3, w], the conv branch's last 3 inputs
-    before the conv (zeros in front when S < 3)."""
+    before the conv (zeros in front when S < 3); under ``tp``
+    (:func:`tp_split`'s group; ``p`` its rank's channels) the rank's
+    channels of both."""
     B, S, _ = x.shape
     xb = _mm(x, p["wx_in"])
     yb = _mm(x, p["wy_in"])
@@ -87,25 +116,31 @@ def rglru_seq_cached(p, x, cfg, *, want_cache: bool = False):
             raw = torch.cat([raw.new_zeros(B, pad, raw.shape[-1]), raw], dim=1)
         conv_tail = raw[:, -(cw - 1):]
     xb, _ = _causal_conv(xb, p["conv_w"])
-    log_a, u = _gates(p, xb)
+    log_a, u = _gates(p, xb, tp)
     h = linear_scan(torch.exp(log_a), u)
     hg = h.to(x.dtype) * F.gelu(yb, approximate="tanh")
     out = _mm(hg, p["w_rg_out"])
+    if tp is not None:
+        out = tp.sum(out)
     if not want_cache:
         return out, None
     return out, {"h": h[:, -1], "conv": conv_tail}
 
 
-def rglru_decode(p, x, cfg, cache):
+def rglru_decode(p, x, cfg, cache, tp=None):
     """x: [B,1,D]; cache {h [B,w] f32, conv [B,3,w]}, both updated in
-    place.  Returns ([B,1,D], cache)."""
+    place (under ``tp`` the rank's blocks of the channels,
+    ``parallel.sharding.ShardedLeaf`` s).  Returns ([B,1,D], cache)."""
+    h0, conv = (SH.local_of(cache[k]) for k in ("h", "conv"))
     xb = _mm(x, p["wx_in"])
     yb = _mm(x, p["wy_in"])
-    xb, new_conv = _causal_conv(xb, p["conv_w"], cache["conv"])
-    log_a, u = _gates(p, xb[:, 0])
-    h = cache["h"].float() * torch.exp(log_a) + u
+    xb, new_conv = _causal_conv(xb, p["conv_w"], conv)
+    log_a, u = _gates(p, xb[:, 0], tp)
+    h = h0.float() * torch.exp(log_a) + u
     y = h[:, None, :].to(x.dtype) * F.gelu(yb, approximate="tanh")
     out = _mm(y, p["w_rg_out"])
-    cache["h"].copy_(h)
-    cache["conv"].copy_(new_conv)
+    if tp is not None:
+        out = tp.sum(out)
+    h0.copy_(h)
+    conv.copy_(new_conv)
     return out, cache

@@ -6,6 +6,25 @@ attention-like products plus a linear inter-chunk state recurrence);
 decode is the O(1) recurrent update.  B and C are shared by all heads
 (n_groups = 1).  ``softplus`` is ``logaddexp(x, 0)``, as
 ``jax.nn.softplus`` computes it, with no threshold.
+
+**Tensor parallelism.**  Where ``model`` splits every leaf of
+:data:`TP_WEIGHTS` (:func:`tp_split`, ``parallel.sharding.block_group``:
+``ffn`` and ``ssm_heads`` both, so that the rank's ``d_inner/tp``
+channels are its ``nh/tp`` heads; in decode also the cache's ``state``
+along its heads), the caller (``transformer._gather_block``) gathers them
+keeping ``model`` and hands the mixer the group, ``tp``; it runs its
+heads: their
+projections, conv, scan (``ssd_scan`` at ``[B·nh/tp, nc, Q, hd]``) and
+skip; ``wB``, ``wC`` and their convs are whole (the reference's
+``ssm_state`` is replicated), so every rank computes all of B and C.  The
+gated norm over ``d_inner`` sums its squares over the group
+(``TPGroup.rmsnorm``) and ``w_out``'s row-split partial output is summed
+over the group.  The conv cache's ``[x | B | C]`` columns split over
+``model`` in blocks that cut across x's, so a prefill gathers x's last
+``cw - 1`` positions and a decode its new column, each over the group,
+and the window is updated whole and cut to the rank's block; the state is
+the rank's heads.  Elsewhere (``model`` divides ``d_inner`` but not the
+heads, say) the mixer runs whole.
 """
 
 from __future__ import annotations
@@ -15,6 +34,12 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.layers import Spec, _mm, rmsnorm
+from repro_torch.parallel import sharding as SH
+
+#: the mixer's leaves split over ``model``, gathered keeping ``model``
+#: where it runs split (``transformer._gather_block``)
+TP_WEIGHTS = ("wz", "wx", "wdt", "conv_x", "A_log", "D_skip", "dt_bias",
+              "w_out")
 
 
 def ssd_specs(cfg) -> dict[str, Spec]:
@@ -44,6 +69,35 @@ def ssd_cache_specs(cfg, batch: int) -> dict[str, Spec]:
         "state": ((batch, nh, hd, ds), ("cache_batch", "ssm_heads", None, None)),
         "conv": ((batch, cw - 1, di + 2 * ds), ("cache_batch", None, "ffn")),
     }
+
+
+def tp_split(p, cache=None) -> SH.TPGroup | None:
+    """The group over which the mixer runs split (see the module), given
+    its leaves ``p`` and, in decode, its ``cache``; None: it runs
+    whole."""
+    return SH.block_group(p, TP_WEIGHTS,
+                          () if cache is None else ((cache["state"], 1),))
+
+
+def _norm_out(p, y, z, cfg, tp):
+    """The gated RMS norm over ``d_inner`` and the output projection
+    (under ``tp`` over the rank's channels, summed over the group)."""
+    g = y * F.silu(z)
+    if tp is None:
+        return _mm(rmsnorm(g, p["ssd_norm_scale"], cfg.norm_eps), p["w_out"])
+    return tp.sum(_mm(tp.rmsnorm(g, p["ssd_norm_scale"], cfg.norm_eps),
+                      p["w_out"]))
+
+
+def _conv_block(window: torch.Tensor, tp) -> torch.Tensor:
+    """A conv cache's window ``[B, cw-1, di+2ds]``, whole along its
+    columns, cut to the rank's block where ``model`` splits them (a copy
+    that owns only the block's bytes)."""
+    n = window.shape[-1]
+    if tp is None or SH.rule_group(tp.ops, "ffn", n) is None:
+        return window
+    start, w = tp.block(n)
+    return window.narrow(-1, start, w).clone()
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -94,12 +148,12 @@ def _final_state(bc, lac, dtc, xc):
     return h
 
 
-def ssd_seq(p, x, cfg):
-    out, _ = ssd_seq_cached(p, x, cfg, want_cache=False)
+def ssd_seq(p, x, cfg, tp=None):
+    out, _ = ssd_seq_cached(p, x, cfg, want_cache=False, tp=tp)
     return out
 
 
-def ssd_seq_cached(p, x, cfg, *, want_cache: bool = False):
+def ssd_seq_cached(p, x, cfg, *, want_cache: bool = False, tp=None):
     """Full-sequence SSD mixer.  x: [B,S,D] -> ([B,S,D], cache|None).
 
     ``ssd_impl="kernel"`` hands the chunked, Δt-weighted operands to
@@ -108,9 +162,13 @@ def ssd_seq_cached(p, x, cfg, *, want_cache: bool = False):
     f32 (the kernels on a CUDA tensor, the plain version on a CPU one),
     and recomputes the final state in closed form for the
     cache.  ``xla`` runs the dual form in tensor ops.  S must divide by
-    ``Q = min(ssm_chunk, S)``."""
+    ``Q = min(ssm_chunk, S)``.  Under ``tp`` (:func:`tp_split`'s group;
+    ``p`` its rank's heads) ``nh`` is the rank's heads (see the
+    module)."""
     B, S, D = x.shape
     nh, hd, ds = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    if tp is not None:
+        nh //= tp.size
     z = _mm(x, p["wz"])
     xs = _mm(x, p["wx"])
     Bp = _mm(x, p["wB"])
@@ -120,12 +178,15 @@ def ssd_seq_cached(p, x, cfg, *, want_cache: bool = False):
     conv_tail = None
     if want_cache:
         cw = cfg.ssm_conv
-        raw = torch.cat([xs, Bp, Cp], dim=-1)
+        xt = xs[:, -(cw - 1):]
+        if tp is not None:
+            xt = tp.gather(xt, -1)
+        raw = torch.cat([xt, Bp[:, -(cw - 1):], Cp[:, -(cw - 1):]], dim=-1)
         pad = max(0, (cw - 1) - S)
         if pad:
             raw = torch.cat([torch.zeros(B, pad, raw.shape[-1], dtype=raw.dtype,
                                          device=raw.device), raw], dim=1)
-        conv_tail = raw[:, -(cw - 1):]
+        conv_tail = _conv_block(raw, tp)
     xs, _ = _causal_conv(xs, p["conv_x"])
     Bp, _ = _causal_conv(Bp, p["conv_B"])
     Cp, _ = _causal_conv(Cp, p["conv_C"])
@@ -181,31 +242,48 @@ def ssd_seq_cached(p, x, cfg, *, want_cache: bool = False):
         raise ValueError(f"unknown ssd_impl {cfg.ssd_impl!r} (xla | kernel)")
 
     y = y + xh * p["D_skip"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(B, S, cfg.d_inner)
-    y = rmsnorm(y * F.silu(z), p["ssd_norm_scale"], cfg.norm_eps)
-    out = _mm(y, p["w_out"])
+    out = _norm_out(p, y.reshape(B, S, nh * hd), z, cfg, tp)
     if not want_cache:
         return out, None
     return out, {"state": h_fin, "conv": conv_tail}
 
 
-def ssd_decode(p, x, cfg, cache):
+def ssd_decode(p, x, cfg, cache, tp=None):
     """Single-step SSD.  x: [B,1,D]; cache {state [B,nh,hd,ds] f32, conv
     [B,cw-1,C]}.  The new state and conv window are written into
     ``cache``'s tensors in place (the reference returns updated copies).
-    Returns ([B,1,D], cache)."""
+    Under ``tp`` ``state`` is the rank's heads (its
+    ``parallel.sharding.ShardedLeaf``) and ``conv`` the whole window,
+    which the caller cuts back to its block.  Returns ([B,1,D], cache)."""
     B = x.shape[0]
     nh, hd, ds = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     di = cfg.d_inner
+    state0 = SH.local_of(cache["state"])
     z = _mm(x, p["wz"])
     xs = _mm(x, p["wx"])
     Bp = _mm(x, p["wB"])
     Cp = _mm(x, p["wC"])
     dt = _mm(x, p["wdt"], out_f32=True)
 
-    conv_in = torch.cat([xs, Bp, Cp], dim=-1)                      # [B,1,di+2ds]
     w_all = torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]], dim=-1)
-    y, new_conv = _causal_conv(conv_in, w_all, cache["conv"])
+    conv = cache["conv"]
+    if tp is None:
+        conv_in = torch.cat([xs, Bp, Cp], dim=-1)              # [B,1,di+2ds]
+        y, new_conv = _causal_conv(conv_in, w_all, conv)
+    else:
+        # the whole window moves on, x's column gathered over the group;
+        # the conv runs on the rank's x columns and all of B and C
+        conv_in = torch.cat([tp.gather(xs, -1), Bp, Cp], dim=-1)
+        new_conv = torch.cat([conv.to(x.dtype), conv_in],
+                             dim=1)[:, -conv.shape[1]:]
+        nh //= tp.size
+        start, di = tp.block(di)
+
+        def cols(t):
+            return torch.cat([t.narrow(-1, start, di),
+                              t[..., cfg.d_inner:]], dim=-1)
+
+        y, _ = _causal_conv(cols(conv_in), w_all, cols(conv))
     y = F.silu(y)
     xs, Bp, Cp = y[..., :di], y[..., di:di + ds], y[..., di + ds:]
 
@@ -215,14 +293,12 @@ def ssd_decode(p, x, cfg, cache):
     xh = xs.reshape(B, nh, hd).float()
     Bv = Bp[:, 0].float()                                          # [B,ds]
     Cv = Cp[:, 0].float()
-    state = cache["state"].float()
+    state = state0.float()
     state = state * decay[..., None, None] + torch.einsum(
         "bh,bhp,bn->bhpn", dt, xh, Bv)
     yh = torch.einsum("bn,bhpn->bhp", Cv, state)
     yh = yh + xh * p["D_skip"].float()[None, :, None]
-    y = yh.reshape(B, 1, di).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["ssd_norm_scale"], cfg.norm_eps)
-    out = _mm(y, p["w_out"])
-    cache["state"].copy_(state)
+    out = _norm_out(p, yh.reshape(B, 1, di).to(x.dtype), z, cfg, tp)
+    state0.copy_(state)
     cache["conv"].copy_(new_conv)
     return out, cache

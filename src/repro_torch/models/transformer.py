@@ -21,12 +21,15 @@ the head where they are read, so that outside the running block a rank
 holds only its shards.  Where ``model`` splits a product (tensor
 parallelism, ``parallel.sharding.tp_group``), attention, the MLPs and
 the MoE's shared expert gather their leaves keeping ``model``
-(``layers.py``), and the head projects to the rank's block of the
-vocabulary, f32 logits ``[B, S, V/tp]`` (:func:`head_split`;
-``train/step.py``'s ``cross_entropy`` takes it), so that no rank holds
-f32 logits over the whole vocabulary.  The RG-LRU's and the SSD's own
-leaves, the embedding and the norms are gathered whole.  Whole tensors
-run the same code, op for op.
+(``layers.py``), and so do the RG-LRU and the SSD mixer where ``model``
+splits every one of their own leaves (``rglru.tp_split``,
+``ssm.tp_split``, asked once a block by :func:`_gather_block`, which
+hands the block its group; else they are gathered whole and run whole); the head
+projects to the rank's block of the vocabulary, f32 logits ``[B, S,
+V/tp]`` (:func:`head_split`; ``train/step.py``'s ``cross_entropy`` takes
+it), so that no rank holds f32 logits over the whole vocabulary.  The
+embedding, the norms and the SSD's B and C leaves are gathered whole.
+Whole tensors run the same code, op for op.
 
 Serving on a rank's shards (``train/serve.py``'s steps) runs the same
 way, and its KV cache follows the reference's ``cache_seq`` rule: where
@@ -34,9 +37,12 @@ it splits a cache's slots over ``model``, a prefill keeps each layer's
 block of K, V and slot positions (cut right after the layer, so no rank
 holds every layer's whole cache), and decode takes the cache as the
 rank's shards and runs attention sequence-parallel over them
-(``layers.attention_decode``).  The RG-LRU's and the SSD's caches, and a
-cache split otherwise, are gathered whole but their rows for the block
-and its block written back; a prefill returns them whole.
+(``layers.attention_decode``).  A split RG-LRU's or SSD's prefill cache
+is the rank's block of its channels or heads, and its decode runs on the
+cache's blocks in place (the SSD's conv window gathered whole and cut
+back).  Their caches where the block runs whole, and a cache split
+otherwise, are gathered whole but their rows for the block and its block
+written back; a prefill returns those whole.
 
 In ``train`` mode with grad enabled, each super-block runs under
 ``cfg.remat``, as the reference's ``_maybe_remat``: ``"none"`` keeps every
@@ -242,20 +248,22 @@ def _attn_seq_with_cache(p, x, cfg, kind, want_cache: bool, ops=None):
     return y, {"k": k, "v": v, "slot_pos": slot_pos}
 
 
-def _whole_cache(kind: str, cache: dict) -> dict | None:
+def _whole_cache(kind: str, cache: dict, tp) -> dict | None:
     """A decode cache of a rank's shards (``parallel.sharding.ShardedLeaf``)
-    that its block runs whole: gathered over every axis but its rows'
-    (``cache_batch``), or None where the block runs the shards as they
-    are (none is a shard; attention's where its slots split over
-    ``model``: ``layers.attention_decode`` runs sequence-parallel).  The
-    RG-LRU's and the SSD's state are split by ``ffn`` / ``ssm_heads`` and
-    run whole, as their leaves do."""
+    gathered over every axis but its rows' (``cache_batch``) where its
+    block runs on whole entries, or None where it runs the shards as
+    they are: none is a shard; attention's where its slots split over
+    ``model`` (``layers.attention_decode`` runs sequence-parallel); an
+    RG-LRU's split over ``tp`` (:func:`_gather_block`'s).  An SSD's split
+    over ``tp`` keeps its state's block and gathers its conv window."""
     if not any(isinstance(v, SH.ShardedLeaf) for v in cache.values()) or (
-            kind in ATTN_KINDS and SH.split_group(cache["k"], 1) is not None):
+            kind in ATTN_KINDS and SH.split_group(cache["k"], 1) is not None
+    ) or (kind == "rglru" and tp is not None):
         return None
     keep = SH.current_rules().get("cache_batch")
-    return {k: v.gather(keep) if isinstance(v, SH.ShardedLeaf) else v
-            for k, v in cache.items()}
+    own = ("state",) if kind == "ssd" and tp is not None else ()
+    return {k: v if not isinstance(v, SH.ShardedLeaf) else v.local
+            if k in own else v.gather(keep) for k, v in cache.items()}
 
 
 def _put_back(cache: dict, whole: dict) -> None:
@@ -268,15 +276,16 @@ def _put_back(cache: dict, whole: dict) -> None:
 
 
 def block_fwd(kind: str, cfg: ModelConfig, p: dict, x, *, mode: str, pos=None,
-              cache=None, ops=None):
+              cache=None, ops=None, tp=None):
     """Returns (x, new_cache, aux_loss).  ``ops``: the rank's
     ``MeshOps`` where ``p`` holds its shards (a prefill cuts its cache to
-    the rank's block of slots)."""
+    the rank's block of slots).  ``tp``: the group over which an RG-LRU
+    or SSD block runs split (:func:`_gather_block`'s), else None."""
     if mode == "decode":
-        whole = _whole_cache(kind, cache)
+        whole = _whole_cache(kind, cache, tp)
         if whole is not None:
             x, _, aux = block_fwd(kind, cfg, p, x, mode=mode, pos=pos,
-                                  cache=whole)
+                                  cache=whole, tp=tp)
             _put_back(cache, whole)
             return x, cache, aux
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -298,16 +307,17 @@ def block_fwd(kind: str, cfg: ModelConfig, p: dict, x, *, mode: str, pos=None,
     if kind == "ssd":
         h = L.rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
         if mode == "decode":
-            y, new_cache = S.ssd_decode(p, h, cfg, cache)
+            y, new_cache = S.ssd_decode(p, h, cfg, cache, tp)
         else:
-            y, new_cache = S.ssd_seq_cached(p, h, cfg, want_cache=mode == "prefill")
+            y, new_cache = S.ssd_seq_cached(p, h, cfg, tp=tp,
+                                            want_cache=mode == "prefill")
         return x + y, new_cache, aux
     if kind == "rglru":
         h = L.rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
         if mode == "decode":
-            y, new_cache = R.rglru_decode(p, h, cfg, cache)
+            y, new_cache = R.rglru_decode(p, h, cfg, cache, tp)
         else:
-            y, new_cache = R.rglru_seq_cached(p, h, cfg,
+            y, new_cache = R.rglru_seq_cached(p, h, cfg, tp=tp,
                                               want_cache=mode == "prefill")
         x = x + y
         h = L.rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
@@ -340,17 +350,26 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 _TP_WEIGHTS = L.TP_WEIGHTS + M.SHARED_WEIGHTS
+_SPLIT_BLOCKS = {"rglru": R, "ssd": S}     # kind -> its TP_WEIGHTS, tp_split
 
 
-def _gather_block(p: dict) -> dict:
-    """A block's leaves gathered whole where they are a rank's shards
-    (``parallel.sharding.ShardedLeaf``), but those a module gathers
-    itself: the experts' weights (the MoE keeps them split over
-    ``model``), and attention's, the MLP's and the shared expert's where
-    ``model`` splits their products; whole tensors pass unchanged."""
-    return {k: v if k in M.EXPERT_WEIGHTS or (
+def _gather_block(p: dict, kind: str, cache=None):
+    """(leaves, tp): a block's leaves gathered whole where they are a
+    rank's shards (``parallel.sharding.ShardedLeaf``), but those a module
+    gathers itself (the experts' weights: the MoE keeps them split over
+    ``model``; attention's, the MLP's and the shared expert's where
+    ``model`` splits their products) and the RG-LRU's or SSD's own where
+    the block runs split, gathered keeping ``model``; whole tensors pass
+    unchanged.  ``tp`` is the group over which that block runs split, its
+    module's ``tp_split`` of its leaves and decode ``cache``, decided
+    here alone; else None."""
+    mod = _SPLIT_BLOCKS.get(kind)
+    tp = mod.tp_split(p, cache) if mod is not None else None
+    own = mod.TP_WEIGHTS if tp is not None else ()
+    return {k: v.gather((SH.TP_AXIS,)) if k in own else v
+            if k in M.EXPERT_WEIGHTS or (
                 k in _TP_WEIGHTS and SH.tp_group(v) is not None)
-            else SH.gathered(v) for k, v in p.items()}
+            else SH.gathered(v) for k, v in p.items()}, tp
 
 
 def head_split(params: dict, cfg: ModelConfig):
@@ -415,8 +434,10 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train"
         outs = {}
         for slot, kind in enumerate(pattern):
             c = slot_caches[slot] if slot_caches is not None else None
-            x, nc, aux = block_fwd(kind, cfg, _gather_block(slot_params[slot]),
-                                   x, mode=mode, pos=pos, cache=c, ops=ops)
+            bp, tp = _gather_block(slot_params[slot], kind, c)
+            x, nc, aux = block_fwd(kind, cfg, bp, x, mode=mode, pos=pos,
+                                   cache=c, ops=ops, tp=tp)
+            del bp
             if nc is not None:
                 outs[slot] = nc
             aux_sum = aux_sum + aux
@@ -455,9 +476,9 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train"
 
     for ti, kind in enumerate(cfg.trailing):
         c = _sub(cache, f"t{ti}_") if (cache and mode == "decode") else None
-        p = _gather_block(_sub(params, f"t{ti}_"))
+        p, tp = _gather_block(_sub(params, f"t{ti}_"), kind, c)
         x, nc, aux = block_fwd(kind, cfg, p, x, mode=mode, pos=pos, cache=c,
-                               ops=ops)
+                               ops=ops, tp=tp)
         del p
         aux_total = aux_total + aux
         if nc is not None:

@@ -40,12 +40,17 @@ stored spec splits its product's dimension over a ``model`` axis of more
 than one rank and the rules' batch leaves ``model`` out, the module that
 uses it gathers it keeping ``model`` (:func:`tp_group`,
 :func:`tp_gathered`) and sums its partial products over the group
-(:class:`TPGroup`), through the leaf's :class:`MeshOps`.  Each
-collective's backward is its exact adjoint (:class:`AllReduce`: a sum's
-is the sum), so a rank's gradient is the derivative of the sum of every
-rank's loss, which :meth:`MeshOps.reduce` divides by the rank count:
-ranks of one ``model`` group compute the same loss, so this is the
-global batch's gradient, as for the MoE's expert-parallel paths.
+(:class:`TPGroup`), through the leaf's :class:`MeshOps`.  A block that
+splits all its leaves at once asks :func:`block_group`; where the rank
+holds a block of an activation that it needs whole, it gathers it over
+the group (:meth:`TPGroup.gather`), and a norm over such a dimension
+sums over the group (:meth:`TPGroup.rmsnorm`).  Each collective's
+backward is its exact adjoint (:class:`AllReduce`: a sum's is the sum;
+a gather's a reduce-scatter), so a rank's gradient is the derivative of
+the sum of every rank's loss, which :meth:`MeshOps.reduce` divides by
+the rank count: ranks of one ``model`` group compute the same loss, so
+this is the global batch's gradient, as for the MoE's expert-parallel
+paths.
 
 **Serving caches split over ``model``** by the rules' ``cache_seq``
 (sequence parallelism in decode): a cache leaf's stored spec decides
@@ -390,9 +395,10 @@ def from_local(local: torch.Tensor, sharding: NamedSharding):
 
 
 # ---------------------------------------------------------------------------
-# Collectives over a process group, and the differentiable ones built from
-# them (each one's backward its adjoint): the sharded step's gathers and
-# sums and the MoE's expert-parallel paths all run these
+# Collectives over a process group, and the differentiable ones built on
+# them through a MeshOps and a mesh axis (each one's backward its adjoint):
+# the sharded step's gathers and sums, the tensor-parallel blocks and the
+# MoE's expert-parallel paths all run these
 
 
 def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -458,31 +464,33 @@ class AllReduce(torch.autograd.Function):
 
 
 class AllGather(torch.autograd.Function):
-    """:func:`all_gather`; backward: :func:`reduce_scatter` of the
-    cotangent, the sum of every rank's, this rank's block of it."""
+    """The blocks of the ranks along ``axis`` of ``ops``'s mesh
+    concatenated on ``dim`` (:meth:`MeshOps.all_gather`); backward: the
+    sum of every rank's cotangent, this rank's block of it
+    (:meth:`MeshOps.reduce_scatter`), its adjoint."""
 
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return all_gather(x, group, dim)
+    def forward(ctx, x, ops, axis, dim):
+        ctx.ops, ctx.axis, ctx.dim = ops, axis, dim
+        return ops.all_gather(x, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+        return ctx.ops.reduce_scatter(g, ctx.axis, ctx.dim), None, None, None
 
 
 class ReduceScatter(torch.autograd.Function):
-    """:func:`reduce_scatter`; backward: :func:`all_gather` of the
-    cotangents."""
+    """:meth:`MeshOps.reduce_scatter` over ``axis``; backward:
+    :meth:`MeshOps.all_gather` of the cotangents, its adjoint."""
 
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return reduce_scatter(x, group, dim)
+    def forward(ctx, x, ops, axis, dim):
+        ctx.ops, ctx.axis, ctx.dim = ops, axis, dim
+        return ops.reduce_scatter(x, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return all_gather(g, ctx.group, ctx.dim), None, None
+        return ctx.ops.all_gather(g, ctx.axis, ctx.dim), None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -703,6 +711,24 @@ class TPGroup:
         """``x`` summed over the group (:class:`AllReduce`)."""
         return AllReduce.apply(x, self.ops, TP_AXIS, False)
 
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The group's blocks of ``x`` concatenated along ``dim`` in rank
+        order: the whole of an activation split over the group."""
+        return AllGather.apply(x, self.ops, TP_AXIS, dim)
+
+    def rmsnorm(self, x: torch.Tensor, scale: torch.Tensor,
+                eps: float) -> torch.Tensor:
+        """``layers.rmsnorm`` over a last dimension split over the group:
+        ``x`` is the rank's block of it, ``scale`` the whole norm scale.
+        The mean square is the group's sum of the blocks' sums of
+        squares over the whole width; the rank scales its block."""
+        dt = x.dtype
+        x = x.float()
+        n = x.shape[-1]
+        ms = self.sum(torch.sum(torch.square(x), dim=-1, keepdim=True))
+        x = x * torch.rsqrt(ms / (n * self.size) + eps)
+        return (x * scale.narrow(-1, self.index * n, n).float()).to(dt)
+
     def max_(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` (no gradient) replaced in place by its elementwise max
         over the group."""
@@ -754,15 +780,34 @@ def split_group(x, dim: int) -> TPGroup | None:
     return _model_group(x.ops)
 
 
-def cache_seq_group(ops: MeshOps | None, n_slots: int) -> TPGroup | None:
-    """The group that splits a serving cache of ``n_slots`` slots, as the
-    cache leaf's spec would (:func:`split_group`): where the current
-    rules' ``cache_seq`` gives ``model`` alone on ``ops``'s mesh, more
-    than one rank that divides ``n_slots``.  None without ``ops``."""
-    if ops is None or _spec_for(("cache_seq",), ops.mesh, current_rules(),
-                                (n_slots,)) != (TP_AXIS,):
+def rule_group(ops: MeshOps | None, logical: str, n: int) -> TPGroup | None:
+    """The group that splits a dimension of ``n`` named ``logical``, as a
+    leaf's spec would (:func:`split_group`): where the current rules give
+    it ``model`` alone on ``ops``'s mesh, more than one rank that divides
+    ``n``.  None without ``ops``."""
+    if ops is None or _spec_for((logical,), ops.mesh, current_rules(),
+                                (n,)) != (TP_AXIS,):
         return None
     return _model_group(ops)
+
+
+def cache_seq_group(ops: MeshOps | None, n_slots: int) -> TPGroup | None:
+    """The group that splits a serving cache of ``n_slots`` slots
+    (:func:`rule_group` of ``cache_seq``)."""
+    return rule_group(ops, "cache_seq", n_slots)
+
+
+def block_group(p: dict, names, cache=()) -> TPGroup | None:
+    """The group over which a block runs split: where :func:`tp_group`
+    splits every leaf of ``p`` named in ``names``, and each (cache entry,
+    dimension) of ``cache`` (a decode's) is split along that dimension
+    over ``model`` alone (:func:`split_group`).  None elsewhere: the block
+    then runs whole."""
+    groups = [tp_group(p[k]) for k in names]
+    if any(g is None for g in groups) or any(split_group(c, d) is None
+                                             for c, d in cache):
+        return None
+    return groups[0]
 
 
 def sharded_leaves(local: dict, shardings: dict, ops: MeshOps) -> dict:

@@ -107,11 +107,13 @@ def test_run_cell_matches_reference(reference, cell):
 # policy) -> the bound on temp_bytes in GiB (gathering the state whole,
 # the port's step took 487.85 and 58.01 GiB under dp_fsdp; under
 # baseline, with the products whole, Qwen3 took 200.13 and InternLM2
-# 121.18; split over model 32.82 and 13.19)
+# 121.18; split over model 32.82 and 13.19; RecurrentGemma-2B with its
+# RG-LRU blocks whole 79.78, split 40.43)
 SHARDED_TRAIN = {("qwen3_moe_30b_a3b", "dp_fsdp"): 24.0,
                  ("qwen1_5_4b", "dp_fsdp"): 15.0,
                  ("qwen3_moe_30b_a3b", "baseline"): 36.0,
-                 ("internlm2_1_8b", "baseline"): 15.0}
+                 ("internlm2_1_8b", "baseline"): 15.0,
+                 ("recurrentgemma_2b", "baseline"): 45.0}
 
 
 @pytest.mark.parametrize("arch,policy", list(SHARDED_TRAIN))
@@ -119,9 +121,9 @@ def test_sharded_train_cell_fits(arch, policy):
     """One rank's ``train_4k`` step on the pod holds its share of the
     state and one layer's weights gathered at a time (under ``dp_fsdp``
     its 1/256; under ``baseline`` its ``model`` group splits attention's
-    heads, the MLPs and the vocabulary, so that its f32 logits are over
-    1/16 of the vocabulary): its temp bytes stay under the bound and the
-    cell fits one card."""
+    heads, the MLPs, the RG-LRU's channels and the vocabulary, so that
+    its f32 logits are over 1/16 of the vocabulary): its temp bytes stay
+    under the bound and the cell fits one card."""
     rec = D.run_cell(arch, "train_4k", "pod", policy, save=False)
     temp = rec["memory"]["temp_bytes"] / 2**30
     assert temp < SHARDED_TRAIN[(arch, policy)], temp
@@ -132,8 +134,9 @@ def test_sharded_train_cell_fits(arch, policy):
 # serving programs gathered every weight and the decode cache whole
 # (baseline; that program's temp GiB in the comments):
 # (arch, shape, mesh) -> the bound on temp_bytes in GiB now that they keep
-# the weights sharded, split the products over model and decode's cache
-# over cache_seq
+# the weights sharded, split the products over model (the RG-LRU's and
+# the SSD's too: with those whole RecurrentGemma-2B's prefill took 29.76
+# and Mamba-2's 33.05) and decode's cache over cache_seq
 SHARDED_SERVE = {("qwen1_5_4b", "decode_32k", "pod"): 2.0,          # 107.36
                  ("qwen1_5_4b", "prefill_32k", "pod"): 32.0,        # 96.85
                  ("qwen3_moe_30b_a3b", "prefill_32k", "pod"): 13.0,  # 107.88
@@ -143,7 +146,8 @@ SHARDED_SERVE = {("qwen1_5_4b", "decode_32k", "pod"): 2.0,          # 107.36
                  ("minicpm_2b", "prefill_32k", "pod"): 52.0,         # 81.95
                  ("musicgen_large", "decode_32k", "pod"): 1.0,       # 100.52
                  ("phi3_vision_4_2b", "decode_32k", "pod"): 1.0,     # 103.12
-                 ("recurrentgemma_2b", "prefill_32k", "pod"): 33.0}  # 88.68
+                 ("recurrentgemma_2b", "prefill_32k", "pod"): 20.0,  # 88.68
+                 ("mamba2_780m", "prefill_32k", "pod"): 20.0}
 
 
 @pytest.mark.parametrize("arch,shape,mesh", list(SHARDED_SERVE),
@@ -211,7 +215,7 @@ ESTIMATE_CELLS = [
     ("recurrentgemma_2b", "tiny_train"), ("internlm2_1_8b", "tiny_train"),
     ("qwen3_moe_30b_a3b", "tiny_prefill"), ("qwen3_moe_30b_a3b", "tiny_decode"),
     ("recurrentgemma_2b", "tiny_decode"), ("minicpm_2b", "tiny_decode"),
-    ("smollm_360m", "tiny_decode", "dp_fsdp")]
+    ("smollm_360m", "tiny_decode", "dp_fsdp"), ("mamba2_780m", "tiny_train")]
 
 
 @pytest.mark.parametrize("cell", ESTIMATE_CELLS,
@@ -223,15 +227,17 @@ def test_meta_estimate_equals_a_cpu_run(tiny, cell):
     every axis and the weights by ``embed`` alone; under ``baseline`` the
     products split over ``model`` (tensor parallelism: the gathers that
     keep ``model`` return rank 0's block), RecurrentGemma's RG-LRU
-    blocks whole beside its split MLPs and local attention, InternLM2's
-    KV heads split with its q heads.  The serving cells run
+    blocks and Mamba-2's SSD mixers split beside the split MLPs and local
+    attention (their gathers over the group repeat the rank's block),
+    InternLM2's KV heads split with its q heads.  The serving cells run
     ``train/serve.py``'s steps on the rank's shards: a prefill cuts each
     layer's cache to the rank's block of the slots (Qwen3's from KV heads
-    cut under tensor parallelism), decode takes the cache's blocks and
-    runs attention sequence-parallel (RecurrentGemma's local ring of 8,
-    MiniCPM's heads and vocabulary whole, ``dp_fsdp``'s products whole),
-    the RG-LRU's and the SSD's caches gathered whole but their rows and
-    cut back."""
+    cut under tensor parallelism) and of the RG-LRU's channels and the
+    SSD's heads, decode takes the cache's blocks and runs attention
+    sequence-parallel (RecurrentGemma's local ring of 8, MiniCPM's heads
+    and vocabulary whole, ``dp_fsdp``'s products whole) and the RG-LRU
+    and SSD on their blocks, the SSD's conv window gathered whole but its
+    rows and cut back."""
     arch, shape, policy = (*cell, "baseline")[:3]
     low, _, on_meta = _measure(arch, shape, "meta", policy)
     low_c, outs, on_cpu = _measure(arch, shape, "cpu", policy)
@@ -283,23 +289,82 @@ def _check_cross_entropy(arch, policy):
 
 def test_train_cells_flash_shapes_are_held_by_phases_10_and_14():
     """Phase 27 (b)'s train cells give flash one rank's rows of 4,096
-    tokens a microbatch at head_dim 128: under ``dp_fsdp`` one row of
-    Qwen3-30B-A3B's 32 heads and of Qwen1.5-4B's 20; under ``baseline``
-    16 rows of the rank's heads (tensor parallelism over 16 ranks):
-    Qwen3's 2 and InternLM2-1.8B's 1.  All are among phase 10's forward
-    shapes and phase 14's backward shapes, where the kernels are held to
-    their plain versions."""
+    tokens a microbatch: under ``dp_fsdp`` one row of Qwen3-30B-A3B's 32
+    heads and of Qwen1.5-4B's 20 at head_dim 128; under ``baseline`` 16
+    rows of the rank's heads (tensor parallelism over 16 ranks): Qwen3's
+    2, InternLM2-1.8B's 1 and RecurrentGemma-2B's 10 (which 16 does not
+    divide) at head_dim 256 with its window.  All are among phase 10's
+    forward shapes and phase 14's backward shapes, where the kernels are
+    held to their plain versions; RecurrentGemma's in bf16 alone."""
     import chip_smoke
 
     got = chip_smoke.dryrun_train_flash_shapes()
     assert got == [(32, 4096, 128, 0), (20, 4096, 128, 0),
-                   (32, 4096, 128, 0), (16, 4096, 128, 0)]
+                   (32, 4096, 128, 0), (16, 4096, 128, 0),
+                   (160, 4096, 256, 2048)]
     assert [chip_smoke.dryrun_train_split(*c)[2:] for c in
             chip_smoke.DRYRUN_TRAIN] == [(1, 32, 1), (1, 20, 1),
-                                         (16, 2, 16), (16, 1, 16)]
+                                         (16, 2, 16), (16, 1, 16),
+                                         (16, 10, 16)]
+    assert chip_smoke.bf16_only_flash_shapes() == ((160, 4096, 256, 2048),)
     for shape in got:
         assert shape in chip_smoke.train_flash_shapes()
         assert shape in chip_smoke.bwd_shapes()
+
+
+SPLIT_CELLS = [(arch, shape, policy, policy == "baseline")
+               for arch in ("recurrentgemma_2b", "mamba2_780m")
+               for shape in ("tiny_train", "tiny_prefill", "tiny_decode")
+               for policy in ("baseline", "dp_fsdp")]
+
+
+@pytest.mark.parametrize("cell", SPLIT_CELLS,
+                         ids=["-".join(c[:3]) for c in SPLIT_CELLS])
+def test_estimate_cells_run_the_recurrent_blocks_split(tiny, monkeypatch,
+                                                        cell):
+    """The estimate cells that hold the RG-LRU and the SSD meta against
+    CPU run every such block split over ``model`` under ``baseline`` (the
+    group ``transformer._gather_block`` hands ``block_fwd``: the rank's
+    block of the channels or heads) and whole under ``dp_fsdp``, in each
+    mode, decode's split caches included."""
+    from repro_torch.models import transformer as T
+
+    arch, shape, policy, split = cell
+    seen = []
+    real = T.block_fwd
+
+    def block_fwd(kind, cfg, p, x, **kw):
+        if kind in ("rglru", "ssd"):
+            tp = kw.get("tp")
+            seen.append(None if tp is None else tp.size)
+        return real(kind, cfg, p, x, **kw)
+
+    monkeypatch.setattr(T, "block_fwd", block_fwd)
+    _measure(arch, shape, "meta", policy)
+    assert seen and set(seen) == ({MESH.shape["model"]} if split else {None})
+
+
+def test_prefill_ssd_shape_is_held_by_phase_27():
+    """Mamba-2's ``prefill_32k`` pod cell gives ``ssd_scan`` one rank's 2
+    rows times its 3 of the 48 heads (``model`` splits ``d_inner`` and the
+    heads over 16 ranks), 128 chunks of 256, B and C one group a row:
+    phase 27 (b) holds that shape, beside one whole row of 48 heads,
+    against the plain version.  The decode cells split RecurrentGemma-2B's
+    RG-LRU channels and Mamba-2's SSD heads; ``dp_fsdp`` splits
+    neither."""
+    import chip_smoke
+
+    assert chip_smoke.dryrun_prefill_ssd_shape() == (6, 128, 256, 64, 128, 2)
+    assert chip_smoke.DRYRUN_SSD_SHAPES == ((48, 128, 256, 64, 128, 1),
+                                            (6, 128, 256, 64, 128, 2))
+    assert chip_smoke.recurrent_split("mamba2_780m", "ssdk",
+                                      "prefill_32k") == {"ssd": (3, 48)}
+    assert chip_smoke.recurrent_split("recurrentgemma_2b", "baseline",
+                                      "decode_32k") == {"rglru": (160, 2560)}
+    assert chip_smoke.recurrent_split("mamba2_780m", "dp_fsdp",
+                                      "train_4k") == {"ssd": (48, 48)}
+    assert {"recurrentgemma_2b", "mamba2_780m"} <= set(
+        chip_smoke.DRYRUN_DECODE)
 
 
 def test_prefill_cells_flash_shapes_are_held_by_phase_10():

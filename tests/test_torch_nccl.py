@@ -6,11 +6,13 @@
 steps on the same card (on the ``model`` and ``resident`` meshes the
 products split over ``model``: tensor parallelism), and one sharded
 step's loss and gradients at published width (``PUBLISHED``:
-InternLM2-1.8B at 4 layers in f32 on a (1, 4) mesh, every product split
-over the four cards) against world size 1 on the first card, and sharded
-serving on the same mesh (``SERVE``: a reduced Qwen3-30B-A3B and
-InternLM2-1.8B at 4 layers of published width; prefill, then decode on
-the cache's blocks of the slots) against world size 1 there.  Marked
+InternLM2-1.8B at 4 layers, and RecurrentGemma-2B and Mamba-2 780M at
+one super-block each, their RG-LRU and SSD blocks split too, in f32 on a
+(1, 4) mesh, every product split over the four cards) against world size
+1 on the first card, and sharded serving on the same mesh (``SERVE``: a
+reduced Qwen3-30B-A3B and the same three at published width; prefill,
+then decode on the cache's blocks of the slots and the recurrent states'
+blocks) against world size 1 there.  Marked
 ``cuda``; skips with fewer than four cards.  The file imports nothing of
 the JAX package:
 
@@ -36,9 +38,15 @@ import test_torch_parallel as TP  # noqa: E402
 import test_torch_sharded_serve as SS  # noqa: E402
 
 WORLD = 4
-# the published-width case: (arch, layers, mesh, batch, sequence); f32,
-# TF32 off, attention through the flash kernels' f32 route
-PUBLISHED = ("internlm2_1_8b", 4, (1, 4), 2, 2048)
+# the published-width cases: arch -> (layers, mesh, batch, sequence); f32,
+# TF32 off, attention through the flash kernels' f32 route, the SSD
+# through its xla form (ssd_scan has no backward); RecurrentGemma-2B and
+# Mamba-2 at one super-block (RG-LRU, RG-LRU, local attention; one SSD
+# layer)
+PUBLISHED = {"internlm2_1_8b": (4, (1, 4), 2, 2048),
+             "recurrentgemma_2b": (3, (1, 4), 2, 2048),
+             "mamba2_780m": (1, (1, 4), 2, 2048)}
+RECURRENT = ("recurrentgemma_2b", "mamba2_780m")
 # relative L2 of the loss and of each gradient against world size 1
 # (measured on four H100s: the loss equal, the worst gradient 8.0e-6)
 TOL_PUBLISHED = 1e-4
@@ -46,7 +54,9 @@ TOL_PUBLISHED = 1e-4
 # prefill and decodes): name -> (arch, layers (None: the reduced config),
 # relative L2 against world size 1); f32, TF32 off
 SERVE = {"qwen3_reduced": ("qwen3", None, TP.TOL_GRAD),
-         "internlm2_published": ("internlm2_1_8b", 4, TOL_PUBLISHED)}
+         "internlm2_published": ("internlm2_1_8b", 4, TOL_PUBLISHED),
+         "recurrentgemma_published": ("recurrentgemma_2b", 3, TOL_PUBLISHED),
+         "mamba2_published": ("mamba2_780m", 1, TOL_PUBLISHED)}
 
 
 def _rank_checks(rank, device, out):
@@ -91,17 +101,19 @@ def _rank_checks(rank, device, out):
     torch.save(res, out / f"rank{rank}.pt")
 
 
-def published_setup():
-    """``PUBLISHED``'s config, step and batch (tokens from a seed)."""
+def published_setup(arch):
+    """``PUBLISHED[arch]``'s config, step and batch (tokens from a
+    seed)."""
     import numpy as np
 
     from repro_torch import configs as C
     from repro_torch.train.optim import OptConfig
     from repro_torch.train.step import make_train_step
 
-    arch, layers, _, B, S = PUBLISHED
+    layers, _, B, S = PUBLISHED[arch]
     cfg = C.get_config(arch).with_(num_layers=layers, dtype="float32",
-                                   param_dtype="float32", attn_impl="flash")
+                                   param_dtype="float32", attn_impl="flash",
+                                   ssd_impl="xla")
     step = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1,
                                           total_steps=10))
     t = torch.from_numpy(np.random.default_rng(36).integers(
@@ -110,17 +122,28 @@ def published_setup():
 
 
 def _published_check(rank, device, out):
-    """``PUBLISHED``'s gradients: each rank's blocks through the sharded
-    step's pieces (its shards as ``ShardedLeaf``, the gathers keeping
-    ``model`` where it splits a product), assembled whole; rank 0 then
-    takes world size 1's on its own card and keeps the loss's and each
-    gradient's relative L2 against it."""
+    """Each ``PUBLISHED`` case's gradients (:func:`_published_case`)."""
+    res = {"rank": rank}
+    for arch in PUBLISHED:
+        res[arch] = _published_case(arch, rank, device)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    torch.save(res, out / f"rank{rank}.pt")
+
+
+def _published_case(arch, rank, device):
+    """``PUBLISHED[arch]``'s gradients: each rank's blocks through the
+    sharded step's pieces (its shards as ``ShardedLeaf``, the gathers
+    keeping ``model`` where it splits a product), assembled whole; rank 0
+    then takes world size 1's on its own card and keeps the loss's and
+    each gradient's relative L2 against it."""
     from repro_torch.launch import train as LT
     from repro_torch.models import transformer as T
     from repro_torch.parallel import sharding as SH
 
-    cfg, step, batch = published_setup()
-    mesh = SH.make_mesh(PUBLISHED[2], ("data", "model"), device=device.type)
+    cfg, step, batch = published_setup(arch)
+    mesh = SH.make_mesh(PUBLISHED[arch][1], ("data", "model"),
+                        device=device.type)
     params = _to(T.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
                  device)
     batch = _to(batch, device)
@@ -139,12 +162,12 @@ def _published_check(rank, device, out):
     whole = {k: SH.from_local(g, shs[k]).full_tensor() for k, g in
              grads.items()}
     del grads
-    res = {"rank": rank, "split": split, "loss": loss}
+    res = {"split": split, "loss": loss}
     if rank == 0:
         want_loss, _, want = step.grads(params, batch)
         res["want_loss"] = float(want_loss)
         res["rel_l2"] = {k: TP.rel_l2(whole[k], want[k]) for k in want}
-    torch.save(res, out / f"rank{rank}.pt")
+    return res
 
 
 def serve_setup(name, device):
@@ -293,6 +316,22 @@ def published(tmp_path_factory):
                     tmp_path_factory.mktemp("published"), "--published")
 
 
+def _check_published(published, arch, split):
+    """``arch``'s loss and every gradient against world size 1's, and
+    the leaves ``split`` among those every rank splits."""
+    r0 = published[0][arch]
+    assert split <= set(r0["split"]), r0["split"]
+    for r in published:
+        assert r[arch]["split"] == r0["split"] and r[arch]["loss"] == \
+            r0["loss"]
+    assert abs(r0["loss"] - r0["want_loss"]) <= \
+        TOL_PUBLISHED * abs(r0["want_loss"])
+    worst = max(r0["rel_l2"].items(), key=lambda kv: kv[1])
+    print(f"{arch}: loss {r0['loss']!r} against {r0['want_loss']!r}; worst "
+          f"gradient relative L2 {worst[1]:.3e} ({worst[0]})")
+    assert worst[1] < TOL_PUBLISHED, worst
+
+
 @pytest.mark.cuda
 def test_tp_step_at_published_width_over_nccl(published):
     """InternLM2-1.8B at published width (4 of its 24 layers, f32, TF32
@@ -301,17 +340,27 @@ def test_tp_step_at_published_width_over_nccl(published):
     words of the head over the four cards, and its loss and every
     gradient, landed in the blocks and gathered whole, equal world size
     1's on the first card within ``TOL_PUBLISHED`` relative L2."""
-    r0 = published[0]
-    assert {"s0_wq", "s0_wk", "s0_wo", "s0_w_up", "s0_w_down",
-            "lm_head"} <= set(r0["split"])
-    for r in published:
-        assert r["split"] == r0["split"] and r["loss"] == r0["loss"]
-    assert abs(r0["loss"] - r0["want_loss"]) <= \
-        TOL_PUBLISHED * abs(r0["want_loss"])
-    worst = max(r0["rel_l2"].items(), key=lambda kv: kv[1])
-    print(f"loss {r0['loss']!r} against {r0['want_loss']!r}; worst "
-          f"gradient relative L2 {worst[1]:.3e} ({worst[0]})")
-    assert worst[1] < TOL_PUBLISHED, worst
+    _check_published(published, "internlm2_1_8b",
+                     {"s0_wq", "s0_wk", "s0_wo", "s0_w_up", "s0_w_down",
+                      "lm_head"})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_tp_recurrent_blocks_at_published_width_over_nccl(published, arch):
+    """RecurrentGemma-2B (RG-LRU, RG-LRU, local attention) and Mamba-2
+    780M (one SSD layer) at published width, f32, on a (1, 4) mesh over
+    NCCL: every rank splits the RG-LRU's 2,560 channels (its gates'
+    columns, the output's rows) or the SSD's 48 heads and their 3,072
+    channels over the four cards, beside the MLPs and the head, and the
+    loss and every gradient equal world size 1's on the first card within
+    ``TOL_PUBLISHED`` relative L2."""
+    from repro_torch.models import rglru as R
+    from repro_torch.models import ssm as SM
+
+    own = R.TP_WEIGHTS if arch == "recurrentgemma_2b" else SM.TP_WEIGHTS
+    _check_published(published, arch,
+                     {f"s0_{k}" for k in own} | {"tok_embed"})
 
 
 @pytest.fixture(scope="module")

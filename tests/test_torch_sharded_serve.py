@@ -22,15 +22,19 @@ batch:
   size 1's;
 * at 4 ranks on (1, 4), under ``LiveBytes``: no tensor a rank makes in
   decode holds a layer's ``W`` slots, none in prefill every layer's
-  whole-sequence cache.
+  whole-sequence cache; in RecurrentGemma's and Mamba-2's decode none
+  has the RG-LRU's whole width or the SSD's whole head count along a
+  dimension, but the gates' gathered input and their weights' columns.
 
 Within ``TOL_W1`` relative L2 in f32.  The configs are the reference
 tests' reduced ones: SmolLM-360M (tied head), Qwen3-30B-A3B (the MoE's
 expert-parallel paths, at capacity factor E / k so that nothing drops;
 its KV heads cut at 4 ranks), RecurrentGemma-2B (a local ring of 8 with
-one KV head, cut; the RG-LRU whole), Mamba-2 780M (the SSD cache only)
-and MiniCPM-2B at 3 heads and 511 words, which ``model`` does not divide
-(attention and the head whole, the MLP split).  World size 1 equals the
+one KV head, cut; the RG-LRU at width 96, which no other dimension has,
+split over ``model``), Mamba-2 780M (the SSD cache only, its 8 heads
+split over ``model``) and MiniCPM-2B at 3 heads and 511 words, which
+``model`` does not divide (attention and the head whole, the MLP
+split).  World size 1 equals the
 reference's steps (``jit_prefill_step`` / ``jit_decode_step``) within 2e-4
 (``tests/test_torch_models.py``'s), the weights the reference's,
 carried across by ``convert.params_from_numpy``; at one rank the steps
@@ -69,7 +73,7 @@ SLOT_POS = np.array([(16, 17, 18, 19), (21, 27, 30, 35), (27, 30, 35, 42),
 ARCHS = {
     "smollm": ("smollm_360m", {}),
     "qwen3": ("qwen3_moe_30b_a3b", {"capacity_factor": 4.0}),
-    "recurrentgemma": ("recurrentgemma_2b", {}),
+    "recurrentgemma": ("recurrentgemma_2b", {"lru_width": 96}),
     "mamba2": ("mamba2_780m", {}),
     "minicpm": ("minicpm_2b", {"num_heads": 3, "num_kv_heads": 3,
                                "vocab_size": 511}),
@@ -80,6 +84,7 @@ MESHES = {2: {"1x2": ((1, 2), "baseline", True)},
               "2x2": ((2, 2), "baseline", True),
               "2x2_dp_fsdp": ((2, 2), "dp_fsdp", False)}}
 MEM_CASE = ("1x4", "smollm")   # the 4-rank memory probe
+SPLIT_PROBES = ("recurrentgemma", "mamba2")    # and the split blocks' on 1x4
 LAYOUTS = ("wave", "per_slot")
 
 
@@ -306,7 +311,8 @@ def _rank_checks(world, rank, out, inp):
                 cfg, mesh, rules, _sub(inp, f"{name}/params/", True),
                 inp[f"{name}/prompt"], inp[f"{name}/toks"],
                 {lay: _sub(inp, f"{name}/{lay}/") for lay in LAYOUTS},
-                prefill=prefill, probe=(mname, name) == MEM_CASE)
+                prefill=prefill, probe=(mname, name) == MEM_CASE or (
+                    mname == MEM_CASE[0] and name in SPLIT_PROBES))
     torch.save(res, out / f"rank{rank}.pt")
 
 
@@ -558,8 +564,14 @@ def test_sharded_decode_equals_world_size_1(runs, n, mesh, name, layout):
 def test_products_split_where_model_divides(runs, n, mesh, name):
     """Under ``baseline`` the rank's ``model`` group splits attention's
     heads where ``model`` divides them (not MiniCPM's 3, nor anything
-    under ``dp_fsdp``), the MLPs' hidden units and the head where it
-    divides the vocabulary (not MiniCPM's 511)."""
+    under ``dp_fsdp``), the MLPs' hidden units, the head where it
+    divides the vocabulary (not MiniCPM's 511), and every leaf of the
+    RG-LRU and the SSD mixer that the reference splits over ``model``
+    (the SSD's B, C and norm scale stay whole)."""
+    from repro_torch.models import rglru as R
+    from repro_torch.models import ssm as SM
+    from repro_torch.models import transformer as T
+
     cfg = port_cfg(name)
     tp = set(runs[n][0][f"{mesh}/{name}"]["tp"])
     for r in runs[n]:
@@ -571,6 +583,12 @@ def test_products_split_where_model_divides(runs, n, mesh, name):
     assert ("s0_wq" in tp or "s2_wq" in tp) == (attends and name != "minicpm")
     head = "tok_embed" if cfg.tie_embeddings else "lm_head"
     assert (head in tp) == (name != "minicpm")
+    keys = T.param_specs(cfg)
+    own = {k for k in keys if k.split("_", 1)[1] in R.TP_WEIGHTS
+           + SM.TP_WEIGHTS}
+    assert bool(own) == (name in SPLIT_PROBES) and own <= tp
+    assert not {k for k in keys if k.split("_", 1)[1] in (
+        "wB", "wC", "conv_B", "conv_C", "ssd_norm_scale")} & tp
 
 
 def test_no_rank_holds_a_whole_cache(runs):
@@ -589,6 +607,32 @@ def test_no_rank_holds_a_whole_cache(runs):
         assert (L, B, S, Kv, hd) not in e["prefill/shapes"]
         assert (L, B, S // 4, Kv, hd) in e["prefill/shapes"]
         assert tuple(e["prefill/cache/s0_k"].shape) == (L, B, S // 4, Kv, hd)
+
+
+@pytest.mark.parametrize("name", SPLIT_PROBES)
+def test_split_recurrent_decode_holds_no_whole_width(runs, name):
+    """At 4 ranks on (1, 4) (under ``LiveBytes``): no tensor a rank makes
+    in six wave decode steps has the RG-LRU's whole width ``w`` along a
+    dimension but the gates' input gathered over the group ``[B, w]`` and
+    their weights' columns ``[w, w/4]``, and none has the SSD's whole
+    head count (the gathered x column and the conv window have
+    ``d_inner`` and ``d_inner + 2 ds`` columns); the updated state is the
+    rank's block of the channels or heads."""
+    mesh, _ = MEM_CASE
+    cfg = port_cfg(name)
+    for r in runs[4]:
+        shapes = r[f"{mesh}/{name}"]["decode/shapes"]
+        assert shapes
+        if name == "recurrentgemma":
+            w = cfg.rnn_width
+            assert w not in (cfg.d_model, cfg.d_ff, cfg.vocab_size // 4)
+            assert {s for s in shapes if w in s} <= {(B, w), (w, w // 4)}
+            assert (B, w // 4) in shapes
+        else:
+            nh, hd, ds = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+            assert not [s for s in shapes if nh in s], shapes
+            assert (B, nh // 4, hd, ds) in shapes
+            assert (B, 1, cfg.d_inner) in shapes
 
 
 @pytest.fixture(scope="module")

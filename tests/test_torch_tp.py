@@ -16,6 +16,14 @@ launcher's step does) and its rows of the batch:
   reference's ``attention_seq_kv`` and ``mlp`` on the whole batch within
   ``TOL_REF``, and each weight's gradient, landed in the rank's block,
   equals world size 1's within ``TOL_GRAD``;
+* the RG-LRU (``rglru.rglru_seq_cached``) and the SSD mixer
+  (``ssm.ssd_seq``, ``ssd_impl`` ``xla`` and ``kernel``, the latter its
+  plain version here), their leaves handed over as the stack's
+  ``_gather_block`` does: every leaf the reference splits over ``model``
+  split, their outputs equal the reference's ``rglru_seq`` / ``ssd_seq``
+  within ``TOL_REF`` and (``kernel`` has no backward) each gradient
+  world size 1's within ``TOL_GRAD``; an SSD whose ``model`` divides
+  ``d_inner`` but not its 3 heads runs whole and equals the same;
 * the vocab-parallel ``cross_entropy`` over a rank's block of the
   logits, with IGNORE labels and labels in every block, equals the
   reference's within ``TOL_CE`` relative, its gradient world size 1's;
@@ -48,6 +56,14 @@ B, S = 4, 16
 ATTN = {"gqa": "internlm2_1_8b", "bias": "qwen1_5_4b"}
 MLPS = {"gated": "internlm2_1_8b", "gelu": "musicgen_large"}
 IMPLS = ("naive", "flash")
+# the recurrent blocks: (kind, name) -> (arch, the config's overrides);
+# "heads_whole" has 3 SSD heads of 32 over d_inner 96, which 2 and 4 ranks
+# divide but not the heads
+RECURRENT = {("rglru", "rglru"): ("recurrentgemma_2b", {}),
+             ("ssd", "xla"): ("mamba2_780m", {"ssd_impl": "xla"}),
+             ("ssd", "kernel"): ("mamba2_780m", {"ssd_impl": "kernel"}),
+             ("ssd", "heads_whole"): ("mamba2_780m", {
+                 "ssd_impl": "xla", "d_model": 48, "ssm_head_dim": 32})}
 CE_V = 64                              # the cross-entropy check's vocabulary
 MEM_ARCHS = ("smollm_360m", "qwen3_moe_30b_a3b")   # tied and untied heads
 
@@ -72,14 +88,51 @@ def ref_cfg(arch, **kw):
 
 def module_specs(kind, cfg):
     from repro_torch.models import layers as L
+    from repro_torch.models import rglru as R
+    from repro_torch.models import ssm as SM
 
-    return L.attn_specs(cfg) if kind == "attn" else L.mlp_specs(cfg)
+    return {"attn": L.attn_specs, "mlp": L.mlp_specs, "rglru": R.rglru_specs,
+            "ssd": SM.ssd_specs}[kind](cfg)
 
 
 def cases():
-    """(kind, name, arch, attn_impl) of every module case."""
+    """(kind, name, arch, impl) of every module case: ``impl`` attention's
+    ``attn_impl``, the SSD's ``ssd_impl``."""
     return ([("attn", n, a, i) for n, a in ATTN.items() for i in IMPLS]
-            + [("mlp", n, a, "naive") for n, a in MLPS.items()])
+            + [("mlp", n, a, "naive") for n, a in MLPS.items()]
+            + [(kind, name, a, kw.get("ssd_impl", "naive"))
+               for (kind, name), (a, kw) in RECURRENT.items()])
+
+
+def case_overrides(kind, name, impl):
+    """The config's overrides of a case (see :func:`cases`)."""
+    if (kind, name) in RECURRENT:
+        return dict(RECURRENT[(kind, name)][1])
+    return {"attn_impl": impl}
+
+
+def case_arch(kind, name):
+    return {"attn": ATTN, "mlp": MLPS}[kind][name] if kind in (
+        "attn", "mlp") else RECURRENT[(kind, name)][0]
+
+
+def run_module(kind, p, x, cfg):
+    """The port's module ``kind`` on leaves ``p`` (a rank's shards
+    handed over as the stack's ``_gather_block`` does for the recurrent
+    blocks) -> its output."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import rglru as R
+    from repro_torch.models import ssm as SM
+    from repro_torch.models.transformer import _gather_block
+
+    if kind == "attn":
+        return L.attention_seq_kv(p, x, cfg)[0]
+    if kind == "mlp":
+        return L.mlp(p, x, cfg)
+    p, tp = _gather_block(p, kind)
+    if kind == "rglru":
+        return R.rglru_seq_cached(p, x, cfg, tp=tp)[0]
+    return SM.ssd_seq(p, x, cfg, tp)
 
 
 def make_inputs(path):
@@ -87,9 +140,9 @@ def make_inputs(path):
     cross-entropy's logits and labels, from seeds."""
     rng = np.random.default_rng(36)
     inp = {}
-    for kind, name, arch, _ in cases():
-        for k, (shape, _) in sorted(module_specs(kind, port_cfg(arch))
-                                    .items()):
+    for kind, name, arch, impl in cases():
+        cfg = port_cfg(arch, **case_overrides(kind, name, impl))
+        for k, (shape, _) in sorted(module_specs(kind, cfg).items()):
             key = f"{kind}/{name}/{k}"
             if key not in inp:
                 inp[key] = (rng.standard_normal(shape) * 0.2).astype(
@@ -125,25 +178,33 @@ def _leaves(specs, weights, mesh, ops):
 
 def _module_check(kind, name, arch, impl, mesh, inp):
     from repro_torch.launch import train as LT
-    from repro_torch.models import layers as L
+    from repro_torch.models import rglru as R
+    from repro_torch.models import ssm as SM
     from repro_torch.parallel import sharding as SH
 
-    cfg = port_cfg(arch, attn_impl=impl)
+    cfg = port_cfg(arch, **case_overrides(kind, name, impl))
     specs = module_specs(kind, cfg)
     ops = SH.MeshOps(mesh)
     weights = {k: inp[f"{kind}/{name}/{k}"] for k in specs}
+    D = cfg.d_model
     with SH.sharding_context(mesh):
         idx, n = LT.batch_shard(mesh)
         rows = slice(idx * B // n, (idx + 1) * B // n)
         p = _leaves(specs, weights, mesh, ops)
         tp = {k: SH.tp_group(v) is not None for k, v in p.items()}
-        x = torch.from_numpy(inp["x"][rows]).clone().requires_grad_(True)
-        if kind == "attn":
-            y, _ = L.attention_seq_kv(p, x, cfg)
+        split = {"rglru": R, "ssd": SM}.get(kind)
+        if split is not None:
+            tp["block"] = split.tp_split(p) is not None
+        x = torch.from_numpy(inp["x"][rows, :, :D]).clone().requires_grad_(
+            impl != "kernel")
+        with torch.set_grad_enabled(impl != "kernel"):
+            y = run_module(kind, p, x, cfg)
+        if impl == "kernel":        # ssd_scan has no backward
+            grads = [None] * (len(p) + 1)
         else:
-            y = L.mlp(p, x, cfg)
-        loss = (y * torch.from_numpy(inp["w_y"][rows])).sum()
-        grads = torch.autograd.grad(loss, [v.local for v in p.values()] + [x])
+            loss = (y * torch.from_numpy(inp["w_y"][rows, :, :D])).sum()
+            grads = torch.autograd.grad(loss, [v.local for v in p.values()]
+                                        + [x])
     return {"idx": idx, "n": n, "y": y.detach(), "dx": grads[-1], "tp": tp,
             "slices": {k: v.sharding.local_slices(weights[k].shape,
                                                   mesh.get_coordinate())
@@ -294,19 +355,29 @@ def _whole_grad(port, key, k, shape):
     return g
 
 
-def _reference_module(kind, arch, impl, weights, x):
+def _reference_module(kind, name, arch, weights, x):
+    """The reference's module on the whole batch: attention naive, the
+    SSD through its ``xla`` form (the port's ``kernel`` case is held
+    against it)."""
     import jax.numpy as jnp
 
     from repro.models import layers as RL
+    from repro.models import rglru as RR
+    from repro.models import ssm as RS
 
-    cfg = ref_cfg(arch, attn_impl="naive")
+    kw = case_overrides(kind, name, "naive")
+    if "ssd_impl" in kw:
+        kw["ssd_impl"] = "xla"
+    cfg = ref_cfg(arch, **kw)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
-        port_cfg(arch, attn_impl="naive")), arch
+        port_cfg(arch, **kw)), arch
     p = {k: jnp.asarray(v) for k, v in weights.items()}
+    x = jnp.asarray(x[..., :cfg.d_model])
     if kind == "attn":
-        y, _ = RL.attention_seq_kv(p, jnp.asarray(x), cfg)
+        y, _ = RL.attention_seq_kv(p, x, cfg)
     else:
-        y = RL.mlp(p, jnp.asarray(x), cfg)
+        y = {"mlp": RL.mlp, "rglru": RR.rglru_seq, "ssd": RS.ssd_seq}[kind](
+            p, x, cfg)
     return np.asarray(y)
 
 
@@ -317,8 +388,14 @@ def test_tp_module_equals_reference(runs, n, mesh, kind, name, impl):
     """The model group's outputs, gathered by batch shard, equal the
     reference's module on the whole batch within ``TOL_REF``; attention's
     q heads (and the MLP's hidden units) split over ``model`` on every
-    mesh, its KV heads split at 2 model ranks and cut at 4."""
-    arch = (ATTN if kind == "attn" else MLPS)[name]
+    mesh, its KV heads split at 2 model ranks and cut at 4; the RG-LRU's
+    and the SSD's own leaves split and the block runs split, but the
+    SSD's B, C and norm scale, which stay whole, and an SSD whose heads
+    ``model`` does not divide, which runs whole."""
+    from repro_torch.models import rglru as R
+    from repro_torch.models import ssm as SM
+
+    arch = case_arch(kind, name)
     port = runs[n]
     key = f"{mesh}/{kind}/{name}/{impl}"
     tp = port[0][key]["tp"]
@@ -327,19 +404,27 @@ def test_tp_module_equals_reference(runs, n, mesh, kind, name, impl):
         assert tp["wk"] == (MESHES[n][mesh][1] == 2)
         assert ("wq_b" in tp) == (name == "bias")
         assert all(v for k, v in tp.items() if k in ("wq_b", "wo"))
-    else:
+    elif kind == "mlp":
         assert tp["w_up"] and tp["w_down"]
+    else:
+        own = (R if kind == "rglru" else SM).TP_WEIGHTS
+        heads = ("wdt", "A_log", "D_skip", "dt_bias")
+        whole = name == "heads_whole"
+        assert {k for k, v in tp.items() if v and k != "block"} == (
+            set(own) - set(heads) if whole else set(own)), tp
+        assert tp["block"] == (not whole)
     inp = runs["tp_inp"]
-    specs = module_specs(kind, port_cfg(arch))
+    specs = module_specs(kind, port_cfg(arch, **case_overrides(kind, name,
+                                                               impl)))
     weights = {k: inp[f"{kind}/{name}/{k}"] for k in specs}
     y = _by_shard(port, key, "y")
     np.testing.assert_allclose(y.numpy(), _reference_module(
-        kind, arch, impl, weights, inp["x"]), **TOL_REF)
+        kind, name, arch, weights, inp["x"]), **TOL_REF)
 
 
 @pytest.mark.parametrize("n,mesh,kind,name,impl", [
     (n, m, kind, name, impl) for n, m in mesh_cases()
-    for kind, name, _, impl in cases()])
+    for kind, name, _, impl in cases() if impl != "kernel"])
 def test_tp_module_gradients_equal_world_size_1(runs, n, mesh, kind, name,
                                                 impl):
     """Each weight's gradient of sum(y · w) landed in the ranks' blocks
@@ -347,21 +432,19 @@ def test_tp_module_gradients_equal_world_size_1(runs, n, mesh, kind, name,
     divided by the rank count) equals world size 1's gradient of the mean
     over the batch shards within ``TOL_GRAD``, and x's gradient summed
     over the model group, divided by its size, world size 1's."""
-    from repro_torch.models import layers as L
-
-    arch = (ATTN if kind == "attn" else MLPS)[name]
+    arch = case_arch(kind, name)
     port = runs[n]
     key = f"{mesh}/{kind}/{name}/{impl}"
-    cfg = port_cfg(arch, attn_impl=impl)
+    cfg = port_cfg(arch, **case_overrides(kind, name, impl))
     inp = runs["tp_inp"]
     specs = module_specs(kind, cfg)
     p = {k: torch.from_numpy(inp[f"{kind}/{name}/{k}"]).requires_grad_(True)
          for k in specs}
-    x = torch.from_numpy(inp["x"]).clone().requires_grad_(True)
-    y = L.attention_seq_kv(p, x, cfg)[0] if kind == "attn" else L.mlp(p, x,
-                                                                      cfg)
+    D = cfg.d_model
+    x = torch.from_numpy(inp["x"][..., :D]).clone().requires_grad_(True)
+    y = run_module(kind, p, x, cfg)
     shards = port[0][key]["n"]
-    loss = (y * torch.from_numpy(inp["w_y"])).sum() / shards
+    loss = (y * torch.from_numpy(inp["w_y"][..., :D])).sum() / shards
     *grads, dx = torch.autograd.grad(loss, [*p.values(), x])
     for k, g in zip(p, grads):
         got = _whole_grad(port, key, k, g.shape)
