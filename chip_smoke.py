@@ -72,10 +72,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
     MiniCPM's [36, S, 64], Phi-3-Vision's [32, 577 + S, 96]),
     [32, 512, 96] and every per-rank shape of phase 27 (b)'s
     ``prefill_32k`` pod cells (``dryrun_prefill_flash_shapes``: 2 rows
-    of 32,768 positions a rank times its q heads, e.g. Qwen1.5-4B's [40,
-    32,768, 128] with its 20 heads whole, Qwen3-30B-A3B's [4, 32,768,
-    128] with 2 of 32; the plain version a batch-head at a time; in
-    bf16 alone, the type those cells run), f32
+    of 32,768 positions a rank times its q heads, e.g. Qwen1.5-4B's [4,
+    32,768, 128] with 2 of its 20 heads (a padded tile over 16),
+    Qwen3-30B-A3B's [4, 32,768, 128] with 2 of 32; the plain version a
+    batch-head at a time; in bf16 alone, the type those cells run), f32
     (the FMA kernel) and bf16 (the wgmma kernel); ``ssd_scan`` on [48, nc, Q, 64], ds 128, for
     (nc, Q) in {(1, 200), (16, 256)}, B and C per row (G = 48) and shared
     by the 48 heads (G = 1, the model's layout at batch 1), the grouped
@@ -392,9 +392,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
     32,768) whose estimate leaves a tenth of the card free, run on the
     card by ``run_cell(execute=True)`` at published width and depth with
     ``flash`` (``ssdk`` for Mamba-2), the rank's shards of the weights
-    gathered a layer at a time, its ``model`` group splitting the heads,
-    MLPs and vocabulary where ``model`` divides them, its cache cut to
-    its block of the slots: all nine must run, every run's cache and
+    gathered a layer at a time, its ``model`` group splitting the heads
+    and vocabulary (in padded tiles where ``model`` does not divide them)
+    and the MLPs, its cache cut to its block of the slots: all nine must
+    run, every run's cache and
     logits finite and of their shards' shapes, ``kernel_layers``
     launches of its kernel and nothing else, flash at a shape phase 10
     holds, its measured peak within [0.90, 1.10] of the estimate; each
@@ -409,9 +410,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
     estimate, ``train_launches_per_step`` launches of each flash kernel
     (forward twice a layer for the remat, dQ and dK/dV once) and nothing
     else, a finite loss, and state and metrics of their shards' shapes;
-    likewise under ``baseline+flash`` Qwen3, InternLM2-1.8B and
+    likewise under ``baseline+flash`` Qwen3, InternLM2-1.8B,
     RecurrentGemma-2B (26 layers, its RG-LRU blocks split over ``model``:
-    160 of the 2,560 channels a rank).
+    160 of the 2,560 channels a rank; 1 of its 10 heads) and MiniCPM-2B
+    (40 layers, 3 of its 36 heads and 7,673 of its 122,753 words a rank,
+    padded tiles over 16: flash at [48, 4,096, 64]), each cross-entropy
+    within 0.1 of ln(the rank's words) + sigma^2 D / 2.
     Then one rank's ``decode_32k`` pod step of Qwen1.5-4B, of
     Qwen3-30B-A3B at all 48 layers, of RecurrentGemma-2B and of Mamba-2
     780M under ``baseline`` (``DRYRUN_DECODE``): 8 rows and its 2,048 of
@@ -6043,11 +6047,12 @@ def attn_windows(cfg):
 def dryrun_train_split(arch, policy, shape=None):
     """How a ``DRYRUN_TRAIN`` cell (a ``shape`` cell: ``DRYRUN_TRAIN_SHAPE``
     by default) splits on the pod's mesh: (config, microbatches, a rank's
-    rows, its q heads, the vocabulary's blocks).
+    rows, its q heads, its words of the vocabulary).
     The rows are the global batch over the rules' batch axes; the heads
     and the vocabulary split over ``model`` (tensor parallelism) where
-    the rules' batch leaves ``model`` out and the leaf's spec keeps it
-    (``model`` divides the dimension: ``parallel.sharding.tp_group``)."""
+    the rules give them ``model`` and leave it out of the batch
+    (``parallel.sharding.tile_group``), into padded tiles where ``model``
+    does not divide them: rank 0's, the widest, which the dry run runs."""
     from repro_torch import configs as C
     from repro_torch.launch.dryrun import apply_policy, make_abstract_mesh
     from repro_torch.parallel import sharding as SH
@@ -6058,25 +6063,19 @@ def dryrun_train_split(arch, policy, shape=None):
     mesh = make_abstract_mesh()
     model = SH.mesh_shape(mesh)["model"]
 
-    def blocks(axes, shape, dim):
-        """The blocks along ``dim`` a rank's ``model`` group splits."""
-        if "model" in rules.get("batch"):
-            return 1
-        spec = SH.logical_sharding(axes, mesh, rules, shape).spec
-        return model if "model" in SH.spec_axes(spec, len(shape))[dim] else 1
+    def tile(logical, n):
+        """Rank 0's tile of a dimension of ``n`` named ``logical``."""
+        if "model" in rules.get("batch") or SH.logical_sharding(
+                (logical,), mesh, rules).spec != ("model",):
+            return n
+        return SH.tile(n, model, 0)[1]
 
-    def shard(axes, shape, dim):
-        spec = SH.logical_sharding(axes, mesh, rules, shape).spec
-        return shape[dim] // math.prod(SH.mesh_shape(mesh)[a] for a in
-                                       SH.spec_axes(spec, len(shape))[dim])
-
-    D, V = cfg.d_model, cfg.vocab_size
-    rows = shard(("batch", "seq"), (sp.global_batch, sp.seq_len), 0)
-    heads = cfg.num_heads // blocks(("embed", "heads", None),
-                                    (D, cfg.num_heads, cfg.head_dim), 1)
-    vocab = (blocks(("vocab", "embed"), (V, D), 0) if cfg.tie_embeddings
-             else blocks(("embed", "vocab"), (D, V), 1))
-    return cfg, mb, rows, heads, vocab
+    spec = SH.logical_sharding(("batch", "seq"), mesh, rules,
+                               (sp.global_batch, sp.seq_len)).spec
+    rows = sp.global_batch // math.prod(
+        SH.mesh_shape(mesh)[a] for a in SH.spec_axes(spec, 2)[0])
+    return (cfg, mb, rows, tile("heads", cfg.num_heads),
+            tile("vocab", cfg.vocab_size))
 
 
 def dryrun_train_flash_shapes(cells=None):
@@ -6155,13 +6154,6 @@ def recurrent_phrase(split):
     what = {"rglru": "RG-LRU channels", "ssd": "SSD heads"}
     return "".join(f", {n:,} of the {whole:,} {what[k]} a rank"
                    for k, (n, whole) in split.items())
-
-
-def bf16_only_flash_shapes():
-    """The flash shapes phases 10 and 14 hold in bf16 alone: those of the
-    ``DRYRUN_TRAIN_BF16`` cells."""
-    return tuple(dryrun_train_flash_shapes(
-        [c for c in DRYRUN_TRAIN if c[0] in DRYRUN_TRAIN_BF16]))
 
 
 def dryrun_prefill_ssd_shape(arch="mamba2_780m"):
@@ -6261,13 +6253,10 @@ def phase_model_kernels(np, torch, dev):
     t0 = time.perf_counter()
     rng = np.random.default_rng(20)
     errs = {"flash_fwd": 0.0, "ssd_scan": 0.0}
-    both = tuple(sh for sh in flash_fwd_shapes() + train_flash_shapes()
-                 if sh not in bf16_only_flash_shapes())
-    # phase 27 (b)'s prefill cells and DRYRUN_TRAIN_BF16's train cells run
-    # bf16: their shapes in bf16 alone (the plain version a batch-head at
-    # a time at 32,768 positions)
-    shapes = tuple(dict.fromkeys(both + bf16_only_flash_shapes()
-                                 + dryrun_prefill_flash_shapes()))
+    both = flash_fwd_shapes() + train_flash_shapes()
+    # phase 27 (b)'s prefill cells run bf16: their shapes in bf16 alone
+    # (the plain version a batch-head at a time at 32,768 positions)
+    shapes = tuple(dict.fromkeys(both + dryrun_prefill_flash_shapes()))
     for BH, S, hd, window in shapes:
         scale = 1.0 / float(np.sqrt(hd))
         dtypes = (torch.float32, torch.bfloat16) if (BH, S, hd, window) \
@@ -6628,7 +6617,8 @@ def phase_serving(np, torch, dev, smi):
 
 def flash_times(np, torch, dev, rng, shape):
     """``flash_fwd`` in bf16 at ``shape`` [BH, S, hd, window]: device and
-    wrapper ms, the plain version, the bound, and SDPA causal on the same
+    wrapper ms, the plain version (over chunks of batch-heads at long
+    sequences), the bound, and SDPA causal on the same
     inputs ([1, BH, S, hd]: the 4-D layout PyTorch's fused attention
     backends take); with a window also SDPA given the window as a boolean
     mask (the kernel's function; SDPA has no window argument), the causal
@@ -6644,9 +6634,14 @@ def flash_times(np, torch, dev, rng, shape):
     ms, wrap = kernel_times(
         torch, lambda: flash_fwd(q, k, v, scale=scale, window=window),
         "flash_fwd_wgmma_kernel", 20, require=True)
-    plain = cuda_ms(torch, lambda: flash_fwd_plain(q, k, v, scale=scale,
-                                                   window=window),
-                    3, repeats=3)
+    # the plain version over chunks of batch-heads whose [n, S, S] scores
+    # hold at most 2^30 elements: one call at 4,096 positions, one
+    # batch-head a call at 32,768
+    n = max(1, (1 << 30) // (S * S))
+    plain = cuda_ms(torch, lambda: [
+        flash_fwd_plain(q[i:i + n], k[i:i + n], v[i:i + n], scale=scale,
+                        window=window) for i in range(0, BH, n)],
+        3, repeats=3)
     o = flash_fwd(q, k, v, scale=scale, window=window)[0]
     q4, k4, v4 = q[None], k[None], v[None]
     lib = {"library_ms": cuda_ms(torch, lambda: sdpa(
@@ -6818,8 +6813,7 @@ def bwd_rel_l2(torch, a, b):
 def phase_bwd_kernels(np, torch, dev):
     """``flash_bwd_dq`` and ``flash_bwd_dkv`` at each of :func:`bwd_shapes`,
     q, k, v and dO drawn from the shape's own seed (:func:`shape_seed`),
-    first in f32, then in bf16 (bf16 alone at
-    :func:`bf16_only_flash_shapes`; the plain versions over chunks of
+    first in f32, then in bf16 (the plain versions over chunks of
     batch-heads, :func:`plain_rows`): f32 results against
     ``flash_bwd_plain`` within ``TOL_FLASH_BWD``; bf16 results against the
     plain version's bf16 twin ``flash_bwd_plain_bf16`` within ``TOL_FLASH_BWD_EMUL`` (and,
@@ -6842,9 +6836,7 @@ def phase_bwd_kernels(np, torch, dev):
         scale = 1.0 / float(np.sqrt(hd))
         kw = {"scale": scale, "window": window}
         rng = np.random.default_rng(shape_seed(70, shape))
-        dtypes = (torch.bfloat16,) if shape in bf16_only_flash_shapes() \
-            else (torch.float32, torch.bfloat16)
-        for dtype in dtypes:
+        for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do, o, lse = flash_bwd_inputs(np, torch, dev, rng, BH, S,
                                                    hd, window, dtype)
             delta = flash_delta(o, do)
@@ -7748,18 +7740,17 @@ DRYRUN_SSD_SHAPES = ((48, 128, 256, 64, 128, 1), (6, 128, 256, 64, 128, 2))
 # (b)'s train cells: one rank of the pod's train_4k step each, the state
 # kept sharded, at published width and depth; under baseline the rank's
 # model group splits attention's heads, the MLPs and the vocabulary
-# (tensor parallelism): 16 rows a rank, Qwen3's 2 q heads of 32 and
-# InternLM2's 1 of 16, their KV heads cut from the whole leaves;
-# RecurrentGemma-2B's RG-LRU channels and MLP split, its 10 heads whole
+# (tensor parallelism), in padded tiles where 16 does not divide them: 16
+# rows a rank, Qwen3's 2 q heads of 32 and InternLM2's 1 of 16, their KV
+# heads cut from the whole leaves; RecurrentGemma-2B's RG-LRU channels and
+# MLP split, 1 of its 10 heads; MiniCPM-2B's 3 of 36 heads and 7,673 of
+# 122,753 words
 DRYRUN_TRAIN = (("qwen3_moe_30b_a3b", "dp_fsdp+flash"),
                 ("qwen1_5_4b", "dp_fsdp+flash"),
                 ("qwen3_moe_30b_a3b", "baseline+flash"),
                 ("internlm2_1_8b", "baseline+flash"),
-                ("recurrentgemma_2b", "baseline+flash"))
-# the train cells whose flash shapes phases 10 and 14 hold in bf16 alone
-# (the cell runs bf16): RecurrentGemma-2B's [160, 4,096, 256], whose f32
-# plain backward would hold ~43 GiB of [BH, S, S] tensors at once
-DRYRUN_TRAIN_BF16 = ("recurrentgemma_2b",)
+                ("recurrentgemma_2b", "baseline+flash"),
+                ("minicpm_2b", "baseline+flash"))
 DRYRUN_TRAIN_SHAPE = "train_4k"
 # (b)'s train cells: |cross-entropy - random_head_ce| at most this; the
 # labels' logits average over 4,096 draws of sd sigma sqrt(D) (1.01 at
@@ -7923,7 +7914,7 @@ def dryrun_execute(torch, smi):
             if "peak_bytes" not in ex:
                 tried.append(f"{mk} {est / 2**30:.2f} GiB")
                 continue
-            cfg, _, B, heads, vocab = dryrun_train_split(arch, policy,
+            cfg, _, B, heads, words = dryrun_train_split(arch, policy,
                                                          DRYRUN_SHAPE)
             if mk != "pod":
                 B = C.SHAPES[DRYRUN_SHAPE].global_batch // 32
@@ -7951,9 +7942,11 @@ def dryrun_execute(torch, smi):
                       f"{rec['cell']}: ssd_scan launched at {shapes}, not "
                       f"among the held {DRYRUN_SSD_SHAPES}")
             lo, hi = DRYRUN_RATIO
-            tp = (f", {heads} of {cfg.num_heads} q heads and 1/{vocab} of "
-                  f"the vocabulary a rank (tensor parallelism)"
-                  if heads < cfg.num_heads or vocab > 1 else "")
+            q = f"{heads} of {cfg.num_heads} q heads and " if attends else ""
+            tp = (f", {q}{words:,} of {cfg.vocab_size:,} words a rank "
+                  f"(tensor parallelism)"
+                  if heads < cfg.num_heads or words < cfg.vocab_size
+                  else "")
             log(f"{rec['cell']} ({policy}, {B} x 32,768 a rank{tp}; {kernel} "
                 f"at {shapes}): estimate "
                 f"{est / 2**30:.3f} GiB (argument {m['argument_bytes']} B, "
@@ -8010,7 +8003,7 @@ def dryrun_decode(torch, smi):
               f"{rec['cell']}: cache or logits not finite or misshapen")
         check(not any(counts.values()),
               f"{rec['cell']}: launches {counts}, want none")
-        cfg, _, B, heads, vocab = dryrun_train_split(arch, "baseline",
+        cfg, _, B, heads, words = dryrun_train_split(arch, "baseline",
                                                      DRYRUN_DECODE_SHAPE)
         attn = (f"{heads} of {cfg.num_heads} q heads' rows of wo, "
                 if any(k in ATTN_KINDS for k in cfg.layer_kinds) else "")
@@ -8019,8 +8012,8 @@ def dryrun_decode(torch, smi):
         rec_split = recurrent_phrase(recurrent_split(
             arch, "baseline", DRYRUN_DECODE_SHAPE))
         log(f"{rec['cell']} (baseline, {cfg.num_layers} layers, {B} rows a "
-            f"rank, {attn}1/{vocab} of the vocabulary{rec_split} (tensor "
-            f"parallelism){slots}, the token "
+            f"rank, {attn}{words:,} of {cfg.vocab_size:,} words{rec_split} "
+            f"(tensor parallelism){slots}, the token "
             f"at position 32,767): estimate {est / 2**30:.3f} GiB (argument "
             f"{m['argument_bytes']} B, temp {m['temp_bytes']} B), measured "
             f"peak {ex['peak_bytes'] / 2**30:.3f} GiB ({ex['peak_bytes']} B), "
@@ -8035,22 +8028,23 @@ def dryrun_decode(torch, smi):
     return runs
 
 
-def random_head_ce(cfg, blocks=1):
+def random_head_ce(cfg, words=None):
     """The cross-entropy that seeded random weights give on labels drawn
     apart from them: the logits are h W with h the final norm's output
     (scale ones: rms 1, |h|^2 = D) and W's entries normal x sigma, the
     head's ``init_from_specs`` std (of the whole leaf), so each logit is
     normal of variance s^2 = sigma^2 D; E[ln sum_V exp] = ln V + s^2 / 2
     (V >> e^(s^2)), and the label's logit averages 0.  Where the rank's
-    ``model`` group splits the vocabulary into ``blocks`` (tensor
-    parallelism) and its sums over the group move nothing (the dry run's
-    ``DryOps``), the rank's log-sum-exp is over its own V / blocks
-    logits: ln(V / blocks) + s^2 / 2; the label's logit is the block's
-    where the label falls in it, else 0, and still averages 0."""
+    ``model`` group splits the vocabulary (tensor parallelism) and its
+    sums over the group move nothing (the dry run's ``DryOps``), the
+    rank's log-sum-exp is over its own tile of ``words`` logits (V / 16,
+    or a padded tile's ceil(V / 16)): ln(words) + s^2 / 2; the label's
+    logit is the tile's where the label falls in it, else 0, and still
+    averages 0."""
     D, V = cfg.d_model, cfg.vocab_size
     fan_in = V if cfg.tie_embeddings else D
     sigma = min(0.02, 1.0 / math.sqrt(fan_in))
-    return math.log(V / blocks) + sigma * sigma * D / 2
+    return math.log(words or V) + sigma * sigma * D / 2
 
 
 def dryrun_train(torch, smi):
@@ -8081,7 +8075,7 @@ def dryrun_train(torch, smi):
         est = m["argument_bytes"] + m["temp_bytes"]
         check("peak_bytes" in ex, f"{rec['cell']} ({policy}) did not run on "
                                   f"the card: {ex}")
-        cfg, mb, B, heads, vocab = dryrun_train_split(arch, policy)
+        cfg, mb, B, heads, words = dryrun_train_split(arch, policy)
         want = train_launches_per_step(cfg, mb)
         check(rec["attn_impl"] == "flash" and all(
             counts[k] == n == ex["launches"][k] for k, n in want.items())
@@ -8099,22 +8093,22 @@ def dryrun_train(torch, smi):
               f"14's shapes")
         n = rec["devices"]
         loss, ce, aux = (ex[k] * n for k in ("loss", "ce", "aux"))
-        want_ce = random_head_ce(cfg, vocab)
+        want_ce = random_head_ce(cfg, words)
         moe = (" (the AbstractMesh has no process group: the MoE takes its "
                "dense fallback, the experts gathered whole a layer at a "
                "time)" if cfg.num_experts else "")
         rs = recurrent_phrase(recurrent_split(arch, policy,
                                               DRYRUN_TRAIN_SHAPE))
-        tp = (f", {heads} of {cfg.num_heads} q heads and 1/{vocab} of the "
-              f"vocabulary a rank{rs} (tensor parallelism)"
-              if heads < cfg.num_heads or vocab > 1 else "")
+        tp = (f", {heads} of {cfg.num_heads} q heads and {words:,} of "
+              f"{cfg.vocab_size:,} words a rank{rs} (tensor parallelism)"
+              if heads < cfg.num_heads or words < cfg.vocab_size else "")
         log(f"{rec['cell']} ({policy}, {cfg.num_layers} layers, {B} x 4,096 "
             f"a rank, the state sharded{tp}){moe}: estimate "
             f"{est / 2**30:.3f} "
             f"GiB (argument {m['argument_bytes']} B, temp {m['temp_bytes']} "
             f"B), measured peak {ex['peak_bytes'] / 2**30:.3f} GiB "
             f"({ex['peak_bytes']} B), ratio {ex['ratio']:.4f}; the rank's "
-            f"loss {loss:.4f}: cross-entropy {ce:.4f} (ln(V / {vocab}) + "
+            f"loss {loss:.4f}: cross-entropy {ce:.4f} (ln({words}) + "
             f"sigma^2 D / 2 = {want_ce:.4f}, ln V "
             f"{math.log(cfg.vocab_size):.4f}), "
             f"router aux {aux:.4f} x weight {cfg.router_aux_weight} = "
@@ -8132,7 +8126,7 @@ def dryrun_train(torch, smi):
               f"outside [{lo}, {hi}]")
         check(abs(ce - want_ce) <= DRYRUN_CE_MARGIN,
               f"{rec['cell']}: the rank's cross-entropy {ce:.4f}, want "
-              f"{want_ce:.4f} +- {DRYRUN_CE_MARGIN} (ln(V / {vocab}) + "
+              f"{want_ce:.4f} +- {DRYRUN_CE_MARGIN} (ln({words}) + "
               f"sigma^2 D / 2)")
         runs[f"{arch} {policy}"] = rec
         for k in total:
@@ -8362,9 +8356,9 @@ def main():
     rank = dry_errs["ssd_scan_rank"]
     model_entries[1]["dryrun_rank"] = {**rank, "bound_ms": max(
         rank["flops"] / fp32, rank["bytes"] / bw) * 1e3}
-    # phase 27 (b)'s bf16 train shapes held in bf16 alone (phases 10, 14):
-    # each flash kernel's bound there
-    for shape in bf16_only_flash_shapes():
+    # each flash kernel's bound at the per-rank shapes of phase 27 (b)'s
+    # bf16 train cells (forward and backward) and prefill cells (forward)
+    for shape in dict.fromkeys(dryrun_train_flash_shapes()):
         work = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                         (flash_work(*shape), *bwd_work(*shape))))
         for entry in model_entries[:1] + bwd_entries:
@@ -8372,6 +8366,10 @@ def main():
             entry.setdefault("dryrun_train_bounds", []).append(
                 {"shape": list(shape), "bound_ms": max(
                     flops / bf16, nbytes / bw) * 1e3})
+    model_entries[0]["dryrun_bounds"] = [
+        {"shape": list(shape), "bound_ms": max(
+            flash_work(*shape)[0] / bf16, flash_work(*shape)[1] / bw) * 1e3}
+        for shape in dryrun_prefill_flash_shapes()]
     kernels += model_entries + bwd_entries
     for entry in kernels:
         if entry["name"] in ru["driver"]:

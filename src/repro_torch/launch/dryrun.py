@@ -432,15 +432,25 @@ def build_lowerable(arch: str, shape: str, mesh, policy: str = "baseline",
         return SH.sharded_leaves(xs, _map(lambda leaf: leaf.sharding, tree),
                                  DryOps(mesh, gather, tree))
 
+    def logits_out(p, lg):
+        """The rank's logits as their output leaf holds them: where the
+        head projects to a padded tile of a vocabulary that the leaf's
+        spec leaves whole (``model`` does not divide it), the group's
+        tiles gathered whole, as GSPMD replicates that output."""
+        tp = T.head_split(p, cfg)
+        if tp is not None and lg.shape[-1] != logits.shard_shape[-1]:
+            lg = tp.gather(lg, -1, cfg.vocab_size)
+        return logits.place(lg)
+
     if sp.kind == "prefill":
         batch = leaves(b_specs, b_axes, "batch")
         step = SRV.make_prefill_step(cfg)
 
         def prefill_program(gather, p, bt):
             with ctx:
-                c, lg = step(shards(p, params, gather),
-                             gather_tree(bt, batch, gather))
-                return place_tree(c, cache), logits.place(lg)
+                p = shards(p, params, gather)
+                c, lg = step(p, gather_tree(bt, batch, gather))
+                return place_tree(c, cache), logits_out(p, lg)
 
         return ctx, Lowerable("prefill", cfg, prefill_program, (params, batch),
                               (cache, logits), (), devices)
@@ -450,11 +460,11 @@ def build_lowerable(arch: str, shape: str, mesh, policy: str = "baseline",
 
     def decode_program(gather, p, c, tokens, pos):
         with ctx:
-            new, lg = step(shards(p, params, gather),
-                           shards(c, cache, gather),
+            p = shards(p, params, gather)
+            new, lg = step(p, shards(c, cache, gather),
                            gather(toks["tokens"], tokens),
                            gather(toks["pos"], pos))
-            return place_tree(new, cache), logits.place(lg)
+            return place_tree(new, cache), logits_out(p, lg)
 
     attends = any(k in T.ATTN_KINDS for k in cfg.layer_kinds)
     return ctx, Lowerable("decode", cfg, decode_program,

@@ -22,9 +22,12 @@ spec splits its product over ``model`` and the rules' batch leaves
 parallelism, ``parallel.sharding.tp_group``): each runs its batch shard
 through its block of attention's heads, of the MLPs' hidden units and of
 the vocabulary (its logits and the vocab-parallel cross-entropy), the
-partial outputs summed over the group; everything else (the RG-LRU's and
-the SSD's own leaves, a dimension ``model`` does not divide, rules that
-put the batch over ``model``) runs with a layer's weights whole.
+partial outputs summed over the group.  The heads and the vocabulary
+split so also where ``model`` does not divide them, in padded tiles cut
+from the weights gathered whole (``parallel.sharding.tile_group``).
+Everything else (the RG-LRU's and the SSD's own leaves where ``model``
+does not split them all, rules that put the batch over ``model``) runs
+with a layer's weights whole.
 
 Auto-resume through ``CheckpointManager.restore(placements=)``, the
 straggler tracker and the reference's checkpoint cadence and log lines.

@@ -16,17 +16,22 @@ weights gathered), where such a constraint changes no number
 (``parallel/sharding.py``).
 
 **Tensor parallelism.**  Where the sharded step hands attention or an
-MLP a rank's shards whose product ``model`` splits
-(``parallel.sharding.tp_group``), the module gathers them keeping
-``model`` and runs its own block: attention its ``H/tp`` heads (``wq``,
-``wo`` and their biases kept split; ``wk`` and ``wv`` kept split where
-``kv_heads`` splits too, else whole and cut to the KV heads its q heads
-read), the MLP its ``F/tp`` columns of ``w_up`` / ``w_gate`` and rows of
-``w_down``; the row-split product's partial output is summed over the
-group.  :data:`TP_WEIGHTS` are the leaves these modules gather
-themselves.  Decode (one token) gathers ``wq``, ``wk`` and ``wv`` whole
-and splits only ``wo``'s rows; where the KV cache's slots are split over
-``model`` it runs sequence-parallel (:func:`attention_decode`).
+MLP a rank's shards whose product ``model`` splits, the module gathers
+them keeping ``model`` and runs its own block: attention its tile of the
+heads wherever the rules give ``heads`` to ``model``
+(``parallel.sharding.tile_group``): ``ceil(H/tp)`` heads, fewer or none
+on trailing ranks where ``tp`` does not divide ``H`` (``wq``, ``wo`` and
+``wq_b`` kept split where their spec splits them, else cut from the
+whole leaves; ``wk`` and ``wv`` kept split where ``kv_heads`` splits
+too, else whole and cut to the KV heads its q heads read; an empty tile
+launches nothing and adds zeros), the MLP its ``F/tp`` columns of
+``w_up`` / ``w_gate`` and rows of ``w_down`` where ``model`` divides
+``F`` (``parallel.sharding.tp_group``); the row-split product's partial
+output is summed over the group.  :data:`TP_WEIGHTS` are the leaves
+these modules gather themselves.  Decode (one token) gathers ``wq``,
+``wk`` and ``wv`` whole and splits only ``wo``'s rows; where the KV
+cache's slots are split over ``model`` it runs sequence-parallel
+(:func:`attention_decode`).
 """
 
 from __future__ import annotations
@@ -46,6 +51,9 @@ Spec = tuple[tuple[int, ...], tuple[str | None, ...]]
 #: where tensor parallelism splits them
 MLP_WEIGHTS = ("w_up", "w_gate", "w_down")
 TP_WEIGHTS = ("wq", "wk", "wv", "wo", "wq_b", "wk_b", "wv_b") + MLP_WEIGHTS
+#: attention's leaves whose q heads tensor parallelism tiles, padded where
+#: ``model`` does not divide them, and the dimension of the heads in each
+HEAD_DIMS = {"wq": 1, "wq_b": 0, "wo": 0}
 
 NEG = -1e30         # the naive and flash paths mask with this, not -inf
 
@@ -195,21 +203,23 @@ def cache_kv(p, x, cfg, first: int):
 
 
 def _tp_heads(p, cfg, tp: SH.TPGroup):
-    """Attention's weights for this rank's ``H/tp`` q heads under ``tp``:
-    its blocks of ``wq``, ``wo`` and ``wq_b``; of ``wk``, ``wv`` and their
-    biases its blocks where ``kv_heads`` splits too, else the KV heads its
-    q heads read, cut from the whole leaves.  Returns (the weights, the
-    rank's head count, where its q heads start among those KV heads
-    repeated ``group_size`` times)."""
+    """Attention's weights for this rank's tile of the q heads under
+    ``tp`` (``TPGroup.block``: ``ceil(H/tp)`` heads, fewer or none on
+    trailing ranks where ``tp`` does not divide ``H``): its tiles of
+    ``wq``, ``wo`` and ``wq_b`` (:data:`HEAD_DIMS`); of ``wk``, ``wv``
+    and their biases its blocks where ``kv_heads`` splits too, else the
+    KV heads its q heads read, cut from the whole leaves.  Returns (the
+    weights, the rank's head count, where its q heads start among those
+    KV heads repeated ``group_size`` times)."""
     h0, hl = tp.block(cfg.num_heads)
     kv = [k for k in ("wk", "wv", "wk_b", "wv_b") if k in p]
-    w = {k: p[k].gather((SH.TP_AXIS,)) for k in ("wq", "wq_b", "wo")
-         if k in p}
+    w = {k: SH.tp_tile(p[k], d, tp) for k, d in HEAD_DIMS.items() if k in p}
     if SH.tp_group(p["wk"]) is not None:
         w.update({k: p[k].gather((SH.TP_AXIS,)) for k in kv})
         return w, hl, 0
     G = cfg.group_size
-    lo, hi = h0 // G, (h0 + hl - 1) // G + 1
+    lo = h0 // G
+    hi = (h0 + hl - 1) // G + 1 if hl else lo
     w.update({k: SH.gathered(p[k]).narrow(0 if k.endswith("_b") else 1, lo,
                                           hi - lo) for k in kv})
     return w, hl, h0 - lo * G
@@ -218,7 +228,8 @@ def _tp_heads(p, cfg, tp: SH.TPGroup):
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd")`` in ``o``'s type."""
     B, S, H, hd = o.shape
-    return o.reshape(B, S, H * hd) @ wo.reshape(H * hd, -1).to(o.dtype)
+    return o.reshape(B, S, H * hd) @ wo.reshape(H * hd, wo.shape[-1]).to(
+        o.dtype)
 
 
 def _mask(qpos: torch.Tensor, kpos: torch.Tensor, window: int) -> torch.Tensor:
@@ -269,12 +280,13 @@ def attention_seq_kv(p, x, cfg, *, window: int = 0):
     applies no ``attn_logit_softcap``.  ``naive`` and ``fused`` process Q
     in ``cfg.q_chunk`` blocks, bounding the live score tensor to
     ``[B, H, q_chunk, S]``.  Under tensor parallelism ``H`` is the rank's
-    ``H/tp`` heads (see the module), whose output is summed over the
-    group, and ``k_kv`` / ``v_kv`` hold the KV heads they read.
+    tile of the heads (see the module), whose output is summed over the
+    group, and ``k_kv`` / ``v_kv`` hold the KV heads they read; a rank
+    whose tile of the heads is empty launches no kernel.
     """
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
-    tp, first = SH.tp_group(p["wq"]), 0
+    tp, first = SH.tile_group(p["wq"], "heads"), 0
     if tp is not None:
         p, H, first = _tp_heads(p, cfg, tp)
     positions = torch.arange(S, device=x.device)[None, :]
@@ -291,6 +303,11 @@ def attention_seq_kv(p, x, cfg, *, window: int = 0):
         y = _out_proj(o, p["wo"])
         return (y if tp is None else tp.sum(y)), (k_kv, v_kv)
 
+    if H == 0:
+        # an empty tile of the heads: no launch, zeros [B, S, D] summed
+        # over the group, its weights' gathers still in the graph (their
+        # backward's collectives run on every rank)
+        return out(q + k + v)
     if cfg.attn_impl == "flash":
         bq = bk = min(max(128, cfg.q_chunk // 8), 512, S)
         qf = q.permute(0, 2, 1, 3).reshape(B * H, S, hd)
@@ -372,8 +389,9 @@ def attention_decode(p, x, cfg, cache, pos, *, window: int = 0):
     (:func:`_split_softmax`) and the partial ``p·v`` (f32) is summed
     over it.  Every rank computes every head's q and the new K and V
     from ``wq``, ``wk``, ``wv`` gathered whole (one token); where tensor
-    parallelism splits ``wo``, the rank projects its heads' rows and the
-    output is summed over the group.
+    parallelism tiles the heads, the rank projects its tile's rows of
+    ``wo`` (padded: possibly short or empty) and the output is summed
+    over the group.
     """
     B = x.shape[0]
     H, Kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -446,12 +464,12 @@ def attention_decode(p, x, cfg, cache, pos, *, window: int = 0):
         o = seq.sum(torch.einsum("bkgt,btkd->bkgd", pr.float(),
                                  v.float())).to(x.dtype)
     o = o.reshape(B, 1, H, hd)
-    tp = SH.tp_group(p["wo"])
+    tp = SH.tile_group(p["wo"], "heads")
     if tp is None:
         return _out_proj(o, SH.gathered(p["wo"])), cache
     h0, hl = tp.block(H)
     return tp.sum(_out_proj(o.narrow(2, h0, hl),
-                            p["wo"].gather((SH.TP_AXIS,)))), cache
+                            SH.tp_tile(p["wo"], 0, tp))), cache
 
 
 # ---------------------------------------------------------------------------

@@ -75,7 +75,7 @@ def _gates(p, xb, tp=None):
     [..., w] f32); under ``tp`` the rank's channels of each, from its
     block of ``xb`` gathered over the group."""
     xf = xb.float()
-    xw = xf if tp is None else tp.gather(xf, -1)
+    xw = xf if tp is None else tp.gather(xf, -1, p["wa_gate"].shape[0])
     r = torch.sigmoid(xw @ p["wa_gate"].float() + p["a_gate_b"].float())
     i = torch.sigmoid(xw @ p["wi_gate"].float() + p["i_gate_b"].float())
     log_a = -_C_FACTOR * r * _softplus(p["lam"].float())

@@ -180,7 +180,7 @@ def ssd_seq_cached(p, x, cfg, *, want_cache: bool = False, tp=None):
         cw = cfg.ssm_conv
         xt = xs[:, -(cw - 1):]
         if tp is not None:
-            xt = tp.gather(xt, -1)
+            xt = tp.gather(xt, -1, cfg.d_inner)
         raw = torch.cat([xt, Bp[:, -(cw - 1):], Cp[:, -(cw - 1):]], dim=-1)
         pad = max(0, (cw - 1) - S)
         if pad:
@@ -273,7 +273,8 @@ def ssd_decode(p, x, cfg, cache, tp=None):
     else:
         # the whole window moves on, x's column gathered over the group;
         # the conv runs on the rank's x columns and all of B and C
-        conv_in = torch.cat([tp.gather(xs, -1), Bp, Cp], dim=-1)
+        conv_in = torch.cat([tp.gather(xs, -1, cfg.d_inner), Bp, Cp],
+                            dim=-1)
         new_conv = torch.cat([conv.to(x.dtype), conv_in],
                              dim=1)[:, -conv.shape[1]:]
         nh //= tp.size

@@ -21,12 +21,14 @@ the head where they are read, so that outside the running block a rank
 holds only its shards.  Where ``model`` splits a product (tensor
 parallelism, ``parallel.sharding.tp_group``), attention, the MLPs and
 the MoE's shared expert gather their leaves keeping ``model``
-(``layers.py``), and so do the RG-LRU and the SSD mixer where ``model``
-splits every one of their own leaves (``rglru.tp_split``,
-``ssm.tp_split``, asked once a block by :func:`_gather_block`, which
-hands the block its group; else they are gathered whole and run whole); the head
-projects to the rank's block of the vocabulary, f32 logits ``[B, S,
-V/tp]`` (:func:`head_split`; ``train/step.py``'s ``cross_entropy`` takes
+(``layers.py``; attention's q heads in padded tiles where ``model`` does
+not divide them, ``parallel.sharding.tile_group``), and so do the RG-LRU
+and the SSD mixer where ``model`` splits every one of their own leaves
+(``rglru.tp_split``, ``ssm.tp_split``, asked once a block by
+:func:`_gather_block`, which hands the block its group; else they are
+gathered whole and run whole); the head projects to the rank's tile of
+the vocabulary, f32 logits ``[B, S, ceil(V/tp)]`` or fewer on trailing
+ranks (:func:`head_split`; ``train/step.py``'s ``cross_entropy`` takes
 it), so that no rank holds f32 logits over the whole vocabulary.  The
 embedding, the norms and the SSD's B and C leaves are gathered whole.
 Whole tensors run the same code, op for op.
@@ -358,7 +360,8 @@ def _gather_block(p: dict, kind: str, cache=None):
     rank's shards (``parallel.sharding.ShardedLeaf``), but those a module
     gathers itself (the experts' weights: the MoE keeps them split over
     ``model``; attention's, the MLP's and the shared expert's where
-    ``model`` splits their products) and the RG-LRU's or SSD's own where
+    ``model`` splits their products, attention's q-head leaves also where
+    it tiles them padded) and the RG-LRU's or SSD's own where
     the block runs split, gathered keeping ``model``; whole tensors pass
     unchanged.  ``tp`` is the group over which that block runs split, its
     module's ``tp_split`` of its leaves and decode ``cache``, decided
@@ -366,18 +369,24 @@ def _gather_block(p: dict, kind: str, cache=None):
     mod = _SPLIT_BLOCKS.get(kind)
     tp = mod.tp_split(p, cache) if mod is not None else None
     own = mod.TP_WEIGHTS if tp is not None else ()
+
+    def module_gathers(k, v):
+        return k in M.EXPERT_WEIGHTS or k in _TP_WEIGHTS and (
+            SH.tp_group(v) is not None or k in L.HEAD_DIMS
+            and SH.tile_group(v, "heads") is not None)
+
     return {k: v.gather((SH.TP_AXIS,)) if k in own else v
-            if k in M.EXPERT_WEIGHTS or (
-                k in _TP_WEIGHTS and SH.tp_group(v) is not None)
-            else SH.gathered(v) for k, v in p.items()}, tp
+            if module_gathers(k, v) else SH.gathered(v)
+            for k, v in p.items()}, tp
 
 
 def head_split(params: dict, cfg: ModelConfig):
     """The group (``parallel.sharding.TPGroup``) whose ranks each project
-    to their block of the vocabulary: where ``model`` splits the head
-    (``lm_head``, or the tied ``tok_embed``); else None."""
-    return SH.tp_group(params["tok_embed" if cfg.tie_embeddings
-                              else "lm_head"])
+    to their padded tile of the vocabulary (``TPGroup.block``), where the
+    rules split ``vocab`` over ``model`` (``parallel.sharding.tile_group``
+    of ``lm_head``, or of the tied ``tok_embed``); else None."""
+    return SH.tile_group(params["tok_embed" if cfg.tie_embeddings
+                                else "lm_head"], "vocab")
 
 
 def _maybe_remat(fn, cfg: ModelConfig):
@@ -410,7 +419,7 @@ def _maybe_remat(fn, cfg: ModelConfig):
 def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train",
             cache: dict | None = None, pos=None):
     """Run the stack.  Returns (logits f32, new_cache, aux_loss); the
-    logits over the rank's block of the vocabulary where
+    logits over the rank's tile of the vocabulary where
     :func:`head_split` gives a group.
 
     inputs: {"tokens": [B,S] integers, optional "ext_embed": [B,L,D]}.
@@ -486,7 +495,8 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train"
                 new_cache[f"t{ti}_{k}"] = SH.local_of(v)
 
     x = L.rmsnorm(x, SH.gathered(params["final_scale"]), cfg.norm_eps)
-    head = (SH.tp_gathered(params["tok_embed"]).T if cfg.tie_embeddings
-            else SH.tp_gathered(params["lm_head"]))
+    tp = head_split(params, cfg)
+    head = (SH.tp_tile(params["tok_embed"], 0, tp).T if cfg.tie_embeddings
+            else SH.tp_tile(params["lm_head"], 1, tp))
     logits = x.float() @ head.to(x.dtype).float()
     return logits, (new_cache if new_cache else None), aux_total

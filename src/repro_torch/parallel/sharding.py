@@ -38,9 +38,14 @@ reductions.  The ``jax`` version shims (``make_mesh``'s ``axis_types``,
 ``heads``, ``kv_heads``, ``ffn`` and ``vocab`` rules): where a leaf's
 stored spec splits its product's dimension over a ``model`` axis of more
 than one rank and the rules' batch leaves ``model`` out, the module that
-uses it gathers it keeping ``model`` (:func:`tp_group`,
-:func:`tp_gathered`) and sums its partial products over the group
-(:class:`TPGroup`), through the leaf's :class:`MeshOps`.  A block that
+uses it gathers it keeping ``model`` (:func:`tp_group`) and sums its
+partial products over the group (:class:`TPGroup`), through the leaf's
+:class:`MeshOps`.  Attention's q heads and the head's vocabulary split
+wherever the rules give them ``model`` (:func:`tile_group`), also where
+``model`` does not divide them and the stored spec dropped it: each rank
+computes its padded tile (:func:`tile`, GSPMD's tiling of the
+reference's activations there; trailing tiles short or empty), cut from
+the leaf gathered whole (:func:`tp_tile`).  A block that
 splits all its leaves at once asks :func:`block_group`; where the rank
 holds a block of an activation that it needs whole, it gathers it over
 the group (:meth:`TPGroup.gather`), and a norm over such a dimension
@@ -276,6 +281,16 @@ def _placements(spec: tuple, mesh) -> tuple:
         for j in idx:
             out[j] = Shard(i)
     return tuple(out)
+
+
+def tile(n: int, blocks: int, idx: int) -> tuple[int, int]:
+    """(start, width) of tile ``idx`` of a dimension of ``n`` cut into
+    ``blocks``: GSPMD's tiling of an uneven split, tiles of ``c =
+    ceil(n / blocks)`` from the start, so that trailing tiles are short
+    or empty.  An even split's blocks."""
+    c = -(-n // blocks)
+    start = min(n, idx * c)
+    return start, min(n, start + c) - start
 
 
 @dataclass(frozen=True)
@@ -703,18 +718,31 @@ class TPGroup:
     index: int
 
     def block(self, n: int) -> tuple[int, int]:
-        """(start, width) of this rank's block of a dimension of ``n``."""
-        w = n // self.size
-        return self.index * w, w
+        """(start, width) of this rank's padded tile of a dimension of
+        ``n`` (:func:`tile`): its block where the group divides ``n``,
+        else possibly short or empty."""
+        return tile(n, self.size, self.index)
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the group (:class:`AllReduce`)."""
         return AllReduce.apply(x, self.ops, TP_AXIS, False)
 
-    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """The group's blocks of ``x`` concatenated along ``dim`` in rank
-        order: the whole of an activation split over the group."""
-        return AllGather.apply(x, self.ops, TP_AXIS, dim)
+    def gather(self, x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """The group's tiles of ``x`` concatenated along ``dim`` in rank
+        order: the whole of an activation of ``n`` along ``dim`` split
+        over the group (:meth:`block`).  Each tile is padded with zeros
+        to the widest for the all-gather, and the padding cut after; a
+        tile of another width than this rank's of ``n`` is refused."""
+        w, c = x.shape[dim], -(-n // self.size)
+        if w != self.block(n)[1]:
+            raise ValueError(f"a tile of {w} along dimension {dim} is not "
+                             f"rank {self.index}'s of {n} over {self.size}")
+        if w < c:
+            pad = list(x.shape)
+            pad[dim] = c - w
+            x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+        y = AllGather.apply(x, self.ops, TP_AXIS, dim)
+        return y if c * self.size == n else y.narrow(dim, 0, n)
 
     def rmsnorm(self, x: torch.Tensor, scale: torch.Tensor,
                 eps: float) -> torch.Tensor:
@@ -755,19 +783,43 @@ def tp_group(x) -> TPGroup | None:
     return _model_group(x.ops)
 
 
+def tile_group(x, logical: str) -> TPGroup | None:
+    """The group whose ranks each compute their padded tile
+    (:meth:`TPGroup.block`) of a dimension named ``logical`` of ``x``'s
+    product: where ``x`` is a :class:`ShardedLeaf`, the current rules give
+    ``logical`` a ``model`` axis of more than one rank alone and their
+    batch leaves ``model`` out.  Unlike :func:`tp_group` it holds where
+    ``model`` does not divide the dimension and the stored spec dropped
+    it: the reference's activations split there all the same, padded by
+    GSPMD.  None elsewhere."""
+    if not isinstance(x, ShardedLeaf):
+        return None
+    rules = current_rules()
+    if TP_AXIS in rules.get("batch") or _spec_for(
+            (logical,), x.ops.mesh, rules) != (TP_AXIS,):
+        return None
+    return _model_group(x.ops)
+
+
+def tp_tile(x, dim: int, tp: TPGroup | None) -> torch.Tensor:
+    """``x``'s rank's tile along ``dim`` under ``tp`` (:func:`tile_group`):
+    its block gathered keeping ``model`` where the stored spec splits
+    ``dim`` over it, else cut from ``x`` gathered whole (the cut's
+    backward pads the gradient with zeros, which the gather's backward
+    sums over ``model``).  Without ``tp``, ``x`` gathered whole."""
+    if tp is None:
+        return gathered(x)
+    if x.axes(dim) == (TP_AXIS,):
+        return x.gather((TP_AXIS,))
+    whole = gathered(x)
+    return whole.narrow(dim, *tp.block(whole.shape[dim]))
+
+
 def _model_group(ops: MeshOps) -> TPGroup | None:
     """The ranks along ``model`` of ``ops``'s mesh, where it has more than
     one."""
     n = ops.sizes.get(TP_AXIS, 1)
     return TPGroup(ops, n, ops.coordinate()[TP_AXIS]) if n > 1 else None
-
-
-def tp_gathered(x):
-    """``x`` gathered keeping ``model`` where :func:`tp_group` splits its
-    product (the rank's block along that dimension), else whole."""
-    if tp_group(x) is not None:
-        return x.gather((TP_AXIS,))
-    return gathered(x)
 
 
 def split_group(x, dim: int) -> TPGroup | None:

@@ -11,7 +11,8 @@ mesh's ``sharding_context``, gathered a layer at a time with the products
 split over ``model`` as in the sharded train step
 (``models/transformer.py``).  A prefill's cache then holds the rank's
 block of each layer's slots where the rules' ``cache_seq`` splits them,
-and its logits the rank's block of the vocabulary where the head splits;
+and its logits the rank's tile of the vocabulary where the head splits
+(padded: a trailing rank's may be short or empty);
 decode takes the cache as ``ShardedLeaf`` s of its blocks and returns
 the blocks, updated in place."""
 

@@ -26,11 +26,13 @@ IGNORE = -100
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  z_weight: float = 1e-4, vocab: SH.TPGroup | None = None):
+                  z_weight: float = 1e-4, vocab: SH.TPGroup | None = None,
+                  vocab_size: int | None = None):
     """logits [B,S,V] f32, labels [B,S] integers (IGNORE = masked).
     Returns (loss with the z-loss, mean cross-entropy).  With ``vocab``
-    (``parallel.sharding.TPGroup``) the logits are this rank's block of
-    the vocabulary, the group's blocks in rank order (vocab-parallel,
+    (``parallel.sharding.TPGroup``) the logits are this rank's padded
+    tile (``TPGroup.block``) of a vocabulary of ``vocab_size``, the
+    group's tiles in rank order (vocab-parallel,
     :class:`_VocabParallel`); the mask and denominator are the same."""
     labels = torch.as_tensor(labels, device=logits.device)
     mask = (labels != IGNORE).float()
@@ -39,7 +41,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         lse = torch.logsumexp(logits, dim=-1)
         picked = torch.gather(logits, -1, labels_c[..., None])[..., 0]
     else:
-        lse, picked = _VocabParallel.apply(logits, labels_c, vocab)
+        if vocab_size is None:
+            raise ValueError("a vocab-parallel cross-entropy needs the "
+                             "vocabulary's size")
+        lse, picked = _VocabParallel.apply(logits, labels_c, vocab,
+                                           vocab_size)
     ll = picked - lse
     denom = torch.clamp(mask.sum(), min=1.0)
     ce = -(ll * mask).sum() / denom
@@ -49,29 +55,35 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 class _VocabParallel(torch.autograd.Function):
     """(log-sum-exp over the whole vocabulary, the label's logit) from
-    this rank's block of the logits: the block's max taken over the group
+    this rank's tile of the logits: the tile's max taken over the group
     (it shifts the exponentials and has no gradient: the log-sum-exp's
     derivative is the softmax whatever the shift), the sum of exp(logit
     - max) summed over the group, and the label's logit where the label
-    falls in the block, 0 elsewhere, summed over it.  One function, so
-    that the logits' gradient is one tensor: exp(logit - max) (kept from
-    the forward, the only tensor of the block's size it keeps) times the
-    cotangent of the sum, plus the label's cotangent at its place, where
-    autograd would keep the logits and add two gradients.  Each sum over
-    the group has its exact adjoint in the backward, the same sum of the
-    cotangents."""
+    falls in the tile, 0 elsewhere, summed over it.  An empty tile (a
+    trailing rank of a padded split) adds a max of -inf, a sum of 0 and
+    no label.  One function, so that the logits' gradient is one tensor:
+    exp(logit - max) (kept from the forward, the only tensor of the
+    tile's size it keeps) times the cotangent of the sum, plus the
+    label's cotangent at its place, where autograd would keep the logits
+    and add two gradients.  Each sum over the group has its exact
+    adjoint in the backward, the same sum of the cotangents."""
 
     @staticmethod
-    def forward(ctx, logits, labels, tp):
-        start, w = tp.block(logits.shape[-1] * tp.size)
-        mx = tp.max_(logits.amax(dim=-1))
+    def forward(ctx, logits, labels, tp, vocab_size):
+        start, w = tp.block(vocab_size)
+        if logits.shape[-1] != w:
+            raise ValueError(f"logits over {logits.shape[-1]} words, not "
+                             f"rank {tp.index}'s tile of {w} of "
+                             f"{vocab_size}")
+        mx = tp.max_(logits.amax(dim=-1) if w else logits.new_full(
+            logits.shape[:-1], float("-inf")))
         e = logits.sub(mx[..., None]).exp_()
         total = tp.ops.sum_over(e.sum(dim=-1), (SH.TP_AXIS,))
         local = labels - start
         inside = (local >= 0) & (local < w)
         local = torch.where(inside, local, 0)[..., None]
-        got = torch.where(inside, torch.gather(logits, -1, local)[..., 0],
-                          0.0)
+        got = (torch.where(inside, torch.gather(logits, -1, local)[..., 0],
+                           0.0) if w else torch.zeros_like(mx))
         ctx.tp = tp
         ctx.save_for_backward(e, total, local, inside)
         return (torch.log(total) + mx,
@@ -84,8 +96,10 @@ class _VocabParallel(torch.autograd.Function):
         g_e = sum_over(g_lse / total, (SH.TP_AXIS,))
         g_label = sum_over(g_label.clone(), (SH.TP_AXIS,))
         g = e * g_e[..., None]
-        g.scatter_add_(-1, local, torch.where(inside, g_label, 0.0)[..., None])
-        return g, None, None
+        if g.shape[-1]:
+            g.scatter_add_(-1, local,
+                           torch.where(inside, g_label, 0.0)[..., None])
+        return g, None, None, None
 
 
 def make_loss_fn(cfg: ModelConfig):
@@ -93,7 +107,8 @@ def make_loss_fn(cfg: ModelConfig):
         inputs = {k: v for k, v in batch.items() if k != "labels"}
         logits, _, aux = T.forward(params, inputs, cfg, mode="train")
         loss, ce = cross_entropy(logits, batch["labels"],
-                                 vocab=T.head_split(params, cfg))
+                                 vocab=T.head_split(params, cfg),
+                                 vocab_size=cfg.vocab_size)
         loss = loss + cfg.router_aux_weight * aux
         return loss, {"ce": ce, "aux": aux}
     return loss_fn

@@ -108,12 +108,16 @@ def test_run_cell_matches_reference(reference, cell):
 # the port's step took 487.85 and 58.01 GiB under dp_fsdp; under
 # baseline, with the products whole, Qwen3 took 200.13 and InternLM2
 # 121.18; split over model 32.82 and 13.19; RecurrentGemma-2B with its
-# RG-LRU blocks whole 79.78, split 40.43)
+# RG-LRU blocks whole 79.78, split 40.43; with the heads and the
+# vocabulary whole where 16 does not divide them, MiniCPM-2B 163.84 and
+# Mamba-2 71.79, in padded tiles 21.11 and 12.07)
 SHARDED_TRAIN = {("qwen3_moe_30b_a3b", "dp_fsdp"): 24.0,
                  ("qwen1_5_4b", "dp_fsdp"): 15.0,
                  ("qwen3_moe_30b_a3b", "baseline"): 36.0,
                  ("internlm2_1_8b", "baseline"): 15.0,
-                 ("recurrentgemma_2b", "baseline"): 45.0}
+                 ("recurrentgemma_2b", "baseline"): 45.0,
+                 ("minicpm_2b", "baseline"): 23.5,
+                 ("mamba2_780m", "baseline"): 13.5}
 
 
 @pytest.mark.parametrize("arch,policy", list(SHARDED_TRAIN))
@@ -178,13 +182,19 @@ TINY = {"tiny_train": ShapeSpec("tiny_train", "train", 64, 8),
         "tiny_prefill": ShapeSpec("tiny_prefill", "prefill", 64, 8),
         "tiny_decode": ShapeSpec("tiny_decode", "decode", 64, 8)}
 MESH = AbstractMesh((2, 2), ("data", "model"))
+# the reduced configs' overrides: MiniCPM-2B at 3 heads and 511 words,
+# which the mesh's model pair tiles padded (2 + 1 heads, 256 + 255 words)
+TINY_OVER = {"minicpm_2b": {"num_heads": 3, "num_kv_heads": 3,
+                            "vocab_size": 511}}
 
 
 @pytest.fixture
 def tiny(monkeypatch):
-    """Reduced configs and the ``TINY`` shapes in ``repro_torch.configs``."""
+    """Reduced configs (with ``TINY_OVER``) and the ``TINY`` shapes in
+    ``repro_torch.configs``."""
     full = PC.get_config
-    monkeypatch.setattr(PC, "get_config", lambda arch: reduced(full(arch)))
+    monkeypatch.setattr(PC, "get_config", lambda arch: reduced(
+        full(arch)).with_(**TINY_OVER.get(arch, {})))
     for name, sp in TINY.items():
         monkeypatch.setitem(PC.SHAPES, name, sp)
 
@@ -215,7 +225,8 @@ ESTIMATE_CELLS = [
     ("recurrentgemma_2b", "tiny_train"), ("internlm2_1_8b", "tiny_train"),
     ("qwen3_moe_30b_a3b", "tiny_prefill"), ("qwen3_moe_30b_a3b", "tiny_decode"),
     ("recurrentgemma_2b", "tiny_decode"), ("minicpm_2b", "tiny_decode"),
-    ("smollm_360m", "tiny_decode", "dp_fsdp"), ("mamba2_780m", "tiny_train")]
+    ("smollm_360m", "tiny_decode", "dp_fsdp"), ("mamba2_780m", "tiny_train"),
+    ("minicpm_2b", "tiny_train"), ("minicpm_2b", "tiny_prefill")]
 
 
 @pytest.mark.parametrize("cell", ESTIMATE_CELLS,
@@ -234,10 +245,13 @@ def test_meta_estimate_equals_a_cpu_run(tiny, cell):
     layer's cache to the rank's block of the slots (Qwen3's from KV heads
     cut under tensor parallelism) and of the RG-LRU's channels and the
     SSD's heads, decode takes the cache's blocks and runs attention
-    sequence-parallel (RecurrentGemma's local ring of 8, MiniCPM's heads
-    and vocabulary whole, ``dp_fsdp``'s products whole) and the RG-LRU
-    and SSD on their blocks, the SSD's conv window gathered whole but its
-    rows and cut back."""
+    sequence-parallel (RecurrentGemma's local ring of 8, ``dp_fsdp``'s
+    products whole) and the RG-LRU and SSD on their blocks, the SSD's
+    conv window gathered whole but its rows and cut back.  MiniCPM's 3
+    heads and 511 words run in padded tiles in each mode (the rank's 2
+    heads and 256 words, cut from the leaves gathered whole; a serving
+    cell's logits gathered whole over the group, as its output leaf
+    holds them)."""
     arch, shape, policy = (*cell, "baseline")[:3]
     low, _, on_meta = _measure(arch, shape, "meta", policy)
     low_c, outs, on_cpu = _measure(arch, shape, "cpu", policy)
@@ -263,13 +277,15 @@ def test_seeded_train_cell_cross_entropy(tiny, arch):
     _check_cross_entropy(arch, "dp_fsdp")
 
 
-@pytest.mark.parametrize("arch", ["smollm_360m", "qwen3_moe_30b_a3b"])
+@pytest.mark.parametrize("arch", ["smollm_360m", "qwen3_moe_30b_a3b",
+                                  "minicpm_2b"])
 def test_seeded_tp_train_cell_cross_entropy(tiny, arch):
     """:func:`test_seeded_train_cell_cross_entropy` under ``baseline``:
     the (2, 2) mesh's ``model`` splits the head's vocabulary in two and
     the dry run's sums over the group move nothing, so the rank's
-    cross-entropy is over its 256 logits, ln(V / 2) + sigma^2 D / 2 (the
-    head tied for SmolLM, ``lm_head`` for Qwen3)."""
+    cross-entropy is over its 256 logits, ln(256) + sigma^2 D / 2 (the
+    head tied for SmolLM and MiniCPM, ``lm_head`` for Qwen3; MiniCPM's
+    511 words in padded tiles of 256 and 255, rank 0's the first)."""
     _check_cross_entropy(arch, "baseline")
 
 
@@ -279,8 +295,9 @@ def _check_cross_entropy(arch, policy):
     low, outs, _ = _measure(arch, "tiny_train", "cpu", policy)
     mets = {k: float(v) * low.devices for k, v in outs[1].items()
             if k in ("loss", "ce", "aux")}
-    blocks = MESH.shape["model"] if policy == "baseline" else 1
-    want = chip_smoke.random_head_ce(low.cfg, blocks)
+    V = low.cfg.vocab_size
+    words = -(-V // MESH.shape["model"]) if policy == "baseline" else V
+    want = chip_smoke.random_head_ce(low.cfg, words)
     assert abs(mets["ce"] - want) <= chip_smoke.DRYRUN_CE_MARGIN, (mets, want)
     z = mets["loss"] - mets["ce"] - low.cfg.router_aux_weight * mets["aux"]
     assert 0 < z < 1e-4 * (want + 1) ** 2, (mets, z)
@@ -290,23 +307,25 @@ def _check_cross_entropy(arch, policy):
 def test_train_cells_flash_shapes_are_held_by_phases_10_and_14():
     """Phase 27 (b)'s train cells give flash one rank's rows of 4,096
     tokens a microbatch: under ``dp_fsdp`` one row of Qwen3-30B-A3B's 32
-    heads and of Qwen1.5-4B's 20 at head_dim 128; under ``baseline`` 16
-    rows of the rank's heads (tensor parallelism over 16 ranks): Qwen3's
-    2, InternLM2-1.8B's 1 and RecurrentGemma-2B's 10 (which 16 does not
-    divide) at head_dim 256 with its window.  All are among phase 10's
-    forward shapes and phase 14's backward shapes, where the kernels are
-    held to their plain versions; RecurrentGemma's in bf16 alone."""
+    heads and of Qwen1.5-4B's 20 at head_dim 128, and the whole
+    vocabulary; under ``baseline`` 16 rows of the rank's tile of the
+    heads and its tile of the vocabulary (tensor parallelism over 16
+    ranks, padded where 16 does not divide them: rank 0's, the widest):
+    Qwen3's 2 heads, InternLM2-1.8B's 1, RecurrentGemma-2B's 1 of 10 at
+    head_dim 256 with its window, MiniCPM-2B's 3 of 36 and 7,673 of its
+    122,753 words.  All are among phase 10's forward shapes and phase
+    14's backward shapes, where the kernels are held to their plain
+    versions."""
     import chip_smoke
 
     got = chip_smoke.dryrun_train_flash_shapes()
     assert got == [(32, 4096, 128, 0), (20, 4096, 128, 0),
                    (32, 4096, 128, 0), (16, 4096, 128, 0),
-                   (160, 4096, 256, 2048)]
+                   (16, 4096, 256, 2048), (48, 4096, 64, 0)]
     assert [chip_smoke.dryrun_train_split(*c)[2:] for c in
-            chip_smoke.DRYRUN_TRAIN] == [(1, 32, 1), (1, 20, 1),
-                                         (16, 2, 16), (16, 1, 16),
-                                         (16, 10, 16)]
-    assert chip_smoke.bf16_only_flash_shapes() == ((160, 4096, 256, 2048),)
+            chip_smoke.DRYRUN_TRAIN] == [
+        (1, 32, 151936), (1, 20, 151936), (16, 2, 9496), (16, 1, 5784),
+        (16, 1, 16000), (16, 3, 7673)]
     for shape in got:
         assert shape in chip_smoke.train_flash_shapes()
         assert shape in chip_smoke.bwd_shapes()
@@ -369,19 +388,19 @@ def test_prefill_ssd_shape_is_held_by_phase_27():
 
 def test_prefill_cells_flash_shapes_are_held_by_phase_10():
     """Phase 27 (b)'s ``prefill_32k`` pod cells give flash one rank's 2
-    rows of 32,768 positions times its q heads: split over ``model``
-    where it divides them (InternLM2-1.8B 1 of 16, Qwen3-30B-A3B,
-    MusicGen-large and Phi-3-Vision 2 of 32), whole where it does not
-    (SmolLM-360M's 15, RecurrentGemma-2B's 10 with its window,
-    Qwen1.5-4B's 20, MiniCPM-2B's 36).  Phase 10 holds every one, with
-    the plain version a batch-head at a time, which equals one call."""
+    rows of 32,768 positions times its tile of the q heads over
+    ``model``'s 16 ranks: InternLM2-1.8B 1 of 16, Qwen3-30B-A3B,
+    MusicGen-large and Phi-3-Vision 2 of 32, and in padded tiles
+    SmolLM-360M 1 of 15, RecurrentGemma-2B 1 of 10 with its window,
+    Qwen1.5-4B 2 of 20 and MiniCPM-2B 3 of 36.  Phase 10 holds every
+    one, with the plain version a batch-head at a time, which equals one
+    call."""
     import chip_smoke
 
     got = chip_smoke.dryrun_prefill_flash_shapes()
-    assert got == ((30, 32768, 64, 0), (20, 32768, 256, 2048),
+    assert got == ((2, 32768, 64, 0), (2, 32768, 256, 2048),
                    (4, 32768, 128, 0), (2, 32768, 128, 0),
-                   (40, 32768, 128, 0), (72, 32768, 64, 0),
-                   (4, 32768, 64, 0), (4, 32768, 96, 0))
+                   (6, 32768, 64, 0), (4, 32768, 64, 0), (4, 32768, 96, 0))
     assert len(chip_smoke.DRYRUN_MUST_RUN) == 9
     assert "llama4_maverick_400b_a17b" not in chip_smoke.DRYRUN_MUST_RUN
     g = torch.Generator().manual_seed(3)

@@ -6,13 +6,16 @@
 steps on the same card (on the ``model`` and ``resident`` meshes the
 products split over ``model``: tensor parallelism), and one sharded
 step's loss and gradients at published width (``PUBLISHED``:
-InternLM2-1.8B at 4 layers, and RecurrentGemma-2B and Mamba-2 780M at
-one super-block each, their RG-LRU and SSD blocks split too, in f32 on a
-(1, 4) mesh, every product split over the four cards) against world size
-1 on the first card, and sharded serving on the same mesh (``SERVE``: a
-reduced Qwen3-30B-A3B and the same three at published width; prefill,
-then decode on the cache's blocks of the slots and the recurrent states'
-blocks) against world size 1 there.  Marked
+InternLM2-1.8B at 4 layers, RecurrentGemma-2B and Mamba-2 780M at one
+super-block each, their RG-LRU and SSD blocks split too, and MiniCPM-2B
+at one layer, in f32 on a (1, 4) mesh, every product split over the four
+cards, in padded tiles where 4 does not divide it: RecurrentGemma-2B's
+10 heads as 3, 3, 3, 1, MiniCPM-2B's 122,753 words as 30,689 on three
+cards and 30,686 on the fourth) against world size 1 on the first card,
+and sharded serving on the same mesh (``SERVE``: a reduced Qwen3-30B-A3B
+and the same four at published width; prefill, then decode on the
+cache's blocks of the slots and the recurrent states' blocks) against
+world size 1 there.  Marked
 ``cuda``; skips with fewer than four cards.  The file imports nothing of
 the JAX package:
 
@@ -45,7 +48,8 @@ WORLD = 4
 # layer)
 PUBLISHED = {"internlm2_1_8b": (4, (1, 4), 2, 2048),
              "recurrentgemma_2b": (3, (1, 4), 2, 2048),
-             "mamba2_780m": (1, (1, 4), 2, 2048)}
+             "mamba2_780m": (1, (1, 4), 2, 2048),
+             "minicpm_2b": (1, (1, 4), 2, 2048)}
 RECURRENT = ("recurrentgemma_2b", "mamba2_780m")
 # relative L2 of the loss and of each gradient against world size 1
 # (measured on four H100s: the loss equal, the worst gradient 8.0e-6)
@@ -56,7 +60,8 @@ TOL_PUBLISHED = 1e-4
 SERVE = {"qwen3_reduced": ("qwen3", None, TP.TOL_GRAD),
          "internlm2_published": ("internlm2_1_8b", 4, TOL_PUBLISHED),
          "recurrentgemma_published": ("recurrentgemma_2b", 3, TOL_PUBLISHED),
-         "mamba2_published": ("mamba2_780m", 1, TOL_PUBLISHED)}
+         "mamba2_published": ("mamba2_780m", 1, TOL_PUBLISHED),
+         "minicpm_published": ("minicpm_2b", 1, TOL_PUBLISHED)}
 
 
 def _rank_checks(rank, device, out):
@@ -154,8 +159,7 @@ def _published_case(arch, rank, device):
         leaves = {k: SH.ShardedLeaf(SH.distribute(v, shs[k]).to_local(),
                                     shs[k], ops, key=k)
                   for k, v in params.items()}
-        split = sorted(k for k, v in leaves.items()
-                       if SH.tp_group(v) is not None)
+        split = SS.split_keys(leaves, cfg)
         loss, _, grads = step.grads(leaves, TP.local_rows(batch, idx, n))
     del leaves
     loss = float(LT._mean_over_ranks(loss))
@@ -352,15 +356,29 @@ def test_tp_recurrent_blocks_at_published_width_over_nccl(published, arch):
     780M (one SSD layer) at published width, f32, on a (1, 4) mesh over
     NCCL: every rank splits the RG-LRU's 2,560 channels (its gates'
     columns, the output's rows) or the SSD's 48 heads and their 3,072
-    channels over the four cards, beside the MLPs and the head, and the
-    loss and every gradient equal world size 1's on the first card within
-    ``TOL_PUBLISHED`` relative L2."""
+    channels over the four cards, beside the MLPs and the head (and
+    RecurrentGemma-2B's local attention's 10 heads in padded tiles of 3,
+    3, 3 and 1), and the loss and every gradient equal world size 1's on
+    the first card within ``TOL_PUBLISHED`` relative L2."""
     from repro_torch.models import rglru as R
     from repro_torch.models import ssm as SM
 
     own = R.TP_WEIGHTS if arch == "recurrentgemma_2b" else SM.TP_WEIGHTS
+    attn = {"s2_wq", "s2_wo"} if arch == "recurrentgemma_2b" else set()
     _check_published(published, arch,
-                     {f"s0_{k}" for k in own} | {"tok_embed"})
+                     {f"s0_{k}" for k in own} | {"tok_embed"} | attn)
+
+
+@pytest.mark.cuda
+def test_tp_padded_vocabulary_at_published_width_over_nccl(published):
+    """MiniCPM-2B at one layer of published width, f32, on a (1, 4) mesh
+    over NCCL: its 36 heads and 5,760 hidden units split over the four
+    cards, and its tied head's 122,753 words, which 4 does not divide,
+    in padded tiles (30,689 words on three cards, 30,686 on the fourth);
+    the loss and every gradient equal world size 1's on the first card
+    within ``TOL_PUBLISHED`` relative L2."""
+    _check_published(published, "minicpm_2b",
+                     {"s0_wq", "s0_wo", "s0_w_up", "s0_w_down", "tok_embed"})
 
 
 @pytest.fixture(scope="module")
@@ -380,7 +398,9 @@ def test_sharded_serving_over_nccl(served, name):
     (its MoE's expert-parallel paths, KV heads cut) and InternLM2-1.8B at
     4 layers of published width (16 heads and 8 KV heads, 8,192 hidden
     units and 92,544 words split over the four cards; flash in the
-    prefill).  The prefill's logits and cache and each step's logits and
+    prefill), RecurrentGemma-2B and Mamba-2 at one super-block and
+    MiniCPM-2B at one layer (its words in padded tiles, the padding cut
+    where the ranks' logits are assembled).  The prefill's logits and cache and each step's logits and
     the final caches, assembled from the ranks' blocks, equal world size
     1's on the first card within ``SERVE``'s relative L2."""
     from repro_torch.parallel import sharding as SH
@@ -396,13 +416,14 @@ def test_sharded_serving_over_nccl(served, name):
     worst = 0.0
     for k, w in want.items():
         w = torch.from_numpy(w)
-        if "/logits/" in k or k.endswith("/logits"):
+        logits = "/logits/" in k or k.endswith("/logits")
+        if logits:
             axes = ("batch" if k.startswith("prefill") else "cache_batch",
                     None, "act_vocab")
         else:
             axes = SS.leaf_axes(cfg, k, k.split("/")[0])
         got = SS.assemble(parts, k, tuple(w.shape), axes, (1, WORLD),
-                          SH.DEFAULT_RULES)
+                          SH.DEFAULT_RULES, padded=logits)
         err = TP.rel_l2(got, w)
         worst = max(worst, err)
         assert err < tol, (k, err)

@@ -33,8 +33,10 @@ its KV heads cut at 4 ranks), RecurrentGemma-2B (a local ring of 8 with
 one KV head, cut; the RG-LRU at width 96, which no other dimension has,
 split over ``model``), Mamba-2 780M (the SSD cache only, its 8 heads
 split over ``model``) and MiniCPM-2B at 3 heads and 511 words, which
-``model`` does not divide (attention and the head whole, the MLP
-split).  World size 1 equals the
+``model`` does not divide: its ranks take padded tiles of the heads and
+the vocabulary (2 + 1 heads and 256 + 255 words at 2 ranks; 1, 1, 1, 0
+and 128, 128, 128, 127 at 4), and the ranks' logits tiles are assembled
+with the padding cut.  World size 1 equals the
 reference's steps (``jit_prefill_step`` / ``jit_decode_step``) within 2e-4
 (``tests/test_torch_models.py``'s), the weights the reference's,
 carried across by ``convert.params_from_numpy``; at one rank the steps
@@ -243,8 +245,7 @@ def sharded_serve(cfg, mesh, rules, whole, prompt, toks, start, *,
         ops = SH.MeshOps(mesh)
         p_sh = SH.tree_shardings(T.param_axes(cfg), T.param_shapes(cfg), mesh)
         params = SH.sharded_leaves(_blocks(whole, p_sh, coord), p_sh, ops)
-        res["tp"] = sorted(k for k, v in params.items()
-                           if SH.tp_group(v) is not None)
+        res["tp"] = split_keys(params, cfg)
         if prefill:
             rows = SH.logical_sharding(("batch", None), mesh,
                                        shape=prompt.shape).local_slices(
@@ -281,6 +282,27 @@ def sharded_serve(cfg, mesh, rules, whole, prompt, toks, start, *,
                 res["decode/shapes"] = sorted(mode.shapes)
             res.update({f"{layout}/cache/{k}": v for k, v in new.items()})
     return res
+
+
+def split_keys(params, cfg):
+    """The leaves whose product the rank's ``model`` group splits: where
+    ``model`` divides the dimension (``sharding.tp_group``), and
+    attention's q-head leaves and the head where the rules tile the heads
+    and the vocabulary over ``model``, padded where it does not divide
+    them (``sharding.tile_group``)."""
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import sharding as SH
+
+    head = "tok_embed" if cfg.tie_embeddings else "lm_head"
+
+    def split(k, v):
+        if k == head:
+            return SH.tile_group(v, "vocab")
+        if k.split("_", 1)[1] in L.HEAD_DIMS:
+            return SH.tile_group(v, "heads")
+        return SH.tp_group(v)
+
+    return sorted(k for k, v in params.items() if split(k, v) is not None)
 
 
 class _nothing:
@@ -442,21 +464,26 @@ def mesh_cases(prefill_only=False):
             if pf or not prefill_only]
 
 
-def assemble(parts, key, shape, spec_axes, mesh_shape, rules):
+def assemble(parts, key, shape, spec_axes, mesh_shape, rules,
+             padded=False):
     """The blocks of ``key`` in ``parts`` ((mesh coordinate, results) of
     each rank of a ``(data, model)`` mesh of ``mesh_shape``), the leaf of
     global ``shape`` and logical axes ``spec_axes`` under ``rules``,
     assembled whole; a rank's tensor whole but its rows (a prefill's
-    RG-LRU and SSD caches) read at its rows.  Copies of one block must
-    agree."""
+    RG-LRU and SSD caches) read at its rows.  With ``padded`` (logits) a
+    dimension the rules split is cut into padded tiles where the mesh
+    does not divide it, and each rank's tile lands at its place, the
+    padding cut.  Copies of one block must agree."""
     from repro_torch.parallel import sharding as SH
 
-    sh = SH.logical_sharding(spec_axes, SH.AbstractMesh(mesh_shape, (
-        "data", "model")), rules, shape)
+    mesh = SH.AbstractMesh(mesh_shape, ("data", "model"))
+    sh = SH.logical_sharding(spec_axes, mesh, rules,
+                             None if padded else shape)
     out = torch.full(shape, float("nan"), dtype=torch.float64)
     for coord, res in parts:
         t = res[key].double().cpu()
-        sl = sh.local_slices(shape, coord)
+        sl = (padded_slices(sh, shape, coord) if padded
+              else sh.local_slices(shape, coord))
         if tuple(t.shape) != tuple(out[sl].shape):
             sl = tuple(s if a in ("batch", "cache_batch") else slice(None)
                        for s, a in zip(sl, spec_axes))
@@ -468,13 +495,32 @@ def assemble(parts, key, shape, spec_axes, mesh_shape, rules):
     return out
 
 
-def _assemble(runs, n, mesh, name, key, shape, spec_axes):
+def padded_slices(sh, shape, coord):
+    """The rank's slice of a tensor of ``shape`` under the sharding
+    ``sh``, a dimension its blocks do not divide cut into padded tiles
+    (``sharding.tile``)."""
+    from repro_torch.parallel import sharding as SH
+
+    sizes = SH.mesh_shape(sh.mesh)
+    at = dict(zip(sizes, coord))
+    out = []
+    for n, axes in zip(shape, SH.spec_axes(sh.spec, len(shape))):
+        blocks, idx = 1, 0
+        for a in axes:
+            blocks, idx = blocks * sizes[a], idx * sizes[a] + at[a]
+        start, w = SH.tile(n, blocks, idx)
+        out.append(slice(start, start + w))
+    return tuple(out)
+
+
+def _assemble(runs, n, mesh, name, key, shape, spec_axes, padded=False):
     from repro_torch.launch import dryrun as D
 
     shp, policy, _ = MESHES[n][mesh]
     _, rules, _ = D.apply_policy(port_cfg(name), "prefill_32k", policy)
     return assemble([(r[f"{mesh}/coord"], r[f"{mesh}/{name}"])
-                     for r in runs[n]], key, shape, spec_axes, shp, rules)
+                     for r in runs[n]], key, shape, spec_axes, shp, rules,
+                    padded)
 
 
 def leaf_axes(cfg, key, layout):
@@ -512,7 +558,7 @@ def test_sharded_prefill_equals_world_size_1(runs, n, mesh, name):
     w1 = runs["w1"][name]
     V = cfg.vocab_size
     got = _assemble(runs, n, mesh, name, "prefill/logits", (B, 1, V),
-                    ("batch", None, "act_vocab"))
+                    ("batch", None, "act_vocab"), padded=True)
     assert TP.rel_l2(got, torch.from_numpy(w1["prefill/logits"])) < TOL_W1
     keys = [k for k in w1 if k.startswith("prefill/cache/")]
     assert keys and all(k in runs[n][0][f"{mesh}/{name}"] for k in keys)
@@ -540,7 +586,7 @@ def test_sharded_decode_equals_world_size_1(runs, n, mesh, name, layout):
     for i in range(len(steps(layout))):
         k = f"{layout}/logits/{i}"
         got = _assemble(runs, n, mesh, name, k, (B, 1, V),
-                        ("cache_batch", None, "act_vocab"))
+                        ("cache_batch", None, "act_vocab"), padded=True)
         assert TP.rel_l2(got, torch.from_numpy(w1[k])) < TOL_W1, k
     keys = [k for k in w1 if k.startswith(f"{layout}/cache/")]
     for k in keys:
@@ -561,16 +607,17 @@ def test_sharded_decode_equals_world_size_1(runs, n, mesh, name, layout):
 
 @pytest.mark.parametrize("n,mesh,name", [
     (n, m, a) for n, m in mesh_cases() for a in ARCHS])
-def test_products_split_where_model_divides(runs, n, mesh, name):
-    """Under ``baseline`` the rank's ``model`` group splits attention's
-    heads where ``model`` divides them (not MiniCPM's 3, nor anything
-    under ``dp_fsdp``), the MLPs' hidden units, the head where it
-    divides the vocabulary (not MiniCPM's 511), and every leaf of the
-    RG-LRU and the SSD mixer that the reference splits over ``model``
-    (the SSD's B, C and norm scale stay whole)."""
+def test_products_split_over_model(runs, n, mesh, name):
+    """Under ``baseline`` (nothing under ``dp_fsdp``) the rank's ``model``
+    group splits attention's q heads and the head's vocabulary, in padded
+    tiles where ``model`` does not divide them (MiniCPM's 3 heads and 511
+    words: the rank's logits hold its tile), the MLPs' hidden units, and
+    every leaf of the RG-LRU and the SSD mixer that the reference splits
+    over ``model`` (the SSD's B, C and norm scale stay whole)."""
     from repro_torch.models import rglru as R
     from repro_torch.models import ssm as SM
     from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as SH
 
     cfg = port_cfg(name)
     tp = set(runs[n][0][f"{mesh}/{name}"]["tp"])
@@ -580,9 +627,13 @@ def test_products_split_where_model_divides(runs, n, mesh, name):
         assert not tp
         return
     attends = any(k.startswith("attn") for k in cfg.layer_kinds)
-    assert ("s0_wq" in tp or "s2_wq" in tp) == (attends and name != "minicpm")
+    assert ("s0_wq" in tp or "s2_wq" in tp) == attends
     head = "tok_embed" if cfg.tie_embeddings else "lm_head"
-    assert (head in tp) == (name != "minicpm")
+    assert head in tp
+    model = MESHES[n][mesh][0][1]
+    for r in runs[n]:
+        tile = SH.tile(cfg.vocab_size, model, r[f"{mesh}/coord"][1])[1]
+        assert r[f"{mesh}/{name}"]["prefill/logits"].shape[-1] == tile
     keys = T.param_specs(cfg)
     own = {k for k in keys if k.split("_", 1)[1] in R.TP_WEIGHTS
            + SM.TP_WEIGHTS}

@@ -11,8 +11,11 @@ launcher's step does) and its rows of the batch:
 * attention (``layers.attention_seq_kv``, naive and flash, with and
   without QKV biases), whose KV heads split with the q heads where
   ``model`` divides them (2 of 4 heads at 2 ranks) and are cut from the
-  whole leaves where it does not (at 4 ranks), and the MLP (gated and
-  gelu): the model group's outputs, gathered by batch shard, equal the
+  whole leaves where it does not (at 4 ranks); its q heads in padded
+  tiles where ``model`` does not divide them (3 heads: 2 + 1 at 2 ranks,
+  1, 1, 1 and an empty tile at 4; 6 heads of 2 KV heads: 2, 2, 2, 0),
+  and the MLP (gated and gelu): the model group's outputs, gathered by
+  batch shard, equal the
   reference's ``attention_seq_kv`` and ``mlp`` on the whole batch within
   ``TOL_REF``, and each weight's gradient, landed in the rank's block,
   equals world size 1's within ``TOL_GRAD``;
@@ -24,12 +27,19 @@ launcher's step does) and its rows of the batch:
   within ``TOL_REF`` and (``kernel`` has no backward) each gradient
   world size 1's within ``TOL_GRAD``; an SSD whose ``model`` divides
   ``d_inner`` but not its 3 heads runs whole and equals the same;
-* the vocab-parallel ``cross_entropy`` over a rank's block of the
-  logits, with IGNORE labels and labels in every block, equals the
-  reference's within ``TOL_CE`` relative, its gradient world size 1's;
-* one sharded step of a reduced bf16 config: no f32 tensor a rank makes
-  has the whole vocabulary along a dimension, and its logits hold V/tp
-  entries there.
+* the vocab-parallel ``cross_entropy`` over a rank's padded tile of the
+  logits (64 words; 61 in tiles of 31 + 30 and 16, 16, 16, 13; 9 in 5 +
+  4 and 3, 3, 3, 0), with IGNORE labels and labels in every non-empty
+  tile, equals the reference's within ``TOL_CE`` relative, its gradient
+  world size 1's;
+* one sharded step of a reduced bf16 config (a MiniCPM-2B at 3 heads and
+  511 words among them): no f32 tensor a rank makes has the whole
+  vocabulary along a dimension but a replicated leaf's own, and its
+  logits hold the rank's tile;
+* one sharded step of that MiniCPM-2B in f32 equals world size 1's step
+  within ``TP.TOL_GRAD``;
+* ``TPGroup.gather`` assembles padded tiles (9 and 61 over 2 and 4
+  ranks) whole, its backward each rank's tile of the summed cotangents.
 """
 
 from __future__ import annotations
@@ -51,9 +61,14 @@ TOL_CE = 1e-6                          # relative, against the reference's
 TOL_GRAD = TP.TOL_GRAD                 # relative L2 against world size 1
 MESHES = {2: {"1x2": (1, 2)}, 4: {"1x4": (1, 4), "2x2": (2, 2)}}
 B, S = 4, 16
-# attention: GQA with 2 KV heads of 4 (InternLM2), with QKV biases
-# (Qwen1.5); the MLP gated (InternLM2) and gelu (MusicGen)
-ATTN = {"gqa": "internlm2_1_8b", "bias": "qwen1_5_4b"}
+# attention: name -> (arch, the config's overrides): GQA with 2 KV heads
+# of 4 (InternLM2), with QKV biases (Qwen1.5); 3 heads, which 2 and 4
+# ranks tile padded (2 + 1; 1, 1, 1 and an empty tile), without biases
+# (MiniCPM) and with them; 6 heads of 2 KV heads (2, 2, 2, 0 at 4 ranks)
+ATTN = {"gqa": ("internlm2_1_8b", {}), "bias": ("qwen1_5_4b", {}),
+        "heads3": ("minicpm_2b", {"num_heads": 3, "num_kv_heads": 3}),
+        "heads3_bias": ("qwen1_5_4b", {"num_heads": 3, "num_kv_heads": 3}),
+        "gqa6": ("internlm2_1_8b", {"num_heads": 6, "num_kv_heads": 2})}
 MLPS = {"gated": "internlm2_1_8b", "gelu": "musicgen_large"}
 IMPLS = ("naive", "flash")
 # the recurrent blocks: (kind, name) -> (arch, the config's overrides);
@@ -64,8 +79,14 @@ RECURRENT = {("rglru", "rglru"): ("recurrentgemma_2b", {}),
              ("ssd", "kernel"): ("mamba2_780m", {"ssd_impl": "kernel"}),
              ("ssd", "heads_whole"): ("mamba2_780m", {
                  "ssd_impl": "xla", "d_model": 48, "ssm_head_dim": 32})}
-CE_V = 64                              # the cross-entropy check's vocabulary
-MEM_ARCHS = ("smollm_360m", "qwen3_moe_30b_a3b")   # tied and untied heads
+# the cross-entropy checks' vocabularies: 64 splits evenly; 61 in tiles
+# of 31 + 30 and 16, 16, 16, 13; 9 in 5 + 4 and 3, 3, 3, 0
+CE_VS = (64, 61, 9)
+# the vocabulary checks' configs: tied and untied heads, and a reduced
+# MiniCPM-2B whose 3 heads and 511 words 2 and 4 ranks tile padded
+MINICPM = {"num_heads": 3, "num_kv_heads": 3, "vocab_size": 511}
+MEM_ARCHS = {"smollm_360m": {}, "qwen3_moe_30b_a3b": {},
+             "minicpm_2b": MINICPM}
 
 
 def port_cfg(arch, **kw):
@@ -98,7 +119,7 @@ def module_specs(kind, cfg):
 def cases():
     """(kind, name, arch, impl) of every module case: ``impl`` attention's
     ``attn_impl``, the SSD's ``ssd_impl``."""
-    return ([("attn", n, a, i) for n, a in ATTN.items() for i in IMPLS]
+    return ([("attn", n, a, i) for n, (a, _) in ATTN.items() for i in IMPLS]
             + [("mlp", n, a, "naive") for n, a in MLPS.items()]
             + [(kind, name, a, kw.get("ssd_impl", "naive"))
                for (kind, name), (a, kw) in RECURRENT.items()])
@@ -108,12 +129,13 @@ def case_overrides(kind, name, impl):
     """The config's overrides of a case (see :func:`cases`)."""
     if (kind, name) in RECURRENT:
         return dict(RECURRENT[(kind, name)][1])
-    return {"attn_impl": impl}
+    return {"attn_impl": impl, **(ATTN[name][1] if kind == "attn" else {})}
 
 
 def case_arch(kind, name):
-    return {"attn": ATTN, "mlp": MLPS}[kind][name] if kind in (
-        "attn", "mlp") else RECURRENT[(kind, name)][0]
+    if kind == "attn":
+        return ATTN[name][0]
+    return MLPS[name] if kind == "mlp" else RECURRENT[(kind, name)][0]
 
 
 def run_module(kind, p, x, cfg):
@@ -138,6 +160,8 @@ def run_module(kind, p, x, cfg):
 def make_inputs(path):
     """Every case's weights, inputs and output weights, and the
     cross-entropy's logits and labels, from seeds."""
+    from repro_torch.parallel import sharding as SH
+
     rng = np.random.default_rng(36)
     inp = {}
     for kind, name, arch, impl in cases():
@@ -149,11 +173,15 @@ def make_inputs(path):
                     np.float32)
     inp["x"] = rng.standard_normal((B, S, 64)).astype(np.float32)
     inp["w_y"] = rng.standard_normal((B, S, 64)).astype(np.float32)
-    inp["logits"] = (rng.standard_normal((B, S, CE_V)) * 3).astype(np.float32)
-    labels = rng.integers(0, CE_V, (B, S))
-    labels[0, :CE_V // S] = np.arange(0, CE_V, S)      # one in every block
-    labels[1, ::3] = -100                              # IGNORE
-    inp["labels"] = labels.astype(np.int64)
+    inp["logits"] = (rng.standard_normal((B, S, max(CE_VS))) * 3).astype(
+        np.float32)
+    for V in CE_VS:
+        labels = rng.integers(0, V, (B, S))
+        starts = sorted({SH.tile(V, n, r)[0] for n in (2, 4)
+                         for r in range(n) if SH.tile(V, n, r)[1]})
+        labels[0, :len(starts)] = starts         # one in every tile
+        labels[1, ::3] = -100                    # IGNORE
+        inp[f"labels{V}"] = labels.astype(np.int64)
     np.savez(path, **inp)
     return inp
 
@@ -178,6 +206,7 @@ def _leaves(specs, weights, mesh, ops):
 
 def _module_check(kind, name, arch, impl, mesh, inp):
     from repro_torch.launch import train as LT
+    from repro_torch.models import layers as L
     from repro_torch.models import rglru as R
     from repro_torch.models import ssm as SM
     from repro_torch.parallel import sharding as SH
@@ -191,14 +220,30 @@ def _module_check(kind, name, arch, impl, mesh, inp):
         idx, n = LT.batch_shard(mesh)
         rows = slice(idx * B // n, (idx + 1) * B // n)
         p = _leaves(specs, weights, mesh, ops)
-        tp = {k: SH.tp_group(v) is not None for k, v in p.items()}
+        tp = {k: (SH.tile_group(v, "heads") if k in L.HEAD_DIMS
+                  else SH.tp_group(v)) is not None for k, v in p.items()}
+        if kind == "attn":
+            tp["heads"] = SH.tile_group(p["wq"], "heads").block(
+                cfg.num_heads)[1]
         split = {"rglru": R, "ssd": SM}.get(kind)
         if split is not None:
             tp["block"] = split.tp_split(p) is not None
         x = torch.from_numpy(inp["x"][rows, :, :D]).clone().requires_grad_(
             impl != "kernel")
-        with torch.set_grad_enabled(impl != "kernel"):
-            y = run_module(kind, p, x, cfg)
+        launched = []
+        flash = L.flash_attention
+
+        def counted(q, *a, **kw):
+            launched.append(q.shape[0])
+            return flash(q, *a, **kw)
+
+        L.flash_attention = counted
+        try:
+            with torch.set_grad_enabled(impl != "kernel"):
+                y = run_module(kind, p, x, cfg)
+        finally:
+            L.flash_attention = flash
+        tp["flash_bh"] = launched
         if impl == "kernel":        # ssd_scan has no backward
             grads = [None] * (len(p) + 1)
         else:
@@ -212,9 +257,9 @@ def _module_check(kind, name, arch, impl, mesh, inp):
             "grads": dict(zip(p, grads[:-1]))}
 
 
-def _ce_check(mesh, inp):
-    """The vocab-parallel cross-entropy over this rank's block of the
-    logits, and its gradient there."""
+def _ce_check(mesh, inp, V):
+    """The vocab-parallel cross-entropy over this rank's padded tile of
+    the first ``V`` columns of the logits, and its gradient there."""
     from repro_torch.launch import train as LT
     from repro_torch.parallel import sharding as SH
     from repro_torch.train.step import cross_entropy
@@ -224,20 +269,22 @@ def _ce_check(mesh, inp):
     with SH.sharding_context(mesh):
         idx, n = LT.batch_shard(mesh)
     rows = slice(idx * B // n, (idx + 1) * B // n)
-    start, w = tp.block(CE_V)
+    start, w = tp.block(V)
     logits = torch.from_numpy(inp["logits"][rows, :, start:start + w]) \
         .clone().requires_grad_(True)
-    loss, ce = cross_entropy(logits, torch.from_numpy(inp["labels"][rows]),
-                             vocab=tp)
+    loss, ce = cross_entropy(logits,
+                             torch.from_numpy(inp[f"labels{V}"][rows]),
+                             vocab=tp, vocab_size=V)
     g, = torch.autograd.grad(loss, [logits])
     return {"idx": idx, "n": n, "loss": loss.detach(), "ce": ce.detach(),
             "start": start, "grad": g}
 
 
 def _vocab_check(arch, shape, inp):
-    """One sharded step of the reduced bf16 ``arch`` under a dispatch mode
-    recording the shape of every f32 tensor an operator returns (not the
-    ``meta`` ones that placing a DTensor makes for its strides)."""
+    """One sharded step of the reduced bf16 ``arch`` (with
+    ``MEM_ARCHS[arch]``) under a dispatch mode recording the shape of
+    every f32 tensor an operator returns (not the ``meta`` ones that
+    placing a DTensor makes for its strides)."""
     from torch.utils import _pytree as pytree
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -260,7 +307,7 @@ def _vocab_check(arch, shape, inp):
                     self.shapes.add(tuple(t.shape))
             return out
 
-    cfg = LT.reduced(PC.get_config(arch))
+    cfg = LT.reduced(PC.get_config(arch)).with_(**MEM_ARCHS[arch])
     opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     step = make_train_step(cfg, opt, donate=True)
     mesh = SH.make_mesh(shape, ("data", "model"), device="cpu")
@@ -270,12 +317,76 @@ def _vocab_check(arch, shape, inp):
     with SH.sharding_context(mesh):
         jstep = LT.make_sharded_step(step, mesh, state_sh)
         idx, n = LT.batch_shard(mesh)
-    batch = TP.local_rows(TP.grad_batch(inp, 0), idx, n)
+    batch = TP.local_rows(step_batch(inp, cfg), idx, n)
     mode = F32Shapes()
     with mode:
         _, m = jstep(state, batch)
     return {"shapes": sorted(mode.shapes), "loss": float(m["loss"]),
-            "vocab": cfg.vocab_size, "rows": batch["tokens"].shape}
+            "vocab": cfg.vocab_size, "d_model": cfg.d_model,
+            "rows": batch["tokens"].shape,
+            "tile": SH.tile(cfg.vocab_size, shape[1],
+                            mesh.get_local_rank("model"))[1]}
+
+
+def step_batch(inp, cfg, i=0):
+    """``test_torch_parallel``'s batch ``i``, its tokens below the
+    config's vocabulary."""
+    return {k: v % cfg.vocab_size for k, v in TP.grad_batch(inp, i).items()}
+
+
+def _gather_check(mesh, V):
+    """``TPGroup.gather`` of the rank's padded tile of ``arange(V)`` and
+    the gradient of ``(gathered * weights).sum()`` in its tile; and
+    whether a tile of the wrong width is refused."""
+    from repro_torch.parallel import sharding as SH
+
+    tp = SH.TPGroup(SH.MeshOps(mesh), mesh.shape[1],
+                    mesh.get_local_rank("model"))
+    start, w = tp.block(V)
+    x = torch.arange(start, start + w, dtype=torch.float32)[None]
+    x.requires_grad_(True)
+    y = tp.gather(x, -1, V)
+    weights = torch.linspace(-1.0, 1.0, V)[None]
+    g, = torch.autograd.grad((y * weights).sum(), [x])
+    try:
+        tp.gather(torch.zeros(1, w + 1), -1, V)
+        refused = False
+    except ValueError:
+        refused = True
+    return {"y": y.detach(), "grad": g, "start": start, "refused": refused}
+
+
+def _step_check(shape, inp):
+    """One sharded step of the reduced MiniCPM-2B of ``MEM_ARCHS`` in f32
+    (3 heads and 511 words, which the mesh's ``model`` tiles padded):
+    its loss and the whole state after it."""
+    from repro_torch.launch import train as LT
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train.step import make_train_step, train_state_specs
+
+    cfg, opt = step_setup()
+    step = make_train_step(cfg, opt, donate=True)
+    mesh = SH.make_mesh(shape, ("data", "model"), device="cpu")
+    shapes, axes = train_state_specs(cfg, opt)
+    state_sh = SH.tree_shardings(axes, shapes, mesh)
+    state = LT.place(LT.init_state(cfg, step, "cpu"), state_sh)
+    with SH.sharding_context(mesh):
+        jstep = LT.make_sharded_step(step, mesh, state_sh)
+        idx, n = LT.batch_shard(mesh)
+    state, m = jstep(state, TP.local_rows(step_batch(inp, cfg), idx, n))
+    return {"loss": float(m["loss"]), "step": state["step"],
+            "state": TP.state_wholes(state)}
+
+
+def step_setup():
+    """The sharded step check's config (f32) and optimizer."""
+    from repro_torch import configs as PC
+    from repro_torch.launch import train as LT
+    from repro_torch.train.optim import OptConfig
+
+    cfg = LT.reduced(PC.get_config("minicpm_2b")).with_(
+        dtype="float32", param_dtype="float32", **MINICPM)
+    return cfg, OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
 
 
 def _rank_checks(world, rank, out, inp, tp_inp):
@@ -287,9 +398,12 @@ def _rank_checks(world, rank, out, inp, tp_inp):
         for kind, name, arch, impl in cases():
             res[f"{mname}/{kind}/{name}/{impl}"] = _module_check(
                 kind, name, arch, impl, mesh, tp_inp)
-        res[f"{mname}/ce"] = _ce_check(mesh, tp_inp)
+        for V in CE_VS:
+            res[f"{mname}/ce/{V}"] = _ce_check(mesh, tp_inp, V)
+            res[f"{mname}/gather/{V}"] = _gather_check(mesh, V)
         for arch in MEM_ARCHS:
             res[f"{mname}/vocab/{arch}"] = _vocab_check(arch, shape, inp)
+        res[f"{mname}/step"] = _step_check(shape, inp)
     torch.save(res, out / f"rank{rank}.pt")
 
 
@@ -388,22 +502,41 @@ def test_tp_module_equals_reference(runs, n, mesh, kind, name, impl):
     """The model group's outputs, gathered by batch shard, equal the
     reference's module on the whole batch within ``TOL_REF``; attention's
     q heads (and the MLP's hidden units) split over ``model`` on every
-    mesh, its KV heads split at 2 model ranks and cut at 4; the RG-LRU's
-    and the SSD's own leaves split and the block runs split, but the
-    SSD's B, C and norm scale, which stay whole, and an SSD whose heads
-    ``model`` does not divide, which runs whole."""
+    mesh, in padded tiles where it does not divide them (3 heads: 2 + 1
+    at 2 ranks, 1, 1, 1 and an empty tile at 4; 6: 2, 2, 2, 0), its KV
+    heads split where ``model`` divides them too and cut from the whole
+    leaves elsewhere, flash launched once at the rank's rows times its
+    heads and never on an empty tile; the RG-LRU's and the SSD's own
+    leaves split and the
+    block runs split, but the SSD's B, C and norm scale, which stay
+    whole, and an SSD whose heads ``model`` does not divide, which runs
+    whole."""
     from repro_torch.models import rglru as R
     from repro_torch.models import ssm as SM
+    from repro_torch.parallel import sharding as SH
 
     arch = case_arch(kind, name)
     port = runs[n]
     key = f"{mesh}/{kind}/{name}/{impl}"
     tp = port[0][key]["tp"]
+    model = MESHES[n][mesh][1]
     if kind == "attn":
+        cfg = port_cfg(arch, **case_overrides(kind, name, impl))
+        H, Kv = cfg.num_heads, cfg.num_kv_heads
         assert tp["wq"] and tp["wo"]
-        assert tp["wk"] == (MESHES[n][mesh][1] == 2)
-        assert ("wq_b" in tp) == (name == "bias")
+        assert tp["wk"] == (Kv % model == 0)
+        assert ("wq_b" in tp) == cfg.qkv_bias
         assert all(v for k, v in tp.items() if k in ("wq_b", "wo"))
+        tiles = {r["rank"] % model: r[key]["tp"]["heads"] for r in port}
+        assert [tiles[i] for i in range(model)] == [
+            SH.tile(H, model, i)[1] for i in range(model)]
+        assert max(tiles.values()) < H
+        # flash launched at the rank's rows x its heads, never on none
+        for r in port:
+            e = r[key]
+            want = [B // e["n"] * e["tp"]["heads"]] if impl == "flash" \
+                and e["tp"]["heads"] else []
+            assert e["tp"]["flash_bh"] == want, (r["rank"], e["tp"])
     elif kind == "mlp":
         assert tp["w_up"] and tp["w_down"]
     else:
@@ -459,59 +592,119 @@ def test_tp_module_gradients_equal_world_size_1(runs, n, mesh, kind, name,
     assert TP.rel_l2(got, dx) < TOL_GRAD, TP.rel_l2(got, dx)
 
 
-@pytest.mark.parametrize("n,mesh", mesh_cases())
-def test_vocab_parallel_cross_entropy_equals_reference(runs, n, mesh):
-    """The vocab-parallel cross-entropy (each rank one block of the
-    logits' vocabulary: block max over the group, sums of exp and of the
-    label's logit over it) equals the reference's ``cross_entropy`` on the
-    whole logits within ``TOL_CE`` relative, with IGNORE labels and
-    labels in every block; the gradient in each rank's block, divided by
-    the group's size, equals world size 1's within ``TOL_GRAD``."""
+@pytest.mark.parametrize("n,mesh,V", [(n, m, V) for n, m in mesh_cases()
+                                      for V in CE_VS])
+def test_vocab_parallel_cross_entropy_equals_reference(runs, n, mesh, V):
+    """The vocab-parallel cross-entropy (each rank one padded tile of the
+    logits' vocabulary: tile max over the group, sums of exp and of the
+    label's logit over it; trailing tiles short, or empty at 9 words over
+    4 ranks) equals the reference's ``cross_entropy`` on the whole logits
+    within ``TOL_CE`` relative, with IGNORE labels and labels in every
+    non-empty tile; the gradient in each rank's tile, divided by the
+    group's size, equals world size 1's within ``TOL_GRAD``."""
     import jax.numpy as jnp
 
     from repro.train.step import cross_entropy as ref_ce
+    from repro_torch.parallel import sharding as SH
     from repro_torch.train.step import cross_entropy
 
     port = runs[n]
     inp = runs["tp_inp"]
-    labels = inp["labels"]
+    labels = inp[f"labels{V}"]
+    logits_v = inp["logits"][..., :V]
     tp = MESHES[n][mesh][1]
-    w = CE_V // tp
-    assert {int(v) // w for v in labels.reshape(-1) if v >= 0} == set(
-        range(tp))
+    tiles = [SH.tile(V, tp, i) for i in range(tp)]
+    got_tiles = {i for i, (s0, w) in enumerate(tiles) for v in
+                 labels.reshape(-1) if s0 <= v < s0 + w}
+    assert got_tiles == {i for i, (_, w) in enumerate(tiles) if w}
     assert (labels == -100).any()
-    shards = port[0][f"{mesh}/ce"]["n"]
+    shards = port[0][f"{mesh}/ce/{V}"]["n"]
     rows = B // shards
     for r in port:
-        e = r[f"{mesh}/ce"]
+        e = r[f"{mesh}/ce/{V}"]
         sl = slice(e["idx"] * rows, (e["idx"] + 1) * rows)
-        want, want_ce = ref_ce(jnp.asarray(inp["logits"][sl]),
+        want, want_ce = ref_ce(jnp.asarray(logits_v[sl]),
                                jnp.asarray(labels[sl].astype(np.int32)))
         for got, ref in ((e["loss"], want), (e["ce"], want_ce)):
             assert abs(float(got) - float(ref)) <= TOL_CE * abs(float(ref)), \
                 (float(got), float(ref))
-        logits = torch.from_numpy(inp["logits"][sl]).requires_grad_(True)
+        logits = torch.from_numpy(logits_v[sl].copy()).requires_grad_(True)
         g, = torch.autograd.grad(cross_entropy(
             logits, torch.from_numpy(labels[sl]))[0], [logits])
-        block = g[..., e["start"]:e["start"] + w]
-        assert TP.rel_l2(e["grad"] / tp, block) < TOL_GRAD
+        block = g[..., e["start"]:e["start"] + e["grad"].shape[-1]]
+        assert e["grad"].shape == block.shape
+        if block.numel():
+            assert TP.rel_l2(e["grad"] / tp, block) < TOL_GRAD
+
+
+@pytest.mark.parametrize("n,mesh,V", [(n, m, V) for n, m in mesh_cases()
+                                      for V in CE_VS])
+def test_tile_gather_assembles_padded_tiles(runs, n, mesh, V):
+    """``TPGroup.gather`` of the ranks' padded tiles of a dimension of
+    ``V`` (short and empty ones included) is the whole dimension, the
+    padding cut; its backward gives each rank the sum of the group's
+    cotangents in its tile; a tile of another width is refused."""
+    model = MESHES[n][mesh][1]
+    weights = torch.linspace(-1.0, 1.0, V)
+    for r in runs[n]:
+        e = r[f"{mesh}/gather/{V}"]
+        assert torch.equal(e["y"][0], torch.arange(V, dtype=torch.float32))
+        w = e["grad"].shape[-1]
+        torch.testing.assert_close(
+            e["grad"][0], model * weights[e["start"]:e["start"] + w])
+        assert e["refused"]
 
 
 @pytest.mark.parametrize("n,mesh,arch", [(n, m, a) for n, m in mesh_cases()
                                          for a in MEM_ARCHS])
 def test_no_rank_holds_f32_over_the_whole_vocabulary(runs, n, mesh, arch):
     """Over one sharded step of the reduced bf16 config (its head tied for
-    SmolLM, ``lm_head`` for Qwen3), no f32 tensor a rank makes has the
-    whole vocabulary along any dimension, and its logits [rows, S, V/tp]
-    are among them: the head projects to the rank's block."""
+    SmolLM and MiniCPM, ``lm_head`` for Qwen3), no f32 tensor a rank
+    makes has the whole vocabulary along any dimension, and its logits
+    [rows, S, tile] are among them: the head projects to the rank's
+    tile, padded where ``model`` does not divide MiniCPM's 511 words.
+    There the stored leaf keeps the whole vocabulary (its spec drops
+    ``model``, as the reference's does, and splits ``D`` over ``data``),
+    and only the rank's block of it [V, D/data] does: the optimizer's
+    moments and update of it."""
     port = runs[n]
-    tp = MESHES[n][mesh][1]
+    data, model = MESHES[n][mesh]
     for r in port:
         e = r[f"{mesh}/vocab/{arch}"]
         V = e["vocab"]
-        assert not [s for s in e["shapes"] if V in s], e["shapes"]
-        assert (*e["rows"], V // tp) in e["shapes"]
+        leaf = (V, e["d_model"] // data) if V % model else None
+        assert not [s for s in e["shapes"] if V in s and s != leaf], \
+            e["shapes"]
+        assert e["tile"] < V
+        assert (*e["rows"], e["tile"]) in e["shapes"]
         assert np.isfinite(e["loss"])
+
+
+@pytest.mark.parametrize("n,mesh", mesh_cases())
+def test_sharded_step_with_padded_tiles_equals_world_size_1(runs, n, mesh):
+    """One sharded step of the reduced MiniCPM-2B in f32 at 3 heads and
+    511 words, which ``model`` tiles padded over 2 and 4 ranks (empty
+    tiles of the heads at 4): the loss, the parameters and the moments
+    equal one world-size-1 step within ``TP.TOL_GRAD`` (1e-5) relative
+    L2."""
+    from repro_torch.launch import train as LT
+    from repro_torch.train.step import make_train_step
+
+    cfg, opt = step_setup()
+    step = make_train_step(cfg, opt)
+    state, m = step(LT.init_state(cfg, step, "cpu"),
+                    step_batch(runs["inp"], cfg))
+    loss = float(m["loss"])
+    want = TP.state_wholes(state)
+    assert any(k.startswith("opt.") for k in want)
+    for r in runs[n]:
+        got = r[f"{mesh}/step"]
+        assert got["step"] == 1
+        assert abs(got["loss"] - loss) <= TP.TOL_GRAD * abs(loss)
+        assert got["state"].keys() == want.keys()
+        for k, v in want.items():
+            err = TP.rel_l2(got["state"][k], v)
+            assert err < TP.TOL_GRAD, (k, err)
 
 
 if __name__ == "__main__":
