@@ -6044,23 +6044,27 @@ def attn_windows(cfg):
                    for kind in cfg.layer_kinds if kind in ATTN_KINDS})
 
 
-def dryrun_train_split(arch, policy, shape=None):
+def dryrun_train_split(arch, policy, shape=None, mesh_kind="pod"):
     """How a ``DRYRUN_TRAIN`` cell (a ``shape`` cell: ``DRYRUN_TRAIN_SHAPE``
-    by default) splits on the pod's mesh: (config, microbatches, a rank's
-    rows, its q heads, its words of the vocabulary).
-    The rows are the global batch over the rules' batch axes; the heads
-    and the vocabulary split over ``model`` (tensor parallelism) where
-    the rules give them ``model`` and leave it out of the batch
-    (``parallel.sharding.tile_group``), into padded tiles where ``model``
-    does not divide them: rank 0's, the widest, which the dry run runs."""
+    by default) splits on the ``mesh_kind`` mesh: (config, microbatches, a
+    rank's rows a step, its q heads, its words of the vocabulary).
+    The rows are the global batch over the axes its spec keeps, and where
+    the batch splits over ``model`` in padded tiles (the port's own
+    decision, ``parallel.sharding.row_group``) rank 0's tile of each
+    microbatch's, the widest; the heads and the vocabulary split over
+    ``model`` (tensor parallelism) where the rules give them ``model``
+    and leave it out of the batch (``parallel.sharding.tile_group``), into
+    padded tiles where ``model`` does not divide them: rank 0's, the
+    widest, which the dry run runs."""
     from repro_torch import configs as C
-    from repro_torch.launch.dryrun import apply_policy, make_abstract_mesh
+    from repro_torch.launch.dryrun import (DryOps, apply_policy,
+                                           make_abstract_mesh)
     from repro_torch.parallel import sharding as SH
 
     shape = shape or DRYRUN_TRAIN_SHAPE
     cfg, rules, mb = apply_policy(C.get_config(arch), shape, policy)
     sp = C.SHAPES[shape]
-    mesh = make_abstract_mesh()
+    mesh = make_abstract_mesh(multi_pod=mesh_kind == "multipod")
     model = SH.mesh_shape(mesh)["model"]
 
     def tile(logical, n):
@@ -6070,12 +6074,31 @@ def dryrun_train_split(arch, policy, shape=None):
             return n
         return SH.tile(n, model, 0)[1]
 
-    spec = SH.logical_sharding(("batch", "seq"), mesh, rules,
-                               (sp.global_batch, sp.seq_len)).spec
-    rows = sp.global_batch // math.prod(
-        SH.mesh_shape(mesh)[a] for a in SH.spec_axes(spec, 2)[0])
+    with SH.sharding_context(mesh, rules):
+        rows = SH.shard_rows(mesh, "batch", sp.global_batch)
+        split = SH.row_group(DryOps(mesh, None, {}), sp.global_batch)
+    if split is not None:
+        rows = mb * split.block(rows // mb)[1]
     return (cfg, mb, rows, tile("heads", cfg.num_heads),
             tile("vocab", cfg.vocab_size))
+
+
+def rows_phrase(arch, policy, shape, mesh_kind, rows):
+    """'``rows`` x S a rank' for a cell whose rank runs ``rows`` rows a
+    step (:func:`dryrun_train_split`), and of how many of its batch
+    shard's where the batch splits over ``model`` in padded tiles."""
+    from repro_torch import configs as C
+    from repro_torch.launch.dryrun import apply_policy, make_abstract_mesh
+    from repro_torch.parallel import sharding as SH
+
+    _, rules, _ = apply_policy(C.get_config(arch), shape, policy)
+    sp = C.SHAPES[shape]
+    mesh = make_abstract_mesh(multi_pod=mesh_kind == "multipod")
+    with SH.sharding_context(mesh, rules):
+        n = SH.shard_rows(mesh, "batch", sp.global_batch)
+    of = (f" of its shard's {n} (the batch over model in padded tiles)"
+          if rows != n else "")
+    return f"{rows}{of} x {sp.seq_len:,} a rank"
 
 
 def dryrun_train_flash_shapes(cells=None):
@@ -6088,8 +6111,9 @@ def dryrun_train_flash_shapes(cells=None):
 
     S = C.SHAPES[DRYRUN_TRAIN_SHAPE].seq_len
     shapes = []
-    for arch, policy in DRYRUN_TRAIN if cells is None else cells:
-        cfg, mb, rows, heads, _ = dryrun_train_split(arch, policy)
+    for arch, policy, mk in DRYRUN_TRAIN if cells is None else cells:
+        cfg, mb, rows, heads, _ = dryrun_train_split(arch, policy,
+                                                     mesh_kind=mk)
         shapes += [(rows // mb * heads, S, cfg.head_dim, w)
                    for w in attn_windows(cfg)]
     return shapes
@@ -6181,18 +6205,20 @@ def dryrun_prefill_ssd_shape(arch="mamba2_780m"):
 
 def dryrun_prefill_flash_shapes():
     """flash's [BH, S, hd, window] in phase 27 (b)'s ``prefill_32k`` pod
-    cells (``DRYRUN_MUST_RUN`` that attend): one rank's rows and its q
-    heads (:func:`dryrun_train_split` under ``baseline``: the heads split
-    over ``model`` where it divides them), KV repeated to those heads,
-    each attention kind's window."""
+    cells (``DRYRUN_MUST_RUN`` that attend, then ``DRYRUN_PREFILL``): one
+    rank's rows (its tile of them where the batch splits over ``model``)
+    and its q heads (:func:`dryrun_train_split`: under ``baseline`` the
+    heads split over ``model``, in padded tiles where it does not divide
+    them), KV repeated to those heads, each attention kind's window."""
     from repro_torch import configs as C
     from repro_torch.models.transformer import ATTN_KINDS
 
     S = C.SHAPES[DRYRUN_SHAPE].seq_len
     shapes = []
-    for arch in DRYRUN_MUST_RUN:
-        cfg, _, rows, heads, _ = dryrun_train_split(arch, "flash",
-                                                    DRYRUN_SHAPE)
+    for arch, policy, mk in [(a, "flash", "pod") for a in DRYRUN_MUST_RUN] \
+            + list(DRYRUN_PREFILL):
+        cfg, _, rows, heads, _ = dryrun_train_split(arch, policy,
+                                                    DRYRUN_SHAPE, mk)
         if any(k in ATTN_KINDS for k in cfg.layer_kinds):
             shapes += [(rows * heads, S, cfg.head_dim, w)
                        for w in attn_windows(cfg)]
@@ -7745,12 +7771,23 @@ DRYRUN_SSD_SHAPES = ((48, 128, 256, 64, 128, 1), (6, 128, 256, 64, 128, 2))
 # heads cut from the whole leaves; RecurrentGemma-2B's RG-LRU channels and
 # MLP split, 1 of its 10 heads; MiniCPM-2B's 3 of 36 heads and 7,673 of
 # 122,753 words
-DRYRUN_TRAIN = (("qwen3_moe_30b_a3b", "dp_fsdp+flash"),
-                ("qwen1_5_4b", "dp_fsdp+flash"),
-                ("qwen3_moe_30b_a3b", "baseline+flash"),
-                ("internlm2_1_8b", "baseline+flash"),
-                ("recurrentgemma_2b", "baseline+flash"),
-                ("minicpm_2b", "baseline+flash"))
+# RecurrentGemma-2B's dp_fsdp multipod cell: 256 rows over the 32 (pod,
+# data) shards, 8 a shard, which model's 16 do not divide: each rank runs
+# its padded tile of them, rank 0 (the dry run's) 1 row of 8 with all 10
+# heads and the whole vocabulary.  (arch, policy, mesh)
+DRYRUN_TRAIN = (("qwen3_moe_30b_a3b", "dp_fsdp+flash", "pod"),
+                ("qwen1_5_4b", "dp_fsdp+flash", "pod"),
+                ("qwen3_moe_30b_a3b", "baseline+flash", "pod"),
+                ("internlm2_1_8b", "baseline+flash", "pod"),
+                ("recurrentgemma_2b", "baseline+flash", "pod"),
+                ("minicpm_2b", "baseline+flash", "pod"),
+                ("recurrentgemma_2b", "dp_fsdp+flash", "multipod"))
+# (b)'s prefill cells beside DRYRUN_MUST_RUN's: RecurrentGemma-2B's
+# dp_fsdp pod prefill_32k, 2 rows a (data) shard over model's 16: rank 0
+# runs 1 row, all 10 heads, and relays each layer's cache to its block
+# (every row of the shard, its 128 of the local ring's 2,048 slots).
+# (arch, policy, mesh)
+DRYRUN_PREFILL = (("recurrentgemma_2b", "dp_fsdp+flash", "pod"),)
 DRYRUN_TRAIN_SHAPE = "train_4k"
 # (b)'s train cells: |cross-entropy - random_head_ce| at most this; the
 # labels' logits average over 4,096 draws of sd sigma sqrt(D) (1.01 at
@@ -7887,9 +7924,10 @@ def dryrun_execute(torch, smi):
     """(b): for each arch, the first ``prefill_32k`` cell (``pod``, then
     ``multipod``) whose estimate leaves ``EXECUTE_HEADROOM`` of the card
     free, run there by ``run_cell(execute=True)`` at the config's width
-    and depth with ``flash`` (``ssdk`` for Mamba-2); the launches of each
-    run counted from 0.  Returns {arch: record} of the cells run and the
-    launches of all of them."""
+    and depth with ``flash`` (``ssdk`` for Mamba-2), then each of
+    ``DRYRUN_PREFILL``; the launches of each run counted from 0.  Returns
+    {arch: record} of the ``DRYRUN_MUST_RUN`` cells run, {"arch policy
+    mesh": record} of the others, and the launches of all of them."""
     from repro_torch import configs as C
     from repro_torch.launch.dryrun import EXECUTE_HEADROOM, run_cell
     from repro_torch.models.transformer import ATTN_KINDS
@@ -7899,8 +7937,7 @@ def dryrun_execute(torch, smi):
     for arch in DRYRUN_MUST_RUN:
         cfg = C.get_config(arch)
         attends = any(k in ATTN_KINDS for k in cfg.layer_kinds)
-        policy, kernel = ("flash", "flash_fwd") if attends else \
-            ("ssdk", "ssd_scan")
+        policy = "flash" if attends else "ssdk"
         tried = []
         for mk in ("pod", "multipod"):
             torch.cuda.empty_cache()
@@ -7908,57 +7945,13 @@ def dryrun_execute(torch, smi):
             rec = run_cell(arch, DRYRUN_SHAPE, mk, policy, save=False,
                            execute=True)
             counts = read_counts()
-            m = rec["memory"]
-            est = m["argument_bytes"] + m["temp_bytes"]
-            ex = rec["execute"]
-            if "peak_bytes" not in ex:
+            if "peak_bytes" not in rec["execute"]:
+                m = rec["memory"]
+                est = m["argument_bytes"] + m["temp_bytes"]
                 tried.append(f"{mk} {est / 2**30:.2f} GiB")
                 continue
-            cfg, _, B, heads, words = dryrun_train_split(arch, policy,
-                                                         DRYRUN_SHAPE)
-            if mk != "pod":
-                B = C.SHAPES[DRYRUN_SHAPE].global_batch // 32
-            shapes = [(B * heads, 32768, cfg.head_dim, w)
-                      for w in attn_windows(cfg)] if attends else []
-            check(all(sh in checked for sh in shapes),
-                  f"{rec['cell']}: flash at {shapes}, not among phase 10's "
-                  f"shapes")
-            want = kernel_layers(cfg, kernel)
-            check(rec[("attn_impl" if attends else "ssd_impl")] ==
-                  ("flash" if attends else "kernel"),
-                  f"{rec['cell']}: ran {rec['attn_impl']} / {rec['ssd_impl']}")
-            check(ex["finite"] and ex["shapes_ok"],
-                  f"{rec['cell']}: cache or logits not finite or misshapen")
-            check(counts[kernel] == want and ex["launches"][kernel] == want
-                  and sum(counts.values()) == want,
-                  f"{rec['cell']}: launches {counts}, want {kernel} "
-                  f"{want} and nothing else")
-            if not attends:
-                from repro_torch.kernels.ssd_scan import ssd_scan
-
-                # [BH, nc, Q, hd, ds, G] as the wrapper launched them
-                shapes = sorted(ssd_scan.shapes)
-                check(bool(shapes) and set(shapes) <= set(DRYRUN_SSD_SHAPES),
-                      f"{rec['cell']}: ssd_scan launched at {shapes}, not "
-                      f"among the held {DRYRUN_SSD_SHAPES}")
-            lo, hi = DRYRUN_RATIO
-            q = f"{heads} of {cfg.num_heads} q heads and " if attends else ""
-            tp = (f", {q}{words:,} of {cfg.vocab_size:,} words a rank "
-                  f"(tensor parallelism)"
-                  if heads < cfg.num_heads or words < cfg.vocab_size
-                  else "")
-            log(f"{rec['cell']} ({policy}, {B} x 32,768 a rank{tp}; {kernel} "
-                f"at {shapes}): estimate "
-                f"{est / 2**30:.3f} GiB (argument {m['argument_bytes']} B, "
-                f"temp {m['temp_bytes']} B), measured peak "
-                f"{ex['peak_bytes'] / 2**30:.3f} GiB ({ex['peak_bytes']} B), "
-                f"ratio {ex['ratio']:.4f}; {ex['wall_s']:.3f} s "
-                f"({B * 32768 / ex['wall_s']:.1f} tokens/s, the gather's "
-                f"seeded draws included); {kernel} {want} launches; "
-                f"{rec['cost_analysis']['flops']:.4g} FLOP; {smi}")
-            check(lo <= ex["ratio"] <= hi,
-                  f"{rec['cell']}: measured peak / estimate {ex['ratio']:.4f} "
-                  f"outside [{lo}, {hi}]")
+            kernel, want = dryrun_prefill_gates(rec, counts, arch, policy,
+                                                mk, checked, smi)
             runs[arch] = rec
             total[kernel] += want
             break
@@ -7970,7 +7963,80 @@ def dryrun_execute(torch, smi):
         torch.cuda.empty_cache()
     missing = [a for a in DRYRUN_MUST_RUN if a not in runs]
     check(not missing, f"no {DRYRUN_SHAPE} cell run on the card for {missing}")
-    return runs, total
+    others = {}
+    for arch, policy, mk in DRYRUN_PREFILL:
+        torch.cuda.empty_cache()
+        reset_counts()
+        rec = run_cell(arch, DRYRUN_SHAPE, mk, policy, save=False,
+                       execute=True)
+        counts = read_counts()
+        check("peak_bytes" in rec["execute"], f"{rec['cell']} ({policy}) did "
+              f"not run on the card: {rec['execute']}")
+        kernel, want = dryrun_prefill_gates(rec, counts, arch, policy, mk,
+                                            checked, smi)
+        others[f"{arch} {policy} {mk}"] = rec
+        total[kernel] += want
+        torch.cuda.empty_cache()
+    return runs, others, total
+
+
+def dryrun_prefill_gates(rec, counts, arch, policy, mk, checked, smi):
+    """The gates of a ``prefill_32k`` cell run on the card (``rec``, its
+    launches ``counts``): its kernel (``flash_fwd``, or ``ssd_scan`` where
+    nothing attends) launched once a layer that has it and nothing else,
+    flash at shapes phase 10 holds (``checked``) and ``ssd_scan`` at
+    ``DRYRUN_SSD_SHAPES``, the cache and logits finite and of their
+    shards' shapes, the measured peak within ``DRYRUN_RATIO`` of the
+    estimate; logs the run.  Returns (kernel, its launches)."""
+    from repro_torch.models.transformer import ATTN_KINDS
+
+    m, ex = rec["memory"], rec["execute"]
+    est = m["argument_bytes"] + m["temp_bytes"]
+    cfg, _, B, heads, words = dryrun_train_split(arch, policy, DRYRUN_SHAPE,
+                                                 mk)
+    attends = any(k in ATTN_KINDS for k in cfg.layer_kinds)
+    kernel = "flash_fwd" if attends else "ssd_scan"
+    shapes = [(B * heads, 32768, cfg.head_dim, w)
+              for w in attn_windows(cfg)] if attends else []
+    check(all(sh in checked for sh in shapes),
+          f"{rec['cell']}: flash at {shapes}, not among phase 10's shapes")
+    want = kernel_layers(cfg, kernel)
+    check(rec[("attn_impl" if attends else "ssd_impl")] ==
+          ("flash" if attends else "kernel"),
+          f"{rec['cell']}: ran {rec['attn_impl']} / {rec['ssd_impl']}")
+    check(ex["finite"] and ex["shapes_ok"],
+          f"{rec['cell']}: cache or logits not finite or misshapen")
+    check(counts[kernel] == want and ex["launches"][kernel] == want
+          and sum(counts.values()) == want,
+          f"{rec['cell']}: launches {counts}, want {kernel} {want} and "
+          f"nothing else")
+    if not attends:
+        from repro_torch.kernels.ssd_scan import ssd_scan
+
+        # [BH, nc, Q, hd, ds, G] as the wrapper launched them
+        shapes = sorted(ssd_scan.shapes)
+        check(bool(shapes) and set(shapes) <= set(DRYRUN_SSD_SHAPES),
+              f"{rec['cell']}: ssd_scan launched at {shapes}, not among the "
+              f"held {DRYRUN_SSD_SHAPES}")
+    lo, hi = DRYRUN_RATIO
+    q = f"{heads} of {cfg.num_heads} q heads and " if attends else ""
+    tp = (f", {q}{words:,} of {cfg.vocab_size:,} words a rank (tensor "
+          f"parallelism)" if heads < cfg.num_heads or words < cfg.vocab_size
+          else "")
+    log(f"{rec['cell']} ({policy}, "
+        f"{rows_phrase(arch, policy, DRYRUN_SHAPE, mk, B)}{tp}; {kernel} at "
+        f"{shapes}): "
+        f"estimate {est / 2**30:.3f} GiB (argument {m['argument_bytes']} B, "
+        f"temp {m['temp_bytes']} B), measured peak "
+        f"{ex['peak_bytes'] / 2**30:.3f} GiB ({ex['peak_bytes']} B), ratio "
+        f"{ex['ratio']:.4f}; {ex['wall_s']:.3f} s "
+        f"({B * 32768 / ex['wall_s']:.1f} tokens/s, the gather's seeded draws "
+        f"included); {kernel} {want} launches; "
+        f"{rec['cost_analysis']['flops']:.4g} FLOP; {smi}")
+    check(lo <= ex["ratio"] <= hi,
+          f"{rec['cell']}: measured peak / estimate {ex['ratio']:.4f} "
+          f"outside [{lo}, {hi}]")
+    return kernel, want
 
 
 def dryrun_decode(torch, smi):
@@ -8049,7 +8115,7 @@ def random_head_ce(cfg, words=None):
 
 def dryrun_train(torch, smi):
     """(b)'s train cells: each of ``DRYRUN_TRAIN`` run on the card by
-    ``run_cell(execute=True)``, one rank's step of the pod from seed 0,
+    ``run_cell(execute=True)``, one rank's step of its mesh from seed 0,
     its launches counted from 0.  Gates: the cell fits (a tenth of the
     card left free) and ran; the measured peak within ``DRYRUN_RATIO`` of
     the estimate; each flash kernel launched as ``train_launches_per_step``
@@ -8057,25 +8123,26 @@ def dryrun_train(torch, smi):
     (phases 10 and 14 hold the kernels there); finite metrics; the
     cross-entropy within ``DRYRUN_CE_MARGIN`` of :func:`random_head_ce`
     over the rank's block of the vocabulary; state and metrics of their
-    shards' shapes.  Returns {"arch policy": record} and the launches of
-    all of them."""
+    shards' shapes.  Returns {"arch policy mesh": record} and the
+    launches of all of them."""
     from repro_torch import configs as C
     from repro_torch.launch.dryrun import run_cell
 
     runs = {}
     total = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     lo, hi = DRYRUN_RATIO
-    for arch, policy in DRYRUN_TRAIN:
+    for arch, policy, mk in DRYRUN_TRAIN:
         torch.cuda.empty_cache()
         reset_counts()
-        rec = run_cell(arch, DRYRUN_TRAIN_SHAPE, "pod", policy, save=False,
+        rec = run_cell(arch, DRYRUN_TRAIN_SHAPE, mk, policy, save=False,
                        execute=True)
         counts = read_counts()
         m, ex = rec["memory"], rec["execute"]
         est = m["argument_bytes"] + m["temp_bytes"]
         check("peak_bytes" in ex, f"{rec['cell']} ({policy}) did not run on "
                                   f"the card: {ex}")
-        cfg, mb, B, heads, words = dryrun_train_split(arch, policy)
+        cfg, mb, B, heads, words = dryrun_train_split(arch, policy,
+                                                      mesh_kind=mk)
         want = train_launches_per_step(cfg, mb)
         check(rec["attn_impl"] == "flash" and all(
             counts[k] == n == ex["launches"][k] for k, n in want.items())
@@ -8092,7 +8159,7 @@ def dryrun_train(torch, smi):
               f"{rec['cell']}: flash at {shapes}, not among phases 10 and "
               f"14's shapes")
         n = rec["devices"]
-        loss, ce, aux = (ex[k] * n for k in ("loss", "ce", "aux"))
+        loss, ce, aux = (ex[k] for k in ("loss", "ce", "aux"))
         want_ce = random_head_ce(cfg, words)
         moe = (" (the AbstractMesh has no process group: the MoE takes its "
                "dense fallback, the experts gathered whole a layer at a "
@@ -8102,20 +8169,23 @@ def dryrun_train(torch, smi):
         tp = (f", {heads} of {cfg.num_heads} q heads and {words:,} of "
               f"{cfg.vocab_size:,} words a rank{rs} (tensor parallelism)"
               if heads < cfg.num_heads or words < cfg.vocab_size else "")
-        log(f"{rec['cell']} ({policy}, {cfg.num_layers} layers, {B} x 4,096 "
-            f"a rank, the state sharded{tp}){moe}: estimate "
+        log(f"{rec['cell']} ({policy}, {cfg.num_layers} layers, "
+            f"{rows_phrase(arch, policy, DRYRUN_TRAIN_SHAPE, mk, B)}, the "
+            f"state sharded{tp}){moe}: estimate "
             f"{est / 2**30:.3f} "
             f"GiB (argument {m['argument_bytes']} B, temp {m['temp_bytes']} "
             f"B), measured peak {ex['peak_bytes'] / 2**30:.3f} GiB "
-            f"({ex['peak_bytes']} B), ratio {ex['ratio']:.4f}; the rank's "
-            f"loss {loss:.4f}: cross-entropy {ce:.4f} (ln({words}) + "
+            f"({ex['peak_bytes']} B), ratio {ex['ratio']:.4f}; loss "
+            f"{loss:.4f}: cross-entropy {ce:.4f} (ln({words}) + "
             f"sigma^2 D / 2 = {want_ce:.4f}, ln V "
             f"{math.log(cfg.vocab_size):.4f}), "
-            f"router aux {aux:.4f} x weight {cfg.router_aux_weight} = "
-            f"{aux * cfg.router_aux_weight:.4f}, z-loss "
-            f"{loss - ce - aux * cfg.router_aux_weight:.4f} (the step's "
-            f"mean over ranks, whose sum moves nothing, divides each by "
-            f"{n}); "
+            f"router aux {aux * n:.4f} / {n} ranks x weight "
+            f"{cfg.router_aux_weight} = {aux * cfg.router_aux_weight:.4f}, "
+            f"z-loss {loss - ce - aux * cfg.router_aux_weight:.4f} (the "
+            f"mean over ranks moving nothing: the cross-entropy and z-loss "
+            f"the rank's own, its shares' sums over ranks moving nothing; "
+            f"the aux, every rank's on a process group, the rank's own "
+            f"over the rank count); "
             f"{ex['wall_s']:.3f} s "
             f"({B * 4096 / ex['wall_s']:.1f} tokens/s, the gathers' seeded "
             f"draws included); launches "
@@ -8128,7 +8198,7 @@ def dryrun_train(torch, smi):
               f"{rec['cell']}: the rank's cross-entropy {ce:.4f}, want "
               f"{want_ce:.4f} +- {DRYRUN_CE_MARGIN} (ln({words}) + "
               f"sigma^2 D / 2)")
-        runs[f"{arch} {policy}"] = rec
+        runs[f"{arch} {policy} {mk}"] = rec
         for k in total:
             total[k] += want[k]
         torch.cuda.empty_cache()
@@ -8211,7 +8281,7 @@ def phase_dryrun(np, torch, dev, smi):
         errs = dryrun_kernels(np, torch, dev)
         card_headroom(torch, dev, "(b)'s cells' start, (a)'s workers running")
         t_b = time.perf_counter()
-        runs, launches = dryrun_execute(torch, smi)
+        runs, prefills, launches = dryrun_execute(torch, smi)
         t_b = time.perf_counter() - t_b
         t_t = time.perf_counter()
         trains, train_launches = dryrun_train(torch, smi)
@@ -8227,7 +8297,8 @@ def phase_dryrun(np, torch, dev, smi):
         f"{a['fits']} fit one card; {a['cpu_s']:.1f} s of cell time in "
         f"{DRYRUN_WORKERS} processes, {t_wait:.1f} s waited for after (b)")
     log(f"(b) {len(runs)} of 10 archs ran a {DRYRUN_SHAPE} cell on the card "
-        f"in {t_b:.1f} s: {sorted(runs)}; launches {launches}; "
+        f"and {len(prefills)} more ({sorted(prefills)}) in {t_b:.1f} s: "
+        f"{sorted(runs)}; launches {launches}; "
         f"{len(trains)} {DRYRUN_TRAIN_SHAPE} cells in {t_t:.1f} s: "
         f"{sorted(trains)}; launches {train_launches}; "
         f"{len(decodes)} {DRYRUN_DECODE_SHAPE} cells in {t_d:.1f} s: "

@@ -55,10 +55,10 @@ def _check(x, la, Bm, Cm) -> None:
     if tuple(la.shape) != (BH, nc, Q):
         raise ValueError(f"la must be [{BH}, {nc}, {Q}], got {tuple(la.shape)}")
     if Bm.dim() != 4 or tuple(Bm.shape[1:3]) != (nc, Q) \
-            or Bm.shape != Cm.shape or Bm.shape[0] < 1:
+            or Bm.shape != Cm.shape or Bm.shape[0] < min(BH, 1):
         raise ValueError(f"Bm, Cm must be [G, {nc}, {Q}, ds], got "
                          f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
-    if BH % Bm.shape[0]:
+    if Bm.shape[0] and BH % Bm.shape[0]:
         raise ValueError(f"Bm, Cm hold {Bm.shape[0]} groups, which do not "
                          f"divide BH = {BH}")
     if len({t.device for t in (x, la, Bm, Cm)}) != 1:
@@ -102,15 +102,17 @@ def ssd_scan(x: torch.Tensor, la: torch.Tensor, Bm: torch.Tensor,
     """x [BH,nc,Q,hd], la [BH,nc,Q], Bm/Cm [G,nc,Q,ds] (G divides BH) ->
     y [BH,nc,Q,hd].  Launches the CUDA kernels for CUDA tensors (f32,
     hd <= 64, ds <= 128), a scratch of cum, states and C Bᵀ per group;
-    CPU tensors take the plain version, meta tensors the launch's shapes.
-    Refuses, on every device, inputs that require a gradient while grad
-    mode is on."""
+    CPU tensors take the plain version, meta tensors the launch's shapes;
+    BH 0 (and G 0) launches nothing.  Refuses, on every device, inputs
+    that require a gradient while grad mode is on."""
     _check(x, la, Bm, Cm)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, la, Bm, Cm)):
         raise SsdScanGradError(
             "ssd_scan has no gradient (the reference's SSD kernel has no "
             "VJP): train SSD blocks with ssd_impl='xla', or call ssd_scan "
             "under torch.no_grad() / torch.inference_mode()")
+    if not x.shape[0]:
+        return torch.empty_like(x)  # no row (a rank's empty tile): no launch
     if x.device.type == "cpu":
         return ssd_scan_plain(x, la, Bm, Cm)
     if x.device.type not in ("cuda", "meta"):

@@ -22,7 +22,16 @@ rank of the port runs, on ``meta`` tensors (shapes and types, no storage):
   the vocabulary; their sums over the group move nothing here and their
   gathers over it repeat the rank's block, so a rank's cross-entropy is
   over its own block.  On the ``AbstractMesh`` the MoE takes its dense
-  fallback and gathers its experts whole, a layer at a time;
+  fallback and gathers its experts whole, a layer at a time.  Where the
+  rules put the batch over ``model`` and ``model`` does not divide the
+  global batch (``dp_fsdp``'s multipod ``train_4k``: 8 rows a batch
+  shard over 16 ``model`` ranks), the rank runs its padded tile of each
+  microbatch's rows (``parallel.sharding.row_group``): coordinate 0's,
+  the widest, so the estimate is the largest rank's.  A rank's loss is
+  its share of the global batch's masked mean, whose sum over ranks
+  moves nothing here: the cross-entropy reads the rank's own mean, and
+  the MoE's aux (every rank's on a process group; here the dense
+  fallback's over the rank's tokens) the rank's own over the rank count;
 * prefill and decode (``train/serve.py``'s steps) take the parameters
   as the rank's shards too, gathered a layer at a time where the forward
   uses them, the products split over ``model`` as in the train step.
@@ -32,8 +41,14 @@ rank of the port runs, on ``meta`` tensors (shapes and types, no storage):
   them (the softmax's max and sums over ``model``, which move nothing
   here); a split RG-LRU's or SSD's cache is the rank's block of its
   channels or heads, run in place (the SSD's conv window gathered whole
-  but its rows for a layer and cut back).  Nothing is gathered whole
-  before the step;
+  but its rows for a layer and cut back).  Where the batch splits over
+  ``model`` a prefill runs the rank's tile of the rows as the train step
+  does, and its outputs are their leaves' blocks: the logits' rows and
+  each layer's cache (whose rows, ``cache_batch``, have no ``model``)
+  gathered over the group (:class:`DryOps` repeats the rank's tile, cut
+  back to the shard's rows: the gathered rows are counted once), the
+  cache then cut to the rank's block of the slots.  Nothing is gathered
+  whole before the step;
 * the step runs on the rank's batch shard, and each output is cut back
   to the rank's block (a copy; none where it is the block already).
 
@@ -411,7 +426,8 @@ def build_lowerable(arch: str, shape: str, mesh, policy: str = "baseline",
                 step = LT.make_sharded_step(
                     step_fn, mesh, state_sh,
                     ops=DryOps(mesh, gather, state["params"]),
-                    place=lambda new, _: place_tree(new, state), mean=mean)
+                    place=lambda new, _: place_tree(new, state), mean=mean,
+                    rows=sp.global_batch)
                 return step(st, gather_tree(bt, batch, gather))
 
         return ctx, Lowerable("train", cfg, train_program, (state, batch),
@@ -449,7 +465,7 @@ def build_lowerable(arch: str, shape: str, mesh, policy: str = "baseline",
         def prefill_program(gather, p, bt):
             with ctx:
                 p = shards(p, params, gather)
-                c, lg = step(p, gather_tree(bt, batch, gather))
+                c, lg = step(p, gather_tree(bt, batch, gather), rows=B)
                 return place_tree(c, cache), logits_out(p, lg)
 
         return ctx, Lowerable("prefill", cfg, prefill_program, (params, batch),
@@ -685,8 +701,9 @@ def execute_cell(low: Lowerable) -> dict:
     :func:`decode_pos`); -> its measured peak, wall time, kernel
     launches and whether every output is finite (a train cell's metrics:
     its loss among them) and of its shard's shape; a train cell's
-    ``loss``, ``ce`` and ``aux`` (the rank's, divided by the rank count:
-    the mean over ranks moves nothing)."""
+    ``loss``, ``ce`` and ``aux``, their mean over ranks moving nothing:
+    ``ce`` the rank's own (its share's sums over ranks move nothing),
+    ``aux`` the rank's own over the rank count (see the module)."""
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)

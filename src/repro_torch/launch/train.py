@@ -15,8 +15,14 @@ their count, ``parallel.sharding.MeshOps``), and the optimizer updates
 only the local blocks (``parallel.sharding.StateShards`` for its sums over
 whole leaves).  The loss and its extras are averaged over every rank.
 The state is donated: the step empties the dicts it was given.  At world
-size 1 this is ``make_train_step``'s step, bit for bit.  Where a leaf's
-spec splits its product over ``model`` and the rules' batch leaves
+size 1 this is ``make_train_step``'s step, bit for bit.  Where the rules
+put the batch over ``model`` (``dp_fsdp``, ``dp_all``, ``attn_dp``) and
+``model`` does not divide the global batch, each rank of a ``model``
+group runs only its padded tile of its shard's rows, a microbatch at a
+time (``parallel.sharding.row_group``; trailing tiles short or empty, a
+rank with none still running every collective of the step), and each
+rank's loss is its share of the global batch's masked mean.  Where a
+leaf's spec splits its product over ``model`` and the rules' batch leaves
 ``model`` out (``baseline``'s ``heads``, ``kv_heads``, ``ffn`` and
 ``vocab``), the ranks of a ``model`` group split the product (tensor
 parallelism, ``parallel.sharding.tp_group``): each runs its batch shard
@@ -186,34 +192,44 @@ def _mean_over_ranks(x: torch.Tensor, n: int | None = None,
 
 
 def make_sharded_step(step_fn, mesh, state_sh, *, ops=None,
-                      place=from_local, mean=_mean_over_ranks):
+                      place=from_local, mean=_mean_over_ranks,
+                      rows: int | None = None):
     """The sharded counterpart of ``step_fn`` (a ``make_train_step`` step):
     ``(state of DTensors, this rank's batch) -> (state of DTensors,
     metrics)``, the state sharded by ``state_sh`` throughout (see the
     module).  Each parameter goes to the forward as a
     ``parallel.sharding.ShardedLeaf`` of its local block; the gathers'
     backward sums each gradient over the ranks that hold its block and
-    divides it by the rank count, so that ranks sharing a batch shard
-    (along ``model``: equal losses; partial-sum gradients of the MoE's
-    experts, ``models/moe.py``, and of the products split over ``model``,
-    each rank's own block's) and ranks on other shards together give the
-    global batch's gradient, in the block.  The loss and its extras are averaged
-    over every rank.  At one rank nothing is gathered or reduced: the
-    local blocks are the whole leaves.  The step runs under ``mesh`` and
-    the rules current when it was made.  ``ops``
-    (``parallel.sharding.MeshOps`` over ``mesh`` by default), ``place``
-    and ``mean`` are its collectives and pieces; the dry run
-    (``launch/dryrun.py``) runs the same step with its own, on local
-    tensors (which ``to_local`` passes as they are)."""
+    divides it by the rank count, and each rank's loss is its share of
+    the global batch's masked mean (``train/step.py``'s ``rank_share``),
+    so that ranks sharing a batch shard (along ``model``: the same rows;
+    partial-sum gradients of the MoE's experts, ``models/moe.py``, and of
+    the products split over ``model``, each rank's own block's) and ranks
+    on other shards together give the global batch's gradient, in the
+    block.  The loss and its extras are averaged over every rank: the
+    global batch's.  ``rows`` is the global batch's rows, of which the
+    rank is handed its shard under the batch's spec (None: its block over
+    every batch axis, as :func:`batch_shard` gives the loader); where the
+    rules put the batch over ``model`` and ``model`` does not divide
+    ``rows`` (``parallel.sharding.row_group``), each rank of a ``model``
+    group runs its padded tile of each microbatch's rows, maybe short or
+    empty.  At one rank nothing is gathered or reduced: the local blocks
+    are the whole leaves.  The step runs under ``mesh`` and the rules
+    current when it was made.  ``ops`` (``parallel.sharding.MeshOps`` over
+    ``mesh`` by default), ``place`` and ``mean`` are its collectives and
+    pieces; the dry run (``launch/dryrun.py``) runs the same step with its
+    own, on local tensors (which ``to_local`` passes as they are)."""
     rules = SH.current_rules()
     ops = SH.MeshOps(mesh) if ops is None else ops
     shards = SH.StateShards(ops, state_sh) if ops.n > 1 else None
+    with SH.sharding_context(mesh, rules):
+        split = SH.row_group(ops if ops.n > 1 else None, rows)
 
     def sharded_step(state, batch):
         st = to_local(state)
         params = SH.sharded_leaves(st["params"], state_sh["params"], ops)
         with SH.sharding_context(mesh, rules):
-            loss, extras, grads = step_fn.grads(params, batch)
+            loss, extras, grads = step_fn.grads(params, batch, split=split)
         del params
         loss = mean(loss)
         extras = {k: mean(v) for k, v in extras.items()}

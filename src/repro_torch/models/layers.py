@@ -282,7 +282,7 @@ def attention_seq_kv(p, x, cfg, *, window: int = 0):
     ``[B, H, q_chunk, S]``.  Under tensor parallelism ``H`` is the rank's
     tile of the heads (see the module), whose output is summed over the
     group, and ``k_kv`` / ``v_kv`` hold the KV heads they read; a rank
-    whose tile of the heads is empty launches no kernel.
+    whose tile of the heads, or of the rows, is empty launches no kernel.
     """
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
@@ -303,10 +303,10 @@ def attention_seq_kv(p, x, cfg, *, window: int = 0):
         y = _out_proj(o, p["wo"])
         return (y if tp is None else tp.sum(y)), (k_kv, v_kv)
 
-    if H == 0:
-        # an empty tile of the heads: no launch, zeros [B, S, D] summed
-        # over the group, its weights' gathers still in the graph (their
-        # backward's collectives run on every rank)
+    if H == 0 or B == 0:
+        # an empty tile of the heads or of the rows: no launch, zeros [B,
+        # S, D] (summed over the group), its weights' gathers still in the
+        # graph (their backward's collectives run on every rank)
         return out(q + k + v)
     if cfg.attn_impl == "flash":
         bq = bk = min(max(128, cfg.q_chunk // 8), 512, S)

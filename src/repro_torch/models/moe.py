@@ -30,7 +30,12 @@ is handed the slice:
   (``E/ep`` over ``model``, ``F/dp`` over ``data``); the tokens are
   ``all_gather``ed over ``data`` to visit them and the partial
   down-projections reduce-scattered back.
-* ``aux`` is averaged over ``model`` and each batch axis (``pmean``).
+* ``aux`` is the mean over the ranks along ``model`` and each batch
+  axis, weighted by their tokens: the reference's ``pmean`` where every
+  rank has as many, and a rank with none adds nothing.  Where the batch
+  splits over ``model`` in padded tiles (``parallel.sharding.row_group``:
+  tiles of unequal width, some empty), the bins hold the widest tile's
+  tokens, so that every rank exchanges the same.
 
 **Gradients.**  The collectives are differentiable, each backward its
 forward's adjoint (``all_gather`` <-> sum-and-slice, ``all_reduce`` sum
@@ -110,8 +115,10 @@ def _router(x_tok, w_router, cfg):
 
 
 def _aux_loss(probs, top_e, cfg):
-    """GShard load-balance loss: E * sum_e f_e * p_e."""
+    """GShard load-balance loss: E * sum_e f_e * p_e; 0 over no token."""
     E = cfg.num_experts
+    if not top_e.shape[0]:
+        return probs.sum()
     f = F.one_hot(top_e, E).float().mean(dim=(0, 1))
     return E * torch.sum(f * probs.mean(dim=0))
 
@@ -200,12 +207,17 @@ class _AllToAll(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def moe_ffn(p, x, cfg, prefix: str = ""):
+def moe_ffn(p, x, cfg, prefix: str = "", rows=None):
     """x: [B,S,D] -> (y [B,S,D], aux_loss f32 scalar).  Under a mesh with a
     ``model`` axis, ``x`` is this rank's batch shard and the
     expert-parallel paths run (see the module's docstring); otherwise the
     reference's ``_moe_dense_fallback``.  An :class:`AbstractMesh` has no
-    process group and takes the dense path."""
+    process group and takes the dense path.  ``rows`` (``transformer.
+    forward``'s ``(group, n)``): ``x`` is the rank's padded tile of ``n``
+    rows split over ``model``, maybe short or empty; the bins every rank
+    exchanges hold the widest tile's tokens.  ``aux`` is every rank's, the
+    mean over ranks weighted by their tokens (a rank with none adds
+    nothing)."""
     mesh = current_mesh()
     if (mesh is None or isinstance(mesh, AbstractMesh)
             or "model" not in mesh_shape(mesh)):
@@ -215,10 +227,9 @@ def moe_ffn(p, x, cfg, prefix: str = ""):
     ep = sizes["model"]
     batch_rule = current_rules().get("batch")
     dp_over_model = "model" in batch_rule
-    if dp_over_model:
-        batch_axes = tuple(a for a in batch_rule if a in sizes)
-    else:
-        batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    # the axes over which ranks hold other tokens, or the same (aux's mean)
+    axes = (tuple(a for a in batch_rule if a in sizes) if dp_over_model
+            else ("model",) + tuple(a for a in ("pod", "data") if a in sizes))
     E, k = cfg.num_experts, cfg.experts_per_token
     if E % ep:
         raise ValueError(f"experts {E} must divide EP size {ep}")
@@ -249,7 +260,8 @@ def moe_ffn(p, x, cfg, prefix: str = ""):
     aux = _aux_loss(probs, top_e, cfg)
 
     if use_a2a:
-        cap = capacity(t, cfg)
+        widest = t if rows is None else -(-rows[1] // rows[0].size) * S
+        cap = capacity(widest, cfg)
         buf, comb_w, slot = _bin_tokens(x_tok, top_p, top_e, E, cap)
         recv = _AllToAll.apply(buf.reshape(ep, e_loc * cap, D), g_model)
         recv = recv.reshape(ep, e_loc, cap, D)   # [src, e, cap, D]
@@ -283,9 +295,11 @@ def moe_ffn(p, x, cfg, prefix: str = ""):
             out = _expert_ffn(buf, wg, wu, wd)
         y_tok = _combine(out, slot, comb_w, t, k)
         y = AllReduce.apply(y_tok.reshape(B, S, D), ops, "model", False)
-    aux = AllReduce.apply(aux, ops, "model", True)
-    for a in batch_axes:
-        aux = AllReduce.apply(aux, ops, a, True)
+    # sum of aux x tokens and of tokens over every rank, in one reduction
+    tot = torch.stack([aux * t, aux.new_tensor(float(t))])
+    for a in axes:
+        tot = AllReduce.apply(tot, ops, a, False)
+    aux = tot[0] / tot[1]
 
     if cfg.shared_expert:
         y = y + _shared(p, x, cfg, prefix)

@@ -221,7 +221,8 @@ def _sub(params: dict, prefix: str) -> dict:
 # block forward
 
 
-def _attn_seq_with_cache(p, x, cfg, kind, want_cache: bool, ops=None):
+def _attn_seq_with_cache(p, x, cfg, kind, want_cache: bool, ops=None,
+                         rows=None):
     """Attention over the sequence and, for a prefill, its serving cache:
     the last ``attn_window`` positions of a local layer, else all of
     them; of those slots the rank's block where the cache's ``cache_seq``
@@ -229,7 +230,10 @@ def _attn_seq_with_cache(p, x, cfg, kind, want_cache: bool, ops=None):
     ``ops``, the rank's shards'), a copy that owns only the block's
     bytes.  Where tensor parallelism left the rank only the KV heads its
     q heads read, the block's K and V of every KV head come from the
-    layer's input over the block's positions (``layers.cache_kv``)."""
+    layer's input over the block's positions (``layers.cache_kv``).
+    With ``rows`` (:func:`forward`'s: ``x`` is the rank's tile of the
+    cache's rows) the group's K and V of those positions are gathered
+    over the rows first, then cut to the block."""
     window = cfg.attn_window if kind == "attn_local" else 0
     y, (k, v) = L.attention_seq_kv(p, x, cfg, window=window)
     if not want_cache:
@@ -239,14 +243,22 @@ def _attn_seq_with_cache(p, x, cfg, kind, want_cache: bool, ops=None):
     seq = SH.cache_seq_group(ops, W)
     lo, n = seq.block(W) if seq is not None else (0, W)
     first = Sq - W + lo             # the position in the rank's first slot
+    slot_pos = torch.arange(first, first + n, dtype=torch.int32,
+                            device=x.device)
+    if rows is not None:
+        if k.shape[2] != cfg.num_kv_heads:
+            raise ValueError("a prefill splits its rows or its KV heads "
+                             "over model, not both")
+        group, n_rows = rows
+        k, v = (SH.owned(group.gather(t[:, Sq - W:], 0, n_rows)
+                         .narrow(1, lo, n)) for t in (k, v))
+        return y, {"k": k, "v": v, "slot_pos": slot_pos}
     if k.shape[2] != cfg.num_kv_heads:
         k, v = L.cache_kv(p, x[:, first:first + n], cfg, first)
     else:
         k, v = k[:, first:first + n], v[:, first:first + n]
         if seq is not None:
             k, v = k.clone(), v.clone()
-    slot_pos = torch.arange(first, first + n, dtype=torch.int32,
-                            device=x.device)
     return y, {"k": k, "v": v, "slot_pos": slot_pos}
 
 
@@ -278,11 +290,12 @@ def _put_back(cache: dict, whole: dict) -> None:
 
 
 def block_fwd(kind: str, cfg: ModelConfig, p: dict, x, *, mode: str, pos=None,
-              cache=None, ops=None, tp=None):
+              cache=None, ops=None, tp=None, rows=None):
     """Returns (x, new_cache, aux_loss).  ``ops``: the rank's
     ``MeshOps`` where ``p`` holds its shards (a prefill cuts its cache to
     the rank's block of slots).  ``tp``: the group over which an RG-LRU
-    or SSD block runs split (:func:`_gather_block`'s), else None."""
+    or SSD block runs split (:func:`_gather_block`'s), else None.
+    ``rows``: :func:`forward`'s."""
     if mode == "decode":
         whole = _whole_cache(kind, cache, tp)
         if whole is not None:
@@ -298,11 +311,11 @@ def block_fwd(kind: str, cfg: ModelConfig, p: dict, x, *, mode: str, pos=None,
             a, new_cache = L.attention_decode(p, h, cfg, cache, pos, window=window)
         else:
             a, new_cache = _attn_seq_with_cache(p, h, cfg, kind,
-                                                mode == "prefill", ops)
+                                                mode == "prefill", ops, rows)
         x = x + a
         h = L.rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
         if kind == "attn_moe":
-            y, aux = M.moe_ffn(p, h, cfg)
+            y, aux = M.moe_ffn(p, h, cfg, rows=rows)
         else:
             y = L.mlp(p, h, cfg)
         return x + y, new_cache, aux
@@ -313,7 +326,7 @@ def block_fwd(kind: str, cfg: ModelConfig, p: dict, x, *, mode: str, pos=None,
         else:
             y, new_cache = S.ssd_seq_cached(p, h, cfg, tp=tp,
                                             want_cache=mode == "prefill")
-        return x + y, new_cache, aux
+        return x + y, _rows_gathered(new_cache, rows), aux
     if kind == "rglru":
         h = L.rmsnorm(x, p["ln1_scale"], cfg.norm_eps)
         if mode == "decode":
@@ -323,8 +336,19 @@ def block_fwd(kind: str, cfg: ModelConfig, p: dict, x, *, mode: str, pos=None,
                                               want_cache=mode == "prefill")
         x = x + y
         h = L.rmsnorm(x, p["ln2_scale"], cfg.norm_eps)
-        return x + L.mlp(p, h, cfg), new_cache, aux
+        return x + L.mlp(p, h, cfg), _rows_gathered(new_cache, rows), aux
     raise ValueError(f"unknown block kind {kind}")
+
+
+def _rows_gathered(cache: dict | None, rows) -> dict | None:
+    """A prefill's RG-LRU or SSD cache of the rank's tile of the rows
+    gathered over ``rows``' group to all of them (:func:`forward`'s
+    ``rows``), in tensors that own only their bytes (the gather's padding
+    cut); the cache itself without ``rows``."""
+    if cache is None or rows is None:
+        return cache
+    group, n = rows
+    return {k: SH.owned(group.gather(v, 0, n)) for k, v in cache.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +441,7 @@ def _maybe_remat(fn, cfg: ModelConfig):
 
 
 def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train",
-            cache: dict | None = None, pos=None):
+            cache: dict | None = None, pos=None, rows=None):
     """Run the stack.  Returns (logits f32, new_cache, aux_loss); the
     logits over the rank's tile of the vocabulary where
     :func:`head_split` gives a group.
@@ -427,6 +451,13 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train"
     ``[B]`` vector when the cache uses the per-slot (continuous batching)
     layout — see :func:`cache_specs`.  Decode writes into ``cache``'s
     tensors and returns the same tensors as the new cache.
+
+    ``rows``: ``(group, n)`` where the inputs are the rank's padded tile
+    (``TPGroup.block``) of ``n`` rows that the ranks of ``group`` split
+    (``parallel.sharding.row_group``; a tile may be short or empty): the
+    MoE's bins hold the group's widest tile's tokens, and a prefill's
+    cache holds all ``n`` rows, each layer's entries gathered over the
+    group (attention's then cut to the rank's block of the slots).
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r} (train | prefill | decode)")
@@ -445,7 +476,7 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train"
             c = slot_caches[slot] if slot_caches is not None else None
             bp, tp = _gather_block(slot_params[slot], kind, c)
             x, nc, aux = block_fwd(kind, cfg, bp, x, mode=mode, pos=pos,
-                                   cache=c, ops=ops, tp=tp)
+                                   cache=c, ops=ops, tp=tp, rows=rows)
             del bp
             if nc is not None:
                 outs[slot] = nc
@@ -487,7 +518,7 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, mode: str = "train"
         c = _sub(cache, f"t{ti}_") if (cache and mode == "decode") else None
         p, tp = _gather_block(_sub(params, f"t{ti}_"), kind, c)
         x, nc, aux = block_fwd(kind, cfg, p, x, mode=mode, pos=pos, cache=c,
-                               ops=ops, tp=tp)
+                               ops=ops, tp=tp, rows=rows)
         del p
         aux_total = aux_total + aux
         if nc is not None:

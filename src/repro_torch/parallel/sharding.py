@@ -57,6 +57,14 @@ the rank count: ranks of one ``model`` group compute the same loss, so
 this is the global batch's gradient, as for the MoE's expert-parallel
 paths.
 
+**The batch splits over ``model``** where the rules put it there
+(``dp_fsdp``, ``dp_all``, ``attn_dp``) and ``model`` does not divide the
+global batch, so that the batch's spec drops it (:func:`row_group`):
+each rank of a ``model`` group runs its padded tile of its shard's rows
+(:meth:`TPGroup.block`), GSPMD's tiling of the reference's activations
+there, a trailing tile short or empty; a prefill gathers the rows back
+where its outputs hold them (:meth:`TPGroup.gather`).
+
 **Serving caches split over ``model``** by the rules' ``cache_seq``
 (sequence parallelism in decode): a cache leaf's stored spec decides
 (:func:`split_group`), and a prefill, which has no cache leaf yet,
@@ -389,10 +397,17 @@ def distribute(full: torch.Tensor, sharding: NamedSharding, device=None):
     local = full[sharding.local_slices(full.shape, mesh.get_coordinate())]
     if device is not None:
         local = local.to(device)
-    local = local.contiguous()
-    if local.untyped_storage().nbytes() > local.numel() * local.element_size():
-        local = local.clone()
-    return from_local(local, sharding)
+    return from_local(owned(local), sharding)
+
+
+def owned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous in a tensor that owns only its bytes: ``x`` itself
+    where it does, else a copy (a view would keep a larger storage
+    alive)."""
+    x = x.contiguous()
+    if x.untyped_storage().nbytes() > x.numel() * x.element_size():
+        x = x.clone()
+    return x
 
 
 def from_local(local: torch.Tensor, sharding: NamedSharding):
@@ -744,6 +759,11 @@ class TPGroup:
         y = AllGather.apply(x, self.ops, TP_AXIS, dim)
         return y if c * self.size == n else y.narrow(dim, 0, n)
 
+    def cut(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's tile (:meth:`block`) of ``x`` along ``dim`` (a
+        view)."""
+        return x.narrow(dim, *self.block(x.shape[dim]))
+
     def rmsnorm(self, x: torch.Tensor, scale: torch.Tensor,
                 eps: float) -> torch.Tensor:
         """``layers.rmsnorm`` over a last dimension split over the group:
@@ -839,6 +859,40 @@ def rule_group(ops: MeshOps | None, logical: str, n: int) -> TPGroup | None:
     ``n``.  None without ``ops``."""
     if ops is None or _spec_for((logical,), ops.mesh, current_rules(),
                                 (n,)) != (TP_AXIS,):
+        return None
+    return _model_group(ops)
+
+
+def shard_rows(mesh, logical: str, rows: int) -> int:
+    """The rows a rank holds of a leaf of ``rows`` rows whose first
+    dimension is named ``logical``: ``rows`` over the axes its spec keeps
+    (the current rules, ``model`` dropped where it does not divide)."""
+    spec = _spec_for((logical,), mesh, current_rules(), (rows,))
+    sizes = mesh_shape(mesh)
+    return rows // math.prod(sizes[a] for a in spec_axes(spec, 1)[0])
+
+
+def row_group(ops: MeshOps | None, rows: int | None,
+              logical: str = "batch") -> TPGroup | None:
+    """The group of ``model`` ranks that split the rows of a rank's shard
+    of a leaf named ``logical`` (:func:`shard_rows`, of a global batch of
+    ``rows``) between them, each running its padded tile
+    (:meth:`TPGroup.block`, the trailing tiles short or empty): where the
+    current rules put ``batch`` over a ``model`` axis of more than one
+    rank on ``ops``'s mesh (``dp_fsdp``, ``dp_all``, ``attn_dp``) and the
+    spec of ``logical`` leaves ``model`` out.  For ``"batch"`` that is
+    where ``model`` does not divide the rows: the batch's spec dropped
+    it, the rank is handed its shard over the other axes, and GSPMD
+    splits the reference's activations over ``model`` all the same,
+    padded.  For ``"cache_batch"``, which has no ``model`` under those
+    rules, it is wherever the batch splits over ``model``: a prefill's
+    cache holds every row of the shard.  None elsewhere, and without
+    ``ops`` or ``rows`` (each rank's rows its own)."""
+    if ops is None or rows is None:
+        return None
+    rules = current_rules()
+    if TP_AXIS not in rules.get("batch") or TP_AXIS in spec_axes(
+            _spec_for((logical,), ops.mesh, rules, (rows,)), 1)[0]:
         return None
     return _model_group(ops)
 

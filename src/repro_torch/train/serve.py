@@ -14,7 +14,17 @@ block of each layer's slots where the rules' ``cache_seq`` splits them,
 and its logits the rank's tile of the vocabulary where the head splits
 (padded: a trailing rank's may be short or empty);
 decode takes the cache as ``ShardedLeaf`` s of its blocks and returns
-the blocks, updated in place."""
+the blocks, updated in place.
+
+Where the rules put the batch over ``model`` and ``model`` does not
+divide a prefill's global batch of ``rows`` (``parallel.sharding.
+row_group``), each rank of a ``model`` group runs its padded tile of its
+shard's rows (short or empty on trailing ranks) and gathers its logits'
+rows back over the group; its cache, whose rows have no ``model``
+(``cache_batch``), holds every row of the shard, each layer's gathered
+over the group and cut to the rank's block of the slots.  So a prefill
+returns its output leaves' blocks, also where ``model`` divides the
+batch and each rank ran its own rows."""
 
 from __future__ import annotations
 
@@ -24,13 +34,31 @@ import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding as SH
 
 
 def make_prefill_step(cfg: ModelConfig):
     @torch.inference_mode()
-    def prefill_step(params, inputs):
-        logits, cache, _ = T.forward(params, inputs, cfg, mode="prefill")
-        return cache, logits[:, -1:]
+    def prefill_step(params, inputs, rows: int | None = None):
+        """inputs: the rank's shard of a batch of ``rows`` rows (where
+        ``params`` are its shards; else the whole batch) -> (cache, logits
+        [B, 1, V] of the last position).  Where the batch splits over
+        ``model`` (see the module) the rank runs its tile of the rows."""
+        ops = SH.leaf_ops(params)
+        split = SH.row_group(ops, rows)
+        group = SH.row_group(ops, rows, "cache_batch")
+        if split is not None:
+            inputs = {k: split.cut(torch.as_tensor(v))
+                      for k, v in inputs.items()}
+        relay = None if group is None else (
+            group, SH.shard_rows(ops.mesh, "cache_batch", rows))
+        logits, cache, _ = T.forward(params, inputs, cfg, mode="prefill",
+                                     rows=relay)
+        logits = logits[:, -1:]
+        if split is not None:
+            logits = SH.owned(split.gather(
+                logits, 0, SH.shard_rows(ops.mesh, "batch", rows)))
+        return cache, logits
     return prefill_step
 
 

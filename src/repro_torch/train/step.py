@@ -27,13 +27,19 @@ IGNORE = -100
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_weight: float = 1e-4, vocab: SH.TPGroup | None = None,
-                  vocab_size: int | None = None):
+                  vocab_size: int | None = None,
+                  ranks: SH.MeshOps | None = None):
     """logits [B,S,V] f32, labels [B,S] integers (IGNORE = masked).
     Returns (loss with the z-loss, mean cross-entropy).  With ``vocab``
     (``parallel.sharding.TPGroup``) the logits are this rank's padded
     tile (``TPGroup.block``) of a vocabulary of ``vocab_size``, the
     group's tiles in rank order (vocab-parallel,
-    :class:`_VocabParallel`); the mask and denominator are the same."""
+    :class:`_VocabParallel`); the mask and denominator are the same.
+    With ``ranks`` (the ``MeshOps`` of a rank's shards) both are the
+    rank's share of the global batch's masked means: its masked sums
+    over :func:`rank_share`'s denominator, so that the mean over ranks,
+    of the values and of the gradients, is the global batch's however
+    its rows fall (a rank's rows may be few, or none)."""
     labels = torch.as_tensor(labels, device=logits.device)
     mask = (labels != IGNORE).float()
     labels_c = torch.clamp(labels, min=0).long()
@@ -47,10 +53,27 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         lse, picked = _VocabParallel.apply(logits, labels_c, vocab,
                                            vocab_size)
     ll = picked - lse
-    denom = torch.clamp(mask.sum(), min=1.0)
+    denom = (torch.clamp(mask.sum(), min=1.0) if ranks is None
+             else rank_share(mask.sum(), ranks))
     ce = -(ll * mask).sum() / denom
     zl = z_weight * torch.square(lse * mask).sum() / denom
     return ce + zl, ce
+
+
+def rank_share(count: torch.Tensor, ops: SH.MeshOps) -> torch.Tensor:
+    """The denominator of a rank's share of a mean over every rank's
+    items: ``count`` (this rank's items, 0-d) summed over every rank with
+    no gradient, clamped to 1, over the rank count.  A sum over this
+    rank's items divided by it, averaged over the ranks, is the mean over
+    all items, and so is its gradient averaged over the ranks
+    (``MeshOps.reduce`` divides by the rank count); ranks that hold the
+    same items (a ``model`` group splitting a product) count them once
+    each, which the sum's copies cancel.  Under the dry run's collectives,
+    which move nothing, the share is ``count`` over the rank count: the
+    mean over ranks reads the rank's own mean."""
+    with torch.no_grad():
+        total = ops.sum_over(count.detach().float().clone(), list(ops.sizes))
+    return torch.clamp(total, min=1.0) / ops.n
 
 
 class _VocabParallel(torch.autograd.Function):
@@ -103,12 +126,25 @@ class _VocabParallel(torch.autograd.Function):
 
 
 def make_loss_fn(cfg: ModelConfig):
-    def loss_fn(params: dict, batch: dict):
+    """``loss_fn(params, batch, split=None) -> (loss, {"ce", "aux"})``.
+    Where ``params`` are a rank's shards, the cross-entropy is the rank's
+    share of the global batch's masked mean (:func:`rank_share`), and the
+    router's aux loss every rank's (``models/moe.py``).  ``split``
+    (``parallel.sharding.row_group``'s) runs the rank's tile of the
+    batch's rows alone."""
+    def loss_fn(params: dict, batch: dict, split: SH.TPGroup | None = None):
+        ops = SH.leaf_ops(params)
+        rows = None
+        if split is not None:
+            batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+            rows = (split, batch["labels"].shape[0])
+            batch = {k: split.cut(v) for k, v in batch.items()}
         inputs = {k: v for k, v in batch.items() if k != "labels"}
-        logits, _, aux = T.forward(params, inputs, cfg, mode="train")
+        logits, _, aux = T.forward(params, inputs, cfg, mode="train",
+                                   rows=rows)
         loss, ce = cross_entropy(logits, batch["labels"],
                                  vocab=T.head_split(params, cfg),
-                                 vocab_size=cfg.vocab_size)
+                                 vocab_size=cfg.vocab_size, ranks=ops)
         loss = loss + cfg.router_aux_weight * aux
         return loss, {"ce": ce, "aux": aux}
     return loss_fn
@@ -147,15 +183,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
     are the same either way.
 
     The step carries three helpers: ``init_opt(params)``, the optimizer
-    state; ``grads(params, batch) -> (loss, extras, grads)``, the
-    accumulated gradients the step would apply; and ``apply(state, loss,
-    extras, grads, shards=None) -> (state, metrics)``, the step's update
-    from them.  The sharded launcher hands ``grads`` a rank's shards
-    (``parallel.sharding.ShardedLeaf``) and gets each gradient back as
-    the block of the mean over ranks (the gathers' backward reduces it);
-    ``apply`` then updates the local blocks, ``shards``
-    (``parallel.sharding.StateShards``) summing over ranks where the
-    optimizer reduces over a whole leaf.  Over microbatches, each one's
+    state; ``grads(params, batch, split=None) -> (loss, extras, grads)``,
+    the accumulated gradients the step would apply (``split``: each
+    microbatch's tile of the rows alone, see :func:`make_loss_fn`); and
+    ``apply(state, loss, extras, grads, shards=None) -> (state,
+    metrics)``, the step's update from them.  The sharded launcher hands
+    ``grads`` a rank's shards (``parallel.sharding.ShardedLeaf``) and gets
+    each gradient back as the block of the mean over ranks (the gathers'
+    backward reduces it); ``apply`` then updates the local blocks,
+    ``shards`` (``parallel.sharding.StateShards``) summing over ranks
+    where the optimizer reduces over a whole leaf.  Over microbatches, each one's
     gradient is reduced over the ranks first, then cast to f32, divided
     by the count and added to the accumulator, in microbatch order.
     """
@@ -171,10 +208,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
         raise ValueError(f"unknown optimizer {opt_cfg.name!r} "
                          "(adamw | adafactor)") from None
 
-    def grads_of(params: dict, batch: dict):
+    def grads_of(params: dict, batch: dict, split=None):
         leaves = {k: _requiring_grad(v) for k, v in params.items()}
         with torch.enable_grad():
-            loss, extras = loss_fn(leaves, batch)
+            loss, extras = loss_fn(leaves, batch, split)
             grads = torch.autograd.grad(
                 loss, [SH.local_of(v) for v in leaves.values()],
                 allow_unused=True)
@@ -182,9 +219,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
                  for (k, p), g in zip(leaves.items(), grads)}
         return loss.detach(), {k: v.detach() for k, v in extras.items()}, grads
 
-    def accumulate(params: dict, batch: dict):
+    def accumulate(params: dict, batch: dict, split=None):
         if microbatches == 1:
-            return grads_of(params, batch)
+            return grads_of(params, batch, split)
         local = {k: SH.local_of(v) for k, v in params.items()}
         acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for k, p in local.items()}
@@ -192,7 +229,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
         parts = {k: _split(v, microbatches) for k, v in batch.items()}
         losses, extras = [], []
         for i in range(microbatches):
-            loss, ex, grads = grads_of(params, {k: v[i] for k, v in parts.items()})
+            loss, ex, grads = grads_of(
+                params, {k: v[i] for k, v in parts.items()}, split)
             with torch.no_grad():
                 for k, g in grads.items():
                     acc[k].add_(g.float() / microbatches)

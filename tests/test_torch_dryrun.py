@@ -111,26 +111,42 @@ def test_run_cell_matches_reference(reference, cell):
 # RG-LRU blocks whole 79.78, split 40.43; with the heads and the
 # vocabulary whole where 16 does not divide them, MiniCPM-2B 163.84 and
 # Mamba-2 71.79, in padded tiles 21.11 and 12.07)
-SHARDED_TRAIN = {("qwen3_moe_30b_a3b", "dp_fsdp"): 24.0,
-                 ("qwen1_5_4b", "dp_fsdp"): 15.0,
-                 ("qwen3_moe_30b_a3b", "baseline"): 36.0,
-                 ("internlm2_1_8b", "baseline"): 15.0,
-                 ("recurrentgemma_2b", "baseline"): 45.0,
-                 ("minicpm_2b", "baseline"): 23.5,
-                 ("mamba2_780m", "baseline"): 13.5}
+SHARDED_TRAIN = {("qwen3_moe_30b_a3b", "dp_fsdp", "pod"): 24.0,
+                 ("qwen1_5_4b", "dp_fsdp", "pod"): 15.0,
+                 ("qwen3_moe_30b_a3b", "baseline", "pod"): 36.0,
+                 ("internlm2_1_8b", "baseline", "pod"): 15.0,
+                 ("recurrentgemma_2b", "baseline", "pod"): 45.0,
+                 ("minicpm_2b", "baseline", "pod"): 23.5,
+                 ("mamba2_780m", "baseline", "pod"): 13.5,
+                 # dp_fsdp's multipod cells, each rank of a model group on
+                 # its padded tile of 8 rows: 26.19, 13.94, 13.59, 11.23
+                 # and 54.38, each its pod cell's (every rank on all 8
+                 # before the batch split over model: 189.71, 101.37,
+                 # 100.64, 82.45 and 136.55)
+                 ("recurrentgemma_2b", "dp_fsdp", "multipod"): 29.0,
+                 ("qwen1_5_4b", "dp_fsdp", "multipod"): 15.5,
+                 ("qwen3_moe_30b_a3b", "dp_fsdp", "multipod"): 15.0,
+                 ("minicpm_2b", "dp_fsdp", "multipod"): 12.5,
+                 ("llama4_maverick_400b_a17b", "dp_fsdp", "multipod"): 60.0}
 
 
-@pytest.mark.parametrize("arch,policy", list(SHARDED_TRAIN))
-def test_sharded_train_cell_fits(arch, policy):
-    """One rank's ``train_4k`` step on the pod holds its share of the
-    state and one layer's weights gathered at a time (under ``dp_fsdp``
-    its 1/256; under ``baseline`` its ``model`` group splits attention's
+@pytest.mark.parametrize("arch,policy,mesh", list(SHARDED_TRAIN),
+                         ids=["-".join(c if c[2] != "pod" else c[:2])
+                              for c in SHARDED_TRAIN])
+def test_sharded_train_cell_fits(arch, policy, mesh):
+    """One rank's ``train_4k`` step holds its share of the state and one
+    layer's weights gathered at a time (under ``dp_fsdp`` its 1/256 on
+    the pod; under ``baseline`` its ``model`` group splits attention's
     heads, the MLPs, the RG-LRU's channels and the vocabulary, so that
-    its f32 logits are over 1/16 of the vocabulary): its temp bytes stay
-    under the bound and the cell fits one card."""
-    rec = D.run_cell(arch, "train_4k", "pod", policy, save=False)
+    its f32 logits are over 1/16 of the vocabulary), and its rows: on the
+    multipod under ``dp_fsdp``, 8 rows a (pod, data) shard, which
+    ``model``'s 16 ranks do not divide, each rank runs its padded tile of
+    them (1 row on the widest, as on the pod; before, all 8 on every
+    rank of the group): its temp bytes stay under the bound and the cell
+    fits one card."""
+    rec = D.run_cell(arch, "train_4k", mesh, policy, save=False)
     temp = rec["memory"]["temp_bytes"] / 2**30
-    assert temp < SHARDED_TRAIN[(arch, policy)], temp
+    assert temp < SHARDED_TRAIN[(arch, policy, mesh)], temp
     assert rec["fits"]
 
 
@@ -151,20 +167,27 @@ SHARDED_SERVE = {("qwen1_5_4b", "decode_32k", "pod"): 2.0,          # 107.36
                  ("musicgen_large", "decode_32k", "pod"): 1.0,       # 100.52
                  ("phi3_vision_4_2b", "decode_32k", "pod"): 1.0,     # 103.12
                  ("recurrentgemma_2b", "prefill_32k", "pod"): 20.0,  # 88.68
-                 ("mamba2_780m", "prefill_32k", "pod"): 20.0}
+                 ("mamba2_780m", "prefill_32k", "pod"): 20.0,
+                 # under dp_fsdp, 2 rows a (data) shard over model's 16:
+                 # each rank runs its padded tile of them and relays each
+                 # layer's cache to its block: 35.39 (every rank on both
+                 # rows before the batch split over model: 83.98)
+                 ("recurrentgemma_2b", "prefill_32k", "pod", "dp_fsdp"):
+                     39.0}
 
 
-@pytest.mark.parametrize("arch,shape,mesh", list(SHARDED_SERVE),
+@pytest.mark.parametrize("cell", list(SHARDED_SERVE),
                          ids=["__".join(c) for c in SHARDED_SERVE])
-def test_sharded_serving_cell_fits(arch, shape, mesh):
+def test_sharded_serving_cell_fits(cell):
     """One rank's serving program holds its shards of the weights and one
     layer's gathered at a time, its ``model`` group splitting the
     products and the head where ``model`` divides them, and a decode its
-    block of the cache's slots: its temp bytes stay under the bound and
-    the cell fits one card."""
-    rec = D.run_cell(arch, shape, mesh, save=False)
+    block of the cache's slots; under ``dp_fsdp`` a prefill runs the
+    rank's padded tile of the rows where ``model`` does not divide them:
+    its temp bytes stay under the bound and the cell fits one card."""
+    rec = D.run_cell(*cell[:3], *cell[3:], save=False)
     temp = rec["memory"]["temp_bytes"] / 2**30
-    assert temp < SHARDED_SERVE[(arch, shape, mesh)], temp
+    assert temp < SHARDED_SERVE[cell], temp
     assert rec["fits"]
 
 
@@ -180,7 +203,11 @@ def test_run_cell_writes_its_record(tmp_path):
 
 TINY = {"tiny_train": ShapeSpec("tiny_train", "train", 64, 8),
         "tiny_prefill": ShapeSpec("tiny_prefill", "prefill", 64, 8),
-        "tiny_decode": ShapeSpec("tiny_decode", "decode", 64, 8)}
+        "tiny_decode": ShapeSpec("tiny_decode", "decode", 64, 8),
+        # 6 rows: 3 a data shard, which the mesh's model pair does not
+        # divide (dp_fsdp's ranks run tiles of 2 and 1 rows)
+        "tiny_train6": ShapeSpec("tiny_train6", "train", 64, 6),
+        "tiny_prefill6": ShapeSpec("tiny_prefill6", "prefill", 64, 6)}
 MESH = AbstractMesh((2, 2), ("data", "model"))
 # the reduced configs' overrides: MiniCPM-2B at 3 heads and 511 words,
 # which the mesh's model pair tiles padded (2 + 1 heads, 256 + 255 words)
@@ -226,7 +253,13 @@ ESTIMATE_CELLS = [
     ("qwen3_moe_30b_a3b", "tiny_prefill"), ("qwen3_moe_30b_a3b", "tiny_decode"),
     ("recurrentgemma_2b", "tiny_decode"), ("minicpm_2b", "tiny_decode"),
     ("smollm_360m", "tiny_decode", "dp_fsdp"), ("mamba2_780m", "tiny_train"),
-    ("minicpm_2b", "tiny_train"), ("minicpm_2b", "tiny_prefill")]
+    ("minicpm_2b", "tiny_train"), ("minicpm_2b", "tiny_prefill"),
+    ("smollm_360m", "tiny_train6", "dp_fsdp"),
+    ("qwen3_moe_30b_a3b", "tiny_train6", "dp_fsdp"),
+    ("recurrentgemma_2b", "tiny_train6", "dp_fsdp"),
+    ("recurrentgemma_2b", "tiny_prefill6", "dp_fsdp"),
+    ("mamba2_780m", "tiny_prefill6", "dp_fsdp"),
+    ("smollm_360m", "tiny_prefill", "dp_fsdp")]
 
 
 @pytest.mark.parametrize("cell", ESTIMATE_CELLS,
@@ -235,7 +268,13 @@ def test_meta_estimate_equals_a_cpu_run(tiny, cell):
     """The train cells run the sharded step (each layer's weights
     gathered where used, the gradients reduced to the blocks) under
     ``baseline`` and ``dp_fsdp``, the latter splitting the batch over
-    every axis and the weights by ``embed`` alone; under ``baseline`` the
+    every axis and the weights by ``embed`` alone (on 6 rows, 3 a data
+    shard, which ``model`` does not divide, the rank runs its padded tile
+    of them, 2 rows, and a prefill gathers its logits' and its cache's
+    rows back over the group, the cache then cut to the rank's block of
+    the slots: coordinate 0's, the widest; on 8 rows ``model`` divides
+    the batch and a prefill gathers the cache's rows alone); under
+    ``baseline`` the
     products split over ``model`` (tensor parallelism: the gathers that
     keep ``model`` return rank 0's block), RecurrentGemma's RG-LRU
     blocks and Mamba-2's SSD mixers split beside the split MLPs and local
@@ -270,11 +309,21 @@ def test_meta_estimate_equals_a_cpu_run(tiny, cell):
 
 @pytest.mark.parametrize("arch", ["smollm_360m", "qwen3_moe_30b_a3b"])
 def test_seeded_train_cell_cross_entropy(tiny, arch):
-    """A seeded ``dp_fsdp`` train cell's cross-entropy (the rank's metric
-    times the rank count, as ``chip_smoke.py``'s phase 27 (b) reads it)
+    """A seeded ``dp_fsdp`` train cell's cross-entropy (the rank's metric,
+    its share of the global batch's mean under collectives that move
+    nothing: its own mean, as ``chip_smoke.py``'s phase 27 (b) reads it)
     is ``random_head_ce`` within that phase's margin, and the loss is it
     plus the router's aux term and the z-loss."""
     _check_cross_entropy(arch, "dp_fsdp")
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "qwen3_moe_30b_a3b"])
+def test_seeded_row_split_train_cell_cross_entropy(tiny, arch):
+    """:func:`test_seeded_train_cell_cross_entropy` where the batch splits
+    over ``model`` in padded tiles (``dp_fsdp`` on 6 rows: the rank runs 2
+    of its shard's 3): the rank's cross-entropy over its tile still reads
+    ``random_head_ce``."""
+    _check_cross_entropy(arch, "dp_fsdp", "tiny_train6")
 
 
 @pytest.mark.parametrize("arch", ["smollm_360m", "qwen3_moe_30b_a3b",
@@ -289,11 +338,11 @@ def test_seeded_tp_train_cell_cross_entropy(tiny, arch):
     _check_cross_entropy(arch, "baseline")
 
 
-def _check_cross_entropy(arch, policy):
+def _check_cross_entropy(arch, policy, shape="tiny_train"):
     import chip_smoke
 
-    low, outs, _ = _measure(arch, "tiny_train", "cpu", policy)
-    mets = {k: float(v) * low.devices for k, v in outs[1].items()
+    low, outs, _ = _measure(arch, shape, "cpu", policy)
+    mets = {k: float(v) for k, v in outs[1].items()
             if k in ("loss", "ce", "aux")}
     V = low.cfg.vocab_size
     words = -(-V // MESH.shape["model"]) if policy == "baseline" else V
@@ -313,19 +362,22 @@ def test_train_cells_flash_shapes_are_held_by_phases_10_and_14():
     ranks, padded where 16 does not divide them: rank 0's, the widest):
     Qwen3's 2 heads, InternLM2-1.8B's 1, RecurrentGemma-2B's 1 of 10 at
     head_dim 256 with its window, MiniCPM-2B's 3 of 36 and 7,673 of its
-    122,753 words.  All are among phase 10's forward shapes and phase
-    14's backward shapes, where the kernels are held to their plain
-    versions."""
+    122,753 words; and RecurrentGemma-2B's ``dp_fsdp`` multipod rank, 1
+    of its shard's 8 rows (the batch over ``model`` in padded tiles, the
+    port's ``row_group``) and all 10 heads.  All are among phase 10's
+    forward shapes and phase 14's backward shapes, where the kernels are
+    held to their plain versions."""
     import chip_smoke
 
     got = chip_smoke.dryrun_train_flash_shapes()
     assert got == [(32, 4096, 128, 0), (20, 4096, 128, 0),
                    (32, 4096, 128, 0), (16, 4096, 128, 0),
-                   (16, 4096, 256, 2048), (48, 4096, 64, 0)]
-    assert [chip_smoke.dryrun_train_split(*c)[2:] for c in
-            chip_smoke.DRYRUN_TRAIN] == [
+                   (16, 4096, 256, 2048), (48, 4096, 64, 0),
+                   (10, 4096, 256, 2048)]
+    assert [chip_smoke.dryrun_train_split(arch, policy, mesh_kind=mk)[2:]
+            for arch, policy, mk in chip_smoke.DRYRUN_TRAIN] == [
         (1, 32, 151936), (1, 20, 151936), (16, 2, 9496), (16, 1, 5784),
-        (16, 1, 16000), (16, 3, 7673)]
+        (16, 1, 16000), (16, 3, 7673), (1, 10, 256000)]
     for shape in got:
         assert shape in chip_smoke.train_flash_shapes()
         assert shape in chip_smoke.bwd_shapes()
@@ -382,6 +434,12 @@ def test_prefill_ssd_shape_is_held_by_phase_27():
                                       "decode_32k") == {"rglru": (160, 2560)}
     assert chip_smoke.recurrent_split("mamba2_780m", "dp_fsdp",
                                       "train_4k") == {"ssd": (48, 48)}
+    # under dp_fsdp the pod prefill's 2 rows a data shard split over
+    # model: the rank runs 1 row of all 48 heads, the first held shape
+    rows = chip_smoke.dryrun_train_split("mamba2_780m", "dp_fsdp+ssdk",
+                                         "prefill_32k")[2]
+    assert (rows * 48, 128, 256, 64, 128, rows) == \
+        chip_smoke.DRYRUN_SSD_SHAPES[0]
     assert {"recurrentgemma_2b", "mamba2_780m"} <= set(
         chip_smoke.DRYRUN_DECODE)
 
@@ -392,15 +450,20 @@ def test_prefill_cells_flash_shapes_are_held_by_phase_10():
     ``model``'s 16 ranks: InternLM2-1.8B 1 of 16, Qwen3-30B-A3B,
     MusicGen-large and Phi-3-Vision 2 of 32, and in padded tiles
     SmolLM-360M 1 of 15, RecurrentGemma-2B 1 of 10 with its window,
-    Qwen1.5-4B 2 of 20 and MiniCPM-2B 3 of 36.  Phase 10 holds every
-    one, with the plain version a batch-head at a time, which equals one
-    call."""
+    Qwen1.5-4B 2 of 20 and MiniCPM-2B 3 of 36; RecurrentGemma-2B's
+    ``dp_fsdp`` cell (``DRYRUN_PREFILL``) 1 of its shard's 2 rows (the
+    batch over ``model`` in padded tiles) and all 10 heads.  Phase 10
+    holds every one, with the plain version a batch-head at a time, which
+    equals one call."""
     import chip_smoke
 
     got = chip_smoke.dryrun_prefill_flash_shapes()
     assert got == ((2, 32768, 64, 0), (2, 32768, 256, 2048),
                    (4, 32768, 128, 0), (2, 32768, 128, 0),
-                   (6, 32768, 64, 0), (4, 32768, 64, 0), (4, 32768, 96, 0))
+                   (6, 32768, 64, 0), (4, 32768, 64, 0), (4, 32768, 96, 0),
+                   (10, 32768, 256, 2048))
+    assert chip_smoke.DRYRUN_PREFILL == (
+        ("recurrentgemma_2b", "dp_fsdp+flash", "pod"),)
     assert len(chip_smoke.DRYRUN_MUST_RUN) == 9
     assert "llama4_maverick_400b_a17b" not in chip_smoke.DRYRUN_MUST_RUN
     g = torch.Generator().manual_seed(3)
@@ -483,3 +546,67 @@ def test_kernel_meta_launches():
                                    dtype=torch.bfloat16),) * 3, scale=1.0)
     with pytest.raises(ValueError, match="meta tensors only"):
         meta.launch("flash_fwd", (torch.empty(1),), 1)
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "qwen3_moe_30b_a3b",
+                                  "recurrentgemma_2b", "mamba2_780m",
+                                  "phi3_vision_4_2b"])
+def test_an_empty_tile_of_rows_launches_no_kernel(monkeypatch, arch):
+    """A rank whose tile of the batch's rows is empty (the batch over
+    ``model`` in padded tiles) runs every block kind at ``[0, S, D]``: on
+    meta tensors with the kernels selected (flash, and ``ssd_scan`` in
+    the prefill) a train step's forward and backward and a prefill
+    launch none, where one row launches them; on the CPU the loss and
+    every gradient are finite (the loss 0), the logits and cache have no
+    row."""
+    from repro_torch.kernels import meta
+    from repro_torch.models import transformer as T
+    from repro_torch.train import step as ST
+    from repro_torch.train.optim import OptConfig
+
+    launched = []
+    real = meta.launch
+    monkeypatch.setattr(meta, "launch", lambda k, ops, fl: (
+        launched.append(k), real(k, ops, fl)))
+    # head_dim 64: the flash kernels' smallest
+    cfg = reduced(PC.get_config(arch)).with_(dtype="float32",
+                                             param_dtype="float32",
+                                             head_dim=64)
+    S = 16
+
+    def batch(rows, device):
+        L = S + cfg.ext_embed_len
+        b = {"tokens": torch.zeros(rows, S, dtype=torch.long, device=device),
+             "labels": torch.zeros(rows, L, dtype=torch.long, device=device)}
+        if cfg.ext_embed_len:
+            b["ext_embed"] = torch.zeros(rows, cfg.ext_embed_len,
+                                         cfg.d_model, device=device)
+        return b
+
+    def run(rows, device):
+        kcfg = cfg.with_(attn_impl="flash")
+        params = ({k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                   for k, v in T.param_shapes(cfg).items()}
+                  if device == "meta" else
+                  T.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
+        step = ST.make_train_step(kcfg, OptConfig())
+        loss, _, grads = step.grads(params, batch(rows, device))
+        inputs = {k: v for k, v in batch(rows, device).items()
+                  if k != "labels"}
+        with torch.inference_mode():
+            logits, cache, _ = T.forward(params, inputs,
+                                         kcfg.with_(ssd_impl="kernel"),
+                                         mode="prefill")
+        return loss, grads, logits, cache
+
+    run(1, "meta")
+    assert launched
+    launched.clear()
+    run(0, "meta")
+    assert not launched
+    loss, grads, logits, cache = run(0, "cpu")
+    assert float(loss) == 0.0
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    assert logits.shape[0] == 0
+    assert all(v.shape[1] == 0 for k, v in cache.items()
+               if k.startswith("s") and not k.endswith("slot_pos"))

@@ -51,6 +51,12 @@ PUBLISHED = {"internlm2_1_8b": (4, (1, 4), 2, 2048),
              "mamba2_780m": (1, (1, 4), 2, 2048),
              "minicpm_2b": (1, (1, 4), 2, 2048)}
 RECURRENT = ("recurrentgemma_2b", "mamba2_780m")
+# the published-width cases under dp_fsdp whose batch model does not
+# divide: arch -> (layers, mesh, batch, sequence), as PUBLISHED; each rank
+# of the (1, 4) mesh runs its padded tile of the 2 rows (1, 1, and two
+# empty ranks), the weights gathered whole
+PUBLISHED_ROWS = {"recurrentgemma_2b": (3, (1, 4), 2, 2048)}
+DP_FSDP = TP.DP_FSDP
 # relative L2 of the loss and of each gradient against world size 1
 # (measured on four H100s: the loss equal, the worst gradient 8.0e-6)
 TOL_PUBLISHED = 1e-4
@@ -82,22 +88,22 @@ def _rank_checks(rank, device, out):
                              for d in range(x.dim())}
     inp = TP.make_inputs(out / f"inputs{rank}.npz")
     for arch, mname, variant in TP.step_cases(WORLD):
-        cfg, opt, mb, rules, bkey = TP.step_setup(arch, mname, variant,
-                                                  WORLD)
+        cfg, opt, mb, rules, bkey, rows = TP.step_setup(arch, mname, variant,
+                                                        WORLD)
         mesh = SH.make_mesh(TP.GRAD_MESHES[WORLD][mname][0],
                             ("data", "model"), device=device.type)
         step = make_train_step(cfg, opt, microbatches=mb, donate=True)
         shapes, axes = train_state_specs(cfg, opt)
         whole = _to(LT.init_state(cfg, step, "cpu"), device)
         with SH.sharding_context(mesh, rules):
-            idx, n = LT.batch_shard(mesh)
+            idx, n = TP.spec_shard(mesh, rows)
             state_sh = SH.tree_shardings(axes, shapes, mesh)
             state = LT.place(whole, state_sh)
-            jstep = LT.make_sharded_step(step, mesh, state_sh)
+            jstep = LT.make_sharded_step(step, mesh, state_sh, rows=rows)
         del whole
         losses = []
         for i in range(2):
-            batch = TP.local_rows(TP.grad_batch(inp, i, bkey), idx, n)
+            batch = TP.local_rows(TP.step_batch(inp, i, bkey, rows), idx, n)
             state, m = jstep(state, batch)
             losses.append(float(m["loss"]))
         res[f"steps/{arch}/{mname}/{variant}"] = {
@@ -106,16 +112,16 @@ def _rank_checks(rank, device, out):
     torch.save(res, out / f"rank{rank}.pt")
 
 
-def published_setup(arch):
-    """``PUBLISHED[arch]``'s config, step and batch (tokens from a
-    seed)."""
+def published_setup(arch, rows=False):
+    """``PUBLISHED[arch]``'s (``rows``: ``PUBLISHED_ROWS[arch]``'s)
+    config, step and batch (tokens from a seed)."""
     import numpy as np
 
     from repro_torch import configs as C
     from repro_torch.train.optim import OptConfig
     from repro_torch.train.step import make_train_step
 
-    layers, _, B, S = PUBLISHED[arch]
+    layers, _, B, S = (PUBLISHED_ROWS if rows else PUBLISHED)[arch]
     cfg = C.get_config(arch).with_(num_layers=layers, dtype="float32",
                                    param_dtype="float32", attn_impl="flash",
                                    ssd_impl="xla")
@@ -133,40 +139,51 @@ def _published_check(rank, device, out):
         res[arch] = _published_case(arch, rank, device)
         if device.type == "cuda":
             torch.cuda.empty_cache()
+    for arch in PUBLISHED_ROWS:
+        res[f"{arch}/rows"] = _published_case(arch, rank, device, rows=True)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     torch.save(res, out / f"rank{rank}.pt")
 
 
-def _published_case(arch, rank, device):
-    """``PUBLISHED[arch]``'s gradients: each rank's blocks through the
-    sharded step's pieces (its shards as ``ShardedLeaf``, the gathers
-    keeping ``model`` where it splits a product), assembled whole; rank 0
-    then takes world size 1's on its own card and keeps the loss's and
-    each gradient's relative L2 against it."""
+def _published_case(arch, rank, device, rows=False):
+    """``PUBLISHED[arch]``'s gradients (``rows``: ``PUBLISHED_ROWS[arch]``'s
+    under ``dp_fsdp``, the rank on its tile of the rows): each rank's
+    blocks through the sharded step's pieces (its shards as
+    ``ShardedLeaf``, the gathers keeping ``model`` where it splits a
+    product), assembled whole; rank 0 then takes world size 1's on its
+    own card and keeps the loss's and each gradient's relative L2 against
+    it."""
     from repro_torch.launch import train as LT
     from repro_torch.models import transformer as T
     from repro_torch.parallel import sharding as SH
 
-    cfg, step, batch = published_setup(arch)
-    mesh = SH.make_mesh(PUBLISHED[arch][1], ("data", "model"),
-                        device=device.type)
+    cfg, step, batch = published_setup(arch, rows)
+    layers, shape, B, _ = (PUBLISHED_ROWS if rows else PUBLISHED)[arch]
+    mesh = SH.make_mesh(shape, ("data", "model"), device=device.type)
+    rules = SH.DEFAULT_RULES.override(**DP_FSDP) if rows \
+        else SH.DEFAULT_RULES
     params = _to(T.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
                  device)
     batch = _to(batch, device)
-    with SH.sharding_context(mesh):
-        idx, n = LT.batch_shard(mesh)
+    with SH.sharding_context(mesh, rules):
+        idx, n = TP.spec_shard(mesh, B)
         shs = SH.tree_shardings(T.param_axes(cfg), T.param_shapes(cfg), mesh)
         ops = SH.MeshOps(mesh)
         leaves = {k: SH.ShardedLeaf(SH.distribute(v, shs[k]).to_local(),
                                     shs[k], ops, key=k)
                   for k, v in params.items()}
         split = SS.split_keys(leaves, cfg)
-        loss, _, grads = step.grads(leaves, TP.local_rows(batch, idx, n))
+        tile = SH.row_group(ops, B)
+        loss, _, grads = step.grads(leaves, TP.local_rows(batch, idx, n),
+                                    split=tile)
     del leaves
     loss = float(LT._mean_over_ranks(loss))
     whole = {k: SH.from_local(g, shs[k]).full_tensor() for k, g in
              grads.items()}
     del grads
-    res = {"split": split, "loss": loss}
+    res = {"split": split, "loss": loss,
+           "tile": None if tile is None else tile.block(B // n)}
     if rank == 0:
         want_loss, _, want = step.grads(params, batch)
         res["want_loss"] = float(want_loss)
@@ -288,18 +305,22 @@ def test_reduce_scatter_over_nccl(ranks):
 def test_two_sharded_steps_over_nccl(ranks, tmp_path, arch, mesh, variant):
     """``test_torch_parallel.test_two_sharded_steps`` at 4 ranks over
     NCCL, one card a rank, against two world-size-1 steps on the first
-    card: losses, parameters and moments within ``TP.TOL_GRAD``."""
+    card: losses, parameters and moments within ``TP.TOL_GRAD``.  The
+    row-split cases run ``dp_fsdp``'s batch over ``model`` in padded
+    tiles: on (1, 4) 2 rows, two ranks with none (the reduced Qwen3's
+    expert-parallel ``all_to_all`` then exchanges bins with ranks that
+    send no token)."""
     from repro_torch.launch import train as LT
     from repro_torch.train.step import make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     inp = TP.make_inputs(tmp_path / "inputs.npz")
-    cfg, opt, mb, _, bkey = TP.step_setup(arch, mesh, variant, WORLD)
+    cfg, opt, mb, _, bkey, rows = TP.step_setup(arch, mesh, variant, WORLD)
     step = make_train_step(cfg, opt, microbatches=mb)
     state = _to(LT.init_state(cfg, step, "cpu"), torch.device("cuda", 0))
     losses = []
     for i in range(2):
-        state, m = step(state, TP.grad_batch(inp, i, bkey))
+        state, m = step(state, TP.step_batch(inp, i, bkey, rows))
         losses.append(float(m["loss"]))
     want = {k: v.cpu() for k, v in TP.state_wholes(state).items()}
     for r in ranks:
@@ -367,6 +388,22 @@ def test_tp_recurrent_blocks_at_published_width_over_nccl(published, arch):
     attn = {"s2_wq", "s2_wo"} if arch == "recurrentgemma_2b" else set()
     _check_published(published, arch,
                      {f"s0_{k}" for k in own} | {"tok_embed"} | attn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(PUBLISHED_ROWS))
+def test_row_split_at_published_width_over_nccl(published, arch):
+    """RecurrentGemma-2B at one super-block of published width (RG-LRU,
+    RG-LRU, local attention; f32) under ``dp_fsdp`` on a (1, 4) mesh over
+    NCCL, 2 rows: each rank runs its padded tile of them (1, 1, and two
+    ranks with none, which still run every gather and reduce-scatter of
+    the step), no product split; the loss and every gradient equal world
+    size 1's on the first card within ``TOL_PUBLISHED`` relative L2."""
+    case = f"{arch}/rows"
+    assert [r[case]["tile"] for r in published] == [(0, 1), (1, 1), (2, 0),
+                                                      (2, 0)]
+    assert not published[0][case]["split"]
+    _check_published(published, case, set())
 
 
 @pytest.mark.cuda

@@ -81,10 +81,16 @@ EP_CASES = {
 GRAD_MESHES = {
     2: {"data": ((2, 1), {}), "model": ((1, 2), {})},
     4: {"data": ((4, 1), {}), "model": ((1, 4), {}),
-        "resident": ((2, 2), {"moe_expert_resident": True})},
+        "resident": ((2, 2), {"moe_expert_resident": True}),
+        "2x2": ((2, 2), {})},
 }
 GRAD_ARCHS = ("qwen3_moe_30b_a3b", "smollm_360m")
 GRAD_B, GRAD_S = 4, 16
+# dp_fsdp's rules (the dry run's ``apply_policy``): the batch over every
+# axis, no product split over model
+DP_FSDP = dict(batch=("pod", "data", "model"), heads=(), kv_heads=(),
+               ffn=(), vocab=(), act_heads=(), act_ffn=(), act_vocab=())
+SPLIT_ARCHS = GRAD_ARCHS + ("recurrentgemma_2b",)
 # the sharded steps' options: name -> (optimizer, microbatches, remat,
 # rules overrides, meshes); "" is the launcher's default.  Every option
 # runs on every mesh; "resident_ffn" also splits the experts' F over
@@ -96,7 +102,18 @@ STEP_VARIANTS = {
     "adafactor_mb2_none": ("adafactor", 2, "none", {}, None),
     "resident_ffn": ("adafactor", 1, "block", {"expert_ffn": ("data",)},
                      ("resident",)),
+    "dp_fsdp_split": ("adamw", 1, "block", DP_FSDP, ("model", "2x2")),
+    "dp_fsdp_split_mb2": ("adafactor", 2, "none", DP_FSDP, ("model",)),
 }
+# the row-split variants' global rows by mesh: batches that model does
+# not divide, so that each rank of a model group runs its padded tile of
+# a microbatch's rows of its shard: 3 over 2 (2 + 1), 2 over 4 (1, 1 and
+# two empty ranks), a shard of 3 of 6 over 2 (2 + 1); in 2 microbatches
+# 6 over 4 (3 a microbatch: 1, 1, 1 and an empty rank; a model of 2
+# divides any batch that splits in 2 there).  Their labels hold IGNORE
+# unevenly (``step_batch``)
+SPLIT_ROWS = {"dp_fsdp_split": {(1, 2): 3, (1, 4): 2, (2, 2): 6},
+              "dp_fsdp_split_mb2": {(1, 4): 6}}
 MEM_B, MEM_S, MEM_LAYERS = 4, 8, 4     # the per-rank memory check's step
 
 
@@ -139,6 +156,13 @@ def make_inputs(path):
     inp["router_ties_drop"] = inp["router"].copy()
     inp["router_ties_drop"][:, 2] = inp["router_ties_drop"][:, 1]
     inp["router_ties_drop"][:, 0] += 0.4
+    # the row-split steps' batches (12 rows at most) and the share of each
+    # row's labels set to IGNORE: none, some, all
+    inp["tokens_split"] = rng.integers(0, 512, (2, 12, GRAD_S + 1)) \
+        .astype(np.int32)
+    frac = np.array([0.0, 0.75, 0.3, 1.0, 0.5, 0.0, 0.9, 0.1, 0.6, 1.0, 0.2,
+                     0.4])
+    inp["ignore"] = rng.random((2, 12, GRAD_S)) < frac[None, :, None]
     np.savez(path, **inp)
     return inp
 
@@ -320,21 +344,42 @@ def grad_batch(inp, i, key="tokens"):
 def step_cases(world):
     """(arch, mesh name, variant) of every sharded-step case at ``world``
     ranks."""
-    return [(arch, m, v) for arch in GRAD_ARCHS for m in GRAD_MESHES[world]
-            for v, (*_, meshes) in STEP_VARIANTS.items()
-            if meshes is None or m in meshes]
+    return [(arch, m, v) for v, (*_, meshes) in STEP_VARIANTS.items()
+            for arch in (SPLIT_ARCHS if v in SPLIT_ROWS else GRAD_ARCHS)
+            for m, (shape, _) in GRAD_MESHES[world].items()
+            if (meshes is None or m in meshes)
+            and shape in SPLIT_ROWS.get(v, {shape: None})]
 
 
 def step_setup(arch, mesh_name, variant, world):
-    """The case's config, optimizer, microbatches, rules and batch key."""
+    """The case's config, optimizer, microbatches, rules, batch key and
+    global rows (None: the batch key's own; each rank then takes its
+    block over every batch axis, as the launcher's loader gives it)."""
     from repro_torch.parallel import sharding as SH
     from repro_torch.train.optim import OptConfig
 
     name, mb, remat, rules_kw, _ = STEP_VARIANTS[variant]
-    cfg = grad_cfg(arch, remat=remat, **GRAD_MESHES[world][mesh_name][1])
+    shape, kw = GRAD_MESHES[world][mesh_name]
+    cfg = grad_cfg(arch, remat=remat, **kw)
     opt = OptConfig(name=name, lr=1e-3, warmup_steps=1, total_steps=10)
-    return (cfg, opt, mb, SH.DEFAULT_RULES.override(**rules_kw),
-            "tokens8" if mb > 1 else "tokens")
+    rules = SH.DEFAULT_RULES.override(**rules_kw)
+    if variant in SPLIT_ROWS:
+        return cfg, opt, mb, rules, "tokens_split", SPLIT_ROWS[variant][shape]
+    return cfg, opt, mb, rules, "tokens8" if mb > 1 else "tokens", None
+
+
+def step_batch(inp, i, key, rows=None):
+    """Step ``i``'s global batch: :func:`grad_batch`, or with ``rows`` the
+    first rows of ``tokens_split``, their labels IGNORE where ``ignore``
+    says."""
+    from repro_torch.train.step import IGNORE
+
+    if rows is None:
+        return grad_batch(inp, i, key)
+    t = torch.from_numpy(inp[key][i][:rows]).long()
+    labels = t[:, 1:].masked_fill(torch.from_numpy(inp["ignore"][i][:rows]),
+                                  IGNORE)
+    return {"tokens": t[:, :-1], "labels": labels}
 
 
 def state_wholes(state, path=""):
@@ -479,6 +524,21 @@ def mem_batch(inp):
     return {"tokens": t[:, :-1], "labels": t[:, 1:]}
 
 
+def spec_shard(mesh, rows=None):
+    """(this rank's index, their count) of its batch shard: the launcher's
+    (``launch.train.batch_shard``, along the rules' batch axes), or with
+    ``rows`` that of a global batch of ``rows`` under the batch's spec
+    (``model`` dropped where it does not divide them)."""
+    from repro_torch.launch import train as LT
+    from repro_torch.parallel import sharding as SH
+
+    if rows is None:
+        return LT.batch_shard(mesh)
+    sl = SH.logical_sharding(("batch",), mesh, shape=(rows,)).local_slices(
+        (rows,), mesh.get_coordinate())[0]
+    return sl.start // (sl.stop - sl.start), rows // (sl.stop - sl.start)
+
+
 def local_rows(batch, idx, n):
     b = next(iter(batch.values())).shape[0]
     return {k: v[idx * b // n:(idx + 1) * b // n] for k, v in batch.items()}
@@ -603,23 +663,26 @@ def _rank_checks(world, rank, out, inp):
                                   for k, v in grads.items()}}
 
     for arch, mname, variant in step_cases(world):
-        cfg, opt, mb, rules, bkey = step_setup(arch, mname, variant, world)
+        cfg, opt, mb, rules, bkey, rows = step_setup(arch, mname, variant,
+                                                     world)
         mesh = SH.make_mesh(GRAD_MESHES[world][mname][0], ("data", "model"),
                             device="cpu")
         donated = make_train_step(cfg, opt, microbatches=mb, donate=True)
         shapes, axes = train_state_specs(cfg, opt)
         with SH.sharding_context(mesh, rules):
-            idx, n = LT.batch_shard(mesh)
+            idx, n = spec_shard(mesh, rows)
             state_sh = SH.tree_shardings(axes, shapes, mesh)
             state = LT.place(LT.init_state(cfg, donated, "cpu"), state_sh)
-            jstep = LT.make_sharded_step(donated, mesh, state_sh)
+            jstep = LT.make_sharded_step(donated, mesh, state_sh, rows=rows)
+            split = SH.row_group(SH.MeshOps(mesh), rows)
         losses = []
         for i in range(2):
-            state, m = jstep(state, local_rows(grad_batch(inp, i, bkey),
+            state, m = jstep(state, local_rows(step_batch(inp, i, bkey, rows),
                                                idx, n))
             losses.append(m["loss"])
         res[f"steps/{arch}/{mname}/{variant}"] = {
             "losses": losses, "step": state["step"],
+            "tile": None if split is None else split.block(rows // n // mb),
             "storage": storage_bytes(state), **state_wholes(state)}
 
     res["reduce_scatter"] = _reduce_scatter_check(world, rank)
@@ -1235,20 +1298,38 @@ def test_two_sharded_steps(runs, n, arch, mesh, variant):
     optimizer on the blocks) from the seeded state equal two world-size-1
     steps: losses, parameters and optimizer moments within relative L2
     1e-5.  ``STEP_VARIANTS`` run AdamW and Adafactor, 1 and 2
-    microbatches and remat ``none`` and ``block`` on every mesh."""
+    microbatches and remat ``none`` and ``block`` on every mesh.  The
+    row-split variants put ``dp_fsdp``'s batch over ``model`` where it
+    does not divide the rows (``SPLIT_ROWS``), with labels IGNORE
+    unevenly: each rank of a ``model`` group runs its padded tile of a
+    microbatch's rows (two ranks of four with none) and its share of the
+    global batch's masked mean (the two-microbatch case runs on one
+    batch shard, so that world size 1's microbatches are the same rows)."""
     from repro_torch.launch import train as LT
+    from repro_torch.parallel import sharding as SH
     from repro_torch.train.step import make_train_step
 
     _, port = runs[n]
-    cfg, opt, mb, _, bkey = step_setup(arch, mesh, variant, n)
+    cfg, opt, mb, _, bkey, rows = step_setup(arch, mesh, variant, n)
+    shape = GRAD_MESHES[n][mesh][0]
     step = make_train_step(cfg, opt, microbatches=mb)
     state = LT.init_state(cfg, step, "cpu")
     losses = []
     for i in range(2):
-        state, m = step(state, grad_batch(runs["inp"], i, bkey))
+        state, m = step(state, step_batch(runs["inp"], i, bkey, rows))
         losses.append(float(m["loss"]))
     want = state_wholes(state)
     assert any(k.startswith("opt.") for k in want)
+    tiles = [r[f"steps/{arch}/{mesh}/{variant}"]["tile"] for r in port]
+    if rows is not None:
+        # each rank of a model group ran its padded tile of a microbatch's
+        # rows: 2 + 1 of 3, or 1, 1 and two empty tiles of 2
+        m = rows // shape[0] // mb
+        assert tiles == [SH.tile(m, shape[1], r % shape[1])
+                         for r in range(n)], tiles
+        assert sum(w for _, w in tiles) == m * shape[0]
+    else:
+        assert tiles == [None] * n
     for r in port:
         got = r[f"steps/{arch}/{mesh}/{variant}"]
         assert got["step"] == 2

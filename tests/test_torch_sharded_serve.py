@@ -42,10 +42,14 @@ reference's steps (``jit_prefill_step`` / ``jit_decode_step``) within 2e-4
 carried across by ``convert.params_from_numpy``; at one rank the steps
 are the direct steps bit for bit.
 
-A prefill's cache holds the rank's own rows: where the rules split the
-batch over ``model`` but not the cache's rows (``dp_fsdp`` with a batch
-``model`` divides) it is not the cache's block, so ``dp_fsdp`` runs
-decode only here.
+Under ``dp_fsdp`` the rules split the batch over ``model`` but not the
+cache's rows: a prefill's cache holds every row of the rank's shard,
+each layer's gathered over the ``model`` group, also where ``model``
+divides the batch (``2x2_dp_fsdp``: a row a rank, two a cache block).
+Where it does not divide it (``SPLIT_MESHES``, Qwen3-30B-A3B,
+RecurrentGemma-2B and Mamba-2 780M), each rank runs its padded tile of
+its shard's rows, some none, and its logits and cache are still its
+output leaves' blocks, equal to world size 1's.
 """
 
 from __future__ import annotations
@@ -84,7 +88,15 @@ ARCHS = {
 MESHES = {2: {"1x2": ((1, 2), "baseline", True)},
           4: {"1x4": ((1, 4), "baseline", True),
               "2x2": ((2, 2), "baseline", True),
-              "2x2_dp_fsdp": ((2, 2), "dp_fsdp", False)}}
+              "2x2_dp_fsdp": ((2, 2), "dp_fsdp", True)}}
+# prefill under dp_fsdp where model does not divide the batch, so that each
+# rank of a model group runs its padded tile of its shard's rows: name ->
+# (mesh (data, model), global rows): 3 over 2 (2 + 1), 2 over 4 (1, 1 and
+# two empty ranks), a shard of 3 of 6 over 2 (2 + 1)
+SPLIT_MESHES = {2: {"1x2_rows3": ((1, 2), 3)},
+                4: {"1x4_rows2": ((1, 4), 2), "2x2_rows6": ((2, 2), 6)}}
+SPLIT_ARCHS = ("qwen3", "recurrentgemma", "mamba2")
+SPLIT_B = 6                    # the row-split prompts' rows at most
 MEM_CASE = ("1x4", "smollm")   # the 4-rank memory probe
 SPLIT_PROBES = ("recurrentgemma", "mamba2")    # and the split blocks' on 1x4
 LAYOUTS = ("wave", "per_slot")
@@ -178,6 +190,13 @@ def serve_direct(cfg, params, prompt, toks, start):
     return out
 
 
+def split_prompt(name):
+    """The row-split cases' prompt [SPLIT_B, S], below the vocabulary."""
+    rng = np.random.default_rng(41)
+    return rng.integers(0, port_cfg(name).vocab_size,
+                        (SPLIT_B, S)).astype(np.int32)
+
+
 def steps(layout):
     """Each decode step's ``pos``: an int (wave) or a [B] tensor."""
     if layout == "wave":
@@ -228,11 +247,12 @@ def sharded_serve(cfg, mesh, rules, whole, prompt, toks, start, *,
                   prefill=True, probe=False):
     """One rank's sharded serving under ``rules`` on ``mesh``: its blocks of
     ``whole`` (the parameters, on the rank's device) as ``ShardedLeaf`` s,
-    the prefill of its rows of ``prompt`` (where ``prefill``), and each
-    layout's decode of its rows of ``toks`` from its blocks of ``start``
-    (numpy, by layout: the whole cache at ``W`` slots).  -> {key: tensor}
-    (with ``probe``, the shapes every operator made in the prefill and the
-    wave decode)."""
+    the prefill of its rows of ``prompt`` (where ``prefill``; the batch's
+    spec's, and the rank's tile of them where ``model`` splits them,
+    ``rows``), and each layout's decode of its rows of ``toks`` from its
+    blocks of ``start`` (numpy, by layout: the whole cache at ``W``
+    slots).  -> {key: tensor} (with ``probe``, the shapes every operator
+    made in the prefill and the wave decode)."""
     from repro_torch.convert import cache_from_numpy
     from repro_torch.models import transformer as T
     from repro_torch.parallel import sharding as SH
@@ -253,11 +273,17 @@ def sharded_serve(cfg, mesh, rules, whole, prompt, toks, start, *,
             mode = _Shapes() if probe else None
             with mode or _nothing():
                 cache, lg = SRV.make_prefill_step(cfg)(
-                    params, {"tokens": torch.from_numpy(prompt[rows]).to(dev)})
+                    params, {"tokens": torch.from_numpy(prompt[rows]).to(dev)},
+                    rows=prompt.shape[0])
             res["prefill/logits"] = lg
             res.update({f"prefill/cache/{k}": v for k, v in cache.items()})
+            split = SH.row_group(ops, prompt.shape[0])
+            res["tile"] = None if split is None else split.block(
+                rows[0].stop - rows[0].start)
             if probe:
                 res["prefill/shapes"] = sorted(mode.shapes)
+        if not start:
+            return res
         rows = SH.logical_sharding(("cache_batch", None), mesh,
                                    shape=toks.shape).local_slices(
             toks.shape, coord)[0]
@@ -335,6 +361,15 @@ def _rank_checks(world, rank, out, inp):
                 {lay: _sub(inp, f"{name}/{lay}/") for lay in LAYOUTS},
                 prefill=prefill, probe=(mname, name) == MEM_CASE or (
                     mname == MEM_CASE[0] and name in SPLIT_PROBES))
+    for mname, (shape, rows) in SPLIT_MESHES[world].items():
+        mesh = SH.make_mesh(shape, ("data", "model"), device="cpu")
+        res[f"{mname}/coord"] = tuple(mesh.get_coordinate())
+        for name in SPLIT_ARCHS:
+            cfg = port_cfg(name)
+            _, rules, _ = D.apply_policy(cfg, "prefill_32k", "dp_fsdp")
+            res[f"{mname}/{name}"] = sharded_serve(
+                cfg, mesh, rules, _sub(inp, f"{name}/params/", True),
+                inp[f"{name}/split_prompt"][:rows], None, {})
     torch.save(res, out / f"rank{rank}.pt")
 
 
@@ -404,6 +439,16 @@ def runs(tmp_path_factory):
             params, {"tokens": torch.from_numpy(prompt)})
         start = decode_caches(cfg, cache)
         w1[name] = serve_direct(cfg, params, prompt, toks, start)
+        if name in SPLIT_ARCHS:
+            inp[f"{name}/split_prompt"] = sp = split_prompt(name)
+            for rows in {r for m in SPLIT_MESHES.values()
+                         for _, r in m.values()}:
+                c, lg = SRV.make_prefill_step(cfg)(
+                    params, {"tokens": torch.from_numpy(sp[:rows])})
+                w1[f"{name}/rows{rows}"] = {
+                    "prefill/logits": lg.numpy(),
+                    **{f"prefill/cache/{k}": v.numpy()
+                       for k, v in c.items()}}
         ref_in[name] = (pr, prompt, toks)
         inp.update({f"{name}/params/{k}": v.numpy()
                     for k, v in params.items()})
@@ -569,6 +614,50 @@ def test_sharded_prefill_equals_world_size_1(runs, n, mesh, name):
         assert TP.rel_l2(got, want) < TOL_W1, (k, TP.rel_l2(got, want))
         if k.endswith("slot_pos"):
             assert torch.equal(got, want), k
+
+
+@pytest.mark.parametrize("n,mesh,name", [
+    (n, m, a) for n in (2, 4) for m in SPLIT_MESHES[n] for a in SPLIT_ARCHS])
+def test_row_split_prefill_equals_world_size_1(runs, n, mesh, name):
+    """Under ``dp_fsdp`` on batches that ``model`` does not divide
+    (``SPLIT_MESHES``), each rank of a ``model`` group runs its padded
+    tile of its shard's rows (at 4 ranks on (1, 4) two ranks run none),
+    and its outputs are the output leaves' blocks: the logits of every
+    row of its shard, the cache of every row and the rank's block of the
+    slots.  Assembled, they equal world size 1's prefill of the same
+    rows within ``TOL_W1`` relative L2, the slot positions exactly."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.parallel import sharding as SH
+
+    cfg = port_cfg(name)
+    shape, rows = SPLIT_MESHES[n][mesh]
+    w1 = runs["w1"][f"{name}/rows{rows}"]
+    _, rules, _ = D.apply_policy(cfg, "prefill_32k", "dp_fsdp")
+    parts = [(r[f"{mesh}/coord"], r[f"{mesh}/{name}"]) for r in runs[n]]
+    shard = rows // shape[0]
+    assert [res["tile"] for _, res in parts] == [
+        SH.tile(shard, shape[1], c[1]) for c, _ in parts]
+    assert {k for k in parts[0][1] if k.startswith("prefill/")} == set(w1)
+    for k, want in w1.items():
+        want = torch.from_numpy(want).double()
+        axes = (("batch", None, "act_vocab") if k == "prefill/logits"
+                else leaf_axes(cfg, k, "wave"))
+        got = assemble(parts, k, tuple(want.shape), axes, shape, rules)
+        assert TP.rel_l2(got, want) < TOL_W1, (k, TP.rel_l2(got, want))
+        if k.endswith("slot_pos"):
+            assert torch.equal(got, want), k
+        sh = SH.logical_sharding(axes, SH.AbstractMesh(shape, (
+            "data", "model")), rules, tuple(want.shape))
+        rows_at = [i for i, a in enumerate(axes)
+                   if a in ("batch", "cache_batch")]
+        for coord, res in parts:
+            # the rank's block of the leaf's rows: every row of its shard
+            # (a whole-run SSD cache keeps its heads whole, as at 1 row)
+            block = want[sh.local_slices(tuple(want.shape), coord)]
+            assert [res[k].shape[i] for i in rows_at] == [
+                block.shape[i] for i in rows_at], (k, coord)
+            if "/cache/s0_k" in k or "/cache/s0_v" in k:
+                assert res[k].shape == block.shape, (k, coord)
 
 
 @pytest.mark.parametrize("n,mesh,name,layout", [
