@@ -387,25 +387,25 @@ Phases, each of which fails the script (non-zero exit, no result line):
     [1, 32,768, hd] for hd 64, 96, 128 and 256 (window 2,048) and
     ``ssd_scan`` on [48, 128, 256, 64], ds 128, G 1 and on the pod rank's
     [6, 128, 256, 64], G 2 (its 2 rows x 3 of the 48 heads) against their
-    plain versions, the latter also timed; then for each arch but Llama-4
-    Maverick the first ``prefill_32k`` cell (``pod``: 2 x 32,768 a rank; ``multipod``: 1 x
+    plain versions, the latter also timed; then for each arch the first
+    ``prefill_32k`` cell (``pod``: 2 x 32,768 a rank; ``multipod``: 1 x
     32,768) whose estimate leaves a tenth of the card free, run on the
     card by ``run_cell(execute=True)`` at published width and depth with
     ``flash`` (``ssdk`` for Mamba-2), the rank's shards of the weights
     gathered a layer at a time, its ``model`` group splitting the heads
     and vocabulary (in padded tiles where ``model`` does not divide them)
-    and the MLPs, its cache cut to its block of the slots: all nine must
-    run, every run's cache and
-    logits finite and of their shards' shapes, ``kernel_layers``
+    and the MLPs, the MoE on its expert-parallel path (the rank's 1/16 of
+    the experts a layer, its ``all_to_all`` moving nothing), its cache
+    cut to its block of the slots: all ten must run, every run's cache
+    and logits finite and of their shards' shapes, ``kernel_layers``
     launches of its kernel and nothing else, flash at a shape phase 10
     holds, its measured peak within [0.90, 1.10] of the estimate; each
     run's estimate, peak, ratio, wall time and launches logged.  Then
     two ``train_4k`` cells of the pod under ``dp_fsdp+flash``, each one
     rank's step of 1 x 4,096 with its 1/256 of the state, kept sharded
     (a layer's weights gathered at a time, the gradients reduced to the
-    blocks, AdamW on the blocks): Qwen3-30B-A3B at all 48 layers (the
-    ``AbstractMesh`` has no process group: its MoE takes the dense
-    fallback, the experts gathered whole a layer at a time) and
+    blocks, AdamW on the blocks): Qwen3-30B-A3B at all 48 layers (its
+    MoE on the expert-parallel path: 8 of its 128 experts a layer) and
     Qwen1.5-4B, each with its measured peak within [0.90, 1.10] of the
     estimate, ``train_launches_per_step`` launches of each flash kernel
     (forward twice a layer for the remat, dQ and dK/dV once) and nothing
@@ -414,11 +414,14 @@ Phases, each of which fails the script (non-zero exit, no result line):
     RecurrentGemma-2B (26 layers, its RG-LRU blocks split over ``model``:
     160 of the 2,560 channels a rank; 1 of its 10 heads) and MiniCPM-2B
     (40 layers, 3 of its 36 heads and 7,673 of its 122,753 words a rank,
-    padded tiles over 16: flash at [48, 4,096, 64]), each cross-entropy
-    within 0.1 of ln(the rank's words) + sigma^2 D / 2.
+    padded tiles over 16: flash at [48, 4,096, 64]) and Llama-4 Maverick
+    (48 layers, 3 of its 40 heads, 12,628 of its 202,048 words and 8 of
+    its 128 experts a layer a rank: flash at [48, 4,096, 128]), each
+    cross-entropy within 0.1 of ln(the rank's words) + sigma^2 D / 2.
     Then one rank's ``decode_32k`` pod step of Qwen1.5-4B, of
-    Qwen3-30B-A3B at all 48 layers, of RecurrentGemma-2B and of Mamba-2
-    780M under ``baseline`` (``DRYRUN_DECODE``): 8 rows and its 2,048 of
+    Qwen3-30B-A3B at all 48 layers, of RecurrentGemma-2B, of Mamba-2
+    780M and of Llama-4 Maverick under ``baseline`` (``DRYRUN_DECODE``;
+    the MoEs on their ``psum`` path): 8 rows and its 2,048 of
     the cache's 32,768 slots a layer (sequence-parallel attention), the
     RG-LRU's and SSD's states the rank's block of the channels or heads,
     every slot valid and the token at position 32,767, its cache and
@@ -457,7 +460,7 @@ in phase 26 (a)'s first 8 launcher steps, and ``flash_fwd``'s
 ``fabric_launches`` its launches in phase 25 (a)'s fleet run; the
 ``flash_fwd`` and ``ssd_scan`` entries' ``dryrun_launches`` are their
 launches in phase 27 (b)'s prefill runs, and the three flash entries'
-``dryrun_train_launches`` theirs in (b)'s two train cells, all added to
+``dryrun_train_launches`` theirs in (b)'s train cells, all added to
 ``launches``; ``flash_fwd``'s ``dryrun_shapes`` lists the per-rank
 shapes of (b)'s prefill cells, which phase 10 holds.
 ``flash_fwd``'s ``launches`` sum phase 13's eight flash models (a layer
@@ -7741,18 +7744,22 @@ def phase_launcher(np, torch, dev, smi):
 DRYRUN_WORKERS = 6      # processes running phase 27 (a)'s cells on meta
 DRYRUN_SHAPE = "prefill_32k"
 DRYRUN_RATIO = (0.90, 1.10)         # (b): measured peak / estimate
-# (b) runs a prefill_32k cell of each (pod first): all but Llama-4
-# Maverick, whose rank gathers its 24 MoE layers' 128 experts whole a layer
-# at a time on the AbstractMesh (the MoE's dense fallback): 773 GB of
-# seeded draws, left out of the script's time
+# (b) runs a prefill_32k cell of each (pod first): all ten; Llama-4
+# Maverick's pod rank runs 2 rows x 3 of its 40 heads (flash at [6,
+# 32,768, 128]) and its 24 MoE layers on the expert-parallel path, 8 of
+# the 128 experts a layer gathered (rank 0's), its all_to_all moving
+# nothing
 DRYRUN_MUST_RUN = ("smollm_360m", "mamba2_780m", "recurrentgemma_2b",
                    "qwen3_moe_30b_a3b", "internlm2_1_8b", "qwen1_5_4b",
-                   "minicpm_2b", "musicgen_large", "phi3_vision_4_2b")
+                   "minicpm_2b", "musicgen_large", "phi3_vision_4_2b",
+                   "llama4_maverick_400b_a17b")
 # (b)'s decode cells: one rank of the pod's decode_32k (8 rows, its 2,048
-# of the cache's 32,768 slots a layer), Qwen3-30B-A3B at all 48 layers;
-# RecurrentGemma-2B's RG-LRU and Mamba-2's SSD states split over model
+# of the cache's 32,768 slots a layer), Qwen3-30B-A3B and Llama-4
+# Maverick at all 48 layers (their MoEs on the psum path: 8 tokens a
+# rank, fewer than model's 16 ranks); RecurrentGemma-2B's RG-LRU and
+# Mamba-2's SSD states split over model
 DRYRUN_DECODE = ("qwen1_5_4b", "qwen3_moe_30b_a3b", "recurrentgemma_2b",
-                 "mamba2_780m")
+                 "mamba2_780m", "llama4_maverick_400b_a17b")
 DRYRUN_DECODE_SHAPE = "decode_32k"
 # (b)'s kernels at the prefill's 32,768 positions against their plain
 # versions: flash_fwd on one batch-head at each head_dim (and window) the
@@ -7770,7 +7777,9 @@ DRYRUN_SSD_SHAPES = ((48, 128, 256, 64, 128, 1), (6, 128, 256, 64, 128, 2))
 # rows a rank, Qwen3's 2 q heads of 32 and InternLM2's 1 of 16, their KV
 # heads cut from the whole leaves; RecurrentGemma-2B's RG-LRU channels and
 # MLP split, 1 of its 10 heads; MiniCPM-2B's 3 of 36 heads and 7,673 of
-# 122,753 words
+# 122,753 words; Llama-4 Maverick's 3 of 40 heads ([48, 4,096, 128]),
+# 12,628 of 202,048 words and 8 of 128 experts a layer (the MoE's a2a
+# path: each rank routes its 256 of the 4,096 positions)
 # RecurrentGemma-2B's dp_fsdp multipod cell: 256 rows over the 32 (pod,
 # data) shards, 8 a shard, which model's 16 do not divide: each rank runs
 # its padded tile of them, rank 0 (the dry run's) 1 row of 8 with all 10
@@ -7781,7 +7790,8 @@ DRYRUN_TRAIN = (("qwen3_moe_30b_a3b", "dp_fsdp+flash", "pod"),
                 ("internlm2_1_8b", "baseline+flash", "pod"),
                 ("recurrentgemma_2b", "baseline+flash", "pod"),
                 ("minicpm_2b", "baseline+flash", "pod"),
-                ("recurrentgemma_2b", "dp_fsdp+flash", "multipod"))
+                ("recurrentgemma_2b", "dp_fsdp+flash", "multipod"),
+                ("llama4_maverick_400b_a17b", "baseline+flash", "pod"))
 # (b)'s prefill cells beside DRYRUN_MUST_RUN's: RecurrentGemma-2B's
 # dp_fsdp pod prefill_32k, 2 rows a (data) shard over model's 16: rank 0
 # runs 1 row, all 10 heads, and relays each layer's cache to its block
@@ -8023,6 +8033,9 @@ def dryrun_prefill_gates(rec, counts, arch, policy, mk, checked, smi):
     tp = (f", {q}{words:,} of {cfg.vocab_size:,} words a rank (tensor "
           f"parallelism)" if heads < cfg.num_heads or words < cfg.vocab_size
           else "")
+    if cfg.num_experts:
+        tp += (f", {moe_experts(cfg, mk)} of {cfg.num_experts} experts a "
+               f"layer (the MoE's expert-parallel path)")
     log(f"{rec['cell']} ({policy}, "
         f"{rows_phrase(arch, policy, DRYRUN_SHAPE, mk, B)}{tp}; {kernel} at "
         f"{shapes}): "
@@ -8077,6 +8090,9 @@ def dryrun_decode(torch, smi):
                  "parallelism)" if attn else "")
         rec_split = recurrent_phrase(recurrent_split(
             arch, "baseline", DRYRUN_DECODE_SHAPE))
+        if cfg.num_experts:
+            rec_split += (f", {moe_experts(cfg)} of {cfg.num_experts} "
+                          f"experts a layer (the MoE's psum path)")
         log(f"{rec['cell']} (baseline, {cfg.num_layers} layers, {B} rows a "
             f"rank, {attn}{words:,} of {cfg.vocab_size:,} words{rec_split} "
             f"(tensor parallelism){slots}, the token "
@@ -8092,6 +8108,16 @@ def dryrun_decode(torch, smi):
         runs[arch] = rec
         torch.cuda.empty_cache()
     return runs
+
+
+def moe_experts(cfg, mesh_kind="pod"):
+    """The experts a layer a rank of ``mesh_kind``'s mesh runs on the MoE's
+    expert-parallel paths: ``num_experts`` over ``model``'s ranks."""
+    from repro_torch.launch.dryrun import make_abstract_mesh
+    from repro_torch.parallel import sharding as SH
+
+    mesh = make_abstract_mesh(multi_pod=mesh_kind == "multipod")
+    return cfg.num_experts // SH.mesh_shape(mesh)["model"]
 
 
 def random_head_ce(cfg, words=None):
@@ -8161,9 +8187,9 @@ def dryrun_train(torch, smi):
         n = rec["devices"]
         loss, ce, aux = (ex[k] for k in ("loss", "ce", "aux"))
         want_ce = random_head_ce(cfg, words)
-        moe = (" (the AbstractMesh has no process group: the MoE takes its "
-               "dense fallback, the experts gathered whole a layer at a "
-               "time)" if cfg.num_experts else "")
+        moe = (f" (the MoE's expert-parallel path: {moe_experts(cfg, mk)} "
+               f"of {cfg.num_experts} experts a layer a rank, its "
+               f"all_to_all moving nothing)" if cfg.num_experts else "")
         rs = recurrent_phrase(recurrent_split(arch, policy,
                                               DRYRUN_TRAIN_SHAPE))
         tp = (f", {heads} of {cfg.num_heads} q heads and {words:,} of "

@@ -21,8 +21,11 @@ rank of the port runs, on ``meta`` tensors (shapes and types, no storage):
   (``ffn``, ``ssm_heads``), and the head projects to the rank's block of
   the vocabulary; their sums over the group move nothing here and their
   gathers over it repeat the rank's block, so a rank's cross-entropy is
-  over its own block.  On the ``AbstractMesh`` the MoE takes its dense
-  fallback and gathers its experts whole, a layer at a time.  Where the
+  over its own block.  The MoE takes its expert-parallel paths by the
+  same rules as on a process group (``a2a`` in train and prefill,
+  ``psum`` in decode, the resident path under ``resident``): it gathers
+  its experts keeping ``model`` (rank 0's ``E/ep`` experts a layer) and
+  its ``all_to_all`` exchanges move nothing.  Where the
   rules put the batch over ``model`` and ``model`` does not divide the
   global batch (``dp_fsdp``'s multipod ``train_4k``: 8 rows a batch
   shard over 16 ``model`` ranks), the rank runs its padded tile of each
@@ -30,8 +33,8 @@ rank of the port runs, on ``meta`` tensors (shapes and types, no storage):
   the widest, so the estimate is the largest rank's.  A rank's loss is
   its share of the global batch's masked mean, whose sum over ranks
   moves nothing here: the cross-entropy reads the rank's own mean, and
-  the MoE's aux (every rank's on a process group; here the dense
-  fallback's over the rank's tokens) the rank's own over the rank count;
+  the MoE's aux (every rank's on a process group; here the router's over
+  the rank's tokens) the rank's own over the rank count;
 * prefill and decode (``train/serve.py``'s steps) take the parameters
   as the rank's shards too, gathered a layer at a time where the forward
   uses them, the products split over ``model`` as in the train step.
@@ -71,14 +74,14 @@ The record has the reference's keys:
   shardings and arguments, ``compile_s`` the run on meta tensors.
 
 ``run_cell(..., execute=True)`` then runs the cell's program on the card
-at the config's width and depth: each argument is its shard of a seeded
-draw of the leaf (a cache's ``slot_pos`` each slot's own position, and a
+at the config's width and depth: each argument is a seeded draw in its
+shard's shape (a cache's ``slot_pos`` each slot's own position, and a
 decode cell's ``pos`` the cache's last, so that every slot attends), a
-gather draws the leaf (one layer of it; a gather keeping ``model``, rank
-0's block of that draw) again from the same seed, and the peak
-(``max_memory_allocated`` after ``reset_peak_memory_stats``, less what
-was allocated before the arguments) is held against the estimate.  The
-``flash`` and ``ssdk`` tokens select the kernels there
+gather draws the leaf (one layer of it; a gather keeping ``model``, a
+block of rank 0's shape) from the same seeds, nothing drawn whole to be
+cut, and the peak (``max_memory_allocated`` after
+``reset_peak_memory_stats``, less what was allocated before the
+arguments) is held against the estimate.  The ``flash`` and ``ssdk`` tokens select the kernels there
 (``attn_impl="flash"``, ``ssd_impl="kernel"``), and the estimate of such
 a cell goes through their meta launches.
 
@@ -101,8 +104,7 @@ from dataclasses import dataclass
 
 import torch
 from torch.utils import _pytree as pytree
-from torch.utils._python_dispatch import (TorchDispatchMode,
-                                          _disable_current_modes)
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import configs as C
@@ -335,7 +337,9 @@ class DryOps(SH.MeshOps):
     dry run's rank (coordinate 0 on every axis): they move nothing.  A
     sum (or max) over ranks leaves the rank's own values, a gather
     repeats its block, a reduce-scatter keeps its first block (in a
-    tensor of the block's bytes, as NCCL's gives), and the gather of a
+    tensor of the block's bytes, as NCCL's gives), an all-to-all keeps
+    its blocks where they are (in a fresh tensor of the input's bytes, as
+    the exchange's output buffer), and the gather of a
     parameter is ``gather(leaf, x, index, keep)``, the program's own
     (``meta_gather``, ``seeded_gather``) on the parameter's :class:`Leaf`
     (``params``, by key)."""
@@ -355,6 +359,9 @@ class DryOps(SH.MeshOps):
 
     def reduce_scatter(self, x, axis, dim):
         return x.narrow(dim, 0, x.shape[dim] // self.sizes[axis]).clone()
+
+    def all_to_all(self, x, axis):
+        return x.clone(memory_format=torch.contiguous_format)
 
     def gather(self, leaf, keep):
         return self._gather(self.params[leaf.key], leaf.local, leaf.index,
@@ -598,13 +605,14 @@ def _stacked(leaf: Leaf) -> bool:
 
 def seeded_leaf(leaf: Leaf, shape, seed: int, device, vocab: int,
                 index=None):
-    """``leaf`` drawn whole (``shape`` = its local shape), or its layer
-    ``index`` (``shape`` = the layer's), from seeds of its own: the rule
-    of ``layers.init_from_specs`` (``*_scale``/``*norm`` ones,
-    ``*_bias``/``*_b`` zeros, else normal x min(0.02, 1/sqrt(fan_in)))
-    drawn in the leaf's type; the optimizer's moments zeros, as a fresh
-    state's; tokens uniform below ``vocab``; a cache's ``slot_pos`` each
-    slot's own position (every slot valid).  A stacked leaf draws each
+    """``leaf`` drawn in ``shape`` (its shard's, or a gather's), or its
+    layer ``index`` (``shape`` = the layer's), from seeds of its own: the
+    rule of ``layers.init_from_specs`` (``*_scale``/``*norm`` ones,
+    ``*_bias``/``*_b`` zeros, else normal x min(0.02, 1/sqrt(fan_in)) of
+    the whole leaf's fan-in) drawn in the leaf's type; the optimizer's
+    moments zeros, as a fresh state's; tokens uniform below ``vocab``; a
+    cache's ``slot_pos`` each slot's own position (every slot valid; rank
+    0's block of the slots is their first).  A stacked leaf draws each
     layer from that layer's seed, so that a layer drawn alone is that
     layer of the whole draw."""
     dt = leaf.spec.dtype
@@ -637,41 +645,25 @@ def seeded_leaf(leaf: Leaf, shape, seed: int, device, vocab: int,
 
 
 def seeded_args(low: Lowerable, seed: int, device) -> tuple:
-    """Each argument the rank's block of its seeded draw (a copy), a
-    stacked leaf's one layer at a time, so that no more than one layer
-    is drawn whole beside the blocks."""
+    """Each argument drawn in its shard's shape from the leaf's seeds, by
+    :func:`seeded_leaf`'s rule (a stacked leaf's layers each from its
+    own): no leaf, nor a layer of one, is drawn whole to be cut."""
     vocab = low.cfg.vocab_size
-
-    def make(leaf):
-        if not _stacked(leaf):
-            return leaf.place(seeded_leaf(leaf, leaf.local_shape, seed,
-                                          device, vocab))
-        out = torch.empty(leaf.shard_shape, dtype=leaf.spec.dtype,
-                          device=device)
-        block = tuple(slice(0, s) for s in leaf.shard_shape[1:])
-        for i in range(out.shape[0]):
-            out[i] = seeded_leaf(leaf, leaf.local_shape[1:], seed, device,
-                                 vocab, i)[block]
-        return out
-
-    return make_args(low, make)
+    return make_args(low, lambda leaf: seeded_leaf(
+        leaf, leaf.shard_shape, seed, device, vocab))
 
 
 def seeded_gather(seed: int, device, vocab: int):
     """A gather that draws the leaf's layer again from ``seed``; keeping
-    axes, rank 0's block of that draw, which is drawn whole outside the
-    dispatch modes (so that, as in ``meta_gather``, the block is the one
-    tensor the gather makes under :class:`LiveBytes`)."""
+    axes, a block of rank 0's shape drawn alone from the same seed, by
+    the same rule (the one tensor the gather makes, as in
+    ``meta_gather``; a layer of Llama-4's 128 experts is never drawn
+    whole)."""
     def gather(leaf: Leaf, x, index=None, keep=()):
         shape = gathered_shape(leaf, index, keep)
         if not isinstance(x, torch.Tensor) or shape == x.shape:
             return x
-        whole = gathered_shape(leaf, index)
-        if shape == whole:
-            return seeded_leaf(leaf, shape, seed, device, vocab, index)
-        with _disable_current_modes():
-            t = seeded_leaf(leaf, whole, seed, device, vocab, index)
-        return t[tuple(slice(0, n) for n in shape)].clone()
+        return seeded_leaf(leaf, shape, seed, device, vocab, index)
     return gather
 
 

@@ -21,19 +21,22 @@ put the batch over ``model`` (``dp_fsdp``, ``dp_all``, ``attn_dp``) and
 group runs only its padded tile of its shard's rows, a microbatch at a
 time (``parallel.sharding.row_group``; trailing tiles short or empty, a
 rank with none still running every collective of the step), and each
-rank's loss is its share of the global batch's masked mean.  Where a
-leaf's spec splits its product over ``model`` and the rules' batch leaves
-``model`` out (``baseline``'s ``heads``, ``kv_heads``, ``ffn`` and
-``vocab``), the ranks of a ``model`` group split the product (tensor
-parallelism, ``parallel.sharding.tp_group``): each runs its batch shard
-through its block of attention's heads, of the MLPs' hidden units and of
-the vocabulary (its logits and the vocab-parallel cross-entropy), the
-partial outputs summed over the group.  The heads and the vocabulary
-split so also where ``model`` does not divide them, in padded tiles cut
-from the weights gathered whole (``parallel.sharding.tile_group``).
-Everything else (the RG-LRU's and the SSD's own leaves where ``model``
-does not split them all, rules that put the batch over ``model``) runs
-with a layer's weights whole.
+rank's loss is its share of the global batch's masked mean.  A
+microbatch is a slice of the global batch, as in the reference: with
+more than one, the ranks exchange their shards' rows first, so that each
+holds its block of every slice (``parallel.sharding.microbatch_rows``).
+Where a leaf's spec splits its product over ``model`` and the rules'
+batch leaves ``model`` out (``baseline``'s ``heads``, ``kv_heads``,
+``ffn`` and ``vocab``), the ranks of a ``model`` group split the product
+(tensor parallelism, ``parallel.sharding.tp_group``): each runs its
+batch shard through its block of attention's heads, of the MLPs' hidden
+units and of the vocabulary (its logits and the vocab-parallel
+cross-entropy), the partial outputs summed over the group.  The heads
+and the vocabulary split so also where ``model`` does not divide them,
+in padded tiles cut from the weights gathered whole
+(``parallel.sharding.tile_group``).  Everything else (the RG-LRU's and
+the SSD's own leaves where ``model`` does not split them all, rules that
+put the batch over ``model``) runs with a layer's weights whole.
 
 Auto-resume through ``CheckpointManager.restore(placements=)``, the
 straggler tracker and the reference's checkpoint cadence and log lines.
@@ -51,6 +54,7 @@ group only if it started it.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import tempfile
 import time
@@ -124,13 +128,9 @@ def batch_shard(mesh) -> tuple[int, int]:
     """(this rank's index, their count) along the current rules' batch axes
     present in ``mesh``: ranks that differ only along other axes share a
     shard."""
-    sizes = SH.mesh_shape(mesh)
-    coord = dict(zip(sizes, mesh.get_coordinate()))
-    idx, n = 0, 1
-    for a in SH.current_rules().get("batch"):
-        if a in sizes:
-            idx, n = idx * sizes[a] + coord[a], n * sizes[a]
-    return idx, n
+    ops = SH.MeshOps(mesh)
+    axes = SH.batch_axes(ops, None)
+    return ops.index(axes), math.prod(ops.sizes[a] for a in axes)
 
 
 def state_template(shapes):
@@ -213,8 +213,13 @@ def make_sharded_step(step_fn, mesh, state_sh, *, ops=None,
     rules put the batch over ``model`` and ``model`` does not divide
     ``rows`` (``parallel.sharding.row_group``), each rank of a ``model``
     group runs its padded tile of each microbatch's rows, maybe short or
-    empty.  At one rank nothing is gathered or reduced: the local blocks
-    are the whole leaves.  The step runs under ``mesh`` and the rules
+    empty.  With more than one microbatch, the rank's rows are first
+    exchanged over the axes that split the batch
+    (``parallel.sharding.microbatch_rows``), so that microbatch i is the
+    rank's block of the global batch's i-th slice, as in the reference's
+    step; a padded tile of rows is then cut from that block.  At one rank
+    nothing is gathered or reduced: the local blocks are the whole
+    leaves.  The step runs under ``mesh`` and the rules
     current when it was made.  ``ops`` (``parallel.sharding.MeshOps`` over
     ``mesh`` by default), ``place`` and ``mean`` are its collectives and
     pieces; the dry run (``launch/dryrun.py``) runs the same step with its
@@ -224,10 +229,17 @@ def make_sharded_step(step_fn, mesh, state_sh, *, ops=None,
     shards = SH.StateShards(ops, state_sh) if ops.n > 1 else None
     with SH.sharding_context(mesh, rules):
         split = SH.row_group(ops if ops.n > 1 else None, rows)
+        axes = SH.batch_axes(ops, rows)
+    n_mb = step_fn.microbatches
 
     def sharded_step(state, batch):
         st = to_local(state)
         params = SH.sharded_leaves(st["params"], state_sh["params"], ops)
+        if n_mb > 1 and axes:
+            dev = SH.local_of(next(iter(params.values()))).device
+            batch = {k: SH.microbatch_rows(torch.as_tensor(v, device=dev),
+                                           ops, axes, n_mb)
+                     for k, v in batch.items()}
         with SH.sharding_context(mesh, rules):
             loss, extras, grads = step_fn.grads(params, batch, split=split)
         del params

@@ -1,19 +1,25 @@
 """Mixture-of-experts FFN — the reference's ``repro.models.moe`` in PyTorch.
 
-With no mesh (or a mesh without a ``model`` axis), ``moe_ffn`` takes
-``_moe_dense_fallback`` (``src/repro/models/moe.py:240-261``): a
-GShard-style router (f32 logits, softmax, top-k renormalised), tokens
-binned into per-expert capacity buffers of ``max(4, ceil(t·k·cf/E))``
-slots, one grouped product over all experts, the outputs gathered back
-and weighted, plus Llama-4's shared expert through ``layers.mlp``.
+With no mesh (or a mesh without a ``model`` axis, or an
+``AbstractMesh`` with whole weights, which has no collectives to run),
+``moe_ffn`` takes ``_moe_dense_fallback``
+(``src/repro/models/moe.py:240-261``): a GShard-style router (f32
+logits, softmax, top-k renormalised), tokens binned into per-expert
+capacity buffers of ``max(4, ceil(t·k·cf/E))`` slots, one grouped
+product over all experts, the outputs gathered back and weighted, plus
+Llama-4's shared expert through ``layers.mlp``.
 
-Under a ``sharding_context`` whose ``DeviceMesh`` has a ``model`` axis it
-takes the reference's expert-parallel paths (``:115-237``), with
-``torch.distributed`` collectives over the mesh's sub-groups in place of
-``shard_map``.  ``x`` is the rank's own shard of the batch over the
-rules' batch axes (the launcher feeds each rank its shard), so where the
-reference's ``shard_map`` slices the batch by its ``in_specs``, the port
-is handed the slice:
+Under a ``sharding_context`` whose mesh has a ``model`` axis it takes
+the reference's expert-parallel paths (``:115-237``), with collectives
+over the mesh's axes in place of ``shard_map``: those of the expert
+leaves' ``MeshOps`` where they are a rank's shards
+(``parallel.sharding.ShardedLeaf``; on the dry run's ``AbstractMesh``
+its ``DryOps``, which move nothing), else ``MeshOps`` over the
+``DeviceMesh``'s process groups.  The rank's place on ``model`` and
+``data`` is the ops' ``coordinate()``.  ``x`` is the rank's own shard of
+the batch over the rules' batch axes (the launcher feeds each rank its
+shard), so where the reference's ``shard_map`` slices the batch by its
+``in_specs``, the port is handed the slice:
 
 * ``a2a`` (train / prefill): each model rank takes its slice of the
   sequence (``moe_seq_shard`` takes the same slice, the reference's
@@ -64,15 +70,14 @@ products are plain batched matrix products, as in the reference.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.layers import Spec, mlp
 from repro_torch.parallel.sharding import (AbstractMesh, AllGather,
-                                           AllReduce, MeshOps, ReduceScatter,
-                                           ShardedLeaf, current_mesh,
-                                           current_rules, gathered,
-                                           mesh_shape)
+                                           AllReduce, AllToAll, MeshOps,
+                                           ReduceScatter, ShardedLeaf,
+                                           current_mesh, current_rules,
+                                           gathered, mesh_shape)
 
 #: the leaves the MoE gathers itself when they are a rank's shards: the
 #: expert-parallel paths keep the experts split over ``model``
@@ -180,49 +185,21 @@ def _combine(out_buf, slot, comb_w, t: int, k: int):
             * comb_w.reshape(t, k, 1).to(flat.dtype)).sum(dim=1)
 
 
-# ---------------------------------------------------------------------------
-# differentiable collectives over a process group (each backward is its
-# forward's adjoint over all ranks; the gather, the reduce-scatter and the
-# all-reduce are ``parallel.sharding``'s)
-
-
-class _AllToAll(torch.autograd.Function):
-    """``x`` [n, ...]: block j goes to rank j, and block j of the result
-    came from rank j; backward: the same exchange of the cotangents."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x.contiguous(), group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        out = torch.empty_like(g)
-        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
-        return out, None
-
-
-# ---------------------------------------------------------------------------
-
-
 def moe_ffn(p, x, cfg, prefix: str = "", rows=None):
     """x: [B,S,D] -> (y [B,S,D], aux_loss f32 scalar).  Under a mesh with a
     ``model`` axis, ``x`` is this rank's batch shard and the
-    expert-parallel paths run (see the module's docstring); otherwise the
-    reference's ``_moe_dense_fallback``.  An :class:`AbstractMesh` has no
-    process group and takes the dense path.  ``rows`` (``transformer.
-    forward``'s ``(group, n)``): ``x`` is the rank's padded tile of ``n``
-    rows split over ``model``, maybe short or empty; the bins every rank
-    exchanges hold the widest tile's tokens.  ``aux`` is every rank's, the
-    mean over ranks weighted by their tokens (a rank with none adds
-    nothing)."""
-    mesh = current_mesh()
-    if (mesh is None or isinstance(mesh, AbstractMesh)
-            or "model" not in mesh_shape(mesh)):
+    expert-parallel paths run over :func:`expert_ops`' collectives (see
+    the module's docstring); otherwise, or where there are none to run
+    (an :class:`AbstractMesh` with whole weights), the reference's
+    ``_moe_dense_fallback``.  ``rows`` (``transformer.forward``'s
+    ``(group, n)``): ``x`` is the rank's padded tile of ``n`` rows split
+    over ``model``, maybe short or empty; the bins every rank exchanges
+    hold the widest tile's tokens.  ``aux`` is every rank's, the mean over
+    ranks weighted by their tokens (a rank with none adds nothing)."""
+    ops = expert_ops(p, prefix, current_mesh())
+    if ops is None:
         return _moe_dense_fallback(p, x, cfg, prefix)
-    sizes = mesh_shape(mesh)
+    sizes = ops.sizes
     B, S, D = x.shape
     ep = sizes["model"]
     batch_rule = current_rules().get("batch")
@@ -238,15 +215,13 @@ def moe_ffn(p, x, cfg, prefix: str = "", rows=None):
     resident = (cfg.moe_expert_resident and "data" in sizes
                 and cfg.moe_hidden % sizes["data"] == 0)
 
-    ops = MeshOps(mesh)
-    g_model = mesh.get_group("model")
-    mi = mesh.get_local_rank("model")
+    coord = ops.coordinate()
+    mi = coord["model"]
     es = slice(mi * e_loc, (mi + 1) * e_loc)
     fs = None
     if resident:
         f_loc = cfg.moe_hidden // sizes["data"]
-        fs = slice(mesh.get_local_rank("data") * f_loc,
-                   (mesh.get_local_rank("data") + 1) * f_loc)
+        fs = slice(coord["data"] * f_loc, (coord["data"] + 1) * f_loc)
     wg = _local_experts(p[f"{prefix}we_gate"], es, fs, 2)
     wu = _local_experts(p[f"{prefix}we_up"], es, fs, 2)
     wd = _local_experts(p[f"{prefix}we_down"], es, fs, 1)
@@ -263,7 +238,7 @@ def moe_ffn(p, x, cfg, prefix: str = "", rows=None):
         widest = t if rows is None else -(-rows[1] // rows[0].size) * S
         cap = capacity(widest, cfg)
         buf, comb_w, slot = _bin_tokens(x_tok, top_p, top_e, E, cap)
-        recv = _AllToAll.apply(buf.reshape(ep, e_loc * cap, D), g_model)
+        recv = AllToAll.apply(buf.reshape(ep, e_loc * cap, D), ops, "model")
         recv = recv.reshape(ep, e_loc, cap, D)   # [src, e, cap, D]
         if resident:
             # tokens visit the resident F-shards: gather over data, partial
@@ -273,7 +248,8 @@ def moe_ffn(p, x, cfg, prefix: str = "", rows=None):
                 _expert_ffn_src(recv_all, wg, wu, wd), ops, "data", 2)
         else:
             out = _expert_ffn_src(recv, wg, wu, wd)
-        back = _AllToAll.apply(out.reshape(ep, e_loc * cap, D), g_model)
+        back = AllToAll.apply(out.reshape(ep, e_loc * cap, D), ops,
+                              "model")
         y_tok = _combine(back, slot, comb_w, t, k)
         if dp_over_model:
             y = y_tok.reshape(B, S, D)      # tokens never left their owner
@@ -304,6 +280,21 @@ def moe_ffn(p, x, cfg, prefix: str = "", rows=None):
     if cfg.shared_expert:
         y = y + _shared(p, x, cfg, prefix)
     return y, aux
+
+
+def expert_ops(p, prefix: str, mesh) -> MeshOps | None:
+    """The collectives the expert-parallel paths run: the expert leaves'
+    own where they are a rank's shards (``ShardedLeaf``, as
+    ``parallel.sharding.tp_group`` takes a leaf's), else ``MeshOps`` over
+    ``mesh``'s process groups.  None where the paths do not run: no mesh,
+    no ``model`` axis, or an :class:`AbstractMesh` (no process group)
+    with whole weights."""
+    if mesh is None or "model" not in mesh_shape(mesh):
+        return None
+    w = p[f"{prefix}we_gate"]
+    if isinstance(w, ShardedLeaf):
+        return w.ops
+    return None if isinstance(mesh, AbstractMesh) else MeshOps(mesh)
 
 
 def _local_experts(w, es: slice, fs: slice | None, f_dim: int):

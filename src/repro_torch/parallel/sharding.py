@@ -65,6 +65,12 @@ each rank of a ``model`` group runs its padded tile of its shard's rows
 there, a trailing tile short or empty; a prefill gathers the rows back
 where its outputs hold them (:meth:`TPGroup.gather`).
 
+**A microbatch is a slice of the global batch**, as the reference's
+``x.reshape(n, b/n, ...)`` of a batch split over the batch axes: with
+more than one microbatch, a rank's shard of the rows is exchanged over
+the axes that split it (:func:`batch_axes`, :func:`microbatch_rows`) so
+that its i-th slice is its block of the global batch's i-th.
+
 **Serving caches split over ``model``** by the rules' ``cache_seq``
 (sequence parallelism in decode): a cache leaf's stored spec decides
 (:func:`split_group`), and a prefill, which has no cache leaf yet,
@@ -441,6 +447,16 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` [n, ...] over the group's n ranks: block j goes to rank j,
+    and block j of the result came from rank j."""
+    import torch.distributed as dist
+
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
 def native_reduce_scatter(x: torch.Tensor, group) -> bool:
     """Whether :func:`reduce_scatter` of ``x`` runs the group's own
     reduce-scatter: a CUDA tensor over NCCL.  Elsewhere (gloo, the CPU's
@@ -509,6 +525,22 @@ class AllGather(torch.autograd.Function):
         return ctx.ops.reduce_scatter(g, ctx.axis, ctx.dim), None, None, None
 
 
+class AllToAll(torch.autograd.Function):
+    """:meth:`MeshOps.all_to_all` over ``axis``: block j of dimension 0 to
+    rank j; backward: the same exchange of the cotangents, its adjoint
+    (the exchange is a permutation of the blocks over the ranks, and its
+    own inverse)."""
+
+    @staticmethod
+    def forward(ctx, x, ops, axis):
+        ctx.ops, ctx.axis = ops, axis
+        return ops.all_to_all(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ops.all_to_all(g, ctx.axis), None, None
+
+
 class ReduceScatter(torch.autograd.Function):
     """:meth:`MeshOps.reduce_scatter` over ``axis``; backward:
     :meth:`MeshOps.all_gather` of the cotangents, its adjoint."""
@@ -573,6 +605,12 @@ class MeshOps:
         it along ``dim``."""
         return reduce_scatter(x, self.mesh.get_group(axis), dim)
 
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x`` [n, ...] over the n ranks along ``axis``: block j of
+        dimension 0 goes to rank j, and block j of the result came from
+        rank j."""
+        return all_to_all(x, self.mesh.get_group(axis))
+
     # built on them --------------------------------------------------------
     def sum_over(self, x: torch.Tensor, axes) -> torch.Tensor:
         """``x`` (a tensor this rank owns) summed in place over the ranks
@@ -582,18 +620,21 @@ class MeshOps:
                 self.all_reduce(x, a)
         return x
 
+    def index(self, axes) -> int:
+        """This rank's index along ``axes`` together, the first the most
+        significant (a block's place in a dimension they split)."""
+        coord, idx = self.coordinate(), 0
+        for a in axes:
+            idx = idx * self.sizes[a] + coord[a]
+        return idx
+
     def block(self, x: torch.Tensor, layout: list[tuple]) -> torch.Tensor:
         """``x``, whole along each dimension that ``layout`` splits, cut to
         this rank's block there (a view)."""
-        coord = self.coordinate()
         for d, axes in enumerate(layout):
             if axes:
-                n = math.prod(self.sizes[a] for a in axes)
-                idx = 0
-                for a in axes:
-                    idx = idx * self.sizes[a] + coord[a]
-                w = x.shape[d] // n
-                x = x.narrow(d, idx * w, w)
+                w = x.shape[d] // math.prod(self.sizes[a] for a in axes)
+                x = x.narrow(d, self.index(axes) * w, w)
         return x
 
     def unsplit(self, x: torch.Tensor, layout: list[tuple]) -> torch.Tensor:
@@ -895,6 +936,39 @@ def row_group(ops: MeshOps | None, rows: int | None,
             _spec_for((logical,), ops.mesh, rules, (rows,)), 1)[0]:
         return None
     return _model_group(ops)
+
+
+def batch_axes(ops: MeshOps, rows: int | None) -> tuple[str, ...]:
+    """The mesh axes, of more than one rank, whose ranks hold distinct
+    shards of a batch's rows: those the batch's spec splits a global batch
+    of ``rows`` over under the current rules (``model`` dropped where it
+    does not divide them), or with ``rows`` None every batch axis of the
+    mesh, as ``launch.train.batch_shard`` gives the loader."""
+    if rows is None:
+        axes = [a for a in current_rules().get("batch") if a in ops.sizes]
+    else:
+        axes = spec_axes(_spec_for(("batch",), ops.mesh, current_rules(),
+                                   (rows,)), 1)[0]
+    return tuple(a for a in axes if ops.sizes[a] > 1)
+
+
+def microbatch_rows(x: torch.Tensor, ops: MeshOps, axes,
+                    n: int) -> torch.Tensor:
+    """``x``, a rank's shard of a batch's rows (global rows [r·b/d,
+    (r+1)·b/d), r its index over ``axes``, d their ranks), with its rows
+    exchanged so that its i-th of ``n`` slices is its block of the global
+    batch's i-th: global rows [i·b/n + r·b/(n·d), +b/(n·d)), as GSPMD lays
+    out the reference's ``x.reshape(n, b/n, ...)`` of a batch split over
+    ``axes``.  The shards are gathered over ``axes`` (the global rows,
+    [d, n, c] read as [n, d, c]) and the rank's rows of each slice cut."""
+    d = math.prod(ops.sizes[a] for a in axes)
+    if x.shape[0] % n:
+        raise ValueError(f"a shard of {x.shape[0]} rows does not split into "
+                         f"{n} microbatches")
+    whole = ops.unsplit(x, [tuple(axes)] + [()] * (x.dim() - 1))
+    c = x.shape[0] // n
+    return whole.reshape(n, d, c, *x.shape[1:])[:, ops.index(axes)] \
+        .reshape(x.shape)
 
 
 def cache_seq_group(ops: MeshOps | None, n_slots: int) -> TPGroup | None:

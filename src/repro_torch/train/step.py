@@ -182,17 +182,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
     state, and the caller must not use the old state again.  The numbers
     are the same either way.
 
-    The step carries three helpers: ``init_opt(params)``, the optimizer
-    state; ``grads(params, batch, split=None) -> (loss, extras, grads)``,
-    the accumulated gradients the step would apply (``split``: each
-    microbatch's tile of the rows alone, see :func:`make_loss_fn`); and
-    ``apply(state, loss, extras, grads, shards=None) -> (state,
-    metrics)``, the step's update from them.  The sharded launcher hands
-    ``grads`` a rank's shards (``parallel.sharding.ShardedLeaf``) and gets
-    each gradient back as the block of the mean over ranks (the gathers'
-    backward reduces it); ``apply`` then updates the local blocks,
-    ``shards`` (``parallel.sharding.StateShards``) summing over ranks
-    where the optimizer reduces over a whole leaf.  Over microbatches, each one's
+    The step carries its ``microbatches`` and three helpers:
+    ``init_opt(params)``, the optimizer state; ``grads(params, batch,
+    split=None) -> (loss, extras, grads)``, the accumulated gradients the
+    step would apply (``split``: each microbatch's tile of the rows alone,
+    see :func:`make_loss_fn`); and ``apply(state, loss, extras, grads,
+    shards=None) -> (state, metrics)``, the step's update from them.  The
+    sharded launcher hands ``grads`` a rank's shards
+    (``parallel.sharding.ShardedLeaf``) and gets each gradient back as the
+    block of the mean over ranks (the gathers' backward reduces it);
+    ``apply`` then updates the local blocks, ``shards``
+    (``parallel.sharding.StateShards``) summing over ranks where the
+    optimizer reduces over a whole leaf.  Over microbatches, each one's
     gradient is reduced over the ranks first, then cast to f32, divided
     by the count and added to the accumulator, in microbatch order.
     """
@@ -256,6 +257,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
         return apply(state, loss, extras, grads)
 
     train_step.init_opt = lambda params: upd_init(params, opt_cfg)
+    train_step.microbatches = microbatches
     train_step.grads = accumulate
     train_step.apply = apply
     return train_step

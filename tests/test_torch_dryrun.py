@@ -110,7 +110,9 @@ def test_run_cell_matches_reference(reference, cell):
 # 121.18; split over model 32.82 and 13.19; RecurrentGemma-2B with its
 # RG-LRU blocks whole 79.78, split 40.43; with the heads and the
 # vocabulary whole where 16 does not divide them, MiniCPM-2B 163.84 and
-# Mamba-2 71.79, in padded tiles 21.11 and 12.07)
+# Mamba-2 71.79, in padded tiles 21.11 and 12.07; Llama-4 Maverick with
+# its MoE's dense fallback, each layer's 128 experts gathered whole, 87.71
+# (over the card), on the expert-parallel path 44.54)
 SHARDED_TRAIN = {("qwen3_moe_30b_a3b", "dp_fsdp", "pod"): 24.0,
                  ("qwen1_5_4b", "dp_fsdp", "pod"): 15.0,
                  ("qwen3_moe_30b_a3b", "baseline", "pod"): 36.0,
@@ -118,6 +120,7 @@ SHARDED_TRAIN = {("qwen3_moe_30b_a3b", "dp_fsdp", "pod"): 24.0,
                  ("recurrentgemma_2b", "baseline", "pod"): 45.0,
                  ("minicpm_2b", "baseline", "pod"): 23.5,
                  ("mamba2_780m", "baseline", "pod"): 13.5,
+                 ("llama4_maverick_400b_a17b", "baseline", "pod"): 46.0,
                  # dp_fsdp's multipod cells, each rank of a model group on
                  # its padded tile of 8 rows: 26.19, 13.94, 13.59, 11.23
                  # and 54.38, each its pod cell's (every rank on all 8
@@ -168,6 +171,11 @@ SHARDED_SERVE = {("qwen1_5_4b", "decode_32k", "pod"): 2.0,          # 107.36
                  ("phi3_vision_4_2b", "decode_32k", "pod"): 1.0,     # 103.12
                  ("recurrentgemma_2b", "prefill_32k", "pod"): 20.0,  # 88.68
                  ("mamba2_780m", "prefill_32k", "pod"): 20.0,
+                 # Llama-4 Maverick's MoE on the expert-parallel path (8
+                 # of 128 experts a layer a rank): 8.13 and 1.93 (its
+                 # dense fallback, every expert gathered: 39.77 and 30.06)
+                 ("llama4_maverick_400b_a17b", "prefill_32k", "pod"): 9.0,
+                 ("llama4_maverick_400b_a17b", "decode_32k", "pod"): 2.5,
                  # under dp_fsdp, 2 rows a (data) shard over model's 16:
                  # each rank runs its padded tile of them and relays each
                  # layer's cache to its block: 35.39 (every rank on both
@@ -259,7 +267,10 @@ ESTIMATE_CELLS = [
     ("recurrentgemma_2b", "tiny_train6", "dp_fsdp"),
     ("recurrentgemma_2b", "tiny_prefill6", "dp_fsdp"),
     ("mamba2_780m", "tiny_prefill6", "dp_fsdp"),
-    ("smollm_360m", "tiny_prefill", "dp_fsdp")]
+    ("smollm_360m", "tiny_prefill", "dp_fsdp"),
+    ("llama4_maverick_400b_a17b", "tiny_train"),
+    ("llama4_maverick_400b_a17b", "tiny_prefill"),
+    ("llama4_maverick_400b_a17b", "tiny_decode")]
 
 
 @pytest.mark.parametrize("cell", ESTIMATE_CELLS,
@@ -290,7 +301,9 @@ def test_meta_estimate_equals_a_cpu_run(tiny, cell):
     heads and 511 words run in padded tiles in each mode (the rank's 2
     heads and 256 words, cut from the leaves gathered whole; a serving
     cell's logits gathered whole over the group, as its output leaf
-    holds them)."""
+    holds them).  The MoEs (Qwen3, Llama-4 with its shared expert) take
+    their expert-parallel paths, each rank's experts gathered keeping
+    ``model`` and its ``all_to_all`` a fresh buffer of the bins."""
     arch, shape, policy = (*cell, "baseline")[:3]
     low, _, on_meta = _measure(arch, shape, "meta", policy)
     low_c, outs, on_cpu = _measure(arch, shape, "cpu", policy)
@@ -305,6 +318,48 @@ def test_meta_estimate_equals_a_cpu_run(tiny, cell):
 
     for tree, leaves in zip(outs, low_c.outs):
         D._map(check, leaves, tree)
+
+
+EP_CELLS = [(arch, shape, policy)
+            for arch in ("qwen3_moe_30b_a3b", "llama4_maverick_400b_a17b")
+            for shape in ("tiny_train", "tiny_prefill", "tiny_decode")
+            for policy in ("baseline", "dp_fsdp")]
+
+
+@pytest.mark.parametrize("cell", EP_CELLS,
+                         ids=["-".join(c) for c in EP_CELLS])
+def test_estimate_cells_run_the_moe_expert_parallel(tiny, monkeypatch, cell):
+    """A MoE cell's program on the ``AbstractMesh`` runs the
+    expert-parallel paths as a process group would (``a2a`` in train and
+    prefill, ``psum`` in baseline's decode, whose rank has fewer tokens
+    than ``model`` has ranks): every expert product is over the rank's
+    ``E/ep`` experts, the exchanges go through ``DryOps.all_to_all`` and
+    the dense fallback never runs."""
+    from repro_torch.models import moe as M
+
+    arch, shape, policy = cell
+    products, exchanges = [], []
+    real_ffn, real_a2a = M._expert_ffn, D.DryOps.all_to_all
+
+    def expert_ffn(recv, wg, wu, wd):
+        products.append(wg.shape[0])
+        return real_ffn(recv, wg, wu, wd)
+
+    def all_to_all(self, x, axis):
+        exchanges.append(axis)
+        return real_a2a(self, x, axis)
+
+    def dense(*a, **k):
+        raise AssertionError("the dense fallback ran")
+
+    monkeypatch.setattr(M, "_expert_ffn", expert_ffn)
+    monkeypatch.setattr(M, "_moe_dense_fallback", dense)
+    monkeypatch.setattr(D.DryOps, "all_to_all", all_to_all)
+    low, _, _ = _measure(arch, shape, "meta", policy)
+    ep = MESH.shape["model"]
+    assert products and set(products) == {low.cfg.num_experts // ep}
+    psum = shape == "tiny_decode" and policy == "baseline"
+    assert set(exchanges) == (set() if psum else {"model"})
 
 
 @pytest.mark.parametrize("arch", ["smollm_360m", "qwen3_moe_30b_a3b"])
@@ -364,20 +419,22 @@ def test_train_cells_flash_shapes_are_held_by_phases_10_and_14():
     head_dim 256 with its window, MiniCPM-2B's 3 of 36 and 7,673 of its
     122,753 words; and RecurrentGemma-2B's ``dp_fsdp`` multipod rank, 1
     of its shard's 8 rows (the batch over ``model`` in padded tiles, the
-    port's ``row_group``) and all 10 heads.  All are among phase 10's
-    forward shapes and phase 14's backward shapes, where the kernels are
-    held to their plain versions."""
+    port's ``row_group``) and all 10 heads; Llama-4 Maverick's
+    ``baseline`` rank, 16 rows x 3 of its 40 heads and 12,628 of its
+    202,048 words.  All are among phase 10's forward shapes and phase
+    14's backward shapes, where the kernels are held to their plain
+    versions."""
     import chip_smoke
 
     got = chip_smoke.dryrun_train_flash_shapes()
     assert got == [(32, 4096, 128, 0), (20, 4096, 128, 0),
                    (32, 4096, 128, 0), (16, 4096, 128, 0),
                    (16, 4096, 256, 2048), (48, 4096, 64, 0),
-                   (10, 4096, 256, 2048)]
+                   (10, 4096, 256, 2048), (48, 4096, 128, 0)]
     assert [chip_smoke.dryrun_train_split(arch, policy, mesh_kind=mk)[2:]
             for arch, policy, mk in chip_smoke.DRYRUN_TRAIN] == [
         (1, 32, 151936), (1, 20, 151936), (16, 2, 9496), (16, 1, 5784),
-        (16, 1, 16000), (16, 3, 7673), (1, 10, 256000)]
+        (16, 1, 16000), (16, 3, 7673), (1, 10, 256000), (16, 3, 12628)]
     for shape in got:
         assert shape in chip_smoke.train_flash_shapes()
         assert shape in chip_smoke.bwd_shapes()
@@ -450,7 +507,8 @@ def test_prefill_cells_flash_shapes_are_held_by_phase_10():
     ``model``'s 16 ranks: InternLM2-1.8B 1 of 16, Qwen3-30B-A3B,
     MusicGen-large and Phi-3-Vision 2 of 32, and in padded tiles
     SmolLM-360M 1 of 15, RecurrentGemma-2B 1 of 10 with its window,
-    Qwen1.5-4B 2 of 20 and MiniCPM-2B 3 of 36; RecurrentGemma-2B's
+    Qwen1.5-4B 2 of 20, MiniCPM-2B 3 of 36 and Llama-4 Maverick 3 of 40
+    (its MoE on the expert-parallel path); RecurrentGemma-2B's
     ``dp_fsdp`` cell (``DRYRUN_PREFILL``) 1 of its shard's 2 rows (the
     batch over ``model`` in padded tiles) and all 10 heads.  Phase 10
     holds every one, with the plain version a batch-head at a time, which
@@ -461,11 +519,11 @@ def test_prefill_cells_flash_shapes_are_held_by_phase_10():
     assert got == ((2, 32768, 64, 0), (2, 32768, 256, 2048),
                    (4, 32768, 128, 0), (2, 32768, 128, 0),
                    (6, 32768, 64, 0), (4, 32768, 64, 0), (4, 32768, 96, 0),
-                   (10, 32768, 256, 2048))
+                   (6, 32768, 128, 0), (10, 32768, 256, 2048))
     assert chip_smoke.DRYRUN_PREFILL == (
         ("recurrentgemma_2b", "dp_fsdp+flash", "pod"),)
-    assert len(chip_smoke.DRYRUN_MUST_RUN) == 9
-    assert "llama4_maverick_400b_a17b" not in chip_smoke.DRYRUN_MUST_RUN
+    assert len(chip_smoke.DRYRUN_MUST_RUN) == 10
+    assert "llama4_maverick_400b_a17b" in chip_smoke.DRYRUN_MUST_RUN
     g = torch.Generator().manual_seed(3)
     q, k, v = (torch.randn(5, 32, 64, generator=g) for _ in range(3))
     whole = FA.flash_fwd_plain(q, k, v, scale=0.125, window=8)

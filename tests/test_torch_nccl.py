@@ -309,19 +309,24 @@ def test_two_sharded_steps_over_nccl(ranks, tmp_path, arch, mesh, variant):
     row-split cases run ``dp_fsdp``'s batch over ``model`` in padded
     tiles: on (1, 4) 2 rows, two ranks with none (the reduced Qwen3's
     expert-parallel ``all_to_all`` then exchanges bins with ranks that
-    send no token)."""
+    send no token).  The microbatch cases split 4 rows over ``data``'s 2
+    ranks in 2 microbatches with labels IGNORE unevenly: each rank's
+    microbatch i is its block of the global slice i (world size 1's:
+    ``TP.world1_step``)."""
     from repro_torch.launch import train as LT
-    from repro_torch.train.step import make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     inp = TP.make_inputs(tmp_path / "inputs.npz")
     cfg, opt, mb, _, bkey, rows = TP.step_setup(arch, mesh, variant, WORLD)
-    step = make_train_step(cfg, opt, microbatches=mb)
+    step = TP.world1_step(cfg, opt, mb, variant,
+                          TP.GRAD_MESHES[WORLD][mesh][0])
     state = _to(LT.init_state(cfg, step, "cpu"), torch.device("cuda", 0))
     losses = []
     for i in range(2):
         state, m = step(state, TP.step_batch(inp, i, bkey, rows))
         losses.append(float(m["loss"]))
+    if variant == "mb2_ignore_moe":
+        assert sum(step.drops) > 0, step.drops
     want = {k: v.cpu() for k, v in TP.state_wholes(state).items()}
     for r in ranks:
         got = r[f"steps/{arch}/{mesh}/{variant}"]

@@ -104,6 +104,8 @@ STEP_VARIANTS = {
                      ("resident",)),
     "dp_fsdp_split": ("adamw", 1, "block", DP_FSDP, ("model", "2x2")),
     "dp_fsdp_split_mb2": ("adafactor", 2, "none", DP_FSDP, ("model",)),
+    "mb2_ignore": ("adamw", 2, "block", {}, ("data", "2x2")),
+    "mb2_ignore_moe": ("adamw", 2, "block", {}, ("data", "2x2")),
 }
 # the row-split variants' global rows by mesh: batches that model does
 # not divide, so that each rank of a model group runs its padded tile of
@@ -114,6 +116,21 @@ STEP_VARIANTS = {
 # unevenly (``step_batch``)
 SPLIT_ROWS = {"dp_fsdp_split": {(1, 2): 3, (1, 4): 2, (2, 2): 6},
               "dp_fsdp_split_mb2": {(1, 4): 6}}
+# the microbatch variants: the batch split over data's 2 ranks, 2
+# microbatches, 4 rows whose kept labels are MB_KEPT (the rest IGNORE):
+# each rank's microbatch i is its block of the global batch's slice i
+# (rows {0, 1}, then {2, 3}: the masked means weigh them so), not slice i
+# of its own shard ({0, 2}, then {1, 3}).  "mb2_ignore_moe" is the reduced
+# Qwen3 with its router's aux term on and copies dropping at the published
+# capacity factor: its capacity, drops and aux are a batch shard's (and
+# under 2x2 a model rank's slice of the sequence), which its world size 1
+# runs alike (:func:`world1_step`)
+MB_ROWS = {"mb2_ignore": {(2, 1): 4, (2, 2): 4},
+           "mb2_ignore_moe": {(2, 1): 4, (2, 2): 4}}
+MB_KEPT = (16, 0, 16, 11)
+MB_ARCHS = {"mb2_ignore": ("smollm_360m",),
+            "mb2_ignore_moe": ("qwen3_moe_30b_a3b",)}
+MB_AUX_WEIGHT = 0.1
 MEM_B, MEM_S, MEM_LAYERS = 4, 8, 4     # the per-rank memory check's step
 
 
@@ -163,6 +180,13 @@ def make_inputs(path):
     frac = np.array([0.0, 0.75, 0.3, 1.0, 0.5, 0.0, 0.9, 0.1, 0.6, 1.0, 0.2,
                      0.4])
     inp["ignore"] = rng.random((2, 12, GRAD_S)) < frac[None, :, None]
+    # the microbatch steps' batches: row r keeps its first MB_KEPT[r]
+    # labels
+    inp["tokens_mb"] = rng.integers(0, 512, (2, 4, GRAD_S + 1)) \
+        .astype(np.int32)
+    inp["ignore_mb"] = np.broadcast_to(
+        np.arange(GRAD_S)[None, None, :]
+        >= np.array(MB_KEPT)[None, :, None], (2, 4, GRAD_S)).copy()
     np.savez(path, **inp)
     return inp
 
@@ -341,14 +365,21 @@ def grad_batch(inp, i, key="tokens"):
     return {"tokens": t[:, :-1], "labels": t[:, 1:]}
 
 
+def case_rows(variant) -> dict | None:
+    """{mesh shape: global rows} of a variant whose batches have rows of
+    their own (``SPLIT_ROWS``, ``MB_ROWS``), else None."""
+    return SPLIT_ROWS.get(variant) or MB_ROWS.get(variant)
+
+
 def step_cases(world):
     """(arch, mesh name, variant) of every sharded-step case at ``world``
     ranks."""
     return [(arch, m, v) for v, (*_, meshes) in STEP_VARIANTS.items()
-            for arch in (SPLIT_ARCHS if v in SPLIT_ROWS else GRAD_ARCHS)
+            for arch in MB_ARCHS.get(v, SPLIT_ARCHS if v in SPLIT_ROWS
+                                     else GRAD_ARCHS)
             for m, (shape, _) in GRAD_MESHES[world].items()
             if (meshes is None or m in meshes)
-            and shape in SPLIT_ROWS.get(v, {shape: None})]
+            and shape in (case_rows(v) or {shape: None})]
 
 
 def step_setup(arch, mesh_name, variant, world):
@@ -361,25 +392,112 @@ def step_setup(arch, mesh_name, variant, world):
     name, mb, remat, rules_kw, _ = STEP_VARIANTS[variant]
     shape, kw = GRAD_MESHES[world][mesh_name]
     cfg = grad_cfg(arch, remat=remat, **kw)
+    if variant == "mb2_ignore_moe":
+        cfg = cfg.with_(capacity_factor=CF_PUBLISHED,
+                        router_aux_weight=MB_AUX_WEIGHT)
     opt = OptConfig(name=name, lr=1e-3, warmup_steps=1, total_steps=10)
     rules = SH.DEFAULT_RULES.override(**rules_kw)
     if variant in SPLIT_ROWS:
         return cfg, opt, mb, rules, "tokens_split", SPLIT_ROWS[variant][shape]
+    if variant in MB_ROWS:
+        return cfg, opt, mb, rules, "tokens_mb", MB_ROWS[variant][shape]
     return cfg, opt, mb, rules, "tokens8" if mb > 1 else "tokens", None
+
+
+# the mask of each batch key with rows of its own: True where a label is
+# IGNORE
+IGNORE_OF = {"tokens_split": "ignore", "tokens_mb": "ignore_mb"}
 
 
 def step_batch(inp, i, key, rows=None):
     """Step ``i``'s global batch: :func:`grad_batch`, or with ``rows`` the
-    first rows of ``tokens_split``, their labels IGNORE where ``ignore``
-    says."""
+    first rows of ``key``'s, their labels IGNORE where its mask
+    (``IGNORE_OF``) says."""
     from repro_torch.train.step import IGNORE
 
     if rows is None:
         return grad_batch(inp, i, key)
     t = torch.from_numpy(inp[key][i][:rows]).long()
-    labels = t[:, 1:].masked_fill(torch.from_numpy(inp["ignore"][i][:rows]),
-                                  IGNORE)
-    return {"tokens": t[:, :-1], "labels": labels}
+    mask = torch.from_numpy(inp[IGNORE_OF[key]][i][:rows])
+    return {"tokens": t[:, :-1], "labels": t[:, 1:].masked_fill(mask, IGNORE)}
+
+
+def world1_step(cfg, opt, mb, variant, shape):
+    """The world-size-1 step a sharded case is held to:
+    ``make_train_step``'s on the global batch.  For ``mb2_ignore_moe``,
+    whose router statistics (capacity, drops, aux) are those of the
+    tokens a rank routes, the same step with each microbatch's rows run a
+    batch shard at a time (``shape``'s data ranks), its MoE a slice of
+    the sequence at a time (``shape``'s model ranks: the ``a2a`` path's
+    tokens) through the dense fallback, the loss the global batch's
+    masked mean and the aux the mean over those token groups.  Its
+    ``drops`` lists the copies dropped a call."""
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import step as ST
+
+    step = ST.make_train_step(cfg, opt, microbatches=mb)
+    if variant != "mb2_ignore_moe":
+        return step
+    shards, ep = shape
+    drops = []
+    # no remat: a recompute would run after ``moe_ffn`` is restored
+    plain = cfg.with_(remat="none")
+
+    def moe_slices(p, x, cfg_, prefix="", rows=None):
+        S, D = x.shape[1], x.shape[2]
+        out = []
+        for j in range(ep):
+            xs = x[:, j * S // ep:(j + 1) * S // ep]
+            drops.append(drops_of(xs.detach().reshape(-1, D),
+                                  p[f"{prefix}router"].detach(), cfg_))
+            out.append(M._moe_dense_fallback(p, xs, cfg_, prefix))
+        return (torch.cat([y for y, _ in out], dim=1),
+                torch.stack([a for _, a in out]).mean())
+
+    def loss_of(params, batch):
+        sums, counts, auxs = [], [], []
+        real, M.moe_ffn = M.moe_ffn, moe_slices
+        try:
+            for tok, lab in zip(batch["tokens"].chunk(shards),
+                                batch["labels"].chunk(shards)):
+                logits, _, aux = T.forward(params, {"tokens": tok}, plain)
+                loss, _ = ST.cross_entropy(logits, lab)
+                count = (lab != ST.IGNORE).sum()
+                sums.append(loss * torch.clamp(count, min=1))
+                counts.append(count)
+                auxs.append(aux)
+        finally:
+            M.moe_ffn = real
+        return (torch.stack(sums).sum()
+                / torch.clamp(torch.stack(counts).sum(), min=1)
+                + cfg.router_aux_weight * torch.stack(auxs).mean())
+
+    def train_step(state, batch):
+        params = state["params"]
+        dev = next(iter(params.values())).device
+        n = batch["tokens"].shape[0] // mb
+        acc = {k: torch.zeros(v.shape, dtype=torch.float32, device=dev)
+               for k, v in params.items()}
+        losses = []
+        for i in range(mb):
+            part = {k: torch.as_tensor(v)[i * n:(i + 1) * n].to(dev)
+                    for k, v in batch.items()}
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in params.items()}
+            with torch.enable_grad():
+                loss = loss_of(leaves, part)
+                grads = torch.autograd.grad(loss, list(leaves.values()),
+                                            allow_unused=True)
+            for (k, a), g in zip(acc.items(), grads):
+                if g is not None:
+                    a.add_(g.float() / mb)
+            losses.append(loss.detach())
+        return step.apply(state, torch.stack(losses).mean(), {}, acc)
+
+    train_step.init_opt = step.init_opt
+    train_step.drops = drops
+    return train_step
 
 
 def state_wholes(state, path=""):
@@ -448,6 +566,51 @@ def _reduce_scatter_check(world, rank):
                           for d in range(x.dim())}
         finally:
             SH.native_reduce_scatter = real
+    return out
+
+
+# the all-to-all checks: world -> (mesh shape, axis names, the axis
+# exchanged over) cases; each rank's tensor has 2 rows a block
+A2A_CASES = {2: (((2,), ("pod",), "pod"),),
+             4: (((4,), ("pod",), "pod"),
+                 ((2, 2), ("data", "model"), "model"),
+                 ((2, 2), ("data", "model"), "data"))}
+
+
+def a2a_inputs(world):
+    """Every rank's tensor and cotangent for the all-to-all check, each
+    [world, 2 * world, 3]."""
+    rng = np.random.default_rng(11)
+    return tuple(torch.from_numpy(rng.standard_normal(
+        (world, 2 * world, 3)).astype(np.float32)) for _ in range(2))
+
+
+def _all_to_all_check(world, rank):
+    """Each ``A2A_CASES`` exchange of this rank's tensor: through
+    ``MeshOps.all_to_all``, through ``dist.all_to_all_single`` on the
+    axis's group, and through ``AllToAll`` with its gradient of the sum
+    of the output times this rank's cotangent.  Returns {case index:
+    results}."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import sharding as SH
+
+    xs, gs = a2a_inputs(world)
+    out = {}
+    for i, (shape, names, axis) in enumerate(A2A_CASES[world]):
+        mesh = SH.make_mesh(shape, names, device="cpu")
+        ops = SH.MeshOps(mesh)
+        x = xs[rank][:2 * ops.sizes[axis]]
+        g = gs[rank][:2 * ops.sizes[axis]]
+        direct = torch.empty_like(x)
+        dist.all_to_all_single(direct, x, group=mesh.get_group(axis))
+        leaf = x.clone().requires_grad_(True)
+        y = SH.AllToAll.apply(leaf, ops, axis)
+        gx, = torch.autograd.grad((y * g).sum(), [leaf])
+        out[i] = {"ops": ops.all_to_all(x, axis), "direct": direct,
+                  "y": y.detach(), "gx": gx,
+                  "group": dist.get_process_group_ranks(
+                      mesh.get_group(axis))}
     return out
 
 
@@ -686,6 +849,7 @@ def _rank_checks(world, rank, out, inp):
             "storage": storage_bytes(state), **state_wholes(state)}
 
     res["reduce_scatter"] = _reduce_scatter_check(world, rank)
+    res["all_to_all"] = _all_to_all_check(world, rank)
     if world == 2:
         res["gather"] = _gather_check(rank, inp)
         real = SH.native_reduce_scatter
@@ -1303,25 +1467,31 @@ def test_two_sharded_steps(runs, n, arch, mesh, variant):
     does not divide the rows (``SPLIT_ROWS``), with labels IGNORE
     unevenly: each rank of a ``model`` group runs its padded tile of a
     microbatch's rows (two ranks of four with none) and its share of the
-    global batch's masked mean (the two-microbatch case runs on one
-    batch shard, so that world size 1's microbatches are the same rows)."""
+    global batch's masked mean (``dp_fsdp_split_mb2`` on one batch
+    shard).  The microbatch variants (``MB_ROWS``) split the batch over
+    ``data`` in 2 microbatches with labels IGNORE unevenly: each rank's
+    microbatch i is its block of the global batch's slice i, as world
+    size 1's is that slice (``mb2_ignore_moe``: with its router's aux
+    term on and copies dropping, its world size 1 routes each rank's
+    tokens alone, :func:`world1_step`)."""
     from repro_torch.launch import train as LT
     from repro_torch.parallel import sharding as SH
-    from repro_torch.train.step import make_train_step
 
     _, port = runs[n]
     cfg, opt, mb, _, bkey, rows = step_setup(arch, mesh, variant, n)
     shape = GRAD_MESHES[n][mesh][0]
-    step = make_train_step(cfg, opt, microbatches=mb)
+    step = world1_step(cfg, opt, mb, variant, shape)
     state = LT.init_state(cfg, step, "cpu")
     losses = []
     for i in range(2):
         state, m = step(state, step_batch(runs["inp"], i, bkey, rows))
         losses.append(float(m["loss"]))
+    if variant == "mb2_ignore_moe":
+        assert sum(step.drops) > 0, step.drops
     want = state_wholes(state)
     assert any(k.startswith("opt.") for k in want)
     tiles = [r[f"steps/{arch}/{mesh}/{variant}"]["tile"] for r in port]
-    if rows is not None:
+    if variant in SPLIT_ROWS:
         # each rank of a model group ran its padded tile of a microbatch's
         # rows: 2 + 1 of 3, or 1, 1 and two empty tiles of 2
         m = rows // shape[0] // mb
@@ -1388,6 +1558,34 @@ def test_reduce_scatter_is_the_sum_of_the_block(runs, n):
                 assert block.is_contiguous()
                 assert block.untyped_storage().nbytes() == \
                     block.numel() * block.element_size(), (route, d)
+
+
+@pytest.mark.parametrize("n,case", [(n, i) for n in (2, 4)
+                                    for i in range(len(A2A_CASES[n]))])
+def test_all_to_all_is_the_exchange_and_its_adjoint(runs, n, case):
+    """``MeshOps.all_to_all`` and ``AllToAll`` over a mesh axis (the
+    whole world, and each axis of a (2, 2) mesh) at n gloo ranks: block j
+    of each rank's result is block r of rank j's input (r its own place
+    in the axis's group), as ``dist.all_to_all_single`` on the group
+    gives; the backward is the same exchange of the cotangents, the
+    forward's adjoint: the sum over ranks of <y, g> equals that of <x,
+    dx>."""
+    xs, gs = a2a_inputs(n)
+    res = [r["all_to_all"][case] for r in runs[n][1]]
+    lhs = rhs = 0.0
+    for rank, got in enumerate(res):
+        group = got["group"]
+        m = len(group)
+        me = group.index(rank)
+        want = torch.cat([xs[j][:2 * m][2 * me:2 * me + 2] for j in group])
+        want_g = torch.cat([gs[j][:2 * m][2 * me:2 * me + 2] for j in group])
+        assert torch.equal(got["direct"], want)
+        assert torch.equal(got["ops"], want)
+        assert torch.equal(got["y"], want)
+        assert torch.equal(got["gx"], want_g)
+        lhs += float((got["y"] * gs[rank][:2 * m]).double().sum())
+        rhs += float((xs[rank][:2 * m] * got["gx"]).double().sum())
+    assert abs(lhs - rhs) <= 1e-5 * max(abs(lhs), 1.0), (lhs, rhs)
 
 
 def test_gather_gradient_by_the_native_reduce_scatter(runs):
